@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of ``huggingface_sagemaker_tensorflow_distributed_tpu``.
+
+The JAX package stays the reference; this package imports nothing of it
+and nothing of JAX. Its first slice is continuous-batching greedy
+serving of GPT-2, with paged decode attention as a hand-written CUDA
+kernel for Hopper (``csrc/paged_attention.cu``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; without a GPU they
+raise instead of falling back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless ``device`` names
+    another. Raises when CUDA is asked for (explicitly or by default)
+    and is not available; never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA requested but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run on the CPU")
+    return dev

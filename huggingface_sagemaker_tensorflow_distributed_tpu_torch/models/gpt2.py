@@ -1,0 +1,275 @@
+"""GPT-2 as ``nn.Module``s: the decoder-only causal LM of the JAX
+package's ``models/gpt2.py`` (HF ``GPT2LMHeadModel`` architecture).
+
+- learned token (``wte``) and position (``wpe``) embeddings;
+- pre-LN blocks: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``;
+- a fused qkv projection, a gelu_new MLP, a final ``ln_f``, and the LM
+  head tied to ``wte``; logits are fp32.
+
+Module names follow the JAX parameter tree (``backbone/h_<i>/attention/
+qkv`` becomes ``backbone.h.<i>.attention.qkv``), which is what lets
+``convert.params_from_jax`` carry weights across by name.
+
+The forward has three call forms, chosen by ``cache``:
+
+- ``None``: the full causal forward (``attention_mask`` [B, S] marks
+  padding);
+- a :class:`~.kv_cache.DenseCache`: the cached chunk forward. The chunk's
+  K/V is written at each row's ``cache.index``, queries attend over the
+  whole buffer masked by ``attention_mask`` [B, max_len] (kv validity)
+  plus the step mask ``key <= index + query offset``;
+- a :class:`~.kv_cache.PagedCache`: the single-token paged decode of the
+  serving engine. The new K/V is scattered into the pools and attention
+  runs through ``ops.attention.paged_attention`` (the CUDA kernel on the
+  card).
+
+The port is inference-only: no dropout is applied. MoE, pipeline
+stages, remat, weight quantization and attention impls other than
+``xla`` are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
+    DenseCache,
+    PagedCache,
+    write_kv_cache,
+    write_paged_kv,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
+    ACT2FN,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
+    NEG,
+    make_causal_mask,
+    paged_attention,
+    xla_attention,
+)
+
+
+@dataclass(frozen=True)
+class Gpt2Config:
+    vocab_size: int = 50257
+    max_position_embeddings: int = 1024   # HF n_positions
+    hidden_size: int = 768                # n_embd
+    num_layers: int = 12                  # n_layer
+    num_heads: int = 12                   # n_head
+    intermediate_size: int = 3072         # n_inner (4*n_embd default)
+    hidden_act: str = "gelu_new"
+    layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1           # resid_pdrop
+    embd_dropout: float = 0.1             # embd_pdrop
+    attention_dropout: float = 0.1        # attn_pdrop
+    initializer_range: float = 0.02
+    bos_token_id: int = 50256
+    eos_token_id: int = 50256
+    pad_token_id: int = 50256             # GPT-2 has no pad; HF uses eos
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    attention_impl: str = "xla"
+    remat: bool = False
+    remat_policy: str = "full"
+    num_experts: int = 0
+    expert_top_k: int = 2
+    moe_every: int = 2
+    expert_capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+    weight_quant: str = "none"
+    kv_cache_dtype: str = "fp"            # fp | int8
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in ("fp", "int8"):
+            raise ValueError(
+                f"unknown kv_cache_dtype {self.kv_cache_dtype!r} "
+                "(fp | int8)")
+        unported = {
+            "num_experts": self.num_experts != 0,
+            "pipeline_stages": self.pipeline_stages != 0,
+            "remat": bool(self.remat),
+            "weight_quant": self.weight_quant != "none",
+            "attention_impl": self.attention_impl != "xla",
+        }
+        bad = [k for k, on in unported.items() if on]
+        if bad:
+            raise ValueError(f"the PyTorch port does not support "
+                             f"{', '.join(bad)} yet")
+        if not isinstance(self.dtype, torch.dtype) or self.param_dtype != self.dtype:
+            raise ValueError("dtype must be a torch dtype equal to "
+                             "param_dtype in the port")
+
+
+def gpt2_config_from_hf(hf_config: dict, **overrides) -> Gpt2Config:
+    kw = dict(
+        vocab_size=hf_config["vocab_size"],
+        max_position_embeddings=hf_config.get("n_positions", 1024),
+        hidden_size=hf_config["n_embd"],
+        num_layers=hf_config["n_layer"],
+        num_heads=hf_config["n_head"],
+        intermediate_size=hf_config.get("n_inner") or 4 * hf_config["n_embd"],
+        hidden_act=hf_config.get("activation_function", "gelu_new"),
+        layer_norm_eps=hf_config.get("layer_norm_epsilon", 1e-5),
+        hidden_dropout=hf_config.get("resid_pdrop", 0.1),
+        embd_dropout=hf_config.get("embd_pdrop", 0.1),
+        attention_dropout=hf_config.get("attn_pdrop", 0.1),
+        initializer_range=hf_config.get("initializer_range", 0.02),
+        bos_token_id=hf_config.get("bos_token_id", 50256),
+        eos_token_id=hf_config.get("eos_token_id", 50256),
+        # explicit pad id 0 is valid — only None falls back to EOS
+        pad_token_id=(hf_config["pad_token_id"]
+                      if hf_config.get("pad_token_id") is not None
+                      else hf_config.get("eos_token_id", 50256)),
+    )
+    kw.update(overrides)
+    kw.pop("use_pooler", None)
+    return Gpt2Config(**kw)
+
+
+class Gpt2Attention(nn.Module):
+    """Fused-qkv causal self-attention over one of the three cache forms."""
+
+    def __init__(self, cfg: Gpt2Config, layer: int):
+        super().__init__()
+        self.cfg, self.layer = cfg, layer
+        H = cfg.hidden_size
+        self.qkv = nn.Linear(H, 3 * H, dtype=cfg.dtype)
+        self.attn_out = nn.Linear(H, H, dtype=cfg.dtype)
+
+    def forward(self, hidden, mask, cache):
+        cfg = self.cfg
+        B, S, H = hidden.shape
+        nh = cfg.num_heads
+
+        def split_heads(x):
+            return x.reshape(B, S, nh, H // nh).transpose(1, 2)
+
+        q, k, v = (split_heads(x) for x in self.qkv(hidden).split(H, dim=-1))
+        if isinstance(cache, PagedCache):
+            if S != 1:
+                raise ValueError("paged decode is single-token (got q_len "
+                                 f"{S})")
+            write_paged_kv(cache, self.layer, k, v)
+            int8 = cache.key_scale_pools is not None
+            ctx = paged_attention(
+                q[:, :, 0, :].contiguous(), cache.key_pools[self.layer],
+                cache.value_pools[self.layer], cache.block_tables,
+                cache.context_lens + 1,
+                k_scale_pool=cache.key_scale_pools[self.layer] if int8 else None,
+                v_scale_pool=cache.value_scale_pools[self.layer] if int8 else None)
+            return self.attn_out(ctx.to(hidden.dtype).reshape(B, 1, H))
+        if isinstance(cache, DenseCache):
+            k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
+        ctx = xla_attention(q, k, v, mask=mask)
+        return self.attn_out(ctx.transpose(1, 2).reshape(B, S, H))
+
+
+class Gpt2Mlp(nn.Module):
+    def __init__(self, cfg: Gpt2Config):
+        super().__init__()
+        self.act = ACT2FN[cfg.hidden_act]
+        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                               dtype=cfg.dtype)
+        self.fc_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                                dtype=cfg.dtype)
+
+    def forward(self, x):
+        return self.fc_out(self.act(self.fc_in(x)))
+
+
+class Gpt2Block(nn.Module):
+    """Pre-LN transformer block (GPT-2 ordering)."""
+
+    def __init__(self, cfg: Gpt2Config, layer: int):
+        super().__init__()
+        eps, dt = cfg.layer_norm_eps, cfg.dtype
+        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=eps, dtype=dt)
+        self.attention = Gpt2Attention(cfg, layer)
+        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=eps, dtype=dt)
+        self.mlp = Gpt2Mlp(cfg)
+
+    def forward(self, hidden, mask, cache):
+        hidden = hidden + self.attention(self.ln_1(hidden), mask, cache)
+        return hidden + self.mlp(self.ln_2(hidden))
+
+
+class Gpt2Model(nn.Module):
+    """Embeddings, blocks and the final LN; returns the hidden states."""
+
+    def __init__(self, cfg: Gpt2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                                dtype=cfg.dtype)
+        self.h = nn.ModuleList(Gpt2Block(cfg, i) for i in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                                 dtype=cfg.dtype)
+
+    def forward(self, input_ids, attention_mask=None, position_ids=None,
+                cache=None):
+        B, S = input_ids.shape
+        dev = input_ids.device
+        offsets = torch.arange(S, device=dev)[None, :]
+        mask = None
+        if isinstance(cache, DenseCache):
+            if position_ids is None:
+                position_ids = cache.index[:, None] + offsets
+            max_len = cache.keys[0].shape[2]
+            # the chunk's step mask: key slot <= write index + query offset
+            valid = (torch.arange(max_len, device=dev)[None, None, :]
+                     <= cache.index[:, None, None] + offsets[:, :, None])
+            mask = torch.where(valid, 0.0, NEG)[:, None]
+            if attention_mask is not None:
+                mask = _padding_mask(attention_mask) + mask
+        elif cache is None:
+            if position_ids is None:
+                position_ids = offsets
+            mask = make_causal_mask(S, device=dev)
+            if attention_mask is not None:
+                mask = _padding_mask(attention_mask) + mask
+        elif position_ids is None:                   # paged decode
+            position_ids = cache.context_lens.long()[:, None]
+        x = self.wte(input_ids) + self.wpe(position_ids)
+        for block in self.h:
+            x = block(x, mask, cache)
+        if isinstance(cache, DenseCache):
+            cache.index = cache.index + S
+        return self.ln_f(x)
+
+
+def _padding_mask(attention_mask):
+    """[B, L] {0,1} -> additive [B, 1, 1, L]."""
+    m = attention_mask[:, None, None, :].float()
+    return (1.0 - m) * NEG
+
+
+class Gpt2LMHeadModel(nn.Module):
+    """GPT-2 with the LM head tied to the token embedding; fp32 logits."""
+
+    def __init__(self, cfg: Gpt2Config):
+        super().__init__()
+        self.config = cfg
+        self.backbone = Gpt2Model(cfg)
+
+    def forward(self, input_ids, attention_mask=None, position_ids=None,
+                cache=None):
+        hidden = self.backbone(input_ids, attention_mask, position_ids, cache)
+        return torch.matmul(hidden, self.backbone.wte.weight.t()).float()
+
+    def new_dense_cache(self, batch: int, max_len: int,
+                        index: Optional[torch.Tensor] = None) -> DenseCache:
+        """Zeroed dense per-row KV buffers for every layer on the model's
+        device, in the config's KV storage."""
+        cfg = self.config
+        return DenseCache.empty(
+            cfg.num_layers, batch, cfg.num_heads, max_len,
+            cfg.hidden_size // cfg.num_heads, cfg.dtype,
+            self.backbone.wte.weight.device,
+            int8=cfg.kv_cache_dtype == "int8", index=index)

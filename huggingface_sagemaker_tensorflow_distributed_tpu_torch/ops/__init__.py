@@ -1,0 +1,1 @@
+"""Attention ops of the PyTorch port, and the build of its CUDA kernels."""

@@ -1,0 +1,124 @@
+"""Attention math and the paged-KV addressing helpers.
+
+Counterpart of the JAX package's ``ops/attention.py``: the einsum
+attention with fp32 logits and softmax (probabilities cast back to the
+value dtype), the ``-1e9`` additive causal and banded masks, and the
+block-table gather/scatter of the serving engine's paged KV pools.
+Tensors keep the JAX package's layouts: q/k/v ``[batch, heads, len,
+head_dim]``, pools ``[num_blocks, block_size, heads, head_dim]``, block
+tables ``[slots, blocks_per_slot]`` int32.
+
+Unlike the JAX package, :func:`scatter_paged_kv` writes the pool in
+place (the pools are the engine's largest buffers; a copy per layer per
+step would double their traffic).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    truncate_tables,
+)
+
+NEG = -1e9
+
+
+def xla_attention(q, k, v, mask=None, scale=None):
+    """Plain attention: fp32 logits plus the additive ``mask``
+    (broadcastable to [B, H, Q, K]), fp32 softmax, probabilities cast to
+    q's dtype before the product with ``v``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale).float()
+    if mask is not None:
+        logits = logits + mask.float()
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(weights, v)
+
+
+def make_causal_mask(q_len: int, kv_len: int | None = None, device=None,
+                     dtype=torch.float32, neg: float = NEG):
+    """Additive [1, 1, q_len, kv_len] mask: key j allowed iff j <= i."""
+    kv_len = kv_len or q_len
+    i = torch.arange(q_len, device=device)[:, None]
+    j = torch.arange(kv_len, device=device)[None, :]
+    return torch.where(j <= i, 0.0, neg).to(dtype)[None, None]
+
+
+def make_banded_causal_mask(q_len: int, window: int,
+                            kv_len: int | None = None, device=None,
+                            dtype=torch.float32, neg: float = NEG):
+    """Causal plus sliding window: key j allowed iff 0 <= i - j < window
+    (Mistral semantics). Additive [1, 1, q_len, kv_len]."""
+    kv_len = kv_len or q_len
+    i = torch.arange(q_len, device=device)[:, None]
+    j = torch.arange(kv_len, device=device)[None, :]
+    keep = (j <= i) & (j > i - window)
+    return torch.where(keep, 0.0, neg).to(dtype)[None, None]
+
+
+def gather_paged_kv(pool, block_tables, width: int | None = None):
+    """Per-slot contiguous KV from a paged pool: returns
+    [slots, heads, blocks * block_size, head_dim], where logical position
+    ``p`` of slot ``s`` is ``pool[block_tables[s, p // bs], p % bs]``.
+    ``width`` gathers only the first ``width`` positions (a block
+    multiple)."""
+    tables = truncate_tables(block_tables, pool.shape[1], width)
+    g = pool[tables.long()]                        # [S, nb, bs, H, D]
+    S, nb, bs, H, D = g.shape
+    return g.permute(0, 3, 1, 2, 4).reshape(S, H, nb * bs, D)
+
+
+def scatter_paged_kv(pool, block_tables, positions, values):
+    """Write ``values`` [n, heads, head_dim] at logical ``positions`` [n]
+    through ``block_tables`` [n, blocks_per_slot] (one row per written
+    token), in place; returns ``pool``. Callers route the writes of
+    inactive slots to the reserved null block 0."""
+    bs = pool.shape[1]
+    positions = positions.long()
+    block_ids = torch.gather(block_tables.long(), 1,
+                             (positions // bs)[:, None])[:, 0]
+    pool[block_ids, positions % bs] = values.to(pool.dtype)
+    return pool
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                    scale=None, width: int | None = None,
+                    window: int | None = None,
+                    k_scale_pool=None, v_scale_pool=None):
+    """Single-token decode attention against a paged KV pool.
+
+    ``q`` [slots, heads, head_dim]; pools and tables as in
+    :func:`gather_paged_kv`; ``context_lens`` [slots] counts valid
+    tokens per slot, the query's own included. CUDA tensors go through
+    the hand-written kernel (:func:`~.paged_attention.
+    paged_decode_attention`, which returns zeros for context-0 rows).
+    CPU tensors go through the plain gather-then-attend path: keys at
+    positions >= context are masked with -1e9, so a context-0 row is a
+    softmax over masked junk there (callers discard those rows). GQA is
+    native; ``k_scale_pool``/``v_scale_pool`` mark int8 pools."""
+    if q.device.type != "cpu":
+        return paged_decode_attention(
+            q, k_pool, v_pool, block_tables, context_lens, scale=scale,
+            width=width, window=window, k_scale_pool=k_scale_pool,
+            v_scale_pool=v_scale_pool)
+    k = gather_paged_kv(k_pool, block_tables, width=width)
+    v = gather_paged_kv(v_pool, block_tables, width=width)
+    if k_scale_pool is not None:
+        ks = gather_paged_kv(k_scale_pool, block_tables, width=width)
+        vs = gather_paged_kv(v_scale_pool, block_tables, width=width)
+        k = (k.float() * ks).to(q.dtype)
+        v = (v.float() * vs).to(q.dtype)
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]           # GQA: repeat kv heads
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    pos = torch.arange(k.shape[2])[None, :]
+    ctx = context_lens.long()[:, None]
+    valid = pos < ctx
+    if window is not None:
+        valid = valid & (pos > ctx - 1 - window)
+    mask = torch.where(valid, 0.0, NEG)[:, None, None, :]
+    return xla_attention(q[:, :, None, :], k, v, mask=mask,
+                         scale=scale)[:, :, 0, :]
