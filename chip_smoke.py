@@ -9,8 +9,10 @@ Imports nothing of JAX or of the JAX package. Phases, in order; any
 failure raises and exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
-   CUDA version; TF32 off for matmuls and cuDNN;
-2. kernel: builds ``csrc/paged_attention.cu`` and holds the paged
+   CUDA version; TF32 off for matmuls and cuDNN; then both kernel
+   sources (``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``)
+   built at once, one ``nvcc`` each;
+2. kernel: holds the paged
    decode kernel against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
    ``width`` below the table span (GPT-2 shapes, GQA, a sliding window,
@@ -29,7 +31,34 @@ failure raises and exits non-zero:
    below 1e-3 (a near-tie, counted and printed);
 4. profile: the same trace on a fresh engine under ``torch.profiler``,
    printing device time by kernel and the device's idle share;
-5. the ``kernels`` line, the card's line, and the final
+5. flash kernels: holds ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` against their plain versions at the BERT-base shape
+   (B 8, H 12, S 512, D 64, a padding mask with ragged lengths) in fp32
+   and bf16, a ragged S 200, causal, causal with window 64, a batch row
+   that is all padding, a mask that takes a gradient, and D 128. The
+   error bound is ``max|got - want| <= tol * max(1, max|want|)``: fp32
+   tol 1e-4 (the same fp32 arithmetic summed in another order, ~1e-6
+   relative), bf16 tol 2e-2 (inputs, P, dS and outputs rounded to bf16's
+   8-bit mantissa, 3.9e-3 per rounding; the kernel rounds P against the
+   running max, the plain version against the row max). One JSON line per
+   case and kernel with its, the plain version's and
+   ``scaled_dot_product_attention``'s time (forward; backward through
+   autograd for the two backward kernels) and the bound;
+6. train: (a) one fp32 step (TF32 off, dropout 0) of BERT-base at full
+   width on a batch of 8 x 512 vendored reviews, flash kernels against
+   the plain attention from the same weights: loss within 1e-5 relative,
+   every parameter's gradient within 1e-3 relative L2 (fp32 sums taken in
+   other orders through 12 layers) but the key biases', whose exact
+   gradient is 0 and whose rounding noise must stay below 1e-5 of the
+   global gradient norm on both sides; (b) the training CLI at its defaults
+   (bf16 compute, sequence 512, batch 8, eval batch 4, AdamW) from a
+   seeded BERT-base on the vendored reviews, with the launch counts
+   ``flash_fwd == 12 x (train + eval steps)`` and ``flash_bwd_dq ==
+   flash_bwd_dkv == 12 x train steps``, a finite loss, the JAX CLI's
+   results-file keys and a ``model.safetensors`` that reloads with
+   identical logits; then a short ``torch.profiler`` pass over more train
+   steps for the device's idle share;
+7. the ``kernels`` line, the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -38,6 +67,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,10 +76,20 @@ PKG = "huggingface_sagemaker_tensorflow_distributed_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/paged_attention.cu"
 KERNEL_REPLACES = ("huggingface_sagemaker_tensorflow_distributed_tpu/ops/"
                    "pallas_paged_attention.py:67")
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor-core) peak
+FLASH_SOURCE = f"{PKG}/csrc/flash_attention.cu"
+_PALLAS_ATTN = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_attention.py"
+FLASH_REPLACES = {"flash_fwd": f"{_PALLAS_ATTN}:65",
+                  "flash_bwd_dq": f"{_PALLAS_ATTN}:195",
+                  "flash_bwd_dkv": f"{_PALLAS_ATTN}:246"}
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) and
+# dense bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 NEAR_TIE = 1e-3
+# where the flash and train phases run; "cpu" only to rehearse them at a
+# small size (every wrapper then takes its plain version)
+DEVICE = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -200,18 +240,13 @@ def kernel_phase() -> dict:
     import torch
     import torch.nn.functional as F
 
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
         load_kernel,
         paged_decode_attention,
         paged_decode_attention_reference,
     )
 
-    t0 = time.perf_counter()
     load_kernel()
-    emit({"phase": "build", "library": str(_build.library_path("paged_attention")
-                                           .relative_to(ROOT)),
-          "seconds": round(time.perf_counter() - t0, 3)})
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -419,6 +454,435 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
     emit(row)
     return row
 
+# -- build -------------------------------------------------------------------
+
+def build_phase() -> None:
+    """Both kernel sources at once, one nvcc each."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+
+    names = ("paged_attention", "flash_attention")
+    t0 = time.perf_counter()
+    _build.build(*names)
+    emit({"phase": "build", "libraries": [str(_build.library_path(n).relative_to(ROOT))
+                                          for n in names],
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def _sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+# -- flash kernels -----------------------------------------------------------
+
+FLASH_CASES = [
+    # name, B, H, S, D, dtype, masked, causal, window, pad_row, mask_grad
+    ("bert_fp32", 8, 12, 512, 64, "float32", True, False, None, False, False),
+    ("bert_bf16", 8, 12, 512, 64, "bfloat16", True, False, None, False, False),
+    ("ragged200", 8, 12, 200, 64, "float32", True, False, None, False, False),
+    ("causal", 8, 12, 512, 64, "float32", False, True, None, False, False),
+    ("causal_window64", 8, 12, 512, 64, "float32", False, True, 64, False, False),
+    ("pad_row", 8, 12, 512, 64, "float32", True, False, None, True, False),
+    ("dmask", 8, 12, 512, 64, "float32", True, False, None, False, True),
+    ("d128_bf16", 4, 8, 512, 128, "bfloat16", True, False, None, False, False),
+]
+FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
+FLASH_COPIES = 2
+
+
+def _flash_inputs(case, gen, device):
+    """q, k, v, dO laid out as the model makes them ([B, S, H, D] memory
+    viewed as [B, H, S, D]), an additive -1e9 padding mask from ragged
+    lengths (row 0 all padding with ``pad_row``), and the lengths."""
+    import torch
+
+    name, B, H, S, D, dt, masked, causal, window, pad_row, mask_grad = case
+    dtype = getattr(torch, dt)
+
+    def mk():
+        return torch.randn(B, S, H, D, generator=gen).to(device, dtype).transpose(1, 2)
+
+    q, k, v, do = mk(), mk(), mk(), mk()
+    lens = None
+    mask = None
+    if masked:
+        lens = torch.randint(S // 4, S + 1, (B,), generator=gen)
+        lens[1] = S
+        if pad_row:
+            lens[0] = 0
+        keep = (torch.arange(S)[None, :] < lens[:, None]).float()
+        mask = ((1.0 - keep) * -1e9)[:, None, None, :].to(device)
+        if mask_grad:
+            mask.requires_grad_(True)
+    return dict(q=q, k=k, v=v, do=do, mask=mask), lens
+
+
+def _flash_work(case, lens) -> dict:
+    """Bytes and flops each kernel needs for these inputs. Bytes: every
+    input read once and every output written once (q, k, v, o, dO, the
+    gradients in the input dtype; LSE, the [B, S] mask and the per-head
+    dmask in fp32). Flops: 2·D per (query, key) pair for each of the
+    products on the pairs this data needs: a row sees its batch row's
+    valid keys (all keys when it has none: the uniform row), the causal
+    prefix, or the last ``window`` keys. Forward QKᵀ and PV (4·D), dQ
+    adds dPᵀ and dS·K (6·D), dK/dV adds dV and dK (8·D)."""
+    name, B, H, S, D, dt, masked, causal, window, pad_row, mask_grad = case
+    esz = 2 if dt == "bfloat16" else 4
+    rows = range(S)
+    if causal:
+        per_bh = sum(min(i + 1, window or S) for i in rows)
+        pairs = B * H * per_bh
+    elif masked:
+        pairs = H * S * sum(int(n) if int(n) > 0 else S for n in lens)
+    else:
+        pairs = B * H * S * S
+    t = B * H * S * D * esz
+    lse = B * H * S * 4
+    mask = B * S * 4 if masked else 0
+    return {"flash_fwd": (4 * t + lse + mask, 4 * D * pairs),
+            "flash_bwd_dq": (6 * t + lse + mask, 6 * D * pairs),
+            "flash_bwd_dkv": (7 * t + lse + mask + (B * H * S * 4 if mask_grad else 0),
+                              8 * D * pairs)}
+
+
+def _sdpa_mask(t, case):
+    """The same masking for one ``scaled_dot_product_attention`` call:
+    the additive mask in q's dtype, or a banded additive mask."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
+        make_banded_causal_mask,
+    )
+
+    q = t["q"]
+    if case[8] is not None:
+        return make_banded_causal_mask(q.shape[2], case[8], device=q.device).to(q.dtype)
+    if t["mask"] is not None:
+        return t["mask"].detach().to(q.dtype)
+    return None
+
+
+def flash_phase() -> dict:
+    """Each flash kernel against its plain version on every case; times
+    and bounds. Returns the rows by (case, kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+    fa.load_kernel()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(1)
+    results = {}
+    with torch.no_grad():
+        for case in FLASH_CASES:
+            results.update(_flash_case(case, gen, dev))
+    return results
+
+
+def _flash_case(case, gen, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    name, B, H, S, D, dt, masked, causal, window, pad_row, mask_grad = case
+    tol = TOL[dt]
+    sets = [_flash_inputs(case, gen, dev) for _ in range(FLASH_COPIES)]
+    t, lens = sets[0]
+    kw = dict(causal=causal, window=window)
+    # the plain forward's o/LSE are the backward kernels' inputs
+    bwd_sets = []
+    for s_, _ in sets:
+        o_s, lse_s = fa.flash_attention_fwd_reference(s_["q"], s_["k"], s_["v"],
+                                                      s_["mask"], **kw)
+        bwd_sets.append((s_["q"], s_["k"], s_["v"], s_["mask"], o_s, lse_s, s_["do"]))
+    args = bwd_sets[0]
+    o_ref, lse_ref = args[4], args[5]
+    o, lse = fa.flash_fwd(t["q"], t["k"], t["v"], t["mask"], **kw)
+    dq = fa.flash_bwd_dq(*args, **kw)
+    dq_ref = fa.flash_bwd_dq_reference(*args, **kw)
+    dk, dv, dm = fa.flash_bwd_dkv(*args, **kw, want_dmask=mask_grad)
+    dk_ref, dv_ref, dm_ref = fa.flash_bwd_dkv_reference(*args, **kw, want_dmask=mask_grad)
+    _sync()
+    compared = {"flash_fwd": [(o, o_ref), (lse, lse_ref)],
+                "flash_bwd_dq": [(dq, dq_ref)],
+                "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)]
+                + ([(dm, dm_ref)] if mask_grad else [])}
+    errs, want_max = {}, {}
+    for kname, pairs in compared.items():
+        err, top, ok = 0.0, 0.0, True
+        for got, want in pairs:
+            g, w = got.float(), want.float()
+            e, m = float((g - w).abs().max()), float(w.abs().max())
+            err, top = max(err, e), max(top, m)
+            ok = ok and bool(torch.isfinite(g).all()) and e <= tol * max(1.0, m)
+        check(ok, f"flash case {name}: {kname} max_abs_err {err} over tol {tol}")
+        errs[kname], want_max[kname] = err, top
+    if pad_row:
+        check(bool(torch.isfinite(o[0].float()).all()), "pad_row: non-finite output")
+
+    fwd_sets = [(s_["q"], s_["k"], s_["v"], s_["mask"]) for s_, _ in sets]
+    ms = {"flash_fwd": _cuda_ms(lambda *a: fa.flash_fwd(*a, **kw), fwd_sets),
+          "flash_bwd_dq": _cuda_ms(lambda *a: fa.flash_bwd_dq(*a, **kw), bwd_sets),
+          "flash_bwd_dkv": _cuda_ms(lambda *a: fa.flash_bwd_dkv(
+              *a, **kw, want_dmask=mask_grad), bwd_sets)}
+    plain = {"flash_fwd": _cuda_ms(
+                 lambda *a: fa.flash_attention_fwd_reference(*a, **kw), fwd_sets, iters=10),
+             "flash_bwd_dq": _cuda_ms(
+                 lambda *a: fa.flash_bwd_dq_reference(*a, **kw), bwd_sets, iters=10),
+             "flash_bwd_dkv": _cuda_ms(lambda *a: fa.flash_bwd_dkv_reference(
+                 *a, **kw, want_dmask=mask_grad), bwd_sets, iters=10)}
+    # the library yardstick: SDPA forward, and its backward via autograd
+    lib_sets, lib_bwd = [], []
+    for s_, _ in sets:
+        qkv = [x.detach().requires_grad_(True) for x in (s_["q"], s_["k"], s_["v"])]
+        m = _sdpa_mask(s_, case)
+        is_causal = causal and window is None
+        lib_sets.append((*qkv, m, is_causal))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*qkv, attn_mask=m, is_causal=is_causal)
+        lib_bwd.append((out, qkv, s_["do"]))
+
+    def sdpa(q, k, v, m, is_causal):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m, is_causal=is_causal)
+
+    def sdpa_bwd(out, qkv, do):
+        with torch.enable_grad():
+            torch.autograd.grad(out, qkv, do, retain_graph=True)
+
+    lib_fwd_ms = _cuda_ms(sdpa, lib_sets)
+    lib_bwd_ms = _cuda_ms(sdpa_bwd, lib_bwd)
+    library = {"flash_fwd": lib_fwd_ms, "flash_bwd_dq": lib_bwd_ms,
+               "flash_bwd_dkv": lib_bwd_ms}
+    peak = BF16_FLOPS_PER_S if dt == "bfloat16" else FP32_FLOPS_PER_S
+    for kname, (nbytes, flops) in _flash_work(case, lens).items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        row = {"phase": "flash_kernel", "case": name, "kernel": kname,
+               "B": B, "H": H, "S": S, "D": D, "dtype": dt, "masked": masked,
+               "causal": causal, "window": window, "pad_row": pad_row,
+               "mask_grad": mask_grad,
+               "lengths": None if lens is None else lens.tolist(),
+               "max_abs_err": errs[kname], "tol": tol, "status": "pass",
+               "kernel_ms": ms[kname], "plain_ms": plain[kname],
+               "library_ms": library[kname],
+               "library": ("scaled_dot_product_attention forward" if kname == "flash_fwd"
+                           else "scaled_dot_product_attention backward (dq, dk, dv)"),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        row["want_max_abs"] = want_max[kname]
+        emit(row)
+        results[(name, kname)] = row
+    del sets, args, fwd_sets, bwd_sets, lib_sets, lib_bwd
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- training ----------------------------------------------------------------
+
+# the HF hub's bert-base-uncased/config.json widths
+BERT_BASE = {"model_type": "bert", "architectures": ["BertForMaskedLM"],
+             "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
+             "num_attention_heads": 12, "intermediate_size": 3072,
+             "max_position_embeddings": 512, "type_vocab_size": 2,
+             "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+             "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+             "initializer_range": 0.02, "pad_token_id": 0}
+TRAIN_RESULT_KEYS = ["loss", "sparse_categorical_accuracy", "train_runtime",
+                     "train_samples_per_second", "train_samples_per_second_per_chip"]
+EVAL_RESULT_KEYS = ["eval_loss", "eval_accuracy"]
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_REL_L2 = 1e-3
+PARITY_KEY_BIAS = 1e-5
+CLI_STEPS = 40
+CLI_EVAL_SAMPLES = 64
+
+
+def _review_batch(n: int, seq: int, device, split: str = "train") -> dict:
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    texts, labels = load_text_classification("vendored_reviews", split, max_samples=n)
+    enc = WordHashTokenizer(vocab_size=BERT_BASE["vocab_size"])(texts, max_length=seq)
+    return {"input_ids": torch.from_numpy(enc["input_ids"]).long().to(device),
+            "attention_mask": torch.from_numpy(enc["attention_mask"]).long().to(device),
+            "labels": torch.tensor(labels).long().to(device)}
+
+
+def train_parity_phase() -> dict:
+    """(a) one fp32 train step, flash kernels against the plain attention."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+        bert_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_bert
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        seq_cls_loss,
+    )
+
+    batch = _review_batch(8, 512, DEVICE)
+    losses, grads = {}, {}
+    for impl in ("flash", "xla"):
+        cfg = bert_config_from_hf(BERT_BASE, hidden_dropout=0.0, attention_dropout=0.0,
+                                  attention_impl=impl)
+        model = init_bert(cfg, seed=0, device=DEVICE).train()
+        loss, _ = seq_cls_loss(model, batch)
+        loss.backward()
+        losses[impl] = float(loss.detach())
+        grads[impl] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model
+    torch.cuda.empty_cache()
+    rel_loss = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    # each parameter's relative L2 error. The key biases are held apart:
+    # their exact gradient is 0 (softmax ignores a per-row constant), so
+    # both sides hold rounding noise, which must stay below 1e-5 of the
+    # global gradient norm
+    total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads["xla"].values())))
+    key_bias = [n for n in grads["flash"] if n.endswith("attention.key.bias")]
+    noise = max(float(grads[i][n].norm()) for i in grads for n in key_bias) / total
+    rel = {n: float((g - grads["xla"][n]).norm() / grads["xla"][n].norm())
+           for n, g in grads["flash"].items() if n not in key_bias}
+    worst = max(rel, key=rel.get)
+    row = {"phase": "train_parity", "model": "bert-base-uncased widths", "layers": 12,
+           "batch": 8, "seq": 512, "dtype": "float32", "tf32": False,
+           "loss_flash": losses["flash"], "loss_plain": losses["xla"],
+           "loss_rel_err": rel_loss, "loss_rtol": PARITY_LOSS_RTOL,
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+           "grad_rel_l2_tol": PARITY_GRAD_REL_L2, "params": len(rel),
+           "key_bias_grad_norm_over_global": noise, "key_bias_tol": PARITY_KEY_BIAS}
+    emit(row)
+    check(rel_loss <= PARITY_LOSS_RTOL, f"train parity: loss rel err {rel_loss}")
+    check(rel[worst] <= PARITY_GRAD_REL_L2,
+          f"train parity: {worst} grad rel L2 {rel[worst]}")
+    check(noise <= PARITY_KEY_BIAS, f"train parity: key-bias gradient noise {noise}")
+    return row
+
+
+def _device_seconds_by_kernel(prof) -> dict:
+    import torch
+
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
+    return by_kernel
+
+
+def train_cli_phase(work: Path) -> dict:
+    """(b) the training CLI's main path at its defaults, counted."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    cfg_dir, out_dir, model_dir = work / "config", work / "output", work / "model"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(BERT_BASE))
+    argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+            "--dataset", "vendored_reviews", "--epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS),
+            "--max_eval_samples", str(CLI_EVAL_SAMPLES),
+            "--output_data_dir", str(out_dir), "--model_dir", str(model_dir),
+            "--log_every_steps", "10", "--device", DEVICE]
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    results, trainer = cli.run(argv)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    cfg = trainer.model.config
+    train_steps = trainer.step
+    eval_steps = math.ceil(CLI_EVAL_SAMPLES / trainer.config.eval_batch_size)
+    L = cfg.num_layers
+    check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+          and trainer.config.max_seq_length == 512 and trainer.config.train_batch_size == 8
+          and trainer.config.eval_batch_size == 4, "the CLI did not run at its defaults")
+    check(train_steps == CLI_STEPS, f"{train_steps} train steps, wanted {CLI_STEPS}")
+    check(launches["flash_fwd"] == L * (train_steps + eval_steps),
+          f"flash_fwd launches {launches['flash_fwd']} != {L} x "
+          f"({train_steps} + {eval_steps})")
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] == L * train_steps,
+              f"{k} launches {launches[k]} != {L} x {train_steps}")
+    hist, ev = results["train"], results["eval"]
+    check(all(math.isfinite(x) for x in hist["loss"]) and math.isfinite(ev["eval_loss"]),
+          "non-finite loss")
+    tr = read_results_file(str(out_dir / "train_results.txt"))
+    er = read_results_file(str(out_dir / "eval_results.txt"))
+    check(list(tr) == TRAIN_RESULT_KEYS, f"train_results.txt keys {list(tr)}")
+    check(list(er) == EVAL_RESULT_KEYS, f"eval_results.txt keys {list(er)}")
+
+    # the export reloads into the port with identical logits
+    batch = _review_batch(4, 512, DEVICE, split="test")
+    reloaded, _, _ = auto.from_pretrained(str(model_dir), dtype=torch.bfloat16,
+                                          device=DEVICE, attention_impl="flash")
+    model = trainer.model.eval()
+    with torch.no_grad():
+        a = model(batch["input_ids"], batch["attention_mask"])
+        b = reloaded(batch["input_ids"], batch["attention_mask"])
+    check(torch.equal(a, b), "reloaded model.safetensors gives other logits")
+    del reloaded
+
+    # the device's idle share over more train steps: wall unprofiled, then
+    # device busy time from a profiled run of as many steps
+    extra = [_review_batch(8, 512, DEVICE)] * 6
+    _sync()
+    t1 = time.perf_counter()
+    for b_ in extra:
+        trainer.train_step(b_)
+    _sync()
+    steps_wall = time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                                  else ProfilerActivity.CPU]) as prof:
+        for b_ in extra:
+            trainer.train_step(b_)
+        _sync()
+    by_kernel = _device_seconds_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    flash_s = {k: sum(v for n, v in by_kernel.items() if f"{k}_kernel" in n)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    row = {"phase": "train", "model": "bert-base-uncased widths (random init, seed 42)",
+           "layers": L, "dtype": "bfloat16", "seq": 512, "batch": 8, "eval_batch": 4,
+           "optimizer": trainer.config.optimizer, "train_steps": train_steps,
+           "eval_steps": eval_steps, "launches": launches,
+           "loss": hist["loss"], "eval_loss": ev["eval_loss"],
+           "eval_accuracy": ev["eval_accuracy"],
+           "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
+           "step_time_s": trainer.meter.avg_step_time,
+           "train_runtime_s": hist["train_runtime"], "cli_wall_s": wall,
+           "profiled_steps": len(extra), "steps_wall_s": steps_wall,
+           "step_time_unprofiled_s": steps_wall / len(extra),
+           "device_busy_s": busy if busy else "not measured",
+           "idle_share": 1.0 - busy / steps_wall if busy else "not measured",
+           "flash_kernel_s": flash_s,
+           "top_kernels_s": [[k[:80], v] for k, v in top]}
+    emit(row)
+    return row
+
+
 
 def main() -> int:
     import torch
@@ -431,10 +895,27 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     card = env_phase()
+    build_phase()
     kernels = kernel_phase()
     serve, model, trace = serve_phase()
     profile_phase(model, trace, serve["wall_s"])
+    del model
+    torch.cuda.empty_cache()
+    flash = flash_phase()
+    train_parity_phase()
+    with tempfile.TemporaryDirectory() as work:
+        train = train_cli_phase(Path(work))
     main_case = kernels["gpt2"]
+    flash_rows = []
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        r = flash[(FLASH_MAIN, kname)]
+        flash_rows.append({
+            "name": kname, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[kname], "launches": train["launches"][kname],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "status": {c: row["status"] for (c, k), row in flash.items() if k == kname}})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -444,7 +925,7 @@ def main() -> int:
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "status": {name: r["status"] for name, r in kernels.items()}}]})
+        "status": {name: r["status"] for name, r in kernels.items()}}] + flash_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,12 @@
 The JAX package stays the reference; this package imports nothing of it
 and nothing of JAX. Its first slice is continuous-batching greedy
 serving of GPT-2, with paged decode attention as a hand-written CUDA
-kernel for Hopper (``csrc/paged_attention.cu``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; without a GPU they
-raise instead of falling back.
+kernel for Hopper (``csrc/paged_attention.cu``); its second is
+BERT-family sequence-classification fine-tuning (``train/cli.py``), with
+the flash-attention forward, dQ and dK/dV/dmask as hand-written CUDA
+kernels (``csrc/flash_attention.cu``). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; without a GPU they raise
+instead of falling back.
 """
 
 from __future__ import annotations

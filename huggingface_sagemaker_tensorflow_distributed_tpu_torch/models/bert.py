@@ -1,0 +1,68 @@
+"""BERT for sequence classification (counterpart of the JAX package's
+``models/bert.py``: ``bert_config_from_hf`` and
+``BertForSequenceClassification``). The other BERT heads (token-cls, QA,
+masked LM) come with their tasks (ROADMAP slice B)."""
+
+from __future__ import annotations
+
+from torch import nn
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
+    Dense,
+    EncoderBackbone,
+    EncoderConfig,
+)
+
+
+def bert_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
+    """Map an HF BertConfig dict (config.json) to an EncoderConfig."""
+    kw = dict(
+        vocab_size=hf_config["vocab_size"],
+        hidden_size=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        intermediate_size=hf_config["intermediate_size"],
+        max_position_embeddings=hf_config["max_position_embeddings"],
+        type_vocab_size=hf_config.get("type_vocab_size", 2),
+        hidden_act=hf_config.get("hidden_act", "gelu"),
+        layer_norm_eps=hf_config.get("layer_norm_eps", 1e-12),
+        hidden_dropout=hf_config.get("hidden_dropout_prob", 0.1),
+        attention_dropout=hf_config.get("attention_probs_dropout_prob", 0.1),
+        pad_token_id=hf_config.get("pad_token_id", 0),
+        initializer_range=hf_config.get("initializer_range", 0.02),
+    )
+    kw.update(overrides)
+    return EncoderConfig(**kw)
+
+
+def bert_config_to_hf(c: EncoderConfig) -> dict:
+    """The ``config.json`` the JAX package exports for a BERT."""
+    return {
+        "model_type": "bert", "architectures": ["BertForSequenceClassification"],
+        "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+        "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+        "intermediate_size": c.intermediate_size,
+        "max_position_embeddings": c.max_position_embeddings,
+        "type_vocab_size": c.type_vocab_size, "hidden_act": c.hidden_act,
+        "layer_norm_eps": c.layer_norm_eps,
+        "hidden_dropout_prob": c.hidden_dropout,
+        "attention_probs_dropout_prob": c.attention_dropout,
+        "pad_token_id": c.pad_token_id, "initializer_range": c.initializer_range,
+    }
+
+
+class BertForSequenceClassification(nn.Module):
+    """Backbone -> pooler -> dropout -> linear classifier (HF head
+    structure). Logits come out in the config's compute dtype."""
+
+    def __init__(self, config: EncoderConfig, num_labels: int = 2):
+        super().__init__()
+        self.config = config
+        self.num_labels = num_labels
+        self.backbone = EncoderBackbone(config)
+        self.dropout = nn.Dropout(config.hidden_dropout)
+        self.classifier = Dense(config, config.hidden_size, num_labels)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        _, pooled = self.backbone(input_ids, attention_mask, token_type_ids)
+        return self.classifier(self.dropout(pooled))

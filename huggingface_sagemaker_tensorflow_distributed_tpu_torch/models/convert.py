@@ -1,19 +1,22 @@
-"""Weights for the port's GPT-2: carried over from a JAX parameter tree,
-or made at random from a seed.
+"""Weights for the port's models: carried over from a JAX parameter tree,
+made at random from a seed, or mapped to and from the HF key layout.
 
-- :func:`params_from_jax` maps the JAX package's flattened GPT-2 params
-  (``flax.traverse_util.flatten_dict(params, sep="/")``) onto
-  :class:`~.gpt2.Gpt2LMHeadModel`'s ``state_dict``: a flax ``Dense``
-  ``kernel [in, out]`` becomes ``Linear.weight [out, in]``, a LayerNorm
-  ``scale`` becomes ``weight``, an ``Embed.embedding`` the embedding
-  weight, and ``h_<i>`` the ``h.<i>`` module list entry. Both packages
-  then compute the same function.
-- :func:`init_gpt2` is the counterpart of the JAX package's
-  ``models/auto.py::init_params`` for GPT-2: normal(initializer_range)
-  embeddings and dense kernels, ``initializer_range / sqrt(2 * layers)``
-  for the residual projections (``attn_out``, ``fc_out``), zero biases,
-  unit LayerNorm scales. The numbers come from a ``torch.Generator``, so
-  they are not JAX's numbers for the same seed.
+- :func:`params_from_jax` maps the JAX package's flattened params
+  (``flax.traverse_util.flatten_dict(params, sep="/")``) onto the port's
+  ``state_dict``: a flax ``Dense`` ``kernel [in, out]`` becomes
+  ``Linear.weight [out, in]``, a LayerNorm ``scale`` becomes ``weight``,
+  an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``
+  the module list entry ``h.<i>``/``layer.<i>``. Both packages then
+  compute the same function.
+- :func:`init_gpt2` and :func:`init_bert` are the counterparts of the JAX
+  package's ``models/auto.py::init_params``: normal(initializer_range)
+  embeddings and dense kernels (GPT-2's residual projections at
+  ``initializer_range / sqrt(2 * layers)``), zero biases, unit LayerNorm
+  scales. The numbers come from a ``torch.Generator``, so they are not
+  JAX's numbers for the same seed.
+- :func:`bert_to_hf` / :func:`bert_from_hf` map a BERT ``state_dict`` to
+  the HF layout and back, with the JAX package's ``params_to_hf`` /
+  ``hf_to_params`` names for family ``bert``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import numpy as np
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+    BertForSequenceClassification,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
     Gpt2Config,
     Gpt2LMHeadModel,
@@ -48,9 +54,24 @@ def params_from_jax(flat: dict) -> dict:
         arr = np.asarray(value)
         if leaf == "kernel":
             arr = arr.T
-        path = [re.sub(r"^h_(\d+)$", r"h.\1", p) for p in parts[:-1]]
+        path = [re.sub(r"^(h|layer)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         out[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
     return out
+
+
+def _init_normal(model, std_of, seed: int):
+    """Zero biases, unit layer-norm scales, everything else normal with
+    ``std_of(name)``, drawn on the CPU in ``named_parameters`` order."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif re.search(r"(^|\.)(ln_\w*|\w*_ln)\.weight$", name):
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * std_of(name))
+    return model
 
 
 def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None) -> Gpt2LMHeadModel:
@@ -59,17 +80,88 @@ def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None) -> Gpt2LMHeadModel:
     it). Weights are drawn on the CPU, so a seed gives the same model on
     every device."""
     dev = resolve_device(device)
-    model = Gpt2LMHeadModel(cfg)
-    gen = torch.Generator().manual_seed(int(seed))
     std = cfg.initializer_range
     resid_std = std / (2 * cfg.num_layers) ** 0.5
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif ".ln_" in name or name.startswith("backbone.ln_f"):
-                p.fill_(1.0)
-            else:
-                s = resid_std if any(f".{r}." in name for r in _RESIDUAL_OUT) else std
-                p.copy_(torch.randn(p.shape, generator=gen) * s)
+    model = _init_normal(
+        Gpt2LMHeadModel(cfg),
+        lambda name: resid_std if any(f".{r}." in name for r in _RESIDUAL_OUT) else std,
+        seed)
     return model.to(dev).eval().requires_grad_(False)
+
+
+def init_bert(cfg, seed: int = 0, device=None, num_labels: int = 2):
+    """A ``BertForSequenceClassification`` with random weights from
+    ``seed`` (normal(initializer_range) dense kernels and embeddings, zero
+    biases, unit LayerNorm scales), in eval mode on ``device`` (CUDA
+    unless the caller names another; raises without it). Weights are drawn
+    on the CPU, so a seed gives the same model on every device."""
+    dev = resolve_device(device)
+    model = _init_normal(BertForSequenceClassification(cfg, num_labels=num_labels),
+                         lambda name: cfg.initializer_range, seed)
+    return model.to(dev).eval()
+
+
+# (port module path, HF module path); ``{}`` is a layer index
+_BERT_NAMES = [
+    ("backbone.embeddings.word_embeddings", "bert.embeddings.word_embeddings"),
+    ("backbone.embeddings.position_embeddings", "bert.embeddings.position_embeddings"),
+    ("backbone.embeddings.token_type_embeddings", "bert.embeddings.token_type_embeddings"),
+    ("backbone.embeddings.embeddings_ln", "bert.embeddings.LayerNorm"),
+    ("backbone.encoder.layer.{}.attention.query", "bert.encoder.layer.{}.attention.self.query"),
+    ("backbone.encoder.layer.{}.attention.key", "bert.encoder.layer.{}.attention.self.key"),
+    ("backbone.encoder.layer.{}.attention.value", "bert.encoder.layer.{}.attention.self.value"),
+    ("backbone.encoder.layer.{}.attention.attention_out",
+     "bert.encoder.layer.{}.attention.output.dense"),
+    ("backbone.encoder.layer.{}.attention_ln", "bert.encoder.layer.{}.attention.output.LayerNorm"),
+    ("backbone.encoder.layer.{}.ffn.intermediate", "bert.encoder.layer.{}.intermediate.dense"),
+    ("backbone.encoder.layer.{}.ffn.ffn_out", "bert.encoder.layer.{}.output.dense"),
+    ("backbone.encoder.layer.{}.ffn_ln", "bert.encoder.layer.{}.output.LayerNorm"),
+    ("backbone.pooler.pooler", "bert.pooler.dense"),
+    ("classifier", "classifier"),
+]
+
+
+def _rules(src: int, optional_bert: bool):
+    rules = []
+    for pair in _BERT_NAMES:
+        pattern = re.escape(pair[src]).replace(r"\{\}", r"(\d+)")
+        if optional_bert and pattern.startswith("bert"):
+            pattern = r"(?:bert\.)?" + pattern[len("bert\\."):]
+        rules.append((re.compile(f"^{pattern}\\.(weight|bias)$"), pair[1 - src]))
+    return rules
+
+
+_TO_HF = _rules(0, optional_bert=False)
+_FROM_HF = _rules(1, optional_bert=True)
+
+
+def _translate(key: str, rules) -> str | None:
+    for pattern, template in rules:
+        m = pattern.match(key)
+        if m:
+            *layer, leaf = m.groups()
+            return template.format(*layer) + "." + leaf
+    return None
+
+
+def bert_to_hf(state_dict: dict) -> dict:
+    """Port ``state_dict`` -> HF BERT keys (``bert.`` prefix; ``nn.Linear``
+    weights are ``[out, in]`` on both sides). Unmapped keys are dropped."""
+    out = {}
+    for key, value in state_dict.items():
+        hf = _translate(key, _TO_HF)
+        if hf is not None:
+            out[hf] = value
+    return out
+
+
+def bert_from_hf(hf_state: dict) -> dict:
+    """HF BERT keys (with or without the ``bert.`` prefix) -> port
+    ``state_dict`` keys; keys of other heads (``cls.*``, ``qa_outputs``)
+    are dropped, as the JAX package's ``hf_to_params`` skips them."""
+    out = {}
+    for key, value in hf_state.items():
+        port = _translate(key, _FROM_HF)
+        if port is not None:
+            out[port] = value
+    return out

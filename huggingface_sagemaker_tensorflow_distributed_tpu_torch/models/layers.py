@@ -1,12 +1,31 @@
-"""Activation table shared by the port's models (counterpart of the JAX
-package's ``models/layers.py::ACT2FN``)."""
+"""Transformer building blocks shared by the port's models (counterpart of
+the JAX package's ``models/layers.py``): the activation table and the
+BERT-family encoder.
+
+Module names mirror the flax names, so carrying weights across is a
+rename (``backbone.encoder.layer.<i>.attention.query`` is flax's
+``backbone/encoder/layer_<i>/attention/query``). The dtype discipline is
+the JAX package's, written out rather than left to ``torch.autocast``:
+parameters live in ``param_dtype``; dense and embedding layers compute in
+``dtype`` with input, weight and bias cast to it; layer-norm statistics
+and attention logits and softmax are fp32. As in the JAX package, encoder
+attention applies no dropout to the attention probabilities.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
+    dot_product_attention,
+    make_attention_mask,
+)
 
 ACT2FN: dict[str, Callable] = {
     "gelu": lambda x: F.gelu(x, approximate="none"),   # HF "gelu" is erf-exact
@@ -16,3 +35,242 @@ ACT2FN: dict[str, Callable] = {
     "silu": F.silu,
     "tanh": torch.tanh,
 }
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Architecture hyperparameters shared by the BERT-family encoders
+    (the JAX package's fields). What the port does not run yet raises
+    ``NotImplementedError`` at construction."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    embedding_size: Optional[int] = None
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    classifier_dropout: Optional[float] = None
+    pad_token_id: int = 0
+    position_offset: int = 0
+    use_token_type: bool = True
+    use_pooler: bool = True
+    initializer_range: float = 0.02
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    attention_impl: str = "xla"        # xla | flash
+    remat: bool = False                # torch.utils.checkpoint per layer
+    remat_policy: str = "full"
+    num_experts: int = 0
+    expert_top_k: int = 2
+    expert_capacity_factor: float = 1.25
+    moe_every: int = 2
+    router_aux_coef: float = 0.01
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+    # recompute the plain attention core in backward instead of keeping
+    # its fp32 [B, H, S, S] softmax; no effect on the flash path, which
+    # keeps no such residual
+    remat_attention: bool = True
+
+    def __post_init__(self):
+        if self.attention_impl not in ("xla", "flash", "ring"):
+            raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        unported = [
+            (self.num_experts > 0, "num_experts>0 (MoE)", "C"),
+            (self.pipeline_stages > 0, "pipeline_stages>0", "D"),
+            (self.embedding_size not in (None, self.hidden_size),
+             "a factorized embedding_size (ELECTRA/ALBERT)", "B"),
+            (self.position_offset != 0, "position_offset (RoBERTa)", "B"),
+            (self.remat and self.remat_policy != "full",
+             f"remat_policy={self.remat_policy!r}", "2 follow-ups"),
+            (self.attention_impl == "ring", "attention_impl='ring'", "D"),
+        ]
+        for hit, what, slice_ in unported:
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported to the PyTorch package yet: "
+                    f"ROADMAP slice {slice_}")
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with the weight in ``param_dtype`` that computes in
+    ``dtype`` (flax ``nn.Dense(dtype=..., param_dtype=...)``)."""
+
+    def __init__(self, cfg: EncoderConfig, in_features: int, out_features: int):
+        super().__init__(in_features, out_features, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """Embedding table in ``param_dtype``, rows returned in ``dtype``."""
+
+    def __init__(self, cfg: EncoderConfig, num: int, dim: int):
+        super().__init__(num, dim, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm with fp32 statistics, output in ``dtype`` (flax
+    ``nn.LayerNorm(dtype=...)``); ``weight`` is flax's ``scale``."""
+
+    def __init__(self, cfg: EncoderConfig, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=cfg.param_dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
+        self.eps = cfg.layer_norm_eps
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
+
+
+class Embeddings(nn.Module):
+    """Word + learned-position (+ token-type) embeddings, layer norm,
+    dropout."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = Embed(cfg, cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = Embed(cfg, cfg.max_position_embeddings, cfg.hidden_size)
+        if cfg.use_token_type:
+            self.token_type_embeddings = Embed(cfg, cfg.type_vocab_size, cfg.hidden_size)
+        self.embeddings_ln = LayerNorm(cfg, cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
+        x = self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
+        if self.cfg.use_token_type:
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            x = x + self.token_type_embeddings(token_type_ids)
+        return self.dropout(self.embeddings_ln(x))
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention (the post-LN residual is the caller's)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.query = Dense(cfg, h, h)
+        self.key = Dense(cfg, h, h)
+        self.value = Dense(cfg, h, h)
+        self.attention_out = Dense(cfg, h, h)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, hidden, attn_mask=None):
+        cfg = self.cfg
+        b, s, _ = hidden.shape
+        head_dim = cfg.hidden_size // cfg.num_heads
+
+        def split(x):
+            return x.view(b, s, cfg.num_heads, head_dim).transpose(1, 2)
+
+        q, k, v = split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
+        if (cfg.remat_attention and cfg.attention_impl == "xla"
+                and torch.is_grad_enabled() and hidden.requires_grad):
+            ctx = checkpoint(dot_product_attention, q, k, v, attn_mask, None, "xla",
+                             use_reentrant=False)
+        else:
+            ctx = dot_product_attention(q, k, v, mask=attn_mask, impl=cfg.attention_impl)
+        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        return self.dropout(self.attention_out(ctx))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.intermediate = Dense(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.ffn_out = Dense(cfg, cfg.intermediate_size, cfg.hidden_size)
+        self.act = ACT2FN[cfg.hidden_act]
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, hidden):
+        return self.dropout(self.ffn_out(self.act(self.intermediate(hidden))))
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN transformer layer (BERT ordering)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.attention = SelfAttention(cfg)
+        self.attention_ln = LayerNorm(cfg, cfg.hidden_size)
+        self.ffn = FeedForward(cfg)
+        self.ffn_ln = LayerNorm(cfg, cfg.hidden_size)
+
+    def forward(self, hidden, attn_mask=None):
+        hidden = self.attention_ln(hidden + self.attention(hidden, attn_mask))
+        return self.ffn_ln(hidden + self.ffn(hidden))
+
+
+class Encoder(nn.Module):
+    """Stack of encoder layers; ``remat`` recomputes each layer in
+    backward (``torch.utils.checkpoint``)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+
+    def forward(self, hidden, attn_mask=None):
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self.layer:
+            if remat:
+                hidden = checkpoint(layer, hidden, attn_mask, use_reentrant=False)
+            else:
+                hidden = layer(hidden, attn_mask)
+        return hidden
+
+
+class Pooler(nn.Module):
+    """CLS-token pooler (tanh dense), as in HF BERT."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.pooler = Dense(cfg, cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, hidden):
+        return torch.tanh(self.pooler(hidden[:, 0]))
+
+
+class EncoderBackbone(nn.Module):
+    """Embeddings + encoder (+ pooler): the shared trunk for all heads.
+    Returns ``(sequence_output, pooled or None)``."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = Embeddings(cfg)
+        self.encoder = Encoder(cfg)
+        if cfg.use_pooler:
+            self.pooler = Pooler(cfg)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None, segment_ids=None):
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        additive_mask = make_attention_mask(attention_mask, segment_ids=segment_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        x = self.encoder(x, additive_mask)
+        pooled = self.pooler(x) if self.cfg.use_pooler else None
+        return x, pooled

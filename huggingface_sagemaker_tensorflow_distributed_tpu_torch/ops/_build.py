@@ -41,19 +41,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def build(*names: str) -> None:
+    """Build the missing libraries of ``csrc/<name>.cu``, one ``nvcc`` per
+    source, all started together."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{stderr}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build csrc/{name}.cu (exit "
-                f"{proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return ctypes.CDLL(str(out))
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``ops/attention.py``: the einsum
 attention with fp32 logits and softmax (probabilities cast back to the
-value dtype), the ``-1e9`` additive causal and banded masks, and the
+value dtype), the implementation dispatch (``xla`` | ``flash``), the
+``-1e9`` additive padding, segment, causal and banded masks, and the
 block-table gather/scatter of the serving engine's paged KV pools.
 Tensors keep the JAX package's layouts: q/k/v ``[batch, heads, len,
 head_dim]``, pools ``[num_blocks, block_size, heads, head_dim]``, block
@@ -17,6 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.flash_attention import (
+    flash_attention,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     truncate_tables,
@@ -35,6 +39,55 @@ def xla_attention(q, k, v, mask=None, scale=None):
         logits = logits + mask.float()
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(weights, v)
+
+
+def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
+                          causal: bool = False, window: int | None = None):
+    """Dispatch on implementation: ``flash`` goes to the flash kernels
+    (:func:`~.flash_attention.flash_attention`, which skip causal tiles);
+    ``xla`` is :func:`xla_attention` with the causal or banded mask added
+    (``window``, which needs ``causal``, keeps each query's last ``window``
+    positions). ``ring`` (sequence-parallel) is not ported yet."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True (sliding-window "
+                         "attention is an autoregressive construct)")
+    if impl == "flash":
+        return flash_attention(q, k, v, mask=mask, scale=scale, causal=causal,
+                               window=window)
+    if impl == "ring":
+        raise NotImplementedError(
+            "impl='ring' (sequence-parallel ring attention) is not ported "
+            "yet: ROADMAP slice D")
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r} (xla | flash | ring)")
+    if window is not None:
+        band = make_banded_causal_mask(q.shape[2], window, k.shape[2], device=q.device)
+        mask = band if mask is None else mask + band
+    elif causal:
+        cm = make_causal_mask(q.shape[2], k.shape[2], device=q.device)
+        mask = cm if mask is None else mask + cm
+    return xla_attention(q, k, v, mask=mask, scale=scale)
+
+
+def make_attention_mask(attention_mask, dtype=torch.float32, neg: float = NEG,
+                        segment_ids=None):
+    """[batch, kv_len] {0,1} padding mask -> additive [batch, 1, 1, kv_len]
+    ``(1 - m) * neg``; with ``segment_ids`` the block-diagonal
+    [batch, 1, q_len, kv_len] segment mask instead."""
+    if segment_ids is not None:
+        return make_segment_mask(segment_ids, dtype=dtype, neg=neg)
+    m = attention_mask[:, None, None, :].to(dtype)
+    return (1.0 - m) * neg
+
+
+def make_segment_mask(segment_ids, dtype=torch.float32, neg: float = NEG):
+    """[batch, len] segment ids (1-based, 0 on padding) -> additive
+    [batch, 1, len, len] mask keeping (query, key) iff both lie in the same
+    nonzero segment."""
+    seg_q = segment_ids[:, None, :, None]
+    seg_k = segment_ids[:, None, None, :]
+    keep = (seg_q == seg_k) & (seg_k > 0)
+    return torch.where(keep, 0.0, neg).to(dtype)
 
 
 def make_causal_mask(q_len: int, kv_len: int | None = None, device=None,

@@ -1,0 +1,142 @@
+"""Fine-tuning entry point (counterpart of the JAX package's
+``scripts/train.py::main`` for task ``seq-cls``).
+
+    python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.cli \\
+        --model_name_or_path DIR --dataset vendored_reviews [--device cpu] ...
+
+Hyperparameters are the JAX CLI's ``--key value`` arguments (same
+``TrainConfig``); ``--device`` (default ``cuda``) picks where the model
+runs, and without a card ``cuda`` raises. The run: join the process group
+the environment names, load or seed the model from ``DIR/config.json``,
+tokenize the train and test splits, fit, evaluate, write
+``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
+export the model and tokenizer in HF layout to ``model_dir`` (rank 0).
+Several processes on one host: start one per card with
+``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` (or the
+``TPU_*`` triplet) set.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+import torch.distributed as dist
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import (
+    TrainConfig,
+    parse_args,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+    ArrayDataset,
+    ShardedBatcher,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+    load_text_classification,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+    load_tokenizer,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    local_device,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import (
+    get_logger,
+    setup_logging,
+)
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def _check_num_labels(labels, num_labels: int) -> None:
+    top = max((label for label in labels if label >= 0), default=0)
+    if top >= num_labels:
+        raise ValueError(f"seq-cls: dataset contains label {top} but --num_labels "
+                         f"is {num_labels}; pass --num_labels {top + 1}")
+
+
+def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
+                  max_samples) -> ArrayDataset:
+    texts, labels = load_text_classification(
+        config.dataset, split, dataset_path=config.dataset_path,
+        max_samples=max_samples, seed=config.seed)
+    _check_num_labels(labels, config.num_labels)
+    return ArrayDataset.from_texts(tokenizer, texts, labels, max_len)
+
+
+def main(argv=None) -> dict:
+    """Train, evaluate and export; returns ``{"train": history, "eval":
+    metrics}`` (the keys that ran)."""
+    return run(argv)[0]
+
+
+def run(argv=None) -> tuple[dict, Trainer]:
+    """:func:`main`, also handing back the trainer (and through it the
+    trained model)."""
+    config = parse_args(argv)
+    extra = argparse.ArgumentParser(allow_abbrev=False)
+    extra.add_argument("--device", default="cuda")
+    device_type = resolve_device(extra.parse_known_args(argv)[0].device).type
+    rank, world = initialize_distributed(device_type)
+    try:
+        return _run(config, local_device(device_type), rank, world)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(config: TrainConfig, device: torch.device, rank: int,
+         world: int) -> tuple[dict, Trainer]:
+    setup_logging(process_index=rank, all_hosts=config.log_all_hosts)
+    logger = get_logger("train")
+    logger.info("config: %s", config.to_json())
+    logger.info("rank %d/%d on %s", rank, world, device)
+    # dropout draws from torch's default generators, seeded per run
+    torch.manual_seed(config.seed)
+
+    attention_impl = config.resolve_attention_impl(device.type)
+    model, family, model_config = auto.from_pretrained(
+        config.model_name_or_path, task=config.task, num_labels=config.num_labels,
+        dtype=DTYPES[config.dtype], param_dtype=DTYPES[config.param_dtype],
+        seed=config.seed, from_scratch=config.from_scratch, device=device,
+        attention_impl=attention_impl, remat=config.remat,
+        remat_policy=config.remat_policy)
+    tokenizer = load_tokenizer(config.model_name_or_path,
+                               vocab_size=model_config.vocab_size)
+
+    max_len = min(config.max_seq_length, model_config.max_position_embeddings)
+    train_ds = build_dataset(config, tokenizer, "train", max_len, config.max_train_samples)
+    eval_ds = build_dataset(config, tokenizer, "test", max_len, config.max_eval_samples)
+    train_batcher = ShardedBatcher(train_ds, config.train_batch_size * world,
+                                   shuffle=True, seed=config.seed, device=device)
+    eval_batcher = ShardedBatcher(eval_ds, config.eval_batch_size * world,
+                                  shuffle=False, drop_remainder=False, device=device)
+
+    total_steps = train_batcher.steps_per_epoch() * config.epochs
+    trainer = Trainer(config, model, total_steps=total_steps)
+    results: dict = {}
+    if config.do_train:
+        logger.info("*** Train ***")
+        history = trainer.fit(train_batcher,
+                              eval_batcher=eval_batcher if config.eval_each_epoch else None)
+        trainer.write_train_results(history)
+        results["train"] = history
+    if config.do_eval:
+        logger.info("*** Evaluate ***")
+        eval_results = trainer.evaluate(eval_batcher)
+        trainer.write_eval_results(eval_results)
+        results["eval"] = eval_results
+    auto.save_pretrained(config.model_dir, model, family, model_config)
+    if rank == 0:
+        tokenizer.save_pretrained(config.model_dir)
+    return results, trainer
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

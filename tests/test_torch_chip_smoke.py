@@ -1,0 +1,109 @@
+"""``chip_smoke.py``'s flash-kernel and training phases rehearsed on the CPU
+at a tiny size: with ``DEVICE = "cpu"`` every wrapper takes its plain
+version, so this checks the phases' own logic (cases, comparisons, bounds,
+launch accounting, results files, reload), not the kernels. The phases run
+for real only on the card."""
+
+import json
+
+import pytest
+import torch
+
+import chip_smoke
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread per test worker runs
+    them faster than a pool contending with the other workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _detached_compile_trackers():
+    """A compile tracker that an earlier telemetry test installed in this
+    worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, leaving the worker as a
+    fresh one would be (a later telemetry test installs its own). (The
+    card's machine runs the ``gpu`` tests without JAX: nothing to remove.)"""
+    _drop_compile_trackers()
+    yield
+    _drop_compile_trackers()
+
+
+def _drop_compile_trackers():
+    try:
+        from jax import monitoring
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
+    except ImportError:
+        return
+    for tracker in watchdog._INSTALLED:
+        try:
+            monitoring.unregister_event_duration_listener(tracker.observe)
+        except AssertionError:
+            pass
+    watchdog._INSTALLED.clear()
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    """chip_smoke pointed at the CPU, timing stubbed, tiny widths, and the
+    flash wrappers counted on every call (on the CPU they launch nothing)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "_cuda_ms", lambda fn, sets, iters=40: (fn(*sets[0]), 0.0)[1])
+    monkeypatch.setattr(fa, "load_kernel", lambda: None)
+    monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(
+        chip_smoke.BERT_BASE, hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
+        intermediate_size=128))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        real = getattr(fa, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            getattr(fa, _name).launches += 1
+            return _real(*a, **kw)
+
+        counted.launches = 0
+        monkeypatch.setattr(fa, name, counted)
+
+
+def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "FLASH_CASES", [
+        ("bert_fp32", 2, 2, 64, 64, "float32", True, False, None, False, False),
+        ("bert_bf16", 2, 2, 64, 64, "bfloat16", True, False, None, False, False),
+        ("ragged", 2, 2, 40, 64, "float32", True, False, None, True, True),
+        ("causal_window", 1, 2, 64, 64, "float32", False, True, 16, False, False)])
+    rows = chip_smoke.flash_phase()
+    assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        assert row["phase"] == "flash_kernel" and row["bound_ms"] > 0
+        assert row["bound_by"] in ("bytes", "operations")
+    # the bound counts the (query, key) pairs the data needs
+    case = ("c", 1, 2, 64, 64, "float32", False, True, 16, False, False)
+    pairs = 2 * sum(min(i + 1, 16) for i in range(64))
+    assert chip_smoke._flash_work(case, None)["flash_fwd"][1] == 4 * 64 * pairs
+    masked = ("m", 2, 1, 8, 64, "bfloat16", True, False, None, False, True)
+    nbytes, flops = chip_smoke._flash_work(masked, torch.tensor([0, 3]))["flash_bwd_dkv"]
+    assert flops == 8 * 64 * (8 * (8 + 3))
+    assert nbytes == 7 * 2 * 8 * 64 * 2 + 2 * 8 * 4 + 2 * 8 * 4 + 2 * 8 * 4
+
+
+def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "CLI_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "CLI_EVAL_SAMPLES", 4)
+    row = chip_smoke.train_parity_phase()
+    assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    # on the CPU `auto` picks the plain path; the CLI is asked for flash
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    row = chip_smoke.train_cli_phase(tmp_path)
+    assert row["launches"] == {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2,
+                               "flash_bwd_dkv": 2 * 2}
+    assert row["idle_share"] == "not measured" and row["train_steps"] == 2

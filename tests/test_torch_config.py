@@ -1,0 +1,113 @@
+"""PyTorch port: ``config.py`` against the JAX package's: the same argv
+gives the same ``TrainConfig.to_dict()``, the same fields and defaults
+and the same validation errors, while what the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP slice."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import config as t_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread per test worker runs
+    them faster than a pool contending with the other workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _detached_compile_trackers():
+    """A compile tracker that an earlier telemetry test installed in this
+    worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, leaving the worker as a
+    fresh one would be (a later telemetry test installs its own). (The
+    card's machine runs the ``gpu`` tests without JAX: nothing to remove.)"""
+    _drop_compile_trackers()
+    yield
+    _drop_compile_trackers()
+
+
+def _drop_compile_trackers():
+    try:
+        from jax import monitoring
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
+    except ImportError:
+        return
+    for tracker in watchdog._INSTALLED:
+        try:
+            monitoring.unregister_event_duration_listener(tracker.observe)
+        except AssertionError:
+            pass
+    watchdog._INSTALLED.clear()
+
+
+# -- config ------------------------------------------------------------------
+
+ARGVS = [
+    [],
+    ["--learning_rate", "3e-5", "--epochs", "2", "--do_eval", "false",
+     "--max_train_samples", "100", "--dataset", "vendored_reviews", "--unknown", "x"],
+    ["--warmup_ratio", "0.1", "--lr_schedule", "cosine", "--weight_decay", "0.01",
+     "--max_grad_norm", "1.0", "--gradient_accumulation_steps", "2"],
+    ["--attention_impl", "flash", "--dtype", "float32", "--eval_each_epoch", "true",
+     "--rng_impl", "threefry", "--steps_per_epoch", "7", "--optimizer", "adam"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=range(len(ARGVS)))
+def test_parse_args_matches_jax(argv):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
+
+    assert t_config.parse_args(argv).to_dict() == parse_args(argv).to_dict()
+
+
+def test_config_fields_and_defaults_match_jax():
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import TrainConfig
+
+    want = {f.name: f.type for f in dataclasses.fields(TrainConfig)}
+    assert {f.name: f.type for f in dataclasses.fields(t_config.TrainConfig)} == want
+    assert t_config.TrainConfig().to_dict() == TrainConfig().to_dict()
+
+
+UNPORTED = [["--task", "mlm"], ["--lora_rank", "4"], ["--num_experts", "4"],
+            ["--tp", "2"], ["--pp", "2"], ["--fsdp", "2"], ["--sp", "2"],
+            ["--dcn_dp", "2"], ["--streaming", "true"], ["--fused_vocab_ce", "true"],
+            ["--bucket_multiple", "128"], ["--optimizer", "adafactor"],
+            ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
+            ["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
+            ["--early_stopping_patience", "2"], ["--profile", "true"],
+            ["--remat", "true", "--remat_policy", "dots"],
+            ["--attention_impl", "ring"]]
+
+
+@pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])
+def test_unported_flags_raise(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+        t_config.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--task", "bogus"], ["--learning_rate", "-1"],
+                                  ["--lr_schedule", "cosine"], ["--optimizer", "adam",
+                                                                "--weight_decay", "0.1"]])
+def test_validation_errors_match_jax(argv):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
+
+    with pytest.raises(ValueError):
+        parse_args(argv)
+    with pytest.raises(ValueError):
+        t_config.parse_args(argv)
+
+
+def test_resolve_attention_impl():
+    cfg = t_config.TrainConfig()
+    assert cfg.resolve_attention_impl("cuda") == "flash"
+    assert cfg.resolve_attention_impl("cpu") == "xla"
+    assert t_config.TrainConfig(attention_impl="xla").resolve_attention_impl("cuda") == "xla"

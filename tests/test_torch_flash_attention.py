@@ -1,0 +1,357 @@
+"""PyTorch port: flash attention (``ops/flash_attention.py``) and the
+attention dispatch and masks (``ops/attention.py``) against the JAX
+package on the same numpy inputs: the plain forward ``(o, lse)`` against
+the Pallas kernel in interpret mode, the plain backward ``(dq, dk, dv,
+dmask)`` against ``jax.vjp`` through the same kernel and against
+``torch.autograd`` over the port's plain attention, a fully padded row,
+and the autograd ``Function`` on CPU tensors. Plus the three CUDA kernels
+against their plain versions on the card (skipped without one).
+
+Tolerances: fp32 1e-5 (the same fp32 arithmetic, summed in another order);
+bf16 2e-2 (bf16 keeps 8 mantissa bits, 3.9e-3 per rounding)."""
+
+import numpy as np
+import pytest
+import torch
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+TOL = 1e-5
+B, H, S, D = 2, 2, 32, 16
+BLOCK = 16              # JAX kernel tiles: 2 x 2 tiles per (batch, head)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread per test worker runs
+    them faster than a pool contending with the other workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _detached_compile_trackers():
+    """A compile tracker that an earlier telemetry test installed in this
+    worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, leaving the worker as a
+    fresh one would be (a later telemetry test installs its own). (The
+    card's machine runs the ``gpu`` tests without JAX: nothing to remove.)"""
+    _drop_compile_trackers()
+    yield
+    _drop_compile_trackers()
+
+
+def _drop_compile_trackers():
+    try:
+        from jax import monitoring
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
+    except ImportError:
+        return
+    for tracker in watchdog._INSTALLED:
+        try:
+            monitoring.unregister_event_duration_listener(tracker.observe)
+        except AssertionError:
+            pass
+    watchdog._INSTALLED.clear()
+
+
+def _inputs(seed, masked=True, pad_row=False, b=B, s=S, d=D):
+    """numpy q, k, v, dO [b, H, s, d] and an additive [b, 1, 1, s] -1e9
+    padding mask with ragged lengths (row 0 all padding with pad_row)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(b, H, s, d).astype(np.float32) for _ in range(4))
+    mask = None
+    if masked:
+        lens = rng.randint(s // 4, s + 1, size=b)
+        lens[-1] = s
+        if pad_row:
+            lens[0] = 0
+        keep = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+        mask = ((1.0 - keep) * -1e9)[:, None, None, :].astype(np.float32)
+    return q, k, v, do, mask
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    import jax.numpy as jnp
+
+    return None if x is None else jnp.asarray(x)
+
+
+def _jax_fwd(q, k, v, mask, causal=False, window=None):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        _flash_fwd_call,
+    )
+
+    o, lse = _flash_fwd_call(_j(q), _j(k), _j(v), _j(mask), D ** -0.5, BLOCK, BLOCK,
+                             causal, True, want_lse=True, window=window)
+    return np.asarray(o), np.asarray(lse)[..., 0]
+
+
+def _jax_grads(q, k, v, mask, do, causal=False, window=None):
+    import jax
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        flash_attention,
+    )
+
+    def f(q_, k_, v_, m_):
+        return flash_attention(q_, k_, v_, mask=m_, block_q=BLOCK, block_k=BLOCK,
+                               causal=causal, interpret=True, window=window)
+
+    _, vjp = jax.vjp(f, _j(q), _j(k), _j(v), _j(mask))
+    return [None if g is None else np.asarray(g) for g in vjp(_j(do))]
+
+
+MODES = [("mask", True, False, None), ("nomask", False, False, None),
+         ("causal", False, True, None), ("causal_window", True, True, 6)]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[m[0] for m in MODES])
+def test_forward_reference_matches_pallas(mode):
+    _, masked, causal, window = mode
+    q, k, v, _, mask = _inputs(1, masked=masked)
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask),
+                                              causal=causal, window=window)
+    want_o, want_lse = _jax_fwd(q, k, v, mask, causal, window)
+    np.testing.assert_allclose(o.numpy(), want_o, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=TOL, atol=TOL)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[m[0] for m in MODES])
+def test_backward_reference_matches_pallas_vjp(mode):
+    _, masked, causal, window = mode
+    q, k, v, do, mask = _inputs(2, masked=masked)
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask),
+                                              causal=causal, window=window)
+    got = fa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), _t(mask), o, lse, _t(do),
+                                           causal=causal, window=window)
+    want = _jax_grads(q, k, v, mask, do, causal, window)
+    for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_reference_matches_torch_autograd_of_plain_attention(causal):
+    q, k, v, do, mask = _inputs(3, masked=not causal)
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask), causal=causal)
+    got = fa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), _t(mask), o, lse, _t(do),
+                                           causal=causal)
+    leaves = [_t(x).clone().requires_grad_(True) for x in (q, k, v)]
+    m = None if mask is None else _t(mask).clone().requires_grad_(True)
+    out = t_attn.dot_product_attention(*leaves, mask=m, impl="xla", causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), o.numpy(), rtol=TOL, atol=TOL)
+    want = torch.autograd.grad(out, leaves + ([m] if m is not None else []), _t(do))
+    for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL, err_msg=name)
+
+
+def test_fully_padded_row_matches_pallas():
+    """A batch row whose keys are all padding: every logit is -1e9 (the
+    scores vanish against it in fp32), so the row attends uniformly; the
+    output is finite and equal to the Pallas kernel's, and so are the
+    gradients (its LSE rounds to -1e9, as in the TPU kernel)."""
+    q, k, v, do, mask = _inputs(4, pad_row=True)
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask))
+    want_o, want_lse = _jax_fwd(q, k, v, mask)
+    assert np.isfinite(o.numpy()).all()
+    np.testing.assert_allclose(o.numpy(), want_o, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(o[0].numpy(), np.broadcast_to(v[0].mean(1, keepdims=True),
+                                                             o[0].shape), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=TOL, atol=TOL)
+    got = fa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), _t(mask), o, lse, _t(do))
+    for g, w in zip(got, _jax_grads(q, k, v, mask, do)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL)
+
+
+def test_bf16_forward_matches_pallas():
+    """bf16 inputs: P rounded to bf16 before P.V in both, output in bf16."""
+    import jax.numpy as jnp
+
+    q, k, v, _, mask = _inputs(5)
+    to_bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    o, _ = fa.flash_attention_fwd_reference(*to_bf, _t(mask))
+    assert o.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in to_bf)
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        flash_attention,
+    )
+
+    want = np.asarray(flash_attention(jq, jk, jv, mask=_j(mask), block_q=S, block_k=S,
+                                      interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(o.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_autograd_function_on_cpu_tensors(masked):
+    """``flash_attention`` with gradients on CPU tensors: the Function runs
+    the plain versions (no kernel launch), and its gradients are the plain
+    backward's, the mask's included."""
+    q, k, v, do, mask = _inputs(6, masked=masked)
+    leaves = [_t(x).clone().requires_grad_(True) for x in (q, k, v)]
+    m = None if mask is None else _t(mask).clone().requires_grad_(True)
+    launches = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    out = fa.flash_attention(*leaves, m)
+    out.backward(_t(do))
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask))
+    want = fa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), _t(mask), o, lse, _t(do))
+    np.testing.assert_array_equal(out.detach().numpy(), o.numpy())
+    got = [x.grad for x in leaves] + [None if m is None else m.grad]
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == launches
+    with torch.no_grad():                       # the inference path: no LSE
+        np.testing.assert_array_equal(fa.flash_attention(*leaves, m).numpy(), o.numpy())
+
+
+def test_mask_without_grad_gets_no_gradient():
+    q, k, v, do, mask = _inputs(7)
+    leaves = [_t(x).clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves, _t(mask)).backward(_t(do))
+    assert all(x.grad is not None for x in leaves)
+
+
+def test_wrappers_on_cpu_are_the_plain_versions():
+    q, k, v, do, mask = (_t(x) for x in _inputs(8))
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, mask)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert fa.flash_fwd(q, k, v, mask, want_lse=False)[1] is None
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, mask, o, lse, do),
+                       fa.flash_bwd_dq_reference(q, k, v, mask, o, lse, do))
+    dk, dv, dm = fa.flash_bwd_dkv(q, k, v, mask, o, lse, do, want_dmask=True)
+    rk, rv, rm = fa.flash_bwd_dkv_reference(q, k, v, mask, o, lse, do)
+    assert torch.equal(dk, rk) and torch.equal(dv, rv) and torch.equal(dm, rm)
+    assert dm.shape == mask.shape and dm.dtype == torch.float32
+    assert fa.flash_bwd_dkv(q, k, v, mask, o, lse, do)[2] is None
+
+
+def test_general_mask_takes_the_plain_path():
+    """A [B, H, Q, K] mask goes to the plain attention path, as the JAX
+    dispatch sends it to XLA."""
+    q, k, v, _, _ = _inputs(9, masked=False)
+    rng = np.random.RandomState(9)
+    full = np.where(rng.rand(B, H, S, S) > 0.3, 0.0, -1e9).astype(np.float32)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), _t(full))
+    want = t_attn.xla_attention(_t(q), _t(k), _t(v), _t(full))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError):
+        fa.flash_fwd(_t(q), _t(k), _t(v), _t(full))
+
+
+def test_dispatch_flash_matches_xla_and_jax():
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.attention import (
+        dot_product_attention as jax_dpa,
+    )
+
+    q, k, v, _, mask = _inputs(10)
+    for causal, window in ((False, None), (True, None), (True, 5)):
+        m = None if causal else mask
+        got_f = t_attn.dot_product_attention(_t(q), _t(k), _t(v), _t(m), impl="flash",
+                                             causal=causal, window=window)
+        got_x = t_attn.dot_product_attention(_t(q), _t(k), _t(v), _t(m), impl="xla",
+                                             causal=causal, window=window)
+        want = np.asarray(jax_dpa(_j(q), _j(k), _j(v), _j(m), impl="xla", causal=causal,
+                                  window=window))
+        np.testing.assert_allclose(got_f.numpy(), want, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got_x.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("bad", ["ring", "window_no_causal", "unknown", "window0",
+                                 "shape"])
+def test_dispatch_and_argument_checks_raise(bad):
+    q, k, v, _, mask = (_t(x) for x in _inputs(11))
+    if bad == "ring":
+        with pytest.raises(NotImplementedError):
+            t_attn.dot_product_attention(q, k, v, mask, impl="ring")
+    elif bad == "window_no_causal":
+        with pytest.raises(ValueError):
+            t_attn.dot_product_attention(q, k, v, mask, impl="flash", window=4)
+    elif bad == "unknown":
+        with pytest.raises(ValueError):
+            t_attn.dot_product_attention(q, k, v, mask, impl="pallas")
+    elif bad == "window0":
+        with pytest.raises(ValueError):
+            fa.flash_fwd(q, k, v, None, causal=True, window=0)
+    else:
+        with pytest.raises(ValueError):
+            fa.flash_fwd(q, k[:, :, :, :8], v, mask)
+
+
+def test_masks_match_jax():
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops import attention as j
+
+    rng = np.random.RandomState(12)
+    am = (rng.rand(3, 7) > 0.3).astype(np.int32)
+    seg = np.array([[1, 1, 2, 2, 2, 0, 0], [1, 2, 3, 3, 0, 0, 0], [1] * 7], np.int32)
+    np.testing.assert_array_equal(t_attn.make_attention_mask(_t(am)).numpy(),
+                                  np.asarray(j.make_attention_mask(_j(am))))
+    np.testing.assert_array_equal(
+        t_attn.make_attention_mask(_t(am), segment_ids=_t(seg)).numpy(),
+        np.asarray(j.make_attention_mask(_j(am), segment_ids=_j(seg))))
+    np.testing.assert_array_equal(t_attn.make_segment_mask(_t(seg)).numpy(),
+                                  np.asarray(j.make_segment_mask(_j(seg))))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+GPU_CASES = [  # S, D, dtype, causal, window, pad_row
+    (128, 64, "float32", False, None, False),
+    (200, 64, "float32", False, None, True),
+    (256, 64, "bfloat16", False, None, False),
+    (192, 64, "float32", True, None, False),
+    (192, 64, "float32", True, 40, False),
+    (128, 128, "float32", False, None, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernels_match_reference_on_card(cuda_device, case):
+    s, d, dtype, causal, window, pad_row = case
+    q, k, v, do, mask = _inputs(13, masked=not causal, pad_row=pad_row, b=3, s=s, d=d)
+    dt = getattr(torch, dtype)
+    # the model's layout: [B, S, H, D] memory viewed as [B, H, S, D]
+    q, k, v, do = (torch.from_numpy(x).transpose(1, 2).contiguous().transpose(1, 2)
+                   .to(cuda_device, dt) for x in (q, k, v, do))
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device).requires_grad_(True)
+    kw = dict(causal=causal, window=window)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, m, **kw)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, m, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, m, ro, rlse, do, **kw)
+    dk, dv, dm = fa.flash_bwd_dkv(q, k, v, m, ro, rlse, do, **kw, want_dmask=m is not None)
+    rq = fa.flash_bwd_dq_reference(q, k, v, m, ro, rlse, do, **kw)
+    rk, rv, rm = fa.flash_bwd_dkv_reference(q, k, v, m, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    for g, w in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv), (dm, rm)):
+        if w is None:
+            continue
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())

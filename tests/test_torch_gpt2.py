@@ -43,23 +43,30 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True, scope="module")
 def _detached_compile_trackers():
-    """Detach compile trackers an earlier telemetry test installed in this
-    worker (they reject jax 0.9's ``fun_name`` keyword and would fail
-    every jax compile here); re-attach them after the module."""
-    from jax import monitoring
+    """A compile tracker that an earlier telemetry test installed in this
+    worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, leaving the worker as a
+    fresh one would be (a later telemetry test installs its own). (The
+    card's machine runs the ``gpu`` tests without JAX: nothing to remove.)"""
+    _drop_compile_trackers()
+    yield
+    _drop_compile_trackers()
 
-    from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
 
-    detached = []
+def _drop_compile_trackers():
+    try:
+        from jax import monitoring
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
+    except ImportError:
+        return
     for tracker in watchdog._INSTALLED:
         try:
             monitoring.unregister_event_duration_listener(tracker.observe)
-            detached.append(tracker)
         except AssertionError:
             pass
-    yield
-    for tracker in detached:
-        monitoring.register_event_duration_secs_listener(tracker.observe)
+    watchdog._INSTALLED.clear()
 
 
 def _pair(kv_cache_dtype="fp"):

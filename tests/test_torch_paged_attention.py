@@ -31,27 +31,28 @@ def _one_torch_thread():
 def _detached_compile_trackers():
     """A compile tracker that an earlier telemetry test installed in this
     worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
-    listeners, failing every later jax compile. Detach the trackers while
-    this module compiles its references; re-attach them after. (The card's
-    machine runs the ``gpu`` tests here without JAX: nothing to detach.)"""
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, leaving the worker as a
+    fresh one would be (a later telemetry test installs its own). (The
+    card's machine runs the ``gpu`` tests without JAX: nothing to remove.)"""
+    _drop_compile_trackers()
+    yield
+    _drop_compile_trackers()
+
+
+def _drop_compile_trackers():
     try:
         from jax import monitoring
 
         from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
     except ImportError:
-        yield
         return
-
-    detached = []
     for tracker in watchdog._INSTALLED:
         try:
             monitoring.unregister_event_duration_listener(tracker.observe)
-            detached.append(tracker)
         except AssertionError:
             pass
-    yield
-    for tracker in detached:
-        monitoring.register_event_duration_secs_listener(tracker.observe)
+    watchdog._INSTALLED.clear()
 
 
 def _case(seed, S=4, G=2, Hkv=2, D=8, bs=4, nb=5, int8=False):
