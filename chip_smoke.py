@@ -9,9 +9,9 @@ Imports nothing of JAX or of the JAX package. Phases, in order; any
 failure raises and exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
-   CUDA version; TF32 off for matmuls and cuDNN; then both kernel
-   sources (``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``)
-   built at once, one ``nvcc`` each;
+   CUDA version; TF32 off for matmuls and cuDNN; then every kernel
+   source (``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``,
+   ``csrc/vocab_ce.cu``) built at once, one ``nvcc`` each;
 2. kernel: holds the paged
    decode kernel against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
@@ -58,7 +58,37 @@ failure raises and exits non-zero:
    results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass over more train
    steps for the device's idle share;
-7. the ``kernels`` line, the card's line, and the final
+7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
+   ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
+   shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
+   and in fp32, a ragged N 1000 / V 1001, H 200 and H 800, label
+   smoothing 0.1, and an all-equal W that ties every logit (pred must be
+   id 0). Bound ``max|got - want| <= tol * max(1, max|want|)``: tol 1e-4
+   for fp32 and for the loss and LSE (fp32 arithmetic on bf16-exact
+   inputs), 2e-2 for dH and dW with bf16 hidden (dH rounded to bf16; dS
+   rounded to bf16 before dSᵀ·H, where a last-ulp difference can round
+   one step apart). ``pred`` must equal the plain argmax except where the
+   plain top-two logit gap is below 1e-5 of the largest logit (counted and
+   printed). One JSON line per case and kernel with its, the plain
+   version's and the unfused library pair's time (fp32 ``torch.matmul``
+   with TF32 off plus ``cross_entropy``; its autograd backward for dH and
+   dW) and the bound;
+8. GPT-2 train: (a) one fp32 step (TF32 off, dropout 0) of GPT-2 124M at
+   full width on 8 x 512 vendored reviews, the kernels (flash causal
+   attention and the fused vocab CE) against the plain path (plain
+   attention, unfused logits and CE) from the same weights: loss within
+   1e-5 relative, every parameter's gradient within 1e-3 relative L2
+   (a parameter whose exact gradient is 0 is held apart: its noise must
+   stay below 1e-5 of the global gradient norm); (b) the training CLI with
+   ``--task causal-lm --fused_vocab_ce true`` at its defaults from a
+   seeded GPT-2 124M, with ``fused_ce_fwd == train + eval steps``,
+   ``fused_ce_bwd_dh == fused_ce_bwd_dw == train steps`` and ``flash_fwd
+   == 12 x eval steps`` (with attn_pdrop 0.1 the train steps take the
+   unfused dropout softmax, as in the JAX package), finite losses, the JAX
+   CLI's results-file keys and a ``model.safetensors`` that reloads with
+   identical logits; then a short ``torch.profiler`` pass for device time
+   by kernel and the idle share;
+9. the ``kernels`` line, the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -81,6 +111,11 @@ _PALLAS_ATTN = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_atte
 FLASH_REPLACES = {"flash_fwd": f"{_PALLAS_ATTN}:65",
                   "flash_bwd_dq": f"{_PALLAS_ATTN}:195",
                   "flash_bwd_dkv": f"{_PALLAS_ATTN}:246"}
+VOCAB_SOURCE = f"{PKG}/csrc/vocab_ce.cu"
+_PALLAS_CE = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_vocab_ce.py"
+VOCAB_REPLACES = {"fused_ce_fwd": f"{_PALLAS_CE}:48",
+                  "fused_ce_bwd_dh": f"{_PALLAS_CE}:166",
+                  "fused_ce_bwd_dw": f"{_PALLAS_CE}:202"}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) and
 # dense bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -457,10 +492,10 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
 # -- build -------------------------------------------------------------------
 
 def build_phase() -> None:
-    """Both kernel sources at once, one nvcc each."""
+    """Every kernel source at once, one nvcc each."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
 
-    names = ("paged_attention", "flash_attention")
+    names = _build.SOURCES
     t0 = time.perf_counter()
     _build.build(*names)
     emit({"phase": "build", "libraries": [str(_build.library_path(n).relative_to(ROOT))
@@ -883,6 +918,388 @@ def train_cli_phase(work: Path) -> dict:
     return row
 
 
+# -- vocab CE kernels ----------------------------------------------------------
+
+VOCAB_CASES = [
+    # name, tokens N, vocab V, hidden H, hidden dtype, label smoothing, tied W
+    ("gpt2_bf16", 4096, 50257, 768, "bfloat16", 0.0, False),
+    ("eval_bf16", 2048, 50257, 768, "bfloat16", 0.0, False),   # the eval steps' shape
+    ("gpt2_fp32", 4096, 50257, 768, "float32", 0.0, False),
+    ("ragged", 1000, 1001, 768, "float32", 0.0, False),
+    ("h200", 512, 4000, 200, "float32", 0.0, False),
+    ("h800", 256, 2000, 800, "float32", 0.0, False),
+    ("smooth0.1", 1024, 8192, 768, "float32", 0.1, False),
+    ("ties", 512, 4096, 768, "float32", 0.0, True),
+]
+VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
+VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
+VOCAB_ITERS = 5
+CE_NEAR_TIE = 1e-5
+# a bf16 output (dH for bf16 hidden) is held to 2^-6 of max|want| with no
+# floor of 1: one bf16 ulp is at most 2^-7 of a value, and both sides round
+CE_BF16_TOL = 2.0 ** -6
+
+
+def _ce_limit(got, want_max: float) -> float:
+    """The largest |got - want| allowed: fp32 outputs (loss, LSE, dW, and
+    dH for fp32 hidden) 1e-4·max(1, max|want|); a bf16 output
+    ``CE_BF16_TOL``·max|want|."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        return CE_BF16_TOL * want_max
+    return TOL["float32"] * max(1.0, want_max)
+
+
+def _vocab_inputs(case, gen, device):
+    """hidden (LayerNorm-like, unit scale), W (the init's 0.02 scale),
+    labels and the loss cotangent g (1 on 90% of the tokens, 0 on the
+    rest, like a masked sum: gradients of order 1, so the error bound
+    relative to max(1, max|want|) is not loose)."""
+    import torch
+
+    name, N, V, H, dt, eps, ties = case
+    h = torch.randn(N, H, generator=gen).to(device, getattr(torch, dt))
+    w = torch.randn(1 if ties else V, H, generator=gen) * 0.02
+    w = w.expand(V, H).contiguous().to(device)
+    labels = torch.randint(0, V, (N,), generator=gen).to(device)
+    g = (torch.rand(N, generator=gen) < 0.9).float().to(device)
+    return h, w, labels, g
+
+
+def _ce_work(case) -> dict:
+    """Bytes and flops each K2 kernel needs: every input read once and
+    every output written once (hidden, W, the int32 labels; loss, LSE and
+    pred; LSE and g in; dH or dW out), 2·N·V·H flops for the logits and as
+    much again for the backward kernels' product."""
+    name, N, V, H, dt, eps, ties = case
+    hb = 2 if dt == "bfloat16" else 4
+    inputs = N * H * hb + V * H * 4 + N * 4
+    logits = 2 * N * V * H
+    return {"fused_ce_fwd": (inputs + 3 * N * 4, logits),
+            "fused_ce_bwd_dh": (inputs + 2 * N * 4 + N * H * hb, 2 * logits),
+            "fused_ce_bwd_dw": (inputs + 2 * N * 4 + V * H * 4, 2 * logits)}
+
+
+def vocab_ce_phase() -> dict:
+    """Each K2 kernel against its plain version on every case; times and
+    bounds. Returns the rows by (case, kernel)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    vc.load_kernel()
+    gen = torch.Generator().manual_seed(2)
+    results = {}
+    for case in VOCAB_CASES:
+        results.update(_vocab_case(case, gen, torch.device(DEVICE)))
+    return results
+
+
+def _vocab_case(case, gen, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    name, N, V, H, dt, eps, ties = case
+    sets = [_vocab_inputs(case, gen, dev) for _ in range(VOCAB_COPIES)]
+    h, w, lab, g = sets[0]
+    loss, lse, pred = vc.fused_ce_fwd(h, w, lab, eps)
+    rloss, rlse, rpred = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    dh = vc.fused_ce_bwd_dh(h, w, lab, rlse, g, eps)
+    rdh = vc.fused_ce_bwd_dh_reference(h, w, lab, rlse, g, eps)
+    dw = vc.fused_ce_bwd_dw(h, w, lab, rlse, g, eps)
+    rdw = vc.fused_ce_bwd_dw_reference(h, w, lab, rlse, g, eps)
+    _sync()
+    compared = {"fused_ce_fwd": [(loss, rloss), (lse, rlse)],
+                "fused_ce_bwd_dh": [(dh, rdh)],
+                "fused_ce_bwd_dw": [(dw, rdw)]}
+    errs, limits = {}, {}
+    for kname, pairs in compared.items():
+        err, limit = 0.0, float("inf")
+        for got, want in pairs:
+            gf, wf = got.float(), want.float()
+            e, m = float((gf - wf).abs().max()), float(wf.abs().max())
+            lim = _ce_limit(got, m)
+            check(bool(torch.isfinite(gf).all()) and e <= lim,
+                  f"vocab case {name}: {kname} max_abs_err {e} over {lim} "
+                  f"(max |want| {m})")
+            err, limit = max(err, e), min(limit, lim)
+        errs[kname], limits[kname] = err, limit
+    # pred: the plain argmax, except where the plain top-two gap is a near tie
+    s = vc._logits(h, w)
+    top2 = s.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < CE_NEAR_TIE * float(s.abs().max())
+    del s, top2
+    wrong = int(((pred != rpred) & ~near).sum())
+    check(wrong == 0, f"vocab case {name}: {wrong} predictions differ off near-ties")
+    if ties:
+        check(bool((pred == 0).all()), f"vocab case {name}: a tie did not go to id 0")
+
+    fwd_sets = [(h_, w_, l_) for h_, w_, l_, _ in sets]
+    bwd_sets = [(h_, w_, l_, vc.fused_ce_fwd_reference(h_, w_, l_, eps)[1], g_)
+                for h_, w_, l_, g_ in sets]
+    ms = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd(*a, eps), fwd_sets,
+                                   iters=VOCAB_ITERS),
+          "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh(*a, eps), bwd_sets,
+                                      iters=VOCAB_ITERS),
+          "fused_ce_bwd_dw": _cuda_ms(lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets,
+                                      iters=VOCAB_ITERS)}
+    plain = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd_reference(*a, eps),
+                                      fwd_sets, iters=3),
+             "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh_reference(*a, eps),
+                                         bwd_sets, iters=3),
+             "fused_ce_bwd_dw": _cuda_ms(lambda *a: vc.fused_ce_bwd_dw_reference(*a, eps),
+                                         bwd_sets, iters=3)}
+
+    # the library yardstick, two calls: fp32 matmul (TF32 off) and
+    # cross_entropy; its autograd backward gives dH and dW together
+    def lib_fwd(h_, w_, l_):
+        with torch.no_grad():
+            F.cross_entropy(torch.matmul(h_.float(), w_.t()), l_, reduction="none",
+                            label_smoothing=eps)
+
+    lib_bwd_sets = []
+    for h_, w_, l_, g_ in sets:
+        hf = h_.float().requires_grad_(True)
+        wf = w_.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = F.cross_entropy(torch.matmul(hf, wf.t()), l_, reduction="none",
+                                  label_smoothing=eps)
+        lib_bwd_sets.append((out, (hf, wf), g_))
+
+    def lib_bwd(out, leaves, g_):
+        torch.autograd.grad(out, leaves, g_, retain_graph=True)
+
+    lib_fwd_ms = _cuda_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS)
+    lib_bwd_ms = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
+    library = {"fused_ce_fwd": lib_fwd_ms, "fused_ce_bwd_dh": lib_bwd_ms,
+               "fused_ce_bwd_dw": lib_bwd_ms}
+    results = {}
+    for kname, (nbytes, flops) in _ce_work(case).items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"phase": "vocab_kernel", "case": name, "kernel": kname, "N": N, "V": V,
+               "H": H, "hidden_dtype": dt, "weight_dtype": "float32",
+               "label_smoothing": eps, "tied_weight": ties,
+               "max_abs_err": errs[kname], "max_abs_err_limit": limits[kname],
+               "status": "pass", "near_ties": int(near.sum()),
+               "kernel_ms": ms[kname], "plain_ms": plain[kname], "library_ms": library[kname],
+               "library": ("torch.matmul fp32 + cross_entropy (two calls)"
+                           if kname == "fused_ce_fwd" else
+                           "autograd backward of torch.matmul + cross_entropy, dH and dW "
+                           "together (two calls)"),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        emit(row)
+        results[(name, kname)] = row
+    del sets, fwd_sets, bwd_sets, lib_bwd_sets
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- GPT-2 causal-LM training --------------------------------------------------
+
+# the HF hub's gpt2/config.json widths
+GPT2_124M = {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+             "vocab_size": 50257, "n_positions": 1024, "n_embd": 768, "n_layer": 12,
+             "n_head": 12, "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+             "resid_pdrop": 0.1, "embd_pdrop": 0.1, "attn_pdrop": 0.1,
+             "initializer_range": 0.02, "bos_token_id": 50256, "eos_token_id": 50256}
+GPT2_SEQ = 512
+GPT2_CLI_STEPS = 20
+GPT2_EVAL_SAMPLES = 64
+PARITY_ZERO_GRAD = 1e-6
+
+
+def _lm_batch(n: int, seq: int, device, split: str = "train") -> dict:
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    texts, _ = load_text_classification("vendored_reviews", split, max_samples=n)
+    ds = ArrayDataset.from_lm_texts(WordHashTokenizer(vocab_size=GPT2_124M["vocab_size"]),
+                                    texts, seq)
+    return {k: torch.from_numpy(v).long().to(device) for k, v in ds.columns.items()}
+
+
+def gpt2_parity_phase() -> dict:
+    """(a) one fp32 GPT-2 train step, kernels against the plain path."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
+        gpt2_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        causal_lm_loss,
+        make_fused_causal_lm_loss,
+    )
+
+    batch = _lm_batch(8, GPT2_SEQ, DEVICE)
+    losses, grads = {}, {}
+    for impl in ("flash", "xla"):
+        cfg = gpt2_config_from_hf(GPT2_124M, hidden_dropout=0.0, embd_dropout=0.0,
+                                  attention_dropout=0.0, attention_impl=impl)
+        model = init_gpt2(cfg, seed=0, device=DEVICE, trainable=True).train()
+        loss_fn = make_fused_causal_lm_loss(model) if impl == "flash" else causal_lm_loss
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+        losses[impl] = float(loss.detach())
+        grads[impl] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model, loss
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rel_loss = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    # a parameter whose exact gradient is 0 holds rounding noise on both
+    # sides: held apart, its noise must stay below 1e-5 of the global norm
+    total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads["xla"].values())))
+    zero = [n for n, g in grads["xla"].items() if float(g.norm()) <= PARITY_ZERO_GRAD * total]
+    noise = max((float(grads[i][n].norm()) for i in grads for n in zero), default=0.0) / total
+    rel = {n: float((g - grads["xla"][n]).norm() / grads["xla"][n].norm())
+           for n, g in grads["flash"].items() if n not in zero}
+    worst = max(rel, key=rel.get)
+    row = {"phase": "gpt2_parity", "model": "gpt2 124M widths", "layers": GPT2_124M["n_layer"],
+           "batch": 8, "seq": GPT2_SEQ, "dtype": "float32", "tf32": False,
+           "kernels": "flash causal attention + fused vocab CE",
+           "plain": "plain attention + unfused logits and CE",
+           "loss_kernels": losses["flash"], "loss_plain": losses["xla"],
+           "loss_rel_err": rel_loss, "loss_rtol": PARITY_LOSS_RTOL,
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+           "grad_rel_l2_tol": PARITY_GRAD_REL_L2, "params": len(rel),
+           "zero_grad_params": zero, "zero_grad_noise_over_global": noise}
+    emit(row)
+    check(rel_loss <= PARITY_LOSS_RTOL, f"gpt2 parity: loss rel err {rel_loss}")
+    check(rel[worst] <= PARITY_GRAD_REL_L2, f"gpt2 parity: {worst} grad rel L2 {rel[worst]}")
+    check(noise <= PARITY_KEY_BIAS, f"gpt2 parity: zero-gradient noise {noise}")
+    return row
+
+
+_K2 = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+_K1 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def gpt2_cli_phase(work: Path) -> dict:
+    """(b) the causal-LM training CLI's main path at its defaults, counted."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    cfg_dir, out_dir, model_dir = work / "config", work / "output", work / "model"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(GPT2_124M))
+    argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+            "--task", "causal-lm", "--fused_vocab_ce", "true",
+            "--dataset", "vendored_reviews", "--epochs", "1",
+            "--steps_per_epoch", str(GPT2_CLI_STEPS),
+            "--max_eval_samples", str(GPT2_EVAL_SAMPLES),
+            "--output_data_dir", str(out_dir), "--model_dir", str(model_dir),
+            "--log_every_steps", "10", "--device", DEVICE]
+    kernels = [(vc, k) for k in _K2] + [(fa, k) for k in _K1]
+    for mod, k in kernels:
+        getattr(mod, k).launches = 0
+    t0 = time.perf_counter()
+    results, trainer = cli.run(argv)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(mod, k).launches for mod, k in kernels}
+    cfg = trainer.model.config
+    train_steps = trainer.step
+    eval_steps = math.ceil(GPT2_EVAL_SAMPLES / trainer.config.eval_batch_size)
+    L = cfg.num_layers
+    check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+          and cfg.attention_dropout > 0 and trainer.config.fused_vocab_ce
+          and trainer.config.max_seq_length == 512 and trainer.config.train_batch_size == 8
+          and trainer.config.eval_batch_size == 4, "the CLI did not run at its defaults")
+    check(train_steps == GPT2_CLI_STEPS, f"{train_steps} train steps, wanted {GPT2_CLI_STEPS}")
+    check(launches["fused_ce_fwd"] == train_steps + eval_steps,
+          f"fused_ce_fwd launches {launches['fused_ce_fwd']} != {train_steps} + {eval_steps}")
+    for k in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        check(launches[k] == train_steps, f"{k} launches {launches[k]} != {train_steps}")
+    # train steps take the unfused dropout softmax (attn_pdrop > 0), eval
+    # steps the flash forward
+    check(launches["flash_fwd"] == L * eval_steps,
+          f"flash_fwd launches {launches['flash_fwd']} != {L} x {eval_steps}")
+    hist, ev = results["train"], results["eval"]
+    check(all(math.isfinite(x) for x in hist["loss"]) and math.isfinite(ev["eval_loss"]),
+          "non-finite loss")
+    tr = read_results_file(str(out_dir / "train_results.txt"))
+    er = read_results_file(str(out_dir / "eval_results.txt"))
+    check(list(tr) == TRAIN_RESULT_KEYS, f"train_results.txt keys {list(tr)}")
+    check(list(er) == EVAL_RESULT_KEYS, f"eval_results.txt keys {list(er)}")
+
+    # the export reloads into the port with identical logits
+    batch = _lm_batch(4, GPT2_SEQ, DEVICE, split="test")
+    reloaded, _, _ = auto.from_pretrained(str(model_dir), task="causal-lm",
+                                          dtype=torch.bfloat16, device=DEVICE,
+                                          attention_impl="flash")
+    model = trainer.model.eval()
+    with torch.no_grad():
+        a = model(batch["input_ids"], batch["attention_mask"])
+        b = reloaded.eval()(batch["input_ids"], batch["attention_mask"])
+    check(torch.equal(a, b), "reloaded model.safetensors gives other logits")
+    del reloaded, a, b
+
+    # the device's idle share over more train steps: wall unprofiled, then
+    # device busy time from a profiled run of as many steps
+    extra = [_lm_batch(8, GPT2_SEQ, DEVICE)] * 6
+    _sync()
+    t1 = time.perf_counter()
+    for b_ in extra:
+        trainer.train_step(b_)
+    _sync()
+    steps_wall = time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                                  else ProfilerActivity.CPU]) as prof:
+        for b_ in extra:
+            trainer.train_step(b_)
+        _sync()
+    by_kernel = _device_seconds_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    k2_names = {"fused_ce_fwd": ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel"),
+                "fused_ce_bwd_dh": ("vocab_ce_bwd_dh_kernel", "vocab_ce_dh_reduce_kernel"),
+                "fused_ce_bwd_dw": ("vocab_ce_bwd_dw_kernel",)}
+    k2_s = {k: sum(v for n, v in by_kernel.items() if any(c in n for c in names))
+            for k, names in k2_names.items()}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    row = {"phase": "gpt2_train", "model": "gpt2 124M widths (random init, seed 42)",
+           "layers": L, "dtype": "bfloat16", "seq": 512, "batch": 8, "eval_batch": 4,
+           "optimizer": trainer.config.optimizer, "train_steps": train_steps,
+           "eval_steps": eval_steps, "launches": launches,
+           "loss": hist["loss"], "eval_loss": ev["eval_loss"],
+           "eval_accuracy": ev["eval_accuracy"],
+           "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
+           "step_time_s": trainer.meter.avg_step_time,
+           "train_runtime_s": hist["train_runtime"], "cli_wall_s": wall,
+           "profiled_steps": len(extra), "steps_wall_s": steps_wall,
+           "step_time_unprofiled_s": steps_wall / len(extra),
+           "device_busy_s": busy if busy else "not measured",
+           "idle_share": 1.0 - busy / steps_wall if busy else "not measured",
+           "k2_kernel_s": k2_s,
+           "k2_share_of_busy": sum(k2_s.values()) / busy if busy else "not measured",
+           "top_kernels_s": [[k[:80], v] for k, v in top]}
+    emit(row)
+    return row
+
 
 def main() -> int:
     import torch
@@ -905,9 +1322,14 @@ def main() -> int:
     train_parity_phase()
     with tempfile.TemporaryDirectory() as work:
         train = train_cli_phase(Path(work))
+    torch.cuda.empty_cache()
+    vocab = vocab_ce_phase()
+    gpt2_parity_phase()
+    with tempfile.TemporaryDirectory() as work:
+        gpt2 = gpt2_cli_phase(Path(work))
     main_case = kernels["gpt2"]
     flash_rows = []
-    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for kname in _K1:
         r = flash[(FLASH_MAIN, kname)]
         flash_rows.append({
             "name": kname, "route": "cuda", "source": FLASH_SOURCE,
@@ -916,6 +1338,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "status": {c: row["status"] for (c, k), row in flash.items() if k == kname}})
+    vocab_rows = []
+    for kname in _K2:
+        r = vocab[(VOCAB_MAIN, kname)]
+        vocab_rows.append({
+            "name": kname, "route": "cuda", "source": VOCAB_SOURCE,
+            "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "status": {c: row["status"] for (c, k), row in vocab.items() if k == kname}})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -925,7 +1357,8 @@ def main() -> int:
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "status": {name: r["status"] for name, r in kernels.items()}}] + flash_rows})
+        "status": {name: r["status"] for name, r in kernels.items()}}] + flash_rows
+        + vocab_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ serving of GPT-2, with paged decode attention as a hand-written CUDA
 kernel for Hopper (``csrc/paged_attention.cu``); its second is
 BERT-family sequence-classification fine-tuning (``train/cli.py``), with
 the flash-attention forward, dQ and dK/dV/dmask as hand-written CUDA
-kernels (``csrc/flash_attention.cu``). Entry points run on ``cuda``
+kernels (``csrc/flash_attention.cu``); its third is GPT-2 causal-LM
+training (``train/cli.py --task causal-lm``), with the fused LM head +
+cross-entropy forward, dH and dW as hand-written CUDA kernels
+(``csrc/vocab_ce.cu``). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise
 instead of falling back.
 """

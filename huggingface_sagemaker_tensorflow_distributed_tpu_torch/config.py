@@ -276,13 +276,13 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.task != "seq-cls", f"task={self.task!r}", "B/C (other tasks)"),
+            (self.task not in ("seq-cls", "causal-lm"), f"task={self.task!r}",
+             "B/C (other tasks)"),
             (self.lora_rank > 0, "lora_rank>0", "B (LoRA)"),
             (self.num_experts > 0, "num_experts>0", "C (MoE)"),
             (self.streaming, "streaming", "2 follow-ups (data: streaming)"),
             (self.packed_sequences or self.segment_packing,
              "packed_sequences/segment_packing", "B (packing)"),
-            (self.fused_vocab_ce, "fused_vocab_ce", "3 (fused vocab CE, K2)"),
             (self.bucket_multiple > 0, "bucket_multiple",
              "2 follow-ups (bucketing)"),
             (self.optimizer in ("adafactor", "lamb"), f"optimizer={self.optimizer!r}",

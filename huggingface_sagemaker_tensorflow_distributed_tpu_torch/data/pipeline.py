@@ -1,6 +1,7 @@
 """Input pipeline: static-shape batching and per-rank sharding
-(counterpart of the JAX package's ``ArrayDataset.from_texts`` and
-``ShardedBatcher``, ``data/pipeline.py``).
+(counterpart of the JAX package's ``ArrayDataset.from_texts``,
+``ArrayDataset.from_lm_texts`` and ``ShardedBatcher``,
+``data/pipeline.py``).
 
 Every rank builds the same seeded epoch permutation (the JAX package's
 splitmix64 order, bit for bit) and takes its slice of each global batch,
@@ -67,6 +68,25 @@ class ArrayDataset:
         if labels is not None:
             cols["labels"] = np.asarray(labels, np.int32)
         return cls(cols)
+
+    @classmethod
+    def from_lm_texts(cls, tokenizer, texts, max_length: int = 512,
+                      packed: bool = False,
+                      eos_token_id: Optional[int] = None) -> "ArrayDataset":
+        """Causal-LM corpus: labels are the input ids themselves (the
+        trainer's causal-lm loss shifts them); pad positions get -100.
+        ``eos_token_id`` serves the packed layout only, which is not ported
+        yet (``packed=True`` raises)."""
+        if packed:
+            raise NotImplementedError(
+                "packed LM rows (packed=True) are not ported to the PyTorch "
+                "package yet: ROADMAP slice B (packing)")
+        enc = tokenizer(texts, truncation=True, padding="max_length",
+                        max_length=max_length)
+        ids = np.asarray(enc["input_ids"], np.int32)
+        mask = np.asarray(enc["attention_mask"], np.int32)
+        labels = np.where(mask > 0, ids, -100).astype(np.int32)
+        return cls({"input_ids": ids, "attention_mask": mask, "labels": labels})
 
 
 def _rank_and_world() -> tuple[int, int]:

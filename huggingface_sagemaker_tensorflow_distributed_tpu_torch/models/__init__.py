@@ -1,1 +1,2 @@
-"""Models of the PyTorch port (GPT-2 for the serving slice)."""
+"""Models of the PyTorch port (GPT-2 for serving and causal-LM training,
+BERT for sequence classification)."""

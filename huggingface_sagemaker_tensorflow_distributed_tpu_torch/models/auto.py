@@ -8,8 +8,9 @@ directory, builds the model with fresh seeded weights, and overlays
 checkpoint keep their fresh weights; a missing backbone weight raises).
 ``save_pretrained`` writes ``model.safetensors`` (metadata
 ``{"format": "pt"}``) and ``config.json`` in HF layout, from rank 0 only,
-readable by the JAX package's ``from_pretrained`` and the reverse. Only
-the ``bert`` family with task ``seq-cls`` is ported so far.
+readable by the JAX package's ``from_pretrained`` and the reverse. The
+``bert`` family with task ``seq-cls`` and the ``gpt2`` family with task
+``causal-lm`` are ported so far.
 """
 
 from __future__ import annotations
@@ -26,7 +27,14 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
     bert_from_hf,
     bert_to_hf,
+    gpt2_from_hf,
+    gpt2_to_hf,
     init_bert,
+    init_gpt2,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
+    gpt2_config_from_hf,
+    gpt2_config_to_hf,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.safetensors_io import (
     load_file,
@@ -45,6 +53,7 @@ _KNOWN_FAMILIES = ("bert", "roberta", "distilbert", "electra", "albert", "t5",
 _FAMILY_ALIASES = {"xlm-roberta": "roberta", "camembert": "roberta",
                    "mistral": "llama", "qwen2": "llama", "gemma": "llama",
                    "mixtral": "llama"}
+_PORTED = ("bert", "gpt2")
 _GENERATION_KEYS = ("forced_bos_token_id", "forced_eos_token_id",
                     "decoder_start_token_id", "bos_token_id",
                     "eos_token_id", "pad_token_id")
@@ -66,13 +75,14 @@ def load_hf_config(model_dir: str) -> dict:
 
 
 def detect_family(hf_config: dict) -> str:
-    """The architecture family of an HF config; only ``bert`` is ported."""
+    """The architecture family of an HF config; ``bert`` and ``gpt2`` are
+    ported."""
     mt = hf_config.get("model_type", "")
     mt = _FAMILY_ALIASES.get(mt, mt)
     if mt not in _KNOWN_FAMILIES:
         raise ValueError(f"unsupported model_type {mt!r} (supported: "
                          f"{sorted(_KNOWN_FAMILIES) + sorted(_FAMILY_ALIASES)})")
-    if mt != "bert":
+    if mt not in _PORTED:
         raise NotImplementedError(
             f"model family {mt!r} is not ported to the PyTorch package yet: "
             "ROADMAP slices B/C")
@@ -92,17 +102,28 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
             "e.g. produced by `save_pretrained`.")
     hf_config = load_hf_config(model_name_or_path)
     family = detect_family(hf_config)
-    if task != "seq-cls":
-        raise NotImplementedError(f"task {task!r} is not ported to the PyTorch "
-                                  "package yet: ROADMAP slices B/C")
-    config = bert_config_from_hf(hf_config, dtype=dtype, param_dtype=param_dtype,
-                                 **config_overrides)
-    model = init_bert(config, seed=seed, device=device, num_labels=num_labels)
+    if family == "gpt2":
+        if task != "causal-lm":
+            raise ValueError(
+                f"{model_name_or_path!r} is a gpt2 (decoder-only) checkpoint; it "
+                f"only supports task='causal-lm', got task={task!r}")
+        config = gpt2_config_from_hf(hf_config, dtype=dtype, param_dtype=param_dtype,
+                                     **config_overrides)
+        model = init_gpt2(config, seed=seed, device=device, trainable=True)
+        from_hf = gpt2_from_hf
+    else:
+        if task != "seq-cls":
+            raise NotImplementedError(f"task {task!r} is not ported to the PyTorch "
+                                      "package yet: ROADMAP slices B/C")
+        config = bert_config_from_hf(hf_config, dtype=dtype, param_dtype=param_dtype,
+                                     **config_overrides)
+        model = init_bert(config, seed=seed, device=device, num_labels=num_labels)
+        from_hf = bert_from_hf
     weights = os.path.join(model_name_or_path, "model.safetensors")
     if from_scratch or not os.path.exists(weights):
         logger.info("initialized %s (%s) from scratch", model_name_or_path, family)
         return model, family, config
-    loaded = bert_from_hf(load_file(weights))
+    loaded = from_hf(load_file(weights))
     own = model.state_dict()
     missing = sorted(set(own) - set(loaded))
     backbone_missing = [m for m in missing
@@ -124,14 +145,16 @@ def save_pretrained(output_dir: str, model, family: str, config,
                     host0_only: bool = True) -> None:
     """Export ``model`` in HF layout (``model.safetensors`` +
     ``config.json``), from rank 0 only unless ``host0_only`` is False."""
-    if family != "bert":
+    if family not in _PORTED:
         raise NotImplementedError(f"export of family {family!r} is not ported yet")
     if host0_only and process_index() != 0:
         return
     os.makedirs(output_dir, exist_ok=True)
-    state = bert_to_hf({k: v.detach() for k, v in model.state_dict().items()})
+    to_hf, config_to_hf = ((gpt2_to_hf, gpt2_config_to_hf) if family == "gpt2"
+                           else (bert_to_hf, bert_config_to_hf))
+    state = to_hf({k: v.detach() for k, v in model.state_dict().items()})
     save_file(state, os.path.join(output_dir, "model.safetensors"),
               metadata={"format": "pt"})
     with open(os.path.join(output_dir, "config.json"), "w") as f:
-        json.dump(bert_config_to_hf(config), f, indent=2)
+        json.dump(config_to_hf(config), f, indent=2)
     logger.info("exported HF-layout checkpoint to %s", output_dir)

@@ -14,9 +14,13 @@ made at random from a seed, or mapped to and from the HF key layout.
   ``initializer_range / sqrt(2 * layers)``), zero biases, unit LayerNorm
   scales. The numbers come from a ``torch.Generator``, so they are not
   JAX's numbers for the same seed.
-- :func:`bert_to_hf` / :func:`bert_from_hf` map a BERT ``state_dict`` to
-  the HF layout and back, with the JAX package's ``params_to_hf`` /
-  ``hf_to_params`` names for family ``bert``.
+- :func:`bert_to_hf` / :func:`bert_from_hf` and :func:`gpt2_to_hf` /
+  :func:`gpt2_from_hf` map a ``state_dict`` to the HF layout and back, with
+  the JAX package's ``params_to_hf`` / ``hf_to_params`` names for families
+  ``bert`` and ``gpt2``. HF's GPT-2 ``Conv1D`` stores ``[in, out]``, so the
+  port's ``Linear.weight [out, in]`` is transposed on the way (the JAX
+  package's ``[in, out]`` kernels are not); ``lm_head`` is tied to ``wte``
+  and is not written.
 """
 
 from __future__ import annotations
@@ -74,11 +78,13 @@ def _init_normal(model, std_of, seed: int):
     return model
 
 
-def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None) -> Gpt2LMHeadModel:
+def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None,
+              trainable: bool = False) -> Gpt2LMHeadModel:
     """A GPT-2 with random weights from ``seed``, in eval mode on
     ``device`` (CUDA unless the caller names another; raises without
     it). Weights are drawn on the CPU, so a seed gives the same model on
-    every device."""
+    every device. Its parameters take no gradient unless ``trainable``
+    (serving keeps them frozen)."""
     dev = resolve_device(device)
     std = cfg.initializer_range
     resid_std = std / (2 * cfg.num_layers) ** 0.5
@@ -86,7 +92,7 @@ def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None) -> Gpt2LMHeadModel:
         Gpt2LMHeadModel(cfg),
         lambda name: resid_std if any(f".{r}." in name for r in _RESIDUAL_OUT) else std,
         seed)
-    return model.to(dev).eval().requires_grad_(False)
+    return model.to(dev).eval().requires_grad_(trainable)
 
 
 def init_bert(cfg, seed: int = 0, device=None, num_labels: int = 2):
@@ -121,18 +127,21 @@ _BERT_NAMES = [
 ]
 
 
-def _rules(src: int, optional_bert: bool):
+def _rules(names, src: int, prefix: str):
+    """Key-translation rules from ``names[i][src]`` to ``names[i][1 - src]``;
+    HF keys read with or without their ``prefix`` (``bert``,
+    ``transformer``)."""
     rules = []
-    for pair in _BERT_NAMES:
+    for pair in names:
         pattern = re.escape(pair[src]).replace(r"\{\}", r"(\d+)")
-        if optional_bert and pattern.startswith("bert"):
-            pattern = r"(?:bert\.)?" + pattern[len("bert\\."):]
+        if src == 1 and pattern.startswith(prefix):
+            pattern = rf"(?:{prefix}\.)?" + pattern[len(prefix) + 2:]
         rules.append((re.compile(f"^{pattern}\\.(weight|bias)$"), pair[1 - src]))
     return rules
 
 
-_TO_HF = _rules(0, optional_bert=False)
-_FROM_HF = _rules(1, optional_bert=True)
+_TO_HF = _rules(_BERT_NAMES, 0, "bert")
+_FROM_HF = _rules(_BERT_NAMES, 1, "bert")
 
 
 def _translate(key: str, rules) -> str | None:
@@ -164,4 +173,47 @@ def bert_from_hf(hf_state: dict) -> dict:
         port = _translate(key, _FROM_HF)
         if port is not None:
             out[port] = value
+    return out
+
+
+_GPT2_NAMES = [
+    ("backbone.wte", "transformer.wte"),
+    ("backbone.wpe", "transformer.wpe"),
+    ("backbone.h.{}.ln_1", "transformer.h.{}.ln_1"),
+    ("backbone.h.{}.attention.qkv", "transformer.h.{}.attn.c_attn"),
+    ("backbone.h.{}.attention.attn_out", "transformer.h.{}.attn.c_proj"),
+    ("backbone.h.{}.ln_2", "transformer.h.{}.ln_2"),
+    ("backbone.h.{}.mlp.fc_in", "transformer.h.{}.mlp.c_fc"),
+    ("backbone.h.{}.mlp.fc_out", "transformer.h.{}.mlp.c_proj"),
+    ("backbone.ln_f", "transformer.ln_f"),
+]
+_GPT2_TO_HF = _rules(_GPT2_NAMES, 0, "transformer")
+_GPT2_FROM_HF = _rules(_GPT2_NAMES, 1, "transformer")
+# the port's Linear layers: [out, in] here, Conv1D [in, out] in HF
+_GPT2_LINEAR = re.compile(r"\.(qkv|attn_out|fc_in|fc_out)\.weight$")
+
+
+def gpt2_to_hf(state_dict: dict) -> dict:
+    """Port GPT-2 ``state_dict`` -> HF keys (``transformer.`` prefix,
+    Conv1D weights ``[in, out]``); ``lm_head`` is tied and not written."""
+    out = {}
+    for key, value in state_dict.items():
+        hf = _translate(key, _GPT2_TO_HF)
+        if hf is not None:
+            out[hf] = value.t().contiguous() if _GPT2_LINEAR.search(key) else value
+    return out
+
+
+def gpt2_from_hf(hf_state: dict) -> dict:
+    """HF GPT-2 keys (with or without ``transformer.``) -> port keys; a
+    saved ``lm_head.weight`` stands in for a missing ``wte`` (they are
+    tied), and other keys (the attention's causal-mask buffers) are
+    dropped, as the JAX package's ``hf_to_params`` skips them."""
+    out = {}
+    for key, value in hf_state.items():
+        port = _translate(key, _GPT2_FROM_HF)
+        if port is not None:
+            out[port] = value.t().contiguous() if _GPT2_LINEAR.search(port) else value
+    if "backbone.wte.weight" not in out and "lm_head.weight" in hf_state:
+        out["backbone.wte.weight"] = hf_state["lm_head.weight"]
     return out

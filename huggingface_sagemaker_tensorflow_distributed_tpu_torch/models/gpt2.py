@@ -1,11 +1,16 @@
 """GPT-2 as ``nn.Module``s: the decoder-only causal LM of the JAX
 package's ``models/gpt2.py`` (HF ``GPT2LMHeadModel`` architecture).
 
-- learned token (``wte``) and position (``wpe``) embeddings;
-- pre-LN blocks: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``;
+- learned token (``wte``) and position (``wpe``) embeddings, embedding
+  dropout;
+- pre-LN blocks: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``, with
+  residual dropout on the attention and MLP outputs;
 - a fused qkv projection, a gelu_new MLP, a final ``ln_f``, and the LM
   head tied to ``wte``; logits are fp32.
 
+The dtype discipline is the JAX package's (``models/layers.py``'s
+``Dense``, ``Embed`` and ``LayerNorm``): parameters in ``param_dtype``,
+compute in ``dtype``, layer-norm statistics and attention softmax in fp32.
 Module names follow the JAX parameter tree (``backbone/h_<i>/attention/
 qkv`` becomes ``backbone.h.<i>.attention.qkv``), which is what lets
 ``convert.params_from_jax`` carry weights across by name.
@@ -13,7 +18,11 @@ qkv`` becomes ``backbone.h.<i>.attention.qkv``), which is what lets
 The forward has three call forms, chosen by ``cache``:
 
 - ``None``: the full causal forward (``attention_mask`` [B, S] marks
-  padding);
+  padding), through ``ops.attention.dot_product_attention(causal=True)``
+  with ``attention_impl`` (``flash``: the CUDA kernels on the card). In
+  training with ``attention_dropout > 0`` the attention is the unfused
+  softmax with dropout on the probabilities instead, as in the JAX
+  package (the flash kernels have no dropout hook);
 - a :class:`~.kv_cache.DenseCache`: the cached chunk forward. The chunk's
   K/V is written at each row's ``cache.index``, queries attend over the
   whole buffer masked by ``attention_mask`` [B, max_len] (kv validity)
@@ -23,13 +32,15 @@ The forward has three call forms, chosen by ``cache``:
   runs through ``ops.attention.paged_attention`` (the CUDA kernel on the
   card).
 
-The port is inference-only: no dropout is applied. MoE, pipeline
-stages, remat, weight quantization and attention impls other than
-``xla`` are not ported and raise.
+:meth:`Gpt2LMHeadModel.hidden_and_embedding` hands the pre-head hidden
+states and the tied embedding to the fused vocab cross-entropy. MoE,
+pipeline stages, remat, weight quantization and ``attention_impl='ring'``
+are not ported and raise.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -44,13 +55,33 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache impo
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
     ACT2FN,
+    Dense,
+    Embed,
+    LayerNorm,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     NEG,
-    make_causal_mask,
+    dot_product_attention,
+    make_attention_mask,
     paged_attention,
     xla_attention,
 )
+
+_flash_dropout_warned = False
+
+
+def _warn_flash_dropout_fallback():
+    """One-time warning: ``attention_impl='flash'`` with
+    ``attention_dropout > 0`` in training takes the unfused softmax (the
+    flash kernels have no probability-dropout hook)."""
+    global _flash_dropout_warned
+    if not _flash_dropout_warned:
+        _flash_dropout_warned = True
+        logging.getLogger(__name__).warning(
+            "gpt2: attention_impl='flash' requested but attention_dropout "
+            "> 0 in training has no flash hook — using the unfused O(S^2) "
+            "softmax for this step. Set attention_dropout=0.0 to keep the "
+            "flash kernel (HF fine-tunes commonly do).")
 
 
 @dataclass(frozen=True)
@@ -72,7 +103,7 @@ class Gpt2Config:
     pad_token_id: int = 50256             # GPT-2 has no pad; HF uses eos
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
-    attention_impl: str = "xla"
+    attention_impl: str = "xla"           # xla | flash
     remat: bool = False
     remat_policy: str = "full"
     num_experts: int = 0
@@ -90,20 +121,23 @@ class Gpt2Config:
             raise ValueError(
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r} "
                 "(fp | int8)")
+        if self.attention_impl not in ("xla", "flash", "ring"):
+            raise ValueError(f"unknown attention_impl {self.attention_impl!r} "
+                             "(xla | flash | ring)")
         unported = {
             "num_experts": self.num_experts != 0,
             "pipeline_stages": self.pipeline_stages != 0,
             "remat": bool(self.remat),
             "weight_quant": self.weight_quant != "none",
-            "attention_impl": self.attention_impl != "xla",
+            "attention_impl='ring'": self.attention_impl == "ring",
         }
         bad = [k for k, on in unported.items() if on]
         if bad:
             raise ValueError(f"the PyTorch port does not support "
                              f"{', '.join(bad)} yet")
-        if not isinstance(self.dtype, torch.dtype) or self.param_dtype != self.dtype:
-            raise ValueError("dtype must be a torch dtype equal to "
-                             "param_dtype in the port")
+        if not (isinstance(self.dtype, torch.dtype)
+                and isinstance(self.param_dtype, torch.dtype)):
+            raise ValueError("dtype and param_dtype must be torch dtypes")
 
 
 def gpt2_config_from_hf(hf_config: dict, **overrides) -> Gpt2Config:
@@ -132,6 +166,23 @@ def gpt2_config_from_hf(hf_config: dict, **overrides) -> Gpt2Config:
     return Gpt2Config(**kw)
 
 
+def gpt2_config_to_hf(c: Gpt2Config) -> dict:
+    """The ``config.json`` the JAX package exports for a GPT-2."""
+    return {
+        "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+        "vocab_size": c.vocab_size, "n_positions": c.max_position_embeddings,
+        "n_embd": c.hidden_size, "n_layer": c.num_layers,
+        "n_head": c.num_heads, "n_inner": c.intermediate_size,
+        "activation_function": c.hidden_act,
+        "layer_norm_epsilon": c.layer_norm_eps,
+        "resid_pdrop": c.hidden_dropout, "embd_pdrop": c.embd_dropout,
+        "attn_pdrop": c.attention_dropout,
+        "bos_token_id": c.bos_token_id, "eos_token_id": c.eos_token_id,
+        "pad_token_id": c.pad_token_id,
+        "initializer_range": c.initializer_range,
+    }
+
+
 class Gpt2Attention(nn.Module):
     """Fused-qkv causal self-attention over one of the three cache forms."""
 
@@ -139,8 +190,10 @@ class Gpt2Attention(nn.Module):
         super().__init__()
         self.cfg, self.layer = cfg, layer
         H = cfg.hidden_size
-        self.qkv = nn.Linear(H, 3 * H, dtype=cfg.dtype)
-        self.attn_out = nn.Linear(H, H, dtype=cfg.dtype)
+        self.qkv = Dense(cfg, H, 3 * H)
+        self.attn_out = Dense(cfg, H, H)
+        self.attn_dropout = nn.Dropout(cfg.attention_dropout)
+        self.resid_dropout = nn.Dropout(cfg.hidden_dropout)
 
     def forward(self, hidden, mask, cache):
         cfg = self.cfg
@@ -163,24 +216,32 @@ class Gpt2Attention(nn.Module):
                 cache.context_lens + 1,
                 k_scale_pool=cache.key_scale_pools[self.layer] if int8 else None,
                 v_scale_pool=cache.value_scale_pools[self.layer] if int8 else None)
-            return self.attn_out(ctx.to(hidden.dtype).reshape(B, 1, H))
+            return self.resid_dropout(self.attn_out(ctx.to(hidden.dtype).reshape(B, 1, H)))
         if isinstance(cache, DenseCache):
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
-        ctx = xla_attention(q, k, v, mask=mask)
-        return self.attn_out(ctx.transpose(1, 2).reshape(B, S, H))
+            ctx = xla_attention(q, k, v, mask=mask)
+        elif cfg.attention_dropout > 0 and self.training:
+            # probability dropout: the unfused softmax, as the JAX package does
+            if cfg.attention_impl == "flash":
+                _warn_flash_dropout_fallback()
+            ctx = dot_product_attention(q, k, v, mask=mask, impl="xla", causal=True,
+                                        dropout=self.attn_dropout)
+        else:
+            ctx = dot_product_attention(q, k, v, mask=mask, impl=cfg.attention_impl,
+                                        causal=True)
+        return self.resid_dropout(self.attn_out(ctx.transpose(1, 2).reshape(B, S, H)))
 
 
 class Gpt2Mlp(nn.Module):
     def __init__(self, cfg: Gpt2Config):
         super().__init__()
         self.act = ACT2FN[cfg.hidden_act]
-        self.fc_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                               dtype=cfg.dtype)
-        self.fc_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                dtype=cfg.dtype)
+        self.fc_in = Dense(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.fc_out = Dense(cfg, cfg.intermediate_size, cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
 
     def forward(self, x):
-        return self.fc_out(self.act(self.fc_in(x)))
+        return self.dropout(self.fc_out(self.act(self.fc_in(x))))
 
 
 class Gpt2Block(nn.Module):
@@ -188,10 +249,9 @@ class Gpt2Block(nn.Module):
 
     def __init__(self, cfg: Gpt2Config, layer: int):
         super().__init__()
-        eps, dt = cfg.layer_norm_eps, cfg.dtype
-        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=eps, dtype=dt)
+        self.ln_1 = LayerNorm(cfg, cfg.hidden_size)
         self.attention = Gpt2Attention(cfg, layer)
-        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=eps, dtype=dt)
+        self.ln_2 = LayerNorm(cfg, cfg.hidden_size)
         self.mlp = Gpt2Mlp(cfg)
 
     def forward(self, hidden, mask, cache):
@@ -200,17 +260,17 @@ class Gpt2Block(nn.Module):
 
 
 class Gpt2Model(nn.Module):
-    """Embeddings, blocks and the final LN; returns the hidden states."""
+    """Embeddings, blocks and the final LN; returns the hidden states in
+    the compute dtype."""
 
     def __init__(self, cfg: Gpt2Config):
         super().__init__()
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
-        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
-                                dtype=cfg.dtype)
+        self.wte = Embed(cfg, cfg.vocab_size, cfg.hidden_size)
+        self.wpe = Embed(cfg, cfg.max_position_embeddings, cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.embd_dropout)
         self.h = nn.ModuleList(Gpt2Block(cfg, i) for i in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
-                                 dtype=cfg.dtype)
+        self.ln_f = LayerNorm(cfg, cfg.hidden_size)
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
                 cache=None):
@@ -227,27 +287,21 @@ class Gpt2Model(nn.Module):
                      <= cache.index[:, None, None] + offsets[:, :, None])
             mask = torch.where(valid, 0.0, NEG)[:, None]
             if attention_mask is not None:
-                mask = _padding_mask(attention_mask) + mask
+                mask = make_attention_mask(attention_mask) + mask
         elif cache is None:
             if position_ids is None:
                 position_ids = offsets
-            mask = make_causal_mask(S, device=dev)
+            # [B, 1, 1, S] padding; causality is the attention's own
             if attention_mask is not None:
-                mask = _padding_mask(attention_mask) + mask
+                mask = make_attention_mask(attention_mask)
         elif position_ids is None:                   # paged decode
             position_ids = cache.context_lens.long()[:, None]
-        x = self.wte(input_ids) + self.wpe(position_ids)
+        x = self.dropout(self.wte(input_ids) + self.wpe(position_ids))
         for block in self.h:
             x = block(x, mask, cache)
         if isinstance(cache, DenseCache):
             cache.index = cache.index + S
         return self.ln_f(x)
-
-
-def _padding_mask(attention_mask):
-    """[B, L] {0,1} -> additive [B, 1, 1, L]."""
-    m = attention_mask[:, None, None, :].float()
-    return (1.0 - m) * NEG
 
 
 class Gpt2LMHeadModel(nn.Module):
@@ -261,7 +315,17 @@ class Gpt2LMHeadModel(nn.Module):
     def forward(self, input_ids, attention_mask=None, position_ids=None,
                 cache=None):
         hidden = self.backbone(input_ids, attention_mask, position_ids, cache)
-        return torch.matmul(hidden, self.backbone.wte.weight.t()).float()
+        embedding = self.backbone.wte.weight.to(self.config.dtype)
+        return torch.matmul(hidden, embedding.t()).float()
+
+    def hidden_and_embedding(self, input_ids, attention_mask=None,
+                             position_ids=None):
+        """``(hidden [B, S, H] in the compute dtype, tied embedding [V, H]
+        in the param dtype)``: the fused vocab-CE path, which never makes
+        the [B, S, V] logits. The embedding is not cast (the JAX
+        ``hidden_and_embedding`` returns it as stored)."""
+        return (self.backbone(input_ids, attention_mask, position_ids),
+                self.backbone.wte.weight)
 
     def new_dense_cache(self, batch: int, max_len: int,
                         index: Optional[torch.Tensor] = None) -> DenseCache:

@@ -29,28 +29,36 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention 
 NEG = -1e9
 
 
-def xla_attention(q, k, v, mask=None, scale=None):
+def xla_attention(q, k, v, mask=None, scale=None, dropout=None):
     """Plain attention: fp32 logits plus the additive ``mask``
     (broadcastable to [B, H, Q, K]), fp32 softmax, probabilities cast to
-    q's dtype before the product with ``v``."""
+    q's dtype before the product with ``v``. ``dropout`` (a callable such
+    as an ``nn.Dropout``) is applied to the cast probabilities."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = (torch.matmul(q, k.transpose(-1, -2)) * scale).float()
     if mask is not None:
         logits = logits + mask.float()
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout is not None:
+        weights = dropout(weights)
     return torch.matmul(weights, v)
 
 
 def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
-                          causal: bool = False, window: int | None = None):
+                          causal: bool = False, window: int | None = None,
+                          dropout=None):
     """Dispatch on implementation: ``flash`` goes to the flash kernels
     (:func:`~.flash_attention.flash_attention`, which skip causal tiles);
     ``xla`` is :func:`xla_attention` with the causal or banded mask added
     (``window``, which needs ``causal``, keeps each query's last ``window``
-    positions). ``ring`` (sequence-parallel) is not ported yet."""
+    positions) and the probability ``dropout``, which only that route has.
+    ``ring`` (sequence-parallel) is not ported yet."""
     if window is not None and not causal:
         raise ValueError("window requires causal=True (sliding-window "
                          "attention is an autoregressive construct)")
+    if dropout is not None and impl != "xla":
+        raise ValueError(f"probability dropout needs impl='xla' (got {impl!r}: "
+                         "the flash kernels have no dropout hook)")
     if impl == "flash":
         return flash_attention(q, k, v, mask=mask, scale=scale, causal=causal,
                                window=window)
@@ -66,7 +74,7 @@ def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
     elif causal:
         cm = make_causal_mask(q.shape[2], k.shape[2], device=q.device)
         mask = cm if mask is None else mask + cm
-    return xla_attention(q, k, v, mask=mask, scale=scale)
+    return xla_attention(q, k, v, mask=mask, scale=scale, dropout=dropout)
 
 
 def make_attention_mask(attention_mask, dtype=torch.float32, neg: float = NEG,

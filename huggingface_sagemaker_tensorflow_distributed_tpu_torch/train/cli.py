@@ -1,5 +1,5 @@
 """Fine-tuning entry point (counterpart of the JAX package's
-``scripts/train.py::main`` for task ``seq-cls``).
+``scripts/train.py::main`` for tasks ``seq-cls`` and ``causal-lm``).
 
     python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.cli \\
         --model_name_or_path DIR --dataset vendored_reviews [--device cpu] ...
@@ -62,10 +62,15 @@ def _check_num_labels(labels, num_labels: int) -> None:
 
 
 def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
-                  max_samples) -> ArrayDataset:
+                  max_samples, model_config=None) -> ArrayDataset:
     texts, labels = load_text_classification(
         config.dataset, split, dataset_path=config.dataset_path,
         max_samples=max_samples, seed=config.seed)
+    if config.task == "causal-lm":
+        # any text source works as an LM corpus; its labels are ignored
+        return ArrayDataset.from_lm_texts(
+            tokenizer, texts, max_len, packed=config.packed_sequences,
+            eos_token_id=getattr(model_config, "eos_token_id", None))
     _check_num_labels(labels, config.num_labels)
     return ArrayDataset.from_texts(tokenizer, texts, labels, max_len)
 
@@ -111,8 +116,10 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
                                vocab_size=model_config.vocab_size)
 
     max_len = min(config.max_seq_length, model_config.max_position_embeddings)
-    train_ds = build_dataset(config, tokenizer, "train", max_len, config.max_train_samples)
-    eval_ds = build_dataset(config, tokenizer, "test", max_len, config.max_eval_samples)
+    train_ds = build_dataset(config, tokenizer, "train", max_len, config.max_train_samples,
+                             model_config)
+    eval_ds = build_dataset(config, tokenizer, "test", max_len, config.max_eval_samples,
+                            model_config)
     train_batcher = ShardedBatcher(train_ds, config.train_batch_size * world,
                                    shuffle=True, seed=config.seed, device=device)
     eval_batcher = ShardedBatcher(eval_ds, config.eval_batch_size * world,

@@ -1,13 +1,20 @@
 """The training engine: train/eval steps and the epoch loop (counterpart
-of the JAX package's ``train/trainer.py``: ``_masked_sums``,
-``seq_cls_loss`` and ``Trainer`` for task ``seq-cls``).
+of the JAX package's ``train/trainer.py``: ``_masked_sums``, the task
+losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
+``make_fused_causal_lm_loss``, and ``Trainer`` for tasks ``seq-cls`` and
+``causal-lm``).
 
-- A train step is forward, backward of the rank's mean loss, one
-  all-reduce mean of the gradients over the ranks (the global-batch mean,
-  as the JAX package's sharded global loss gives), clipping, and the
-  optimizer update at the schedule's learning rate; with
-  ``gradient_accumulation_steps = k`` the update comes every k-th step
-  with the mean of the k micro-batch gradients (optax ``MultiSteps``).
+- A train step is forward, backward, one all-reduce mean of the
+  gradients over the ranks, clipping, and the optimizer update at the
+  schedule's learning rate; with ``gradient_accumulation_steps = k`` the
+  update comes every k-th step with the mean of the k micro-batch
+  gradients (optax ``MultiSteps``). The loss is the mean over the valid
+  rows or tokens of the whole global batch, as the JAX package's sharded
+  ``_masked_sums`` gives: with several ranks the valid count is
+  all-reduced first and each rank back-propagates ``loss_sum * world /
+  count``, so the gradient mean is the global mean even when the ranks
+  hold different numbers of valid tokens (causal-LM padding); the logged
+  loss and accuracy are the global ones.
 - ``fit`` keeps the JAX epoch loop: ``steps_per_epoch`` cap,
   ``log_every_steps`` sync points, per-epoch eval with
   ``eval_each_epoch``, the Keras-style history (``loss``,
@@ -32,6 +39,9 @@ import torch
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.losses import (
     softmax_cross_entropy_with_integer_labels,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.vocab_ce import (
+    fused_vocab_cross_entropy,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     all_reduce_mean_grads,
@@ -80,6 +90,51 @@ def seq_cls_loss(model, batch):
     return _masked_sums(per_ex, correct, valid)
 
 
+def causal_lm_loss(model, batch):
+    """Next-token CE for decoder-only LMs (GPT-2): logits at position i
+    predict token i+1; pad targets (and padded eval rows) are masked out.
+    Metric is next-token accuracy."""
+    logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1]   # [B, S-1, V]
+    labels = batch["labels"][:, 1:]
+    token_valid = (batch["attention_mask"][:, 1:] > 0) & (labels != -100)
+    if "valid" in batch:
+        token_valid = token_valid & (batch["valid"][:, None] > 0)
+    safe_labels = labels.clamp(min=0)
+    per_tok = softmax_cross_entropy_with_integer_labels(logits, safe_labels)
+    correct = logits.argmax(-1) == safe_labels
+    return _masked_sums(per_tok, correct, token_valid)
+
+
+def make_fused_causal_lm_loss(model):
+    """``causal_lm_loss`` without the [B, S, V] logits: the model's
+    ``hidden_and_embedding`` feeds the fused vocab cross-entropy
+    (``ops/vocab_ce.py``: the CUDA kernels on the card). Instead of
+    slicing off the last position, labels are shifted left with a -100
+    tail, so every position is computed and the last is masked: the same
+    masked sums as ``causal_lm_loss``."""
+
+    def loss(model, batch):
+        hidden, embedding = model.hidden_and_embedding(batch["input_ids"],
+                                                       batch["attention_mask"])
+        B, S, H = hidden.shape
+        labels, attn = batch["labels"], batch["attention_mask"]
+        shifted = torch.cat([labels[:, 1:], labels.new_full((B, 1), -100)], dim=1)
+        token_valid = torch.cat([(attn[:, 1:] > 0) & (labels[:, 1:] != -100),
+                                 torch.zeros_like(attn[:, :1], dtype=torch.bool)], dim=1)
+        if "valid" in batch:
+            token_valid = token_valid & (batch["valid"][:, None] > 0)
+        safe_labels = shifted.clamp(min=0)
+        per_tok, pred = fused_vocab_cross_entropy(hidden.reshape(B * S, H), embedding,
+                                                  safe_labels.reshape(B * S))
+        correct = pred.reshape(B, S) == safe_labels
+        return _masked_sums(per_tok.reshape(B, S), correct, token_valid)
+
+    return loss
+
+
+TASK_LOSSES = {"seq-cls": seq_cls_loss, "causal-lm": causal_lm_loss}
+
+
 class Trainer:
     """Train/eval engine over the model's device, data-parallel over the
     ``torch.distributed`` ranks when a process group is up."""
@@ -89,9 +144,19 @@ class Trainer:
         self.config = config
         self.model = model
         self.task = task or config.task
-        if self.task != "seq-cls":
+        if self.task not in TASK_LOSSES:
             raise NotImplementedError(f"task {self.task!r} is not ported to the "
                                       "PyTorch package yet: ROADMAP slices B/C")
+        self.loss_fn = TASK_LOSSES[self.task]
+        if config.fused_vocab_ce:
+            if self.task == "causal-lm" and hasattr(model, "hidden_and_embedding"):
+                self.loss_fn = make_fused_causal_lm_loss(model)
+            else:
+                raise ValueError(
+                    "fused_vocab_ce requires task='causal-lm' with a GPT-2 "
+                    "model (one exposing hidden_and_embedding); the fused "
+                    "MLM and seq2seq losses are not ported yet: ROADMAP "
+                    "slices B and C")
         self.device = next(model.parameters()).device
         self.n_chips = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -109,8 +174,19 @@ class Trainer:
         cfg = self.config
         accum = cfg.gradient_accumulation_steps
         self.model.train()
-        loss, sums = seq_cls_loss(self.model, batch)
-        (loss / accum if accum > 1 else loss).backward()
+        loss, sums = self.loss_fn(self.model, batch)
+        objective = loss
+        if self.n_chips > 1:
+            # the global valid count first: each rank's share of the global
+            # mean is loss_sum * world / count (the gradient all-reduce
+            # divides by world)
+            totals = all_reduce_sum(torch.stack([sums["count"], sums["loss_sum"].detach(),
+                                                 sums["correct"]]))
+            count = torch.clamp(totals[0], min=1.0)
+            objective = sums["loss_sum"] * self.n_chips / count
+            loss = totals[1] / count
+            sums = {"correct": totals[2], "count": totals[0]}
+        (objective / accum if accum > 1 else objective).backward()
         self.step += 1
         if self.step % accum == 0:
             all_reduce_mean_grads(self.params)
@@ -126,7 +202,7 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch) -> dict:
         self.model.eval()
-        _, sums = seq_cls_loss(self.model, batch)
+        _, sums = self.loss_fn(self.model, batch)
         return sums
 
     # -- loops ---------------------------------------------------------------

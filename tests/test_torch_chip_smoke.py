@@ -1,8 +1,8 @@
-"""``chip_smoke.py``'s flash-kernel and training phases rehearsed on the CPU
-at a tiny size: with ``DEVICE = "cpu"`` every wrapper takes its plain
-version, so this checks the phases' own logic (cases, comparisons, bounds,
-launch accounting, results files, reload), not the kernels. The phases run
-for real only on the card."""
+"""``chip_smoke.py``'s flash-kernel, vocab-CE-kernel and training phases
+rehearsed on the CPU at a tiny size: with ``DEVICE = "cpu"`` every wrapper
+takes its plain version, so this checks the phases' own logic (cases,
+comparisons, bounds, launch accounting, results files, reload), not the
+kernels. The phases run for real only on the card."""
 
 import json
 
@@ -11,6 +11,7 @@ import torch
 
 import chip_smoke
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
 
 
@@ -55,22 +56,30 @@ def _drop_compile_trackers():
 @pytest.fixture
 def on_cpu(monkeypatch):
     """chip_smoke pointed at the CPU, timing stubbed, tiny widths, and the
-    flash wrappers counted on every call (on the CPU they launch nothing)."""
+    flash and vocab-CE wrappers counted on every call (on the CPU they
+    launch nothing)."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "_cuda_ms", lambda fn, sets, iters=40: (fn(*sets[0]), 0.0)[1])
     monkeypatch.setattr(fa, "load_kernel", lambda: None)
+    monkeypatch.setattr(vc, "load_kernel", lambda: None)
     monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(
         chip_smoke.BERT_BASE, hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
         intermediate_size=128))
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        real = getattr(fa, name)
+    monkeypatch.setattr(chip_smoke, "GPT2_124M", dict(
+        chip_smoke.GPT2_124M, vocab_size=300, n_positions=64, n_embd=64, n_layer=2,
+        n_head=1))
+    monkeypatch.setattr(chip_smoke, "GPT2_SEQ", 32)
+    for mod, names in ((fa, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                       (vc, ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))):
+        for name in names:
+            real = getattr(mod, name)
 
-        def counted(*a, _real=real, _name=name, **kw):
-            getattr(fa, _name).launches += 1
-            return _real(*a, **kw)
+            def counted(*a, _real=real, _mod=mod, _name=name, **kw):
+                getattr(_mod, _name).launches += 1
+                return _real(*a, **kw)
 
-        counted.launches = 0
-        monkeypatch.setattr(fa, name, counted)
+            counted.launches = 0
+            monkeypatch.setattr(mod, name, counted)
 
 
 def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
@@ -106,4 +115,45 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     row = chip_smoke.train_cli_phase(tmp_path)
     assert row["launches"] == {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2,
                                "flash_bwd_dkv": 2 * 2}
+    assert row["idle_share"] == "not measured" and row["train_steps"] == 2
+
+
+def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "VOCAB_CASES", [
+        ("gpt2_bf16", 64, 300, 32, "bfloat16", 0.0, False),
+        ("ragged", 50, 101, 24, "float32", 0.0, False),
+        ("smooth0.1", 32, 200, 16, "float32", 0.1, False),
+        ("ties", 32, 130, 16, "float32", 0.0, True)])
+    rows = chip_smoke.vocab_ce_phase()
+    assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
+        assert row["bound_by"] in ("bytes", "operations")
+    # the bound: 2·N·V·H flops for the logits (twice for the backward),
+    # every input read and every output written once
+    case = ("c", 4096, 50257, 768, "bfloat16", 0.0, False)
+    work = chip_smoke._ce_work(case)
+    assert work["fused_ce_fwd"][1] == 2 * 4096 * 50257 * 768
+    assert work["fused_ce_bwd_dw"][1] == 2 * work["fused_ce_fwd"][1]
+    assert work["fused_ce_bwd_dh"][0] == (4096 * 768 * 2 * 2 + 50257 * 768 * 4 + 3 * 4096 * 4)
+    # limits: a bf16 output against max|want| alone, fp32 against max(1, max|want|)
+    bf16, fp32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
+    assert chip_smoke._ce_limit(bf16, 0.09) == 0.09 / 64
+    assert chip_smoke._ce_limit(fp32, 0.09) == 1e-4
+    assert chip_smoke._ce_limit(fp32, 4.5) == pytest.approx(4.5e-4)
+
+
+def test_gpt2_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
+    monkeypatch.setattr(chip_smoke, "GPT2_CLI_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "GPT2_EVAL_SAMPLES", 4)
+    row = chip_smoke.gpt2_parity_phase()
+    assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    # on the CPU `auto` picks the plain path; the CLI is asked for flash
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    row = chip_smoke.gpt2_cli_phase(tmp_path)
+    assert row["launches"] == {"fused_ce_fwd": 2 + 1, "fused_ce_bwd_dh": 2,
+                               "fused_ce_bwd_dw": 2, "flash_fwd": 2 * 1,
+                               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert row["idle_share"] == "not measured" and row["train_steps"] == 2

@@ -79,9 +79,9 @@ def test_config_fields_and_defaults_match_jax():
 
 UNPORTED = [["--task", "mlm"], ["--lora_rank", "4"], ["--num_experts", "4"],
             ["--tp", "2"], ["--pp", "2"], ["--fsdp", "2"], ["--sp", "2"],
-            ["--dcn_dp", "2"], ["--streaming", "true"], ["--fused_vocab_ce", "true"],
-            ["--bucket_multiple", "128"], ["--optimizer", "adafactor"],
-            ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
+            ["--dcn_dp", "2"], ["--streaming", "true"],
+            ["--fused_vocab_ce", "true", "--task", "mlm"], ["--bucket_multiple", "128"],
+            ["--optimizer", "adafactor"], ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
             ["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
             ["--early_stopping_patience", "2"], ["--profile", "true"],
             ["--remat", "true", "--remat_policy", "dots"],

@@ -289,8 +289,8 @@ def test_params_from_jax_layouts():
 
 @pytest.mark.parametrize("field,value", [
     ("num_experts", 4), ("pipeline_stages", 2), ("remat", True),
-    ("weight_quant", "int8"), ("attention_impl", "flash"),
-    ("kv_cache_dtype", "fp8"), ("param_dtype", torch.bfloat16)])
+    ("weight_quant", "int8"), ("attention_impl", "ring"),
+    ("kv_cache_dtype", "fp8"), ("param_dtype", "bfloat16")])
 def test_config_rejects_unported_features(field, value):
     with pytest.raises(ValueError):
         dataclasses.replace(t_gpt2.Gpt2Config(), **{field: value})
