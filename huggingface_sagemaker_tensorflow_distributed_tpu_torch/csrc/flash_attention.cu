@@ -16,14 +16,20 @@
 // layout of that chip and is not carried over). Ragged S (not a multiple
 // of the tile) is masked here rather than sent to the plain path.
 //
-// Bound on an H100: operations. At BERT-base (S = 512, D = 64) the forward
-// does 4 * S * D flops per query row against about 4 * D bytes of input
-// per row, so the floor is the flops over the card's peak; these kernels
-// run the products in fp32 on CUDA cores (67 TFLOP/s peak) for both input
-// types, where bf16 tensor cores (wgmma, 989 TFLOP/s) would be the way to
-// that floor.
+// Bound on an H100: in fp32, operations. At BERT-base (S = 512, D = 64)
+// the forward does 4 * S * D flops per query row against about 4 * D
+// elements of input per row, so the floor is the flops over the CUDA
+// cores' peak; in bf16 the tensor cores bring the operations below the
+// bytes (see flash_attention_tc.cuh). Two families:
+// - bf16 forward and dK/dV: `flash_fwd_tc_kernel` and
+//   `flash_bwd_dkv_tc_kernel` (flash_attention_tc.cuh) run their products
+//   on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums; 989
+//   TFLOP/s peak), with bf16 tiles double-buffered by cp.async;
+// - fp32 (all three kernels) and the bf16 dQ: the kernels below run the
+//   products in fp32 on CUDA cores (67 TFLOP/s peak). fp32 stays there
+//   because TF32 tensor cores would not hold fp32's 1e-4 parity.
 //
-// What the design does about it:
+// What the CUDA-core design does:
 // - one block of 256 threads per (b, h, 64-row tile); the TPU kernel's
 //   sequential innermost grid axis becomes a loop inside the block, and
 //   its `pl.when(first)` / `pl.when(last)` scratch init and finish become
@@ -38,8 +44,6 @@
 //   hit 32 different banks; about 67-166 KB per block, so dynamic shared
 //   memory above the 48 KB static limit;
 // - tiles that the causal/window rule skips are never loaded.
-// Tensor cores, cp.async/TMA double buffering and split schedules are left
-// for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -557,37 +561,57 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
+}  // namespace
+
+#include "flash_attention_tc.cuh"
+
+namespace {
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem_floats, int tiles, int H, int B, const Args& a,
-                   cudaStream_t stream) {
-  const size_t bytes = smem_floats * sizeof(float);
+cudaError_t launch(Kernel kernel, int threads, size_t bytes, int tiles, int H, int B,
+                   const Args& a, cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(tiles, H, B), kThreads, bytes, stream>>>(a);
+  kernel<<<dim3(tiles, H, B), threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// Dynamic shared memory per block of the kernel that `dispatch` launches.
+template <typename T, int D>
+size_t smem_bytes(Which which) {
+  if (which == kDq) return dq_smem_floats<D>() * sizeof(float);
+  if constexpr (sizeof(T) == 2)
+    return which == kFwd ? fwd_tc_smem_bytes<D>() : dkv_tc_smem_bytes<D>();
+  else
+    return (which == kFwd ? fwd_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+}
+
+// bf16 forward and dK/dV go to the tensor-core kernels, the rest to the
+// CUDA-core ones.
 template <typename T, int D>
 cudaError_t launch_typed(Which which, int B, const Args& a, cudaStream_t stream) {
   const int q_tiles = (a.Sq + kTile - 1) / kTile;
   const int k_tiles = (a.Sk + kTile - 1) / kTile;
-  switch (which) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, fwd_smem_floats<D>(), q_tiles, a.H, B, a, stream);
-    case kDq:
-      return launch(flash_bwd_dq_kernel<T, D>, dq_smem_floats<D>(), q_tiles, a.H, B, a, stream);
-    default:
-      return launch(flash_bwd_dkv_kernel<T, D>, dkv_smem_floats<D>(), k_tiles, a.H, B, a,
-                    stream);
+  const size_t bytes = smem_bytes<T, D>(which);
+  if (which == kDq)
+    return launch(flash_bwd_dq_kernel<T, D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (which == kFwd)
+      return launch(flash_fwd_tc_kernel<D>, kTcThreads, bytes, q_tiles, a.H, B, a, stream);
+    return launch(flash_bwd_dkv_tc_kernel<D>, kTcThreads, bytes, k_tiles, a.H, B, a, stream);
+  } else {
+    if (which == kFwd)
+      return launch(flash_fwd_kernel<T, D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
+    return launch(flash_bwd_dkv_kernel<T, D>, kThreads, bytes, k_tiles, a.H, B, a, stream);
   }
 }
 
@@ -618,7 +642,9 @@ extern "C" {
 // in the order of the pointer arguments. bf16: every such tensor is
 // bfloat16, else float32. mask: [B, Sk] fp32 additive, or null. lse:
 // [B, H, Sq] fp32. window <= 0: no sliding window (and window needs
-// causal). D is 64 or 128.
+// causal). D is 64 or 128. The bf16 forward and dK/dV copy rows 16 bytes
+// at a time: every bf16 tensor's base pointer and (batch, head, row)
+// strides must be multiples of 16 bytes (the caller checks).
 
 // O = softmax(q k^T * scale + mask) v; LSE as well when lse is not null.
 int flash_fwd_launch(const void* q, const void* k, const void* v, const float* mask, void* out,
@@ -661,6 +687,18 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const floa
   a.sout2 = strides_at(strides, 6);
   a.H = H; a.Sq = Sq; a.Sk = Sk; a.scale = scale; a.causal = causal; a.window = window;
   return dispatch(kDkv, B, D, bf16, a, stream);
+}
+
+// Dynamic shared memory per block, in bytes, of the kernel that launches
+// for `which` (0 forward, 1 dQ, 2 dK/dV) at head dim D; -1 for a D the
+// kernels do not take.
+long long flash_attention_smem_bytes(int which, int D, int bf16) {
+  const Which w = static_cast<Which>(which);
+  if (D == 64)
+    return (long long)(bf16 ? smem_bytes<__nv_bfloat16, 64>(w) : smem_bytes<float, 64>(w));
+  if (D == 128)
+    return (long long)(bf16 ? smem_bytes<__nv_bfloat16, 128>(w) : smem_bytes<float, 128>(w));
+  return -1;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -4,8 +4,11 @@ shared libraries with a plain C interface, and loads them with
 
 A library is built at first use into ``build/kernels/`` beside the
 package (a directory the repository ignores), named by a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. A failed build raises; nothing falls back.
+source, every header in ``csrc/`` (``*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+``ptxas`` reports each kernel's registers, spills and static shared
+memory (``-Xptxas -v``) into ``<library>.log`` beside the library. A
+failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every kernel source of the package (``csrc/<name>.cu``)
 SOURCES = ("paged_attention", "flash_attention", "vocab_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -36,11 +39,20 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of that source, of every ``csrc/*.cuh`` (any of them may be
+    included) and of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> Path:
+    """``nvcc``'s report (ptxas: registers, spills, static shared memory
+    per kernel) of the build of ``library_path(name)``."""
+    return library_path(name).with_suffix(".log")
 
 
 def build(*names: str) -> None:
@@ -64,6 +76,7 @@ def build(*names: str) -> None:
             failed.append(f"nvcc failed to build csrc/{name}.cu (exit "
                           f"{proc.returncode}):\n{stderr}")
         else:
+            out.with_suffix(".log").write_text(stderr)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -1,15 +1,18 @@
-"""Flash attention: the three hand-written CUDA kernels
-(``csrc/flash_attention.cu``), their ctypes wrappers, their plain
-PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+"""Flash attention: the hand-written CUDA kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_tc.cuh``), their
+ctypes wrappers, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
 Counterpart of the JAX package's ``ops/pallas_attention.py``:
 
 ========================  ===========================  =============================
 wrapper                   CUDA kernel                  TPU kernel it replaces
 ========================  ===========================  =============================
-:func:`flash_fwd`         ``flash_fwd_kernel``         ``_fwd_kernel`` (``_flash_fwd_call``)
+:func:`flash_fwd`         ``flash_fwd_kernel``,        ``_fwd_kernel`` (``_flash_fwd_call``)
+                          ``flash_fwd_tc_kernel``
 :func:`flash_bwd_dq`      ``flash_bwd_dq_kernel``      ``_dq_kernel`` (``_flash_bwd_call``)
-:func:`flash_bwd_dkv`     ``flash_bwd_dkv_kernel``     ``_dkv_kernel`` (``_flash_bwd_call``)
+:func:`flash_bwd_dkv`     ``flash_bwd_dkv_kernel``,    ``_dkv_kernel`` (``_flash_bwd_call``)
+                          ``flash_bwd_dkv_tc_kernel``
 ========================  ===========================  =============================
 
 Contract (the JAX kernel's): ``q``/``k``/``v`` ``[B, H, S, D]`` in fp32
@@ -25,8 +28,12 @@ skip the tiles the TPU kernel skips. LSE is ``[B, H, S_q]`` fp32. General
 dispatch sends them to XLA.
 
 What bounds the kernels on an H100 and what their design does about it
-is written at the top of ``csrc/flash_attention.cu``: they are bound by
-operations, and run them in fp32 on CUDA cores for both dtypes.
+is written at the top of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_tc.cuh``: operations in fp32; in bf16 the bytes,
+just above the operations on the tensor cores. In bf16 the forward and
+dK/dV kernels run their products on the tensor cores and copy 16-byte
+rows with ``cp.async``, so their bf16 tensors must be 16-byte aligned
+(:func:`tc_aligned`); fp32, and the bf16 dQ, run in fp32 on CUDA cores.
 
 Each wrapper launches its kernel for CUDA tensors and raises for anything
 the kernel cannot take; it uses the plain version only for tensors on the
@@ -189,6 +196,8 @@ def _kernel_lib():
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch,
                    lib.flash_bwd_dkv_launch):
             fn.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -227,6 +236,24 @@ def _kernel_args(name, q, k, v, mask, extra):
             int(q.dtype == torch.bfloat16))
 
 
+def tc_aligned(t: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels can copy ``t`` ([B, H, S, D]) in
+    16-byte rows: its base address and its batch, head and row strides
+    are multiples of 16 bytes."""
+    esz = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s * esz % 16 == 0 for s in t.stride()[:3]))
+
+
+def _check_tc_aligned(name, tensors):
+    for t in tensors:
+        if not tc_aligned(t):
+            raise ValueError(
+                f"{name}: the bf16 kernel copies 16-byte rows; got a tensor at "
+                f"address {t.data_ptr():#x} with strides {tuple(t.stride())} "
+                f"(elements of {t.element_size()} bytes)")
+
+
 def _raise_on(lib, name, err):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -247,13 +274,16 @@ def _tail(q, k, scale, causal, window, bf16):
 def flash_fwd(q, k, v, mask=None, scale=None, causal: bool = False,
               window: int | None = None, want_lse: bool = True):
     """Forward: ``(o, lse)`` (``lse`` None unless ``want_lse``). CUDA
-    tensors go through ``flash_fwd_kernel``; CPU tensors through
+    tensors go through ``flash_fwd_kernel`` (fp32) or
+    ``flash_fwd_tc_kernel`` (bf16); CPU tensors through
     :func:`flash_attention_fwd_reference`."""
     _check(q, k, v, mask, causal, window)
     if q.device.type == "cpu":
         o, lse = flash_attention_fwd_reference(q, k, v, mask, scale, causal, window)
         return o, (lse if want_lse else None)
     lib, m, strides_in, bf16 = _kernel_args("flash_fwd", q, k, v, mask, ())
+    if bf16:
+        _check_tc_aligned("flash_fwd", (q, k, v))
     B, H, Sq, D = q.shape
     # O in [B, S, H, D] memory, viewed as [B, H, S, D]: merging heads after
     # attention is then free
@@ -293,15 +323,18 @@ def flash_bwd_dkv(q, k, v, mask, o, lse, do, scale=None, causal: bool = False,
                   window: int | None = None, want_dmask: bool = False):
     """``(dk, dv, dmask)``; ``dmask`` (fp32, the mask's shape) only with
     ``want_dmask`` and a mask. CUDA tensors go through
-    ``flash_bwd_dkv_kernel`` (the sum of its per-head ``dmask`` over heads
-    is a plain ``torch.sum``, as the JAX package sums outside Pallas); CPU
-    tensors through :func:`flash_bwd_dkv_reference`."""
+    ``flash_bwd_dkv_kernel`` (fp32) or ``flash_bwd_dkv_tc_kernel`` (bf16);
+    the sum of its per-head ``dmask`` over heads is a plain ``torch.sum``,
+    as the JAX package sums outside Pallas. CPU tensors go through
+    :func:`flash_bwd_dkv_reference`."""
     _check(q, k, v, mask, causal, window)
     want_dmask = want_dmask and mask is not None
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, mask, o, lse, do, scale, causal,
                                        window, want_dmask)
     lib, m, strides_in, bf16 = _kernel_args("flash_bwd_dkv", q, k, v, mask, (o, do))
+    if bf16:
+        _check_tc_aligned("flash_bwd_dkv", (q, k, v, o, do))
     lse = _float_rows(lse, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     B, H, _, _ = q.shape
@@ -353,8 +386,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, o, lse = ctx.saved_tensors
         scale, causal, window = ctx.attrs
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not tc_aligned(do)):
+            do = do.clone(memory_format=torch.contiguous_format)
         dq = dk = dv = dmask = None
         if ctx.needs_input_grad[0]:
             dq = flash_bwd_dq(q, k, v, mask, o, lse, do, scale, causal, window)

@@ -60,6 +60,8 @@ def on_cpu(monkeypatch):
     launch nothing)."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "_cuda_ms", lambda fn, sets, iters=40: (fn(*sets[0]), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "_device_ms",
+                        lambda fn, sets, match=None, **kw: (fn(*sets[0]), 0.0)[1])
     monkeypatch.setattr(fa, "load_kernel", lambda: None)
     monkeypatch.setattr(vc, "load_kernel", lambda: None)
     monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(
@@ -87,9 +89,14 @@ def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("bert_fp32", 2, 2, 64, 64, "float32", True, False, None, False, False),
         ("bert_bf16", 2, 2, 64, 64, "bfloat16", True, False, None, False, False),
         ("ragged", 2, 2, 40, 64, "float32", True, False, None, True, True),
-        ("causal_window", 1, 2, 64, 64, "float32", False, True, 16, False, False)])
+        ("ragged_bf16", 2, 2, 40, 64, "bfloat16", True, False, None, True, True),
+        ("causal_window", 1, 2, 64, 64, "float32", False, True, 16, False, False),
+        ("causal_window_bf16", 1, 2, 64, 64, "bfloat16", False, True, 16, False, False)])
     rows = chip_smoke.flash_phase()
-    assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
+    assert len(rows) == 18 and all(r["status"] == "pass" for r in rows.values())
+    assert rows[("bert_bf16", "flash_fwd")]["kernel_name"] == "flash_fwd_tc_kernel"
+    assert rows[("bert_bf16", "flash_bwd_dq")]["kernel_name"] == "flash_bwd_dq_kernel"
+    assert rows[("bert_fp32", "flash_bwd_dkv")]["kernel_name"] == "flash_bwd_dkv_kernel"
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "flash_kernel" and row["bound_ms"] > 0
@@ -107,8 +114,10 @@ def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
 def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "CLI_STEPS", 2)
     monkeypatch.setattr(chip_smoke, "CLI_EVAL_SAMPLES", 4)
-    row = chip_smoke.train_parity_phase()
-    assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    rows = chip_smoke.train_parity_phase()
+    for row in rows.values():
+        assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    assert rows["bfloat16"]["grad_dist_ratio_max"] <= rows["bfloat16"]["grad_dist_ratio_tol"]
     # on the CPU `auto` picks the plain path; the CLI is asked for flash
     run = cli.run
     monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
@@ -139,9 +148,9 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
     assert work["fused_ce_bwd_dh"][0] == (4096 * 768 * 2 * 2 + 50257 * 768 * 4 + 3 * 4096 * 4)
     # limits: a bf16 output against max|want| alone, fp32 against max(1, max|want|)
     bf16, fp32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
-    assert chip_smoke._ce_limit(bf16, 0.09) == 0.09 / 64
-    assert chip_smoke._ce_limit(fp32, 0.09) == 1e-4
-    assert chip_smoke._ce_limit(fp32, 4.5) == pytest.approx(4.5e-4)
+    assert chip_smoke._limit(bf16, 0.09) == 0.09 / 64
+    assert chip_smoke._limit(fp32, 0.09) == 1e-4
+    assert chip_smoke._limit(fp32, 4.5) == pytest.approx(4.5e-4)
 
 
 def test_gpt2_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
@@ -157,3 +166,60 @@ def test_gpt2_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
                                "fused_ce_bwd_dw": 2, "flash_fwd": 2 * 1,
                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert row["idle_share"] == "not measured" and row["train_steps"] == 2
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/               @P0 HMMA.16816.F32.BF16 R16, R8, R20, R16 ;
+        /*0030*/                   LDSM.16.M88.4 R8, [R2] ;
+\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE
+        /*0000*/                   FFMA R4, R8, R12, R4 ;
+"""
+
+
+def test_ptxas_report_and_sass_counts_parse_the_build_outputs():
+    """The build report reads registers and spills per kernel from
+    ``nvcc -Xptxas -v`` and counts tensor-core instructions per function
+    in ``cuobjdump -sass`` (predicated ones too)."""
+    tc = "_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE"
+    fp32 = "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE"
+    report = chip_smoke._ptxas_report(PTXAS_LOG)
+    assert report[tc] == {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+                          "registers": 128}
+    assert report[fp32] == {"stack_bytes": 8, "spill_store_bytes": 12, "spill_load_bytes": 16,
+                            "registers": 255}
+    assert chip_smoke._sass_counts(SASS, "HMMA") == {tc: 2, fp32: 0}
+    assert chip_smoke._sass_counts(SASS, "LDSM") == {tc: 1, fp32: 0}
+
+
+def test_flash_kernel_names_cover_every_wrapper_and_dtype():
+    """Every (wrapper, dtype) the flash phase times names the kernel that
+    launches: the tensor-core kernels for the bf16 forward and dK/dV, the
+    CUDA-core ones otherwise."""
+    names = chip_smoke.FLASH_KERNEL_NAMES
+    assert set(names) == {(k, dt) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                          for dt in ("float32", "bfloat16")}
+    assert {k for (k, dt), n in names.items() if "_tc_" in n} == {"flash_fwd", "flash_bwd_dkv"}
+    assert all("_tc_" not in n for (k, dt), n in names.items() if dt == "float32")
+    cases = {c[0]: c for c in chip_smoke.FLASH_CASES}
+    for name in ("ragged200", "causal", "causal_window64", "pad_row", "dmask"):
+        assert cases[name][5] == "float32"
+        assert cases[f"{name}_bf16"][1:5] + cases[f"{name}_bf16"][6:] == \
+            cases[name][1:5] + cases[name][6:]
+        assert cases[f"{name}_bf16"][5] == "bfloat16"

@@ -8,7 +8,10 @@ and the autograd ``Function`` on CPU tensors. Plus the three CUDA kernels
 against their plain versions on the card (skipped without one).
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic, summed in another order);
-bf16 2e-2 (bf16 keeps 8 mantissa bits, 3.9e-3 per rounding)."""
+a bf16 output 2^-6 of its largest entry (one bf16 ulp is at most 2^-7 of a
+value, and both sides round; the older bf16 forward test keeps 2e-2);
+fp32 outputs of bf16 inputs (LSE, dmask) as fp32. The card's tests hold
+the kernels to the same limits."""
 
 import numpy as np
 import pytest
@@ -195,6 +198,147 @@ def test_bf16_forward_matches_pallas():
     np.testing.assert_allclose(o.float().numpy(), want, rtol=2e-2, atol=2e-2)
 
 
+def _bf16(x):
+    """numpy fp32 -> (torch bf16, jax bf16) holding the same values."""
+    import jax.numpy as jnp
+
+    if x is None:
+        return None, None
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _bf16_limit(want):
+    """A bf16 output against the Pallas kernel: 2^-6 x max|want| (one bf16
+    ulp is at most 2^-7 of a value; both sides round their output, and P,
+    dS and O round against other maxima or sums in another order, which can
+    move a rounding by one step)."""
+    return 2.0 ** -6 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[m[0] for m in MODES])
+def test_bf16_forward_reference_matches_pallas(mode):
+    """bf16 q, k, v through the plain forward and through the Pallas kernel
+    (interpret mode, 2 x 2 tiles, so the kernel rounds P against the running
+    max): O in bf16 within the bf16 limit; the fp32 LSE to 1e-5 relative
+    (fp32 logits of bf16-exact values)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        _flash_fwd_call,
+    )
+
+    _, masked, causal, window = mode
+    q, k, v, _, mask = _inputs(21, masked=masked)
+    (tq, jq), (tk, jk), (tv, jv) = _bf16(q), _bf16(k), _bf16(v)
+    o, lse = fa.flash_attention_fwd_reference(tq, tk, tv, _t(mask), causal=causal,
+                                              window=window)
+    want_o, want_lse = _flash_fwd_call(jq, jk, jv, _j(mask), D ** -0.5, BLOCK, BLOCK, causal,
+                                       True, want_lse=True, window=window)
+    want_o = np.asarray(want_o.astype(np.float32))
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert np.abs(o.float().numpy() - want_o).max() <= _bf16_limit(want_o)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], rtol=1e-5, atol=1e-5)
+
+
+BF16_BWD_MODES = MODES + [("pad_row", True, False, None)]
+
+
+@pytest.mark.parametrize("mode", BF16_BWD_MODES, ids=[m[0] for m in BF16_BWD_MODES])
+def test_bf16_backward_reference_matches_pallas_vjp(mode):
+    """bf16 q, k, v, dO: the plain backward (P and dS rounded to bf16 before
+    their products) against ``jax.vjp`` through ``_flash_vjp`` with the
+    Pallas kernels in interpret mode, fed the O and LSE of the Pallas
+    forward that the vjp saves (so Δ reads the same bf16 O on both sides).
+    dQ, dK, dV (bf16) within the bf16 limit; dmask, an fp32 sum of fp32 dS,
+    within 1e-4 x max(1, max|want|)."""
+    import jax
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        _flash_fwd_call,
+        _flash_vjp,
+    )
+
+    name, masked, causal, window = mode
+    q, k, v, do, mask = _inputs(22, masked=masked, pad_row=name == "pad_row")
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = _bf16(q), _bf16(k), _bf16(v), _bf16(do)
+    jo, jlse = _flash_fwd_call(jq, jk, jv, _j(mask), D ** -0.5, BLOCK, BLOCK, causal, True,
+                               want_lse=True, window=window)
+    o = torch.from_numpy(np.array(jo.astype(np.float32))).to(torch.bfloat16)
+    lse = torch.from_numpy(np.asarray(jlse)[..., 0].copy())
+    got = fa.flash_attention_bwd_reference(tq, tk, tv, _t(mask), o, lse, tdo,
+                                           causal=causal, window=window)
+
+    def f(q_, k_, v_, m_):
+        return _flash_vjp(q_, k_, v_, m_, D ** -0.5, BLOCK, BLOCK, causal, True, window)
+
+    _, vjp = jax.vjp(f, jq, jk, jv, _j(mask))
+    want = vjp(jdo)
+    for gname, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        if w is None:
+            assert g is None, gname
+            continue
+        w = np.asarray(w.astype(np.float32))
+        if gname == "dmask":
+            assert g.dtype == torch.float32
+            limit = 1e-4 * max(1.0, float(np.abs(w).max()))
+        else:
+            assert g.dtype == torch.bfloat16, gname
+            limit = _bf16_limit(w)
+        assert np.abs(g.float().numpy() - w).max() <= limit, gname
+
+
+def test_bf16_autograd_function_on_cpu_tensors():
+    """bf16 leaves through ``flash_attention``: the Function's gradients are
+    the plain bf16 backward's, bit for bit, and no kernel launches."""
+    q, k, v, do, mask = _inputs(23)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True) for x in (q, k, v)]
+    m = _t(mask).clone().requires_grad_(True)
+    launches = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    tdo = torch.from_numpy(do).to(torch.bfloat16)
+    out = fa.flash_attention(*leaves, m)
+    out.backward(tdo)
+    detached = [x.detach() for x in leaves]
+    o, lse = fa.flash_attention_fwd_reference(*detached, _t(mask))
+    want = fa.flash_attention_bwd_reference(*detached, _t(mask), o, lse, tdo)
+    assert torch.equal(out.detach(), o)
+    for g, w in zip([x.grad for x in leaves] + [m.grad], want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == launches
+
+
+def _model_layout(b=2, s=16, h=3, d=64, dtype=torch.bfloat16):
+    """[b, h, s, d] view of [b, s, h, d] memory, as the model makes q/k/v."""
+    return torch.zeros(b, s, h, d, dtype=dtype).transpose(1, 2)
+
+
+ALIGN_CASES = [
+    # name, tensor, aligned
+    ("model_layout", lambda: _model_layout(), True),
+    ("contiguous", lambda: torch.zeros(2, 3, 16, 64, dtype=torch.bfloat16), True),
+    ("fp32_model_layout", lambda: _model_layout(dtype=torch.float32), True),
+    ("base_off_by_one", lambda: torch.zeros(2 * 16 * 3 * 64 + 8, dtype=torch.bfloat16)[1:]
+     .as_strided((2, 3, 16, 64), (16 * 3 * 64, 64, 3 * 64, 1)), False),
+    ("row_stride_not_16_bytes", lambda: torch.zeros(2, 16, 3 * 64 + 4, dtype=torch.bfloat16)
+     .as_strided((2, 3, 16, 64), (16 * (3 * 64 + 4), 64, 3 * 64 + 4, 1)), False),
+    ("head_stride_not_16_bytes", lambda: torch.zeros(2 * 16 * 208, dtype=torch.bfloat16)
+     .as_strided((2, 3, 16, 64), (16 * 208, 68, 208, 1)), False),
+]
+
+
+@pytest.mark.parametrize("case", ALIGN_CASES, ids=[c[0] for c in ALIGN_CASES])
+def test_tc_aligned(case):
+    """The tensor-core kernels copy 16-byte rows: base address and batch,
+    head and row strides must be multiples of 16 bytes."""
+    _, make, aligned = case
+    t = make()
+    assert fa.tc_aligned(t) is aligned
+    if aligned:
+        fa._check_tc_aligned("flash_fwd", (t,))
+    else:
+        with pytest.raises(ValueError, match="16-byte rows"):
+            fa._check_tc_aligned("flash_fwd", (t,))
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_autograd_function_on_cpu_tensors(masked):
     """``flash_attention`` with gradients on CPU tensors: the Function runs
@@ -324,7 +468,24 @@ GPU_CASES = [  # S, D, dtype, causal, window, pad_row
     (192, 64, "float32", True, None, False),
     (192, 64, "float32", True, 40, False),
     (128, 128, "float32", False, None, False),
+    # the tensor-core (bf16) forward and dK/dV on every masking path
+    (200, 64, "bfloat16", False, None, True),
+    (192, 64, "bfloat16", True, None, False),
+    (192, 64, "bfloat16", True, 40, False),
+    (136, 128, "bfloat16", False, None, False),
+    (136, 128, "bfloat16", True, None, False),
 ]
+
+
+def _card_limit(got, want):
+    """fp32 outputs (every output of an fp32 case, and the LSE and dmask
+    of a bf16 one: fp32 arithmetic on the same inputs) 1e-4 x max(1,
+    max|want|); a bf16 output 2^-6 x max|want|, no floor of 1 (one bf16
+    ulp is at most 2^-7 of a value and both sides round once)."""
+    top = want.abs().max().item()
+    if got.dtype == torch.bfloat16:
+        return 2.0 ** -6 * top
+    return 1e-4 * max(1.0, top)
 
 
 @pytest.mark.gpu
@@ -338,7 +499,6 @@ def test_kernels_match_reference_on_card(cuda_device, case):
                    .to(cuda_device, dt) for x in (q, k, v, do))
     m = None if mask is None else torch.from_numpy(mask).to(cuda_device).requires_grad_(True)
     kw = dict(causal=causal, window=window)
-    tol = 1e-4 if dtype == "float32" else 2e-2
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
     o, lse = fa.flash_fwd(q, k, v, m, **kw)
     ro, rlse = fa.flash_attention_fwd_reference(q, k, v, m, **kw)
@@ -352,6 +512,7 @@ def test_kernels_match_reference_on_card(cuda_device, case):
     for g, w in ((o, ro), (lse, rlse), (dq, rq), (dk, rk), (dv, rv), (dm, rm)):
         if w is None:
             continue
+        limit = _card_limit(g, w.detach().float())
         g, w = g.detach().float().cpu(), w.detach().float().cpu()
         assert torch.isfinite(g).all()
-        assert (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= limit
