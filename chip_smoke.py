@@ -12,10 +12,11 @@ failure raises and exits non-zero:
    CUDA version; TF32 off for matmuls and cuDNN; then every kernel
    source (``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``,
    ``csrc/vocab_ce.cu``) built at once, one ``nvcc`` each; one line per
-   flash kernel with its registers and spills (``-Xptxas -v``), its
-   shared memory per block and its tensor-core instructions in the SASS
-   (``cuobjdump``): the bf16 forward and dK/dV kernels must hold ``HMMA``
-   and spill nothing;
+   flash and vocab-CE kernel with its registers and spills (``-Xptxas
+   -v``), its shared memory per block and its tensor-core instructions in
+   the SASS (``cuobjdump``): the tensor-core kernels (bf16 flash forward,
+   dQ and dK/dV at D 64 and 128; the bf16-hidden vocab-CE dH) must hold
+   ``HMMA`` and spill nothing;
 2. kernel: holds the paged
    decode kernel against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
@@ -58,7 +59,7 @@ failure raises and exits non-zero:
    other orders through 12 layers) but the key biases', whose exact
    gradient is 0 and whose rounding noise must stay below 1e-5 of the
    global gradient norm on both sides; then one bf16 step the same way
-   (the tensor-core forward and dK/dV): loss within 2^-6 relative of the
+   (the tensor-core kernels): loss within 2^-6 relative of the
    plain bf16 step's, every gradient but the key biases' no further from
    the fp32 plain step's than 2x the plain bf16 step's distance plus 1e-5
    of the global norm (the kernels add no error beyond bf16 rounding), the
@@ -70,7 +71,8 @@ failure raises and exits non-zero:
    flash_bwd_dkv == 12 x train steps``, a finite loss, the JAX CLI's
    results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass over more train
-   steps for the device's idle share;
+   steps for the device's idle share, which must name the three bf16
+   flash kernels;
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
@@ -82,17 +84,26 @@ failure raises and exits non-zero:
    rounded to bf16 before dSᵀ·H, where a last-ulp difference can round
    one step apart). ``pred`` must equal the plain argmax except where the
    plain top-two logit gap is below 1e-5 of the largest logit (counted and
-   printed). One JSON line per case and kernel with its, the plain
-   version's and the unfused library pair's time (fp32 ``torch.matmul``
-   with TF32 off plus ``cross_entropy``; its autograd backward for dH and
-   dW) and the bound;
+   printed). One JSON line per case and kernel with its device time (the
+   profiler's, per call, its helper kernels included, median of 3 windows
+   of 5), its CUDA-event time, the plain version's time, the unfused
+   library pair's device time (fp32 ``torch.matmul`` with TF32 off plus
+   ``cross_entropy``; its autograd backward for dH and dW) and the bound:
+   with bf16 hidden the fp32-exact split route's bf16 tensor-core passes
+   (``CE_TC_PASSES``) at 989 TFLOP/s, the fp32 CUDA-core bound beside it
+   (``bound_fp32_ms``); with fp32 hidden the fp32 bound;
 8. GPT-2 train: (a) one fp32 step (TF32 off, dropout 0) of GPT-2 124M at
    full width on 8 x 512 vendored reviews, the kernels (flash causal
    attention and the fused vocab CE) against the plain path (plain
    attention, unfused logits and CE) from the same weights: loss within
    1e-5 relative, every parameter's gradient within 1e-3 relative L2
    (a parameter whose exact gradient is 0 is held apart: its noise must
-   stay below 1e-5 of the global gradient norm); (b) the training CLI with
+   stay below 1e-5 of the global gradient norm); then one bf16 step (the
+   tensor-core flash kernels and dH) held as the bf16 BERT step is: loss
+   within 2^-6 relative of the plain bf16 step's, every gradient no
+   further from the fp32 plain step's than 2x the plain bf16 path's
+   distance plus 1e-5 of the global norm, the zero-gradient parameters'
+   noise below 2^-10 of it; (b) the training CLI with
    ``--task causal-lm --fused_vocab_ce true`` at its defaults from a
    seeded GPT-2 124M, with ``fused_ce_fwd == train + eval steps``,
    ``fused_ce_bwd_dh == fused_ce_bwd_dw == train steps`` and ``flash_fwd
@@ -100,7 +111,7 @@ failure raises and exits non-zero:
    unfused dropout softmax, as in the JAX package), finite losses, the JAX
    CLI's results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass for device time
-   by kernel and the idle share;
+   by kernel and the idle share, which must name the three K2 kernels;
 9. the ``kernels`` line, the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
@@ -270,14 +281,18 @@ def _cuda_ms(fn, arg_sets, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, arg_sets, match: str | None = None, iters: int = 20,
+def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                repeats: int = 5) -> float:
     """Device time per call: the median over ``repeats`` profiled windows
     of ``iters`` calls of the summed device time of the kernels whose name
-    contains ``match`` (every device activity when None), over ``iters``.
-    Unlike ``_cuda_ms`` it holds no host gap between launches. A window
-    whose trace came back without the kernel (the profiler drops one now
-    and then) is taken again, up to ``repeats`` times in all."""
+    contains ``match`` (or one of the names of a tuple; every device
+    activity when None), over ``iters``.
+    Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
+    opens with a marker kernel (``torch.cuda._sleep``; its spin kernel is
+    left out of the sums): the profiler can lose the first kernel of a
+    window, which would otherwise be one of the timed calls. A window whose
+    trace came back without the kernel is taken again, up to ``repeats``
+    times in all."""
     import statistics
 
     import torch
@@ -286,14 +301,17 @@ def _device_ms(fn, arg_sets, match: str | None = None, iters: int = 20,
     for i in range(3):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     per_call, empty = [], 0
     while len(per_call) < repeats:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         by_kernel = _device_seconds_by_kernel(prof)
-        total = sum(v for k, v in by_kernel.items() if match is None or match in k)
+        total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k
+                    and (names is None or any(n in k for n in names)))
         if total > 0:
             per_call.append(total / iters * 1e3)
             continue
@@ -555,8 +573,8 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
 # -- build -------------------------------------------------------------------
 
 def build_phase() -> dict:
-    """Every kernel source at once, one nvcc each; then the flash
-    kernels' build report (``flash_build_report``)."""
+    """Every kernel source at once, one nvcc each; then the build report
+    of the flash and vocab-CE kernels (``build_report``)."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
 
     names = _build.SOURCES
@@ -565,12 +583,12 @@ def build_phase() -> dict:
     emit({"phase": "build", "libraries": [str(_build.library_path(n).relative_to(ROOT))
                                           for n in names],
           "seconds": round(time.perf_counter() - t0, 3)})
-    return flash_build_report()
+    return build_report()
 
 
 def _ptxas_report(log: str) -> dict:
     """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` report: its
-    registers, stack frame and spill bytes."""
+    registers, static shared memory, stack frame and spill bytes."""
     import re
 
     out, cur = {}, None
@@ -587,6 +605,8 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(m[1]) if m else 0
     return out
 
 
@@ -606,41 +626,68 @@ def _sass_counts(sass: str, opcode: str) -> dict:
     return out
 
 
-def flash_build_report() -> dict:
-    """Each flash kernel of the built library: registers, spills (ptxas),
-    dynamic shared memory per block, and its tensor-core instructions in
-    the SASS (``HMMA``). The bf16 forward and dK/dV kernels must hold
-    HMMA and spill nothing. Returns the rows by (kernel, D, dtype)."""
+# the tensor-core kernels: each must hold HMMA and spill nothing
+TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128)), ("flash_bwd_dq_tc_kernel", (64, 128)),
+              ("flash_bwd_dkv_tc_kernel", (64, 128)), ("vocab_ce_bwd_dh_tc_kernel", (None,)))
+
+
+def _library_report(lib_name: str, kernels) -> dict:
+    """ptxas's report and the SASS ``HMMA`` count of each entry function of
+    a built library, by mangled name, for the kernels named in
+    ``kernels`` (the longest name that a mangled name holds wins)."""
     import shutil
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
 
-    lib_path = _build.library_path("flash_attention")
-    ptxas = _ptxas_report(_build.build_log("flash_attention").read_text())
+    ptxas = _ptxas_report(_build.build_log(lib_name).read_text())
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib_name))],
+                          capture_output=True, text=True, check=True).stdout
     hmma = _sass_counts(sass, "HMMA")
-    lib = fa._kernel_lib()
+    out = {}
+    for mangled, info in ptxas.items():
+        kernel = next((k for k in sorted(set(kernels), key=len, reverse=True)
+                       if k in mangled), None)
+        if kernel is not None:
+            out[mangled] = (kernel, dict(info, hmma_instructions=hmma.get(mangled, 0)))
+    return out
+
+
+def build_report() -> dict:
+    """Each flash and vocab-CE kernel of the built libraries: registers,
+    spills (ptxas), shared memory per block (static plus the dynamic size
+    the launch asks for at the main path's shape), and its tensor-core
+    instructions in the SASS (``HMMA``). The tensor-core kernels must hold
+    HMMA and spill nothing. Returns the rows by (kernel, D, dtype); a
+    vocab-CE row has D None."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    flib, vlib = fa._kernel_lib(), vc._kernel_lib()
     which = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
     rows = {}
-    for mangled, info in ptxas.items():
-        kernel = next((k for k in sorted(set(FLASH_KERNEL_NAMES.values()), key=len,
-                                         reverse=True) if k in mangled), None)
-        if kernel is None:
-            continue
+    for mangled, (kernel, info) in _library_report(
+            "flash_attention", FLASH_KERNEL_NAMES.values()).items():
         D = 128 if "Li128E" in mangled else 64
         dt = "bfloat16" if ("bfloat16" in mangled or "_tc_" in kernel) else "float32"
         wrapper = next(w for (w, d), k in FLASH_KERNEL_NAMES.items() if k == kernel)
-        row = {"phase": "flash_build", "kernel": kernel, "head_dim": D, "dtype": dt, **info,
-               "smem_bytes_per_block": lib.flash_attention_smem_bytes(which[wrapper], D,
-                                                                      int(dt == "bfloat16")),
-               "hmma_instructions": hmma.get(mangled, 0)}
+        rows[(kernel, D, dt)] = {"phase": "kernel_build", "library": "flash_attention",
+                                 "kernel": kernel, "head_dim": D, "dtype": dt, **info,
+                                 "smem_bytes_per_block": flib.flash_attention_smem_bytes(
+                                     which[wrapper], D, int(dt == "bfloat16"))}
+    H = GPT2_124M["n_embd"]
+    for mangled, (kernel, info) in _library_report(
+            "vocab_ce", [n for names in VOCAB_KERNEL_NAMES.values() for n in names]).items():
+        dt = ("bfloat16" if ("bfloat16" in mangled or "_tc_" in kernel)
+              else "float32" if "IfE" in mangled else None)
+        dynamic = vlib.vocab_ce_dh_tc_smem_bytes(H) if "_tc_" in kernel else 0
+        rows[(kernel, None, dt)] = {"phase": "kernel_build", "library": "vocab_ce",
+                                    "kernel": kernel, "dtype": dt, **info,
+                                    "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
+    for row in rows.values():
         emit(row)
-        rows[(kernel, D, dt)] = row
-    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
-        for D in (64, 128):
+    for kernel, dims in TC_KERNELS:
+        for D in dims:
             r = rows.get((kernel, D, "bfloat16"))
             check(r is not None, f"no ptxas report for {kernel}<{D}>")
             check(r["hmma_instructions"] > 0, f"{kernel}<{D}> has no HMMA in its SASS")
@@ -683,7 +730,7 @@ FLASH_KERNEL_NAMES = {
     ("flash_fwd", "float32"): "flash_fwd_kernel",
     ("flash_fwd", "bfloat16"): "flash_fwd_tc_kernel",
     ("flash_bwd_dq", "float32"): "flash_bwd_dq_kernel",
-    ("flash_bwd_dq", "bfloat16"): "flash_bwd_dq_kernel",
+    ("flash_bwd_dq", "bfloat16"): "flash_bwd_dq_tc_kernel",
     ("flash_bwd_dkv", "float32"): "flash_bwd_dkv_kernel",
     ("flash_bwd_dkv", "bfloat16"): "flash_bwd_dkv_tc_kernel",
 }
@@ -1129,6 +1176,9 @@ def train_cli_phase(work: Path) -> dict:
     flash_s = {k: sum(v for n, v in by_kernel.items()
                       if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n)
                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if DEVICE == "cuda":   # the profile names the kernels the train step ran
+        for k, sec in flash_s.items():
+            check(sec > 0, f"no {FLASH_KERNEL_NAMES[(k, 'bfloat16')]} in the BERT train profile")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     row = {"phase": "train", "model": "bert-base-uncased widths (random init, seed 42)",
            "layers": L, "dtype": "bfloat16", "seq": 512, "batch": 8, "eval_batch": 4,
@@ -1164,8 +1214,18 @@ VOCAB_CASES = [
     ("ties", 512, 4096, 768, "float32", 0.0, True),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
+# the kernels each vocab-CE wrapper launches, by hidden dtype, the main
+# kernel first (device time is read per kernel name from a profile)
+VOCAB_KERNEL_NAMES = {
+    **{("fused_ce_fwd", dt): ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel")
+       for dt in ("float32", "bfloat16")},
+    ("fused_ce_bwd_dh", "float32"): ("vocab_ce_bwd_dh_kernel", "vocab_ce_dh_reduce_kernel"),
+    ("fused_ce_bwd_dh", "bfloat16"): ("vocab_ce_bwd_dh_tc_kernel", "vocab_ce_dh_reduce_kernel"),
+    **{("fused_ce_bwd_dw", dt): ("vocab_ce_bwd_dw_kernel",) for dt in ("float32", "bfloat16")},
+}
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
 VOCAB_ITERS = 5
+VOCAB_REPEATS = 3
 CE_NEAR_TIE = 1e-5
 
 
@@ -1185,18 +1245,32 @@ def _vocab_inputs(case, gen, device):
     return h, w, labels, g
 
 
+# bf16 tensor-core passes of the 2·N·V·H logit product each K2 kernel
+# takes on the fp32-exact split route with bf16 hidden: the logits
+# h·(W_hi + W_mid + W_lo)ᵀ (3); dH adds dS_hi·W_hi + dS_hi·W_mid +
+# dS_lo·W_hi (3); dW adds dSᵀ·h (1: dS is rounded to bf16 by the contract)
+CE_TC_PASSES = {"fused_ce_fwd": 3, "fused_ce_bwd_dh": 6, "fused_ce_bwd_dw": 4}
+# fp32 CUDA-core passes: the logits, and the backward's product
+CE_FP32_PASSES = {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 2, "fused_ce_bwd_dw": 2}
+
+
 def _ce_work(case) -> dict:
-    """Bytes and flops each K2 kernel needs: every input read once and
-    every output written once (hidden, W, the int32 labels; loss, LSE and
-    pred; LSE and g in; dH or dW out), 2·N·V·H flops for the logits and as
-    much again for the backward kernels' product."""
+    """Bytes, flops and peak rate of each K2 kernel's bound: every input
+    read once and every output written once (hidden, W, the int32 labels;
+    loss, LSE and pred; LSE and g in; dH or dW out). With bf16 hidden the
+    work is the fp32-exact split route on the bf16 tensor cores
+    (``CE_TC_PASSES`` x 2·N·V·H at 989 TFLOP/s); with fp32 hidden, fp32
+    products on CUDA cores (``CE_FP32_PASSES`` x 2·N·V·H at 67 TFLOP/s)."""
     name, N, V, H, dt, eps, ties = case
     hb = 2 if dt == "bfloat16" else 4
     inputs = N * H * hb + V * H * 4 + N * 4
     logits = 2 * N * V * H
-    return {"fused_ce_fwd": (inputs + 3 * N * 4, logits),
-            "fused_ce_bwd_dh": (inputs + 2 * N * 4 + N * H * hb, 2 * logits),
-            "fused_ce_bwd_dw": (inputs + 2 * N * 4 + V * H * 4, 2 * logits)}
+    nbytes = {"fused_ce_fwd": inputs + 3 * N * 4,
+              "fused_ce_bwd_dh": inputs + 2 * N * 4 + N * H * hb,
+              "fused_ce_bwd_dw": inputs + 2 * N * 4 + V * H * 4}
+    if dt == "bfloat16":
+        return {k: (b, CE_TC_PASSES[k] * logits, BF16_FLOPS_PER_S) for k, b in nbytes.items()}
+    return {k: (b, CE_FP32_PASSES[k] * logits, FP32_FLOPS_PER_S) for k, b in nbytes.items()}
 
 
 def vocab_ce_phase() -> dict:
@@ -1259,12 +1333,14 @@ def _vocab_case(case, gen, dev) -> dict:
     fwd_sets = [(h_, w_, l_) for h_, w_, l_, _ in sets]
     bwd_sets = [(h_, w_, l_, vc.fused_ce_fwd_reference(h_, w_, l_, eps)[1], g_)
                 for h_, w_, l_, g_ in sets]
-    ms = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd(*a, eps), fwd_sets,
-                                   iters=VOCAB_ITERS),
-          "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh(*a, eps), bwd_sets,
-                                      iters=VOCAB_ITERS),
-          "fused_ce_bwd_dw": _cuda_ms(lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets,
-                                      iters=VOCAB_ITERS)}
+    calls = {"fused_ce_fwd": (lambda *a: vc.fused_ce_fwd(*a, eps), fwd_sets),
+             "fused_ce_bwd_dh": (lambda *a: vc.fused_ce_bwd_dh(*a, eps), bwd_sets),
+             "fused_ce_bwd_dw": (lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets)}
+    # device time of the wrapper's kernels (profiler), and CUDA events
+    # around a loop of wrapper calls (host gaps included)
+    ms = {k: _device_ms(fn, a_, VOCAB_KERNEL_NAMES[(k, dt)], iters=VOCAB_ITERS,
+                        repeats=VOCAB_REPEATS) for k, (fn, a_) in calls.items()}
+    event_ms = {k: _cuda_ms(fn, a_, iters=VOCAB_ITERS) for k, (fn, a_) in calls.items()}
     plain = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd_reference(*a, eps),
                                       fwd_sets, iters=3),
              "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh_reference(*a, eps),
@@ -1291,25 +1367,35 @@ def _vocab_case(case, gen, dev) -> dict:
     def lib_bwd(out, leaves, g_):
         torch.autograd.grad(out, leaves, g_, retain_graph=True)
 
-    lib_fwd_ms = _cuda_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS)
-    lib_bwd_ms = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
+    lib_fwd_ms = _device_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+    lib_bwd_ms = _device_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
     library = {"fused_ce_fwd": lib_fwd_ms, "fused_ce_bwd_dh": lib_bwd_ms,
                "fused_ce_bwd_dw": lib_bwd_ms}
+    lib_event_fwd = _cuda_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS)
+    lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
+    library_event = {"fused_ce_fwd": lib_event_fwd, "fused_ce_bwd_dh": lib_event_bwd,
+                     "fused_ce_bwd_dw": lib_event_bwd}
     results = {}
-    for kname, (nbytes, flops) in _ce_work(case).items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    for kname, (nbytes, flops, peak) in _ce_work(case).items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         row = {"phase": "vocab_kernel", "case": name, "kernel": kname, "N": N, "V": V,
                "H": H, "hidden_dtype": dt, "weight_dtype": "float32",
                "label_smoothing": eps, "tied_weight": ties,
+               "kernel_name": VOCAB_KERNEL_NAMES[(kname, dt)][0],
                "max_abs_err": errs[kname], "max_abs_err_limit": limits[kname],
                "status": "pass", "near_ties": int(near.sum()),
-               "kernel_ms": ms[kname], "plain_ms": plain[kname], "library_ms": library[kname],
+               "kernel_ms": ms[kname], "kernel_event_ms": event_ms[kname],
+               "plain_ms": plain[kname], "library_ms": library[kname],
+               "library_event_ms": library_event[kname],
                "library": ("torch.matmul fp32 + cross_entropy (two calls)"
                            if kname == "fused_ce_fwd" else
                            "autograd backward of torch.matmul + cross_entropy, dH and dW "
                            "together (two calls)"),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_peak_flops_per_s": peak,
+               "bound_fp32_ms": max(t_bytes, CE_FP32_PASSES[kname] * 2 * N * V * H
+                                    / FP32_FLOPS_PER_S * 1e3),
                "bytes": nbytes, "flops": flops}
         emit(row)
         results[(name, kname)] = row
@@ -1352,10 +1438,11 @@ def _lm_batch(n: int, seq: int, device, split: str = "train") -> dict:
     return {k: torch.from_numpy(v).long().to(device) for k, v in ds.columns.items()}
 
 
-def gpt2_parity_phase() -> dict:
-    """(a) one fp32 GPT-2 train step, kernels against the plain path."""
-    import torch
-
+def _gpt2_step(batch, impl: str, dtype) -> tuple[float, dict]:
+    """One train step of GPT-2 124M from seed 0 (dropout 0), the kernels
+    (flash causal attention and the fused vocab CE) with ``impl`` "flash",
+    the plain path (plain attention, unfused logits and CE) with "xla": the
+    loss and every parameter's gradient (fp32 parameters)."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
         gpt2_config_from_hf,
@@ -1365,34 +1452,45 @@ def gpt2_parity_phase() -> dict:
         make_fused_causal_lm_loss,
     )
 
+    cfg = gpt2_config_from_hf(GPT2_124M, hidden_dropout=0.0, embd_dropout=0.0,
+                              attention_dropout=0.0, attention_impl=impl, dtype=dtype)
+    model = init_gpt2(cfg, seed=0, device=DEVICE, trainable=True).train()
+    loss_fn = make_fused_causal_lm_loss(model) if impl == "flash" else causal_lm_loss
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def gpt2_parity_phase() -> dict:
+    """(a) one fp32 and one bf16 GPT-2 train step, kernels against the
+    plain path. Returns the two rows by dtype."""
+    import torch
+
     batch = _lm_batch(8, GPT2_SEQ, DEVICE)
     losses, grads = {}, {}
-    for impl in ("flash", "xla"):
-        cfg = gpt2_config_from_hf(GPT2_124M, hidden_dropout=0.0, embd_dropout=0.0,
-                                  attention_dropout=0.0, attention_impl=impl)
-        model = init_gpt2(cfg, seed=0, device=DEVICE, trainable=True).train()
-        loss_fn = make_fused_causal_lm_loss(model) if impl == "flash" else causal_lm_loss
-        loss, _ = loss_fn(model, batch)
-        loss.backward()
-        losses[impl] = float(loss.detach())
-        grads[impl] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-        del model, loss
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
-    rel_loss = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    for dt in ("float32", "bfloat16"):
+        for impl in ("flash", "xla"):
+            losses[(dt, impl)], grads[(dt, impl)] = _gpt2_step(batch, impl, getattr(torch, dt))
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    ref = grads[("float32", "xla")]
+    rel_loss = (abs(losses[("float32", "flash")] - losses[("float32", "xla")])
+                / abs(losses[("float32", "xla")]))
     # a parameter whose exact gradient is 0 holds rounding noise on both
     # sides: held apart, its noise must stay below 1e-5 of the global norm
-    total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads["xla"].values())))
-    zero = [n for n, g in grads["xla"].items() if float(g.norm()) <= PARITY_ZERO_GRAD * total]
-    noise = max((float(grads[i][n].norm()) for i in grads for n in zero), default=0.0) / total
-    rel = {n: float((g - grads["xla"][n]).norm() / grads["xla"][n].norm())
-           for n, g in grads["flash"].items() if n not in zero}
+    total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in ref.values())))
+    zero = [n for n, g in ref.items() if float(g.norm()) <= PARITY_ZERO_GRAD * total]
+    noise = max((float(grads[(dt, i)][n].norm()) for dt, i in grads
+                 if dt == "float32" for n in zero), default=0.0) / total
+    rel = {n: float((g - ref[n]).norm() / ref[n].norm())
+           for n, g in grads[("float32", "flash")].items() if n not in zero}
     worst = max(rel, key=rel.get)
     row = {"phase": "gpt2_parity", "model": "gpt2 124M widths", "layers": GPT2_124M["n_layer"],
            "batch": 8, "seq": GPT2_SEQ, "dtype": "float32", "tf32": False,
            "kernels": "flash causal attention + fused vocab CE",
            "plain": "plain attention + unfused logits and CE",
-           "loss_kernels": losses["flash"], "loss_plain": losses["xla"],
+           "loss_kernels": losses[("float32", "flash")],
+           "loss_plain": losses[("float32", "xla")],
            "loss_rel_err": rel_loss, "loss_rtol": PARITY_LOSS_RTOL,
            "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
            "grad_rel_l2_tol": PARITY_GRAD_REL_L2, "params": len(rel),
@@ -1401,7 +1499,46 @@ def gpt2_parity_phase() -> dict:
     check(rel_loss <= PARITY_LOSS_RTOL, f"gpt2 parity: loss rel err {rel_loss}")
     check(rel[worst] <= PARITY_GRAD_REL_L2, f"gpt2 parity: {worst} grad rel L2 {rel[worst]}")
     check(noise <= PARITY_KEY_BIAS, f"gpt2 parity: zero-gradient noise {noise}")
-    return row
+
+    # bf16 (the tensor-core flash kernels and the tensor-core dH), held as
+    # the bf16 BERT step is (train_parity_phase): every gradient no further
+    # from the fp32 plain step's than PARITY_BF16_FACTOR x the plain bf16
+    # path's distance plus the fp32 noise floor; the zero-gradient
+    # parameters' noise below PARITY_BF16_KEY_BIAS of the global norm
+    g16, ref16 = grads[("bfloat16", "flash")], grads[("bfloat16", "xla")]
+    loss16, loss16_ref = losses[("bfloat16", "flash")], losses[("bfloat16", "xla")]
+    floor = PARITY_KEY_BIAS * total
+    dist = {n: float((g16[n] - ref[n]).norm()) for n in ref}
+    dist_plain = {n: float((ref16[n] - ref[n]).norm()) for n in ref}
+    ratio = {n: (dist[n] - floor) / dist_plain[n] if dist_plain[n] > 0 else
+             (0.0 if dist[n] <= floor else float("inf")) for n in ref if n not in zero}
+    worst16 = max(ratio, key=ratio.get)
+    noise16 = {i: max((float(g[n].norm()) for n in zero), default=0.0) / total
+               for i, g in (("kernels", g16), ("plain", ref16))}
+    loss_rel16 = abs(loss16 - loss16_ref) / abs(loss16_ref)
+    row16 = {"phase": "gpt2_parity", "model": "gpt2 124M widths",
+             "layers": GPT2_124M["n_layer"], "batch": 8, "seq": GPT2_SEQ, "dtype": "bfloat16",
+             "kernels": row["kernels"], "plain": row["plain"],
+             "loss_kernels": loss16, "loss_plain": loss16_ref,
+             "loss_fp32": losses[("float32", "xla")],
+             "loss_rel_err": loss_rel16, "loss_rtol": PARITY_BF16_LOSS_RTOL,
+             "grad_dist_ratio_max": ratio[worst16], "grad_dist_ratio_worst_param": worst16,
+             "grad_dist_ratio_tol": PARITY_BF16_FACTOR,
+             "grad_dist_ratio_top5": sorted(ratio.values(), reverse=True)[:5],
+             "zero_grad_params": zero, "zero_grad_noise_over_global": noise16,
+             "zero_grad_tol": PARITY_BF16_KEY_BIAS,
+             "kernels_vs_fp32_rel_l2_max": max(dist[n] / ref[n].norm().item() for n in ratio),
+             "plain_vs_fp32_rel_l2_max": max(dist_plain[n] / ref[n].norm().item()
+                                             for n in ratio),
+             "params": len(ratio)}
+    emit(row16)
+    check(loss_rel16 <= PARITY_BF16_LOSS_RTOL, f"bf16 gpt2 parity: loss rel err {loss_rel16}")
+    check(ratio[worst16] <= PARITY_BF16_FACTOR,
+          f"bf16 gpt2 parity: {worst16} gradient is {dist[worst16]} from fp32, plain "
+          f"bf16 {dist_plain[worst16]} (floor {floor})")
+    check(max(noise16.values()) <= PARITY_BF16_KEY_BIAS,
+          f"bf16 gpt2 parity: zero-gradient noise {noise16}")
+    return {"float32": row, "bfloat16": row16}
 
 
 _K2 = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
@@ -1494,11 +1631,13 @@ def gpt2_cli_phase(work: Path) -> dict:
         _sync()
     by_kernel = _device_seconds_by_kernel(prof)
     busy = sum(by_kernel.values())
-    k2_names = {"fused_ce_fwd": ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel"),
-                "fused_ce_bwd_dh": ("vocab_ce_bwd_dh_kernel", "vocab_ce_dh_reduce_kernel"),
-                "fused_ce_bwd_dw": ("vocab_ce_bwd_dw_kernel",)}
-    k2_s = {k: sum(v for n, v in by_kernel.items() if any(c in n for c in names))
-            for k, names in k2_names.items()}
+    k2_s = {k: sum(v for n, v in by_kernel.items()
+                   if any(c in n for c in VOCAB_KERNEL_NAMES[(k, "bfloat16")]))
+            for k in _K2}
+    if DEVICE == "cuda":   # the profile names the kernels the train step ran
+        for k in _K2:
+            main = VOCAB_KERNEL_NAMES[(k, "bfloat16")][0]
+            check(any(main in n for n in by_kernel), f"no {main} in the GPT-2 train profile")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     row = {"phase": "gpt2_train", "model": "gpt2 124M widths (random init, seed 42)",
            "layers": L, "dtype": "bfloat16", "seq": 512, "batch": 8, "eval_batch": 4,
@@ -1531,7 +1670,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     card = env_phase()
-    flash_build = build_phase()
+    build = build_phase()
     kernels = kernel_phase()
     serve, model, trace = serve_phase()
     profile_phase(model, trace, serve["wall_s"])
@@ -1550,7 +1689,7 @@ def main() -> int:
     flash_rows = []
     for kname in _K1:
         r = flash[(FLASH_MAIN, kname)]
-        b = flash_build[(r["kernel_name"], r["D"], r["dtype"])]
+        b = build[(r["kernel_name"], r["D"], r["dtype"])]
         flash_rows.append({
             "name": kname, "route": "cuda",
             "source": FLASH_TC_SOURCE if "_tc_" in r["kernel_name"] else FLASH_SOURCE,
@@ -1567,12 +1706,18 @@ def main() -> int:
     vocab_rows = []
     for kname in _K2:
         r = vocab[(VOCAB_MAIN, kname)]
+        b = build[(r["kernel_name"], None, r["hidden_dtype"])]
         vocab_rows.append({
-            "name": kname, "route": "cuda", "source": VOCAB_SOURCE,
+            "name": kname, "route": "cuda", "source": VOCAB_SOURCE, "kernel": r["kernel_name"],
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "bound_by": r["bound_by"], "bound_fp32_ms": r["bound_fp32_ms"],
+            "library_ms": r["library_ms"],
+            "registers": b.get("registers"), "spill_store_bytes": b.get("spill_store_bytes"),
+            "smem_bytes_per_block": b["smem_bytes_per_block"],
+            "hmma_instructions": b["hmma_instructions"],
             "status": {c: row["status"] for (c, k), row in vocab.items() if k == kname}})
     emit({"kernels": [{
         "name": "paged_decode_attention", "route": "cuda",

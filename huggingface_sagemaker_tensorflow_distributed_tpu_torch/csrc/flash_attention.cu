@@ -3,9 +3,12 @@
 // [S, S] score matrix to device memory.
 //
 // Replaces the TPU kernels of the JAX package's `ops/pallas_attention.py`:
-// - flash_fwd_kernel     <- `_fwd_kernel`, reached through `_flash_fwd_call`
-// - flash_bwd_dq_kernel  <- `_dq_kernel`, reached through `_flash_bwd_call`
-// - flash_bwd_dkv_kernel <- `_dkv_kernel`, reached through `_flash_bwd_call`
+// - flash_fwd_kernel, flash_fwd_tc_kernel <- `_fwd_kernel`, reached through
+//   `_flash_fwd_call`
+// - flash_bwd_dq_kernel, flash_bwd_dq_tc_kernel <- `_dq_kernel`, reached
+//   through `_flash_bwd_call`
+// - flash_bwd_dkv_kernel, flash_bwd_dkv_tc_kernel <- `_dkv_kernel`, reached
+//   through `_flash_bwd_call`
 // with the same contract: q, k, v [B, H, S, D] in fp32 or bf16; an optional
 // additive fp32 key mask [B, S_k]; fp32 logits, running max/sum and
 // log-sum-exp; probabilities (and dS) rounded to the input type before
@@ -21,13 +24,13 @@
 // elements of input per row, so the floor is the flops over the CUDA
 // cores' peak; in bf16 the tensor cores bring the operations below the
 // bytes (see flash_attention_tc.cuh). Two families:
-// - bf16 forward and dK/dV: `flash_fwd_tc_kernel` and
+// - bf16: `flash_fwd_tc_kernel`, `flash_bwd_dq_tc_kernel` and
 //   `flash_bwd_dkv_tc_kernel` (flash_attention_tc.cuh) run their products
 //   on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums; 989
 //   TFLOP/s peak), with bf16 tiles double-buffered by cp.async;
-// - fp32 (all three kernels) and the bf16 dQ: the kernels below run the
-//   products in fp32 on CUDA cores (67 TFLOP/s peak). fp32 stays there
-//   because TF32 tensor cores would not hold fp32's 1e-4 parity.
+// - fp32: the kernels below run the products in fp32 on CUDA cores (67
+//   TFLOP/s peak). fp32 stays there because TF32 tensor cores would not
+//   hold fp32's 1e-4 parity.
 //
 // What the CUDA-core design does:
 // - one block of 256 threads per (b, h, 64-row tile); the TPU kernel's
@@ -56,19 +59,6 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;          // query rows and key rows per tile
 constexpr int kTS = kTile + 1;     // row stride of a score tile in shared memory
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// x rounded to the element type T, as a float (what `.astype(T)` does
-// before a product).
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // max / sum over the 16 lanes of a half warp (the lanes sharing ty)
 __device__ __forceinline__ float row_max(float x) {
@@ -128,14 +118,14 @@ __device__ __forceinline__ float causal_add(const Args& a, int qpos, int kpos) {
 
 // rows [row0, row0 + 64) of a head's [S, D] slab -> fp32 shared memory
 // with row stride D + 1; rows at or past `rows` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, long long row_stride,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, long long row_stride,
                                           int row0, int rows) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx % D;
     float x = 0.f;
-    if (row0 + r < rows) x = to_float(base[(long long)(row0 + r) * row_stride + d]);
+    if (row0 + r < rows) x = base[(long long)(row0 + r) * row_stride + d];
     dst[r * (D + 1) + d] = x;
   }
 }
@@ -152,8 +142,8 @@ __device__ __forceinline__ T* head_ptr_mut(void* p, const Strides& s, int b, int
 
 // Δ_r = Σ_d dO[r, d] · O[r, d] for the 64 rows of a query tile: one warp
 // per row, lanes across D.
-template <typename T, int D>
-__device__ __forceinline__ void tile_delta(float* delta, const T* o, const T* dout,
+template <int D>
+__device__ __forceinline__ void tile_delta(float* delta, const float* o, const float* dout,
                                            const Strides& so, const Strides& sdo, int q0,
                                            int Sq) {
   const int warp = threadIdx.x / 32;
@@ -161,9 +151,9 @@ __device__ __forceinline__ void tile_delta(float* delta, const T* o, const T* do
   for (int r = warp; r < kTile; r += kThreads / 32) {
     float acc = 0.f;
     if (q0 + r < Sq) {
-      const T* orow = o + (long long)(q0 + r) * so.s;
-      const T* grow = dout + (long long)(q0 + r) * sdo.s;
-      for (int d = lane; d < D; d += 32) acc += to_float(grow[d]) * to_float(orow[d]);
+      const float* orow = o + (long long)(q0 + r) * so.s;
+      const float* grow = dout + (long long)(q0 + r) * sdo.s;
+      for (int d = lane; d < D; d += 32) acc += grow[d] * orow[d];
     }
     acc = warp_sum(acc);
     if (lane == 0) delta[r] = acc;
@@ -179,7 +169,7 @@ constexpr size_t fwd_smem_floats() {
   return 3 * (size_t)kTile * (D + 1) + (size_t)kTile * kTS + kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 16;  // accumulator columns per thread
@@ -193,11 +183,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = iq * kTile;
-  const T* q = head_ptr<T>(a.q, a.sq, b, h);
-  const T* k = head_ptr<T>(a.k, a.sk, b, h);
-  const T* v = head_ptr<T>(a.v, a.sv, b, h);
+  const float* q = head_ptr<float>(a.q, a.sq, b, h);
+  const float* k = head_ptr<float>(a.k, a.sk, b, h);
+  const float* v = head_ptr<float>(a.v, a.sv, b, h);
 
-  load_tile<T, D>(sQ, q, a.sq.s, q0, a.Sq);
+  load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -212,8 +202,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     if (!tile_runs(a, iq, ik)) continue;
     const int k0 = ik * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sK, k, a.sk.s, k0, a.Sk);
-    load_tile<T, D>(sV, v, a.sv.s, k0, a.Sk);
+    load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+    load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
     if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
     __syncthreads();
 
@@ -255,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         const int kpos = k0 + tx + 16 * j;
         const float p = kpos < a.Sk ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
-        sP[(ty + 16 * i) * kTS + tx + 16 * j] = round_to(p, T());
+        sP[(ty + 16 * i) * kTS + tx + 16 * j] = p;
       }
       l[i] = alpha * l[i] + row_sum(psum);
       m[i] = m_new;
@@ -278,14 +268,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     }
   }
 
-  T* out = head_ptr_mut<T>(a.out, a.sout, b, h);
+  float* out = head_ptr_mut<float>(a.out, a.sout, b, h);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= a.Sq) continue;
     const float safe_l = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(out + (long long)r * a.sout.s + tx + 16 * j, acc[i][j] / safe_l);
+    for (int j = 0; j < NJ; ++j) out[(long long)r * a.sout.s + tx + 16 * j] = acc[i][j] / safe_l;
     if (a.lse_out && tx == 0)
       a.lse_out[((long long)b * a.H + h) * a.Sq + r] = m[i] + logf(safe_l);
   }
@@ -300,7 +290,7 @@ constexpr size_t dq_smem_floats() {
   return 4 * (size_t)kTile * (D + 1) + (size_t)kTile * kTS + 3 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 16;
@@ -317,19 +307,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = iq * kTile;
-  const T* q = head_ptr<T>(a.q, a.sq, b, h);
-  const T* k = head_ptr<T>(a.k, a.sk, b, h);
-  const T* v = head_ptr<T>(a.v, a.sv, b, h);
-  const T* o = head_ptr<T>(a.o, a.so, b, h);
-  const T* dout = head_ptr<T>(a.dout, a.sdo, b, h);
+  const float* q = head_ptr<float>(a.q, a.sq, b, h);
+  const float* k = head_ptr<float>(a.k, a.sk, b, h);
+  const float* v = head_ptr<float>(a.v, a.sv, b, h);
+  const float* o = head_ptr<float>(a.o, a.so, b, h);
+  const float* dout = head_ptr<float>(a.dout, a.sdo, b, h);
   const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
 
   // prologue (the TPU kernel's `ik == 0` init): Q, dO, LSE and Δ once per
   // query tile
-  load_tile<T, D>(sQ, q, a.sq.s, q0, a.Sq);
-  load_tile<T, D>(sDO, dout, a.sdo.s, q0, a.Sq);
+  load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+  load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
   if (tid < kTile) sL[tid] = q0 + tid < a.Sq ? lse[q0 + tid] : 0.f;
-  tile_delta<T, D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
+  tile_delta<D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
   float acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -341,8 +331,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     if (!tile_runs(a, iq, ik)) continue;
     const int k0 = ik * kTile;
     __syncthreads();
-    load_tile<T, D>(sK, k, a.sk.s, k0, a.Sk);
-    load_tile<T, D>(sV, v, a.sv.s, k0, a.Sk);
+    load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+    load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
     if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
     __syncthreads();
 
@@ -384,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
         x += causal_add(a, qpos, kpos);
         const float p = (qpos < a.Sq && kpos < a.Sk) ? expf(x - sL[rl]) : 0.f;
         const float ds = p * (dp[i][j] - sD[rl]);
-        sDS[rl * kTS + tx + 16 * j] = round_to(ds, T());
+        sDS[rl * kTS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -404,13 +394,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   }
 
   // epilogue (the TPU kernel's `ik == last` finish)
-  T* dq = head_ptr_mut<T>(a.out, a.sout, b, h);
+  float* dq = head_ptr_mut<float>(a.out, a.sout, b, h);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= a.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(dq + (long long)r * a.sout.s + tx + 16 * j, acc[i][j] * a.scale);
+    for (int j = 0; j < NJ; ++j) dq[(long long)r * a.sout.s + tx + 16 * j] = acc[i][j] * a.scale;
   }
 }
 
@@ -423,7 +413,7 @@ constexpr size_t dkv_smem_floats() {
   return 4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kTS + 3 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 16;
@@ -441,16 +431,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   const int ik = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int k0 = ik * kTile;
-  const T* q = head_ptr<T>(a.q, a.sq, b, h);
-  const T* k = head_ptr<T>(a.k, a.sk, b, h);
-  const T* v = head_ptr<T>(a.v, a.sv, b, h);
-  const T* o = head_ptr<T>(a.o, a.so, b, h);
-  const T* dout = head_ptr<T>(a.dout, a.sdo, b, h);
+  const float* q = head_ptr<float>(a.q, a.sq, b, h);
+  const float* k = head_ptr<float>(a.k, a.sk, b, h);
+  const float* v = head_ptr<float>(a.v, a.sv, b, h);
+  const float* o = head_ptr<float>(a.o, a.so, b, h);
+  const float* dout = head_ptr<float>(a.dout, a.sdo, b, h);
   const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
 
   // prologue (the TPU kernel's `iq == 0` init)
-  load_tile<T, D>(sK, k, a.sk.s, k0, a.Sk);
-  load_tile<T, D>(sV, v, a.sv.s, k0, a.Sk);
+  load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+  load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
   if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
   float dk[4][NJ], dv[4][NJ], dm[4];
 #pragma unroll
@@ -465,12 +455,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     if (!tile_runs(a, iq, ik)) continue;
     const int q0 = iq * kTile;
     __syncthreads();
-    load_tile<T, D>(sQ, q, a.sq.s, q0, a.Sq);
-    load_tile<T, D>(sDO, dout, a.sdo.s, q0, a.Sq);
+    load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+    load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
     if (tid < kTile) sL[tid] = q0 + tid < a.Sq ? lse[q0 + tid] : 0.f;
     // Δ recomputed per (key tile, query tile) from dO and O, as the TPU
     // kernel does
-    tile_delta<T, D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
+    tile_delta<D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
     __syncthreads();
 
     // transposed tile: rows are this block's keys (ty + 16 i), columns
@@ -515,8 +505,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
         const float p = (qpos < a.Sq && kpos < a.Sk) ? expf(x - sL[ql]) : 0.f;
         const float ds = p * (dpt[i][j] - sD[ql]);
         dm[i] += ds;
-        sPt[kl * kTS + ql] = round_to(p, T());
-        sDSt[kl * kTS + ql] = round_to(ds, T());
+        sPt[kl * kTS + ql] = p;
+        sDSt[kl * kTS + ql] = ds;
       }
     }
     __syncthreads();
@@ -545,8 +535,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 
   // epilogue (the TPU kernel's `iq == last` finish)
-  T* dkp = head_ptr_mut<T>(a.out, a.sout, b, h);
-  T* dvp = head_ptr_mut<T>(a.out2, a.sout2, b, h);
+  float* dkp = head_ptr_mut<float>(a.out, a.sout, b, h);
+  float* dvp = head_ptr_mut<float>(a.out2, a.sout2, b, h);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + ty + 16 * i;
@@ -554,8 +544,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     if (r >= a.Sk) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      store(dkp + (long long)r * a.sout.s + tx + 16 * j, dk[i][j] * a.scale);
-      store(dvp + (long long)r * a.sout2.s + tx + 16 * j, dv[i][j]);
+      dkp[(long long)r * a.sout.s + tx + 16 * j] = dk[i][j] * a.scale;
+      dvp[(long long)r * a.sout2.s + tx + 16 * j] = dv[i][j];
     }
     if (a.lse_out && tx == 0) a.lse_out[((long long)b * a.H + h) * a.Sk + r] = dmr;
   }
@@ -588,30 +578,33 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 // Dynamic shared memory per block of the kernel that `dispatch` launches.
 template <typename T, int D>
 size_t smem_bytes(Which which) {
-  if (which == kDq) return dq_smem_floats<D>() * sizeof(float);
   if constexpr (sizeof(T) == 2)
-    return which == kFwd ? fwd_tc_smem_bytes<D>() : dkv_tc_smem_bytes<D>();
+    return which == kFwd ? fwd_tc_smem_bytes<D>()
+                         : which == kDq ? dq_tc_smem_bytes<D>() : dkv_tc_smem_bytes<D>();
   else
-    return (which == kFwd ? fwd_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+    return (which == kFwd ? fwd_smem_floats<D>()
+                          : which == kDq ? dq_smem_floats<D>() : dkv_smem_floats<D>()) *
+           sizeof(float);
 }
 
-// bf16 forward and dK/dV go to the tensor-core kernels, the rest to the
-// CUDA-core ones.
+// bf16 goes to the tensor-core kernels, fp32 to the CUDA-core ones.
 template <typename T, int D>
 cudaError_t launch_typed(Which which, int B, const Args& a, cudaStream_t stream) {
   const int q_tiles = (a.Sq + kTile - 1) / kTile;
   const int k_tiles = (a.Sk + kTile - 1) / kTile;
   const size_t bytes = smem_bytes<T, D>(which);
-  if (which == kDq)
-    return launch(flash_bwd_dq_kernel<T, D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
   if constexpr (sizeof(T) == 2) {
     if (which == kFwd)
       return launch(flash_fwd_tc_kernel<D>, kTcThreads, bytes, q_tiles, a.H, B, a, stream);
+    if (which == kDq)
+      return launch(flash_bwd_dq_tc_kernel<D>, kTcThreads, bytes, q_tiles, a.H, B, a, stream);
     return launch(flash_bwd_dkv_tc_kernel<D>, kTcThreads, bytes, k_tiles, a.H, B, a, stream);
   } else {
     if (which == kFwd)
-      return launch(flash_fwd_kernel<T, D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
-    return launch(flash_bwd_dkv_kernel<T, D>, kThreads, bytes, k_tiles, a.H, B, a, stream);
+      return launch(flash_fwd_kernel<D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
+    if (which == kDq)
+      return launch(flash_bwd_dq_kernel<D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
+    return launch(flash_bwd_dkv_kernel<D>, kThreads, bytes, k_tiles, a.H, B, a, stream);
   }
 }
 
@@ -642,9 +635,9 @@ extern "C" {
 // in the order of the pointer arguments. bf16: every such tensor is
 // bfloat16, else float32. mask: [B, Sk] fp32 additive, or null. lse:
 // [B, H, Sq] fp32. window <= 0: no sliding window (and window needs
-// causal). D is 64 or 128. The bf16 forward and dK/dV copy rows 16 bytes
-// at a time: every bf16 tensor's base pointer and (batch, head, row)
-// strides must be multiples of 16 bytes (the caller checks).
+// causal). D is 64 or 128. The bf16 kernels copy rows 16 bytes at a
+// time: every bf16 tensor's base pointer and (batch, head, row) strides
+// must be multiples of 16 bytes (the caller checks).
 
 // O = softmax(q k^T * scale + mask) v; LSE as well when lse is not null.
 int flash_fwd_launch(const void* q, const void* k, const void* v, const float* mask, void* out,

@@ -1,20 +1,21 @@
-// Tensor-core forward and dK/dV/dmask kernels of flash attention for bf16
-// inputs (D 64 or 128). Included by flash_attention.cu after `Args`,
+// Tensor-core forward, dQ and dK/dV/dmask kernels of flash attention for
+// bf16 inputs (D 64 or 128). Included by flash_attention.cu after `Args`,
 // `kTile`, `kNegInf`, `tile_runs`, `causal_add` and `head_ptr`.
 //
-// They compute what `flash_fwd_kernel` and `flash_bwd_dkv_kernel` compute
-// for bf16 (the same contract, see flash_attention.cu), up to the order of
-// the fp32 sums: both operands of every product are bf16 (q, k, v, dO, and
-// P and dS rounded to bf16 as the contract asks), so `mma.sync` m16n8k16
-// with fp32 accumulators takes the products the CUDA-core kernels took.
+// They compute what `flash_fwd_kernel`, `flash_bwd_dq_kernel` and
+// `flash_bwd_dkv_kernel` compute for bf16 (the same contract, see
+// flash_attention.cu), up to the order of the fp32 sums: both operands of
+// every product are bf16 (q, k, v, dO, and P and dS rounded to bf16 as the
+// contract asks), so `mma.sync` m16n8k16 with fp32 accumulators takes the
+// products the CUDA-core kernels took.
 //
 // Bound on an H100 at BERT-base (B 8, H 12, S 512, D 64, padded rows): the
 // bytes (q, k, v and O once, 7.6 us at 3.35 TB/s) just above the operations
 // (4.5 GFLOP on the valid keys, 4.5 us at the 989 TFLOP/s of the bf16
 // tensor cores); the forward runs at about 6x that floor. The design:
 // - 4 warps a block, each owning 16 rows of a 64-row tile (query rows in
-//   the forward, key rows in dK/dV), so a row's max and sum reduce over
-//   the 4 lanes of a quad with shuffles;
+//   the forward and dQ, key rows in dK/dV), so a row's max and sum reduce
+//   over the 4 lanes of a quad with shuffles;
 // - tiles are staged in shared memory as bf16 with a 16-byte row pad
 //   (row stride D + 8), so the 8 rows an `ldmatrix` reads fall in 8
 //   different 16-byte bank groups;
@@ -22,17 +23,19 @@
 //   in flight while tile i is computed; rows at or past S are zero-filled
 //   by the copy (nothing is read there);
 // - the score fragment is turned into the bf16 A fragment of the next
-//   product in registers (P of P·V, Pᵀ and dSᵀ of dV and dK), so P and dS
-//   never go through shared memory; V, dO and Q are read as B fragments
-//   with `ldmatrix.trans`;
+//   product in registers (P of P·V, dS of dS·K, Pᵀ and dSᵀ of dV and dK),
+//   so P and dS never go through shared memory; V, K (in dQ), dO and Q
+//   are read as B fragments with `ldmatrix.trans`;
 // - the elementwise softmax work between the products is what the tensor
 //   cores wait on: exponentials go to the special-function unit as 2^x,
 //   and the in-tile causal/window mask and the ragged-edge tests run only
 //   on the tiles that need them (a uniform branch per tile);
 // - registers set the blocks an SM holds: the forward keeps Q's fragments
 //   in registers (138 at D 64, 3 blocks an SM; a cap of 128 for a 4th
-//   block spills); dK/dV takes 32 queries per product step and is capped
-//   for 3 blocks at D 64 (167 registers).
+//   block spills); dQ reads its Q and dO fragments from shared memory per
+//   product so S, dP and the dQ accumulator fit a cap of 168 (3 blocks at
+//   D 64); dK/dV takes 32 queries per product step and is capped for 3
+//   blocks at D 64 (167 registers).
 // The running tiles of a tile row or column form one interval under the
 // causal/window rule of `tile_runs`, so the loops walk that interval.
 
@@ -485,6 +488,198 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dkv_tc_
           __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
     }
     if (a.lse_out && tg == 0) a.lse_out[((long long)b * a.H + h) * a.Sk + kpos] = dmr;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dQ
+// ---------------------------------------------------------------------------
+
+// Q, dO; two stages of (K, V); two stages of the key tile's mask row; the
+// LSE and Δ of the query rows.
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return (size_t)6 * kTile * (D + 8) * sizeof(bf16) + 4 * kTile * sizeof(float);
+}
+
+// Δ_r = Σ_d dO[r, d] O[r, d] in fp32 for the 64 rows of query tile q0, two
+// threads a row reading 16 bytes at a time; rows past Sq are zero.
+template <int D>
+__device__ __forceinline__ void tc_tile_delta(float* delta, const bf16* o, long long o_stride,
+                                              const bf16* dout, long long do_stride, int q0,
+                                              int Sq) {
+  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+  float acc = 0.f;
+  if (q0 + r < Sq) {
+    const uint4* orow = reinterpret_cast<const uint4*>(o + (long long)(q0 + r) * o_stride + half * (D / 2));
+    const uint4* grow = reinterpret_cast<const uint4*>(dout + (long long)(q0 + r) * do_stride + half * (D / 2));
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint4 ov = orow[c], gv = grow[c];
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(op[e]), gf = __bfloat1622float2(gp[e]);
+        acc += gf.x * of.x;
+        acc += gf.y * of.y;
+      }
+    }
+  }
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  if (half == 0) delta[r] = acc;
+}
+
+// One block per (b, h, 64-query tile), each warp owning 16 query rows.
+// S = Q Kᵀ and dP = dO Vᵀ on the tensor cores; dS = P (dP - Δ) in the fp32
+// accumulator fragments, rounded to bf16 only as the A fragment of
+// dQ += dS K (K read again, transposed by `ldmatrix.trans`, as V is in
+// the forward's P V). Q and dO stay in shared memory and their fragments
+// are read per product, so S, dP and dQ fit beside them in registers.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dq_tc_kernel(Args a) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr int NK = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* sDO = sQ + kTile * LD;                   // [64][LD]
+  bf16* sK = sDO + kTile * LD;                   // [2][64][LD]
+  bf16* sV = sK + 2 * kTile * LD;                // [2][64][LD]
+  float* sM = reinterpret_cast<float*>(sV + 2 * kTile * LD);  // [2][64]
+  float* sL = sM + 2 * kTile;                                 // [64] LSE
+  float* sD = sL + kTile;                                     // [64] Δ
+
+  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int q0 = iq * kTile;
+  const int row = warp * 16 + g;  // this lane's rows of the tile: row, row + 8
+  const bf16* q = head_ptr<bf16>(a.q, a.sq, b, h);
+  const bf16* k = head_ptr<bf16>(a.k, a.sk, b, h);
+  const bf16* v = head_ptr<bf16>(a.v, a.sv, b, h);
+  const bf16* o = head_ptr<bf16>(a.o, a.so, b, h);
+  const bf16* dout = head_ptr<bf16>(a.dout, a.sdo, b, h);
+  const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+  const float* mask = a.mask ? a.mask + (long long)b * a.Sk : nullptr;
+
+  int first, last;
+  key_tile_range(a, iq, (a.Sk + kTile - 1) / kTile, first, last);
+
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+
+  // prologue (the TPU kernel's `_init`): Q, dO, LSE and Δ once per query
+  // tile, with the first key tile
+  if (first <= last) {
+    tc_load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+    tc_load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
+    tc_load_row(sL, lse, q0, a.Sq);
+    tc_load_tile<D>(sK, k, a.sk.s, first * kTile, a.Sk);
+    tc_load_tile<D>(sV, v, a.sv.s, first * kTile, a.Sk);
+    tc_load_row(sM, mask, first * kTile, a.Sk);
+    cp_async_commit();
+    tc_tile_delta<D>(sD, o, a.so.s, dout, a.sdo.s, q0, a.Sq);
+  }
+  for (int ik = first; ik <= last; ++ik) {
+    const int st = (ik - first) & 1;
+    if (ik < last) {  // the next key tile loads while this one is computed
+      const int nx = (ik + 1) * kTile;
+      tc_load_tile<D>(sK + (st ^ 1) * kTile * LD, k, a.sk.s, nx, a.Sk);
+      tc_load_tile<D>(sV + (st ^ 1) * kTile * LD, v, a.sv.s, nx, a.Sk);
+      tc_load_row(sM + (st ^ 1) * kTile, mask, nx, a.Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (ik == first) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse_r[r] = sL[row + r * 8];
+        delta_r[r] = sD[row + r * 8];
+      }
+    }
+    const bf16* tK = sK + st * kTile * LD;
+    const bf16* tV = sV + st * kTile * LD;
+    const float* tM = sM + st * kTile;
+    const int k0 = ik * kTile;
+
+    // S = Q Kᵀ and dP = dO Vᵀ: 16 rows x 64 keys a warp
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], ga[4];
+      const int ar = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+      ldsm_x4(qa, sQ + ar);
+      ldsm_x4(ga, sDO + ar);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        const int br = (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, tK + br);
+        ldsm_x4(vb, tV + br);
+        mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16_16816(dp[2 * np], ga, vb[0], vb[1]);
+        mma_bf16_16816(dp[2 * np + 1], ga, vb[2], vb[3]);
+      }
+    }
+
+    // P = exp(S scale + mask - LSE), dS = P (dP - Δ) in fp32; keys at or
+    // past Sk get P = 0. The band mask and the key bound are tested only
+    // on the tiles that need them.
+    const bool band = tile_needs_band(a, q0, k0);
+    const bool ragged = k0 + kTile > a.Sk;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = j * 8 + tg * 2 + (e & 1);
+        float x = s[j][e] * a.scale + tM[kl];
+        if (band) x += causal_add(a, q0 + row + (e >> 1) * 8, k0 + kl);
+        const float p = (!ragged || k0 + kl < a.Sk) ? exp_sfu(x - lse_r[e >> 1]) : 0.f;
+        s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+      }
+
+    // dQ += dS K, dS rounded to bf16 in the A fragment
+#pragma unroll
+    for (int t = 0; t < NK / 2; ++t) {
+      const uint32_t da[4] = {pack_bf16x2(s[2 * t][0], s[2 * t][1]),
+                              pack_bf16x2(s[2 * t][2], s[2 * t][3]),
+                              pack_bf16x2(s[2 * t + 1][0], s[2 * t + 1][1]),
+                              pack_bf16x2(s[2 * t + 1][2], s[2 * t + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, tK + (t * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dn * 16 +
+                              (lane / 16) * 8);
+        mma_bf16_16816(dq[2 * dn], da, kb[0], kb[1]);
+        mma_bf16_16816(dq[2 * dn + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  // epilogue (the TPU kernel's last-tile finish): scale · dQ in bf16
+  bf16* dqp = head_ptr_mut<bf16>(a.out, a.sout, b, h);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + row + r * 8;
+    if (qpos >= a.Sq) continue;
+    bf16* orow = dqp + (long long)qpos * a.sout.s + tg * 2;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
   }
 }
 

@@ -10,7 +10,8 @@ wrapper                   CUDA kernel                  TPU kernel it replaces
 ========================  ===========================  =============================
 :func:`flash_fwd`         ``flash_fwd_kernel``,        ``_fwd_kernel`` (``_flash_fwd_call``)
                           ``flash_fwd_tc_kernel``
-:func:`flash_bwd_dq`      ``flash_bwd_dq_kernel``      ``_dq_kernel`` (``_flash_bwd_call``)
+:func:`flash_bwd_dq`      ``flash_bwd_dq_kernel``,     ``_dq_kernel`` (``_flash_bwd_call``)
+                          ``flash_bwd_dq_tc_kernel``
 :func:`flash_bwd_dkv`     ``flash_bwd_dkv_kernel``,    ``_dkv_kernel`` (``_flash_bwd_call``)
                           ``flash_bwd_dkv_tc_kernel``
 ========================  ===========================  =============================
@@ -30,10 +31,10 @@ dispatch sends them to XLA.
 What bounds the kernels on an H100 and what their design does about it
 is written at the top of ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_tc.cuh``: operations in fp32; in bf16 the bytes,
-just above the operations on the tensor cores. In bf16 the forward and
-dK/dV kernels run their products on the tensor cores and copy 16-byte
-rows with ``cp.async``, so their bf16 tensors must be 16-byte aligned
-(:func:`tc_aligned`); fp32, and the bf16 dQ, run in fp32 on CUDA cores.
+just above the operations on the tensor cores. In bf16 all three kernels
+run their products on the tensor cores and copy 16-byte rows with
+``cp.async``, so their bf16 tensors must be 16-byte aligned
+(:func:`tc_aligned`); fp32 runs in fp32 on CUDA cores.
 
 Each wrapper launches its kernel for CUDA tensors and raises for anything
 the kernel cannot take; it uses the plain version only for tensors on the
@@ -301,12 +302,15 @@ def flash_fwd(q, k, v, mask=None, scale=None, causal: bool = False,
 
 def flash_bwd_dq(q, k, v, mask, o, lse, do, scale=None, causal: bool = False,
                  window: int | None = None):
-    """dQ. CUDA tensors go through ``flash_bwd_dq_kernel``; CPU tensors
-    through :func:`flash_bwd_dq_reference`."""
+    """dQ. CUDA tensors go through ``flash_bwd_dq_kernel`` (fp32) or
+    ``flash_bwd_dq_tc_kernel`` (bf16); CPU tensors through
+    :func:`flash_bwd_dq_reference`."""
     _check(q, k, v, mask, causal, window)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, mask, o, lse, do, scale, causal, window)
     lib, m, strides_in, bf16 = _kernel_args("flash_bwd_dq", q, k, v, mask, (o, do))
+    if bf16:
+        _check_tc_aligned("flash_bwd_dq", (q, k, v, o, do))
     lse = _float_rows(lse, q)
     dq = torch.empty_like(q)
     strides = (ctypes.c_longlong * 18)(*strides_in, *dq.stride()[:3])

@@ -4,13 +4,14 @@ versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of the JAX package's ``ops/pallas_vocab_ce.py``:
 
-========================  ===========================  =============================
-wrapper                   CUDA kernel                  TPU kernel it replaces
-========================  ===========================  =============================
-:func:`fused_ce_fwd`      ``vocab_ce_fwd_kernel``      ``_fwd_kernel`` (``_fused_ce_fwd_call``)
-:func:`fused_ce_bwd_dh`   ``vocab_ce_bwd_dh_kernel``   ``_dh_kernel`` (``_fused_ce_bwd_call``)
-:func:`fused_ce_bwd_dw`   ``vocab_ce_bwd_dw_kernel``   ``_dw_kernel`` (``_fused_ce_bwd_call``)
-========================  ===========================  =============================
+========================  ==============================  =============================
+wrapper                   CUDA kernel                     TPU kernel it replaces
+========================  ==============================  =============================
+:func:`fused_ce_fwd`      ``vocab_ce_fwd_kernel``         ``_fwd_kernel`` (``_fused_ce_fwd_call``)
+:func:`fused_ce_bwd_dh`   ``vocab_ce_bwd_dh_tc_kernel``,  ``_dh_kernel`` (``_fused_ce_bwd_call``)
+                          ``vocab_ce_bwd_dh_kernel``
+:func:`fused_ce_bwd_dw`   ``vocab_ce_bwd_dw_kernel``      ``_dw_kernel`` (``_fused_ce_bwd_call``)
+========================  ==============================  =============================
 
 Contract (the JAX kernel's): ``hidden`` ``[N, H]`` in bfloat16 or float32,
 ``weight`` ``[V, H]`` in float32 (the tied embedding in its param dtype),
@@ -25,8 +26,12 @@ back in ``hidden``'s dtype, dW in ``weight``'s. Any other pair of dtypes
 raises.
 
 What bounds the kernels on an H100 and what their design does about it
-is written at the top of ``csrc/vocab_ce.cu``: they are bound by
-operations, and run them in fp32 on CUDA cores.
+is written in ``csrc/vocab_ce.cu``: they are bound by operations. The
+forward, dW and the fp32-hidden dH run them in fp32 on CUDA cores; the
+bf16-hidden dH runs them on the bf16 tensor cores with W and dS split
+into bf16 pieces that keep the fp32 products (:func:`split_bf16` is the
+split; H up to 1216, beyond which its rows of h do not fit a block and
+it runs on CUDA cores).
 
 Each wrapper launches its kernels for CUDA tensors and raises for anything
 they cannot take; it uses the plain version only for tensors on the CPU.
@@ -94,6 +99,26 @@ def _splits(row_tiles: int, vocab: int, target: int) -> int:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def split_bf16(x, pieces: int = 3):
+    """``x`` as ``pieces`` bf16 tensors whose sum is ``x`` (fp32): the
+    first is ``bf16(x)`` rounded to nearest, each later one the bf16
+    truncation of what the ones before it leave. Each difference is exact
+    in fp32 and the first leaves at most 16 significant bits, so three
+    pieces carry fp32's 24 and sum to ``x`` exactly (while they stay normal
+    numbers). The split the bf16-hidden dH kernel makes of W (three
+    pieces) and of dS (two)."""
+    rest = x.float()
+    out = []
+    for i in range(pieces):
+        if i == 0:
+            piece = rest.to(torch.bfloat16)
+        else:  # truncation: the upper 16 bits of the fp32 value
+            piece = (rest.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+        out.append(piece)
+        rest = rest - piece.float()
+    return tuple(out)
+
+
 def _logits(hidden, weight):
     """fp32 ``hidden·weightᵀ`` [N, V]."""
     return torch.matmul(hidden.float(), weight.float().t())
@@ -155,6 +180,8 @@ def _kernel_lib():
         for fn in (lib.vocab_ce_fwd_launch, lib.vocab_ce_bwd_dh_launch,
                    lib.vocab_ce_bwd_dw_launch):
             fn.restype = ctypes.c_int
+        lib.vocab_ce_dh_tc_smem_bytes.argtypes = [i]
+        lib.vocab_ce_dh_tc_smem_bytes.restype = ctypes.c_longlong
         lib.vocab_ce_error_string.argtypes = [ctypes.c_int]
         lib.vocab_ce_error_string.restype = ctypes.c_char_p
     return lib
@@ -229,7 +256,8 @@ def fused_ce_fwd(hidden, weight, labels, label_smoothing: float = 0.0):
 
 def fused_ce_bwd_dh(hidden, weight, labels, lse, g, label_smoothing: float = 0.0):
     """dH in ``hidden``'s dtype. CUDA tensors go through
-    ``vocab_ce_bwd_dh_kernel`` (and its split reduce); CPU tensors through
+    ``vocab_ce_bwd_dh_tc_kernel`` (bf16 hidden) or ``vocab_ce_bwd_dh_kernel``
+    (float32 hidden), and their split reduce; CPU tensors through
     :func:`fused_ce_bwd_dh_reference`."""
     _check(hidden, weight, labels)
     eps = _smoothing(label_smoothing)

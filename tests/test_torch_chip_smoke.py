@@ -95,7 +95,8 @@ def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
     rows = chip_smoke.flash_phase()
     assert len(rows) == 18 and all(r["status"] == "pass" for r in rows.values())
     assert rows[("bert_bf16", "flash_fwd")]["kernel_name"] == "flash_fwd_tc_kernel"
-    assert rows[("bert_bf16", "flash_bwd_dq")]["kernel_name"] == "flash_bwd_dq_kernel"
+    assert rows[("bert_bf16", "flash_bwd_dq")]["kernel_name"] == "flash_bwd_dq_tc_kernel"
+    assert rows[("bert_fp32", "flash_bwd_dq")]["kernel_name"] == "flash_bwd_dq_kernel"
     assert rows[("bert_fp32", "flash_bwd_dkv")]["kernel_name"] == "flash_bwd_dkv_kernel"
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
@@ -135,17 +136,28 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("ties", 32, 130, 16, "float32", 0.0, True)])
     rows = chip_smoke.vocab_ce_phase()
     assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
+    assert rows[("gpt2_bf16", "fused_ce_bwd_dh")]["kernel_name"] == "vocab_ce_bwd_dh_tc_kernel"
+    assert rows[("ragged", "fused_ce_bwd_dh")]["kernel_name"] == "vocab_ce_bwd_dh_kernel"
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
         assert row["bound_by"] in ("bytes", "operations")
-    # the bound: 2·N·V·H flops for the logits (twice for the backward),
-    # every input read and every output written once
-    case = ("c", 4096, 50257, 768, "bfloat16", 0.0, False)
-    work = chip_smoke._ce_work(case)
-    assert work["fused_ce_fwd"][1] == 2 * 4096 * 50257 * 768
-    assert work["fused_ce_bwd_dw"][1] == 2 * work["fused_ce_fwd"][1]
+        assert row["bound_fp32_ms"] >= row["bound_ms"]
+    # the bound: every input read and every output written once; with bf16
+    # hidden the split route's bf16 tensor-core passes of 2·N·V·H (3 for
+    # the logits, 6 for dH, 4 for dW) at 989 TFLOP/s, with fp32 hidden one
+    # pass (two for the backward) at 67 TFLOP/s
+    logits = 2 * 4096 * 50257 * 768
+    work = chip_smoke._ce_work(("c", 4096, 50257, 768, "bfloat16", 0.0, False))
+    assert {k: w[1] for k, w in work.items()} == {
+        "fused_ce_fwd": 3 * logits, "fused_ce_bwd_dh": 6 * logits, "fused_ce_bwd_dw": 4 * logits}
+    assert {w[2] for w in work.values()} == {989e12}
+    assert [round(w[1] / w[2] * 1e3, 3) for w in work.values()] == [0.959, 1.918, 1.279]
     assert work["fused_ce_bwd_dh"][0] == (4096 * 768 * 2 * 2 + 50257 * 768 * 4 + 3 * 4096 * 4)
+    work = chip_smoke._ce_work(("c", 4096, 50257, 768, "float32", 0.0, False))
+    assert {k: w[1:] for k, w in work.items()} == {
+        "fused_ce_fwd": (logits, 67e12), "fused_ce_bwd_dh": (2 * logits, 67e12),
+        "fused_ce_bwd_dw": (2 * logits, 67e12)}
     # limits: a bf16 output against max|want| alone, fp32 against max(1, max|want|)
     bf16, fp32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
     assert chip_smoke._limit(bf16, 0.09) == 0.09 / 64
@@ -156,8 +168,10 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
 def test_gpt2_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "GPT2_CLI_STEPS", 2)
     monkeypatch.setattr(chip_smoke, "GPT2_EVAL_SAMPLES", 4)
-    row = chip_smoke.gpt2_parity_phase()
-    assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    rows = chip_smoke.gpt2_parity_phase()
+    for row in rows.values():
+        assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
+    assert rows["bfloat16"]["grad_dist_ratio_max"] <= rows["bfloat16"]["grad_dist_ratio_tol"]
     # on the CPU `auto` picks the plain path; the CLI is asked for flash
     run = cli.run
     monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
@@ -173,7 +187,7 @@ ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Used 128 registers, used 1 barriers, 2048 bytes smem, 400 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE
     8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
@@ -201,25 +215,42 @@ def test_ptxas_report_and_sass_counts_parse_the_build_outputs():
     fp32 = "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvNS_4ArgsE"
     report = chip_smoke._ptxas_report(PTXAS_LOG)
     assert report[tc] == {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
-                          "registers": 128}
+                          "registers": 128, "static_smem_bytes": 2048}
     assert report[fp32] == {"stack_bytes": 8, "spill_store_bytes": 12, "spill_load_bytes": 16,
-                            "registers": 255}
+                            "registers": 255, "static_smem_bytes": 0}
     assert chip_smoke._sass_counts(SASS, "HMMA") == {tc: 2, fp32: 0}
     assert chip_smoke._sass_counts(SASS, "LDSM") == {tc: 1, fp32: 0}
 
 
 def test_flash_kernel_names_cover_every_wrapper_and_dtype():
     """Every (wrapper, dtype) the flash phase times names the kernel that
-    launches: the tensor-core kernels for the bf16 forward and dK/dV, the
-    CUDA-core ones otherwise."""
+    launches: the tensor-core kernels in bf16, the CUDA-core ones in
+    fp32; every tensor-core kernel is held to HMMA and no spill."""
     names = chip_smoke.FLASH_KERNEL_NAMES
     assert set(names) == {(k, dt) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                           for dt in ("float32", "bfloat16")}
-    assert {k for (k, dt), n in names.items() if "_tc_" in n} == {"flash_fwd", "flash_bwd_dkv"}
-    assert all("_tc_" not in n for (k, dt), n in names.items() if dt == "float32")
+    assert all(("_tc_" in n) == (dt == "bfloat16") for (k, dt), n in names.items())
+    held = {k for k, _ in chip_smoke.TC_KERNELS}
+    assert {n for n in names.values() if "_tc_" in n} <= held
     cases = {c[0]: c for c in chip_smoke.FLASH_CASES}
     for name in ("ragged200", "causal", "causal_window64", "pad_row", "dmask"):
         assert cases[name][5] == "float32"
         assert cases[f"{name}_bf16"][1:5] + cases[f"{name}_bf16"][6:] == \
             cases[name][1:5] + cases[name][6:]
         assert cases[f"{name}_bf16"][5] == "bfloat16"
+
+
+def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
+    """Every (wrapper, hidden dtype) the vocab-CE phase times names the
+    kernels that launch, the main one first: the tensor-core dH with bf16
+    hidden, the CUDA-core kernels otherwise; the tensor-core dH is held
+    to HMMA and no spill, and the kernels line reads its build row."""
+    names = chip_smoke.VOCAB_KERNEL_NAMES
+    assert set(names) == {(k, dt) for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+                          for dt in ("float32", "bfloat16")}
+    assert names[("fused_ce_bwd_dh", "bfloat16")][0] == "vocab_ce_bwd_dh_tc_kernel"
+    assert all("_tc_" not in n for (k, dt), ns in names.items()
+               if (k, dt) != ("fused_ce_bwd_dh", "bfloat16") for n in ns)
+    assert ("vocab_ce_bwd_dh_tc_kernel", (None,)) in chip_smoke.TC_KERNELS
+    assert names[("fused_ce_bwd_dh", "float32")][1] == "vocab_ce_dh_reduce_kernel"
+    assert chip_smoke.VOCAB_MAIN == "gpt2_bf16"

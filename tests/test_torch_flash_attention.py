@@ -339,6 +339,58 @@ def test_tc_aligned(case):
             fa._check_tc_aligned("flash_fwd", (t,))
 
 
+def _on_meta(t):
+    """``t``'s sizes, strides and storage offset on the meta device."""
+    base = torch.empty(t.untyped_storage().nbytes() // t.element_size(), dtype=t.dtype,
+                       device="meta")
+    return base.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+DQ_ALIGN_CASES = [
+    # name, the tensor made misaligned (None: all aligned), its layout
+    ("aligned", None, None),
+    ("q_base_off_by_one", 0, "base_off_by_one"),
+    ("k_row_stride", 1, "row_stride_not_16_bytes"),
+    ("v_head_stride", 2, "head_stride_not_16_bytes"),
+    ("o_base_off_by_one", 3, "base_off_by_one"),
+    ("do_row_stride", 4, "row_stride_not_16_bytes"),
+]
+
+
+@pytest.mark.parametrize("case", DQ_ALIGN_CASES, ids=[c[0] for c in DQ_ALIGN_CASES])
+def test_bf16_dq_checks_tc_alignment(case, monkeypatch):
+    """The bf16 dQ runs on the tensor-core kernel, which copies 16-byte
+    rows: ``flash_bwd_dq`` raises before any launch when one of q, k, v,
+    o, dO is not 16-byte aligned, and launches otherwise. Meta tensors
+    carry the CUDA-shaped layouts; the library and the stream are stubbed
+    (the kernel runs only on the card)."""
+    _, which, layout = case
+    layouts = {c[0]: c[1] for c in ALIGN_CASES}
+    tensors = [_on_meta(_model_layout()) for _ in range(5)]
+    if which is not None:
+        tensors[which] = _on_meta(layouts[layout]())
+    q, k, v, o, do = tensors
+    lse = torch.empty(2, 3, 16, device="meta")
+    calls = []
+
+    class Lib:
+        def flash_bwd_dq_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fa, "_kernel_args", lambda name, q, k, v, mask, extra: (
+        Lib(), None, [s for t in (q, k, v) + tuple(extra) for s in t.stride()[:3]], 1))
+    monkeypatch.setattr(fa, "_tail", lambda *a: ())
+    before = fa.flash_bwd_dq.launches
+    if which is None:
+        assert fa.flash_bwd_dq(q, k, v, None, o, lse, do).shape == q.shape
+        assert len(calls) == 1 and fa.flash_bwd_dq.launches == before + 1
+    else:
+        with pytest.raises(ValueError, match="flash_bwd_dq: the bf16 kernel copies 16-byte rows"):
+            fa.flash_bwd_dq(q, k, v, None, o, lse, do)
+        assert not calls and fa.flash_bwd_dq.launches == before
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_autograd_function_on_cpu_tensors(masked):
     """``flash_attention`` with gradients on CPU tensors: the Function runs
@@ -468,12 +520,15 @@ GPU_CASES = [  # S, D, dtype, causal, window, pad_row
     (192, 64, "float32", True, None, False),
     (192, 64, "float32", True, 40, False),
     (128, 128, "float32", False, None, False),
-    # the tensor-core (bf16) forward and dK/dV on every masking path
+    # the tensor-core (bf16) kernels on every masking path
     (200, 64, "bfloat16", False, None, True),
     (192, 64, "bfloat16", True, None, False),
     (192, 64, "bfloat16", True, 40, False),
     (136, 128, "bfloat16", False, None, False),
     (136, 128, "bfloat16", True, None, False),
+    # the tensor-core dQ: a ragged tile with a padded row, D 128 with a window
+    (72, 64, "bfloat16", False, None, True),
+    (136, 128, "bfloat16", True, 40, False),
 ]
 
 

@@ -3,9 +3,11 @@ against the JAX package's ``fused_vocab_cross_entropy`` with the Pallas
 kernels in interpret mode, on the same numpy inputs: loss and prediction
 over multi-tile, ragged and below-one-tile vocabularies, dH and dW through
 ``torch.autograd`` against ``jax.vjp``, first-max ties, label smoothing,
-and the (bfloat16 hidden, float32 weight) contract of the GPT-2 path. Plus
-the three CUDA kernels against their plain versions on the card (skipped
-without one).
+and the (bfloat16 hidden, float32 weight) contract of the GPT-2 path; the
+bf16 split that the tensor-core dH kernel makes of W and dS
+(``split_bf16``) and its arithmetic, in plain PyTorch, against fp64, the
+plain dH and the Pallas kernel. Plus the three CUDA kernels against their
+plain versions on the card (skipped without one).
 
 The JAX function takes its Pallas path only when H is a multiple of 128
 and N a multiple of an 8-aligned ``block_n`` (else it computes the unfused
@@ -227,6 +229,113 @@ def test_no_grad_runs_only_the_forward_and_splits_cover_the_vocab():
             assert 1 <= splits <= vtiles and (splits - 1) * per < vtiles
 
 
+SPLIT_KINDS = {
+    "random": lambda r: r.randn(64, 96) * 0.02,
+    "negative": lambda r: -np.abs(r.randn(64, 96)) * 0.02,
+    "zero": lambda r: np.zeros((64, 96)),
+    "tiny": lambda r: np.sign(r.randn(64, 96)) * r.uniform(1, 2, (64, 96)) * 1e-30,
+    "large": lambda r: r.randn(64, 96) * 1e30,
+    "mixed": lambda r: r.randn(64, 96) * 10.0 ** r.randint(-20, 20, (64, 96)),
+}
+
+
+@pytest.mark.parametrize("kind", list(SPLIT_KINDS))
+def test_split_bf16_pieces_sum_to_the_fp32_value_exactly(kind):
+    """``split_bf16``, the split the bf16-hidden dH kernel makes of W:
+    three bf16 pieces (the first rounded to nearest, the rest truncations
+    of what is left) whose sum in fp64 is the fp32 value, bit for bit."""
+    x = torch.from_numpy(SPLIT_KINDS[kind](np.random.RandomState(0)).astype(np.float32))
+    pieces = vc.split_bf16(x)
+    assert len(pieces) == 3 and all(q.dtype == torch.bfloat16 for q in pieces)
+    assert torch.equal(pieces[0], x.to(torch.bfloat16))
+    assert torch.equal(sum(q.double() for q in pieces), x.double())
+    hi, lo = vc.split_bf16(x, 2)
+    assert torch.equal(hi, pieces[0]) and torch.equal(lo, pieces[1])
+
+
+def _split_route_dh(hidden, weight, labels, lse, g, eps=0.0):
+    """The bf16-hidden dH kernel's arithmetic in plain PyTorch: logits as
+    three fp32 products of bf16 h with the pieces of W, dS in fp32, then
+    dS_hi·W_hi + dS_hi·W_mid + dS_lo·W_hi, dH rounded to h's dtype."""
+    w_hi, w_mid, w_lo = (q.float() for q in vc.split_bf16(weight))
+    h = hidden.float()
+    s = h @ w_hi.t() + h @ w_mid.t() + h @ w_lo.t()
+    target = torch.zeros_like(s).scatter_(1, labels.long()[:, None], 1.0)
+    if eps > 0:
+        target = (1.0 - eps) * target + eps / weight.shape[0]
+    ds = (torch.exp(s - lse[:, None]) - target) * g[:, None]
+    d_hi, d_lo = (q.float() for q in vc.split_bf16(ds, 2))
+    return (d_hi @ w_hi + d_hi @ w_mid + d_lo @ w_hi).to(hidden.dtype)
+
+
+@pytest.mark.parametrize("h_dim", [128, 768])
+def test_split_route_logits_are_fp32_exact(h_dim):
+    """bf16 h times the three pieces of W, summed in fp32, is the fp64
+    logit to 2^-22 of the sum of the absolute products (the scale of an
+    fp32 dot product's rounding): the split loses nothing of W."""
+    hidden, weight, _ = _inputs(64, 300, seed=h_dim, h_dim=h_dim)
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    pieces = vc.split_bf16(torch.from_numpy(weight))
+    s = sum(h.float() @ q.float().t() for q in pieces)
+    want = h.double() @ torch.from_numpy(weight).double().t()
+    scale = h.double().abs() @ torch.from_numpy(weight).double().abs().t()
+    assert ((s.double() - want).abs() <= 2.0 ** -22 * scale).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_route_ds_times_w_within_2_pow_14(seed):
+    """The three-term dS·W (dS in two pieces, W in hi and mid) against
+    fp64: the dropped terms are about 2^-16 of the product."""
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy((rng.randn(300, H) * 0.05).astype(np.float32))
+    ds = torch.from_numpy((rng.randn(48, 300) * 0.01).astype(np.float32))
+    w_hi, w_mid, _ = (q.float() for q in vc.split_bf16(w))
+    d_hi, d_lo = (q.float() for q in vc.split_bf16(ds, 2))
+    got = d_hi @ w_hi + d_hi @ w_mid + d_lo @ w_hi
+    want = ds.double() @ w.double()
+    assert (got.double() - want).abs().max() <= 2.0 ** -14 * want.abs().max()
+
+
+SPLIT_DH_CASES = [  # n_tok, vocab, h_dim, eps
+    (48, 300, 128, 0.0),
+    (48, 300, 128, 0.1),
+    (20, 70, 24, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_DH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_route_dh_matches_the_plain_version(case):
+    """The kernel's split route gives the plain dH
+    (``fused_ce_bwd_dh_reference``) with bf16 hidden within the bf16
+    limit, 2^-6 of the largest entry."""
+    n_tok, vocab, h_dim, eps = case
+    hidden, weight, labels = (torch.from_numpy(x) for x in _inputs(n_tok, vocab, seed=13,
+                                                                   h_dim=h_dim))
+    h = hidden.to(torch.bfloat16)
+    g = torch.from_numpy(np.random.RandomState(14).rand(n_tok).astype(np.float32))
+    _, lse, _ = vc.fused_ce_fwd_reference(h, weight, labels, eps)
+    got = _split_route_dh(h, weight, labels, lse, g, eps)
+    want = vc.fused_ce_bwd_dh_reference(h, weight, labels, lse, g, eps)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max() <= 2.0 ** -6 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1], ids=["eps0", "eps0.1"])
+def test_split_route_dh_matches_pallas(eps):
+    """The split route's dH with bf16 hidden against ``jax.vjp`` through
+    the Pallas ``_dh_kernel`` in interpret mode, at H 128, within the bf16
+    limit."""
+    hidden, weight, labels = _inputs(48, 300, seed=15)
+    hidden = torch.from_numpy(hidden).bfloat16().float().numpy()   # bf16-exact
+    g = np.random.RandomState(16).rand(48).astype(np.float32)
+    want_dh = _jax(hidden, weight, labels, 16, 128, eps=eps, g=g, h_dtype="bfloat16")[2]
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w, lab = torch.from_numpy(weight), torch.from_numpy(labels)
+    _, lse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    got = _split_route_dh(h, w, lab, lse, torch.from_numpy(g), eps).float().numpy()
+    assert np.abs(got - want_dh).max() <= 2.0 ** -6 * np.abs(want_dh).max()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -240,6 +349,14 @@ GPU_CASES = [  # n_tok, vocab, h_dim, dtype, eps, ties
     (130, 777, 200, "float32", 0.1, False),
     (64, 500, 800, "float32", 0.0, False),
     (128, 640, 128, "float32", 0.0, True),
+    # the tensor-core dH (bf16 hidden): H not a multiple of 64 or 4, two
+    # panels, smoothing, ties
+    (256, 2000, 200, "bfloat16", 0.0, False),
+    (64, 500, 800, "bfloat16", 0.1, False),
+    (100, 3000, 30, "bfloat16", 0.0, False),
+    (128, 640, 128, "bfloat16", 0.0, True),
+    # bf16 hidden past the tensor-core kernel's H (1216): the CUDA-core dH
+    (64, 500, 1280, "bfloat16", 0.0, False),
 ]
 
 
