@@ -15,8 +15,8 @@ failure raises and exits non-zero:
    flash and vocab-CE kernel with its registers and spills (``-Xptxas
    -v``), its shared memory per block and its tensor-core instructions in
    the SASS (``cuobjdump``): the tensor-core kernels (bf16 flash forward,
-   dQ and dK/dV at D 64 and 128; the bf16-hidden vocab-CE dH) must hold
-   ``HMMA`` and spill nothing;
+   dQ and dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward, dH and
+   dW) must hold ``HMMA`` and spill nothing;
 2. kernel: holds the paged
    decode kernel against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
@@ -99,7 +99,7 @@ failure raises and exits non-zero:
    1e-5 relative, every parameter's gradient within 1e-3 relative L2
    (a parameter whose exact gradient is 0 is held apart: its noise must
    stay below 1e-5 of the global gradient norm); then one bf16 step (the
-   tensor-core flash kernels and dH) held as the bf16 BERT step is: loss
+   tensor-core flash and vocab-CE kernels) held as the bf16 BERT step is: loss
    within 2^-6 relative of the plain bf16 step's, every gradient no
    further from the fp32 plain step's than 2x the plain bf16 path's
    distance plus 1e-5 of the global norm, the zero-gradient parameters'
@@ -137,6 +137,7 @@ FLASH_REPLACES = {"flash_fwd": f"{_PALLAS_ATTN}:65",
                   "flash_bwd_dq": f"{_PALLAS_ATTN}:195",
                   "flash_bwd_dkv": f"{_PALLAS_ATTN}:246"}
 VOCAB_SOURCE = f"{PKG}/csrc/vocab_ce.cu"
+VOCAB_TC_SOURCE = f"{PKG}/csrc/vocab_ce_tc.cuh"
 _PALLAS_CE = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_vocab_ce.py"
 VOCAB_REPLACES = {"fused_ce_fwd": f"{_PALLAS_CE}:48",
                   "fused_ce_bwd_dh": f"{_PALLAS_CE}:166",
@@ -147,6 +148,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 NEAR_TIE = 1e-3
+# the profiled windows' marker kernel: about 10 ms at the H100's clock
+MARKER_CYCLES = 20_000_000
 # where the flash and train phases run; "cpu" only to rehearse them at a
 # small size (every wrapper then takes its plain version)
 DEVICE = "cuda"
@@ -285,14 +288,17 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                repeats: int = 5) -> float:
     """Device time per call: the median over ``repeats`` profiled windows
     of ``iters`` calls of the summed device time of the kernels whose name
-    contains ``match`` (or one of the names of a tuple; every device
-    activity when None), over ``iters``.
+    contains ``match`` (or one of the names of a tuple, the first being the
+    kernel each call launches once; every device activity when None), over
+    ``iters``.
     Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
-    opens with a marker kernel (``torch.cuda._sleep``; its spin kernel is
-    left out of the sums): the profiler can lose the first kernel of a
-    window, which would otherwise be one of the timed calls. A window whose
-    trace came back without the kernel is taken again, up to ``repeats``
-    times in all."""
+    opens with a marker kernel that spins for about 10 ms
+    (``torch.cuda._sleep``; its spin kernel is left out of the sums): the
+    profiler can lose the kernels that start right after it starts
+    recording, which would otherwise be timed calls (a marker of 1000
+    cycles still lost one call in five of the K2 kernels). A window whose
+    trace holds fewer than ``iters`` launches of the named kernel, or no
+    device time, is taken again, up to ``repeats`` times in all."""
     import statistics
 
     import torch
@@ -302,22 +308,25 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     names = (match,) if isinstance(match, str) else match
-    per_call, empty = [], 0
+    per_call, short = [], 0
     while len(per_call) < repeats:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(MARKER_CYCLES)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         by_kernel = _device_seconds_by_kernel(prof)
         total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k
                     and (names is None or any(n in k for n in names)))
-        if total > 0:
+        launched = iters if names is None else sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and names[0] in e.key)
+        if total > 0 and launched == iters:
             per_call.append(total / iters * 1e3)
             continue
-        empty += 1
-        check(empty <= repeats, f"{empty} profiled windows held no device time for "
-                                f"{match or 'the call'}")
+        short += 1
+        check(short <= repeats, f"{short} profiled windows held {launched} of {iters} "
+                                f"launches of {match or 'the call'}")
     return statistics.median(per_call)
 
 
@@ -628,7 +637,8 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 
 # the tensor-core kernels: each must hold HMMA and spill nothing
 TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128)), ("flash_bwd_dq_tc_kernel", (64, 128)),
-              ("flash_bwd_dkv_tc_kernel", (64, 128)), ("vocab_ce_bwd_dh_tc_kernel", (None,)))
+              ("flash_bwd_dkv_tc_kernel", (64, 128)), ("vocab_ce_fwd_tc_kernel", (None,)),
+              ("vocab_ce_bwd_dh_tc_kernel", (None,)), ("vocab_ce_bwd_dw_tc_kernel", (None,)))
 
 
 def _library_report(lib_name: str, kernels) -> dict:
@@ -676,11 +686,14 @@ def build_report() -> dict:
                                  "smem_bytes_per_block": flib.flash_attention_smem_bytes(
                                      which[wrapper], D, int(dt == "bfloat16"))}
     H = GPT2_124M["n_embd"]
+    tc_smem = {"vocab_ce_fwd_tc_kernel": vlib.vocab_ce_fwd_tc_smem_bytes,
+               "vocab_ce_bwd_dh_tc_kernel": vlib.vocab_ce_dh_tc_smem_bytes,
+               "vocab_ce_bwd_dw_tc_kernel": vlib.vocab_ce_dw_tc_smem_bytes}
     for mangled, (kernel, info) in _library_report(
             "vocab_ce", [n for names in VOCAB_KERNEL_NAMES.values() for n in names]).items():
         dt = ("bfloat16" if ("bfloat16" in mangled or "_tc_" in kernel)
               else "float32" if "IfE" in mangled else None)
-        dynamic = vlib.vocab_ce_dh_tc_smem_bytes(H) if "_tc_" in kernel else 0
+        dynamic = tc_smem[kernel](H) if kernel in tc_smem else 0
         rows[(kernel, None, dt)] = {"phase": "kernel_build", "library": "vocab_ce",
                                     "kernel": kernel, "dtype": dt, **info,
                                     "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
@@ -1217,11 +1230,12 @@ VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
 # kernel first (device time is read per kernel name from a profile)
 VOCAB_KERNEL_NAMES = {
-    **{("fused_ce_fwd", dt): ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel")
-       for dt in ("float32", "bfloat16")},
+    ("fused_ce_fwd", "float32"): ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel"),
+    ("fused_ce_fwd", "bfloat16"): ("vocab_ce_fwd_tc_kernel", "vocab_ce_combine_kernel"),
     ("fused_ce_bwd_dh", "float32"): ("vocab_ce_bwd_dh_kernel", "vocab_ce_dh_reduce_kernel"),
     ("fused_ce_bwd_dh", "bfloat16"): ("vocab_ce_bwd_dh_tc_kernel", "vocab_ce_dh_reduce_kernel"),
-    **{("fused_ce_bwd_dw", dt): ("vocab_ce_bwd_dw_kernel",) for dt in ("float32", "bfloat16")},
+    ("fused_ce_bwd_dw", "float32"): ("vocab_ce_bwd_dw_kernel",),
+    ("fused_ce_bwd_dw", "bfloat16"): ("vocab_ce_bwd_dw_tc_kernel",),
 }
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
 VOCAB_ITERS = 5
@@ -1708,7 +1722,9 @@ def main() -> int:
         r = vocab[(VOCAB_MAIN, kname)]
         b = build[(r["kernel_name"], None, r["hidden_dtype"])]
         vocab_rows.append({
-            "name": kname, "route": "cuda", "source": VOCAB_SOURCE, "kernel": r["kernel_name"],
+            "name": kname, "route": "cuda",
+            "source": VOCAB_TC_SOURCE if "_tc_" in r["kernel_name"] else VOCAB_SOURCE,
+            "kernel": r["kernel_name"],
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],

@@ -1,5 +1,6 @@
-"""Fused LM head + cross-entropy: the three hand-written CUDA kernels
-(``csrc/vocab_ce.cu``), their ctypes wrappers, their plain PyTorch
+"""Fused LM head + cross-entropy: the hand-written CUDA kernels of its
+forward, dH and dW (``csrc/vocab_ce.cu``, with the tensor-core ones in
+``csrc/vocab_ce_tc.cuh``), their ctypes wrappers, their plain PyTorch
 versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of the JAX package's ``ops/pallas_vocab_ce.py``:
@@ -7,10 +8,12 @@ Counterpart of the JAX package's ``ops/pallas_vocab_ce.py``:
 ========================  ==============================  =============================
 wrapper                   CUDA kernel                     TPU kernel it replaces
 ========================  ==============================  =============================
-:func:`fused_ce_fwd`      ``vocab_ce_fwd_kernel``         ``_fwd_kernel`` (``_fused_ce_fwd_call``)
+:func:`fused_ce_fwd`      ``vocab_ce_fwd_tc_kernel``,     ``_fwd_kernel`` (``_fused_ce_fwd_call``)
+                          ``vocab_ce_fwd_kernel``
 :func:`fused_ce_bwd_dh`   ``vocab_ce_bwd_dh_tc_kernel``,  ``_dh_kernel`` (``_fused_ce_bwd_call``)
                           ``vocab_ce_bwd_dh_kernel``
-:func:`fused_ce_bwd_dw`   ``vocab_ce_bwd_dw_kernel``      ``_dw_kernel`` (``_fused_ce_bwd_call``)
+:func:`fused_ce_bwd_dw`   ``vocab_ce_bwd_dw_tc_kernel``,  ``_dw_kernel`` (``_fused_ce_bwd_call``)
+                          ``vocab_ce_bwd_dw_kernel``
 ========================  ==============================  =============================
 
 Contract (the JAX kernel's): ``hidden`` ``[N, H]`` in bfloat16 or float32,
@@ -26,12 +29,13 @@ back in ``hidden``'s dtype, dW in ``weight``'s. Any other pair of dtypes
 raises.
 
 What bounds the kernels on an H100 and what their design does about it
-is written in ``csrc/vocab_ce.cu``: they are bound by operations. The
-forward, dW and the fp32-hidden dH run them in fp32 on CUDA cores; the
-bf16-hidden dH runs them on the bf16 tensor cores with W and dS split
-into bf16 pieces that keep the fp32 products (:func:`split_bf16` is the
-split; H up to 1216, beyond which its rows of h do not fit a block and
-it runs on CUDA cores).
+is written in ``csrc/vocab_ce.cu`` and ``csrc/vocab_ce_tc.cuh``: they are
+bound by operations. With bf16 hidden all three (the ``_tc_`` kernels) run
+on the bf16 tensor cores with W split into three bf16 pieces that keep the
+fp32 logits (:func:`split_bf16` is the split; dH splits dS into two as
+well), while their operands fit a block's shared memory
+(:func:`tc_smem_bytes`: H up to 1216 for the forward and dH, 800 for dW);
+beyond that, and with float32 hidden, they run in fp32 on CUDA cores.
 
 Each wrapper launches its kernels for CUDA tensors and raises for anything
 they cannot take; it uses the plain version only for tensors on the CPU.
@@ -51,6 +55,7 @@ _BWD_ROWS = 32            # tokens per dH block
 # blocks the vocab splits aim for: enough to fill 132 SMs several times
 _FWD_TARGET_BLOCKS = 1024
 _DH_TARGET_BLOCKS = 512
+_MAX_SMEM = 232448        # dynamic shared memory an H100 block may use
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +91,38 @@ def fwd_splits(n_tok: int, vocab: int) -> int:
 def dh_splits(n_tok: int, vocab: int) -> int:
     """How many blocks share each dH token tile's vocab range."""
     return _splits(-(-n_tok // _BWD_ROWS), vocab, _DH_TARGET_BLOCKS)
+
+
+def tc_smem_bytes(kernel: str, h_dim: int) -> int:
+    """Dynamic shared memory a block of the tensor-core kernel of
+    ``kernel`` (``"fwd"``, ``"dh"`` or ``"dw"``) takes at depth ``h_dim``,
+    or -1 where it does not fit a block and bf16 hidden runs on the CUDA
+    cores: the mirror of ``vocab_ce_{kernel}_tc_smem_bytes`` in
+    ``csrc/vocab_ce.cu``. The forward holds 64 rows of h (H rounded up to
+    a 64-column chunk, 16 bytes of row pad), four fp32 partial logit tiles
+    of 64 x 40 and two split W chunks; dH 32 rows of h, 32 x 40 partials,
+    a split W panel and chunks, dS and the token statistics; dW W's three
+    pieces and a 32-row h tile at H rounded up to 16, 32 x 40 partials,
+    dSᵀ and the token statistics."""
+    f32, b16 = 4, 2
+    tile, chunk, kq = 32, 64, 4          # kTcRows = kTcVocab, kTcChunk, kTcKq
+    ldr = lds = tile + 8                 # kTcLdr, kTcLds
+    ldc, ldp = chunk + 8, 768 + 8        # kTcLdc, kTcLdp
+    if kernel in ("fwd", "dh"):
+        ldh = -(-h_dim // chunk) * chunk + 8
+        if kernel == "fwd":
+            rows = _FWD_ROWS
+            size = (kq * rows * ldr * f32 + rows * ldh * b16 + 6 * tile * ldc * b16
+                    + rows * 4)
+        else:
+            size = (kq * tile * ldr * f32 + tile * ldh * b16 + 2 * tile * ldp * b16
+                    + 6 * tile * ldc * b16 + 2 * tile * lds * b16 + 3 * tile * 4)
+    elif kernel == "dw":
+        ldw = -(-h_dim // 16) * 16 + 8
+        size = kq * tile * ldr * f32 + 4 * tile * ldw * b16 + tile * lds * b16 + 3 * tile * 4
+    else:
+        raise ValueError(f"no tensor-core kernel {kernel!r}")
+    return size if size <= _MAX_SMEM else -1
 
 
 def _splits(row_tiles: int, vocab: int, target: int) -> int:
@@ -180,8 +217,10 @@ def _kernel_lib():
         for fn in (lib.vocab_ce_fwd_launch, lib.vocab_ce_bwd_dh_launch,
                    lib.vocab_ce_bwd_dw_launch):
             fn.restype = ctypes.c_int
-        lib.vocab_ce_dh_tc_smem_bytes.argtypes = [i]
-        lib.vocab_ce_dh_tc_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.vocab_ce_fwd_tc_smem_bytes, lib.vocab_ce_dh_tc_smem_bytes,
+                   lib.vocab_ce_dw_tc_smem_bytes):
+            fn.argtypes = [i]
+            fn.restype = ctypes.c_longlong
         lib.vocab_ce_error_string.argtypes = [ctypes.c_int]
         lib.vocab_ce_error_string.restype = ctypes.c_char_p
     return lib
@@ -229,8 +268,9 @@ def _stream(t):
 
 def fused_ce_fwd(hidden, weight, labels, label_smoothing: float = 0.0):
     """Forward: ``(loss [N] fp32, lse [N] fp32, pred [N] int32)``. CUDA
-    tensors go through ``vocab_ce_fwd_kernel`` (and its combine kernel);
-    CPU tensors through :func:`fused_ce_fwd_reference`."""
+    tensors go through ``vocab_ce_fwd_tc_kernel`` (bf16 hidden) or
+    ``vocab_ce_fwd_kernel`` (float32 hidden), and their combine kernel; CPU
+    tensors through :func:`fused_ce_fwd_reference`."""
     _check(hidden, weight, labels)
     eps = _smoothing(label_smoothing)
     if hidden.device.type == "cpu":
@@ -280,8 +320,8 @@ def fused_ce_bwd_dh(hidden, weight, labels, lse, g, label_smoothing: float = 0.0
 
 def fused_ce_bwd_dw(hidden, weight, labels, lse, g, label_smoothing: float = 0.0):
     """dW in ``weight``'s dtype. CUDA tensors go through
-    ``vocab_ce_bwd_dw_kernel``; CPU tensors through
-    :func:`fused_ce_bwd_dw_reference`."""
+    ``vocab_ce_bwd_dw_tc_kernel`` (bf16 hidden) or ``vocab_ce_bwd_dw_kernel``
+    (float32 hidden); CPU tensors through :func:`fused_ce_bwd_dw_reference`."""
     _check(hidden, weight, labels)
     eps = _smoothing(label_smoothing)
     if hidden.device.type == "cpu":

@@ -136,8 +136,11 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("ties", 32, 130, 16, "float32", 0.0, True)])
     rows = chip_smoke.vocab_ce_phase()
     assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
-    assert rows[("gpt2_bf16", "fused_ce_bwd_dh")]["kernel_name"] == "vocab_ce_bwd_dh_tc_kernel"
-    assert rows[("ragged", "fused_ce_bwd_dh")]["kernel_name"] == "vocab_ce_bwd_dh_kernel"
+    for kname, kernel in (("fused_ce_fwd", "vocab_ce_fwd_tc_kernel"),
+                          ("fused_ce_bwd_dh", "vocab_ce_bwd_dh_tc_kernel"),
+                          ("fused_ce_bwd_dw", "vocab_ce_bwd_dw_tc_kernel")):
+        assert rows[("gpt2_bf16", kname)]["kernel_name"] == kernel
+        assert rows[("ragged", kname)]["kernel_name"] == kernel.replace("_tc_", "_")
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
@@ -242,15 +245,24 @@ def test_flash_kernel_names_cover_every_wrapper_and_dtype():
 
 def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     """Every (wrapper, hidden dtype) the vocab-CE phase times names the
-    kernels that launch, the main one first: the tensor-core dH with bf16
-    hidden, the CUDA-core kernels otherwise; the tensor-core dH is held
-    to HMMA and no spill, and the kernels line reads its build row."""
+    kernels that launch, the main one first: the tensor-core kernels with
+    bf16 hidden, the CUDA-core kernels with float32 hidden, each with its
+    helper (the forward's combine, dH's split reduce); every tensor-core
+    kernel is held to HMMA and no spill, and the kernels line reads its
+    build row."""
     names = chip_smoke.VOCAB_KERNEL_NAMES
-    assert set(names) == {(k, dt) for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
-                          for dt in ("float32", "bfloat16")}
-    assert names[("fused_ce_bwd_dh", "bfloat16")][0] == "vocab_ce_bwd_dh_tc_kernel"
-    assert all("_tc_" not in n for (k, dt), ns in names.items()
-               if (k, dt) != ("fused_ce_bwd_dh", "bfloat16") for n in ns)
-    assert ("vocab_ce_bwd_dh_tc_kernel", (None,)) in chip_smoke.TC_KERNELS
+    wrappers = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+    assert set(names) == {(k, dt) for k in wrappers for dt in ("float32", "bfloat16")}
+    main = {"fused_ce_fwd": "vocab_ce_fwd", "fused_ce_bwd_dh": "vocab_ce_bwd_dh",
+            "fused_ce_bwd_dw": "vocab_ce_bwd_dw"}
+    for k in wrappers:
+        assert names[(k, "bfloat16")][0] == f"{main[k]}_tc_kernel"
+        assert names[(k, "float32")][0] == f"{main[k]}_kernel"
+        assert names[(k, "bfloat16")][1:] == names[(k, "float32")][1:]
+        assert all("_tc_" not in n for n in names[(k, "float32")] + names[(k, "bfloat16")][1:])
+    assert names[("fused_ce_fwd", "bfloat16")][1] == "vocab_ce_combine_kernel"
     assert names[("fused_ce_bwd_dh", "float32")][1] == "vocab_ce_dh_reduce_kernel"
+    held = {k for k, _ in chip_smoke.TC_KERNELS}
+    assert {names[(k, "bfloat16")][0] for k in wrappers} <= held
+    assert all(dims == (None,) for k, dims in chip_smoke.TC_KERNELS if k.startswith("vocab_ce"))
     assert chip_smoke.VOCAB_MAIN == "gpt2_bf16"

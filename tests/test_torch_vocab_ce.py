@@ -5,9 +5,11 @@ over multi-tile, ragged and below-one-tile vocabularies, dH and dW through
 ``torch.autograd`` against ``jax.vjp``, first-max ties, label smoothing,
 and the (bfloat16 hidden, float32 weight) contract of the GPT-2 path; the
 bf16 split that the tensor-core dH kernel makes of W and dS
-(``split_bf16``) and its arithmetic, in plain PyTorch, against fp64, the
-plain dH and the Pallas kernel. Plus the three CUDA kernels against their
-plain versions on the card (skipped without one).
+(``split_bf16``) and the tensor-core kernels' arithmetic (forward, dH and
+dW), in plain PyTorch, against fp64, the plain versions and the Pallas
+kernels; the tensor-core kernels' shared-memory sizes and H caps. Plus the
+CUDA kernels against their plain versions on the card (skipped without
+one).
 
 The JAX function takes its Pallas path only when H is a multiple of 128
 and N a multiple of an 8-aligned ``block_n`` (else it computes the unfused
@@ -253,19 +255,50 @@ def test_split_bf16_pieces_sum_to_the_fp32_value_exactly(kind):
     assert torch.equal(hi, pieces[0]) and torch.equal(lo, pieces[1])
 
 
+def _split_logits(hidden, weight):
+    """The tensor-core kernels' logits: bf16 h times each of W's three
+    bf16 pieces, every product fp32, the three summed in fp32."""
+    h = hidden.float()
+    w_hi, w_mid, w_lo = (q.float() for q in vc.split_bf16(weight))
+    return h @ w_hi.t() + h @ w_mid.t() + h @ w_lo.t()
+
+
+def _split_ds(hidden, weight, labels, lse, g, eps):
+    """dS = g (softmax - target) in fp32 from the split-route logits."""
+    s = _split_logits(hidden, weight)
+    target = torch.zeros_like(s).scatter_(1, labels.long()[:, None], 1.0)
+    if eps > 0:
+        target = (1.0 - eps) * target + eps / weight.shape[0]
+    return (torch.exp(s - lse[:, None]) - target) * g[:, None]
+
+
+def _split_route_fwd(hidden, weight, labels, eps=0.0):
+    """The bf16-hidden forward kernel's arithmetic in plain PyTorch:
+    split-route logits, then the loss, the LSE and the first maximal id."""
+    s = _split_logits(hidden, weight)
+    lse = torch.logsumexp(s, dim=-1)
+    target = s.gather(1, labels.long()[:, None])[:, 0]
+    if eps > 0:
+        target = (1.0 - eps) * target + eps * s.sum(-1) / weight.shape[0]
+    return lse - target, lse, s.argmax(-1).to(torch.int32)
+
+
 def _split_route_dh(hidden, weight, labels, lse, g, eps=0.0):
     """The bf16-hidden dH kernel's arithmetic in plain PyTorch: logits as
     three fp32 products of bf16 h with the pieces of W, dS in fp32, then
     dS_hi·W_hi + dS_hi·W_mid + dS_lo·W_hi, dH rounded to h's dtype."""
-    w_hi, w_mid, w_lo = (q.float() for q in vc.split_bf16(weight))
-    h = hidden.float()
-    s = h @ w_hi.t() + h @ w_mid.t() + h @ w_lo.t()
-    target = torch.zeros_like(s).scatter_(1, labels.long()[:, None], 1.0)
-    if eps > 0:
-        target = (1.0 - eps) * target + eps / weight.shape[0]
-    ds = (torch.exp(s - lse[:, None]) - target) * g[:, None]
+    w_hi, w_mid, _ = (q.float() for q in vc.split_bf16(weight))
+    ds = _split_ds(hidden, weight, labels, lse, g, eps)
     d_hi, d_lo = (q.float() for q in vc.split_bf16(ds, 2))
     return (d_hi @ w_hi + d_hi @ w_mid + d_lo @ w_hi).to(hidden.dtype)
+
+
+def _split_route_dw(hidden, weight, labels, lse, g, eps=0.0):
+    """The bf16-hidden dW kernel's arithmetic in plain PyTorch:
+    split-route logits, dS in fp32 rounded to h's dtype (the contract's
+    ``ds.astype(h.dtype)``), then dSᵀ·h with fp32 sums."""
+    ds = _split_ds(hidden, weight, labels, lse, g, eps).to(hidden.dtype)
+    return ds.float().t() @ hidden.float()
 
 
 @pytest.mark.parametrize("h_dim", [128, 768])
@@ -336,6 +369,120 @@ def test_split_route_dh_matches_pallas(eps):
     assert np.abs(got - want_dh).max() <= 2.0 ** -6 * np.abs(want_dh).max()
 
 
+SPLIT_CASES = [  # n_tok, vocab, h_dim, eps, all-equal W
+    (48, 300, 128, 0.0, False),
+    (48, 300, 128, 0.1, False),
+    (20, 70, 24, 0.0, False),      # ragged: N, V and H off every tile
+    (33, 129, 40, 0.1, False),
+    (40, 96, 32, 0.0, True),       # every logit of a token bit-equal
+    (40, 96, 32, 0.1, True),
+]
+
+
+def _split_case(case, seed):
+    n_tok, vocab, h_dim, eps, ties = case
+    hidden, weight, labels = _inputs(n_tok, vocab, seed=seed, h_dim=h_dim)
+    if ties:
+        weight = np.repeat(weight[:1], vocab, axis=0)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).rand(n_tok).astype(np.float32))
+    return (torch.from_numpy(hidden).to(torch.bfloat16), torch.from_numpy(weight),
+            torch.from_numpy(labels), g, eps, ties)
+
+
+def _near_tie(hidden, weight):
+    """Tokens whose top two fp32 logits are closer than 1e-5 of the
+    largest logit: there another order of the fp32 sums may pick either."""
+    s = vc._logits(hidden, weight)
+    top2 = s.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) < 1e-5 * s.abs().max()
+
+
+def _dw_bound(hidden, ds):
+    """The most dSᵀ·h may move when dS is rounded to bf16 from logits that
+    differ in their last fp32 bits: every rounding one bf16 ulp (2^-8 of
+    |dS|) the other way, so 2^-8 |dS|ᵀ·|h| per entry, plus fp32 sums in
+    another order (1e-5 of the largest entry)."""
+    exact = ds.t() @ hidden.float()
+    return 2.0 ** -8 * (ds.abs().t() @ hidden.float().abs()) + 1e-5 * exact.abs().max()
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_route_fwd_matches_the_plain_version(case):
+    """The tensor-core forward's split route gives the plain forward
+    (``fused_ce_fwd_reference``) with bf16 hidden: loss and LSE within
+    1e-5 (fp32-exact logits summed in another order), pred equal but at
+    near-ties, and id 0 where every logit ties."""
+    h, w, lab, _, eps, ties = _split_case(case, seed=17)
+    loss, lse, pred = _split_route_fwd(h, w, lab, eps)
+    rloss, rlse, rpred = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert ((pred == rpred) | _near_tie(h, w)).all()
+    if ties:
+        assert (pred == 0).all() and (rpred == 0).all()
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_route_dw_matches_the_plain_version(case):
+    """The tensor-core dW's split route gives the plain dW
+    (``fused_ce_bwd_dw_reference``) with bf16 hidden within ``_dw_bound``:
+    both round dS to bf16 before dSᵀ·h."""
+    h, w, lab, g, eps, _ = _split_case(case, seed=19)
+    _, lse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    got = _split_route_dw(h, w, lab, lse, g, eps)
+    want = vc.fused_ce_bwd_dw_reference(h, w, lab, lse, g, eps)
+    assert got.dtype == want.dtype == torch.float32
+    ds = vc._dlogits(h, w, lab, lse, g, eps)
+    assert ((got - want).abs() <= _dw_bound(h, ds)).all()
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1], ids=["eps0", "eps0.1"])
+def test_split_route_fwd_matches_pallas(eps):
+    """The split route's loss and pred with bf16 hidden against the
+    Pallas ``_fwd_kernel`` in interpret mode, at H 128: loss within 1e-5
+    (both fp32 logits of bf16-exact h), pred equal but at near-ties."""
+    hidden, weight, labels = _inputs(48, 300, seed=21)
+    hidden = torch.from_numpy(hidden).bfloat16().float().numpy()   # bf16-exact
+    want_loss, want_pred = _jax(hidden, weight, labels, 16, 128, eps=eps, h_dtype="bfloat16")
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w, lab = torch.from_numpy(weight), torch.from_numpy(labels)
+    loss, _, pred = _split_route_fwd(h, w, lab, eps)
+    np.testing.assert_allclose(loss.numpy(), want_loss, rtol=1e-5, atol=1e-5)
+    assert ((pred.numpy() == want_pred) | _near_tie(h, w).numpy()).all()
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1], ids=["eps0", "eps0.1"])
+def test_split_route_dw_matches_pallas(eps):
+    """The split route's dW with bf16 hidden against ``jax.vjp`` through
+    the Pallas ``_dw_kernel`` in interpret mode, at H 128, within
+    ``_dw_bound`` (the Pallas kernel rounds dS to bf16 too)."""
+    hidden, weight, labels = _inputs(48, 300, seed=23)
+    hidden = torch.from_numpy(hidden).bfloat16().float().numpy()   # bf16-exact
+    g = np.random.RandomState(24).rand(48).astype(np.float32)
+    want_dw = _jax(hidden, weight, labels, 16, 128, eps=eps, g=g, h_dtype="bfloat16")[3]
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w, lab, gt = torch.from_numpy(weight), torch.from_numpy(labels), torch.from_numpy(g)
+    _, lse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    got = _split_route_dw(h, w, lab, lse, gt, eps)
+    ds = vc._dlogits(h, w, lab, lse, gt, eps)
+    assert ((got - torch.from_numpy(np.array(want_dw))).abs() <= _dw_bound(h, ds)).all()
+
+
+@pytest.mark.parametrize("kernel,cap,at_768", [("fwd", 1216, 168192), ("dh", 1216, 202624),
+                                               ("dw", 800, 222080)])
+def test_tc_smem_bytes_set_each_kernels_h_cap(kernel, cap, at_768):
+    """The tensor-core kernels' shared memory per block (the mirror of the
+    library's query): the GPT-2 width's bytes as the kernels' notes reckon
+    them, the largest H that fits a block's 232,448 bytes, -1 beyond it."""
+    assert vc.tc_smem_bytes(kernel, 768) == at_768
+    fits = [h for h in range(8, 2049, 8) if vc.tc_smem_bytes(kernel, h) >= 0]
+    assert max(fits) == cap and fits == list(range(8, cap + 1, 8))
+    assert 0 < vc.tc_smem_bytes(kernel, cap) <= 232448
+    assert vc.tc_smem_bytes(kernel, cap + 16) == -1
+    with pytest.raises(ValueError):
+        vc.tc_smem_bytes("combine", 768)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -355,8 +502,16 @@ GPU_CASES = [  # n_tok, vocab, h_dim, dtype, eps, ties
     (64, 500, 800, "bfloat16", 0.1, False),
     (100, 3000, 30, "bfloat16", 0.0, False),
     (128, 640, 128, "bfloat16", 0.0, True),
-    # bf16 hidden past the tensor-core kernel's H (1216): the CUDA-core dH
+    # bf16 hidden past the tensor-core kernels' H (1216): the CUDA-core
+    # forward and dH (dW too: its cap is 800)
     (64, 500, 1280, "bfloat16", 0.0, False),
+    # the tensor-core forward and dW: many token tiles with ragged N and V,
+    # ties across the forward's rotated vocab walks (5 token blocks), and
+    # H just past dW's cap (800), where dW runs on CUDA cores and the
+    # forward and dH on tensor cores
+    (1000, 1001, 768, "bfloat16", 0.0, False),
+    (300, 1280, 64, "bfloat16", 0.0, True),
+    (64, 500, 816, "bfloat16", 0.1, False),
 ]
 
 
@@ -394,3 +549,15 @@ def test_kernels_match_reference_on_card(cuda_device, case):
         top2 = s.topk(2, dim=-1).values
         near = (top2[:, 0] - top2[:, 1]) < 1e-5 * s.abs().max()
         assert ((pred == rpred) | near).all()
+
+
+@pytest.mark.gpu
+def test_tc_smem_bytes_mirror_the_library(cuda_device):
+    """The Python mirror of the tensor-core kernels' shared-memory sizes
+    (and so of their H caps) gives the library's own numbers."""
+    lib = vc._kernel_lib()
+    query = {"fwd": lib.vocab_ce_fwd_tc_smem_bytes, "dh": lib.vocab_ce_dh_tc_smem_bytes,
+             "dw": lib.vocab_ce_dw_tc_smem_bytes}
+    for kernel, fn in query.items():
+        for h_dim in (16, 24, 30, 64, 200, 768, 784, 800, 808, 816, 1216, 1280, 4096):
+            assert fn(h_dim) == vc.tc_smem_bytes(kernel, h_dim), (kernel, h_dim)
