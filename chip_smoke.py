@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port
 (``huggingface_sagemaker_tensorflow_distributed_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-paged SRC]
 
 Needs one CUDA card (built for an H100: ``sm_90a``) and ``nvcc``.
 Imports nothing of JAX or of the JAX package. Phases, in order; any
@@ -12,21 +12,30 @@ failure raises and exits non-zero:
    CUDA version; TF32 off for matmuls and cuDNN; then every kernel
    source (``csrc/paged_attention.cu``, ``csrc/flash_attention.cu``,
    ``csrc/vocab_ce.cu``) built at once, one ``nvcc`` each; one line per
-   flash and vocab-CE kernel with its registers and spills (``-Xptxas
+   kernel (each instance of the paged split and combine kernels, each
+   flash and vocab-CE kernel) with its registers and spills (``-Xptxas
    -v``), its shared memory per block and its tensor-core instructions in
-   the SASS (``cuobjdump``): the tensor-core kernels (bf16 flash forward,
-   dQ and dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward, dH and
-   dW) must hold ``HMMA`` and spill nothing;
-2. kernel: holds the paged
-   decode kernel against ``paged_decode_attention_reference`` on random
+   the SASS (``cuobjdump``): the paged kernels (CUDA cores by design) must
+   spill nothing; the tensor-core kernels (bf16 flash forward, dQ and
+   dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward, dH and dW)
+   must hold ``HMMA`` and spill nothing;
+2. kernel: holds the paged decode kernels (the split-context kernel and
+   its combine) against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
    ``width`` below the table span (GPT-2 shapes, GQA, a sliding window,
-   int8 pools, bf16, block sizes 4 and 8). fp32 and int8 must agree to
-   ``atol = rtol = 1e-4`` on active rows, bf16 to ``2e-2``; context-0
-   rows must be exactly 0. Prints one JSON line per case with the
-   kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   time (CUDA events, inputs rotated over four copies so the working
-   set exceeds the 50 MB L2), and the bandwidth/compute bound;
+   int8 pools, bf16, block sizes 4 and 8, one slot alone at context 1024,
+   contexts on and beside the chunk edges under a window that spans
+   chunks). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
+   rows, bf16 to ``2e-2``; context-0 rows must be exactly 0. Prints one
+   JSON line per case with the kernels' device time (the profiler's,
+   split and combine summed per call, median of 5 windows of 20) and
+   CUDA-event time, the plain version's time,
+   ``scaled_dot_product_attention``'s device and event time (inputs
+   rotated over four copies so the working set exceeds the 50 MB L2), the
+   chunk plan and the bandwidth/compute bound. With ``--parent-paged
+   SRC`` an earlier ``paged_attention.cu`` of the one-block-per-(slot, kv
+   head) design is built into ``build/`` and held and timed the same way
+   in the same run;
 3. serve: ``ServeEngine`` on GPT-2 124M at full width (fp32, random
    weights from seed 0) over 20 requests, 16 from ``make_trace`` with
    ``scripts/serve.py``'s defaults and 4 with 512-896-token prompts.
@@ -130,6 +139,9 @@ PKG = "huggingface_sagemaker_tensorflow_distributed_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/paged_attention.cu"
 KERNEL_REPLACES = ("huggingface_sagemaker_tensorflow_distributed_tpu/ops/"
                    "pallas_paged_attention.py:67")
+# the kernels each paged call launches once each (the first is the one its
+# device time is counted by): the split-context kernel and its combine
+PAGED_KERNEL_NAMES = ("paged_decode_split_kernel", "paged_decode_combine_kernel")
 FLASH_SOURCE = f"{PKG}/csrc/flash_attention.cu"
 FLASH_TC_SOURCE = f"{PKG}/csrc/flash_attention_tc.cuh"
 _PALLAS_ATTN = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_attention.py"
@@ -148,11 +160,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 NEAR_TIE = 1e-3
-# the profiled windows' marker kernel: about 10 ms at the H100's clock
+# the profiled windows' marker kernels: 8 spins of about 1.25 ms each at
+# the H100's clock
 MARKER_CYCLES = 20_000_000
-# where the flash and train phases run; "cpu" only to rehearse them at a
-# small size (every wrapper then takes its plain version)
+MARKER_KERNELS = 8
+# where the kernel, flash and train phases run; "cpu" only to rehearse
+# them at a small size (every wrapper then takes its plain version)
 DEVICE = "cuda"
+# with --parent-paged: an earlier paged_attention.cu of the one-block-per-
+# (slot, kv head) design (its C ABI), timed beside the kernel in phase 2
+PARENT_PAGED_SOURCE = None
 
 
 def check(cond: bool, msg: str) -> None:
@@ -184,15 +201,22 @@ def env_phase() -> str:
 # -- phase 2 -----------------------------------------------------------------
 
 KERNEL_CASES = [
-    # name, slots, Hq, Hkv, D, block_size, max context, dtype, int8, window
-    ("gpt2", 8, 12, 12, 64, 16, 1024, "float32", False, None),
-    ("gqa", 8, 32, 8, 128, 16, 1024, "float32", False, None),
-    ("window64", 8, 12, 12, 64, 16, 1024, "float32", False, 64),
-    ("int8", 8, 12, 12, 64, 16, 1024, "float32", True, None),
-    ("bf16", 8, 12, 12, 64, 16, 1024, "bfloat16", False, None),
-    ("int8_bf16", 8, 32, 8, 128, 16, 1024, "bfloat16", True, None),
-    ("bs4_gqa", 4, 8, 2, 128, 4, 200, "float32", False, 24),
-    ("bs8", 4, 12, 12, 64, 8, 300, "float32", False, None),
+    # name, slots, Hq, Hkv, D, block_size, max context, dtype, int8, window,
+    # contexts: "ragged" (0, the max, the rest random), "full" (every slot
+    # at the max), "chunk_edges" (0, 1, chunk - 1, chunk, chunk + 1,
+    # 2 chunk and the max, for the chunk the plan picks)
+    ("gpt2", 8, 12, 12, 64, 16, 1024, "float32", False, None, "ragged"),
+    ("gqa", 8, 32, 8, 128, 16, 1024, "float32", False, None, "ragged"),
+    ("window64", 8, 12, 12, 64, 16, 1024, "float32", False, 64, "ragged"),
+    ("int8", 8, 12, 12, 64, 16, 1024, "float32", True, None, "ragged"),
+    ("bf16", 8, 12, 12, 64, 16, 1024, "bfloat16", False, None, "ragged"),
+    ("int8_bf16", 8, 32, 8, 128, 16, 1024, "bfloat16", True, None, "ragged"),
+    ("bs4_gqa", 4, 8, 2, 128, 4, 200, "float32", False, 24, "ragged"),
+    ("bs8", 4, 12, 12, 64, 8, 300, "float32", False, None, "ragged"),
+    # one request decoding alone: the grid must still reach every SM
+    ("single", 1, 12, 12, 64, 16, 1024, "float32", False, None, "full"),
+    # contexts on and beside the chunk edges, a window across them
+    ("chunk_edges", 7, 12, 12, 64, 16, 1024, "float32", False, 200, "chunk_edges"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COPIES = 4          # distinct input sets the timing rotates over
@@ -214,10 +238,33 @@ def _limit(got, want_max: float) -> float:
     return TOL["float32"] * max(1.0, want_max)
 
 
-def _contexts(S: int, max_ctx: int, gen) -> list[int]:
-    """Ragged contexts: one 0, one full, the rest random in [1, max)."""
+def _sms() -> int:
+    """The SMs the paged wrapper plans for: the card's (the H100's 132 when
+    rehearsed on the CPU)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
+
+    return pa._sm_count(0) if DEVICE == "cuda" else pa.H100_SMS
+
+
+def _plan(case) -> tuple[int, int]:
+    """The (chunk, chunks) the paged wrapper's plan picks for a case."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
+
+    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
+    width = -(-max_ctx // bs) * bs
+    return pa.split_plan(S, Hkv, min(width, window) if window else width, bs, _sms())
+
+
+def _contexts(case, gen) -> list[int]:
+    """The case's contexts (see ``KERNEL_CASES``)."""
     import torch
 
+    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
+    if kind == "full":
+        return [max_ctx] * S
+    if kind == "chunk_edges":
+        c = _plan(case)[0]
+        return [0, 1, c - 1, c, c + 1, 2 * c, max_ctx][:S]
     rest = torch.randint(1, max_ctx, (S - 2,), generator=gen).tolist()
     return [0, max_ctx] + rest
 
@@ -225,14 +272,14 @@ def _contexts(S: int, max_ctx: int, gen) -> list[int]:
 def _make_inputs(case, gen, device):
     import torch
 
-    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window = case
+    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     dtype = getattr(torch, dt)
     nb_walk = -(-max_ctx // bs)
     nb_table = nb_walk + 4                       # width stays below the span
     N = 1 + S * nb_table
     tables = (torch.randperm(N - 1, generator=gen) + 1)[: S * nb_table]
     tables = tables.reshape(S, nb_table).to(torch.int32)
-    ctx = torch.tensor(_contexts(S, max_ctx, gen), dtype=torch.int32)
+    ctx = torch.tensor(_contexts(case, gen), dtype=torch.int32)
     q = torch.randn(S, Hq, D, generator=gen).to(dtype)
     if int8:
         k = torch.randint(-127, 128, (N, bs, Hkv, D), generator=gen).to(torch.int8)
@@ -254,7 +301,7 @@ def _work(case, ctx: list[int]) -> tuple[int, int]:
     """(bytes, flops) the function needs for these contexts: q and out
     once, each valid key's K and V row once (plus its scales), the
     table entries walked and the context lengths."""
-    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window = case
+    name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     esz = 2 if dt == "bfloat16" else 4
     kv_esz = 1 if int8 else esz
     width = -(-max_ctx // bs) * bs
@@ -292,13 +339,15 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     kernel each call launches once; every device activity when None), over
     ``iters``.
     Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
-    opens with a marker kernel that spins for about 10 ms
-    (``torch.cuda._sleep``; its spin kernel is left out of the sums): the
-    profiler can lose the kernels that start right after it starts
-    recording, which would otherwise be timed calls (a marker of 1000
-    cycles still lost one call in five of the K2 kernels). A window whose
-    trace holds fewer than ``iters`` launches of the named kernel, or no
-    device time, is taken again, up to ``repeats`` times in all."""
+    opens with ``MARKER_KERNELS`` marker kernels that spin for about 10 ms
+    in all (``torch.cuda._sleep``; their spin kernels are left out of the
+    sums): the profiler can lose the kernels that start right after it
+    starts recording, which would otherwise be timed calls (a marker of
+    1000 cycles still lost one call in five of the K2 kernels; after the
+    serve profile's long window every later window lost its first two
+    records, one 10 ms marker and one call). A window whose trace holds
+    fewer than ``iters`` launches of the named kernel, or no device time,
+    is taken again, up to ``repeats`` times in all."""
     import statistics
 
     import torch
@@ -311,7 +360,8 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     per_call, short = [], 0
     while len(per_call) < repeats:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(MARKER_CYCLES)
+            for _ in range(MARKER_KERNELS):
+                torch.cuda._sleep(MARKER_CYCLES // MARKER_KERNELS)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
@@ -361,64 +411,122 @@ def _sdpa_inputs(t, opts):
     return q[:, :, None, :], k, v, keep[:, None, None, :]
 
 
+def _parent_paged(src: Path):
+    """An earlier ``paged_attention.cu`` of the one-block-per-(slot, kv head)
+    design, built with the port's flags into the git-ignored ``build/``,
+    as a function of a kernel case's tensors (its launches are not
+    counted)."""
+    import ctypes
+
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+
+    out = ROOT / "build" / "parent_paged" / "paged_attention.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(out)).paged_decode_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, kp, vp, bt, cl, ksp, vsp, width, window):
+        out_ = torch.empty_like(q)
+        S, Hq, D = q.shape
+        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 ksp.data_ptr() if ksp is not None else None,
+                 vsp.data_ptr() if vsp is not None else None, bt.data_ptr(), cl.data_ptr(),
+                 out_.data_ptr(), S, Hq, kp.shape[2], D, kp.shape[1], width // kp.shape[1],
+                 bt.shape[1], D ** -0.5, window or 0, int(q.dtype == torch.bfloat16),
+                 int(ksp is not None), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent paged kernel launch failed ({err})")
+        return out_
+
+    return call
+
+
 def kernel_phase() -> dict:
+    """Each paged case: the kernels against the plain version, their
+    device time (profiler, both kernels summed) and CUDA-event time, the
+    plain version's, ``scaled_dot_product_attention``'s device and event
+    time, and the bound; with ``PARENT_PAGED_SOURCE`` the earlier kernel's
+    device time too."""
     import torch
     import torch.nn.functional as F
 
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
-        load_kernel,
-        paged_decode_attention,
-        paged_decode_attention_reference,
-    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
 
-    load_kernel()
-    dev = torch.device("cuda")
+    pa.load_kernel()
+    parent = _parent_paged(PARENT_PAGED_SOURCE) if PARENT_PAGED_SOURCE else None
+    dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(0)
     results = {}
     for case in KERNEL_CASES:
         name, dt = case[0], case[7]
         sets = [_make_inputs(case, gen, dev) for _ in range(COPIES)]
         t, opts = sets[0]
-        got = paged_decode_attention(**t, **opts)
-        want = paged_decode_attention_reference(**t, **opts)
-        torch.cuda.synchronize()
+        want = pa.paged_decode_attention_reference(**t, **opts)
+        args = [tuple(s[0].values()) + (s[1]["width"], s[1]["window"]) for s in sets]
+        tol = TOL[dt]
         ctx = t["context_lens"].cpu()
         act = ctx > 0
-        g, w = got.float().cpu(), want.float().cpu()
-        err = float((g[act] - w[act]).abs().max())
-        tol = TOL[dt]
-        ok = (torch.allclose(g[act], w[act], atol=tol, rtol=tol)
-              and bool((g[~act] == 0).all()) and bool(torch.isfinite(g).all()))
-        check(ok, f"kernel case {name}: max_abs_err {err} (tol {tol}) or a "
-                  "context-0 row is not exactly 0")
-        args = [tuple(s[0].values()) + (s[1]["width"], s[1]["window"]) for s in sets]
+
+        def held(got, who):
+            _sync()
+            g, w = got.float().cpu(), want.float().cpu()
+            err = float((g[act] - w[act]).abs().max())
+            ok = (torch.allclose(g[act], w[act], atol=tol, rtol=tol)
+                  and bool((g[~act] == 0).all()) and bool(torch.isfinite(g).all()))
+            check(ok, f"kernel case {name}: {who} max_abs_err {err} (tol {tol}) or a "
+                      "context-0 row is not exactly 0")
+            return err
+
+        err = held(pa.paged_decode_attention(**t, **opts), "kernel")
 
         def kern(q, kp, vp, bt, cl, ksp, vsp, width, window):
-            paged_decode_attention(q, kp, vp, bt, cl, width=width, window=window,
-                                   k_scale_pool=ksp, v_scale_pool=vsp)
+            pa.paged_decode_attention(q, kp, vp, bt, cl, width=width, window=window,
+                                      k_scale_pool=ksp, v_scale_pool=vsp)
 
         def plain(q, kp, vp, bt, cl, ksp, vsp, width, window):
-            paged_decode_attention_reference(q, kp, vp, bt, cl, width=width,
-                                             window=window, k_scale_pool=ksp,
-                                             v_scale_pool=vsp)
+            pa.paged_decode_attention_reference(q, kp, vp, bt, cl, width=width,
+                                                window=window, k_scale_pool=ksp,
+                                                v_scale_pool=vsp)
+
+        def sdpa(q, k, v, m):
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
         dense = [_sdpa_inputs(*s) for s in sets]
-        ms = _cuda_ms(kern, args)
+        ms = _device_ms(kern, args, PAGED_KERNEL_NAMES)
+        event_ms = _cuda_ms(kern, args)
         plain_ms = _cuda_ms(plain, args)
-        library_ms = _cuda_ms(
-            lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v, attn_mask=m),
-            dense)
+        library_ms = _device_ms(sdpa, dense)
+        library_event_ms = _cuda_ms(sdpa, dense)
         nbytes, flops = _work(case, ctx.tolist())
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        row = {"phase": "kernel", "case": name, "slots": case[1], "hq": case[2],
-               "hkv": case[3], "head_dim": case[4], "block_size": case[5],
-               "dtype": dt, "int8": case[8], "window": case[9],
-               "contexts": ctx.tolist(), "width": opts["width"],
+        S, Hkv, window = case[1], case[3], case[9]
+        width = opts["width"]
+        chunk, chunks = _plan(case)
+        # the split blocks that hold keys: each slot's band in chunks
+        spans = [min(c, width) - (max(0, c - window) if window else 0) for c in ctx.tolist()]
+        with_keys = Hkv * sum(-(-n // chunk) for n in spans if n > 0)
+        if case[10] == "full":
+            check(with_keys >= _sms(), f"kernel case {name}: {with_keys} blocks hold keys, "
+                                       f"fewer than the {_sms()} SMs")
+        row = {"phase": "kernel", "case": name, "slots": S, "hq": case[2],
+               "hkv": Hkv, "head_dim": case[4], "block_size": case[5],
+               "dtype": dt, "int8": case[8], "window": window,
+               "contexts": ctx.tolist(), "width": width, "chunk": chunk,
+               "grid_blocks": Hkv * S * chunks, "blocks_with_keys": with_keys,
                "max_abs_err": err, "tol": tol, "status": "pass",
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "kernel_ms": ms, "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_event_ms": library_event_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops}
+        if parent is not None:
+            row["parent_max_abs_err"] = held(parent(*args[0]), "parent kernel")
+            row["parent_kernel_ms"] = _device_ms(parent, args, "paged_decode_kernel")
         emit(row)
         results[name] = row
         del sets, dense, args
@@ -566,7 +674,7 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
     busy = sum(by_kernel.values())
-    paged = sum(v for k, v in by_kernel.items() if "paged_decode_kernel" in k)
+    paged = sum(v for k, v in by_kernel.items() if any(n in k for n in PAGED_KERNEL_NAMES))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     row = {"phase": "profile", "profiled_wall_s": wall,
            "serve_wall_s": serve_wall_s,
@@ -583,7 +691,7 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
 
 def build_phase() -> dict:
     """Every kernel source at once, one nvcc each; then the build report
-    of the flash and vocab-CE kernels (``build_report``)."""
+    of the paged, flash and vocab-CE kernels (``build_report``)."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
 
     names = _build.SOURCES
@@ -663,19 +771,67 @@ def _library_report(lib_name: str, kernels) -> dict:
     return out
 
 
+# template arguments of a paged kernel's mangled name: q's type, the
+# pools' (``S1_`` repeats the bf16 of q, ``a`` is int8_t), D, the group
+# size the registers hold
+_PAGED_SPLIT_ARGS = r"paged_decode_split_kernelI(f|13__nv_bfloat16)(f|a|S\d*_)Li(\d+)ELi(\d+)E"
+_PAGED_COMBINE_ARGS = r"paged_decode_combine_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+
+
+def _paged_instance(mangled: str) -> tuple:
+    """(kernel, D, q dtype, pool dtype, group slots) of a paged kernel's
+    mangled name; the combine kernel has no pool dtype or group."""
+    import re
+
+    qdt = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    m = re.search(_PAGED_SPLIT_ARGS, mangled)
+    if m:
+        kv = "int8" if m[2] == "a" else "float32" if m[2] == "f" else "bfloat16"
+        return PAGED_KERNEL_NAMES[0], int(m[3]), qdt[m[1]], kv, int(m[4])
+    m = re.search(_PAGED_COMBINE_ARGS, mangled)
+    check(m is not None, f"unknown paged kernel {mangled}")
+    return PAGED_KERNEL_NAMES[1], int(m[2]), qdt[m[1]], None, None
+
+
+def _paged_build_rows() -> dict:
+    """One row per paged kernel instance: registers, spills and shared
+    memory per block, the split kernel's dynamic size at the serve shape
+    (8 slots, 12 kv heads, width 1024, block 16). CUDA cores by design
+    (no HMMA is asked of them); none may spill."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
+
+    lib = pa._kernel_lib()
+    chunk = pa.split_plan(8, 12, 1024, 16, _sms())[0]
+    rows = {}
+    for mangled, (kernel, info) in _library_report("paged_attention",
+                                                   PAGED_KERNEL_NAMES).items():
+        key = _paged_instance(mangled)
+        _, D, qdt, kv, group = key
+        dynamic = 0 if group is None else lib.paged_decode_split_smem_bytes(
+            D, group, chunk, 16, int(qdt == "bfloat16"), int(kv == "int8"))
+        rows[key] = {"phase": "kernel_build", "library": "paged_attention", "kernel": kernel,
+                     "head_dim": D, "dtype": qdt, "pool_dtype": kv, "group_slots": group,
+                     **info, "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
+        check(info["spill_store_bytes"] == 0 and info["spill_load_bytes"] == 0,
+              f"{kernel} {key} spills registers: {info}")
+    check(len(rows) == 36, f"{len(rows)} paged kernel instances built, not 32 + 4")
+    return rows
+
+
 def build_report() -> dict:
-    """Each flash and vocab-CE kernel of the built libraries: registers,
-    spills (ptxas), shared memory per block (static plus the dynamic size
-    the launch asks for at the main path's shape), and its tensor-core
-    instructions in the SASS (``HMMA``). The tensor-core kernels must hold
-    HMMA and spill nothing. Returns the rows by (kernel, D, dtype); a
-    vocab-CE row has D None."""
+    """Each paged, flash and vocab-CE kernel of the built libraries:
+    registers, spills (ptxas), shared memory per block (static plus the
+    dynamic size the launch asks for at the main path's shape), and its
+    tensor-core instructions in the SASS (``HMMA``). The tensor-core
+    kernels must hold HMMA and spill nothing, the paged kernels must not
+    spill. Returns the rows by (kernel, D, dtype); a vocab-CE row has D
+    None, a paged row is keyed by ``_paged_instance``."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 
     flib, vlib = fa._kernel_lib(), vc._kernel_lib()
     which = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
-    rows = {}
+    rows = _paged_build_rows()
     for mangled, (kernel, info) in _library_report(
             "flash_attention", FLASH_KERNEL_NAMES.values()).items():
         D = 128 if "Li128E" in mangled else 64
@@ -1673,9 +1829,18 @@ def gpt2_cli_phase(work: Path) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
+    parser.add_argument("--parent-paged", type=Path, default=None,
+                        help="an earlier csrc/paged_attention.cu (the one-block-per-(slot, kv "
+                             "head) design) to time beside the paged kernel in phase 2")
+    args = parser.parse_args(argv)
+    global PARENT_PAGED_SOURCE
+    PARENT_PAGED_SOURCE = args.parent_paged
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1700,6 +1865,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         gpt2 = gpt2_cli_phase(Path(work))
     main_case = kernels["gpt2"]
+    split_b = build[(PAGED_KERNEL_NAMES[0], 64, "float32", "float32", 1)]
+    combine_b = build[(PAGED_KERNEL_NAMES[1], 64, "float32", None, None)]
     flash_rows = []
     for kname in _K1:
         r = flash[(FLASH_MAIN, kname)]
@@ -1735,17 +1902,24 @@ def main() -> int:
             "smem_bytes_per_block": b["smem_bytes_per_block"],
             "hmma_instructions": b["hmma_instructions"],
             "status": {c: row["status"] for (c, k), row in vocab.items() if k == kname}})
-    emit({"kernels": [{
+    paged_row = {
         "name": "paged_decode_attention", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+        "source": KERNEL_SOURCE, "kernel": list(PAGED_KERNEL_NAMES),
+        "replaces": KERNEL_REPLACES,
         "launches": serve["paged_kernel_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()
                            if r["dtype"] == "float32"),
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
+        "ms": main_case["kernel_ms"], "event_ms": main_case["kernel_event_ms"],
+        "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "status": {name: r["status"] for name, r in kernels.items()}}] + flash_rows
-        + vocab_rows})
+        "registers": split_b["registers"], "combine_registers": combine_b["registers"],
+        "spill_store_bytes": split_b["spill_store_bytes"] + combine_b["spill_store_bytes"],
+        "smem_bytes_per_block": split_b["smem_bytes_per_block"],
+        "status": {name: r["status"] for name, r in kernels.items()}}
+    if "parent_kernel_ms" in main_case:
+        paged_row["parent_ms"] = main_case["parent_kernel_ms"]
+    emit({"kernels": [paged_row] + flash_rows + vocab_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

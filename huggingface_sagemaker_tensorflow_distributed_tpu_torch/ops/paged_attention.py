@@ -1,6 +1,6 @@
-"""Paged single-token decode attention: the hand-written CUDA kernel
-(``csrc/paged_attention.cu``), its ctypes wrapper, and its plain PyTorch
-version.
+"""Paged single-token decode attention: the hand-written CUDA kernels
+(``csrc/paged_attention.cu``: a split-context kernel and its combine),
+their ctypes wrapper, and the plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas_paged_attention.py``
 (``paged_decode_attention``, the Pallas kernel ``_paged_kernel``). Same
@@ -21,20 +21,33 @@ contract and layouts:
 - fp32 logits, softmax and accumulation; the output is in q's dtype;
   rows without any valid key (context 0) are zeros.
 
-:func:`paged_decode_attention` launches the kernel for CUDA tensors and
+:func:`paged_decode_attention` launches the kernels for CUDA tensors and
 raises for anything it cannot take; it uses the plain version only for
-tensors on the CPU. ``paged_decode_attention.launches`` counts kernel
-launches.
+tensors on the CPU. ``paged_decode_attention.launches`` counts calls that
+launched the kernels (one per call: the split kernel and its combine).
+
+The kernel splits each slot's walked span into chunks of positions, one
+block per (kv head, slot, chunk); :func:`split_plan` picks the chunk
+length on the host from the shapes alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 _NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
+MAX_GROUP = 8           # query heads per kv head the kernel takes (kMaxGroup)
+WARPS = 4               # warps of a split block (kWarps)
+STAGE_KEYS = 8          # positions a warp takes per stage (kKeys)
+TILE = WARPS * STAGE_KEYS  # positions a block takes per round (kTile)
+MIN_CHUNK = 2 * TILE    # every warp of a block takes at least two stages
+BLOCKS_PER_SM = 8       # split blocks per SM the plan aims for at full span
+H100_SMS = 132
 
 
 def truncate_tables(block_tables: torch.Tensor, block_size: int,
@@ -105,18 +118,43 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
     return out.reshape(S, Hq, D).to(q.dtype)
 
 
+def split_plan(slots: int, kv_heads: int, span: int, block_size: int,
+               sms: int = H100_SMS) -> tuple[int, int]:
+    """``(chunk, chunks)`` of the split kernel: ``chunk`` positions per
+    block, a multiple of :data:`TILE` and of ``block_size``, and
+    ``chunks`` blocks per (slot, kv head), enough to cover ``span`` (the
+    walked width, or the window when it is narrower). Chosen from the
+    shapes alone, so that a full span gives the grid
+    ``slots * kv_heads * chunks`` about :data:`BLOCKS_PER_SM` blocks per SM,
+    one request included, with chunks of at least :data:`MIN_CHUNK`
+    positions (a block's fixed cost, its table, q and merge, then spans
+    two stages of every warp)."""
+    unit = math.lcm(TILE, block_size)
+    want = -(-sms * BLOCKS_PER_SM // max(1, slots * kv_heads))
+    per = max(MIN_CHUNK, -(-span // want))  # positions a chunk for `want` chunks
+    chunk = -(-per // unit) * unit
+    return chunk, max(1, -(-span // chunk))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_lib():
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
 
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
+        lib.paged_decode_split_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.paged_decode_split_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -128,11 +166,17 @@ def load_kernel() -> None:
 def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                            scale=None, width: int | None = None,
                            window: int | None = None,
-                           k_scale_pool=None, v_scale_pool=None):
+                           k_scale_pool=None, v_scale_pool=None, *,
+                           chunk: int | None = None):
     """Fused single-token paged decode attention (contract in the module
-    docstring). CUDA tensors go through the kernel; CPU tensors through
-    :func:`paged_decode_attention_reference`."""
+    docstring). CUDA tensors go through the kernels; CPU tensors through
+    :func:`paged_decode_attention_reference`. ``chunk`` forces the split
+    kernel's chunk length (a multiple of :data:`TILE` and of the block
+    size; tests and tuning); by default :func:`split_plan` picks it."""
     _check_args(q, k_pool, k_scale_pool, v_scale_pool, window)
+    if chunk is not None and (chunk <= 0 or chunk % math.lcm(TILE, k_pool.shape[1])):
+        raise ValueError(f"chunk {chunk} must be a positive multiple of {TILE} "
+                         f"and of block_size {k_pool.shape[1]}")
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, context_lens, scale=scale,
@@ -172,6 +216,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel supports head_dim {_KERNEL_HEAD_DIMS}, "
                          f"got {D}")
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"kernel takes up to {MAX_GROUP} query heads per kv "
+                         f"head, got {Hq // Hkv}")
     if bs % 4:
         raise ValueError(f"kernel needs a block_size multiple of 4, got {bs}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -186,15 +233,23 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     if S == 0:
         return out
     scale = D ** -0.5 if scale is None else scale
+    span = nb * bs if window is None else min(nb * bs, window)
+    if chunk is None:
+        chunk, chunks = split_plan(S, Hkv, span, bs, _sm_count(q.device.index or 0))
+    else:
+        chunks = max(1, -(-span // chunk))
+    # each chunk's partial running max and sum, and accumulator
+    work = torch.empty(S * Hq * chunks * (D + 2), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale_pool.data_ptr() if int8 else None,
         v_scale_pool.data_ptr() if int8 else None,
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        S, Hq, Hkv, D, bs, nb, block_tables.shape[1], float(scale),
-        0 if window is None else int(window), int(q.dtype == torch.bfloat16),
-        int(int8), torch.cuda.current_stream(q.device).cuda_stream)
+        work.data_ptr(), S, Hq, Hkv, D, bs, nb, block_tables.shape[1], chunk,
+        chunks, float(scale), 0 if window is None else int(window),
+        int(q.dtype == torch.bfloat16), int(int8),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "paged_decode_attention kernel launch failed: "

@@ -1,16 +1,19 @@
-"""``chip_smoke.py``'s flash-kernel, vocab-CE-kernel and training phases
-rehearsed on the CPU at a tiny size: with ``DEVICE = "cpu"`` every wrapper
+"""``chip_smoke.py``'s paged-kernel, flash-kernel, vocab-CE-kernel and
+training phases rehearsed on the CPU at a tiny size: with ``DEVICE = "cpu"`` every wrapper
 takes its plain version, so this checks the phases' own logic (cases,
 comparisons, bounds, launch accounting, results files, reload), not the
 kernels. The phases run for real only on the card."""
 
 import json
+import re
+from pathlib import Path
 
 import pytest
 import torch
 
 import chip_smoke
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
 
@@ -64,6 +67,7 @@ def on_cpu(monkeypatch):
                         lambda fn, sets, match=None, **kw: (fn(*sets[0]), 0.0)[1])
     monkeypatch.setattr(fa, "load_kernel", lambda: None)
     monkeypatch.setattr(vc, "load_kernel", lambda: None)
+    monkeypatch.setattr(pa, "load_kernel", lambda: None)
     monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(
         chip_smoke.BERT_BASE, hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
         intermediate_size=128))
@@ -82,6 +86,71 @@ def on_cpu(monkeypatch):
 
             counted.launches = 0
             monkeypatch.setattr(mod, name, counted)
+
+
+def test_kernel_phase_on_cpu(on_cpu, monkeypatch, capsys):
+    """The paged phase's cases (ragged, one slot at full context, contexts
+    on the chunk edges under a window), comparisons, chunk plan, block
+    counts, device/event/library times and bounds, at a tiny size; a
+    card of 4 SMs so that one slot of 2 kv heads must fill it."""
+    monkeypatch.setattr(pa, "H100_SMS", 4)
+    monkeypatch.setattr(chip_smoke, "KERNEL_CASES", [
+        ("gpt2", 4, 2, 2, 64, 16, 64, "float32", False, None, "ragged"),
+        ("int8_bf16", 3, 4, 2, 128, 8, 48, "bfloat16", True, 24, "ragged"),
+        ("single", 1, 2, 2, 64, 16, 256, "float32", False, None, "full"),
+        ("chunk_edges", 7, 2, 2, 64, 16, 160, "float32", False, 80, "chunk_edges")])
+    rows = chip_smoke.kernel_phase()
+    assert list(rows) == ["gpt2", "int8_bf16", "single", "chunk_edges"]
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["case"] for r in out] == list(rows)
+    for row in out:
+        assert row["phase"] == "kernel" and row["status"] == "pass"
+        assert row["bound_ms"] > 0 and row["bound_by"] == "bytes"
+        for key in ("kernel_ms", "kernel_event_ms", "plain_ms", "library_ms",
+                    "library_event_ms"):
+            assert row[key] == 0.0                      # the stubbed timers
+        assert row["chunk"] % pa.TILE == 0 and row["chunk"] % row["block_size"] == 0
+        assert row["blocks_with_keys"] <= row["grid_blocks"]
+        assert "parent_kernel_ms" not in row
+    assert rows["single"]["contexts"] == [256] and rows["single"]["blocks_with_keys"] == 2 * 4
+    # window 80 over 7 slots of 2 kv heads: 2 chunks of 64 positions
+    edges = rows["chunk_edges"]
+    assert edges["chunk"] == pa.MIN_CHUNK == 64 and edges["grid_blocks"] == 2 * 7 * 2
+    assert edges["contexts"] == [0, 1, 63, 64, 65, 128, 160]
+    assert edges["blocks_with_keys"] == 2 * (1 + 1 + 1 + 2 + 2 + 2)
+    # the bound: q and out once, each valid key's K and V row (and scales),
+    # the walked table entries and the context lengths
+    case = chip_smoke.KERNEL_CASES[2]
+    assert chip_smoke._work(case, [256]) == (2 * 2 * 64 * 4 + 256 * 2 * 2 * 64 * 4 + 16 * 4 + 4,
+                                             256 * 2 * 64 * 4)
+
+
+def test_paged_kernel_names_are_the_sources():
+    """The names the kernel and profile phases sum device time by are the
+    ``__global__`` functions ``csrc/paged_attention.cu`` defines, the
+    split kernel first; none is a substring of another or of the earlier
+    design's ``paged_decode_kernel``; the build report reads every
+    instance's template arguments from its mangled name."""
+    src = (Path(pa.__file__).parents[1] / "csrc" / "paged_attention.cu").read_text()
+    defined = re.findall(r"__global__ void __launch_bounds__\(\w+\) (\w+)\(", src)
+    assert tuple(defined) == chip_smoke.PAGED_KERNEL_NAMES
+    names = chip_smoke.PAGED_KERNEL_NAMES + ("paged_decode_kernel",)
+    assert not any(a in b for a in names for b in names if a != b)
+    ns = "_ZN12_GLOBAL__N_1"
+    assert chip_smoke._paged_instance(
+        f"{ns}25paged_decode_split_kernelIffLi64ELi1EEEvNS_4ArgsE") == (
+        "paged_decode_split_kernel", 64, "float32", "float32", 1)
+    assert chip_smoke._paged_instance(
+        f"{ns}25paged_decode_split_kernelI13__nv_bfloat16S1_Li128ELi4EEEvNS_4ArgsE") == (
+        "paged_decode_split_kernel", 128, "bfloat16", "bfloat16", 4)
+    assert chip_smoke._paged_instance(
+        f"{ns}25paged_decode_split_kernelI13__nv_bfloat16aLi128ELi8EEEvNS_4ArgsE") == (
+        "paged_decode_split_kernel", 128, "bfloat16", "int8", 8)
+    assert chip_smoke._paged_instance(
+        f"{ns}27paged_decode_combine_kernelIfLi64EEEvNS_4ArgsE") == (
+        "paged_decode_combine_kernel", 64, "float32", None, None)
+    assert {c[0] for c in chip_smoke.KERNEL_CASES} >= {"gpt2", "gqa", "int8_bf16", "single",
+                                                      "chunk_edges"}
 
 
 def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):

@@ -1,8 +1,10 @@
 """PyTorch port: paged decode attention (``ops/paged_attention.py``) and
 the paged addressing helpers (``ops/attention.py``) against the JAX
 package — the Pallas kernel in interpret mode and the XLA gather path —
-on the same numpy inputs. Plus the CUDA kernel against its plain version
-on the card (skipped without one)."""
+on the same numpy inputs; the split kernel's arithmetic (its chunks,
+per-warp stages and combine, emulated in plain PyTorch) and its chunk
+plan. Plus the CUDA kernels against their plain version on the card
+(skipped without one)."""
 
 import numpy as np
 import pytest
@@ -10,8 +12,12 @@ import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
+    STAGE_KEYS,
+    TILE,
+    WARPS,
     paged_decode_attention,
     paged_decode_attention_reference,
+    split_plan,
 )
 
 TOL = 1e-5
@@ -92,6 +98,74 @@ def _jax_call(fn, q, k, v, tables, ctx, scales, **kw):
                          jnp.asarray(tables), jnp.asarray(ctx), **s, **kw))
 
 
+def split_emulation(q, k_pool, v_pool, block_tables, context_lens, chunk,
+                    scale=None, width=None, window=None, k_scale_pool=None,
+                    v_scale_pool=None):
+    """The split kernel's arithmetic (``csrc/paged_attention.cu``) in plain
+    fp32 PyTorch: for each (slot, kv head, chunk of ``chunk`` positions
+    from the band's start) each of the WARPS warps runs an online softmax
+    over its stages, the STAGE_KEYS positions ``chunk_start + (WARPS * i
+    + warp) * STAGE_KEYS``; the block merges its warps' states into the
+    chunk's partial (m, l, acc), and the combine merges the partials of the
+    chunks that hold keys, in chunk order, and divides (zeros where the sum
+    is 0). Each merge rescales to the common max and gives an empty state
+    (m = -1e30, l = 0) weight 0."""
+    S, Hq, D = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    G = Hq // Hkv
+    nb = block_tables.shape[1] if width is None else width // bs
+    scale = D ** -0.5 if scale is None else scale
+    span = nb * bs if window is None else min(nb * bs, window)
+    chunks = max(1, -(-span // chunk))
+    k_rows, v_rows = (p.reshape(-1, Hkv, D) for p in (k_pool, v_pool))
+
+    def merge(states):
+        m, l, acc = (torch.stack(t) for t in zip(*states))     # [n, G(, D)]
+        big = torch.where(l > 0, m, torch.full_like(m, -1e30)).amax(0)
+        wt = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
+        return big, (wt * l).sum(0), (wt[..., None] * acc).sum(0)
+
+    out = torch.zeros(S, Hq, D)
+    for s in range(S):
+        ctx = int(context_lens[s])
+        hi = min(ctx, nb * bs)
+        lo = max(0, ctx - window) if window else 0
+        for h in range(Hkv):
+            qg = q[s, h * G:(h + 1) * G].float()
+            parts = []
+            for c in range(chunks):
+                cs = lo + c * chunk
+                if cs >= hi:                    # the block exits at once
+                    break
+                ce = min(hi, cs + chunk)
+                warps = []
+                for w in range(WARPS):
+                    m, l, acc = torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, D)
+                    for p0 in range(cs + w * STAGE_KEYS, ce, TILE):
+                        pos = torch.arange(p0, min(ce, p0 + STAGE_KEYS))
+                        rows = block_tables[s, pos // bs].long() * bs + pos % bs
+                        kk, vv = k_rows[rows, h].float(), v_rows[rows, h].float()
+                        x = qg @ kk.T * scale
+                        pv_scale = torch.ones(len(pos))
+                        if k_scale_pool is not None:
+                            x = x * k_scale_pool.reshape(-1, Hkv)[rows, h]
+                            pv_scale = v_scale_pool.reshape(-1, Hkv)[rows, h]
+                        m_new = torch.maximum(m, x.amax(-1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(x - m_new[:, None])
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + (p * pv_scale) @ vv
+                        m = m_new
+                    warps.append((m, l, acc))
+                parts.append(merge(warps))
+            if not parts:
+                continue
+            _, L, o = merge(parts)
+            out[s, h * G:(h + 1) * G] = torch.where(
+                L[:, None] > 0, o / torch.where(L > 0, L, 1.0)[:, None], 0.0)
+    return out.to(q.dtype)
+
+
 @pytest.mark.parametrize("kind", ["fp", "int8"])
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("width", [None, 16])
@@ -118,11 +192,71 @@ def test_reference_matches_pallas_and_xla(groups, width, window, kind):
     np.testing.assert_allclose(got[act], want_pallas[act], rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got[act], want_xla[act], rtol=TOL, atol=TOL)
     assert np.all(got[~act] == 0.0) and np.all(want_pallas[~act] == 0.0)
+    # the split arithmetic with one chunk longer than the width
+    split = _torch_call(split_emulation, *args, chunk=TILE, **kw)
+    np.testing.assert_allclose(split[act], want_pallas[act], rtol=TOL, atol=TOL)
+    assert np.all(split[~act] == 0.0)
     # the wrapper takes the plain version for CPU tensors: no launch
     launches = paged_decode_attention.launches
     np.testing.assert_array_equal(
         _torch_call(paged_decode_attention, *args, **kw), got)
     assert paged_decode_attention.launches == launches
+
+
+def _chunk_edge_case(seed, chunk, groups, int8, window):
+    """Pools of four 32-position blocks a slot; contexts 0, 1 and on and
+    beside the chunk edges (chunk - 1, chunk, chunk + 1, 2 chunk). With
+    ``window`` the band of the longer contexts spans two chunks and the
+    short ones leave their later chunks empty."""
+    q, k, v, tables, _, scales = _case(seed, S=6, G=groups, Hkv=2, D=8, bs=32,
+                                       nb=4, int8=int8)
+    ctx = np.array([0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk], np.int32)
+    return (q, k, v, tables, ctx, scales), dict(window=window)
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("chunk", [32, 64], ids=["one_block", "two_blocks"])
+def test_split_emulation_matches_reference_and_pallas(chunk, groups, band, kind):
+    """The split kernel's chunks, stages and combine give the plain
+    version's and the Pallas kernel's output: the same fp32 sums merged
+    in another order (1e-5); context-0 rows exactly 0."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_paged_attention import (
+        paged_decode_attention as jax_pallas,
+    )
+
+    window = chunk + 8 if band else None
+    args, kw = _chunk_edge_case(chunk + groups, chunk, groups, kind == "int8", window)
+    got = _torch_call(split_emulation, *args, chunk=chunk, **kw)
+    want = _torch_call(paged_decode_attention_reference, *args, **kw)
+    want_pallas = _jax_call(jax_pallas, *args, interpret=True, **kw)
+    act = args[4] > 0
+    np.testing.assert_allclose(got[act], want[act], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got[act], want_pallas[act], rtol=TOL, atol=TOL)
+    assert np.all(got[~act] == 0.0) and np.all(want[~act] == 0.0)
+
+
+@pytest.mark.parametrize("slots,kv_heads,span,block_size", [
+    (8, 12, 1024, 16), (1, 12, 1024, 16), (8, 8, 1024, 16), (8, 12, 64, 16),
+    (4, 2, 200, 4), (4, 12, 304, 8), (2, 1, 96, 12), (3, 4, 1, 16), (8, 12, 0, 16)])
+def test_split_plan_chunks_cover_the_span(slots, kv_heads, span, block_size):
+    """A chunk is a multiple of the tile and of the block size, the chunks
+    cover the span, and none lies wholly past it."""
+    chunk, chunks = split_plan(slots, kv_heads, span, block_size)
+    assert chunk > 0 and chunk % TILE == 0 and chunk % block_size == 0
+    assert chunk * chunks >= span and chunks >= 1
+    assert (chunks - 1) * chunk < max(span, 1)
+
+
+def test_split_plan_fills_the_card():
+    """The serve shape (8 slots, 12 kv heads, width 1024) gets at least two
+    blocks per SM of the H100's 132, and one request alone (1 slot) at
+    least 132 blocks that hold keys at its full context."""
+    chunk, chunks = split_plan(8, 12, 1024, 16)
+    assert 8 * 12 * chunks >= 2 * 132
+    chunk, chunks = split_plan(1, 12, 1024, 16)
+    assert 12 * chunks >= 132 and (chunks - 1) * chunk < 1024
 
 
 @pytest.mark.parametrize("kind", ["fp", "int8"])
@@ -169,7 +303,7 @@ def test_gather_scatter_roundtrip_matches_jax():
 
 
 @pytest.mark.parametrize("bad", ["gqa", "width_multiple", "width_span",
-                                 "scales", "window"])
+                                 "scales", "window", "chunk"])
 def test_argument_checks_raise(bad):
     q, k, v, tables, ctx, scales = _case(5, int8=True)
     kw = {"k_scale_pool": torch.from_numpy(scales[0]),
@@ -183,6 +317,8 @@ def test_argument_checks_raise(bad):
         kw["width"] = 4 * (tables.shape[1] + 1)
     elif bad == "scales":
         del kw["v_scale_pool"]
+    elif bad == "chunk":
+        kw["chunk"] = TILE + 4              # not a multiple of the tile
     else:
         kw["window"] = 0
     with pytest.raises(ValueError):
@@ -224,27 +360,43 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["ragged", "chunk_edges", "single"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["fp", "int8"])
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("groups", [1, 4])
-def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dtype):
-    q, k, v, tables, ctx, scales = _case(7, S=4, G=groups, Hkv=2, D=64, bs=8,
-                                         nb=6, int8=kind == "int8")
+def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dtype, layout):
+    """``ragged``: the chunk plan's split of a width below the table span.
+    ``chunk_edges``: a forced chunk of 32 positions, contexts 0, 1, 31, 32,
+    33 and 64, a window of 40 that spans two chunks. ``single``: one slot
+    at a full context of 1024 split over many blocks."""
+    chunk, width = None, 40
+    if layout == "single":
+        q, k, v, tables, ctx, scales = _case(7, S=1, G=groups, Hkv=2, D=64, bs=16,
+                                             nb=64, int8=kind == "int8")
+        ctx, width = np.array([1024], np.int32), 1024
+    else:
+        q, k, v, tables, ctx, scales = _case(7, S=6, G=groups, Hkv=2, D=64, bs=8,
+                                             nb=10, int8=kind == "int8")
+        ctx = np.array([0, 7, 13, 40, 3, 22], np.int32)
+    if layout == "chunk_edges":
+        chunk, width = 32, 80
+        ctx = np.array([0, 1, 31, 32, 33, 64], np.int32)
+        window = 40 if window else None
     dt = getattr(torch, dtype)
     t = dict(q=torch.from_numpy(q).to(cuda_device, dt),
              k_pool=torch.from_numpy(k).to(cuda_device),
              v_pool=torch.from_numpy(v).to(cuda_device),
              block_tables=torch.from_numpy(tables).to(cuda_device),
              context_lens=torch.from_numpy(ctx).to(cuda_device), window=window,
-             width=40)
+             width=width)
     if scales is None:
         t["k_pool"], t["v_pool"] = t["k_pool"].to(dt), t["v_pool"].to(dt)
     else:
         t["k_scale_pool"] = torch.from_numpy(scales[0]).to(cuda_device)
         t["v_scale_pool"] = torch.from_numpy(scales[1]).to(cuda_device)
     launches = paged_decode_attention.launches
-    got = paged_decode_attention(**t).float().cpu()
+    got = paged_decode_attention(**t, chunk=chunk).float().cpu()
     want = paged_decode_attention_reference(**t).float().cpu()
     assert paged_decode_attention.launches == launches + 1
     act = torch.from_numpy(ctx) > 0
