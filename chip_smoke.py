@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port
 (``huggingface_sagemaker_tensorflow_distributed_tpu_torch``).
 
-    python3 chip_smoke.py [--parent-paged SRC]
+    python3 chip_smoke.py
 
 Needs one CUDA card (built for an H100: ``sm_90a``) and ``nvcc``.
 Imports nothing of JAX or of the JAX package. Phases, in order; any
@@ -25,17 +25,16 @@ failure raises and exits non-zero:
    ``width`` below the table span (GPT-2 shapes, GQA, a sliding window,
    int8 pools, bf16, block sizes 4 and 8, one slot alone at context 1024,
    contexts on and beside the chunk edges under a window that spans
-   chunks). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
+   chunks, and one past the walked width whose band lies wholly beyond
+   it). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
    rows, bf16 to ``2e-2``; context-0 rows must be exactly 0. Prints one
    JSON line per case with the kernels' device time (the profiler's,
-   split and combine summed per call, median of 5 windows of 20) and
-   CUDA-event time, the plain version's time,
+   split and combine summed per call, median of 5 windows of 20),
+   CUDA-event time and the wrapper's host time per call (queued behind a
+   spin kernel), the plain version's time,
    ``scaled_dot_product_attention``'s device and event time (inputs
    rotated over four copies so the working set exceeds the 50 MB L2), the
-   chunk plan and the bandwidth/compute bound. With ``--parent-paged
-   SRC`` an earlier ``paged_attention.cu`` of the one-block-per-(slot, kv
-   head) design is built into ``build/`` and held and timed the same way
-   in the same run;
+   chunk plan and the bandwidth/compute bound;
 3. serve: ``ServeEngine`` on GPT-2 124M at full width (fp32, random
    weights from seed 0) over 20 requests, 16 from ``make_trace`` with
    ``scripts/serve.py``'s defaults and 4 with 512-896-token prompts.
@@ -164,12 +163,12 @@ NEAR_TIE = 1e-3
 # the H100's clock
 MARKER_CYCLES = 20_000_000
 MARKER_KERNELS = 8
+# the spin that holds the card while ``_host_ms`` times a loop of calls:
+# about 100 ms at the H100's clock
+HOST_SPIN_CYCLES = 200_000_000
 # where the kernel, flash and train phases run; "cpu" only to rehearse
 # them at a small size (every wrapper then takes its plain version)
 DEVICE = "cuda"
-# with --parent-paged: an earlier paged_attention.cu of the one-block-per-
-# (slot, kv head) design (its C ABI), timed beside the kernel in phase 2
-PARENT_PAGED_SOURCE = None
 
 
 def check(cond: bool, msg: str) -> None:
@@ -204,7 +203,8 @@ KERNEL_CASES = [
     # name, slots, Hq, Hkv, D, block_size, max context, dtype, int8, window,
     # contexts: "ragged" (0, the max, the rest random), "full" (every slot
     # at the max), "chunk_edges" (0, 1, chunk - 1, chunk, chunk + 1,
-    # 2 chunk and the max, for the chunk the plan picks)
+    # 2 chunk and the max, for the chunk the plan picks, and the max plus
+    # the window: past the walked width, its band wholly beyond it)
     ("gpt2", 8, 12, 12, 64, 16, 1024, "float32", False, None, "ragged"),
     ("gqa", 8, 32, 8, 128, 16, 1024, "float32", False, None, "ragged"),
     ("window64", 8, 12, 12, 64, 16, 1024, "float32", False, 64, "ragged"),
@@ -216,7 +216,7 @@ KERNEL_CASES = [
     # one request decoding alone: the grid must still reach every SM
     ("single", 1, 12, 12, 64, 16, 1024, "float32", False, None, "full"),
     # contexts on and beside the chunk edges, a window across them
-    ("chunk_edges", 7, 12, 12, 64, 16, 1024, "float32", False, 200, "chunk_edges"),
+    ("chunk_edges", 8, 12, 12, 64, 16, 1024, "float32", False, 200, "chunk_edges"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COPIES = 4          # distinct input sets the timing rotates over
@@ -264,7 +264,7 @@ def _contexts(case, gen) -> list[int]:
         return [max_ctx] * S
     if kind == "chunk_edges":
         c = _plan(case)[0]
-        return [0, 1, c - 1, c, c + 1, 2 * c, max_ctx][:S]
+        return [0, 1, c - 1, c, c + 1, 2 * c, max_ctx, max_ctx + (window or bs)][:S]
     rest = torch.randint(1, max_ctx, (S - 2,), generator=gen).tolist()
     return [0, max_ctx] + rest
 
@@ -346,8 +346,9 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     1000 cycles still lost one call in five of the K2 kernels; after the
     serve profile's long window every later window lost its first two
     records, one 10 ms marker and one call). A window whose trace holds
-    fewer than ``iters`` launches of the named kernel, or no device time,
-    is taken again, up to ``repeats`` times in all."""
+    fewer than ``iters`` launches of a named kernel, or no device time,
+    is taken again, up to ``repeats`` times in all; with a tuple, a window
+    counts only when it holds ``iters`` launches of every name."""
     import statistics
 
     import torch
@@ -368,15 +369,44 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
         by_kernel = _device_seconds_by_kernel(prof)
         total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k
                     and (names is None or any(n in k for n in names)))
-        launched = iters if names is None else sum(
-            e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and names[0] in e.key)
+        launched = iters if names is None else min(
+            sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
+            for n in names)
         if total > 0 and launched == iters:
             per_call.append(total / iters * 1e3)
             continue
         short += 1
         check(short <= repeats, f"{short} profiled windows held {launched} of {iters} "
                                 f"launches of {match or 'the call'}")
+    return statistics.median(per_call)
+
+
+def _host_ms(fn, arg_sets, iters: int = 100, repeats: int = 5) -> float:
+    """Host time per call: the median over ``repeats`` loops of ``iters``
+    calls on the host's clock, each loop queued behind a spin kernel of
+    about 100 ms, so that every launch only queues and the time is the
+    wrapper's own host work (checks, plan, allocations, launches). Fails
+    if a loop outlasts its spin."""
+    import statistics
+    import time
+
+    import torch
+
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(repeats):
+        torch.cuda._sleep(HOST_SPIN_CYCLES)
+        spun = torch.cuda.Event()
+        spun.record()
+        start = time.perf_counter()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        per_call.append((time.perf_counter() - start) / iters * 1e3)
+        check(not spun.query(), f"{iters} calls outlasted a spin of {HOST_SPIN_CYCLES} cycles")
+        torch.cuda.synchronize()
     return statistics.median(per_call)
 
 
@@ -411,54 +441,17 @@ def _sdpa_inputs(t, opts):
     return q[:, :, None, :], k, v, keep[:, None, None, :]
 
 
-def _parent_paged(src: Path):
-    """An earlier ``paged_attention.cu`` of the one-block-per-(slot, kv head)
-    design, built with the port's flags into the git-ignored ``build/``,
-    as a function of a kernel case's tensors (its launches are not
-    counted)."""
-    import ctypes
-
-    import torch
-
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
-
-    out = ROOT / "build" / "parent_paged" / "paged_attention.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).paged_decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def call(q, kp, vp, bt, cl, ksp, vsp, width, window):
-        out_ = torch.empty_like(q)
-        S, Hq, D = q.shape
-        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                 ksp.data_ptr() if ksp is not None else None,
-                 vsp.data_ptr() if vsp is not None else None, bt.data_ptr(), cl.data_ptr(),
-                 out_.data_ptr(), S, Hq, kp.shape[2], D, kp.shape[1], width // kp.shape[1],
-                 bt.shape[1], D ** -0.5, window or 0, int(q.dtype == torch.bfloat16),
-                 int(ksp is not None), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"parent paged kernel launch failed ({err})")
-        return out_
-
-    return call
-
-
 def kernel_phase() -> dict:
     """Each paged case: the kernels against the plain version, their
     device time (profiler, both kernels summed) and CUDA-event time, the
     plain version's, ``scaled_dot_product_attention``'s device and event
-    time, and the bound; with ``PARENT_PAGED_SOURCE`` the earlier kernel's
-    device time too."""
+    time, and the bound."""
     import torch
     import torch.nn.functional as F
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
 
     pa.load_kernel()
-    parent = _parent_paged(PARENT_PAGED_SOURCE) if PARENT_PAGED_SOURCE else None
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -468,21 +461,17 @@ def kernel_phase() -> dict:
         t, opts = sets[0]
         want = pa.paged_decode_attention_reference(**t, **opts)
         args = [tuple(s[0].values()) + (s[1]["width"], s[1]["window"]) for s in sets]
+        got = pa.paged_decode_attention(**t, **opts)
+        _sync()
         tol = TOL[dt]
         ctx = t["context_lens"].cpu()
         act = ctx > 0
-
-        def held(got, who):
-            _sync()
-            g, w = got.float().cpu(), want.float().cpu()
-            err = float((g[act] - w[act]).abs().max())
-            ok = (torch.allclose(g[act], w[act], atol=tol, rtol=tol)
-                  and bool((g[~act] == 0).all()) and bool(torch.isfinite(g).all()))
-            check(ok, f"kernel case {name}: {who} max_abs_err {err} (tol {tol}) or a "
-                      "context-0 row is not exactly 0")
-            return err
-
-        err = held(pa.paged_decode_attention(**t, **opts), "kernel")
+        g, w = got.float().cpu(), want.float().cpu()
+        err = float((g[act] - w[act]).abs().max())
+        ok = (torch.allclose(g[act], w[act], atol=tol, rtol=tol)
+              and bool((g[~act] == 0).all()) and bool(torch.isfinite(g).all()))
+        check(ok, f"kernel case {name}: max_abs_err {err} (tol {tol}) or a "
+                  "context-0 row is not exactly 0")
 
         def kern(q, kp, vp, bt, cl, ksp, vsp, width, window):
             pa.paged_decode_attention(q, kp, vp, bt, cl, width=width, window=window,
@@ -499,6 +488,7 @@ def kernel_phase() -> dict:
         dense = [_sdpa_inputs(*s) for s in sets]
         ms = _device_ms(kern, args, PAGED_KERNEL_NAMES)
         event_ms = _cuda_ms(kern, args)
+        host_ms = _host_ms(kern, args)
         plain_ms = _cuda_ms(plain, args)
         library_ms = _device_ms(sdpa, dense)
         library_event_ms = _cuda_ms(sdpa, dense)
@@ -519,14 +509,12 @@ def kernel_phase() -> dict:
                "contexts": ctx.tolist(), "width": width, "chunk": chunk,
                "grid_blocks": Hkv * S * chunks, "blocks_with_keys": with_keys,
                "max_abs_err": err, "tol": tol, "status": "pass",
-               "kernel_ms": ms, "kernel_event_ms": event_ms, "plain_ms": plain_ms,
+               "kernel_ms": ms, "kernel_event_ms": event_ms, "kernel_host_ms": host_ms,
+               "plain_ms": plain_ms,
                "library_ms": library_ms, "library_event_ms": library_event_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops}
-        if parent is not None:
-            row["parent_max_abs_err"] = held(parent(*args[0]), "parent kernel")
-            row["parent_kernel_ms"] = _device_ms(parent, args, "paged_decode_kernel")
         emit(row)
         results[name] = row
         del sets, dense, args
@@ -1829,18 +1817,9 @@ def gpt2_cli_phase(work: Path) -> dict:
     return row
 
 
-def main(argv: list[str] | None = None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--parent-paged", type=Path, default=None,
-                        help="an earlier csrc/paged_attention.cu (the one-block-per-(slot, kv "
-                             "head) design) to time beside the paged kernel in phase 2")
-    args = parser.parse_args(argv)
-    global PARENT_PAGED_SOURCE
-    PARENT_PAGED_SOURCE = args.parent_paged
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1910,6 +1889,7 @@ def main(argv: list[str] | None = None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()
                            if r["dtype"] == "float32"),
         "ms": main_case["kernel_ms"], "event_ms": main_case["kernel_event_ms"],
+        "host_ms": main_case["kernel_host_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
@@ -1917,8 +1897,6 @@ def main(argv: list[str] | None = None) -> int:
         "spill_store_bytes": split_b["spill_store_bytes"] + combine_b["spill_store_bytes"],
         "smem_bytes_per_block": split_b["smem_bytes_per_block"],
         "status": {name: r["status"] for name, r in kernels.items()}}
-    if "parent_kernel_ms" in main_case:
-        paged_row["parent_ms"] = main_case["parent_kernel_ms"]
     emit({"kernels": [paged_row] + flash_rows + vocab_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

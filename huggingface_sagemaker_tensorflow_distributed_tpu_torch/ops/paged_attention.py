@@ -118,6 +118,7 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
     return out.reshape(S, Hq, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def split_plan(slots: int, kv_heads: int, span: int, block_size: int,
                sms: int = H100_SMS) -> tuple[int, int]:
     """``(chunk, chunks)`` of the split kernel: ``chunk`` positions per
@@ -139,6 +140,21 @@ def split_plan(slots: int, kv_heads: int, span: int, block_size: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the split kernel's partials, one fp32 buffer per (device, stream)
+_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(numel: int, device: torch.device, stream: int) -> torch.Tensor:
+    """At least ``numel`` fp32 values for the partials, kept per (device,
+    stream) and grown when a call needs more: the calls on one stream run
+    one after another, so each reuses the buffer the last one left."""
+    buf = _WORKSPACE.get((device.index, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _WORKSPACE[(device.index, stream)] = buf
+    return buf
 
 
 def _kernel_lib():
@@ -238,8 +254,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         chunk, chunks = split_plan(S, Hkv, span, bs, _sm_count(q.device.index or 0))
     else:
         chunks = max(1, -(-span // chunk))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     # each chunk's partial running max and sum, and accumulator
-    work = torch.empty(S * Hq * chunks * (D + 2), dtype=torch.float32, device=q.device)
+    work = _workspace(S * Hq * chunks * (D + 2), q.device, stream)
     lib = _kernel_lib()
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -248,8 +265,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         work.data_ptr(), S, Hq, Hkv, D, bs, nb, block_tables.shape[1], chunk,
         chunks, float(scale), 0 if window is None else int(window),
-        int(q.dtype == torch.bfloat16), int(int8),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q.dtype == torch.bfloat16), int(int8), stream)
     if err != 0:
         raise RuntimeError(
             "paged_decode_attention kernel launch failed: "

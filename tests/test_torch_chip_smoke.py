@@ -65,6 +65,7 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "_cuda_ms", lambda fn, sets, iters=40: (fn(*sets[0]), 0.0)[1])
     monkeypatch.setattr(chip_smoke, "_device_ms",
                         lambda fn, sets, match=None, **kw: (fn(*sets[0]), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "_host_ms", lambda fn, sets, **kw: (fn(*sets[0]), 0.0)[1])
     monkeypatch.setattr(fa, "load_kernel", lambda: None)
     monkeypatch.setattr(vc, "load_kernel", lambda: None)
     monkeypatch.setattr(pa, "load_kernel", lambda: None)
@@ -90,15 +91,16 @@ def on_cpu(monkeypatch):
 
 def test_kernel_phase_on_cpu(on_cpu, monkeypatch, capsys):
     """The paged phase's cases (ragged, one slot at full context, contexts
-    on the chunk edges under a window), comparisons, chunk plan, block
-    counts, device/event/library times and bounds, at a tiny size; a
-    card of 4 SMs so that one slot of 2 kv heads must fill it."""
+    on the chunk edges under a window and one past the width),
+    comparisons, chunk plan, block counts, device/event/host/library
+    times and bounds, at a tiny size; a card of 4 SMs so that one slot of
+    2 kv heads must fill it."""
     monkeypatch.setattr(pa, "H100_SMS", 4)
     monkeypatch.setattr(chip_smoke, "KERNEL_CASES", [
         ("gpt2", 4, 2, 2, 64, 16, 64, "float32", False, None, "ragged"),
         ("int8_bf16", 3, 4, 2, 128, 8, 48, "bfloat16", True, 24, "ragged"),
         ("single", 1, 2, 2, 64, 16, 256, "float32", False, None, "full"),
-        ("chunk_edges", 7, 2, 2, 64, 16, 160, "float32", False, 80, "chunk_edges")])
+        ("chunk_edges", 8, 2, 2, 64, 16, 160, "float32", False, 80, "chunk_edges")])
     rows = chip_smoke.kernel_phase()
     assert list(rows) == ["gpt2", "int8_bf16", "single", "chunk_edges"]
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
@@ -106,17 +108,17 @@ def test_kernel_phase_on_cpu(on_cpu, monkeypatch, capsys):
     for row in out:
         assert row["phase"] == "kernel" and row["status"] == "pass"
         assert row["bound_ms"] > 0 and row["bound_by"] == "bytes"
-        for key in ("kernel_ms", "kernel_event_ms", "plain_ms", "library_ms",
-                    "library_event_ms"):
+        for key in ("kernel_ms", "kernel_event_ms", "kernel_host_ms", "plain_ms",
+                    "library_ms", "library_event_ms"):
             assert row[key] == 0.0                      # the stubbed timers
         assert row["chunk"] % pa.TILE == 0 and row["chunk"] % row["block_size"] == 0
         assert row["blocks_with_keys"] <= row["grid_blocks"]
-        assert "parent_kernel_ms" not in row
     assert rows["single"]["contexts"] == [256] and rows["single"]["blocks_with_keys"] == 2 * 4
-    # window 80 over 7 slots of 2 kv heads: 2 chunks of 64 positions
+    # window 80 over 8 slots of 2 kv heads: 2 chunks of 64 positions; the
+    # last slot's band [160, 240) lies past the width of 160: no block
     edges = rows["chunk_edges"]
-    assert edges["chunk"] == pa.MIN_CHUNK == 64 and edges["grid_blocks"] == 2 * 7 * 2
-    assert edges["contexts"] == [0, 1, 63, 64, 65, 128, 160]
+    assert edges["chunk"] == pa.MIN_CHUNK == 64 and edges["grid_blocks"] == 2 * 8 * 2
+    assert edges["contexts"] == [0, 1, 63, 64, 65, 128, 160, 240]
     assert edges["blocks_with_keys"] == 2 * (1 + 1 + 1 + 2 + 2 + 2)
     # the bound: q and out once, each valid key's K and V row (and scales),
     # the walked table entries and the context lengths

@@ -259,6 +259,22 @@ def test_split_plan_fills_the_card():
     assert 12 * chunks >= 132 and (chunks - 1) * chunk < 1024
 
 
+def test_workspace_is_reused_per_stream(monkeypatch):
+    """The partials' buffer: one per (device, stream), reused by the next
+    call on that stream, grown when a call needs more."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import paged_attention as pa
+
+    monkeypatch.setattr(pa, "_WORKSPACE", {})
+    cpu = torch.device("cpu")
+    first = pa._workspace(100, cpu, 1)
+    assert first.dtype == torch.float32 and first.numel() == 100
+    assert pa._workspace(60, cpu, 1) is first
+    other = pa._workspace(60, cpu, 2)
+    assert other is not first and other.numel() == 60
+    grown = pa._workspace(300, cpu, 1)
+    assert grown.numel() == 300 and pa._workspace(100, cpu, 1) is grown
+
+
 @pytest.mark.parametrize("kind", ["fp", "int8"])
 def test_paged_attention_cpu_path_matches_jax_xla(kind):
     """``ops.attention.paged_attention`` on CPU tensors is the plain
@@ -366,7 +382,9 @@ def cuda_device():
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("groups", [1, 4])
 def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dtype, layout):
-    """``ragged``: the chunk plan's split of a width below the table span.
+    """``ragged``: the chunk plan's split of a width below the table span,
+    one context (48) past that width, whose band under window 6 lies
+    wholly beyond it.
     ``chunk_edges``: a forced chunk of 32 positions, contexts 0, 1, 31, 32,
     33 and 64, a window of 40 that spans two chunks. ``single``: one slot
     at a full context of 1024 split over many blocks."""
@@ -378,7 +396,7 @@ def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dty
     else:
         q, k, v, tables, ctx, scales = _case(7, S=6, G=groups, Hkv=2, D=64, bs=8,
                                              nb=10, int8=kind == "int8")
-        ctx = np.array([0, 7, 13, 40, 3, 22], np.int32)
+        ctx = np.array([0, 7, 13, 48, 3, 22], np.int32)
     if layout == "chunk_edges":
         chunk, width = 32, 80
         ctx = np.array([0, 1, 31, 32, 33, 64], np.int32)
