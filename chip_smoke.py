@@ -80,7 +80,24 @@ failure raises and exits non-zero:
    results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass over more train
    steps for the device's idle share, which must name the three bf16
-   flash kernels;
+   flash kernels; (c) the training CLI's lifecycle at the same defaults,
+   2 epochs of 12 steps, 32 eval samples, checkpoints every 5 steps (2
+   kept), keep-best, early stopping (patience 1), ``--profile`` and
+   telemetry: an uninterrupted run (async saves), a run stopped after
+   epoch 0 step 7 (its last checkpoint is step 5) and its rerun, resumed
+   from step 5 (sync saves). The resumed losses must equal the
+   uninterrupted run's from step 5 on bit for bit (the K1 kernels use no
+   atomics and cuBLAS picks the same algorithms for the same shapes), each
+   run's flash launches ``12 x (train + eval steps)`` forward and ``12 x
+   train steps`` backward, the profile trace must name the three bf16
+   flash kernels, the export must hold the best epoch's weights and give
+   the live model's logits, and every event and trace must validate under
+   the port's schema. Prints the save stalls (``train/checkpoint`` spans,
+   async and sync), the background writes, the restore time, the
+   checkpoint's bytes, ``train_mfu`` and ``train_achieved_tflops_per_chip``,
+   and each run's split of step wall time between ``train/step_dispatch``,
+   ``train/sync`` and ``train/checkpoint`` (the first step's dispatch, which
+   builds the kernels, apart);
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
@@ -1357,6 +1374,241 @@ def train_cli_phase(work: Path) -> dict:
     return row
 
 
+# -- the trainer's lifecycle ---------------------------------------------------
+
+LIFECYCLE_EPOCHS = 2
+LIFECYCLE_STEPS = 12            # per epoch
+LIFECYCLE_EVAL_SAMPLES = 32
+LIFECYCLE_CKPT_EVERY = 5
+LIFECYCLE_STOP_AFTER = 8        # the interrupted run stops after epoch 0 step 7
+LIFECYCLE_SPANS = ("train/step_dispatch", "train/sync", "train/checkpoint")
+
+
+class _Interrupt(Exception):
+    """The injected stop of the lifecycle phase's interrupted run."""
+
+
+def _events(tel: Path) -> list:
+    return [json.loads(line) for line in (tel / "events.jsonl").read_text().splitlines()]
+
+
+def _span_s(events: list, name: str) -> list:
+    return [e["dur"] for e in events if e["type"] == "span" and e["name"] == name]
+
+
+def _step_split(events: list, hist: dict) -> dict:
+    """One run's step wall time split between the spans (the first step's
+    dispatch, which builds the kernels, apart), with the run's throughput
+    and the meter's window step times."""
+    dispatch = _span_s(events, "train/step_dispatch")
+    span_s = {n: sum(_span_s(events, n)) for n in LIFECYCLE_SPANS}
+    span_s["train/step_dispatch"] -= dispatch[0]
+    steps_s = sum(span_s.values())
+    return {"first_step_dispatch_s": dispatch[0], "span_s": span_s,
+            "span_share": {n: s / steps_s for n, s in span_s.items()},
+            "eval_s": sum(_span_s(events, "eval/run") + _span_s(events, "eval/sync")),
+            "train_runtime_s": hist["train_runtime"],
+            "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
+            "train_mfu": hist.get("train_mfu", "not measured"),
+            "step_time_ms": [1e3 * e["value"] for e in events if e["type"] == "metric"
+                             and e["name"] == "train/step_time_s"]}
+
+
+def train_lifecycle_phase(work: Path, card: str) -> dict:
+    """The training CLI's lifecycle at BERT-base width and its defaults
+    (bf16, sequence 512, batch 8, AdamW) with checkpoints every 5 steps
+    (2 kept), keep-best, early stopping (patience 1), ``--profile`` and
+    telemetry on: (1) an uninterrupted run of 2 epochs x 12 steps with
+    async saves, (2) the same run stopped after epoch 0 step 7 (its last
+    checkpoint is step 5), (3) the rerun, resumed from step 5 with sync
+    saves. Checks the resumed losses equal the uninterrupted run's from
+    step 5 on, bit for bit; the flash launches of each run; the profile
+    trace's kernel names; the export against the best epoch's weights;
+    every telemetry event against the schema."""
+    import math
+
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.schema import (
+        validate_events_file,
+        validate_trace_file,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    cfg_dir, ckpt_dir = work / "config", work / "ckpt"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(BERT_BASE))
+    common = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+              "--dataset", "vendored_reviews", "--epochs", str(LIFECYCLE_EPOCHS),
+              "--steps_per_epoch", str(LIFECYCLE_STEPS),
+              "--max_eval_samples", str(LIFECYCLE_EVAL_SAMPLES),
+              "--checkpoint_every_steps", str(LIFECYCLE_CKPT_EVERY), "--keep_checkpoints", "2",
+              "--keep_best", "true", "--early_stopping_patience", "1", "--profile", "true",
+              "--log_every_steps", "4", "--device", DEVICE]
+
+    rec: dict = {}
+    orig_step, orig_eval = Trainer.train_step, Trainer.evaluate
+
+    def train_step(self, batch):
+        if len(rec["losses"]) == rec["stop_after"]:
+            raise _Interrupt
+        out = orig_step(self, batch)
+        rec["losses"].append(out["loss"])
+        return out
+
+    def evaluate(self, batcher):
+        # the weights each eval saw: the export is checked against the best
+        rec["weights"].append({k: v.detach().to("cpu", copy=True)
+                               for k, v in self.model.state_dict().items()})
+        return orig_eval(self, batcher)
+
+    def run(name: str, ckpt: Path, extra: list, stop_after=None):
+        rec.update(losses=[], weights=[], stop_after=stop_after)
+        tel, prof = work / f"tel_{name}", work / f"prof_{name}"
+        obs.reset(out_dir=str(tel))
+        fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+        out = {"tel": tel, "prof": prof, "results": None, "trainer": None}
+        t0 = time.perf_counter()
+        try:
+            out["results"], out["trainer"] = cli.run(
+                common + ["--checkpoint_dir", str(ckpt), "--profile_dir", str(prof),
+                          "--output_data_dir", str(work / f"out_{name}"),
+                          "--model_dir", str(work / f"model_{name}")] + extra)
+        except _Interrupt:
+            out["interrupted"] = True
+        finally:
+            obs.reset()
+        _sync()
+        out.update(wall_s=time.perf_counter() - t0, losses=list(rec["losses"]),
+                   weights=list(rec["weights"]),
+                   launches={"flash_fwd": fa.flash_fwd.launches,
+                             "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                             "flash_bwd_dkv": fa.flash_bwd_dkv.launches})
+        return out
+
+    Trainer.train_step, Trainer.evaluate = train_step, evaluate
+    try:
+        full = run("full", work / "ckpt_full", [])
+        cut = run("cut", ckpt_dir, [], stop_after=LIFECYCLE_STOP_AFTER)
+        check(cut.get("interrupted", False) and len(cut["losses"]) == LIFECYCLE_STOP_AFTER,
+              "the interrupted run was not stopped after epoch 0 step 7")
+        latest = max(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+        check(latest == LIFECYCLE_CKPT_EVERY,
+              f"the interrupted run's last checkpoint is step {latest}, wanted 5")
+        resumed = run("resumed", ckpt_dir, ["--async_checkpointing", "false"])
+    finally:
+        Trainer.train_step, Trainer.evaluate = orig_step, orig_eval
+
+    # resume: the same losses from step 5 on, bit for bit
+    total = LIFECYCLE_EPOCHS * LIFECYCLE_STEPS
+    want = torch.stack(full["losses"][LIFECYCLE_CKPT_EVERY:]).float()
+    got = torch.stack(resumed["losses"]).float()
+    check(len(full["losses"]) == total and got.shape == want.shape,
+          f"{len(full['losses'])} uninterrupted and {got.numel()} resumed steps")
+    resume_max_abs = float((got - want).abs().max())
+    check(torch.equal(got, want), f"the resumed losses differ from the uninterrupted run's "
+          f"(max |diff| {resume_max_abs:.3e})")
+    check(torch.equal(torch.stack(cut["losses"][:LIFECYCLE_CKPT_EVERY]).float(),
+                      torch.stack(full["losses"][:LIFECYCLE_CKPT_EVERY]).float()),
+          "the interrupted run's first steps differ from the uninterrupted run's")
+
+    # launches: 12 layers x (train + eval steps) forward, x train steps backward
+    L = BERT_BASE["num_hidden_layers"]
+    eval_steps = math.ceil(LIFECYCLE_EVAL_SAMPLES / 4)
+    for name, r in (("full", full), ("cut", cut), ("resumed", resumed)):
+        train_steps, evals = len(r["losses"]), len(r["weights"])
+        check(r["launches"]["flash_fwd"] == L * (train_steps + evals * eval_steps),
+              f"{name}: flash_fwd launches {r['launches']['flash_fwd']} != {L} x "
+              f"({train_steps} + {evals} x {eval_steps})")
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            check(r["launches"][k] == L * train_steps,
+                  f"{name}: {k} launches {r['launches'][k]} != {L} x {train_steps}")
+    check(len(full["weights"]) == len(resumed["weights"]) == LIFECYCLE_EPOCHS + 1,
+          "an eval per epoch and a final eval in the full and resumed runs")
+
+    # the profile names the three bf16 flash kernels
+    traces = {name: sorted(r["prof"].glob("train_rank0_*.pt.trace.json"))
+              for name, r in (("full", full), ("cut", cut), ("resumed", resumed))}
+    check(all(len(t) == 1 for t in traces.values()), f"profile traces: {traces}")
+    trace_text = traces["full"][0].read_text()
+    named = {k: FLASH_KERNEL_NAMES[(k, "bfloat16")] in trace_text for k in _K1}
+    if DEVICE == "cuda":
+        check(all(named.values()), f"the profile of train steps 3-6 names {named}")
+
+    # keep-best: the export is the best epoch's weights, with its logits
+    trainer = resumed["trainer"]
+    cfg = trainer.model.config
+    check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+          and trainer.config.max_seq_length == 512 and trainer.config.train_batch_size == 8
+          and trainer.config.eval_batch_size == 4, "the CLI did not run at its defaults")
+    seq = min(trainer.config.max_seq_length, BERT_BASE["max_position_embeddings"])
+    best = trainer.best_epoch
+    check(best is not None and best == full["trainer"].best_epoch, "best epochs differ")
+    reloaded, _, _ = auto.from_pretrained(str(work / "model_resumed"), dtype=torch.bfloat16,
+                                          device=DEVICE, attention_impl="flash")
+    for k, v in reloaded.state_dict().items():
+        check(torch.equal(v.cpu(), resumed["weights"][best][k]),
+              f"the export's {k} is not the best epoch's")
+    batch = _review_batch(4, seq, DEVICE, split="test")
+    with torch.no_grad():
+        a = trainer.model.eval()(batch["input_ids"], batch["attention_mask"])
+        b = reloaded.eval()(batch["input_ids"], batch["attention_mask"])
+    check(torch.equal(a, b), "the reloaded export gives other logits than the best epoch's")
+    del reloaded, trainer
+
+    # telemetry: every event and trace valid; the spans and the stalls
+    events = {}
+    for name, r in (("full", full), ("cut", cut), ("resumed", resumed)):
+        for path in sorted(r["tel"].glob("*.jsonl")):
+            n, errors = validate_events_file(str(path), strict_tail=True)
+            check(n > 0 and not errors, f"{path.name} of the {name} run: {errors[:3]}")
+        n, errors = validate_trace_file(str(r["tel"] / "trace.json"))
+        check(n > 0 and not errors, f"trace.json of the {name} run: {errors[:3]}")
+        events[name] = _events(r["tel"])
+    hist = full["results"]["train"]
+    split = {n: _step_split(events[n], r["results"]["train"])
+             for n, r in (("full", full), ("resumed", resumed))}
+    step_dir = max((p for p in ckpt_dir.iterdir() if p.name.isdigit()),
+                   key=lambda p: int(p.name))
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    mfu = hist.get("train_mfu")
+    if DEVICE == "cuda":
+        check(mfu is not None and 0 < mfu < 1, f"train_mfu {mfu}")
+    row = {"phase": "train_lifecycle", "card": card,
+           "model": "bert-base-uncased widths (random init, seed 42)", "layers": L,
+           "dtype": "bfloat16", "seq": seq, "batch": 8, "eval_batch": 4,
+           "epochs": LIFECYCLE_EPOCHS, "steps_per_epoch": LIFECYCLE_STEPS,
+           "train_steps": {n: len(r["losses"]) for n, r in
+                           (("full", full), ("cut", cut), ("resumed", resumed))},
+           "launches": {n: r["launches"] for n, r in
+                        (("full", full), ("cut", cut), ("resumed", resumed))},
+           "resume_from_step": LIFECYCLE_CKPT_EVERY, "resume_bitwise": True,
+           "resume_max_abs_diff": resume_max_abs, "best_epoch": best,
+           "eval_loss": hist["eval_loss"],
+           "train_mfu": mfu if mfu is not None else "not measured",
+           "train_achieved_tflops_per_chip": hist.get("train_achieved_tflops_per_chip",
+                                                      "not measured"),
+           "split_async_saves": split["full"], "split_sync_saves": split["resumed"],
+           "save_stall_ms_async": [1e3 * s for s in _span_s(events["full"],
+                                                           "train/checkpoint")],
+           "save_stall_ms_sync": [1e3 * s for s in _span_s(events["resumed"],
+                                                          "train/checkpoint")],
+           "write_ms_async": [1e3 * s for s in _span_s(events["full"],
+                                                      "train/checkpoint_write")],
+           "restore_ms": [1e3 * s for s in _span_s(events["resumed"], "train/restore")],
+           "checkpoint_bytes": ckpt_bytes,
+           "profile_names_kernels": named,
+           "events": {n: len(e) for n, e in events.items()},
+           "wall_s": {n: r["wall_s"] for n, r in
+                      (("full", full), ("cut", cut), ("resumed", resumed))}}
+    emit(row)
+    return row
+
+
 # -- vocab CE kernels ----------------------------------------------------------
 
 VOCAB_CASES = [
@@ -1838,6 +2090,9 @@ def main() -> int:
     train_parity_phase()
     with tempfile.TemporaryDirectory() as work:
         train = train_cli_phase(Path(work))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        train_lifecycle_phase(Path(work), card)
     torch.cuda.empty_cache()
     vocab = vocab_ce_phase()
     gpt2_parity_phase()

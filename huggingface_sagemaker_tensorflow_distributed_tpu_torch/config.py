@@ -289,12 +289,6 @@ class TrainConfig:
              "2 follow-ups (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
              "optimizer_state_dtype=bfloat16", "2 follow-ups (bf16 moments)"),
-            (self.checkpoint_dir is not None, "checkpoint_dir",
-             "2 follow-ups (checkpoint/resume)"),
-            (self.keep_best, "keep_best", "2 follow-ups (keep-best)"),
-            (self.early_stopping_patience > 0, "early_stopping_patience",
-             "2 follow-ups (early stopping)"),
-            (self.profile, "profile", "2 follow-ups (obs telemetry)"),
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "2 follow-ups (remat policies)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "D (ring attention)"),

@@ -9,18 +9,23 @@ so the global order is agreed with no communication. Train batches drop
 the remainder; eval batches pad the tail with row 0 and carry a ``valid``
 column so padded rows count for nothing. :meth:`ShardedBatcher.
 global_arrays` hands the trainer tensors on its device, copied from
-pinned host memory on CUDA. Length bucketing, the prefetch thread, the
-H2D stager and packing wait for a later slice (ROADMAP slice 2
-follow-ups).
+pinned host memory on CUDA. ``start_step`` continues an epoch's
+permutation from that batch (mid-epoch resume), and ``token_log`` counts
+each batch's real tokens for the trainer's MFU accounting. Length
+bucketing, the prefetch thread, the H2D stager and packing wait for a
+later slice (ROADMAP slice 2 follow-ups).
 """
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 
 
 def epoch_permutation(n: int, seed: int) -> np.ndarray:
@@ -121,6 +126,14 @@ class ShardedBatcher:
                              f"{self.process_count} ranks")
         self.per_host = global_batch_size // self.process_count
         self.device = torch.device("cpu" if device is None else device)
+        # MFU accounting: one (tokens, dec_tokens) entry of REAL
+        # (attention-mask) tokens per batch :meth:`global_arrays` yields,
+        # which the trainer pops once per step. Counted only when an MFU
+        # figure can be read (telemetry configured, or a peak override
+        # set), as in the JAX package; bounded so eval never grows it.
+        self._count_tokens = obs.state().enabled and (
+            obs.configured() or obs.flops.env_peak_tflops() is not None)
+        self.token_log: collections.deque = collections.deque(maxlen=8192)
 
     def steps_per_epoch(self) -> int:
         n = len(self.dataset)
@@ -155,6 +168,8 @@ class ShardedBatcher:
         the host)."""
         cuda = self.device.type == "cuda"
         for batch in self.local_batches(epoch, start_step):
+            if self._count_tokens:
+                self.token_log.append((int(np.count_nonzero(batch["attention_mask"])), 0))
             out = {}
             for key, value in batch.items():
                 t = torch.from_numpy(np.ascontiguousarray(value))

@@ -17,11 +17,14 @@ global mean does.
 
 from __future__ import annotations
 
+import math
 import os
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -57,6 +60,7 @@ def initialize_distributed(device_type: str = "cuda") -> tuple[int, int]:
         torch.cuda.set_device(local)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             init_method=init_method, world_size=world, rank=rank)
+    obs.set_host(rank, world)
     logger.info("distributed init: rank %d/%d via %s", rank, world, init_method)
     return rank, world
 
@@ -70,6 +74,10 @@ def local_device(device_type: str) -> torch.device:
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def all_reduce_mean_grads(params) -> None:
@@ -93,3 +101,32 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if world_size() > 1:
         dist.all_reduce(t)
     return t
+
+
+def gather_scalars(value, device=None) -> torch.Tensor:
+    """Every rank's ``value`` as one fp64 vector in rank order (a
+    collective; ``device`` is where it lives, the card under NCCL)."""
+    vals = torch.zeros(world_size(), dtype=torch.float64, device=device)
+    vals[rank()] = value
+    if world_size() > 1:
+        dist.all_reduce(vals)
+    return vals
+
+
+def host_step_stats(step_seconds: float, device=None) -> Optional[dict]:
+    """Every rank's mean step time, for straggler visibility: ``{n_hosts,
+    min, max, mean, straggler_ratio, argmax}`` (a collective with several
+    ranks: every rank calls it under the same condition). None when the
+    value is not a finite number yet."""
+    v = float(step_seconds)
+    if not math.isfinite(v):
+        return None
+    world = world_size()
+    if world == 1:
+        return {"n_hosts": 1, "min": v, "max": v, "mean": v,
+                "straggler_ratio": 1.0, "argmax": 0}
+    vals = gather_scalars(v, device)
+    mean = float(vals.mean())
+    return {"n_hosts": world, "min": float(vals.min()), "max": float(vals.max()),
+            "mean": mean, "straggler_ratio": float(vals.max()) / max(mean, 1e-12),
+            "argmax": int(vals.argmax())}

@@ -8,10 +8,16 @@ Hyperparameters are the JAX CLI's ``--key value`` arguments (same
 ``TrainConfig``); ``--device`` (default ``cuda``) picks where the model
 runs, and without a card ``cuda`` raises. The run: join the process group
 the environment names, load or seed the model from ``DIR/config.json``,
-tokenize the train and test splits, fit, evaluate, write
+tokenize the train and test splits, restore the latest checkpoint under
+``--checkpoint_dir`` (unless ``--resume false``), fit, evaluate, write
 ``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
-export the model and tokenizer in HF layout to ``model_dir`` (rank 0).
-Several processes on one host: start one per card with
+export the model and tokenizer in HF layout to ``model_dir`` (rank 0;
+with ``--keep_best`` the best epoch's weights). Rerunning an interrupted
+command resumes it ("resuming from epoch N"). Telemetry goes to
+``HSTD_TELEMETRY_DIR`` when set; run as a script with
+``TPU_OUTPUT_DATA_DIR``/``SM_OUTPUT_DATA_DIR`` set and no
+``HSTD_TELEMETRY_DIR``, to ``<output_data_dir>/telemetry``. Several
+processes on one host: start one per card with
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` (or the
 ``TPU_*`` triplet) set.
 """
@@ -19,12 +25,13 @@ Several processes on one host: start one per card with
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
 import torch.distributed as dist
 
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs, resolve_device
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import (
     TrainConfig,
     parse_args,
@@ -43,6 +50,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     initialize_distributed,
     local_device,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.checkpoint import (
+    Checkpointer,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import (
@@ -127,23 +137,67 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
 
     total_steps = train_batcher.steps_per_epoch() * config.epochs
     trainer = Trainer(config, model, total_steps=total_steps)
+
+    checkpointer = None
+    start_epoch = start_step_in_epoch = 0
+    if config.checkpoint_dir:
+        checkpointer = Checkpointer(config.checkpoint_dir, max_to_keep=config.keep_checkpoints,
+                                    async_save=config.async_checkpointing)
+        if config.resume:
+            with obs.span("train/restore"):
+                restored = checkpointer.restore()
+                if restored is not None:
+                    state, start_epoch, start_step_in_epoch = restored
+                    trainer.load_state_dict(state)
+                    del state
+            if restored is not None:
+                logger.info("resuming from epoch %d (step-in-epoch %d)",
+                            start_epoch, start_step_in_epoch)
+                if config.keep_best or config.early_stopping_patience:
+                    logger.warning(
+                        "--keep_best/--early_stopping_patience across a resume: "
+                        "best-metric and patience tracking live in host RAM, not the "
+                        "checkpoint — both restart at this epoch (earlier epochs can "
+                        "no longer win, and the patience budget is fresh)")
+
     results: dict = {}
-    if config.do_train:
-        logger.info("*** Train ***")
-        history = trainer.fit(train_batcher,
-                              eval_batcher=eval_batcher if config.eval_each_epoch else None)
-        trainer.write_train_results(history)
-        results["train"] = history
-    if config.do_eval:
-        logger.info("*** Evaluate ***")
-        eval_results = trainer.evaluate(eval_batcher)
-        trainer.write_eval_results(eval_results)
-        results["eval"] = eval_results
-    auto.save_pretrained(config.model_dir, model, family, model_config)
-    if rank == 0:
-        tokenizer.save_pretrained(config.model_dir)
+    try:
+        if config.do_train:
+            logger.info("*** Train ***")
+            history = trainer.fit(
+                train_batcher, checkpointer=checkpointer, start_epoch=start_epoch,
+                start_step_in_epoch=start_step_in_epoch,
+                eval_batcher=eval_batcher if config.eval_each_epoch else None)
+            if config.keep_best and trainer.best_epoch is not None:
+                logger.info("exporting best epoch %d (%s = %.4f)", trainer.best_epoch,
+                            config.best_metric, trainer._best_metric)
+            trainer.write_train_results(history)
+            results["train"] = history
+        if config.do_eval:
+            logger.info("*** Evaluate ***")
+            eval_results = trainer.evaluate(eval_batcher)
+            trainer.write_eval_results(eval_results)
+            results["eval"] = eval_results
+        auto.save_pretrained(config.model_dir, model, family, model_config)
+        if rank == 0:
+            tokenizer.save_pretrained(config.model_dir)
+    finally:
+        # commits an in-flight async checkpoint write even when fit or
+        # eval raise: a crash after "save started" must not lose it
+        if checkpointer is not None:
+            checkpointer.close()
     return results, trainer
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    # a script run defaults its telemetry into the output dir; in-process
+    # callers opt in through HSTD_TELEMETRY_DIR or obs.configure, so
+    # calling main() writes no telemetry files as a side effect
+    if not os.environ.get("HSTD_TELEMETRY_DIR", "").strip():
+        _out = os.environ.get("TPU_OUTPUT_DATA_DIR", os.environ.get("SM_OUTPUT_DATA_DIR", ""))
+        if _out:
+            obs.configure(out_dir=os.path.join(_out, "telemetry"))
+    try:
+        main(sys.argv[1:])
+    finally:
+        obs.shutdown()

@@ -94,12 +94,18 @@ def set_lr(optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def global_norm(params) -> torch.Tensor:
+    """optax ``global_norm`` of the ``.grad`` of ``params`` (a device
+    scalar, no host sync)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad.float()) for p in params if p.grad is not None]))
+
+
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place and without a host sync; returns the norm before clipping."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = global_norm(params)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor.to(g.dtype))

@@ -15,42 +15,68 @@ losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
   count``, so the gradient mean is the global mean even when the ranks
   hold different numbers of valid tokens (causal-LM padding); the logged
   loss and accuracy are the global ones.
-- ``fit`` keeps the JAX epoch loop: ``steps_per_epoch`` cap,
-  ``log_every_steps`` sync points, per-epoch eval with
-  ``eval_each_epoch``, the Keras-style history (``loss``,
-  ``sparse_categorical_accuracy``, ``eval_loss``/``eval_accuracy``),
-  ``train_runtime`` and ``train_samples_per_second[_per_chip]`` with the
-  first (warm-up) step excluded from the meter. Step metrics stay on the
-  device until a sync point.
+- ``fit`` keeps the JAX epoch loop and its lifecycle: ``steps_per_epoch``
+  cap, ``log_every_steps`` sync points, checkpoints every
+  ``checkpoint_every_steps`` and at each epoch end (each after the
+  replica-divergence check), mid-epoch resume, per-epoch eval with
+  ``eval_each_epoch``, ``keep_best`` and ``early_stopping_patience``, the
+  ``--profile`` window (train steps 3-6 of the first epoch, a
+  ``torch.profiler`` Chrome trace under ``profile_dir``), and the
+  Keras-style history (``loss``, ``sparse_categorical_accuracy``,
+  ``eval_loss``/``eval_accuracy``, ``train_runtime``,
+  ``train_samples_per_second[_per_chip]`` with the first (warm-up) step
+  excluded from the meter, and with an MFU figure to read
+  ``train_achieved_tflops_per_chip``/``train_mfu``). Step metrics stay on
+  the device until a sync point.
+- Telemetry (``obs``): the spans ``train/step_dispatch``,
+  ``train/sync``, ``train/checkpoint``, ``eval/run`` and ``eval/sync``,
+  the meter's per-window series, and on instrumented runs the heartbeat
+  and the anomaly detector (non-finite loss, grad-norm explosion fed by
+  the update's global norm, step-time spikes, stragglers).
 - ``evaluate`` sums loss, correct predictions and the count exactly over
   the ``valid`` rows, across ranks.
-
-Telemetry (``obs``), anomaly detection, MFU, checkpointing and keep-best
-wait for later slices (ROADMAP slice 2 follow-ups).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.anomaly import (
+    anomaly_enabled_env,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.flight import (
+    start_profiler,
+    stop_profiler,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.losses import (
     softmax_cross_entropy_with_integer_labels,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.vocab_ce import (
     fused_vocab_cross_entropy,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.collectives import (
+    ReplicaDivergenceError,
+    replica_divergence,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     all_reduce_mean_grads,
     all_reduce_sum,
+    host_step_stats,
+    rank,
     world_size,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.optim import (
     build_optimizer,
     clip_by_global_norm,
+    global_norm,
     set_lr,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import get_logger
@@ -166,11 +192,61 @@ class Trainer:
         self.updates = 0         # optimizer updates applied
         for p in self.params:
             p.grad = None
+        # the anomaly detector's grad-norm series costs one reduction per
+        # update, paid only when a detector will read it
+        self._emit_grad_norm = obs.configured() and anomaly_enabled_env()
+        # --keep_best (HF load_best_model_at_end): host snapshot of the
+        # best epoch's weights and the watched metric's best value
+        self._best_params: Optional[dict] = None
+        self._best_metric: Optional[float] = None
+        self.best_epoch: Optional[int] = None
+
+    # -- state (what a checkpoint holds) ---------------------------------------
+
+    def state_dict(self) -> dict:
+        """Everything that makes a resumed run equal an uninterrupted one:
+        model and optimizer state, the micro-step and update counts (the
+        LR schedule's position), the partial gradient accumulators (None
+        between updates) and the generators that draw dropout. The
+        tensors are the live ones: the checkpointer copies them."""
+        rng = {"cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "updates": self.updates,
+                "grads": [p.grad for p in self.params], "rng": rng}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Put a :meth:`state_dict` (e.g. a restored checkpoint's, on the
+        CPU) back into the live trainer."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step, self.updates = int(state["step"]), int(state["updates"])
+        for p, g in zip(self.params, state["grads"], strict=True):
+            p.grad = None if g is None else g.to(p.device)
+        torch.set_rng_state(state["rng"]["cpu"])
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["rng"]["cuda"], self.device)
+
+    def check_replica_divergence(self) -> float:
+        """Verify the parameter replicas agree across the ranks. Returns
+        the relative deviation; raises ``ReplicaDivergenceError`` beyond
+        ``config.divergence_tol``. Called before each checkpoint save, so
+        a divergent replica is never persisted silently."""
+        rel = replica_divergence(self.params)
+        if rel > self.config.divergence_tol:
+            raise ReplicaDivergenceError(
+                f"parameter replicas diverge (relative deviation {rel:.3e} > "
+                f"tol {self.config.divergence_tol:.1e}); refusing to "
+                "checkpoint — restore from the last good checkpoint")
+        return rel
 
     # -- steps ---------------------------------------------------------------
 
     def train_step(self, batch) -> dict:
-        """One micro-step; returns device scalars ``loss``/``accuracy``."""
+        """One micro-step; returns device scalars ``loss``/``accuracy``
+        (and ``grad_norm`` at an update, when the anomaly detector reads
+        it)."""
         cfg = self.config
         accum = cfg.gradient_accumulation_steps
         self.model.train()
@@ -188,16 +264,22 @@ class Trainer:
             sums = {"correct": totals[2], "count": totals[0]}
         (objective / accum if accum > 1 else objective).backward()
         self.step += 1
+        metrics = {}
         if self.step % accum == 0:
             all_reduce_mean_grads(self.params)
+            norm = None
             if cfg.max_grad_norm > 0:
-                clip_by_global_norm(self.params, cfg.max_grad_norm)
+                norm = clip_by_global_norm(self.params, cfg.max_grad_norm)
+            elif self._emit_grad_norm:
+                norm = global_norm(self.params)
+            if self._emit_grad_norm:
+                metrics["grad_norm"] = norm
             set_lr(self.optimizer, self.schedule(self.updates))
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.updates += 1
         acc = sums["correct"] / torch.clamp(sums["count"], min=1.0)
-        return {"loss": loss.detach(), "accuracy": acc.detach()}
+        return {"loss": loss.detach(), "accuracy": acc.detach(), **metrics}
 
     @torch.no_grad()
     def eval_step(self, batch) -> dict:
@@ -205,76 +287,258 @@ class Trainer:
         _, sums = self.loss_fn(self.model, batch)
         return sums
 
+    # -- keep-best -------------------------------------------------------------
+
+    def _best_snapshot(self) -> dict:
+        """Host copy of the weights ``--keep_best`` must preserve (the
+        replicas are equal, so every rank copies its own)."""
+        return {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
+
+    def _restore_best(self) -> None:
+        """load_best_model_at_end: put the best snapshot back into the live
+        model, then release the host copy."""
+        self.model.load_state_dict(self._best_params)
+        self._best_params = None
+
     # -- loops ---------------------------------------------------------------
 
-    def fit(self, train_batcher, epochs: Optional[int] = None,
+    def fit(self, train_batcher, epochs: Optional[int] = None, checkpointer=None,
+            start_epoch: int = 0, start_step_in_epoch: int = 0,
             eval_batcher=None) -> dict:
-        """Epoch loop (Keras ``model.fit``); returns the history dict."""
+        """Epoch loop (Keras ``model.fit``); returns the history dict.
+
+        Step metrics stay on the device until a log or checkpoint sync
+        point. A mid-epoch resume (``start_step_in_epoch``) continues the
+        epoch's permutation from the next unseen batch. With
+        ``eval_batcher`` every epoch ends with an eval pass; ``keep_best``
+        snapshots the weights whenever ``best_metric`` improves and loads
+        the best back at the end, and ``early_stopping_patience`` stops
+        after that many epochs without improvement."""
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
-        meter = StepMeter(n_chips=self.n_chips, device=self.device)
+        # telemetry: the heartbeat (and its stall dump) and the anomaly
+        # detector exist only on instrumented runs, so an uninstrumented
+        # fit starts no thread
+        obs_files = obs.has_sink()
+        heartbeat = None
+        if obs_files:
+            heartbeat = obs.heartbeat().start()
+            heartbeat.watch_current_thread()
+        detector = obs.anomalies() if obs.configured() else None
+        if detector is not None:
+            detector.begin_fit()
+        fpt, dec_fpt = obs.flops.trainer_flops_per_token(
+            getattr(self.model, "config", None), self.task, cfg.max_seq_length)
+        peak = obs.flops.peak_tflops(torch.cuda.get_device_name(self.device)
+                                     if self.device.type == "cuda" else None)
+        meter = StepMeter(n_chips=self.n_chips, device=self.device,
+                          sink=obs.metrics() if obs_files else None,
+                          flops_per_token=fpt, dec_flops_per_token=dec_fpt,
+                          peak_tflops=peak)
+        # one (tokens, dec_tokens) entry per batch, popped per step; x the
+        # rank count approximates the global figure (shards are balanced)
+        tok_scale = self.n_chips
+        token_log = getattr(train_batcher, "token_log", None)
         history: dict[str, list] = {"loss": [], "sparse_categorical_accuracy": []}
         steps_per_epoch = train_batcher.steps_per_epoch()
         if cfg.steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, cfg.steps_per_epoch)
+        if start_step_in_epoch >= steps_per_epoch:
+            # a mid-epoch checkpoint landed exactly on the epoch boundary
+            start_epoch, start_step_in_epoch = start_epoch + 1, 0
         gbs = train_batcher.global_batch_size
+        profiler = None
         first_step = True
 
         def sync(metrics_list):
-            fetched = [{k: float(v) for k, v in m.items()} for m in metrics_list]
-            meter.end_window()
+            with obs.span("train/sync"):
+                fetched = [{k: float(v) for k, v in m.items()} for m in metrics_list]
+            window = meter.end_window()
             meter.begin_window()
+            if detector is not None:
+                if window is not None:
+                    detector.observe_step_time(meter._steps, window["step_time_s"])
+                for m in fetched:
+                    detector.observe_loss(meter._steps, m["loss"])
+                    if "grad_norm" in m:
+                        detector.observe_grad_norm(meter._steps, m["grad_norm"])
             return fetched
 
-        with Stopwatch(self.device) as sw:
-            for epoch in range(epochs):
+        if eval_batcher is None and (cfg.keep_best or cfg.early_stopping_patience > 0):
+            logger.warning(
+                "keep_best/early_stopping_patience are set but fit() got no "
+                "eval_batcher — both are inert this run")
+        epochs_since_best = 0
+
+        def obs_fit_done():
+            # runs when fit raises too: an armed stall watchdog over a dead
+            # loop would dump a false stall
+            if heartbeat is not None:
+                heartbeat.unwatch()
+            if obs_files:
+                obs.flush()
+
+        with contextlib.ExitStack() as epilogue, Stopwatch(self.device) as sw:
+            epilogue.callback(obs_fit_done)
+            for epoch in range(start_epoch, epochs):
+                start_step = start_step_in_epoch if epoch == start_epoch else 0
                 device_metrics: list = []
                 losses, accs = [], []
+                if token_log is not None:
+                    token_log.clear()
                 meter.begin_window()
-                for step, batch in enumerate(train_batcher.global_arrays(epoch)):
+                for step, batch in enumerate(train_batcher.global_arrays(epoch, start_step),
+                                             start=start_step):
                     if step >= steps_per_epoch:
                         break
-                    metrics = self.train_step(batch)
+                    if cfg.profile and profiler is None and epoch == start_epoch \
+                            and step - start_step == 3:
+                        profiler = start_profiler(self.device.type)
+                    with obs.span("train/step_dispatch"):
+                        metrics = self.train_step(batch)
                     device_metrics.append(metrics)
                     meter.window_step(gbs)
+                    if token_log:
+                        tok, dec = token_log.popleft()
+                        meter.window_tokens(tok * tok_scale, dec * tok_scale)
+                    obs.pulse()
                     if first_step:
                         # the first step builds the kernels and warms the
-                        # allocator: keep it out of the throughput window
+                        # allocator: keep it (and its tokens) out of the
+                        # throughput window
                         meter.exclude_step(gbs)
                         meter.begin_window()
                         first_step = False
-                    if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                    if profiler is not None and step - start_step == 6:
+                        self._stop_profiler(profiler)
+                        profiler = None
+                    want_log = cfg.log_every_steps and step % cfg.log_every_steps == 0
+                    want_ckpt = (checkpointer is not None and cfg.checkpoint_every_steps
+                                 and (step + 1) % cfg.checkpoint_every_steps == 0)
+                    if want_log or want_ckpt:
                         for m in sync(device_metrics):
                             losses.append(m["loss"])
                             accs.append(m["accuracy"])
                         device_metrics = []
+                    if want_log:
                         logger.info(
                             "epoch %d step %d/%d loss %.4f acc %.4f (%.1f samples/s/chip)",
                             epoch, step, steps_per_epoch, losses[-1], accs[-1],
                             meter.samples_per_sec_per_chip)
+                        gstep = epoch * steps_per_epoch + step
+                        obs.scalar("train/loss", losses[-1], gstep)
+                        obs.scalar("train/accuracy", accs[-1], gstep)
+                        obs.scalar("train/samples_per_sec_per_chip",
+                                   meter.samples_per_sec_per_chip, gstep)
+                    if want_ckpt:
+                        if cfg.check_divergence:
+                            self.check_replica_divergence()
+                        # checkpoint wall time is not step time: bracket it
+                        # out of the throughput window
+                        meter.end_window()
+                        with obs.span("train/checkpoint"):
+                            checkpointer.save(self.state_dict(), epoch=epoch,
+                                              step_in_epoch=step + 1)
+                        meter.begin_window()
                 for m in sync(device_metrics):
                     losses.append(m["loss"])
                     accs.append(m["accuracy"])
+                # the epoch boundary's eval and checkpoint are not step time
                 meter.end_window()
                 history["loss"].append(float(np.mean(losses)) if losses else float("nan"))
                 history["sparse_categorical_accuracy"].append(
                     float(np.mean(accs)) if accs else float("nan"))
                 logger.info("epoch %d done: loss %.4f acc %.4f", epoch,
                             history["loss"][-1], history["sparse_categorical_accuracy"][-1])
+                obs.scalar("train/epoch_loss", history["loss"][-1], epoch)
+                if obs.configured():
+                    # straggler visibility: a collective, guarded by a
+                    # condition that is the same on every rank
+                    stats = host_step_stats(meter.avg_step_time, self.device)
+                    if stats is not None:
+                        obs.scalar("train/step_time_hosts_mean", stats["mean"], epoch,
+                                   args=stats)
+                        if detector is not None:
+                            detector.observe_straggler(epoch, stats)
+                stop_early = False
                 if eval_batcher is not None:
                     res = self.evaluate(eval_batcher)
                     history.setdefault("eval_loss", []).append(res["eval_loss"])
                     history.setdefault("eval_accuracy", []).append(res["eval_accuracy"])
                     logger.info("epoch %d eval: loss %.4f acc %.4f", epoch,
                                 res["eval_loss"], res["eval_accuracy"])
+                    obs.scalar("eval/loss", res["eval_loss"], epoch)
+                    obs.scalar("eval/accuracy", res["eval_accuracy"], epoch)
+                    if cfg.keep_best or cfg.early_stopping_patience > 0:
+                        metric = res[cfg.best_metric]
+                        if self._best_metric is None:
+                            better = True
+                        elif cfg.best_metric.endswith("accuracy"):
+                            better = metric > self._best_metric
+                        else:
+                            better = metric < self._best_metric
+                        if better:
+                            self._best_metric = metric
+                            self.best_epoch = epoch
+                            epochs_since_best = 0
+                            if cfg.keep_best:
+                                self._best_params = self._best_snapshot()
+                            logger.info("epoch %d is the new best (%s %.4f)",
+                                        epoch, cfg.best_metric, metric)
+                        else:
+                            epochs_since_best += 1
+                            patience = cfg.early_stopping_patience
+                            if patience and epochs_since_best >= patience:
+                                logger.info("early stop at epoch %d: no %s improvement "
+                                            "for %d epochs", epoch, cfg.best_metric,
+                                            patience)
+                                stop_early = True
+                if checkpointer is not None:
+                    if cfg.check_divergence:
+                        self.check_replica_divergence()
+                    with obs.span("train/checkpoint"):
+                        checkpointer.save(self.state_dict(), epoch=epoch + 1)
+                if stop_early:
+                    break
+            if profiler is not None:   # an epoch shorter than the profiled steps
+                self._stop_profiler(profiler)
+            if cfg.keep_best and self._best_params is not None:
+                # load_best_model_at_end: the final eval and the export see
+                # the best epoch's weights; the optimizer state is not
+                # rewound (training is over, and a resume reads the
+                # checkpoint, not this)
+                self._restore_best()
+                logger.info("restored best epoch %d weights into the live model (%s %.4f)",
+                            self.best_epoch, cfg.best_metric, self._best_metric)
             meter.end_window()
 
         history["train_runtime"] = sw.elapsed
         history["train_samples_per_second"] = round(meter.samples_per_sec, 3)
         history["train_samples_per_second_per_chip"] = round(
             meter.samples_per_sec_per_chip, 3)
+        achieved = meter.achieved_tflops_per_chip
+        if achieved is not None:
+            history["train_achieved_tflops_per_chip"] = round(achieved, 6)
+            if meter.mfu is not None:
+                history["train_mfu"] = round(meter.mfu, 5)
+        if obs_files:
+            obs.scalar("train/runtime", sw.elapsed)
+            obs.scalar("train/samples_per_sec_per_chip_final", meter.samples_per_sec_per_chip)
+            obs.scalar("train/compile_excluded_steps", meter.excluded_steps)
+            if meter.mfu is not None:
+                obs.scalar("train/mfu_final", meter.mfu)
         self.meter = meter
         return history
+
+    def _stop_profiler(self, profiler) -> None:
+        """Close the ``--profile`` window: wait for the card, write the
+        Chrome trace under ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        path = os.path.join(self.config.profile_dir,
+                            f"train_rank{rank()}_{time.time_ns()}.pt.trace.json")
+        stop_profiler(profiler, path)
+        logger.info("profile of the train steps written to %s", path)
 
     def evaluate(self, eval_batcher) -> dict:
         """Keras ``model.evaluate``: loss and accuracy over exactly the
@@ -282,12 +546,15 @@ class Trainer:
         totals = {"loss_sum": torch.zeros((), device=self.device),
                   "correct": torch.zeros((), device=self.device),
                   "count": torch.zeros((), device=self.device)}
-        for batch in eval_batcher.global_arrays(epoch=0):
-            for key, val in self.eval_step(batch).items():
-                totals[key] += val.float()
-        flat = all_reduce_sum(torch.stack([totals["loss_sum"], totals["correct"],
-                                           totals["count"]]))
-        loss_sum, correct, count = (float(x) for x in flat)
+        with obs.span("eval/run"):
+            for batch in eval_batcher.global_arrays(epoch=0):
+                for key, val in self.eval_step(batch).items():
+                    totals[key] += val.float()
+                obs.pulse()
+        with obs.span("eval/sync"):
+            flat = all_reduce_sum(torch.stack([totals["loss_sum"], totals["correct"],
+                                               totals["count"]]))
+            loss_sum, correct, count = (float(x) for x in flat)
         count = max(count, 1.0)
         return {"eval_loss": loss_sum / count, "eval_accuracy": correct / count}
 

@@ -199,6 +199,36 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     assert row["idle_share"] == "not measured" and row["train_steps"] == 2
 
 
+def test_train_lifecycle_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The three CLI runs (uninterrupted, stopped after epoch 0 step 7,
+    resumed from step 5), the bitwise resume equality, the launch counts,
+    the export against the best epoch, the telemetry's validity, and the
+    keys of the printed line."""
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(chip_smoke.BERT_BASE,
+                                                      max_position_embeddings=64))
+    row = chip_smoke.train_lifecycle_phase(tmp_path, "cpu rehearsal")
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(row))
+    assert row["train_steps"] == {"full": 24, "cut": 8, "resumed": 19}
+    assert row["launches"]["cut"] == {"flash_fwd": 2 * 8, "flash_bwd_dq": 2 * 8,
+                                      "flash_bwd_dkv": 2 * 8}
+    assert row["launches"]["resumed"]["flash_fwd"] == 2 * (19 + 3 * 8)
+    assert row["resume_bitwise"] and row["resume_max_abs_diff"] == 0.0
+    assert len(row["save_stall_ms_async"]) == 6 and len(row["save_stall_ms_sync"]) == 5
+    assert len(row["write_ms_async"]) == 6 and len(row["restore_ms"]) == 1
+    assert row["checkpoint_bytes"] > 0 and row["train_mfu"] == "not measured"
+    assert row["train_achieved_tflops_per_chip"] > 0
+    for split in (row["split_async_saves"], row["split_sync_saves"]):
+        assert set(split["span_s"]) == set(split["span_share"]) == set(
+            chip_smoke.LIFECYCLE_SPANS)
+        assert abs(sum(split["span_share"].values()) - 1) < 1e-9
+        assert split["first_step_dispatch_s"] > 0 and split["step_time_ms"]
+    assert {"card", "best_epoch", "eval_loss", "profile_names_kernels", "events",
+            "wall_s"} <= set(row)
+
+
 def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "VOCAB_CASES", [
         ("gpt2_bf16", 64, 300, 32, "bfloat16", 0.0, False),

@@ -1,7 +1,8 @@
 """PyTorch port: ``config.py`` against the JAX package's: the same argv
 gives the same ``TrainConfig.to_dict()``, the same fields and defaults
 and the same validation errors, while what the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP slice."""
+raises ``NotImplementedError`` naming its ROADMAP slice (every flag still
+in ``_check_ported``, and not the four lifecycle flags the port runs)."""
 
 import dataclasses
 
@@ -82,16 +83,28 @@ UNPORTED = [["--task", "mlm"], ["--lora_rank", "4"], ["--num_experts", "4"],
             ["--dcn_dp", "2"], ["--streaming", "true"],
             ["--fused_vocab_ce", "true", "--task", "mlm"], ["--bucket_multiple", "128"],
             ["--optimizer", "adafactor"], ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
-            ["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
-            ["--early_stopping_patience", "2"], ["--profile", "true"],
             ["--remat", "true", "--remat_policy", "dots"],
-            ["--attention_impl", "ring"]]
+            ["--attention_impl", "ring"],
+            ["--packed_sequences", "true", "--task", "causal-lm"],
+            ["--segment_packing", "true", "--task", "causal-lm"],
+            ["--ep", "2", "--num_experts", "4"]]
+
+# the trainer's lifecycle, ported: these parse as the JAX package's do
+LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
+             ["--early_stopping_patience", "2"], ["--profile", "true"]]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])
 def test_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         t_config.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", LIFECYCLE, ids=lambda a: a[0])
+def test_lifecycle_flags_are_ported(argv):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
+
+    assert t_config.parse_args(argv).to_dict() == parse_args(argv).to_dict()
 
 
 @pytest.mark.parametrize("argv", [["--task", "bogus"], ["--learning_rate", "-1"],
