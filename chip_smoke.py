@@ -1267,6 +1267,20 @@ def _device_seconds_by_kernel(prof) -> dict:
     return by_kernel
 
 
+def _train_argv(work: Path, out_dir: Path, model_dir: Path) -> list:
+    """The train phase's CLI run: BERT-base widths from a config, the
+    CLI's defaults, one epoch of ``CLI_STEPS`` steps."""
+    cfg_dir = work / "config"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(BERT_BASE))
+    return ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+            "--dataset", "vendored_reviews", "--epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS),
+            "--max_eval_samples", str(CLI_EVAL_SAMPLES),
+            "--output_data_dir", str(out_dir), "--model_dir", str(model_dir),
+            "--log_every_steps", "10", "--device", DEVICE]
+
+
 def train_cli_phase(work: Path) -> dict:
     """(b) the training CLI's main path at its defaults, counted."""
     import math
@@ -1281,15 +1295,8 @@ def train_cli_phase(work: Path) -> dict:
         read_results_file,
     )
 
-    cfg_dir, out_dir, model_dir = work / "config", work / "output", work / "model"
-    cfg_dir.mkdir(parents=True, exist_ok=True)
-    (cfg_dir / "config.json").write_text(json.dumps(BERT_BASE))
-    argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
-            "--dataset", "vendored_reviews", "--epochs", "1",
-            "--steps_per_epoch", str(CLI_STEPS),
-            "--max_eval_samples", str(CLI_EVAL_SAMPLES),
-            "--output_data_dir", str(out_dir), "--model_dir", str(model_dir),
-            "--log_every_steps", "10", "--device", DEVICE]
+    out_dir, model_dir = work / "output", work / "model"
+    argv = _train_argv(work, out_dir, model_dir)
     fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     t0 = time.perf_counter()
     results, trainer = cli.run(argv)
@@ -1382,6 +1389,17 @@ LIFECYCLE_EVAL_SAMPLES = 32
 LIFECYCLE_CKPT_EVERY = 5
 LIFECYCLE_STOP_AFTER = 8        # the interrupted run stops after epoch 0 step 7
 LIFECYCLE_SPANS = ("train/step_dispatch", "train/sync", "train/checkpoint")
+LIFECYCLE_PROFILED = (3, 6)     # the --profile window: a fit's 4th to 7th steps
+# added to the eval loss of epoch 1, so that epoch 0 is the best and
+# keep-best has to load it back over the last epoch's weights
+LIFECYCLE_WORSE_EVAL = 1.0
+# how far the resumed run's fp32 weights may be from the uninterrupted
+# run's. Two uninterrupted fits already differ on the card, in ulps of the
+# token-type embedding (its gradient sums every token into one row in no
+# fixed order; "rerun_weight_drift" reads it); state lost in a resume would
+# move weights by the order of a learning-rate step (5e-5)
+RESUME_WEIGHT_TOL = 1e-6
+RERUN_TELEMETRY = (False, True, True, False)   # the train phase's run, rerun in this order
 
 
 class _Interrupt(Exception):
@@ -1396,10 +1414,46 @@ def _span_s(events: list, name: str) -> list:
     return [e["dur"] for e in events if e["type"] == "span" and e["name"] == name]
 
 
+def _windows_without_profile(events: list) -> dict:
+    """Samples/s and MFU over the meter's windows that hold none of the
+    profiled steps. Each ``train/step_time_s`` event closes a window; its
+    step is the fit's step count at the close, the first step (excluded
+    from the meter) counted, so the windows' step counts are the
+    differences."""
+    metrics = {(e["name"], e["step"]): e["value"] for e in events
+               if e["type"] == "metric" and "step" in e}
+    prev, steps, samples, dt, mfu_dt = 1, 0, 0.0, 0.0, 0.0
+    lo, hi = LIFECYCLE_PROFILED
+    for name, end in list(metrics):
+        if name != "train/step_time_s":
+            continue
+        n, first = end - prev, prev
+        prev = end
+        if first <= hi and first + n - 1 >= lo:
+            continue
+        w_dt = n * metrics[(name, end)]
+        steps += n
+        dt += w_dt
+        samples += metrics[("train/samples_per_sec", end)] * w_dt
+        mfu_dt += metrics.get(("train/mfu", end), 0.0) * w_dt
+    return {"steps": steps, "samples_per_s": samples / dt if dt else "not measured",
+            "mfu": mfu_dt / dt if dt and mfu_dt else "not measured"}
+
+
+def _weight_drift(a: dict, b: dict) -> dict:
+    """The largest |difference| of each tensor of ``a`` that is not
+    bitwise equal to ``b``'s."""
+    import torch
+
+    return {k: float((v.float() - b[k].float()).abs().max())
+            for k, v in a.items() if not torch.equal(v, b[k])}
+
+
 def _step_split(events: list, hist: dict) -> dict:
     """One run's step wall time split between the spans (the first step's
-    dispatch, which builds the kernels, apart), with the run's throughput
-    and the meter's window step times."""
+    dispatch, which builds the kernels, apart), with the run's throughput,
+    the meter's window step times, and the throughput of the windows
+    without the profiled steps."""
     dispatch = _span_s(events, "train/step_dispatch")
     span_s = {n: sum(_span_s(events, n)) for n in LIFECYCLE_SPANS}
     span_s["train/step_dispatch"] -= dispatch[0]
@@ -1411,26 +1465,35 @@ def _step_split(events: list, hist: dict) -> dict:
             "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
             "train_mfu": hist.get("train_mfu", "not measured"),
             "step_time_ms": [1e3 * e["value"] for e in events if e["type"] == "metric"
-                             and e["name"] == "train/step_time_s"]}
+                             and e["name"] == "train/step_time_s"],
+            "without_profiled_windows": _windows_without_profile(events)}
 
 
-def train_lifecycle_phase(work: Path, card: str) -> dict:
+def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
     """The training CLI's lifecycle at BERT-base width and its defaults
     (bf16, sequence 512, batch 8, AdamW) with checkpoints every 5 steps
     (2 kept), keep-best, early stopping (patience 1), ``--profile`` and
     telemetry on: (1) an uninterrupted run of 2 epochs x 12 steps with
     async saves, (2) the same run stopped after epoch 0 step 7 (its last
     checkpoint is step 5), (3) the rerun, resumed from step 5 with sync
-    saves. Checks the resumed losses equal the uninterrupted run's from
-    step 5 on, bit for bit; the flash launches of each run; the profile
-    trace's kernel names; the export against the best epoch's weights;
-    every telemetry event against the schema."""
+    saves, and (4) the train phase's run four times, telemetry off, on, on,
+    off, which reads the telemetry's own cost on the step and, against the
+    train phase's export in ``rerun_of``, how far two identical fits'
+    weights drift apart. Epoch 1's eval loss is scripted
+    worse, so keep-best has to load epoch 0's weights back. Checks the
+    resumed losses equal the uninterrupted run's from step 5 on, bit for
+    bit; the flash launches of each run; the profile trace's kernel names;
+    the final eval and the export against epoch 0's weights; every
+    telemetry event against the schema."""
     import math
 
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.safetensors_io import (
+        load_file,
+    )
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.schema import (
         validate_events_file,
         validate_trace_file,
@@ -1464,7 +1527,10 @@ def train_lifecycle_phase(work: Path, card: str) -> dict:
         # the weights each eval saw: the export is checked against the best
         rec["weights"].append({k: v.detach().to("cpu", copy=True)
                                for k, v in self.model.state_dict().items()})
-        return orig_eval(self, batcher)
+        res = orig_eval(self, batcher)
+        if len(rec["weights"]) == 2:     # epoch 1's eval
+            res = dict(res, eval_loss=res["eval_loss"] + LIFECYCLE_WORSE_EVAL)
+        return res
 
     def run(name: str, ckpt: Path, extra: list, stop_after=None):
         rec.update(losses=[], weights=[], stop_after=stop_after)
@@ -1502,6 +1568,31 @@ def train_lifecycle_phase(work: Path, card: str) -> dict:
         resumed = run("resumed", ckpt_dir, ["--async_checkpointing", "false"])
     finally:
         Trainer.train_step, Trainer.evaluate = orig_step, orig_eval
+
+    # the telemetry's own cost: the train phase's run with telemetry off
+    # and on, in the order off, on, on, off (the host drifts within a call)
+    reruns = []
+    for i, tel_on in enumerate(RERUN_TELEMETRY):
+        tel = work / f"tel_rerun{i}"
+        obs.reset(out_dir=str(tel) if tel_on else None)
+        fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+        try:
+            res, tr = cli.run(_train_argv(work, work / f"out_rerun{i}", work / f"model_rerun{i}"))
+        finally:
+            obs.reset()
+        _sync()
+        launches = {"flash_fwd": fa.flash_fwd.launches,
+                    "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                    "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+        n, L = tr.step, BERT_BASE["num_hidden_layers"]
+        check(n == CLI_STEPS and launches == {
+            "flash_fwd": L * (n + math.ceil(CLI_EVAL_SAMPLES / 4)),
+            "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n},
+            f"rerun {i}: {n} steps, launches {launches}")
+        del tr
+        reruns.append({"telemetry": tel_on, "tel": tel if tel_on else None,
+                       "samples_per_s": res["train"]["train_samples_per_second_per_chip"],
+                       "mfu": res["train"].get("train_mfu", "not measured")})
 
     # resume: the same losses from step 5 on, bit for bit
     total = LIFECYCLE_EPOCHS * LIFECYCLE_STEPS
@@ -1547,12 +1638,25 @@ def train_lifecycle_phase(work: Path, card: str) -> dict:
           and trainer.config.eval_batch_size == 4, "the CLI did not run at its defaults")
     seq = min(trainer.config.max_seq_length, BERT_BASE["max_position_embeddings"])
     best = trainer.best_epoch
-    check(best is not None and best == full["trainer"].best_epoch, "best epochs differ")
+    check(best == full["trainer"].best_epoch == 0,
+          f"best epochs {best} and {full['trainer'].best_epoch}, wanted 0 (epoch 1 scripted "
+          f"worse)")
+    seen = resumed["weights"]      # the weights of epoch 0's, epoch 1's and the final eval
+    resume_drift = _weight_drift(seen[0], full["weights"][0])
+    check(max(resume_drift.values(), default=0.0) <= RESUME_WEIGHT_TOL,
+          f"the resumed run's epoch-0 weights drift from the uninterrupted run's: "
+          f"{resume_drift}")
+    rerun_drift = _weight_drift(
+        load_file(str(work / "model_rerun1" / "model.safetensors")),
+        load_file(str(rerun_of / "model.safetensors")))
+    check(any(not torch.equal(v, seen[1][k]) for k, v in seen[0].items()),
+          "epoch 1 left the weights as epoch 0's: the restore would not be exercised")
+    check(all(torch.equal(v, seen[0][k]) for k, v in seen[2].items()),
+          "the final eval did not see the best epoch's weights")
     reloaded, _, _ = auto.from_pretrained(str(work / "model_resumed"), dtype=torch.bfloat16,
                                           device=DEVICE, attention_impl="flash")
     for k, v in reloaded.state_dict().items():
-        check(torch.equal(v.cpu(), resumed["weights"][best][k]),
-              f"the export's {k} is not the best epoch's")
+        check(torch.equal(v.cpu(), seen[best][k]), f"the export's {k} is not the best epoch's")
     batch = _review_batch(4, seq, DEVICE, split="test")
     with torch.no_grad():
         a = trainer.model.eval()(batch["input_ids"], batch["attention_mask"])
@@ -1562,13 +1666,14 @@ def train_lifecycle_phase(work: Path, card: str) -> dict:
 
     # telemetry: every event and trace valid; the spans and the stalls
     events = {}
-    for name, r in (("full", full), ("cut", cut), ("resumed", resumed)):
-        for path in sorted(r["tel"].glob("*.jsonl")):
+    for name, tel in [("full", full["tel"]), ("cut", cut["tel"]), ("resumed", resumed["tel"])] + [
+            (f"rerun{i}", r["tel"]) for i, r in enumerate(reruns) if r["telemetry"]]:
+        for path in sorted(tel.glob("*.jsonl")):
             n, errors = validate_events_file(str(path), strict_tail=True)
             check(n > 0 and not errors, f"{path.name} of the {name} run: {errors[:3]}")
-        n, errors = validate_trace_file(str(r["tel"] / "trace.json"))
+        n, errors = validate_trace_file(str(tel / "trace.json"))
         check(n > 0 and not errors, f"trace.json of the {name} run: {errors[:3]}")
-        events[name] = _events(r["tel"])
+        events[name] = _events(tel)
     hist = full["results"]["train"]
     split = {n: _step_split(events[n], r["results"]["train"])
              for n, r in (("full", full), ("resumed", resumed))}
@@ -1587,12 +1692,21 @@ def train_lifecycle_phase(work: Path, card: str) -> dict:
            "launches": {n: r["launches"] for n, r in
                         (("full", full), ("cut", cut), ("resumed", resumed))},
            "resume_from_step": LIFECYCLE_CKPT_EVERY, "resume_bitwise": True,
-           "resume_max_abs_diff": resume_max_abs, "best_epoch": best,
-           "eval_loss": hist["eval_loss"],
+           "resume_max_abs_diff": resume_max_abs, "resume_weight_drift": resume_drift,
+           "rerun_weight_drift": rerun_drift, "best_epoch": best,
+           "keep_best_restore_exercised": True, "eval_loss": hist["eval_loss"],
+           "eval_loss_scripted": {"epoch": 1, "added": LIFECYCLE_WORSE_EVAL},
            "train_mfu": mfu if mfu is not None else "not measured",
            "train_achieved_tflops_per_chip": hist.get("train_achieved_tflops_per_chip",
                                                       "not measured"),
            "split_async_saves": split["full"], "split_sync_saves": split["resumed"],
+           "telemetry_cost": {
+               "telemetry": list(RERUN_TELEMETRY),
+               "train_samples_per_second_per_chip": [r["samples_per_s"] for r in reruns],
+               "train_mfu": [r["mfu"] for r in reruns],
+               "on_over_off": (sum(r["samples_per_s"] for r in reruns if r["telemetry"])
+                               / sum(r["samples_per_s"] for r in reruns
+                                     if not r["telemetry"]))},
            "save_stall_ms_async": [1e3 * s for s in _span_s(events["full"],
                                                            "train/checkpoint")],
            "save_stall_ms_sync": [1e3 * s for s in _span_s(events["resumed"],
@@ -2089,10 +2203,9 @@ def main() -> int:
     flash = flash_phase()
     train_parity_phase()
     with tempfile.TemporaryDirectory() as work:
-        train = train_cli_phase(Path(work))
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        train_lifecycle_phase(Path(work), card)
+        train = train_cli_phase(Path(work) / "train")
+        torch.cuda.empty_cache()
+        train_lifecycle_phase(Path(work) / "lifecycle", card, Path(work) / "train" / "model")
     torch.cuda.empty_cache()
     vocab = vocab_ce_phase()
     gpt2_parity_phase()

@@ -95,14 +95,13 @@ def anomalies() -> AnomalyDetector:
     return _detector
 
 
-def heartbeat_env_interval(default: float = 60.0) -> float:
-    """``HSTD_HEARTBEAT_SECS`` as a float; a malformed value gives
-    ``default``."""
+def _heartbeat_env_interval() -> float:
+    """``HSTD_HEARTBEAT_SECS`` as a float; unset or malformed gives 60."""
     raw = os.environ.get(ENV_HEARTBEAT, "").strip()
     try:
-        return float(raw) if raw else default
+        return float(raw) if raw else 60.0
     except ValueError:
-        return default
+        return 60.0
 
 
 def _stall_to_detector(age: float, thread: str) -> None:
@@ -112,15 +111,12 @@ def _stall_to_detector(age: float, thread: str) -> None:
         _detector.observe_stall(age, thread)
 
 
-def heartbeat(interval: Optional[float] = None,
-              stall_after: Optional[float] = None) -> Heartbeat:
+def heartbeat() -> Heartbeat:
     """The process heartbeat (created on first use, not started; interval
-    from ``HSTD_HEARTBEAT_SECS`` unless given)."""
+    from ``HSTD_HEARTBEAT_SECS``)."""
     global _heartbeat
     if _heartbeat is None:
-        if interval is None:
-            interval = heartbeat_env_interval()
-        _heartbeat = Heartbeat(_state, interval=interval, stall_after=stall_after,
+        _heartbeat = Heartbeat(_state, interval=_heartbeat_env_interval(),
                                on_stall=_stall_to_detector)
     return _heartbeat
 

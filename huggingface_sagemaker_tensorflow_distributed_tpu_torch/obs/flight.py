@@ -74,8 +74,9 @@ class FlightRecorder:
              extra: Optional[dict] = None, tag: Optional[str] = None) -> Optional[str]:
         """Write ``flight_<tag>.jsonl`` (oldest first; ``extra``, the
         triggering anomaly record, last). ``tag`` defaults to the step.
-        Returns the path, or None without an output dir or on a failed
-        write: evidence capture must not take down the run it observes."""
+        Returns the path, or None without an output dir or records. A
+        failed write raises: telemetry that cannot write does not go on
+        as if it had."""
         if not out_dir:
             return None
         records = self.snapshot()
@@ -88,15 +89,12 @@ class FlightRecorder:
         path = os.path.join(out_dir, f"flight_{tag}.jsonl")
         if os.path.exists(path):   # one dump per tag: keep the first
             return path
-        try:
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{path}.tmp.{os.getpid()}"
-            with open(tmp, "w", encoding="utf-8") as f:
-                for rec in records:
-                    f.write(json.dumps(rec, default=str) + "\n")
-            os.replace(tmp, path)
-        except OSError:
-            return None
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            for rec in records:
+                f.write(json.dumps(rec, default=str) + "\n")
+        os.replace(tmp, path)
         self.dumps.append(path)
         return path
 

@@ -107,7 +107,7 @@ def _cfg_layer_args(cfg) -> dict:
     ``encoder_ffn_dim``). ``num_kv_heads`` marks the Llama family
     (GQA + gated SwiGLU MLP); sparse MoE's routed surcharge is handled
     separately by :func:`_moe_extra_fwd`. Raises AttributeError for
-    configs without transformer dims — callers degrade to 0."""
+    configs without transformer dims."""
     hidden = (getattr(cfg, "hidden_size", None)
               or getattr(cfg, "d_model", None))
     intermediate = (getattr(cfg, "intermediate_size", None)
@@ -196,18 +196,16 @@ def trainer_flops_per_token(cfg, task: str,
                             seq_len: int) -> tuple[float, float]:
     """What the Trainer wires into its StepMeter: ``(flops per primary
     token, flops per decoder token)`` — the second is 0 except for
-    seq2seq, where the two token streams are counted separately. Never
-    raises: a config the FLOPs model doesn't understand degrades to
-    (0, 0) — MFU goes unreported, training proceeds."""
-    try:
-        if task == "seq2seq":
-            # decoder width ~ a fraction of the encoder width in the
-            # shipped configs; the attention terms are small, so
-            # enc_len for both keeps one knob
-            return seq2seq_train_flops_per_token(cfg, seq_len, seq_len)
-        return train_flops_per_token(cfg, task, seq_len), 0.0
-    except (AttributeError, TypeError):
-        return 0.0, 0.0     # config without the transformer figures
+    seq2seq, where the two token streams are counted separately. A
+    config without the transformer figures raises AttributeError: the
+    port's model configs always carry them, so MFU is never dropped
+    silently."""
+    if task == "seq2seq":
+        # decoder width ~ a fraction of the encoder width in the
+        # shipped configs; the attention terms are small, so
+        # enc_len for both keeps one knob
+        return seq2seq_train_flops_per_token(cfg, seq_len, seq_len)
+    return train_flops_per_token(cfg, task, seq_len), 0.0
 
 
 def mfu(achieved_tflops_per_chip: Optional[float],

@@ -45,12 +45,11 @@ class Heartbeat:
     resume. ``pulse()`` is two attribute stores."""
 
     def __init__(self, state: ObsState, interval: float = 60.0,
-                 stall_after: Optional[float] = None, sample_memory: bool = True,
+                 stall_after: Optional[float] = None,
                  on_stall: Optional[Callable[[float, str], object]] = None):
         self._state = state
         self.interval = max(float(interval), 0.05)
         self.stall_after = stall_after if stall_after is not None else 3.0 * self.interval
-        self.sample_memory = sample_memory
         self.on_stall = on_stall
         self._t0 = time.monotonic()
         self._progress = 0
@@ -102,8 +101,7 @@ class Heartbeat:
             self._state.events.emit("heartbeat", {"uptime": round(now - self._t0, 3),
                                                   "progress": self._progress,
                                                   "progress_age": round(age, 3)})
-        if self.sample_memory:
-            sample_device_memory(self._state)
+        sample_device_memory(self._state)
         # keep trace.json current, so a later SIGKILL still leaves a recent
         # trace; the rewrite is O(spans), so only when enough new ones landed
         n_spans = len(self._state.spans)

@@ -44,7 +44,6 @@ class StepMeter:
     n_chips: int = 1
     device: Optional[object] = None
     sink: Optional[object] = None     # obs.MetricsSink-shaped (scalar())
-    metric_name: str = "train/samples_per_sec"
     flops_per_token: float = 0.0
     dec_flops_per_token: float = 0.0
     peak_tflops: Optional[float] = None
@@ -121,7 +120,7 @@ class StepMeter:
             if self.peak_tflops:
                 summary["mfu"] = achieved / self.peak_tflops
         if self.sink is not None and dt > 0:
-            self.sink.scalar(self.metric_name, self._w_samples / dt, self._steps)
+            self.sink.scalar("train/samples_per_sec", self._w_samples / dt, self._steps)
             self.sink.scalar("train/step_time_s", summary["step_time_s"], self._steps)
             if summary["model_flops"] is not None:
                 self.sink.scalar("train/model_flops", summary["model_flops"], self._steps)

@@ -201,14 +201,20 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
 
 def test_train_lifecycle_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
     """The three CLI runs (uninterrupted, stopped after epoch 0 step 7,
-    resumed from step 5), the bitwise resume equality, the launch counts,
-    the export against the best epoch, the telemetry's validity, and the
-    keys of the printed line."""
+    resumed from step 5) and the telemetry off/on reruns, the bitwise resume
+    equality, the launch counts, the export against the best epoch (epoch
+    0, epoch 1 scripted worse), the telemetry's validity, and the keys of
+    the printed line."""
     run = cli.run
     monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
     monkeypatch.setattr(chip_smoke, "BERT_BASE", dict(chip_smoke.BERT_BASE,
                                                       max_position_embeddings=64))
-    row = chip_smoke.train_lifecycle_phase(tmp_path, "cpu rehearsal")
+    monkeypatch.setattr(chip_smoke, "CLI_STEPS", 6)
+    monkeypatch.setattr(chip_smoke, "CLI_EVAL_SAMPLES", 4)
+    train = tmp_path / "train"      # the train phase's fit, exported for the rerun drift
+    cli.run(chip_smoke._train_argv(train, train / "output", train / "model"))
+    row = chip_smoke.train_lifecycle_phase(tmp_path / "lifecycle", "cpu rehearsal",
+                                           tmp_path / "train" / "model")
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == json.loads(json.dumps(row))
     assert row["train_steps"] == {"full": 24, "cut": 8, "resumed": 19}
@@ -216,6 +222,7 @@ def test_train_lifecycle_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
                                       "flash_bwd_dkv": 2 * 8}
     assert row["launches"]["resumed"]["flash_fwd"] == 2 * (19 + 3 * 8)
     assert row["resume_bitwise"] and row["resume_max_abs_diff"] == 0.0
+    assert row["resume_weight_drift"] == {} and row["rerun_weight_drift"] == {}
     assert len(row["save_stall_ms_async"]) == 6 and len(row["save_stall_ms_sync"]) == 5
     assert len(row["write_ms_async"]) == 6 and len(row["restore_ms"]) == 1
     assert row["checkpoint_bytes"] > 0 and row["train_mfu"] == "not measured"
@@ -225,8 +232,19 @@ def test_train_lifecycle_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
             chip_smoke.LIFECYCLE_SPANS)
         assert abs(sum(split["span_share"].values()) - 1) < 1e-9
         assert split["first_step_dispatch_s"] > 0 and split["step_time_ms"]
-    assert {"card", "best_epoch", "eval_loss", "profile_names_kernels", "events",
-            "wall_s"} <= set(row)
+        unprofiled = split["without_profiled_windows"]
+        assert 0 < unprofiled["steps"] < row["train_steps"]["full"] - 4
+        assert unprofiled["samples_per_s"] > 0 and unprofiled["mfu"] == "not measured"
+    # epoch 1 scripted worse: keep-best loads epoch 0 back, early stopping
+    # stops after epoch 1
+    assert row["best_epoch"] == 0 and row["keep_best_restore_exercised"]
+    assert row["eval_loss_scripted"] == {"epoch": 1, "added": 1.0}
+    assert len(row["eval_loss"]) == 2 and row["eval_loss"][1] > row["eval_loss"][0]
+    cost = row["telemetry_cost"]
+    assert cost["telemetry"] == [False, True, True, False] and cost["on_over_off"] > 0
+    assert all(x > 0 for x in cost["train_samples_per_second_per_chip"])
+    assert {"card", "profile_names_kernels", "events", "wall_s"} <= set(row)
+    assert set(row["events"]) == {"full", "cut", "resumed", "rerun1", "rerun2"}
 
 
 def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):

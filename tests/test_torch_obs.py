@@ -130,6 +130,13 @@ def test_trainer_flops_per_token_match_jax(name, seq):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
 
 
+def test_trainer_flops_per_token_raises_without_transformer_dims():
+    """The port's configs always carry the figures: a config without them
+    raises instead of dropping MFU from the history."""
+    with pytest.raises(AttributeError):
+        t_flops.trainer_flops_per_token(object(), "seq-cls", 128)
+
+
 def test_peak_tflops_table_and_override_match_jax(monkeypatch):
     from huggingface_sagemaker_tensorflow_distributed_tpu.obs import flops as j_flops
 
@@ -334,6 +341,16 @@ def test_flight_recorder_dump_keys_match_jax(tmp_path):
                       Path(path).name)
     assert keys["port"] == keys["jax"]
     assert keys["port"][1] == [3.0, 4.0, None, None] and keys["port"][2] == "flight_9.jsonl"
+
+
+def test_flight_recorder_dump_raises_when_it_cannot_write(tmp_path):
+    ring = t_core.FlightRecorder(capacity=3)
+    ring.record({"type": "metric", "name": "train/loss", "value": 1.0})
+    blocker = tmp_path / "not_a_dir"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        ring.dump(str(blocker), step=1)
+    assert ring.dumps == []
 
 
 # -- the heartbeat and the profiler window ---------------------------------------
