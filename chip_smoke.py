@@ -176,10 +176,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 NEAR_TIE = 1e-3
-# the profiled windows' marker kernels: 8 spins of about 1.25 ms each at
+# the profiled windows' marker kernels: 32 spins of about 1.25 ms each at
 # the H100's clock
-MARKER_CYCLES = 20_000_000
-MARKER_KERNELS = 8
+MARKER_CYCLES = 80_000_000
+MARKER_KERNELS = 32
 # the spin that holds the card while ``_host_ms`` times a loop of calls:
 # about 100 ms at the H100's clock
 HOST_SPIN_CYCLES = 200_000_000
@@ -351,21 +351,24 @@ def _cuda_ms(fn, arg_sets, iters: int = 40) -> float:
 def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                repeats: int = 5) -> float:
     """Device time per call: the median over ``repeats`` profiled windows
-    of ``iters`` calls of the summed device time of the kernels whose name
-    contains ``match`` (or one of the names of a tuple, the first being the
-    kernel each call launches once; every device activity when None), over
-    ``iters``.
+    of ``iters`` calls each. With ``match`` (a name, or a tuple of the
+    names of the kernels each call launches once each) a window's time per
+    call is the sum over the names of the mean device time of that name's
+    records; with None, every device activity of the window over ``iters``.
     Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
-    opens with ``MARKER_KERNELS`` marker kernels that spin for about 10 ms
+    opens with ``MARKER_KERNELS`` marker kernels that spin for about 40 ms
     in all (``torch.cuda._sleep``; their spin kernels are left out of the
-    sums): the profiler can lose the kernels that start right after it
-    starts recording, which would otherwise be timed calls (a marker of
-    1000 cycles still lost one call in five of the K2 kernels; after the
-    serve profile's long window every later window lost its first two
-    records, one 10 ms marker and one call). A window whose trace holds
-    fewer than ``iters`` launches of a named kernel, or no device time,
-    is taken again, up to ``repeats`` times in all; with a tuple, a window
-    counts only when it holds ``iters`` launches of every name."""
+    sums): the profiler can lose the records of the kernels that run while
+    it is still starting to record, and the more so after many earlier
+    profiler sessions in the process (a marker of 1000 cycles still lost
+    one call in five of the K2 kernels; after the serve profile's long
+    window every later window lost its first two records; after the
+    lifecycle phase's profiled fits a window of 10 ms of markers lost one
+    vocab-CE call in five). A record the profiler still drops costs that
+    name one sample of its mean, not a call's time in the sum: such a loss
+    is printed as a ``profiler_loss`` line. A window that holds no record
+    of a name, more than ``iters`` of one, or no device time, is taken
+    again, up to ``repeats`` times in all."""
     import statistics
 
     import torch
@@ -375,7 +378,7 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     names = (match,) if isinstance(match, str) else match
-    per_call, short = [], 0
+    per_call, short, lost = [], 0, 0
     while len(per_call) < repeats:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(MARKER_KERNELS):
@@ -384,18 +387,27 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         by_kernel = _device_seconds_by_kernel(prof)
-        total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k
-                    and (names is None or any(n in k for n in names)))
-        launched = iters if names is None else min(
-            sum(e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
-            for n in names)
-        if total > 0 and launched == iters:
-            per_call.append(total / iters * 1e3)
-            continue
+        if names is None:
+            total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k)
+            if total > 0:
+                per_call.append(total / iters * 1e3)
+                continue
+            held = [0]
+        else:
+            held = [sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
+                    for n in names]
+            secs = [sum(v for k, v in by_kernel.items() if n in k) for n in names]
+            if all(0 < c <= iters for c in held) and all(t > 0 for t in secs):
+                per_call.append(sum(t / c for t, c in zip(secs, held)) * 1e3)
+                lost += iters * len(names) - sum(held)
+                continue
         short += 1
-        check(short <= repeats, f"{short} profiled windows held {launched} of {iters} "
+        check(short <= repeats, f"{short} profiled windows held {held} of {iters} "
                                 f"launches of {match or 'the call'}")
+    if lost:
+        emit({"phase": "profiler_loss", "kernels": list(names), "windows": repeats,
+              "iters": iters, "records_lost": lost})
     return statistics.median(per_call)
 
 
