@@ -49,7 +49,8 @@ failure raises and exits non-zero:
    (B 8, H 12, S 512, D 64, a padding mask with ragged lengths) in fp32
    and bf16, and in both dtypes a ragged S 200, causal, causal with
    window 64, a batch row that is all padding and a mask that takes a
-   gradient; D 128 in bf16. Error bounds (``_limit``): an fp32 output
+   gradient; D 128 in bf16; S 64 and 128 in bf16 with a ragged mask (the data
+   phase's bucket widths). Error bounds (``_limit``): an fp32 output
    (every output of an fp32 case; LSE and dmask of a bf16 one)
    ``1e-4 * max(1, max|want|)`` (the same fp32 arithmetic summed in
    another order, ~1e-6 relative); a bf16 output ``2^-6 * max|want|``
@@ -97,7 +98,22 @@ failure raises and exits non-zero:
    checkpoint's bytes, ``train_mfu`` and ``train_achieved_tflops_per_chip``,
    and each run's split of step wall time between ``train/step_dispatch``,
    ``train/sync`` and ``train/checkpoint`` (the first step's dispatch, which
-   builds the kernels, apart);
+   builds the kernels, apart); (d) the data stack (``data_phase``): the host
+   library built from ``csrc/host`` (its build seconds), a ``vocab.txt`` built
+   from the reviews (BERT's specials, the 300 most frequent words, every
+   character and ``##`` character), all 5000 reviews tokenized by the C++
+   WordPiece and by its Python twin (ids equal exactly; both times and the
+   host's CPU printed); run A, the CLI over that WordPiece directory with
+   ``--bucket_multiple 64`` and the autotuned prefetch and stager, 40 steps
+   and 16 eval steps (launches ``12 x steps``, finite losses; then 6 more
+   bucketed steps fed by the pipeline, timed unprofiled and profiled, whose
+   profile must name the three bf16 kernels), printing the widths seen, the
+   pad waste (real over padded tokens), samples/s, device busy per step, the
+   idle share, MFU, the consumer and producer waits and the achieved depth;
+   run A', the same with ``HSTD_PREFETCH_AUTOTUNE=0`` for 20 steps, whose
+   losses must equal A's bit for bit; run C, ``--streaming true`` without
+   bucketing against the same run materialized, 20 steps each, losses equal
+   bit for bit;
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
@@ -907,6 +923,9 @@ FLASH_CASES = [
     ("causal_window64_bf16", 8, 12, 512, 64, "bfloat16", False, True, 64, False, False),
     ("pad_row_bf16", 8, 12, 512, 64, "bfloat16", True, False, None, True, False),
     ("dmask_bf16", 8, 12, 512, 64, "bfloat16", True, False, None, False, True),
+    # the bucket widths the data phase's bucketed run trains at
+    ("bucket64_bf16", 8, 12, 64, 64, "bfloat16", True, False, None, False, False),
+    ("bucket128_bf16", 8, 12, 128, 64, "bfloat16", True, False, None, False, False),
 ]
 FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
 FLASH_COPIES = 2
@@ -1735,6 +1754,334 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
     return row
 
 
+# -- the data stack --------------------------------------------------------------
+
+DATA_BUCKET = 64                # --bucket_multiple of run A
+DATA_STEPS = 40                 # run A's train steps
+DATA_SHORT_STEPS = 20           # runs A' and C
+DATA_EVAL_SAMPLES = 64          # run A's 16 eval steps at the eval batch of 4
+DATA_PROFILED_STEPS = 6
+# the vendored reviews hold 399 distinct words, every one of which a full
+# vocab would hold whole; keeping the 300 most frequent leaves the 99 rarest
+# to split into characters (real WordPiece continuations)
+DATA_VOCAB_WORDS = 300
+SPECIAL_TOKENS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+
+def review_vocab(texts: list, n_words: int = DATA_VOCAB_WORDS) -> list:
+    """A ``vocab.txt`` built from ``texts``: BERT's special tokens, the
+    ``n_words`` most frequent lowercased (accent-stripped) words, then every
+    character alone and as a ``##`` continuation."""
+    import collections
+    import re
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.wordpiece import (
+        _clean_char,
+    )
+
+    clean = ["".join(_clean_char(c, True) for c in t) for t in texts]
+    counts = collections.Counter(w for t in clean for w in re.findall(r"\w+", t))
+    chars = sorted({c for t in clean for c in t if not c.isspace()})
+    tokens = SPECIAL_TOKENS + [w for w, _ in counts.most_common(n_words)] + chars + \
+        ["##" + c for c in chars]
+    return list(dict.fromkeys(tokens))
+
+
+def _host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it (model name, vendor, family and
+    model numbers), else ``/proc/cpuinfo``'s model name."""
+    import platform
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+        parts = [f"{k.strip()} {fields[k].strip()}" for k in
+                 ("Model name", "Vendor ID", "CPU family", "Model") if k in fields]
+        if parts:
+            return ", ".join(parts)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or platform.machine() or "not known"
+
+
+def _data_argv(tok_dir: Path, work: Path, name: str, steps: int, extra: list) -> list:
+    return ["--model_name_or_path", str(tok_dir), "--from_scratch", "true",
+            "--dataset", "vendored_reviews", "--epochs", "1", "--steps_per_epoch", str(steps),
+            "--max_eval_samples", str(DATA_EVAL_SAMPLES),
+            "--output_data_dir", str(work / f"out_{name}"),
+            "--model_dir", str(work / f"model_{name}"),
+            "--log_every_steps", "10", "--device", DEVICE] + extra
+
+
+def data_phase(work: Path, card: str) -> dict:
+    """The data stack at BERT-base width with the CLI's defaults, on the
+    vendored reviews: the host library built from ``csrc/host``; the whole
+    corpus (5000 reviews) tokenized by the C++ WordPiece and its Python twin
+    over a vocab built from the reviews (ids equal exactly); run A, the CLI
+    over that WordPiece directory with ``--bucket_multiple 64`` and the
+    autotuned prefetch, 40 steps and 16 eval steps (launches 12 x steps,
+    the profile names the three bf16 kernels, finite losses; the widths,
+    the pad waste, samples/s, device busy per step, the idle share, MFU,
+    the consumer and producer waits and the achieved depth); run A', the
+    same with ``HSTD_PREFETCH_AUTOTUNE=0`` for 20 steps, whose losses equal
+    A's bit for bit; run C, ``--streaming true`` without bucketing against
+    the same run materialized, 20 steps each, losses equal bit for bit."""
+    import contextlib
+    import math
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import pipeline
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.native import (
+        CppWordPieceTokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        VENDORED_REVIEWS,
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.streaming import (
+        StreamingTextDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.wordpiece import (
+        WordPieceTokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    work.mkdir(parents=True, exist_ok=True)
+    # the build, timed: from the sources into a directory of its own (the
+    # runs below load the library the earlier phases built from the same
+    # sources)
+    real_dir = _build.HOST_BUILD_DIR
+    _build.HOST_BUILD_DIR = work / "host_build"
+    try:
+        t0 = time.perf_counter()
+        lib_path = _build.build_host()
+        build_s = time.perf_counter() - t0
+    finally:
+        _build.HOST_BUILD_DIR = real_dir
+
+    # the whole corpus through both WordPiece cores
+    train_texts, train_labels = load_text_classification("vendored_reviews", "train")
+    texts = train_texts + load_text_classification("vendored_reviews", "test")[0]
+    tokens = review_vocab(texts)
+    check(len(tokens) <= BERT_BASE["vocab_size"], f"a vocab of {len(tokens)} tokens")
+    vocab = {t: i for i, t in enumerate(tokens)}
+    seq = BERT_BASE["max_position_embeddings"]
+    t0 = time.perf_counter()
+    cpp = CppWordPieceTokenizer(vocab)(texts, max_length=seq)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = WordPieceTokenizer(vocab)(texts, max_length=seq)
+    py_s = time.perf_counter() - t0
+    for key in py:
+        check(np.array_equal(cpp[key], py[key]),
+              f"the C++ WordPiece's {key} differ from the Python twin's on the reviews")
+    lengths = py["attention_mask"].sum(axis=1)
+    tok_dir = work / "wordpiece"
+    tok_dir.mkdir(exist_ok=True)
+    (tok_dir / "config.json").write_text(json.dumps(BERT_BASE))
+    (tok_dir / "vocab.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
+
+    rec: dict = {}
+    orig_step, orig_put, orig_arrays = (Trainer.train_step, pipeline.ShardedBatcher._put_batch,
+                                        pipeline.ShardedBatcher.global_arrays)
+
+    def train_step(self, batch):
+        out = orig_step(self, batch)
+        rec["losses"].append(out["loss"])
+        return out
+
+    def put_batch(self, batch):
+        if self.drop_remainder:      # the train batcher's batches
+            mask = batch["attention_mask"]
+            rec["batches"].append((mask.shape[1], int(np.count_nonzero(mask)), mask.size))
+        return orig_put(self, batch)
+
+    def global_arrays(self, *a, **kw):
+        it = orig_arrays(self, *a, **kw)
+        if self.drop_remainder:
+            rec["iters"].append(it)
+            rec["datasets"].append(type(self.dataset).__name__)
+        return it
+
+    def run(name: str, steps: int, extra: list, telemetry: bool = False, env=None) -> dict:
+        rec.update(losses=[], batches=[], iters=[], datasets=[])
+        tel = work / f"tel_{name}"
+        obs.reset(out_dir=str(tel) if telemetry else None)
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        for k in _K1:
+            getattr(fa, k).launches = 0
+        t0 = time.perf_counter()
+        try:
+            results, trainer = cli.run(_data_argv(tok_dir, work, name, steps, extra))
+        finally:
+            obs.reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        _sync()
+        losses = [float(x) for x in rec["losses"]]
+        check(trainer.step == steps and len(losses) == steps,
+              f"run {name}: {trainer.step} steps, wanted {steps}")
+        check(all(math.isfinite(x) for x in losses), f"run {name}: a non-finite loss")
+        return {"results": results, "trainer": trainer, "losses": losses,
+                "loss_tensor": torch.stack(rec["losses"]).float().cpu(),
+                "batches": list(rec["batches"][:steps]), "iters": list(rec["iters"]),
+                "datasets": list(rec["datasets"]), "tel": tel,
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: getattr(fa, k).launches for k in _K1}}
+
+    Trainer.train_step = train_step
+    pipeline.ShardedBatcher._put_batch = put_batch
+    pipeline.ShardedBatcher.global_arrays = global_arrays
+    try:
+        bucketing = ["--bucket_multiple", str(DATA_BUCKET)]
+        a = run("A", DATA_STEPS, bucketing, telemetry=True)
+        a2 = run("A_prime", DATA_SHORT_STEPS, bucketing + ["--do_eval", "false"],
+                 env={"HSTD_PREFETCH_AUTOTUNE": "0"})
+        stream_argv = ["--dataset_path", str(VENDORED_REVIEWS), "--do_eval", "false"]
+        c = run("C", DATA_SHORT_STEPS, stream_argv + ["--streaming", "true"])
+        c_mat = run("C_materialized", DATA_SHORT_STEPS, stream_argv)
+    finally:
+        Trainer.train_step = orig_step
+        pipeline.ShardedBatcher._put_batch = orig_put
+        pipeline.ShardedBatcher.global_arrays = orig_arrays
+
+    L = BERT_BASE["num_hidden_layers"]
+    trainer = a["trainer"]
+    cfg = trainer.model.config
+    check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+          and trainer.config.max_seq_length == 512 and trainer.config.train_batch_size == 8
+          and trainer.config.eval_batch_size == 4, "run A did not run at the CLI's defaults")
+    check(type(load_tokenizer(str(tok_dir))).__name__ == "CppWordPieceTokenizer",
+          "the WordPiece directory did not load the C++ tokenizer")
+    eval_steps = math.ceil(DATA_EVAL_SAMPLES / trainer.config.eval_batch_size)
+    check(a["launches"]["flash_fwd"] == L * (DATA_STEPS + eval_steps),
+          f"run A: flash_fwd launches {a['launches']['flash_fwd']} != {L} x "
+          f"({DATA_STEPS} + {eval_steps})")
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(a["launches"][k] == L * DATA_STEPS,
+              f"run A: {k} launches {a['launches'][k]} != {L} x {DATA_STEPS}")
+    widths = [w for w, _, _ in a["batches"]]
+    check(len(widths) == DATA_STEPS and all(w % DATA_BUCKET == 0 for w in widths),
+          f"run A's widths {widths}")
+    real = sum(r for _, r, _ in a["batches"])
+    padded = sum(p for _, _, p in a["batches"])
+    # A': prefetch changes when batches move, not what is computed
+    check(torch.equal(a2["loss_tensor"], a["loss_tensor"][:DATA_SHORT_STEPS]),
+          "run A' (autotune off) gives other losses than run A")
+    check(a2["iters"][0].depth == 2, f"run A' ran at depth {a2['iters'][0].depth}, not 2")
+    # C: the stream gives the materialized run's losses
+    check(c["datasets"] == [StreamingTextDataset.__name__]
+          and c_mat["datasets"] == ["ArrayDataset"], f"run C's datasets {c['datasets']}, "
+          f"{c_mat['datasets']}")
+    check(torch.equal(c["loss_tensor"], c_mat["loss_tensor"]),
+          "run C (streaming) gives other losses than the materialized run")
+    exported = load_tokenizer(str(work / "model_A"))
+    check(np.array_equal(exported(texts[:64], max_length=seq)["input_ids"],
+                         cpp["input_ids"][:64]), "the exported tokenizer gives other ids")
+
+    # device busy and the idle share over more bucketed steps, batches fed
+    # by the pipeline: a warm pass, the wall unprofiled, then profiled
+    ds = pipeline.ArrayDataset.from_texts(CppWordPieceTokenizer(vocab), train_texts,
+                                          train_labels, seq)
+    batcher = pipeline.ShardedBatcher(ds, trainer.config.train_batch_size, seed=42,
+                                      device=DEVICE,
+                                      bucket_sizes=trainer.config.bucket_sizes(seq))
+
+    def steps():
+        with contextlib.closing(batcher.global_arrays(0, DATA_STEPS)) as it:
+            for _ in range(DATA_PROFILED_STEPS):
+                trainer.train_step(next(it))
+        _sync()
+
+    steps()
+    t1 = time.perf_counter()
+    steps()
+    steps_wall = time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        steps()
+    by_kernel = _device_seconds_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    named = {k: any(FLASH_KERNEL_NAMES[(k, "bfloat16")] in n for n in by_kernel) for k in _K1}
+    if DEVICE == "cuda":
+        check(all(named.values()), f"the profile of run A's steps names {named}")
+    events = _events(a["tel"]) if (a["tel"] / "events.jsonl").exists() else []
+    it = a["iters"][0]
+    hist = a["results"]["train"]
+    row = {"phase": "data", "card": card, "host_cpu": _host_cpu(),
+           "host_cpus": os.cpu_count(), "host_library": str(lib_path.name),
+           "host_build_s": build_s,
+           "vocab_tokens": len(tokens), "vocab_words": DATA_VOCAB_WORDS,
+           "corpus_rows": len(texts), "tokenize_cpp_s": cpp_s, "tokenize_python_s": py_s,
+           "cpp_equals_python": True,
+           "real_tokens_per_row": {"mean": float(lengths.mean()), "min": int(lengths.min()),
+                                   "max": int(lengths.max()),
+                                   "p50": float(np.percentile(lengths, 50)),
+                                   "p90": float(np.percentile(lengths, 90)),
+                                   "p99": float(np.percentile(lengths, 99))},
+           "run_a": {"steps": DATA_STEPS, "eval_steps": eval_steps, "launches": a["launches"],
+                     "bucket_multiple": DATA_BUCKET,
+                     "widths_seen": {str(w): widths.count(w) for w in sorted(set(widths))},
+                     "real_over_padded": real / padded,
+                     "real_over_512": real / (len(widths) * trainer.config.train_batch_size * 512),
+                     "loss": a["losses"][-1], "eval_loss": a["results"]["eval"]["eval_loss"],
+                     "train_samples_per_second_per_chip":
+                         hist["train_samples_per_second_per_chip"],
+                     "train_mfu": hist.get("train_mfu", "not measured"),
+                     "train_achieved_tflops_per_chip":
+                         hist.get("train_achieved_tflops_per_chip", "not measured"),
+                     "consumer_wait_s": it.stats.consumer_wait,
+                     "producer_wait_s": it.stats.producer_wait,
+                     "achieved_depth": it.depth,
+                     "autotune_decisions": sum(e["type"] == "autotune" for e in events),
+                     "profiled_steps": DATA_PROFILED_STEPS,
+                     "step_time_unprofiled_ms": 1e3 * steps_wall / DATA_PROFILED_STEPS,
+                     "device_busy_ms_per_step": (1e3 * busy / DATA_PROFILED_STEPS
+                                                 if busy else "not measured"),
+                     "idle_share": 1.0 - busy / steps_wall if busy else "not measured",
+                     "profile_names_kernels": named, "wall_s": a["wall_s"],
+                     "top_kernels_ms_per_step": [
+                         [k[:80], 1e3 * v / DATA_PROFILED_STEPS] for k, v in
+                         sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]]},
+           "run_a_prime": {"steps": DATA_SHORT_STEPS, "autotune": False,
+                           "depth": a2["iters"][0].depth, "losses_equal_run_a": True,
+                           "train_samples_per_second_per_chip":
+                               a2["results"]["train"]["train_samples_per_second_per_chip"],
+                           "consumer_wait_s": a2["iters"][0].stats.consumer_wait,
+                           "producer_wait_s": a2["iters"][0].stats.producer_wait},
+           "run_c": {"steps": DATA_SHORT_STEPS, "losses_equal_materialized": True,
+                     "streaming_samples_per_second_per_chip":
+                         c["results"]["train"]["train_samples_per_second_per_chip"],
+                     "materialized_samples_per_second_per_chip":
+                         c_mat["results"]["train"]["train_samples_per_second_per_chip"],
+                     "streaming_consumer_wait_s": c["iters"][0].stats.consumer_wait,
+                     "streaming_producer_wait_s": c["iters"][0].stats.producer_wait}}
+    emit(row)
+    del trainer, a, a2, c, c_mat
+    return row
+
+
 # -- vocab CE kernels ----------------------------------------------------------
 
 VOCAB_CASES = [
@@ -2218,6 +2565,8 @@ def main() -> int:
         train = train_cli_phase(Path(work) / "train")
         torch.cuda.empty_cache()
         train_lifecycle_phase(Path(work) / "lifecycle", card, Path(work) / "train" / "model")
+        torch.cuda.empty_cache()
+        data_phase(Path(work) / "data", card)
     torch.cuda.empty_cache()
     vocab = vocab_ce_phase()
     gpt2_parity_phase()

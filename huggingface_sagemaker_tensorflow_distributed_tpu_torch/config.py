@@ -280,11 +280,8 @@ class TrainConfig:
              "B/C (other tasks)"),
             (self.lora_rank > 0, "lora_rank>0", "B (LoRA)"),
             (self.num_experts > 0, "num_experts>0", "C (MoE)"),
-            (self.streaming, "streaming", "2 follow-ups (data: streaming)"),
             (self.packed_sequences or self.segment_packing,
              "packed_sequences/segment_packing", "B (packing)"),
-            (self.bucket_multiple > 0, "bucket_multiple",
-             "2 follow-ups (bucketing)"),
             (self.optimizer in ("adafactor", "lamb"), f"optimizer={self.optimizer!r}",
              "2 follow-ups (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
@@ -307,6 +304,13 @@ class TrainConfig:
         if self.attention_impl != "auto":
             return self.attention_impl
         return "flash" if device_type == "cuda" else "xla"
+
+    def bucket_sizes(self, max_len: int) -> Optional[list[int]]:
+        """The length-bucket widths ``bucket_multiple`` implies: its
+        multiples up to ``max_len``; None when bucketing is off."""
+        if not self.bucket_multiple:
+            return None
+        return list(range(self.bucket_multiple, max_len + 1, self.bucket_multiple))
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -1,31 +1,52 @@
-"""Input pipeline: static-shape batching and per-rank sharding
-(counterpart of the JAX package's ``ArrayDataset.from_texts``,
-``ArrayDataset.from_lm_texts`` and ``ShardedBatcher``,
-``data/pipeline.py``).
+"""Input pipeline: batching, per-rank sharding, length bucketing and the
+feed to the card (counterpart of the JAX package's ``ArrayDataset.
+from_texts``, ``ArrayDataset.from_lm_texts``, the prefetch machinery and
+``ShardedBatcher``, ``data/pipeline.py``).
 
 Every rank builds the same seeded epoch permutation (the JAX package's
 splitmix64 order, bit for bit) and takes its slice of each global batch,
 so the global order is agreed with no communication. Train batches drop
 the remainder; eval batches pad the tail with row 0 and carry a ``valid``
-column so padded rows count for nothing. :meth:`ShardedBatcher.
-global_arrays` hands the trainer tensors on its device, copied from
-pinned host memory on CUDA. ``start_step`` continues an epoch's
-permutation from that batch (mid-epoch resume), and ``token_log`` counts
-each batch's real tokens for the trainer's MFU accounting. Length
-bucketing, the prefetch thread, the H2D stager and packing wait for a
-later slice (ROADMAP slice 2 follow-ups).
+column so padded rows count for nothing. ``start_step`` continues an
+epoch's permutation from that batch (mid-epoch resume).
+
+- **Length bucketing** (``bucket_sizes``): rows are sorted by length
+  inside windows of ``bucket_window`` batches, and each batch's token
+  columns are cut to the smallest bucket width that holds the global
+  batch's longest row (every rank agrees). The row lengths come from
+  the C++ host library (``data/native.py``).
+- **The feed** (:meth:`ShardedBatcher.global_arrays`): with
+  ``prefetch="auto"`` a :class:`PrefetchIterator` gathers (and, for a
+  streaming dataset, reads and tokenizes) batches on a thread, its queue
+  depth set by the :class:`~.autotune.PrefetchAutotuner`, and an
+  :class:`H2DStager` stages batch N+1 onto the card while the trainer
+  computes on batch N. On CUDA a batch is copied from pinned host buffers
+  that are kept and reused, on a side stream; the consumer's stream waits
+  on that copy's event and the staged tensors are recorded on it. On the
+  CPU the stager only converts. ``token_log`` holds each staged batch's
+  real tokens for the trainer's MFU accounting, popped once per step.
+
+Packing (``pack_examples``) is not ported: ROADMAP queue 1, item 6.
 """
 
 from __future__ import annotations
 
 import collections
+import os
+import queue
+import threading
+import time
+import weakref
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.autotune import (
+    PrefetchAutotuner,
+)
 
 
 def epoch_permutation(n: int, seed: int) -> np.ndarray:
@@ -102,22 +123,405 @@ def _rank_and_world() -> tuple[int, int]:
     return 0, 1
 
 
+# -- prefetch ------------------------------------------------------------------
+
+_PREFETCH_END = object()
+
+
+class _AdaptiveQueue:
+    """Bounded FIFO whose capacity can change while threads wait on it
+    (what the prefetch autotuner adjusts). Mirrors the ``queue.Queue``
+    subset the producer and consumer use (``put`` with a timeout raising
+    ``queue.Full``, blocking ``get``, ``get_nowait`` raising
+    ``queue.Empty``); a capacity change wakes blocked producers so a
+    deeper queue takes effect at once."""
+
+    def __init__(self, capacity: int):
+        self._capacity = max(1, int(capacity))
+        self._items: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    def set_capacity(self, capacity: int) -> None:
+        with self._cond:
+            self._capacity = max(1, int(capacity))
+            self._cond.notify_all()
+
+    def qsize(self) -> int:
+        return len(self._items)
+
+    def put(self, item, timeout: Optional[float] = None) -> None:
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: len(self._items) < self._capacity, timeout=timeout)
+            if not ok:
+                raise queue.Full
+            self._items.append(item)
+            self._cond.notify_all()
+
+    def get(self, timeout: Optional[float] = None):
+        with self._cond:
+            ok = self._cond.wait_for(lambda: len(self._items) > 0, timeout=timeout)
+            if not ok:
+                raise queue.Empty
+            item = self._items.popleft()
+            self._cond.notify_all()
+            return item
+
+    def get_nowait(self):
+        return self.get(timeout=0)
+
+
+class _PrefetchStats:
+    """Producer wait against consumer wait: input-bound or compute-bound
+    at a glance.
+
+    - ``producer_wait``: the producer thread sat on a FULL queue (the
+      input pipeline is ahead of the card).
+    - ``consumer_wait``: the trainer sat on an EMPTY queue (the card
+      waited for data)."""
+
+    __slots__ = ("producer_wait", "consumer_wait", "produced", "consumed",
+                 "_reported")
+
+    def __init__(self):
+        self.producer_wait = 0.0
+        self.consumer_wait = 0.0
+        self.produced = 0
+        self.consumed = 0
+        self._reported = False
+
+    def report(self, depth: Optional[int] = None) -> None:
+        if self._reported or not self.consumed:
+            return
+        self._reported = True
+        obs.scalar("data/producer_wait_s", self.producer_wait,
+                   args={"batches": self.produced})
+        consumer_args = {"batches": self.consumed,
+                         "verdict": ("input_bound"
+                                     if self.consumer_wait > self.producer_wait
+                                     else "compute_bound")}
+        if depth is not None:
+            # the achieved (final) depth, beside the wait verdict
+            consumer_args["depth"] = int(depth)
+        obs.scalar("data/consumer_wait_s", self.consumer_wait, args=consumer_args)
+
+
+def _prefetch_producer(it, q: _AdaptiveQueue, stop: threading.Event,
+                       stats: _PrefetchStats) -> None:
+    # a module-level target: the thread must NOT reference the
+    # PrefetchIterator, or the live-thread registry would keep it reachable
+    # and its GC finalizer could never fire
+    try:
+        for item in it:
+            t0 = time.perf_counter()
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            stats.producer_wait += time.perf_counter() - t0
+            stats.produced += 1
+            if stop.is_set():
+                return
+        q.put(_PREFETCH_END)
+    except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+        if not stop.is_set():
+            q.put(e)
+
+
+def _drain_and_stop(q: _AdaptiveQueue, stop: threading.Event) -> None:
+    stop.set()
+    # drain so a producer blocked on put() sees the stop flag
+    try:
+        while True:
+            q.get_nowait()
+    except queue.Empty:
+        pass
+
+
+def _batch_nbytes(item) -> int:
+    """Host bytes one queued batch holds (a dict of numpy columns; 0 when
+    the item's shape is unknown: the autotuner then skips the memory cap)."""
+    if isinstance(item, dict):
+        return sum(int(getattr(v, "nbytes", 0)) for v in item.values())
+    return int(getattr(item, "nbytes", 0))
+
+
+class PrefetchIterator:
+    """Iterator wrapper that materializes up to ``depth`` items ahead on a
+    daemon thread. Exceptions from the producer re-raise at the consumer;
+    ``close()`` stops the producer promptly, and dropping the iterator
+    without closing it runs the same cleanup through ``weakref.finalize``.
+
+    With an ``autotuner`` (:class:`~.autotune.PrefetchAutotuner`) the depth
+    is live: each consumed batch feeds the cumulative wait stats to the
+    controller, and a decision resizes the queue in place (an ``autotune``
+    telemetry event). Without one, ``depth`` is fixed."""
+
+    def __init__(self, it: Iterator, depth: int = 2,
+                 autotuner: Optional[PrefetchAutotuner] = None):
+        self._done = False
+        self._autotuner = autotuner
+        if autotuner is not None:
+            depth = autotuner.depth
+        self._queue = _AdaptiveQueue(depth)
+        self._stop = threading.Event()
+        self.stats = _PrefetchStats()
+        self._thread = threading.Thread(
+            target=_prefetch_producer, args=(it, self._queue, self._stop, self.stats),
+            daemon=True)
+        self._finalizer = weakref.finalize(self, _drain_and_stop, self._queue, self._stop)
+        self._thread.start()
+
+    @property
+    def depth(self) -> int:
+        return self._queue.capacity
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        with obs.span("data/next_batch"):
+            t0 = time.perf_counter()
+            item = self._queue.get()
+            self.stats.consumer_wait += time.perf_counter() - t0
+        if item is _PREFETCH_END:
+            self._done = True
+            self.stats.report(depth=self.depth)
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._done = True
+            raise item
+        self.stats.consumed += 1
+        if self._autotuner is not None:
+            decision = self._autotuner.observe(
+                self.stats.producer_wait, self.stats.consumer_wait,
+                self.stats.consumed, _batch_nbytes(item))
+            if decision is not None:
+                new_depth, reason = decision
+                self._queue.set_capacity(new_depth)
+                obs.autotune("data/prefetch_depth", new_depth, reason,
+                             args={"batches": self.stats.consumed})
+        return item
+
+    def close(self):
+        if not self._done:
+            self.stats.report(depth=self.depth)
+        self._done = True
+        self._finalizer()
+
+
+# -- staging onto the card -------------------------------------------------------
+
+_STAGER_END = object()
+
+
+class H2DStager:
+    """Overlap batch N+1's host-to-device copy with compute on batch N.
+
+    When the consumer takes batch N, this iterator stages batch N+1 first
+    (``put_batch``), so one batch's copy is always in flight while the
+    card computes, and at most two device batches are live: the one
+    computing and the one staging. ``deliver`` hands a staged batch to the
+    consumer (on CUDA: its stream waits on the copy). Each staging is a
+    ``data/h2d_stage`` span; exhaustion or ``close`` emits one
+    ``data/h2d_stage_s`` metric with the staging seconds and batches."""
+
+    def __init__(self, host_iter, put_batch, deliver=None):
+        self._it = host_iter
+        self._put = put_batch
+        self._deliver = deliver
+        self._pending = None
+        self._primed = False
+        self.stage_s = 0.0
+        self.staged = 0
+        self._reported = False
+
+    def __iter__(self):
+        return self
+
+    def _stage(self):
+        batch = next(self._it)  # StopIteration propagates to the caller
+        t0 = time.perf_counter()
+        with obs.span("data/h2d_stage"):
+            out = self._put(batch)
+        self.stage_s += time.perf_counter() - t0
+        self.staged += 1
+        return out
+
+    def __next__(self):
+        if self._pending is _STAGER_END:
+            raise StopIteration
+        if not self._primed:
+            self._primed = True
+            try:
+                self._pending = self._stage()
+            except StopIteration:
+                self._pending = _STAGER_END
+                self._report()
+                raise
+        current = self._pending
+        try:
+            self._pending = self._stage()
+        except StopIteration:
+            self._pending = _STAGER_END
+            self._report()
+        return current if self._deliver is None else self._deliver(current)
+
+    def _report(self) -> None:
+        if self._reported or not self.staged:
+            return
+        self._reported = True
+        obs.scalar("data/h2d_stage_s", self.stage_s, args={"batches": self.staged})
+
+    @property
+    def stats(self) -> _PrefetchStats:
+        """The wrapped prefetcher's wait accounting (the autotuner's input)."""
+        return self._it.stats
+
+    @property
+    def depth(self) -> int:
+        return getattr(self._it, "depth", 0)
+
+    def close(self):
+        self._pending = _STAGER_END
+        self._report()
+        if hasattr(self._it, "close"):
+            self._it.close()
+
+
+def _column_dtype(key: str) -> torch.dtype:
+    """Token and label columns go to the model as int64; ``valid`` stays
+    int32."""
+    return torch.int32 if key == "valid" else torch.int64
+
+
+class _Staged:
+    __slots__ = ("tensors", "event")
+
+    def __init__(self, tensors: dict, event):
+        self.tensors = tensors
+        self.event = event
+
+
+class _CudaStager:
+    """Copies host batches to the card from pinned buffers that are kept
+    and reused, on a side stream.
+
+    Two slots of pinned buffers (one per column, grown when a wider batch
+    arrives) alternate; a slot is refilled only after the copy out of it
+    has finished (its event). The copy and its event run on the side
+    stream; :meth:`deliver` makes the consumer's current stream wait on the
+    event and records the staged tensors on that stream, so the caching
+    allocator does not hand their memory out again while the consumer's
+    kernels may still read it."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots = [{"bufs": {}, "event": None} for _ in range(self.SLOTS)]
+        self._next = 0
+
+    def stage(self, batch: dict[str, np.ndarray]) -> _Staged:
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % self.SLOTS
+        if slot["event"] is not None:
+            slot["event"].synchronize()
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for key, value in batch.items():
+                src = torch.from_numpy(np.ascontiguousarray(value))
+                dtype, n = _column_dtype(key), src.numel()
+                buf = slot["bufs"].get(key)
+                if buf is None or buf.numel() < n or buf.dtype != dtype:
+                    buf = torch.empty(n, dtype=dtype, pin_memory=True)
+                    slot["bufs"][key] = buf
+                host = buf[:n].view(src.shape)
+                host.copy_(src)
+                out[key] = host.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        slot["event"] = event
+        return _Staged(out, event)
+
+    def deliver(self, staged: _Staged) -> dict[str, torch.Tensor]:
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(staged.event)
+        for t in staged.tensors.values():
+            t.record_stream(stream)
+        return staged.tensors
+
+
+# -- the batcher -----------------------------------------------------------------
+
+ENV_COMPILE_BUDGET = "HSTD_COMPILE_BUDGET_S"
+
+
 class ShardedBatcher:
     """Iterates global batches, yielding this rank's shard of each.
 
     ``process_index``/``process_count`` default to the ``torch.distributed``
     rank and world size (0 and 1 without a process group); ``device`` is
-    where :meth:`global_arrays` puts the tensors (CPU by default)."""
+    where :meth:`global_arrays` puts the tensors (CPU by default).
+    ``bucket_sizes`` turns on length bucketing (sorted within windows of
+    ``bucket_window`` batches). ``native`` draws the epoch permutation,
+    gathers rows and counts row lengths with the C++ host library (built at
+    first use; a failed build raises); ``native=False`` asks for the numpy
+    twins, which give the same batches.
 
-    def __init__(self, dataset: ArrayDataset, global_batch_size: int,
-                 shuffle: bool = True, seed: int = 0, drop_remainder: bool = True,
+    The JAX package caps the bucket ladder at the widths already compiled
+    once ``HSTD_COMPILE_BUDGET_S`` is spent; that cap needs the compile
+    tracker (ROADMAP queue 1, item 2), so here the ladder never caps, and
+    the variable set together with bucketing raises instead of being
+    ignored."""
+
+    def __init__(self, dataset, global_batch_size: int, shuffle: bool = True,
+                 seed: int = 0, drop_remainder: bool = True,
                  process_index: Optional[int] = None,
-                 process_count: Optional[int] = None, device=None):
+                 process_count: Optional[int] = None, device=None,
+                 bucket_sizes: Optional[list[int]] = None, bucket_window: int = 16,
+                 native: bool = True):
         self.dataset = dataset
         self.global_batch_size = global_batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_remainder = drop_remainder
+        self.native = native
+        self.bucket_sizes = sorted(bucket_sizes) if bucket_sizes else None
+        self.bucket_window = bucket_window
+        self._lengths: dict[str, np.ndarray] = {}
+        if self.bucket_sizes and not hasattr(dataset, "columns"):
+            raise ValueError(
+                "length bucketing needs corpus-wide token lengths, which "
+                "streaming datasets deliberately don't precompute — drop "
+                "bucket_sizes or materialize the dataset")
+        if self.bucket_sizes and os.environ.get(ENV_COMPILE_BUDGET, "").strip():
+            raise NotImplementedError(
+                f"{ENV_COMPILE_BUDGET} caps the bucket ladder through the "
+                "compile tracker, which is not ported to the PyTorch package "
+                "yet: ROADMAP queue 1, item 2; unset it or drop bucketing")
+        if self.bucket_sizes:
+            # token count per row, per mask column: encoder and decoder
+            # widths bucket independently
+            from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.native import (
+                native_row_lengths,
+            )
+            for name in ("attention_mask", "decoder_attention_mask"):
+                if name in dataset.columns:
+                    self._lengths[name] = native_row_lengths(dataset.columns[name],
+                                                             native=native)
+        # the last epoch's prefetch autotuner: its depth seeds the next
+        # epoch's controller instead of re-learning from 2
+        self._auto_tuner: Optional[PrefetchAutotuner] = None
         rank, world = _rank_and_world()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
@@ -126,11 +530,14 @@ class ShardedBatcher:
                              f"{self.process_count} ranks")
         self.per_host = global_batch_size // self.process_count
         self.device = torch.device("cpu" if device is None else device)
+        self._cuda_stager: Optional[_CudaStager] = None
         # MFU accounting: one (tokens, dec_tokens) entry of REAL
-        # (attention-mask) tokens per batch :meth:`global_arrays` yields,
-        # which the trainer pops once per step. Counted only when an MFU
-        # figure can be read (telemetry configured, or a peak override
-        # set), as in the JAX package; bounded so eval never grows it.
+        # (attention-mask) tokens per staged batch, in yield order, which
+        # the trainer pops once per dispatched step (exact under the
+        # stager's lookahead; a batch staged but never dispatched is
+        # cleared at the next epoch). Counted only when an MFU figure can
+        # be read (telemetry configured, or a peak override set), as in
+        # the JAX package; bounded so eval never grows it.
         self._count_tokens = obs.state().enabled and (
             obs.configured() or obs.flops.env_peak_tflops() is not None)
         self.token_log: collections.deque = collections.deque(maxlen=8192)
@@ -141,11 +548,28 @@ class ShardedBatcher:
             return n // self.global_batch_size
         return (n + self.global_batch_size - 1) // self.global_batch_size
 
+    def _gather(self, idx: np.ndarray) -> dict[str, np.ndarray]:
+        columns = getattr(self.dataset, "columns", None)
+        if columns is None:
+            return self.dataset[idx]     # a streaming dataset reads its rows
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.native import (
+            native_gather,
+        )
+        return {k: native_gather(v, idx, native=self.native) for k, v in columns.items()}
+
     def local_batches(self, epoch: int = 0, start_step: int = 0
                       ) -> Iterator[dict[str, np.ndarray]]:
-        """Yield rank-local numpy batches (with the ``valid`` column)."""
+        """Yield rank-local numpy batches (with the ``valid`` column),
+        cut to their bucket width when bucketing is on."""
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.native import (
+            native_permutation,
+        )
+
         n = len(self.dataset)
-        order = epoch_permutation(n, self.seed + epoch) if self.shuffle else np.arange(n)
+        order = (native_permutation(n, self.seed + epoch, native=self.native)
+                 if self.shuffle else np.arange(n))
+        if self.bucket_sizes:
+            order = self._length_sorted_windows(order)
         lo_rank = self.process_index * self.per_host
         hi_rank = lo_rank + self.per_host
         for s in range(start_step, self.steps_per_epoch()):
@@ -155,27 +579,118 @@ class ShardedBatcher:
             if valid_n < self.global_batch_size:
                 pad = np.zeros(self.global_batch_size - valid_n, dtype=order.dtype)
                 global_idx = np.concatenate([global_idx, pad])
-            batch = self.dataset[global_idx[lo_rank:hi_rank]]
+            batch = self._gather(global_idx[lo_rank:hi_rank])
             valid = np.zeros(self.global_batch_size, np.int32)
             valid[:valid_n] = 1
             batch["valid"] = valid[lo_rank:hi_rank]
+            if self.bucket_sizes:
+                batch = self._trim_to_buckets(batch, global_idx[:valid_n])
             yield batch
 
-    def global_arrays(self, epoch: int = 0, start_step: int = 0
-                      ) -> Iterator[dict[str, torch.Tensor]]:
+    # -- length bucketing --------------------------------------------------------
+
+    def _bucket_for(self, max_len: int, full: int) -> int:
+        for b in self.bucket_sizes:
+            if b >= max_len:
+                return min(b, full)
+        return full
+
+    def _length_sorted_windows(self, order: np.ndarray) -> np.ndarray:
+        """Sort by length inside windows of ``bucket_window`` batches: like
+        batches get like lengths (less padding) while the epoch stays
+        roughly shuffled. Deterministic: every rank agrees."""
+        key = self._lengths.get("attention_mask")
+        if key is None or not self.shuffle:
+            return order
+        w = max(1, self.bucket_window) * self.global_batch_size
+        out = order.copy()
+        for lo in range(0, len(order), w):
+            window = out[lo:lo + w]
+            window.sort(kind="stable")  # determinism of ties
+            out[lo:lo + w] = window[np.argsort(key[window], kind="stable")]
+        return out
+
+    def _trim_to_buckets(self, batch: dict[str, np.ndarray],
+                         real_idx: np.ndarray) -> dict[str, np.ndarray]:
+        """Cut token-width columns to the smallest bucket that holds the
+        GLOBAL batch's longest real row (every rank agrees: the choice
+        derives from the shared order). Encoder and decoder columns of the
+        same width share one cut, the wider."""
+        trims: dict[int, int] = {}  # original width -> bucket width
+        for mask_name, lengths in self._lengths.items():
+            width = self.dataset.columns[mask_name].shape[1]
+            max_len = int(lengths[real_idx].max()) if len(real_idx) else 1
+            bucket = self._bucket_for(max(max_len, 1), width)
+            trims[width] = max(trims.get(width, 0), bucket)
+        out = {}
+        for k, v in batch.items():
+            if v.ndim >= 2 and v.shape[1] in trims:
+                out[k] = np.ascontiguousarray(v[:, :trims[v.shape[1]]])
+            else:
+                out[k] = v
+        return out
+
+    # -- the feed ----------------------------------------------------------------
+
+    def global_arrays(self, epoch: int = 0, start_step: int = 0,
+                      prefetch: Union[int, str] = "auto"):
         """This rank's batches as tensors on ``device`` (int64 token and
-        label columns; on CUDA copied from pinned memory without blocking
-        the host)."""
-        cuda = self.device.type == "cuda"
-        for batch in self.local_batches(epoch, start_step):
-            if self._count_tokens:
-                self.token_log.append((int(np.count_nonzero(batch["attention_mask"])), 0))
-            out = {}
-            for key, value in batch.items():
-                t = torch.from_numpy(np.ascontiguousarray(value))
-                if key != "valid":
-                    t = t.long()
-                if cuda:
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[key] = t
-            yield out
+        label columns, int32 ``valid``). The returned iterator has
+        ``close()`` for an early exit.
+
+        ``prefetch="auto"`` (the default): gathering runs on a thread whose
+        queue depth the :class:`~.autotune.PrefetchAutotuner` sets from the
+        producer and consumer waits (``HSTD_PREFETCH_AUTOTUNE=0`` pins depth
+        2), with the depth carried from one epoch to the next, and an
+        :class:`H2DStager` stages batch N+1 while the trainer computes on
+        batch N. ``prefetch=N`` is the same at a fixed depth N;
+        ``prefetch=0`` stages each batch as it is asked for, with no thread
+        and no lookahead."""
+        host = self.local_batches(epoch, start_step)
+        if prefetch == "auto":
+            seed_depth = {}
+            if self._auto_tuner is not None:
+                seed_depth = {"initial_depth": self._auto_tuner.depth}
+            tuner = PrefetchAutotuner.from_env(**seed_depth)
+            if tuner is not None:
+                self._auto_tuner = tuner
+            host = PrefetchIterator(host, depth=2, autotuner=tuner)
+        elif prefetch > 0:
+            host = PrefetchIterator(host, depth=prefetch)
+        else:
+            return self._device_batches(host)
+        return H2DStager(host, self._put_batch, self._deliver)
+
+    def _put_batch(self, batch: dict[str, np.ndarray]):
+        """One host batch onto ``device``: on CUDA staged (see
+        :class:`_CudaStager`), on the CPU converted."""
+        if self._count_tokens:
+            am = batch.get("attention_mask")
+            if am is not None:
+                tok = int(np.count_nonzero(am))
+            elif "input_ids" in batch:
+                tok = int(batch["input_ids"].size)
+            else:
+                tok = 0
+            dm = batch.get("decoder_attention_mask")
+            dec = int(np.count_nonzero(dm)) if dm is not None else 0
+            self.token_log.append((tok, dec))
+        with obs.span("data/host_to_device"):
+            if self.device.type == "cuda":
+                if self._cuda_stager is None:
+                    self._cuda_stager = _CudaStager(self.device)
+                return self._cuda_stager.stage(batch)
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device, _column_dtype(k)) for k, v in batch.items()}
+
+    def _deliver(self, staged):
+        if isinstance(staged, _Staged):
+            return self._cuda_stager.deliver(staged)
+        return staged
+
+    def _device_batches(self, host) -> Iterator[dict[str, torch.Tensor]]:
+        for batch in host:
+            # the span closes before the yield: a generator suspended inside
+            # it would bill the consumer's time to the span
+            staged = self._put_batch(batch)
+            yield self._deliver(staged)

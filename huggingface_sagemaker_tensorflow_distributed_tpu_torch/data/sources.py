@@ -1,9 +1,10 @@
 """Text-classification sources (counterpart of the JAX package's
 ``data/sources.py::load_text_classification``): the seeded ``synthetic``
 corpus, the in-repo ``vendored_reviews`` corpus (``data/vendored/reviews``
-beside the package), and local ``{split}.jsonl`` files of
-``{"text": ..., "label": ...}`` records. HF ``datasets`` by name and
-``load_from_disk`` directories raise until ported. All return plain
+beside the package), local ``{split}.jsonl`` files of ``{"text": ...,
+"label": ...}`` records, ``datasets.load_from_disk`` directories, and HF
+datasets by name (``imdb``, ``sst2``) through ``datasets.load_dataset``.
+``datasets`` is imported only on those last two paths. All return plain
 ``(texts, labels)`` lists."""
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ _NOISE_WORDS = (
     "were be with and or but for from about into over after before very really "
     "quite some most one two three while during director camera script character"
 ).split()
+
+_HF_TEXT_DATASETS = {
+    # name -> (load args, text column, label column)
+    "imdb": (("imdb",), "text", "label"),
+    "sst2": (("glue", "sst2"), "sentence", "label"),
+}
 
 VENDORED_REVIEWS = Path(__file__).resolve().parents[2] / "data" / "vendored" / "reviews"
 
@@ -67,17 +74,22 @@ def load_text_classification(dataset: str, split: str,
         return synthetic_text_classification(n, seed=seed + (0 if split == "train" else 1))
     if dataset == "vendored_reviews" and not dataset_path:
         dataset_path = str(VENDORED_REVIEWS)
-    if not dataset_path:
-        raise NotImplementedError(
-            f"dataset {dataset!r} needs HF datasets, which the PyTorch package "
-            "does not load yet (ROADMAP slice 2 follow-ups); use synthetic, "
-            "vendored_reviews or --dataset_path with {split}.jsonl files")
-    jsonl = os.path.join(dataset_path, f"{split}.jsonl")
-    if not os.path.exists(jsonl):
-        raise NotImplementedError(
-            f"{dataset_path!r} has no {split}.jsonl; load_from_disk datasets "
-            "are not ported to the PyTorch package yet (ROADMAP slice 2 follow-ups)")
-    texts, labels = _from_jsonl(jsonl)
+    if dataset_path:
+        jsonl = os.path.join(dataset_path, f"{split}.jsonl")
+        if os.path.exists(jsonl):
+            texts, labels = _from_jsonl(jsonl)
+        else:
+            from datasets import load_from_disk
+            ds = load_from_disk(dataset_path)[split]
+            text_col = "text" if "text" in ds.column_names else "sentence"
+            texts, labels = list(ds[text_col]), list(ds["label"])
+    else:
+        if dataset not in _HF_TEXT_DATASETS:
+            raise ValueError(f"unknown dataset {dataset!r}")
+        load_args, text_col, label_col = _HF_TEXT_DATASETS[dataset]
+        from datasets import load_dataset
+        ds = load_dataset(*load_args, split=split)
+        texts, labels = list(ds[text_col]), list(ds[label_col])
     if max_samples is not None:
         texts, labels = texts[:max_samples], labels[:max_samples]
     return texts, labels

@@ -9,6 +9,14 @@ port's event files::
         ...
     obs.scalar("train/loss", 0.31, step=120)
 
+The data pipeline's spans are ``data/next_batch`` (the consumer's wait on
+the prefetch queue), ``data/h2d_stage`` around ``data/host_to_device``
+(staging a batch onto the card), ``data/stream_batch`` (a streaming
+batch read and tokenized) and ``data/corpus_read``; its metrics
+``data/producer_wait_s``, ``data/consumer_wait_s`` (with the achieved
+depth) and ``data/h2d_stage_s``, and :func:`autotune` its controllers'
+decisions.
+
 - ``HSTD_TELEMETRY=0`` disables everything.
 - ``HSTD_TELEMETRY_DIR=<dir>`` (or :func:`configure`) writes
   ``<dir>/events.jsonl`` and ``<dir>/trace.json``; unset, spans and
@@ -83,6 +91,20 @@ def scalar(name: str, value, step: Optional[int] = None,
 
 def metrics() -> MetricsSink:
     return _metrics
+
+
+def autotune(name: str, depth: int, reason: str,
+             args: Optional[dict] = None) -> None:
+    """One input-pipeline controller decision (the schema's ``autotune``
+    event): ``name`` is the tuned knob (``data/prefetch_depth``,
+    ``data/read_coalesce_gap``), ``depth`` its new value, ``reason`` the
+    trigger. No-op without a file sink, like :func:`scalar`."""
+    if not _state.enabled or _state.events is None:
+        return
+    fields: dict = {"name": name, "depth": int(depth), "reason": str(reason)}
+    if args:
+        fields["args"] = args
+    _state.events.emit("autotune", fields)
 
 
 def anomalies() -> AnomalyDetector:

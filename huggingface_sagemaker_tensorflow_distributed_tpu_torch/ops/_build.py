@@ -1,6 +1,6 @@
-"""Builds the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` into
-shared libraries with a plain C interface, and loads them with
-``ctypes``.
+"""Builds the port's CUDA sources (``csrc/*.cu``) with ``nvcc``, and its
+C++ host library (``csrc/host/*.cc``) with ``g++``, into shared libraries
+with a plain C interface, and loads them with ``ctypes``.
 
 A library is built at first use into ``build/kernels/`` beside the
 package (a directory the repository ignores), named by a hash of its
@@ -9,6 +9,12 @@ source or header is rebuilt and an unchanged one is loaded as it is.
 ``ptxas`` reports each kernel's registers, spills and static shared
 memory (``-Xptxas -v``) into ``<library>.log`` beside the library. A
 failed build raises; nothing falls back.
+
+The host library (:func:`load_host`: the WordPiece core and the data
+loader's primitives, ``data/native.py``) builds the same way into
+``build/host/``, named by a hash of its sources and flags. The port never
+writes into the JAX package's ``native/`` directory and never loads a
+library it finds there.
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every kernel source of the package (``csrc/<name>.cu``)
 SOURCES = ("paged_attention", "flash_attention", "vocab_ce")
+HOST_DIR = CSRC_DIR / "host"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_SOURCES = ("wordpiece.cc", "dataloader.cc")
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,3 +97,42 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def host_library_path() -> Path:
+    """Where the host library built from ``csrc/host/*.cc`` lives: named by
+    a hash of those sources and of the flags."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in HOST_SOURCES:
+        digest.update(src.encode() + (HOST_DIR / src).read_bytes())
+    return HOST_BUILD_DIR / f"libhstd_host-{digest.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Build the host library with ``g++`` if it is missing; returns its
+    path. Raises with the compiler's errors when the build fails or no
+    ``g++`` is found."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH: the host library "
+                           "(csrc/host/*.cc) is built from source at first use")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
+                           *(str(HOST_DIR / s) for s in HOST_SOURCES)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed to build csrc/host (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_host() -> ctypes.CDLL:
+    """Build the host library if it is missing, then load it."""
+    return ctypes.CDLL(str(build_host()))

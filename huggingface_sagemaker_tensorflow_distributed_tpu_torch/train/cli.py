@@ -8,8 +8,15 @@ Hyperparameters are the JAX CLI's ``--key value`` arguments (same
 ``TrainConfig``); ``--device`` (default ``cuda``) picks where the model
 runs, and without a card ``cuda`` raises. The run: join the process group
 the environment names, load or seed the model from ``DIR/config.json``,
-tokenize the train and test splits, restore the latest checkpoint under
-``--checkpoint_dir`` (unless ``--resume false``), fit, evaluate, write
+load the tokenizer ``DIR`` holds (``load_tokenizer``: a ``vocab.txt``
+gives the WordPiece with its C++ core, a ``tokenizer.json`` the HF
+tokenizer, none the word-hash tokenizer), tokenize the train and test
+splits (a ``--dataset_path`` of ``{split}.jsonl`` files or a
+``datasets.save_to_disk`` directory; with ``--streaming true`` the train
+split stays on disk and is tokenized batch by batch), batch them
+(``--bucket_multiple``: length buckets of its multiples), restore the
+latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
+false``), fit, evaluate, write
 ``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
 export the model and tokenizer in HF layout to ``model_dir`` (rank 0;
 with ``--keep_best`` the best epoch's weights). Rerunning an interrupted
@@ -25,8 +32,10 @@ processes on one host: start one per card with
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -42,6 +51,10 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
     load_text_classification,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.streaming import (
+    LineCorpus,
+    StreamingTextDataset,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
     load_tokenizer,
@@ -71,8 +84,46 @@ def _check_num_labels(labels, num_labels: int) -> None:
                          f"is {num_labels}; pass --num_labels {top + 1}")
 
 
+def build_streaming_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
+                            max_samples) -> StreamingTextDataset:
+    """``--streaming true``: the corpus stays on disk and is tokenized per
+    batch. Sources: ``dataset_path/{split}.jsonl`` or ``.txt``; the
+    synthetic tier writes its corpus to a file in the temporary directory
+    once, so its path is that of a real on-disk corpus (the JAX CLI's
+    ``build_streaming_dataset``)."""
+    if config.dataset_path:
+        base = os.path.join(config.dataset_path, split)
+        path = next((base + ext for ext in (".jsonl", ".txt")
+                     if os.path.exists(base + ext)), None)
+        if path is None:
+            raise ValueError(f"--streaming: no {base}.jsonl or .txt")
+    elif config.dataset == "synthetic":
+        n = max_samples or 2000
+        path = os.path.join(tempfile.gettempdir(),
+                            f"stream_synth_{config.task}_{split}_{n}_{config.seed}.jsonl")
+        if not os.path.exists(path):
+            texts, labels = load_text_classification("synthetic", split, max_samples=n,
+                                                     seed=config.seed)
+            # a process-unique temporary file and an atomic replace: ranks
+            # may race to write the same (deterministic) file
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                for text, label in zip(texts, labels):
+                    f.write(json.dumps({"text": text, "label": label}) + "\n")
+            os.replace(tmp, path)
+    else:
+        raise ValueError("--streaming needs --dataset_path (train.jsonl/.txt) or "
+                         "--dataset synthetic")
+    return StreamingTextDataset(LineCorpus(path, max_rows=max_samples), tokenizer,
+                                task=config.task, max_length=max_len,
+                                num_labels=config.num_labels
+                                if config.task == "seq-cls" else None)
+
+
 def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
-                  max_samples, model_config=None) -> ArrayDataset:
+                  max_samples, model_config=None):
+    if config.streaming and split == "train":
+        return build_streaming_dataset(config, tokenizer, split, max_len, max_samples)
     texts, labels = load_text_classification(
         config.dataset, split, dataset_path=config.dataset_path,
         max_samples=max_samples, seed=config.seed)
@@ -130,10 +181,15 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
                              model_config)
     eval_ds = build_dataset(config, tokenizer, "test", max_len, config.max_eval_samples,
                             model_config)
+    buckets = config.bucket_sizes(max_len)
+    if buckets:
+        logger.info("length bucketing at widths %s", buckets)
     train_batcher = ShardedBatcher(train_ds, config.train_batch_size * world,
-                                   shuffle=True, seed=config.seed, device=device)
+                                   shuffle=True, seed=config.seed, device=device,
+                                   bucket_sizes=buckets)
     eval_batcher = ShardedBatcher(eval_ds, config.eval_batch_size * world,
-                                  shuffle=False, drop_remainder=False, device=device)
+                                  shuffle=False, drop_remainder=False, device=device,
+                                  bucket_sizes=buckets)
 
     total_steps = train_batcher.steps_per_epoch() * config.epochs
     trainer = Trainer(config, model, total_steps=total_steps)
@@ -180,6 +236,8 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
             results["eval"] = eval_results
         auto.save_pretrained(config.model_dir, model, family, model_config)
         if rank == 0:
+            # the tokenizer this run used, beside the model (a WordPiece
+            # export is a vocab.txt and tokenizer_config.json)
             tokenizer.save_pretrained(config.model_dir)
     finally:
         # commits an in-flight async checkpoint write even when fit or

@@ -24,7 +24,8 @@ losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
   ``torch.profiler`` Chrome trace under ``profile_dir``), and the
   Keras-style history (``loss``, ``sparse_categorical_accuracy``,
   ``eval_loss``/``eval_accuracy``, ``train_runtime``,
-  ``train_samples_per_second[_per_chip]`` with the first (warm-up) step
+  ``train_samples_per_second[_per_chip]`` with the first (warm-up) step,
+  and with length bucketing the first step of each new batch width,
   excluded from the meter, and with an MFU figure to read
   ``train_achieved_tflops_per_chip``/``train_mfu``). Step metrics stay on
   the device until a sync point.
@@ -35,6 +36,9 @@ losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
   the update's global norm, step-time spikes, stragglers).
 - ``evaluate`` sums loss, correct predictions and the count exactly over
   the ``valid`` rows, across ranks.
+- Every batch iterator ``fit`` and ``evaluate`` open is closed on every
+  exit (the ``steps_per_epoch`` cap, an exception), which stops the
+  batcher's prefetch thread.
 """
 
 from __future__ import annotations
@@ -159,6 +163,13 @@ def make_fused_causal_lm_loss(model):
 
 
 TASK_LOSSES = {"seq-cls": seq_cls_loss, "causal-lm": causal_lm_loss}
+
+
+def _closing(batches):
+    """A batch iterator as a context that closes it on exit (a prefetching
+    iterator stops its thread); one without ``close`` as it is."""
+    return contextlib.closing(batches) if hasattr(batches, "close") else \
+        contextlib.nullcontext(batches)
 
 
 class Trainer:
@@ -349,6 +360,11 @@ class Trainer:
         gbs = train_batcher.global_batch_size
         profiler = None
         first_step = True
+        # with length bucketing the first step of each NEW batch width pays
+        # the kernels' and the allocator's first use at that shape: the
+        # meter excludes it as it does the run's first step
+        track_shapes = bool(getattr(train_batcher, "bucket_sizes", None))
+        seen_shapes: set = set()
 
         def sync(metrics_list):
             with obs.span("train/sync"):
@@ -385,61 +401,78 @@ class Trainer:
                 device_metrics: list = []
                 losses, accs = [], []
                 if token_log is not None:
+                    # a batch staged last epoch but never dispatched (the
+                    # steps_per_epoch cap) would misalign every pop
                     token_log.clear()
                 meter.begin_window()
-                for step, batch in enumerate(train_batcher.global_arrays(epoch, start_step),
-                                             start=start_step):
-                    if step >= steps_per_epoch:
-                        break
-                    if cfg.profile and profiler is None and epoch == start_epoch \
-                            and step - start_step == 3:
-                        profiler = start_profiler(self.device.type)
-                    with obs.span("train/step_dispatch"):
-                        metrics = self.train_step(batch)
-                    device_metrics.append(metrics)
-                    meter.window_step(gbs)
-                    if token_log:
-                        tok, dec = token_log.popleft()
-                        meter.window_tokens(tok * tok_scale, dec * tok_scale)
-                    obs.pulse()
-                    if first_step:
-                        # the first step builds the kernels and warms the
-                        # allocator: keep it (and its tokens) out of the
-                        # throughput window
-                        meter.exclude_step(gbs)
-                        meter.begin_window()
-                        first_step = False
-                    if profiler is not None and step - start_step == 6:
-                        self._stop_profiler(profiler)
-                        profiler = None
-                    want_log = cfg.log_every_steps and step % cfg.log_every_steps == 0
-                    want_ckpt = (checkpointer is not None and cfg.checkpoint_every_steps
-                                 and (step + 1) % cfg.checkpoint_every_steps == 0)
-                    if want_log or want_ckpt:
-                        for m in sync(device_metrics):
-                            losses.append(m["loss"])
-                            accs.append(m["accuracy"])
-                        device_metrics = []
-                    if want_log:
-                        logger.info(
-                            "epoch %d step %d/%d loss %.4f acc %.4f (%.1f samples/s/chip)",
-                            epoch, step, steps_per_epoch, losses[-1], accs[-1],
-                            meter.samples_per_sec_per_chip)
-                        gstep = epoch * steps_per_epoch + step
-                        obs.scalar("train/loss", losses[-1], gstep)
-                        obs.scalar("train/accuracy", accs[-1], gstep)
-                        obs.scalar("train/samples_per_sec_per_chip",
-                                   meter.samples_per_sec_per_chip, gstep)
-                    if want_ckpt:
-                        if cfg.check_divergence:
-                            self.check_replica_divergence()
-                        # checkpoint wall time is not step time: bracket it
-                        # out of the throughput window
-                        meter.end_window()
-                        with obs.span("train/checkpoint"):
-                            checkpointer.save(self.state_dict(), epoch=epoch,
-                                              step_in_epoch=step + 1)
-                        meter.begin_window()
+                # closed on every exit (the steps_per_epoch cap, an
+                # exception): the prefetch thread stops, the staged batches go
+                with _closing(train_batcher.global_arrays(epoch, start_step)) as batch_iter:
+                    for step, batch in enumerate(batch_iter, start=start_step):
+                        if step >= steps_per_epoch:
+                            break
+                        if cfg.profile and profiler is None and epoch == start_epoch \
+                                and step - start_step == 3:
+                            profiler = start_profiler(self.device.type)
+                        new_width = False
+                        if track_shapes:
+                            sig = tuple(tuple(v.shape) for v in batch.values())
+                            if sig not in seen_shapes:
+                                seen_shapes.add(sig)
+                                new_width = not first_step
+                        if new_width:
+                            # close the running window (the meter waits for
+                            # the card) before the new width's first step
+                            meter.end_window()
+                        with obs.span("train/step_dispatch"):
+                            metrics = self.train_step(batch)
+                        device_metrics.append(metrics)
+                        meter.window_step(gbs)
+                        if token_log:
+                            # one entry per dispatched step: the stager's
+                            # lookahead entry stays for the next step
+                            tok, dec = token_log.popleft()
+                            meter.window_tokens(tok * tok_scale, dec * tok_scale)
+                        obs.pulse()
+                        if first_step or new_width:
+                            # the first step builds the kernels and warms the
+                            # allocator, a new width's first step meets its
+                            # shapes: keep each (and its tokens) out of the
+                            # throughput window
+                            meter.exclude_step(gbs)
+                            meter.begin_window()
+                            first_step = False
+                        if profiler is not None and step - start_step == 6:
+                            self._stop_profiler(profiler)
+                            profiler = None
+                        want_log = cfg.log_every_steps and step % cfg.log_every_steps == 0
+                        want_ckpt = (checkpointer is not None and cfg.checkpoint_every_steps
+                                     and (step + 1) % cfg.checkpoint_every_steps == 0)
+                        if want_log or want_ckpt:
+                            for m in sync(device_metrics):
+                                losses.append(m["loss"])
+                                accs.append(m["accuracy"])
+                            device_metrics = []
+                        if want_log:
+                            logger.info(
+                                "epoch %d step %d/%d loss %.4f acc %.4f (%.1f samples/s/chip)",
+                                epoch, step, steps_per_epoch, losses[-1], accs[-1],
+                                meter.samples_per_sec_per_chip)
+                            gstep = epoch * steps_per_epoch + step
+                            obs.scalar("train/loss", losses[-1], gstep)
+                            obs.scalar("train/accuracy", accs[-1], gstep)
+                            obs.scalar("train/samples_per_sec_per_chip",
+                                       meter.samples_per_sec_per_chip, gstep)
+                        if want_ckpt:
+                            if cfg.check_divergence:
+                                self.check_replica_divergence()
+                            # checkpoint wall time is not step time: bracket it
+                            # out of the throughput window
+                            meter.end_window()
+                            with obs.span("train/checkpoint"):
+                                checkpointer.save(self.state_dict(), epoch=epoch,
+                                                  step_in_epoch=step + 1)
+                            meter.begin_window()
                 for m in sync(device_metrics):
                     losses.append(m["loss"])
                     accs.append(m["accuracy"])
@@ -546,8 +579,8 @@ class Trainer:
         totals = {"loss_sum": torch.zeros((), device=self.device),
                   "correct": torch.zeros((), device=self.device),
                   "count": torch.zeros((), device=self.device)}
-        with obs.span("eval/run"):
-            for batch in eval_batcher.global_arrays(epoch=0):
+        with obs.span("eval/run"), _closing(eval_batcher.global_arrays(epoch=0)) as batches:
+            for batch in batches:
                 for key, val in self.eval_step(batch).items():
                     totals[key] += val.float()
                 obs.pulse()

@@ -8,6 +8,13 @@ sink (``obs.MetricsSink``), every closed window emits the JAX meter's
 series (``train/samples_per_sec``, ``train/step_time_s`` and, with the
 FLOPs accounting of ``obs/flops.py``, ``train/model_flops``,
 ``train/achieved_tflops_per_chip`` and ``train/mfu``).
+
+Excluded steps: the trainer closes the window before a step that meets
+new shapes (the run's first step, and with length bucketing the first
+step of each new batch width) and, after it, counts it with
+:meth:`StepMeter.exclude_step` and opens a fresh window, so throughput and
+MFU read the steady-state steps only (the JAX meter's compile-step
+exclusion).
 """
 
 from __future__ import annotations

@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Parent-against-change training throughput of the PyTorch port on one card.
+
+    python3 scripts/torch_train_ab.py PARENT_DIR CHANGE_DIR [--pairs 10]
+
+Each directory holds an unpacked tree of this repository (``git archive``).
+Each run is one process in one tree: ``chip_smoke.py``'s train-phase CLI run
+(BERT-base widths, random weights, the CLI's defaults, 40 steps of the
+vendored reviews). Runs go in turns parent, change, change, parent, ...;
+each prints one JSON line, and a last line gives each tree's median and
+quartiles of train samples/s per GPU and how many pairs the change won.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+RUN = """
+import json, sys, tempfile
+from pathlib import Path
+import chip_smoke as c
+sys.path.insert(0, str(c.ROOT))
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+w = Path(tempfile.mkdtemp())
+res, trainer = cli.run(c._train_argv(w, w / "out", w / "model"))
+print(json.dumps({"samples_per_s": res["train"]["train_samples_per_second_per_chip"],
+                  "step_time_s": trainer.meter.avg_step_time}))
+"""
+
+
+def run(tree: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True,
+                          text=True, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--pairs", type=int, default=10)
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    seen = {"parent": [], "change": []}
+    pairs = []
+    for i in range(args.pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        got = {}
+        for name in order:
+            got[name] = run(getattr(args, name))["samples_per_s"]
+            seen[name].append(got[name])
+            print(json.dumps({"pair": i, "tree": name, "samples_per_s": got[name]}),
+                  flush=True)
+        pairs.append(got)
+    summary = {"card": card, "pairs": args.pairs,
+               "change_won": sum(p["change"] > p["parent"] for p in pairs)}
+    for name, xs in seen.items():
+        q = statistics.quantiles(xs, n=4) if len(xs) > 1 else [xs[0]] * 3
+        summary[name] = {"median": statistics.median(xs), "quartiles": [q[0], q[2]],
+                         "range": [min(xs), max(xs)]}
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

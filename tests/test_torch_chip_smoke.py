@@ -304,6 +304,43 @@ def test_gpt2_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     assert row["idle_share"] == "not measured" and row["train_steps"] == 2
 
 
+
+def test_data_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The data phase at a tiny width: the host build, the whole corpus
+    through both WordPiece cores, runs A (bucketed, autotuned prefetch), A'
+    (autotune off, the same losses) and C (streaming against materialized,
+    the same losses), the launch accounting and the printed line."""
+    monkeypatch.setattr(chip_smoke, "DATA_STEPS", 3)
+    monkeypatch.setattr(chip_smoke, "DATA_SHORT_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "DATA_EVAL_SAMPLES", 4)
+    monkeypatch.setattr(chip_smoke, "DATA_PROFILED_STEPS", 2)
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    row = chip_smoke.data_phase(tmp_path, "cpu rehearsal")
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(row))
+    assert row["corpus_rows"] == 5000 and row["cpp_equals_python"]
+    assert row["host_build_s"] > 0 and row["host_library"].startswith("libhstd_host-")
+    assert row["vocab_tokens"] < chip_smoke.BERT_BASE["vocab_size"]
+    assert 15 <= row["real_tokens_per_row"]["min"] < row["real_tokens_per_row"]["max"] <= 512
+    a = row["run_a"]
+    assert a["launches"] == {"flash_fwd": 2 * (3 + 1), "flash_bwd_dq": 2 * 3,
+                             "flash_bwd_dkv": 2 * 3}
+    assert sum(a["widths_seen"].values()) == 3
+    assert all(int(w) % 64 == 0 for w in a["widths_seen"])
+    assert a["real_over_512"] < a["real_over_padded"] <= 1
+    assert a["idle_share"] == "not measured" and a["achieved_depth"] >= 1
+    assert a["consumer_wait_s"] >= 0 and a["producer_wait_s"] >= 0
+    assert row["run_a_prime"]["depth"] == 2 and row["run_a_prime"]["losses_equal_run_a"]
+    assert row["run_c"]["losses_equal_materialized"]
+    # the vocab: specials first, then words, then characters and continuations
+    vocab = chip_smoke.review_vocab(["Naïve café, naive CAFE!"], n_words=1)
+    assert vocab == chip_smoke.SPECIAL_TOKENS + ["naive", "!", ",", "a", "c", "e", "f", "i",
+                                                 "n", "v", "##!", "##,", "##a", "##c",
+                                                 "##e", "##f", "##i", "##n", "##v"]
+    assert chip_smoke.FLASH_CASES[-2][:4] == ("bucket64_bf16", 8, 12, 64)
+    assert chip_smoke.FLASH_CASES[-1][:4] == ("bucket128_bf16", 8, 12, 128)
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvNS_4ArgsE' for 'sm_90a'

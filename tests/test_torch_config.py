@@ -2,7 +2,9 @@
 gives the same ``TrainConfig.to_dict()``, the same fields and defaults
 and the same validation errors, while what the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP slice (every flag still
-in ``_check_ported``, and not the four lifecycle flags the port runs)."""
+in ``_check_ported``, and not the four lifecycle flags or the two data
+flags the port runs: ``--streaming`` and ``--bucket_multiple`` parse as
+the JAX package's do and reach the CLI's batcher)."""
 
 import dataclasses
 
@@ -80,8 +82,8 @@ def test_config_fields_and_defaults_match_jax():
 
 UNPORTED = [["--task", "mlm"], ["--lora_rank", "4"], ["--num_experts", "4"],
             ["--tp", "2"], ["--pp", "2"], ["--fsdp", "2"], ["--sp", "2"],
-            ["--dcn_dp", "2"], ["--streaming", "true"],
-            ["--fused_vocab_ce", "true", "--task", "mlm"], ["--bucket_multiple", "128"],
+            ["--dcn_dp", "2"],
+            ["--fused_vocab_ce", "true", "--task", "mlm"],
             ["--optimizer", "adafactor"], ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
             ["--remat", "true", "--remat_policy", "dots"],
             ["--attention_impl", "ring"],
@@ -105,6 +107,58 @@ def test_lifecycle_flags_are_ported(argv):
     from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
 
     assert t_config.parse_args(argv).to_dict() == parse_args(argv).to_dict()
+
+
+DATA_FLAGS = [["--streaming", "true"], ["--bucket_multiple", "128"]]
+
+
+@pytest.mark.parametrize("argv", DATA_FLAGS, ids=lambda a: a[0])
+def test_data_flags_are_ported_and_reach_the_batcher(argv, tmp_path, monkeypatch):
+    """The flags parse as the JAX package's do, ``bucket_sizes`` is the
+    JAX schedule, and a CPU run of the CLI hands its train batcher a
+    streaming dataset, or the bucket widths."""
+    import json
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        VENDORED_REVIEWS,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.streaming import (
+        StreamingTextDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+    cfg = t_config.parse_args(argv)
+    assert cfg.to_dict() == parse_args(argv).to_dict()
+    for max_len in (64, 256, 512):
+        assert cfg.bucket_sizes(max_len) == parse_args(argv).bucket_sizes(max_len)
+    made = []
+
+    class Recorded(cli.ShardedBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(cli, "ShardedBatcher", Recorded)
+    (tmp_path / "cfg").mkdir()
+    (tmp_path / "cfg" / "config.json").write_text(json.dumps({
+        "model_type": "bert", "vocab_size": 512, "hidden_size": 32,
+        "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 64,
+        "max_position_embeddings": 256}))
+    cli.run(argv + ["--model_name_or_path", str(tmp_path / "cfg"), "--from_scratch", "true",
+                    "--dataset", "vendored_reviews", "--dataset_path", str(VENDORED_REVIEWS),
+                    "--max_train_samples", "16", "--max_eval_samples", "4", "--epochs", "1",
+                    "--steps_per_epoch", "2", "--dtype", "float32", "--max_seq_length", "256",
+                    "--output_data_dir", str(tmp_path / "out"),
+                    "--model_dir", str(tmp_path / "model"), "--device", "cpu"])
+    train, evaluation = made
+    if argv[0] == "--streaming":
+        assert isinstance(train.dataset, StreamingTextDataset) and train.bucket_sizes is None
+        assert not isinstance(evaluation.dataset, StreamingTextDataset)
+    else:
+        assert train.bucket_sizes == evaluation.bucket_sizes == [128, 256]
+        assert not isinstance(train.dataset, StreamingTextDataset)
 
 
 @pytest.mark.parametrize("argv", [["--task", "bogus"], ["--learning_rate", "-1"],
