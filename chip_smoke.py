@@ -50,7 +50,9 @@ failure raises and exits non-zero:
    and bf16, and in both dtypes a ragged S 200, causal, causal with
    window 64, a batch row that is all padding and a mask that takes a
    gradient; D 128 in bf16; S 64 and 128 in bf16 with a ragged mask (the data
-   phase's bucket widths). Error bounds (``_limit``): an fp32 output
+   phase's bucket widths); in bf16 the encoder tasks' shapes: 16 heads at S
+   384 (``qa384_bf16``, BERT-large QA) and S 64, 4 heads at S 512
+   (ELECTRA-small). Error bounds (``_limit``): an fp32 output
    (every output of an fp32 case; LSE and dmask of a bf16 one)
    ``1e-4 * max(1, max|want|)`` (the same fp32 arithmetic summed in
    another order, ~1e-6 relative); a bf16 output ``2^-6 * max|want|``
@@ -72,8 +74,10 @@ failure raises and exits non-zero:
    plain bf16 step's, every gradient but the key biases' no further from
    the fp32 plain step's than 2x the plain bf16 step's distance plus 1e-5
    of the global norm (the kernels add no error beyond bf16 rounding), the
-   key biases' noise below 2^-10 of the global norm on both sides; (b) the
-   training CLI at its defaults
+   key biases' noise below 2^-10 of the global norm on both sides; the same
+   pair of steps, held the same way, for RoBERTa-base, DistilBERT-base,
+   ELECTRA-small and ALBERT-base-v2 at their published widths and depth 2
+   (ALBERT: its one layer used twice); (b) the training CLI at its defaults
    (bf16 compute, sequence 512, batch 8, eval batch 4, AdamW) from a
    seeded BERT-base on the vendored reviews, with the launch counts
    ``flash_fwd == 12 x (train + eval steps)`` and ``flash_bwd_dq ==
@@ -113,7 +117,21 @@ failure raises and exits non-zero:
    run A', the same with ``HSTD_PREFETCH_AUTOTUNE=0`` for 20 steps, whose
    losses must equal A's bit for bit; run C, ``--streaming true`` without
    bucketing against the same run materialized, 20 steps each, losses equal
-   bit for bit;
+   bit for bit; (e) the encoder families and their tasks
+   (``encoder_tasks_phase``), each through the training CLI at published
+   widths, random weights, bf16 through the flash kernels: BERT-large QA
+   (``bert-large-uncased-whole-word-masking`` widths, sequence 384, doc
+   stride 128, batch 8, 30 steps, 64 answers decoded over their windows for
+   SQuAD's exact match and F1, then 6 more steps timed and profiled for the
+   idle share), the same widths at depth 2 on sequence 64 with stride 32
+   (contexts split into windows), RoBERTa-base token-cls on the synthetic
+   NER (9 labels, sequence 128, 30 steps), DistilBERT-base (30 steps),
+   ELECTRA-small and ALBERT-base-v2 (15 steps each) seq-cls on the reviews
+   at 512; each run's K1 launches equal its layers (ALBERT: uses of its one
+   layer) x its train, eval and QA-eval forwards (backward: x train steps),
+   its results files carry the JAX CLI's keys, its losses are finite and
+   its export reloads through ``from_pretrained`` to the same eval logits;
+   it prints samples/s, step time, MFU and the eval metrics;
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
@@ -160,6 +178,7 @@ failure raises and exits non-zero:
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -923,10 +942,16 @@ FLASH_CASES = [
     ("causal_window64_bf16", 8, 12, 512, 64, "bfloat16", False, True, 64, False, False),
     ("pad_row_bf16", 8, 12, 512, 64, "bfloat16", True, False, None, True, False),
     ("dmask_bf16", 8, 12, 512, 64, "bfloat16", True, False, None, False, True),
+    # the encoder_tasks phase's shapes: BERT-large QA at 384 and its
+    # windowed run at 64 (16 heads), ELECTRA-small's 4 heads at 512
+    ("qa384_bf16", 8, 16, 384, 64, "bfloat16", True, False, None, False, False),
+    ("qa64_bf16", 8, 16, 64, 64, "bfloat16", True, False, None, False, False),
+    ("electra512_bf16", 8, 4, 512, 64, "bfloat16", True, False, None, False, False),
     # the bucket widths the data phase's bucketed run trains at
     ("bucket64_bf16", 8, 12, 64, 64, "bfloat16", True, False, None, False, False),
     ("bucket128_bf16", 8, 12, 128, 64, "bfloat16", True, False, None, False, False),
 ]
+FLASH_QA = "qa384_bf16"         # the encoder_tasks phase's headline shape
 FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
 FLASH_COPIES = 2
 # the kernel each flash wrapper launches, by dtype (device time is read
@@ -1168,7 +1193,50 @@ CLI_STEPS = 40
 CLI_EVAL_SAMPLES = 64
 
 
-def _review_batch(n: int, seq: int, device, split: str = "train") -> dict:
+# the HF hub's config.json widths of the other encoder families this
+# script trains (random weights; depth cut where a phase says so)
+# bert-large-uncased-whole-word-masking (the reference's default model)
+BERT_LARGE = dict(BERT_BASE, hidden_size=1024, num_hidden_layers=24,
+                  num_attention_heads=16, intermediate_size=4096)
+ROBERTA_BASE = {"model_type": "roberta", "architectures": ["RobertaForMaskedLM"],
+                "vocab_size": 50265, "hidden_size": 768, "num_hidden_layers": 12,
+                "num_attention_heads": 12, "intermediate_size": 3072,
+                "max_position_embeddings": 514, "type_vocab_size": 1, "hidden_act": "gelu",
+                "layer_norm_eps": 1e-5, "hidden_dropout_prob": 0.1,
+                "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
+                "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2}
+DISTILBERT_BASE = {"model_type": "distilbert", "architectures": ["DistilBertForMaskedLM"],
+                   "vocab_size": 30522, "dim": 768, "n_layers": 6, "n_heads": 12,
+                   "hidden_dim": 3072, "max_position_embeddings": 512, "activation": "gelu",
+                   "dropout": 0.1, "attention_dropout": 0.1, "initializer_range": 0.02,
+                   "pad_token_id": 0}
+ELECTRA_SMALL = {"model_type": "electra", "architectures": ["ElectraForPreTraining"],
+                 "vocab_size": 30522, "embedding_size": 128, "hidden_size": 256,
+                 "num_hidden_layers": 12, "num_attention_heads": 4, "intermediate_size": 1024,
+                 "max_position_embeddings": 512, "type_vocab_size": 2, "hidden_act": "gelu",
+                 "layer_norm_eps": 1e-12, "hidden_dropout_prob": 0.1,
+                 "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
+                 "pad_token_id": 0}
+# albert-base-v2
+ALBERT_BASE = {"model_type": "albert", "architectures": ["AlbertForMaskedLM"],
+               "vocab_size": 30000, "embedding_size": 128, "hidden_size": 768,
+               "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+               "num_hidden_groups": 1, "inner_group_num": 1, "max_position_embeddings": 512,
+               "type_vocab_size": 2, "hidden_act": "gelu_new", "layer_norm_eps": 1e-12,
+               "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+               "classifier_dropout_prob": 0.1, "initializer_range": 0.02, "pad_token_id": 0}
+PARITY_DEPTH = 2                # the other families' parity steps: 2 layers (ALBERT: 2 uses)
+
+
+def _parity_families() -> list:
+    """(family, published config) of the families held by one fp32 and one
+    bf16 step each at ``PARITY_DEPTH``, beside BERT-base at full depth."""
+    return [("roberta", ROBERTA_BASE), ("distilbert", DISTILBERT_BASE),
+            ("electra", ELECTRA_SMALL), ("albert", ALBERT_BASE)]
+
+
+def _review_batch(n: int, seq: int, device, split: str = "train",
+                  vocab: int | None = None) -> dict:
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
@@ -1179,26 +1247,32 @@ def _review_batch(n: int, seq: int, device, split: str = "train") -> dict:
     )
 
     texts, labels = load_text_classification("vendored_reviews", split, max_samples=n)
-    enc = WordHashTokenizer(vocab_size=BERT_BASE["vocab_size"])(texts, max_length=seq)
+    enc = WordHashTokenizer(vocab_size=vocab or BERT_BASE["vocab_size"])(texts, max_length=seq)
     return {"input_ids": torch.from_numpy(enc["input_ids"]).long().to(device),
             "attention_mask": torch.from_numpy(enc["attention_mask"]).long().to(device),
             "labels": torch.tensor(labels).long().to(device)}
 
 
-def _bert_step(batch, impl: str, dtype) -> tuple[float, dict]:
-    """One train step of BERT-base from seed 0 (dropout 0): the loss and
-    every parameter's gradient (fp32 parameters)."""
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
-        bert_config_from_hf,
+def _encoder_step(family: str, hf: dict, batch, impl: str, dtype,
+                  layers: int | None = None) -> tuple[float, dict]:
+    """One seq-cls train step of ``family`` at the widths of ``hf`` (depth
+    ``layers`` when given) from seed 0, dropout 0: the loss and every
+    parameter's gradient (fp32 parameters)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
     )
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_bert
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
         seq_cls_loss,
     )
 
-    cfg = bert_config_from_hf(BERT_BASE, hidden_dropout=0.0, attention_dropout=0.0,
-                              attention_impl=impl, dtype=dtype)
-    model = init_bert(cfg, seed=0, device=DEVICE).train()
+    over = dict(hidden_dropout=0.0, attention_dropout=0.0, classifier_dropout=0.0,
+                attention_impl=impl, dtype=dtype)
+    if layers:
+        over["num_layers"] = layers
+    cfg = auto.CONFIG_BUILDERS[family](hf, **over)
+    model = init_encoder(auto.build_model(family, "seq-cls", cfg), seed=0,
+                         device=DEVICE).train()
     loss, _ = seq_cls_loss(model, batch)
     loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
@@ -1207,14 +1281,41 @@ def _bert_step(batch, impl: str, dtype) -> tuple[float, dict]:
 
 def train_parity_phase() -> dict:
     """(a) one fp32 and one bf16 BERT-base train step, flash kernels
-    against the plain attention. Returns the two rows by dtype."""
+    against the plain attention; then the same for RoBERTa-base,
+    DistilBERT-base, ELECTRA-small and ALBERT-base-v2 at their widths and
+    ``PARITY_DEPTH``. Returns the rows by dtype (``"<family>/<dtype>"``
+    for the other families)."""
     import torch
 
-    batch = _review_batch(8, 512, DEVICE)
-    steps = {(dt, impl): _bert_step(batch, impl, getattr(torch, dt))
-             for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    rows = {}
+    for family, hf, layers in [("bert", BERT_BASE, None)] + [
+            (f, hf, PARITY_DEPTH) for f, hf in _parity_families()]:
+        batch = _review_batch(8, 512, DEVICE, vocab=hf["vocab_size"])
+        steps = {(dt, impl): _encoder_step(family, hf, batch, impl, getattr(torch, dt), layers)
+                 for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        model = ("bert-base-uncased widths" if family == "bert"
+                 else f"{family} widths ({hf['model_type']} config, depth {layers})")
+        depth = layers or hf["num_hidden_layers"]
+        pair = _parity_rows(model, depth, steps, one_dof_apart=family != "bert")
+        rows.update(pair if family == "bert"
+                    else {f"{family}/{dt}": row for dt, row in pair.items()})
+    return rows
+
+
+def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = False) -> dict:
+    """Hold a model's fp32 flash step to its plain step and its bf16 flash
+    step to fp32 as close as the plain bf16 step; emit both rows.
+
+    With ``one_dof_apart`` the two-label classifier's bias is held to the
+    whole step's bf16 gate instead of its own: its gradient's two entries
+    are each other's negatives, so its distance from fp32 is one rounding
+    draw, and the ratio of two such draws of equal spread exceeds 2 about
+    30% of the time (RoBERTa's at depth 2 read 3.10 on the card while that
+    step's loss was closer to fp32 through the kernels than without)."""
+    import torch
+
     (loss32, g32), (loss_ref, ref) = steps[("float32", "flash")], steps[("float32", "xla")]
     rel_loss = abs(loss32 - loss_ref) / abs(loss_ref)
     # each parameter's relative L2 error. The key biases are held apart:
@@ -1227,7 +1328,7 @@ def train_parity_phase() -> dict:
     rel = {n: float((g - ref[n]).norm() / ref[n].norm())
            for n, g in g32.items() if n not in key_bias}
     worst = max(rel, key=rel.get)
-    row = {"phase": "train_parity", "model": "bert-base-uncased widths", "layers": 12,
+    row = {"phase": "train_parity", "model": model, "layers": layers,
            "batch": 8, "seq": 512, "dtype": "float32", "tf32": False,
            "loss_flash": loss32, "loss_plain": loss_ref,
            "loss_rel_err": rel_loss, "loss_rtol": PARITY_LOSS_RTOL,
@@ -1235,10 +1336,10 @@ def train_parity_phase() -> dict:
            "grad_rel_l2_tol": PARITY_GRAD_REL_L2, "params": len(rel),
            "key_bias_grad_norm_over_global": noise, "key_bias_tol": PARITY_KEY_BIAS}
     emit(row)
-    check(rel_loss <= PARITY_LOSS_RTOL, f"train parity: loss rel err {rel_loss}")
+    check(rel_loss <= PARITY_LOSS_RTOL, f"train parity ({model}): loss rel err {rel_loss}")
     check(rel[worst] <= PARITY_GRAD_REL_L2,
-          f"train parity: {worst} grad rel L2 {rel[worst]}")
-    check(noise <= PARITY_KEY_BIAS, f"train parity: key-bias gradient noise {noise}")
+          f"train parity ({model}): {worst} grad rel L2 {rel[worst]}")
+    check(noise <= PARITY_KEY_BIAS, f"train parity ({model}): key-bias gradient noise {noise}")
 
     # bf16: the flash step (tensor-core forward and dK/dV, CUDA-core dQ)
     # and the plain bf16 step, each against the fp32 plain step. Every
@@ -1255,21 +1356,32 @@ def train_parity_phase() -> dict:
     floor = PARITY_KEY_BIAS * total
     dist = {n: float((g16[n] - ref[n]).norm()) for n in ref}
     dist_plain = {n: float((ref16[n] - ref[n]).norm()) for n in ref}
-    ratio = {n: (dist[n] - floor) / dist_plain[n] if dist_plain[n] > 0 else
-             (0.0 if dist[n] <= floor else float("inf")) for n in ref if n not in key_bias}
+    one_dof = [n for n in ref if one_dof_apart and n.endswith("classifier.bias")
+               and ref[n].numel() == 2]
+
+    def over(d, d_plain):
+        return ((d - floor) / d_plain if d_plain > 0 else
+                (0.0 if d <= floor else float("inf")))
+
+    ratio = {n: over(dist[n], dist_plain[n]) for n in ref if n not in key_bias + one_dof}
     worst16 = max(ratio, key=ratio.get)
+    # the whole step: every gradient but the key biases' as one vector
+    step_ratio = over(math.sqrt(sum(dist[n] ** 2 for n in ref if n not in key_bias)),
+                      math.sqrt(sum(dist_plain[n] ** 2 for n in ref if n not in key_bias)))
     noise16 = {i: max(float(g[n].norm()) for n in key_bias) / total
                for i, g in (("flash", g16), ("plain", ref16))}
     rel16 = {n: float((g16[n] - ref16[n]).norm() / ref16[n].norm())
              for n in ref if n not in key_bias}
     loss_rel16 = abs(loss16 - loss16_ref) / abs(loss16_ref)
-    row16 = {"phase": "train_parity", "model": "bert-base-uncased widths", "layers": 12,
+    row16 = {"phase": "train_parity", "model": model, "layers": layers,
              "batch": 8, "seq": 512, "dtype": "bfloat16",
              "loss_flash": loss16, "loss_plain": loss16_ref, "loss_fp32": loss_ref,
              "loss_rel_err": loss_rel16, "loss_rtol": PARITY_BF16_LOSS_RTOL,
              "grad_dist_ratio_max": ratio[worst16], "grad_dist_ratio_worst_param": worst16,
              "grad_dist_ratio_tol": PARITY_BF16_FACTOR,
              "grad_dist_ratio_top5": sorted(ratio.values(), reverse=True)[:5],
+             "grad_dist_step_ratio": step_ratio,
+             "one_dof_held_apart": {n: over(dist[n], dist_plain[n]) for n in one_dof},
              "key_bias_grad_norm_over_global": noise16,
              "key_bias_tol": PARITY_BF16_KEY_BIAS,
              "flash_vs_fp32_rel_l2_max": max(dist[n] / ref[n].norm().item()
@@ -1278,12 +1390,16 @@ def train_parity_phase() -> dict:
                                              for n in ref if n not in key_bias),
              "flash_vs_plain_rel_l2_max": max(rel16.values()), "params": len(ratio)}
     emit(row16)
-    check(loss_rel16 <= PARITY_BF16_LOSS_RTOL, f"bf16 train parity: loss rel err {loss_rel16}")
+    check(loss_rel16 <= PARITY_BF16_LOSS_RTOL,
+          f"bf16 train parity ({model}): loss rel err {loss_rel16}")
     check(ratio[worst16] <= PARITY_BF16_FACTOR,
-          f"bf16 train parity: {worst16} gradient is {dist[worst16]} from fp32, plain "
-          f"bf16 {dist_plain[worst16]} (floor {floor})")
+          f"bf16 train parity ({model}): {worst16} gradient is {dist[worst16]} from fp32, "
+          f"plain bf16 {dist_plain[worst16]} (floor {floor})")
     check(max(noise16.values()) <= PARITY_BF16_KEY_BIAS,
-          f"bf16 train parity: key-bias gradient noise {noise16}")
+          f"bf16 train parity ({model}): key-bias gradient noise {noise16}")
+    check(step_ratio <= PARITY_BF16_FACTOR,
+          f"bf16 train parity ({model}): the step's gradient is {step_ratio}x as far "
+          "from fp32 as the plain bf16 step's")
     return {"float32": row, "bfloat16": row16}
 
 
@@ -2082,6 +2198,238 @@ def data_phase(work: Path, card: str) -> dict:
     return row
 
 
+# -- the encoder families and their tasks -------------------------------------
+
+ENCODER_EVAL_SAMPLES = 64       # 16 eval steps at the eval batch of 4
+QA_EVAL_SAMPLES = 64            # --eval_qa_samples: answers decoded over their windows
+QA_WINDOWED_DEPTH = 2
+EVAL_TASK_KEYS = {"seq-cls": [], "token-cls": ["eval_f1"],
+                  "qa": ["eval_exact_match", "eval_f1"]}
+ENCODER_PROFILED_STEPS = 6
+
+
+def _encoder_runs() -> list:
+    """The runs of the ``encoder_tasks`` phase: (name, family, published
+    config, task, train steps, max_seq_length, extra CLI arguments), each
+    at the CLI's other defaults (bf16, batch 8, eval batch 4, AdamW)."""
+    qa = ["--dataset", "synthetic", "--eval_qa_samples", str(QA_EVAL_SAMPLES)]
+    reviews = ["--dataset", "vendored_reviews"]
+    return [
+        ("qa_bert_large", "bert", BERT_LARGE, "qa", 30, 384,
+         qa + ["--qa_doc_stride", "128"]),
+        ("qa_windowed", "bert", dict(BERT_LARGE, num_hidden_layers=QA_WINDOWED_DEPTH), "qa",
+         10, 64, qa + ["--qa_doc_stride", "32"]),
+        ("token_cls_roberta", "roberta", ROBERTA_BASE, "token-cls", 30, 128,
+         ["--dataset", "synthetic", "--num_labels", "9"]),
+        ("seq_cls_distilbert", "distilbert", DISTILBERT_BASE, "seq-cls", 30, 512, reviews),
+        ("seq_cls_electra", "electra", ELECTRA_SMALL, "seq-cls", 15, 512, reviews),
+        ("seq_cls_albert", "albert", ALBERT_BASE, "seq-cls", 15, 512, reviews),
+    ]
+
+
+def _head_out(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _encoder_run(work: Path, spec, peak) -> tuple:
+    """One run of the training CLI, counted: the launches (K1 in every
+    layer of every train, eval and QA-eval forward), the results files'
+    keys, finite losses, the export reloaded to the same eval logits."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import load_qa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    name, family, hf, task, steps, seq, extra = spec
+    cfg_dir, out_dir, model_dir = work / name / "config", work / name / "out", work / name / "model"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(hf))
+    argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true", "--task", task,
+            "--epochs", "1", "--steps_per_epoch", str(steps), "--max_seq_length", str(seq),
+            "--max_eval_samples", str(ENCODER_EVAL_SAMPLES), "--output_data_dir", str(out_dir),
+            "--model_dir", str(model_dir), "--log_every_steps", "10", "--device", DEVICE] + extra
+    # the meter counts real tokens (MFU) when a peak is named; the table's
+    # peak for this card, so no telemetry files are written
+    saved = os.environ.get("HSTD_PEAK_TFLOPS")
+    if peak:
+        os.environ["HSTD_PEAK_TFLOPS"] = str(peak)
+    for k in _K1:
+        getattr(fa, k).launches = 0
+    t0 = time.perf_counter()
+    try:
+        results, trainer = cli.run(argv)
+        _sync()
+    finally:
+        if saved is None:
+            os.environ.pop("HSTD_PEAK_TFLOPS", None)
+        else:
+            os.environ["HSTD_PEAK_TFLOPS"] = saved
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fa, k).launches for k in _K1}
+    tc, cfg = trainer.config, trainer.model.config
+    max_len = min(seq, cfg.max_position_embeddings)
+    tokenizer = load_tokenizer(str(cfg_dir), vocab_size=cfg.vocab_size)
+    eval_ds = cli.build_dataset(tc, tokenizer, "test", max_len, tc.max_eval_samples, cfg)
+    eval_steps = math.ceil(len(eval_ds) / tc.eval_batch_size)
+    qa_windows = qa_batches = 0
+    if task == "qa":
+        q, c, s_, a = load_qa(tc.dataset, "test", max_samples=tc.eval_qa_samples, seed=tc.seed)
+        qa_windows = len(tokenizer.encode_qa(q, c, s_, a, max_length=max_len,
+                                             doc_stride=tc.qa_doc_stride)["input_ids"])
+        qa_batches = math.ceil(qa_windows / tc.eval_batch_size)
+    L = cfg.num_layers
+    train_steps = trainer.step
+    check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+          and tc.train_batch_size == 8 and tc.eval_batch_size == 4,
+          f"{name}: the CLI did not run at its defaults")
+    check(train_steps == steps, f"{name}: {train_steps} train steps, wanted {steps}")
+    want = {"flash_fwd": L * (train_steps + eval_steps + qa_batches),
+            "flash_bwd_dq": L * train_steps, "flash_bwd_dkv": L * train_steps}
+    check(launches == want, f"{name}: launches {launches}, wanted {want} ({L} layers x "
+          f"({train_steps} train + {eval_steps} eval + {qa_batches} QA-eval steps))")
+    hist, ev = results["train"], results["eval"]
+    check(all(math.isfinite(x) for x in hist["loss"])
+          and all(math.isfinite(v) for v in ev.values()), f"{name}: a non-finite result")
+    tr = read_results_file(str(out_dir / "train_results.txt"))
+    er = read_results_file(str(out_dir / "eval_results.txt"))
+    mfu_keys = ["train_achieved_tflops_per_chip", "train_mfu"] if peak else []
+    check(list(tr) == TRAIN_RESULT_KEYS + mfu_keys, f"{name}: train_results.txt keys {list(tr)}")
+    check(list(er) == EVAL_RESULT_KEYS + EVAL_TASK_KEYS[task],
+          f"{name}: eval_results.txt keys {list(er)}")
+
+    # the export reloads through from_pretrained to the same eval logits
+    rows = eval_ds[np.arange(4)]
+    batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
+             for k, v in rows.items() if k in ("input_ids", "attention_mask", "token_type_ids")}
+    reloaded, fam, _ = auto.from_pretrained(str(model_dir), task=task,
+                                            num_labels=tc.num_labels, dtype=torch.bfloat16,
+                                            device=DEVICE, attention_impl="flash")
+    model = trainer.model.eval()
+    with torch.no_grad():
+        a_ = _head_out(model(**batch))
+        b_ = _head_out(reloaded(**batch))
+    check(fam == family and all(torch.equal(x, y) for x, y in zip(a_, b_)),
+          f"{name}: the reloaded export gives other logits")
+    del reloaded, a_, b_
+    row = {"phase": "encoder_tasks", "run": name, "family": family, "task": task,
+           "hidden": cfg.hidden_size, "layers": L, "heads": cfg.num_heads,
+           "embedding_size": cfg.embedding_size, "vocab": cfg.vocab_size, "seq": max_len,
+           "batch": tc.train_batch_size, "dtype": "bfloat16", "dataset": tc.dataset,
+           "train_steps": train_steps, "eval_steps": eval_steps, "eval_rows": len(eval_ds),
+           "qa_eval_examples": tc.eval_qa_samples if task == "qa" else None,
+           "qa_eval_windows": qa_windows if task == "qa" else None,
+           "launches": launches, "loss": hist["loss"], "eval": ev,
+           "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
+           "step_time_s": trainer.meter.avg_step_time,
+           "train_mfu": hist.get("train_mfu", "not measured"),
+           "train_achieved_tflops_per_chip": hist.get("train_achieved_tflops_per_chip",
+                                                      "not measured"),
+           "cli_wall_s": wall}
+    return row, trainer, batch
+
+
+def encoder_tasks_phase(work: Path, card: str) -> dict:
+    """(e) the encoder families through the training CLI at their
+    published widths, random weights from seed 42, bf16 through the flash
+    kernels: BERT-large QA (sequence 384, doc stride 128, answers decoded
+    over their windows: EM/F1; then ``ENCODER_PROFILED_STEPS`` more train
+    steps timed unprofiled and profiled: device busy, the idle share, the
+    three bf16 kernels named); BERT-large widths at depth 2 on sequence 64
+    with stride 32, so that contexts split into windows; RoBERTa-base
+    token-cls (synthetic NER, 9 labels, sequence 128); DistilBERT-base,
+    ELECTRA-small and ALBERT-base-v2 seq-cls on the reviews at 512. Each
+    run's K1 launches equal its count per step (ALBERT: 12 uses of its one
+    layer), and each export reloads to the same eval logits. Returns the
+    rows by run."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+
+    work.mkdir(parents=True, exist_ok=True)
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    rows = {}
+    for spec in _encoder_runs():
+        row, trainer, batch = _encoder_run(work, spec, peak)
+        name, task = spec[0], spec[3]
+        if task == "qa":
+            check(row["qa_eval_windows"] >= row["qa_eval_examples"],
+                  f"{name}: {row['qa_eval_windows']} windows")
+        if name == "qa_windowed":
+            # contexts of 30-80 words in rows of 64: most split into windows
+            check(row["qa_eval_windows"] > row["qa_eval_examples"],
+                  f"{name}: no context split into windows")
+        if name == "qa_bert_large":
+            row.update(_encoder_idle(trainer, spec))
+        row["card"] = card
+        emit(row)
+        rows[name] = row
+        del trainer, batch
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _encoder_idle(trainer, spec) -> dict:
+    """``ENCODER_PROFILED_STEPS`` more train steps on one training batch:
+    wall unprofiled, then device busy time profiled; the profile must name
+    the three bf16 flash kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+    name, seq = spec[0], spec[5]
+    tc, cfg = trainer.config, trainer.model.config
+    tokenizer = load_tokenizer(tc.model_name_or_path, vocab_size=cfg.vocab_size)
+    ds = cli.build_dataset(tc, tokenizer, "train", seq, 8, cfg)
+    b = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
+         for k, v in ds[np.arange(8)].items()}
+    extra_batches = [b] * ENCODER_PROFILED_STEPS
+    _sync()
+    t1 = time.perf_counter()
+    for b_ in extra_batches:
+        trainer.train_step(b_)
+    _sync()
+    steps_wall = time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                                  else ProfilerActivity.CPU]) as prof:
+        for b_ in extra_batches:
+            trainer.train_step(b_)
+        _sync()
+    by_kernel = _device_seconds_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    flash_s = {k: sum(v for n, v in by_kernel.items()
+                      if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n) for k in _K1}
+    if DEVICE == "cuda":
+        for k, sec in flash_s.items():
+            check(sec > 0, f"{name}: no {FLASH_KERNEL_NAMES[(k, 'bfloat16')]} in the profile")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {"profiled_steps": ENCODER_PROFILED_STEPS, "steps_wall_s": steps_wall,
+            "step_time_unprofiled_s": steps_wall / ENCODER_PROFILED_STEPS,
+            "device_busy_s": busy if busy else "not measured",
+            "busy_per_step_s": busy / ENCODER_PROFILED_STEPS if busy else "not measured",
+            "idle_share": 1.0 - busy / steps_wall if busy else "not measured",
+            "flash_kernel_s": flash_s,
+            "flash_share_of_busy": sum(flash_s.values()) / busy if busy else "not measured",
+            "top_kernels_s": [[k[:80], v] for k, v in top]}
+
+
 # -- vocab CE kernels ----------------------------------------------------------
 
 VOCAB_CASES = [
@@ -2567,6 +2915,8 @@ def main() -> int:
         train_lifecycle_phase(Path(work) / "lifecycle", card, Path(work) / "train" / "model")
         torch.cuda.empty_cache()
         data_phase(Path(work) / "data", card)
+        torch.cuda.empty_cache()
+        encoders = encoder_tasks_phase(Path(work) / "encoders", card)
     torch.cuda.empty_cache()
     vocab = vocab_ce_phase()
     gpt2_parity_phase()
@@ -2578,12 +2928,17 @@ def main() -> int:
     flash_rows = []
     for kname in _K1:
         r = flash[(FLASH_MAIN, kname)]
+        qa = flash[(FLASH_QA, kname)]
         b = build[(r["kernel_name"], r["D"], r["dtype"])]
         flash_rows.append({
             "name": kname, "route": "cuda",
             "source": FLASH_TC_SOURCE if "_tc_" in r["kernel_name"] else FLASH_SOURCE,
             "kernel": r["kernel_name"],
             "replaces": FLASH_REPLACES[kname], "launches": train["launches"][kname],
+            "launches_by_path": {"bert_cli": train["launches"][kname],
+                                 **{n: row["launches"][kname] for n, row in encoders.items()}},
+            FLASH_QA: {k: qa[k] for k in ("max_abs_err", "kernel_ms", "kernel_event_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

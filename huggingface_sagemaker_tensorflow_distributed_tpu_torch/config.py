@@ -276,8 +276,9 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.task not in ("seq-cls", "causal-lm"), f"task={self.task!r}",
-             "B/C (other tasks)"),
+            (self.task in ("mlm", "rtd"), f"task={self.task!r}",
+             "B (MLM and replaced-token detection)"),
+            (self.task == "seq2seq", "task='seq2seq'", "C (seq2seq)"),
             (self.lora_rank > 0, "lora_rank>0", "B (LoRA)"),
             (self.num_experts > 0, "num_experts>0", "C (MoE)"),
             (self.packed_sequences or self.segment_packing,

@@ -114,6 +114,43 @@ class ArrayDataset:
         labels = np.where(mask > 0, ids, -100).astype(np.int32)
         return cls({"input_ids": ids, "attention_mask": mask, "labels": labels})
 
+    @classmethod
+    def from_token_classification(cls, tokenizer, sentences, word_tags,
+                                  max_length: int = 512) -> "ArrayDataset":
+        """Word-level NER -> token-level labels: each word's first subword
+        takes its tag; continuation subwords, specials and pads take -100
+        (the HF convention the token-cls loss masks on)."""
+        enc = tokenizer.encode_words(sentences, max_length=max_length)
+        word_ids = enc["word_ids"]
+        n, L = word_ids.shape
+        labels = np.full((n, L), -100, np.int32)
+        for r in range(n):
+            tags = word_tags[r]
+            prev = -1
+            for t in range(L):
+                w = word_ids[r, t]
+                if w < 0 or w >= len(tags):
+                    continue
+                if w != prev:
+                    labels[r, t] = tags[w]
+                prev = w
+        return cls({"input_ids": enc["input_ids"], "attention_mask": enc["attention_mask"],
+                    "labels": labels})
+
+    @classmethod
+    def from_qa(cls, tokenizer, questions, contexts, start_chars, answer_texts,
+                max_length: int = 512, doc_stride: int = 0) -> "ArrayDataset":
+        """SQuAD-style spans -> start/end token positions. ``doc_stride`` >
+        0 trains on overlapping context windows (HF run_qa) instead of
+        truncating long contexts: each window is a row of its own,
+        labelled with the answer's tokens when it holds the whole answer
+        and with CLS (0) when not."""
+        enc = dict(tokenizer.encode_qa(questions, contexts, start_chars, answer_texts,
+                                       max_length=max_length, doc_stride=doc_stride))
+        # the window -> example map is for eval; training rows stand alone
+        enc.pop("example_ids", None)
+        return cls(enc)
+
 
 def _rank_and_world() -> tuple[int, int]:
     import torch.distributed as dist

@@ -8,28 +8,33 @@ directory, builds the model with fresh seeded weights, and overlays
 checkpoint keep their fresh weights; a missing backbone weight raises).
 ``save_pretrained`` writes ``model.safetensors`` (metadata
 ``{"format": "pt"}``) and ``config.json`` in HF layout, from rank 0 only,
-readable by the JAX package's ``from_pretrained`` and the reverse. The
-``bert`` family with task ``seq-cls`` and the ``gpt2`` family with task
-``causal-lm`` are ported so far.
+readable by the JAX package's ``from_pretrained`` and the reverse. Ported
+so far: the encoder families ``bert``, ``roberta``, ``distilbert``,
+``electra`` and ``albert`` with tasks ``seq-cls``, ``token-cls`` and
+``qa`` (``MODEL_REGISTRY``), and ``gpt2`` with task ``causal-lm``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
 import torch
 
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
-    bert_config_from_hf,
-    bert_config_to_hf,
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import (
+    albert,
+    bert,
+    distilbert,
+    electra,
+    roberta,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
-    bert_from_hf,
-    bert_to_hf,
+    encoder_from_hf,
+    encoder_to_hf,
     gpt2_from_hf,
     gpt2_to_hf,
-    init_bert,
+    init_encoder,
     init_gpt2,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
@@ -47,13 +52,54 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import
 
 logger = get_logger(__name__)
 
-# the JAX package's families; only those with a model here load
-_KNOWN_FAMILIES = ("bert", "roberta", "distilbert", "electra", "albert", "t5",
-                   "gpt2", "llama", "deberta-v2", "bart", "mbart")
+# (family, task) -> encoder model class: the JAX package's registry, for
+# the tasks the port runs (GPT-2 causal-LM is built by ``init_gpt2``)
+MODEL_REGISTRY = {
+    ("bert", "seq-cls"): bert.BertForSequenceClassification,
+    ("bert", "token-cls"): bert.BertForTokenClassification,
+    ("bert", "qa"): bert.BertForQuestionAnswering,
+    ("roberta", "seq-cls"): roberta.RobertaForSequenceClassification,
+    ("roberta", "token-cls"): roberta.RobertaForTokenClassification,
+    ("roberta", "qa"): roberta.RobertaForQuestionAnswering,
+    ("distilbert", "seq-cls"): distilbert.DistilBertForSequenceClassification,
+    ("distilbert", "token-cls"): distilbert.DistilBertForTokenClassification,
+    ("distilbert", "qa"): distilbert.DistilBertForQuestionAnswering,
+    ("electra", "seq-cls"): electra.ElectraForSequenceClassification,
+    ("electra", "token-cls"): electra.ElectraForTokenClassification,
+    ("electra", "qa"): electra.ElectraForQuestionAnswering,
+    ("albert", "seq-cls"): albert.AlbertForSequenceClassification,
+    ("albert", "token-cls"): albert.AlbertForTokenClassification,
+    ("albert", "qa"): albert.AlbertForQuestionAnswering,
+}
+
+CONFIG_BUILDERS = {
+    "bert": bert.bert_config_from_hf,
+    "roberta": roberta.roberta_config_from_hf,
+    "distilbert": distilbert.distilbert_config_from_hf,
+    "electra": electra.electra_config_from_hf,
+    "albert": albert.albert_config_from_hf,
+    "gpt2": gpt2_config_from_hf,
+}
+
+# the port's config -> the HF config.json the JAX package exports
+HF_CONFIG_EXPORTERS = {
+    "bert": bert.bert_config_to_hf,
+    "roberta": roberta.roberta_config_to_hf,
+    "distilbert": distilbert.distilbert_config_to_hf,
+    "electra": electra.electra_config_to_hf,
+    "albert": albert.albert_config_to_hf,
+    "gpt2": gpt2_config_to_hf,
+}
+
+# the JAX package's families the port has no model for yet, by the
+# ROADMAP queue 1 item that ports them
+_UNPORTED_FAMILIES = {"deberta-v2": "item 6", "t5": "item 9", "bart": "item 9",
+                      "mbart": "item 9", "llama": "item 9"}
 _FAMILY_ALIASES = {"xlm-roberta": "roberta", "camembert": "roberta",
                    "mistral": "llama", "qwen2": "llama", "gemma": "llama",
                    "mixtral": "llama"}
-_PORTED = ("bert", "gpt2")
+# tasks the JAX package runs that the port does not yet
+_UNPORTED_TASKS = {"mlm": "items 6-7", "rtd": "item 6", "seq2seq": "item 9"}
 _GENERATION_KEYS = ("forced_bos_token_id", "forced_eos_token_id",
                     "decoder_start_token_id", "bos_token_id",
                     "eos_token_id", "pad_token_id")
@@ -75,18 +121,33 @@ def load_hf_config(model_dir: str) -> dict:
 
 
 def detect_family(hf_config: dict) -> str:
-    """The architecture family of an HF config; ``bert`` and ``gpt2`` are
-    ported."""
+    """The architecture family of an HF config (aliases such as
+    ``xlm-roberta`` map to theirs); a family the port has no model for
+    raises ``NotImplementedError`` naming its ROADMAP item."""
     mt = hf_config.get("model_type", "")
     mt = _FAMILY_ALIASES.get(mt, mt)
-    if mt not in _KNOWN_FAMILIES:
-        raise ValueError(f"unsupported model_type {mt!r} (supported: "
-                         f"{sorted(_KNOWN_FAMILIES) + sorted(_FAMILY_ALIASES)})")
-    if mt not in _PORTED:
+    if mt in CONFIG_BUILDERS:
+        return mt
+    if mt in _UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {mt!r} is not ported to the PyTorch package yet: "
-            "ROADMAP slices B/C")
-    return mt
+            f"ROADMAP queue 1, {_UNPORTED_FAMILIES[mt]}")
+    raise ValueError(f"unsupported model_type {mt!r} (supported: "
+                     f"{sorted(CONFIG_BUILDERS) + sorted(_FAMILY_ALIASES)})")
+
+
+def build_model(family: str, task: str, config, num_labels: int = 2):
+    """The registry's encoder model for ``(family, task)`` (the JAX
+    package's ``build_model``): QA takes no ``num_labels``."""
+    if task in _UNPORTED_TASKS:
+        raise NotImplementedError(f"task {task!r} is not ported to the PyTorch package "
+                                  f"yet: ROADMAP queue 1, {_UNPORTED_TASKS[task]}")
+    cls = MODEL_REGISTRY.get((family, task))
+    if cls is None:
+        raise ValueError(f"no model for family={family!r} task={task!r}")
+    if task == "qa":
+        return cls(config)
+    return cls(config, num_labels=num_labels)
 
 
 def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
@@ -102,23 +163,23 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
             "e.g. produced by `save_pretrained`.")
     hf_config = load_hf_config(model_name_or_path)
     family = detect_family(hf_config)
-    if family == "gpt2":
-        if task != "causal-lm":
-            raise ValueError(
-                f"{model_name_or_path!r} is a gpt2 (decoder-only) checkpoint; it "
-                f"only supports task='causal-lm', got task={task!r}")
-        config = gpt2_config_from_hf(hf_config, dtype=dtype, param_dtype=param_dtype,
+    if family == "gpt2" and task != "causal-lm":
+        raise ValueError(
+            f"{model_name_or_path!r} is a gpt2 (decoder-only) checkpoint; it "
+            f"only supports task='causal-lm', got task={task!r}")
+    if family in ("bert", "albert") and task != "seq-cls":
+        # HF builds the Bert/Albert QA and token-cls models with
+        # add_pooling_layer=False; only the seq-cls head uses the pooler
+        config_overrides.setdefault("use_pooler", False)
+    config = CONFIG_BUILDERS[family](hf_config, dtype=dtype, param_dtype=param_dtype,
                                      **config_overrides)
+    if family == "gpt2":
         model = init_gpt2(config, seed=seed, device=device, trainable=True)
         from_hf = gpt2_from_hf
     else:
-        if task != "seq-cls":
-            raise NotImplementedError(f"task {task!r} is not ported to the PyTorch "
-                                      "package yet: ROADMAP slices B/C")
-        config = bert_config_from_hf(hf_config, dtype=dtype, param_dtype=param_dtype,
-                                     **config_overrides)
-        model = init_bert(config, seed=seed, device=device, num_labels=num_labels)
-        from_hf = bert_from_hf
+        model = init_encoder(build_model(family, task, config, num_labels), seed=seed,
+                             device=device)
+        from_hf = functools.partial(encoder_from_hf, family=family)
     weights = os.path.join(model_name_or_path, "model.safetensors")
     if from_scratch or not os.path.exists(weights):
         logger.info("initialized %s (%s) from scratch", model_name_or_path, family)
@@ -145,16 +206,15 @@ def save_pretrained(output_dir: str, model, family: str, config,
                     host0_only: bool = True) -> None:
     """Export ``model`` in HF layout (``model.safetensors`` +
     ``config.json``), from rank 0 only unless ``host0_only`` is False."""
-    if family not in _PORTED:
+    if family not in HF_CONFIG_EXPORTERS:
         raise NotImplementedError(f"export of family {family!r} is not ported yet")
     if host0_only and process_index() != 0:
         return
     os.makedirs(output_dir, exist_ok=True)
-    to_hf, config_to_hf = ((gpt2_to_hf, gpt2_config_to_hf) if family == "gpt2"
-                           else (bert_to_hf, bert_config_to_hf))
-    state = to_hf({k: v.detach() for k, v in model.state_dict().items()})
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    state = gpt2_to_hf(state) if family == "gpt2" else encoder_to_hf(state, family)
     save_file(state, os.path.join(output_dir, "model.safetensors"),
               metadata={"format": "pt"})
     with open(os.path.join(output_dir, "config.json"), "w") as f:
-        json.dump(config_to_hf(config), f, indent=2)
+        json.dump(HF_CONFIG_EXPORTERS[family](config), f, indent=2)
     logger.info("exported HF-layout checkpoint to %s", output_dir)

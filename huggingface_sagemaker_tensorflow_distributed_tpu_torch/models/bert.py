@@ -1,7 +1,10 @@
-"""BERT for sequence classification (counterpart of the JAX package's
-``models/bert.py``: ``bert_config_from_hf`` and
-``BertForSequenceClassification``). The other BERT heads (token-cls, QA,
-masked LM) come with their tasks (ROADMAP slice B)."""
+"""BERT and its task heads (counterpart of the JAX package's
+``models/bert.py``: ``bert_config_from_hf``,
+``BertForSequenceClassification``, ``BertForTokenClassification`` and
+``BertForQuestionAnswering``). The token-cls and QA heads are the same
+modules for every encoder family; a family with its own trunk (ALBERT)
+subclasses them with another ``backbone_cls``. The masked-LM head comes
+with MLM (ROADMAP queue 1, items 6-7)."""
 
 from __future__ import annotations
 
@@ -51,18 +54,63 @@ def bert_config_to_hf(c: EncoderConfig) -> dict:
     }
 
 
+def _head_dropout(config: EncoderConfig) -> float:
+    return config.hidden_dropout
+
+
 class BertForSequenceClassification(nn.Module):
     """Backbone -> pooler -> dropout -> linear classifier (HF head
     structure). Logits come out in the config's compute dtype."""
+
+    backbone_cls = EncoderBackbone
+    head_dropout = staticmethod(_head_dropout)
 
     def __init__(self, config: EncoderConfig, num_labels: int = 2):
         super().__init__()
         self.config = config
         self.num_labels = num_labels
-        self.backbone = EncoderBackbone(config)
-        self.dropout = nn.Dropout(config.hidden_dropout)
+        self.backbone = self.backbone_cls(config)
+        self.dropout = nn.Dropout(self.head_dropout(config))
         self.classifier = Dense(config, config.hidden_size, num_labels)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         _, pooled = self.backbone(input_ids, attention_mask, token_type_ids)
         return self.classifier(self.dropout(pooled))
+
+
+class BertForTokenClassification(nn.Module):
+    """Backbone -> dropout -> linear classifier on every token:
+    ``[B, S, num_labels]`` logits (CoNLL NER's 9 tags by default)."""
+
+    backbone_cls = EncoderBackbone
+    head_dropout = staticmethod(_head_dropout)
+
+    def __init__(self, config: EncoderConfig, num_labels: int = 9):
+        super().__init__()
+        self.config = config
+        self.num_labels = num_labels
+        self.backbone = self.backbone_cls(config)
+        self.dropout = nn.Dropout(self.head_dropout(config))
+        self.classifier = Dense(config, config.hidden_size, num_labels)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+        return self.classifier(self.dropout(seq))
+
+
+class BertForQuestionAnswering(nn.Module):
+    """Start and end span logits (SQuAD; HF ``qa_outputs``): a
+    ``(start [B, S], end [B, S])`` pair."""
+
+    backbone_cls = EncoderBackbone
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        self.backbone = self.backbone_cls(config)
+        self.qa_outputs = Dense(config, config.hidden_size, 2)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+        logits = self.qa_outputs(seq)
+        return logits[..., 0], logits[..., 1]

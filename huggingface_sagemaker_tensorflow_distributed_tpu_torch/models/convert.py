@@ -8,16 +8,18 @@ made at random from a seed, or mapped to and from the HF key layout.
   an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``
   the module list entry ``h.<i>``/``layer.<i>``. Both packages then
   compute the same function.
-- :func:`init_gpt2` and :func:`init_bert` are the counterparts of the JAX
+- :func:`init_gpt2` and :func:`init_encoder` (any encoder family and head;
+  :func:`init_bert` for BERT seq-cls) are the counterparts of the JAX
   package's ``models/auto.py::init_params``: normal(initializer_range)
   embeddings and dense kernels (GPT-2's residual projections at
   ``initializer_range / sqrt(2 * layers)``), zero biases, unit LayerNorm
   scales. The numbers come from a ``torch.Generator``, so they are not
   JAX's numbers for the same seed.
-- :func:`bert_to_hf` / :func:`bert_from_hf` and :func:`gpt2_to_hf` /
-  :func:`gpt2_from_hf` map a ``state_dict`` to the HF layout and back, with
-  the JAX package's ``params_to_hf`` / ``hf_to_params`` names for families
-  ``bert`` and ``gpt2``. HF's GPT-2 ``Conv1D`` stores ``[in, out]``, so the
+- :func:`encoder_to_hf` / :func:`encoder_from_hf` (families ``bert``,
+  ``roberta``, ``distilbert``, ``electra``, ``albert``; ``bert_*`` are
+  BERT's) and :func:`gpt2_to_hf` / :func:`gpt2_from_hf` map a
+  ``state_dict`` to the HF layout and back, with the JAX package's
+  ``params_to_hf`` / ``hf_to_params`` names. HF's GPT-2 ``Conv1D`` stores ``[in, out]``, so the
   port's ``Linear.weight [out, in]`` is transposed on the way (the JAX
   package's ``[in, out]`` kernels are not); ``lm_head`` is tied to ``wte``
   and is not written.
@@ -95,36 +97,86 @@ def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None,
     return model.to(dev).eval().requires_grad_(trainable)
 
 
-def init_bert(cfg, seed: int = 0, device=None, num_labels: int = 2):
-    """A ``BertForSequenceClassification`` with random weights from
-    ``seed`` (normal(initializer_range) dense kernels and embeddings, zero
-    biases, unit LayerNorm scales), in eval mode on ``device`` (CUDA
-    unless the caller names another; raises without it). Weights are drawn
-    on the CPU, so a seed gives the same model on every device."""
+def init_encoder(model, seed: int = 0, device=None):
+    """An encoder-family model (any family, any head) with random weights
+    from ``seed``: normal(initializer_range) dense kernels and embeddings,
+    zero biases, unit LayerNorm scales; in eval mode on ``device`` (CUDA
+    unless the caller names another; raises without it). Weights are
+    drawn on the CPU, so a seed gives the same model on every device."""
     dev = resolve_device(device)
-    model = _init_normal(BertForSequenceClassification(cfg, num_labels=num_labels),
-                         lambda name: cfg.initializer_range, seed)
-    return model.to(dev).eval()
+    std = model.config.initializer_range
+    return _init_normal(model, lambda name: std, seed).to(dev).eval()
 
 
-# (port module path, HF module path); ``{}`` is a layer index
-_BERT_NAMES = [
-    ("backbone.embeddings.word_embeddings", "bert.embeddings.word_embeddings"),
-    ("backbone.embeddings.position_embeddings", "bert.embeddings.position_embeddings"),
-    ("backbone.embeddings.token_type_embeddings", "bert.embeddings.token_type_embeddings"),
-    ("backbone.embeddings.embeddings_ln", "bert.embeddings.LayerNorm"),
-    ("backbone.encoder.layer.{}.attention.query", "bert.encoder.layer.{}.attention.self.query"),
-    ("backbone.encoder.layer.{}.attention.key", "bert.encoder.layer.{}.attention.self.key"),
-    ("backbone.encoder.layer.{}.attention.value", "bert.encoder.layer.{}.attention.self.value"),
-    ("backbone.encoder.layer.{}.attention.attention_out",
-     "bert.encoder.layer.{}.attention.output.dense"),
-    ("backbone.encoder.layer.{}.attention_ln", "bert.encoder.layer.{}.attention.output.LayerNorm"),
-    ("backbone.encoder.layer.{}.ffn.intermediate", "bert.encoder.layer.{}.intermediate.dense"),
-    ("backbone.encoder.layer.{}.ffn.ffn_out", "bert.encoder.layer.{}.output.dense"),
-    ("backbone.encoder.layer.{}.ffn_ln", "bert.encoder.layer.{}.output.LayerNorm"),
-    ("backbone.pooler.pooler", "bert.pooler.dense"),
-    ("classifier", "classifier"),
+def init_bert(cfg, seed: int = 0, device=None, num_labels: int = 2):
+    """:func:`init_encoder` of a ``BertForSequenceClassification``."""
+    return init_encoder(BertForSequenceClassification(cfg, num_labels=num_labels),
+                        seed=seed, device=device)
+
+
+# (port module path, HF module path) per family, the JAX package's
+# ``_<FAMILY>_RULES`` and ``_<FAMILY>_REVERSE`` in one table; ``{}`` is a
+# layer index. Head entries (``classifier``, ``qa_outputs``, the CLS
+# heads' ``classifier.dense``/``classifier.out_proj``) carry no prefix.
+_ENCODER_LAYER = [
+    ("attention.query", "attention.self.query"),
+    ("attention.key", "attention.self.key"),
+    ("attention.value", "attention.self.value"),
+    ("attention.attention_out", "attention.output.dense"),
+    ("attention_ln", "attention.output.LayerNorm"),
+    ("ffn.intermediate", "intermediate.dense"),
+    ("ffn.ffn_out", "output.dense"),
+    ("ffn_ln", "output.LayerNorm"),
 ]
+
+
+def _encoder_names(prefix: str) -> list:
+    embeddings = ("word_embeddings", "position_embeddings", "token_type_embeddings")
+    return ([(f"backbone.embeddings.{e}", f"{prefix}.embeddings.{e}") for e in embeddings]
+            + [("backbone.embeddings.embeddings_ln", f"{prefix}.embeddings.LayerNorm")]
+            + [(f"backbone.encoder.layer.{{}}.{ours}", f"{prefix}.encoder.layer.{{}}.{hf}")
+               for ours, hf in _ENCODER_LAYER])
+
+
+_CLS_HEAD = [("head.head_dense", "classifier.dense"), ("head.classifier", "classifier.out_proj")]
+_TASK_HEADS = [("qa_outputs", "qa_outputs"), ("classifier", "classifier")]
+_ALBERT_LAYER = "albert.encoder.albert_layer_groups.0.albert_layers.0"
+
+ENCODER_NAMES = {
+    "bert": _encoder_names("bert") + [("backbone.pooler.pooler", "bert.pooler.dense")]
+    + _TASK_HEADS,
+    "roberta": _encoder_names("roberta") + _CLS_HEAD + _TASK_HEADS,
+    "distilbert": [
+        ("backbone.embeddings.word_embeddings", "distilbert.embeddings.word_embeddings"),
+        ("backbone.embeddings.position_embeddings",
+         "distilbert.embeddings.position_embeddings"),
+        ("backbone.embeddings.embeddings_ln", "distilbert.embeddings.LayerNorm")]
+    + [(f"backbone.encoder.layer.{{}}.{ours}", f"distilbert.transformer.layer.{{}}.{hf}")
+       for ours, hf in [("attention.query", "attention.q_lin"),
+                        ("attention.key", "attention.k_lin"),
+                        ("attention.value", "attention.v_lin"),
+                        ("attention.attention_out", "attention.out_lin"),
+                        ("attention_ln", "sa_layer_norm"),
+                        ("ffn.intermediate", "ffn.lin1"), ("ffn.ffn_out", "ffn.lin2"),
+                        ("ffn_ln", "output_layer_norm")]]
+    + [("pre_classifier", "pre_classifier")] + _TASK_HEADS,
+    "electra": _encoder_names("electra")
+    + [("backbone.embeddings_project", "electra.embeddings_project")]
+    + _CLS_HEAD + _TASK_HEADS,
+    "albert": [(f"backbone.embeddings.{e}", f"albert.embeddings.{e}")
+               for e in ("word_embeddings", "position_embeddings", "token_type_embeddings")]
+    + [("backbone.embeddings.embeddings_ln", "albert.embeddings.LayerNorm"),
+       ("backbone.embedding_hidden_mapping_in", "albert.encoder.embedding_hidden_mapping_in")]
+    + [(f"backbone.shared_layer.{ours}", f"{_ALBERT_LAYER}.{hf}")
+       for ours, hf in [("attention.query", "attention.query"),
+                        ("attention.key", "attention.key"),
+                        ("attention.value", "attention.value"),
+                        ("attention.attention_out", "attention.dense"),
+                        ("attention_ln", "attention.LayerNorm"),
+                        ("ffn.intermediate", "ffn"), ("ffn.ffn_out", "ffn_output"),
+                        ("ffn_ln", "full_layer_layer_norm")]]
+    + [("backbone.pooler.pooler", "albert.pooler")] + _TASK_HEADS,
+}
 
 
 def _rules(names, src: int, prefix: str):
@@ -140,8 +192,8 @@ def _rules(names, src: int, prefix: str):
     return rules
 
 
-_TO_HF = _rules(_BERT_NAMES, 0, "bert")
-_FROM_HF = _rules(_BERT_NAMES, 1, "bert")
+_ENCODER_TO_HF = {f: _rules(names, 0, f) for f, names in ENCODER_NAMES.items()}
+_ENCODER_FROM_HF = {f: _rules(names, 1, f) for f, names in ENCODER_NAMES.items()}
 
 
 def _translate(key: str, rules) -> str | None:
@@ -153,27 +205,37 @@ def _translate(key: str, rules) -> str | None:
     return None
 
 
-def bert_to_hf(state_dict: dict) -> dict:
-    """Port ``state_dict`` -> HF BERT keys (``bert.`` prefix; ``nn.Linear``
-    weights are ``[out, in]`` on both sides). Unmapped keys are dropped."""
+def encoder_to_hf(state_dict: dict, family: str) -> dict:
+    """Port ``state_dict`` of an encoder family -> HF keys (with the
+    family's prefix: ``bert.``, ``roberta.``, ...; ``nn.Linear`` weights
+    are ``[out, in]`` on both sides). Unmapped keys are dropped."""
     out = {}
     for key, value in state_dict.items():
-        hf = _translate(key, _TO_HF)
+        hf = _translate(key, _ENCODER_TO_HF[family])
         if hf is not None:
             out[hf] = value
     return out
 
 
-def bert_from_hf(hf_state: dict) -> dict:
-    """HF BERT keys (with or without the ``bert.`` prefix) -> port
-    ``state_dict`` keys; keys of other heads (``cls.*``, ``qa_outputs``)
-    are dropped, as the JAX package's ``hf_to_params`` skips them."""
+def encoder_from_hf(hf_state: dict, family: str) -> dict:
+    """HF keys of an encoder family (with or without the family's prefix)
+    -> port ``state_dict`` keys; keys of heads the port has no module for
+    (``cls.*``, ``lm_head.*``, ``discriminator_predictions.*``) are
+    dropped, as the JAX package's ``hf_to_params`` skips them."""
     out = {}
     for key, value in hf_state.items():
-        port = _translate(key, _FROM_HF)
+        port = _translate(key, _ENCODER_FROM_HF[family])
         if port is not None:
             out[port] = value
     return out
+
+
+def bert_to_hf(state_dict: dict) -> dict:
+    return encoder_to_hf(state_dict, "bert")
+
+
+def bert_from_hf(hf_state: dict) -> dict:
+    return encoder_from_hf(hf_state, "bert")
 
 
 _GPT2_NAMES = [

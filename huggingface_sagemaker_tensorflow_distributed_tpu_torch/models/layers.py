@@ -1,6 +1,9 @@
 """Transformer building blocks shared by the port's models (counterpart of
 the JAX package's ``models/layers.py``): the activation table and the
-BERT-family encoder.
+BERT-family encoder, with RoBERTa's mask-counted position ids
+(``position_offset``), DistilBERT's missing token types
+(``use_token_type=False``) and ELECTRA's factorized embeddings
+(``embedding_size`` below ``hidden_size``, projected up in the backbone).
 
 Module names mirror the flax names, so carrying weights across is a
 rename (``backbone.encoder.layer.<i>.attention.query`` is flax's
@@ -84,9 +87,6 @@ class EncoderConfig:
         unported = [
             (self.num_experts > 0, "num_experts>0 (MoE)", "C"),
             (self.pipeline_stages > 0, "pipeline_stages>0", "D"),
-            (self.embedding_size not in (None, self.hidden_size),
-             "a factorized embedding_size (ELECTRA/ALBERT)", "B"),
-            (self.position_offset != 0, "position_offset (RoBERTa)", "B"),
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "2 follow-ups"),
             (self.attention_impl == "ring", "attention_impl='ring'", "D"),
@@ -140,25 +140,42 @@ class LayerNorm(nn.Module):
 
 
 class Embeddings(nn.Module):
-    """Word + learned-position (+ token-type) embeddings, layer norm,
-    dropout."""
+    """Word + learned-position (+ token-type) embeddings at
+    ``embedding_size`` (``hidden_size`` when unset), layer norm, dropout.
+
+    With ``position_offset`` and a mask, positions count the mask's ones
+    from ``position_offset`` and pads take ``pad_token_id`` (the JAX
+    package's RoBERTa rule: the mask decides, not ``input_ids != pad``);
+    without a mask they run from ``position_offset``."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.word_embeddings = Embed(cfg, cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = Embed(cfg, cfg.max_position_embeddings, cfg.hidden_size)
+        emb = cfg.embedding_size or cfg.hidden_size
+        self.word_embeddings = Embed(cfg, cfg.vocab_size, emb)
+        self.position_embeddings = Embed(cfg, cfg.max_position_embeddings, emb)
         if cfg.use_token_type:
-            self.token_type_embeddings = Embed(cfg, cfg.type_vocab_size, cfg.hidden_size)
-        self.embeddings_ln = LayerNorm(cfg, cfg.hidden_size)
+            self.token_type_embeddings = Embed(cfg, cfg.type_vocab_size, emb)
+        self.embeddings_ln = LayerNorm(cfg, emb)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
-    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        cfg = self.cfg
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
+            if cfg.position_offset and attention_mask is not None:
+                mask = attention_mask.long()
+                position_ids = torch.cumsum(mask, dim=-1) * mask + cfg.position_offset - 1
+                position_ids = position_ids * mask + cfg.pad_token_id * (1 - mask)
+            else:
+                seq = input_ids.shape[-1]
+                position_ids = torch.arange(cfg.position_offset, seq + cfg.position_offset,
+                                            device=input_ids.device)[None, :]
         x = self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
-        if self.cfg.use_token_type:
-            if token_type_ids is None:
+        if cfg.use_token_type:
+            if token_type_ids is None or cfg.type_vocab_size == 1:
+                # one token type (RoBERTa): every token takes its row, as the
+                # JAX package's clamping lookup gives any type id
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids)
         return self.dropout(self.embeddings_ln(x))
@@ -253,14 +270,24 @@ class Pooler(nn.Module):
         return torch.tanh(self.pooler(hidden[:, 0]))
 
 
+def head_dropout_rate(cfg: EncoderConfig) -> float:
+    """Dropout rate of a task head: ``classifier_dropout``, falling back to
+    ``hidden_dropout`` (HF semantics; ALBERT's heads read it)."""
+    return cfg.classifier_dropout if cfg.classifier_dropout is not None else cfg.hidden_dropout
+
+
 class EncoderBackbone(nn.Module):
-    """Embeddings + encoder (+ pooler): the shared trunk for all heads.
-    Returns ``(sequence_output, pooled or None)``."""
+    """Embeddings (+ ELECTRA's ``embeddings_project`` when
+    ``embedding_size`` differs from ``hidden_size``) + encoder (+ pooler):
+    the shared trunk for all heads. Returns ``(sequence_output, pooled or
+    None)``."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
+        if cfg.embedding_size and cfg.embedding_size != cfg.hidden_size:
+            self.embeddings_project = Dense(cfg, cfg.embedding_size, cfg.hidden_size)
         self.encoder = Encoder(cfg)
         if cfg.use_pooler:
             self.pooler = Pooler(cfg)
@@ -270,7 +297,9 @@ class EncoderBackbone(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         additive_mask = make_attention_mask(attention_mask, segment_ids=segment_ids)
-        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids, attention_mask)
+        if hasattr(self, "embeddings_project"):
+            x = self.embeddings_project(x)
         x = self.encoder(x, additive_mask)
         pooled = self.pooler(x) if self.cfg.use_pooler else None
         return x, pooled

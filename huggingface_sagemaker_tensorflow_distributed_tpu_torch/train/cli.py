@@ -1,5 +1,6 @@
 """Fine-tuning entry point (counterpart of the JAX package's
-``scripts/train.py::main`` for tasks ``seq-cls`` and ``causal-lm``).
+``scripts/train.py::main`` for tasks ``seq-cls``, ``token-cls``, ``qa``
+and ``causal-lm``).
 
     python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.cli \\
         --model_name_or_path DIR --dataset vendored_reviews [--device cpu] ...
@@ -13,10 +14,14 @@ gives the WordPiece with its C++ core, a ``tokenizer.json`` the HF
 tokenizer, none the word-hash tokenizer), tokenize the train and test
 splits (a ``--dataset_path`` of ``{split}.jsonl`` files or a
 ``datasets.save_to_disk`` directory; with ``--streaming true`` the train
-split stays on disk and is tokenized batch by batch), batch them
+split stays on disk and is tokenized batch by batch; token-cls labels a
+word's first subword, QA with ``--qa_doc_stride`` trains on overlapping
+context windows), batch them
 (``--bucket_multiple``: length buckets of its multiples), restore the
 latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
-false``), fit, evaluate, write
+false``), fit, evaluate (token-cls adds ``eval_f1``; QA with
+``--eval_qa_samples N`` decodes N test answers over their windows and adds
+SQuAD's ``eval_exact_match`` and ``eval_f1``), write
 ``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
 export the model and tokenizer in HF layout to ``model_dir`` (rank 0;
 with ``--keep_best`` the best epoch's weights). Rerunning an interrupted
@@ -37,6 +42,7 @@ import os
 import sys
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -50,7 +56,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import
     ShardedBatcher,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+    load_qa,
     load_text_classification,
+    load_token_classification,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.streaming import (
     LineCorpus,
@@ -72,16 +80,23 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import
     get_logger,
     setup_logging,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.metrics import (
+    best_windowed_answers,
+    extract_answer_spans,
+    squad_em_f1,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
 
-def _check_num_labels(labels, num_labels: int) -> None:
+def _check_num_labels(labels, num_labels: int, task: str) -> None:
+    """A label past the head's width would index past the logits: fail at
+    data-build time instead."""
     top = max((label for label in labels if label >= 0), default=0)
     if top >= num_labels:
-        raise ValueError(f"seq-cls: dataset contains label {top} but --num_labels "
-                         f"is {num_labels}; pass --num_labels {top + 1}")
+        raise ValueError(f"{task}: dataset contains label {top} but --num_labels is "
+                         f"{num_labels}; pass --num_labels {top + 1} (conll2003 needs 9)")
 
 
 def build_streaming_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
@@ -124,16 +139,61 @@ def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
                   max_samples, model_config=None):
     if config.streaming and split == "train":
         return build_streaming_dataset(config, tokenizer, split, max_len, max_samples)
-    texts, labels = load_text_classification(
-        config.dataset, split, dataset_path=config.dataset_path,
-        max_samples=max_samples, seed=config.seed)
+    kw = dict(dataset_path=config.dataset_path, max_samples=max_samples, seed=config.seed)
+    if config.task == "token-cls":
+        sents, tags = load_token_classification(config.dataset, split, **kw)
+        _check_num_labels([t for ts in tags for t in ts], config.num_labels, config.task)
+        return ArrayDataset.from_token_classification(tokenizer, sents, tags, max_len)
+    if config.task == "qa":
+        questions, contexts, starts, answers = load_qa(config.dataset, split, **kw)
+        return ArrayDataset.from_qa(tokenizer, questions, contexts, starts, answers,
+                                    max_len, doc_stride=config.qa_doc_stride)
+    texts, labels = load_text_classification(config.dataset, split, **kw)
     if config.task == "causal-lm":
         # any text source works as an LM corpus; its labels are ignored
         return ArrayDataset.from_lm_texts(
             tokenizer, texts, max_len, packed=config.packed_sequences,
             eos_token_id=getattr(model_config, "eos_token_id", None))
-    _check_num_labels(labels, config.num_labels)
+    _check_num_labels(labels, config.num_labels, config.task)
     return ArrayDataset.from_texts(tokenizer, texts, labels, max_len)
+
+
+@torch.no_grad()
+def qa_answer_metrics(config: TrainConfig, model, tokenizer, max_len: int,
+                      batch_size: int, device: torch.device) -> dict:
+    """SQuAD's answer-text exact match and F1 over the first
+    ``eval_qa_samples`` test examples: each example's windows (with
+    ``qa_doc_stride``) go through the model, each window's best span is
+    decoded from its character offsets, and an example's answer is its
+    best-scoring window's (the JAX CLI's QA eval)."""
+    questions, contexts, starts, answers = load_qa(
+        config.dataset, "test", dataset_path=config.dataset_path,
+        max_samples=config.eval_qa_samples, seed=config.seed)
+    enc = tokenizer.encode_qa(questions, contexts, starts, answers, max_length=max_len,
+                              return_offsets=True, doc_stride=config.qa_doc_stride)
+    ex_ids = np.asarray(enc["example_ids"])
+    feat_ctx = [contexts[i] for i in ex_ids]
+    model.eval()
+    texts_scores: list = []
+    n_feat = enc["input_ids"].shape[0]
+    for lo in range(0, n_feat, batch_size):
+        sl = slice(lo, min(lo + batch_size, n_feat))
+
+        def col(name):
+            return torch.as_tensor(np.asarray(enc[name][sl]), dtype=torch.long, device=device)
+
+        s_log, e_log = model(col("input_ids"), col("attention_mask"),
+                             token_type_ids=col("token_type_ids")
+                             if "token_type_ids" in enc else None)
+        texts_scores.extend(extract_answer_spans(
+            s_log.float().cpu().numpy(), e_log.float().cpu().numpy(),
+            enc["offset_starts"][sl], enc["offset_ends"][sl], feat_ctx[sl],
+            with_scores=True))
+    preds = best_windowed_answers([t for t, _ in texts_scores],
+                                  [sc for _, sc in texts_scores], ex_ids, len(questions))
+    em_f1 = squad_em_f1(preds, list(answers))
+    return {"eval_exact_match": em_f1["exact_match"], "eval_f1": em_f1["f1"],
+            "eval_qa_windows": n_feat}
 
 
 def main(argv=None) -> dict:
@@ -232,6 +292,13 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
         if config.do_eval:
             logger.info("*** Evaluate ***")
             eval_results = trainer.evaluate(eval_batcher)
+            if config.task == "qa" and config.eval_qa_samples:
+                qa = qa_answer_metrics(config, model, tokenizer, max_len,
+                                       config.eval_batch_size * world, device)
+                eval_results["eval_exact_match"] = qa["eval_exact_match"]
+                eval_results["eval_f1"] = qa["eval_f1"]
+                logger.info("QA answers over %d windows: exact match %.2f, F1 %.2f",
+                            qa["eval_qa_windows"], qa["eval_exact_match"], qa["eval_f1"])
             trainer.write_eval_results(eval_results)
             results["eval"] = eval_results
         auto.save_pretrained(config.model_dir, model, family, model_config)

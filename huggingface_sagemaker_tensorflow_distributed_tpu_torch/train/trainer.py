@@ -1,7 +1,8 @@
 """The training engine: train/eval steps and the epoch loop (counterpart
 of the JAX package's ``train/trainer.py``: ``_masked_sums``, the task
-losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
-``make_fused_causal_lm_loss``, and ``Trainer`` for tasks ``seq-cls`` and
+losses ``seq_cls_loss``, ``token_cls_loss``, ``qa_loss`` and
+``causal_lm_loss``, the fused ``make_fused_causal_lm_loss``, and
+``Trainer`` for tasks ``seq-cls``, ``token-cls``, ``qa`` and
 ``causal-lm``).
 
 - A train step is forward, backward, one all-reduce mean of the
@@ -35,7 +36,9 @@ losses ``seq_cls_loss`` and ``causal_lm_loss``, the fused
   and the anomaly detector (non-finite loss, grad-norm explosion fed by
   the update's global norm, step-time spikes, stragglers).
 - ``evaluate`` sums loss, correct predictions and the count exactly over
-  the ``valid`` rows, across ranks.
+  the ``valid`` rows, across ranks; token-cls adds the micro-F1 over the
+  non-O tags (``eval_f1``) from its summed true and false positives and
+  false negatives.
 - Every batch iterator ``fit`` and ``evaluate`` open is closed on every
   exit (the ``steps_per_epoch`` cap, an exception), which stops the
   batcher's prefetch thread.
@@ -120,6 +123,47 @@ def seq_cls_loss(model, batch):
     return _masked_sums(per_ex, correct, valid)
 
 
+def token_cls_loss(model, batch, with_f1: bool = True):
+    """Token-level CE with label masking (labels == -100 ignored, the HF
+    convention; the CoNLL NER task). The sums add the TOKEN-level
+    micro-F1 components over the non-O tags (tag 0 is outside):
+    ``f1_tp``, ``f1_fp`` and ``f1_fn``. Published CoNLL figures are
+    ENTITY-level (seqeval) F1, which is stricter."""
+    logits = model(batch["input_ids"], batch["attention_mask"],
+                   token_type_ids=batch.get("token_type_ids"))
+    labels = batch["labels"]
+    token_valid = (labels != -100) & (batch["attention_mask"] > 0)
+    if "valid" in batch:
+        token_valid = token_valid & (batch["valid"][:, None] > 0)
+    safe_labels = labels.clamp(min=0)
+    per_tok = softmax_cross_entropy_with_integer_labels(logits, safe_labels)
+    pred = logits.argmax(-1)
+    correct = pred == safe_labels
+    loss, sums = _masked_sums(per_tok, correct, token_valid)
+    if with_f1:
+        v = token_valid.float()
+        sums["f1_tp"] = (((pred != 0) & correct).float() * v).sum()
+        sums["f1_fp"] = (((pred != 0) & ~correct).float() * v).sum()
+        sums["f1_fn"] = (((safe_labels != 0) & ~correct).float() * v).sum()
+    return loss, sums
+
+
+def qa_loss(model, batch):
+    """SQuAD span loss: the mean of the start and end CE (HF); a row is
+    half correct per position it predicts."""
+    start_logits, end_logits = model(batch["input_ids"], batch["attention_mask"],
+                                     token_type_ids=batch.get("token_type_ids"))
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones(start_logits.shape[0], device=start_logits.device)
+    starts, ends = batch["start_positions"], batch["end_positions"]
+    s_ce = softmax_cross_entropy_with_integer_labels(start_logits, starts)
+    e_ce = softmax_cross_entropy_with_integer_labels(end_logits, ends)
+    s_ok = (start_logits.argmax(-1) == starts).float()
+    e_ok = (end_logits.argmax(-1) == ends).float()
+    return _masked_sums(0.5 * (s_ce + e_ce), 0.5 * (s_ok + e_ok), valid)
+
+
 def causal_lm_loss(model, batch):
     """Next-token CE for decoder-only LMs (GPT-2): logits at position i
     predict token i+1; pad targets (and padded eval rows) are masked out.
@@ -162,7 +206,8 @@ def make_fused_causal_lm_loss(model):
     return loss
 
 
-TASK_LOSSES = {"seq-cls": seq_cls_loss, "causal-lm": causal_lm_loss}
+TASK_LOSSES = {"seq-cls": seq_cls_loss, "token-cls": token_cls_loss, "qa": qa_loss,
+               "causal-lm": causal_lm_loss}
 
 
 def _closing(batches):
@@ -183,7 +228,7 @@ class Trainer:
         self.task = task or config.task
         if self.task not in TASK_LOSSES:
             raise NotImplementedError(f"task {self.task!r} is not ported to the "
-                                      "PyTorch package yet: ROADMAP slices B/C")
+                                      "PyTorch package yet: ROADMAP queue 1")
         self.loss_fn = TASK_LOSSES[self.task]
         if config.fused_vocab_ce:
             if self.task == "causal-lm" and hasattr(model, "hidden_and_embedding"):
@@ -575,21 +620,28 @@ class Trainer:
 
     def evaluate(self, eval_batcher) -> dict:
         """Keras ``model.evaluate``: loss and accuracy over exactly the
-        valid rows of every rank."""
-        totals = {"loss_sum": torch.zeros((), device=self.device),
-                  "correct": torch.zeros((), device=self.device),
-                  "count": torch.zeros((), device=self.device)}
+        valid rows of every rank; token-cls adds ``eval_f1``, the micro-F1
+        over the non-O tags from the summed counts."""
+        totals: dict = {}
         with obs.span("eval/run"), _closing(eval_batcher.global_arrays(epoch=0)) as batches:
             for batch in batches:
                 for key, val in self.eval_step(batch).items():
-                    totals[key] += val.float()
+                    totals[key] = totals.get(key, 0.0) + val.float()
                 obs.pulse()
+        # the loss's keys are the same on every rank (and the JAX order)
+        keys = ["loss_sum", "correct", "count"] + [k for k in totals if k.startswith("f1_")]
         with obs.span("eval/sync"):
-            flat = all_reduce_sum(torch.stack([totals["loss_sum"], totals["correct"],
-                                               totals["count"]]))
-            loss_sum, correct, count = (float(x) for x in flat)
-        count = max(count, 1.0)
-        return {"eval_loss": loss_sum / count, "eval_accuracy": correct / count}
+            flat = all_reduce_sum(torch.stack([torch.as_tensor(totals.get(k, 0.0),
+                                                               device=self.device).float()
+                                               for k in keys]))
+            totals = dict(zip(keys, (float(x) for x in flat)))
+        count = max(totals["count"], 1.0)
+        results = {"eval_loss": totals["loss_sum"] / count,
+                   "eval_accuracy": totals["correct"] / count}
+        if "f1_tp" in totals:
+            tp, fp, fn = totals["f1_tp"], totals["f1_fp"], totals["f1_fn"]
+            results["eval_f1"] = 2 * tp / max(2 * tp + fp + fn, 1.0)
+        return results
 
     # -- results (the reference's train_results.txt / eval_results.txt) ------
 

@@ -5,6 +5,7 @@ comparisons, bounds, launch accounting, results files, reload), not the
 kernels. The phases run for real only on the card."""
 
 import json
+import math
 import re
 from pathlib import Path
 
@@ -76,6 +77,17 @@ def on_cpu(monkeypatch):
         chip_smoke.GPT2_124M, vocab_size=300, n_positions=64, n_embd=64, n_layer=2,
         n_head=1))
     monkeypatch.setattr(chip_smoke, "GPT2_SEQ", 32)
+    tiny = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
+                intermediate_size=128)
+    monkeypatch.setattr(chip_smoke, "BERT_LARGE", dict(chip_smoke.BERT_LARGE, **tiny))
+    monkeypatch.setattr(chip_smoke, "ROBERTA_BASE", dict(chip_smoke.ROBERTA_BASE, **tiny,
+                                                         vocab_size=300))
+    monkeypatch.setattr(chip_smoke, "ELECTRA_SMALL", dict(chip_smoke.ELECTRA_SMALL, **tiny,
+                                                          embedding_size=32))
+    monkeypatch.setattr(chip_smoke, "ALBERT_BASE", dict(chip_smoke.ALBERT_BASE, **tiny,
+                                                        embedding_size=32, vocab_size=300))
+    monkeypatch.setattr(chip_smoke, "DISTILBERT_BASE", dict(
+        chip_smoke.DISTILBERT_BASE, dim=64, n_layers=2, n_heads=1, hidden_dim=128))
     for mod, names in ((fa, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                        (vc, ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))):
         for name in names:
@@ -190,6 +202,11 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     for row in rows.values():
         assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
     assert rows["bfloat16"]["grad_dist_ratio_max"] <= rows["bfloat16"]["grad_dist_ratio_tol"]
+    # the other families, one fp32 and one bf16 step each at depth 2
+    assert sorted(rows) == sorted(["float32", "bfloat16"] + [
+        f"{f}/{dt}" for f in ("roberta", "distilbert", "electra", "albert")
+        for dt in ("float32", "bfloat16")])
+    assert all(rows[f"{f}/float32"]["layers"] == 2 for f in ("roberta", "albert"))
     # on the CPU `auto` picks the plain path; the CLI is asked for flash
     run = cli.run
     monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
@@ -197,6 +214,40 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     assert row["launches"] == {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2,
                                "flash_bwd_dkv": 2 * 2}
     assert row["idle_share"] == "not measured" and row["train_steps"] == 2
+
+
+def test_encoder_tasks_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The encoder runs (BERT-large-shaped QA at 384 and windowed at 64,
+    RoBERTa token-cls, DistilBERT, ELECTRA and ALBERT seq-cls) at tiny
+    widths and 3 steps: the launch accounting (QA-eval forwards and
+    ALBERT's uses of its one layer included), the results keys, the
+    reloaded exports, the windows, the idle-share pass, and the rows."""
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    monkeypatch.setattr(chip_smoke, "ENCODER_EVAL_SAMPLES", 8)
+    monkeypatch.setattr(chip_smoke, "QA_EVAL_SAMPLES", 6)
+    monkeypatch.setattr(chip_smoke, "ENCODER_PROFILED_STEPS", 2)
+    runs = chip_smoke._encoder_runs
+    monkeypatch.setattr(chip_smoke, "_encoder_runs",
+                        lambda: [r[:4] + (3,) + r[5:] for r in runs()])
+    rows = chip_smoke.encoder_tasks_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["qa_bert_large", "qa_windowed", "token_cls_roberta",
+                          "seq_cls_distilbert", "seq_cls_electra", "seq_cls_albert"]
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed if p.get("phase") == "encoder_tasks"] == list(rows)
+    qa, win = rows["qa_bert_large"], rows["qa_windowed"]
+    assert qa["seq"] == 384 and qa["eval_steps"] == 2 and qa["qa_eval_examples"] == 6
+    assert qa["launches"]["flash_fwd"] == 2 * (3 + 2 + math.ceil(qa["qa_eval_windows"] / 4))
+    assert set(qa["eval"]) == {"eval_loss", "eval_accuracy", "eval_exact_match", "eval_f1"}
+    assert qa["idle_share"] == "not measured" and qa["profiled_steps"] == 2
+    assert win["seq"] == 64 and win["qa_eval_windows"] > 6 and win["eval_rows"] > 8
+    assert set(rows["token_cls_roberta"]["eval"]) == {"eval_loss", "eval_accuracy", "eval_f1"}
+    assert rows["seq_cls_albert"]["layers"] == 2 and rows["seq_cls_albert"]["embedding_size"] == 32
+    for row in rows.values():
+        assert row["train_steps"] == 3 and row["card"] == "cpu rehearsal"
+        assert row["launches"]["flash_bwd_dq"] == row["launches"]["flash_bwd_dkv"] == 2 * 3
+        assert row["train_mfu"] == "not measured"
 
 
 def test_train_lifecycle_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
