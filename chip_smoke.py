@@ -51,9 +51,10 @@ failure raises and exits non-zero:
    window 64, a batch row that is all padding and a mask that takes a
    gradient; D 128 in bf16; S 64 and 128 in bf16 with a ragged mask (the data
    phase's bucket widths); in bf16 the encoder tasks' shapes: 16 heads at S
-   384 (``qa384_bf16``, BERT-large QA) and S 64, 4 heads at S 512
-   (ELECTRA-small). Error bounds (``_limit``): an fp32 output
-   (every output of an fp32 case; LSE and dmask of a bf16 one)
+   384 (``qa384_bf16``, BERT-large QA), S 64 and S 512 (``mlm_large_bf16``,
+   the BERT-large MLM run), 4 heads at S 512 (ELECTRA-small). Error
+   bounds (``_limit``): an fp32 output (every output of an fp32 case; LSE
+   and dmask of a bf16 one)
    ``1e-4 * max(1, max|want|)`` (the same fp32 arithmetic summed in
    another order, ~1e-6 relative); a bf16 output ``2^-6 * max|want|``
    (one bf16 ulp is at most 2^-7 of a value, both sides round; the kernel
@@ -131,15 +132,41 @@ failure raises and exits non-zero:
    layer) x its train, eval and QA-eval forwards (backward: x train steps),
    its results files carry the JAX CLI's keys, its losses are finite and
    its export reloads through ``from_pretrained`` to the same eval logits;
-   it prints samples/s, step time, MFU and the eval metrics;
+   it prints samples/s, step time, MFU and the eval metrics; (f)
+   masked-LM and replaced-token-detection pretraining (``mlm_phase``),
+   each through the training CLI on the reviews tokenized by a WordPiece
+   ``vocab.txt`` built from them, bf16 at the CLI's defaults: BERT-base
+   widths ``--task mlm --fused_vocab_ce true`` (30 steps, 16 eval steps:
+   K1 and K2 in one step, launches ``flash_fwd == 12 x (train + eval)``,
+   ``flash_bwd_* == 12 x train``, ``fused_ce_fwd == train + eval``,
+   ``fused_ce_bwd_* == train``; masked tokens a batch, K, and the fused
+   loss's own ``ce_dropped`` on every train step, 0 and equal to the
+   masked tokens past K; 6 more steps timed and profiled for busy time,
+   the idle share, MFU and the K1/K2 kernels), the same unfused (``--fused_vocab_ce false``,
+   its first loss within 2^-6 of the fused run's), BERT-large-WWM widths
+   fused (10 steps, profiled: dW at H 1032 on the CUDA-core
+   ``vocab_ce_bwd_dw_kernel``), ELECTRA-small ``--task rtd`` (15 steps,
+   detection accuracy) and streaming ``--task mlm`` (10 steps, finite
+   losses); each export reloads through ``from_pretrained`` to the same
+   logits bit for bit. The train parity phase (a) also holds an fp32 and
+   a bf16 MLM step of each of the five families at depth 2 (flash and the
+   fused MLM loss against the plain attention and the unfused logits) and
+   ELECTRA-small's RTD step, at the same gates (the RTD head's
+   one-number bias, like a two-label classifier's, held to the whole
+   step's bf16 gate);
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
    and in fp32, a ragged N 1000 / V 1001, H 200 and H 800, label
-   smoothing 0.1, and an all-equal W that ties every logit (pred must be
-   id 0). Bound ``max|got - want| <= tol * max(1, max|want|)``: tol 1e-4
-   for fp32 and for the loss and LSE (fp32 arithmetic on bf16-exact
-   inputs), 2e-2 for dH and dW with bf16 hidden (dH rounded to bf16; dS
+   smoothing 0.1, an all-equal W that ties every logit (pred must be
+   id 0), and the fused MLM loss's shapes with bf16 hidden: N 1024, V
+   30522 at H 776 (BERT-base with the bias folded in) and H 1032
+   (BERT-large: dW past its tensor-core cap, on the CUDA-core kernel; the
+   kernel each wrapper launches is named by route,
+   ``vocab_kernel_names``), and the eval steps' N 512 at H 776. Bound
+   ``max|got - want| <= tol * max(1, max|want|)``: tol 1e-4 for fp32 and
+   for the loss and LSE (fp32 arithmetic on bf16-exact inputs), 2e-2 for
+   dH and dW with bf16 hidden (dH rounded to bf16; dS
    rounded to bf16 before dSᵀ·H, where a last-ulp difference can round
    one step apart). ``pred`` must equal the plain argmax except where the
    plain top-two logit gap is below 1e-5 of the largest logit (counted and
@@ -171,7 +198,7 @@ failure raises and exits non-zero:
    CLI's results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass for device time
    by kernel and the idle share, which must name the three K2 kernels;
-9. the ``kernels`` line, the card's line, and the final
+9. each phase's wall seconds, the ``kernels`` line, the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -947,11 +974,14 @@ FLASH_CASES = [
     ("qa384_bf16", 8, 16, 384, 64, "bfloat16", True, False, None, False, False),
     ("qa64_bf16", 8, 16, 64, 64, "bfloat16", True, False, None, False, False),
     ("electra512_bf16", 8, 4, 512, 64, "bfloat16", True, False, None, False, False),
+    # the mlm phase's BERT-large-WWM run: 16 heads at 512
+    ("mlm_large_bf16", 8, 16, 512, 64, "bfloat16", True, False, None, False, False),
     # the bucket widths the data phase's bucketed run trains at
     ("bucket64_bf16", 8, 12, 64, 64, "bfloat16", True, False, None, False, False),
     ("bucket128_bf16", 8, 12, 128, 64, "bfloat16", True, False, None, False, False),
 ]
 FLASH_QA = "qa384_bf16"         # the encoder_tasks phase's headline shape
+FLASH_MLM = "mlm_large_bf16"    # the mlm phase's BERT-large shape
 FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
 FLASH_COPIES = 2
 # the kernel each flash wrapper launches, by dtype (device time is read
@@ -1279,15 +1309,73 @@ def _encoder_step(family: str, hf: dict, batch, impl: str, dtype,
     return float(loss.detach()), grads
 
 
+def _pretrain_batch(n: int, seq: int, device, vocab: int, task: str) -> dict:
+    """``n`` training reviews as an MLM batch (whole-word masks from seed
+    0) or an RTD batch (random replacements from seed 0)."""
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    texts, _ = load_text_classification("vendored_reviews", "train", max_samples=n)
+    tok = WordHashTokenizer(vocab_size=vocab)
+    build = ArrayDataset.from_mlm_texts if task == "mlm" else ArrayDataset.from_rtd_texts
+    rows = build(tok, texts, seq, seed=0)[np.arange(n)]
+    return {k: torch.from_numpy(np.asarray(v)).long().to(device) for k, v in rows.items()}
+
+
+def _pretrain_step(family: str, hf: dict, batch, task: str, kernels: bool, dtype,
+                   layers: int) -> tuple[float, dict]:
+    """One ``mlm`` or ``rtd`` train step of ``family`` at the widths of
+    ``hf`` and depth ``layers`` from seed 0, dropout 0: with ``kernels``
+    the flash attention and, for MLM, the sparse-gather fused vocab CE (K1
+    and K2 in one step); else the plain attention and the unfused logits
+    and CE. The loss and every parameter's gradient (fp32 parameters)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import trainer as tr
+
+    over = dict(hidden_dropout=0.0, attention_dropout=0.0, num_layers=layers, dtype=dtype,
+                attention_impl="flash" if kernels else "xla")
+    if family in ("bert", "albert"):
+        over["use_pooler"] = False          # HF's MLM models have no pooler
+    cfg = auto.CONFIG_BUILDERS[family](hf, **over)
+    model = init_encoder(auto.build_model(family, task, cfg), seed=0, device=DEVICE).train()
+    if task == "rtd":
+        loss_fn = tr.rtd_loss
+    else:
+        loss_fn = (tr.make_fused_mlm_loss(TrainConfig.fused_mlm_mask_cap) if kernels
+                   else tr.TASK_LOSSES["mlm"])
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
 def train_parity_phase() -> dict:
     """(a) one fp32 and one bf16 BERT-base train step, flash kernels
     against the plain attention; then the same for RoBERTa-base,
     DistilBERT-base, ELECTRA-small and ALBERT-base-v2 at their widths and
-    ``PARITY_DEPTH``. Returns the rows by dtype (``"<family>/<dtype>"``
-    for the other families)."""
+    ``PARITY_DEPTH``; then an MLM step of each of the five families at
+    ``PARITY_DEPTH`` through the flash kernels and the fused MLM loss (K1
+    and K2) against the plain attention and the unfused logits, and
+    ELECTRA-small's RTD step. Returns the rows by dtype
+    (``"<family>/<dtype>"`` for the other families,
+    ``"<family>-<task>/<dtype>"`` for the pretraining steps)."""
     import torch
 
     rows = {}
+    t0 = time.perf_counter()
     for family, hf, layers in [("bert", BERT_BASE, None)] + [
             (f, hf, PARITY_DEPTH) for f, hf in _parity_families()]:
         batch = _review_batch(8, 512, DEVICE, vocab=hf["vocab_size"])
@@ -1301,6 +1389,23 @@ def train_parity_phase() -> dict:
         pair = _parity_rows(model, depth, steps, one_dof_apart=family != "bert")
         rows.update(pair if family == "bert"
                     else {f"{family}/{dt}": row for dt, row in pair.items()})
+    t1 = time.perf_counter()
+    for family, hf, task in [("bert", BERT_BASE, "mlm")] + [
+            (f, hf, "mlm") for f, hf in _parity_families()] + [
+            ("electra", ELECTRA_SMALL, "rtd")]:
+        batch = _pretrain_batch(8, 512, DEVICE, hf["vocab_size"], task)
+        steps = {(dt, impl): _pretrain_step(family, hf, batch, task, impl == "flash",
+                                            getattr(torch, dt), PARITY_DEPTH)
+                 for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        kernels = "flash + fused MLM CE" if task == "mlm" else "flash"
+        model = (f"{family} {task} ({hf['model_type']} config widths, depth "
+                 f"{PARITY_DEPTH}; {kernels} against the plain path)")
+        pair = _parity_rows(model, PARITY_DEPTH, steps, one_dof_apart=True)
+        rows.update({f"{family}-{task}/{dt}": row for dt, row in pair.items()})
+    emit({"phase": "train_parity_wall", "encoder_steps_s": t1 - t0,
+          "pretrain_steps_s": time.perf_counter() - t1})
     return rows
 
 
@@ -1308,12 +1413,15 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
     """Hold a model's fp32 flash step to its plain step and its bf16 flash
     step to fp32 as close as the plain bf16 step; emit both rows.
 
-    With ``one_dof_apart`` the two-label classifier's bias is held to the
-    whole step's bf16 gate instead of its own: its gradient's two entries
-    are each other's negatives, so its distance from fp32 is one rounding
-    draw, and the ratio of two such draws of equal spread exceeds 2 about
-    30% of the time (RoBERTa's at depth 2 read 3.10 on the card while that
-    step's loss was closer to fp32 through the kernels than without)."""
+    With ``one_dof_apart`` the two-label classifier's bias, and the RTD
+    head's one-logit ``disc_prediction`` bias, are held to the whole step's
+    bf16 gate instead of their own: the classifier bias's two entries are
+    each other's negatives and the RTD bias is one number, so each one's
+    distance from fp32 is one rounding draw, and the ratio of two such
+    draws of equal spread exceeds 2 about 30% of the time (RoBERTa's at
+    depth 2 read 3.10 on the card while that step's loss was closer to
+    fp32 through the kernels than without). The MLM head's bias ``[V]``
+    has many degrees of freedom and keeps its own gate."""
     import torch
 
     (loss32, g32), (loss_ref, ref) = steps[("float32", "flash")], steps[("float32", "xla")]
@@ -1356,8 +1464,9 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
     floor = PARITY_KEY_BIAS * total
     dist = {n: float((g16[n] - ref[n]).norm()) for n in ref}
     dist_plain = {n: float((ref16[n] - ref[n]).norm()) for n in ref}
-    one_dof = [n for n in ref if one_dof_apart and n.endswith("classifier.bias")
-               and ref[n].numel() == 2]
+    one_dof = [n for n in ref if one_dof_apart and (
+        (n.endswith("classifier.bias") and ref[n].numel() == 2)
+        or (n.endswith("disc_prediction.bias") and ref[n].numel() == 1))]
 
     def over(d, d_plain):
         return ((d - floor) / d_plain if d_plain > 0 else
@@ -1414,6 +1523,26 @@ def _device_seconds_by_kernel(prof) -> dict:
     return by_kernel
 
 
+def _timed_then_profiled(trainer, batches: list) -> tuple[float, dict]:
+    """One train step on each of ``batches``, twice: the wall unprofiled,
+    then each kernel's device seconds from a profiled pass (the device's
+    idle share over the steps is ``1 - busy / wall``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    t1 = time.perf_counter()
+    for b_ in batches:
+        trainer.train_step(b_)
+    _sync()
+    wall = time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        for b_ in batches:
+            trainer.train_step(b_)
+        _sync()
+    return wall, _device_seconds_by_kernel(prof)
+
+
 def _train_argv(work: Path, out_dir: Path, model_dir: Path) -> list:
     """The train phase's CLI run: BERT-base widths from a config, the
     CLI's defaults, one epoch of ``CLI_STEPS`` steps."""
@@ -1433,7 +1562,6 @@ def train_cli_phase(work: Path) -> dict:
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
@@ -1488,18 +1616,7 @@ def train_cli_phase(work: Path) -> dict:
     # the device's idle share over more train steps: wall unprofiled, then
     # device busy time from a profiled run of as many steps
     extra = [_review_batch(8, 512, DEVICE)] * 6
-    _sync()
-    t1 = time.perf_counter()
-    for b_ in extra:
-        trainer.train_step(b_)
-    _sync()
-    steps_wall = time.perf_counter() - t1
-    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
-                                  else ProfilerActivity.CPU]) as prof:
-        for b_ in extra:
-            trainer.train_step(b_)
-        _sync()
-    by_kernel = _device_seconds_by_kernel(prof)
+    steps_wall, by_kernel = _timed_then_profiled(trainer, extra)
     busy = sum(by_kernel.values())
     flash_s = {k: sum(v for n, v in by_kernel.items()
                       if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n)
@@ -2387,7 +2504,6 @@ def _encoder_idle(trainer, spec) -> dict:
     the three bf16 flash kernels."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
         load_tokenizer,
@@ -2400,19 +2516,7 @@ def _encoder_idle(trainer, spec) -> dict:
     ds = cli.build_dataset(tc, tokenizer, "train", seq, 8, cfg)
     b = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
          for k, v in ds[np.arange(8)].items()}
-    extra_batches = [b] * ENCODER_PROFILED_STEPS
-    _sync()
-    t1 = time.perf_counter()
-    for b_ in extra_batches:
-        trainer.train_step(b_)
-    _sync()
-    steps_wall = time.perf_counter() - t1
-    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
-                                  else ProfilerActivity.CPU]) as prof:
-        for b_ in extra_batches:
-            trainer.train_step(b_)
-        _sync()
-    by_kernel = _device_seconds_by_kernel(prof)
+    steps_wall, by_kernel = _timed_then_profiled(trainer, [b] * ENCODER_PROFILED_STEPS)
     busy = sum(by_kernel.values())
     flash_s = {k: sum(v for n, v in by_kernel.items()
                       if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n) for k in _K1}
@@ -2430,6 +2534,288 @@ def _encoder_idle(trainer, spec) -> dict:
             "top_kernels_s": [[k[:80], v] for k, v in top]}
 
 
+# -- masked-LM and replaced-token-detection pretraining ----------------------
+
+MLM_STEPS = 30                  # runs 1 and 2
+MLM_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
+MLM_LARGE_STEPS = 10
+RTD_STEPS = 15
+MLM_STREAM_STEPS = 10
+MLM_PROFILED_STEPS = 6
+MLM_LARGE_PROFILED_STEPS = 3
+
+
+def _mlm_runs() -> list:
+    """The runs of the ``mlm`` phase: (name, family, published config,
+    task, train steps, extra CLI arguments), each at the CLI's other
+    defaults (bf16, sequence 512, batch 8, eval batch 4, AdamW)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        VENDORED_REVIEWS,
+    )
+
+    fused = ["--fused_vocab_ce", "true"]
+    evals = ["--max_eval_samples", str(MLM_EVAL_SAMPLES)]
+    no_eval = ["--do_eval", "false"]
+    return [
+        ("bert_base_fused", "bert", BERT_BASE, "mlm", MLM_STEPS, fused + evals),
+        ("bert_base_unfused", "bert", BERT_BASE, "mlm", MLM_STEPS,
+         ["--fused_vocab_ce", "false"] + evals),
+        ("bert_large_fused", "bert", BERT_LARGE, "mlm", MLM_LARGE_STEPS, fused + no_eval),
+        ("electra_small_rtd", "electra", ELECTRA_SMALL, "rtd", RTD_STEPS, evals),
+        ("bert_base_streaming", "bert", BERT_BASE, "mlm", MLM_STREAM_STEPS,
+         fused + no_eval + ["--streaming", "true", "--dataset_path", str(VENDORED_REVIEWS)]),
+    ]
+
+
+def _mlm_steps_profile(trainer, batch, steps: int, peak) -> dict:
+    """``steps`` more train steps on one batch (:func:`_timed_then_profiled`):
+    busy per step, the idle share, MFU (the model's FLOPs per real token,
+    ``obs.flops``, over the unprofiled wall) and the top kernels."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+
+    wall, by_kernel = _timed_then_profiled(trainer, [batch] * steps)
+    busy = sum(by_kernel.values())
+    tokens = int(batch["attention_mask"].sum())
+    fpt = flops.train_flops_per_token(trainer.model.config, trainer.task,
+                                      batch["input_ids"].shape[1])
+    achieved = fpt * tokens * steps / wall / 1e12
+    return {"profiled_steps": steps, "step_time_unprofiled_ms": 1e3 * wall / steps,
+            "device_busy_ms_per_step": 1e3 * busy / steps if busy else "not measured",
+            "idle_share": 1.0 - busy / wall if busy else "not measured",
+            "achieved_tflops": achieved,
+            "mfu": achieved / peak if peak else "not measured",
+            "by_kernel_s": by_kernel,
+            "top_kernels_ms_per_step": [[k[:80], 1e3 * v / steps] for k, v in
+                                        sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def mlm_phase(work: Path, card: str) -> dict:
+    """(f) masked-LM and replaced-token-detection pretraining through the
+    training CLI, random weights, bf16, the CLI's defaults, on the reviews
+    tokenized by a WordPiece ``vocab.txt`` built from them
+    (``review_vocab``: the rarest words split into ``##`` pieces, so
+    whole-word masking masks multi-piece words): (1) BERT-base widths,
+    ``--task mlm --fused_vocab_ce true``, 30 steps and 16 eval steps: K1
+    and K2 in one step, launches ``flash_fwd == 12 x (train + eval)``,
+    ``flash_bwd_* == 12 x train``, ``fused_ce_fwd == train + eval``,
+    ``fused_ce_bwd_* == train``; masked tokens a batch, K and the fused
+    loss's own ``ce_dropped`` summed over the train steps (it must equal
+    the masked tokens past K, and be 0 here); 6 more steps timed and
+    profiled (busy, idle, MFU, top kernels, the K1 and K2 kernels named); (2) the same run with
+    ``--fused_vocab_ce false`` (the unfused [8, 512, 30522] fp32 logits),
+    profiled the same way, its first loss within the bf16 gate of run 1's;
+    (3) BERT-large-WWM widths, fused, 10 steps, profiled: dW at H 1032 on
+    ``vocab_ce_bwd_dw_kernel``; (4) ELECTRA-small ``--task rtd``, 15
+    steps, detection accuracy; (5) streaming ``--task mlm``, 10 steps,
+    finite losses. Each export reloads through ``from_pretrained`` to the
+    same logits bit for bit. Each row carries its run's wall seconds, the
+    summary the phase's. Returns the rows by run."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        Trainer,
+        bias_fold_width,
+        mlm_gather_rows,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    phase_t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    texts = (load_text_classification("vendored_reviews", "train")[0]
+             + load_text_classification("vendored_reviews", "test")[0])
+    tokens = review_vocab(texts)
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    counters = [(fa, k) for k in _K1] + [(vc, k) for k in _K2]
+    rec: dict = {}
+    orig_step = Trainer.train_step
+
+    def train_step(self, batch):
+        loss_fn = self.loss_fn
+
+        def recorded(model, batch_):        # the fused loss's own ce_dropped
+            loss, sums = loss_fn(model, batch_)
+            if "ce_dropped" in sums:
+                rec["ce_dropped"].append(sums["ce_dropped"].detach())
+            return loss, sums
+
+        self.loss_fn = recorded
+        try:
+            out = orig_step(self, batch)
+        finally:
+            self.loss_fn = loss_fn
+        rec["losses"].append(out["loss"])
+        rec["masked"].append(((batch["labels"] != -100) & (batch["attention_mask"] > 0)).sum())
+        return out
+
+    rows: dict = {}
+    Trainer.train_step = train_step
+    saved_peak = os.environ.get("HSTD_PEAK_TFLOPS")
+    if peak:
+        os.environ["HSTD_PEAK_TFLOPS"] = str(peak)
+    try:
+        for name, family, hf, task, steps, extra in _mlm_runs():
+            run_dir = work / name
+            cfg_dir = run_dir / "config"
+            cfg_dir.mkdir(parents=True, exist_ok=True)
+            (cfg_dir / "config.json").write_text(json.dumps(hf))
+            (cfg_dir / "vocab.txt").write_text("\n".join(tokens) + "\n", encoding="utf-8")
+            argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+                    "--task", task, "--dataset", "vendored_reviews", "--epochs", "1",
+                    "--steps_per_epoch", str(steps), "--output_data_dir", str(run_dir / "out"),
+                    "--model_dir", str(run_dir / "model"), "--log_every_steps", "10",
+                    "--device", DEVICE] + extra
+            rec.update(losses=[], masked=[], ce_dropped=[])
+            for mod, k in counters:
+                getattr(mod, k).launches = 0
+            t0 = time.perf_counter()
+            results, trainer = cli.run(argv)
+            _sync()
+            wall = time.perf_counter() - t0
+            launches = {k: getattr(mod, k).launches for mod, k in counters}
+            tc, cfg = trainer.config, trainer.model.config
+            L, train_steps = cfg.num_layers, trainer.step
+            losses = [float(x) for x in rec["losses"]]
+            masked = [int(x) for x in rec["masked"]]
+            dropped = [float(x) for x in rec["ce_dropped"]]
+            check(cfg.dtype == torch.bfloat16 and cfg.attention_impl == "flash"
+                  and tc.max_seq_length == 512 and tc.train_batch_size == 8
+                  and tc.eval_batch_size == 4, f"{name}: the CLI did not run at its defaults")
+            check(train_steps == steps and len(losses) == steps,
+                  f"{name}: {train_steps} train steps, wanted {steps}")
+            check(all(math.isfinite(x) for x in losses), f"{name}: a non-finite loss")
+            eval_steps = math.ceil(MLM_EVAL_SAMPLES / tc.eval_batch_size) if tc.do_eval else 0
+            fused = task == "mlm" and tc.fused_vocab_ce
+            check(len(dropped) == (steps if fused else 0),
+                  f"{name}: ce_dropped read on {len(dropped)} of {steps} train steps")
+            want = {"flash_fwd": L * (train_steps + eval_steps),
+                    "flash_bwd_dq": L * train_steps, "flash_bwd_dkv": L * train_steps,
+                    "fused_ce_fwd": (train_steps + eval_steps) if fused else 0,
+                    "fused_ce_bwd_dh": train_steps if fused else 0,
+                    "fused_ce_bwd_dw": train_steps if fused else 0}
+            check(launches == want, f"{name}: launches {launches}, wanted {want}")
+            hist, ev = results["train"], results.get("eval", {})
+            check(all(math.isfinite(v) for v in ev.values()), f"{name}: a non-finite eval")
+            if tc.do_eval:
+                er = read_results_file(str(run_dir / "out" / "eval_results.txt"))
+                check(list(er) == EVAL_RESULT_KEYS, f"{name}: eval_results.txt keys {list(er)}")
+            seq = min(tc.max_seq_length, cfg.max_position_embeddings)
+            n_tok = tc.train_batch_size * seq
+            k_rows = mlm_gather_rows(n_tok, tc.fused_mlm_mask_cap) if task == "mlm" else None
+            row = {"phase": "mlm", "run": name, "card": card, "family": family, "task": task,
+                   "hidden": cfg.hidden_size, "layers": L, "heads": cfg.num_heads,
+                   "vocab": cfg.vocab_size, "wordpiece_tokens": len(tokens), "seq": seq,
+                   "batch": tc.train_batch_size, "dtype": "bfloat16",
+                   "fused_vocab_ce": bool(tc.fused_vocab_ce), "streaming": bool(tc.streaming),
+                   "train_steps": train_steps, "eval_steps": eval_steps,
+                   "launches": launches, "first_loss": losses[0], "loss": losses[-1],
+                   "eval": ev,
+                   "train_samples_per_second_per_chip":
+                       hist["train_samples_per_second_per_chip"],
+                   "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                   "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall}
+            if task == "mlm":
+                row.update(masked_tokens_per_batch={"mean": float(np.mean(masked)),
+                                                    "min": min(masked), "max": max(masked)},
+                           gather_rows_k=k_rows, mask_cap=tc.fused_mlm_mask_cap,
+                           ce_dropped_train=sum(dropped) if fused else "not fused",
+                           ce_dropped_wanted=sum(max(0, m - k_rows) for m in masked),
+                           bias_fold_width=bias_fold_width(cfg.embedding_size
+                                                           or cfg.hidden_size))
+            # the export reloads through from_pretrained to the same logits
+            tokenizer = load_tokenizer(str(cfg_dir), vocab_size=cfg.vocab_size)
+            ds = cli.build_dataset(tc, tokenizer, "train", seq, 8, cfg)
+            batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
+                     for k, v in ds[np.arange(8)].items()}
+            reloaded, fam, _ = auto.from_pretrained(
+                str(run_dir / "model"), task=task, dtype=torch.bfloat16, device=DEVICE,
+                attention_impl="flash")
+            with torch.no_grad():
+                a_ = trainer.model.eval()(batch["input_ids"][:4], batch["attention_mask"][:4])
+                b_ = reloaded.eval()(batch["input_ids"][:4], batch["attention_mask"][:4])
+            check(fam == family and torch.equal(a_, b_),
+                  f"{name}: the reloaded export gives other logits")
+            row["export_reloads_bit_for_bit"] = True
+            del reloaded, a_, b_
+            if name in ("bert_base_fused", "bert_base_unfused", "bert_large_fused"):
+                prof = _mlm_steps_profile(
+                    trainer, batch, MLM_LARGE_PROFILED_STEPS if "large" in name
+                    else MLM_PROFILED_STEPS, peak)
+                by_kernel = prof.pop("by_kernel_s")
+                k2 = {k: sum(v for n, v in by_kernel.items()
+                             if vocab_kernel_names(k, "bfloat16", row["bias_fold_width"])[0]
+                             in n) / prof["profiled_steps"] * 1e3 for k in _K2}
+                k1 = {k: sum(v for n, v in by_kernel.items()
+                             if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n)
+                      / prof["profiled_steps"] * 1e3 for k in _K1}
+                prof["k1_ms_per_step"], prof["k2_ms_per_step"] = k1, k2
+                prof["k2_routes"] = {k: vocab_kernel_names(k, "bfloat16",
+                                                           row["bias_fold_width"])[0]
+                                     for k in _K2}
+                if DEVICE == "cuda":
+                    check(all(v > 0 for v in k1.values()),
+                          f"{name}: the profile misses a K1 kernel: {k1}")
+                    if fused:
+                        check(all(v > 0 for v in k2.values()),
+                              f"{name}: the profile misses a K2 kernel: {k2}")
+                row.update(prof)
+            row["run_wall_s"] = time.perf_counter() - t0    # the CLI, reload and profile
+            rows[name] = row
+            emit(row)
+            del trainer
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = orig_step
+        if saved_peak is None:
+            os.environ.pop("HSTD_PEAK_TFLOPS", None)
+        else:
+            os.environ["HSTD_PEAK_TFLOPS"] = saved_peak
+    base, unfused = rows["bert_base_fused"], rows["bert_base_unfused"]
+    first_rel = abs(base["first_loss"] - unfused["first_loss"]) / abs(unfused["first_loss"])
+    check(first_rel <= PARITY_BF16_LOSS_RTOL,
+          f"the fused and unfused MLM runs' first losses differ by {first_rel} (relative)")
+    for r in rows.values():
+        if r["task"] == "mlm" and r["fused_vocab_ce"]:
+            check(r["ce_dropped_train"] == r["ce_dropped_wanted"],
+                  f"{r['run']}: the loss dropped {r['ce_dropped_train']} masked tokens, "
+                  f"{r['ce_dropped_wanted']} lie past K")
+    check(base["ce_dropped_train"] == 0, f"ce_dropped {base['ce_dropped_train']} at 15%")
+    summary = {"phase": "mlm_summary", "card": card,
+               "phase_wall_s": time.perf_counter() - phase_t0,
+               "run_wall_s": {n: r["run_wall_s"] for n, r in rows.items()},
+               "first_loss_fused_over_unfused_rel": first_rel,
+               "first_loss_rtol": PARITY_BF16_LOSS_RTOL,
+               "samples_per_s": {n: r["train_samples_per_second_per_chip"]
+                                 for n, r in rows.items()},
+               "busy_ms_per_step": {n: r.get("device_busy_ms_per_step")
+                                    for n, r in rows.items() if "profiled_steps" in r},
+               "fused_over_unfused_step_time": (base["step_time_unprofiled_ms"]
+                                                / unfused["step_time_unprofiled_ms"]),
+               "bert_large_dw_ms_per_step": rows["bert_large_fused"]["k2_ms_per_step"][
+                   "fused_ce_bwd_dw"],
+               "electra_rtd_detection_accuracy": rows["electra_small_rtd"]["eval"].get(
+                   "eval_accuracy")}
+    emit(summary)
+    return rows
+
+
 # -- vocab CE kernels ----------------------------------------------------------
 
 VOCAB_CASES = [
@@ -2442,8 +2828,17 @@ VOCAB_CASES = [
     ("h800", 256, 2000, 800, "float32", 0.0, False),
     ("smooth0.1", 1024, 8192, 768, "float32", 0.1, False),
     ("ties", 512, 4096, 768, "float32", 0.0, True),
+    # the fused MLM loss's shapes (mlm phase): K = 1024 gathered rows of
+    # B 8 x S 512 at the 0.25 cap, BERT's vocab, H with the decoder bias
+    # folded in: BERT-base's 776 (dW on the tensor cores) and
+    # BERT-large's 1032 (past dW's cap of 800: the CUDA-core dW); the eval
+    # steps' K = 512 of B 4 x S 512 (the forward splits by N)
+    ("mlm_base_bf16", 1024, 30522, 776, "bfloat16", 0.0, False),
+    ("mlm_large_bf16", 1024, 30522, 1032, "bfloat16", 0.0, False),
+    ("mlm_eval_bf16", 512, 30522, 776, "bfloat16", 0.0, False),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
+VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
 # kernel first (device time is read per kernel name from a profile)
 VOCAB_KERNEL_NAMES = {
@@ -2454,6 +2849,22 @@ VOCAB_KERNEL_NAMES = {
     ("fused_ce_bwd_dw", "float32"): ("vocab_ce_bwd_dw_kernel",),
     ("fused_ce_bwd_dw", "bfloat16"): ("vocab_ce_bwd_dw_tc_kernel",),
 }
+
+
+def vocab_kernel_names(kname: str, dtype: str, h_dim: int) -> tuple:
+    """The kernels a vocab-CE wrapper launches at hidden dtype ``dtype``
+    and depth ``h_dim``, by route: with bf16 hidden the tensor-core kernel
+    while its operands fit a block's shared memory
+    (``ops/vocab_ce.py:tc_smem_bytes``, the library's own rule), the
+    CUDA-core kernel beyond (dW past H 800, the forward and dH past 1216)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    kernel = {"fused_ce_fwd": "fwd", "fused_ce_bwd_dh": "dh", "fused_ce_bwd_dw": "dw"}[kname]
+    if dtype == "bfloat16" and vc.tc_smem_bytes(kernel, h_dim) < 0:
+        return VOCAB_KERNEL_NAMES[(kname, "float32")]
+    return VOCAB_KERNEL_NAMES[(kname, dtype)]
+
+
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
 VOCAB_ITERS = 5
 VOCAB_REPEATS = 3
@@ -2569,8 +2980,9 @@ def _vocab_case(case, gen, dev) -> dict:
              "fused_ce_bwd_dw": (lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets)}
     # device time of the wrapper's kernels (profiler), and CUDA events
     # around a loop of wrapper calls (host gaps included)
-    ms = {k: _device_ms(fn, a_, VOCAB_KERNEL_NAMES[(k, dt)], iters=VOCAB_ITERS,
-                        repeats=VOCAB_REPEATS) for k, (fn, a_) in calls.items()}
+    names = {k: vocab_kernel_names(k, dt, H) for k in calls}
+    ms = {k: _device_ms(fn, a_, names[k], iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+          for k, (fn, a_) in calls.items()}
     event_ms = {k: _cuda_ms(fn, a_, iters=VOCAB_ITERS) for k, (fn, a_) in calls.items()}
     plain = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd_reference(*a, eps),
                                       fwd_sets, iters=3),
@@ -2612,7 +3024,8 @@ def _vocab_case(case, gen, dev) -> dict:
         row = {"phase": "vocab_kernel", "case": name, "kernel": kname, "N": N, "V": V,
                "H": H, "hidden_dtype": dt, "weight_dtype": "float32",
                "label_smoothing": eps, "tied_weight": ties,
-               "kernel_name": VOCAB_KERNEL_NAMES[(kname, dt)][0],
+               "kernel_name": names[kname][0],
+               "route": "tensor cores" if "_tc_" in names[kname][0] else "CUDA cores",
                "max_abs_err": errs[kname], "max_abs_err_limit": limits[kname],
                "status": "pass", "near_ties": int(near.sum()),
                "kernel_ms": ms[kname], "kernel_event_ms": event_ms[kname],
@@ -2781,7 +3194,6 @@ def gpt2_cli_phase(work: Path) -> dict:
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
@@ -2849,18 +3261,7 @@ def gpt2_cli_phase(work: Path) -> dict:
     # the device's idle share over more train steps: wall unprofiled, then
     # device busy time from a profiled run of as many steps
     extra = [_lm_batch(8, GPT2_SEQ, DEVICE)] * 6
-    _sync()
-    t1 = time.perf_counter()
-    for b_ in extra:
-        trainer.train_step(b_)
-    _sync()
-    steps_wall = time.perf_counter() - t1
-    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
-                                  else ProfilerActivity.CPU]) as prof:
-        for b_ in extra:
-            trainer.train_step(b_)
-        _sync()
-    by_kernel = _device_seconds_by_kernel(prof)
+    steps_wall, by_kernel = _timed_then_profiled(trainer, extra)
     busy = sum(by_kernel.values())
     k2_s = {k: sum(v for n, v in by_kernel.items()
                    if any(c in n for c in VOCAB_KERNEL_NAMES[(k, "bfloat16")]))
@@ -2900,35 +3301,44 @@ def main() -> int:
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    card = env_phase()
-    build = build_phase()
-    kernels = kernel_phase()
-    serve, model, trace = serve_phase()
-    profile_phase(model, trace, serve["wall_s"])
+    start = time.perf_counter()
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    card = timed(env_phase)
+    build = timed(build_phase)
+    kernels = timed(kernel_phase)
+    serve, model, trace = timed(serve_phase)
+    timed(profile_phase, model, trace, serve["wall_s"])
     del model
     torch.cuda.empty_cache()
-    flash = flash_phase()
-    train_parity_phase()
+    flash = timed(flash_phase)
+    timed(train_parity_phase)
     with tempfile.TemporaryDirectory() as work:
-        train = train_cli_phase(Path(work) / "train")
-        torch.cuda.empty_cache()
-        train_lifecycle_phase(Path(work) / "lifecycle", card, Path(work) / "train" / "model")
-        torch.cuda.empty_cache()
-        data_phase(Path(work) / "data", card)
-        torch.cuda.empty_cache()
-        encoders = encoder_tasks_phase(Path(work) / "encoders", card)
-    torch.cuda.empty_cache()
-    vocab = vocab_ce_phase()
-    gpt2_parity_phase()
+        train = timed(train_cli_phase, Path(work) / "train")
+        timed(train_lifecycle_phase, Path(work) / "lifecycle", card,
+              Path(work) / "train" / "model")
+        timed(data_phase, Path(work) / "data", card)
+        encoders = timed(encoder_tasks_phase, Path(work) / "encoders", card)
+        mlm = timed(mlm_phase, Path(work) / "mlm", card)
+    vocab = timed(vocab_ce_phase)
+    timed(gpt2_parity_phase)
     with tempfile.TemporaryDirectory() as work:
-        gpt2 = gpt2_cli_phase(Path(work))
+        gpt2 = timed(gpt2_cli_phase, Path(work))
+    emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
+          "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
     split_b = build[(PAGED_KERNEL_NAMES[0], 64, "float32", "float32", 1)]
     combine_b = build[(PAGED_KERNEL_NAMES[1], 64, "float32", None, None)]
     flash_rows = []
     for kname in _K1:
         r = flash[(FLASH_MAIN, kname)]
-        qa = flash[(FLASH_QA, kname)]
         b = build[(r["kernel_name"], r["D"], r["dtype"])]
         flash_rows.append({
             "name": kname, "route": "cuda",
@@ -2936,9 +3346,12 @@ def main() -> int:
             "kernel": r["kernel_name"],
             "replaces": FLASH_REPLACES[kname], "launches": train["launches"][kname],
             "launches_by_path": {"bert_cli": train["launches"][kname],
-                                 **{n: row["launches"][kname] for n, row in encoders.items()}},
-            FLASH_QA: {k: qa[k] for k in ("max_abs_err", "kernel_ms", "kernel_event_ms",
-                                          "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                                 **{n: row["launches"][kname] for n, row in encoders.items()},
+                                 **{f"mlm/{n}": row["launches"][kname]
+                                    for n, row in mlm.items()}},
+            **{c: {k: flash[(c, kname)][k] for k in (
+                "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM)},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2956,6 +3369,12 @@ def main() -> int:
             "source": VOCAB_TC_SOURCE if "_tc_" in r["kernel_name"] else VOCAB_SOURCE,
             "kernel": r["kernel_name"],
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
+            "launches_by_path": {"gpt2_cli": gpt2["launches"][kname],
+                                 **{f"mlm/{n}": row["launches"][kname]
+                                    for n, row in mlm.items()}},
+            **{c: {k: vocab[(c, kname)][k] for k in (
+                "kernel_name", "route", "max_abs_err", "kernel_ms", "kernel_event_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")} for c in VOCAB_MLM},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -9,7 +9,7 @@ variables (``TPU_OUTPUT_DATA_DIR``/``SM_OUTPUT_DATA_DIR``,
 ``TPU_MODEL_DIR``/``SM_MODEL_DIR``).
 
 What the port does not run yet raises ``NotImplementedError`` naming the
-ROADMAP slice where it comes, instead of being ignored. Two fields name
+ROADMAP queue 1 item that ports it, instead of being ignored. Two fields name
 JAX machinery and select nothing in the port: ``rng_impl`` (dropout uses
 PyTorch's generator) and ``compilation_cache_dir`` (there is no XLA
 compile to cache); they are validated and kept for argv parity.
@@ -276,28 +276,26 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.task in ("mlm", "rtd"), f"task={self.task!r}",
-             "B (MLM and replaced-token detection)"),
-            (self.task == "seq2seq", "task='seq2seq'", "C (seq2seq)"),
-            (self.lora_rank > 0, "lora_rank>0", "B (LoRA)"),
-            (self.num_experts > 0, "num_experts>0", "C (MoE)"),
+            (self.task == "seq2seq", "task='seq2seq'", "9 (seq2seq)"),
+            (self.lora_rank > 0, "lora_rank>0", "6 (LoRA)"),
+            (self.num_experts > 0, "num_experts>0", "9 (MoE)"),
             (self.packed_sequences or self.segment_packing,
-             "packed_sequences/segment_packing", "B (packing)"),
+             "packed_sequences/segment_packing", "6 (packing)"),
             (self.optimizer in ("adafactor", "lamb"), f"optimizer={self.optimizer!r}",
-             "2 follow-ups (other optimizers)"),
+             "4 (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
-             "optimizer_state_dtype=bfloat16", "2 follow-ups (bf16 moments)"),
+             "optimizer_state_dtype=bfloat16", "4 (bf16 moments)"),
             (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "2 follow-ups (remat policies)"),
-            (self.attention_impl == "ring", "attention_impl='ring'", "D (ring attention)"),
+             f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
+            (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ]
-        later += [(getattr(self, ax) > 1, f"{ax}>1", "D (parallelism beyond DP)")
+        later += [(getattr(self, ax) > 1, f"{ax}>1", "11 (parallelism beyond DP)")
                   for ax in ("pp", "tp", "fsdp", "sp", "ep", "dcn_dp")]
-        for hit, what, slice_ in later:
+        for hit, what, item in later:
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP slice {slice_}")
+                    f"ROADMAP queue 1, item {item}")
 
     def resolve_attention_impl(self, device_type: str) -> str:
         """``auto`` picks the flash kernels on ``cuda`` and the plain

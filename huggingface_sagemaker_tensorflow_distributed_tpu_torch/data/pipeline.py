@@ -26,6 +26,13 @@ epoch's permutation from that batch (mid-epoch resume).
   CPU the stager only converts. ``token_log`` holds each staged batch's
   real tokens for the trainer's MFU accounting, popped once per step.
 
+- **Masked LM** (:func:`apply_mlm_masking`, :class:`MlmDataset`): whole-
+  word masking drawn from a ``numpy.random.RandomState``, bit for bit the
+  JAX package's draw; an :class:`MlmDataset` re-draws its masks for each
+  epoch from ``seed + epoch``, and the batcher calls its ``begin_epoch``
+  before the epoch and before each gather (on the prefetch thread when
+  one runs), so a mid-epoch resume replays the same masks.
+
 Packing (``pack_examples``) is not ported: ROADMAP queue 1, item 6.
 """
 
@@ -47,6 +54,69 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.autotune import (
     PrefetchAutotuner,
 )
+
+
+def encode_mlm_clean(tokenizer, texts, max_length: int):
+    """Tokenize an MLM corpus without masking: ``(clean_ids,
+    attention_mask, word_ids)``, the inputs every masking draw starts
+    from (the materialized and the streaming tiers share it)."""
+    import re
+
+    if getattr(tokenizer, "mask_token_id", None) is None:
+        raise ValueError("tokenizer has no [MASK] token — MLM needs one "
+                         "(BERT-family vocabs ship it)")
+    if hasattr(tokenizer, "encode_text_words"):
+        # HF fast tokenizers: the raw text through the tokenizer itself,
+        # word ids from its encoding
+        enc = tokenizer.encode_text_words(texts, max_length=max_length)
+    else:
+        words = [re.findall(r"\w+|[^\w\s]", t) for t in texts]
+        enc = tokenizer.encode_words(words, max_length=max_length)
+    return (np.asarray(enc["input_ids"], np.int32),
+            np.asarray(enc["attention_mask"], np.int32),
+            np.asarray(enc["word_ids"], np.int32))
+
+
+def apply_mlm_masking(clean_ids: np.ndarray, word_ids: np.ndarray,
+                      rng: np.random.RandomState, mask_token_id: int,
+                      vocab_size: int, mlm_probability: float = 0.15,
+                      whole_word: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    """One masking draw over ``[n, L]`` clean rows -> ``(input_ids,
+    labels)``, the HF collator's rule: ``mlm_probability`` of the words
+    chosen (at least one in a row that has words; with ``whole_word``
+    every piece of a chosen word, else each token on its own), chosen
+    tokens become [MASK] 80%, a random id 10%, unchanged 10%; labels are
+    -100 elsewhere. The draws depend only on the shapes, in the JAX
+    package's order, so the same ``rng`` state gives its masks exactly."""
+    ids = clean_ids.copy()
+    labels = np.full_like(ids, -100)
+    wid = word_ids
+    n, width = ids.shape
+    n_words = np.maximum(wid.max(axis=1) + 1, 0)
+    has_words = n_words > 0
+    if whole_word:
+        max_w = max(int(n_words.max()), 1)
+        chosen = rng.rand(n, max_w) < mlm_probability
+        # "at least one word" counts only a row's real words
+        real_w = np.arange(max_w)[None, :] < n_words[:, None]
+        none = has_words & ~(chosen & real_w).any(axis=1)
+        idx = np.flatnonzero(none)
+        if len(idx):
+            pick = (rng.rand(len(idx)) * n_words[idx]).astype(np.int64)
+            chosen[idx, pick] = True
+        sel = (wid >= 0) & np.take_along_axis(chosen, np.maximum(wid, 0), axis=1)
+    else:
+        sel = (wid >= 0) & (rng.rand(n, width) < mlm_probability)
+        none = has_words & ~sel.any(axis=1)
+        for r in np.flatnonzero(none):
+            cand = np.flatnonzero(wid[r] >= 0)
+            sel[r, cand[rng.randint(len(cand))]] = True
+    labels[sel] = clean_ids[sel]
+    action = rng.rand(n, width)
+    ids[sel & (action < 0.8)] = mask_token_id
+    do_rand = sel & (action >= 0.8) & (action < 0.9)
+    ids[do_rand] = rng.randint(0, vocab_size, int(do_rand.sum())).astype(ids.dtype)
+    return ids, labels
 
 
 def epoch_permutation(n: int, seed: int) -> np.ndarray:
@@ -82,6 +152,19 @@ class ArrayDataset:
     def __getitem__(self, idx) -> dict[str, np.ndarray]:
         return {k: v[idx] for k, v in self.columns.items()}
 
+    def pack(self, max_length: Optional[int] = None, causal: bool = False,
+             pad_token_id: int = 0) -> "ArrayDataset":
+        """Token packing (the JAX package's ``pack``): not ported. A
+        dataset with a per-epoch transform (MLM re-masking) refuses first,
+        as in the JAX package."""
+        if getattr(self, "begin_epoch", None) is not None:
+            raise ValueError(
+                "packing re-groups rows at build time, which would freeze "
+                "this dataset's per-epoch transform (MLM re-masking) — "
+                "pack a plain ArrayDataset (e.g. static_masking=True)")
+        raise NotImplementedError("packing is not ported to the PyTorch package "
+                                  "yet: ROADMAP queue 1, item 6 (packing)")
+
     @classmethod
     def from_texts(cls, tokenizer, texts, labels=None, max_length: int = 512,
                    text_pairs=None) -> "ArrayDataset":
@@ -96,6 +179,48 @@ class ArrayDataset:
         return cls(cols)
 
     @classmethod
+    def from_mlm_texts(cls, tokenizer, texts, max_length: int = 512,
+                       mlm_probability: float = 0.15, whole_word: bool = True,
+                       seed: int = 0, static_masking: bool = False) -> "MlmDataset":
+        """Masked-LM corpus with (whole-word) masking, re-drawn each epoch
+        (:class:`MlmDataset`; see :func:`apply_mlm_masking` for the
+        rule). Eval iterates at epoch 0, so its masks stay fixed."""
+        ids, am, wid = encode_mlm_clean(tokenizer, texts, max_length)
+        return MlmDataset(
+            clean_ids=ids, attention_mask=am, word_ids=wid,
+            mask_token_id=int(tokenizer.mask_token_id),
+            vocab_size=int(tokenizer.vocab_size), mlm_probability=mlm_probability,
+            whole_word=whole_word, seed=seed, static_masking=static_masking)
+
+    @classmethod
+    def from_rtd_texts(cls, tokenizer, texts, max_length: int = 512,
+                       replace_probability: float = 0.15,
+                       seed: int = 0) -> "ArrayDataset":
+        """Replaced-token-detection corpus (ELECTRA's pretraining shape):
+        about ``replace_probability`` of the real tokens swapped for random
+        ids from ``RandomState(seed)``; labels 1 where the id changed, 0 on
+        untouched tokens, -100 on specials and pads. (ELECTRA draws the
+        replacements from a trained generator; random replacement is the
+        JAX package's offline tier.)"""
+        enc = tokenizer(texts, truncation=True, padding="max_length",
+                        max_length=max_length)
+        ids = np.asarray(enc["input_ids"], np.int32).copy()
+        am = np.asarray(enc["attention_mask"], np.int32)
+        specials = {getattr(tokenizer, name, None)
+                    for name in ("pad_token_id", "cls_token_id", "sep_token_id",
+                                 "mask_token_id")}
+        real = (am > 0) & ~np.isin(ids, [t for t in specials if t is not None])
+        rng = np.random.RandomState(seed)
+        vocab = int(tokenizer.vocab_size)
+        pick = real & (rng.rand(*ids.shape) < replace_probability)
+        draws = rng.randint(0, vocab, ids.shape).astype(np.int32)
+        changed = pick & (draws != ids)
+        labels = np.where(real, 0, -100).astype(np.int32)
+        labels[changed] = 1
+        ids = np.where(changed, draws, ids)
+        return cls({"input_ids": ids, "attention_mask": am, "labels": labels})
+
+    @classmethod
     def from_lm_texts(cls, tokenizer, texts, max_length: int = 512,
                       packed: bool = False,
                       eos_token_id: Optional[int] = None) -> "ArrayDataset":
@@ -106,7 +231,7 @@ class ArrayDataset:
         if packed:
             raise NotImplementedError(
                 "packed LM rows (packed=True) are not ported to the PyTorch "
-                "package yet: ROADMAP slice B (packing)")
+                "package yet: ROADMAP queue 1, item 6 (packing)")
         enc = tokenizer(texts, truncation=True, padding="max_length",
                         max_length=max_length)
         ids = np.asarray(enc["input_ids"], np.int32)
@@ -150,6 +275,60 @@ class ArrayDataset:
         # the window -> example map is for eval; training rows stand alone
         enc.pop("example_ids", None)
         return cls(enc)
+
+
+class MlmDataset(ArrayDataset):
+    """An :class:`ArrayDataset` whose MLM masks are re-drawn each epoch.
+
+    It holds the clean ids and word ids; ``begin_epoch(e)`` makes
+    ``input_ids``/``labels`` from ``RandomState(seed + e)`` in one
+    vectorized pass, so every rank derives the same masks with no
+    communication. ``static_masking`` pins every epoch to epoch 0's draw."""
+
+    def __init__(self, clean_ids: np.ndarray, attention_mask: np.ndarray,
+                 word_ids: np.ndarray, mask_token_id: int, vocab_size: int,
+                 mlm_probability: float = 0.15, whole_word: bool = True,
+                 seed: int = 0, static_masking: bool = False):
+        self._clean_ids = clean_ids
+        self._word_ids = word_ids
+        self._mask_token_id = mask_token_id
+        self._vocab_size = vocab_size
+        self._mlm_probability = mlm_probability
+        self._whole_word = whole_word
+        self._seed = seed
+        self._static = static_masking
+        self._epoch: Optional[int] = None
+        super().__init__({"attention_mask": attention_mask})
+        self.begin_epoch(0)
+
+    def pack(self, max_length: Optional[int] = None, causal: bool = False,
+             pad_token_id: int = 0) -> "ArrayDataset":
+        """Packing freezes the masking draw, so it needs
+        ``static_masking`` (as in the JAX package); the packing itself is
+        not ported."""
+        if not self._static:
+            raise ValueError(
+                "packing an MLM dataset freezes the masking draw, so it "
+                "requires static_masking=True (per-epoch re-masking "
+                "cannot re-mask packed rows)")
+        self.begin_epoch(0)
+        return ArrayDataset(dict(self.columns)).pack(max_length, causal=causal,
+                                                     pad_token_id=pad_token_id)
+
+    def begin_epoch(self, epoch: int) -> None:
+        """Re-draw the masks for ``epoch`` (a no-op when they are that
+        epoch's already)."""
+        if self._static:
+            epoch = 0
+        if epoch == self._epoch:
+            return
+        ids, labels = apply_mlm_masking(
+            self._clean_ids, self._word_ids, np.random.RandomState(self._seed + epoch),
+            self._mask_token_id, self._vocab_size, self._mlm_probability,
+            self._whole_word)
+        self.columns["input_ids"] = ids
+        self.columns["labels"] = labels
+        self._epoch = epoch
 
 
 def _rank_and_world() -> tuple[int, int]:
@@ -602,6 +781,11 @@ class ShardedBatcher:
             native_permutation,
         )
 
+        begin_epoch = getattr(self.dataset, "begin_epoch", None)
+        if begin_epoch is not None:
+            # a per-epoch transform (MLM re-masking), drawn from seed +
+            # epoch: every rank agrees and a mid-epoch resume replays it
+            begin_epoch(epoch)
         n = len(self.dataset)
         order = (native_permutation(n, self.seed + epoch, native=self.native)
                  if self.shuffle else np.arange(n))
@@ -610,6 +794,11 @@ class ShardedBatcher:
         lo_rank = self.process_index * self.per_host
         hi_rank = lo_rank + self.per_host
         for s in range(start_step, self.steps_per_epoch()):
+            if begin_epoch is not None:
+                # again before every gather: another batcher over the same
+                # dataset (train, then eval at epoch 0) may have re-masked
+                # it to its own epoch between two of our batches
+                begin_epoch(epoch)
             lo = s * self.global_batch_size
             global_idx = order[lo: lo + self.global_batch_size]
             valid_n = len(global_idx)

@@ -1,5 +1,6 @@
 """Streaming data tier: corpora larger than host RAM (counterpart of the
-JAX package's ``data/streaming.py``, tasks ``seq-cls`` and ``causal-lm``).
+JAX package's ``data/streaming.py``, tasks ``seq-cls``, ``causal-lm`` and
+``mlm``).
 
 Only a line-offset index stays resident (8 bytes a row against about
 2 KB a row materialized at sequence 512); each batch window is read,
@@ -7,13 +8,15 @@ tokenized and padded on demand, feeding the same ``ShardedBatcher``:
 epoch permutations, per-rank sharding, prefetch and the feed to the card
 are unchanged. A row's content depends only on its index, not on the
 batch that gathers it, so every rank materializes identical global
-batches, and a mid-epoch resume replays identical data.
+batches, and a mid-epoch resume replays identical data. ``mlm`` masks
+each row from its own ``RandomState([seed, epoch, row])``, so its masks
+too depend on the row and the epoch alone (not bit-equal to the
+materialized tier's corpus-wide draw).
 
 Reads are coalesced: rows whose byte ranges lie within a gap of each
 other are fetched in one read, and the gap tunes itself per batch from
 the bytes read but not used (``obs.autotune("data/read_coalesce_gap")``).
-The masked-LM and seq2seq tiers wait for their tasks (ROADMAP queue 1,
-items 6 and 9).
+The seq2seq tier waits for its task (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ from typing import Optional
 import numpy as np
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+    apply_mlm_masking,
+    encode_mlm_clean,
+)
 
 
 class LineCorpus:
@@ -149,26 +156,26 @@ class LineCorpus:
 
 
 class StreamingTextDataset:
-    """``ArrayDataset``-compatible streaming source for ``seq-cls`` and
-    ``causal-lm`` over a :class:`LineCorpus`.
+    """``ArrayDataset``-compatible streaming source for ``seq-cls``,
+    ``causal-lm`` and ``mlm`` over a :class:`LineCorpus`.
 
     Duck-types the batcher contract (``__len__``, ``__getitem__`` with an
-    index array); only the gathered batch is ever
+    index array, ``begin_epoch``); only the gathered batch is ever
     tokenized or resident. Length bucketing needs corpus-wide token
     lengths, which streaming deliberately does not precompute: the
-    batcher raises on that combination. ``mlm`` and ``seq2seq`` raise
-    ``NotImplementedError`` until their tasks are ported."""
+    batcher raises on that combination. ``seq2seq`` raises
+    ``NotImplementedError`` until its task is ported."""
 
     def __init__(self, corpus: LineCorpus, tokenizer, task: str = "seq-cls",
-                 max_length: int = 512, num_labels: Optional[int] = None):
+                 max_length: int = 512, num_labels: Optional[int] = None,
+                 mlm_probability: float = 0.15, whole_word: bool = True,
+                 seed: int = 0):
         if task not in ("mlm", "causal-lm", "seq-cls", "seq2seq"):
             raise ValueError(
                 "streaming tier supports mlm/causal-lm/seq-cls/seq2seq, "
                 f"got {task!r}")
-        if task == "mlm":
-            raise NotImplementedError(
-                "streaming mlm is not ported to the PyTorch package yet: "
-                "ROADMAP queue 1, item 6 (MLM)")
+        if task == "mlm" and getattr(tokenizer, "mask_token_id", None) is None:
+            raise ValueError("tokenizer has no [MASK] token — MLM needs one")
         if task == "seq2seq":
             raise NotImplementedError(
                 "streaming seq2seq is not ported to the PyTorch package yet: "
@@ -178,9 +185,17 @@ class StreamingTextDataset:
         self.task = task
         self.max_length = max_length
         self.num_labels = num_labels
+        self.mlm_probability = mlm_probability
+        self.whole_word = whole_word
+        self.seed = seed
+        self._epoch = 0
 
     def __len__(self) -> int:
         return len(self.corpus)
+
+    def begin_epoch(self, epoch: int) -> None:
+        """Keep the epoch for the MLM masks' seeds; nothing is read here."""
+        self._epoch = epoch
 
     def resident_bytes(self) -> int:
         """Host memory the dataset itself holds (the offset index)."""
@@ -194,6 +209,8 @@ class StreamingTextDataset:
         if not isinstance(idx, np.ndarray):
             idx = np.atleast_1d(np.asarray(idx, np.int64))
         texts, labels = self.corpus.read_rows(idx)
+        if self.task == "mlm":
+            return self._mlm_rows(idx, texts)
         enc = self.tokenizer(texts, truncation=True, padding="max_length",
                              max_length=self.max_length)
         ids = np.asarray(enc["input_ids"], np.int32)
@@ -216,3 +233,20 @@ class StreamingTextDataset:
                     f"{self.num_labels}; pass --num_labels {top + 1}")
         return {"input_ids": ids, "attention_mask": am,
                 "labels": np.asarray(labels, np.int32)}
+
+    def _mlm_rows(self, idx: np.ndarray, texts: list) -> dict[str, np.ndarray]:
+        """Clean-tokenize the window, then mask each row from its own
+        ``(seed, epoch, row)`` stream: independent of the batch's rows."""
+        clean, am, wid = encode_mlm_clean(self.tokenizer, texts, self.max_length)
+        ids = np.empty_like(clean)
+        labels = np.empty_like(clean)
+        vocab = int(self.tokenizer.vocab_size)
+        mask_id = int(self.tokenizer.mask_token_id)
+        for j, r in enumerate(idx):
+            rng = np.random.RandomState([self.seed & 0x7FFFFFFF, self._epoch, int(r)])
+            row_ids, row_labels = apply_mlm_masking(
+                clean[j: j + 1], wid[j: j + 1], rng, mask_id, vocab,
+                self.mlm_probability, self.whole_word)
+            ids[j] = row_ids[0]
+            labels[j] = row_labels[0]
+        return {"input_ids": ids, "attention_mask": am, "labels": labels}

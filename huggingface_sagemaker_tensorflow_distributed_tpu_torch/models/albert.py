@@ -10,7 +10,9 @@
 
 Only ``num_hidden_groups = inner_group_num = 1`` is supported (every
 public ALBERT v1/v2 checkpoint); other values raise. The heads are
-BERT's on this trunk, their dropout ``classifier_dropout_prob``."""
+BERT's on this trunk, their dropout ``classifier_dropout_prob``; the
+masked-LM head (HF ``AlbertMLMHead``) transforms to ``embedding_size``, the
+tied table's width."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+    BertForMaskedLM,
     BertForQuestionAnswering,
     BertForSequenceClassification,
     BertForTokenClassification,
@@ -116,4 +119,8 @@ class AlbertForTokenClassification(BertForTokenClassification):
 
 
 class AlbertForQuestionAnswering(BertForQuestionAnswering):
+    backbone_cls = AlbertBackbone
+
+
+class AlbertForMaskedLM(BertForMaskedLM):
     backbone_cls = AlbertBackbone

@@ -10,8 +10,10 @@ checkpoint keep their fresh weights; a missing backbone weight raises).
 ``{"format": "pt"}``) and ``config.json`` in HF layout, from rank 0 only,
 readable by the JAX package's ``from_pretrained`` and the reverse. Ported
 so far: the encoder families ``bert``, ``roberta``, ``distilbert``,
-``electra`` and ``albert`` with tasks ``seq-cls``, ``token-cls`` and
-``qa`` (``MODEL_REGISTRY``), and ``gpt2`` with task ``causal-lm``.
+``electra`` and ``albert`` with tasks ``seq-cls``, ``token-cls``, ``qa``
+and ``mlm``, ELECTRA with ``rtd`` (``MODEL_REGISTRY``), and ``gpt2`` with
+task ``causal-lm``. The exported ``config.json`` names the family's
+seq-cls architecture whatever the task, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ MODEL_REGISTRY = {
     ("albert", "seq-cls"): albert.AlbertForSequenceClassification,
     ("albert", "token-cls"): albert.AlbertForTokenClassification,
     ("albert", "qa"): albert.AlbertForQuestionAnswering,
+    ("bert", "mlm"): bert.BertForMaskedLM,
+    ("roberta", "mlm"): roberta.RobertaForMaskedLM,
+    ("distilbert", "mlm"): distilbert.DistilBertForMaskedLM,
+    ("albert", "mlm"): albert.AlbertForMaskedLM,
+    ("electra", "rtd"): electra.ElectraForPreTraining,
+    ("electra", "mlm"): electra.ElectraForMaskedLM,
 }
 
 CONFIG_BUILDERS = {
@@ -99,7 +107,7 @@ _FAMILY_ALIASES = {"xlm-roberta": "roberta", "camembert": "roberta",
                    "mistral": "llama", "qwen2": "llama", "gemma": "llama",
                    "mixtral": "llama"}
 # tasks the JAX package runs that the port does not yet
-_UNPORTED_TASKS = {"mlm": "items 6-7", "rtd": "item 6", "seq2seq": "item 9"}
+_UNPORTED_TASKS = {"seq2seq": "item 9"}
 _GENERATION_KEYS = ("forced_bos_token_id", "forced_eos_token_id",
                     "decoder_start_token_id", "bos_token_id",
                     "eos_token_id", "pad_token_id")
@@ -138,14 +146,14 @@ def detect_family(hf_config: dict) -> str:
 
 def build_model(family: str, task: str, config, num_labels: int = 2):
     """The registry's encoder model for ``(family, task)`` (the JAX
-    package's ``build_model``): QA takes no ``num_labels``."""
+    package's ``build_model``): QA, MLM and RTD take no ``num_labels``."""
     if task in _UNPORTED_TASKS:
         raise NotImplementedError(f"task {task!r} is not ported to the PyTorch package "
                                   f"yet: ROADMAP queue 1, {_UNPORTED_TASKS[task]}")
     cls = MODEL_REGISTRY.get((family, task))
     if cls is None:
         raise ValueError(f"no model for family={family!r} task={task!r}")
-    if task == "qa":
+    if task in ("qa", "mlm", "rtd"):
         return cls(config)
     return cls(config, num_labels=num_labels)
 
@@ -207,7 +215,9 @@ def save_pretrained(output_dir: str, model, family: str, config,
     """Export ``model`` in HF layout (``model.safetensors`` +
     ``config.json``), from rank 0 only unless ``host0_only`` is False."""
     if family not in HF_CONFIG_EXPORTERS:
-        raise NotImplementedError(f"export of family {family!r} is not ported yet")
+        raise NotImplementedError(f"export of family {family!r} is not ported to the "
+                                  "PyTorch package yet: ROADMAP queue 1, "
+                                  f"{_UNPORTED_FAMILIES.get(family, 'item 9')}")
     if host0_only and process_index() != 0:
         return
     os.makedirs(output_dir, exist_ok=True)

@@ -1,10 +1,10 @@
 """BERT and its task heads (counterpart of the JAX package's
 ``models/bert.py``: ``bert_config_from_hf``,
-``BertForSequenceClassification``, ``BertForTokenClassification`` and
-``BertForQuestionAnswering``). The token-cls and QA heads are the same
-modules for every encoder family; a family with its own trunk (ALBERT)
-subclasses them with another ``backbone_cls``. The masked-LM head comes
-with MLM (ROADMAP queue 1, items 6-7)."""
+``BertForSequenceClassification``, ``BertForTokenClassification``,
+``BertForQuestionAnswering`` and ``BertForMaskedLM``). The token-cls, QA
+and masked-LM heads are the same modules for every encoder family; a
+family with its own trunk (ALBERT) subclasses them with another
+``backbone_cls``."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Dense,
     EncoderBackbone,
     EncoderConfig,
+    MlmHead,
 )
 
 
@@ -114,3 +115,30 @@ class BertForQuestionAnswering(nn.Module):
         seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
         logits = self.qa_outputs(seq)
         return logits[..., 0], logits[..., 1]
+
+
+class BertForMaskedLM(nn.Module):
+    """Backbone -> :class:`MlmHead` tied to the word embeddings (HF
+    ``BertForMaskedLM``): ``[B, S, V]`` fp32 logits; the pretraining recipe
+    of the reference's default checkpoint,
+    ``bert-large-uncased-whole-word-masking``. ``return_fused_inputs``
+    gives ``(x [B, S, E], table [V, E], bias [V])`` for the fused loss
+    instead."""
+
+    backbone_cls = EncoderBackbone
+    head_act = None
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        self.backbone = self.backbone_cls(config)
+        self.mlm_head = MlmHead(config, act=self.head_act)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                return_fused_inputs: bool = False):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+        table = self.backbone.embeddings.word_embeddings.weight
+        if return_fused_inputs:
+            x, bias = self.mlm_head(seq, table, return_transform=True)
+            return x, table, bias
+        return self.mlm_head(seq, table)

@@ -73,7 +73,7 @@ def _init_normal(model, std_of, seed: int):
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
-            elif re.search(r"(^|\.)(ln_\w*|\w*_ln)\.weight$", name):
+            elif re.search(r"(^|\.)(ln|ln_\w*|\w*_ln)\.weight$", name):
                 p.fill_(1.0)
             else:
                 p.copy_(torch.randn(p.shape, generator=gen) * std_of(name))
@@ -140,12 +140,22 @@ def _encoder_names(prefix: str) -> list:
 
 _CLS_HEAD = [("head.head_dense", "classifier.dense"), ("head.classifier", "classifier.out_proj")]
 _TASK_HEADS = [("qa_outputs", "qa_outputs"), ("classifier", "classifier")]
+
+
+def _mlm_head(transform: str, ln: str, bias: str) -> list:
+    """The masked-LM head's HF names; its decoder weight is the tied word
+    embedding, read from and written to the embedding's key only (an HF
+    ``decoder.weight`` is skipped on load, as the JAX package skips it)."""
+    return [("mlm_head.transform", transform), ("mlm_head.ln", ln), ("mlm_head", bias)]
 _ALBERT_LAYER = "albert.encoder.albert_layer_groups.0.albert_layers.0"
 
 ENCODER_NAMES = {
     "bert": _encoder_names("bert") + [("backbone.pooler.pooler", "bert.pooler.dense")]
-    + _TASK_HEADS,
-    "roberta": _encoder_names("roberta") + _CLS_HEAD + _TASK_HEADS,
+    + _TASK_HEADS
+    + _mlm_head("cls.predictions.transform.dense", "cls.predictions.transform.LayerNorm",
+                "cls.predictions"),
+    "roberta": _encoder_names("roberta") + _CLS_HEAD + _TASK_HEADS
+    + _mlm_head("lm_head.dense", "lm_head.layer_norm", "lm_head"),
     "distilbert": [
         ("backbone.embeddings.word_embeddings", "distilbert.embeddings.word_embeddings"),
         ("backbone.embeddings.position_embeddings",
@@ -159,10 +169,15 @@ ENCODER_NAMES = {
                         ("attention_ln", "sa_layer_norm"),
                         ("ffn.intermediate", "ffn.lin1"), ("ffn.ffn_out", "ffn.lin2"),
                         ("ffn_ln", "output_layer_norm")]]
-    + [("pre_classifier", "pre_classifier")] + _TASK_HEADS,
+    + [("pre_classifier", "pre_classifier")] + _TASK_HEADS
+    + _mlm_head("vocab_transform", "vocab_layer_norm", "vocab_projector"),
     "electra": _encoder_names("electra")
     + [("backbone.embeddings_project", "electra.embeddings_project")]
-    + _CLS_HEAD + _TASK_HEADS,
+    + _CLS_HEAD + _TASK_HEADS
+    + [("disc_dense", "discriminator_predictions.dense"),
+       ("disc_prediction", "discriminator_predictions.dense_prediction")]
+    + _mlm_head("generator_predictions.dense", "generator_predictions.LayerNorm",
+                "generator_lm_head"),
     "albert": [(f"backbone.embeddings.{e}", f"albert.embeddings.{e}")
                for e in ("word_embeddings", "position_embeddings", "token_type_embeddings")]
     + [("backbone.embeddings.embeddings_ln", "albert.embeddings.LayerNorm"),
@@ -175,7 +190,8 @@ ENCODER_NAMES = {
                         ("attention_ln", "attention.LayerNorm"),
                         ("ffn.intermediate", "ffn"), ("ffn.ffn_out", "ffn_output"),
                         ("ffn_ln", "full_layer_layer_norm")]]
-    + [("backbone.pooler.pooler", "albert.pooler")] + _TASK_HEADS,
+    + [("backbone.pooler.pooler", "albert.pooler")] + _TASK_HEADS
+    + _mlm_head("predictions.dense", "predictions.LayerNorm", "predictions"),
 }
 
 
@@ -219,13 +235,15 @@ def encoder_to_hf(state_dict: dict, family: str) -> dict:
 
 def encoder_from_hf(hf_state: dict, family: str) -> dict:
     """HF keys of an encoder family (with or without the family's prefix)
-    -> port ``state_dict`` keys; keys of heads the port has no module for
-    (``cls.*``, ``lm_head.*``, ``discriminator_predictions.*``) are
-    dropped, as the JAX package's ``hf_to_params`` skips them."""
+    -> port ``state_dict`` keys; keys no rule of the family names (another
+    family's heads) are dropped, as the JAX package's ``hf_to_params``
+    skips them, and so is the MLM decoder's weight, the tied word
+    embedding (DistilBERT's ``vocab_projector.weight``, ELECTRA's
+    ``generator_lm_head.weight``)."""
     out = {}
     for key, value in hf_state.items():
         port = _translate(key, _ENCODER_FROM_HF[family])
-        if port is not None:
+        if port is not None and port != "mlm_head.weight":
             out[port] = value
     return out
 

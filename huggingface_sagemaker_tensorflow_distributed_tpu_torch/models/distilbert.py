@@ -2,8 +2,9 @@
 ``models/distilbert.py``): BERT layers without token-type embeddings or
 pooler. The seq-cls head is pre_classifier -> ReLU -> dropout ->
 classifier on the CLS token (HF ``DistilBertForSequenceClassification``);
-token-cls and QA are BERT's heads (the trunk has no token types, so
-``token_type_ids`` are ignored)."""
+token-cls, QA and masked-LM (HF ``vocab_transform``/``vocab_projector``)
+are BERT's heads (the trunk has no token types, so ``token_type_ids`` are
+ignored)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+    BertForMaskedLM,
     BertForQuestionAnswering,
     BertForTokenClassification,
 )
@@ -76,3 +78,4 @@ class DistilBertForSequenceClassification(nn.Module):
 
 DistilBertForTokenClassification = BertForTokenClassification
 DistilBertForQuestionAnswering = BertForQuestionAnswering
+DistilBertForMaskedLM = BertForMaskedLM

@@ -1,21 +1,29 @@
-"""ELECTRA's discriminator and its task heads (counterpart of the JAX
-package's ``models/electra.py``: seq-cls, token-cls and QA). The trunk is
-BERT's with factorized embeddings (``embedding_size`` below
-``hidden_size``, projected up by the backbone's ``embeddings_project``)
-and no pooler; the seq-cls head is dense -> exact GeLU -> out_proj on the
-CLS token (HF ``ElectraClassificationHead``). Replaced-token detection
-(``ElectraForPreTraining``) and the generator come with ``rtd`` and MLM
-(ROADMAP queue 1, item 6)."""
+"""ELECTRA and its task heads (counterpart of the JAX package's
+``models/electra.py``: seq-cls, token-cls, QA, replaced-token detection
+and the generator's masked LM). The trunk is BERT's with factorized
+embeddings (``embedding_size`` below ``hidden_size``, projected up by the
+backbone's ``embeddings_project``) and no pooler; the seq-cls head is
+dense -> exact GeLU -> out_proj on the CLS token (HF
+``ElectraClassificationHead``); ``ElectraForPreTraining`` is the
+discriminator (one logit a token), ``ElectraForMaskedLM`` the generator
+(its head always exact GeLU)."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
+from torch import nn
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+    BertForMaskedLM,
     BertForQuestionAnswering,
     BertForTokenClassification,
 )
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import EncoderConfig
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
+    ACT2FN,
+    Dense,
+    EncoderBackbone,
+    EncoderConfig,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.roberta import (
     RobertaForSequenceClassification,
 )
@@ -72,3 +80,30 @@ class ElectraForSequenceClassification(RobertaForSequenceClassification):
 
 ElectraForTokenClassification = BertForTokenClassification
 ElectraForQuestionAnswering = BertForQuestionAnswering
+
+
+class ElectraForPreTraining(nn.Module):
+    """The replaced-token-detection discriminator (HF
+    ``ElectraForPreTraining``): ``disc_dense`` -> the config's activation ->
+    ``disc_prediction``, one fp32 logit a token ``[B, S]`` that says whether
+    the token was replaced."""
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        self.backbone = EncoderBackbone(config)
+        self.disc_dense = Dense(config, config.hidden_size, config.hidden_size)
+        self.act = ACT2FN[config.hidden_act]
+        self.disc_prediction = Dense(config, config.hidden_size, 1)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+        return self.disc_prediction(self.act(self.disc_dense(seq)))[..., 0].float()
+
+
+class ElectraForMaskedLM(BertForMaskedLM):
+    """The generator (HF ``ElectraForMaskedLM``): HF's
+    ``ElectraGeneratorPredictions`` is exact GeLU whatever the config's
+    activation."""
+
+    head_act = "gelu"

@@ -33,9 +33,13 @@ The forward has three call forms, chosen by ``cache``:
   card).
 
 :meth:`Gpt2LMHeadModel.hidden_and_embedding` hands the pre-head hidden
-states and the tied embedding to the fused vocab cross-entropy. MoE,
-pipeline stages, remat, weight quantization and ``attention_impl='ring'``
-are not ported and raise.
+states and the tied embedding to the fused vocab cross-entropy. With
+``remat`` each block of a training forward (no cache, grad enabled) is
+recomputed in backward (``torch.utils.checkpoint``, the JAX package's
+``nn.remat`` per block; the dropout draws are replayed, so the step is
+the same bit for bit). MoE, pipeline stages, the remat policies other
+than ``full``, weight quantization and ``attention_impl='ring'`` are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
@@ -124,17 +129,20 @@ class Gpt2Config:
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r} "
                              "(xla | flash | ring)")
-        unported = {
-            "num_experts": self.num_experts != 0,
-            "pipeline_stages": self.pipeline_stages != 0,
-            "remat": bool(self.remat),
-            "weight_quant": self.weight_quant != "none",
-            "attention_impl='ring'": self.attention_impl == "ring",
-        }
-        bad = [k for k, on in unported.items() if on]
-        if bad:
-            raise ValueError(f"the PyTorch port does not support "
-                             f"{', '.join(bad)} yet")
+        unported = [
+            (self.remat and self.remat_policy != "full",
+             f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
+            (self.num_experts != 0, "num_experts", "9 (MoE)"),
+            (self.pipeline_stages != 0, "pipeline_stages", "11 (pipeline stages)"),
+            (self.weight_quant != "none", f"weight_quant={self.weight_quant!r}",
+             "8 (int8 weight-only quantization)"),
+            (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
+        ]
+        for hit, what, item in unported:
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported to the PyTorch package yet: "
+                    f"ROADMAP queue 1, item {item}")
         if not (isinstance(self.dtype, torch.dtype)
                 and isinstance(self.param_dtype, torch.dtype)):
             raise ValueError("dtype and param_dtype must be torch dtypes")
@@ -297,8 +305,12 @@ class Gpt2Model(nn.Module):
         elif position_ids is None:                   # paged decode
             position_ids = cache.context_lens.long()[:, None]
         x = self.dropout(self.wte(input_ids) + self.wpe(position_ids))
+        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for block in self.h:
-            x = block(x, mask, cache)
+            if remat:
+                x = checkpoint(block, x, mask, None, use_reentrant=False)
+            else:
+                x = block(x, mask, cache)
         if isinstance(cache, DenseCache):
             cache.index = cache.index + S
         return self.ln_f(x)

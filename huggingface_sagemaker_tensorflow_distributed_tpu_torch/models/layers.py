@@ -3,7 +3,8 @@ the JAX package's ``models/layers.py``): the activation table and the
 BERT-family encoder, with RoBERTa's mask-counted position ids
 (``position_offset``), DistilBERT's missing token types
 (``use_token_type=False``) and ELECTRA's factorized embeddings
-(``embedding_size`` below ``hidden_size``, projected up in the backbone).
+(``embedding_size`` below ``hidden_size``, projected up in the backbone),
+and the masked-LM head every family shares (:class:`MlmHead`).
 
 Module names mirror the flax names, so carrying weights across is a
 rename (``backbone.encoder.layer.<i>.attention.query`` is flax's
@@ -85,17 +86,17 @@ class EncoderConfig:
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         unported = [
-            (self.num_experts > 0, "num_experts>0 (MoE)", "C"),
-            (self.pipeline_stages > 0, "pipeline_stages>0", "D"),
+            (self.num_experts > 0, "num_experts>0 (MoE)", "9"),
+            (self.pipeline_stages > 0, "pipeline_stages>0", "11"),
             (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "2 follow-ups"),
-            (self.attention_impl == "ring", "attention_impl='ring'", "D"),
+             f"remat_policy={self.remat_policy!r}", "4"),
+            (self.attention_impl == "ring", "attention_impl='ring'", "11"),
         ]
-        for hit, what, slice_ in unported:
+        for hit, what, item in unported:
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP slice {slice_}")
+                    f"ROADMAP queue 1, item {item}")
 
 
 class Dense(nn.Linear):
@@ -268,6 +269,37 @@ class Pooler(nn.Module):
 
     def forward(self, hidden):
         return torch.tanh(self.pooler(hidden[:, 0]))
+
+
+class MlmHead(nn.Module):
+    """Masked-LM prediction head: ``transform`` dense to the embedding
+    table's width, the activation (``act`` overrides the config's: ELECTRA's
+    generator is always exact GeLU), layer norm, then a decoder tied to the
+    word-embedding table the family model passes in, plus an fp32 output
+    ``bias [V]`` (HF ``BertLMPredictionHead``, ``RobertaLMHead``,
+    DistilBERT's ``vocab_transform``/``vocab_projector``, ``AlbertMLMHead``,
+    ELECTRA's generator head). The logits come out fp32, computed in
+    ``dtype`` as in the JAX package."""
+
+    def __init__(self, cfg: EncoderConfig, act: Optional[str] = None):
+        super().__init__()
+        width = cfg.embedding_size or cfg.hidden_size
+        self.transform = Dense(cfg, cfg.hidden_size, width)
+        self.act = ACT2FN[act or cfg.hidden_act]
+        self.ln = LayerNorm(cfg, width)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, dtype=cfg.param_dtype))
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, hidden, embedding_table, return_transform: bool = False):
+        """``[B, S, V]`` fp32 logits; with ``return_transform`` the
+        post-transform activations ``[B, S, E]`` and the bias instead, for
+        the fused loss that never makes the logits."""
+        x = self.ln(self.act(self.transform(hidden)))
+        if return_transform:
+            return x, self.bias
+        dt = self.compute_dtype
+        logits = torch.matmul(x, embedding_table.to(dt).t())
+        return (logits + self.bias.to(dt)).float()
 
 
 def head_dropout_rate(cfg: EncoderConfig) -> float:

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.bert import (
+    BertForMaskedLM,
     BertForQuestionAnswering,
     BertForTokenClassification,
 )
@@ -92,3 +93,4 @@ class RobertaForSequenceClassification(nn.Module):
 
 RobertaForTokenClassification = BertForTokenClassification
 RobertaForQuestionAnswering = BertForQuestionAnswering
+RobertaForMaskedLM = BertForMaskedLM

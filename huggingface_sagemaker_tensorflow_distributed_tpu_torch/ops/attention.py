@@ -65,7 +65,7 @@ def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
     if impl == "ring":
         raise NotImplementedError(
             "impl='ring' (sequence-parallel ring attention) is not ported "
-            "yet: ROADMAP slice D")
+            "yet: ROADMAP queue 1, item 11")
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r} (xla | flash | ring)")
     if window is not None:

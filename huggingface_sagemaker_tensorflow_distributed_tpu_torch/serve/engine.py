@@ -90,8 +90,8 @@ class ServeEngine:
             raise ValueError(f"model lives on {model.backbone.wte.weight.device}"
                              f", engine asked for {self.device}")
         if cfg.kv_cache_dtype != "fp":
-            raise ValueError("int8 KV pools are not ported to the PyTorch "
-                             "engine yet")
+            raise NotImplementedError("int8 KV pools are not ported to the PyTorch "
+                                      "engine yet: ROADMAP queue 1, item 10")
         self.model = model
         self.eos_token_id = int(cfg.eos_token_id)
         self.pad_token_id = min(int(cfg.pad_token_id), cfg.vocab_size - 1)

@@ -1,6 +1,6 @@
-"""Fine-tuning entry point (counterpart of the JAX package's
-``scripts/train.py::main`` for tasks ``seq-cls``, ``token-cls``, ``qa``
-and ``causal-lm``).
+"""Fine-tuning and pretraining entry point (counterpart of the JAX
+package's ``scripts/train.py::main`` for tasks ``seq-cls``, ``token-cls``,
+``qa``, ``causal-lm``, ``mlm`` and ``rtd``).
 
     python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.cli \\
         --model_name_or_path DIR --dataset vendored_reviews [--device cpu] ...
@@ -16,7 +16,10 @@ splits (a ``--dataset_path`` of ``{split}.jsonl`` files or a
 ``datasets.save_to_disk`` directory; with ``--streaming true`` the train
 split stays on disk and is tokenized batch by batch; token-cls labels a
 word's first subword, QA with ``--qa_doc_stride`` trains on overlapping
-context windows), batch them
+context windows, ``mlm`` masks whole words afresh each epoch
+(``--mlm_static_masking`` pins epoch 0's masks; ``--fused_vocab_ce``
+gathers the masked rows into the fused vocab cross-entropy), ``rtd``
+replaces random tokens for ELECTRA's discriminator), batch them
 (``--bucket_multiple``: length buckets of its multiples), restore the
 latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
 false``), fit, evaluate (token-cls adds ``eval_f1``; QA with
@@ -130,7 +133,7 @@ def build_streaming_dataset(config: TrainConfig, tokenizer, split: str, max_len:
         raise ValueError("--streaming needs --dataset_path (train.jsonl/.txt) or "
                          "--dataset synthetic")
     return StreamingTextDataset(LineCorpus(path, max_rows=max_samples), tokenizer,
-                                task=config.task, max_length=max_len,
+                                task=config.task, max_length=max_len, seed=config.seed,
                                 num_labels=config.num_labels
                                 if config.task == "seq-cls" else None)
 
@@ -149,11 +152,16 @@ def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
         return ArrayDataset.from_qa(tokenizer, questions, contexts, starts, answers,
                                     max_len, doc_stride=config.qa_doc_stride)
     texts, labels = load_text_classification(config.dataset, split, **kw)
+    # any text source works as an LM, MLM or RTD corpus; its labels are ignored
     if config.task == "causal-lm":
-        # any text source works as an LM corpus; its labels are ignored
         return ArrayDataset.from_lm_texts(
             tokenizer, texts, max_len, packed=config.packed_sequences,
             eos_token_id=getattr(model_config, "eos_token_id", None))
+    if config.task == "mlm":
+        return ArrayDataset.from_mlm_texts(tokenizer, texts, max_len, seed=config.seed,
+                                           static_masking=config.mlm_static_masking)
+    if config.task == "rtd":
+        return ArrayDataset.from_rtd_texts(tokenizer, texts, max_len, seed=config.seed)
     _check_num_labels(labels, config.num_labels, config.task)
     return ArrayDataset.from_texts(tokenizer, texts, labels, max_len)
 

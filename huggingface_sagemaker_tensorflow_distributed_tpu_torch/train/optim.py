@@ -78,7 +78,7 @@ def build_optimizer(config: TrainConfig, params, world_size: int = 1,
     if config.optimizer not in ("adam", "adamw"):
         raise NotImplementedError(
             f"optimizer {config.optimizer!r} is not ported to the PyTorch "
-            "package yet: ROADMAP slice 2 follow-ups")
+            "package yet: ROADMAP queue 1, item 4")
     schedule, lr = lr_schedule(config, world_size, total_steps)
     params = list(params)
     if config.optimizer == "adamw" and config.weight_decay > 0:

@@ -1,9 +1,9 @@
 """The training engine: train/eval steps and the epoch loop (counterpart
 of the JAX package's ``train/trainer.py``: ``_masked_sums``, the task
-losses ``seq_cls_loss``, ``token_cls_loss``, ``qa_loss`` and
-``causal_lm_loss``, the fused ``make_fused_causal_lm_loss``, and
-``Trainer`` for tasks ``seq-cls``, ``token-cls``, ``qa`` and
-``causal-lm``).
+losses ``seq_cls_loss``, ``token_cls_loss`` (also ``mlm``'s, without the
+F1 counts), ``qa_loss``, ``causal_lm_loss`` and ``rtd_loss``, the fused
+``make_fused_causal_lm_loss`` and ``make_fused_mlm_loss``, and ``Trainer``
+for every task but ``seq2seq``).
 
 - A train step is forward, backward, one all-reduce mean of the
   gradients over the ranks, clipping, and the optimizer update at the
@@ -47,12 +47,14 @@ losses ``seq_cls_loss``, ``token_cls_loss``, ``qa_loss`` and
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
@@ -179,6 +181,24 @@ def causal_lm_loss(model, batch):
     return _masked_sums(per_tok, correct, token_valid)
 
 
+def rtd_loss(model, batch):
+    """Replaced-token detection (ELECTRA pretraining): per-token binary CE
+    on whether the token was replaced; -100 and pad positions are ignored.
+    Metric is detection accuracy."""
+    logits = model(batch["input_ids"], batch["attention_mask"],
+                   token_type_ids=batch.get("token_type_ids"))                # [B, S]
+    labels = batch["labels"]
+    token_valid = (labels != -100) & (batch["attention_mask"] > 0)
+    if "valid" in batch:
+        token_valid = token_valid & (batch["valid"][:, None] > 0)
+    target = labels.clamp(min=0).float()
+    x = logits.float()
+    # optax.sigmoid_binary_cross_entropy: -t log σ(x) - (1 - t) log σ(-x)
+    per_tok = -target * F.logsigmoid(x) - (1.0 - target) * F.logsigmoid(-x)
+    correct = (logits > 0) == (target > 0.5)
+    return _masked_sums(per_tok, correct, token_valid)
+
+
 def make_fused_causal_lm_loss(model):
     """``causal_lm_loss`` without the [B, S, V] logits: the model's
     ``hidden_and_embedding`` feeds the fused vocab cross-entropy
@@ -206,8 +226,88 @@ def make_fused_causal_lm_loss(model):
     return loss
 
 
+# rows a fused MLM step's K is rounded up to: the JAX package's block_n, so
+# K and ce_dropped equal its own
+MLM_ROW_QUANTUM = 256
+
+
+def mlm_gather_rows(n: int, mask_cap: float) -> int:
+    """K, the static number of rows the fused MLM loss gathers out of
+    ``n`` tokens: ``mask_cap`` of them rounded up to ``MLM_ROW_QUANTUM``,
+    at most ``n`` (the JAX ``make_fused_mlm_loss``'s K)."""
+    return min(n, -(-int(n * mask_cap) // MLM_ROW_QUANTUM) * MLM_ROW_QUANTUM)
+
+
+def mlm_gather_index(flags, k: int):
+    """The ``k`` rows the fused MLM loss keeps out of ``flags [n]`` (1 for
+    a labelled token): labelled rows first, each group in index order, as
+    the JAX ``lax.top_k`` on the flags keeps ties; ``torch.topk`` promises
+    no order among ties, a stable descending sort does. Returns ``(index
+    [k], kept row is labelled [k])``."""
+    flags = flags.to(torch.int32)
+    sel = torch.sort(flags, descending=True, stable=True).indices[:k]
+    return sel, flags.index_select(0, sel) > 0
+
+
+def bias_fold_width(h_dim: int) -> int:
+    """The hidden width with the decoder bias folded in: the next multiple
+    of 8 past ``h_dim`` (``[h | 1 | 0...]``, ``[W | b | 0...]``), 16-byte
+    rows in bf16 for the tensor-core kernels (776 at BERT-base, where dW
+    stays under its 800 cap)."""
+    return (h_dim // 8 + 1) * 8
+
+
+def make_fused_mlm_loss(mask_cap: float):
+    """The MLM loss without the [B, S, V] logits: only about 15% of the
+    positions carry a label, so ``mlm_gather_rows`` rows (masked positions
+    first, in index order: :func:`mlm_gather_index`) are gathered into a
+    static ``[K, E]`` buffer, and only those go through the fused vocab
+    cross-entropy (``ops/vocab_ce.py``: the CUDA kernels on the card); a
+    static K needs no host sync. The decoder bias is folded into the same
+    kernels by widening ``h -> [h | 1 | 0...]`` and ``W -> [W | b | 0...]``
+    to :func:`bias_fold_width`, so ``h'·W'ᵀ = h·Wᵀ + b`` exactly and the
+    bias gradient comes out of the concat's backward (``W'`` is a new fp32
+    ``[V, E']`` tensor each step). Positions past K
+    (none at 15% masking under the default cap of 25%) drop out of both the
+    loss and the count; ``ce_dropped`` counts them. With several ranks each
+    gathers from its own batch, the JAX package's per-shard gather."""
+
+    def loss(model, batch):
+        hidden, table, bias = model(batch["input_ids"], batch["attention_mask"],
+                                    token_type_ids=batch.get("token_type_ids"),
+                                    return_fused_inputs=True)
+        labels = batch["labels"]
+        token_valid = (labels != -100) & (batch["attention_mask"] > 0)
+        if "valid" in batch:
+            token_valid = token_valid & (batch["valid"][:, None] > 0)
+        B, S, E = hidden.shape
+        n = B * S
+        k = mlm_gather_rows(n, mask_cap)
+        sel, sel_valid = mlm_gather_index(token_valid.reshape(n), k)
+        h_sel = hidden.reshape(n, E).index_select(0, sel)
+        lab_sel = labels.clamp(min=0).reshape(n).index_select(0, sel)
+        pad = bias_fold_width(E) - E
+        h_tail = torch.zeros(k, pad, dtype=h_sel.dtype, device=h_sel.device)
+        h_tail[:, 0] = 1
+        w_tail = torch.zeros(table.shape[0], pad - 1, dtype=table.dtype, device=table.device)
+        w_aug = torch.cat([table, bias[:, None].to(table.dtype), w_tail], dim=1)
+        per_tok, pred = fused_vocab_cross_entropy(torch.cat([h_sel, h_tail], dim=1),
+                                                  w_aug, lab_sel)
+        loss_val, sums = _masked_sums(per_tok, pred == lab_sel, sel_valid)
+        # supervision the static cap dropped (0 while the masking rate stays
+        # under mask_cap): measured, not silent
+        sums["ce_dropped"] = token_valid.float().sum() - sums["count"]
+        return loss_val, sums
+
+    return loss
+
+
 TASK_LOSSES = {"seq-cls": seq_cls_loss, "token-cls": token_cls_loss, "qa": qa_loss,
-               "causal-lm": causal_lm_loss}
+               "causal-lm": causal_lm_loss,
+               # CE over the vocab at the masked positions: token-cls's
+               # shape without the NER F1 (vocab id 0 is a token, not a tag)
+               "mlm": functools.partial(token_cls_loss, with_f1=False),
+               "rtd": rtd_loss}
 
 
 def _closing(batches):
@@ -228,17 +328,20 @@ class Trainer:
         self.task = task or config.task
         if self.task not in TASK_LOSSES:
             raise NotImplementedError(f"task {self.task!r} is not ported to the "
-                                      "PyTorch package yet: ROADMAP queue 1")
+                                      "PyTorch package yet: ROADMAP queue 1, item 9")
         self.loss_fn = TASK_LOSSES[self.task]
         if config.fused_vocab_ce:
             if self.task == "causal-lm" and hasattr(model, "hidden_and_embedding"):
                 self.loss_fn = make_fused_causal_lm_loss(model)
+            elif self.task == "mlm" and hasattr(model, "mlm_head"):
+                self.loss_fn = make_fused_mlm_loss(config.fused_mlm_mask_cap)
             else:
                 raise ValueError(
-                    "fused_vocab_ce requires task='causal-lm' with a GPT-2 "
-                    "model (one exposing hidden_and_embedding); the fused "
-                    "MLM and seq2seq losses are not ported yet: ROADMAP "
-                    "slices B and C")
+                    "fused_vocab_ce requires task='causal-lm' with a model "
+                    "exposing hidden_and_embedding (GPT-2 family), or "
+                    "task='mlm' with a return_fused_inputs-capable MLM model "
+                    "(BERT-family); the fused seq2seq loss is not ported "
+                    "yet: ROADMAP queue 1, item 9")
         self.device = next(model.parameters()).device
         self.n_chips = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]

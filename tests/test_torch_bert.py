@@ -280,7 +280,11 @@ def test_hf_names_match_jax_export(pair):
         np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
     back = bert_from_hf({k.replace("bert.", "", 1): v for k, v in got.items()})
     assert sorted(back) == sorted(model.state_dict())
-    assert bert_from_hf({"cls.predictions.bias": torch.zeros(3)}) == {}
+    # the MLM head's bias is BERT's; the tied decoder and RoBERTa's head
+    # are dropped
+    assert list(bert_from_hf({"cls.predictions.bias": torch.zeros(3)})) == ["mlm_head.bias"]
+    assert bert_from_hf({"cls.predictions.decoder.weight": torch.zeros(3),
+                         "lm_head.bias": torch.zeros(3)}) == {}
 
 
 def test_safetensors_interchange_with_the_package(tmp_path):
@@ -373,4 +377,4 @@ def test_detect_family_and_missing_dir(tmp_path):
         t_auto.from_pretrained(str(tmp_path / "nope"), device="cpu")
     _hf_config(tmp_path)
     with pytest.raises(NotImplementedError):
-        t_auto.from_pretrained(str(tmp_path), task="mlm", device="cpu")
+        t_auto.from_pretrained(str(tmp_path), task="seq2seq", device="cpu")

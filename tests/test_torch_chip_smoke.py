@@ -195,18 +195,40 @@ def test_flash_phase_on_cpu(on_cpu, monkeypatch, capsys):
     assert nbytes == 7 * 2 * 8 * 64 * 2 + 2 * 8 * 4 + 2 * 8 * 4 + 2 * 8 * 4
 
 
+def _small_vocab(monkeypatch, vocab=600, positions=None):
+    """The rehearsal's encoder configs at a small vocab (the unfused MLM
+    logits are [B, S, V]), and optionally fewer positions."""
+    for name in ("BERT_BASE", "BERT_LARGE", "ROBERTA_BASE", "ELECTRA_SMALL",
+                 "ALBERT_BASE", "DISTILBERT_BASE"):
+        cfg = dict(getattr(chip_smoke, name), vocab_size=vocab)
+        if positions:
+            cfg["max_position_embeddings"] = positions + (2 if name == "ROBERTA_BASE" else 0)
+        monkeypatch.setattr(chip_smoke, name, cfg)
+
+
 def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "CLI_STEPS", 2)
     monkeypatch.setattr(chip_smoke, "CLI_EVAL_SAMPLES", 4)
+    _small_vocab(monkeypatch)
     rows = chip_smoke.train_parity_phase()
     for row in rows.values():
         assert row["loss_rel_err"] <= row["loss_rtol"] and row["params"] > 0
     assert rows["bfloat16"]["grad_dist_ratio_max"] <= rows["bfloat16"]["grad_dist_ratio_tol"]
-    # the other families, one fp32 and one bf16 step each at depth 2
+    # the other families, one fp32 and one bf16 step each at depth 2; then
+    # an MLM step of each family (flash and the fused MLM loss against the
+    # plain path) and ELECTRA's RTD step
+    families = ("roberta", "distilbert", "electra", "albert")
     assert sorted(rows) == sorted(["float32", "bfloat16"] + [
-        f"{f}/{dt}" for f in ("roberta", "distilbert", "electra", "albert")
-        for dt in ("float32", "bfloat16")])
+        f"{f}/{dt}" for f in families for dt in ("float32", "bfloat16")] + [
+        f"{f}-mlm/{dt}" for f in ("bert",) + families for dt in ("float32", "bfloat16")] + [
+        f"electra-rtd/{dt}" for dt in ("float32", "bfloat16")])
     assert all(rows[f"{f}/float32"]["layers"] == 2 for f in ("roberta", "albert"))
+    assert all(rows[f"{f}-mlm/bfloat16"]["grad_dist_step_ratio"] <= 2.0
+               for f in ("bert",) + families)
+    # the RTD head's one-number bias is held to the whole step's gate
+    assert list(rows["electra-rtd/bfloat16"]["one_dof_held_apart"]) == \
+        ["disc_prediction.bias"]
+    assert rows["bert-mlm/bfloat16"]["one_dof_held_apart"] == {}
     # on the CPU `auto` picks the plain path; the CLI is asked for flash
     run = cli.run
     monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
@@ -303,14 +325,25 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("gpt2_bf16", 64, 300, 32, "bfloat16", 0.0, False),
         ("ragged", 50, 101, 24, "float32", 0.0, False),
         ("smooth0.1", 32, 200, 16, "float32", 0.1, False),
-        ("ties", 32, 130, 16, "float32", 0.0, True)])
+        ("ties", 32, 130, 16, "float32", 0.0, True),
+        # the MLM cases' routes: dW on the tensor cores at 776, past its cap
+        # (800) on the CUDA cores
+        ("mlm_base_bf16", 16, 300, 776, "bfloat16", 0.0, False),
+        ("mlm_large_bf16", 16, 300, 808, "bfloat16", 0.0, False),
+        ("mlm_eval_bf16", 8, 300, 776, "bfloat16", 0.0, False)])
     rows = chip_smoke.vocab_ce_phase()
-    assert len(rows) == 12 and all(r["status"] == "pass" for r in rows.values())
+    assert len(rows) == 21 and all(r["status"] == "pass" for r in rows.values())
     for kname, kernel in (("fused_ce_fwd", "vocab_ce_fwd_tc_kernel"),
                           ("fused_ce_bwd_dh", "vocab_ce_bwd_dh_tc_kernel"),
                           ("fused_ce_bwd_dw", "vocab_ce_bwd_dw_tc_kernel")):
         assert rows[("gpt2_bf16", kname)]["kernel_name"] == kernel
         assert rows[("ragged", kname)]["kernel_name"] == kernel.replace("_tc_", "_")
+        assert rows[("mlm_base_bf16", kname)]["kernel_name"] == kernel
+        assert rows[("mlm_eval_bf16", kname)]["kernel_name"] == kernel
+        assert rows[("mlm_large_bf16", kname)]["kernel_name"] == (
+            "vocab_ce_bwd_dw_kernel" if kname == "fused_ce_bwd_dw" else kernel)
+    assert rows[("mlm_large_bf16", "fused_ce_bwd_dw")]["route"] == "CUDA cores"
+    assert rows[("mlm_base_bf16", "fused_ce_bwd_dw")]["route"] == "tensor cores"
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
@@ -473,3 +506,100 @@ def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     assert {names[(k, "bfloat16")][0] for k in wrappers} <= held
     assert all(dims == (None,) for k, dims in chip_smoke.TC_KERNELS if k.startswith("vocab_ce"))
     assert chip_smoke.VOCAB_MAIN == "gpt2_bf16"
+
+
+def test_vocab_kernel_names_follow_the_route():
+    """The vocab-CE kernels a wrapper launches are named by route, the
+    library's shared-memory rule (``tc_smem_bytes``), not by dtype alone:
+    bf16 hidden at the MLM shapes runs the tensor-core forward and dH at
+    776 and 1032 and the tensor-core dW at 776 only; the MLM cases are
+    in the phase."""
+    names = chip_smoke.vocab_kernel_names
+    assert names("fused_ce_bwd_dw", "bfloat16", 776) == ("vocab_ce_bwd_dw_tc_kernel",)
+    assert names("fused_ce_bwd_dw", "bfloat16", 1032) == ("vocab_ce_bwd_dw_kernel",)
+    assert names("fused_ce_fwd", "bfloat16", 1032)[0] == "vocab_ce_fwd_tc_kernel"
+    assert names("fused_ce_bwd_dh", "bfloat16", 1032)[0] == "vocab_ce_bwd_dh_tc_kernel"
+    assert names("fused_ce_fwd", "bfloat16", 1280)[0] == "vocab_ce_fwd_kernel"
+    assert names("fused_ce_bwd_dh", "float32", 776)[0] == "vocab_ce_bwd_dh_kernel"
+    cases = {c[0]: c[1:] for c in chip_smoke.VOCAB_CASES}
+    assert cases["mlm_base_bf16"] == (1024, 30522, 776, "bfloat16", 0.0, False)
+    assert cases["mlm_large_bf16"] == (1024, 30522, 1032, "bfloat16", 0.0, False)
+    assert cases["mlm_eval_bf16"] == (512, 30522, 776, "bfloat16", 0.0, False)
+    assert set(chip_smoke.VOCAB_MLM) <= set(cases)
+
+
+def test_every_mlm_phase_shape_is_held_against_its_plain_version():
+    """Each shape the mlm phase's runs launch K1 and K2 at is a case of the
+    flash or vocab-CE phase, which holds it against the plain version: K1
+    at each run's heads and head width at sequence 512, masked (the batch
+    sizes only the grid); K2 at the K rows gathered from a train batch of
+    8 and, where the run evaluates, an eval batch of 4 (the forward's
+    splits follow N), at the bias-folded width."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        bias_fold_width,
+        mlm_gather_rows,
+    )
+
+    flash = {c[2:6] for c in chip_smoke.FLASH_CASES if c[6] and not c[7] and not c[9]}
+    vocab = {c[1:5] for c in chip_smoke.VOCAB_CASES}
+    cap = TrainConfig.fused_mlm_mask_cap
+    fused_runs = 0
+    for name, _, hf, task, _, extra in chip_smoke._mlm_runs():
+        heads = hf["num_attention_heads"]
+        assert (heads, 512, hf["hidden_size"] // heads, "bfloat16") in flash, name
+        if task != "mlm" or extra[extra.index("--fused_vocab_ce") + 1] != "true":
+            continue
+        fused_runs += 1
+        width = bias_fold_width(hf.get("embedding_size") or hf["hidden_size"])
+        for batch in (8, 4) if "--max_eval_samples" in extra else (8,):
+            shape = (mlm_gather_rows(batch * 512, cap), hf["vocab_size"], width, "bfloat16")
+            assert shape in vocab, (name, batch, shape)
+    assert fused_runs == 3
+
+
+def test_mlm_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The mlm phase at hidden 64, 2 layers, a small vocab and 3 steps:
+    the WordPiece directory, the launch accounting (K1 and K2 in one step,
+    eval steps, the unfused and RTD runs without K2), masked tokens and K,
+    ``ce_dropped`` 0, the reloaded exports, the profiled passes, the first
+    losses of the fused and unfused runs within the bf16 gate, the rows
+    and the summary."""
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    _small_vocab(monkeypatch, positions=128)
+    for name, value in (("MLM_STEPS", 3), ("MLM_LARGE_STEPS", 2), ("RTD_STEPS", 2),
+                        ("MLM_STREAM_STEPS", 2), ("MLM_EVAL_SAMPLES", 8),
+                        ("MLM_PROFILED_STEPS", 2), ("MLM_LARGE_PROFILED_STEPS", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rows = chip_smoke.mlm_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["bert_base_fused", "bert_base_unfused", "bert_large_fused",
+                          "electra_small_rtd", "bert_base_streaming"]
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed if p.get("phase") == "mlm"] == list(rows)
+    summary = [p for p in printed if p.get("phase") == "mlm_summary"]
+    assert len(summary) == 1 and summary[0]["first_loss_fused_over_unfused_rel"] <= 2.0 ** -6
+    base, unfused = rows["bert_base_fused"], rows["bert_base_unfused"]
+    assert base["launches"] == {"flash_fwd": 2 * (3 + 2), "flash_bwd_dq": 2 * 3,
+                                "flash_bwd_dkv": 2 * 3, "fused_ce_fwd": 3 + 2,
+                                "fused_ce_bwd_dh": 3, "fused_ce_bwd_dw": 3}
+    assert unfused["launches"]["fused_ce_fwd"] == 0 and unfused["launches"]["flash_fwd"] == 10
+    assert base["seq"] == 128 and base["gather_rows_k"] == 256
+    assert base["ce_dropped_train"] == base["ce_dropped_wanted"] == 0
+    assert unfused["ce_dropped_train"] == "not fused"
+    assert 0 < base["masked_tokens_per_batch"]["min"] <= base["masked_tokens_per_batch"]["max"]
+    assert base["bias_fold_width"] == 72 and base["wordpiece_tokens"] <= 600
+    large = rows["bert_large_fused"]
+    assert large["launches"]["fused_ce_bwd_dw"] == 2 and large["eval_steps"] == 0
+    assert large["profiled_steps"] == 1 and base["profiled_steps"] == 2
+    rtd = rows["electra_small_rtd"]
+    assert rtd["launches"] == {"flash_fwd": 2 * (2 + 2), "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                               "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0, "fused_ce_bwd_dw": 0}
+    assert set(rtd["eval"]) == {"eval_loss", "eval_accuracy"}
+    stream = rows["bert_base_streaming"]
+    assert stream["streaming"] and stream["launches"]["fused_ce_fwd"] == 2
+    for row in rows.values():
+        assert row["export_reloads_bit_for_bit"] and row["card"] == "cpu rehearsal"
+        assert math.isfinite(row["loss"]) and row["dtype"] == "bfloat16"
+    assert base["idle_share"] == "not measured" or isinstance(base["idle_share"], float)

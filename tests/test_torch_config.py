@@ -1,7 +1,7 @@
 """PyTorch port: ``config.py`` against the JAX package's: the same argv
 gives the same ``TrainConfig.to_dict()``, the same fields and defaults
 and the same validation errors, while what the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP slice (every flag still
+raises ``NotImplementedError`` naming its ROADMAP queue 1 item (every flag still
 in ``_check_ported``, and not the four lifecycle flags or the two data
 flags the port runs: ``--streaming`` and ``--bucket_multiple`` parse as
 the JAX package's do and reach the CLI's batcher)."""
@@ -80,10 +80,10 @@ def test_config_fields_and_defaults_match_jax():
     assert t_config.TrainConfig().to_dict() == TrainConfig().to_dict()
 
 
-UNPORTED = [["--task", "mlm"], ["--lora_rank", "4"], ["--num_experts", "4"],
+UNPORTED = [["--task", "seq2seq"], ["--lora_rank", "4"], ["--num_experts", "4"],
             ["--tp", "2"], ["--pp", "2"], ["--fsdp", "2"], ["--sp", "2"],
             ["--dcn_dp", "2"],
-            ["--fused_vocab_ce", "true", "--task", "mlm"],
+            ["--fused_vocab_ce", "true", "--task", "seq2seq"],
             ["--optimizer", "adafactor"], ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
             ["--remat", "true", "--remat_policy", "dots"],
             ["--attention_impl", "ring"],
@@ -98,7 +98,7 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])
 def test_unported_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d+ \("):
         t_config.parse_args(argv)
 
 

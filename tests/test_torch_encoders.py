@@ -280,15 +280,17 @@ def test_hf_exports_read_across_packages(tmp_path, family, task):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_hf_key_rules_match_jax(family):
-    """``encoder_to_hf`` names every parameter of every head as the JAX
-    ``params_to_hf`` does, ``encoder_from_hf`` inverts it with or without
-    the family's prefix, and other heads' keys are dropped."""
+    """``encoder_to_hf`` names every parameter of every head (MLM and RTD
+    too) as the JAX ``params_to_hf`` does, ``encoder_from_hf`` inverts it
+    with or without the family's prefix, and other families' heads' keys
+    and the tied decoder weights are dropped."""
     from huggingface_sagemaker_tensorflow_distributed_tpu.models.convert import (
         translate_key,
     )
 
     cfg = t_auto.CONFIG_BUILDERS[family](HF_CONFIGS[family])
-    for task in TASKS:
+    tasks = TASKS + ["mlm"] + (["rtd"] if family == "electra" else [])
+    for task in tasks:
         model = t_auto.build_model(family, task, cfg, num_labels=NUM_LABELS)
         state = model.state_dict()
         hf = encoder_to_hf(state, family)
@@ -299,10 +301,16 @@ def test_hf_key_rules_match_jax(family):
         for key in hf:
             jax_path = translate_key(key, family)
             assert jax_path is not None, key
-    assert encoder_from_hf({"cls.predictions.bias": torch.zeros(3),
-                            "lm_head.bias": torch.zeros(3),
-                            "discriminator_predictions.dense.bias": torch.zeros(3)},
-                           family) == {}
+    # another family's MLM and RTD heads, and the tied decoders, are dropped
+    own = {"bert": "cls.predictions.bias", "roberta": "lm_head.bias",
+           "distilbert": "vocab_projector.bias", "albert": "predictions.bias",
+           "electra": "generator_lm_head.bias"}
+    others = [k for f, k in own.items() if f != family]
+    if family != "electra":
+        others.append("discriminator_predictions.dense.bias")
+    tied = ["cls.predictions.decoder.weight", "lm_head.decoder.weight",
+            "predictions.decoder.weight", "generator_lm_head.weight"]
+    assert encoder_from_hf({k: torch.zeros(3) for k in others + tied}, family) == {}
 
 
 def test_detect_family_and_config_builders():
@@ -330,8 +338,8 @@ def test_detect_family_and_config_builders():
     for bad in ({"num_hidden_groups": 2}, {"inner_group_num": 2}):
         with pytest.raises(ValueError, match="num_hidden_groups"):
             t_auto.CONFIG_BUILDERS["albert"]({**HF_CONFIGS["albert"], **bad})
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        t_auto.build_model("bert", "mlm", t_auto.CONFIG_BUILDERS["bert"](HF_CONFIGS["bert"]))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        t_auto.build_model("bert", "seq2seq", t_auto.CONFIG_BUILDERS["bert"](HF_CONFIGS["bert"]))
 
 
 @pytest.mark.parametrize("family", FAMILIES)

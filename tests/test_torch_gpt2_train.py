@@ -7,8 +7,10 @@ mode): the training forward and ``hidden_and_embedding``, the JAX
 ``Trainer``'s fp32 loss curve over 5 steps unfused and fused, one batch's
 fused loss and gradients against ``make_fused_causal_lm_loss(interpret=
 True)``, two gloo ranks with unequal valid-token counts equal to one
-process, the LM dataset, the CLI's files, and an export the JAX
-``from_pretrained`` reads back.
+process, the LM dataset, the CLI's files, an export the JAX
+``from_pretrained`` reads back, and ``remat`` (each block recomputed in
+backward): bit for bit the plain step, within the tolerances below of the
+JAX GPT-2's ``nn.remat`` step, and through the CLI.
 
 Tolerances: logits 1e-4 (fp32 through two layers in two frameworks),
 loss curves and losses 1e-5 relative (fp32, sums in other orders),
@@ -117,6 +119,12 @@ def _lm_dataset(n, seed=0):
 def _to_torch(batch):
     return {k: torch.from_numpy(v).long() if k != "valid" else torch.from_numpy(v)
             for k, v in batch.items()}
+
+
+def _jax_batch(batch):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 # -- model ---------------------------------------------------------------------
@@ -282,10 +290,82 @@ def test_fused_loss_and_gradients_match_pallas_interpret():
                                    atol=1e-6, err_msg=name)
 
 
+def _remat_step(model, batch, seed):
+    torch.manual_seed(seed)
+    model.train()
+    loss, _ = t_trainer.causal_lm_loss(model, _to_torch(batch))
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def test_remat_step_equals_the_plain_step_and_the_jax_remat_step():
+    """``remat`` recomputes each block in backward: with dropout on and
+    the same generator the step's loss and every gradient equal the plain
+    step's bit for bit (fp32); with dropout 0 it is within 1e-5 of the JAX
+    GPT-2 with ``remat=True`` (its blocks under ``nn.remat``)."""
+    import dataclasses
+
+    import jax
+    from flax.traverse_util import flatten_dict
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train.trainer import (
+        causal_lm_loss as jax_causal_lm_loss,
+    )
+
+    batch = _lm_dataset(4, seed=6)[np.arange(4)]
+    cfg = t_gpt2.Gpt2Config(**dict(TINY, hidden_dropout=0.1, embd_dropout=0.1,
+                                   attention_dropout=0.1))
+    plain = t_convert.init_gpt2(cfg, seed=1, device="cpu", trainable=True)
+    remat = t_convert.init_gpt2(dataclasses.replace(cfg, remat=True), seed=1, device="cpu",
+                                trainable=True)
+    (loss_a, grads_a), (loss_b, grads_b) = (_remat_step(m, batch, seed=11)
+                                            for m in (plain, remat))
+    assert loss_a == loss_b
+    for name, g in grads_a.items():
+        assert torch.equal(g, grads_b[name]), name
+
+    jmodel, params, model = _pair(seed=7, remat=True)
+    assert model.config.remat
+
+    def f(p):
+        return jax_causal_lm_loss(jmodel.apply, p, _jax_batch(batch),
+                                  {"dropout": jax.random.PRNGKey(0)}, True)
+
+    (want, _), jgrads = jax.value_and_grad(f, has_aux=True)(params)
+    loss, grads = _remat_step(model, batch, seed=0)
+    np.testing.assert_allclose(loss, float(want), rtol=1e-5)
+    flat = {k: np.asarray(v) for k, v in flatten_dict(jgrads, sep="/").items()}
+    want_grads = t_convert.params_from_jax(flat)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want_grads[name].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_causal_lm_cli_runs_with_remat(tmp_path):
+    """``--task causal-lm --remat true`` trains (it raised before remat was
+    ported) and its first loss equals the run without remat."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+    model_dir = _tiny_model_dir(tmp_path / "cfg")
+    common = ["--model_name_or_path", model_dir, "--from_scratch", "true",
+              "--task", "causal-lm", "--dataset", "vendored_reviews",
+              "--max_train_samples", "8", "--max_eval_samples", "4", "--epochs", "1",
+              "--train_batch_size", "4", "--eval_batch_size", "4", "--dtype", "float32",
+              "--log_every_steps", "0", "--max_seq_length", str(SEQ), "--device", "cpu"]
+    runs = {}
+    for remat in ("false", "true"):
+        out = tmp_path / remat
+        res, trainer = cli.run(common + ["--remat", remat, "--output_data_dir", str(out / "o"),
+                                         "--model_dir", str(out / "m")])
+        assert trainer.model.config.remat == (remat == "true")
+        runs[remat] = res["train"]["loss"]
+    assert runs["true"] == runs["false"] and math.isfinite(runs["true"][0])
+
+
 def test_fused_vocab_ce_needs_a_causal_lm_model():
     model = t_convert.init_gpt2(t_gpt2.Gpt2Config(**TINY), seed=0, device="cpu",
                                 trainable=True)
-    with pytest.raises(ValueError, match="fused_vocab_ce requires.*slices B and C"):
+    with pytest.raises(ValueError, match="fused_vocab_ce requires.*ROADMAP queue 1, item 9"):
         t_trainer.Trainer(t_config.TrainConfig(fused_vocab_ce=True), model)
 
 
@@ -386,7 +466,7 @@ def test_from_lm_texts_matches_jax():
     for key, value in want.columns.items():
         np.testing.assert_array_equal(got.columns[key], np.asarray(value), err_msg=key)
     assert (got.columns["labels"][got.columns["attention_mask"] == 0] == -100).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP slice B"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         t_pipe.ArrayDataset.from_lm_texts(t_tok.WordHashTokenizer(300), texts, SEQ,
                                           packed=True)
 

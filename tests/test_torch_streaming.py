@@ -183,9 +183,8 @@ def test_unported_tasks_and_bad_rows_raise(tmp_path, corpus):
     path, texts, _ = corpus
     corpus_ = t_stream.LineCorpus(path)
     tok = t_tok.WordHashTokenizer(512)
-    for task, item in (("mlm", "item 6"), ("seq2seq", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_stream.StreamingTextDataset(corpus_, tok, task=task)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        t_stream.StreamingTextDataset(corpus_, tok, task="seq2seq")
     with pytest.raises(ValueError, match="supports"):
         t_stream.StreamingTextDataset(corpus_, tok, task="qa")
     with pytest.raises(ValueError, match="num_labels"):

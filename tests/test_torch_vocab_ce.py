@@ -561,3 +561,62 @@ def test_tc_smem_bytes_mirror_the_library(cuda_device):
     for kernel, fn in query.items():
         for h_dim in (16, 24, 30, 64, 200, 768, 784, 800, 808, 816, 1216, 1280, 4096):
             assert fn(h_dim) == vc.tc_smem_bytes(kernel, h_dim), (kernel, h_dim)
+
+
+# the fused MLM loss's shapes: K = 1024 gathered rows (B 8 x S 512 x the
+# 0.25 cap), BERT's vocab, the hidden width with the decoder bias folded in
+# (train/trainer.py:bias_fold_width): BERT-base 768 -> 776, BERT-large
+# 1024 -> 1032
+MLM_CASES = [(1024, 30522, 776), (1024, 30522, 1032)]
+
+
+@pytest.mark.parametrize("h_dim,routes,dw_at_128_lanes", [
+    (768, ("tc", "tc", "tc"), "cuda_core"), (1024, ("tc", "tc", "cuda_core"), "cuda_core"),
+    (128, ("tc", "tc", "tc"), "tc")])
+def test_bias_fold_width_keeps_the_mlm_routes(h_dim, routes, dw_at_128_lanes):
+    """The fused MLM loss widens H to the next multiple of 8 (16-byte bf16
+    rows): BERT-base's 776 keeps dW on the tensor cores (cap 800), where the
+    reference's 128-lane fold (896) would not; BERT-large's 1032 is past
+    dW's cap either way, and runs the CUDA-core dW."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        bias_fold_width,
+    )
+
+    width = bias_fold_width(h_dim)
+    assert width % 8 == 0 and h_dim < width <= h_dim + 8
+    got = tuple("tc" if vc.tc_smem_bytes(k, width) >= 0 else "cuda_core"
+                for k in ("fwd", "dh", "dw"))
+    assert got == routes
+    ref_dw = "tc" if vc.tc_smem_bytes("dw", h_dim + 128) >= 0 else "cuda_core"
+    assert ref_dw == dw_at_128_lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MLM_CASES, ids=lambda c: f"H{c[2]}")
+def test_mlm_shapes_match_reference_on_card(cuda_device, case):
+    """K2 at the fused MLM loss's shapes, bf16 hidden with the folded bias
+    column ``[h | 1 | 0...]`` and ``[W | b | 0...]``: each kernel against
+    its plain version at the file's limits (loss and LSE 1e-4, dH and dW
+    2e-2 relative to max(1, max|want|))."""
+    n_tok, vocab, h_dim = case
+    hidden, weight, labels = _inputs(n_tok, vocab, seed=12, h_dim=h_dim)
+    hidden[:, -8:] = 0.0
+    hidden[:, -8] = 1.0
+    weight[:, -7:] = 0.0
+    h = torch.from_numpy(hidden).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(weight).to(cuda_device)
+    lab = torch.from_numpy(labels).to(cuda_device)
+    g = (torch.rand(n_tok, generator=torch.Generator().manual_seed(2)) < 0.9).float()
+    g = g.to(cuda_device)
+    loss, lse, _ = vc.fused_ce_fwd(h, w, lab)
+    rloss, rlse, _ = vc.fused_ce_fwd_reference(h, w, lab)
+    dh = vc.fused_ce_bwd_dh(h, w, lab, rlse, g)
+    dw = vc.fused_ce_bwd_dw(h, w, lab, rlse, g)
+    rdh = vc.fused_ce_bwd_dh_reference(h, w, lab, rlse, g)
+    rdw = vc.fused_ce_bwd_dw_reference(h, w, lab, rlse, g)
+    torch.cuda.synchronize()
+    for got, want, t in ((loss, rloss, 1e-4), (lse, rlse, 1e-4), (dh, rdh, 2e-2),
+                         (dw, rdw, 2e-2)):
+        got, want = got.float().cpu(), want.float().cpu()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= t * max(1.0, want.abs().max().item())
