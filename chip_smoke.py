@@ -153,7 +153,27 @@ failure raises and exits non-zero:
    fused MLM loss against the plain attention and the unfused logits) and
    ELECTRA-small's RTD step, at the same gates (the RTD head's
    one-number bias, like a two-label classifier's, held to the whole
-   step's bf16 gate);
+   step's bf16 gate); (g) encoder-decoder seq2seq (``seq2seq_phase``),
+   each run through the training CLI with ``--task seq2seq --dataset
+   synthetic`` (the CNN/DailyMail-shaped corpus), random weights at
+   published widths, bf16, sequence 512, target 64, batch 8, label
+   smoothing 0.1: T5-small (``t5-small`` widths) ``--fused_vocab_ce true
+   --optimizer adafactor`` (30 steps, 16 eval steps, ROUGE-L of 32 greedy
+   summaries; launches ``fused_ce_fwd == train + eval``, ``fused_ce_bwd_*
+   == train``, K1 0: T5 attention is the plain one; 6 more steps timed and
+   profiled: busy, idle, MFU over encoder and decoder tokens, K2's share),
+   the same unfused (30 steps, profiled; its first loss within 2^-6 of the
+   fused run's), span corruption (10 steps, target length raised to 106),
+   streaming (10 steps, finite losses) and BART-base (``facebook/bart-base``
+   widths) fused under AdamW (15 steps, 16 eval steps, ROUGE-L of 16,
+   profiled); greedy ``generate`` on the fp32 reload of the first run's
+   export equals the argmax of a teacher-forced decode of its own output
+   up to the first near-tie (decode tokens/s printed); each export reloads
+   through ``from_pretrained(DIR, task="seq2seq")`` to the same logits bit
+   for bit. The train parity phase (a) also holds an fp32 and a bf16 step
+   of T5-small (v1.0: ReLU, tied head) and BART-base at depth 2, fused
+   seq2seq loss (K2 with smoothing 0.1) against the unfused logits, at the
+   same gates (every key bias held apart, its exact gradient 0);
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
    shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
@@ -163,7 +183,10 @@ failure raises and exits non-zero:
    30522 at H 776 (BERT-base with the bias folded in) and H 1032
    (BERT-large: dW past its tensor-core cap, on the CUDA-core kernel; the
    kernel each wrapper launches is named by route,
-   ``vocab_kernel_names``), and the eval steps' N 512 at H 776. Bound
+   ``vocab_kernel_names``), and the eval steps' N 512 at H 776; the fused
+   seq2seq loss's shapes with bf16 hidden: T5-small's V 32128, H 512 at N
+   512 (train, smoothing 0.1) and 256 (eval), span corruption's N 848 and
+   424, BART-base's V 50265, H 768 at N 512 and 256. Bound
    ``max|got - want| <= tol * max(1, max|want|)``: tol 1e-4 for fp32 and
    for the loss and LSE (fp32 arithmetic on bf16-exact inputs), 2e-2 for
    dH and dW with bf16 hidden (dH rounded to bf16; dS
@@ -1255,7 +1278,26 @@ ALBERT_BASE = {"model_type": "albert", "architectures": ["AlbertForMaskedLM"],
                "type_vocab_size": 2, "hidden_act": "gelu_new", "layer_norm_eps": 1e-12,
                "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
                "classifier_dropout_prob": 0.1, "initializer_range": 0.02, "pad_token_id": 0}
+# the HF hub's t5-small/config.json (v1.0: ReLU FFN, tied head) and
+# facebook/bart-base/config.json widths
+T5_SMALL = {"model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
+            "vocab_size": 32128, "d_model": 512, "d_kv": 64, "d_ff": 2048,
+            "num_layers": 6, "num_decoder_layers": 6, "num_heads": 8,
+            "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+            "dropout_rate": 0.1, "layer_norm_epsilon": 1e-6, "feed_forward_proj": "relu",
+            "tie_word_embeddings": True, "pad_token_id": 0, "eos_token_id": 1,
+            "decoder_start_token_id": 0, "initializer_factor": 1.0}
+BART_BASE = {"model_type": "bart", "architectures": ["BartForConditionalGeneration"],
+             "vocab_size": 50265, "d_model": 768, "encoder_layers": 6, "decoder_layers": 6,
+             "encoder_attention_heads": 12, "decoder_attention_heads": 12,
+             "encoder_ffn_dim": 3072, "decoder_ffn_dim": 3072, "activation_function": "gelu",
+             "dropout": 0.1, "attention_dropout": 0.1, "activation_dropout": 0.1,
+             "max_position_embeddings": 1024, "init_std": 0.02, "scale_embedding": False,
+             "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+             "decoder_start_token_id": 2, "forced_bos_token_id": 0}
 PARITY_DEPTH = 2                # the other families' parity steps: 2 layers (ALBERT: 2 uses)
+S2S_SEQ = 512                   # the seq2seq runs' source length (the CLI's default)
+S2S_TARGET = 64                 # and target length (--max_target_length's default)
 
 
 def _parity_families() -> list:
@@ -1362,6 +1404,58 @@ def _pretrain_step(family: str, hf: dict, batch, task: str, kernels: bool, dtype
     return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def _seq2seq_batch(n: int, vocab: int, ids: dict, device) -> dict:
+    """``n`` synthetic summarization pairs (seed 0) as a seq2seq batch at
+    ``S2S_SEQ`` / ``S2S_TARGET``, the hash tokenizer at ``vocab``, with the
+    model's decoder start, pad and EOS ids."""
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        synthetic_summarization,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    docs, sums = synthetic_summarization(n, seed=0)
+    rows = ArrayDataset.from_seq2seq(WordHashTokenizer(vocab_size=vocab), docs, sums,
+                                     max_source_length=S2S_SEQ, max_target_length=S2S_TARGET,
+                                     **ids)[np.arange(n)]
+    return {k: torch.from_numpy(np.asarray(v)).long().to(device) for k, v in rows.items()}
+
+
+def _seq2seq_step(family: str, hf: dict, batch, kernels: bool, dtype,
+                  layers: int) -> tuple[float, dict]:
+    """One seq2seq train step of ``family`` (``t5`` or ``bart``) at the
+    widths of ``hf`` and ``layers`` encoder and decoder layers from seed 0,
+    dropout 0, label smoothing 0.1: with ``kernels`` the fused seq2seq
+    loss (K2), else the unfused logits and the smoothed CE. The loss and
+    every parameter's gradient (fp32 parameters)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_seq2seq,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import trainer as tr
+
+    if family == "t5":
+        over = dict(num_layers=layers, num_decoder_layers=layers, dropout_rate=0.0)
+    else:
+        over = dict(encoder_layers=layers, decoder_layers=layers, dropout=0.0,
+                    attention_dropout=0.0, activation_dropout=0.0)
+    cfg = auto.CONFIG_BUILDERS[family](hf, dtype=dtype, **over)
+    model = init_seq2seq(auto.build_model(family, "seq2seq", cfg), seed=0,
+                         device=DEVICE).train()
+    loss_fn = (tr.make_fused_seq2seq_loss(0.1) if kernels
+               else lambda m, b: tr.seq2seq_loss(m, b, epsilon=0.1))
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
 def train_parity_phase() -> dict:
     """(a) one fp32 and one bf16 BERT-base train step, flash kernels
     against the plain attention; then the same for RoBERTa-base,
@@ -1369,9 +1463,12 @@ def train_parity_phase() -> dict:
     ``PARITY_DEPTH``; then an MLM step of each of the five families at
     ``PARITY_DEPTH`` through the flash kernels and the fused MLM loss (K1
     and K2) against the plain attention and the unfused logits, and
-    ELECTRA-small's RTD step. Returns the rows by dtype
-    (``"<family>/<dtype>"`` for the other families,
-    ``"<family>-<task>/<dtype>"`` for the pretraining steps)."""
+    ELECTRA-small's RTD step; then a T5-small and a BART-base seq2seq step
+    at ``PARITY_DEPTH`` + ``PARITY_DEPTH`` through the fused seq2seq loss
+    (K2, smoothing 0.1) against the unfused logits. Returns the rows by
+    dtype (``"<family>/<dtype>"`` for the other families,
+    ``"<family>-<task>/<dtype>"`` for the pretraining and seq2seq
+    steps)."""
     import torch
 
     rows = {}
@@ -1404,8 +1501,22 @@ def train_parity_phase() -> dict:
                  f"{PARITY_DEPTH}; {kernels} against the plain path)")
         pair = _parity_rows(model, PARITY_DEPTH, steps, one_dof_apart=True)
         rows.update({f"{family}-{task}/{dt}": row for dt, row in pair.items()})
+    t2 = time.perf_counter()
+    for family, hf in (("t5", T5_SMALL), ("bart", BART_BASE)):
+        ids = {k: hf[k] for k in ("decoder_start_token_id", "pad_token_id", "eos_token_id")}
+        batch = _seq2seq_batch(8, hf["vocab_size"], ids, DEVICE)
+        steps = {(dt, impl): _seq2seq_step(family, hf, batch, impl == "flash",
+                                           getattr(torch, dt), PARITY_DEPTH)
+                 for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        model = (f"{family} seq2seq ({hf['model_type']} config widths, depth {PARITY_DEPTH} + "
+                 f"{PARITY_DEPTH}; the fused seq2seq loss, smoothing 0.1, against the "
+                 "unfused logits)")
+        pair = _parity_rows(model, PARITY_DEPTH, steps)
+        rows.update({f"{family}-seq2seq/{dt}": row for dt, row in pair.items()})
     emit({"phase": "train_parity_wall", "encoder_steps_s": t1 - t0,
-          "pretrain_steps_s": time.perf_counter() - t1})
+          "pretrain_steps_s": t2 - t1, "seq2seq_steps_s": time.perf_counter() - t2})
     return rows
 
 
@@ -1426,13 +1537,15 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
 
     (loss32, g32), (loss_ref, ref) = steps[("float32", "flash")], steps[("float32", "xla")]
     rel_loss = abs(loss32 - loss_ref) / abs(loss_ref)
-    # each parameter's relative L2 error. The key biases are held apart:
-    # their exact gradient is 0 (softmax ignores a per-row constant), so
-    # both sides hold rounding noise, which must stay below 1e-5 of the
-    # global gradient norm
+    # each parameter's relative L2 error. The key biases (BART's
+    # cross-attention's too; T5 has none) are held apart: their exact
+    # gradient is 0 (softmax ignores a per-row constant), so both sides
+    # hold rounding noise, which must stay below 1e-5 of the global
+    # gradient norm
     total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in ref.values())))
-    key_bias = [n for n in g32 if n.endswith("attention.key.bias")]
-    noise = max(float(g[n].norm()) for g in (g32, ref) for n in key_bias) / total
+    key_bias = [n for n in g32 if n.endswith("key.bias")]
+    noise = max((float(g[n].norm()) for g in (g32, ref) for n in key_bias),
+                default=0.0) / total
     rel = {n: float((g - ref[n]).norm() / ref[n].norm())
            for n, g in g32.items() if n not in key_bias}
     worst = max(rel, key=rel.get)
@@ -1477,7 +1590,7 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
     # the whole step: every gradient but the key biases' as one vector
     step_ratio = over(math.sqrt(sum(dist[n] ** 2 for n in ref if n not in key_bias)),
                       math.sqrt(sum(dist_plain[n] ** 2 for n in ref if n not in key_bias)))
-    noise16 = {i: max(float(g[n].norm()) for n in key_bias) / total
+    noise16 = {i: max((float(g[n].norm()) for n in key_bias), default=0.0) / total
                for i, g in (("flash", g16), ("plain", ref16))}
     rel16 = {n: float((g16[n] - ref16[n]).norm() / ref16[n].norm())
              for n in ref if n not in key_bias}
@@ -2498,10 +2611,39 @@ def encoder_tasks_phase(work: Path, card: str) -> dict:
     return rows
 
 
+def _steps_profile(trainer, batch, steps: int, flops_per_step: float | None = None,
+                   peak=None) -> dict:
+    """``steps`` more train steps on one batch (:func:`_timed_then_profiled`):
+    the wall per step unprofiled, device busy per step, the idle share, each
+    kernel's device seconds (``by_kernel_s``, for the caller's own kernel
+    sums) and the top kernels; with the model's ``flops_per_step`` the
+    achieved TFLOP/s over the unprofiled wall and MFU against ``peak``."""
+    wall, by_kernel = _timed_then_profiled(trainer, [batch] * steps)
+    busy = sum(by_kernel.values())
+    row = {"profiled_steps": steps, "step_time_unprofiled_ms": 1e3 * wall / steps,
+           "device_busy_ms_per_step": 1e3 * busy / steps if busy else "not measured",
+           "idle_share": 1.0 - busy / wall if busy else "not measured",
+           "by_kernel_s": by_kernel,
+           "top_kernels_ms_per_step": [[k[:80], 1e3 * v / steps] for k, v in
+                                       sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]]}
+    if flops_per_step is not None:
+        achieved = flops_per_step * steps / wall / 1e12
+        row.update(achieved_tflops=achieved,
+                   mfu=achieved / peak if peak else "not measured")
+    return row
+
+
+def _kernel_ms_per_step(prof: dict, names: dict) -> dict:
+    """Device ms per profiled step of each kernel of ``names`` (wrapper ->
+    the kernel name the profile holds), from :func:`_steps_profile`."""
+    return {k: sum(v for n, v in prof["by_kernel_s"].items() if name in n)
+            / prof["profiled_steps"] * 1e3 for k, name in names.items()}
+
+
 def _encoder_idle(trainer, spec) -> dict:
-    """``ENCODER_PROFILED_STEPS`` more train steps on one training batch:
-    wall unprofiled, then device busy time profiled; the profile must name
-    the three bf16 flash kernels."""
+    """``ENCODER_PROFILED_STEPS`` more train steps on one training batch
+    (:func:`_steps_profile`); the profile must name the three bf16 flash
+    kernels."""
     import numpy as np
     import torch
 
@@ -2516,22 +2658,15 @@ def _encoder_idle(trainer, spec) -> dict:
     ds = cli.build_dataset(tc, tokenizer, "train", seq, 8, cfg)
     b = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
          for k, v in ds[np.arange(8)].items()}
-    steps_wall, by_kernel = _timed_then_profiled(trainer, [b] * ENCODER_PROFILED_STEPS)
-    busy = sum(by_kernel.values())
-    flash_s = {k: sum(v for n, v in by_kernel.items()
-                      if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n) for k in _K1}
+    prof = _steps_profile(trainer, b, ENCODER_PROFILED_STEPS)
+    flash = _kernel_ms_per_step(prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")] for k in _K1})
+    busy = sum(prof.pop("by_kernel_s").values())
     if DEVICE == "cuda":
-        for k, sec in flash_s.items():
-            check(sec > 0, f"{name}: no {FLASH_KERNEL_NAMES[(k, 'bfloat16')]} in the profile")
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    return {"profiled_steps": ENCODER_PROFILED_STEPS, "steps_wall_s": steps_wall,
-            "step_time_unprofiled_s": steps_wall / ENCODER_PROFILED_STEPS,
-            "device_busy_s": busy if busy else "not measured",
-            "busy_per_step_s": busy / ENCODER_PROFILED_STEPS if busy else "not measured",
-            "idle_share": 1.0 - busy / steps_wall if busy else "not measured",
-            "flash_kernel_s": flash_s,
-            "flash_share_of_busy": sum(flash_s.values()) / busy if busy else "not measured",
-            "top_kernels_s": [[k[:80], v] for k, v in top]}
+        for k, ms in flash.items():
+            check(ms > 0, f"{name}: no {FLASH_KERNEL_NAMES[(k, 'bfloat16')]} in the profile")
+    return {**prof, "flash_ms_per_step": flash,
+            "flash_share_of_busy": (sum(flash.values()) * ENCODER_PROFILED_STEPS / 1e3 / busy
+                                    if busy else "not measured")}
 
 
 # -- masked-LM and replaced-token-detection pretraining ----------------------
@@ -2565,28 +2700,6 @@ def _mlm_runs() -> list:
         ("bert_base_streaming", "bert", BERT_BASE, "mlm", MLM_STREAM_STEPS,
          fused + no_eval + ["--streaming", "true", "--dataset_path", str(VENDORED_REVIEWS)]),
     ]
-
-
-def _mlm_steps_profile(trainer, batch, steps: int, peak) -> dict:
-    """``steps`` more train steps on one batch (:func:`_timed_then_profiled`):
-    busy per step, the idle share, MFU (the model's FLOPs per real token,
-    ``obs.flops``, over the unprofiled wall) and the top kernels."""
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
-
-    wall, by_kernel = _timed_then_profiled(trainer, [batch] * steps)
-    busy = sum(by_kernel.values())
-    tokens = int(batch["attention_mask"].sum())
-    fpt = flops.train_flops_per_token(trainer.model.config, trainer.task,
-                                      batch["input_ids"].shape[1])
-    achieved = fpt * tokens * steps / wall / 1e12
-    return {"profiled_steps": steps, "step_time_unprofiled_ms": 1e3 * wall / steps,
-            "device_busy_ms_per_step": 1e3 * busy / steps if busy else "not measured",
-            "idle_share": 1.0 - busy / wall if busy else "not measured",
-            "achieved_tflops": achieved,
-            "mfu": achieved / peak if peak else "not measured",
-            "by_kernel_s": by_kernel,
-            "top_kernels_ms_per_step": [[k[:80], 1e3 * v / steps] for k, v in
-                                        sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]]}
 
 
 def mlm_phase(work: Path, card: str) -> dict:
@@ -2754,16 +2867,16 @@ def mlm_phase(work: Path, card: str) -> dict:
             row["export_reloads_bit_for_bit"] = True
             del reloaded, a_, b_
             if name in ("bert_base_fused", "bert_base_unfused", "bert_large_fused"):
-                prof = _mlm_steps_profile(
-                    trainer, batch, MLM_LARGE_PROFILED_STEPS if "large" in name
-                    else MLM_PROFILED_STEPS, peak)
-                by_kernel = prof.pop("by_kernel_s")
-                k2 = {k: sum(v for n, v in by_kernel.items()
-                             if vocab_kernel_names(k, "bfloat16", row["bias_fold_width"])[0]
-                             in n) / prof["profiled_steps"] * 1e3 for k in _K2}
-                k1 = {k: sum(v for n, v in by_kernel.items()
-                             if FLASH_KERNEL_NAMES[(k, "bfloat16")] in n)
-                      / prof["profiled_steps"] * 1e3 for k in _K1}
+                n_steps = MLM_LARGE_PROFILED_STEPS if "large" in name else MLM_PROFILED_STEPS
+                # MFU: the model's FLOPs per real token (obs.flops)
+                fpt = flops.train_flops_per_token(cfg, task, batch["input_ids"].shape[1])
+                prof = _steps_profile(trainer, batch, n_steps,
+                                      fpt * int(batch["attention_mask"].sum()), peak)
+                k2 = _kernel_ms_per_step(prof, {k: vocab_kernel_names(
+                    k, "bfloat16", row["bias_fold_width"])[0] for k in _K2})
+                k1 = _kernel_ms_per_step(prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")]
+                                                for k in _K1})
+                prof.pop("by_kernel_s")
                 prof["k1_ms_per_step"], prof["k2_ms_per_step"] = k1, k2
                 prof["k2_routes"] = {k: vocab_kernel_names(k, "bfloat16",
                                                            row["bias_fold_width"])[0]
@@ -2816,6 +2929,275 @@ def mlm_phase(work: Path, card: str) -> dict:
     return rows
 
 
+# -- encoder-decoder seq2seq ----------------------------------------------------
+
+S2S_STEPS = 30                  # runs 1 and 2
+S2S_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
+S2S_ROUGE_SAMPLES = 32
+S2S_SHORT_STEPS = 10            # span corruption, streaming
+S2S_SHORT_EVAL_SAMPLES = 16     # span corruption's 4 eval steps
+BART_STEPS = 15
+BART_ROUGE_SAMPLES = 16
+S2S_PROFILED_STEPS = 6
+BART_PROFILED_STEPS = 3
+GEN_ROWS = 8                    # the generation check's source rows
+
+
+def _seq2seq_runs() -> list:
+    """The runs of the ``seq2seq`` phase: (name, family, published config,
+    train steps, eval samples, extra CLI arguments), each at the CLI's
+    other defaults (bf16, sequence 512, target 64, batch 8, eval batch 4)
+    with label smoothing 0.1 on the synthetic summarization corpus."""
+    fused = ["--fused_vocab_ce", "true"]
+    t5 = ["--optimizer", "adafactor", "--learning_rate", "1e-3", "--weight_decay", "0"]
+    return [
+        ("t5_small_fused", "t5", T5_SMALL, S2S_STEPS, S2S_EVAL_SAMPLES,
+         t5 + fused + ["--eval_rouge_samples", str(S2S_ROUGE_SAMPLES)]),
+        ("t5_small_unfused", "t5", T5_SMALL, S2S_STEPS, 0,
+         t5 + ["--fused_vocab_ce", "false"]),
+        ("t5_small_span", "t5", T5_SMALL, S2S_SHORT_STEPS, S2S_SHORT_EVAL_SAMPLES,
+         t5 + fused + ["--span_corruption", "true"]),
+        ("t5_small_streaming", "t5", T5_SMALL, S2S_SHORT_STEPS, 0,
+         t5 + fused + ["--streaming", "true"]),
+        ("bart_base_fused", "bart", BART_BASE, BART_STEPS, S2S_EVAL_SAMPLES,
+         fused + ["--eval_rouge_samples", str(BART_ROUGE_SAMPLES)]),
+    ]
+
+
+def _generation_check(model_dir: Path, eval_ds, tc) -> dict:
+    """Greedy ``generate`` on the fp32 reload of an export (TF32 off)
+    over ``GEN_ROWS`` eval sources, all ``S2S_TARGET`` new tokens (EOS
+    switched off: a model a few steps from random weights emits it
+    first): decode tokens/s, and the tokens equal to the argmax of a
+    teacher-forced decode of the model's own output up to the first step
+    whose top-two logit gap is below ``NEAR_TIE`` (a near-tie, counted)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate,
+    )
+
+    model, _, cfg = auto.from_pretrained(str(model_dir), task="seq2seq",
+                                         dtype=torch.float32, device=DEVICE)
+    model.config = cfg = dataclasses.replace(cfg, eos_token_id=-1)
+    cols = eval_ds[np.arange(GEN_ROWS)]
+    ids = torch.as_tensor(np.asarray(cols["input_ids"]), device=DEVICE).long()
+    mask = torch.as_tensor(np.asarray(cols["attention_mask"]), device=DEVICE).long()
+    generate(model, ids[:1], mask[:1], max_new_tokens=2)            # warm the allocator
+    _sync()
+    t0 = time.perf_counter()
+    out = generate(model, ids, mask, max_new_tokens=tc.max_target_length)
+    _sync()
+    wall = time.perf_counter() - t0
+    start = torch.full((GEN_ROWS, 1), cfg.decoder_start_token_id, device=DEVICE)
+    with torch.no_grad():
+        logits = model(ids, mask, torch.cat([start, out[:, :-1].long()], 1))
+    top2 = logits.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).tolist()
+    ref = logits.argmax(-1).tolist()
+    compared = near_ties = 0
+    for r, row in enumerate(out.tolist()):
+        n = next((i for i, gp in enumerate(gaps[r]) if gp < NEAR_TIE), len(row))
+        near_ties += n < len(row)
+        check(row[:n] == ref[r][:n], f"generation row {r}: cached greedy tokens {row[:n]} "
+              f"differ from the teacher-forced argmax {ref[r][:n]} before any near-tie")
+        compared += n
+    check(compared >= GEN_ROWS, f"generation compared only {compared} tokens")
+    del model
+    return {"rows": GEN_ROWS, "max_new_tokens": tc.max_target_length, "dtype": "float32",
+            "distinct_tokens": len(set(out.flatten().tolist())),
+            "tokens_compared": compared, "near_ties": near_ties, "generate_wall_s": wall,
+            "decode_tokens_per_s": out.numel() / wall}
+
+
+def seq2seq_phase(work: Path, card: str) -> dict:
+    """(g) encoder-decoder seq2seq through the training CLI at published
+    widths, random weights, bf16, on the synthetic CNN/DailyMail-shaped
+    corpus (``_seq2seq_runs``): T5-small fused under Adafactor (30 steps,
+    16 eval steps, ROUGE-L of 32 greedy summaries), the same unfused, span
+    corruption (the target length raised to 106), streaming, BART-base
+    fused under AdamW. Each fused run's launches are ``fused_ce_fwd ==
+    train + eval steps`` and ``fused_ce_bwd_* == train steps``, K1 none (T5
+    and BART run the plain attention); losses are finite; each export
+    reloads through ``from_pretrained`` to the same logits bit for bit;
+    T5 fused and unfused and BART take more steps timed and profiled
+    (busy, idle, MFU over encoder and decoder tokens, K2's ms and share);
+    the first run's export is held by :func:`_generation_check`. Each row
+    carries its run's wall seconds, the summary the phase's. Returns the
+    rows by run."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    phase_t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    counters = [(fa, k) for k in _K1] + [(vc, k) for k in _K2]
+    rec: dict = {}
+    orig_step = Trainer.train_step
+
+    def train_step(self, batch):
+        out = orig_step(self, batch)
+        rec["losses"].append(out["loss"])
+        rec["targets"].add(int(batch["labels"].shape[1]))
+        return out
+
+    rows: dict = {}
+    Trainer.train_step = train_step
+    saved_peak = os.environ.get("HSTD_PEAK_TFLOPS")
+    if peak:
+        os.environ["HSTD_PEAK_TFLOPS"] = str(peak)
+    try:
+        for name, family, hf, steps, eval_samples, extra in _seq2seq_runs():
+            run_dir = work / name
+            cfg_dir = run_dir / "config"
+            cfg_dir.mkdir(parents=True, exist_ok=True)
+            (cfg_dir / "config.json").write_text(json.dumps(hf))
+            evals = (["--max_eval_samples", str(eval_samples)] if eval_samples
+                     else ["--do_eval", "false"])
+            argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+                    "--task", "seq2seq", "--dataset", "synthetic", "--label_smoothing", "0.1",
+                    "--epochs", "1", "--steps_per_epoch", str(steps),
+                    "--max_train_samples", str(8 * steps),
+                    "--output_data_dir", str(run_dir / "out"),
+                    "--model_dir", str(run_dir / "model"), "--log_every_steps", "10",
+                    "--device", DEVICE] + evals + extra
+            rec.update(losses=[], targets=set())
+            for mod, k in counters:
+                getattr(mod, k).launches = 0
+            t0 = time.perf_counter()
+            results, trainer = cli.run(argv)
+            _sync()
+            wall = time.perf_counter() - t0
+            launches = {k: getattr(mod, k).launches for mod, k in counters}
+            tc, cfg = trainer.config, trainer.model.config
+            losses = [float(x) for x in rec["losses"]]
+            check(cfg.dtype == torch.bfloat16 and tc.max_seq_length == S2S_SEQ
+                  and tc.max_target_length == S2S_TARGET and tc.train_batch_size == 8
+                  and tc.eval_batch_size == 4, f"{name}: the CLI did not run at its defaults")
+            check(trainer.step == steps and len(losses) == steps,
+                  f"{name}: {trainer.step} train steps, wanted {steps}")
+            check(all(math.isfinite(x) for x in losses), f"{name}: a non-finite loss")
+            target = int(S2S_SEQ * 0.2) + 4 if tc.span_corruption else S2S_TARGET
+            check(rec["targets"] == {target}, f"{name}: targets {rec['targets']}, "
+                  f"wanted {target}")
+            eval_steps = math.ceil(eval_samples / tc.eval_batch_size)
+            fused = bool(tc.fused_vocab_ce)
+            want = {**{k: 0 for k in _K1},
+                    "fused_ce_fwd": steps + eval_steps if fused else 0,
+                    "fused_ce_bwd_dh": steps if fused else 0,
+                    "fused_ce_bwd_dw": steps if fused else 0}
+            check(launches == want, f"{name}: launches {launches}, wanted {want}")
+            hist, ev = results["train"], results.get("eval", {})
+            check(all(math.isfinite(v) for v in ev.values()), f"{name}: a non-finite eval")
+            if tc.do_eval:
+                er = read_results_file(str(run_dir / "out" / "eval_results.txt"))
+                keys = EVAL_RESULT_KEYS + (["rougeL_precision", "rougeL_recall", "rougeL_f1"]
+                                           if tc.eval_rouge_samples else [])
+                check(list(er) == keys, f"{name}: eval_results.txt keys {list(er)}")
+            row = {"phase": "seq2seq", "run": name, "card": card, "family": family,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab_size, "seq": S2S_SEQ,
+                   "target": target, "batch": tc.train_batch_size, "dtype": "bfloat16",
+                   "optimizer": tc.optimizer, "label_smoothing": tc.label_smoothing,
+                   "fused_vocab_ce": fused, "span_corruption": bool(tc.span_corruption),
+                   "streaming": bool(tc.streaming), "train_steps": steps,
+                   "eval_steps": eval_steps, "launches": launches, "first_loss": losses[0],
+                   "loss": losses[-1], "eval": ev,
+                   "train_samples_per_second_per_chip":
+                       hist["train_samples_per_second_per_chip"],
+                   "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                   "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall}
+            # the export reloads through from_pretrained to the same logits
+            tokenizer = load_tokenizer(str(cfg_dir), vocab_size=cfg.vocab_size)
+            ds = cli.build_dataset(tc, tokenizer, "train", S2S_SEQ, 8, cfg)
+            batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
+                     for k, v in ds[np.arange(8)].items()}
+            reloaded, fam, _ = auto.from_pretrained(str(run_dir / "model"), task="seq2seq",
+                                                    dtype=torch.bfloat16, device=DEVICE)
+            args = [batch[k][:4] for k in ("input_ids", "attention_mask", "decoder_input_ids",
+                                           "decoder_attention_mask")]
+            with torch.no_grad():
+                a_ = trainer.model.eval()(*args)
+                b_ = reloaded.eval()(*args)
+            check(fam == family and torch.equal(a_, b_),
+                  f"{name}: the reloaded export gives other logits")
+            row["export_reloads_bit_for_bit"] = True
+            del reloaded, a_, b_
+            if name in ("t5_small_fused", "t5_small_unfused", "bart_base_fused"):
+                n_steps = BART_PROFILED_STEPS if family == "bart" else S2S_PROFILED_STEPS
+                # MFU: encoder and decoder tokens at their own FLOPs (obs.flops)
+                enc_fpt, dec_fpt = flops.seq2seq_train_flops_per_token(cfg, S2S_SEQ, target)
+                per_step = (enc_fpt * int(batch["attention_mask"].sum())
+                            + dec_fpt * int(batch["decoder_attention_mask"].sum()))
+                prof = _steps_profile(trainer, batch, n_steps, per_step, peak)
+                k2 = _kernel_ms_per_step(prof, {k: vocab_kernel_names(
+                    k, "bfloat16", cfg.d_model)[0] for k in _K2})
+                busy = sum(prof.pop("by_kernel_s").values())
+                prof["k2_ms_per_step"] = k2
+                prof["k2_share_of_busy"] = (sum(k2.values()) * n_steps / 1e3 / busy
+                                            if busy else "not measured")
+                if DEVICE == "cuda" and fused:
+                    check(all(v > 0 for v in k2.values()),
+                          f"{name}: the profile misses a K2 kernel: {k2}")
+                row.update(prof)
+            if name == "t5_small_fused":
+                eval_ds = cli.build_dataset(tc, tokenizer, "test", S2S_SEQ, GEN_ROWS, cfg)
+                row["generation"] = _generation_check(run_dir / "model", eval_ds, tc)
+            row["run_wall_s"] = time.perf_counter() - t0    # the CLI, reload and profile
+            rows[name] = row
+            emit(row)
+            del trainer
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = orig_step
+        if saved_peak is None:
+            os.environ.pop("HSTD_PEAK_TFLOPS", None)
+        else:
+            os.environ["HSTD_PEAK_TFLOPS"] = saved_peak
+    fused_run, unfused = rows["t5_small_fused"], rows["t5_small_unfused"]
+    first_rel = (abs(fused_run["first_loss"] - unfused["first_loss"])
+                 / abs(unfused["first_loss"]))
+    check(first_rel <= PARITY_BF16_LOSS_RTOL,
+          f"the fused and unfused T5 runs' first losses differ by {first_rel} (relative)")
+    summary = {"phase": "seq2seq_summary", "card": card,
+               "phase_wall_s": time.perf_counter() - phase_t0,
+               "run_wall_s": {n: r["run_wall_s"] for n, r in rows.items()},
+               "first_loss_fused_over_unfused_rel": first_rel,
+               "first_loss_rtol": PARITY_BF16_LOSS_RTOL,
+               "samples_per_s": {n: r["train_samples_per_second_per_chip"]
+                                 for n, r in rows.items()},
+               "busy_ms_per_step": {n: r.get("device_busy_ms_per_step")
+                                    for n, r in rows.items() if "profiled_steps" in r},
+               "fused_over_unfused_busy": (
+                   fused_run["device_busy_ms_per_step"] / unfused["device_busy_ms_per_step"]
+                   if isinstance(unfused["device_busy_ms_per_step"], float)
+                   else "not measured"),
+               "rougeL_f1": {n: r["eval"].get("rougeL_f1") for n, r in rows.items()
+                             if "rougeL_f1" in r["eval"]},
+               "decode_tokens_per_s": fused_run["generation"]["decode_tokens_per_s"]}
+    emit(summary)
+    return rows
+
+
 # -- vocab CE kernels ----------------------------------------------------------
 
 VOCAB_CASES = [
@@ -2836,9 +3218,21 @@ VOCAB_CASES = [
     ("mlm_base_bf16", 1024, 30522, 776, "bfloat16", 0.0, False),
     ("mlm_large_bf16", 1024, 30522, 1032, "bfloat16", 0.0, False),
     ("mlm_eval_bf16", 512, 30522, 776, "bfloat16", 0.0, False),
+    # the fused seq2seq loss's shapes (seq2seq phase): B·T rows of the train
+    # batch (8 x 64, smoothing 0.1) and the eval batch (4 x 64, plain CE),
+    # span corruption's target of 106 (848 and 424 rows); T5-small's vocab
+    # and d_model, BART-base's
+    ("t5_bf16", 512, 32128, 512, "bfloat16", 0.1, False),
+    ("t5_eval_bf16", 256, 32128, 512, "bfloat16", 0.0, False),
+    ("t5_span_bf16", 848, 32128, 512, "bfloat16", 0.1, False),
+    ("t5_span_eval_bf16", 424, 32128, 512, "bfloat16", 0.0, False),
+    ("bart_bf16", 512, 50265, 768, "bfloat16", 0.1, False),
+    ("bart_eval_bf16", 256, 50265, 768, "bfloat16", 0.0, False),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
+VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
+                 "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
 # kernel first (device time is read per kernel name from a profile)
 VOCAB_KERNEL_NAMES = {
@@ -3327,6 +3721,7 @@ def main() -> int:
         timed(data_phase, Path(work) / "data", card)
         encoders = timed(encoder_tasks_phase, Path(work) / "encoders", card)
         mlm = timed(mlm_phase, Path(work) / "mlm", card)
+        seq2seq = timed(seq2seq_phase, Path(work) / "seq2seq", card)
     vocab = timed(vocab_ce_phase)
     timed(gpt2_parity_phase)
     with tempfile.TemporaryDirectory() as work:
@@ -3348,7 +3743,9 @@ def main() -> int:
             "launches_by_path": {"bert_cli": train["launches"][kname],
                                  **{n: row["launches"][kname] for n, row in encoders.items()},
                                  **{f"mlm/{n}": row["launches"][kname]
-                                    for n, row in mlm.items()}},
+                                    for n, row in mlm.items()},
+                                 **{f"seq2seq/{n}": row["launches"][kname]
+                                    for n, row in seq2seq.items()}},
             **{c: {k: flash[(c, kname)][k] for k in (
                 "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM)},
@@ -3371,10 +3768,13 @@ def main() -> int:
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
             "launches_by_path": {"gpt2_cli": gpt2["launches"][kname],
                                  **{f"mlm/{n}": row["launches"][kname]
-                                    for n, row in mlm.items()}},
+                                    for n, row in mlm.items()},
+                                 **{f"seq2seq/{n}": row["launches"][kname]
+                                    for n, row in seq2seq.items()}},
             **{c: {k: vocab[(c, kname)][k] for k in (
-                "kernel_name", "route", "max_abs_err", "kernel_ms", "kernel_event_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")} for c in VOCAB_MLM},
+                "kernel_name", "route", "label_smoothing", "max_abs_err", "kernel_ms",
+                "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for c in VOCAB_MLM + VOCAB_SEQ2SEQ},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -276,13 +276,11 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.task == "seq2seq", "task='seq2seq'", "9 (seq2seq)"),
             (self.lora_rank > 0, "lora_rank>0", "6 (LoRA)"),
             (self.num_experts > 0, "num_experts>0", "9 (MoE)"),
             (self.packed_sequences or self.segment_packing,
              "packed_sequences/segment_packing", "6 (packing)"),
-            (self.optimizer in ("adafactor", "lamb"), f"optimizer={self.optimizer!r}",
-             "4 (other optimizers)"),
+            (self.optimizer == "lamb", "optimizer='lamb'", "4 (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
              "optimizer_state_dtype=bfloat16", "4 (bf16 moments)"),
             (self.remat and self.remat_policy != "full",

@@ -119,6 +119,15 @@ def apply_mlm_masking(clean_ids: np.ndarray, word_ids: np.ndarray,
     return ids, labels
 
 
+def shift_right(labels: np.ndarray, decoder_start_token_id: int, pad_token_id: int = 0,
+                ignore_id: int = -100) -> np.ndarray:
+    """Teacher-forcing decoder inputs ``[start, y_0, ..., y_{T-2}]`` with
+    ignored labels mapped back to the pad id (HF ``_shift_right``)."""
+    labels = np.where(labels == ignore_id, pad_token_id, labels)
+    start = np.full(labels.shape[:-1] + (1,), decoder_start_token_id, labels.dtype)
+    return np.concatenate([start, labels[..., :-1]], axis=-1)
+
+
 def epoch_permutation(n: int, seed: int) -> np.ndarray:
     """The JAX package's platform-independent epoch permutation
     (``data/native.py::_py_permutation``): indices stably sorted by a
@@ -275,6 +284,108 @@ class ArrayDataset:
         # the window -> example map is for eval; training rows stand alone
         enc.pop("example_ids", None)
         return cls(enc)
+
+    @classmethod
+    def from_seq2seq(cls, tokenizer, sources, targets, max_source_length: int = 512,
+                     max_target_length: int = 64, decoder_start_token_id: int = 0,
+                     pad_token_id: int = 0, eos_token_id: int = 1) -> "ArrayDataset":
+        """Source/target pairs -> encoder inputs, teacher-forcing decoder
+        inputs (``shift_right`` of the labels), ``decoder_attention_mask``
+        and ``-100``-masked labels. Targets are LM-style: the raw tokens
+        (no CLS/SEP) and the model's EOS, so generation stops where the
+        decoder learned to."""
+        enc = tokenizer(sources, truncation=True, padding="max_length",
+                        max_length=max_source_length)
+        tgt = tokenizer(targets, truncation=True, padding="max_length",
+                        max_length=max_target_length - 1, add_special_tokens=False)
+        raw_ids = np.asarray(tgt["input_ids"], np.int32)
+        raw_mask = np.asarray(tgt["attention_mask"], np.int32)
+        n = raw_ids.shape[0]
+        tgt_ids = np.full((n, max_target_length), pad_token_id, np.int32)
+        tgt_mask = np.zeros((n, max_target_length), np.int32)
+        tgt_ids[:, :-1] = np.where(raw_mask > 0, raw_ids, pad_token_id)
+        tgt_mask[:, :-1] = raw_mask
+        lengths = raw_mask.sum(axis=1)
+        tgt_ids[np.arange(n), lengths] = eos_token_id
+        tgt_mask[np.arange(n), lengths] = 1
+        labels = np.where(tgt_mask > 0, tgt_ids, -100).astype(np.int32)
+        dec_in = shift_right(labels, decoder_start_token_id, pad_token_id).astype(np.int32)
+        return cls({"input_ids": enc["input_ids"], "attention_mask": enc["attention_mask"],
+                    "decoder_input_ids": dec_in, "decoder_attention_mask": tgt_mask,
+                    "labels": labels})
+
+    @classmethod
+    def from_span_corruption_texts(cls, tokenizer, texts, max_source_length: int = 512,
+                                   max_target_length: int = 114,
+                                   corruption_rate: float = 0.15,
+                                   mean_span_length: float = 3.0, n_sentinels: int = 100,
+                                   decoder_start_token_id: int = 0, pad_token_id: int = 0,
+                                   eos_token_id: int = 1, seed: int = 0) -> "ArrayDataset":
+        """T5's span-corruption pretraining: about ``corruption_rate`` of
+        each row's tokens drop out in spans of mean ``mean_span_length``;
+        each span becomes a sentinel (the i-th is ``vocab_size - 1 - i``)
+        in the source, and the target interleaves the sentinels with the
+        dropped spans, then a final sentinel and EOS::
+
+            source: Thank you <X> me to your party <Y> week . </s>
+            target: <X> for inviting <Y> last <Z> </s>
+
+        The split points are drawn from ``RandomState(seed)`` in the JAX
+        package's order, so the columns are its own."""
+        enc = tokenizer(texts, truncation=True, padding="max_length",
+                        max_length=max_source_length, add_special_tokens=False)
+        ids = np.asarray(enc["input_ids"], np.int32)
+        am = np.asarray(enc["attention_mask"], np.int32)
+        vocab = int(tokenizer.vocab_size)
+        rng = np.random.RandomState(seed)
+
+        def partition(total: int, parts: int) -> list:
+            """``total`` split into ``parts`` random segments of >= 1."""
+            cuts = (np.sort(rng.choice(total - 1, parts - 1, replace=False)) + 1
+                    if parts > 1 else np.array([], np.int64))
+            return list(np.diff(np.concatenate([[0], cuts, [total]])))
+
+        n_rows = ids.shape[0]
+        src = np.full((n_rows, max_source_length), pad_token_id, np.int32)
+        src_mask = np.zeros((n_rows, max_source_length), np.int32)
+        tgt_ids = np.full((n_rows, max_target_length), pad_token_id, np.int32)
+        tgt_mask = np.zeros((n_rows, max_target_length), np.int32)
+        for r in range(n_rows):
+            toks = ids[r][am[r] > 0]
+            n = len(toks)
+            if n < 4:
+                src[r, :n] = toks
+                src[r, min(n, max_source_length - 1)] = eos_token_id
+                src_mask[r, :min(n + 1, max_source_length)] = 1
+                tgt_ids[r, 0] = eos_token_id
+                tgt_mask[r, 0] = 1
+                continue
+            num_noise = int(np.clip(round(n * corruption_rate), 1, n - 2))
+            # num_spans + 1 kept segments of >= 1 token fit in n - num_noise
+            num_spans = int(np.clip(round(num_noise / mean_span_length), 1,
+                                    min(num_noise, n - num_noise - 1, n_sentinels - 1)))
+            noise_lens = partition(num_noise, num_spans)
+            keep_lens = partition(n - num_noise, num_spans + 1)
+            s_row: list = []
+            t_row: list = []
+            pos = 0
+            for i in range(num_spans):
+                sentinel = vocab - 1 - i
+                s_row += toks[pos:pos + keep_lens[i]].tolist() + [sentinel]
+                pos += keep_lens[i]
+                t_row += [sentinel] + toks[pos:pos + noise_lens[i]].tolist()
+                pos += noise_lens[i]
+            s_row = (s_row + toks[pos:].tolist() + [eos_token_id])[:max_source_length]
+            t_row = (t_row + [vocab - 1 - num_spans])[:max_target_length - 1] + [eos_token_id]
+            src[r, :len(s_row)] = s_row
+            src_mask[r, :len(s_row)] = 1
+            tgt_ids[r, :len(t_row)] = t_row
+            tgt_mask[r, :len(t_row)] = 1
+        labels = np.where(tgt_mask > 0, tgt_ids, -100).astype(np.int32)
+        dec_in = shift_right(labels, decoder_start_token_id, pad_token_id).astype(np.int32)
+        return cls({"input_ids": src, "attention_mask": src_mask,
+                    "decoder_input_ids": dec_in, "decoder_attention_mask": tgt_mask,
+                    "labels": labels})
 
 
 class MlmDataset(ArrayDataset):

@@ -15,6 +15,10 @@
   corpus, ``squad`` from the hub, or ``{split}.jsonl`` of ``{"question",
   "context", "answer_start", "answer"}``. Returns ``(questions, contexts,
   answer start chars, answer texts)``.
+- Seq2seq (``load_seq2seq``): the seeded CNN/DailyMail-shaped
+  ``synthetic`` summarization corpus, ``cnn_dailymail`` (3.0.0) and
+  ``xsum`` from the hub, or ``{split}.jsonl`` of ``{"source", "target"}``.
+  Returns ``(sources, targets)``.
 
 ``datasets`` is imported only on the hub and ``load_from_disk`` paths;
 the synthetic generators are the JAX package's, draw for draw."""
@@ -230,3 +234,51 @@ def load_qa(dataset: str, split: str, dataset_path: Optional[str] = None,
         questions, contexts = questions[:max_samples], contexts[:max_samples]
         starts, answers = starts[:max_samples], answers[:max_samples]
     return questions, contexts, starts, answers
+
+
+def synthetic_summarization(n: int, seed: int = 0, doc_len: tuple[int, int] = (60, 160)
+                            ) -> tuple[list[str], list[str]]:
+    """CNN/DM-shaped summarization pairs: each document plants 3 entity
+    words in word noise, and its summary is those words in order."""
+    rng = random.Random(seed)
+    all_entities = [w for ws in _ENTITY_WORDS.values() for w in ws]
+    docs, summaries = [], []
+    for _ in range(n):
+        length = rng.randint(*doc_len)
+        keys = rng.sample(all_entities, 3)
+        words = [rng.choice(_NOISE_WORDS) for _ in range(length)]
+        for pos, key in zip(sorted(rng.sample(range(length), 3)), keys):
+            words[pos] = key
+        docs.append(" ".join(words))
+        summaries.append(" ".join(keys))
+    return docs, summaries
+
+
+def load_seq2seq(dataset: str, split: str, dataset_path: Optional[str] = None,
+                 max_samples: Optional[int] = None, seed: int = 0
+                 ) -> tuple[list[str], list[str]]:
+    """Seq2seq pairs as (source texts, target texts)."""
+    if dataset == "synthetic":
+        n = max_samples or (2000 if split == "train" else 400)
+        return synthetic_summarization(n, seed=seed + (0 if split == "train" else 1))
+    hub = {"cnn_dailymail": (("cnn_dailymail", "3.0.0"), {}, "article", "highlights"),
+           "xsum": (("xsum",), {"trust_remote_code": True}, "document", "summary")}
+    if dataset in hub:
+        from datasets import load_dataset
+
+        args, kw, src_col, tgt_col = hub[dataset]
+        ds = load_dataset(*args, split="validation" if split == "test" else split, **kw)
+        if max_samples is not None:
+            ds = ds.select(range(min(max_samples, len(ds))))
+        return list(ds[src_col]), list(ds[tgt_col])
+    if dataset_path:
+        sources, targets = [], []
+        with open(os.path.join(dataset_path, f"{split}.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                sources.append(rec["source"])
+                targets.append(rec["target"])
+        if max_samples is not None:
+            sources, targets = sources[:max_samples], targets[:max_samples]
+        return sources, targets
+    raise ValueError(f"unknown seq2seq dataset {dataset!r}")

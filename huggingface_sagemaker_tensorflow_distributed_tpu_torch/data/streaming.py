@@ -1,6 +1,6 @@
 """Streaming data tier: corpora larger than host RAM (counterpart of the
-JAX package's ``data/streaming.py``, tasks ``seq-cls``, ``causal-lm`` and
-``mlm``).
+JAX package's ``data/streaming.py``, tasks ``seq-cls``, ``causal-lm``,
+``mlm`` and ``seq2seq``).
 
 Only a line-offset index stays resident (8 bytes a row against about
 2 KB a row materialized at sequence 512); each batch window is read,
@@ -11,12 +11,13 @@ batch that gathers it, so every rank materializes identical global
 batches, and a mid-epoch resume replays identical data. ``mlm`` masks
 each row from its own ``RandomState([seed, epoch, row])``, so its masks
 too depend on the row and the epoch alone (not bit-equal to the
-materialized tier's corpus-wide draw).
+materialized tier's corpus-wide draw). ``seq2seq`` reads ``source`` and
+``target`` fields of a ``.jsonl`` corpus and builds each batch through
+``ArrayDataset.from_seq2seq``, so its columns are the materialized tier's.
 
 Reads are coalesced: rows whose byte ranges lie within a gap of each
 other are fetched in one read, and the gap tunes itself per batch from
 the bytes read but not used (``obs.autotune("data/read_coalesce_gap")``).
-The seq2seq tier waits for its task (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+    ArrayDataset,
     apply_mlm_masking,
     encode_mlm_clean,
 )
@@ -157,29 +159,31 @@ class LineCorpus:
 
 class StreamingTextDataset:
     """``ArrayDataset``-compatible streaming source for ``seq-cls``,
-    ``causal-lm`` and ``mlm`` over a :class:`LineCorpus`.
+    ``causal-lm``, ``mlm`` and ``seq2seq`` over a :class:`LineCorpus`.
 
     Duck-types the batcher contract (``__len__``, ``__getitem__`` with an
     index array, ``begin_epoch``); only the gathered batch is ever
     tokenized or resident. Length bucketing needs corpus-wide token
     lengths, which streaming deliberately does not precompute: the
-    batcher raises on that combination. ``seq2seq`` raises
-    ``NotImplementedError`` until its task is ported."""
+    batcher raises on that combination. ``seq2seq_kwargs`` pass through to
+    ``from_seq2seq`` (``max_target_length``, the decoder start, pad and
+    EOS ids, and ``source_key``/``target_key``)."""
 
     def __init__(self, corpus: LineCorpus, tokenizer, task: str = "seq-cls",
                  max_length: int = 512, num_labels: Optional[int] = None,
                  mlm_probability: float = 0.15, whole_word: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, seq2seq_kwargs: Optional[dict] = None):
         if task not in ("mlm", "causal-lm", "seq-cls", "seq2seq"):
             raise ValueError(
                 "streaming tier supports mlm/causal-lm/seq-cls/seq2seq, "
                 f"got {task!r}")
         if task == "mlm" and getattr(tokenizer, "mask_token_id", None) is None:
             raise ValueError("tokenizer has no [MASK] token — MLM needs one")
-        if task == "seq2seq":
-            raise NotImplementedError(
-                "streaming seq2seq is not ported to the PyTorch package yet: "
-                "ROADMAP queue 1, item 9 (seq2seq)")
+        if task == "seq2seq" and not corpus._jsonl:
+            raise ValueError(
+                "seq2seq streaming needs a .jsonl corpus with "
+                "source/target fields (.txt lines carry no fields) — "
+                "failing now beats a KeyError at the first batch")
         self.corpus = corpus
         self.tokenizer = tokenizer
         self.task = task
@@ -188,6 +192,7 @@ class StreamingTextDataset:
         self.mlm_probability = mlm_probability
         self.whole_word = whole_word
         self.seed = seed
+        self.seq2seq_kwargs = dict(seq2seq_kwargs or {})
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -208,6 +213,13 @@ class StreamingTextDataset:
     def _materialize(self, idx) -> dict[str, np.ndarray]:
         if not isinstance(idx, np.ndarray):
             idx = np.atleast_1d(np.asarray(idx, np.int64))
+        if self.task == "seq2seq":
+            kw = dict(self.seq2seq_kwargs)
+            src_key, tgt_key = kw.pop("source_key", "source"), kw.pop("target_key", "target")
+            records = self.corpus.read_records(idx)
+            return ArrayDataset.from_seq2seq(
+                self.tokenizer, [r[src_key] for r in records], [r[tgt_key] for r in records],
+                max_source_length=self.max_length, **kw).columns
         texts, labels = self.corpus.read_rows(idx)
         if self.task == "mlm":
             return self._mlm_rows(idx, texts)

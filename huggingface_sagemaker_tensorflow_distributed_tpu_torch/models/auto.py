@@ -11,9 +11,11 @@ checkpoint keep their fresh weights; a missing backbone weight raises).
 readable by the JAX package's ``from_pretrained`` and the reverse. Ported
 so far: the encoder families ``bert``, ``roberta``, ``distilbert``,
 ``electra`` and ``albert`` with tasks ``seq-cls``, ``token-cls``, ``qa``
-and ``mlm``, ELECTRA with ``rtd`` (``MODEL_REGISTRY``), and ``gpt2`` with
-task ``causal-lm``. The exported ``config.json`` names the family's
-seq-cls architecture whatever the task, as the JAX package's does.
+and ``mlm``, ELECTRA with ``rtd``, the encoder-decoder families ``t5``,
+``bart`` and ``mbart`` with task ``seq2seq`` (``MODEL_REGISTRY``), and
+``gpt2`` with task ``causal-lm``. The exported ``config.json`` names the
+family's seq-cls architecture whatever the task, as the JAX package's
+does (the encoder-decoders name their conditional-generation one).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import (
     albert,
+    bart,
     bert,
     distilbert,
     electra,
     roberta,
+    t5,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
     encoder_from_hf,
@@ -38,6 +42,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert impor
     gpt2_to_hf,
     init_encoder,
     init_gpt2,
+    init_seq2seq,
+    seq2seq_from_hf,
+    seq2seq_to_hf,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
     gpt2_config_from_hf,
@@ -78,7 +85,11 @@ MODEL_REGISTRY = {
     ("albert", "mlm"): albert.AlbertForMaskedLM,
     ("electra", "rtd"): electra.ElectraForPreTraining,
     ("electra", "mlm"): electra.ElectraForMaskedLM,
+    ("t5", "seq2seq"): t5.T5ForConditionalGeneration,
+    ("bart", "seq2seq"): bart.BartForConditionalGeneration,
+    ("mbart", "seq2seq"): bart.BartForConditionalGeneration,
 }
+SEQ2SEQ_FAMILIES = ("t5", "bart", "mbart")
 
 CONFIG_BUILDERS = {
     "bert": bert.bert_config_from_hf,
@@ -87,6 +98,9 @@ CONFIG_BUILDERS = {
     "electra": electra.electra_config_from_hf,
     "albert": albert.albert_config_from_hf,
     "gpt2": gpt2_config_from_hf,
+    "t5": t5.t5_config_from_hf,
+    "bart": bart.bart_config_from_hf,
+    "mbart": bart.mbart_config_from_hf,
 }
 
 # the port's config -> the HF config.json the JAX package exports
@@ -97,17 +111,17 @@ HF_CONFIG_EXPORTERS = {
     "electra": electra.electra_config_to_hf,
     "albert": albert.albert_config_to_hf,
     "gpt2": gpt2_config_to_hf,
+    "t5": t5.t5_config_to_hf,
+    "bart": bart.bart_config_to_hf,
+    "mbart": lambda c: bart.bart_config_to_hf(c, "mbart"),
 }
 
 # the JAX package's families the port has no model for yet, by the
 # ROADMAP queue 1 item that ports them
-_UNPORTED_FAMILIES = {"deberta-v2": "item 6", "t5": "item 9", "bart": "item 9",
-                      "mbart": "item 9", "llama": "item 9"}
+_UNPORTED_FAMILIES = {"deberta-v2": "item 6", "llama": "item 9"}
 _FAMILY_ALIASES = {"xlm-roberta": "roberta", "camembert": "roberta",
                    "mistral": "llama", "qwen2": "llama", "gemma": "llama",
                    "mixtral": "llama"}
-# tasks the JAX package runs that the port does not yet
-_UNPORTED_TASKS = {"seq2seq": "item 9"}
 _GENERATION_KEYS = ("forced_bos_token_id", "forced_eos_token_id",
                     "decoder_start_token_id", "bos_token_id",
                     "eos_token_id", "pad_token_id")
@@ -145,15 +159,12 @@ def detect_family(hf_config: dict) -> str:
 
 
 def build_model(family: str, task: str, config, num_labels: int = 2):
-    """The registry's encoder model for ``(family, task)`` (the JAX
-    package's ``build_model``): QA, MLM and RTD take no ``num_labels``."""
-    if task in _UNPORTED_TASKS:
-        raise NotImplementedError(f"task {task!r} is not ported to the PyTorch package "
-                                  f"yet: ROADMAP queue 1, {_UNPORTED_TASKS[task]}")
+    """The registry's model for ``(family, task)`` (the JAX package's
+    ``build_model``): QA, MLM, RTD and seq2seq take no ``num_labels``."""
     cls = MODEL_REGISTRY.get((family, task))
     if cls is None:
         raise ValueError(f"no model for family={family!r} task={task!r}")
-    if task in ("qa", "mlm", "rtd"):
+    if task in ("qa", "mlm", "rtd", "seq2seq"):
         return cls(config)
     return cls(config, num_labels=num_labels)
 
@@ -175,6 +186,10 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
         raise ValueError(
             f"{model_name_or_path!r} is a gpt2 (decoder-only) checkpoint; it "
             f"only supports task='causal-lm', got task={task!r}")
+    if family in SEQ2SEQ_FAMILIES and task != "seq2seq":
+        raise ValueError(
+            f"{model_name_or_path!r} is a {family} (encoder-decoder) checkpoint; it "
+            f"only supports task='seq2seq', got task={task!r}")
     if family in ("bert", "albert") and task != "seq-cls":
         # HF builds the Bert/Albert QA and token-cls models with
         # add_pooling_layer=False; only the seq-cls head uses the pooler
@@ -184,6 +199,9 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
     if family == "gpt2":
         model = init_gpt2(config, seed=seed, device=device, trainable=True)
         from_hf = gpt2_from_hf
+    elif family in SEQ2SEQ_FAMILIES:
+        model = init_seq2seq(build_model(family, task, config), seed=seed, device=device)
+        from_hf = functools.partial(seq2seq_from_hf, family=family)
     else:
         model = init_encoder(build_model(family, task, config, num_labels), seed=seed,
                              device=device)
@@ -196,7 +214,8 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
     own = model.state_dict()
     missing = sorted(set(own) - set(loaded))
     backbone_missing = [m for m in missing
-                        if m.startswith("backbone.") and ".pooler." not in m]
+                        if m.startswith(("backbone.", "encoder.", "decoder.", "shared."))
+                        and ".pooler." not in m]
     if backbone_missing:
         raise ValueError(f"backbone params missing from checkpoint: {backbone_missing[:8]}")
     for key, value in loaded.items():
@@ -222,7 +241,12 @@ def save_pretrained(output_dir: str, model, family: str, config,
         return
     os.makedirs(output_dir, exist_ok=True)
     state = {k: v.detach() for k, v in model.state_dict().items()}
-    state = gpt2_to_hf(state) if family == "gpt2" else encoder_to_hf(state, family)
+    if family == "gpt2":
+        state = gpt2_to_hf(state)
+    elif family in SEQ2SEQ_FAMILIES:
+        state = seq2seq_to_hf(state, family)
+    else:
+        state = encoder_to_hf(state, family)
     save_file(state, os.path.join(output_dir, "model.safetensors"),
               metadata={"format": "pt"})
     with open(os.path.join(output_dir, "config.json"), "w") as f:

@@ -23,6 +23,14 @@ made at random from a seed, or mapped to and from the HF key layout.
   port's ``Linear.weight [out, in]`` is transposed on the way (the JAX
   package's ``[in, out]`` kernels are not); ``lm_head`` is tied to ``wte``
   and is not written.
+- :func:`init_seq2seq` seeds a T5 or BART (the JAX package's inits: T5's
+  ``initializer_factor`` scales, BART's ``init_std``), and
+  :func:`seq2seq_to_hf` / :func:`seq2seq_from_hf` map families ``t5``,
+  ``bart`` and ``mbart`` (the JAX ``_T5_RULES``, ``_BART_RULES``,
+  ``_MBART_RULES`` and their reverses): T5's ``relative_attention_bias``
+  lives on block 0 of each stack only; a tied ``lm_head`` and BART's
+  ``final_logits_bias`` are skipped on load and not written, and an
+  ``embed_tokens`` table stands in for a missing ``shared``.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ def params_from_jax(flat: dict) -> dict:
         arr = np.asarray(value)
         if leaf == "kernel":
             arr = arr.T
-        path = [re.sub(r"^(h|layer)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
+        path = [re.sub(r"^(h|layer|block)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         out[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
     return out
 
@@ -202,7 +210,7 @@ def _rules(names, src: int, prefix: str):
     rules = []
     for pair in names:
         pattern = re.escape(pair[src]).replace(r"\{\}", r"(\d+)")
-        if src == 1 and pattern.startswith(prefix):
+        if src == 1 and prefix and pattern.startswith(prefix):
             pattern = rf"(?:{prefix}\.)?" + pattern[len(prefix) + 2:]
         rules.append((re.compile(f"^{pattern}\\.(weight|bias)$"), pair[1 - src]))
     return rules
@@ -296,4 +304,107 @@ def gpt2_from_hf(hf_state: dict) -> dict:
             out[port] = value.t().contiguous() if _GPT2_LINEAR.search(port) else value
     if "backbone.wte.weight" not in out and "lm_head.weight" in hf_state:
         out["backbone.wte.weight"] = hf_state["lm_head.weight"]
+    return out
+
+
+def init_seq2seq(model, seed: int = 0, device=None):
+    """A T5 or BART with random weights from ``seed`` (the JAX package's
+    init): T5's embedding and untied head normal(``initializer_factor``),
+    its attention and input projections normal(factor · d_model^-0.5), its
+    FFN output normal(factor · d_ff^-0.5); BART's every dense kernel and
+    embedding normal(``init_std``); zero biases, unit norm scales. In eval
+    mode on ``device`` (CUDA unless the caller names another)."""
+    cfg = model.config
+    if hasattr(cfg, "initializer_factor"):
+        f = cfg.initializer_factor
+
+        def std_of(name):
+            if name.startswith(("shared.", "lm_head.")):
+                return f
+            return f * (cfg.d_ff if ".wo." in name else cfg.d_model) ** -0.5
+    else:
+        def std_of(name):
+            return cfg.init_std
+    return _init_normal(model, std_of, seed).to(resolve_device(device)).eval()
+
+
+def _t5_names() -> list:
+    names = [("shared", "shared"), ("lm_head", "lm_head")]
+    for stack in ("encoder", "decoder"):
+        blk = f"{stack}.block.{{}}"
+        ffn = 2 if stack == "decoder" else 1
+        names += [(f"{blk}.attn_ln", f"{blk}.layer.0.layer_norm"),
+                  (f"{blk}.self_attn.rel_bias",
+                   f"{blk}.layer.0.SelfAttention.relative_attention_bias"),
+                  (f"{blk}.ffn_ln", f"{blk}.layer.{ffn}.layer_norm"),
+                  (f"{stack}.final_ln", f"{stack}.final_layer_norm")]
+        names += [(f"{blk}.self_attn.{ours}", f"{blk}.layer.0.SelfAttention.{hf}")
+                  for ours, hf in (("query", "q"), ("key", "k"), ("value", "v"),
+                                   ("attention_out", "o"))]
+        names += [(f"{blk}.ffn.{w}", f"{blk}.layer.{ffn}.DenseReluDense.{w}")
+                  for w in ("wi", "wi_0", "wi_1", "wo")]
+        if stack == "decoder":
+            names += [(f"{blk}.cross_ln", f"{blk}.layer.1.layer_norm")]
+            names += [(f"{blk}.cross_attn.{ours}", f"{blk}.layer.1.EncDecAttention.{hf}")
+                      for ours, hf in (("query", "q"), ("key", "k"), ("value", "v"),
+                                       ("attention_out", "o"))]
+    return names
+
+
+def _bart_names(mbart: bool) -> list:
+    names = [("shared", "model.shared")]
+    for stack in ("encoder", "decoder"):
+        lay, hf_lay = f"{stack}.layer.{{}}", f"model.{stack}.layers.{{}}"
+        names += [(f"{stack}.embed_positions", f"model.{stack}.embed_positions"),
+                  (f"{stack}.embed_ln", f"model.{stack}.layernorm_embedding"),
+                  (f"{lay}.self_attn_ln", f"{hf_lay}.self_attn_layer_norm"),
+                  (f"{lay}.fc1", f"{hf_lay}.fc1"), (f"{lay}.fc2", f"{hf_lay}.fc2"),
+                  (f"{lay}.ffn_ln", f"{hf_lay}.final_layer_norm")]
+        attns = [("self_attn", "self_attn")]
+        if stack == "decoder":
+            attns.append(("cross_attn", "encoder_attn"))
+            names.append((f"{lay}.cross_ln", f"{hf_lay}.encoder_attn_layer_norm"))
+        names += [(f"{lay}.{ours}.{p}", f"{hf_lay}.{hf}.{q}_proj")
+                  for ours, hf in attns
+                  for p, q in (("query", "q"), ("key", "k"), ("value", "v"),
+                               ("attention_out", "out"))]
+        if mbart:
+            names.append((f"{stack}.final_ln", f"model.{stack}.layer_norm"))
+    return names
+
+
+SEQ2SEQ_NAMES = {"t5": _t5_names(), "bart": _bart_names(False), "mbart": _bart_names(True)}
+_SEQ2SEQ_PREFIX = {"t5": "", "bart": "model", "mbart": "model"}
+_SEQ2SEQ_TO_HF = {f: _rules(n, 0, _SEQ2SEQ_PREFIX[f]) for f, n in SEQ2SEQ_NAMES.items()}
+_SEQ2SEQ_FROM_HF = {f: _rules(n, 1, _SEQ2SEQ_PREFIX[f]) for f, n in SEQ2SEQ_NAMES.items()}
+# HF's per-stack copies of the shared table
+_EMBED_TOKENS = re.compile(r"^(?:model\.)?(?:encoder|decoder)\.embed_tokens\.weight$")
+
+
+def seq2seq_to_hf(state_dict: dict, family: str) -> dict:
+    """Port ``state_dict`` of a T5, BART or mBART -> HF keys (BART's with
+    the ``model.`` prefix). ``nn.Linear`` weights are ``[out, in]`` on
+    both sides."""
+    out = {}
+    for key, value in state_dict.items():
+        hf = _translate(key, _SEQ2SEQ_TO_HF[family])
+        if hf is not None:
+            out[hf] = value
+    return out
+
+
+def seq2seq_from_hf(hf_state: dict, family: str) -> dict:
+    """HF keys of a T5, BART or mBART -> port keys; BART's tied
+    ``lm_head.weight`` and ``final_logits_bias`` (and any other key no
+    rule names) are dropped, and a stack's ``embed_tokens`` stands in for
+    a missing ``shared``."""
+    out = {}
+    for key, value in hf_state.items():
+        port = _translate(key, _SEQ2SEQ_FROM_HF[family])
+        if port is not None:
+            out[port] = value
+    if "shared.weight" not in out:
+        alias = next((k for k in hf_state if _EMBED_TOKENS.match(k)), None)
+        if alias is not None:
+            out["shared.weight"] = hf_state[alias]
     return out

@@ -63,11 +63,12 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Dense,
     Embed,
     LayerNorm,
+    raise_unported,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
-    NEG,
     dot_product_attention,
     make_attention_mask,
+    make_step_mask,
     paged_attention,
     xla_attention,
 )
@@ -129,7 +130,7 @@ class Gpt2Config:
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r} "
                              "(xla | flash | ring)")
-        unported = [
+        raise_unported([
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
             (self.num_experts != 0, "num_experts", "9 (MoE)"),
@@ -137,12 +138,7 @@ class Gpt2Config:
             (self.weight_quant != "none", f"weight_quant={self.weight_quant!r}",
              "8 (int8 weight-only quantization)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
-        ]
-        for hit, what, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP queue 1, item {item}")
+        ])
         if not (isinstance(self.dtype, torch.dtype)
                 and isinstance(self.param_dtype, torch.dtype)):
             raise ValueError("dtype and param_dtype must be torch dtypes")
@@ -289,11 +285,8 @@ class Gpt2Model(nn.Module):
         if isinstance(cache, DenseCache):
             if position_ids is None:
                 position_ids = cache.index[:, None] + offsets
-            max_len = cache.keys[0].shape[2]
             # the chunk's step mask: key slot <= write index + query offset
-            valid = (torch.arange(max_len, device=dev)[None, None, :]
-                     <= cache.index[:, None, None] + offsets[:, :, None])
-            mask = torch.where(valid, 0.0, NEG)[:, None]
+            mask = make_step_mask(cache.index, S, cache.keys[0].shape[2])
             if attention_mask is not None:
                 mask = make_attention_mask(attention_mask) + mask
         elif cache is None:

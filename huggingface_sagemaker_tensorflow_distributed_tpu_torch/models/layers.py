@@ -41,6 +41,16 @@ ACT2FN: dict[str, Callable] = {
 }
 
 
+def raise_unported(items) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP queue 1 item for
+    the first ``(hit, what, item)`` of ``items`` that is hit."""
+    for hit, what, item in items:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch package yet: "
+                f"ROADMAP queue 1, item {item}")
+
+
 @dataclass(frozen=True)
 class EncoderConfig:
     """Architecture hyperparameters shared by the BERT-family encoders
@@ -85,31 +95,29 @@ class EncoderConfig:
     def __post_init__(self):
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
-        unported = [
+        raise_unported([
             (self.num_experts > 0, "num_experts>0 (MoE)", "9"),
             (self.pipeline_stages > 0, "pipeline_stages>0", "11"),
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "4"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11"),
-        ]
-        for hit, what, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP queue 1, item {item}")
+        ])
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` with the weight in ``param_dtype`` that computes in
-    ``dtype`` (flax ``nn.Dense(dtype=..., param_dtype=...)``)."""
+    ``dtype`` (flax ``nn.Dense(dtype=..., param_dtype=...)``); T5's
+    projections take ``bias=False``."""
 
-    def __init__(self, cfg: EncoderConfig, in_features: int, out_features: int):
-        super().__init__(in_features, out_features, dtype=cfg.param_dtype)
+    def __init__(self, cfg: EncoderConfig, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Embed(nn.Embedding):
@@ -125,13 +133,14 @@ class Embed(nn.Embedding):
 
 class LayerNorm(nn.Module):
     """Layer norm with fp32 statistics, output in ``dtype`` (flax
-    ``nn.LayerNorm(dtype=...)``); ``weight`` is flax's ``scale``."""
+    ``nn.LayerNorm(dtype=...)``); ``weight`` is flax's ``scale``; ``eps``
+    defaults to the config's ``layer_norm_eps``."""
 
-    def __init__(self, cfg: EncoderConfig, dim: int):
+    def __init__(self, cfg: EncoderConfig, dim: int, eps: Optional[float] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim, dtype=cfg.param_dtype))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=cfg.param_dtype))
-        self.eps = cfg.layer_norm_eps
+        self.eps = cfg.layer_norm_eps if eps is None else eps
         self.compute_dtype = cfg.dtype
 
     def forward(self, x):

@@ -1,6 +1,6 @@
 """Fine-tuning and pretraining entry point (counterpart of the JAX
 package's ``scripts/train.py::main`` for tasks ``seq-cls``, ``token-cls``,
-``qa``, ``causal-lm``, ``mlm`` and ``rtd``).
+``qa``, ``causal-lm``, ``mlm``, ``rtd`` and ``seq2seq``).
 
     python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.cli \\
         --model_name_or_path DIR --dataset vendored_reviews [--device cpu] ...
@@ -19,12 +19,17 @@ word's first subword, QA with ``--qa_doc_stride`` trains on overlapping
 context windows, ``mlm`` masks whole words afresh each epoch
 (``--mlm_static_masking`` pins epoch 0's masks; ``--fused_vocab_ce``
 gathers the masked rows into the fused vocab cross-entropy), ``rtd``
-replaces random tokens for ELECTRA's discriminator), batch them
+replaces random tokens for ELECTRA's discriminator, ``seq2seq`` pairs
+sources with LM-style targets, or with ``--span_corruption`` turns texts
+into T5's span-corruption pairs, its target length raised to fit the
+spans), batch them
 (``--bucket_multiple``: length buckets of its multiples), restore the
 latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
 false``), fit, evaluate (token-cls adds ``eval_f1``; QA with
 ``--eval_qa_samples N`` decodes N test answers over their windows and adds
-SQuAD's ``eval_exact_match`` and ``eval_f1``), write
+SQuAD's ``eval_exact_match`` and ``eval_f1``; seq2seq with
+``--eval_rouge_samples N`` generates greedily for the first N test rows
+and adds ``rougeL_precision``, ``rougeL_recall`` and ``rougeL_f1``), write
 ``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
 export the model and tokenizer in HF layout to ``model_dir`` (rank 0;
 with ``--keep_best`` the best epoch's weights). Rerunning an interrupted
@@ -60,6 +65,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
     load_qa,
+    load_seq2seq,
     load_text_classification,
     load_token_classification,
 )
@@ -71,6 +77,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization im
     load_tokenizer,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import generate
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     initialize_distributed,
     local_device,
@@ -86,6 +93,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.metrics import (
     best_windowed_answers,
     extract_answer_spans,
+    rouge_l,
     squad_em_f1,
 )
 
@@ -102,8 +110,15 @@ def _check_num_labels(labels, num_labels: int, task: str) -> None:
                          f"{num_labels}; pass --num_labels {top + 1} (conll2003 needs 9)")
 
 
+def _seq2seq_ids(model_config) -> dict:
+    """The decoder start, pad and EOS ids the seq2seq builders take."""
+    return dict(decoder_start_token_id=getattr(model_config, "decoder_start_token_id", 0),
+                pad_token_id=getattr(model_config, "pad_token_id", 0),
+                eos_token_id=getattr(model_config, "eos_token_id", 1))
+
+
 def build_streaming_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
-                            max_samples) -> StreamingTextDataset:
+                            max_samples, model_config=None) -> StreamingTextDataset:
     """``--streaming true``: the corpus stays on disk and is tokenized per
     batch. Sources: ``dataset_path/{split}.jsonl`` or ``.txt``; the
     synthetic tier writes its corpus to a file in the temporary directory
@@ -120,29 +135,62 @@ def build_streaming_dataset(config: TrainConfig, tokenizer, split: str, max_len:
         path = os.path.join(tempfile.gettempdir(),
                             f"stream_synth_{config.task}_{split}_{n}_{config.seed}.jsonl")
         if not os.path.exists(path):
-            texts, labels = load_text_classification("synthetic", split, max_samples=n,
-                                                     seed=config.seed)
+            if config.task == "seq2seq":
+                sources, targets = load_seq2seq("synthetic", split, max_samples=n,
+                                                seed=config.seed)
+                rows = [{"source": a, "target": b} for a, b in zip(sources, targets)]
+            else:
+                texts, labels = load_text_classification("synthetic", split,
+                                                         max_samples=n, seed=config.seed)
+                rows = [{"text": a, "label": b} for a, b in zip(texts, labels)]
             # a process-unique temporary file and an atomic replace: ranks
             # may race to write the same (deterministic) file
             fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
             with os.fdopen(fd, "w") as f:
-                for text, label in zip(texts, labels):
-                    f.write(json.dumps({"text": text, "label": label}) + "\n")
+                for rec in rows:
+                    f.write(json.dumps(rec) + "\n")
             os.replace(tmp, path)
     else:
         raise ValueError("--streaming needs --dataset_path (train.jsonl/.txt) or "
                          "--dataset synthetic")
+    seq2seq_kwargs = None
+    if config.task == "seq2seq":
+        seq2seq_kwargs = dict(max_target_length=config.max_target_length,
+                              **_seq2seq_ids(model_config))
     return StreamingTextDataset(LineCorpus(path, max_rows=max_samples), tokenizer,
                                 task=config.task, max_length=max_len, seed=config.seed,
                                 num_labels=config.num_labels
-                                if config.task == "seq-cls" else None)
+                                if config.task == "seq-cls" else None,
+                                seq2seq_kwargs=seq2seq_kwargs)
 
 
 def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
                   max_samples, model_config=None):
     if config.streaming and split == "train":
-        return build_streaming_dataset(config, tokenizer, split, max_len, max_samples)
+        return build_streaming_dataset(config, tokenizer, split, max_len, max_samples,
+                                       model_config)
     kw = dict(dataset_path=config.dataset_path, max_samples=max_samples, seed=config.seed)
+    if config.task == "seq2seq" and config.span_corruption:
+        try:
+            texts, _ = load_text_classification(config.dataset, split, **kw)
+        except ValueError:
+            # a seq2seq corpus (cnn_dailymail, ...) corrupts its sources
+            texts, _ = load_seq2seq(config.dataset, split, **kw)
+        # a corrupted source of max_len tokens needs about 0.2 max_len
+        # target tokens (spans, sentinels, the final sentinel)
+        tgt_len = max(config.max_target_length, int(max_len * 0.2) + 4)
+        if tgt_len != config.max_target_length:
+            get_logger("train").info(
+                "span_corruption: raising max_target_length %d → %d to fit the "
+                "corrupted spans", config.max_target_length, tgt_len)
+        return ArrayDataset.from_span_corruption_texts(
+            tokenizer, texts, max_source_length=max_len, max_target_length=tgt_len,
+            seed=config.seed, **_seq2seq_ids(model_config))
+    if config.task == "seq2seq":
+        sources, targets = load_seq2seq(config.dataset, split, **kw)
+        return ArrayDataset.from_seq2seq(
+            tokenizer, sources, targets, max_source_length=max_len,
+            max_target_length=config.max_target_length, **_seq2seq_ids(model_config))
     if config.task == "token-cls":
         sents, tags = load_token_classification(config.dataset, split, **kw)
         _check_num_labels([t for ts in tags for t in ts], config.num_labels, config.task)
@@ -164,6 +212,20 @@ def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
         return ArrayDataset.from_rtd_texts(tokenizer, texts, max_len, seed=config.seed)
     _check_num_labels(labels, config.num_labels, config.task)
     return ArrayDataset.from_texts(tokenizer, texts, labels, max_len)
+
+
+def rouge_metrics(config: TrainConfig, model, tokenizer, eval_ds) -> dict:
+    """ROUGE-L of greedy ``generate`` (``max_target_length`` new tokens)
+    over the first ``eval_rouge_samples`` eval rows against their labels,
+    both decoded by the tokenizer (the JAX CLI's seq2seq eval)."""
+    n = min(config.eval_rouge_samples, len(eval_ds))
+    cols = eval_ds[np.arange(n)]
+    model.eval()
+    out = generate(model, cols["input_ids"], cols["attention_mask"],
+                   max_new_tokens=config.max_target_length).cpu().numpy()
+    preds = [tokenizer.decode(row) for row in out]
+    refs = [tokenizer.decode(row[row != -100]) for row in cols["labels"]]
+    return rouge_l(preds, refs)
 
 
 @torch.no_grad()
@@ -244,7 +306,8 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
     tokenizer = load_tokenizer(config.model_name_or_path,
                                vocab_size=model_config.vocab_size)
 
-    max_len = min(config.max_seq_length, model_config.max_position_embeddings)
+    max_len = min(config.max_seq_length,
+                  getattr(model_config, "max_position_embeddings", config.max_seq_length))
     train_ds = build_dataset(config, tokenizer, "train", max_len, config.max_train_samples,
                              model_config)
     eval_ds = build_dataset(config, tokenizer, "test", max_len, config.max_eval_samples,
@@ -300,6 +363,11 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
         if config.do_eval:
             logger.info("*** Evaluate ***")
             eval_results = trainer.evaluate(eval_batcher)
+            if config.task == "seq2seq" and config.eval_rouge_samples:
+                eval_results.update(rouge_metrics(config, model, tokenizer, eval_ds))
+                logger.info("ROUGE-L over %d generated summaries: F1 %.4f",
+                            min(config.eval_rouge_samples, len(eval_ds)),
+                            eval_results["rougeL_f1"])
             if config.task == "qa" and config.eval_qa_samples:
                 qa = qa_answer_metrics(config, model, tokenizer, max_len,
                                        config.eval_batch_size * world, device)

@@ -1,5 +1,6 @@
 """Optimizer construction (counterpart of the JAX package's
-``train/optim.py::build_optimizer`` for ``adam``/``adamw``).
+``train/optim.py::build_optimizer`` for ``adam``, ``adamw`` and
+``adafactor``).
 
 - The learning rate is scaled by the world size
   (``scale_lr_by_world_size``), as the JAX package scales by the
@@ -18,6 +19,9 @@
   test_torch_train.py`` holds the two against each other). Otherwise it
   is ``torch.optim.Adam``. Both with optax's defaults b1 0.9, b2 0.999,
   eps 1e-8.
+- ``adafactor`` is :class:`Adafactor`, optax's ``adafactor(lr)`` chain
+  step for step (not ``torch.optim.Adafactor``, whose decay, clipping and
+  parameter scale differ).
 - ``max_grad_norm > 0`` clips by the global norm as optax does (kept
   below the norm, ``g / norm * max_norm`` above it);
   ``gradient_accumulation_steps`` averages micro-batch gradients into one
@@ -30,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
@@ -70,18 +75,111 @@ def lr_schedule(config: TrainConfig, world_size: int = 1,
     return (lambda n: up(n) if n < warmup else down(n - warmup)), lr
 
 
+# optax.adafactor's defaults: the second moment's decay exponent, the
+# squared-gradient epsilon, the block-RMS clip, the parameter-scale floor
+# and the smallest second-largest axis that is factored
+ADAFACTOR_DECAY = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+
+
+def factored_dims(shape) -> Optional[tuple[int, int]]:
+    """optax's ``_factored_dims``: the second-largest and the largest
+    axis of ``shape`` (numpy's ``argsort`` order among equal sizes), or
+    None below two axes or when the second-largest is under
+    ``ADAFACTOR_MIN_DIM_TO_FACTOR``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax ``adafactor(learning_rate)`` (optax 0.2.6's defaults), in
+    fp32, one parameter at a time:
+
+    1. ``scale_by_factored_rms``: with decay ``1 - (t + 1)^-0.8`` at step
+       ``t`` (from 0) and ``g² + 1e-30``, a parameter with two axes of at
+       least 128 (:func:`factored_dims`) keeps the mean of ``g²`` over its
+       largest axis (``v_row``) and over its second-largest (``v_col``),
+       and its update is ``g · (v_row / mean(v_row))^-1/2 ·
+       v_col^-1/2``; any other keeps the full ``v`` and takes ``g ·
+       v^-1/2``;
+    2. ``clip_by_block_rms(1.0)``: divided by ``max(1, rms(update))``;
+    3. times the learning rate (the group's ``lr``, which the trainer sets
+       from the schedule each update);
+    4. ``scale_by_param_block_rms``: times ``max(rms(p), 1e-3)`` of the
+       parameter before the update;
+    5. subtracted from the parameter.
+
+    The state (``step``, ``v_row``/``v_col`` or ``v``) goes through
+    ``state_dict()``, so checkpoints carry it. A parameter without a
+    gradient is skipped."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, group)
+
+    def _update(self, p, group) -> None:
+        g = p.grad.float()
+        dims = factored_dims(tuple(p.shape))
+        state = self.state[p]
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros_like(g)
+            else:
+                d1, d0 = dims
+                state["v_row"] = g.new_zeros(tuple(np.delete(p.shape, d0)))
+                state["v_col"] = g.new_zeros(tuple(np.delete(p.shape, d1)))
+        t = torch.tensor(state["step"] + 1, dtype=torch.float32)
+        decay = (1.0 - t ** -ADAFACTOR_DECAY).to(g.device)
+        g2 = g * g + ADAFACTOR_EPS
+        if dims is None:
+            v = decay * state["v"] + (1.0 - decay) * g2
+            state["v"] = v
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = decay * state["v_row"] + (1.0 - decay) * g2.mean(d0)
+            v_col = decay * state["v_col"] + (1.0 - decay) * g2.mean(d1)
+            state["v_row"], state["v_col"] = v_row, v_col
+            row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u = (g * ((v_row / row_col_mean) ** -0.5).unsqueeze(d0)
+                 * (v_col ** -0.5).unsqueeze(d1))
+        state["step"] += 1
+        u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIP, min=1.0)
+        u = u * group["lr"]
+        p32 = p.float()
+        rms = torch.sqrt((p32 * p32).mean())
+        u = u * torch.where(rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE, rms)
+        p.copy_((p32 - u).to(p.dtype))
+
+
 def build_optimizer(config: TrainConfig, params, world_size: int = 1,
                     total_steps: Optional[int] = None):
     """Returns ``(torch optimizer, schedule, scaled base lr)``; the caller
     sets each update's learning rate from ``schedule`` (see
     :func:`set_lr`)."""
-    if config.optimizer not in ("adam", "adamw"):
+    if config.optimizer not in ("adam", "adamw", "adafactor"):
         raise NotImplementedError(
             f"optimizer {config.optimizer!r} is not ported to the PyTorch "
             "package yet: ROADMAP queue 1, item 4")
     schedule, lr = lr_schedule(config, world_size, total_steps)
     params = list(params)
-    if config.optimizer == "adamw" and config.weight_decay > 0:
+    if config.optimizer == "adafactor":
+        opt = Adafactor(params, lr=schedule(0))
+    elif config.optimizer == "adamw" and config.weight_decay > 0:
         opt = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=config.weight_decay)
     else:

@@ -1,9 +1,10 @@
 """The training engine: train/eval steps and the epoch loop (counterpart
 of the JAX package's ``train/trainer.py``: ``_masked_sums``, the task
 losses ``seq_cls_loss``, ``token_cls_loss`` (also ``mlm``'s, without the
-F1 counts), ``qa_loss``, ``causal_lm_loss`` and ``rtd_loss``, the fused
-``make_fused_causal_lm_loss`` and ``make_fused_mlm_loss``, and ``Trainer``
-for every task but ``seq2seq``).
+F1 counts), ``qa_loss``, ``causal_lm_loss``, ``rtd_loss`` and
+``seq2seq_loss`` (with train-time label smoothing), the fused
+``make_fused_causal_lm_loss``, ``make_fused_mlm_loss`` and
+``make_fused_seq2seq_loss``, and ``Trainer`` for every task).
 
 - A train step is forward, backward, one all-reduce mean of the
   gradients over the ranks, clipping, and the optimizer update at the
@@ -199,6 +200,28 @@ def rtd_loss(model, batch):
     return _masked_sums(per_tok, correct, token_valid)
 
 
+def seq2seq_loss(model, batch, epsilon: float = 0.0):
+    """Teacher-forced LM cross-entropy over the target tokens (labels ==
+    -100 ignored); the metric is next-token accuracy. With ``epsilon > 0``
+    a training forward (``model.training``) smooths the labels uniformly:
+    ``(1 - eps) CE + eps (lse - mean logit)``, from the logits, no one-hot;
+    eval keeps the plain CE."""
+    logits = model(batch["input_ids"], batch["attention_mask"], batch["decoder_input_ids"],
+                   batch.get("decoder_attention_mask"))
+    labels = batch["labels"]
+    token_valid = labels != -100
+    if "valid" in batch:
+        token_valid = token_valid & (batch["valid"][:, None] > 0)
+    safe_labels = labels.clamp(min=0)
+    per_tok = softmax_cross_entropy_with_integer_labels(logits, safe_labels)
+    if epsilon > 0 and model.training:
+        lf = logits.float()
+        per_tok = (1.0 - epsilon) * per_tok + epsilon * (torch.logsumexp(lf, dim=-1)
+                                                         - lf.mean(-1))
+    correct = logits.argmax(-1) == safe_labels
+    return _masked_sums(per_tok, correct, token_valid)
+
+
 def make_fused_causal_lm_loss(model):
     """``causal_lm_loss`` without the [B, S, V] logits: the model's
     ``hidden_and_embedding`` feeds the fused vocab cross-entropy
@@ -222,6 +245,34 @@ def make_fused_causal_lm_loss(model):
                                                   safe_labels.reshape(B * S))
         correct = pred.reshape(B, S) == safe_labels
         return _masked_sums(per_tok.reshape(B, S), correct, token_valid)
+
+    return loss
+
+
+def make_fused_seq2seq_loss(label_smoothing: float = 0.0):
+    """``seq2seq_loss`` without the [B, T, V] logits: the model's
+    ``seq2seq_hidden_and_embedding`` (the decoder hidden, T5's tied-head
+    scale applied, and the LM weight) feeds the fused vocab cross-entropy
+    (``ops/vocab_ce.py``: the CUDA kernels on the card) on all ``B·T``
+    rows; the labels align with the decoder positions, so nothing is
+    shifted or gathered. ``label_smoothing`` goes into the kernels on
+    training forwards; eval is the plain CE."""
+
+    def loss(model, batch):
+        hidden, weight = model.seq2seq_hidden_and_embedding(
+            batch["input_ids"], batch["attention_mask"], batch["decoder_input_ids"],
+            batch.get("decoder_attention_mask"))
+        B, T, H = hidden.shape
+        labels = batch["labels"]
+        token_valid = labels != -100
+        if "valid" in batch:
+            token_valid = token_valid & (batch["valid"][:, None] > 0)
+        safe_labels = labels.clamp(min=0)
+        eps = label_smoothing if model.training else 0.0
+        per_tok, pred = fused_vocab_cross_entropy(hidden.reshape(B * T, H), weight,
+                                                  safe_labels.reshape(B * T), eps)
+        return _masked_sums(per_tok.reshape(B, T), pred.reshape(B, T) == safe_labels,
+                            token_valid)
 
     return loss
 
@@ -307,7 +358,7 @@ TASK_LOSSES = {"seq-cls": seq_cls_loss, "token-cls": token_cls_loss, "qa": qa_lo
                # CE over the vocab at the masked positions: token-cls's
                # shape without the NER F1 (vocab id 0 is a token, not a tag)
                "mlm": functools.partial(token_cls_loss, with_f1=False),
-               "rtd": rtd_loss}
+               "rtd": rtd_loss, "seq2seq": seq2seq_loss}
 
 
 def _closing(batches):
@@ -327,21 +378,25 @@ class Trainer:
         self.model = model
         self.task = task or config.task
         if self.task not in TASK_LOSSES:
-            raise NotImplementedError(f"task {self.task!r} is not ported to the "
-                                      "PyTorch package yet: ROADMAP queue 1, item 9")
+            raise ValueError(f"no loss for task {self.task!r}")
         self.loss_fn = TASK_LOSSES[self.task]
+        if config.label_smoothing > 0:
+            # the config allows smoothing for task='seq2seq' only
+            self.loss_fn = functools.partial(seq2seq_loss, epsilon=config.label_smoothing)
         if config.fused_vocab_ce:
             if self.task == "causal-lm" and hasattr(model, "hidden_and_embedding"):
                 self.loss_fn = make_fused_causal_lm_loss(model)
             elif self.task == "mlm" and hasattr(model, "mlm_head"):
                 self.loss_fn = make_fused_mlm_loss(config.fused_mlm_mask_cap)
+            elif self.task == "seq2seq" and hasattr(model, "seq2seq_hidden_and_embedding"):
+                self.loss_fn = make_fused_seq2seq_loss(config.label_smoothing)
             else:
                 raise ValueError(
                     "fused_vocab_ce requires task='causal-lm' with a model "
-                    "exposing hidden_and_embedding (GPT-2 family), or "
+                    "exposing hidden_and_embedding (GPT-2 family), "
                     "task='mlm' with a return_fused_inputs-capable MLM model "
-                    "(BERT-family); the fused seq2seq loss is not ported "
-                    "yet: ROADMAP queue 1, item 9")
+                    "(BERT-family), or task='seq2seq' with a model exposing "
+                    "seq2seq_hidden_and_embedding (T5/BART)")
         self.device = next(model.parameters()).device
         self.n_chips = world_size()
         self.params = [p for p in model.parameters() if p.requires_grad]

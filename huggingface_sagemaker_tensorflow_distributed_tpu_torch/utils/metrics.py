@@ -1,10 +1,9 @@
-"""SQuAD answer-text metrics (the port's copy of the JAX package's
-``utils/metrics.py``, its QA part): the official answer normalization,
-corpus exact match and token F1, answer decoding from span logits, and
-the doc-stride aggregation over a context's windows. Host-side and
-numpy-only; token-level micro-F1 is summed in the eval step instead
-(``train/trainer.py::token_cls_loss``). ROUGE-L comes with seq2seq
-(ROADMAP queue 1, item 9)."""
+"""Host-side text metrics (the port's copy of the JAX package's
+``utils/metrics.py``): sentence-level ROUGE-L for generated summaries,
+and SQuAD's official answer normalization, corpus exact match and token
+F1, answer decoding from span logits, and the doc-stride aggregation over
+a context's windows. Numpy-only; token-level micro-F1 is summed in the
+eval step instead (``train/trainer.py::token_cls_loss``)."""
 
 from __future__ import annotations
 
@@ -16,6 +15,44 @@ from typing import Sequence
 import numpy as np
 
 _ARTICLES = re.compile(r"\b(a|an|the)\b")
+
+
+def _lcs_len(a: Sequence, b: Sequence) -> int:
+    """Longest-common-subsequence length, one rolling row."""
+    if not a or not b:
+        return 0
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0]
+        for j, y in enumerate(b, 1):
+            cur.append(prev[j - 1] + 1 if x == y else max(prev[j], cur[-1]))
+        prev = cur
+    return prev[-1]
+
+
+def _rouge_tokens(text: str) -> list[str]:
+    """rouge_score's default tokenization: lowercase alphanumeric runs."""
+    return re.findall(r"[a-z0-9]+", text.lower())
+
+
+def rouge_l(predictions: Sequence[str], references: Sequence[str]) -> dict:
+    """Corpus ROUGE-L: each pair's LCS precision, recall and F1 over its
+    tokens, averaged over the pairs (``rougeL_precision``,
+    ``rougeL_recall``, ``rougeL_f1``)."""
+    if len(predictions) != len(references):
+        raise ValueError("predictions and references must align")
+    ps, rs, fs = [], [], []
+    for pred, ref in zip(predictions, references):
+        p_toks, r_toks = _rouge_tokens(pred), _rouge_tokens(ref)
+        lcs = _lcs_len(p_toks, r_toks)
+        p = lcs / len(p_toks) if p_toks else 0.0
+        r = lcs / len(r_toks) if r_toks else 0.0
+        ps.append(p)
+        rs.append(r)
+        fs.append(2 * p * r / (p + r) if p + r else 0.0)
+    n = max(len(fs), 1)
+    return {"rougeL_precision": sum(ps) / n, "rougeL_recall": sum(rs) / n,
+            "rougeL_f1": sum(fs) / n}
 
 
 def squad_normalize(text: str) -> str:

@@ -376,5 +376,5 @@ def test_detect_family_and_missing_dir(tmp_path):
     with pytest.raises(FileNotFoundError):
         t_auto.from_pretrained(str(tmp_path / "nope"), device="cpu")
     _hf_config(tmp_path)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no model for family='bert' task='seq2seq'"):
         t_auto.from_pretrained(str(tmp_path), task="seq2seq", device="cpu")

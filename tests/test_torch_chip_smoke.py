@@ -88,6 +88,13 @@ def on_cpu(monkeypatch):
                                                         embedding_size=32, vocab_size=300))
     monkeypatch.setattr(chip_smoke, "DISTILBERT_BASE", dict(
         chip_smoke.DISTILBERT_BASE, dim=64, n_layers=2, n_heads=1, hidden_dim=128))
+    monkeypatch.setattr(chip_smoke, "T5_SMALL", dict(
+        chip_smoke.T5_SMALL, vocab_size=600, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+        num_decoder_layers=2, num_heads=4))
+    monkeypatch.setattr(chip_smoke, "BART_BASE", dict(
+        chip_smoke.BART_BASE, vocab_size=600, d_model=64, encoder_layers=2, decoder_layers=2,
+        encoder_attention_heads=4, decoder_attention_heads=4, encoder_ffn_dim=128,
+        decoder_ffn_dim=128))
     for mod, names in ((fa, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                        (vc, ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))):
         for name in names:
@@ -216,12 +223,20 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
     assert rows["bfloat16"]["grad_dist_ratio_max"] <= rows["bfloat16"]["grad_dist_ratio_tol"]
     # the other families, one fp32 and one bf16 step each at depth 2; then
     # an MLM step of each family (flash and the fused MLM loss against the
-    # plain path) and ELECTRA's RTD step
+    # plain path), ELECTRA's RTD step, and a T5 and a BART seq2seq step
+    # (the fused seq2seq loss against the unfused logits)
     families = ("roberta", "distilbert", "electra", "albert")
     assert sorted(rows) == sorted(["float32", "bfloat16"] + [
         f"{f}/{dt}" for f in families for dt in ("float32", "bfloat16")] + [
         f"{f}-mlm/{dt}" for f in ("bert",) + families for dt in ("float32", "bfloat16")] + [
-        f"electra-rtd/{dt}" for dt in ("float32", "bfloat16")])
+        f"electra-rtd/{dt}" for dt in ("float32", "bfloat16")] + [
+        f"{f}-seq2seq/{dt}" for f in ("t5", "bart") for dt in ("float32", "bfloat16")])
+    # T5 has no key bias; BART's self- and cross-attention key biases are
+    # held apart in both stacks
+    assert rows["t5-seq2seq/float32"]["key_bias_grad_norm_over_global"] == 0.0
+    assert rows["bart-seq2seq/float32"]["params"] == rows["bart-seq2seq/bfloat16"]["params"]
+    assert all(rows[f"{f}-seq2seq/bfloat16"]["grad_dist_step_ratio"] <= 2.0
+               for f in ("t5", "bart"))
     assert all(rows[f"{f}/float32"]["layers"] == 2 for f in ("roberta", "albert"))
     assert all(rows[f"{f}-mlm/bfloat16"]["grad_dist_step_ratio"] <= 2.0
                for f in ("bert",) + families)
@@ -603,3 +618,73 @@ def test_mlm_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
         assert row["export_reloads_bit_for_bit"] and row["card"] == "cpu rehearsal"
         assert math.isfinite(row["loss"]) and row["dtype"] == "bfloat16"
     assert base["idle_share"] == "not measured" or isinstance(base["idle_share"], float)
+
+
+def test_every_seq2seq_phase_shape_is_held_against_its_plain_version():
+    """Each shape the seq2seq phase's fused runs launch K2 at is a case of
+    the vocab-CE phase, which holds it against the plain version: B·T rows
+    of a train batch of 8 (smoothing 0.1) and, where the run evaluates, of
+    an eval batch of 4 (the plain CE; the forward's splits follow N), at
+    the target length (span corruption's raised one), the model's vocab
+    and width, bf16 hidden. No run launches K1."""
+    vocab = {c[1:6] for c in chip_smoke.VOCAB_CASES}
+    fused_runs = 0
+    for name, family, hf, _, eval_samples, extra in chip_smoke._seq2seq_runs():
+        if extra[extra.index("--fused_vocab_ce") + 1] != "true":
+            continue
+        fused_runs += 1
+        span = "--span_corruption" in extra
+        target = int(chip_smoke.S2S_SEQ * 0.2) + 4 if span else chip_smoke.S2S_TARGET
+        assert target == (106 if span else 64)
+        shapes = [(8 * target, 0.1)] + ([(4 * target, 0.0)] if eval_samples else [])
+        for n, eps in shapes:
+            shape = (n, hf["vocab_size"], hf["d_model"], "bfloat16", eps)
+            assert shape in vocab, (name, shape)
+    assert fused_runs == 4
+    assert set(chip_smoke.VOCAB_SEQ2SEQ) == {c[0] for c in chip_smoke.VOCAB_CASES
+                                             if c[2] in (32128, 50265)}
+
+
+def test_seq2seq_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The seq2seq phase at d_model 64, 2 + 2 layers, a vocab of 600 and 3
+    steps: the launch accounting (K2 on the fused runs' train and eval
+    steps, none unfused, K1 none), span corruption's target of 106, the
+    results keys with ROUGE-L, the reloaded exports, the profiled passes,
+    the generation check, the first losses of the fused and unfused runs
+    within the bf16 gate, the rows and the summary."""
+    for name, value in (("S2S_STEPS", 3), ("S2S_SHORT_STEPS", 2), ("BART_STEPS", 2),
+                        ("S2S_EVAL_SAMPLES", 8), ("S2S_SHORT_EVAL_SAMPLES", 4),
+                        ("S2S_ROUGE_SAMPLES", 4), ("BART_ROUGE_SAMPLES", 2),
+                        ("S2S_PROFILED_STEPS", 2), ("BART_PROFILED_STEPS", 1),
+                        ("GEN_ROWS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rows = chip_smoke.seq2seq_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["t5_small_fused", "t5_small_unfused", "t5_small_span",
+                          "t5_small_streaming", "bart_base_fused"]
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed if p.get("phase") == "seq2seq"] == list(rows)
+    summary = [p for p in printed if p.get("phase") == "seq2seq_summary"]
+    assert len(summary) == 1 and summary[0]["first_loss_fused_over_unfused_rel"] <= 2.0 ** -6
+    fused, unfused = rows["t5_small_fused"], rows["t5_small_unfused"]
+    no_k1 = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert fused["launches"] == {**no_k1, "fused_ce_fwd": 3 + 2, "fused_ce_bwd_dh": 3,
+                                 "fused_ce_bwd_dw": 3}
+    assert unfused["launches"] == {**no_k1, "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0,
+                                   "fused_ce_bwd_dw": 0}
+    assert set(fused["eval"]) == {"eval_loss", "eval_accuracy", "rougeL_precision",
+                                  "rougeL_recall", "rougeL_f1"}
+    assert fused["optimizer"] == "adafactor" and fused["label_smoothing"] == 0.1
+    span = rows["t5_small_span"]
+    assert span["target"] == 106 and span["launches"]["fused_ce_fwd"] == 2 + 1
+    assert rows["t5_small_streaming"]["streaming"] and rows["t5_small_streaming"]["eval_steps"] == 0
+    bart = rows["bart_base_fused"]
+    assert bart["optimizer"] == "adamw" and bart["launches"]["fused_ce_bwd_dw"] == 2
+    assert fused["profiled_steps"] == 2 and bart["profiled_steps"] == 1
+    assert set(fused["k2_ms_per_step"]) == {"fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"}
+    assert fused["achieved_tflops"] > 0 and fused["mfu"] == "not measured"
+    gen = fused["generation"]
+    assert gen["tokens_compared"] >= 2 and gen["decode_tokens_per_s"] > 0
+    for row in rows.values():
+        assert row["export_reloads_bit_for_bit"] and row["card"] == "cpu rehearsal"
+        assert math.isfinite(row["loss"]) and row["dtype"] == "bfloat16"

@@ -80,16 +80,21 @@ def test_config_fields_and_defaults_match_jax():
     assert t_config.TrainConfig().to_dict() == TrainConfig().to_dict()
 
 
-UNPORTED = [["--task", "seq2seq"], ["--lora_rank", "4"], ["--num_experts", "4"],
+UNPORTED = [["--lora_rank", "4"], ["--num_experts", "4"],
             ["--tp", "2"], ["--pp", "2"], ["--fsdp", "2"], ["--sp", "2"],
             ["--dcn_dp", "2"],
-            ["--fused_vocab_ce", "true", "--task", "seq2seq"],
-            ["--optimizer", "adafactor"], ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
+            ["--optimizer", "lamb"], ["--optimizer_state_dtype", "bfloat16"],
             ["--remat", "true", "--remat_policy", "dots"],
             ["--attention_impl", "ring"],
             ["--packed_sequences", "true", "--task", "causal-lm"],
             ["--segment_packing", "true", "--task", "causal-lm"],
             ["--ep", "2", "--num_experts", "4"]]
+
+# seq2seq, ported: these parse as the JAX package's do
+SEQ2SEQ = [["--task", "seq2seq"], ["--fused_vocab_ce", "true", "--task", "seq2seq"],
+           ["--optimizer", "adafactor"],
+           ["--task", "seq2seq", "--label_smoothing", "0.1", "--eval_rouge_samples", "8"],
+           ["--task", "seq2seq", "--span_corruption", "true", "--max_target_length", "114"]]
 
 # the trainer's lifecycle, ported: these parse as the JAX package's do
 LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
@@ -100,6 +105,14 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
 def test_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d+ \("):
         t_config.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", SEQ2SEQ, ids=["task", "fused", "adafactor", "smoothing",
+                                                 "span_corruption"])
+def test_seq2seq_flags_are_ported(argv):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import parse_args
+
+    assert t_config.parse_args(argv).to_dict() == parse_args(argv).to_dict()
 
 
 @pytest.mark.parametrize("argv", LIFECYCLE, ids=lambda a: a[0])

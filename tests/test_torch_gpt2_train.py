@@ -365,7 +365,7 @@ def test_causal_lm_cli_runs_with_remat(tmp_path):
 def test_fused_vocab_ce_needs_a_causal_lm_model():
     model = t_convert.init_gpt2(t_gpt2.Gpt2Config(**TINY), seed=0, device="cpu",
                                 trainable=True)
-    with pytest.raises(ValueError, match="fused_vocab_ce requires.*ROADMAP queue 1, item 9"):
+    with pytest.raises(ValueError, match="fused_vocab_ce requires.*causal-lm.*mlm.*seq2seq"):
         t_trainer.Trainer(t_config.TrainConfig(fused_vocab_ce=True), model)
 
 

@@ -648,14 +648,16 @@ def _raise_sites():
     name): every "not ported" raise of the port's modules."""
     from types import SimpleNamespace
 
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import bart as t_bart
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as t_gen
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import layers as t_layers
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import t5 as t_t5
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import optim as t_optim
 
     q = torch.zeros(1, 1, 4, 8)
     return [
-        ("config-seq2seq", lambda: t_config.TrainConfig(task="seq2seq"), "9"),
         ("config-lora", lambda: t_config.TrainConfig(lora_rank=4), "6"),
         ("config-moe", lambda: t_config.TrainConfig(num_experts=4), "9"),
         ("config-packing", lambda: t_config.TrainConfig(task="mlm", segment_packing=True),
@@ -679,18 +681,26 @@ def _raise_sites():
         ("gpt2-quant", lambda: t_gpt2.Gpt2Config(weight_quant="int8"), "8"),
         ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), "11"),
         ("attention-ring", lambda: t_attn.dot_product_attention(q, q, q, impl="ring"), "11"),
-        ("optim-adafactor", lambda: t_optim.build_optimizer(
-            SimpleNamespace(optimizer="adafactor"), []), "4"),
+        ("optim-lamb", lambda: t_optim.build_optimizer(
+            SimpleNamespace(optimizer="lamb"), []), "4"),
         ("pipeline-packed", lambda: t_pipe.ArrayDataset.from_lm_texts(
             t_tok.WordHashTokenizer(64), ["a b"], 8, packed=True), "6"),
-        ("auto-seq2seq", lambda: t_auto.build_model("bert", "seq2seq", None), "9"),
-        ("trainer-seq2seq", lambda: t_trainer.Trainer(
-            t_config.TrainConfig(), torch.nn.Linear(2, 2), task="seq2seq"), "9"),
-        ("streaming-seq2seq", lambda: t_stream.StreamingTextDataset(
-            None, t_tok.WordHashTokenizer(64), task="seq2seq"), "9"),
-        ("auto-family", lambda: t_auto.detect_family({"model_type": "t5"}), "9"),
-        ("auto-export", lambda: t_auto.save_pretrained("/nonexistent", None, "t5", None),
+        ("auto-family", lambda: t_auto.detect_family({"model_type": "llama"}), "9"),
+        ("auto-export", lambda: t_auto.save_pretrained("/nonexistent", None, "llama", None),
          "9"),
+        ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), "11"),
+        ("t5-pipeline", lambda: t_t5.T5Config(pipeline_stages=2), "11"),
+        ("t5-quant", lambda: t_t5.T5Config(weight_quant="int8"), "8"),
+        ("t5-remat-policy", lambda: t_t5.T5Config(remat=True, remat_policy="dots"), "4"),
+        ("bart-ring", lambda: t_bart.BartConfig(attention_impl="ring"), "11"),
+        ("bart-pipeline", lambda: t_bart.BartConfig(pipeline_stages=2), "11"),
+        ("bart-quant", lambda: t_bart.BartConfig(weight_quant="int8"), "8"),
+        ("bart-remat-policy",
+         lambda: t_bart.BartConfig(remat=True, remat_policy="dots_no_batch"), "4"),
+        ("generate-sampling", lambda: t_gen.generate(None, None, temperature=1.0), "8"),
+        ("generate-beam", lambda: t_gen.beam_search_generate(None, None), "8"),
+        ("generate-speculative-seq2seq",
+         lambda: t_gen.generate_speculative_seq2seq(None, None), "8"),
         ("engine-int8-kv", lambda: _int8_engine(), "10"),
     ]
 

@@ -1,6 +1,7 @@
 """PyTorch port: ``train/optim.py`` and ``ops/losses.py`` against optax and
-the JAX package: the learning rate at every update, Adam and AdamW step
-for step, global-norm clipping, and the fp32 loss and metric primitives.
+the JAX package: the learning rate at every update, Adam, AdamW and
+Adafactor step for step, global-norm clipping, and the fp32 loss and
+metric primitives.
 
 Tolerances: 1e-6 (fp32 arithmetic in another order; optax evaluates its
 schedules in fp32)."""
@@ -131,6 +132,87 @@ def test_clip_by_global_norm_matches_optax(max_norm):
                                rtol=1e-6)
     for p, w in zip(params, want):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+ADAFACTOR_SHAPES = [(256, 128), (130, 300), (64, 100), (200,), (128, 128), (2, 130, 140)]
+
+
+@pytest.mark.parametrize("schedule", ["constant", "warmup_linear"])
+@pytest.mark.parametrize("max_norm", [1.0, 0.0], ids=["clipped", "unclipped"])
+def test_adafactor_matches_optax(schedule, max_norm):
+    """Ten steps of the trainer's update order (global-norm clipping, then
+    the optimizer at the schedule's learning rate) against
+    ``optax.chain(clip_by_global_norm, adafactor(schedule))`` within 1e-6
+    relative: factored ([256, 128], the ragged [130, 300], the square
+    [128, 128], the 3-axis [2, 130, 140]) and unfactored ([64, 100],
+    [200]) parameters, gradients growing step by step so the block-RMS
+    clip acts."""
+    import jax.numpy as jnp
+    import optax
+
+    rng = np.random.RandomState(3)
+    p0 = [(rng.randn(*s) * 0.05).astype(np.float32) for s in ADAFACTOR_SHAPES]
+    grads = [[(rng.randn(*s) * (0.1 + k)).astype(np.float32) for s in ADAFACTOR_SHAPES]
+             for k in range(10)]
+    cfg = t_config.TrainConfig(optimizer="adafactor", weight_decay=0.0, learning_rate=1e-2,
+                               warmup_ratio=0.3 if schedule != "constant" else 0.0,
+                               max_grad_norm=max_norm, scale_lr_by_world_size=False)
+    params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt, sched, _ = t_optim.build_optimizer(cfg, params, total_steps=10)
+    assert isinstance(opt, t_optim.Adafactor)
+    lr = 1e-2 if schedule == "constant" else _optax_schedule("linear", 1e-2, 3, 10)
+    chain = [optax.clip_by_global_norm(max_norm)] if max_norm else []
+    tx = optax.chain(*chain, optax.adafactor(lr))
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    for n, g in enumerate(grads):
+        for p, gi in zip(params, g):
+            p.grad = torch.from_numpy(gi.copy())
+        if max_norm:
+            t_optim.clip_by_global_norm(params, max_norm)
+        t_optim.set_lr(opt, sched(n))
+        opt.step()
+        upd, state = tx.update([jnp.asarray(gi) for gi in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, w in zip(params, jp):
+            w = np.asarray(w)
+            err = np.abs(p.detach().numpy() - w).max() / np.abs(w).max()
+            assert err <= 1e-6, (n, p.shape, err)
+    factored = [t_optim.factored_dims(s) for s in ADAFACTOR_SHAPES]
+    assert factored == [(1, 0), (0, 1), None, None, (0, 1), (1, 2)]
+    assert opt.state[params[0]]["step"] == 10 and "v" in opt.state[params[2]]
+
+
+def test_adafactor_state_round_trips_through_state_dict():
+    """The factored moments and the step count are in ``state_dict()``
+    (the checkpoint's), and a fresh optimizer loaded from it takes the
+    same next step."""
+    rng = np.random.RandomState(4)
+    shapes = [(256, 128), (40,)]
+    p0 = [rng.randn(*s).astype(np.float32) for s in shapes]
+
+    def make():
+        ps = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+        return ps, t_optim.Adafactor(ps, lr=1e-2)
+
+    a, opt_a = make()
+    for _ in range(3):
+        for p in a:
+            p.grad = torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+        opt_a.step()
+    b, opt_b = make()
+    with torch.no_grad():
+        for pa, pb in zip(a, b):
+            pb.copy_(pa)
+    opt_b.load_state_dict(opt_a.state_dict())
+    assert set(opt_a.state_dict()["state"][0]) == {"step", "v_row", "v_col"}
+    g = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in shapes]
+    for ps, opt in ((a, opt_a), (b, opt_b)):
+        for p, gi in zip(ps, g):
+            p.grad = gi.clone()
+        opt.step()
+    for pa, pb in zip(a, b):
+        assert torch.equal(pa, pb)
 
 
 def test_losses_match_jax():

@@ -1,0 +1,566 @@
+"""PyTorch port: encoder-decoder seq2seq against the JAX package on the
+same weights (carried across with ``params_from_jax``) and the same numpy
+inputs from a seed: T5's relative-position buckets (``ops/attention.py``),
+T5 v1.0 (ReLU, tied head), T5 v1.1 (gated GeLU, untied head), BART and
+mBART (``models/t5.py``, ``models/bart.py``), greedy ``generate``
+(``models/generate.py``), the seq2seq losses with label smoothing, plain
+and through the fused vocab CE (``train/trainer.py``; the JAX fused loss
+with its Pallas kernels in interpret mode at hidden 128), Adafactor in
+the trainer (``train/optim.py``), a resumed T5 Adafactor fit, HF exports
+read across both packages (``models/convert.py``, ``models/auto.py``),
+the CLI's ``--task seq2seq`` runs and the trainer's unknown-task error.
+
+Tolerances: buckets and generated tokens exact; logits 1e-4 of the
+largest logit (fp32 through 2 + 2 layers in two frameworks) and
+``hidden·Wᵀ`` 1e-5 of them; loss sums 1e-5 relative; 5-step loss curves
+1e-5 relative, and the port's fused and unfused curves 1e-5 of each
+other; resumed losses and weights exact."""
+
+import dataclasses
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import config as t_config
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import pipeline as t_pipe
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import sources as t_src
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import tokenization as t_tok
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto as t_auto
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as t_gen
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+    params_from_jax,
+    seq2seq_to_hf,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import trainer as t_trainer
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+    read_results_file,
+)
+
+SEQ = 24
+TGT = 8
+VOCAB = 512
+
+
+def _hf(variant: str, d: int = 64) -> dict:
+    """A tiny config in the family's HF dialect, dropout 0."""
+    if variant.startswith("t5"):
+        cfg = {"model_type": "t5", "vocab_size": VOCAB, "d_model": d, "d_kv": d // 4,
+               "d_ff": 2 * d, "num_layers": 2, "num_decoder_layers": 2, "num_heads": 4,
+               "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+               "dropout_rate": 0.0}
+        if variant == "t5_v11":
+            cfg.update(feed_forward_proj="gated-gelu", tie_word_embeddings=False)
+        return cfg
+    cfg = {"model_type": variant, "vocab_size": VOCAB, "d_model": d, "encoder_layers": 2,
+           "decoder_layers": 2, "encoder_attention_heads": 4, "decoder_attention_heads": 4,
+           "encoder_ffn_dim": 2 * d, "decoder_ffn_dim": 2 * d, "max_position_embeddings": 64,
+           "dropout": 0.0}
+    if variant == "mbart":
+        cfg.update(scale_embedding=True, forced_bos_token_id=7)
+    return cfg
+
+
+VARIANTS = ["t5", "t5_v11", "bart", "mbart"]
+FAMILY = {"t5": "t5", "t5_v11": "t5", "bart": "bart", "mbart": "mbart"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread per test worker runs
+    them faster than a pool contending with the other workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _detached_compile_trackers():
+    """A compile tracker that an earlier telemetry test installed in this
+    worker rejects the ``fun_name`` keyword jax 0.9 passes to duration
+    listeners, failing every later jax compile in the worker. Remove every
+    installed tracker before and after this module, and run the JAX
+    package with its telemetry off (it then installs none)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu import obs as jax_obs
+
+    _drop_compile_trackers()
+    jax_obs.reset(enabled=False)
+    yield
+    jax_obs.reset()
+    _drop_compile_trackers()
+
+
+def _drop_compile_trackers():
+    try:
+        from jax import monitoring
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog
+    except ImportError:
+        return
+    for tracker in watchdog._INSTALLED:
+        try:
+            monitoring.unregister_event_duration_listener(tracker.observe)
+        except AssertionError:
+            pass
+    watchdog._INSTALLED.clear()
+
+
+def _model_dir(path, variant, d=64):
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(_hf(variant, d)))
+    return str(path)
+
+
+def _pair(tmp_path, variant, seed=0, d=64, **overrides):
+    """(JAX model, JAX params, port model) on the same weights."""
+    from flax.traverse_util import flatten_dict
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
+
+    path = _model_dir(tmp_path / f"{variant}-{d}-{seed}", variant, d)
+    jmodel, params, _, _ = j_auto.from_pretrained(path, task="seq2seq", seed=seed)
+    model, _, _ = t_auto.from_pretrained(path, task="seq2seq", device="cpu", **overrides)
+    flat = {k: np.asarray(v) for k, v in flatten_dict(params, sep="/").items()}
+    model.load_state_dict(params_from_jax(flat), strict=True)
+    return jmodel, params, model
+
+
+def _inputs(seed=0, rows=3):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(3, VOCAB, (rows, SEQ))
+    mask = np.ones((rows, SEQ), np.int64)
+    mask[1, 17:] = 0
+    dec = rng.randint(3, VOCAB, (rows, TGT))
+    dmask = np.ones((rows, TGT), np.int64)
+    dmask[2, 5:] = 0
+    return ids, mask, dec, dmask
+
+
+def _to_torch(batch):
+    return {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+
+
+def _jax_batch(batch):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+# -- the model -------------------------------------------------------------------
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bidirectional", "causal"])
+@pytest.mark.parametrize("buckets,distance", [(32, 128), (64, 256), (16, 32)])
+def test_relative_position_bucket_equals_jax_exactly(bidirectional, buckets, distance):
+    """Every relative position in [-600, 600]: one ulp of the fp32 log
+    would move a bucket at its boundary."""
+    import jax.numpy as jnp
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.attention import (
+        relative_position_bucket,
+    )
+
+    rel = np.arange(-600, 601, dtype=np.int32)
+    want = np.asarray(relative_position_bucket(jnp.asarray(rel), bidirectional, buckets,
+                                               distance))
+    got = t_attn.relative_position_bucket(torch.from_numpy(rel), bidirectional, buckets,
+                                          distance)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_logits_match_jax(tmp_path, variant):
+    """Teacher-forced logits with source and target padding within 1e-4
+    of the largest JAX logit; ``seq2seq_hidden_and_embedding``'s
+    ``hidden·Wᵀ`` within 1e-5 of the port's logits (the tied T5 head's
+    ``d_model**-0.5`` applied, the untied head's own weight)."""
+    import jax.numpy as jnp
+
+    jmodel, params, model = _pair(tmp_path, variant, seed=1)
+    ids, mask, dec, dmask = _inputs(seed=2)
+    want = np.asarray(jmodel.apply({"params": params}, *map(jnp.asarray, (ids, mask, dec, dmask))))
+    args = [torch.from_numpy(a) for a in (ids, mask, dec, dmask)]
+    with torch.no_grad():
+        got = model.eval()(*args)
+        hidden, weight = model.seq2seq_hidden_and_embedding(*args)
+        product = hidden.float() @ weight.float().t()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(product.numpy(), got.numpy(),
+                               rtol=0, atol=1e-5 * scale)
+    assert tuple(weight.shape) == (VOCAB, 64) and weight.dtype == torch.float32
+
+
+GEN_CASES = [(v, s) for v in ("t5", "t5_v11", "bart", "mbart") for s in (0, 3)]
+
+
+@pytest.mark.parametrize("variant,seed", GEN_CASES, ids=[f"{v}-{s}" for v, s in GEN_CASES])
+def test_generate_is_token_exact_against_jax(tmp_path, variant, seed):
+    """Greedy ``generate`` equals JAX ``generate`` token for token in
+    fp32 (mBART's ``forced_bos_token_id`` first), with EOS set to a token
+    the first row emits so rows finish and pad; the cached decode equals
+    the argmax of the port's own teacher-forced decode of its output."""
+    import jax.numpy as jnp
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models.generate import generate
+
+    jmodel, params, model = _pair(tmp_path, variant, seed=seed)
+    ids, mask, _, _ = _inputs(seed=seed + 10, rows=4)
+    def with_eos(eos):
+        return (jmodel.clone(config=dataclasses.replace(jmodel.config, eos_token_id=eos)),
+                dataclasses.replace(model.config, eos_token_id=eos))
+
+    endless, _ = with_eos(-1)
+    first = np.asarray(generate(endless, params, jnp.asarray(ids), jnp.asarray(mask),
+                                max_new_tokens=10))
+    eos = int(first[0, 3])
+    jmodel, model.config = with_eos(eos)
+    want = np.asarray(generate(jmodel, params, jnp.asarray(ids), jnp.asarray(mask),
+                               max_new_tokens=10))
+    got = t_gen.generate(model.eval(), ids, mask, max_new_tokens=10)
+    np.testing.assert_array_equal(got.numpy(), want)
+    stop = first[0].tolist().index(eos)
+    assert got.dtype == torch.int32 and got[0, stop] == eos
+    assert (got[0, stop + 1:] == model.config.pad_token_id).all()
+    if variant == "mbart":
+        assert (got[:, 0] == 7).all()
+    cfg = model.config
+    dec = torch.cat([torch.full((4, 1), cfg.decoder_start_token_id), got[:, :-1].long()], 1)
+    with torch.no_grad():
+        tf = model(torch.from_numpy(ids), torch.from_numpy(mask), dec).argmax(-1)
+    for r in range(4):
+        row = got[r].tolist()
+        stop = row.index(eos) + 1 if eos in row else len(row)
+        start = 1 if variant == "mbart" else 0
+        assert tf[r, start:stop].tolist() == row[start:stop], r
+
+
+def test_sampling_and_other_decoders_raise_naming_item_8(tmp_path):
+    _, _, model = _pair(tmp_path, "t5")
+    ids, mask, _, _ = _inputs()
+    for kw in ({"temperature": 0.7}, {"top_k": 5}, {"top_p": 0.9}):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            t_gen.generate(model, ids, mask, max_new_tokens=2, **kw)
+    for fn in (t_gen.beam_search_generate, t_gen.generate_speculative_seq2seq):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            fn(model, ids)
+
+
+# -- the losses and the trainer ------------------------------------------------------
+
+def _seq2seq_ds(n=48, seed=0, start=0, pad=0, eos=1):
+    docs, sums = t_src.synthetic_summarization(n, seed=seed)
+    return t_pipe.ArrayDataset.from_seq2seq(
+        t_tok.WordHashTokenizer(VOCAB), docs, sums, max_source_length=SEQ,
+        max_target_length=TGT, decoder_start_token_id=start, pad_token_id=pad,
+        eos_token_id=eos)
+
+
+def _ids(variant):
+    return {} if variant.startswith("t5") else dict(start=2, pad=1, eos=2)
+
+
+@pytest.mark.parametrize("variant", ["t5", "t5_v11", "bart"])
+def test_smoothed_loss_matches_jax_at_train_and_eval(tmp_path, variant):
+    """``seq2seq_loss`` with ε 0.1: the JAX sums at train time (smoothed)
+    and at eval time (plain CE) within 1e-5, the counts exact; a
+    ``valid`` row mask drops a row."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train.trainer import seq2seq_loss
+
+    jmodel, params, model = _pair(tmp_path, variant, seed=4)
+    batch = _seq2seq_ds(8, seed=1, **_ids(variant))[np.arange(8)]
+    batch["valid"] = np.array([1] * 7 + [0], np.int32)
+    sums = {}
+    for train in (True, False):
+        _, want = seq2seq_loss(jmodel.apply, params, _jax_batch(batch), None, train,
+                               epsilon=0.1)
+        model.train(train)
+        with torch.no_grad():
+            _, got = t_trainer.seq2seq_loss(model, _to_torch(batch), epsilon=0.1)
+        np.testing.assert_allclose(float(got["loss_sum"]), float(want["loss_sum"]),
+                                   rtol=1e-5)
+        assert float(got["count"]) == float(want["count"]) == \
+            (batch["labels"][:7] != -100).sum()
+        assert float(got["correct"]) == float(want["correct"])
+        sums[train] = float(got["loss_sum"])
+    assert sums[True] != sums[False]
+
+
+FIT_CASES = [("t5", False, 0.0, "adamw"), ("t5", False, 0.0, "adafactor"),
+             ("t5", False, 0.1, "adafactor"), ("t5", True, 0.1, "adafactor"),
+             ("bart", True, 0.1, "adamw"), ("t5_v11", True, 0.1, "adafactor")]
+
+
+@pytest.mark.parametrize("variant,fused,eps,optimizer", FIT_CASES,
+                         ids=["t5-adamw", "t5-adafactor", "t5-smooth-adafactor",
+                              "t5-fused-smooth-adafactor", "bart-fused-smooth-adamw",
+                              "t5v11-fused-smooth-adafactor"])
+def test_five_fp32_steps_match_jax_trainer(tmp_path, variant, fused, eps, optimizer):
+    """Same weights, same batches, clipping at 1.0, AdamW with decay or
+    Adafactor (T5's own optimizer): the port's loss curve is the JAX
+    Trainer's within 1e-5; the fused ones against the JAX fused seq2seq
+    loss with its Pallas kernels in interpret mode (hidden 128: the
+    kernel's tiles), and within 1e-5 of the port's own unfused curve.
+    T5's smoothed runs are held under Adafactor: Adam turns the rounding
+    of T5's near-zero gradient entries into whole-step updates (ROADMAP
+    queue 3, known traps; its weights drift 1e-4 apart in 5 steps with or
+    without smoothing, against 5e-8 under Adafactor)."""
+    import jax
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train import Trainer as JaxTrainer
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train.trainer import (
+        make_fused_seq2seq_loss,
+    )
+
+    kw = dict(task="seq2seq", fused_vocab_ce=fused, epochs=1, dtype="float32",
+              learning_rate=1e-3, scale_lr_by_world_size=False, max_grad_norm=1.0,
+              log_every_steps=0, label_smoothing=eps, optimizer=optimizer,
+              weight_decay=0.01 if optimizer == "adamw" else 0.0)
+    jmodel, params, model = _pair(tmp_path, variant, seed=5, d=128)
+    ds = _seq2seq_ds(48, seed=5, **_ids(variant))
+    batches = list(t_pipe.ShardedBatcher(ds, 8, seed=0, native=False).local_batches(0))[:5]
+    mesh = build_mesh(MeshConfig(), devices=jax.devices()[:1])
+    jtrainer = JaxTrainer(TrainConfig(**kw), jmodel, params, mesh, total_steps=5)
+    if fused:
+        jtrainer.loss_fn = make_fused_seq2seq_loss(jmodel, interpret=True,
+                                                   label_smoothing=eps)
+    trainer = t_trainer.Trainer(t_config.TrainConfig(**kw), model, total_steps=5)
+    plain = None
+    if fused:
+        _, _, twin = _pair(tmp_path, variant, seed=5, d=128)
+        plain = t_trainer.Trainer(t_config.TrainConfig(**dict(kw, fused_vocab_ce=False)),
+                                  twin, total_steps=5)
+    want, got, unfused = [], [], []
+    for b in batches:
+        jtrainer.state, m = jtrainer._train_step(jtrainer.state, _jax_batch(b))
+        want.append(float(jax.device_get(m["loss"])))
+        got.append(trainer.train_step(_to_torch(b))["loss"].item())
+        if plain is not None:
+            unfused.append(plain.train_step(_to_torch(b))["loss"].item())
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    if plain is not None:
+        np.testing.assert_allclose(got, unfused, rtol=1e-5)
+    assert trainer.updates == 5 and len(set(np.round(want, 6))) == 5
+
+
+def test_trainer_raises_the_jax_error_for_a_task_without_a_loss():
+    with pytest.raises(ValueError, match="no loss for task 'mystery'"):
+        t_trainer.Trainer(t_config.TrainConfig(), torch.nn.Linear(2, 2), task="mystery")
+    with pytest.raises(ValueError, match="seq2seq_hidden_and_embedding"):
+        t_trainer.Trainer(t_config.TrainConfig(task="seq2seq", fused_vocab_ce=True),
+                          torch.nn.Linear(2, 2))
+
+
+def test_resumed_t5_adafactor_fit_equals_the_uninterrupted_fit(tmp_path):
+    """Two epochs of T5 under Adafactor, label smoothing, dropout on,
+    through the prefetch thread: stopped in epoch 1 after step 3 (last
+    save at its step 2), restored and finished, the losses and weights
+    (Adafactor's factored moments carried by the checkpoint) equal the
+    uninterrupted fit's bit for bit."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.t5 import (
+        T5ForConditionalGeneration,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+
+    class Stop(Exception):
+        pass
+
+    ds = _seq2seq_ds(48, seed=6)
+    t5_cfg = t_auto.CONFIG_BUILDERS["t5"](dict(_hf("t5", d=128), dropout_rate=0.1))
+    torch.manual_seed(3)
+    initial = T5ForConditionalGeneration(t5_cfg).state_dict()
+    cfg = t_config.TrainConfig(task="seq2seq", optimizer="adafactor", weight_decay=0.0,
+                               label_smoothing=0.1, epochs=2, dtype="float32",
+                               learning_rate=1e-3, scale_lr_by_world_size=False,
+                               log_every_steps=0, checkpoint_every_steps=3)
+
+    def fit(ckpt_dir, stop_after=None, restore=False):
+        model = T5ForConditionalGeneration(t5_cfg)
+        model.load_state_dict(initial)
+        torch.manual_seed(7)
+        trainer = t_trainer.Trainer(cfg, model, total_steps=12)
+        losses = []
+        step = trainer.train_step
+
+        def run(batch):
+            if stop_after is not None and len(losses) == stop_after:
+                raise Stop
+            out = step(batch)
+            losses.append(out["loss"].item())
+            return out
+
+        trainer.train_step = run
+        ckpt = Checkpointer(str(ckpt_dir))
+        kw = {}
+        if restore:
+            state, epoch, step_in_epoch = ckpt.restore()
+            trainer.load_state_dict(state)
+            kw = dict(start_epoch=epoch, start_step_in_epoch=step_in_epoch)
+            assert (epoch, step_in_epoch) == (1, 3)
+            assert any("v_row" in s for s in trainer.optimizer.state.values())
+        try:
+            trainer.fit(t_pipe.ShardedBatcher(ds, 8, seed=2), checkpointer=ckpt, **kw)
+        finally:
+            ckpt.close()
+        return losses, trainer.model.state_dict()
+
+    full, weights = fit(tmp_path / "full")
+    assert len(full) == 12
+    with pytest.raises(Stop):
+        fit(tmp_path / "cut", stop_after=10)
+    resumed, resumed_weights = fit(tmp_path / "cut", restore=True)
+    assert resumed == full[9:]
+    for key in weights:
+        assert torch.equal(resumed_weights[key], weights[key]), key
+
+
+# -- exports and the CLI ---------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_hf_exports_read_across_both_packages(tmp_path, variant):
+    """The port's export holds the JAX ``params_to_hf`` keys (T5's
+    relative bias on block 0 only, no tied head, no
+    ``final_logits_bias``) and the JAX ``from_pretrained`` reads it to the
+    same params; the JAX export reads into the port to the same logits,
+    and so does an HF checkpoint that keeps only ``encoder.embed_tokens``
+    and carries BART's ``final_logits_bias`` and tied ``lm_head``."""
+    import jax.numpy as jnp
+    from flax.traverse_util import flatten_dict
+    from safetensors.numpy import load_file, save_file
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models.convert import (
+        params_to_hf,
+    )
+
+    family = FAMILY[variant]
+    jmodel, params, model = _pair(tmp_path, variant, seed=3)
+    cfg = t_auto.CONFIG_BUILDERS[family](_hf(variant))
+    out = tmp_path / "port_export"
+    t_auto.save_pretrained(str(out), model, family, cfg)
+    written = load_file(str(out / "model.safetensors"))
+    assert sorted(written) == sorted(params_to_hf(params, family))
+    assert sum("relative_attention_bias" in k for k in written) == (2 if family == "t5" else 0)
+    assert ("lm_head.weight" in written) == (variant == "t5_v11")
+    jm, jp, fam, _ = j_auto.from_pretrained(str(out), task="seq2seq")
+    assert fam == family
+    flat = flatten_dict(jp, sep="/")
+    for key, value in flatten_dict(params, sep="/").items():
+        np.testing.assert_array_equal(np.asarray(flat[key]), np.asarray(value), key)
+    ids, mask, dec, dmask = _inputs(seed=4)
+    want = np.asarray(jmodel.apply({"params": params}, *map(jnp.asarray, (ids, mask, dec, dmask))))
+    jout = tmp_path / "jax_export"
+    j_auto.save_pretrained(str(jout), params, family, j_auto.CONFIG_BUILDERS[family](
+        _hf(variant)))
+    hf = dict(load_file(str(jout / "model.safetensors")))
+    shared = "shared.weight" if family == "t5" else "model.shared.weight"
+    alias = "encoder.embed_tokens.weight" if family == "t5" else \
+        "model.encoder.embed_tokens.weight"
+    hf[alias] = hf.pop(shared)
+    if family != "t5":
+        hf["final_logits_bias"] = np.zeros((1, VOCAB), np.float32)
+        hf["lm_head.weight"] = hf[alias]
+    save_file(hf, str(jout / "model.safetensors"))
+    reloaded, _, _ = t_auto.from_pretrained(str(jout), task="seq2seq", device="cpu")
+    with torch.no_grad():
+        got = reloaded.eval()(*[torch.from_numpy(a) for a in (ids, mask, dec, dmask)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def test_encoder_decoder_families_take_only_seq2seq(tmp_path):
+    path = _model_dir(tmp_path / "t5", "t5")
+    with pytest.raises(ValueError, match="only supports task='seq2seq'"):
+        t_auto.from_pretrained(path, task="seq-cls", device="cpu")
+    with pytest.raises(ValueError, match="no model for family='bert' task='seq2seq'"):
+        t_auto.build_model("bert", "seq2seq", None)
+
+
+@pytest.mark.parametrize("family", ["t5", "bart", "mbart"])
+def test_config_builders_match_jax(family):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
+
+    hf = _hf("mbart" if family == "mbart" else family)
+    want = j_auto.CONFIG_BUILDERS[family](hf, remat=True)
+    got = t_auto.CONFIG_BUILDERS[family](hf, remat=True)
+    fields = [f.name for f in dataclasses.fields(want)]
+    assert [f.name for f in dataclasses.fields(got)] == fields
+    for name in fields:
+        if name not in ("dtype", "param_dtype"):
+            assert getattr(got, name) == getattr(want, name), name
+    assert t_auto.HF_CONFIG_EXPORTERS[family](got) == j_auto._HF_CONFIG_EXPORTERS[family](want)
+
+
+def _cli_args(model_dir, extra=()):
+    return ["--model_name_or_path", model_dir, "--from_scratch", "true", "--task", "seq2seq",
+            "--dataset", "synthetic", "--max_train_samples", "16", "--max_eval_samples", "8",
+            "--epochs", "1", "--train_batch_size", "4", "--eval_batch_size", "4",
+            "--dtype", "float32", "--log_every_steps", "0", "--max_seq_length", "48",
+            "--max_target_length", "8", "--eval_rouge_samples", "4", *extra]
+
+
+CLI_CASES = [("t5", ["--fused_vocab_ce", "true", "--optimizer", "adafactor",
+                     "--weight_decay", "0", "--label_smoothing", "0.1"]),
+             ("bart", ["--fused_vocab_ce", "true", "--label_smoothing", "0.1"])]
+
+
+@pytest.mark.parametrize("variant,extra", CLI_CASES, ids=["t5-fused-adafactor", "bart-fused"])
+def test_cli_on_cpu_writes_the_jax_cli_files(tmp_path, variant, extra):
+    """``--task seq2seq`` through the CLI: the JAX CLI's results keys
+    (ROUGE-L included) and export files, run beside the JAX CLI on the
+    same argv; finite results; an export both packages read."""
+    from scripts.train import main as jax_main
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
+
+    model_dir = _model_dir(tmp_path / "cfg", variant)
+    out, mdir = tmp_path / "port" / "out", tmp_path / "port" / "model"
+    res = cli.main(_cli_args(model_dir, extra)
+                   + ["--device", "cpu", "--output_data_dir", str(out), "--model_dir", str(mdir)])
+    got = {f: list(read_results_file(str(out / f)))
+           for f in ("train_results.txt", "eval_results.txt")}
+    assert got["eval_results.txt"] == ["eval_loss", "eval_accuracy", "rougeL_precision",
+                                       "rougeL_recall", "rougeL_f1"]
+    assert all(math.isfinite(v) for v in res["eval"].values())
+    assert all(math.isfinite(v) for v in res["train"]["loss"])
+    jm, jp, fam, _ = j_auto.from_pretrained(str(mdir), task="seq2seq")
+    reloaded, _, _ = t_auto.from_pretrained(str(mdir), task="seq2seq", device="cpu")
+    assert fam == variant
+    from safetensors.numpy import load_file
+
+    assert sorted(seq2seq_to_hf(reloaded.state_dict(), variant)) == \
+        sorted(load_file(str(mdir / "model.safetensors")))
+    jout, jmdir = tmp_path / "jax" / "out", tmp_path / "jax" / "model"
+    jax_main(_cli_args(model_dir, extra)
+             + ["--output_data_dir", str(jout), "--model_dir", str(jmdir)])
+    for fname, keys in got.items():
+        assert keys == list(read_results_file(str(jout / fname))), fname
+    assert sorted(p.name for p in mdir.iterdir()) == sorted(p.name for p in jmdir.iterdir())
+    assert json.loads((mdir / "config.json").read_text()) == \
+        json.loads((jmdir / "config.json").read_text())
+
+
+@pytest.mark.parametrize("extra", [["--span_corruption", "true"], ["--streaming", "true"]],
+                         ids=["span_corruption", "streaming"])
+def test_cli_span_corruption_and_streaming(tmp_path, extra, capsys):
+    """Span corruption raises the target length to 0.2·S + 4 and logs it;
+    streaming seq2seq writes its synthetic corpus once and trains; both
+    give finite losses."""
+    model_dir = _model_dir(tmp_path / "cfg", "t5")
+    args = _cli_args(model_dir, extra + ["--eval_rouge_samples", "0", "--do_eval", "false"])
+    res = cli.main(args + ["--device", "cpu", "--output_data_dir", str(tmp_path / "out"),
+                           "--model_dir", str(tmp_path / "model")])
+    assert all(math.isfinite(v) for v in res["train"]["loss"])
+    logged = "".join(capsys.readouterr())
+    assert ("raising max_target_length 8 → 13" in logged) == (extra[0] == "--span_corruption")

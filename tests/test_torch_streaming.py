@@ -183,8 +183,10 @@ def test_unported_tasks_and_bad_rows_raise(tmp_path, corpus):
     path, texts, _ = corpus
     corpus_ = t_stream.LineCorpus(path)
     tok = t_tok.WordHashTokenizer(512)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_stream.StreamingTextDataset(corpus_, tok, task="seq2seq")
+    txt = tmp_path / "lines.txt"
+    txt.write_text("\n".join(texts[:4]) + "\n", encoding="utf-8")
+    with pytest.raises(ValueError, match="jsonl"):
+        t_stream.StreamingTextDataset(t_stream.LineCorpus(str(txt)), tok, task="seq2seq")
     with pytest.raises(ValueError, match="supports"):
         t_stream.StreamingTextDataset(corpus_, tok, task="qa")
     with pytest.raises(ValueError, match="num_labels"):

@@ -620,3 +620,41 @@ def test_mlm_shapes_match_reference_on_card(cuda_device, case):
         got, want = got.float().cpu(), want.float().cpu()
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= t * max(1.0, want.abs().max().item())
+
+
+# the fused seq2seq loss's shapes: B·T rows (batch 8 x target 64, eval
+# batch 4 x 64), T5-small's vocab and d_model, BART-base's; label
+# smoothing 0.1 on the training steps' kernels
+SEQ2SEQ_CASES = [(512, 32128, 512, 0.1), (256, 32128, 512, 0.0),
+                 (512, 50265, 768, 0.1), (256, 50265, 768, 0.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SEQ2SEQ_CASES, ids=lambda c: f"N{c[0]}-V{c[1]}-eps{c[3]}")
+def test_seq2seq_shapes_match_reference_on_card(cuda_device, case):
+    """K2 at the fused seq2seq loss's shapes, bf16 hidden and fp32 W (the
+    tensor-core kernels, smoothing on the training shapes; a tenth of the
+    rows are padding with label 0 and g 0, as the loss masks them): each
+    kernel against its plain version at the file's limits (loss and LSE
+    1e-4, dH and dW 2e-2 relative to max(1, max|want|))."""
+    n_tok, vocab, h_dim, eps = case
+    hidden, weight, labels = _inputs(n_tok, vocab, seed=13, h_dim=h_dim)
+    labels[::10] = 0
+    h = torch.from_numpy(hidden).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(weight).to(cuda_device)
+    lab = torch.from_numpy(labels).to(cuda_device)
+    g = torch.ones(n_tok)
+    g[::10] = 0.0
+    g = g.to(cuda_device)
+    loss, lse, _ = vc.fused_ce_fwd(h, w, lab, eps)
+    rloss, rlse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    dh = vc.fused_ce_bwd_dh(h, w, lab, rlse, g, eps)
+    dw = vc.fused_ce_bwd_dw(h, w, lab, rlse, g, eps)
+    rdh = vc.fused_ce_bwd_dh_reference(h, w, lab, rlse, g, eps)
+    rdw = vc.fused_ce_bwd_dw_reference(h, w, lab, rlse, g, eps)
+    torch.cuda.synchronize()
+    for got, want, t in ((loss, rloss, 1e-4), (lse, rlse, 1e-4), (dh, rdh, 2e-2),
+                         (dw, rdw, 2e-2)):
+        got, want = got.float().cpu(), want.float().cpu()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= t * max(1.0, want.abs().max().item())
