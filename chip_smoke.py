@@ -229,6 +229,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -1295,6 +1296,18 @@ BART_BASE = {"model_type": "bart", "architectures": ["BartForConditionalGenerati
              "max_position_embeddings": 1024, "init_std": 0.02, "scale_embedding": False,
              "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
              "decoder_start_token_id": 2, "forced_bos_token_id": 0}
+# microsoft/deberta-v3-base/config.json widths
+DEBERTA_V3_BASE = {"model_type": "deberta-v2", "architectures": ["DebertaV2ForMaskedLM"],
+                   "vocab_size": 128100, "hidden_size": 768, "num_hidden_layers": 12,
+                   "num_attention_heads": 12, "intermediate_size": 3072,
+                   "max_position_embeddings": 512, "type_vocab_size": 0,
+                   "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+                   "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02,
+                   "layer_norm_eps": 1e-7, "relative_attention": True,
+                   "position_buckets": 256, "max_relative_positions": -1,
+                   "share_att_key": True, "pos_att_type": "p2c|c2p",
+                   "norm_rel_ebd": "layer_norm", "position_biased_input": False,
+                   "pooler_dropout": 0, "pooler_hidden_act": "gelu", "pad_token_id": 0}
 PARITY_DEPTH = 2                # the other families' parity steps: 2 layers (ALBERT: 2 uses)
 S2S_SEQ = 512                   # the seq2seq runs' source length (the CLI's default)
 S2S_TARGET = 64                 # and target length (--max_target_length's default)
@@ -1515,12 +1528,137 @@ def train_parity_phase() -> dict:
                  "unfused logits)")
         pair = _parity_rows(model, PARITY_DEPTH, steps)
         rows.update({f"{family}-seq2seq/{dt}": row for dt, row in pair.items()})
+    t3 = time.perf_counter()
+    rows.update(_breadth_parity())
     emit({"phase": "train_parity_wall", "encoder_steps_s": t1 - t0,
-          "pretrain_steps_s": t2 - t1, "seq2seq_steps_s": time.perf_counter() - t2})
+          "pretrain_steps_s": t2 - t1, "seq2seq_steps_s": t3 - t2,
+          "lora_packing_deberta_steps_s": time.perf_counter() - t3})
     return rows
 
 
-def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = False) -> dict:
+LORA_RANK = 8
+LORA_ALPHA = 16.0
+
+
+def _lora_step(batch, impl: str, dtype) -> tuple[float, dict]:
+    """One BERT-base seq-cls train step with LoRA r ``LORA_RANK`` on the
+    attention kernels (A from seed 0, B drawn at 0.02 from seed 1 so A's
+    gradient is not 0), the base frozen but the pooler and classifier,
+    dropout 0: the loss and the gradients of the adapters and heads. Fails
+    if a frozen base weight took a gradient."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import lora as lo
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        seq_cls_loss,
+    )
+
+    cfg = auto.CONFIG_BUILDERS["bert"](BERT_BASE, hidden_dropout=0.0, attention_dropout=0.0,
+                                       classifier_dropout=0.0, attention_impl=impl,
+                                       dtype=dtype)
+    model = init_encoder(auto.build_model("bert", "seq-cls", cfg), seed=0,
+                         device=DEVICE).train()
+    lora = lo.init_lora_params(model, LORA_RANK, "attention", seed=0)
+    gen = torch.Generator().manual_seed(1)
+    for ab in lora.values():
+        ab["b"] = (torch.randn(ab["b"].shape, generator=gen) * 0.02).to(DEVICE)
+        for t in ab.values():
+            t.requires_grad_(True)
+    heads = lo.freeze_base(model, lo.HEAD_REGEX_DEFAULT)
+    lo.attach_lora(model, lora, lo.lora_scaling(LORA_RANK, LORA_ALPHA))
+    loss, _ = seq_cls_loss(model, batch)
+    loss.backward()
+    took = [n for n, p in model.named_parameters() if n not in heads and p.grad is not None]
+    check(not took, f"LoRA parity: frozen base weights took gradients: {took[:4]}")
+    grads = {f"{path}/{k}": t.grad.detach().clone() for path, ab in lora.items()
+             for k, t in ab.items()}
+    grads.update({n: model.get_parameter(n).grad.detach().clone() for n in heads})
+    return float(loss.detach()), grads
+
+
+def _packed_lm_batch(n: int, seq: int, device) -> dict:
+    """The training reviews as causal-LM rows packed behind segment ids
+    (``pack_examples(causal=True)``), the first ``n`` packed rows."""
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    # the reviews average 45 tokens: about 11 share a row of 512
+    texts, _ = load_text_classification("vendored_reviews", "train", max_samples=32 * n)
+    ds = ArrayDataset.from_lm_texts(WordHashTokenizer(vocab_size=GPT2_124M["vocab_size"]),
+                                    texts, seq).pack(seq, causal=True)
+    check(len(ds) >= n, f"{len(ds)} packed rows, wanted {n}")
+    return {k: torch.from_numpy(np.asarray(v)).long().to(device)
+            for k, v in ds[np.arange(n)].items()}
+
+
+def _breadth_parity() -> dict:
+    """The train parity phase's LoRA, packing and DeBERTa steps, each fp32
+    and bf16 from the same weights, kernels against the plain path:
+    BERT-base seq-cls with LoRA r 8 on the attention kernels (K1's forward,
+    dQ and dK/dV against the plain attention; the adapters' and heads'
+    gradients, the base frozen); GPT-2 124M on segment-packed rows (the
+    fused causal-LM loss, K2, against the unfused logits; the segment mask
+    sends both to the plain attention, so K1 must not launch); DeBERTa-v3-
+    base widths at ``PARITY_DEPTH``, MLM through the fused loss at V 128100
+    against the unfused logits (no K1)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    batch = _review_batch(8, 512, DEVICE)
+    steps = {(dt, impl): _lora_step(batch, impl, getattr(torch, dt))
+             for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
+    pair = _parity_rows(f"bert-base seq-cls, LoRA r {LORA_RANK} on attention (flash against "
+                        "the plain attention; adapter and head gradients)",
+                        BERT_BASE["num_hidden_layers"], steps, one_dof_apart=True)
+    rows.update({f"bert-lora/{dt}": row for dt, row in pair.items()})
+    for mod_k in _K1:
+        getattr(fa, mod_k).launches = 0
+    for name, make, step in (
+            ("gpt2-segment-packing", lambda: _packed_lm_batch(8, GPT2_SEQ, DEVICE),
+             lambda b, impl, dt: _gpt2_step(b, impl, dt)),
+            ("deberta-mlm", lambda: _pretrain_batch(8, 512, DEVICE,
+                                                    DEBERTA_V3_BASE["vocab_size"], "mlm"),
+             lambda b, impl, dt: _pretrain_step("deberta-v2", DEBERTA_V3_BASE, b, "mlm",
+                                                impl == "flash", dt, PARITY_DEPTH))):
+        batch = make()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        steps = {(dt, impl): step(batch, impl, getattr(torch, dt))
+                 for dt in ("float32", "bfloat16") for impl in ("flash", "xla")}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        if name.startswith("gpt2"):
+            model, layers = ("gpt2 124M widths on segment-packed rows (the fused causal-LM "
+                             "loss against the unfused logits)"), GPT2_124M["n_layer"]
+        else:
+            model, layers = (f"deberta-v3-base widths, depth {PARITY_DEPTH}, mlm (the fused "
+                             "MLM loss at V 128100 against the unfused logits)"), PARITY_DEPTH
+        pair = _parity_rows(model, layers, steps,
+                            exact_zero=("key.bias",) if name.startswith("gpt2") else ())
+        rows.update({f"{name}/{dt}": row for dt, row in pair.items()})
+    k1 = {k: getattr(fa, k).launches for k in _K1}
+    check(not any(k1.values()), f"K1 launched on segment-packed or DeBERTa steps: {k1}")
+    return rows
+
+
+def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = False,
+                 exact_zero: tuple = ("key.bias",)) -> dict:
     """Hold a model's fp32 flash step to its plain step and its bf16 flash
     step to fp32 as close as the plain bf16 step; emit both rows.
 
@@ -1532,7 +1670,12 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
     draws of equal spread exceeds 2 about 30% of the time (RoBERTa's at
     depth 2 read 3.10 on the card while that step's loss was closer to
     fp32 through the kernels than without). The MLM head's bias ``[V]``
-    has many degrees of freedom and keeps its own gate."""
+    has many degrees of freedom and keeps its own gate.
+
+    ``exact_zero`` names (by suffix) the parameters whose exact gradient is
+    0, held apart as described below: the key biases of a softmax over the
+    keys. DeBERTa passes none: its position-to-content term multiplies the
+    key bias by a position query that varies along the keys."""
     import torch
 
     (loss32, g32), (loss_ref, ref) = steps[("float32", "flash")], steps[("float32", "xla")]
@@ -1543,7 +1686,7 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
     # hold rounding noise, which must stay below 1e-5 of the global
     # gradient norm
     total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in ref.values())))
-    key_bias = [n for n in g32 if n.endswith("key.bias")]
+    key_bias = [n for n in g32 if exact_zero and n.endswith(exact_zero)]
     noise = max((float(g[n].norm()) for g in (g32, ref) for n in key_bias),
                 default=0.0) / total
     rel = {n: float((g - ref[n]).norm() / ref[n].norm())
@@ -3218,6 +3361,10 @@ VOCAB_CASES = [
     ("mlm_base_bf16", 1024, 30522, 776, "bfloat16", 0.0, False),
     ("mlm_large_bf16", 1024, 30522, 1032, "bfloat16", 0.0, False),
     ("mlm_eval_bf16", 512, 30522, 776, "bfloat16", 0.0, False),
+    # DeBERTa-v3-base's fused MLM loss (deberta phase): the same K rows at
+    # its vocab of 128100, H 768 + 8 bias lanes
+    ("mlm_deberta_bf16", 1024, 128100, 776, "bfloat16", 0.0, False),
+    ("mlm_deberta_eval_bf16", 512, 128100, 776, "bfloat16", 0.0, False),
     # the fused seq2seq loss's shapes (seq2seq phase): B·T rows of the train
     # batch (8 x 64, smoothing 0.1) and the eval batch (4 x 64, plain CE),
     # span corruption's target of 106 (848 and 424 rows); T5-small's vocab
@@ -3231,6 +3378,7 @@ VOCAB_CASES = [
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
+VOCAB_DEBERTA = ("mlm_deberta_bf16", "mlm_deberta_eval_bf16")
 VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
                  "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
@@ -3434,7 +3582,9 @@ def _vocab_case(case, gen, dev) -> dict:
                "bound_peak_flops_per_s": peak,
                "bound_fp32_ms": max(t_bytes, CE_FP32_PASSES[kname] * 2 * N * V * H
                                     / FP32_FLOPS_PER_S * 1e3),
-               "bytes": nbytes, "flops": flops}
+               "bytes": nbytes, "flops": flops,
+               # the launch configuration's vocab splits at this N and V
+               "fwd_splits": vc.fwd_splits(N, V), "dh_splits": vc.dh_splits(N, V)}
         emit(row)
         results[(name, kname)] = row
     del sets, fwd_sets, bwd_sets, lib_bwd_sets
@@ -3685,6 +3835,722 @@ def gpt2_cli_phase(work: Path) -> dict:
     return row
 
 
+# -- packing, LoRA, DeBERTa ----------------------------------------------------
+
+class _Recorder:
+    """Wraps ``Trainer.train_step`` while active: each step's loss, the
+    real and padded tokens of its batch, the fused MLM loss's own
+    ``ce_dropped``; with ``stop_after`` it raises :class:`_Interrupt` before
+    that many steps have run."""
+
+    def __init__(self):
+        self.losses, self.real, self.padded, self.ce_dropped = [], [], [], []
+        self.stop_after = None
+
+    def reset(self, stop_after=None):
+        self.__init__()
+        self.stop_after = stop_after
+
+    def __enter__(self):
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+            Trainer,
+        )
+
+        rec, orig = self, Trainer.train_step
+        self._orig = orig
+
+        def train_step(trainer, batch):
+            if rec.stop_after is not None and len(rec.losses) == rec.stop_after:
+                raise _Interrupt
+            loss_fn = trainer.loss_fn
+
+            def recorded(model, batch_):
+                loss, sums = loss_fn(model, batch_)
+                if "ce_dropped" in sums:
+                    rec.ce_dropped.append(sums["ce_dropped"].detach())
+                return loss, sums
+
+            trainer.loss_fn = recorded
+            try:
+                out = orig(trainer, batch)
+            finally:
+                trainer.loss_fn = loss_fn
+            rec.losses.append(out["loss"])
+            rec.real.append(batch["attention_mask"].sum())
+            rec.padded.append(batch["attention_mask"].numel())
+            return out
+
+        Trainer.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+            Trainer,
+        )
+
+        Trainer.train_step = self._orig
+        return False
+
+
+def _counted_run(argv: list) -> tuple:
+    """The training CLI on ``argv`` with every K1 and K2 counter set to 0
+    just before: ``(results, trainer, launches, wall seconds)``."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+    counters = [(fa, k) for k in _K1] + [(vc, k) for k in _K2]
+    for mod, k in counters:
+        getattr(mod, k).launches = 0
+    t0 = time.perf_counter()
+    results, trainer = cli.run(argv)
+    _sync()
+    return (results, trainer, {k: getattr(mod, k).launches for mod, k in counters},
+            time.perf_counter() - t0)
+
+
+def _slice_argv(cfg_dir: Path, run_dir: Path, task: str, steps: int, eval_samples: int,
+                extra: list) -> list:
+    """The CLI at its defaults (bf16, sequence 512, batch 8, eval batch 4,
+    AdamW) on the vendored reviews from a seeded config; ``eval_samples``
+    0 skips the eval."""
+    argv = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true", "--task", task,
+            "--dataset", "vendored_reviews", "--epochs", "1",
+            "--steps_per_epoch", str(steps), "--output_data_dir", str(run_dir / "out"),
+            "--model_dir", str(run_dir / "model"), "--log_every_steps", "10",
+            "--device", DEVICE]
+    argv += (["--max_eval_samples", str(eval_samples)] if eval_samples
+             else ["--do_eval", "false"])
+    return argv + extra
+
+
+def _config_dir(run_dir: Path, hf: dict) -> Path:
+    cfg_dir = run_dir / "config"
+    cfg_dir.mkdir(parents=True, exist_ok=True)
+    (cfg_dir / "config.json").write_text(json.dumps(hf))
+    return cfg_dir
+
+
+def _first_rows(trainer, split: str, n: int, max_samples: int) -> dict:
+    """The first ``n`` rows of the run's own ``split`` dataset (built by the
+    CLI's ``build_dataset`` from ``max_samples`` examples) on the card."""
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+
+    tc, cfg = trainer.config, trainer.model.config
+    seq = min(tc.max_seq_length, cfg.max_position_embeddings)
+    ds = cli.build_dataset(tc, load_tokenizer(tc.model_name_or_path, vocab_size=cfg.vocab_size),
+                           split, seq, max_samples, cfg)
+    check(len(ds) >= n, f"{len(ds)} {split} rows, wanted {n}")
+    return {k: torch.as_tensor(np.asarray(v), dtype=torch.long, device=DEVICE)
+            for k, v in ds[np.arange(n)].items()}, len(ds)
+
+
+def _eval_steps(trainer, eval_samples: int) -> int:
+    """The eval steps a run took: its eval set (packed rows, where it
+    packs) over the eval batch of 4."""
+    if not eval_samples:
+        return 0
+    _, n = _first_rows(trainer, "test", 1, eval_samples)
+    return math.ceil(n / trainer.config.eval_batch_size)
+
+
+def _peak_env(peak):
+    """``HSTD_PEAK_TFLOPS`` set to the card's peak while a phase runs, so
+    the CLI's history carries ``train_mfu``; returns the restore."""
+    import os
+
+    saved = os.environ.get("HSTD_PEAK_TFLOPS")
+    if peak:
+        os.environ["HSTD_PEAK_TFLOPS"] = str(peak)
+
+    def restore():
+        if saved is None:
+            os.environ.pop("HSTD_PEAK_TFLOPS", None)
+        else:
+            os.environ["HSTD_PEAK_TFLOPS"] = saved
+    return restore
+
+
+def _profiled(trainer, batch, steps: int, peak, task: str) -> dict:
+    """``steps`` more train steps on ``batch`` (:func:`_steps_profile`):
+    busy, idle, MFU over the batch's real tokens, and the K1 and K2
+    kernels' device ms per step."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        bias_fold_width,
+    )
+
+    cfg = trainer.model.config
+    fpt = flops.train_flops_per_token(cfg, task, batch["input_ids"].shape[1])
+    prof = _steps_profile(trainer, batch, steps, fpt * int(batch["attention_mask"].sum()),
+                          peak)
+    width = (bias_fold_width(getattr(cfg, "embedding_size", None) or cfg.hidden_size)
+             if task == "mlm" else cfg.hidden_size)
+    prof["k1_ms_per_step"] = _kernel_ms_per_step(
+        prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")] for k in _K1})
+    prof["k2_ms_per_step"] = _kernel_ms_per_step(
+        prof, {k: vocab_kernel_names(k, "bfloat16", width)[0] for k in _K2})
+    prof.pop("by_kernel_s")
+    return prof
+
+
+PACK_STEPS = 20
+PACK_EVAL_SAMPLES = 64          # 16 eval steps unpacked at the eval batch of 4
+PACK_PROFILED_STEPS = 6
+PACK_EXACT_EXAMPLES = 16
+PACK_EXACT_RTOL = 1e-5
+
+
+def _packing_runs() -> list:
+    """(name, published config, task, CLI arguments) of the packing phase's
+    runs, each ``PACK_STEPS`` steps at the CLI's defaults."""
+    fused = ["--fused_vocab_ce", "true"]
+    return [("gpt2_unpacked", GPT2_124M, "causal-lm", fused),
+            ("gpt2_segment", GPT2_124M, "causal-lm", fused + ["--segment_packing", "true"]),
+            ("gpt2_packed", GPT2_124M, "causal-lm", fused + ["--packed_sequences", "true"]),
+            ("bert_mlm_segment", BERT_BASE, "mlm",
+             fused + ["--segment_packing", "true", "--mlm_static_masking", "true"])]
+
+
+def _packing_exactness() -> dict:
+    """(d) ``PACK_EXACT_EXAMPLES`` test reviews packed and one per row, fp32
+    (TF32 off, dropout 0), through K2: the fused causal-LM loss of GPT-2
+    124M and the fused MLM loss of BERT-base (static masks), each packed
+    loss sum within ``PACK_EXACT_RTOL`` of the unpacked one and the counts
+    equal (the JAX ``test_packed_{causal_lm,mlm}_loss_matches_unpacked``)."""
+    import numpy as np
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+        pack_examples,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+        init_gpt2,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
+        gpt2_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import trainer as tr
+
+    texts, _ = load_text_classification("vendored_reviews", "test",
+                                        max_samples=PACK_EXACT_EXAMPLES)
+
+    def on_card(cols):
+        return {k: torch.from_numpy(np.asarray(v)).long().to(DEVICE) for k, v in cols.items()}
+
+    rows = {}
+    for name, hf in (("causal-lm", GPT2_124M), ("mlm", BERT_BASE)):
+        if name == "causal-lm":
+            cfg = gpt2_config_from_hf(hf, hidden_dropout=0.0, embd_dropout=0.0,
+                                      attention_dropout=0.0, attention_impl="flash")
+            model = init_gpt2(cfg, seed=0, device=DEVICE)
+            cols = ArrayDataset.from_lm_texts(WordHashTokenizer(hf["vocab_size"]), texts,
+                                              GPT2_SEQ).columns
+            packed = pack_examples(cols, GPT2_SEQ, causal=True)
+            loss_fn = tr.make_fused_causal_lm_loss(model)
+        else:
+            cfg = auto.CONFIG_BUILDERS["bert"](hf, hidden_dropout=0.0, attention_dropout=0.0,
+                                               attention_impl="flash", use_pooler=False)
+            model = init_encoder(auto.build_model("bert", "mlm", cfg), seed=0, device=DEVICE)
+            seq = min(512, hf["max_position_embeddings"])
+            cols = dict(ArrayDataset.from_mlm_texts(WordHashTokenizer(hf["vocab_size"]), texts,
+                                                    seq, seed=0, static_masking=True).columns)
+            packed = pack_examples(cols, seq)
+            loss_fn = tr.make_fused_mlm_loss(0.25)
+        for k in _K2:
+            getattr(vc, k).launches = 0
+        with torch.no_grad():
+            _, unpacked_sums = loss_fn(model.eval(), on_card(cols))
+            _, packed_sums = loss_fn(model, on_card(packed))
+        sums = {k: (float(unpacked_sums[k]), float(packed_sums[k])) for k in unpacked_sums}
+        rel = abs(sums["loss_sum"][1] - sums["loss_sum"][0]) / abs(sums["loss_sum"][0])
+        row = {"phase": "packing_exactness", "loss": name, "examples": PACK_EXACT_EXAMPLES,
+               "rows_unpacked": int(cols["input_ids"].shape[0]),
+               "rows_packed": int(packed["input_ids"].shape[0]), "dtype": "float32",
+               "sums_unpacked_packed": sums, "loss_sum_rel_err": rel,
+               "loss_sum_rtol": PACK_EXACT_RTOL,
+               "fused_ce_fwd_launches": vc.fused_ce_fwd.launches}
+        emit(row)
+        check(rel <= PACK_EXACT_RTOL and sums["count"][0] == sums["count"][1],
+              f"packed {name} loss sums differ from unpacked: {sums}")
+        check(vc.fused_ce_fwd.launches == 2,
+              f"packed {name}: {vc.fused_ce_fwd.launches} fused_ce_fwd launches, wanted 2")
+        if name == "mlm":
+            check(sums["ce_dropped"] == (0.0, 0.0), f"packed MLM dropped rows: {sums}")
+        rows[name] = row
+        del model
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def packing_phase(work: Path, card: str) -> dict:
+    """(h) token packing through the training CLI on the vendored reviews at
+    sequence 512, batch 8, ``PACK_STEPS`` steps and ``PACK_EVAL_SAMPLES``
+    eval examples each: GPT-2 124M ``--task causal-lm --fused_vocab_ce
+    true`` unpacked, with ``--segment_packing true`` (the segment mask sends
+    every step to the plain attention: no K1 launch) and with
+    ``--packed_sequences true`` (all-ones rows: K1 on the eval steps), and
+    BERT-base ``--task mlm --segment_packing true --mlm_static_masking true
+    --fused_vocab_ce true`` (no K1; ``ce_dropped`` printed); K2's counts
+    equal the steps. Each row prints real over padded tokens, samples/s and
+    real tokens/s per GPU, MFU, and from ``PACK_PROFILED_STEPS`` more steps
+    busy, idle and the K1/K2 device ms. Then (d), the exactness gate
+    (:func:`_packing_exactness`). Returns the rows by run."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+    phase_t0 = time.perf_counter()
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    restore = _peak_env(peak)
+    rows = {}
+    rec = _Recorder()
+    try:
+        with rec:
+            for name, hf, task, extra in _packing_runs():
+                t0 = time.perf_counter()
+                run_dir = work / name
+                argv = _slice_argv(_config_dir(run_dir, hf), run_dir, task, PACK_STEPS,
+                                   PACK_EVAL_SAMPLES, extra)
+                rec.reset()
+                results, trainer, launches, wall = _counted_run(argv)
+                tc, cfg = trainer.config, trainer.model.config
+                steps, L = trainer.step, cfg.num_layers
+                eval_steps = _eval_steps(trainer, PACK_EVAL_SAMPLES)
+                losses = [float(x) for x in rec.losses]
+                check(steps == PACK_STEPS and all(math.isfinite(x) for x in losses),
+                      f"{name}: {steps} steps, losses {losses[:3]}")
+                segment = tc.segment_packing
+                k1_fwd = 0 if segment else L * eval_steps
+                want = {"flash_fwd": k1_fwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                        "fused_ce_fwd": steps + eval_steps, "fused_ce_bwd_dh": steps,
+                        "fused_ce_bwd_dw": steps}
+                if task == "mlm":       # the encoder's train steps take K1 unless packed
+                    want["flash_fwd"] = 0 if segment else L * (steps + eval_steps)
+                check(launches == want, f"{name}: launches {launches}, wanted {want}")
+                real = sum(int(x) for x in rec.real)
+                padded = sum(rec.padded)
+                hist = results["train"]
+                sps = hist["train_samples_per_second_per_chip"]
+                row = {"phase": "packing", "run": name, "card": card, "task": task,
+                       "segment_packing": bool(segment),
+                       "packed_sequences": bool(tc.packed_sequences),
+                       "layers": L, "seq": tc.max_seq_length, "batch": tc.train_batch_size,
+                       "dtype": "bfloat16", "train_steps": steps, "eval_steps": eval_steps,
+                       "launches": launches, "first_loss": losses[0], "loss": losses[-1],
+                       "eval": results.get("eval", {}),
+                       "real_over_padded_tokens": real / padded,
+                       "real_tokens_per_row": real / len(rec.padded),
+                       "train_samples_per_second_per_chip": sps,
+                       "real_tokens_per_second_per_gpu": sps * real / len(rec.padded),
+                       "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                       "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall}
+                if task == "mlm":
+                    row["ce_dropped_train"] = sum(float(x) for x in rec.ce_dropped)
+                    check(row["ce_dropped_train"] == 0.0,
+                          f"{name}: ce_dropped {row['ce_dropped_train']}")
+                # 256 reviews fill about 23 packed rows of 512
+                batch, _ = _first_rows(trainer, "train", 8, 256)
+                for k in _K1:
+                    getattr(fa, k).launches = 0
+                row.update(_profiled(trainer, batch, PACK_PROFILED_STEPS, peak, task))
+                if segment:
+                    check(not any(getattr(fa, k).launches for k in _K1),
+                          f"{name}: K1 launched on a profiled packed step")
+                if DEVICE == "cuda":
+                    check(all(v > 0 for v in row["k2_ms_per_step"].values()),
+                          f"{name}: the profile misses a K2 kernel")
+                row["run_wall_s"] = time.perf_counter() - t0
+                rows[name] = row
+                emit(row)
+                del trainer
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        restore()
+    exact = _packing_exactness()
+    un, seg = rows["gpt2_unpacked"], rows["gpt2_segment"]
+    summary = {"phase": "packing_summary", "card": card,
+               "phase_wall_s": time.perf_counter() - phase_t0,
+               "run_wall_s": {n: r["run_wall_s"] for n, r in rows.items()},
+               "real_over_padded": {n: r["real_over_padded_tokens"] for n, r in rows.items()},
+               "real_tokens_per_s_per_gpu": {n: r["real_tokens_per_second_per_gpu"]
+                                             for n, r in rows.items()},
+               "gpt2_segment_over_unpacked_real_tokens_per_s": (
+                   seg["real_tokens_per_second_per_gpu"]
+                   / un["real_tokens_per_second_per_gpu"]),
+               "busy_ms_per_step": {n: r["device_busy_ms_per_step"] for n, r in rows.items()},
+               "exactness_rel_err": {n: r["loss_sum_rel_err"] for n, r in exact.items()}}
+    emit(summary)
+    return rows
+
+
+LORA_STEPS = 30
+LORA_EVAL_SAMPLES = 64          # 16 eval steps at the eval batch of 4
+LORA_FULL_STEPS = 5
+LORA_CKPT_EVERY = 5
+LORA_STOP_AFTER = 8             # the interrupted run stops after step 7
+LORA_GPT2_STEPS = 10
+LORA_GPT2_EVAL_SAMPLES = 16
+LORA_PROFILED_STEPS = 6
+LORA_FULL_PROFILED_STEPS = 3
+
+
+def _opt_bytes(trainer) -> int:
+    return sum(v.numel() * v.element_size() for st in trainer.optimizer.state.values()
+               for v in st.values() if hasattr(v, "numel") and v.dim() > 0)
+
+
+def lora_phase(work: Path, card: str) -> dict:
+    """(i) LoRA through the training CLI: (a) BERT-large
+    (``bert-large-uncased-whole-word-masking`` widths) seq-cls at sequence
+    512, batch 8, ``--lora_rank 8 --lora_alpha 16``, ``LORA_STEPS`` steps and
+    16 eval steps: K1's forward, dQ
+    and dK/dV 24 a train step (forward 24 an eval step), no K2; samples/s,
+    busy, idle, MFU, K1's ms per step, the optimizer state's bytes and the
+    peak allocated memory. Every base tensor is bit-identical to its seeded
+    initial value, only the adapters, classifier and pooler moved, the
+    merged export reloads to the live merged model's logits bit for bit,
+    the adapter sidecar reloads, and a run stopped after step 7 (checkpoints
+    every ``LORA_CKPT_EVERY`` steps, the last at step 5) and resumed equals
+    (a)'s losses bit for bit; (b)
+    the same model fully fine-tuned for ``LORA_FULL_STEPS`` steps: the same
+    memory, step-time and (``LORA_FULL_PROFILED_STEPS`` more steps) busy
+    figures; (c) GPT-2 124M LoRA ``--fused_vocab_ce
+    true``, ``LORA_GPT2_STEPS`` steps and 4 eval steps: K2's forward and dH
+    on every step and no dW (the tied embedding is frozen), K1's forward on
+    the eval steps only. Returns the rows by run."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import lora as lo
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+
+    phase_t0 = time.perf_counter()
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    restore = _peak_env(peak)
+    lora_args = ["--lora_rank", str(LORA_RANK), "--lora_alpha", str(LORA_ALPHA)]
+    rows = {}
+    rec = _Recorder()
+    cfg_dir = _config_dir(work / "bert_large", BERT_LARGE)
+
+    def peak_reset():
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_bytes():
+        return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else "not measured"
+
+    try:
+        with rec:
+            # (a) LoRA BERT-large, the uninterrupted run of the resume check
+            run_dir = work / "bert_large_lora"
+            argv = _slice_argv(cfg_dir, run_dir, "seq-cls", LORA_STEPS, LORA_EVAL_SAMPLES,
+                               lora_args)
+            rec.reset()
+            peak_reset()
+            results, trainer, launches, wall = _counted_run(argv)
+            mem = peak_bytes()
+            full_losses = list(rec.losses)
+            tc, cfg = trainer.config, trainer.model.config
+            L, steps = cfg.num_layers, trainer.step
+            eval_steps = _eval_steps(trainer, LORA_EVAL_SAMPLES)
+            want = {"flash_fwd": L * (steps + eval_steps), "flash_bwd_dq": L * steps,
+                    "flash_bwd_dkv": L * steps, "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0,
+                    "fused_ce_bwd_dw": 0}
+            check(steps == LORA_STEPS and launches == want,
+                  f"lora bert-large: {steps} steps, launches {launches}, wanted {want}")
+            check(all(math.isfinite(float(x)) for x in full_losses), "lora: a non-finite loss")
+            # the frozen base against its seeded initial value
+            init, _, _ = auto.from_pretrained(str(cfg_dir), task="seq-cls", num_labels=2,
+                                              dtype=torch.bfloat16, seed=tc.seed,
+                                              from_scratch=True, device=DEVICE,
+                                              attention_impl="flash")
+            paths = lo.jax_param_paths(trainer.model)
+            head_rx = re.compile(tc.lora_train_heads)
+            live = dict(trainer.model.named_parameters())
+            moved = sorted(n for n, p in init.named_parameters()
+                           if not torch.equal(p, live[n]))
+            check(all(head_rx.search(paths[n]) for n in moved) and moved,
+                  f"lora: base tensors moved: {[n for n in moved if not head_rx.search(paths[n])][:4]}")
+            heads = sorted(n for n, p in live.items() if p.requires_grad)
+            check(all(live[n].grad is None for n in paths if n not in heads),
+                  "lora: a frozen base tensor holds a gradient")
+            check(all(float(ab["b"].detach().abs().max()) > 0 for ab in trainer.lora.values()),
+                  "lora: an adapter's B never moved")
+            del init
+            # the merged export and the sidecar
+            batch, _ = _first_rows(trainer, "test", 4, 16)
+            reloaded, _, _ = auto.from_pretrained(str(run_dir / "model"), task="seq-cls",
+                                                  dtype=torch.bfloat16, device=DEVICE,
+                                                  attention_impl="flash")
+            with torch.no_grad():
+                a_ = trainer.model.eval()(batch["input_ids"], batch["attention_mask"])
+                b_ = reloaded.eval()(batch["input_ids"], batch["attention_mask"])
+            check(torch.equal(a_, b_), "lora: the merged export gives other logits")
+            del reloaded
+            side, side_cfg = lo.load_adapters(str(run_dir / "model" / "adapter"), device=DEVICE)
+            check(side_cfg == {"lora_rank": LORA_RANK, "lora_alpha": LORA_ALPHA,
+                               "lora_targets": "attention"}
+                  and sorted(side) == sorted(trainer.lora)
+                  and all(torch.equal(side[p][k], trainer.lora[p][k].detach())
+                          for p in side for k in ("a", "b")),
+                  f"lora: the sidecar does not reload ({side_cfg})")
+            train_batch, _ = _first_rows(trainer, "train", 8, 64)
+            prof = _profiled(trainer, train_batch, LORA_PROFILED_STEPS, peak, "seq-cls")
+            hist = results["train"]
+            row = {"phase": "lora", "run": "bert_large_lora", "card": card,
+                   "model": "bert-large-uncased-whole-word-masking widths (random init)",
+                   "rank": LORA_RANK, "alpha": LORA_ALPHA, "targets": tc.lora_targets,
+                   "layers": L, "seq": 512, "batch": 8, "dtype": "bfloat16",
+                   "train_steps": steps, "eval_steps": eval_steps, "launches": launches,
+                   "adapter_params": lo.count_params(trainer.lora),
+                   "head_params": sum(live[n].numel() for n in heads),
+                   "frozen_params": sum(p.numel() for n, p in live.items() if n not in heads),
+                   "moved": moved, "optimizer_state_bytes": _opt_bytes(trainer),
+                   "max_memory_allocated_bytes": mem,
+                   "first_loss": float(full_losses[0]), "loss": float(full_losses[-1]),
+                   "eval": results.get("eval", {}),
+                   "train_samples_per_second_per_chip":
+                       hist["train_samples_per_second_per_chip"],
+                   "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                   "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall,
+                   "export_reloads_bit_for_bit": True, "sidecar_reloads": True, **prof}
+            del trainer
+            # the resume: stopped after step 7 (checkpoints every 5 steps),
+            # rerun from its step-5 checkpoint to the end of (a)'s steps
+            cut_dir = work / "bert_large_lora_cut"
+            cut_argv = _slice_argv(cfg_dir, cut_dir, "seq-cls", LORA_STEPS, 0,
+                                   lora_args + ["--checkpoint_dir", str(cut_dir / "ckpt"),
+                                                "--async_checkpointing", "false",
+                                                "--checkpoint_every_steps"])
+            rec.reset(stop_after=LORA_STOP_AFTER)
+            t0 = time.perf_counter()
+            try:
+                _counted_run(cut_argv + [str(LORA_CKPT_EVERY)])
+                check(False, "lora: the interrupted run was not stopped")
+            except _Interrupt:
+                pass
+            cut_losses = list(rec.losses)
+            rec.reset()
+            _, resumed, _, _ = _counted_run(cut_argv + ["0"])
+            got = torch.stack(list(rec.losses)).float()
+            want_l = torch.stack(full_losses[LORA_CKPT_EVERY:]).float()
+            check(got.shape == want_l.shape and torch.equal(got, want_l)
+                  and torch.equal(torch.stack(cut_losses).float(),
+                                  torch.stack(full_losses[:LORA_STOP_AFTER]).float()),
+                  f"lora: the resumed losses differ from the uninterrupted run's "
+                  f"({got.numel()} against {want_l.numel()})")
+            row.update(resume_bit_for_bit=True, resumed_steps=got.numel(),
+                       resume_runs_wall_s=time.perf_counter() - t0)
+            del resumed
+            rows["bert_large_lora"] = row
+            emit(row)
+
+            # (b) the same model fully fine-tuned
+            run_dir = work / "bert_large_full"
+            rec.reset()
+            peak_reset()
+            results, trainer, launches, wall = _counted_run(
+                _slice_argv(cfg_dir, run_dir, "seq-cls", LORA_FULL_STEPS, 0, []))
+            hist, full_steps = results["train"], trainer.step
+            check(full_steps == LORA_FULL_STEPS, f"full fine-tune: {full_steps} steps")
+            full_prof = _profiled(trainer, train_batch, LORA_FULL_PROFILED_STEPS, peak,
+                                  "seq-cls")
+            full = {"phase": "lora", "run": "bert_large_full_finetune", "card": card,
+                    "layers": trainer.model.config.num_layers, "seq": 512, "batch": 8,
+                    "dtype": "bfloat16", "train_steps": full_steps, "launches": launches,
+                    "trainable_params": sum(p.numel() for p in trainer.params),
+                    "optimizer_state_bytes": _opt_bytes(trainer),
+                    "max_memory_allocated_bytes": peak_bytes(),
+                    "train_samples_per_second_per_chip":
+                        hist["train_samples_per_second_per_chip"],
+                    "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                    "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall,
+                    **full_prof}
+            rows["bert_large_full_finetune"] = full
+            emit(full)
+            del trainer
+            peak_reset()
+
+            # (c) GPT-2 LoRA through the fused vocab CE
+            run_dir = work / "gpt2_lora"
+            rec.reset()
+            results, trainer, launches, wall = _counted_run(_slice_argv(
+                _config_dir(run_dir, GPT2_124M), run_dir, "causal-lm", LORA_GPT2_STEPS,
+                LORA_GPT2_EVAL_SAMPLES, lora_args + ["--fused_vocab_ce", "true"]))
+            steps, L = trainer.step, trainer.model.config.num_layers
+            eval_steps = _eval_steps(trainer, LORA_GPT2_EVAL_SAMPLES)
+            # the tied embedding is frozen (no head regex matches GPT-2), so
+            # no step needs dW: the wrapper skips its kernel
+            want = {"flash_fwd": L * eval_steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "fused_ce_fwd": steps + eval_steps, "fused_ce_bwd_dh": steps,
+                    "fused_ce_bwd_dw": 0}
+            check(steps == LORA_GPT2_STEPS and launches == want,
+                  f"gpt2 lora: {steps} steps, launches {launches}, wanted {want}")
+            check(all(math.isfinite(float(x)) for x in rec.losses), "gpt2 lora: non-finite")
+            check(not any(p.requires_grad for p in trainer.model.parameters()),
+                  "gpt2 lora: a base weight is trainable (no head matches)")
+            hist = results["train"]
+            g = {"phase": "lora", "run": "gpt2_lora_fused", "card": card,
+                 "layers": L, "seq": 512, "batch": 8, "dtype": "bfloat16",
+                 "train_steps": steps, "eval_steps": eval_steps, "launches": launches,
+                 "adapter_params": lo.count_params(trainer.lora),
+                 "optimizer_state_bytes": _opt_bytes(trainer),
+                 "loss": [float(x) for x in rec.losses], "eval": results.get("eval", {}),
+                 "train_samples_per_second_per_chip":
+                     hist["train_samples_per_second_per_chip"],
+                 "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                 "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall}
+            rows["gpt2_lora_fused"] = g
+            emit(g)
+            del trainer
+    finally:
+        restore()
+    a, b = rows["bert_large_lora"], rows["bert_large_full_finetune"]
+    emit({"phase": "lora_summary", "card": card,
+          "phase_wall_s": time.perf_counter() - phase_t0,
+          "lora_over_full_peak_memory": (a["max_memory_allocated_bytes"]
+                                         / b["max_memory_allocated_bytes"]
+                                         if DEVICE == "cuda" else "not measured"),
+          "lora_over_full_optimizer_bytes": a["optimizer_state_bytes"]
+          / b["optimizer_state_bytes"],
+          "lora_over_full_step_time": a["step_time_ms"] / b["step_time_ms"],
+          "lora_over_full_busy": (a["device_busy_ms_per_step"] / b["device_busy_ms_per_step"]
+                                  if DEVICE == "cuda" else "not measured"),
+          "k1_ms_per_step_lora": a["k1_ms_per_step"]})
+    return rows
+
+
+DEBERTA_STEPS = 20
+DEBERTA_EVAL_SAMPLES = 64       # 16 eval steps at the eval batch of 4
+DEBERTA_MLM_STEPS = 15
+DEBERTA_MLM_EVAL_SAMPLES = 16   # 4 eval steps: K2's eval shape (N 512)
+DEBERTA_V2_STEPS = 5
+DEBERTA_PROFILED_STEPS = 6
+DEBERTA_MLM_PROFILED_STEPS = 3
+
+
+def _deberta_runs() -> list:
+    """(name, config, task, steps, eval examples, CLI arguments)."""
+    v2 = dict(DEBERTA_V3_BASE, num_hidden_layers=PARITY_DEPTH, share_att_key=False,
+              conv_kernel_size=3, conv_act="gelu", position_biased_input=True)
+    return [("v3_base_seq_cls", DEBERTA_V3_BASE, "seq-cls", DEBERTA_STEPS,
+             DEBERTA_EVAL_SAMPLES, []),
+            ("v3_base_mlm_fused", DEBERTA_V3_BASE, "mlm", DEBERTA_MLM_STEPS,
+             DEBERTA_MLM_EVAL_SAMPLES, ["--fused_vocab_ce", "true"]),
+            ("v2_style_depth2", v2, "seq-cls", DEBERTA_V2_STEPS, 0, [])]
+
+
+def deberta_phase(work: Path, card: str) -> dict:
+    """(j) DeBERTa through the training CLI with ``microsoft/deberta-v3-base``
+    widths from a config.json (random weights, bf16, sequence 512, batch
+    8): (a) seq-cls, ``DEBERTA_STEPS`` steps and 16 eval steps, profiled
+    (samples/s, busy, idle, MFU); (b) ``--task mlm --fused_vocab_ce true``,
+    ``DEBERTA_MLM_STEPS`` steps and 4 eval steps: K2 at V 128100 on every
+    step, its kernels' device ms per step from a profile; (c) a v2-style
+    config at depth 2 (``share_att_key`` false: the separate position
+    projections; ``conv_kernel_size`` 3; absolute positions). No run
+    launches K1 (the disentangled attention is the plain one); each export
+    reloads to the same logits bit for bit. Returns the rows by run."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+
+    phase_t0 = time.perf_counter()
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    restore = _peak_env(peak)
+    rows = {}
+    rec = _Recorder()
+    try:
+        with rec:
+            for name, hf, task, n_steps, eval_samples, extra in _deberta_runs():
+                t0 = time.perf_counter()
+                run_dir = work / name
+                rec.reset()
+                results, trainer, launches, wall = _counted_run(_slice_argv(
+                    _config_dir(run_dir, hf), run_dir, task, n_steps, eval_samples, extra))
+                cfg = trainer.model.config
+                steps = trainer.step
+                eval_steps = _eval_steps(trainer, eval_samples)
+                fused = task == "mlm"
+                want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                        "fused_ce_fwd": steps + eval_steps if fused else 0,
+                        "fused_ce_bwd_dh": steps if fused else 0,
+                        "fused_ce_bwd_dw": steps if fused else 0}
+                losses = [float(x) for x in rec.losses]
+                check(steps == n_steps and launches == want,
+                      f"deberta {name}: {steps} steps, launches {launches}, wanted {want}")
+                check(all(math.isfinite(x) for x in losses), f"deberta {name}: non-finite")
+                batch, _ = _first_rows(trainer, "test", 4, 16)
+                reloaded, fam, _ = auto.from_pretrained(
+                    str(run_dir / "model"), task=task, dtype=torch.bfloat16, device=DEVICE)
+                with torch.no_grad():
+                    a_ = trainer.model.eval()(batch["input_ids"], batch["attention_mask"])
+                    b_ = reloaded.eval()(batch["input_ids"], batch["attention_mask"])
+                check(fam == "deberta-v2" and torch.equal(a_, b_),
+                      f"deberta {name}: the reloaded export gives other logits")
+                del reloaded, a_, b_
+                hist = results["train"]
+                row = {"phase": "deberta", "run": name, "card": card, "task": task,
+                       "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                       "vocab": cfg.vocab_size, "share_att_key": cfg.share_att_key,
+                       "pos_att_type": list(cfg.pos_att_type),
+                       "conv_kernel_size": cfg.conv_kernel_size, "seq": 512, "batch": 8,
+                       "dtype": "bfloat16", "train_steps": steps, "eval_steps": eval_steps,
+                       "launches": launches, "first_loss": losses[0], "loss": losses[-1],
+                       "eval": results.get("eval", {}),
+                       "train_samples_per_second_per_chip":
+                           hist["train_samples_per_second_per_chip"],
+                       "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+                       "train_mfu": hist.get("train_mfu", "not measured"),
+                       "cli_wall_s": wall, "export_reloads_bit_for_bit": True}
+                if fused:
+                    row["ce_dropped_train"] = sum(float(x) for x in rec.ce_dropped)
+                if name != "v2_style_depth2":
+                    train_batch, _ = _first_rows(trainer, "train", 8, 16)
+                    row.update(_profiled(trainer, train_batch,
+                                         DEBERTA_MLM_PROFILED_STEPS if fused
+                                         else DEBERTA_PROFILED_STEPS, peak, task))
+                    if DEVICE == "cuda" and fused:
+                        check(all(v > 0 for v in row["k2_ms_per_step"].values()),
+                              f"deberta {name}: the profile misses a K2 kernel")
+                row["run_wall_s"] = time.perf_counter() - t0
+                rows[name] = row
+                emit(row)
+                del trainer
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        restore()
+    emit({"phase": "deberta_summary", "card": card,
+          "phase_wall_s": time.perf_counter() - phase_t0,
+          "run_wall_s": {n: r["run_wall_s"] for n, r in rows.items()},
+          "busy_ms_per_step": {n: r.get("device_busy_ms_per_step") for n, r in rows.items()},
+          "mlm_k2_ms_per_step": rows["v3_base_mlm_fused"]["k2_ms_per_step"]})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3722,6 +4588,12 @@ def main() -> int:
         encoders = timed(encoder_tasks_phase, Path(work) / "encoders", card)
         mlm = timed(mlm_phase, Path(work) / "mlm", card)
         seq2seq = timed(seq2seq_phase, Path(work) / "seq2seq", card)
+        packing = timed(packing_phase, Path(work) / "packing", card)
+        lora = timed(lora_phase, Path(work) / "lora", card)
+        deberta = timed(deberta_phase, Path(work) / "deberta", card)
+    breadth = {f"{phase}/{n}": row["launches"]
+               for phase, rows_ in (("packing", packing), ("lora", lora), ("deberta", deberta))
+               for n, row in rows_.items()}
     vocab = timed(vocab_ce_phase)
     timed(gpt2_parity_phase)
     with tempfile.TemporaryDirectory() as work:
@@ -3745,7 +4617,8 @@ def main() -> int:
                                  **{f"mlm/{n}": row["launches"][kname]
                                     for n, row in mlm.items()},
                                  **{f"seq2seq/{n}": row["launches"][kname]
-                                    for n, row in seq2seq.items()}},
+                                    for n, row in seq2seq.items()},
+                                 **{n: v[kname] for n, v in breadth.items()}},
             **{c: {k: flash[(c, kname)][k] for k in (
                 "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM)},
@@ -3770,11 +4643,13 @@ def main() -> int:
                                  **{f"mlm/{n}": row["launches"][kname]
                                     for n, row in mlm.items()},
                                  **{f"seq2seq/{n}": row["launches"][kname]
-                                    for n, row in seq2seq.items()}},
+                                    for n, row in seq2seq.items()},
+                                 **{n: v[kname] for n, v in breadth.items()}},
             **{c: {k: vocab[(c, kname)][k] for k in (
                 "kernel_name", "route", "label_smoothing", "max_abs_err", "kernel_ms",
-                "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-               for c in VOCAB_MLM + VOCAB_SEQ2SEQ},
+                "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "fwd_splits", "dh_splits")}
+               for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

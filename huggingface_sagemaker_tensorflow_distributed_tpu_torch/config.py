@@ -195,19 +195,34 @@ class TrainConfig:
                 and self.optimizer not in ("adam", "adamw")):
             raise ValueError("optimizer_state_dtype='bfloat16' supports adam/adamw only")
         if self.packed_sequences and self.task != "causal-lm":
-            raise ValueError("packed_sequences is a causal-lm pretraining layout")
+            raise ValueError(
+                "packed_sequences is a causal-lm pretraining layout "
+                "(EOS-joined documents chunked into full rows); other "
+                "tasks need per-example boundaries")
         if self.packed_sequences and self.streaming:
-            raise ValueError("packed_sequences does not combine with --streaming")
+            raise ValueError(
+                "packed_sequences does not combine with --streaming "
+                "(the streaming tier tokenizes rows independently; "
+                "packing needs the whole token stream) — pick one")
         if self.segment_packing and self.task not in ("causal-lm", "mlm"):
-            raise ValueError("segment_packing packs token-level examples "
-                             f"(causal-lm / mlm), got task={self.task!r}")
+            raise ValueError(
+                "segment_packing packs token-level examples behind "
+                "segment ids (causal-lm / mlm); per-example-label tasks "
+                f"cannot pack (got task={self.task!r})")
         if self.segment_packing and self.packed_sequences:
-            raise ValueError("segment_packing and packed_sequences are "
-                             "alternative packing layouts — pick one")
+            raise ValueError(
+                "segment_packing and packed_sequences are alternative "
+                "packing layouts (per-example boundaries vs EOS-joined "
+                "stream) — pick one")
         if self.segment_packing and self.streaming:
-            raise ValueError("segment_packing does not combine with --streaming")
+            raise ValueError(
+                "segment_packing does not combine with --streaming "
+                "(packing re-groups rows at build time; the streaming "
+                "tier tokenizes per batch) — pick one")
         if self.segment_packing and self.bucket_multiple:
-            raise ValueError("segment_packing and bucket_multiple — pick one")
+            raise ValueError(
+                "segment_packing already eliminates pad waste; "
+                "bucket_multiple would re-fragment packed rows — pick one")
         if self.streaming and self.span_corruption:
             raise ValueError("--streaming does not implement span corruption")
         if self.optimizer == "adafactor" and self.weight_decay > 0:
@@ -276,10 +291,7 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.lora_rank > 0, "lora_rank>0", "6 (LoRA)"),
             (self.num_experts > 0, "num_experts>0", "9 (MoE)"),
-            (self.packed_sequences or self.segment_packing,
-             "packed_sequences/segment_packing", "6 (packing)"),
             (self.optimizer == "lamb", "optimizer='lamb'", "4 (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
              "optimizer_state_dtype=bfloat16", "4 (bf16 moments)"),

@@ -33,7 +33,13 @@ epoch's permutation from that batch (mid-epoch resume).
   before the epoch and before each gather (on the prefetch thread when
   one runs), so a mid-epoch resume replays the same masks.
 
-Packing (``pack_examples``) is not ported: ROADMAP queue 1, item 6.
+- **Token packing** (:func:`pack_examples`, ``ArrayDataset.pack``,
+  ``ShardedBatcher(pack=True)``): short examples share rows first-fit
+  decreasing, with ``segment_ids`` (1-based, 0 on padding) and
+  ``position_ids`` (restarting per example) columns that the models turn
+  into a block-diagonal ``[B, 1, S, S]`` mask and per-example positions;
+  ``from_lm_texts(packed=True)`` is the other layout, EOS-joined documents
+  cut into full rows.
 """
 
 from __future__ import annotations
@@ -75,6 +81,71 @@ def encode_mlm_clean(tokenizer, texts, max_length: int):
     return (np.asarray(enc["input_ids"], np.int32),
             np.asarray(enc["attention_mask"], np.int32),
             np.asarray(enc["word_ids"], np.int32))
+
+
+def pack_examples(columns: dict[str, np.ndarray], max_length: int,
+                  causal: bool = False, pad_token_id: int = 0) -> dict[str, np.ndarray]:
+    """Token-pack a column dict (the JAX package's ``pack_examples``): short
+    examples share ``max_length`` rows, placed first-fit decreasing (stable
+    on ties, so every rank packs alike). Every 2-D column is packed by
+    copying each example's real tokens (its ``attention_mask``); padding
+    gets mask 0, segment 0, label -100 and ``pad_token_id``. Two columns are
+    added: ``segment_ids`` (1-based per example, 0 on padding) and
+    ``position_ids`` (from 0 in each example). Rows with no real token are
+    dropped; per-example scalar columns (seq-cls labels) raise.
+
+    ``causal=True`` also sets each segment's first label to -100: the
+    causal-LM loss shifts labels left, so the label at a boundary would be
+    the next example's first token. The unpacked loss never reads a row's
+    first label either, so packed loss sums equal unpacked ones."""
+    if "input_ids" not in columns or "attention_mask" not in columns:
+        raise ValueError("packing needs input_ids + attention_mask columns")
+    n, width = columns["attention_mask"].shape
+    bad = [k for k, v in columns.items() if v.ndim != 2 or v.shape[1] != width]
+    if bad:
+        raise ValueError(
+            f"columns {bad} are not [N, {width}] token columns — packing "
+            "merges examples along the token dim, so per-example scalars "
+            "(seq-cls labels) and ragged widths cannot pack")
+    lengths = (columns["attention_mask"] > 0).sum(axis=1).astype(np.int64)
+    if int(lengths.max(initial=0)) > max_length:
+        raise ValueError(f"example of length {int(lengths.max())} exceeds the packed "
+                         f"row width {max_length}")
+    order = np.argsort(-lengths, kind="stable")
+    bins: list[list[int]] = []
+    space: list[int] = []
+    for e in order:
+        need = int(lengths[e])
+        if need == 0:
+            continue
+        for b, free in enumerate(space):
+            if free >= need:
+                bins[b].append(int(e))
+                space[b] -= need
+                break
+        else:
+            bins.append([int(e)])
+            space.append(max_length - need)
+    rows = len(bins)
+    out: dict[str, np.ndarray] = {}
+    for k, v in columns.items():
+        fill = -100 if k == "labels" else (pad_token_id if k == "input_ids" else 0)
+        out[k] = np.full((rows, max_length), fill, v.dtype)
+    out["segment_ids"] = np.zeros((rows, max_length), np.int32)
+    out["position_ids"] = np.zeros((rows, max_length), np.int32)
+    for r, members in enumerate(bins):
+        o = 0
+        for s, e in enumerate(members):
+            ln = int(lengths[e])
+            sel = columns["attention_mask"][e] > 0
+            for k, v in columns.items():
+                out[k][r, o: o + ln] = v[e][sel]
+            out["segment_ids"][r, o: o + ln] = s + 1
+            out["position_ids"][r, o: o + ln] = np.arange(ln)
+            if causal and "labels" in out:
+                out["labels"][r, o] = -100
+            o += ln
+    return out
 
 
 def apply_mlm_masking(clean_ids: np.ndarray, word_ids: np.ndarray,
@@ -163,16 +234,21 @@ class ArrayDataset:
 
     def pack(self, max_length: Optional[int] = None, causal: bool = False,
              pad_token_id: int = 0) -> "ArrayDataset":
-        """Token packing (the JAX package's ``pack``): not ported. A
-        dataset with a per-epoch transform (MLM re-masking) refuses first,
-        as in the JAX package."""
+        """The token-packed view of this dataset (:func:`pack_examples`):
+        short examples share rows behind ``segment_ids``/``position_ids``.
+        Token-level tasks only (causal-LM with ``causal=True``, MLM and
+        token-cls with the default); ``max_length`` defaults to the
+        dataset's width. A dataset with a per-epoch transform (MLM
+        re-masking) refuses, as in the JAX package."""
         if getattr(self, "begin_epoch", None) is not None:
             raise ValueError(
                 "packing re-groups rows at build time, which would freeze "
                 "this dataset's per-epoch transform (MLM re-masking) — "
                 "pack a plain ArrayDataset (e.g. static_masking=True)")
-        raise NotImplementedError("packing is not ported to the PyTorch package "
-                                  "yet: ROADMAP queue 1, item 6 (packing)")
+        if max_length is None:
+            max_length = self.columns["attention_mask"].shape[1]
+        return ArrayDataset(pack_examples(self.columns, max_length, causal=causal,
+                                          pad_token_id=pad_token_id))
 
     @classmethod
     def from_texts(cls, tokenizer, texts, labels=None, max_length: int = 512,
@@ -235,18 +311,58 @@ class ArrayDataset:
                       eos_token_id: Optional[int] = None) -> "ArrayDataset":
         """Causal-LM corpus: labels are the input ids themselves (the
         trainer's causal-lm loss shifts them); pad positions get -100.
-        ``eos_token_id`` serves the packed layout only, which is not ported
-        yet (``packed=True`` raises)."""
-        if packed:
-            raise NotImplementedError(
-                "packed LM rows (packed=True) are not ported to the PyTorch "
-                "package yet: ROADMAP queue 1, item 6 (packing)")
-        enc = tokenizer(texts, truncation=True, padding="max_length",
-                        max_length=max_length)
-        ids = np.asarray(enc["input_ids"], np.int32)
-        mask = np.asarray(enc["attention_mask"], np.int32)
-        labels = np.where(mask > 0, ids, -100).astype(np.int32)
-        return cls({"input_ids": ids, "attention_mask": mask, "labels": labels})
+
+        ``packed=True`` is the pretraining layout: documents tokenized
+        without padding or special tokens, each followed by
+        ``eos_token_id`` (else the tokenizer's EOS, else its SEP), and the
+        stream cut into full ``max_length`` rows (documents attend across
+        their boundaries); the tail that would need padding is dropped."""
+        if not packed:
+            enc = tokenizer(texts, truncation=True, padding="max_length",
+                            max_length=max_length)
+            ids = np.asarray(enc["input_ids"], np.int32)
+            mask = np.asarray(enc["attention_mask"], np.int32)
+            labels = np.where(mask > 0, ids, -100).astype(np.int32)
+            return cls({"input_ids": ids, "attention_mask": mask, "labels": labels})
+        if eos_token_id is None:
+            eos_token_id = getattr(tokenizer, "eos_token_id", None)
+        if eos_token_id is None:
+            eos_token_id = getattr(tokenizer, "sep_token_id", None)
+        if eos_token_id is None:
+            raise ValueError(
+                "packed=True joins documents with EOS, but the tokenizer "
+                "has neither eos_token_id nor sep_token_id — pass "
+                "eos_token_id explicitly")
+        vocab = getattr(tokenizer, "vocab_size", None)
+        try:
+            # an HF vocab_size leaves out added tokens; len() counts them
+            vocab = max(int(vocab), len(tokenizer))
+        except TypeError:
+            pass
+        if vocab is not None and not 0 <= int(eos_token_id) < int(vocab):
+            raise ValueError(
+                f"packed=True separator id {eos_token_id} is outside the "
+                f"tokenizer vocab ({vocab}): the model would embed an "
+                "out-of-range id every document boundary (a config.json "
+                "with the default GPT-2 eos 50256 on a small-vocab test "
+                "model is the usual culprit) — pass a valid eos_token_id")
+        # tokenized in chunks of 1024, each padded to its own longest row
+        stream: list[int] = []
+        texts = list(texts)
+        for lo in range(0, len(texts), 1024):
+            enc = tokenizer(texts[lo: lo + 1024], truncation=False, padding="longest",
+                            max_length=1 << 20, add_special_tokens=False)
+            all_ids = np.asarray(enc["input_ids"])
+            all_mask = np.asarray(enc["attention_mask"]) > 0
+            for r in range(all_ids.shape[0]):
+                stream.extend(all_ids[r][all_mask[r]].tolist())
+                stream.append(int(eos_token_id))
+        n_rows = len(stream) // max_length
+        if n_rows == 0:
+            raise ValueError(f"packed corpus shorter than one {max_length}-token row")
+        ids = np.asarray(stream[: n_rows * max_length], np.int32).reshape(n_rows, max_length)
+        return cls({"input_ids": ids, "attention_mask": np.ones_like(ids),
+                    "labels": ids.copy()})
 
     @classmethod
     def from_token_classification(cls, tokenizer, sentences, word_tags,
@@ -415,8 +531,8 @@ class MlmDataset(ArrayDataset):
     def pack(self, max_length: Optional[int] = None, causal: bool = False,
              pad_token_id: int = 0) -> "ArrayDataset":
         """Packing freezes the masking draw, so it needs
-        ``static_masking`` (as in the JAX package); the packing itself is
-        not ported."""
+        ``static_masking`` (as in the JAX package): epoch 0's columns pack
+        as a plain :class:`ArrayDataset`."""
         if not self._static:
             raise ValueError(
                 "packing an MLM dataset freezes the masking draw, so it "
@@ -800,7 +916,9 @@ class ShardedBatcher:
     rank and world size (0 and 1 without a process group); ``device`` is
     where :meth:`global_arrays` puts the tensors (CPU by default).
     ``bucket_sizes`` turns on length bucketing (sorted within windows of
-    ``bucket_window`` batches). ``native`` draws the epoch permutation,
+    ``bucket_window`` batches); ``pack`` token-packs the dataset first
+    (``ArrayDataset.pack``, ``pack_causal`` for causal-LM rows), the two
+    being alternatives. ``native`` draws the epoch permutation,
     gathers rows and counts row lengths with the C++ host library (built at
     first use; a failed build raises); ``native=False`` asks for the numpy
     twins, which give the same batches.
@@ -816,7 +934,20 @@ class ShardedBatcher:
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None, device=None,
                  bucket_sizes: Optional[list[int]] = None, bucket_window: int = 16,
-                 native: bool = True):
+                 native: bool = True, pack: bool = False, pack_causal: bool = False):
+        if pack:
+            # token packing leaves no pad waste for the bucket ladder to trim
+            if bucket_sizes:
+                raise ValueError(
+                    "pack=True already eliminates pad waste; combining it "
+                    "with bucket_sizes would re-fragment packed rows — "
+                    "pick one")
+            if not hasattr(dataset, "columns"):
+                raise ValueError(
+                    "pack=True re-groups rows at build time, which needs "
+                    "a materialized dataset (streaming tiers tokenize "
+                    "per batch)")
+            dataset = dataset.pack(causal=pack_causal)
         self.dataset = dataset
         self.global_batch_size = global_batch_size
         self.shuffle = shuffle

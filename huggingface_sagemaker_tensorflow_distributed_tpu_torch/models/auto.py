@@ -10,8 +10,8 @@ checkpoint keep their fresh weights; a missing backbone weight raises).
 ``{"format": "pt"}``) and ``config.json`` in HF layout, from rank 0 only,
 readable by the JAX package's ``from_pretrained`` and the reverse. Ported
 so far: the encoder families ``bert``, ``roberta``, ``distilbert``,
-``electra`` and ``albert`` with tasks ``seq-cls``, ``token-cls``, ``qa``
-and ``mlm``, ELECTRA with ``rtd``, the encoder-decoder families ``t5``,
+``electra``, ``albert`` and ``deberta-v2`` (DeBERTa-v2/v3, its legacy MLM
+head only) with tasks ``seq-cls``, ``token-cls``, ``qa`` and ``mlm``, ELECTRA with ``rtd``, the encoder-decoder families ``t5``,
 ``bart`` and ``mbart`` with task ``seq2seq`` (``MODEL_REGISTRY``), and
 ``gpt2`` with task ``causal-lm``. The exported ``config.json`` names the
 family's seq-cls architecture whatever the task, as the JAX package's
@@ -30,6 +30,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import (
     albert,
     bart,
     bert,
+    deberta,
     distilbert,
     electra,
     roberta,
@@ -85,6 +86,10 @@ MODEL_REGISTRY = {
     ("albert", "mlm"): albert.AlbertForMaskedLM,
     ("electra", "rtd"): electra.ElectraForPreTraining,
     ("electra", "mlm"): electra.ElectraForMaskedLM,
+    ("deberta-v2", "seq-cls"): deberta.DebertaV2ForSequenceClassification,
+    ("deberta-v2", "token-cls"): deberta.DebertaV2ForTokenClassification,
+    ("deberta-v2", "qa"): deberta.DebertaV2ForQuestionAnswering,
+    ("deberta-v2", "mlm"): deberta.DebertaV2ForMaskedLM,
     ("t5", "seq2seq"): t5.T5ForConditionalGeneration,
     ("bart", "seq2seq"): bart.BartForConditionalGeneration,
     ("mbart", "seq2seq"): bart.BartForConditionalGeneration,
@@ -97,6 +102,7 @@ CONFIG_BUILDERS = {
     "distilbert": distilbert.distilbert_config_from_hf,
     "electra": electra.electra_config_from_hf,
     "albert": albert.albert_config_from_hf,
+    "deberta-v2": deberta.deberta_config_from_hf,
     "gpt2": gpt2_config_from_hf,
     "t5": t5.t5_config_from_hf,
     "bart": bart.bart_config_from_hf,
@@ -110,6 +116,7 @@ HF_CONFIG_EXPORTERS = {
     "distilbert": distilbert.distilbert_config_to_hf,
     "electra": electra.electra_config_to_hf,
     "albert": albert.albert_config_to_hf,
+    "deberta-v2": deberta.deberta_config_to_hf,
     "gpt2": gpt2_config_to_hf,
     "t5": t5.t5_config_to_hf,
     "bart": bart.bart_config_to_hf,
@@ -118,7 +125,7 @@ HF_CONFIG_EXPORTERS = {
 
 # the JAX package's families the port has no model for yet, by the
 # ROADMAP queue 1 item that ports them
-_UNPORTED_FAMILIES = {"deberta-v2": "item 6", "llama": "item 9"}
+_UNPORTED_FAMILIES = {"llama": "item 9"}
 _FAMILY_ALIASES = {"xlm-roberta": "roberta", "camembert": "roberta",
                    "mistral": "llama", "qwen2": "llama", "gemma": "llama",
                    "mixtral": "llama"}
@@ -190,6 +197,14 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
         raise ValueError(
             f"{model_name_or_path!r} is a {family} (encoder-decoder) checkpoint; it "
             f"only supports task='seq2seq', got task={task!r}")
+    if (family == "deberta-v2" and task == "mlm"
+            and hf_config.get("legacy") is False):
+        raise ValueError(
+            f"{model_name_or_path!r} uses the non-legacy DeBERTa MLM head "
+            "(lm_predictions.lm_head); only the legacy cls.predictions "
+            "layout is supported — silently loading would leave a random "
+            "head (HF's own non-legacy forward is broken in transformers "
+            "4.57: tie_weights clobbers lm_head.dense)")
     if family in ("bert", "albert") and task != "seq-cls":
         # HF builds the Bert/Albert QA and token-cls models with
         # add_pooling_layer=False; only the seq-cls head uses the pooler
@@ -230,9 +245,11 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
 
 
 def save_pretrained(output_dir: str, model, family: str, config,
-                    host0_only: bool = True) -> None:
+                    host0_only: bool = True, state: dict | None = None) -> None:
     """Export ``model`` in HF layout (``model.safetensors`` +
-    ``config.json``), from rank 0 only unless ``host0_only`` is False."""
+    ``config.json``), from rank 0 only unless ``host0_only`` is False;
+    ``state`` (a ``state_dict``, e.g. a LoRA run's merged weights) replaces
+    the model's own weights."""
     if family not in HF_CONFIG_EXPORTERS:
         raise NotImplementedError(f"export of family {family!r} is not ported to the "
                                   "PyTorch package yet: ROADMAP queue 1, "
@@ -240,7 +257,8 @@ def save_pretrained(output_dir: str, model, family: str, config,
     if host0_only and process_index() != 0:
         return
     os.makedirs(output_dir, exist_ok=True)
-    state = {k: v.detach() for k, v in model.state_dict().items()}
+    state = {k: v.detach() for k, v in (model.state_dict() if state is None
+                                         else state).items()}
     if family == "gpt2":
         state = gpt2_to_hf(state)
     elif family in SEQ2SEQ_FAMILIES:

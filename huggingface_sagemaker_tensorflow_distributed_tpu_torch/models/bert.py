@@ -4,7 +4,9 @@
 ``BertForQuestionAnswering`` and ``BertForMaskedLM``). The token-cls, QA
 and masked-LM heads are the same modules for every encoder family; a
 family with its own trunk (ALBERT) subclasses them with another
-``backbone_cls``."""
+``backbone_cls``. The token-cls and masked-LM heads take a packed batch's
+``position_ids`` and ``segment_ids`` (``data.pipeline.pack_examples``)
+and hand them to the backbone, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -55,6 +57,17 @@ def bert_config_to_hf(c: EncoderConfig) -> dict:
     }
 
 
+def packed_kwargs(position_ids=None, segment_ids=None) -> dict:
+    """The token-packing columns a backbone takes, only those given (a
+    family whose backbone has no such arguments never receives them)."""
+    kw = {}
+    if position_ids is not None:
+        kw["position_ids"] = position_ids
+    if segment_ids is not None:
+        kw["segment_ids"] = segment_ids
+    return kw
+
+
 def _head_dropout(config: EncoderConfig) -> float:
     return config.hidden_dropout
 
@@ -94,8 +107,10 @@ class BertForTokenClassification(nn.Module):
         self.dropout = nn.Dropout(self.head_dropout(config))
         self.classifier = Dense(config, config.hidden_size, num_labels)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
-        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None, segment_ids=None):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids,
+                               **packed_kwargs(position_ids, segment_ids))
         return self.classifier(self.dropout(seq))
 
 
@@ -135,8 +150,9 @@ class BertForMaskedLM(nn.Module):
         self.mlm_head = MlmHead(config, act=self.head_act)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                return_fused_inputs: bool = False):
-        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids)
+                return_fused_inputs: bool = False, position_ids=None, segment_ids=None):
+        seq, _ = self.backbone(input_ids, attention_mask, token_type_ids,
+                               **packed_kwargs(position_ids, segment_ids))
         table = self.backbone.embeddings.word_embeddings.weight
         if return_fused_inputs:
             x, bias = self.mlm_head(seq, table, return_transform=True)

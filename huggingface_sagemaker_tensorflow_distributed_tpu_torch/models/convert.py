@@ -6,8 +6,10 @@ made at random from a seed, or mapped to and from the HF key layout.
   ``state_dict``: a flax ``Dense`` ``kernel [in, out]`` becomes
   ``Linear.weight [out, in]``, a LayerNorm ``scale`` becomes ``weight``,
   an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``
-  the module list entry ``h.<i>``/``layer.<i>``. Both packages then
-  compute the same function.
+  the module list entry ``h.<i>``/``layer.<i>``; a conv kernel
+  ``[K, in / groups, out]`` (DeBERTa's) reverses to ``Conv1d``'s ``[out,
+  in / groups, K]``. Both packages then compute the same function.
+  :func:`lora_from_jax` carries a JAX adapter tree across the same way.
 - :func:`init_gpt2` and :func:`init_encoder` (any encoder family and head;
   :func:`init_bert` for BERT seq-cls) are the counterparts of the JAX
   package's ``models/auto.py::init_params``: normal(initializer_range)
@@ -16,8 +18,8 @@ made at random from a seed, or mapped to and from the HF key layout.
   scales. The numbers come from a ``torch.Generator``, so they are not
   JAX's numbers for the same seed.
 - :func:`encoder_to_hf` / :func:`encoder_from_hf` (families ``bert``,
-  ``roberta``, ``distilbert``, ``electra``, ``albert``; ``bert_*`` are
-  BERT's) and :func:`gpt2_to_hf` / :func:`gpt2_from_hf` map a
+  ``roberta``, ``distilbert``, ``electra``, ``albert``, ``deberta-v2``;
+  ``bert_*`` are BERT's) and :func:`gpt2_to_hf` / :func:`gpt2_from_hf` map a
   ``state_dict`` to the HF layout and back, with the JAX package's
   ``params_to_hf`` / ``hf_to_params`` names. HF's GPT-2 ``Conv1D`` stores ``[in, out]``, so the
   port's ``Linear.weight [out, in]`` is transposed on the way (the JAX
@@ -70,6 +72,31 @@ def params_from_jax(flat: dict) -> dict:
             arr = arr.T
         path = [re.sub(r"^(h|layer|block)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         out[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def lora_from_jax(tree) -> dict:
+    """The JAX package's LoRA adapters (``init_lora_params``'s tree, nested
+    or flattened with ``sep="/"``; numpy or jax arrays) -> the port's
+    ``{kernel path: {"a": A, "b": B}}`` (``models/lora.py``). The paths and
+    the ``[in, r]``/``[r, out]`` layouts are the same in both packages."""
+    if any(isinstance(v, dict) for v in tree.values()):
+        flat = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, prefix + (str(k),))
+                else:
+                    flat["/".join(prefix + (str(k),))] = v
+        walk(tree, ())
+        tree = flat
+    out: dict = {}
+    for key, value in tree.items():
+        kernel, part = key.rsplit("/", 1)
+        if part not in ("a", "b"):
+            raise ValueError(f"not a LoRA factor: {key!r}")
+        out.setdefault(kernel, {})[part] = torch.from_numpy(np.array(np.asarray(value)))
     return out
 
 
@@ -216,8 +243,36 @@ def _rules(names, src: int, prefix: str):
     return rules
 
 
-_ENCODER_TO_HF = {f: _rules(names, 0, f) for f, names in ENCODER_NAMES.items()}
-_ENCODER_FROM_HF = {f: _rules(names, 1, f) for f, names in ENCODER_NAMES.items()}
+# DeBERTa-v2/v3 (the JAX _DEBERTA_V2_RULES and _DEBERTA_V2_REVERSE): the
+# legacy cls.predictions MLM head; the conv kernel is Conv1d's layout on
+# both sides
+ENCODER_NAMES["deberta-v2"] = (
+    [(f"backbone.{e}", f"deberta.embeddings.{e}")
+     for e in ("word_embeddings", "position_embeddings", "token_type_embeddings",
+               "embed_proj")]
+    + [("backbone.embeddings_ln", "deberta.embeddings.LayerNorm"),
+       ("backbone.rel_embeddings", "deberta.encoder.rel_embeddings"),
+       ("backbone.rel_ln", "deberta.encoder.LayerNorm"),
+       ("backbone.conv.conv", "deberta.encoder.conv.conv"),
+       ("backbone.conv.conv_ln", "deberta.encoder.conv.LayerNorm")]
+    + [(f"backbone.layer.{{}}.{ours}", f"deberta.encoder.layer.{{}}.{hf}")
+       for ours, hf in [("attention.query", "attention.self.query_proj"),
+                        ("attention.key", "attention.self.key_proj"),
+                        ("attention.value", "attention.self.value_proj"),
+                        ("attention.pos_key", "attention.self.pos_key_proj"),
+                        ("attention.pos_query", "attention.self.pos_query_proj"),
+                        ("attention_out", "attention.output.dense"),
+                        ("attention_ln", "attention.output.LayerNorm"),
+                        ("intermediate", "intermediate.dense"),
+                        ("ffn_out", "output.dense"), ("ffn_ln", "output.LayerNorm")]]
+    + [("pooler", "pooler.dense")] + _TASK_HEADS
+    + _mlm_head("cls.predictions.transform.dense", "cls.predictions.transform.LayerNorm",
+                "cls.predictions"))
+_HF_PREFIX = {"deberta-v2": "deberta"}
+_ENCODER_TO_HF = {f: _rules(names, 0, _HF_PREFIX.get(f, f))
+                  for f, names in ENCODER_NAMES.items()}
+_ENCODER_FROM_HF = {f: _rules(names, 1, _HF_PREFIX.get(f, f))
+                    for f, names in ENCODER_NAMES.items()}
 
 
 def _translate(key: str, rules) -> str | None:

@@ -18,7 +18,9 @@ qkv`` becomes ``backbone.h.<i>.attention.qkv``), which is what lets
 The forward has three call forms, chosen by ``cache``:
 
 - ``None``: the full causal forward (``attention_mask`` [B, S] marks
-  padding), through ``ops.attention.dot_product_attention(causal=True)``
+  padding; ``segment_ids``, a packed batch's, make it the block-diagonal
+  ``[B, 1, S, S]`` mask, which the flash wrapper sends to the plain
+  attention), through ``ops.attention.dot_product_attention(causal=True)``
   with ``attention_impl`` (``flash``: the CUDA kernels on the card). In
   training with ``attention_dropout > 0`` the attention is the unfused
   softmax with dropout on the probabilities instead, as in the JAX
@@ -277,7 +279,7 @@ class Gpt2Model(nn.Module):
         self.ln_f = LayerNorm(cfg, cfg.hidden_size)
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
-                cache=None):
+                cache=None, segment_ids=None):
         B, S = input_ids.shape
         dev = input_ids.device
         offsets = torch.arange(S, device=dev)[None, :]
@@ -292,9 +294,10 @@ class Gpt2Model(nn.Module):
         elif cache is None:
             if position_ids is None:
                 position_ids = offsets
-            # [B, 1, 1, S] padding; causality is the attention's own
-            if attention_mask is not None:
-                mask = make_attention_mask(attention_mask)
+            # [B, 1, 1, S] padding, or with segment_ids (packed rows) the
+            # block-diagonal [B, 1, S, S] mask; causality is the attention's
+            if attention_mask is not None or segment_ids is not None:
+                mask = make_attention_mask(attention_mask, segment_ids=segment_ids)
         elif position_ids is None:                   # paged decode
             position_ids = cache.context_lens.long()[:, None]
         x = self.dropout(self.wte(input_ids) + self.wpe(position_ids))
@@ -318,18 +321,20 @@ class Gpt2LMHeadModel(nn.Module):
         self.backbone = Gpt2Model(cfg)
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
-                cache=None):
-        hidden = self.backbone(input_ids, attention_mask, position_ids, cache)
+                cache=None, segment_ids=None):
+        hidden = self.backbone(input_ids, attention_mask, position_ids, cache,
+                               segment_ids=segment_ids)
         embedding = self.backbone.wte.weight.to(self.config.dtype)
         return torch.matmul(hidden, embedding.t()).float()
 
     def hidden_and_embedding(self, input_ids, attention_mask=None,
-                             position_ids=None):
+                             position_ids=None, segment_ids=None):
         """``(hidden [B, S, H] in the compute dtype, tied embedding [V, H]
         in the param dtype)``: the fused vocab-CE path, which never makes
         the [B, S, V] logits. The embedding is not cast (the JAX
         ``hidden_and_embedding`` returns it as stored)."""
-        return (self.backbone(input_ids, attention_mask, position_ids),
+        return (self.backbone(input_ids, attention_mask, position_ids,
+                              segment_ids=segment_ids),
                 self.backbone.wte.weight)
 
     def new_dense_cache(self, batch: int, max_len: int,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import lora_delta
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_mask,
@@ -107,17 +108,28 @@ class EncoderConfig:
 class Dense(nn.Linear):
     """``nn.Linear`` with the weight in ``param_dtype`` that computes in
     ``dtype`` (flax ``nn.Dense(dtype=..., param_dtype=...)``); T5's
-    projections take ``bias=False``."""
+    projections take ``bias=False``. With LoRA adapters attached
+    (``models/lora.py``: ``lora`` holds ``(A, B, scaling)``) it computes
+    with the merged weight."""
+
+    lora = None
 
     def __init__(self, cfg: EncoderConfig, in_features: int, out_features: int,
                  bias: bool = True):
         super().__init__(in_features, out_features, bias=bias, dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
 
+    def effective_weight(self):
+        """The weight this layer computes with: the merged one under LoRA."""
+        if self.lora is None:
+            return self.weight
+        a, b, scaling = self.lora
+        return lora_delta(a, b, self.weight, scaling)
+
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), self.effective_weight().to(dt), bias)
 
 
 class Embed(nn.Embedding):

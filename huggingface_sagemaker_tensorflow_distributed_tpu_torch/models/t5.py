@@ -346,7 +346,7 @@ class T5ForConditionalGeneration(nn.Module):
         """(hidden the head multiplies, the head's weight [V, H] as stored)."""
         if self.config.tie_word_embeddings:
             return hidden * (self.config.d_model ** -0.5), self.shared.weight
-        return hidden, self.lm_head.weight
+        return hidden, self.lm_head.effective_weight()
 
     def decode(self, decoder_input_ids, encoder_hidden, encoder_attention_mask=None,
                decoder_attention_mask=None, cache: Optional[DenseCache] = None):

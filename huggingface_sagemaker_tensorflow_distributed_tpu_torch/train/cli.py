@@ -22,7 +22,9 @@ gathers the masked rows into the fused vocab cross-entropy), ``rtd``
 replaces random tokens for ELECTRA's discriminator, ``seq2seq`` pairs
 sources with LM-style targets, or with ``--span_corruption`` turns texts
 into T5's span-corruption pairs, its target length raised to fit the
-spans), batch them
+spans; ``--segment_packing`` packs causal-LM and MLM examples into
+shared rows behind segment ids, ``--packed_sequences`` cuts EOS-joined
+causal-LM documents into full rows), batch them
 (``--bucket_multiple``: length buckets of its multiples), restore the
 latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
 false``), fit, evaluate (token-cls adds ``eval_f1``; QA with
@@ -32,7 +34,9 @@ SQuAD's ``eval_exact_match`` and ``eval_f1``; seq2seq with
 and adds ``rougeL_precision``, ``rougeL_recall`` and ``rougeL_f1``), write
 ``train_results.txt``/``eval_results.txt`` to ``output_data_dir``, and
 export the model and tokenizer in HF layout to ``model_dir`` (rank 0;
-with ``--keep_best`` the best epoch's weights). Rerunning an interrupted
+with ``--keep_best`` the best epoch's weights; with ``--lora_rank r`` the
+base frozen and rank-r adapters trained, the export merged and the
+adapters written beside it to ``model_dir/adapter``). Rerunning an interrupted
 command resumes it ("resuming from epoch N"). Telemetry goes to
 ``HSTD_TELEMETRY_DIR`` when set; run as a script with
 ``TPU_OUTPUT_DATA_DIR``/``SM_OUTPUT_DATA_DIR`` set and no
@@ -78,6 +82,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization im
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import generate
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import save_adapters
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     initialize_distributed,
     local_device,
@@ -202,12 +207,22 @@ def build_dataset(config: TrainConfig, tokenizer, split: str, max_len: int,
     texts, labels = load_text_classification(config.dataset, split, **kw)
     # any text source works as an LM, MLM or RTD corpus; its labels are ignored
     if config.task == "causal-lm":
-        return ArrayDataset.from_lm_texts(
+        ds = ArrayDataset.from_lm_texts(
             tokenizer, texts, max_len, packed=config.packed_sequences,
             eos_token_id=getattr(model_config, "eos_token_id", None))
+        # per-example boundaries: segment ids and restarting positions
+        return ds.pack(max_len, causal=True) if config.segment_packing else ds
     if config.task == "mlm":
-        return ArrayDataset.from_mlm_texts(tokenizer, texts, max_len, seed=config.seed,
-                                           static_masking=config.mlm_static_masking)
+        ds = ArrayDataset.from_mlm_texts(tokenizer, texts, max_len, seed=config.seed,
+                                         static_masking=config.mlm_static_masking)
+        if config.segment_packing:
+            if not config.mlm_static_masking:
+                raise ValueError(
+                    "--segment_packing with task=mlm requires "
+                    "--mlm_static_masking true (packing freezes the "
+                    "masking draw at build time)")
+            ds = ds.pack(max_len)
+        return ds
     if config.task == "rtd":
         return ArrayDataset.from_rtd_texts(tokenizer, texts, max_len, seed=config.seed)
     _check_num_labels(labels, config.num_labels, config.task)
@@ -297,12 +312,22 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
     torch.manual_seed(config.seed)
 
     attention_impl = config.resolve_attention_impl(device.type)
+    if config.segment_packing and attention_impl == "flash":
+        logger.warning(
+            "--segment_packing builds a [B,1,S,S] block-diagonal mask, which "
+            "the flash kernels treat as a general mask and leave to the plain "
+            "attention — long-sequence memory is O(S^2) on this run, not O(S)")
     model, family, model_config = auto.from_pretrained(
         config.model_name_or_path, task=config.task, num_labels=config.num_labels,
         dtype=DTYPES[config.dtype], param_dtype=DTYPES[config.param_dtype],
         seed=config.seed, from_scratch=config.from_scratch, device=device,
         attention_impl=attention_impl, remat=config.remat,
         remat_policy=config.remat_policy)
+    if config.segment_packing and family not in ("gpt2", "bert"):
+        raise ValueError(
+            "--segment_packing needs a model wired for segment_ids/"
+            "position_ids (gpt2 causal-lm, bert mlm); "
+            f"got family {family!r}")
     tokenizer = load_tokenizer(config.model_name_or_path,
                                vocab_size=model_config.vocab_size)
 
@@ -377,11 +402,19 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
                             qa["eval_qa_windows"], qa["eval_exact_match"], qa["eval_f1"])
             trainer.write_eval_results(eval_results)
             results["eval"] = eval_results
-        auto.save_pretrained(config.model_dir, model, family, model_config)
+        # with LoRA the export is the merged model
+        auto.save_pretrained(config.model_dir, model, family, model_config,
+                             state=trainer.export_params)
         if rank == 0:
             # the tokenizer this run used, beside the model (a WordPiece
             # export is a vocab.txt and tokenizer_config.json)
             tokenizer.save_pretrained(config.model_dir)
+            if trainer.lora is not None:
+                # the adapter sidecar beside the merged export: megabytes
+                # to ship instead of the whole model
+                save_adapters(os.path.join(config.model_dir, "adapter"), trainer.lora,
+                              rank=config.lora_rank, alpha=config.lora_alpha,
+                              targets=config.lora_targets)
     finally:
         # commits an in-flight async checkpoint write even when fit or
         # eval raise: a crash after "save started" must not lose it

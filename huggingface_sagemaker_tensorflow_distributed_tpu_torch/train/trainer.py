@@ -43,6 +43,14 @@ F1 counts), ``qa_loss``, ``causal_lm_loss``, ``rtd_loss`` and
 - Every batch iterator ``fit`` and ``evaluate`` open is closed on every
   exit (the ``steps_per_epoch`` cap, an exception), which stops the
   batcher's prefetch thread.
+- Token-packed batches (``segment_ids``, ``position_ids``) reach every
+  task loss's model call (``_packed_kwargs``).
+- LoRA (``lora_rank > 0``, ``models/lora.py``): the base is frozen but the
+  heads ``lora_train_heads`` matches, adapters from ``torch.Generator(seed)``
+  are attached to the targeted kernels, and ``self.params`` (the optimizer,
+  the clip, the all-reduce, the accumulated gradients) holds the adapters and
+  heads only; the checkpoint carries the adapters, keep-best snapshots the
+  adapters and heads, and ``export_params`` is the merged model.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import torch.nn.functional as F
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import lora as lo
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.anomaly import (
     anomaly_enabled_env,
 )
@@ -112,12 +121,20 @@ def _masked_sums(per_example, correct, valid):
     return loss, {"loss_sum": loss_sum, "correct": correct_sum, "count": count}
 
 
+def _packed_kwargs(batch) -> dict:
+    """A token-packed batch's ``segment_ids`` (block-diagonal attention per
+    packed example) and ``position_ids`` (restarting per example), only
+    those present, so unpacked batches reach models that take neither (the
+    JAX ``_packed_kwargs``)."""
+    return {k: batch[k] for k in ("segment_ids", "position_ids") if k in batch}
+
+
 def seq_cls_loss(model, batch):
     """Cross-entropy from logits and accuracy (Keras
     ``SparseCategoricalCrossentropy(from_logits=True)`` /
     ``SparseCategoricalAccuracy``): ``(mean loss, sums)``."""
     logits = model(batch["input_ids"], batch["attention_mask"],
-                   token_type_ids=batch.get("token_type_ids"))
+                   token_type_ids=batch.get("token_type_ids"), **_packed_kwargs(batch))
     per_ex = softmax_cross_entropy_with_integer_labels(logits, batch["labels"])
     valid = batch.get("valid")
     if valid is None:
@@ -133,7 +150,7 @@ def token_cls_loss(model, batch, with_f1: bool = True):
     ``f1_tp``, ``f1_fp`` and ``f1_fn``. Published CoNLL figures are
     ENTITY-level (seqeval) F1, which is stricter."""
     logits = model(batch["input_ids"], batch["attention_mask"],
-                   token_type_ids=batch.get("token_type_ids"))
+                   token_type_ids=batch.get("token_type_ids"), **_packed_kwargs(batch))
     labels = batch["labels"]
     token_valid = (labels != -100) & (batch["attention_mask"] > 0)
     if "valid" in batch:
@@ -155,7 +172,8 @@ def qa_loss(model, batch):
     """SQuAD span loss: the mean of the start and end CE (HF); a row is
     half correct per position it predicts."""
     start_logits, end_logits = model(batch["input_ids"], batch["attention_mask"],
-                                     token_type_ids=batch.get("token_type_ids"))
+                                     token_type_ids=batch.get("token_type_ids"),
+                                     **_packed_kwargs(batch))
     valid = batch.get("valid")
     if valid is None:
         valid = torch.ones(start_logits.shape[0], device=start_logits.device)
@@ -171,7 +189,8 @@ def causal_lm_loss(model, batch):
     """Next-token CE for decoder-only LMs (GPT-2): logits at position i
     predict token i+1; pad targets (and padded eval rows) are masked out.
     Metric is next-token accuracy."""
-    logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1]   # [B, S-1, V]
+    logits = model(batch["input_ids"], batch["attention_mask"],
+                   **_packed_kwargs(batch))[:, :-1]                       # [B, S-1, V]
     labels = batch["labels"][:, 1:]
     token_valid = (batch["attention_mask"][:, 1:] > 0) & (labels != -100)
     if "valid" in batch:
@@ -187,7 +206,8 @@ def rtd_loss(model, batch):
     on whether the token was replaced; -100 and pad positions are ignored.
     Metric is detection accuracy."""
     logits = model(batch["input_ids"], batch["attention_mask"],
-                   token_type_ids=batch.get("token_type_ids"))                # [B, S]
+                   token_type_ids=batch.get("token_type_ids"),
+                   **_packed_kwargs(batch))                                   # [B, S]
     labels = batch["labels"]
     token_valid = (labels != -100) & (batch["attention_mask"] > 0)
     if "valid" in batch:
@@ -228,11 +248,14 @@ def make_fused_causal_lm_loss(model):
     (``ops/vocab_ce.py``: the CUDA kernels on the card). Instead of
     slicing off the last position, labels are shifted left with a -100
     tail, so every position is computed and the last is masked: the same
-    masked sums as ``causal_lm_loss``."""
+    masked sums as ``causal_lm_loss``. Packed rows run K2 on all ``B·S``
+    rows too: each segment's first label is -100, so nothing crosses a
+    boundary."""
 
     def loss(model, batch):
         hidden, embedding = model.hidden_and_embedding(batch["input_ids"],
-                                                       batch["attention_mask"])
+                                                       batch["attention_mask"],
+                                                       **_packed_kwargs(batch))
         B, S, H = hidden.shape
         labels, attn = batch["labels"], batch["attention_mask"]
         shifted = torch.cat([labels[:, 1:], labels.new_full((B, 1), -100)], dim=1)
@@ -326,7 +349,7 @@ def make_fused_mlm_loss(mask_cap: float):
     def loss(model, batch):
         hidden, table, bias = model(batch["input_ids"], batch["attention_mask"],
                                     token_type_ids=batch.get("token_type_ids"),
-                                    return_fused_inputs=True)
+                                    return_fused_inputs=True, **_packed_kwargs(batch))
         labels = batch["labels"]
         token_valid = (labels != -100) & (batch["attention_mask"] > 0)
         if "valid" in batch:
@@ -399,7 +422,16 @@ class Trainer:
                     "seq2seq_hidden_and_embedding (T5/BART)")
         self.device = next(model.parameters()).device
         self.n_chips = world_size()
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        # LoRA (models/lora.py): the base is frozen but the heads
+        # lora_train_heads matches, and the adapters join the trainable
+        # parameters, so the optimizer state, the clip, the all-reduce and
+        # the accumulated gradients cover those only
+        self.lora: Optional[dict] = None
+        self.lora_scaling: Optional[float] = None
+        adapters: list = []
+        if config.lora_rank > 0:
+            adapters = self._init_lora(config)
+        self.params = [p for p in model.parameters() if p.requires_grad] + adapters
         self.optimizer, self.schedule, self.scaled_lr = build_optimizer(
             config, self.params, world_size=self.n_chips, total_steps=total_steps)
         self.step = 0            # micro-steps taken
@@ -415,6 +447,33 @@ class Trainer:
         self._best_metric: Optional[float] = None
         self.best_epoch: Optional[int] = None
 
+    def _init_lora(self, config: TrainConfig) -> list:
+        """Freeze the base, attach fresh adapters (``A`` from
+        ``torch.Generator(seed)``); returns them as trainable parameters in
+        path order."""
+        lora = lo.init_lora_params(self.model, config.lora_rank, config.lora_targets,
+                                   seed=config.seed)
+        self.lora = {path: {k: torch.nn.Parameter(v) for k, v in ab.items()}
+                     for path, ab in lora.items()}
+        self.lora_scaling = lo.lora_scaling(config.lora_rank, config.lora_alpha)
+        heads = lo.freeze_base(self.model, config.lora_train_heads)
+        lo.attach_lora(self.model, self.lora, self.lora_scaling)
+        n_heads = sum(self.model.get_parameter(n).numel() for n in heads)
+        logger.info("LoRA r=%d alpha=%g targets=%s: %d adapter + %d head "
+                    "trainable / %d frozen params", config.lora_rank, config.lora_alpha,
+                    config.lora_targets, lo.count_params(self.lora), n_heads,
+                    lo.count_params(self.model) - n_heads)
+        return [ab[k] for ab in self.lora.values() for k in ("a", "b")]
+
+    @property
+    def export_params(self) -> dict:
+        """The deployable weights as a ``state_dict``: with LoRA the base
+        and the adapters merged (what ``save_pretrained`` writes), else the
+        model's own. After a ``keep_best`` fit they are the best epoch's."""
+        if self.lora is None:
+            return self.model.state_dict()
+        return lo.merge_lora(self.model, self.lora, self.lora_scaling)
+
     # -- state (what a checkpoint holds) ---------------------------------------
 
     def state_dict(self) -> dict:
@@ -426,14 +485,19 @@ class Trainer:
         rng = {"cpu": torch.get_rng_state()}
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "updates": self.updates,
-                "grads": [p.grad for p in self.params], "rng": rng}
+        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                 "step": self.step, "updates": self.updates,
+                 "grads": [p.grad for p in self.params], "rng": rng}
+        if self.lora is not None:
+            state["lora"] = self.lora
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Put a :meth:`state_dict` (e.g. a restored checkpoint's, on the
         CPU) back into the live trainer."""
         self.model.load_state_dict(state["model"])
+        if self.lora is not None:
+            self._load_lora(state["lora"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.updates = int(state["step"]), int(state["updates"])
         for p, g in zip(self.params, state["grads"], strict=True):
@@ -441,6 +505,16 @@ class Trainer:
         torch.set_rng_state(state["rng"]["cpu"])
         if self.device.type == "cuda":
             torch.cuda.set_rng_state(state["rng"]["cuda"], self.device)
+
+    @torch.no_grad()
+    def _load_lora(self, lora: dict) -> None:
+        """Copy saved adapters into the live ones (the attached modules and
+        the optimizer hold these parameter objects)."""
+        if set(lora) != set(self.lora):
+            raise ValueError("the saved adapters target other kernels than this run's")
+        for path, ab in lora.items():
+            for k, v in ab.items():
+                self.lora[path][k].copy_(v)
 
     def check_replica_divergence(self) -> float:
         """Verify the parameter replicas agree across the ranks. Returns
@@ -505,13 +579,28 @@ class Trainer:
 
     def _best_snapshot(self) -> dict:
         """Host copy of the weights ``--keep_best`` must preserve (the
-        replicas are equal, so every rank copies its own)."""
-        return {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
+        replicas are equal, so every rank copies its own). Under LoRA only
+        what can change: the adapters and the trainable heads, not the
+        frozen base."""
+        def host(t):
+            return t.detach().to("cpu", copy=True)
 
+        if self.lora is None:
+            return {k: host(v) for k, v in self.model.state_dict().items()}
+        return {"lora": {p: {k: host(v) for k, v in ab.items()} for p, ab in self.lora.items()},
+                "heads": {n: host(p) for n, p in self.model.named_parameters()
+                          if p.requires_grad}}
+
+    @torch.no_grad()
     def _restore_best(self) -> None:
         """load_best_model_at_end: put the best snapshot back into the live
         model, then release the host copy."""
-        self.model.load_state_dict(self._best_params)
+        if self.lora is None:
+            self.model.load_state_dict(self._best_params)
+        else:
+            self._load_lora(self._best_params["lora"])
+            for name, value in self._best_params["heads"].items():
+                self.model.get_parameter(name).copy_(value)
         self._best_params = None
 
     # -- loops ---------------------------------------------------------------

@@ -369,8 +369,9 @@ def test_encoder_config_rejects_unported(field, value):
 def test_detect_family_and_missing_dir(tmp_path):
     assert t_auto.detect_family({"model_type": "bert"}) == "bert"
     assert t_auto.detect_family({"model_type": "roberta"}) == "roberta"
-    with pytest.raises(NotImplementedError):
-        t_auto.detect_family({"model_type": "deberta-v2"})
+    assert t_auto.detect_family({"model_type": "deberta-v2"}) == "deberta-v2"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        t_auto.detect_family({"model_type": "llama"})
     with pytest.raises(ValueError):
         t_auto.detect_family({"model_type": "mystery"})
     with pytest.raises(FileNotFoundError):

@@ -91,6 +91,8 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "T5_SMALL", dict(
         chip_smoke.T5_SMALL, vocab_size=600, d_model=64, d_kv=16, d_ff=128, num_layers=2,
         num_decoder_layers=2, num_heads=4))
+    monkeypatch.setattr(chip_smoke, "DEBERTA_V3_BASE", dict(
+        chip_smoke.DEBERTA_V3_BASE, **tiny, vocab_size=600, position_buckets=32))
     monkeypatch.setattr(chip_smoke, "BART_BASE", dict(
         chip_smoke.BART_BASE, vocab_size=600, d_model=64, encoder_layers=2, decoder_layers=2,
         encoder_attention_heads=4, decoder_attention_heads=4, encoder_ffn_dim=128,
@@ -206,7 +208,7 @@ def _small_vocab(monkeypatch, vocab=600, positions=None):
     """The rehearsal's encoder configs at a small vocab (the unfused MLM
     logits are [B, S, V]), and optionally fewer positions."""
     for name in ("BERT_BASE", "BERT_LARGE", "ROBERTA_BASE", "ELECTRA_SMALL",
-                 "ALBERT_BASE", "DISTILBERT_BASE"):
+                 "ALBERT_BASE", "DISTILBERT_BASE", "DEBERTA_V3_BASE"):
         cfg = dict(getattr(chip_smoke, name), vocab_size=vocab)
         if positions:
             cfg["max_position_embeddings"] = positions + (2 if name == "ROBERTA_BASE" else 0)
@@ -230,7 +232,15 @@ def test_train_phases_on_cpu(on_cpu, monkeypatch, tmp_path):
         f"{f}/{dt}" for f in families for dt in ("float32", "bfloat16")] + [
         f"{f}-mlm/{dt}" for f in ("bert",) + families for dt in ("float32", "bfloat16")] + [
         f"electra-rtd/{dt}" for dt in ("float32", "bfloat16")] + [
-        f"{f}-seq2seq/{dt}" for f in ("t5", "bart") for dt in ("float32", "bfloat16")])
+        f"{f}-seq2seq/{dt}" for f in ("t5", "bart") for dt in ("float32", "bfloat16")] + [
+        f"{n}/{dt}" for n in ("bert-lora", "gpt2-segment-packing", "deberta-mlm")
+        for dt in ("float32", "bfloat16")])
+    # LoRA: the adapters' and the heads' gradients only (the base frozen);
+    # DeBERTa holds no key bias apart (its p2c term gives it a gradient)
+    assert rows["bert-lora/float32"]["params"] == 2 * 4 * 2 + 4
+    assert rows["deberta-mlm/float32"]["key_bias_grad_norm_over_global"] == 0.0
+    assert all(rows[f"{n}/bfloat16"]["grad_dist_step_ratio"] <= 2.0
+               for n in ("bert-lora", "gpt2-segment-packing", "deberta-mlm"))
     # T5 has no key bias; BART's self- and cross-attention key biases are
     # held apart in both stacks
     assert rows["t5-seq2seq/float32"]["key_bias_grad_norm_over_global"] == 0.0
@@ -688,3 +698,147 @@ def test_seq2seq_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
     for row in rows.values():
         assert row["export_reloads_bit_for_bit"] and row["card"] == "cpu rehearsal"
         assert math.isfinite(row["loss"]) and row["dtype"] == "bfloat16"
+
+
+def test_every_packing_lora_deberta_phase_shape_is_held_against_its_plain_version():
+    """Each shape the packing, LoRA and DeBERTa phases launch K1 and K2 at
+    is a case the flash or vocab-CE phase holds against the plain version:
+    K1 at BERT-large's 16 heads and BERT-base's 12 at sequence 512 (masked)
+    and GPT-2's causal eval steps; K2 at GPT-2's B·S rows (train 8, eval 4
+    rows of 512), the K rows gathered from BERT-base's and DeBERTa-v3-base's
+    MLM batches at the bias-folded width. The segment-packed and DeBERTa
+    runs launch no K1."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        bias_fold_width,
+        mlm_gather_rows,
+    )
+
+    masked = {c[1:6] for c in chip_smoke.FLASH_CASES if c[6] and not c[7] and not c[9]}
+    causal = {c[1:6] for c in chip_smoke.FLASH_CASES if c[7] and c[8] is None}
+    vocab = {c[1:5] for c in chip_smoke.VOCAB_CASES}
+    cap = TrainConfig.fused_mlm_mask_cap
+    large, base = chip_smoke.BERT_LARGE, chip_smoke.BERT_BASE
+    for hf in (large, base):
+        heads = hf["num_attention_heads"]
+        assert (8, heads, 512, hf["hidden_size"] // heads, "bfloat16") in masked
+    gpt2 = chip_smoke.GPT2_124M
+    assert (8, gpt2["n_head"], 512, gpt2["n_embd"] // gpt2["n_head"], "bfloat16") in causal
+    for batch in (8, 4):
+        assert (batch * 512, gpt2["vocab_size"], gpt2["n_embd"], "bfloat16") in vocab
+        for hf in (base, chip_smoke.DEBERTA_V3_BASE):
+            shape = (mlm_gather_rows(batch * 512, cap), hf["vocab_size"],
+                     bias_fold_width(hf["hidden_size"]), "bfloat16")
+            assert shape in vocab, shape
+    assert set(chip_smoke.VOCAB_DEBERTA) == {c[0] for c in chip_smoke.VOCAB_CASES
+                                             if c[2] == 128100}
+    assert [r[0] for r in chip_smoke._packing_runs()] == [
+        "gpt2_unpacked", "gpt2_segment", "gpt2_packed", "bert_mlm_segment"]
+
+
+def _breadth_small(monkeypatch, **values):
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    _small_vocab(monkeypatch, positions=64)
+    # the EOS-joined rows take GPT-2's EOS, which must lie in the small vocab
+    monkeypatch.setattr(chip_smoke, "GPT2_124M", dict(chip_smoke.GPT2_124M, eos_token_id=299,
+                                                      bos_token_id=299))
+    for name, value in values.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def _printed(capsys) -> list:
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+def test_packing_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The packing phase at hidden 64, 2 layers and 3 steps: the launch
+    accounting (no K1 on segment-packed steps, K1 on the EOS-joined rows'
+    eval steps, K2 on every step), real over padded tokens (1 for the
+    EOS-joined rows), ``ce_dropped`` 0, the profiled passes, the exactness
+    gate's rows and the summary."""
+    _breadth_small(monkeypatch, PACK_STEPS=3, PACK_EVAL_SAMPLES=8, PACK_PROFILED_STEPS=2,
+                   PACK_EXACT_EXAMPLES=6)
+    rows = chip_smoke.packing_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["gpt2_unpacked", "gpt2_segment", "gpt2_packed", "bert_mlm_segment"]
+    printed = _printed(capsys)
+    assert [p["run"] for p in printed if p.get("phase") == "packing"] == list(rows)
+    exact = [p for p in printed if p.get("phase") == "packing_exactness"]
+    assert [p["loss"] for p in exact] == ["causal-lm", "mlm"]
+    assert all(p["loss_sum_rel_err"] <= 1e-5 and p["rows_packed"] <= p["rows_unpacked"]
+               for p in exact)
+    assert len([p for p in printed if p.get("phase") == "packing_summary"]) == 1
+    un, seg, packed, mlm = (rows[n] for n in rows)
+    L = 2
+    assert un["launches"] == {"flash_fwd": L * un["eval_steps"], "flash_bwd_dq": 0,
+                              "flash_bwd_dkv": 0, "fused_ce_fwd": 3 + un["eval_steps"],
+                              "fused_ce_bwd_dh": 3, "fused_ce_bwd_dw": 3}
+    assert un["eval_steps"] == 2 and 0 < seg["eval_steps"] <= 2
+    assert seg["launches"]["flash_fwd"] == 0 and seg["launches"]["fused_ce_bwd_dw"] == 3
+    assert packed["real_over_padded_tokens"] == 1.0
+    assert packed["launches"]["flash_fwd"] == L * packed["eval_steps"]
+    assert mlm["launches"]["flash_fwd"] == 0 and mlm["ce_dropped_train"] == 0.0
+    assert mlm["launches"]["fused_ce_fwd"] == 3 + mlm["eval_steps"]
+    assert seg["real_over_padded_tokens"] >= un["real_over_padded_tokens"]
+    for row in rows.values():
+        assert row["card"] == "cpu rehearsal" and math.isfinite(row["loss"])
+        assert row["profiled_steps"] == 2 and set(row["k2_ms_per_step"]) == set(
+            ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))
+
+
+def test_lora_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The LoRA phase at hidden 64, 2 layers: the launch accounting (K1 on
+    every train and eval step of the BERT run; K2's forward and dH on the
+    GPT-2 run's steps, no dW: its tied embedding is frozen), the
+    frozen base (only adapters, classifier and pooler moved), the merged
+    export and the sidecar reloaded, the resume bit for bit, the full
+    fine-tune's figures and the summary."""
+    _breadth_small(monkeypatch, LORA_STEPS=6, LORA_EVAL_SAMPLES=8, LORA_FULL_STEPS=2,
+                   LORA_CKPT_EVERY=2, LORA_STOP_AFTER=3, LORA_GPT2_STEPS=2,
+                   LORA_GPT2_EVAL_SAMPLES=4, LORA_PROFILED_STEPS=2,
+                   LORA_FULL_PROFILED_STEPS=1)
+    rows = chip_smoke.lora_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["bert_large_lora", "bert_large_full_finetune", "gpt2_lora_fused"]
+    a, b, g = rows.values()
+    assert a["launches"] == {"flash_fwd": 2 * (6 + 2), "flash_bwd_dq": 2 * 6,
+                             "flash_bwd_dkv": 2 * 6, "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0,
+                             "fused_ce_bwd_dw": 0}
+    assert a["resume_bit_for_bit"] and a["resumed_steps"] == 4
+    assert a["export_reloads_bit_for_bit"] and a["sidecar_reloads"]
+    assert set(a["moved"]) == {"backbone.pooler.pooler.weight", "backbone.pooler.pooler.bias",
+                               "classifier.weight", "classifier.bias"}
+    assert a["adapter_params"] == 2 * 4 * 8 * (64 + 64)
+    assert a["optimizer_state_bytes"] < b["optimizer_state_bytes"] / 5
+    assert b["train_steps"] == 2 and b["trainable_params"] > 10 * a["adapter_params"]
+    assert a["profiled_steps"] == 2 and b["profiled_steps"] == 1
+    assert g["launches"] == {"flash_fwd": 2 * 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                             "fused_ce_fwd": 2 + 1, "fused_ce_bwd_dh": 2,
+                             "fused_ce_bwd_dw": 0}
+    summary = [p for p in _printed(capsys) if p.get("phase") == "lora_summary"]
+    assert len(summary) == 1 and summary[0]["lora_over_full_optimizer_bytes"] < 0.2
+
+
+def test_deberta_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The DeBERTa phase at hidden 64, 2 layers: no K1 on any run, K2 on the
+    fused MLM run's train and eval steps, the exports reloaded bit for bit,
+    the profiled passes, the v2-style run's conv and separate position
+    projections, the summary."""
+    _breadth_small(monkeypatch, DEBERTA_STEPS=3, DEBERTA_EVAL_SAMPLES=8,
+                   DEBERTA_MLM_STEPS=2, DEBERTA_MLM_EVAL_SAMPLES=4, DEBERTA_V2_STEPS=2,
+                   DEBERTA_PROFILED_STEPS=2, DEBERTA_MLM_PROFILED_STEPS=1)
+    rows = chip_smoke.deberta_phase(tmp_path, "cpu rehearsal")
+    assert list(rows) == ["v3_base_seq_cls", "v3_base_mlm_fused", "v2_style_depth2"]
+    no_k1 = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    seq_cls, mlm, v2 = rows.values()
+    assert seq_cls["launches"] == {**no_k1, "fused_ce_fwd": 0, "fused_ce_bwd_dh": 0,
+                                   "fused_ce_bwd_dw": 0}
+    assert mlm["launches"] == {**no_k1, "fused_ce_fwd": 2 + 1, "fused_ce_bwd_dh": 2,
+                               "fused_ce_bwd_dw": 2}
+    assert mlm["ce_dropped_train"] == 0.0 and mlm["profiled_steps"] == 1
+    assert not v2["share_att_key"] and v2["conv_kernel_size"] == 3 and v2["layers"] == 2
+    assert seq_cls["pos_att_type"] == ["p2c", "c2p"] and seq_cls["eval_steps"] == 2
+    for row in rows.values():
+        assert row["export_reloads_bit_for_bit"] and math.isfinite(row["loss"])
+    summary = [p for p in _printed(capsys) if p.get("phase") == "deberta_summary"]
+    assert len(summary) == 1

@@ -316,15 +316,16 @@ def test_hf_key_rules_match_jax(family):
 def test_detect_family_and_config_builders():
     """The port's registry covers the JAX package's five encoder families
     times {seq-cls, token-cls, qa}; aliases map, the families still
-    unported (DeBERTa, Llama and its aliases) raise naming their ROADMAP
-    item; each builder gives the JAX config's fields."""
+    unported (Llama and its aliases) raise naming their ROADMAP item,
+    DeBERTa-v2 is known; each builder gives the JAX config's fields."""
     from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
 
     for family, task in CASES:
         assert (family, task) in t_auto.MODEL_REGISTRY
     assert t_auto.detect_family({"model_type": "xlm-roberta"}) == "roberta"
     assert t_auto.detect_family({"model_type": "camembert"}) == "roberta"
-    for mt in ("deberta-v2", "llama", "mistral"):
+    assert t_auto.detect_family({"model_type": "deberta-v2"}) == "deberta-v2"
+    for mt in ("llama", "mistral"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             t_auto.detect_family({"model_type": mt})
     with pytest.raises(ValueError):

@@ -466,9 +466,14 @@ def test_from_lm_texts_matches_jax():
     for key, value in want.columns.items():
         np.testing.assert_array_equal(got.columns[key], np.asarray(value), err_msg=key)
     assert (got.columns["labels"][got.columns["attention_mask"] == 0] == -100).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        t_pipe.ArrayDataset.from_lm_texts(t_tok.WordHashTokenizer(300), texts, SEQ,
-                                          packed=True)
+    # the EOS-joined layout (ROADMAP item 6, ported): the JAX rows exactly
+    packed = t_pipe.ArrayDataset.from_lm_texts(t_tok.WordHashTokenizer(300), texts, SEQ,
+                                               packed=True, eos_token_id=299)
+    want = ArrayDataset.from_lm_texts(WordHashTokenizer(300), texts, SEQ, packed=True,
+                                      eos_token_id=299)
+    for key, value in want.columns.items():
+        np.testing.assert_array_equal(packed.columns[key], np.asarray(value), err_msg=key)
+    assert (packed.columns["attention_mask"] == 1).all()
 
 
 def _tiny_model_dir(path):

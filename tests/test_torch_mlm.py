@@ -315,8 +315,12 @@ def test_mlm_dataset_redraws_per_epoch_and_batches_as_jax():
     np.testing.assert_array_equal(static.columns["labels"], epoch0)
     with pytest.raises(ValueError, match="static_masking"):
         ds.pack()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        static.pack()
+    # packing the pinned draw is ported: epoch 0's columns packed as JAX packs them
+    packed = static.pack()
+    want = ArrayDataset.from_mlm_texts(theirs, texts, SEQ, seed=4, static_masking=True).pack()
+    assert list(packed.columns) == list(want.columns)
+    for key, value in want.columns.items():
+        np.testing.assert_array_equal(packed.columns[key], np.asarray(value), err_msg=key)
 
     port = t_pipe.ShardedBatcher(ds, 8, seed=5, native=False)
     ref = ShardedBatcher(jds, 8, build_mesh(MeshConfig()), seed=5)
@@ -658,10 +662,12 @@ def _raise_sites():
 
     q = torch.zeros(1, 1, 4, 8)
     return [
-        ("config-lora", lambda: t_config.TrainConfig(lora_rank=4), "6"),
+        ("config-lora", lambda: _ported_config(dict(lora_rank=4),
+                                               dict(lora_rank=4, lora_alpha=0.0)), None),
         ("config-moe", lambda: t_config.TrainConfig(num_experts=4), "9"),
-        ("config-packing", lambda: t_config.TrainConfig(task="mlm", segment_packing=True),
-         "6"),
+        ("config-packing", lambda: _ported_config(
+            dict(task="mlm", segment_packing=True),
+            dict(task="mlm", segment_packing=True, streaming=True)), None),
         ("config-lamb", lambda: t_config.TrainConfig(optimizer="lamb"), "4"),
         ("config-bf16-moments",
          lambda: t_config.TrainConfig(optimizer_state_dtype="bfloat16"), "4"),
@@ -683,8 +689,7 @@ def _raise_sites():
         ("attention-ring", lambda: t_attn.dot_product_attention(q, q, q, impl="ring"), "11"),
         ("optim-lamb", lambda: t_optim.build_optimizer(
             SimpleNamespace(optimizer="lamb"), []), "4"),
-        ("pipeline-packed", lambda: t_pipe.ArrayDataset.from_lm_texts(
-            t_tok.WordHashTokenizer(64), ["a b"], 8, packed=True), "6"),
+        ("pipeline-packed", _ported_packed_lm_rows, None),
         ("auto-family", lambda: t_auto.detect_family({"model_type": "llama"}), "9"),
         ("auto-export", lambda: t_auto.save_pretrained("/nonexistent", None, "llama", None),
          "9"),
@@ -705,6 +710,34 @@ def _raise_sites():
     ]
 
 
+def _ported_config(valid: dict, invalid: dict) -> None:
+    """A config of ROADMAP item 6, now ported: ``valid`` builds as in
+    the JAX package and ``invalid`` raises the JAX package's ``ValueError``
+    word for word."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import TrainConfig
+
+    assert t_config.TrainConfig(**valid).to_dict().items() <= TrainConfig(**valid).to_dict().items()
+    with pytest.raises(ValueError) as want:
+        TrainConfig(**invalid)
+    with pytest.raises(ValueError) as got:
+        t_config.TrainConfig(**invalid)
+    assert str(got.value) == str(want.value)
+
+
+def _ported_packed_lm_rows() -> None:
+    """``from_lm_texts(packed=True)`` (ROADMAP item 6, ported): the JAX rows."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.data import (
+        ArrayDataset,
+        WordHashTokenizer,
+    )
+
+    texts = ["a b c d e", "f g h", "i j k l m n o p"] * 3
+    got = t_pipe.ArrayDataset.from_lm_texts(t_tok.WordHashTokenizer(64), texts, 8, packed=True)
+    want = ArrayDataset.from_lm_texts(WordHashTokenizer(64), texts, 8, packed=True)
+    for key, value in want.columns.items():
+        np.testing.assert_array_equal(got.columns[key], np.asarray(value), err_msg=key)
+
+
 def _int8_engine():
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
@@ -720,8 +753,13 @@ def _int8_engine():
                          ids=[s[0] for s in _raise_sites()])
 def test_unported_raises_name_their_roadmap_item(site):
     """No raise names a slice letter any more: each names its ROADMAP
-    queue 1 item."""
+    queue 1 item. The sites of item 6, now ported, run instead (a
+    ported config builds and its invalid form raises the JAX ``ValueError``;
+    the packed LM rows equal the JAX ones)."""
     _, call, item = _raise_sites()[site]
+    if item is None:
+        call()
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\b") as err:
         call()
     assert "slice" not in str(err.value)

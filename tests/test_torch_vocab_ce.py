@@ -566,8 +566,10 @@ def test_tc_smem_bytes_mirror_the_library(cuda_device):
 # the fused MLM loss's shapes: K = 1024 gathered rows (B 8 x S 512 x the
 # 0.25 cap), BERT's vocab, the hidden width with the decoder bias folded in
 # (train/trainer.py:bias_fold_width): BERT-base 768 -> 776, BERT-large
-# 1024 -> 1032
-MLM_CASES = [(1024, 30522, 776), (1024, 30522, 1032)]
+# 1024 -> 1032; DeBERTa-v3-base's vocab of 128100 at 776, train (K 1024)
+# and eval (K 512)
+MLM_CASES = [(1024, 30522, 776), (1024, 30522, 1032), (1024, 128100, 776),
+             (512, 128100, 776)]
 
 
 @pytest.mark.parametrize("h_dim,routes,dw_at_128_lanes", [
@@ -592,7 +594,8 @@ def test_bias_fold_width_keeps_the_mlm_routes(h_dim, routes, dw_at_128_lanes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", MLM_CASES, ids=lambda c: f"H{c[2]}")
+@pytest.mark.parametrize("case", MLM_CASES, ids=lambda c: f"H{c[2]}" if c[1] == 30522
+                         else f"N{c[0]}-V{c[1]}-H{c[2]}")
 def test_mlm_shapes_match_reference_on_card(cuda_device, case):
     """K2 at the fused MLM loss's shapes, bf16 hidden with the folded bias
     column ``[h | 1 | 0...]`` and ``[W | b | 0...]``: each kernel against
