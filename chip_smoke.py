@@ -41,7 +41,16 @@ failure raises and exits non-zero:
    Requires ``paged_kernel_launches == decode_steps * num_layers`` and
    the engine's tokens equal to the plain ``generate_causal`` on the
    card, up to the first step where the plain path's top-2 logit gap is
-   below 1e-3 (a near-tie, counted and printed);
+   below 1e-3 (a near-tie, counted and printed); then the same trace
+   twice more (``serve_sampling_int8_phase``): (i) every other request
+   sampled (temperature 0.8, top-p 0.9, its index as seed) on the default
+   pool and on a pool that forces preemption: the sampled streams equal
+   bit for bit, each sampled token ``sample_per_slot``'s draw on a plain
+   forward up to the first near-tie of the noisy warped logits, the greedy
+   ones ``generate_causal``'s; (ii) int8 pools: tokens equal
+   ``generate_causal`` on the int8 dense cache (near-tie rule), pool bytes
+   per token fp32 and int8 and the blocks equal bytes buy; K3 launched 12
+   times a decode step in every run;
 4. profile: the same trace on a fresh engine under ``torch.profiler``,
    printing device time by kernel and the device's idle share;
 5. flash kernels: holds ``flash_fwd``, ``flash_bwd_dq`` and
@@ -221,7 +230,26 @@ failure raises and exits non-zero:
    CLI's results-file keys and a ``model.safetensors`` that reloads with
    identical logits; then a short ``torch.profiler`` pass for device time
    by kernel and the idle share, which must name the three K2 kernels;
-9. each phase's wall seconds, the ``kernels`` line, the card's line, and the final
+9. decoding (``decode_phase``): GPT-2 124M from the export of 8 (b), 8
+   vendored reviews as right-padded prompts of up to 128 tokens, 128 new
+   tokens, fp32 (TF32 off): greedy; sampled (temperature 0.8, top-k 50,
+   top-p 0.9) twice with one seed, identical; beam 4 (and beam 1, equal to
+   greedy); speculative with ``self_draft(4)``, k 4; chunked prefill (32);
+   the int8 KV cache; ``quantize_for_generation`` (logits correlation above
+   0.999 and max relative error below 0.05 against fp32, the JAX tests'
+   quality contract). Speculative, chunked and beam-1 tokens equal greedy
+   up to each row's first near-tie. Each run's TTFT, decode tokens/s, peak
+   memory, busy time and idle share; the speculative acceptance rate and
+   tokens per target pass; the weight bytes; then the runs again in bf16
+   (times only). T5-small and BART-base widths (random, seed 0): greedy,
+   sampled, beam 4 (its score at least greedy's), speculative T5 with a
+   2-layer draft (tokens equal greedy up to the first near-tie; BART
+   refused), the int8 model (its logits' correlation read); tokens/s each.
+   The predict CLI in subprocesses started together on the script's
+   exports (seq-cls, mlm, causal-lm beam, sampled and self-speculative,
+   seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
+10. each phase's wall seconds, the ``kernels`` line (the paged kernel's
+   ``launches_by_path``), the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -638,7 +666,14 @@ def kernel_phase() -> dict:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def serve_trace():
+SERVE_CONFIG: dict = {}         # Gpt2Config overrides: none, GPT-2 124M
+SERVE_MAX_LEN = 1024
+SERVE_LONG_PROMPTS = (512, 897)  # the 4 long requests' prompt lengths
+SERVE_TIGHT_BLOCKS = 1 + 72      # a pool two long requests overflow: preemption
+SERVE_SAMPLING = dict(temperature=0.8, top_p=0.9)   # every other request, seed = its index
+
+
+def serve_trace(vocab: int = 50257):
     import numpy as np
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import (
@@ -646,92 +681,150 @@ def serve_trace():
     )
 
     rng = np.random.RandomState(0)
-    vocab = 50257 - 1
+    vocab = vocab - 1
     # scripts/serve.py's synthetic defaults: prompts 8-48, max_new 64
     trace = make_trace(rng, 16, vocab, 8, 48, (4, 16), (32, 64), long_every=4)
     for _ in range(4):              # long prompts: decode walks up to 60 blocks
-        p = int(rng.randint(512, 897))
+        p = int(rng.randint(*SERVE_LONG_PROMPTS))
         trace.append((rng.randint(1, vocab, (p,)).astype(np.int32),
                       int(rng.randint(32, 65))))
     return trace
 
 
-def serve_engine(model):
+def serve_engine(model, num_blocks: int | None = None, **kw):
     """The serve phase's engine: 8 slots, block 16, chunk 16, prefill
     batch 4, max_model_len 1024 and ``scripts/serve.py``'s default pool
-    of 3/4 of slots x max_model_len."""
+    of 3/4 of slots x max_model_len (``num_blocks`` or ``kw`` override)."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
         ServeEngine,
     )
 
-    max_len, bs, slots = 1024, 16, 8
+    max_len, bs, slots = SERVE_MAX_LEN, 16, 8
+    if num_blocks is None and "kv_pool_bytes" not in kw:
+        num_blocks = 1 + slots * (max_len // bs) * 3 // 4
     return ServeEngine(model, num_slots=slots, block_size=bs,
-                       num_blocks=1 + slots * (max_len // bs) * 3 // 4,
-                       prefill_chunk=16, prefill_batch=4,
-                       max_model_len=max_len, device="cuda")
+                       num_blocks=num_blocks or 2, prefill_chunk=16, prefill_batch=4,
+                       max_model_len=max_len, device=DEVICE, **kw)
 
 
-def serve_phase() -> tuple[dict, object, list]:
-    import torch
-
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
-        init_gpt2,
-    )
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
-        generate_causal,
-    )
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
-        Gpt2Config,
-    )
+def _counted_serve(engine, trace, sampling=None) -> tuple:
+    """Submit ``trace`` (``sampling[i]``: request i's sampling knobs), run
+    the engine with the paged kernel's count set to 0 just before:
+    ``(requests, wall seconds, launches)``; checks the launches equal
+    decode steps x layers."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
     )
 
-    cfg = Gpt2Config(hidden_dropout=0.0, embd_dropout=0.0, attention_dropout=0.0)
-    model = init_gpt2(cfg, seed=0, device="cuda")
-    engine = serve_engine(model)
-    trace = serve_trace()
-    reqs = [engine.submit(p, m) for p, m in trace]
+    sampling = sampling or [{}] * len(trace)
+    reqs = [engine.submit(p, m, **kw) for (p, m), kw in zip(trace, sampling)]
     paged_decode_attention.launches = 0
+    _sync()
     t0 = time.perf_counter()
     engine.run()
-    torch.cuda.synchronize()
+    _sync()
     wall = time.perf_counter() - t0
     launches = paged_decode_attention.launches
     stats = engine.stats()
+    layers = engine.model.config.num_layers
     check(stats.decode_steps > 0 and launches > 0, "no decode step ran the kernel")
-    check(launches == stats.decode_steps * cfg.num_layers
-          and stats.paged_kernel_launches == launches,
-          f"paged_kernel_launches {launches} != decode_steps "
-          f"{stats.decode_steps} x {cfg.num_layers}")
+    check(launches == stats.decode_steps * layers and stats.paged_kernel_launches == launches,
+          f"paged_kernel_launches {launches} != decode_steps {stats.decode_steps} x {layers}")
     check(len(engine.finished) == len(trace), "not every request finished")
+    return reqs, wall, launches
 
-    near_ties = 0
-    compared = 0
-    t1 = time.perf_counter()
-    for (prompt, max_new), req in zip(trace, reqs):
+
+def _greedy_agreement(model, engine, trace, reqs, skip=()) -> tuple[int, int]:
+    """Each greedy request's tokens against the plain ``generate_causal``
+    of ``model`` (its own KV storage), up to the first step where the plain
+    path's top-2 logit gap is below ``NEAR_TIE``: ``(tokens compared, near
+    ties)``. Requests whose index is in ``skip`` are left out."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
+
+    eos = model.config.eos_token_id
+    near_ties = compared = 0
+    for i, ((prompt, max_new), req) in enumerate(zip(trace, reqs)):
+        if i in skip:
+            continue
         got = [int(x) for x in engine.output_ids(req)]
-        ids, scores = generate_causal(model, torch.as_tensor(prompt)[None],
+        ids, scores = generate_causal(model, torch.as_tensor(prompt, device=DEVICE)[None],
                                       max_new_tokens=max_new, output_scores=True)
         check(bool(torch.isfinite(scores).all()), f"request {req.rid}: "
               "non-finite logits on the plain path")
         ref = ids[0].tolist()
-        if cfg.eos_token_id in ref:
-            ref = ref[:ref.index(cfg.eos_token_id) + 1]
+        if eos in ref:
+            ref = ref[:ref.index(eos) + 1]
         top2 = scores[0, :len(ref)].topk(2, dim=-1).values
         gaps = (top2[:, 0] - top2[:, 1]).tolist()
-        n = next((i for i, gp in enumerate(gaps) if gp < NEAR_TIE), len(ref))
-        if n < len(ref):
-            near_ties += 1
-        # tokens must agree through the first near-tie step inclusive of
-        # everything before it; after it the paths may legitimately split
+        n = next((j for j, gp in enumerate(gaps) if gp < NEAR_TIE), len(ref))
+        near_ties += n < len(ref)
+        # tokens must agree before the first near-tie step; after it the
+        # paths may legitimately split
         check(len(got) == len(ref) or n < len(ref),
-              f"request {req.rid}: engine emitted {len(got)} tokens, plain "
-              f"path {len(ref)}")
-        check(got[:n] == ref[:n], f"request {req.rid}: engine tokens differ "
-              f"from plain generate_causal before any near-tie "
-              f"(engine {got[:n]}, plain {ref[:n]})")
+              f"request {req.rid}: engine emitted {len(got)} tokens, plain path {len(ref)}")
+        check(got[:n] == ref[:n], f"request {req.rid}: engine tokens differ from plain "
+              f"generate_causal before any near-tie (engine {got[:n]}, plain {ref[:n]})")
         compared += n
+    return compared, near_ties
+
+
+def _sampled_agreement(model, engine, trace, reqs, sampling) -> tuple[int, int]:
+    """Each sampled request's tokens against ``sample_per_slot`` on a plain
+    full forward of its prompt and the tokens before, at its (seed, token
+    index), up to the first step where the warped logits plus the draw's
+    noise have a top-2 gap below ``NEAR_TIE``: ``(tokens compared, near
+    ties)``."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
+
+    near_ties = compared = 0
+    for (prompt, _), req, kw in zip(trace, reqs, sampling):
+        if not kw:
+            continue
+        out = [int(x) for x in engine.output_ids(req)]
+        seq = torch.as_tensor(list(prompt) + out, device=DEVICE)[None]
+        with torch.inference_mode():
+            logits = model(seq)[0, len(prompt) - 1:-1].float()
+        n_tok = logits.shape[0]
+        full = lambda v: torch.full((n_tok,), v, device=DEVICE)   # noqa: E731
+        warped = gen.warp_logits_per_slot(logits, full(kw["temperature"]),
+                                          full(kw.get("top_k", 0)).long(),
+                                          full(kw.get("top_p", 0.0)))
+        noisy = warped + gen._slot_gumbel(full(kw["seed"]).long(),
+                                          torch.arange(n_tok, device=DEVICE), logits.shape[-1])
+        top2 = noisy.topk(2, dim=-1).values
+        want = noisy.argmax(-1).tolist()
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        n = next((j for j, gp in enumerate(gaps) if gp < NEAR_TIE), n_tok)
+        near_ties += n < n_tok
+        check(out[:n] == want[:n], f"request {req.rid}: sampled tokens differ from the plain "
+              f"draw before any near-tie (engine {out[:n]}, plain {want[:n]})")
+        compared += n
+    return compared, near_ties
+
+
+def serve_phase() -> tuple[dict, object, list]:
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_gpt2,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
+        Gpt2Config,
+    )
+
+    cfg = Gpt2Config(hidden_dropout=0.0, embd_dropout=0.0, attention_dropout=0.0,
+                     **SERVE_CONFIG)
+    model = init_gpt2(cfg, seed=0, device=DEVICE)
+    engine = serve_engine(model)
+    trace = serve_trace(cfg.vocab_size)
+    reqs, wall, launches = _counted_serve(engine, trace)
+    stats = engine.stats()
+    t1 = time.perf_counter()
+    compared, near_ties = _greedy_agreement(model, engine, trace, reqs)
     plain_s = time.perf_counter() - t1
     slo = engine.slo_summary()
     tokens = sum(len(engine.output_ids(r)) for r in reqs)
@@ -753,6 +846,99 @@ def serve_phase() -> tuple[dict, object, list]:
     return row, model, trace
 
 
+def _kv_twin(model, kv_cache_dtype: str):
+    """``model`` with another KV storage, sharing its tensors."""
+    import dataclasses
+
+    import torch
+
+    with torch.device("meta"):
+        twin = type(model)(dataclasses.replace(model.config, kv_cache_dtype=kv_cache_dtype))
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
+
+
+def serve_sampling_int8_phase(model, trace, kernels: dict) -> dict:
+    """The serve trace twice more: (i) every other request sampled
+    (``SERVE_SAMPLING``, seed = its index) on the default pool and on a
+    pool that forces preemption: the sampled streams must be the same bit
+    for bit, each sampled token ``sample_per_slot``'s draw on a plain
+    forward, the greedy ones ``generate_causal``'s (near-tie rule); (ii)
+    int8 pools (``kv_cache_dtype='int8'``, K3's int8 route): tokens equal
+    ``generate_causal`` on the int8 dense cache (near-tie rule); pool bytes
+    per token fp and int8 and what each admits on equal bytes. Each run's
+    K3 launches are decode steps x layers."""
+    sampling = [dict(SERVE_SAMPLING, seed=i) if i % 2 else {} for i in range(len(trace))]
+    runs, rows = {}, {}
+    for name, blocks in (("sampled", None), ("sampled_tight", SERVE_TIGHT_BLOCKS)):
+        engine = serve_engine(model, num_blocks=blocks)
+        reqs, wall, launches = _counted_serve(engine, trace, sampling)
+        runs[name] = (engine, reqs)
+        stats = engine.stats()
+        tokens = sum(len(engine.output_ids(r)) for r in reqs)
+        rows[name] = {"phase": "serve_sampled", "run": name, "requests": len(reqs),
+                      "sampled_requests": sum(1 for kw in sampling if kw),
+                      "sampling": SERVE_SAMPLING, "num_blocks": engine.blocks.num_blocks,
+                      "tokens": tokens, "tokens_per_sec": tokens / wall, "wall_s": wall,
+                      "decode_steps": stats.decode_steps, "preemptions": stats.preemptions,
+                      "decode_tokens_per_sec": engine.slo_summary().get("decode_tokens_per_sec"),
+                      "paged_kernel_launches": launches}
+    (base, base_reqs), (tight, tight_reqs) = runs["sampled"], runs["sampled_tight"]
+    check(tight.stats().preemptions >= 1, "the tight pool preempted nothing")
+    streams = [[int(t) for t in base.output_ids(r)] for r in base_reqs]
+    tight_streams = [[int(t) for t in tight.output_ids(r)] for r in tight_reqs]
+    for i, kw in enumerate(sampling):
+        if kw:
+            check(streams[i] == tight_streams[i], f"request {i}: the sampled stream changed "
+                  f"under preemption ({streams[i]} vs {tight_streams[i]})")
+    sampled_idx = {i for i, kw in enumerate(sampling) if kw}
+    compared, near_ties = _greedy_agreement(model, base, trace, base_reqs, skip=sampled_idx)
+    s_compared, s_near_ties = _sampled_agreement(model, base, trace, base_reqs, sampling)
+    rows["sampled"].update(greedy_tokens_compared_with_plain=compared, near_ties=near_ties,
+                           sampled_tokens_compared_with_plain=s_compared,
+                           sampled_near_ties=s_near_ties,
+                           sampled_streams_equal_under_preemption=True)
+
+    int8_model = _kv_twin(model, "int8")
+    fp_engine = serve_engine(model)
+    int8_engine = serve_engine(model, kv_cache_dtype="int8")
+    reqs, wall, launches = _counted_serve(int8_engine, trace)
+    compared, near_ties = _greedy_agreement(int8_model, int8_engine, trace, reqs)
+    same_bytes = serve_engine(model, kv_cache_dtype="int8",
+                              kv_pool_bytes=fp_engine.blocks.pool_bytes)
+    cfg = model.config
+    heads, head_dim = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    tokens = sum(len(int8_engine.output_ids(r)) for r in reqs)
+    k3 = kernels.get("int8", {})
+    rows["int8"] = {
+        "phase": "serve_int8", "requests": len(reqs), "tokens": tokens,
+        "tokens_per_sec": tokens / wall, "wall_s": wall,
+        "decode_steps": int8_engine.stats().decode_steps,
+        "decode_tokens_per_sec": int8_engine.slo_summary().get("decode_tokens_per_sec"),
+        "preemptions": int8_engine.stats().preemptions, "paged_kernel_launches": launches,
+        "tokens_compared_with_plain_int8": compared, "near_ties": near_ties,
+        "pool_bytes_per_token": {"fp32": fp_engine.blocks.token_bytes,
+                                 "int8": int8_engine.blocks.token_bytes},
+        "bytes_per_token_per_head": {"fp32": 2 * 4 * head_dim, "int8": 2 * (head_dim + 4)},
+        "equal_bytes": {"pool_bytes": fp_engine.blocks.pool_bytes,
+                        "fp32_blocks": fp_engine.blocks.num_blocks,
+                        "int8_blocks": same_bytes.blocks.num_blocks,
+                        "fp32_full_context_requests": (fp_engine.blocks.num_blocks - 1)
+                        // (SERVE_MAX_LEN // 16),
+                        "int8_full_context_requests": (same_bytes.blocks.num_blocks - 1)
+                        // (SERVE_MAX_LEN // 16),
+                        "ratio": (same_bytes.blocks.num_blocks - 1)
+                        / (fp_engine.blocks.num_blocks - 1)},
+        "k3_int8_kernel_ms": k3.get("kernel_ms"), "k3_int8_bound_ms": k3.get("bound_ms"),
+        "k3_int8_case": "int8"}
+    check(same_bytes.blocks.num_blocks > 2 * fp_engine.blocks.num_blocks,
+          "int8 pools did not hold more than twice the blocks on equal bytes")
+    for r in rows.values():
+        emit(r)
+    del fp_engine, same_bytes
+    return rows
+
+
 def profile_phase(model, trace, serve_wall_s: float) -> dict:
     """The serve trace once more, on a fresh engine under
     ``torch.profiler`` (device activity only): device time by kernel, the
@@ -765,7 +951,7 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
     engine = serve_engine(model)
     for prompt, max_new in trace:
         engine.submit(prompt, max_new)
-    torch.cuda.synchronize()
+    _sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run()
@@ -3835,6 +4021,442 @@ def gpt2_cli_phase(work: Path) -> dict:
     return row
 
 
+# -- decoding (sampling, beam, speculative, chunked prefill, int8) -----------------
+
+DECODE_ROWS = 8                 # prompts from the vendored reviews, right-padded
+DECODE_PROMPT = 128             # tokens at most
+DECODE_NEW = 128
+DECODE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+DECODE_SEED = 7
+DECODE_BEAMS = 4
+DECODE_DRAFT_LAYERS = 4         # self_draft's first blocks
+DECODE_K = 4
+DECODE_CHUNK = 32
+DECODE_PROFILED_NEW = 16        # the profiled call's new tokens: its trace's size
+QUANT_CORR = 0.999              # tests/test_quant.py's quality contract
+QUANT_REL = 0.05
+S2S_DECODE_NEW = 64
+S2S_DRAFT_LAYERS = 2
+PREDICT_NEW = 32
+
+
+def _near_tie_steps(scores, tokens, eos: int) -> list:
+    """Per row, the number of leading steps before the first one whose
+    top-2 logit gap is below ``NEAR_TIE`` (steps after the row's EOS are
+    no ties: both sides pad there)."""
+    top2 = scores.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).tolist()
+    out = []
+    for row, gap in zip(tokens.tolist(), gaps):
+        stop = row.index(eos) + 1 if eos in row else len(row)
+        out.append(next((j for j, gp in enumerate(gap[:stop]) if gp < NEAR_TIE), len(row)))
+    return out
+
+
+def _agree(name: str, got, want, steps: list) -> int:
+    """``got`` equals ``want`` on each row's first ``steps[r]`` tokens;
+    returns the tokens compared."""
+    for r, n in enumerate(steps):
+        check(got[r, :n].tolist() == want[r, :n].tolist(),
+              f"decode {name}: row {r} differs from greedy before any near-tie "
+              f"({got[r, :n].tolist()} vs {want[r, :n].tolist()})")
+    return sum(steps)
+
+
+def _decode_timing(run, rows: int, new: int, profiled: bool = True) -> tuple:
+    """``run(max_new_tokens)`` timed: TTFT (a call for one token), the
+    wall of a full call and its decode tokens/s, the peak allocated
+    memory, then (``profiled``) the idle share of a call for
+    ``DECODE_PROFILED_NEW`` tokens: 1 - its device busy time under the
+    profiler over its wall unprofiled (a full call's trace takes the
+    profiler 10-20 s to read). Returns (row, the full call's output)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(1)
+    _sync()
+    t0 = time.perf_counter()
+    run(1)
+    _sync()
+    ttft = time.perf_counter() - t0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run(new)
+    _sync()
+    wall = time.perf_counter() - t0
+    row = {"ttft_s": ttft, "wall_s": wall,
+           "decode_tokens_per_sec": rows * (new - 1) / max(wall - ttft, 1e-9),
+           "tokens_per_sec": rows * new / wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() if DEVICE == "cuda"
+           else "not measured"}
+    if profiled:
+        short = min(new, DECODE_PROFILED_NEW)
+        t0 = time.perf_counter()
+        run(short)
+        _sync()
+        short_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
+            run(short)
+            _sync()
+        busy = sum(_device_seconds_by_kernel(prof).values())
+        row.update(profiled_new_tokens=short, profiled_wall_s=short_wall,
+                   device_busy_s=busy if busy else "not measured",
+                   idle_share=1.0 - busy / short_wall if busy else "not measured")
+    return row, out
+
+
+def _decode_prompts(tokenizer, n: int, width: int):
+    """``n`` vendored test reviews as right-padded prompts of at most
+    ``width`` tokens: (ids, mask) on the device."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+
+    texts, _ = load_text_classification("vendored_reviews", "test", max_samples=n)
+    enc = tokenizer(texts, max_length=width, padding="longest")
+    return (torch.as_tensor(enc["input_ids"], device=DEVICE).long(),
+            torch.as_tensor(enc["attention_mask"], device=DEVICE).long())
+
+
+def decode_phase(model_dir: Path, card: str) -> dict:
+    """(a) GPT-2 124M decoding from the export ``gpt2_cli_phase`` wrote (20
+    steps on the reviews), fp32 with TF32 off: greedy, sampled twice with
+    one seed (identical), beam 4 (beam 1 equals greedy), speculative with
+    ``self_draft(4)`` and k 4 (tokens equal greedy up to the first
+    near-tie), chunked prefill (the same), the int8 KV cache, and the int8
+    weight-only model (logits held to the JAX quality contract); each
+    timed (TTFT, decode tokens/s, busy, idle share, peak memory) and again
+    in bf16 (timings only)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import (
+        quantize_for_generation,
+    )
+
+    tokenizer = load_tokenizer(str(model_dir))
+    ids, mask = _decode_prompts(tokenizer, DECODE_ROWS, DECODE_PROMPT)
+    B, T = ids.shape[0], DECODE_NEW
+    rows: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        t_setup = time.perf_counter()
+        model, _, cfg = auto.from_pretrained(str(model_dir), task="causal-lm", dtype=dtype,
+                                             device=DEVICE)
+        model.eval().requires_grad_(False)
+        int8_kv = _kv_twin(model, "int8")
+        t_quant = time.perf_counter()
+        qmodel, qstats = quantize_for_generation(model)
+        qstats = dict(qstats, quantize_s=time.perf_counter() - t_quant,
+                      setup_s=time.perf_counter() - t_setup)
+        draft = gen.self_draft(model, DECODE_DRAFT_LAYERS)
+        spec_stats = {}
+
+        def speculative(n):
+            out, spec_stats[n] = gen.generate_speculative(
+                model, draft, ids, mask, max_new_tokens=n, speculate_k=DECODE_K,
+                return_stats=True)
+            return out
+
+        runs = {
+            "greedy": lambda n: gen.generate_causal(model, ids, mask, max_new_tokens=n),
+            "sampled": lambda n: gen.generate_causal(model, ids, mask, max_new_tokens=n,
+                                                     seed=DECODE_SEED, **DECODE_SAMPLING),
+            "beam4": lambda n: gen.beam_search_causal(model, ids, mask, num_beams=DECODE_BEAMS,
+                                                      max_new_tokens=n),
+            "speculative": speculative,
+            "chunked_prefill": lambda n: gen.generate_causal(model, ids, mask, max_new_tokens=n,
+                                                             prefill_chunk=DECODE_CHUNK),
+            "int8_kv": lambda n: gen.generate_causal(int8_kv, ids, mask, max_new_tokens=n),
+            "int8_weights": lambda n: gen.generate_causal(qmodel, ids, mask, max_new_tokens=n),
+        }
+        outs = {}
+        for name, run in runs.items():
+            t_run = time.perf_counter()
+            row, out = _decode_timing(run, B, T, profiled=fp32)
+            row["run_s"] = time.perf_counter() - t_run
+            row.update({"phase": "decode", "run": name, "model": "gpt2 124M, 20 trained steps",
+                        "dtype": str(dtype).replace("torch.", ""), "rows": B,
+                        "prompt_width": int(ids.shape[1]), "new_tokens": T})
+            if name == "speculative":
+                st = spec_stats[T]            # the full call's
+                row.update(st, acceptance_rate=(st["accepted_per_window"] - 1) / DECODE_K,
+                           tokens_per_target_pass=st["accepted_per_window"])
+            if name == "int8_weights":
+                row.update(qstats)
+            outs[name] = out
+            rows[(name, row["dtype"])] = row
+        if fp32:
+            greedy, scores = gen.generate_causal(model, ids, mask, max_new_tokens=T,
+                                                 output_scores=True)
+            check(torch.equal(greedy, outs["greedy"]), "greedy decode is not repeatable")
+            check(torch.equal(runs["sampled"](T), outs["sampled"]),
+                  "two sampled runs with one seed differ")
+            check(bool(((outs["sampled"] >= 0) & (outs["sampled"] < cfg.vocab_size)).all()),
+                  "sampled ids outside the vocabulary")
+            steps = _near_tie_steps(scores, greedy, cfg.eos_token_id)
+            near = sum(n < T for n in steps)
+            beam1 = gen.beam_search_causal(model, ids, mask, num_beams=1, max_new_tokens=T)
+            gates = {"near_tie_rows": near,
+                     "speculative_tokens_compared": _agree("speculative", outs["speculative"],
+                                                           greedy, steps),
+                     "chunked_tokens_compared": _agree("chunked_prefill",
+                                                       outs["chunked_prefill"], greedy, steps),
+                     "beam1_tokens_compared": _agree("beam1", beam1, greedy, steps),
+                     "int8_kv_rows_equal_greedy": sum(
+                         torch.equal(a, b) for a, b in zip(outs["int8_kv"], greedy))}
+            with torch.inference_mode():
+                fp = model(ids, mask).double()
+                q8 = qmodel(ids, mask).double()
+            real = mask.bool()
+            fp, q8 = fp[real], q8[real]
+            corr = float(torch.corrcoef(torch.stack([fp.flatten(), q8.flatten()]))[0, 1])
+            rel = float((q8 - fp).abs().max() / (fp.abs().max() + 1e-9))
+            check(corr > QUANT_CORR and rel < QUANT_REL,
+                  f"int8 weight-only logits: correlation {corr}, max relative error {rel}")
+            gates.update(int8_logits_correlation=corr, int8_logits_max_rel_err=rel,
+                         weight_bytes_fp32=sum(p.numel() * p.element_size()
+                                               for p in model.parameters()),
+                         weight_bytes_int8=sum(p.numel() * p.element_size()
+                                               for p in qmodel.parameters()))
+            rows[("gates", "float32")] = dict(phase="decode_gates", **gates)
+            del greedy, scores, fp, q8
+        del model, int8_kv, qmodel, draft
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    for row in rows.values():
+        emit(row)
+    return rows
+
+
+def _s2s_sources(vocab: int, n: int, width: int):
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        synthetic_summarization,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    docs, _ = synthetic_summarization(n, seed=3)
+    enc = WordHashTokenizer(vocab_size=vocab)(docs, max_length=width, padding="longest")
+    return (torch.as_tensor(enc["input_ids"], device=DEVICE).long(),
+            torch.as_tensor(enc["attention_mask"], device=DEVICE).long())
+
+
+def _teacher_forced(model, src, mask, tokens):
+    """fp32 log-probabilities of ``tokens`` [B, T] under a teacher-forced
+    decode (the first from ``decoder_start_token_id``) and the logits."""
+    import torch
+
+    cfg = model.config
+    start = torch.full_like(tokens[:, :1], cfg.decoder_start_token_id).long()
+    dec = torch.cat([start, tokens[:, :-1].long()], 1)
+    with torch.inference_mode():
+        logits = model(src, mask, dec).float()
+    logp = torch.log_softmax(logits, -1).gather(-1, tokens.long()[..., None])[..., 0]
+    if getattr(cfg, "forced_bos_token_id", None) is not None:
+        logp[:, 0] = 0.0                 # the forced first token is a point mass
+    return logp, logits
+
+
+def seq2seq_decode_phase(work: Path) -> dict:
+    """(b) T5-small and BART-base widths (``config.json`` written, random
+    weights from seed 0), fp32: greedy, sampled, beam 4 (its score at
+    least greedy's), speculative with a 2-layer draft of the same vocabulary
+    (T5: tokens equal greedy up to the first near-tie; BART is refused, as
+    in the JAX package) and the int8 weight-only model (its logits'
+    correlation and error read, not gated); tokens/s of each."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import (
+        quantize_for_generation,
+    )
+
+    rows = {}
+    T = S2S_DECODE_NEW
+    for name, hf in (("t5_small", T5_SMALL), ("bart_base", BART_BASE)):
+        model, _, cfg = auto.from_pretrained(str(_config_dir(work / name, hf)),
+                                             task="seq2seq", device=DEVICE, seed=0)
+        model.eval().requires_grad_(False)
+        src, mask = _s2s_sources(cfg.vocab_size, DECODE_ROWS, S2S_SEQ)
+        B = src.shape[0]
+        qmodel, qstats = quantize_for_generation(model)
+        runs = {
+            "greedy": lambda n: gen.generate(model, src, mask, max_new_tokens=n),
+            "sampled": lambda n: gen.generate(model, src, mask, max_new_tokens=n,
+                                              seed=DECODE_SEED, **DECODE_SAMPLING),
+            "beam4": lambda n: gen.beam_search_generate(model, src, mask,
+                                                        num_beams=DECODE_BEAMS,
+                                                        max_new_tokens=n, return_scores=True),
+            "int8_weights": lambda n: gen.generate(qmodel, src, mask, max_new_tokens=n),
+        }
+        spec_stats = {}
+        if name.startswith("t5"):
+            draft, _, _ = auto.from_pretrained(
+                str(_config_dir(work / f"{name}_draft", dict(
+                    hf, num_layers=S2S_DRAFT_LAYERS, num_decoder_layers=S2S_DRAFT_LAYERS))),
+                task="seq2seq", device=DEVICE, seed=1)
+
+            def speculative(n):
+                out, spec_stats[n] = gen.generate_speculative_seq2seq(
+                    model, draft, src, mask, max_new_tokens=n, speculate_k=DECODE_K,
+                    return_stats=True)
+                return out
+
+            runs["speculative"] = speculative
+        outs = {}
+        for run_name, run in runs.items():
+            row, out = _decode_timing(run, B, T, profiled=False)
+            row.update({"phase": "seq2seq_decode", "model": f"{name} widths (random, seed 0)",
+                        "run": run_name, "dtype": "float32", "rows": B,
+                        "source_width": int(src.shape[1]), "new_tokens": T})
+            if run_name == "speculative":
+                row.update(spec_stats[T])
+            if run_name == "int8_weights":
+                row.update(qstats)
+            outs[run_name] = out
+            rows[(name, run_name)] = row
+        greedy = outs["greedy"]
+        logp, logits = _teacher_forced(model, src, mask, greedy)
+        eos = cfg.eos_token_id
+        lens = [row.index(eos) + 1 if eos in row else T for row in greedy.tolist()]
+        greedy_score = [float(logp[r, :n].sum()) / n for r, n in enumerate(lens)]
+        beam_ids, beam_scores = outs["beam4"]
+        for r, (b, g) in enumerate(zip(beam_scores.tolist(), greedy_score)):
+            check(b >= g - 1e-4, f"{name} beam 4 row {r}: score {b} below greedy's {g}")
+        gates = {"phase": "seq2seq_decode_gates", "model": name,
+                 "beam_scores": beam_scores.tolist(), "greedy_scores": greedy_score}
+        if "speculative" in outs:
+            steps = _near_tie_steps(logits, greedy, eos)
+            gates["near_tie_rows"] = sum(n < T for n in steps)
+            gates["speculative_tokens_compared"] = _agree(
+                f"{name} speculative", outs["speculative"], greedy, steps)
+        else:
+            try:
+                gen.generate_speculative_seq2seq(model, model, src, mask, max_new_tokens=2)
+                check(False, f"{name}: speculative seq2seq was not refused")
+            except ValueError as e:
+                gates["speculative"] = f"refused: {e}"
+        # read, not gated: random weights at these widths (T5's unscaled
+        # attention logits above all) amplify the rounding of int8 weights
+        _, q_logits = _teacher_forced(qmodel, src, mask, greedy)
+        check(bool(torch.isfinite(q_logits).all()), f"{name}: non-finite int8 logits")
+        fp, q8 = logits.double().flatten(), q_logits.double().flatten()
+        gates.update(int8_logits_correlation=float(torch.corrcoef(torch.stack([fp, q8]))[0, 1]),
+                     int8_logits_max_rel_err=float((q8 - fp).abs().max()
+                                                   / (fp.abs().max() + 1e-9)))
+        rows[(name, "gates")] = gates
+        del model, qmodel, logits, q_logits
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    for row in rows.values():
+        emit(row)
+    return rows
+
+
+PREDICT_ROW_KEYS = {"seq-cls": ["text", "label", "probs"], "mlm": ["text", "fills"],
+                    "causal-lm": ["text", "generated", "generated_ids"],
+                    "seq2seq": ["text", "generated", "generated_ids"]}
+
+
+def predict_phase(work: Path, exports: dict) -> dict:
+    """(c) the predict CLI, each run a subprocess, all started together, on
+    exports the script wrote: seq-cls (the BERT CLI's), mlm (BERT-base
+    MLM's), causal-lm (GPT-2's: beam 4, sampled, ``--self_speculate_layers
+    4``), seq2seq (T5-small's). Each row carries the JAX script's keys;
+    the generated ids equal the direct call's on the same model and
+    tokens."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import predict
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        load_tokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
+
+    text = "a quietly moving film with a plot that never quite lands"
+    runs = {
+        "seq-cls": ("seq-cls", exports["seq-cls"], ["--text", text]),
+        "mlm": ("mlm", exports["mlm"], ["--text", "the movie was [MASK] and long"]),
+        "causal-lm_beam": ("causal-lm", exports["causal-lm"],
+                           ["--text", text, "--num_beams", str(DECODE_BEAMS)]),
+        "causal-lm_sampled": ("causal-lm", exports["causal-lm"],
+                              ["--text", text, "--temperature", "0.8", "--top_k", "50",
+                               "--top_p", "0.9", "--seed", str(DECODE_SEED)]),
+        "causal-lm_self_speculative": ("causal-lm", exports["causal-lm"],
+                                       ["--text", text, "--self_speculate_layers",
+                                        str(DECODE_DRAFT_LAYERS)]),
+        "seq2seq": ("seq2seq", exports["seq2seq"], ["--text", "summarize: " + text]),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.predict", "--model_dir", str(d), "--task", task,
+         "--max_new_tokens", str(PREDICT_NEW), "--max_seq_length", "128",
+         "--device", DEVICE, *extra],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (task, d, extra) in runs.items()}
+    outs = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"predict {name} exited {proc.returncode}: {err[-2000:]}")
+        outs[name] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    wall = time.perf_counter() - t0
+    result = {}
+    for name, (task, d, extra) in runs.items():
+        got = outs[name]
+        check(len(got) == 1 and list(got[0]) == PREDICT_ROW_KEYS[task],
+              f"predict {name}: rows {got}")
+        row = {"phase": "predict", "run": name, "keys": list(got[0])}
+        if task in ("causal-lm", "seq2seq"):
+            args = predict.build_parser().parse_args(
+                ["--model_dir", str(d), "--task", task, "--max_new_tokens", str(PREDICT_NEW),
+                 "--max_seq_length", "128", "--device", DEVICE, *extra])
+            model, _, cfg = auto.from_pretrained(str(d), task=task, device=DEVICE)
+            model.eval().requires_grad_(False)
+            enc = predict._encode(load_tokenizer(str(d), vocab_size=cfg.vocab_size),
+                                  [args.text], None,
+                                  min(args.max_seq_length, getattr(
+                                      cfg, "max_position_embeddings", args.max_seq_length)))
+            ids = torch.as_tensor(enc["input_ids"], device=DEVICE).long()
+            mask = torch.as_tensor(enc["attention_mask"], device=DEVICE).long()
+            if task == "seq2seq":
+                want = gen.generate(model, ids, mask, max_new_tokens=PREDICT_NEW)
+            elif args.num_beams > 1:
+                want = gen.beam_search_causal(model, ids, mask, num_beams=args.num_beams,
+                                              max_new_tokens=PREDICT_NEW)
+            elif args.self_speculate_layers:
+                want = gen.generate_speculative(
+                    model, gen.self_draft(model, args.self_speculate_layers), ids, mask,
+                    max_new_tokens=PREDICT_NEW, speculate_k=args.speculate_k)
+            else:
+                want = gen.generate_causal(model, ids, mask, max_new_tokens=PREDICT_NEW,
+                                           temperature=args.temperature, top_k=args.top_k,
+                                           top_p=args.top_p, seed=args.seed)
+            check(got[0]["generated_ids"] == want[0].tolist(),
+                  f"predict {name}: ids {got[0]['generated_ids']} != direct "
+                  f"{want[0].tolist()}")
+            row["generated_ids_equal_direct_call"] = True
+            del model
+        result[name] = row
+    result["wall_s"] = wall
+    emit({"phase": "predict", "runs": list(runs), "wall_s": wall,
+          "rows": {k: v for k, v in result.items() if k != "wall_s"}})
+    return result
+
+
 # -- packing, LoRA, DeBERTa ----------------------------------------------------
 
 class _Recorder:
@@ -4575,6 +5197,7 @@ def main() -> int:
     build = timed(build_phase)
     kernels = timed(kernel_phase)
     serve, model, trace = timed(serve_phase)
+    serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
     del model
     torch.cuda.empty_cache()
@@ -4591,13 +5214,20 @@ def main() -> int:
         packing = timed(packing_phase, Path(work) / "packing", card)
         lora = timed(lora_phase, Path(work) / "lora", card)
         deberta = timed(deberta_phase, Path(work) / "deberta", card)
-    breadth = {f"{phase}/{n}": row["launches"]
-               for phase, rows_ in (("packing", packing), ("lora", lora), ("deberta", deberta))
-               for n, row in rows_.items()}
-    vocab = timed(vocab_ce_phase)
-    timed(gpt2_parity_phase)
-    with tempfile.TemporaryDirectory() as work:
-        gpt2 = timed(gpt2_cli_phase, Path(work))
+        breadth = {f"{phase}/{n}": row["launches"]
+                   for phase, rows_ in (("packing", packing), ("lora", lora),
+                                        ("deberta", deberta))
+                   for n, row in rows_.items()}
+        vocab = timed(vocab_ce_phase)
+        timed(gpt2_parity_phase)
+        gpt2 = timed(gpt2_cli_phase, Path(work) / "gpt2")
+        timed(decode_phase, Path(work) / "gpt2" / "model", card)
+        timed(seq2seq_decode_phase, Path(work) / "decode")
+        timed(predict_phase, Path(work) / "predict", {
+            "seq-cls": Path(work) / "train" / "model",
+            "mlm": Path(work) / "mlm" / "bert_base_fused" / "model",
+            "causal-lm": Path(work) / "gpt2" / "model",
+            "seq2seq": Path(work) / "seq2seq" / "t5_small_fused" / "model"})
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
@@ -4664,6 +5294,9 @@ def main() -> int:
         "source": KERNEL_SOURCE, "kernel": list(PAGED_KERNEL_NAMES),
         "replaces": KERNEL_REPLACES,
         "launches": serve["paged_kernel_launches"],
+        "launches_by_path": {"serve": serve["paged_kernel_launches"],
+                             **{f"serve_{n}": r["paged_kernel_launches"]
+                                for n, r in serve_runs.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()
                            if r["dtype"] == "float32"),
         "ms": main_case["kernel_ms"], "event_ms": main_case["kernel_event_ms"],

@@ -21,8 +21,9 @@ query`` becomes ``encoder.layer.0.self_attn.query``). ``encode`` and
 ``decode`` (with a :class:`~.kv_cache.DenseCache` for the incremental
 decoder, positions counted from the cache's index) are T5's interface,
 so ``models/generate.py`` drives both. ``remat`` recomputes each layer in
-backward. Ring attention, pipeline stages, weight quantization and the
-remat policies other than ``full`` raise.
+backward. With ``weight_quant='int8'`` every projection and FFN dense is
+``models/quant.py``'s ``Int8Linear``. Ring attention, pipeline stages and
+the remat policies other than ``full`` raise.
 """
 
 from __future__ import annotations
@@ -40,11 +41,11 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache impo
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
     ACT2FN,
-    Dense,
     Embed,
     LayerNorm,
     raise_unported,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     make_attention_mask,
     make_decoder_mask,
@@ -94,12 +95,12 @@ class BartConfig:
     def __post_init__(self):
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r} (none | int8)")
         raise_unported([
             (self.attention_impl == "ring", "BART attention_impl='ring'",
              "11 (ring attention)"),
             (self.pipeline_stages != 0, "BART pipeline_stages", "11 (pipeline stages)"),
-            (self.weight_quant != "none", f"BART weight_quant={self.weight_quant!r}",
-             "8 (int8 weight-only quantization)"),
             (self.remat and self.remat_policy != "full",
              f"BART remat_policy={self.remat_policy!r}", "4 (remat policies)")])
 
@@ -173,10 +174,10 @@ class BartAttention(nn.Module):
         super().__init__()
         self.cfg, self.num_heads, self.layer = cfg, num_heads, layer
         d = cfg.d_model
-        self.query = Dense(cfg, d, d)
-        self.key = Dense(cfg, d, d)
-        self.value = Dense(cfg, d, d)
-        self.attention_out = Dense(cfg, d, d)
+        self.query = make_dense(cfg, d, d)
+        self.key = make_dense(cfg, d, d)
+        self.value = make_dense(cfg, d, d)
+        self.attention_out = make_dense(cfg, d, d)
         self.attn_dropout = nn.Dropout(cfg.attention_dropout)
 
     def forward(self, hidden, kv_hidden=None, mask=None, cache=None):
@@ -212,8 +213,8 @@ class BartLayer(nn.Module):
         if is_decoder:
             self.cross_attn = BartAttention(cfg, heads)
             self.cross_ln = LayerNorm(cfg, cfg.d_model, eps=LN_EPS)
-        self.fc1 = Dense(cfg, cfg.d_model, ffn)
-        self.fc2 = Dense(cfg, ffn, cfg.d_model)
+        self.fc1 = make_dense(cfg, cfg.d_model, ffn)
+        self.fc2 = make_dense(cfg, ffn, cfg.d_model)
         self.ffn_ln = LayerNorm(cfg, cfg.d_model, eps=LN_EPS)
         self.act = ACT2FN[cfg.activation_function]
         self.dropout = nn.Dropout(cfg.dropout)

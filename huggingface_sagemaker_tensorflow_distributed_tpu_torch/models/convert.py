@@ -6,7 +6,9 @@ made at random from a seed, or mapped to and from the HF key layout.
   ``state_dict``: a flax ``Dense`` ``kernel [in, out]`` becomes
   ``Linear.weight [out, in]``, a LayerNorm ``scale`` becomes ``weight``,
   an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``
-  the module list entry ``h.<i>``/``layer.<i>``; a conv kernel
+  the module list entry ``h.<i>``/``layer.<i>``; an int8 kernel's
+  ``kernel_q [in, out]`` and ``kernel_scale [out]`` (``models/quant.py``)
+  become ``Int8Linear.weight_q [out, in]`` and ``weight_scale``; a conv kernel
   ``[K, in / groups, out]`` (DeBERTa's) reverses to ``Conv1d``'s ``[out,
   in / groups, K]``. Both packages then compute the same function.
   :func:`lora_from_jax` carries a JAX adapter tree across the same way.
@@ -52,7 +54,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
 )
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias"}
+         "bias": "bias", "kernel_q": "weight_q", "kernel_scale": "weight_scale"}
 _RESIDUAL_OUT = ("attn_out", "fc_out")
 
 
@@ -68,7 +70,7 @@ def params_from_jax(flat: dict) -> dict:
         if leaf not in _LEAF:
             raise ValueError(f"unsupported JAX parameter {key!r}")
         arr = np.asarray(value)
-        if leaf == "kernel":
+        if leaf in ("kernel", "kernel_q"):
             arr = arr.T
         path = [re.sub(r"^(h|layer|block)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         out[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
@@ -106,7 +108,9 @@ def _init_normal(model, std_of, seed: int):
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith("weight_scale"):
+                p.fill_(1.0)             # an int8 dense's placeholders
+            elif not p.is_floating_point() or name.endswith("bias"):
                 p.zero_()
             elif re.search(r"(^|\.)(ln|ln_\w*|\w*_ln)\.weight$", name):
                 p.fill_(1.0)

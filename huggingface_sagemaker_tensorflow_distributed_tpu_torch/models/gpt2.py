@@ -6,7 +6,9 @@ package's ``models/gpt2.py`` (HF ``GPT2LMHeadModel`` architecture).
 - pre-LN blocks: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``, with
   residual dropout on the attention and MLP outputs;
 - a fused qkv projection, a gelu_new MLP, a final ``ln_f``, and the LM
-  head tied to ``wte``; logits are fp32.
+  head tied to ``wte``; logits are fp32. With ``weight_quant='int8'`` the
+  four denses of each block are ``models/quant.py``'s ``Int8Linear``
+  (built through ``make_dense``; loaded by ``quantize_for_generation``).
 
 The dtype discipline is the JAX package's (``models/layers.py``'s
 ``Dense``, ``Embed`` and ``LayerNorm``): parameters in ``param_dtype``,
@@ -40,8 +42,7 @@ states and the tied embedding to the fused vocab cross-entropy. With
 recomputed in backward (``torch.utils.checkpoint``, the JAX package's
 ``nn.remat`` per block; the dropout draws are replayed, so the step is
 the same bit for bit). MoE, pipeline stages, the remat policies other
-than ``full``, weight quantization and ``attention_impl='ring'`` are not
-ported and raise.
+than ``full`` and ``attention_impl='ring'`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -62,11 +63,11 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache impo
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
     ACT2FN,
-    Dense,
     Embed,
     LayerNorm,
     raise_unported,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_mask,
@@ -125,6 +126,8 @@ class Gpt2Config:
     kv_cache_dtype: str = "fp"            # fp | int8
 
     def __post_init__(self):
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r} (none | int8)")
         if self.kv_cache_dtype not in ("fp", "int8"):
             raise ValueError(
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r} "
@@ -137,8 +140,6 @@ class Gpt2Config:
              f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
             (self.num_experts != 0, "num_experts", "9 (MoE)"),
             (self.pipeline_stages != 0, "pipeline_stages", "11 (pipeline stages)"),
-            (self.weight_quant != "none", f"weight_quant={self.weight_quant!r}",
-             "8 (int8 weight-only quantization)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ])
         if not (isinstance(self.dtype, torch.dtype)
@@ -196,8 +197,8 @@ class Gpt2Attention(nn.Module):
         super().__init__()
         self.cfg, self.layer = cfg, layer
         H = cfg.hidden_size
-        self.qkv = Dense(cfg, H, 3 * H)
-        self.attn_out = Dense(cfg, H, H)
+        self.qkv = make_dense(cfg, H, 3 * H)
+        self.attn_out = make_dense(cfg, H, H)
         self.attn_dropout = nn.Dropout(cfg.attention_dropout)
         self.resid_dropout = nn.Dropout(cfg.hidden_dropout)
 
@@ -242,8 +243,8 @@ class Gpt2Mlp(nn.Module):
     def __init__(self, cfg: Gpt2Config):
         super().__init__()
         self.act = ACT2FN[cfg.hidden_act]
-        self.fc_in = Dense(cfg, cfg.hidden_size, cfg.intermediate_size)
-        self.fc_out = Dense(cfg, cfg.intermediate_size, cfg.hidden_size)
+        self.fc_in = make_dense(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.fc_out = make_dense(cfg, cfg.intermediate_size, cfg.hidden_size)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
     def forward(self, x):

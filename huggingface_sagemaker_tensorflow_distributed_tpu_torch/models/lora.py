@@ -72,6 +72,8 @@ def lora_scaling(rank: int, alpha: float) -> float:
 
 
 def _leaf(module: nn.Module, name: str) -> str:
+    if name in ("weight_q", "weight_scale"):        # models/quant.py's Int8Linear
+        return "kernel" + name[len("weight"):]
     if name != "weight":
         return name
     if isinstance(module, (nn.Linear, nn.Conv1d)):
@@ -84,8 +86,9 @@ def _leaf(module: nn.Module, name: str) -> str:
 def jax_param_paths(model: nn.Module) -> dict[str, str]:
     """``{port parameter name: JAX parameter path}``: ``layer.3`` becomes
     ``layer_3`` (also ``h``, ``block``), a dense or conv ``weight`` its
-    ``kernel``, an embedding's its ``embedding``, a layer norm's its
-    ``scale``."""
+    ``kernel`` (an int8 dense's ``weight_q`` and ``weight_scale`` its
+    ``kernel_q`` and ``kernel_scale``), an embedding's its ``embedding``, a
+    layer norm's its ``scale``."""
     out = {}
     for mod_name, module in model.named_modules():
         for p_name, _ in module.named_parameters(recurse=False):

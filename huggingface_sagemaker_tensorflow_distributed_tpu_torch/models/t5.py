@@ -28,8 +28,10 @@ written at each row's ``cache.index`` and the queries attend over the
 whole buffer under the step mask ``key <= index + query offset``; the
 relative-position bias is offset by the index. With ``remat`` each block
 of a training forward is recomputed in backward
-(``torch.utils.checkpoint``). Ring attention, pipeline stages, weight
-quantization and the remat policies other than ``full`` raise.
+(``torch.utils.checkpoint``). With ``weight_quant='int8'`` the attention
+and FFN denses are ``models/quant.py``'s ``Int8Linear`` (the head stays
+full precision). Ring attention, pipeline stages and the remat policies
+other than ``full`` raise.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Embed,
     raise_unported,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     make_attention_mask,
     make_decoder_mask,
@@ -95,13 +98,13 @@ class T5Config:
     def __post_init__(self):
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r} (none | int8)")
         if self.feed_forward_proj.split("-")[-1] not in _ACTS:
             raise ValueError(f"unknown feed_forward_proj {self.feed_forward_proj!r}")
         raise_unported([
             (self.attention_impl == "ring", "T5 attention_impl='ring'", "11 (ring attention)"),
             (self.pipeline_stages != 0, "T5 pipeline_stages", "11 (pipeline stages)"),
-            (self.weight_quant != "none", f"T5 weight_quant={self.weight_quant!r}",
-             "8 (int8 weight-only quantization)"),
             (self.remat and self.remat_policy != "full",
              f"T5 remat_policy={self.remat_policy!r}", "4 (remat policies)")])
 
@@ -185,10 +188,10 @@ class T5Attention(nn.Module):
         super().__init__()
         self.cfg, self.causal, self.layer = cfg, causal, layer
         inner = cfg.num_heads * cfg.d_kv
-        self.query = Dense(cfg, cfg.d_model, inner, bias=False)
-        self.key = Dense(cfg, cfg.d_model, inner, bias=False)
-        self.value = Dense(cfg, cfg.d_model, inner, bias=False)
-        self.attention_out = Dense(cfg, inner, cfg.d_model, bias=False)
+        self.query = make_dense(cfg, cfg.d_model, inner, bias=False)
+        self.key = make_dense(cfg, cfg.d_model, inner, bias=False)
+        self.value = make_dense(cfg, cfg.d_model, inner, bias=False)
+        self.attention_out = make_dense(cfg, inner, cfg.d_model, bias=False)
         self.rel_bias = (nn.Embedding(cfg.relative_attention_num_buckets, cfg.num_heads,
                                       dtype=cfg.param_dtype) if has_rel_bias else None)
 
@@ -237,11 +240,11 @@ class T5FeedForward(nn.Module):
         self.act = cfg.act_fn
         self.gated = cfg.is_gated_act
         if self.gated:
-            self.wi_0 = Dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
-            self.wi_1 = Dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
+            self.wi_0 = make_dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
+            self.wi_1 = make_dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
         else:
-            self.wi = Dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = Dense(cfg, cfg.d_ff, cfg.d_model, bias=False)
+            self.wi = make_dense(cfg, cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = make_dense(cfg, cfg.d_ff, cfg.d_model, bias=False)
         self.dropout = nn.Dropout(cfg.dropout_rate)
 
     def forward(self, x):

@@ -3,14 +3,21 @@ over a request trace and report per-request latency and aggregate
 throughput (the port of the JAX package's ``scripts/serve.py``).
 
 Requests come from ``--input_file`` (JSONL, one ``{"prompt_ids": [...],
-"max_new_tokens": N}`` per line) or a synthetic mixed-length trace.
-Decoding is greedy. The model is a GPT-2 with random weights from
-``--seed``: ``--model smoke`` (the default) is the small shape
-``scripts/serve.py`` serves, ``--model gpt2`` is GPT-2 124M at full
-width. Runs on the GPU unless ``--device cpu`` is given.
+"max_new_tokens": N}`` per line, optionally with ``temperature``,
+``top_k``, ``top_p`` and ``seed``) or a synthetic mixed-length trace.
+``--temperature`` / ``--top_k`` / ``--top_p`` / ``--sample_seed`` set every
+request's default sampling (greedy at temperature 0, the default).
+``--model_dir`` serves a GPT-2 export (``model.safetensors`` +
+``config.json``, e.g. the training CLI's causal-LM export); without it the
+model is a GPT-2 with random weights from ``--seed``: ``--model smoke``
+(the default) is the small shape ``scripts/serve.py`` serves, ``--model
+gpt2`` is GPT-2 124M at full width. ``--kv_cache_dtype int8`` keeps the KV
+pools in int8 with fp32 scales. Runs on the GPU unless ``--device cpu`` is
+given.
 
   python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.cli \\
-      --requests 32 --num_slots 8 --block_size 16 --prefill_chunk 16
+      --requests 32 --num_slots 8 --block_size 16 --prefill_chunk 16 \\
+      --temperature 0.8 --top_p 0.9 --kv_cache_dtype int8
 
 One JSON line per finished request, then one summary line whose keys
 are a subset of ``scripts/serve.py``'s plus ``paged_kernel_launches``.
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
     init_gpt2,
 )
@@ -55,30 +63,53 @@ def model_config(name: str) -> Gpt2Config:
                       attention_dropout=0.0, **kw)
 
 
+def _sampling_kw(row: dict, defaults: dict, where: str) -> dict:
+    """A JSONL row's sampling fields over the CLI's defaults (null or
+    absent: the default), refusing a non-number or a fractional integer
+    field with its line, as ``scripts/serve.py`` does."""
+    kw = {}
+    for k, default in defaults.items():
+        raw = row.get(k)
+        if raw is None:
+            kw[k] = default
+            continue
+        if isinstance(raw, bool) or not isinstance(raw, (int, float)):
+            raise SystemExit(f"serve: {where}: field {k!r} must be a number, got {raw!r}")
+        if isinstance(default, int) and raw != int(raw):
+            raise SystemExit(f"serve: {where}: field {k!r} must be an integer, got {raw!r}")
+        kw[k] = type(default)(raw)
+    return kw
+
+
 def load_trace(args, vocab: int):
-    """[(prompt_ids, max_new_tokens)] from the JSONL file or the
-    synthetic trace."""
+    """[(prompt_ids, max_new_tokens, sampling kwargs)] from the JSONL
+    file or the synthetic trace."""
+    defaults = {"temperature": args.temperature, "top_k": args.top_k,
+                "top_p": args.top_p, "seed": args.sample_seed}
     if args.input_file:
         trace = []
         with open(args.input_file, "r", encoding="utf-8") as f:
-            for line in f:
+            for lineno, line in enumerate(f, 1):
                 if not line.strip():
                     continue
                 row = json.loads(line)
+                kw = _sampling_kw(row, defaults, f"{args.input_file}:{lineno}")
                 trace.append((np.asarray(row["prompt_ids"], np.int32),
-                              int(row.get("max_new_tokens",
-                                          args.max_new_tokens))))
+                              int(row.get("max_new_tokens", args.max_new_tokens)), kw))
         return trace
     rng = np.random.RandomState(args.seed)
-    return make_trace(rng, args.requests, vocab, args.prompt_min,
+    base = make_trace(rng, args.requests, vocab, args.prompt_min,
                       args.prompt_max, (4, max(4, args.max_new_tokens // 4)),
                       (args.max_new_tokens // 2, args.max_new_tokens),
                       long_every=4)
+    return [(p, m, dict(defaults)) for p, m in base]
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="smoke", choices=("smoke", "gpt2"))
+    parser.add_argument("--model_dir", default=None,
+                        help="a GPT-2 export to serve (else random weights)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--input_file", default=None,
@@ -98,6 +129,15 @@ def parse_args(argv=None):
                         help="max prefilling slots packed per dispatch")
     parser.add_argument("--max_model_len", type=int, default=0,
                         help="0 = model max_position_embeddings")
+    parser.add_argument("--kv_cache_dtype", default=None, choices=("fp", "int8"),
+                        help="KV pool storage (default: HSTD_SERVE_KV_DTYPE "
+                             "or the model config)")
+    parser.add_argument("--temperature", type=float, default=0.0,
+                        help="0 = greedy (the default); > 0 samples")
+    parser.add_argument("--top_k", type=int, default=0)
+    parser.add_argument("--top_p", type=float, default=0.0)
+    parser.add_argument("--sample_seed", type=int, default=0,
+                        help="per-request sampling seed default")
     parser.add_argument("--seed", type=int, default=0)
     return parser.parse_args(argv)
 
@@ -105,8 +145,13 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = model_config(args.model)
-    model = init_gpt2(cfg, seed=args.seed, device=device)
+    if args.model_dir:
+        model, _, cfg = auto.from_pretrained(args.model_dir, task="causal-lm",
+                                             device=device)
+        model.requires_grad_(False)
+    else:
+        cfg = model_config(args.model)
+        model = init_gpt2(cfg, seed=args.seed, device=device)
     max_len = args.max_model_len or (
         cfg.max_position_embeddings // args.block_size) * args.block_size
     num_blocks = args.num_blocks or (
@@ -115,11 +160,12 @@ def main(argv=None) -> None:
                          block_size=args.block_size, num_blocks=num_blocks,
                          prefill_chunk=args.prefill_chunk,
                          prefill_batch=args.prefill_batch,
-                         max_model_len=max_len, device=device)
+                         max_model_len=max_len, kv_cache_dtype=args.kv_cache_dtype,
+                         device=device)
     if device.type == "cuda":
         load_kernel()                 # build before the clock starts
     trace = load_trace(args, cfg.vocab_size - 1)
-    reqs = [engine.submit(p, m) for p, m in trace]
+    reqs = [engine.submit(p, m, **kw) for p, m, kw in trace]
     t0 = time.perf_counter()
     engine.run()
     if device.type == "cuda":
@@ -155,7 +201,7 @@ def main(argv=None) -> None:
         "prefill_dispatches": stats.prefill_dispatches,
         "preemptions": stats.preemptions,
         "kernel": "cuda" if device.type == "cuda" else "plain",
-        "kv_dtype": cfg.kv_cache_dtype,
+        "kv_dtype": engine.kv_cache_dtype,
         "kv_pool_bytes_per_device": engine.blocks.pool_bytes,
         "kv_peak_utilization": round(stats.kv_peak_utilization, 3),
         "paged_kernel_launches": stats.paged_kernel_launches}))

@@ -1,5 +1,5 @@
-"""Continuous-batching greedy serving engine for GPT-2 over paged KV
-pools — the serial loop of the JAX package's ``serve/engine.py``.
+"""Continuous-batching serving engine for GPT-2 over paged KV pools — the
+serial loop of the JAX package's ``serve/engine.py``.
 
 Each :meth:`ServeEngine.step` admits waiting requests (FIFO), runs
 batched chunked prefill under the scheduler's token budget, grows the
@@ -13,23 +13,37 @@ dry), then runs one decode step over every slot:
   branch: the new K/V is scattered into the pools and attention walks
   the block tables directly (the CUDA kernel on the card, which reads
   ``ceil(ctx / block_size)`` blocks per slot). Inactive slots write the
-  reserved null block 0 at context 0. The next token is the argmax of
-  the fp32 logits.
+  reserved null block 0 at context 0.
 
-Not ported yet: sampling, the gather-width bucket ladder, the prefix
-cache, int8 pools, speculation, dispatch-ahead overlap, tensor
-parallelism, swap, admission policies and telemetry.
+The next token is the argmax of the fp32 logits, or, when any active
+slot samples, ``models/generate.py::sample_per_slot`` over the rows
+(greedy rows stay the raw argmax): a sampled request's n-th token is
+drawn with noise that is a function of (its seed, n), so recompute
+preemption re-derives the same stream. ``kv_cache_dtype='int8'`` keeps
+the pools in int8 with fp32 scale pools beside them (one scale per
+(token, head)); prefill quantizes as the dense int8 cache does and the
+decode kernel dequantizes. ``kv_pool_bytes`` sizes the pool by bytes,
+scales counted, so int8 pools hold more blocks, and admit more requests,
+than fp pools of the same bytes.
+
+Not ported yet: the gather-width bucket ladder, the prefix cache,
+speculation, dispatch-ahead overlap, tensor parallelism, swap, admission
+policies and telemetry.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+    sample_per_slot,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
     PagedCache,
@@ -61,6 +75,25 @@ class EngineStats(NamedTuple):
     kv_peak_utilization: float
     kv_utilization: float
     paged_kernel_launches: int
+    peak_resident_requests: int = 0
+
+
+ENV_KV_DTYPE = "HSTD_SERVE_KV_DTYPE"
+
+
+def parse_kv_dtype(spec: Union[str, None], model_default: str) -> str:
+    """The pool-storage knob: ``fp`` or ``int8`` (scales ride in fp32
+    pools beside the int8 ones). None reads ``HSTD_SERVE_KV_DTYPE``,
+    falling back to the model config's own ``kv_cache_dtype``."""
+    if spec is None:
+        spec = os.environ.get(ENV_KV_DTYPE) or None
+    if spec is None:
+        return model_default
+    s = str(spec).strip().lower()
+    if s not in ("fp", "int8"):
+        raise ValueError(f"unparseable {ENV_KV_DTYPE} value {spec!r}: "
+                         "expected fp | int8")
+    return s
 
 
 def percentile(sorted_vals: list, p: float) -> float:
@@ -71,27 +104,29 @@ def percentile(sorted_vals: list, p: float) -> float:
 
 
 class ServeEngine:
-    """Continuous-batching greedy engine over a
+    """Continuous-batching engine over a
     :class:`~..models.gpt2.Gpt2LMHeadModel` that lives on ``device``
     (CUDA unless the caller names another; raises without it).
 
     ``num_blocks`` includes the reserved null block: allocatable KV is
-    ``(num_blocks - 1) * block_size`` tokens shared by every request.
-    ``prefill_batch`` caps how many prefilling slots one prefill
-    dispatch packs."""
+    ``(num_blocks - 1) * block_size`` tokens shared by every request;
+    ``kv_pool_bytes`` instead sizes it from a byte budget. ``prefill_batch``
+    caps how many prefilling slots one prefill dispatch packs.
+    ``kv_cache_dtype`` (``fp`` | ``int8``; default ``HSTD_SERVE_KV_DTYPE``
+    or the model config's) picks the pools' storage."""
 
     def __init__(self, model, *, num_slots: int = 8, block_size: int = 16,
                  num_blocks: int = 129, prefill_chunk: int = 16,
                  max_model_len: Optional[int] = None, prefill_batch: int = 4,
-                 device=None):
+                 kv_cache_dtype: Optional[str] = None,
+                 kv_pool_bytes: Optional[int] = None, device=None):
         cfg = model.config
         self.device = resolve_device(device)
         if model.backbone.wte.weight.device.type != self.device.type:
             raise ValueError(f"model lives on {model.backbone.wte.weight.device}"
                              f", engine asked for {self.device}")
-        if cfg.kv_cache_dtype != "fp":
-            raise NotImplementedError("int8 KV pools are not ported to the PyTorch "
-                                      "engine yet: ROADMAP queue 1, item 10")
+        self.kv_cache_dtype = parse_kv_dtype(kv_cache_dtype, cfg.kv_cache_dtype)
+        int8 = self.kv_cache_dtype == "int8"
         self.model = model
         self.eos_token_id = int(cfg.eos_token_id)
         self.pad_token_id = min(int(cfg.pad_token_id), cfg.vocab_size - 1)
@@ -105,8 +140,12 @@ class ServeEngine:
                 f"max_position_embeddings {cfg.max_position_embeddings}")
         self.num_slots = int(num_slots)
         heads, head_dim = cfg.num_heads, cfg.hidden_size // cfg.num_heads
-        token_bytes = (2 * cfg.num_layers * heads * head_dim
-                       * torch.tensor([], dtype=cfg.dtype).element_size())
+        # bytes one resident token costs across every pool, an int8
+        # pool's fp32 scale plane included
+        per_head = head_dim * (1 if int8 else torch.tensor([], dtype=cfg.dtype).element_size())
+        token_bytes = 2 * cfg.num_layers * heads * (per_head + (4 if int8 else 0))
+        if kv_pool_bytes is not None:
+            num_blocks = max(2, 1 + int(kv_pool_bytes) // (block_size * token_bytes))
         self.blocks = BlockManager(num_blocks, block_size,
                                    token_bytes=token_bytes)
         self.sched = Scheduler(self.num_slots, self.blocks, prefill_chunk,
@@ -114,12 +153,15 @@ class ServeEngine:
         self.max_blocks_per_seq = self.max_model_len // block_size
         self.prefill_batch = max(1, min(int(prefill_batch), self.num_slots))
 
-        def pools():
-            return [torch.zeros(num_blocks, block_size, heads, head_dim,
-                                dtype=cfg.dtype, device=self.device)
+        def pools(dim, dtype):
+            return [torch.zeros(num_blocks, block_size, heads, dim,
+                                dtype=dtype, device=self.device)
                     for _ in range(cfg.num_layers)]
 
-        self.k_pools, self.v_pools = pools(), pools()
+        store = torch.int8 if int8 else cfg.dtype
+        self.k_pools, self.v_pools = pools(head_dim, store), pools(head_dim, store)
+        self.k_scale_pools = pools(1, torch.float32) if int8 else None
+        self.v_scale_pools = pools(1, torch.float32) if int8 else None
         self.finished: dict[int, Request] = {}
         self.decode_steps = 0
         self.prefill_chunks = 0
@@ -129,14 +171,19 @@ class ServeEngine:
         self.decode_time_s = 0.0
         self.iterations = 0
         self.peak_waiting = 0
+        self.peak_resident = 0
         self.paged_kernel_launches = 0
 
     # -- requests -----------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens: int) -> Request:
-        """Queue one greedy request."""
+    def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 0.0, seed: int = 0) -> Request:
+        """Queue one request: greedy at ``temperature=0``, else sampled
+        (``top_k`` / ``top_p`` truncation, 0 disables each) from ``seed``."""
         req = Request(prompt=np.asarray(prompt, np.int32),
-                      max_new_tokens=int(max_new_tokens))
+                      max_new_tokens=int(max_new_tokens),
+                      temperature=float(temperature), top_k=int(top_k),
+                      top_p=float(top_p), seed=int(seed))
         req.submit_t = time.perf_counter()
         self.sched.submit(req)
         return req
@@ -167,7 +214,8 @@ class ServeEngine:
             kv_peak_utilization=self.blocks.peak_used
             / max(self.blocks.num_blocks - 1, 1),
             kv_utilization=self.blocks.utilization(),
-            paged_kernel_launches=self.paged_kernel_launches)
+            paged_kernel_launches=self.paged_kernel_launches,
+            peak_resident_requests=self.peak_resident)
 
     def slo_summary(self) -> dict:
         """TTFT / end-to-end latency percentiles and scheduler gauges over
@@ -181,6 +229,7 @@ class ServeEngine:
             "iterations": self.iterations,
             "preemptions": self.sched.n_preemptions,
             "peak_waiting_depth": self.peak_waiting,
+            "peak_resident_requests": self.peak_resident,
             "kv_peak_utilization": round(
                 self.blocks.peak_used / max(self.blocks.num_blocks - 1, 1), 4),
         }
@@ -206,6 +255,8 @@ class ServeEngine:
         """Admit, batched prefill under the token budget, decode-side
         block capacity (preempting if needed), one decode step."""
         self.sched.admit()
+        self.peak_resident = max(self.peak_resident,
+                                 sum(1 for s in self.sched.slots if not s.free))
         C = self.sched.prefill_chunk
         budget = self.sched.prefill_token_budget(len(self.sched.decode_slots()))
         while budget >= C:
@@ -221,6 +272,35 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _pools(self):
+        """(dense cache field, pools) pairs: K and V, and their scale
+        pools under int8."""
+        pairs = [("keys", self.k_pools), ("values", self.v_pools)]
+        if self.k_scale_pools is not None:
+            pairs += [("key_scales", self.k_scale_pools),
+                      ("value_scales", self.v_scale_pools)]
+        return pairs
+
+    def _pick(self, logits: torch.Tensor, rows: list) -> np.ndarray:
+        """The next token of each row of ``logits`` [R, V] on the host:
+        the argmax, or ``sample_per_slot`` when a row's request samples.
+        ``rows`` holds ``(row, request)`` for the rows that emit."""
+        if not any(req.sampled for _, req in rows):
+            return logits.argmax(-1).cpu().numpy()
+        R = logits.shape[0]
+        temps = np.zeros(R, np.float32)
+        top_ks = np.zeros(R, np.int64)
+        top_ps = np.zeros(R, np.float32)
+        seeds = np.zeros(R, np.int64)
+        folds = np.zeros(R, np.int64)
+        for i, req in rows:
+            temps[i], top_ks[i], top_ps[i] = req.temperature, req.top_k, req.top_p
+            # the request-global index of the token drawn
+            seeds[i], folds[i] = req.seed, self._generated(req)
+        return sample_per_slot(logits.float(), self._tensor(temps), self._tensor(top_ks),
+                               self._tensor(top_ps), self._tensor(seeds),
+                               self._tensor(folds)).cpu().numpy()
 
     def _prefill_batch(self, max_rows: int) -> int:
         """One batched prefill dispatch over up to ``min(max_rows,
@@ -250,11 +330,13 @@ class ServeEngine:
                 finals.append((i, slot))
         chunks_t, tables_t = self._tensor(chunks), self._tensor(tables)
         start_t, rel_t = self._tensor(start), self._tensor(rel)
-        # the rows' dense caches, gathered over the full table width
-        cache = DenseCache(
-            keys=[gather_paged_kv(p, tables_t) for p in self.k_pools],
-            values=[gather_paged_kv(p, tables_t) for p in self.v_pools],
-            key_scales=None, value_scales=None, index=start_t)
+        # the rows' dense caches (int8 with their scales), gathered over
+        # the full table width
+        dense = {field: [gather_paged_kv(p, tables_t) for p in pools]
+                 for field, pools in self._pools()}
+        cache = DenseCache(keys=dense["keys"], values=dense["values"],
+                           key_scales=dense.get("key_scales"),
+                           value_scales=dense.get("value_scales"), index=start_t)
         max_ctx = nb * self.blocks.block_size
         offsets = torch.arange(C, device=self.device)
         # the chunk's slots are valid; the model's step mask imposes
@@ -265,13 +347,12 @@ class ServeEngine:
         positions = start_t[:, None] + offsets[None, :]        # [G, C]
         logits = self.model(chunks_t, valid, positions, cache)
         rows = torch.arange(G, device=self.device)
-        next_tok = logits[rows, rel_t.clamp(0, C - 1)].argmax(-1)
-        # scatter the written chunk K/V back into the pools
+        last = logits[rows, rel_t.clamp(0, C - 1)]
+        # scatter the written chunk K/V (and scales) back into the pools
         flat_pos = positions.reshape(-1)
         tables_tok = tables_t.repeat_interleave(C, dim=0)      # [G*C, nb]
-        for dense, pools in ((cache.keys, self.k_pools),
-                             (cache.values, self.v_pools)):
-            for buf, pool in zip(dense, pools):
+        for field, pools in self._pools():
+            for buf, pool in zip(getattr(cache, field), pools):
                 written = buf[rows[:, None], :, positions]     # [G, C, H, D]
                 scatter_paged_kv(pool, tables_tok, flat_pos,
                                  written.reshape(G * C, *written.shape[2:]))
@@ -280,7 +361,7 @@ class ServeEngine:
         self.prefill_chunks += len(slots)
         self.prefill_dispatches += 1
         if finals:
-            tok_host = next_tok.cpu().numpy()
+            tok_host = self._pick(last, [(i, slot.request) for i, slot in finals])
             for i, slot in finals:
                 self.sched.finish_prefill(slot)
                 self._append(slot, int(tok_host[i]))
@@ -300,12 +381,12 @@ class ServeEngine:
             ctx[slot.index] = slot.context_len
         t0 = time.perf_counter()
         launches0 = paged_decode_attention.launches
-        cache = PagedCache(self.k_pools, self.v_pools, None, None,
-                           self._tensor(tables), self._tensor(ctx))
+        cache = PagedCache(self.k_pools, self.v_pools, self.k_scale_pools,
+                           self.v_scale_pools, self._tensor(tables), self._tensor(ctx))
         ctx_t = cache.context_lens.long()
         logits = self.model(self._tensor(tokens)[:, None], None,
                             ctx_t[:, None], cache)
-        nxt = logits[:, -1].argmax(-1).cpu().numpy()
+        nxt = self._pick(logits[:, -1], [(slot.index, slot.request) for slot in ds])
         self.paged_kernel_launches += paged_decode_attention.launches - launches0
         self.decode_time_s += time.perf_counter() - t0
         self.decode_steps += 1

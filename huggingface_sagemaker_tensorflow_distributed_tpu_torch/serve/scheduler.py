@@ -8,7 +8,8 @@ States: WAITING -> PREFILL (chunked prompt ingestion) -> DECODE (one
 token per step) -> FINISHED. Preemption when the KV pool runs dry is
 vLLM-style recompute: the youngest running request releases its blocks
 and rejoins the queue front with ``prompt + generated`` as its prompt,
-so under greedy decoding preemption changes latency, never tokens.
+so preemption changes latency, never tokens (a sampled request's draws
+depend on its seed and token index only).
 
 Not ported yet: the pluggable admission policies, swap-based
 preemption, prefix-cache admission and speculative lookahead.
@@ -34,9 +35,15 @@ _rid = itertools.count()
 
 @dataclass
 class Request:
-    """One greedy generation request: ``prompt`` token ids [P]; the
-    engine appends generated ids to ``output``. Times are engine-side
-    ``perf_counter`` stamps (None until reached)."""
+    """One generation request: ``prompt`` token ids [P]; the engine
+    appends generated ids to ``output``. Times are engine-side
+    ``perf_counter`` stamps (None until reached).
+
+    Sampling is per request: ``temperature == 0`` (the default) is greedy,
+    the mode whose tokens equal ``generate_causal``'s; ``temperature > 0``
+    samples after optional top-k / top-p truncation, seeded by ``seed``:
+    the n-th token's draw is a function of (seed, n) alone, so a stream
+    is the same across recompute preemption."""
 
     prompt: np.ndarray
     max_new_tokens: int
@@ -47,6 +54,10 @@ class Request:
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     preemptions: int = 0
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    seed: int = 0
     # recompute preemption folds generated tokens into the prompt; this
     # keeps the original prompt length for output accounting
     orig_prompt_len: int = -1
@@ -59,6 +70,16 @@ class Request:
             raise ValueError("empty prompt")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.temperature < 0:
+            raise ValueError("temperature must be >= 0")
+        if not 0.0 <= self.top_p <= 1.0:
+            raise ValueError("top_p must be in [0, 1]")
+        if self.top_k < 0:
+            raise ValueError("top_k must be >= 0")
+
+    @property
+    def sampled(self) -> bool:
+        return self.temperature > 0
 
     @property
     def ttft_s(self) -> Optional[float]:

@@ -842,3 +842,201 @@ def test_deberta_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
         assert row["export_reloads_bit_for_bit"] and math.isfinite(row["loss"])
     summary = [p for p in _printed(capsys) if p.get("phase") == "deberta_summary"]
     assert len(summary) == 1
+
+
+# -- decoding, the sampled and int8 serve runs, the predict CLI ---------------------
+
+SERVE_TINY = dict(vocab_size=300, max_position_embeddings=128, hidden_size=64, num_layers=2,
+                  num_heads=1, intermediate_size=128, eos_token_id=299, pad_token_id=0)
+
+
+@pytest.fixture
+def serve_on_cpu(on_cpu, monkeypatch):
+    """The serve phase at a tiny width (contexts up to 124 of 128), the
+    paged kernel counted where the model calls it (on the CPU the plain
+    path runs and counts nothing); returns the shapes each call handed it."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
+
+    monkeypatch.setattr(chip_smoke, "SERVE_CONFIG", SERVE_TINY)
+    monkeypatch.setattr(chip_smoke, "SERVE_MAX_LEN", 128)
+    monkeypatch.setattr(chip_smoke, "SERVE_LONG_PROMPTS", (40, 61))
+    monkeypatch.setattr(chip_smoke, "SERVE_TIGHT_BLOCKS", 1 + 12)
+    shapes = []
+    real = t_gpt2.paged_attention
+
+    def counted(q, k_pool, v_pool, block_tables, context_lens, **kw):
+        pa.paged_decode_attention.launches += 1
+        shapes.append((q.shape[0], q.shape[1], k_pool.shape[2], q.shape[2], k_pool.shape[1],
+                       block_tables.shape[1] * k_pool.shape[1], str(q.dtype).split(".")[1],
+                       kw.get("k_scale_pool") is not None))
+        return real(q, k_pool, v_pool, block_tables, context_lens, **kw)
+
+    monkeypatch.setattr(t_gpt2, "paged_attention", counted)
+    return shapes
+
+
+def test_serve_phases_on_cpu(serve_on_cpu, capsys):
+    """The serve phase and its sampled and int8 runs at a tiny width: K3's
+    count per decode step, greedy tokens against ``generate_causal``,
+    sampled streams equal under preemption and equal to the plain draws,
+    int8 pools against the int8 dense cache, the pool bytes and what equal
+    bytes admit."""
+    row, model, trace = chip_smoke.serve_phase()
+    assert row["paged_kernel_launches"] == row["decode_steps"] * 2
+    assert row["tokens_compared_with_plain"] > 0
+    runs = chip_smoke.serve_sampling_int8_phase(model, trace, {"int8": {"kernel_ms": 0.0}})
+    assert list(runs) == ["sampled", "sampled_tight", "int8"]
+    for r in runs.values():
+        assert r["paged_kernel_launches"] == r["decode_steps"] * 2 > 0
+    assert runs["sampled_tight"]["preemptions"] >= 1 and runs["sampled"]["sampled_requests"] == 10
+    sampled = runs["sampled"]
+    assert sampled["sampled_tokens_compared_with_plain"] > 0
+    assert sampled["greedy_tokens_compared_with_plain"] > 0
+    int8 = runs["int8"]
+    assert int8["tokens_compared_with_plain_int8"] > 0
+    assert int8["bytes_per_token_per_head"] == {"fp32": 2 * 4 * 64, "int8": 2 * (64 + 4)}
+    assert int8["pool_bytes_per_token"]["int8"] * 256 == int8["pool_bytes_per_token"]["fp32"] * 68
+    assert int8["equal_bytes"]["ratio"] > 3.5
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["phase"] for p in printed] == ["serve", "serve_sampled", "serve_sampled",
+                                             "serve_int8"]
+    # the rehearsal's K3 calls: every slot of the tiny engine at the full
+    # table width, fp32 on the sampled runs, the int8 route on the last
+    assert {s[:7] for s in serve_on_cpu} == {(8, 1, 1, 64, 16, 128, "float32")}
+    assert {s[7] for s in serve_on_cpu} == {False, True}
+
+
+def test_every_serve_run_k3_shape_is_held_against_its_plain_version(monkeypatch):
+    """K3's launch configuration follows its shape: each serve run (the
+    greedy, the sampled and the int8 ones) launches it on every slot of
+    the engine at the full table width (``SERVE_MAX_LEN``; the trace's
+    contexts reach 896 + 64 tokens) with GPT-2 124M's heads and head dim,
+    fp32 queries; the fp pools match the kernel phase's ``gpt2`` case and
+    the int8 ones its ``int8`` case, plan included."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")       # plan for the H100's SMs
+    cfg = Gpt2Config(**chip_smoke.SERVE_CONFIG)
+    H, D, bs, slots = cfg.num_heads, cfg.hidden_size // cfg.num_heads, 16, 8
+    assert chip_smoke.SERVE_LONG_PROMPTS[1] - 1 + 64 <= chip_smoke.SERVE_MAX_LEN
+    cases = {c[0]: c for c in chip_smoke.KERNEL_CASES}
+    for int8, name in ((False, "gpt2"), (True, "int8")):
+        case = cases[name]
+        assert case[1:9] == (slots, H, H, D, bs, chip_smoke.SERVE_MAX_LEN, "float32", int8)
+        assert case[9] is None
+        plan = pa.split_plan(slots, H, chip_smoke.SERVE_MAX_LEN, bs, pa.H100_SMS)
+        assert chip_smoke._plan(case) == plan
+
+
+def _tiny_gpt2_export(path):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
+
+    cfg = Gpt2Config(**SERVE_TINY, hidden_dropout=0.0, embd_dropout=0.0,
+                     attention_dropout=0.0)
+    model = init_gpt2(cfg, seed=0, device="cpu")
+    auto.save_pretrained(str(path), model, "gpt2", cfg)
+    WordHashTokenizer(vocab_size=cfg.vocab_size).save_pretrained(str(path))
+    return path
+
+
+def test_decode_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The decode phase on a tiny GPT-2 export (2 layers): every run in
+    fp32 and bf16, the exactness gates (speculative, chunked and beam 1
+    against greedy up to the first near-tie; sampled twice equal), the
+    int8 weight-only quality contract and the byte counts."""
+    for name, value in (("DECODE_ROWS", 3), ("DECODE_PROMPT", 12), ("DECODE_NEW", 6),
+                        ("DECODE_DRAFT_LAYERS", 1), ("DECODE_CHUNK", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rows = chip_smoke.decode_phase(_tiny_gpt2_export(tmp_path / "gpt2"), "cpu rehearsal")
+    names = ["greedy", "sampled", "beam4", "speculative", "chunked_prefill", "int8_kv",
+             "int8_weights"]
+    assert [k[0] for k in rows if k[1] == "float32" and k[0] != "gates"] == names
+    assert [k for k in rows if k[1] == "bfloat16"] == [(n, "bfloat16") for n in names]
+    for key, row in rows.items():
+        if key[0] == "gates":
+            continue
+        assert row["ttft_s"] > 0 and row["decode_tokens_per_sec"] > 0
+        assert ("idle_share" in row) == (key[1] == "float32")
+    spec = rows[("speculative", "float32")]
+    assert spec["window_ceiling"] == chip_smoke.DECODE_K + 1
+    assert 1.0 <= spec["tokens_per_target_pass"] <= chip_smoke.DECODE_K + 1
+    gates = rows[("gates", "float32")]
+    assert gates["speculative_tokens_compared"] > 0 and gates["beam1_tokens_compared"] > 0
+    assert gates["int8_logits_correlation"] > 0.999
+    assert gates["weight_bytes_int8"] < gates["weight_bytes_fp32"]
+    assert rows[("int8_weights", "float32")]["kernels_quantized"] == 2 * 4
+
+
+def test_seq2seq_decode_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """T5 and BART decoding at d_model 64: greedy, sampled, beam 4 (its
+    score at least greedy's), T5's speculative run equal to greedy up to
+    the first near-tie (BART's refused), the int8 model's logits read."""
+    for name, value in (("DECODE_ROWS", 2), ("S2S_SEQ", 24), ("S2S_DECODE_NEW", 5)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rows = chip_smoke.seq2seq_decode_phase(tmp_path)
+    assert [k for k in rows if k[0] == "t5_small"] == [
+        ("t5_small", n) for n in ("greedy", "sampled", "beam4", "int8_weights", "speculative",
+                                  "gates")]
+    assert ("bart_base", "speculative") not in rows
+    assert rows[("bart_base", "gates")]["speculative"].startswith("refused: ")
+    assert rows[("t5_small", "gates")]["speculative_tokens_compared"] > 0
+    for key, row in rows.items():
+        if key[1] == "gates":
+            assert row["int8_logits_max_rel_err"] >= 0 and row["int8_logits_correlation"] <= 1
+        else:
+            assert row["tokens_per_sec"] > 0
+
+
+def test_predict_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The predict CLI in subprocesses on tiny exports of each kind: the
+    JAX rows' keys, generated ids equal to the direct calls'."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+        init_seq2seq,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
+        EncoderConfig,
+    )
+
+    monkeypatch.setattr(chip_smoke, "PREDICT_NEW", 4)
+    monkeypatch.setattr(chip_smoke, "DECODE_DRAFT_LAYERS", 1)
+    exports = {"causal-lm": _tiny_gpt2_export(tmp_path / "gpt2")}
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "movie", "was", "and",
+             "long"]
+    for task, n_vocab in (("seq-cls", 300), ("mlm", len(words))):
+        cfg = EncoderConfig(vocab_size=n_vocab, hidden_size=32, num_layers=1, num_heads=2,
+                            intermediate_size=64, max_position_embeddings=128,
+                            use_pooler=task == "seq-cls")
+        model = init_encoder(auto.build_model("bert", task, cfg), device="cpu")
+        path = tmp_path / task
+        auto.save_pretrained(str(path), model, "bert", cfg)
+        if task == "mlm":
+            (path / "vocab.txt").write_text("\n".join(words) + "\n")
+        else:
+            WordHashTokenizer(vocab_size=n_vocab).save_pretrained(str(path))
+        exports[task] = path
+    hf = dict(chip_smoke.T5_SMALL)
+    model, _, cfg = auto.from_pretrained(str(chip_smoke._config_dir(tmp_path / "t5", hf)),
+                                         task="seq2seq", device="cpu")
+    auto.save_pretrained(str(tmp_path / "t5" / "model"), init_seq2seq(model, device="cpu"),
+                         "t5", cfg)
+    exports["seq2seq"] = tmp_path / "t5" / "model"
+    rows = chip_smoke.predict_phase(tmp_path / "predict", exports)
+    assert set(rows) == {"seq-cls", "mlm", "causal-lm_beam", "causal-lm_sampled",
+                         "causal-lm_self_speculative", "seq2seq", "wall_s"}
+    for name, row in rows.items():
+        if name == "wall_s":
+            continue
+        assert row["keys"] == chip_smoke.PREDICT_ROW_KEYS[name.split("_")[0]]
+        if name.startswith(("causal", "seq2seq")):
+            assert row["generated_ids_equal_direct_call"]

@@ -283,8 +283,14 @@ def test_params_from_jax_layouts():
     assert sd["backbone.h.3.mlp.fc_in.weight"].shape == (6, 4)
     assert set(sd) == {"backbone.h.3.mlp.fc_in.weight", "backbone.ln_f.weight",
                        "backbone.wte.weight"}
+    # an int8 kernel (models/quant.py) carries as [out, in], its scales as they are
+    sd = params_from_jax({"backbone/h_0/mlp/fc_in/kernel_q": np.ones((4, 6), np.int8),
+                          "backbone/h_0/mlp/fc_in/kernel_scale": np.ones(6, np.float32)})
+    assert sd["backbone.h.0.mlp.fc_in.weight_q"].shape == (6, 4)
+    assert sd["backbone.h.0.mlp.fc_in.weight_q"].dtype == torch.int8
+    assert sd["backbone.h.0.mlp.fc_in.weight_scale"].shape == (6,)
     with pytest.raises(ValueError):
-        params_from_jax({"backbone/h_0/mlp/fc_in/kernel_q": np.ones(2)})
+        params_from_jax({"backbone/h_0/mlp/fc_in/kernel_z": np.ones(2)})
 
 
 @pytest.mark.parametrize("field,value", [
@@ -298,9 +304,23 @@ def test_config_rejects_unported_features(field, value):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
             dataclasses.replace(t_gpt2.Gpt2Config(), remat=True, remat_policy="dots")
         return
+    if field == "weight_quant":
+        # int8 weight-only quantization is ported (models/quant.py): the
+        # block's denses become Int8Linear; a mode no package takes raises
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import (
+            Int8Linear,
+        )
+
+        cfg = dataclasses.replace(t_gpt2.Gpt2Config(**TINY), **{field: value})
+        block = t_gpt2.Gpt2LMHeadModel(cfg).backbone.h[0]
+        assert all(isinstance(m, Int8Linear) for m in (
+            block.attention.qkv, block.attention.attn_out, block.mlp.fc_in, block.mlp.fc_out))
+        with pytest.raises(ValueError, match="weight_quant"):
+            dataclasses.replace(t_gpt2.Gpt2Config(), weight_quant="int4")
+        return
     # what is not ported yet names its ROADMAP item; a value no package
     # takes is a ValueError
-    unported = field in ("num_experts", "pipeline_stages", "weight_quant", "attention_impl")
+    unported = field in ("num_experts", "pipeline_stages", "attention_impl")
     with pytest.raises(NotImplementedError if unported else ValueError,
                        match="ROADMAP queue 1, item" if unported else None):
         dataclasses.replace(t_gpt2.Gpt2Config(), **{field: value})

@@ -684,7 +684,7 @@ def _raise_sites():
          lambda: t_gpt2.Gpt2Config(remat=True, remat_policy="dots_no_batch"), "4"),
         ("gpt2-moe", lambda: t_gpt2.Gpt2Config(num_experts=4), "9"),
         ("gpt2-pipeline", lambda: t_gpt2.Gpt2Config(pipeline_stages=2), "11"),
-        ("gpt2-quant", lambda: t_gpt2.Gpt2Config(weight_quant="int8"), "8"),
+        ("gpt2-quant", lambda: _ported_quant("gpt2"), None),
         ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), "11"),
         ("attention-ring", lambda: t_attn.dot_product_attention(q, q, q, impl="ring"), "11"),
         ("optim-lamb", lambda: t_optim.build_optimizer(
@@ -695,18 +695,19 @@ def _raise_sites():
          "9"),
         ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), "11"),
         ("t5-pipeline", lambda: t_t5.T5Config(pipeline_stages=2), "11"),
-        ("t5-quant", lambda: t_t5.T5Config(weight_quant="int8"), "8"),
+        ("t5-quant", lambda: _ported_quant("t5"), None),
         ("t5-remat-policy", lambda: t_t5.T5Config(remat=True, remat_policy="dots"), "4"),
         ("bart-ring", lambda: t_bart.BartConfig(attention_impl="ring"), "11"),
         ("bart-pipeline", lambda: t_bart.BartConfig(pipeline_stages=2), "11"),
-        ("bart-quant", lambda: t_bart.BartConfig(weight_quant="int8"), "8"),
+        ("bart-quant", lambda: _ported_quant("bart"), None),
         ("bart-remat-policy",
          lambda: t_bart.BartConfig(remat=True, remat_policy="dots_no_batch"), "4"),
-        ("generate-sampling", lambda: t_gen.generate(None, None, temperature=1.0), "8"),
-        ("generate-beam", lambda: t_gen.beam_search_generate(None, None), "8"),
-        ("generate-speculative-seq2seq",
-         lambda: t_gen.generate_speculative_seq2seq(None, None), "8"),
-        ("engine-int8-kv", lambda: _int8_engine(), "10"),
+        ("generate-sampling", lambda: _ported_decoding("sampling"), None),
+        ("generate-beam", lambda: _ported_decoding("beam"), None),
+        ("generate-speculative-seq2seq", lambda: _ported_decoding("speculative"), None),
+        ("beam-causal-experts", lambda: t_gen.beam_search_causal(
+            SimpleNamespace(config=SimpleNamespace(num_experts=2)), np.ones((1, 4))), "9"),
+        ("engine-int8-kv", lambda: _int8_engine(), None),
     ]
 
 
@@ -738,24 +739,121 @@ def _ported_packed_lm_rows() -> None:
         np.testing.assert_array_equal(got.columns[key], np.asarray(value), err_msg=key)
 
 
+def _ported_quant(family: str) -> None:
+    """Int8 weight-only quantization (ROADMAP item 8, ported): the config
+    builds a model whose denses on the family's JAX target regex are
+    ``Int8Linear`` and only those, and ``quantize_for_generation`` on a
+    BERT raises the JAX package's ``ValueError`` word for word."""
+    import re
+    from types import SimpleNamespace
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import quant as j_quant
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import bart as t_bart
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import layers as t_layers
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import quant as t_quant
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import t5 as t_t5
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_bert
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import (
+        jax_param_paths,
+    )
+
+    model, targets = {
+        "gpt2": lambda: (t_gpt2.Gpt2LMHeadModel(t_gpt2.Gpt2Config(
+            vocab_size=64, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
+            max_position_embeddings=16, weight_quant="int8")), j_quant.GPT2_QUANT_TARGETS),
+        "t5": lambda: (t_t5.T5ForConditionalGeneration(t_t5.T5Config(
+            vocab_size=64, d_model=16, d_kv=4, d_ff=32, num_layers=1, num_heads=4,
+            feed_forward_proj="gated-gelu", tie_word_embeddings=False,
+            weight_quant="int8")), j_quant.T5_QUANT_TARGETS),
+        "bart": lambda: (t_bart.BartForConditionalGeneration(t_bart.BartConfig(
+            vocab_size=64, d_model=16, encoder_layers=1, decoder_layers=1,
+            encoder_attention_heads=2, decoder_attention_heads=2, encoder_ffn_dim=32,
+            decoder_ffn_dim=32, max_position_embeddings=16, weight_quant="int8")),
+            j_quant.BART_QUANT_TARGETS)}[family]()
+    paths = list(jax_param_paths(model).values())
+    int8 = [p[: -len("_q")] for p in paths if p.endswith("/kernel_q")]
+    assert int8 and all(re.search(targets, p) for p in int8)
+    assert not any(re.search(targets, p) for p in paths if p.endswith("/kernel"))
+    enc = t_layers.EncoderConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                                 intermediate_size=32, max_position_embeddings=16)
+    with pytest.raises(ValueError) as got:
+        t_quant.quantize_for_generation(init_bert(enc, device="cpu"))
+    with pytest.raises(ValueError) as want:
+        j_quant.quantize_for_generation(SimpleNamespace(config=enc), None)
+    assert str(got.value) == str(want.value)
+
+
+def _ported_decoding(which: str) -> None:
+    """Decoding (ROADMAP item 8, ported): the call runs on a tiny T5 and
+    returns what the JAX package returns on the same weights —
+    ``[B, max_new_tokens]`` int32 in-vocab ids for sampling (the random
+    streams differ), the same ids for beam search and for speculative
+    decoding (the target's greedy ids)."""
+    import jax.numpy as jnp
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models import generate as j_gen
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as t_gen
+    from torch_decode_pairs import seq2seq_pair
+
+    jmodel, params, model = seq2seq_pair("t5", seed=0)
+    src = np.random.RandomState(0).randint(3, 96, (2, 6)).astype(np.int32)
+    if which == "sampling":
+        got = t_gen.generate(model, src, max_new_tokens=5, temperature=1.0, top_k=20)
+        want = np.asarray(j_gen.generate(jmodel, params, jnp.asarray(src), max_new_tokens=5,
+                                         temperature=1.0, top_k=20))
+        assert got.shape == want.shape and got.dtype == torch.int32
+        assert bool(((got >= 0) & (got < 96)).all())
+        return
+    if which == "beam":
+        got = t_gen.beam_search_generate(model, src, num_beams=3, max_new_tokens=5)
+        want = j_gen.beam_search_generate(jmodel, params, jnp.asarray(src), num_beams=3,
+                                          max_new_tokens=5)
+    else:
+        draft = seq2seq_pair("t5", num_layers=1, seed=1)[2]
+        got = t_gen.generate_speculative_seq2seq(model, draft, src, max_new_tokens=5,
+                                                 speculate_k=3)
+        want = j_gen.generate(jmodel, params, jnp.asarray(src), max_new_tokens=5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def _int8_engine():
+    """Int8 KV pools in the engine (ROADMAP item 10's piece, ported): the
+    engine serves from int8 pools with fp32 scales, its tokens equal to
+    ``generate_causal`` on the int8 dense cache of the same config."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import ServeEngine
 
-    cfg = t_gpt2.Gpt2Config(vocab_size=64, max_position_embeddings=16, hidden_size=8,
+    cfg = t_gpt2.Gpt2Config(vocab_size=64, max_position_embeddings=32, hidden_size=8,
                             num_layers=1, num_heads=1, intermediate_size=16,
                             kv_cache_dtype="int8")
-    return ServeEngine(init_gpt2(cfg, device="cpu"), device="cpu")
+    model = init_gpt2(cfg, device="cpu")
+    engine = ServeEngine(model, num_slots=2, block_size=4, num_blocks=17, prefill_chunk=8,
+                         max_model_len=32, device="cpu")
+    assert engine.kv_cache_dtype == "int8"
+    assert {p.dtype for p in engine.k_pools} == {torch.int8}
+    prompt = np.arange(1, 8, dtype=np.int32)
+    req = engine.submit(prompt, 6)
+    engine.run()
+    want = generate_causal(model, prompt[None], max_new_tokens=6)[0].tolist()
+    eos = cfg.eos_token_id
+    assert engine.output_ids(req).tolist() == (want[:want.index(eos) + 1] if eos in want
+                                               else want)
 
 
 @pytest.mark.parametrize("site", range(len(_raise_sites())),
                          ids=[s[0] for s in _raise_sites()])
 def test_unported_raises_name_their_roadmap_item(site):
     """No raise names a slice letter any more: each names its ROADMAP
-    queue 1 item. The sites of item 6, now ported, run instead (a
-    ported config builds and its invalid form raises the JAX ``ValueError``;
-    the packed LM rows equal the JAX ones)."""
+    queue 1 item. The sites of items 6 and 8 and of item 10's int8 pools,
+    now ported, run instead (a ported config builds and its invalid form
+    raises the JAX ``ValueError``; the packed LM rows equal the JAX ones;
+    an int8 config builds its ``Int8Linear``s; the decoders return the
+    JAX package's ids; the int8 engine serves)."""
     _, call, item = _raise_sites()[site]
     if item is None:
         call()

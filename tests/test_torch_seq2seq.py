@@ -240,14 +240,22 @@ def test_generate_is_token_exact_against_jax(tmp_path, variant, seed):
 
 
 def test_sampling_and_other_decoders_raise_naming_item_8(tmp_path):
+    """ROADMAP item 8 is ported: sampling, beam search and speculative
+    decoding run and return [B, max_new_tokens] int32 ids, as the JAX
+    decoders do (held token for token in ``test_torch_generate.py`` and
+    ``test_torch_speculative.py``); top-k and top-p alone, at temperature
+    0, leave the greedy ids."""
     _, _, model = _pair(tmp_path, "t5")
     ids, mask, _, _ = _inputs()
+    greedy = t_gen.generate(model, ids, mask, max_new_tokens=2)
     for kw in ({"temperature": 0.7}, {"top_k": 5}, {"top_p": 0.9}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_gen.generate(model, ids, mask, max_new_tokens=2, **kw)
-    for fn in (t_gen.beam_search_generate, t_gen.generate_speculative_seq2seq):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn(model, ids)
+        got = t_gen.generate(model, ids, mask, max_new_tokens=2, **kw)
+        assert tuple(got.shape) == (3, 2) and got.dtype == torch.int32
+        if "temperature" not in kw:
+            assert torch.equal(got, greedy)
+    for got in (t_gen.beam_search_generate(model, ids, max_new_tokens=2),
+                t_gen.generate_speculative_seq2seq(model, model, ids, max_new_tokens=2)):
+        assert tuple(got.shape) == (3, 2) and got.dtype == torch.int32
 
 
 # -- the losses and the trainer ------------------------------------------------------

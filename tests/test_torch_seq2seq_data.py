@@ -17,6 +17,8 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import sources 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import streaming as t_stream
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import tokenization as t_tok
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils import metrics as t_metrics
+# removes a JAX compile tracker an earlier telemetry test left in the worker
+from torch_decode_pairs import detached_compile_trackers  # noqa: F401  (autouse fixture)
 
 VOCAB = 1024
 EOS = 1

@@ -3,7 +3,9 @@ unit cases of ``tests/test_serve.py`` run against both packages' host
 code; the port's engine on the CPU is token-exact against the JAX
 ``ServeEngine(kernel='xla')`` and ``generate_causal`` (mixed lengths,
 forced preemption, EOS); the CLI and the device rule of the entry
-points."""
+points; per-request sampling (seeded streams the same across
+preemption), int8 pools with their scales, byte-sized pools, and the
+CLI's sampling, ``--model_dir`` and ``--kv_cache_dtype`` flags."""
 
 import contextlib
 import io
@@ -357,6 +359,181 @@ def test_make_trace_matches_serve_bench():
     for (gp, gm), (wp, wm) in zip(got, want):
         np.testing.assert_array_equal(gp, wp)
         assert gm == wm
+
+
+# -- sampling and int8 pools ------------------------------------------------------
+
+def _tiny(**kw):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_gpt2,
+    )
+
+    return init_gpt2(t_gpt2.Gpt2Config(**{**TINY, **kw}), seed=0, device="cpu")
+
+
+def _plain_draws(model, prompt, output, req_kw) -> list:
+    """What each of a sampled request's tokens must be: ``sample_per_slot``
+    on a full forward of the prompt and the tokens before it."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        sample_per_slot,
+    )
+
+    seq = list(prompt) + list(output)
+    with torch.no_grad():
+        logits = model(torch.tensor([seq]))[0]
+    want = []
+    for n in range(len(output)):
+        row = logits[len(prompt) + n - 1][None].float()
+        want.append(int(sample_per_slot(
+            row, torch.tensor([req_kw["temperature"]]), torch.tensor([req_kw["top_k"]]),
+            torch.tensor([req_kw["top_p"]]), torch.tensor([req_kw["seed"]]),
+            torch.tensor([n]))[0]))
+    return want
+
+
+def test_sampled_serve_is_seed_deterministic_across_preemption():
+    """Identical seeds reproduce the streams bit for bit, preemption and
+    requeue do not change them, another seed changes only its own stream,
+    each sampled token is ``sample_per_slot``'s draw on the plain forward
+    at its (seed, index), and the greedy rider stays ``generate_causal``."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
+
+    model = _tiny()
+    rng = np.random.RandomState(9)
+    trace = [(rng.randint(1, 120, (9,)).astype(np.int32), 14) for _ in range(4)]
+    kws = [dict(temperature=0.9, top_k=20, top_p=0.9, seed=s) for s in (1, 2, 3)] + [{}]
+
+    def run(num_blocks, kws):
+        eng = ServeEngine(model, num_slots=3, block_size=4, num_blocks=num_blocks,
+                          prefill_chunk=8, max_model_len=32, device="cpu")
+        reqs = [eng.submit(p, m, **kw) for (p, m), kw in zip(trace, kws)]
+        eng.run()
+        return [[int(t) for t in eng.output_ids(r)] for r in reqs], eng
+
+    base, _ = run(40, kws)
+    again, _ = run(40, kws)
+    assert again == base
+    tight, teng = run(9, kws)
+    assert teng.stats().preemptions > 0
+    assert tight == base
+    reseeded, _ = run(40, [dict(kws[0], seed=99)] + kws[1:])
+    assert reseeded[0] != base[0] and reseeded[1:] == base[1:]
+    for (prompt, _), kw, out in zip(trace[:3], kws, base):
+        assert out == _plain_draws(model, prompt, out, kw)
+    prompt, m = trace[3]
+    assert base[3] == generate_causal(model, prompt[None], max_new_tokens=m)[0].tolist()
+
+
+def test_request_rejects_bad_sampling_params():
+    """The port's ``Request`` refuses what the JAX ``Request`` refuses."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.serve.scheduler import (
+        Request as JaxRequest,
+    )
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.scheduler import Request
+
+    for bad, match in ((dict(temperature=-1.0), "temperature"), (dict(top_p=1.5), "top_p"),
+                       (dict(top_k=-2), "top_k")):
+        for cls in (Request, JaxRequest):
+            with pytest.raises(ValueError, match=match):
+                cls(prompt=np.arange(1, 4), max_new_tokens=2, **bad)
+    req = Request(prompt=np.arange(1, 4), max_new_tokens=2, temperature=0.5)
+    assert req.sampled and not Request(prompt=np.arange(1, 4), max_new_tokens=2).sampled
+
+
+def test_engine_exact_int8_pools_under_preemption(models):
+    """int8 pools with fp32 scales: tokens equal ``generate_causal`` on the
+    int8 dense cache of the same config and the JAX engine's int8 pools,
+    under forced recompute preemption; a token costs fewer bytes than in
+    fp pools."""
+    import dataclasses
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
+
+    jmodel, params, model = models
+    int8 = t_gpt2.Gpt2LMHeadModel(dataclasses.replace(model.config, kv_cache_dtype="int8"))
+    int8.load_state_dict(model.state_dict())
+    int8.eval()
+    rng = np.random.RandomState(12)
+    trace = [(rng.randint(1, 120, (9,)).astype(np.int32), 18) for _ in range(4)]
+    kw = dict(num_slots=4, block_size=4, num_blocks=10, prefill_chunk=8, max_model_len=32)
+    eng, got = _port_run(int8, trace, **kw)
+    assert eng.stats().preemptions > 0 and eng.kv_cache_dtype == "int8"
+    assert {p.dtype for p in eng.k_pools + eng.v_pools} == {torch.int8}
+    assert {p.dtype for p in eng.k_scale_pools + eng.v_scale_pools} == {torch.float32}
+    for (prompt, max_new), tokens in zip(trace, got):
+        assert tokens == generate_causal(int8, prompt[None], max_new_tokens=max_new)[0].tolist()
+    jint8 = jmodel.clone(config=dataclasses.replace(jmodel.config, kv_cache_dtype="int8"))
+    _, want = _jax_run(jint8, params, trace, **kw)
+    assert got == want
+    fp_eng, _ = _port_run(model, trace[:1], **kw)
+    assert eng.blocks.token_bytes < fp_eng.blocks.token_bytes
+    # the knob overrides the model's own storage
+    assert ServeEngine(model, kv_cache_dtype="int8", device="cpu", **{
+        k: v for k, v in kw.items() if k != "num_slots"}).kv_cache_dtype == "int8"
+
+
+def test_kv_pool_bytes_doubles_int8_admission(models):
+    """Pools sized by the same byte budget hold about twice the blocks in
+    int8 (scales counted) and, through the block-denominated admission,
+    at least twice the resident requests."""
+    import dataclasses
+
+    _, _, model = models
+    int8 = t_gpt2.Gpt2LMHeadModel(dataclasses.replace(model.config, kv_cache_dtype="int8"))
+    int8.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(16)
+    trace = [(rng.randint(1, 120, (8,)).astype(np.int32), 8) for _ in range(6)]
+    kw = dict(num_slots=6, block_size=4, prefill_chunk=8, max_model_len=32)
+    probe = ServeEngine(model, num_blocks=8, device="cpu", **kw)
+    budget = 5 * probe.blocks.block_bytes
+    fp_eng, fp_got = _port_run(model, trace, kv_pool_bytes=budget, **kw)
+    int8_eng, _ = _port_run(int8.eval(), trace, kv_pool_bytes=budget, **kw)
+    assert fp_eng.blocks.num_blocks == 6
+    assert int8_eng.blocks.num_blocks >= 2 * fp_eng.blocks.num_blocks - 1
+    assert (int8_eng.stats().peak_resident_requests
+            >= 2 * fp_eng.stats().peak_resident_requests)
+    head_dim = TINY["hidden_size"] // TINY["num_heads"]
+    assert int8_eng.blocks.token_bytes * 4 * head_dim == (
+        fp_eng.blocks.token_bytes * (head_dim + 4))
+
+
+def test_cli_samples_and_serves_int8_pools_from_a_model_dir(tmp_path):
+    """``--model_dir`` serves a GPT-2 export; ``--temperature`` and the
+    sampling flags set every request's default (JSONL fields override,
+    and a non-integral ``top_k`` is refused naming its line);
+    ``--kv_cache_dtype int8`` serves from int8 pools."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto as t_auto
+
+    model = _tiny()
+    t_auto.save_pretrained(str(tmp_path / "gpt2"), model, "gpt2", model.config)
+    trace = tmp_path / "req.jsonl"
+    trace.write_text("\n".join([json.dumps({"prompt_ids": [3, 4, 5, 6], "max_new_tokens": 5}),
+                                json.dumps({"prompt_ids": [7, 8, 9], "max_new_tokens": 5,
+                                            "temperature": 0})]) + "\n")
+
+    def serve(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", "cpu", "--model_dir", str(tmp_path / "gpt2"),
+                      "--input_file", str(trace), "--num_slots", "2", *extra])
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+        return [r["output_ids"] for r in lines[:-1]], lines[-1]
+
+    greedy, summary = serve()
+    assert summary["kv_dtype"] == "fp"
+    sampled, _ = serve("--temperature", "1.0", "--top_k", "50", "--sample_seed", "3")
+    assert sampled[1] == greedy[1] and sampled[0] != greedy[0]
+    assert serve("--temperature", "1.0", "--top_k", "50", "--sample_seed", "3")[0] == sampled
+    int8, summary = serve("--kv_cache_dtype", "int8")
+    assert summary["kv_dtype"] == "int8" and [len(r) for r in int8] == [5, 5]
+    trace.write_text(json.dumps({"prompt_ids": [3, 4], "top_k": 2.5}) + "\n")
+    with pytest.raises(SystemExit, match="req.jsonl:1"):
+        serve()
 
 
 # scripts/serve.py's single-engine summary keys
