@@ -26,7 +26,10 @@ failure raises and exits non-zero:
    int8 pools, bf16, block sizes 4 and 8, one slot alone at context 1024,
    contexts on and beside the chunk edges under a window that spans
    chunks, and one past the walked width whose band lies wholly beyond
-   it). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
+   it; each width of the serve_engine phase's gather ladders, 256 and
+   1024 at 8 slots, 128 and 512 at 16 and at 8, over tables of
+   max_model_len; 16 slots whose tables share a 320-token template's
+   blocks, fp32 and int8, the template read once in the bound). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
    rows, bf16 to ``2e-2``; context-0 rows must be exactly 0. Prints one
    JSON line per case with the kernels' device time (the profiler's,
    split and combine summed per call, median of 5 windows of 20),
@@ -37,7 +40,9 @@ failure raises and exits non-zero:
    chunk plan and the bandwidth/compute bound;
 3. serve: ``ServeEngine`` on GPT-2 124M at full width (fp32, random
    weights from seed 0) over 20 requests, 16 from ``make_trace`` with
-   ``scripts/serve.py``'s defaults and 4 with 512-896-token prompts.
+   ``scripts/serve.py``'s defaults and 4 with 512-896-token prompts, at
+   the serial engine's settings (``SERVE_SERIAL``: prefix cache and
+   overlap off, one width; so are the runs of 3 and 4).
    Requires ``paged_kernel_launches == decode_steps * num_layers`` and
    the engine's tokens equal to the plain ``generate_causal`` on the
    card, up to the first step where the plain path's top-2 logit gap is
@@ -52,7 +57,26 @@ failure raises and exits non-zero:
    per token fp32 and int8 and the blocks equal bytes buy; K3 launched 12
    times a decode step in every run;
 4. profile: the same trace on a fresh engine under ``torch.profiler``,
-   printing device time by kernel and the device's idle share;
+   printing device time by kernel and the device's idle share; then
+   ``serve_engine``, the engine's single-device features on the same
+   model, each run's K3 counts set to 0 just before it and read just
+   after (once a layer a decode step; a speculative run launches none),
+   telemetry on: (a) the JAX prefix bench's templated trace (48 requests,
+   a 320-token template, 16 slots, chunk 32, width 512, 105 blocks) with
+   the prefix cache on against off, both primed with the template (TTFT,
+   hit rate, blocks saved, copies); (b) the serve trace on the default
+   engine (prefix cache, ladder and overlap on), ladder auto against full
+   (switches, read waste, K3 launches by width); (c) speculation in the
+   engine, k 4, 4 self-draft layers (acceptance, tokens per target pass);
+   (d) the JAX swap bench's thrash trace, swap always against recompute
+   (swaps, host bytes, host-tier hits); (e) overlap on against off, every
+   other request sampled, no dispatch ahead making the host wait on the
+   card (sync debug mode ``error``), the host's wait per step and on a
+   second run each the idle share over iterations 8-40; (f) every event
+   valid under the port's schema, every ``request_timeline`` summing to its
+   e2e, ``policy='slo'`` admitting by deadline. Each pair's tokens must be
+   equal, or split only where the plain forward's top-2 gap is below
+   1e-3 (sampled: of the noisy warped logits);
 5. flash kernels: holds ``flash_fwd``, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` against their plain versions at the BERT-base shape
    (B 8, H 12, S 512, D 64, a padding mask with ragged lengths) in fp32
@@ -249,7 +273,8 @@ failure raises and exits non-zero:
    exports (seq-cls, mlm, causal-lm beam, sampled and self-speculative,
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
 10. each phase's wall seconds, the ``kernels`` line (the paged kernel's
-   ``launches_by_path``), the card's line, and the final
+   ``launches_by_path``, its launches by width in the serve_engine runs
+   and its ladder and shared-block cases), the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -348,7 +373,32 @@ KERNEL_CASES = [
     ("single", 1, 12, 12, 64, 16, 1024, "float32", False, None, "full"),
     # contexts on and beside the chunk edges, a window across them
     ("chunk_edges", 8, 12, 12, 64, 16, 1024, "float32", False, 200, "chunk_edges"),
+    # the serve_engine phase's launch configurations: each width of the
+    # gather ladder (the 20-request trace's 256 and 1024 at 8 slots, the
+    # prefix trace's 128 and 512 at 16, the thrash trace's at 8), over
+    # tables of max_model_len
+    # (TABLE_BLOCKS), and 16 slots whose tables share a 320-token
+    # template's blocks, as the prefix cache makes them, fp and int8
+    ("serve_w256", 8, 12, 12, 64, 16, 256, "float32", False, None, "ragged"),
+    ("serve_w1024", 8, 12, 12, 64, 16, 1024, "float32", False, None, "ragged"),
+    ("prefix_w128", 16, 12, 12, 64, 16, 128, "float32", False, None, "ragged"),
+    ("prefix_w512", 16, 12, 12, 64, 16, 512, "float32", False, None, "ragged"),
+    ("thrash_w128", 8, 12, 12, 64, 16, 128, "float32", False, None, "ragged"),
+    ("thrash_w512", 8, 12, 12, 64, 16, 512, "float32", False, None, "ragged"),
+    ("shared", 16, 12, 12, 64, 16, 512, "float32", False, None, "shared"),
+    ("shared_int8", 16, 12, 12, 64, 16, 512, "float32", True, None, "shared"),
 ]
+# block-table columns of a case (else the walked blocks plus 4): the
+# engine's tables hold max_model_len // block_size columns whatever width
+# the ladder walks
+TABLE_BLOCKS = {"serve_w256": 64, "serve_w1024": 64, "prefix_w128": 32,
+                "prefix_w512": 32, "thrash_w128": 32, "thrash_w512": 32, "shared": 32,
+                "shared_int8": 32}
+SHARED_PREFIX = 320             # the shared cases' template tokens (20 blocks)
+# the ladder's cases by (slots, width), as the serve_engine phase runs them
+LADDER_CASES = {(8, 256): "serve_w256", (8, 1024): "serve_w1024",
+                (16, 128): "prefix_w128", (16, 512): "prefix_w512",
+                (8, 128): "thrash_w128", (8, 512): "thrash_w512"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COPIES = 4          # distinct input sets the timing rotates over
 # a bf16 output of the flash and vocab-CE kernels is held to 2^-6 of
@@ -396,6 +446,10 @@ def _contexts(case, gen) -> list[int]:
     if kind == "chunk_edges":
         c = _plan(case)[0]
         return [0, 1, c - 1, c, c + 1, 2 * c, max_ctx, max_ctx + (window or bs)][:S]
+    if kind == "shared":
+        # the template, a tail and a few generated tokens each
+        return (SHARED_PREFIX + 1 + torch.randint(
+            0, max_ctx - SHARED_PREFIX, (S,), generator=gen)).tolist()
     rest = torch.randint(1, max_ctx, (S - 2,), generator=gen).tolist()
     return [0, max_ctx] + rest
 
@@ -406,10 +460,12 @@ def _make_inputs(case, gen, device):
     name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     dtype = getattr(torch, dt)
     nb_walk = -(-max_ctx // bs)
-    nb_table = nb_walk + 4                       # width stays below the span
+    nb_table = TABLE_BLOCKS.get(name, nb_walk + 4)   # width below the span
     N = 1 + S * nb_table
     tables = (torch.randperm(N - 1, generator=gen) + 1)[: S * nb_table]
     tables = tables.reshape(S, nb_table).to(torch.int32)
+    if kind == "shared":
+        tables[:, :SHARED_PREFIX // bs] = tables[0, :SHARED_PREFIX // bs].clone()
     ctx = torch.tensor(_contexts(case, gen), dtype=torch.int32)
     q = torch.randn(S, Hq, D, generator=gen).to(dtype)
     if int8:
@@ -430,17 +486,22 @@ def _make_inputs(case, gen, device):
 
 def _work(case, ctx: list[int]) -> tuple[int, int]:
     """(bytes, flops) the function needs for these contexts: q and out
-    once, each valid key's K and V row once (plus its scales), the
-    table entries walked and the context lengths."""
+    once, each valid key's K and V row once (plus its scales; a block
+    that several slots share once), the table entries walked and the
+    context lengths."""
     name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     esz = 2 if dt == "bfloat16" else 4
     kv_esz = 1 if int8 else esz
     width = -(-max_ctx // bs) * bs
     spans = [(max(0, c - window) if window else 0, min(c, width)) for c in ctx]
     keys = sum(max(0, hi - lo) for lo, hi in spans)
+    read = keys
+    if kind == "shared":
+        # the template's K/V is one input, however many slots read it
+        read -= (len(ctx) - 1) * SHARED_PREFIX
     table_entries = sum(max(0, -(-hi // bs) - lo // bs) for lo, hi in spans)
     bytes_ = (2 * S * Hq * D * esz                   # q in, out
-              + keys * Hkv * (2 * D * kv_esz + (8 if int8 else 0))
+              + read * Hkv * (2 * D * kv_esz + (8 if int8 else 0))
               + table_entries * 4 + S * 4)
     flops = keys * Hq * D * 4                        # q.k and p.v
     return bytes_, flops
@@ -691,10 +752,17 @@ def serve_trace(vocab: int = 50257):
     return trace
 
 
+# the serve, sampled, int8 and profile runs keep the serial engine they
+# measured before the prefix cache, the width ladder and the overlap loop
+# were ported (the serve_engine phase runs the new defaults beside them)
+SERVE_SERIAL = dict(prefix_cache="off", overlap="off", gather_buckets="full")
+
+
 def serve_engine(model, num_blocks: int | None = None, **kw):
     """The serve phase's engine: 8 slots, block 16, chunk 16, prefill
     batch 4, max_model_len 1024 and ``scripts/serve.py``'s default pool
-    of 3/4 of slots x max_model_len (``num_blocks`` or ``kw`` override)."""
+    of 3/4 of slots x max_model_len (``num_blocks`` or ``kw`` override),
+    at ``SERVE_SERIAL`` unless ``kw`` sets those knobs."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
         ServeEngine,
     )
@@ -704,7 +772,7 @@ def serve_engine(model, num_blocks: int | None = None, **kw):
         num_blocks = 1 + slots * (max_len // bs) * 3 // 4
     return ServeEngine(model, num_slots=slots, block_size=bs,
                        num_blocks=num_blocks or 2, prefill_chunk=16, prefill_batch=4,
-                       max_model_len=max_len, device=DEVICE, **kw)
+                       max_model_len=max_len, device=DEVICE, **{**SERVE_SERIAL, **kw})
 
 
 def _counted_serve(engine, trace, sampling=None) -> tuple:
@@ -975,6 +1043,372 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
            "top_kernels_s": [[k[:80], v] for k, v in top]}
     emit(row)
     return row
+
+# -- phase 4b: the serve engine's features -------------------------------------
+
+# (a) the JAX prefix bench's templated trace at its accelerator scale
+# (benchmarks/serve_bench.py): a 320-token template plus 8-32 tokens of
+# tail, 8-16 new tokens (24-32 every 8th), 16 slots, chunk 32, width 512
+PREFIX_REQUESTS, PREFIX_LEN, PREFIX_TAILS = 48, 320, (8, 32)
+PREFIX_NEW = ((8, 16), (24, 32))
+PREFIX_ENGINE = dict(num_slots=16, block_size=16, prefill_chunk=32,
+                     max_model_len=512, num_blocks=1 + 8 + 3 * (512 // 16))
+# (c) speculation in the engine: k 4, the first 4 layers as the draft
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 4
+# (d) the JAX swap bench's thrash trace at its accelerator scale: 4
+# templates of 192 tokens round-robin, tails 8-24, 8-16 new tokens and 192
+# every 4th, 8 slots, chunk 32, width 512, 96 blocks
+THRASH = dict(n_requests=32, n_templates=4, template_len=192, tail_lo=8,
+              tail_hi=24, short_new=(8, 16), long_new=192, long_every=4)
+THRASH_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32,
+                     max_model_len=512, num_blocks=1 + 3 * (512 // 16))
+# (e) the iterations the overlap runs profile for the idle share
+OVERLAP_PROFILED = (8, 40)
+# (f) the deadline-ordered admission: deadlines (s) in submission order
+POLICY_DEADLINES = (40.0, 10.0, 30.0, 20.0)
+
+
+def _split_at_near_tie(model, prompt, a: list, b: list, kw: dict) -> bool:
+    """Two runs' tokens for one request first differ at a step where the
+    plain forward's top-2 gap (of the logits, or for a sampled request of
+    the warped logits plus that step's noise) is below ``NEAR_TIE``: the
+    runs' fp32 sums in other orders may split there, nowhere else."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
+
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    seq = torch.as_tensor(list(prompt) + a[:j], device=DEVICE)[None]
+    with torch.inference_mode():
+        logits = model(seq)[0, -1:].float()
+    if kw:
+        one = lambda v: torch.full((1,), v, device=DEVICE)   # noqa: E731
+        logits = gen.warp_logits_per_slot(logits, one(kw["temperature"]),
+                                          one(kw.get("top_k", 0)).long(),
+                                          one(kw.get("top_p", 0.0)))
+        logits = logits + gen._slot_gumbel(one(kw["seed"]).long(), one(j).long(),
+                                           logits.shape[-1])
+    top2 = logits[0].topk(2).values
+    return float(top2[0] - top2[1]) < NEAR_TIE
+
+
+def _same_tokens(model, trace, a: list, b: list, what: str, sampling=None) -> dict:
+    """Each request's tokens of run ``a`` against run ``b``: the same, or
+    split at a near-tie of the plain path (``_split_at_near_tie``);
+    anything else fails. ``{"identical": n, "near_tie_splits": m}``."""
+    sampling = sampling or [{}] * len(trace)
+    same = ties = 0
+    for i, ((prompt, _), x, y, kw) in enumerate(zip(trace, a, b, sampling)):
+        if x == y:
+            same += 1
+            continue
+        check(_split_at_near_tie(model, prompt, x, y, kw),
+              f"{what}: request {i}'s tokens differ before any near-tie ({x} vs {y})")
+        ties += 1
+    return {"identical": same, "near_tie_splits": ties}
+
+
+def _engine_run(engine, trace, sampling=None, prime=None) -> tuple:
+    """Serve ``trace`` on ``engine`` (after ``prime``, a prompt served
+    alone first): K3's counts set to 0 just before, read just after.
+    ``(outputs, wall seconds, launches)``; a plain-decode engine must
+    launch K3 once a layer a decode step, a speculative one never."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+    )
+
+    engine.warmup()
+    if prime is not None:
+        engine.submit(prime, 1)
+        engine.run()
+    sampling = sampling or [{}] * len(trace)
+    reqs = [engine.submit(p, m, **kw) for (p, m), kw in zip(trace, sampling)]
+    steps0, launches0 = engine.decode_steps, engine.paged_kernel_launches
+    engine.paged_launches_by_width.clear()
+    paged_decode_attention.launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    engine.run()
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    steps = engine.decode_steps - steps0
+    layers = engine.model.config.num_layers
+    check(all(r.rid in engine.finished for r in reqs), "not every request finished")
+    check(launches == engine.paged_kernel_launches - launches0,
+          f"K3 launches {launches} != the engine's count")
+    if engine.speculative:
+        check(launches == 0, f"a speculative engine launched K3 {launches} times")
+    elif engine.kernel == "pallas":
+        check(steps > 0 and launches == steps * layers,
+              f"K3 launches {launches} != decode steps {steps} x {layers}")
+    return [[int(t) for t in engine.output_ids(r)] for r in reqs], wall, launches
+
+
+def _idle_window(engine, trace, sampling) -> dict:
+    """``trace`` on a fresh ``engine`` (its launches are not a counted
+    run's), iterations ``OVERLAP_PROFILED`` under ``torch.profiler``
+    (device activity): their wall, the device's busy time and idle share
+    in them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.warmup()
+    for (p, m), kw in zip(trace, sampling):
+        engine.submit(p, m, **kw)
+    lo, hi = OVERLAP_PROFILED
+    for _ in range(lo):
+        engine.step()
+    check(engine.has_work(), f"the run ended before iteration {lo}")
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(hi - lo):
+            engine.step()
+        _sync()
+        wall = time.perf_counter() - t0
+    engine.run()
+    busy = sum(_device_seconds_by_kernel(prof).values())
+    return {"window_iterations": [lo, hi], "window_wall_s": wall,
+            "device_busy_s": busy if busy else "not measured",
+            "idle_share": 1.0 - busy / wall if busy else "not measured"}
+
+
+class _SyncFreeDispatch:
+    """Within the block, ``engine``'s decode dispatches run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a dispatch that makes the
+    host wait on the card (a ``.cpu()``, an ``.item()``, a pageable copy)
+    raises. ``dispatches`` counts the ones held."""
+
+    def __init__(self, engine):
+        self.engine, self.dispatches = engine, 0
+
+    def __enter__(self):
+        import torch
+
+        eng = self
+
+        def guarded(fn):
+            def run(*args, **kwargs):
+                if DEVICE == "cuda":
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    if DEVICE == "cuda":
+                        torch.cuda.set_sync_debug_mode("default")
+                eng.dispatches += out is not None
+                return out
+            return run
+
+        for name in ("_dispatch_decode", "_dispatch_spec"):
+            setattr(self.engine, name, guarded(getattr(self.engine, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_dispatch_decode", "_dispatch_spec"):
+            delattr(self.engine, name)
+        return False
+
+
+def _engine_row(engine, run: str, outs, wall: float, launches: int, **extra) -> dict:
+    st, slo = engine.stats(), engine.slo_summary()
+    tokens = sum(len(o) for o in outs)
+    return {"phase": "serve_engine", "run": run, "requests": len(outs), "tokens": tokens,
+            "tokens_per_sec": tokens / wall, "wall_s": wall,
+            "ttft_p50_s": slo.get("ttft_p50_s"), "ttft_p99_s": slo.get("ttft_p99_s"),
+            "decode_steps": st.decode_steps, "decode_tokens_per_sec":
+            slo.get("decode_tokens_per_sec"), "preemptions": st.preemptions,
+            "gather_buckets": engine.gather_buckets,
+            "paged_kernel_launches": launches,
+            "k3_launches_by_width": {str(w): n for w, n in
+                                     sorted(engine.paged_launches_by_width.items())},
+            **extra}
+
+
+def serve_engine_phase(model, trace) -> dict:
+    """The engine's single-device features on GPT-2 124M (fp32, random
+    weights from seed 0), each run's K3 counts set to 0 just before it and
+    read just after, telemetry on: (a) the prefix cache on against off on
+    the templated trace, both primed with the template; (b) the width
+    ladder auto against full on the serve trace (the default engine: the
+    prefix cache, the ladder and overlap on); (c) speculation in the
+    engine (k 4, 4 self-draft layers) against (b)'s run; (d) swap always
+    against recompute on the thrash trace; (e) overlap on against off,
+    every other request sampled, no decode dispatched ahead making the host
+    wait on the card (``_SyncFreeDispatch``), the host's wait on decode
+    results per step, and on a second run each the device's idle share
+    over ``OVERLAP_PROFILED``; (f) every event of (a)-(e) valid under the
+    port's schema, every ``request_timeline`` summing to its e2e
+    (``check_decomposition``), and ``policy='slo'`` admitting in deadline
+    order. Every pair holds its tokens equal (``_same_tokens``; sampled
+    streams too)."""
+    import shutil
+
+    import numpy as np
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.schema import (
+        validate_events_file,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+        check_decomposition,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
+        ServeEngine,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import (
+        make_thrash_trace,
+        make_trace,
+    )
+
+    vocab = model.config.vocab_size - 1
+    layers = model.config.num_layers
+    tel = Path(tempfile.mkdtemp())
+    obs.reset(out_dir=str(tel), enabled=True)
+    rows, seconds = {}, {}
+
+    def engine(**kw):
+        return ServeEngine(model, device=DEVICE, **kw)
+
+    try:
+        # (a) prefix cache
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(3)
+        template = rng.randint(1, vocab, (PREFIX_LEN,)).astype(np.int32)
+        ptrace = make_trace(rng, PREFIX_REQUESTS, vocab, *PREFIX_TAILS, *PREFIX_NEW,
+                            long_every=8, shared_prefix=template)
+        runs = {}
+        for name, on in (("prefix_on", "on"), ("prefix_off", "off")):
+            eng = engine(prefix_cache=on, **PREFIX_ENGINE)
+            outs, wall, launches = _engine_run(eng, ptrace, prime=template)
+            st = eng.stats()
+            runs[name] = outs
+            rows[name] = _engine_row(
+                eng, name, outs, wall, launches, cache_hit_rate=st.cache_hit_rate,
+                blocks_saved_peak=st.blocks_saved_peak, cow_copies=st.cow_copies,
+                blocks_shared_peak=st.blocks_shared_peak,
+                prefix_cached_tokens=st.prefix_cached_tokens,
+                peak_resident_requests=st.peak_resident_requests)
+        check(rows["prefix_on"]["cache_hit_rate"] > 0.5, "the prefix cache missed the template")
+        rows["prefix_on"]["same_tokens_as_off"] = _same_tokens(
+            model, ptrace, runs["prefix_on"], runs["prefix_off"], "(a) prefix cache on/off")
+        seconds["a_prefix"] = time.perf_counter() - t0
+
+        # (b) the width ladder: the default engine, auto against full
+        t0 = time.perf_counter()
+        ladder = {}
+        for name, buckets in (("ladder_auto", "auto"), ("ladder_full", "full")):
+            eng = serve_engine(model, prefix_cache="on", overlap="on", gather_buckets=buckets)
+            outs, wall, launches = _engine_run(eng, trace)
+            st = eng.stats()
+            ladder[name] = outs
+            rows[name] = _engine_row(
+                eng, name, outs, wall, launches, bucket_switches=st.bucket_switches,
+                gather_read_waste_peak=st.gather_waste_peak,
+                gather_read_waste_mean=st.gather_waste_mean,
+                overlap_flushes=st.overlap_flushes)
+        check(rows["ladder_auto"]["bucket_switches"] >= 1, "the ladder never switched")
+        check(set(rows["ladder_auto"]["k3_launches_by_width"])
+              == {str(w) for w in rows["ladder_auto"]["gather_buckets"]},
+              "the ladder did not launch K3 at each of its widths")
+        rows["ladder_auto"]["same_tokens_as_full"] = _same_tokens(
+            model, trace, ladder["ladder_auto"], ladder["ladder_full"], "(b) ladder auto/full")
+        seconds["b_ladder"] = time.perf_counter() - t0
+
+        # (c) speculation in the engine against (b)'s default run
+        t0 = time.perf_counter()
+        eng = serve_engine(model, prefix_cache="on", overlap="on", gather_buckets="auto",
+                           speculate_k=SPEC_K, draft=SPEC_DRAFT_LAYERS)
+        outs, wall, launches = _engine_run(eng, trace)
+        st = eng.stats()
+        rows["speculative"] = _engine_row(
+            eng, "speculative", outs, wall, launches, speculate_k=SPEC_K,
+            draft_layers=SPEC_DRAFT_LAYERS, acceptance_rate=st.acceptance_rate,
+            draft_proposed=st.draft_proposed, draft_accepted=st.draft_accepted,
+            spec_windows=st.spec_windows,
+            tokens_per_target_pass=(st.decode_tokens / st.spec_windows
+                                    if st.spec_windows else None),
+            verify_read_waste_mean=st.verify_waste_mean,
+            same_tokens_as_plain=_same_tokens(model, trace, outs, ladder["ladder_auto"],
+                                              "(c) speculative/plain"))
+        seconds["c_speculative"] = time.perf_counter() - t0
+
+        # (d) swap against recompute on the thrash trace
+        t0 = time.perf_counter()
+        thrash, _ = make_thrash_trace(np.random.RandomState(17), vocab=vocab, **THRASH)
+        swap_runs = {}
+        for name, swap in (("swap_always", "always"), ("recompute", "off")):
+            eng = engine(swap=swap, **THRASH_ENGINE)
+            outs, wall, launches = _engine_run(eng, thrash)
+            st = eng.stats()
+            swap_runs[name] = outs
+            rows[name] = _engine_row(
+                eng, name, outs, wall, launches, swap_outs=st.swap_outs,
+                swap_ins=st.swap_ins, swap_bytes=st.swap_bytes, restore_s=st.restore_s,
+                host_tier_hits=st.host_tier_hits, host_tier_hit_rate=st.host_tier_hit_rate,
+                recompute_tokens_avoided=st.recompute_tokens_avoided,
+                overlap_flushes=st.overlap_flushes)
+        check(rows["recompute"]["preemptions"] >= 1, "the thrash trace preempted nothing")
+        check(rows["swap_always"]["swap_outs"] >= 1
+              and rows["swap_always"]["swap_ins"] == rows["swap_always"]["swap_outs"],
+              "swap=always swapped nothing out, or not everything back in")
+        rows["swap_always"]["same_tokens_as_recompute"] = _same_tokens(
+            model, thrash, swap_runs["swap_always"], swap_runs["recompute"],
+            "(d) swap/recompute")
+        seconds["d_swap"] = time.perf_counter() - t0
+
+        # (e) overlap on against off, every other request sampled
+        t0 = time.perf_counter()
+        sampling = [dict(SERVE_SAMPLING, seed=i) if i % 2 else {} for i in range(len(trace))]
+        over = {}
+        for name, ov in (("overlap_on", "on"), ("overlap_off", "off")):
+            eng = serve_engine(model, prefix_cache="on", overlap=ov, gather_buckets="auto")
+            with _SyncFreeDispatch(eng) as guard:
+                outs, wall, launches = _engine_run(eng, trace, sampling)
+            st = eng.stats()
+            over[name] = outs
+            check(ov == "off" or guard.dispatches > 0, "no decode was dispatched ahead")
+            rows[name] = _engine_row(
+                eng, name, outs, wall, launches, overlap_flushes=st.overlap_flushes,
+                sampled_requests=sum(1 for kw in sampling if kw),
+                sync_free_dispatches=guard.dispatches,
+                host_wait_s=eng.fetch_wait_s, host_waits=eng.fetches,
+                host_wait_per_step_s=eng.fetch_wait_s / max(1, eng.fetches),
+                **_idle_window(serve_engine(model, prefix_cache="on", overlap=ov,
+                                            gather_buckets="auto"), trace, sampling))
+        rows["overlap_on"]["same_tokens_as_off"] = _same_tokens(
+            model, trace, over["overlap_on"], over["overlap_off"], "(e) overlap on/off",
+            sampling)
+        seconds["e_overlap"] = time.perf_counter() - t0
+
+        # (f) deadline-ordered admission under policy='slo'
+        t0 = time.perf_counter()
+        eng = engine(num_slots=1, block_size=16, prefill_chunk=16, max_model_len=128,
+                     num_blocks=9, policy="slo", prefix_cache="off")
+        prompts = [np.random.RandomState(30 + i).randint(1, vocab, (8,)) for i in
+                   range(len(POLICY_DEADLINES))]
+        reqs = [eng.submit(p, 2, deadline_s=d) for p, d in zip(prompts, POLICY_DEADLINES)]
+        eng.run()
+        order = [r.deadline_s for r in sorted(reqs, key=lambda r: r.first_token_t)]
+        check(order == sorted(POLICY_DEADLINES), f"policy=slo admitted in order {order}")
+        seconds["f_policy"] = time.perf_counter() - t0
+    finally:
+        obs.reset()
+    n_events, errors = validate_events_file(str(tel / "events.jsonl"))
+    check(not errors, f"serve_engine events fail the schema: {errors[:3]}")
+    timelines = [e for e in map(json.loads, (tel / "events.jsonl").read_text().splitlines())
+                 if e.get("type") == "serve" and e.get("event") == "request_timeline"]
+    bad = [err for e in timelines for err in check_decomposition(e)]
+    check(timelines and not bad, f"request timelines do not sum to e2e: {bad[:3]}")
+    shutil.rmtree(tel, ignore_errors=True)
+    rows["telemetry"] = {"phase": "serve_engine", "run": "telemetry", "events": n_events,
+                         "request_timelines": len(timelines),
+                         "policy_slo_admission_order": order, "seconds": seconds}
+    for r in rows.values():
+        emit(r)
+    return rows
+
 
 # -- build -------------------------------------------------------------------
 
@@ -5199,6 +5633,7 @@ def main() -> int:
     serve, model, trace = timed(serve_phase)
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
+    engine_rows = timed(serve_engine_phase, model, trace)
     del model
     torch.cuda.empty_cache()
     flash = timed(flash_phase)
@@ -5296,7 +5731,17 @@ def main() -> int:
         "launches": serve["paged_kernel_launches"],
         "launches_by_path": {"serve": serve["paged_kernel_launches"],
                              **{f"serve_{n}": r["paged_kernel_launches"]
-                                for n, r in serve_runs.items()}},
+                                for n, r in serve_runs.items()},
+                             **{f"serve_engine/{n}": r["paged_kernel_launches"]
+                                for n, r in engine_rows.items()
+                                if "paged_kernel_launches" in r}},
+        "serve_engine_launches_by_width": {
+            n: r["k3_launches_by_width"] for n, r in engine_rows.items()
+            if r.get("k3_launches_by_width")},
+        "serve_engine_cases": {c: {k: kernels[c][k] for k in (
+            "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "width", "chunk")}
+            for c in list(LADDER_CASES.values()) + ["shared", "shared_int8"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()
                            if r["dtype"] == "float32"),
         "ms": main_case["kernel_ms"], "event_ms": main_case["kernel_event_ms"],

@@ -107,6 +107,17 @@ def autotune(name: str, depth: int, reason: str,
     _state.events.emit("autotune", fields)
 
 
+def serve(event: str, **fields) -> None:
+    """One serving-engine event (the schema's ``serve`` type): ``event``
+    names it (``submit``, ``admit``, ``first_token``, ``finish``,
+    ``preempt``, ``bucket_switch``, ``swap_out``, ``swap_in``,
+    ``request_timeline``, ``iteration_ledger``, ``report``), the fields
+    ride along. No-op without a file sink, like :func:`scalar`."""
+    if not _state.enabled or _state.events is None:
+        return
+    _state.events.emit("serve", {"event": str(event), **fields})
+
+
 def anomalies() -> AnomalyDetector:
     """The process anomaly detector (created on first use; reads
     ``HSTD_ANOMALY``, ``HSTD_ANOMALY_COOLDOWN_S``, ``HSTD_STRAGGLER_ALERT``,

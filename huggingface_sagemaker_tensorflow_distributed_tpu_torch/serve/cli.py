@@ -12,15 +12,26 @@ request's default sampling (greedy at temperature 0, the default).
 model is a GPT-2 with random weights from ``--seed``: ``--model smoke``
 (the default) is the small shape ``scripts/serve.py`` serves, ``--model
 gpt2`` is GPT-2 124M at full width. ``--kv_cache_dtype int8`` keeps the KV
-pools in int8 with fp32 scales. Runs on the GPU unless ``--device cpu`` is
-given.
+pools in int8 with fp32 scales. The engine's knobs are ``scripts/serve.py``'s,
+each defaulting to its ``HSTD_SERVE_*`` variable: ``--gather_buckets``
+(the decode width ladder, ``full`` for one width), ``--speculate_k`` and
+``--draft_layers`` (speculative decoding with a self-draft), ``--prefix_cache
+on|off``, ``--kernel pallas|xla`` (the K3 route, the port's default, or the
+gather route), ``--timeline on|off``, ``--overlap on|off`` (dispatch-ahead),
+``--slo ttft:SECS[,tpot:SECS]``, ``--policy fifo|slo`` and ``--aging_s``,
+``--swap auto|always|never|off`` and ``--swap_bytes``. ``--tp`` above 1 and
+the multi-replica flags (``--replicas`` above 1, ``--placement``,
+``--roles``, ``--arrival``, ``--rate_limit``) are not ported and raise. Runs
+on the GPU unless ``--device cpu`` is given.
 
   python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.cli \\
       --requests 32 --num_slots 8 --block_size 16 --prefill_chunk 16 \\
-      --temperature 0.8 --top_p 0.9 --kv_cache_dtype int8
+      --temperature 0.8 --top_p 0.9 --kv_cache_dtype int8 --swap always
 
-One JSON line per finished request, then one summary line whose keys
-are a subset of ``scripts/serve.py``'s plus ``paged_kernel_launches``.
+One JSON line per finished request, then one summary line whose keys are
+``scripts/serve.py``'s single-engine keys plus ``paged_kernel_launches``.
+With ``HSTD_TELEMETRY_DIR`` set, the engine's ``serve`` events and spans
+go there.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch import resolve_device
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs, resolve_device
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
     init_gpt2,
@@ -40,11 +51,11 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert impor
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
     Gpt2Config,
 )
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
-    load_kernel,
-)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
     ServeEngine,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.policy import (
+    parse_slo,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import (
     make_trace,
@@ -132,6 +143,55 @@ def parse_args(argv=None):
     parser.add_argument("--kv_cache_dtype", default=None, choices=("fp", "int8"),
                         help="KV pool storage (default: HSTD_SERVE_KV_DTYPE "
                              "or the model config)")
+    parser.add_argument("--gather_buckets", default=None,
+                        help="decode width ladder, e.g. '64,256' ('full': one "
+                             "width; default: HSTD_SERVE_GATHER_BUCKETS or a "
+                             "quarter plus the full width)")
+    parser.add_argument("--speculate_k", type=int, default=None,
+                        help="speculative decoding: draft tokens per verify "
+                             "window (default: HSTD_SERVE_SPECULATE_K or 0)")
+    parser.add_argument("--draft_layers", type=int, default=None,
+                        help="self-draft depth (default: "
+                             "HSTD_SERVE_DRAFT_LAYERS or a quarter of the "
+                             "target's layers)")
+    parser.add_argument("--prefix_cache", default=None, choices=("on", "off"),
+                        help="copy-on-write prompt-prefix sharing (default: "
+                             "HSTD_SERVE_PREFIX_CACHE or on)")
+    parser.add_argument("--kernel", default=None, choices=("xla", "pallas"),
+                        help="decode route: pallas = the paged decode kernel "
+                             "(K3 on the card), xla = gather + dense "
+                             "attention (default: HSTD_SERVE_KERNEL or pallas)")
+    parser.add_argument("--timeline", default=None, choices=("on", "off"),
+                        help="per-request lifecycle tracing (default: "
+                             "HSTD_SERVE_TIMELINE or on)")
+    parser.add_argument("--overlap", default=None, choices=("on", "off"),
+                        help="dispatch-ahead decode loop (default: "
+                             "HSTD_SERVE_OVERLAP or on)")
+    parser.add_argument("--slo", default=None,
+                        help="per-request targets, ttft:SECS[,tpot:SECS] or "
+                             "none (default: HSTD_SERVE_SLO_TTFT_S / "
+                             "HSTD_SERVE_SLO_TPOT_S)")
+    parser.add_argument("--policy", default=None, choices=("fifo", "slo"),
+                        help="admission order (default: HSTD_SERVE_POLICY or "
+                             "fifo)")
+    parser.add_argument("--aging_s", type=float, default=None,
+                        help="starvation bound of --policy slo (default: "
+                             "HSTD_SERVE_AGING_S or 30)")
+    parser.add_argument("--swap", default=None,
+                        choices=("auto", "always", "never", "off"),
+                        help="host KV tier: swap preemption victims, demote "
+                             "evicted prefix blocks (default: HSTD_SERVE_SWAP "
+                             "or off)")
+    parser.add_argument("--swap_bytes", type=int, default=None,
+                        help="host tier byte budget (default: "
+                             "HSTD_SERVE_SWAP_BYTES or 0 = unbounded)")
+    # not ported: they raise (tensor parallelism, the multi-replica router)
+    parser.add_argument("--tp", type=int, default=None)
+    parser.add_argument("--replicas", type=int, default=None)
+    parser.add_argument("--placement", default=None)
+    parser.add_argument("--roles", default=None)
+    parser.add_argument("--arrival", default=None)
+    parser.add_argument("--rate_limit", default=None)
     parser.add_argument("--temperature", type=float, default=0.0,
                         help="0 = greedy (the default); > 0 samples")
     parser.add_argument("--top_k", type=int, default=0)
@@ -142,8 +202,30 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _refuse_unported(args) -> None:
+    """``--tp`` above 1 and the multi-replica flags are not ported."""
+    if args.tp not in (None, 1):
+        raise NotImplementedError(
+            f"--tp {args.tp} (tensor-parallel serving) is not ported yet: "
+            "ROADMAP queue 1, item 11")
+    for flag, value, trivial in (("replicas", args.replicas, 1),
+                                 ("placement", args.placement, None),
+                                 ("roles", args.roles, None),
+                                 ("arrival", args.arrival, "closed"),
+                                 ("rate_limit", args.rate_limit, None)):
+        if value is not None and value != trivial:
+            raise NotImplementedError(
+                f"--{flag} (the multi-replica router and open-loop driver) is "
+                "not ported yet: ROADMAP queue 1, item 10")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    _refuse_unported(args)
+    try:
+        slo_spec = parse_slo(args.slo)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}")
     device = resolve_device(args.device)
     if args.model_dir:
         model, _, cfg = auto.from_pretrained(args.model_dir, task="causal-lm",
@@ -160,12 +242,18 @@ def main(argv=None) -> None:
                          block_size=args.block_size, num_blocks=num_blocks,
                          prefill_chunk=args.prefill_chunk,
                          prefill_batch=args.prefill_batch,
-                         max_model_len=max_len, kv_cache_dtype=args.kv_cache_dtype,
+                         max_model_len=max_len,
+                         gather_buckets=args.gather_buckets,
+                         speculate_k=args.speculate_k, draft=args.draft_layers,
+                         prefix_cache=args.prefix_cache, kernel=args.kernel,
+                         kv_cache_dtype=args.kv_cache_dtype,
+                         timeline=args.timeline, overlap=args.overlap,
+                         swap=args.swap, swap_bytes=args.swap_bytes,
+                         policy=args.policy, aging_s=args.aging_s,
                          device=device)
-    if device.type == "cuda":
-        load_kernel()                 # build before the clock starts
+    engine.warmup()                   # builds K3 before the clock starts
     trace = load_trace(args, cfg.vocab_size - 1)
-    reqs = [engine.submit(p, m, **kw) for p, m, kw in trace]
+    reqs = [engine.submit(p, m, slo=slo_spec, **kw) for p, m, kw in trace]
     t0 = time.perf_counter()
     engine.run()
     if device.type == "cuda":
@@ -176,11 +264,22 @@ def main(argv=None) -> None:
     for req in reqs:
         ids = engine.output_ids(req)
         total += len(ids)
-        print(json.dumps({
-            "request": req.rid, "prompt_len": req.orig_prompt_len,
-            "output_ids": [int(t) for t in ids],
-            "ttft_s": round(req.ttft_s, 4) if req.ttft_s else None,
-            "preemptions": req.preemptions}))
+        row = {"request": req.rid, "prompt_len": req.orig_prompt_len,
+               "output_ids": [int(t) for t in ids],
+               "ttft_s": round(req.ttft_s, 4) if req.ttft_s else None,
+               "sampled": req.sampled, "seed": req.seed,
+               "preemptions": req.preemptions, "tp": engine.tp}
+        if req.has_slo:
+            row["slo_met"] = req.slo_met
+            row["slack_s"] = req.slack_s
+        if engine.speculative:
+            row["acceptance_rate"] = (round(req.spec_accepted / req.spec_proposed, 4)
+                                      if req.spec_proposed else None)
+        if engine.prefix_cache:
+            row["prefix_cached_tokens"] = req.prefix_cached_tokens
+        if engine.timeline:
+            row["phase_s"] = {ph: round(v, 4) for ph, v in req.phase_s.items()}
+        print(json.dumps(row))
     stats = engine.stats()
     slo = engine.slo_summary()
     print(json.dumps({
@@ -200,11 +299,61 @@ def main(argv=None) -> None:
         "prefill_chunks": stats.prefill_chunks,
         "prefill_dispatches": stats.prefill_dispatches,
         "preemptions": stats.preemptions,
-        "kernel": "cuda" if device.type == "cuda" else "plain",
-        "kv_dtype": engine.kv_cache_dtype,
-        "kv_pool_bytes_per_device": engine.blocks.pool_bytes,
+        "gather_buckets": engine.gather_buckets,
+        "bucket_switches": stats.bucket_switches,
+        "gather_read_waste_peak": round(stats.gather_waste_peak, 3),
+        "gather_read_waste_mean": round(stats.gather_waste_mean, 3),
+        "speculate_k": engine.speculate_k or None,
+        "acceptance_rate": (round(stats.acceptance_rate, 4)
+                            if stats.acceptance_rate is not None else None),
+        "verify_read_waste_mean": (round(stats.verify_waste_mean, 3)
+                                   if engine.speculative else None),
+        "prefix_cache": engine.prefix_cache,
+        "cache_hit_rate": (round(stats.cache_hit_rate, 4)
+                           if stats.cache_hit_rate is not None else None),
+        "blocks_shared_peak": (stats.blocks_shared_peak
+                               if engine.prefix_cache else None),
+        "blocks_saved_peak": (stats.blocks_saved_peak
+                              if engine.prefix_cache else None),
+        "cow_copies": stats.cow_copies if engine.prefix_cache else None,
+        "timeline": engine.timeline,
+        "queue_wait_p99_s": slo.get("queue_wait_p99_s"),
+        "queue_time_frac": slo.get("queue_time_frac"),
+        "prefill_time_frac": slo.get("prefill_time_frac"),
+        "decode_time_frac": slo.get("decode_time_frac"),
+        "preempted_time_frac": slo.get("preempted_time_frac"),
+        "overhead_time_frac": slo.get("overhead_time_frac"),
+        "overlap": engine.overlap,
+        "overlap_flushes": stats.overlap_flushes if engine.overlap else None,
+        "kernel": stats.kernel,
+        "kv_dtype": stats.kv_dtype,
+        "tp": stats.tp,
+        "kv_pool_bytes_per_device": stats.kv_pool_bytes_per_device or None,
+        "kv_bytes_read_per_step": (round(stats.kv_bytes_read / stats.decode_steps, 1)
+                                   if stats.decode_steps else None),
         "kv_peak_utilization": round(stats.kv_peak_utilization, 3),
+        **({"swap_policy": stats.swap_policy,
+            "swap_outs": stats.swap_outs,
+            "swap_ins": stats.swap_ins,
+            "swap_bytes": stats.swap_bytes,
+            "restore_s": round(stats.restore_s, 6),
+            "recompute_tokens_avoided": stats.recompute_tokens_avoided,
+            "host_tier_hits": stats.host_tier_hits,
+            "host_tier_hit_rate": (round(stats.host_tier_hit_rate, 4)
+                                   if stats.host_tier_hit_rate is not None
+                                   else None)}
+           if engine.swap != "off" else {}),
+        **({"slo": {"ttft_s": slo_spec.ttft_s, "tpot_s": slo_spec.tpot_s},
+            "slo_attainment": slo.get("slo_attainment"),
+            "group_slo_attainment": slo.get("group_slo_attainment")}
+           if slo_spec is not None else {}),
+        **({"policy": engine.policy,
+            "aging_promotions": slo.get("aging_promotions")}
+           if engine.policy != "fifo" else {}),
+        **({"deadline_miss_frac": slo.get("deadline_miss_frac")}
+           if slo.get("deadline_miss_frac") is not None else {}),
         "paged_kernel_launches": stats.paged_kernel_launches}))
+    obs.flush()
 
 
 if __name__ == "__main__":

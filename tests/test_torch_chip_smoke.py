@@ -1040,3 +1040,111 @@ def test_predict_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
         assert row["keys"] == chip_smoke.PREDICT_ROW_KEYS[name.split("_")[0]]
         if name.startswith(("causal", "seq2seq")):
             assert row["generated_ids_equal_direct_call"]
+
+
+def test_serve_engine_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
+    """The serve_engine phase at a tiny width: (a) the prefix cache on and
+    off on a templated trace, (b) the width ladder auto and full, (c)
+    speculation (no K3 launch), (d) swap against recompute on a thrash
+    trace that preempts, (e) overlap on and off with sampled requests and a
+    profiled window, (f) the events valid, every timeline summing, and
+    deadline-ordered admission under ``policy='slo'``."""
+    for name, value in (
+            ("PREFIX_REQUESTS", 8), ("PREFIX_LEN", 24), ("PREFIX_TAILS", (2, 6)),
+            ("PREFIX_NEW", ((3, 6), (3, 6))),
+            ("PREFIX_ENGINE", dict(num_slots=4, block_size=8, prefill_chunk=8,
+                                   max_model_len=64, num_blocks=18)),
+            ("THRASH", dict(n_requests=12, n_templates=3, template_len=24, tail_lo=2,
+                            tail_hi=6, short_new=(3, 6), long_new=24, long_every=4)),
+            ("THRASH_ENGINE", dict(num_slots=4, block_size=8, prefill_chunk=8,
+                                   max_model_len=64, num_blocks=13)),
+            ("SPEC_DRAFT_LAYERS", 1), ("OVERLAP_PROFILED", (2, 6))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    _, model, trace = chip_smoke.serve_phase()
+    capsys.readouterr()
+    rows = chip_smoke.serve_engine_phase(model, trace)
+    assert list(rows) == ["prefix_on", "prefix_off", "ladder_auto", "ladder_full",
+                          "speculative", "swap_always", "recompute", "overlap_on",
+                          "overlap_off", "telemetry"]
+    assert rows["prefix_on"]["cache_hit_rate"] > 0.5 and rows["prefix_on"]["cow_copies"] >= 0
+    assert rows["prefix_on"]["same_tokens_as_off"]["identical"] == 8
+    assert rows["ladder_auto"]["bucket_switches"] >= 1
+    assert set(rows["ladder_auto"]["k3_launches_by_width"]) == {"32", "128"}
+    assert rows["ladder_full"]["k3_launches_by_width"].keys() == {"128"}
+    assert rows["speculative"]["paged_kernel_launches"] == 0
+    assert rows["speculative"]["same_tokens_as_plain"]["identical"] == len(trace)
+    assert rows["swap_always"]["swap_outs"] >= 1 and rows["recompute"]["preemptions"] >= 1
+    assert rows["overlap_on"]["same_tokens_as_off"]["identical"] == len(trace)
+    assert rows["overlap_on"]["sync_free_dispatches"] > 0
+    assert rows["overlap_on"]["idle_share"] == "not measured"        # no card
+    assert rows["overlap_on"]["window_iterations"] == [2, 6]
+    tel = rows["telemetry"]
+    assert tel["events"] > 0 and tel["request_timelines"] >= 8 + 20 + 12
+    assert tel["policy_slo_admission_order"] == sorted(chip_smoke.POLICY_DEADLINES)
+    for name, r in rows.items():
+        if name not in ("speculative", "telemetry"):
+            assert r["paged_kernel_launches"] == r["decode_steps"] * 2 > 0
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed] == list(rows)
+
+
+def test_every_serve_engine_k3_shape_is_held_against_its_plain_version(monkeypatch):
+    """K3's launch configuration follows its shape: every (slots, width)
+    the serve_engine phase's plain-decode engines can launch it at (each
+    width of each engine's ladder) is a kernel case with GPT-2 124M's
+    heads, fp32 queries, block 16 and a table of max_model_len, plan
+    included; the shared-block cases walk the prefix engine's widest
+    width over a template of shared blocks."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
+        parse_gather_buckets,
+    )
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")       # plan for the H100's SMs
+    cfg = Gpt2Config(**chip_smoke.SERVE_CONFIG)
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    engines = [(8, chip_smoke.SERVE_MAX_LEN, 16)]          # (b), (e)
+    for kw in (chip_smoke.PREFIX_ENGINE, chip_smoke.THRASH_ENGINE):
+        engines.append((kw["num_slots"], kw["max_model_len"], kw["block_size"]))
+    cases = {c[0]: c for c in chip_smoke.KERNEL_CASES}
+    launched = set()
+    for slots, max_len, bs in engines:
+        for width in parse_gather_buckets("auto", max_len, bs):
+            launched.add((slots, width))
+            case = cases[chip_smoke.LADDER_CASES[(slots, width)]]
+            assert case[1:10] == (slots, H, H, D, bs, width, "float32", False, None)
+            assert chip_smoke.TABLE_BLOCKS[case[0]] == max_len // bs
+            assert chip_smoke._plan(case) == pa.split_plan(slots, H, width, bs, pa.H100_SMS)
+    assert launched == set(chip_smoke.LADDER_CASES)
+    prefix = chip_smoke.PREFIX_ENGINE
+    for name, int8 in (("shared", False), ("shared_int8", True)):
+        case = cases[name]
+        assert case[1:9] == (prefix["num_slots"], H, H, D, prefix["block_size"],
+                             prefix["max_model_len"], "float32", int8)
+        assert case[10] == "shared" and chip_smoke.SHARED_PREFIX == chip_smoke.PREFIX_LEN
+
+
+def test_kernel_phase_shared_blocks_on_cpu(on_cpu, monkeypatch):
+    """The shared-block case at a tiny size: every slot's table starts with
+    the same template blocks, its contexts cover the template and a tail,
+    the kernel agrees with the plain version, and the bound reads the
+    template's K/V once however many slots share it."""
+    monkeypatch.setattr(pa, "H100_SMS", 4)
+    monkeypatch.setattr(chip_smoke, "SHARED_PREFIX", 32)
+    monkeypatch.setattr(chip_smoke, "TABLE_BLOCKS", {"shared": 8})
+    case = ("shared", 4, 2, 2, 64, 16, 96, "float32", True, None, "shared")
+    monkeypatch.setattr(chip_smoke, "KERNEL_CASES", [case])
+    row = chip_smoke.kernel_phase()["shared"]
+    assert row["status"] == "pass" and row["int8"] and row["width"] == 96
+    assert all(32 < c <= 96 for c in row["contexts"])
+    gen = torch.Generator().manual_seed(0)
+    t, _ = chip_smoke._make_inputs(case, gen, "cpu")
+    tables = t["block_tables"]
+    assert tables.shape == (4, 8) and bool((tables[:, :2] == tables[0, :2]).all())
+    assert len(set(tables[:, 2:].flatten().tolist())) == 4 * 6
+    ctx = row["contexts"]
+    unshared = ("shared", 4, 2, 2, 64, 16, 96, "float32", True, None, "ragged")
+    assert (chip_smoke._work(unshared, ctx)[0] - chip_smoke._work(case, ctx)[0]
+            == 3 * 32 * 2 * (2 * 64 + 8))
+    assert chip_smoke._work(unshared, ctx)[1] == chip_smoke._work(case, ctx)[1]

@@ -708,7 +708,33 @@ def _raise_sites():
         ("beam-causal-experts", lambda: t_gen.beam_search_causal(
             SimpleNamespace(config=SimpleNamespace(num_experts=2)), np.ones((1, 4))), "9"),
         ("engine-int8-kv", lambda: _int8_engine(), None),
+        ("engine-tp", lambda: _tiny_engine(mesh=2), "11"),
+        ("engine-mesh", lambda: _tiny_engine(mesh=SimpleNamespace(shape={"tensor": 2})),
+         "11"),
+        ("serve-cli-tp", lambda: _serve_cli("--tp", "2"), "11"),
+        ("serve-cli-replicas", lambda: _serve_cli("--replicas", "2"), "10"),
+        ("serve-cli-placement", lambda: _serve_cli("--placement", "affinity"), "10"),
+        ("serve-cli-roles", lambda: _serve_cli("--roles", "prefill:1,decode:1"), "10"),
+        ("serve-cli-arrival", lambda: _serve_cli("--arrival", "poisson:2"), "10"),
+        ("serve-cli-rate-limit", lambda: _serve_cli("--rate_limit", "a=1"), "10"),
     ]
+
+
+def _tiny_engine(**kw):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_gpt2
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import ServeEngine
+
+    cfg = t_gpt2.Gpt2Config(vocab_size=64, max_position_embeddings=32, hidden_size=8,
+                            num_layers=1, num_heads=1, intermediate_size=16)
+    return ServeEngine(init_gpt2(cfg, device="cpu"), num_blocks=9, block_size=4,
+                       max_model_len=32, device="cpu", **kw)
+
+
+def _serve_cli(*argv):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve import cli
+
+    cli.main(["--device", "cpu", "--requests", "1", *argv])
 
 
 def _ported_config(valid: dict, invalid: dict) -> None:

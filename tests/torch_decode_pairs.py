@@ -1,8 +1,10 @@
-"""Shared set-up of the decoding parity tests (``test_torch_generate.py``,
-``test_torch_speculative.py``, ``test_torch_quant.py``): tiny JAX models
-with their port twins on the same weights (carried across with
-``params_from_jax``), JAX's own Gumbel noise for a seed, and the
-fixtures every port test module runs under."""
+"""Shared set-up of the decoding and serving parity tests
+(``test_torch_generate.py``, ``test_torch_speculative.py``,
+``test_torch_quant.py``, the ``test_torch_*`` serving files): tiny JAX
+models with their port twins on the same weights (carried across with
+``params_from_jax``), JAX's own Gumbel noise for a seed, the fixtures
+every port test module runs under, and :func:`as_port`, which runs a JAX
+package's serving host test on the port's classes."""
 
 import dataclasses
 
@@ -164,3 +166,24 @@ def feed_noise(monkeypatch, t_gen, noise: list) -> list:
 
     monkeypatch.setattr(t_gen, "_gumbel", gumbel)
     return left
+
+
+_SERVE_HOST = "huggingface_sagemaker_tensorflow_distributed_tpu.serve."
+
+
+def as_port(monkeypatch, module) -> None:
+    """Point every name ``module`` took from the JAX package's serving host
+    modules (``serve/paged_kv.py``, ``scheduler.py``, ``policy.py``) at the
+    port's object of the same name, so that the module's test functions
+    run on the port."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve import (
+        paged_kv,
+        policy,
+        scheduler,
+    )
+
+    port = {"paged_kv": paged_kv, "scheduler": scheduler, "policy": policy}
+    for name, value in list(vars(module).items()):
+        src = getattr(value, "__module__", None) or ""
+        if src.startswith(_SERVE_HOST) and src[len(_SERVE_HOST):] in port:
+            monkeypatch.setattr(module, name, getattr(port[src[len(_SERVE_HOST):]], name))
