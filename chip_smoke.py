@@ -27,8 +27,9 @@ failure raises and exits non-zero:
    contexts on and beside the chunk edges under a window that spans
    chunks, and one past the walked width whose band lies wholly beyond
    it; each width of the serve_engine phase's gather ladders, 256 and
-   1024 at 8 slots, 128 and 512 at 16 and at 8, over tables of
-   max_model_len; 16 slots whose tables share a 320-token template's
+   1024 at 8 slots, 128 and 512 at 16 and at 8, and the serve_router
+   phase's 128 and 256 at 4 slots, over tables of max_model_len; 16 slots
+   whose tables share a 320-token template's
    blocks, fp32 and int8, the template read once in the bound). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
    rows, bf16 to ``2e-2``; context-0 rows must be exactly 0. Prints one
    JSON line per case with the kernels' device time (the profiler's,
@@ -64,9 +65,14 @@ failure raises and exits non-zero:
    telemetry on: (a) the JAX prefix bench's templated trace (48 requests,
    a 320-token template, 16 slots, chunk 32, width 512, 105 blocks) with
    the prefix cache on against off, both primed with the template (TTFT,
-   hit rate, blocks saved, copies); (b) the serve trace on the default
-   engine (prefix cache, ladder and overlap on), ladder auto against full
-   (switches, read waste, K3 launches by width); (c) speculation in the
+   hit rate, blocks saved, copies); (a') copy-on-write held on the card:
+   nested templates of 356 and 340 tokens (the shorter ends off the chunk
+   grid, so its requests rewrite a block the longer one's hold), 16
+   requests, cache on against off, copies above 0; (b) the serve trace on
+   the default engine (prefix cache, ladder and overlap on), ladder auto
+   against full (switches, read waste, K3 launches by width); (b') the same
+   trace on the gather route (``kernel="xla"``, the JAX engine's default:
+   no K3 launch), tokens/s and the idle share; (c) speculation in the
    engine, k 4, 4 self-draft layers (acceptance, tokens per target pass);
    (d) the JAX swap bench's thrash trace, swap always against recompute
    (swaps, host bytes, host-tier hits); (e) overlap on against off, every
@@ -76,7 +82,27 @@ failure raises and exits non-zero:
    valid under the port's schema, every ``request_timeline`` summing to its
    e2e, ``policy='slo'`` admitting by deadline. Each pair's tokens must be
    equal, or split only where the plain forward's top-2 gap is below
-   1e-3 (sampled: of the noisy warped logits);
+   1e-3 (sampled: of the noisy warped logits); then ``serve_router``, the
+   multi-replica fleet on the same model (every replica on the card with
+   K3 and overlap on, K3 counted per replica from each engine's own tally,
+   the dispatches ahead and the placement path under sync debug mode
+   ``error``): (a) the JAX router bench's accelerator settings (8 slots,
+   chunk 32, width 256, 177 blocks a replica), one engine against two
+   replicas under ``round_robin``, ``least_loaded`` and ``affinity`` on
+   the 48-request mixed trace, and round-robin against affinity on the
+   primed templated trace (4 families x 8 behind 96 tokens): tokens equal
+   the one engine's up to a near-tie, affinity's hit rate at least
+   round-robin's, tokens/s, TTFT, imbalance, peak resident and the idle
+   share over fleet iterations 8-40; (b) the affinity fleet drained of
+   replica 1 mid-trace (residents migrated live, bytes, restore and hop
+   seconds), every request stitched into one complete trace that the
+   port's ``check_trace`` passes; (c) ``prefill:1,decode:1`` against two
+   mixed replicas (4 slots, 32 requests, prompts 32-128, Poisson 500/s on
+   the virtual clock, TTFT SLO 10 ms): tokens equal, no decode step on the
+   prefill replica, every request migrated once and stitched complete;
+   (d) the open loop (4 slots, 32 requests, virtual 40 and 100000/s, the
+   first twice: its summary repeats exactly), then the wall clock at 8, 32
+   and 128 requests/s (reported, not gated);
 5. flash kernels: holds ``flash_fwd``, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` against their plain versions at the BERT-base shape
    (B 8, H 12, S 512, D 64, a padding mask with ragged lengths) in fp32
@@ -273,8 +299,9 @@ failure raises and exits non-zero:
    exports (seq-cls, mlm, causal-lm beam, sampled and self-speculative,
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
 10. each phase's wall seconds, the ``kernels`` line (the paged kernel's
-   ``launches_by_path``, its launches by width in the serve_engine runs
-   and its ladder and shared-block cases), the card's line, and the final
+   ``launches_by_path``, its launches by width in the serve_engine runs and
+   by replica and width in the serve_router runs, and its ladder and
+   shared-block cases), the card's line, and the final
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -387,18 +414,26 @@ KERNEL_CASES = [
     ("thrash_w512", 8, 12, 12, 64, 16, 512, "float32", False, None, "ragged"),
     ("shared", 16, 12, 12, 64, 16, 512, "float32", False, None, "shared"),
     ("shared_int8", 16, 12, 12, 64, 16, 512, "float32", True, None, "shared"),
+    # the serve_router phase's 4-slot engines (the roles and open-loop
+    # fleets) at each width of their ladder [128, 256], tables of 256
+    ("router_w128", 4, 12, 12, 64, 16, 128, "float32", False, None, "ragged"),
+    ("router_w256", 4, 12, 12, 64, 16, 256, "float32", False, None, "ragged"),
 ]
 # block-table columns of a case (else the walked blocks plus 4): the
 # engine's tables hold max_model_len // block_size columns whatever width
 # the ladder walks
 TABLE_BLOCKS = {"serve_w256": 64, "serve_w1024": 64, "prefix_w128": 32,
                 "prefix_w512": 32, "thrash_w128": 32, "thrash_w512": 32, "shared": 32,
-                "shared_int8": 32}
+                "shared_int8": 32, "router_w128": 16, "router_w256": 16}
 SHARED_PREFIX = 320             # the shared cases' template tokens (20 blocks)
-# the ladder's cases by (slots, width), as the serve_engine phase runs them
+# the ladders' cases by (slots, width), as the serve_engine and
+# serve_router phases run them (the plan follows slots and width; the
+# router's 8-slot placement fleets walk 128 and 256 as the thrash and
+# serve engines do)
 LADDER_CASES = {(8, 256): "serve_w256", (8, 1024): "serve_w1024",
                 (16, 128): "prefix_w128", (16, 512): "prefix_w512",
-                (8, 128): "thrash_w128", (8, 512): "thrash_w512"}
+                (8, 128): "thrash_w128", (8, 512): "thrash_w512",
+                (4, 128): "router_w128", (4, 256): "router_w256"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COPIES = 4          # distinct input sets the timing rotates over
 # a bf16 output of the flash and vocab-CE kernels is held to 2^-6 of
@@ -1025,11 +1060,7 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
         engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
+    by_kernel = _device_seconds_by_kernel(prof)
     busy = sum(by_kernel.values())
     paged = sum(v for k, v in by_kernel.items() if any(n in k for n in PAGED_KERNEL_NAMES))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -1066,6 +1097,12 @@ THRASH_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32,
 OVERLAP_PROFILED = (8, 40)
 # (f) the deadline-ordered admission: deadlines (s) in submission order
 POLICY_DEADLINES = (40.0, 10.0, 30.0, 20.0)
+# (a') copy-on-write on the card: nested templates, a 356-token one (22 full
+# blocks, ending on the chunk grid at 352) and its first 340 tokens (21 full
+# blocks, off the grid), alternating over 16 requests behind the longer one's
+# prime: a request on the shorter one resumes prefill at 320 and rewrites
+# block 20, which the requests on the longer one hold, so admission copies it
+COW_REQUESTS, COW_LEN, COW_EXT = 16, 340, 356
 
 
 def _split_at_near_tie(model, prompt, a: list, b: list, kw: dict) -> bool:
@@ -1137,8 +1174,9 @@ def _engine_run(engine, trace, sampling=None, prime=None) -> tuple:
     check(all(r.rid in engine.finished for r in reqs), "not every request finished")
     check(launches == engine.paged_kernel_launches - launches0,
           f"K3 launches {launches} != the engine's count")
-    if engine.speculative:
-        check(launches == 0, f"a speculative engine launched K3 {launches} times")
+    if engine.speculative or engine.kernel == "xla":
+        check(launches == 0, f"a speculative or gather-route engine launched K3 "
+              f"{launches} times")
     elif engine.kernel == "pallas":
         check(steps > 0 and launches == steps * layers,
               f"K3 launches {launches} != decode steps {steps} x {layers}")
@@ -1149,7 +1187,7 @@ def _idle_window(engine, trace, sampling) -> dict:
     """``trace`` on a fresh ``engine`` (its launches are not a counted
     run's), iterations ``OVERLAP_PROFILED`` under ``torch.profiler``
     (device activity): their wall, the device's busy time and idle share
-    in them."""
+    in them; the rest of the trace is not served."""
     from torch.profiler import ProfilerActivity, profile
 
     engine.warmup()
@@ -1167,21 +1205,22 @@ def _idle_window(engine, trace, sampling) -> dict:
             engine.step()
         _sync()
         wall = time.perf_counter() - t0
-    engine.run()
-    busy = sum(_device_seconds_by_kernel(prof).values())
+    # the engine is dropped mid-trace: only the window is measured
+    busy = _device_busy_s(prof)
     return {"window_iterations": [lo, hi], "window_wall_s": wall,
             "device_busy_s": busy if busy else "not measured",
             "idle_share": 1.0 - busy / wall if busy else "not measured"}
 
 
 class _SyncFreeDispatch:
-    """Within the block, ``engine``'s decode dispatches run under
-    ``torch.cuda.set_sync_debug_mode("error")``: a dispatch that makes the
+    """Within the block, ``engine``'s decode dispatches (or the methods
+    ``names`` of any object) run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that makes the
     host wait on the card (a ``.cpu()``, an ``.item()``, a pageable copy)
-    raises. ``dispatches`` counts the ones held."""
+    raises. ``dispatches`` counts the calls held that returned something."""
 
-    def __init__(self, engine):
-        self.engine, self.dispatches = engine, 0
+    def __init__(self, engine, names=("_dispatch_decode", "_dispatch_spec")):
+        self.engine, self.names, self.dispatches = engine, names, 0
 
     def __enter__(self):
         import torch
@@ -1201,12 +1240,12 @@ class _SyncFreeDispatch:
                 return out
             return run
 
-        for name in ("_dispatch_decode", "_dispatch_spec"):
+        for name in self.names:
             setattr(self.engine, name, guarded(getattr(self.engine, name)))
         return self
 
     def __exit__(self, *exc):
-        for name in ("_dispatch_decode", "_dispatch_spec"):
+        for name in self.names:
             delattr(self.engine, name)
         return False
 
@@ -1295,6 +1334,27 @@ def serve_engine_phase(model, trace) -> dict:
             model, ptrace, runs["prefix_on"], runs["prefix_off"], "(a) prefix cache on/off")
         seconds["a_prefix"] = time.perf_counter() - t0
 
+        # (a') copy-on-write: a template that ends off the chunk grid
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(5)
+        cow_template = rng.randint(1, vocab, (COW_EXT,)).astype(np.int32)
+        ctrace = [(np.concatenate([cow_template[:COW_EXT if i % 2 == 0 else COW_LEN], p]), m)
+                  for i, (p, m) in enumerate(make_trace(rng, COW_REQUESTS, vocab, *PREFIX_TAILS,
+                                                        *PREFIX_NEW, long_every=8))]
+        cow = {}
+        for name, on in (("cow_on", "on"), ("cow_off", "off")):
+            eng = engine(prefix_cache=on, **PREFIX_ENGINE)
+            outs, wall, launches = _engine_run(eng, ctrace, prime=cow_template)
+            st = eng.stats()
+            cow[name] = outs
+            rows[name] = _engine_row(
+                eng, name, outs, wall, launches, cache_hit_rate=st.cache_hit_rate,
+                cow_copies=st.cow_copies, template_tokens=[COW_LEN, COW_EXT])
+        check(rows["cow_on"]["cow_copies"] > 0, "the off-grid template copied no block")
+        rows["cow_on"]["same_tokens_as_off"] = _same_tokens(
+            model, ctrace, cow["cow_on"], cow["cow_off"], "(a') copy-on-write on/off")
+        seconds["a_cow"] = time.perf_counter() - t0
+
         # (b) the width ladder: the default engine, auto against full
         t0 = time.perf_counter()
         ladder = {}
@@ -1315,6 +1375,18 @@ def serve_engine_phase(model, trace) -> dict:
         rows["ladder_auto"]["same_tokens_as_full"] = _same_tokens(
             model, trace, ladder["ladder_auto"], ladder["ladder_full"], "(b) ladder auto/full")
         seconds["b_ladder"] = time.perf_counter() - t0
+
+        # (b') the gather route (the JAX engine's default) on the same trace
+        t0 = time.perf_counter()
+        xla_kw = dict(prefix_cache="on", overlap="on", gather_buckets="auto", kernel="xla")
+        eng = serve_engine(model, **xla_kw)
+        outs, wall, launches = _engine_run(eng, trace)
+        rows["xla_route"] = _engine_row(
+            eng, "xla_route", outs, wall, launches,
+            same_tokens_as_k3=_same_tokens(model, trace, outs, ladder["ladder_auto"],
+                                           "(b') xla/K3 route"),
+            **_idle_window(serve_engine(model, **xla_kw), trace, [{}] * len(trace)))
+        seconds["b_xla"] = time.perf_counter() - t0
 
         # (c) speculation in the engine against (b)'s default run
         t0 = time.perf_counter()
@@ -1405,6 +1477,452 @@ def serve_engine_phase(model, trace) -> dict:
     rows["telemetry"] = {"phase": "serve_engine", "run": "telemetry", "events": n_events,
                          "request_timelines": len(timelines),
                          "policy_slo_admission_order": order, "seconds": seconds}
+    for r in rows.values():
+        emit(r)
+    return rows
+
+
+# -- the serve_router phase ------------------------------------------------------
+#
+# The JAX bench's accelerator-scale settings (benchmarks/serve_bench.py):
+# (a) placement: 8 slots, block 16, chunk 32, width 256, ladder [128, 256];
+# the 48-request mixed trace (prompts 16-32, 32-48 new, 64-96 every 4th,
+# seed 7) and the templated one (4 families x 8 behind a 96-token prefix,
+# tails 2-5, 3-5 new, seed 8, primed); the bench's pool formula
+ROUTER_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=256,
+                     gather_buckets=[128, 256])
+ROUTER_TRACE = dict(n_requests=48, prompt_lo=16, prompt_hi=32, short_new=(32, 48),
+                    long_new=(64, 96), long_every=4)
+ROUTER_FAMILIES = (4, 8, 96)    # families, requests per family, prefix tokens
+ROUTER_BLOCKS = (1 + 8 * ((32 + 32 + 96 + 16) // 16 + 1)
+                 + 8 * ((96 + 32 + 16) // 16 + 1))          # 177
+ROUTER_PROFILED = (8, 40)       # the fleet iterations profiled for the idle share
+# (c) roles and (d) the open loop: 4 slots, block 16, chunk 32, width 256
+FLEET4_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=256,
+                     gather_buckets=[128, 256])
+DISAGG = dict(n=32, prompt=(32, 128), new=(8, 24), rate=500.0, ttft_s=0.01)
+OPEN_LOOP = dict(n=32, prompt=(8, 24), new=(8, 24), rates=(40.0, 100000.0),
+                 wall_rates=(8.0, 32.0, 128.0))
+FLEET_TICK_S, FLEET_SEED = 0.001, 11
+
+
+def _fleet_snapshot(router) -> list:
+    """Each replica's (K3 launches, decode steps) now, and its by-width
+    tally cleared: a run's per-replica counts are differences from it."""
+    for eng in router.engines:
+        eng.paged_launches_by_width.clear()
+    return [(eng.paged_kernel_launches, eng.decode_steps) for eng in router.engines]
+
+
+def _fleet_counts(router, snap, launches: int) -> dict:
+    """One run's K3 launches per replica and by width, from each engine's
+    own tally (the global counter sums interleaved replicas); they must
+    sum to the global count and equal each replica's decode steps x
+    layers."""
+    layers = router.engines[0].model.config.num_layers
+    per = {}
+    for i, (eng, (l0, s0)) in enumerate(zip(router.engines, snap)):
+        n, steps = eng.paged_kernel_launches - l0, eng.decode_steps - s0
+        check(n == steps * layers, f"replica {i}: K3 launches {n} != decode steps "
+              f"{steps} x {layers}")
+        per[str(i)] = {"launches": n, "by_width": {
+            str(w): c for w, c in sorted(eng.paged_launches_by_width.items())}}
+    check(sum(r["launches"] for r in per.values()) == launches,
+          f"the replicas' K3 tallies do not sum to the {launches} launches counted")
+    return per
+
+
+class _OwnEvents:
+    """Within the block, every event ``engine`` waits on must be one its own
+    fetches recorded: one stream carries every replica's work, and no
+    replica may wait on another's dispatch in flight. ``waits`` counts the
+    events checked."""
+
+    def __init__(self, engine):
+        self.engine, self.own, self.waits = engine, {}, 0
+
+    def __enter__(self):
+        eng, real_fetch, real_wait = self, self.engine._d2h_async, self.engine._wait
+
+        def fetch(tensors):
+            hosts, event = real_fetch(tensors)
+            if event is not None:
+                eng.own[id(event)] = event          # held: ids are not reused
+            return hosts, event
+
+        def wait(event):
+            if event is not None:
+                check(eng.own.get(id(event)) is event,
+                      f"replica {eng.engine.replica} waited on an event it did not record")
+                eng.waits += 1
+            return real_wait(event)
+
+        self.engine._d2h_async, self.engine._wait = fetch, wait
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._d2h_async, self.engine._wait
+        return False
+
+
+def _guarded(router):
+    """The fleet's dispatches ahead and its placement path (submit, the
+    policy's choice, the least-loaded scan) under the sync debug mode, and
+    each replica waiting only on its own events."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    guards = [stack.enter_context(_SyncFreeDispatch(eng)) for eng in router.engines]
+    guards.append(stack.enter_context(_SyncFreeDispatch(
+        router, ("submit", "_place", "_least_loaded"))))
+    guards += [stack.enter_context(_OwnEvents(eng)) for eng in router.engines]
+    return stack, guards
+
+
+def _fleet_run(router, trace, prime=(), drain_at=None, cross_check=False) -> dict:
+    """Serve ``trace`` through ``router`` (after ``prime``, prompts served
+    alone first), K3's counts set to 0 just before and read just after;
+    fleet iterations ``ROUTER_PROFILED`` under ``torch.profiler`` for the
+    device's idle share; with ``drain_at``, replica 1 drains after that
+    many fleet iterations; ``cross_check`` holds the window's busy time
+    against the profiler's by-kernel aggregation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+    )
+
+    router.warmup()
+    if prime:
+        for p in prime:
+            router.submit(p, 1)
+        router.run()
+    stack, guards = _guarded(router)
+    with stack:
+        reqs = [router.submit(p, m) for p, m in trace]
+        snap = _fleet_snapshot(router)
+        paged_decode_attention.launches = 0
+        _sync()
+        t0 = time.perf_counter()
+        lo, hi = ROUTER_PROFILED
+        it, window = 0, None
+        while router.has_work():
+            if it == lo:
+                _sync()
+                prof = profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                                           else ProfilerActivity.CPU])
+                prof.__enter__()
+                tw = time.perf_counter()
+            router.step()
+            it += 1
+            if it == hi:
+                _sync()
+                window = (time.perf_counter() - tw, prof)
+                prof.__exit__(None, None, None)
+            if drain_at is not None and it == drain_at:
+                router.drain(1)
+        if lo <= it < hi:
+            _sync()
+            window = (time.perf_counter() - tw, prof)
+            prof.__exit__(None, None, None)
+        router.run()
+        _sync()
+        wall = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    check(all(r.rid in router.finished for r in reqs), "not every request finished")
+    busy = _device_busy_s(window[1]) if window else 0.0
+    if cross_check and busy:
+        # the direct sum against the profiler's own aggregation, once
+        fast, slow = _device_seconds_by_kernel(window[1]), _key_averaged_seconds(window[1])
+        check(fast.keys() == slow.keys() and all(
+            abs(fast[k] - slow[k]) <= 1e-6 * slow[k] + 1e-9 for k in slow),
+              f"device seconds by kernel {fast} off the profiler's {slow}")
+    slo = router.slo_summary()
+    outs = [[int(t) for t in router.output_ids(r)] for r in reqs]
+    tokens = sum(len(o) for o in outs)
+    return {"outs": outs, "reqs": reqs, "row": {
+        "requests": len(reqs), "tokens": tokens, "tokens_per_sec": tokens / wall,
+        "wall_s": wall, "fleet_iterations": it,
+        "ttft_p50_s": slo.get("ttft_p50_s"), "ttft_p99_s": slo.get("ttft_p99_s"),
+        "cache_hit_rate": slo.get("cache_hit_rate"),
+        "replica_load_imbalance": slo.get("replica_load_imbalance", 1.0),
+        "peak_resident_requests": sum(e.peak_resident for e in router.engines),
+        "window_iterations": [lo, min(it, hi)],
+        "idle_share": (1.0 - busy / window[0]) if busy else "not measured",
+        "paged_kernel_launches": launches,
+        "k3_launches_by_replica": _fleet_counts(router, snap, launches),
+        "sync_free_calls": sum(g.dispatches for g in guards if hasattr(g, "dispatches")),
+        "own_event_waits": sum(g.waits for g in guards if hasattr(g, "waits"))}}
+
+
+def _open_loop_run(router, schedule, clock: str, slo, rate: float) -> dict:
+    """One ``OpenLoopDriver`` run, K3's counts set to 0 just before."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
+        OpenLoopDriver,
+    )
+
+    drv = OpenLoopDriver(router, schedule, clock=clock, tick_s=FLEET_TICK_S, slo=slo,
+                         process="poisson", rate=rate)
+    router.warmup()
+    snap = _fleet_snapshot(router)
+    paged_decode_attention.launches = 0
+    stack, guards = _guarded(router)
+    with stack:
+        t0 = time.perf_counter()
+        finished = drv.run()
+        _sync()
+        wall = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    check(len(finished) == len(schedule), "not every request finished")
+    outs = [[int(t) for t in router.output_ids(finished[rid])] for rid in sorted(finished)]
+    return {"outs": outs, "summary": drv.summary(), "slo": router.slo_summary(),
+            "wall_s": wall, "paged_kernel_launches": launches,
+            "k3_launches_by_replica": _fleet_counts(router, snap, launches),
+            "sync_free_calls": sum(g.dispatches for g in guards if hasattr(g, "dispatches")),
+            "own_event_waits": sum(g.waits for g in guards if hasattr(g, "waits"))}
+
+
+def _stitched(tel: Path, what: str) -> dict:
+    """The traced events of one run stitched: every trace complete, and
+    every complete trace passing the port's ``check_trace``."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.schema import (
+        validate_events_file,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.trace import (
+        check_trace,
+        collect_traces,
+        fleet_summary,
+    )
+
+    n_events, errors = validate_events_file(str(tel / "events.jsonl"))
+    check(not errors, f"{what}: events fail the schema: {errors[:3]}")
+    events = [json.loads(x) for x in (tel / "events.jsonl").read_text().splitlines()]
+    traces = collect_traces(events)
+    bad = [(t["trace_id"], t["incomplete"]) for t in traces if not t["complete"]]
+    check(traces and not bad, f"{what}: incomplete traces {bad[:3]}")
+    errs = [e for t in traces for e in check_trace(t)]
+    check(not errs, f"{what}: stitched traces fail check_trace: {errs[:3]}")
+    fleet = fleet_summary(traces)
+    return {"events": n_events, "traces": len(traces),
+            "complete_traces": fleet["complete_traces"],
+            "transport_hops": fleet.get("transport_hops", 0),
+            "transport_hop_s_p50": fleet.get("transport_hop_s_p50"),
+            "transport_hop_s_p99": fleet.get("transport_hop_s_p99"),
+            "hops_by_trace": sorted({t["hops"] for t in traces})}
+
+
+def serve_router_phase(model, card: str) -> dict:
+    """The multi-replica fleet on GPT-2 124M (fp32, the serve phase's
+    weights), every replica on the one card with K3 and overlap on (the
+    engine's defaults), the replicas sharing the model's tensors, each
+    run's K3 counts set to 0 just before it and read just after (per
+    replica from each engine's own tally), the fleet's dispatches ahead
+    and its placement path under the sync debug mode: (a) placement, one
+    engine against two replicas under ``round_robin``, ``least_loaded``
+    and ``affinity`` on the mixed trace, and ``round_robin`` against
+    ``affinity`` on the primed templated trace (tokens/s, TTFT, hit rate,
+    imbalance, peak resident, idle share over fleet iterations
+    ``ROUTER_PROFILED``); every fleet's tokens equal the one engine's up
+    to a near-tie, affinity's hit rate at least round-robin's; (b) the
+    affinity fleet drained of replica 1 in the middle of the mixed trace:
+    residents migrated live, their bytes, restore and hop seconds, tokens
+    as in (a), every trace stitched complete; (c) ``prefill:1,decode:1``
+    against two mixed replicas on a Poisson schedule (virtual clock, TTFT
+    SLO): tokens equal, no decode step on the prefill replica, every
+    request migrated once, every stitched trace complete and passing
+    ``check_trace``; (d) the open loop at two virtual rates, the first
+    twice (its summary repeats exactly), then the wall clock at
+    ``OPEN_LOOP["wall_rates"]`` (reported, not gated)."""
+    import shutil
+
+    import numpy as np
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import percentile
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
+        SloSpec,
+        make_schedule,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.router import Router
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import make_trace
+
+    vocab = model.config.vocab_size - 2
+    eos = model.config.eos_token_id
+    rows, seconds = {}, {}
+    tel = Path(tempfile.mkdtemp())
+
+    def fleet(n, placement="round_robin", **kw):
+        return Router(model, replicas=n, placement=placement, device=DEVICE,
+                      num_blocks=ROUTER_BLOCKS, **{**ROUTER_ENGINE, **kw})
+
+    def sink(name: str) -> Path:
+        obs.reset(out_dir=str(tel / name), enabled=True)
+        return tel / name
+
+    try:
+        # (a) placement
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(7)
+        mixed = make_trace(rng, ROUTER_TRACE["n_requests"], vocab, ROUTER_TRACE["prompt_lo"],
+                           ROUTER_TRACE["prompt_hi"], ROUTER_TRACE["short_new"],
+                           ROUTER_TRACE["long_new"], ROUTER_TRACE["long_every"])
+        families, per_family, prefix_len = ROUTER_FAMILIES
+        rng = np.random.RandomState(8)
+        prefixes = [rng.randint(1, vocab, (prefix_len,)).astype(np.int32)
+                    for _ in range(families)]
+        templated = []
+        for _ in range(per_family):
+            for f in range(families):
+                tail = rng.randint(1, vocab, (int(rng.randint(2, 6)),)).astype(np.int32)
+                templated.append((np.concatenate([prefixes[f], tail]), int(rng.randint(3, 6))))
+        sink("placement")
+        runs = {"single": _fleet_run(fleet(1), mixed)}
+        for placement in ("round_robin", "least_loaded", "affinity"):
+            runs[placement] = _fleet_run(fleet(2, placement), mixed)
+        for placement in ("round_robin", "affinity"):
+            runs[f"templated_{placement}"] = _fleet_run(
+                fleet(2, placement), templated, prime=prefixes,
+                cross_check=placement == "round_robin")
+        for name, r in runs.items():
+            rows[name] = dict(r["row"], phase="serve_router", run=name)
+        for placement in ("round_robin", "least_loaded", "affinity"):
+            rows[placement]["same_tokens_as_single"] = _same_tokens(
+                model, mixed, runs[placement]["outs"], runs["single"]["outs"],
+                f"(a) {placement} against one engine")
+            check(set(rows[placement]["k3_launches_by_replica"]) == {"0", "1"}
+                  and all(v["launches"] > 0 for v in
+                          rows[placement]["k3_launches_by_replica"].values()),
+                  f"(a) {placement}: a replica launched no K3")
+        rows["templated_affinity"]["same_tokens_as_round_robin"] = _same_tokens(
+            model, templated, runs["templated_affinity"]["outs"],
+            runs["templated_round_robin"]["outs"], "(a) templated affinity/round-robin")
+        check(rows["templated_affinity"]["cache_hit_rate"]
+              >= rows["templated_round_robin"]["cache_hit_rate"],
+              "(a) affinity's hit rate is below round-robin's on the templated trace")
+        seconds["a_placement"] = time.perf_counter() - t0
+
+        # (b) a live drain in the middle of the affinity run
+        t0 = time.perf_counter()
+        drain_tel = sink("drain")
+        router = fleet(2, "affinity")
+        r = _fleet_run(router, mixed, drain_at=rows["affinity"]["fleet_iterations"] // 2)
+        st = router.slo_summary()
+        hops = sorted(h for e in router.engines for h in e.transport_hop_s)
+        rows["drain"] = dict(
+            r["row"], phase="serve_router", run="drain", card=card,
+            drains=router.drains, requeues=router.requeues,
+            residents_migrated=router.migrations,
+            migration_bytes=st.get("migration_bytes", 0),
+            migration_restore_s=st.get("migration_restore_s", 0.0),
+            transport_hop_s_p50=percentile(hops, 0.50) if hops else None,
+            transport_hop_s_p99=percentile(hops, 0.99) if hops else None,
+            same_tokens_as_single=_same_tokens(model, mixed, r["outs"],
+                                               runs["single"]["outs"], "(b) drain"))
+        check(router.drains == 1 and router.migrations > 0,
+              "(b) the drain migrated no resident")
+        obs.reset()
+        rows["drain"]["stitched"] = _stitched(drain_tel, "(b) drain")
+        seconds["b_drain"] = time.perf_counter() - t0
+
+        # (c) prefill/decode roles against two mixed replicas
+        t0 = time.perf_counter()
+        schedule = make_schedule(DISAGG["n"], vocab, process="poisson", rate=DISAGG["rate"],
+                                 seed=FLEET_SEED, prompt_lo=DISAGG["prompt"][0],
+                                 prompt_hi=DISAGG["prompt"][1], new_lo=DISAGG["new"][0],
+                                 new_hi=DISAGG["new"][1], eos_token_id=eos)
+        strace = [(np.asarray(sp["prompt"], np.int32), sp["max_new_tokens"])
+                  for _, sp in sorted(schedule, key=lambda row: row[0])]
+        slo = SloSpec(ttft_s=DISAGG["ttft_s"])
+        blocks4 = 1 + 4 * ((DISAGG["prompt"][1] + 32 + DISAGG["new"][1] + 16) // 16 + 1)
+        disagg_tel = sink("roles")
+        dis_router = Router(model, roles="prefill:1,decode:1", device=DEVICE,
+                            num_blocks=blocks4, **FLEET4_ENGINE)
+        dis = _open_loop_run(dis_router, schedule, "virtual", slo, DISAGG["rate"])
+        sink("mixed")
+        mix = _open_loop_run(Router(model, replicas=2, device=DEVICE, num_blocks=blocks4,
+                                    **FLEET4_ENGINE), schedule, "virtual", slo, DISAGG["rate"])
+        obs.reset()
+        pre, dec = dis_router.engines
+        check(pre.decode_steps == 0 and pre.paged_kernel_launches == 0,
+              "(c) the prefill replica ran a decode step")
+        check(dis_router.migrations == DISAGG["n"]
+              and all(req.hop == 1 for req in dis_router.finished.values()),
+              "(c) not every request migrated exactly once")
+        rows["roles"] = {
+            "phase": "serve_router", "run": "roles", "requests": DISAGG["n"],
+            "rate": DISAGG["rate"], "clock": "virtual",
+            "slo_attainment": dis["summary"].get("slo_attainment"),
+            "mixed_slo_attainment": mix["summary"].get("slo_attainment"),
+            "ttft_p50_s": dis["summary"].get("ttft_p50_s"),
+            "mixed_ttft_p50_s": mix["summary"].get("ttft_p50_s"),
+            "tpot_p50_s": dis["summary"].get("tpot_p50_s"),
+            "mixed_tpot_p50_s": mix["summary"].get("tpot_p50_s"),
+            "migrations": dis_router.migrations,
+            "migration_bytes": dis["slo"].get("migration_bytes"),
+            "prefill_decode_steps": pre.decode_steps, "wall_s": dis["wall_s"],
+            "mixed_wall_s": mix["wall_s"],
+            "paged_kernel_launches": dis["paged_kernel_launches"],
+            "k3_launches_by_replica": dis["k3_launches_by_replica"],
+            "mixed_paged_kernel_launches": mix["paged_kernel_launches"],
+            "mixed_k3_launches_by_replica": mix["k3_launches_by_replica"],
+            "sync_free_calls": dis["sync_free_calls"] + mix["sync_free_calls"],
+            "same_tokens_as_mixed": _same_tokens(model, strace, dis["outs"], mix["outs"],
+                                                 "(c) roles/mixed"),
+            "stitched": _stitched(disagg_tel, "(c) roles")}
+        check(rows["roles"]["stitched"]["traces"] == DISAGG["n"]
+              and rows["roles"]["stitched"]["hops_by_trace"] == [1],
+              "(c) not every request stitched into one one-hop trace")
+        seconds["c_roles"] = time.perf_counter() - t0
+
+        # (d) the open loop: two virtual rates (the first twice), then wall
+        t0 = time.perf_counter()
+
+        def oschedule(rate):
+            return make_schedule(OPEN_LOOP["n"], vocab, process="poisson", rate=rate,
+                                 seed=FLEET_SEED, prompt_lo=OPEN_LOOP["prompt"][0],
+                                 prompt_hi=OPEN_LOOP["prompt"][1], new_lo=OPEN_LOOP["new"][0],
+                                 new_hi=OPEN_LOOP["new"][1], eos_token_id=eos,
+                                 groups=("interactive", "batch"))
+
+        oblocks = 1 + 4 * ((OPEN_LOOP["prompt"][1] + 32 + OPEN_LOOP["new"][1] + 16) // 16 + 1)
+
+        def ofleet():
+            return Router(model, replicas=2, device=DEVICE, num_blocks=oblocks,
+                          **{**FLEET4_ENGINE, "timeline": "off", "prefix_cache": "off"})
+
+        rate_lo, rate_hi = OPEN_LOOP["rates"]
+        slo_lo, slo_hi = SloSpec(ttft_s=0.02, tpot_s=0.01), SloSpec(ttft_s=0.005)
+        lo_a = _open_loop_run(ofleet(), oschedule(rate_lo), "virtual", slo_lo, rate_lo)
+        lo_b = _open_loop_run(ofleet(), oschedule(rate_lo), "virtual", slo_lo, rate_lo)
+        hi = _open_loop_run(ofleet(), oschedule(rate_hi), "virtual", slo_hi, rate_hi)
+        check(json.dumps(lo_a["summary"], sort_keys=True)
+              == json.dumps(lo_b["summary"], sort_keys=True) and lo_a["outs"] == lo_b["outs"],
+              "(d) the virtual replay differs")
+        wall_runs = {}
+        for rate in OPEN_LOOP["wall_rates"]:
+            w = _open_loop_run(ofleet(), oschedule(rate), "wall",
+                               SloSpec(ttft_s=0.5, tpot_s=0.25), rate)
+            wall_runs[str(rate)] = {k: w["summary"].get(k) for k in (
+                "slo_attainment", "goodput_tokens", "miss_phases", "dominant_miss_phase",
+                "group_slo_attainment")}
+            wall_runs[str(rate)].update(wall_s=w["wall_s"],
+                                        paged_kernel_launches=w["paged_kernel_launches"])
+        rows["open_loop"] = {
+            "phase": "serve_router", "run": "open_loop", "requests": OPEN_LOOP["n"],
+            "virtual": {str(rate_lo): lo_a["summary"], str(rate_hi): hi["summary"]},
+            "virtual_replay_identical": True, "wall": wall_runs,
+            "paged_kernel_launches": lo_a["paged_kernel_launches"],
+            "k3_launches_by_replica": lo_a["k3_launches_by_replica"],
+            "sync_free_calls": lo_a["sync_free_calls"]}
+        seconds["d_open_loop"] = time.perf_counter() - t0
+    finally:
+        obs.reset()
+        shutil.rmtree(tel, ignore_errors=True)
+    rows["summary"] = {"phase": "serve_router", "run": "summary", "card": card,
+                       "seconds": seconds}
     for r in rows.values():
         emit(r)
     return rows
@@ -2389,6 +2907,24 @@ def _parity_rows(model: str, layers: int, steps: dict, one_dof_apart: bool = Fal
 
 
 def _device_seconds_by_kernel(prof) -> dict:
+    """Device seconds by record name in a profiled window: the durations of
+    its device records (kernels, copies, fills) summed straight off the
+    profiler's kineto results, the sums ``key_averages`` gives as each
+    name's ``self_device_time_total`` without the event tree it builds
+    first (seconds of host time for a window of a few thousand launches;
+    ``_key_averaged_seconds`` is that route, which the serve_router phase
+    holds this one to once)."""
+    import torch
+
+    by_kernel = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + e.duration_ns() / 1e9
+    return by_kernel
+
+
+def _key_averaged_seconds(prof) -> dict:
+    """``_device_seconds_by_kernel`` through the profiler's ``key_averages``."""
     import torch
 
     by_kernel = {}
@@ -2397,6 +2933,11 @@ def _device_seconds_by_kernel(prof) -> dict:
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
     return by_kernel
+
+
+def _device_busy_s(prof) -> float:
+    """The device's busy seconds in a profiled window."""
+    return sum(_device_seconds_by_kernel(prof).values())
 
 
 def _timed_then_profiled(trainer, batches: list) -> tuple[float, dict]:
@@ -5634,6 +6175,7 @@ def main() -> int:
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
     engine_rows = timed(serve_engine_phase, model, trace)
+    router_rows = timed(serve_router_phase, model, card)
     del model
     torch.cuda.empty_cache()
     flash = timed(flash_phase)
@@ -5734,10 +6276,16 @@ def main() -> int:
                                 for n, r in serve_runs.items()},
                              **{f"serve_engine/{n}": r["paged_kernel_launches"]
                                 for n, r in engine_rows.items()
+                                if "paged_kernel_launches" in r},
+                             **{f"serve_router/{n}": r["paged_kernel_launches"]
+                                for n, r in router_rows.items()
                                 if "paged_kernel_launches" in r}},
         "serve_engine_launches_by_width": {
             n: r["k3_launches_by_width"] for n, r in engine_rows.items()
             if r.get("k3_launches_by_width")},
+        "serve_router_launches_by_replica_width": {
+            n: r["k3_launches_by_replica"] for n, r in router_rows.items()
+            if r.get("k3_launches_by_replica")},
         "serve_engine_cases": {c: {k: kernels[c][k] for k in (
             "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "width", "chunk")}

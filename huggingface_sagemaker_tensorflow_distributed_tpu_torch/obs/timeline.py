@@ -1,5 +1,6 @@
 """The request-timeline decomposition check (the JAX package's
-``obs/timeline.py::check_decomposition``, stdlib only).
+``obs/timeline.py::check_decomposition``, stdlib only) and the
+nearest-rank :func:`percentile` the serving summaries share.
 
 A ``request_timeline`` event's ``queue_s + prefill_s + decode_s +
 preempted_s + overhead_s`` must sum to ``e2e_s`` within tolerance, no
@@ -13,6 +14,15 @@ from __future__ import annotations
 from typing import Optional
 
 PHASES = ("queue", "prefill", "decode", "preempted", "overhead")
+
+
+def percentile(sorted_vals: list, p: float) -> float:
+    """Nearest-rank percentile over an already sorted list (the JAX
+    package's ``obs/report.py`` convention), shared by the engine's,
+    the router's and the load generator's summaries and the trace
+    rollups."""
+    n = len(sorted_vals)
+    return float(sorted_vals[min(n - 1, int(p * (n - 1) + 0.5))])
 SEGMENT_PHASES = ("queue", "prefill", "decode", "preempted")
 
 

@@ -1,2 +1,4 @@
 """Continuous-batching serving of the PyTorch port: paged KV
-bookkeeping, the FIFO scheduler, the engine and its CLI."""
+bookkeeping, the scheduler and its admission policies, the engine, the
+multi-replica router with its KV transport, the open-loop load generator
+and the CLI."""

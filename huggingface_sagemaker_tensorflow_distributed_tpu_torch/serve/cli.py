@@ -1,6 +1,7 @@
-"""Serving entry point of the PyTorch port: drive :class:`ServeEngine`
-over a request trace and report per-request latency and aggregate
-throughput (the port of the JAX package's ``scripts/serve.py``).
+"""Serving entry point of the PyTorch port: drive a fleet of
+:class:`ServeEngine` replicas behind a :class:`~.router.Router` over a
+request trace and report per-request latency and aggregate throughput
+(the port of the JAX package's ``scripts/serve.py``).
 
 Requests come from ``--input_file`` (JSONL, one ``{"prompt_ids": [...],
 "max_new_tokens": N}`` per line, optionally with ``temperature``,
@@ -19,17 +20,23 @@ each defaulting to its ``HSTD_SERVE_*`` variable: ``--gather_buckets``
 on|off``, ``--kernel pallas|xla`` (the K3 route, the port's default, or the
 gather route), ``--timeline on|off``, ``--overlap on|off`` (dispatch-ahead),
 ``--slo ttft:SECS[,tpot:SECS]``, ``--policy fifo|slo`` and ``--aging_s``,
-``--swap auto|always|never|off`` and ``--swap_bytes``. ``--tp`` above 1 and
-the multi-replica flags (``--replicas`` above 1, ``--placement``,
-``--roles``, ``--arrival``, ``--rate_limit``) are not ported and raise. Runs
-on the GPU unless ``--device cpu`` is given.
+``--swap auto|always|never|off`` and ``--swap_bytes``. Every run is built
+through the router: ``--replicas N`` engines (one, the default, is the
+bare engine's run), ``--placement round_robin|least_loaded|affinity``,
+``--roles prefill:N,decode:M`` (a disaggregated fleet), ``--rate_limit
+GROUP=RATE[:BURST],...`` (per-tenant token buckets); ``--arrival
+poisson:RATE|bursty:HI,LO,P`` submits the trace on that open-loop
+schedule (seed ``HSTD_SERVE_ARRIVAL_SEED``) on the wall clock. ``--tp``
+above 1 is not ported and raises. Runs on the GPU unless ``--device cpu``
+is given.
 
   python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.cli \\
       --requests 32 --num_slots 8 --block_size 16 --prefill_chunk 16 \\
       --temperature 0.8 --top_p 0.9 --kv_cache_dtype int8 --swap always
 
-One JSON line per finished request, then one summary line whose keys are
-``scripts/serve.py``'s single-engine keys plus ``paged_kernel_launches``.
+One JSON line per finished request (with its ``replica`` on a fleet),
+then one summary line whose keys are ``scripts/serve.py``'s (the
+single-engine or the fleet summary) plus ``paged_kernel_launches``.
 With ``HSTD_TELEMETRY_DIR`` set, the engine's ``serve`` events and spans
 go there.
 """
@@ -51,11 +58,17 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert impor
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
     Gpt2Config,
 )
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
-    ServeEngine,
-)
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.policy import (
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
+    OpenLoopDriver,
+    bursty_arrivals,
+    parse_arrival,
+    parse_arrival_seed,
     parse_slo,
+    poisson_arrivals,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.router import (
+    Router,
+    parse_roles,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import (
     make_trace,
@@ -185,13 +198,29 @@ def parse_args(argv=None):
     parser.add_argument("--swap_bytes", type=int, default=None,
                         help="host tier byte budget (default: "
                              "HSTD_SERVE_SWAP_BYTES or 0 = unbounded)")
-    # not ported: they raise (tensor parallelism, the multi-replica router)
+    parser.add_argument("--replicas", type=int, default=None,
+                        help="engine replicas behind the placement router, "
+                             "token-identical to one engine (default: "
+                             "HSTD_SERVE_REPLICAS or 1)")
+    parser.add_argument("--placement", default=None,
+                        choices=("round_robin", "least_loaded", "affinity"),
+                        help="replica placement (default: "
+                             "HSTD_SERVE_PLACEMENT or round_robin)")
+    parser.add_argument("--roles", default=None,
+                        help="disaggregated fleet, prefill:N,decode:M "
+                             "(default: HSTD_SERVE_ROLES or mixed replicas)")
+    parser.add_argument("--arrival", default=None,
+                        help="open-loop arrivals, poisson:RATE or "
+                             "bursty:RATE_HI,RATE_LO,P_SWITCH, or closed "
+                             "(default: HSTD_SERVE_ARRIVAL or closed; seed: "
+                             "HSTD_SERVE_ARRIVAL_SEED)")
+    parser.add_argument("--rate_limit", default=None,
+                        help="per-tenant token buckets, "
+                             "GROUP=RATE[:BURST],... ('*' = the default "
+                             "bucket); over-budget submits are rejected, "
+                             "counted in rate_limited")
+    # not ported: raises (tensor-parallel serving)
     parser.add_argument("--tp", type=int, default=None)
-    parser.add_argument("--replicas", type=int, default=None)
-    parser.add_argument("--placement", default=None)
-    parser.add_argument("--roles", default=None)
-    parser.add_argument("--arrival", default=None)
-    parser.add_argument("--rate_limit", default=None)
     parser.add_argument("--temperature", type=float, default=0.0,
                         help="0 = greedy (the default); > 0 samples")
     parser.add_argument("--top_k", type=int, default=0)
@@ -203,27 +232,99 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    """``--tp`` above 1 and the multi-replica flags are not ported."""
+    """``--tp`` above 1 is not ported."""
     if args.tp not in (None, 1):
         raise NotImplementedError(
             f"--tp {args.tp} (tensor-parallel serving) is not ported yet: "
             "ROADMAP queue 1, item 11")
-    for flag, value, trivial in (("replicas", args.replicas, 1),
-                                 ("placement", args.placement, None),
-                                 ("roles", args.roles, None),
-                                 ("arrival", args.arrival, "closed"),
-                                 ("rate_limit", args.rate_limit, None)):
-        if value is not None and value != trivial:
-            raise NotImplementedError(
-                f"--{flag} (the multi-replica router and open-loop driver) is "
-                "not ported yet: ROADMAP queue 1, item 10")
+
+
+def _open_loop(router, trace, arrival, seed: int, slo_spec):
+    """The trace on the ``arrival`` schedule through the wall-clock
+    driver (``arrival_s`` and the SLO go into every submit)."""
+    proc, pp = arrival
+    if proc == "poisson":
+        arrivals = poisson_arrivals(pp["rate"], len(trace), seed)
+        rate = pp["rate"]
+    else:
+        arrivals = bursty_arrivals(pp["rate_hi"], pp["rate_lo"],
+                                   pp["p_switch"], len(trace), seed)
+        rate = pp["rate_hi"]
+    schedule = [(a, {"prompt": p, "max_new_tokens": m, **kw})
+                for a, (p, m, kw) in zip(arrivals, trace)]
+    return OpenLoopDriver(router, schedule, clock="wall", slo=slo_spec,
+                          process=proc, rate=rate)
+
+
+def _fleet_summary(router, reqs, total: int, wall: float) -> dict:
+    """``scripts/serve.py``'s fleet summary: the router's aggregate and
+    the engines' summed counters."""
+    engine = router.engines[0]
+    rslo = router.slo_summary()
+    stats_all = [e.stats() for e in router.engines]
+    return {
+        "summary": True,
+        "requests": len(reqs),
+        "tokens": total,
+        "tokens_per_sec": round(total / wall, 1),
+        "replicas": router.n,
+        "placement": router.placement,
+        "drains": router.drains,
+        "requeues": router.requeues,
+        "replica_load_imbalance": rslo.get("replica_load_imbalance"),
+        "affinity_fallbacks": (router.affinity_fallbacks
+                               if router.placement == "affinity" else None),
+        "ttft_p50_s": rslo.get("ttft_p50_s"),
+        "ttft_p95_s": rslo.get("ttft_p95_s"),
+        "ttft_p99_s": rslo.get("ttft_p99_s"),
+        "e2e_p50_s": rslo.get("e2e_p50_s"),
+        "e2e_p95_s": rslo.get("e2e_p95_s"),
+        "e2e_p99_s": rslo.get("e2e_p99_s"),
+        "peak_waiting_depth": rslo.get("peak_waiting_depth"),
+        "decode_steps": sum(s.decode_steps for s in stats_all),
+        "decode_tokens_per_sec": rslo.get("decode_tokens_per_sec"),
+        "prefill_chunks": sum(s.prefill_chunks for s in stats_all),
+        "preemptions": sum(s.preemptions for s in stats_all),
+        "gather_buckets": engine.gather_buckets,
+        "prefix_cache": engine.prefix_cache,
+        "cache_hit_rate": rslo.get("cache_hit_rate"),
+        "timeline": engine.timeline,
+        "overlap": engine.overlap,
+        "kernel": engine.kernel,
+        "kv_dtype": engine.kv_cache_dtype,
+        "tp": engine.tp,
+        "per_replica": rslo.get("per_replica"),
+        **({"roles": rslo.get("roles"),
+            "per_role": rslo.get("per_role"),
+            "migrations": router.migrations,
+            "migration_bytes": sum(s.migration_bytes for s in stats_all)}
+           if router.roles is not None else {}),
+        **({"swap_policy": engine.swap,
+            "swap_outs": sum(s.swap_outs for s in stats_all),
+            "swap_ins": sum(s.swap_ins for s in stats_all),
+            "swap_bytes": sum(s.swap_bytes for s in stats_all),
+            "recompute_tokens_avoided": sum(
+                s.recompute_tokens_avoided for s in stats_all),
+            "host_tier_hits": sum(s.host_tier_hits for s in stats_all)}
+           if engine.swap != "off" else {}),
+        **({"policy": router.policy,
+            "aging_promotions": rslo.get("aging_promotions")}
+           if router.policy != "fifo" else {}),
+        **({"deadline_miss_frac": rslo.get("deadline_miss_frac")}
+           if rslo.get("deadline_miss_frac") is not None else {}),
+        **({"priority_slo_attainment": rslo.get("priority_slo_attainment")}
+           if rslo.get("priority_slo_attainment") else {}),
+    }
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     _refuse_unported(args)
     try:
+        arrival = parse_arrival(args.arrival)
+        arrival_seed = parse_arrival_seed()
         slo_spec = parse_slo(args.slo)
+        roles = parse_roles(args.roles)
     except ValueError as e:
         raise SystemExit(f"serve: {e}")
     device = resolve_device(args.device)
@@ -238,31 +339,49 @@ def main(argv=None) -> None:
         cfg.max_position_embeddings // args.block_size) * args.block_size
     num_blocks = args.num_blocks or (
         1 + args.num_slots * (max_len // args.block_size) * 3 // 4)
-    engine = ServeEngine(model, num_slots=args.num_slots,
-                         block_size=args.block_size, num_blocks=num_blocks,
-                         prefill_chunk=args.prefill_chunk,
-                         prefill_batch=args.prefill_batch,
-                         max_model_len=max_len,
-                         gather_buckets=args.gather_buckets,
-                         speculate_k=args.speculate_k, draft=args.draft_layers,
-                         prefix_cache=args.prefix_cache, kernel=args.kernel,
-                         kv_cache_dtype=args.kv_cache_dtype,
-                         timeline=args.timeline, overlap=args.overlap,
-                         swap=args.swap, swap_bytes=args.swap_bytes,
-                         policy=args.policy, aging_s=args.aging_s,
-                         device=device)
-    engine.warmup()                   # builds K3 before the clock starts
+    # one construction path: a one-replica router is the bare engine
+    router = Router(model, replicas=args.replicas, placement=args.placement,
+                    roles=roles, num_slots=args.num_slots,
+                    block_size=args.block_size, num_blocks=num_blocks,
+                    prefill_chunk=args.prefill_chunk,
+                    prefill_batch=args.prefill_batch,
+                    max_model_len=max_len,
+                    gather_buckets=args.gather_buckets,
+                    speculate_k=args.speculate_k, draft=args.draft_layers,
+                    prefix_cache=args.prefix_cache, kernel=args.kernel,
+                    kv_cache_dtype=args.kv_cache_dtype,
+                    timeline=args.timeline, overlap=args.overlap,
+                    swap=args.swap, swap_bytes=args.swap_bytes,
+                    policy=args.policy, aging_s=args.aging_s,
+                    rate_limit=args.rate_limit, device=device)
+    engine = router.engines[0]
     trace = load_trace(args, cfg.vocab_size - 1)
-    reqs = [engine.submit(p, m, slo=slo_spec, **kw) for p, m, kw in trace]
-    t0 = time.perf_counter()
-    engine.run()
+    # builds K3 before the clock starts
+    router.warmup(sampled=any(kw.get("temperature", 0) > 0 for _, _, kw in trace))
+    driver = None
+    rejected = 0
+    if arrival is not None:
+        driver = _open_loop(router, trace, arrival, arrival_seed, slo_spec)
+        t0 = time.perf_counter()
+        finished = driver.run()
+        reqs = [finished[rid] for rid in sorted(finished)]
+    else:
+        reqs = []
+        for p, m, kw in trace:
+            r = router.submit(p, m, slo=slo_spec, **kw)
+            if getattr(r, "rejected", False):
+                rejected += 1
+            else:
+                reqs.append(r)
+        t0 = time.perf_counter()
+        router.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
 
     total = 0
     for req in reqs:
-        ids = engine.output_ids(req)
+        ids = router.output_ids(req)
         total += len(ids)
         row = {"request": req.rid, "prompt_len": req.orig_prompt_len,
                "output_ids": [int(t) for t in ids],
@@ -272,6 +391,13 @@ def main(argv=None) -> None:
         if req.has_slo:
             row["slo_met"] = req.slo_met
             row["slack_s"] = req.slack_s
+        if req.deadline_s is not None:
+            row["deadline_s"] = req.deadline_s
+            row["deadline_miss"] = req.deadline_miss
+        if req.priority:
+            row["priority"] = req.priority
+        if router.n > 1:
+            row["replica"] = router.replica_of(req)
         if engine.speculative:
             row["acceptance_rate"] = (round(req.spec_accepted / req.spec_proposed, 4)
                                       if req.spec_proposed else None)
@@ -280,6 +406,35 @@ def main(argv=None) -> None:
         if engine.timeline:
             row["phase_s"] = {ph: round(v, 4) for ph, v in req.phase_s.items()}
         print(json.dumps(row))
+    # the open loop's goodput accounting (absent on a closed run)
+    open_extra = {}
+    if slo_spec is not None:
+        open_extra["slo"] = {"ttft_s": slo_spec.ttft_s, "tpot_s": slo_spec.tpot_s}
+    if driver is not None:
+        dsum = driver.summary()
+        open_extra["arrival"] = {"process": dsum["process"], "rate": dsum.get("rate"),
+                                 "seed": arrival_seed, "clock": dsum["clock"]}
+        for k in ("slo_attainment", "slo_met", "slo_missed", "goodput_tokens",
+                  "group_slo_attainment", "miss_phases", "dominant_miss_phase",
+                  "rate_limited", "deadline_misses", "deadline_miss_frac"):
+            if k in dsum:
+                open_extra[k] = dsum[k]
+    elif rejected:
+        open_extra["rate_limited"] = rejected
+    launches = sum(e.paged_kernel_launches for e in router.engines)
+    if router.n > 1:
+        rslo = router.slo_summary()
+        print(json.dumps({
+            **_fleet_summary(router, reqs, total, wall),
+            **({"arrival_backlog_peak": rslo.get("arrival_backlog_peak")}
+               if driver is not None else {}),
+            **({"slo_attainment": rslo.get("slo_attainment"),
+                "group_slo_attainment": rslo.get("group_slo_attainment")}
+               if slo_spec is not None and driver is None else {}),
+            **open_extra,
+            "paged_kernel_launches": launches}))
+        obs.flush()
+        return
     stats = engine.stats()
     slo = engine.slo_summary()
     print(json.dumps({
@@ -343,15 +498,19 @@ def main(argv=None) -> None:
                                    if stats.host_tier_hit_rate is not None
                                    else None)}
            if engine.swap != "off" else {}),
-        **({"slo": {"ttft_s": slo_spec.ttft_s, "tpot_s": slo_spec.tpot_s},
-            "slo_attainment": slo.get("slo_attainment"),
+        **({"arrival_backlog_peak": slo.get("arrival_backlog_peak")}
+           if driver is not None else {}),
+        **({"slo_attainment": slo.get("slo_attainment"),
             "group_slo_attainment": slo.get("group_slo_attainment")}
-           if slo_spec is not None else {}),
+           if slo_spec is not None and driver is None else {}),
         **({"policy": engine.policy,
             "aging_promotions": slo.get("aging_promotions")}
            if engine.policy != "fifo" else {}),
         **({"deadline_miss_frac": slo.get("deadline_miss_frac")}
            if slo.get("deadline_miss_frac") is not None else {}),
+        **({"priority_slo_attainment": slo.get("priority_slo_attainment")}
+           if slo.get("priority_slo_attainment") else {}),
+        **open_extra,
         "paged_kernel_launches": stats.paged_kernel_launches}))
     obs.flush()
 

@@ -61,6 +61,17 @@ over every slot. The layers, each a knob that reads the JAX package's
   end-to-end time) and ``iteration_ledger`` events (``timeline``,
   default on), SLO and deadline verdicts at finish, and
   :meth:`~ServeEngine.slo_summary`.
+- **fleet hooks** (the multi-replica router's, ``serve/router.py``):
+  ``replica`` tags every lifecycle event and the report of replica i;
+  ``prefill_only`` (a disaggregated fleet's prefill side) runs no decode
+  phase, so finished prefills park in DECODE until the router migrates
+  them; :meth:`~ServeEngine.take_waiting`, :meth:`~ServeEngine.adopt`
+  and :meth:`~ServeEngine.adopt_resident` move requests between
+  engines; :meth:`~ServeEngine.load_gauges` is the placement input. A
+  migrated block set restores through the swap path's scatter and is
+  counted as migration traffic (a ``migrate`` event). A request carrying
+  a router-minted ``trace_id`` stamps it and its ``hop`` on every event
+  it leaves; untraced requests add nothing.
 
 Greedy output equals ``generate_causal`` and the JAX engine token for
 token in every configuration; a sampled request's n-th token is drawn
@@ -91,6 +102,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate impo
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
     PagedCache,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+    percentile,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     gather_paged_kv,
@@ -268,13 +282,6 @@ def parse_gather_buckets(spec: Union[str, Sequence[int], None],
         out.add(min(max_model_len, -(-w // block_size) * block_size))
     out.add(max_model_len)
     return sorted(out)
-
-
-def percentile(sorted_vals: list, p: float) -> float:
-    """Nearest-rank percentile over an already sorted list (the JAX
-    package's ``obs/report.py`` convention)."""
-    n = len(sorted_vals)
-    return float(sorted_vals[min(n - 1, int(p * (n - 1) + 0.5))])
 
 
 _M32 = 0xFFFFFFFF
@@ -606,6 +613,24 @@ class ServeEngine:
         self._iter_prefill_s = 0.0
         self._iter_decode_s = 0.0
         self._iter_decode_slots = 0
+        # fleet state: the router sets ``replica`` on an engine that is
+        # one of N (None adds nothing to any event) and ``prefill_only``
+        # on a disaggregated fleet's prefill side. ``_migrated_in`` maps
+        # an adopted hot migrant's rid to its source replica until its
+        # restore applies (migration accounting, not the swap tier's);
+        # ``_migrate_hold`` marks traced rids whose next admission
+        # closes a migration hold; ``transport_hop_s`` collects each
+        # priced hop's seconds (source extraction stamp to scatter
+        # complete).
+        self.replica: Optional[int] = None
+        self.prefill_only = False
+        self.migrations_in = 0
+        self.migrations_out = 0
+        self.migration_bytes = 0
+        self.migration_restore_s = 0.0
+        self._migrated_in: dict[int, Optional[int]] = {}
+        self._migrate_hold: set[int] = set()
+        self.transport_hop_s: list[float] = []
         self.swap = parse_swap(swap)
         self.swap_bytes = parse_swap_bytes(swap_bytes)
         self.swap_ins = 0
@@ -679,6 +704,62 @@ class ServeEngine:
 
     # -- requests -------------------------------------------------------------
 
+    def _replica_kw(self) -> dict:
+        """``{"replica": i}`` on replica i of a router fleet, ``{}``
+        otherwise: a router-less (or one-replica) engine's events stay
+        as they were."""
+        return {} if self.replica is None else {"replica": self.replica}
+
+    @staticmethod
+    def _trace_kw(req: Request) -> dict:
+        """``{"trace_id": ..., "hop": ...}`` when the request carries a
+        router-minted trace context, ``{}`` otherwise."""
+        if not req.trace_id:
+            return {}
+        return {"trace_id": req.trace_id, "hop": req.hop}
+
+    def take_waiting(self) -> list[Request]:
+        """Drain hook: remove and return every WAITING request (the
+        scheduler's :meth:`~.scheduler.Scheduler.take_waiting`), leaving
+        no per-request state of theirs behind here. Residents stay."""
+        moved = self.sched.take_waiting()
+        for req in moved:
+            self._migrated_in.pop(req.rid, None)
+            self._migrate_hold.discard(req.rid)
+        return moved
+
+    def adopt(self, req: Request) -> None:
+        """Requeue hook: enqueue an EXISTING request (a sibling's drain
+        victim) with its identity, folded prompt and submit stamp. A
+        sampled stream's noise is a function of (seed, token index), so
+        nothing re-derives: placement never changes tokens."""
+        self.sched.adopt(req)
+
+    def adopt_resident(self, req: Request,
+                       from_replica: Optional[int] = None) -> None:
+        """Migration hook: enqueue a sibling's LIVE resident at the queue
+        front (:meth:`~.scheduler.Scheduler.adopt_resident`). A hot
+        migrant carries its block set as ``swap_set``; registering it
+        here routes its restore through migration accounting; a cold
+        (mid-prefill) migrant re-prefills."""
+        self.sched.adopt_resident(req)
+        if req.swap_set is not None:
+            self._migrated_in[req.rid] = from_replica
+        else:
+            self.migrations_in += 1
+        if req.trace_id:
+            self._migrate_hold.add(req.rid)
+
+    def load_gauges(self) -> dict:
+        """The placement inputs, read off the host-side scheduler and
+        block manager (nothing on the card): waiting depth, occupied
+        slots and KV pool pressure."""
+        return {
+            "waiting_depth": len(self.sched.waiting),
+            "running": sum(1 for s in self.sched.slots if not s.free),
+            "kv_used_frac": self.blocks.utilization(),
+        }
+
     def has_work(self) -> bool:
         """True while anything is queued, resident or in flight."""
         return (self.sched.has_work() or self._pending is not None
@@ -687,7 +768,8 @@ class ServeEngine:
     def submit(self, prompt, max_new_tokens: int, *, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                group: str = "", arrival_s: Optional[float] = None, slo=None,
-               deadline_s: Optional[float] = None, priority: int = 0) -> Request:
+               trace_id: str = "", deadline_s: Optional[float] = None,
+               priority: int = 0) -> Request:
         """Queue one request: greedy at ``temperature=0``, else sampled
         (``top_k`` / ``top_p`` truncation, 0 disables each) from ``seed``.
         ``group`` tags it for SLO attribution; ``arrival_s`` is its arrival
@@ -696,7 +778,8 @@ class ServeEngine:
         (:class:`~.policy.SloSpec`); ``deadline_s`` an end-to-end
         deadline from its origin and ``priority`` its admission class
         (smaller is more urgent; both order admission under
-        ``policy='slo'``)."""
+        ``policy='slo'``). ``trace_id`` is a router-minted trace context
+        (empty: none)."""
         req = Request(prompt=np.asarray(prompt, np.int32),
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
@@ -706,6 +789,7 @@ class ServeEngine:
                                   else float(slo.ttft_s)),
                       slo_tpot_s=(None if slo is None or slo.tpot_s is None
                                   else float(slo.tpot_s)),
+                      trace_id=str(trace_id),
                       deadline_s=None if deadline_s is None else float(deadline_s),
                       priority=int(priority))
         req.submit_t = time.perf_counter()
@@ -727,7 +811,7 @@ class ServeEngine:
             extra["priority"] = req.priority
         obs.serve("submit", request=req.rid, prompt_len=len(req.prompt),
                   max_new_tokens=req.max_new_tokens, sampled=req.sampled,
-                  **extra)
+                  **self._replica_kw(), **self._trace_kw(req), **extra)
         return req
 
     def output_ids(self, req: Request) -> np.ndarray:
@@ -736,10 +820,12 @@ class ServeEngine:
         return np.concatenate(
             [folded, np.asarray(req.output, np.int32)]).astype(np.int32)
 
-    def warmup(self) -> None:
+    def warmup(self, sampled: bool = False) -> None:
         """The warm pass before serving: on the card, build (at first use)
         and load K3's library so that no request pays for it; announce the
-        starting width. Nothing compiles per shape."""
+        starting width. Nothing compiles per shape, so ``sampled`` (the
+        JAX engine's request for its sampled step variants) changes
+        nothing."""
         if self._warmed:
             return
         if self.device.type == "cuda" and self.kernel == "pallas":
@@ -794,6 +880,7 @@ class ServeEngine:
                 self.decode_tokens / self.decode_time_s, 1)
         out["kernel"] = self.kernel
         out["kv_dtype"] = self.kv_cache_dtype
+        out.update(self._replica_kw())
         out["tp"] = self.tp
         out["kv_pool_bytes_per_device"] = self.blocks.pool_bytes
         if self.overlap:
@@ -855,6 +942,11 @@ class ServeEngine:
             out["host_tier_hit_rate"] = round(
                 self.blocks.host_tier_hits
                 / max(1, self.blocks.host_tier_lookups), 4)
+        if self.migrations_in or self.migrations_out:
+            out["migrations_in"] = self.migrations_in
+            out["migrations_out"] = self.migrations_out
+            out["migration_bytes"] = self.migration_bytes
+            out["migration_restore_s"] = round(self.migration_restore_s, 6)
         if self.speculative:
             out["speculate_k"] = self.speculate_k
             out["draft_proposed"] = self.draft_proposed
@@ -928,6 +1020,9 @@ class ServeEngine:
             host_tier_hit_rate=(
                 self.blocks.host_tier_hits / max(1, self.blocks.host_tier_lookups)
                 if self.swap != "off" else None),
+            migrations_in=self.migrations_in,
+            migrations_out=self.migrations_out,
+            migration_bytes=self.migration_bytes,
             paged_kernel_launches=self.paged_kernel_launches)
 
     def _aggregate_hit_rate(self) -> Optional[float]:
@@ -964,7 +1059,8 @@ class ServeEngine:
             if self.prefix_cache:
                 extra["prefix_cached_tokens"] = slot.prefill_pos
             obs.serve("admit", request=slot.request.rid, slot=slot.index,
-                      queue_depth=len(self.sched.waiting), **extra)
+                      queue_depth=len(self.sched.waiting), **self._replica_kw(),
+                      **self._trace_kw(slot.request), **extra)
         if self.timeline and self.sched.waiting:
             head = self.sched.blocked_head()
             head.blocked_iters += 1
@@ -981,7 +1077,12 @@ class ServeEngine:
             if not rows:
                 break
             budget -= rows * C
-        if not self.overlap:
+        if self.prefill_only:
+            # a disaggregated fleet's prefill side: no decode phase and no
+            # capacity math (parked DECODE slots never grow here; the
+            # router migrates them between iterations)
+            pass
+        elif not self.overlap:
             self._capacity_phase()
             self._decode_all()
         elif self.speculative:
@@ -1029,7 +1130,7 @@ class ServeEngine:
                     tokens=self.tokens_generated - tokens0,
                     waiting=waiting,
                     kv_used_frac=round(self.blocks.utilization(), 4),
-                    **arrival_kw)
+                    **arrival_kw, **self._replica_kw())
         self.iterations += 1
 
     def _capacity_phase(self) -> None:
@@ -1037,7 +1138,8 @@ class ServeEngine:
         when the pool runs dry (on committed state: under overlap the
         caller drained the pipeline first when this could preempt)."""
         for req in self.sched.ensure_decode_capacity():
-            obs.serve("preempt", request=req.rid, reason="kv_pool_exhausted")
+            obs.serve("preempt", request=req.rid, reason="kv_pool_exhausted",
+                      **self._replica_kw(), **self._trace_kw(req))
             if self.timeline:
                 req.preempt_t = time.perf_counter()
                 self._emit_timeline(req, "preempt", req.preempt_t)
@@ -1581,6 +1683,17 @@ class ServeEngine:
         dt = max(now - t_from, 0.0)
         req.phase_s[phase] += dt
         seg = {"ph": phase, "t0": t_from - req.submit_t, "dur": dt}
+        if req.trace_id:
+            # a traced request's segments say where they ran, and the
+            # one closing a migration hold says so: the stitcher splits
+            # cross-engine admission wait out of same-engine preemption
+            if self.replica is not None:
+                seg["replica"] = self.replica
+            if req.rid in self._migrate_hold:
+                self._migrate_hold.discard(req.rid)
+                if phase == "preempted":
+                    seg["via"] = "migrate"
+                    seg["hop"] = req.hop
         if slot.prefill_pos:
             seg["cached_tokens"] = int(slot.prefill_pos)
         if req.blocked_iters:
@@ -1601,9 +1714,11 @@ class ServeEngine:
             last["dur"] += dur
             last["chunks"] += 1
         else:
-            req.segments.append({"ph": "prefill", "t0": t0 - req.submit_t,
-                                 "dur": dur, "from": int(slot.prefill_pos),
-                                 "chunks": 1})
+            seg = {"ph": "prefill", "t0": t0 - req.submit_t, "dur": dur,
+                   "from": int(slot.prefill_pos), "chunks": 1}
+            if req.trace_id and self.replica is not None:
+                seg["replica"] = self.replica
+            req.segments.append(seg)
 
     def _accrue_decode(self, req: Request, t0: float, dur: float, bucket: int,
                        tokens: int, proposed: int = 0, accepted: int = 0) -> None:
@@ -1622,6 +1737,8 @@ class ServeEngine:
         else:
             seg = {"ph": "decode", "t0": t0 - req.submit_t, "dur": dur,
                    "bucket": int(bucket), "iters": 1, "tokens": tokens}
+            if req.trace_id and self.replica is not None:
+                seg["replica"] = self.replica
             if self.speculative:
                 seg["proposed"] = proposed
                 seg["accepted"] = accepted
@@ -1654,6 +1771,8 @@ class ServeEngine:
         }
         if req.ttft_s is not None:
             fields["ttft_s"] = round(req.ttft_s, 6)
+        fields.update(self._replica_kw())
+        fields.update(self._trace_kw(req))
         if req.group:
             fields["group"] = req.group
         if req.arrival_s is not None:
@@ -1720,13 +1839,14 @@ class ServeEngine:
         req.swap_context = slot.context_len
         self.swap_outs += 1
         self.swap_bytes_moved += actual
-        obs.serve("swap_out", request=req.rid, swap_bytes=actual)
+        obs.serve("swap_out", request=req.rid, swap_bytes=actual,
+                  **self._replica_kw(), **self._trace_kw(req))
         return True
 
     def _apply_restores(self, slot) -> None:
         """The admission's host-to-device copies, before any dispatch reads
-        the slot's table: a swapped victim's block set and the prefix
-        blocks revived from the host tier."""
+        the slot's table: a swapped victim's or a hot migrant's block set
+        and the prefix blocks revived from the host tier."""
         req = slot.request
         if slot.pending_swap_in is not None:
             bset, slot.pending_swap_in = slot.pending_swap_in, None
@@ -1734,14 +1854,43 @@ class ServeEngine:
             insert_blocks(self._kv.all(), bset, slot.table[:bset.n_blocks],
                           d_pools=self._draft_pools())
             dt = time.perf_counter() - t0
-            self.restore_s += dt
-            self.blocks.host_release(bset.nbytes)
-            self.swap_ins += 1
-            self.swap_bytes_moved += bset.nbytes
-            self.recompute_tokens_avoided += slot.context_len
-            obs.serve("swap_in", request=req.rid, swap_bytes=bset.nbytes,
-                      restore_s=round(dt, 6),
-                      recompute_tokens_avoided=slot.context_len)
+            if req.rid in self._migrated_in:
+                # a migration arrival: the set came from a sibling's
+                # pools, not this engine's host tier (no reservation to
+                # release); its traffic is migration traffic
+                src_replica = self._migrated_in.pop(req.rid)
+                self.migrations_in += 1
+                self.migration_bytes += bset.nbytes
+                self.migration_restore_s += dt
+                kw = {}
+                if src_replica is not None:
+                    kw["from_replica"] = src_replica
+                if self.replica is not None:
+                    kw["to_replica"] = self.replica
+                kw.update(self._trace_kw(req))
+                if req.trace_id and req.migrate_out_t is not None:
+                    # the hop's full price, source extraction stamp to
+                    # scatter complete; extract_s rides so the stitcher
+                    # can split data movement out of the admission wait
+                    kw["transport_hop_s"] = round(
+                        time.perf_counter() - req.migrate_out_t, 6)
+                    kw["extract_s"] = round(req.migrate_extract_s, 6)
+                    self.transport_hop_s.append(kw["transport_hop_s"])
+                req.migrate_out_t = None
+                req.migrate_extract_s = 0.0
+                obs.serve("migrate", request=req.rid,
+                          migration_bytes=bset.nbytes,
+                          restore_s=round(dt, 6), **kw)
+            else:
+                self.restore_s += dt
+                self.blocks.host_release(bset.nbytes)
+                self.swap_ins += 1
+                self.swap_bytes_moved += bset.nbytes
+                self.recompute_tokens_avoided += slot.context_len
+                obs.serve("swap_in", request=req.rid, swap_bytes=bset.nbytes,
+                          restore_s=round(dt, 6),
+                          recompute_tokens_avoided=slot.context_len,
+                          **self._replica_kw(), **self._trace_kw(req))
         if slot.pending_restores:
             t0 = time.perf_counter()
             for b, payload in slot.pending_restores:
@@ -1762,7 +1911,8 @@ class ServeEngine:
         if req.first_token_t is None:
             req.first_token_t = now
             obs.serve("first_token", request=req.rid,
-                      ttft_s=round(req.ttft_s, 6) if req.ttft_s is not None else None)
+                      ttft_s=round(req.ttft_s, 6) if req.ttft_s is not None else None,
+                      **self._replica_kw(), **self._trace_kw(req))
         self.tokens_generated += 1
         if (token == self.eos_token_id
                 or self._generated(req) >= req.max_new_tokens):
@@ -1790,7 +1940,8 @@ class ServeEngine:
             if req.deadline_s is not None:
                 extra.update(self._deadline_verdict(req))
             obs.serve("finish", request=req.rid, tokens=self._generated(req),
-                      preemptions=req.preemptions, **extra)
+                      preemptions=req.preemptions, **self._replica_kw(),
+                      **self._trace_kw(req), **extra)
             self._emit_timeline(req, "finish")
 
     def _slo_verdict(self, req: Request) -> dict:

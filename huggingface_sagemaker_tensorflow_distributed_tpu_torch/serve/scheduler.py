@@ -156,6 +156,19 @@ class Request:
     # this keeps the ORIGINAL prompt length so output accounting and
     # first-token semantics survive a preemption
     orig_prompt_len: int = field(default=-1)
+    # fleet tracing: the Router mints `trace_id` at submit
+    # and it rides the request across every engine it visits; `hop`
+    # counts inter-engine moves (migrate_request, drain requeue) — 0
+    # on the placement engine. `migrate_out_t` is the source-side
+    # perf_counter stamp taken just before extraction and
+    # `migrate_extract_s` the extraction seconds, both consumed by the
+    # destination's restore apply to price the transport hop; empty
+    # trace_id = tracing off (single-engine runs), which keeps every
+    # telemetry event byte-identical to the pre-tracing stream.
+    trace_id: str = ""
+    hop: int = 0
+    migrate_out_t: Optional[float] = None
+    migrate_extract_s: float = 0.0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -367,6 +380,45 @@ class Scheduler:
 
     def has_work(self) -> bool:
         return bool(self.waiting) or any(not s.free for s in self.slots)
+
+    def take_waiting(self) -> list[Request]:
+        """Drain hook (multi-replica router): remove and
+        return every WAITING (not-yet-admitted) request, preemption
+        -requeued ones included — the router moves them onto sibling
+        replicas (recompute semantics: a folded prompt rides along
+        unchanged, exactly the state :meth:`preempt` builds). Resident
+        requests are untouched."""
+        moved, self.waiting = self.waiting, []
+        return moved
+
+    def adopt(self, request: Request) -> None:
+        """Requeue hook: append an EXISTING request — a
+        sibling replica's drain victim — to this queue WITHOUT the
+        :meth:`submit` validation or a fresh submit stamp. The
+        original submit already validated the worst-case block need
+        (replicas are homogeneous, and the submit-time formula covers
+        every preemption-folded state of the request), and re-running
+        it on a folded prompt would double-count the generated tokens
+        and spuriously reject requests near ``max_model_len`` — the
+        same reason :meth:`preempt` re-inserts directly. Queue-wait
+        accounting keeps running from the ORIGINAL submit stamp, so a
+        drain shows up as queue time, never as a reset clock."""
+        self.waiting.append(request)
+
+    def adopt_resident(self, request: Request) -> None:
+        """Migration hook: enqueue a sibling engine's LIVE
+        resident at the queue FRONT. The request already held a slot —
+        it carries its extracted block set (``swap_set``, restored
+        through :meth:`_reserve_swapped` with zero re-prefill) or, for
+        a mid-prefill cold move, just its unmodified prompt — and a
+        migration must not demote it behind work that was never
+        admitted. FIFO order among multiple migrants is the CALLER's
+        job (insert in reverse admission order); validation is skipped
+        for the same reason :meth:`adopt` skips it, except that a
+        HETEROGENEOUS destination's geometry is no longer covered by
+        the original submit — :func:`~.transport.can_accept` re-checks
+        it before the transplant."""
+        self.waiting.insert(0, request)
 
     # -- admission -----------------------------------------------------------
 

@@ -1044,16 +1044,19 @@ def test_predict_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
 
 def test_serve_engine_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
     """The serve_engine phase at a tiny width: (a) the prefix cache on and
-    off on a templated trace, (b) the width ladder auto and full, (c)
-    speculation (no K3 launch), (d) swap against recompute on a thrash
-    trace that preempts, (e) overlap on and off with sampled requests and a
-    profiled window, (f) the events valid, every timeline summing, and
-    deadline-ordered admission under ``policy='slo'``."""
+    off on a templated trace, (a') copy-on-write on and off on nested
+    templates whose shorter one ends off the chunk grid, (b) the width
+    ladder auto and full, (b') the gather route, (c) speculation (no K3
+    launch), (d) swap against recompute on a thrash trace that preempts,
+    (e) overlap on and off with sampled requests and a profiled window, (f)
+    the events valid, every timeline summing, and deadline-ordered
+    admission under ``policy='slo'``."""
     for name, value in (
             ("PREFIX_REQUESTS", 8), ("PREFIX_LEN", 24), ("PREFIX_TAILS", (2, 6)),
             ("PREFIX_NEW", ((3, 6), (3, 6))),
-            ("PREFIX_ENGINE", dict(num_slots=4, block_size=8, prefill_chunk=8,
+            ("PREFIX_ENGINE", dict(num_slots=4, block_size=8, prefill_chunk=16,
                                    max_model_len=64, num_blocks=18)),
+            ("COW_REQUESTS", 8), ("COW_LEN", 24), ("COW_EXT", 32),
             ("THRASH", dict(n_requests=12, n_templates=3, template_len=24, tail_lo=2,
                             tail_hi=6, short_new=(3, 6), long_new=24, long_every=4)),
             ("THRASH_ENGINE", dict(num_slots=4, block_size=8, prefill_chunk=8,
@@ -1063,11 +1066,16 @@ def test_serve_engine_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
     _, model, trace = chip_smoke.serve_phase()
     capsys.readouterr()
     rows = chip_smoke.serve_engine_phase(model, trace)
-    assert list(rows) == ["prefix_on", "prefix_off", "ladder_auto", "ladder_full",
-                          "speculative", "swap_always", "recompute", "overlap_on",
-                          "overlap_off", "telemetry"]
+    assert list(rows) == ["prefix_on", "prefix_off", "cow_on", "cow_off", "ladder_auto",
+                          "ladder_full", "xla_route", "speculative", "swap_always",
+                          "recompute", "overlap_on", "overlap_off", "telemetry"]
     assert rows["prefix_on"]["cache_hit_rate"] > 0.5 and rows["prefix_on"]["cow_copies"] >= 0
     assert rows["prefix_on"]["same_tokens_as_off"]["identical"] == 8
+    assert rows["cow_on"]["cow_copies"] > 0 and rows["cow_off"]["cow_copies"] == 0
+    assert rows["cow_on"]["same_tokens_as_off"]["identical"] == 8
+    assert rows["xla_route"]["paged_kernel_launches"] == 0
+    assert rows["xla_route"]["same_tokens_as_k3"]["identical"] == len(trace)
+    assert rows["xla_route"]["idle_share"] == "not measured"
     assert rows["ladder_auto"]["bucket_switches"] >= 1
     assert set(rows["ladder_auto"]["k3_launches_by_width"]) == {"32", "128"}
     assert rows["ladder_full"]["k3_launches_by_width"].keys() == {"128"}
@@ -1079,10 +1087,10 @@ def test_serve_engine_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
     assert rows["overlap_on"]["idle_share"] == "not measured"        # no card
     assert rows["overlap_on"]["window_iterations"] == [2, 6]
     tel = rows["telemetry"]
-    assert tel["events"] > 0 and tel["request_timelines"] >= 8 + 20 + 12
+    assert tel["events"] > 0 and tel["request_timelines"] >= 8 + 8 + 20 + 12
     assert tel["policy_slo_admission_order"] == sorted(chip_smoke.POLICY_DEADLINES)
     for name, r in rows.items():
-        if name not in ("speculative", "telemetry"):
+        if name not in ("speculative", "xla_route", "telemetry"):
             assert r["paged_kernel_launches"] == r["decode_steps"] * 2 > 0
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]
@@ -1094,8 +1102,9 @@ def test_every_serve_engine_k3_shape_is_held_against_its_plain_version(monkeypat
     the serve_engine phase's plain-decode engines can launch it at (each
     width of each engine's ladder) is a kernel case with GPT-2 124M's
     heads, fp32 queries, block 16 and a table of max_model_len, plan
-    included; the shared-block cases walk the prefix engine's widest
-    width over a template of shared blocks."""
+    included; so is every (slots, width) of the serve_router phase's
+    replicas (a table at least theirs); the shared-block cases walk the
+    prefix engine's widest width over a template of shared blocks."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
         parse_gather_buckets,
@@ -1116,6 +1125,16 @@ def test_every_serve_engine_k3_shape_is_held_against_its_plain_version(monkeypat
             assert case[1:10] == (slots, H, H, D, bs, width, "float32", False, None)
             assert chip_smoke.TABLE_BLOCKS[case[0]] == max_len // bs
             assert chip_smoke._plan(case) == pa.split_plan(slots, H, width, bs, pa.H100_SMS)
+    # the serve_router phase's engines (every replica runs K3 over its ladder)
+    for kw in (chip_smoke.ROUTER_ENGINE, chip_smoke.FLEET4_ENGINE):
+        slots, max_len, bs = kw["num_slots"], kw["max_model_len"], kw["block_size"]
+        for width in parse_gather_buckets(kw["gather_buckets"], max_len, bs):
+            launched.add((slots, width))
+            case = cases[chip_smoke.LADDER_CASES[(slots, width)]]
+            assert case[1:10] == (slots, H, H, D, bs, width, "float32", False, None)
+            assert chip_smoke.TABLE_BLOCKS[case[0]] >= max_len // bs
+            assert chip_smoke._plan(case) == pa.split_plan(slots, H, width, bs, pa.H100_SMS)
+    assert {(4, 128), (4, 256), (8, 128), (8, 256)} <= launched
     assert launched == set(chip_smoke.LADDER_CASES)
     prefix = chip_smoke.PREFIX_ENGINE
     for name, int8 in (("shared", False), ("shared_int8", True)):
@@ -1148,3 +1167,59 @@ def test_kernel_phase_shared_blocks_on_cpu(on_cpu, monkeypatch):
     assert (chip_smoke._work(unshared, ctx)[0] - chip_smoke._work(case, ctx)[0]
             == 3 * 32 * 2 * (2 * 64 + 8))
     assert chip_smoke._work(unshared, ctx)[1] == chip_smoke._work(case, ctx)[1]
+
+
+def test_serve_router_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
+    """The serve_router phase at a tiny width: (a) one engine against two
+    replicas under each placement on a mixed trace and on a primed
+    templated one, every fleet's tokens the one engine's; (b) a live drain
+    of replica 1 mid-trace, its residents migrated and every trace stitched
+    complete; (c) prefill/decode roles against mixed replicas on the
+    virtual clock, every request migrated once, no decode step on the
+    prefill replica; (d) the open loop replayed exactly, then the wall
+    clock; per-replica K3 counts summing to the global one."""
+    for name, value in (
+            ("ROUTER_ENGINE", dict(num_slots=2, block_size=8, prefill_chunk=8,
+                                   max_model_len=64, gather_buckets=[32, 64])),
+            ("ROUTER_TRACE", dict(n_requests=8, prompt_lo=4, prompt_hi=8, short_new=(6, 10),
+                                  long_new=(10, 16), long_every=4)),
+            ("ROUTER_FAMILIES", (3, 3, 16)),
+            ("ROUTER_BLOCKS", 1 + 2 * 6 + 2 * 5), ("ROUTER_PROFILED", (2, 6)),
+            ("FLEET4_ENGINE", dict(num_slots=2, block_size=8, prefill_chunk=8,
+                                   max_model_len=64, gather_buckets=[32, 64])),
+            ("DISAGG", dict(n=8, prompt=(4, 16), new=(3, 6), rate=300.0, ttft_s=0.02)),
+            ("OPEN_LOOP", dict(n=8, prompt=(4, 8), new=(3, 6), rates=(40.0, 100000.0),
+                               wall_rates=(200.0,)))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    _, model, _ = chip_smoke.serve_phase()
+    capsys.readouterr()
+    rows = chip_smoke.serve_router_phase(model, "cpu")
+    assert list(rows) == ["single", "round_robin", "least_loaded", "affinity",
+                          "templated_round_robin", "templated_affinity", "drain", "roles",
+                          "open_loop", "summary"]
+    for name in ("round_robin", "least_loaded", "affinity", "drain"):
+        assert rows[name]["same_tokens_as_single"]["identical"] == 8, name
+        assert set(rows[name]["k3_launches_by_replica"]) == {"0", "1"}
+    assert rows["single"]["k3_launches_by_replica"].keys() == {"0"}
+    for name in ("single", "round_robin", "affinity", "drain", "roles", "open_loop"):
+        r = rows[name]
+        assert sum(v["launches"] for v in r["k3_launches_by_replica"].values()) \
+            == r["paged_kernel_launches"] > 0, name
+        assert r["sync_free_calls"] > 0, name
+    assert (rows["templated_affinity"]["cache_hit_rate"]
+            >= rows["templated_round_robin"]["cache_hit_rate"] > 0)
+    drain = rows["drain"]
+    assert drain["drains"] == 1 and drain["residents_migrated"] > 0
+    assert drain["stitched"]["complete_traces"] == drain["stitched"]["traces"] == 8
+    roles = rows["roles"]
+    assert roles["migrations"] == 8 and roles["prefill_decode_steps"] == 0
+    assert roles["k3_launches_by_replica"]["0"]["launches"] == 0
+    assert roles["same_tokens_as_mixed"]["identical"] == 8
+    assert roles["stitched"]["traces"] == 8 and roles["stitched"]["hops_by_trace"] == [1]
+    loop = rows["open_loop"]
+    assert loop["virtual_replay_identical"] and loop["virtual"]["40.0"]["slo_attainment"] == 1.0
+    assert loop["virtual"]["100000.0"]["dominant_miss_phase"] == "queue"
+    assert set(loop["wall"]) == {"200.0"}
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed] == list(rows)

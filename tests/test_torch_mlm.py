@@ -18,6 +18,8 @@ relative and counts exact; masking columns, selected rows and resumed
 losses and weights exact."""
 
 import collections
+import contextlib
+import io
 import json
 import math
 
@@ -712,11 +714,13 @@ def _raise_sites():
         ("engine-mesh", lambda: _tiny_engine(mesh=SimpleNamespace(shape={"tensor": 2})),
          "11"),
         ("serve-cli-tp", lambda: _serve_cli("--tp", "2"), "11"),
-        ("serve-cli-replicas", lambda: _serve_cli("--replicas", "2"), "10"),
-        ("serve-cli-placement", lambda: _serve_cli("--placement", "affinity"), "10"),
-        ("serve-cli-roles", lambda: _serve_cli("--roles", "prefill:1,decode:1"), "10"),
-        ("serve-cli-arrival", lambda: _serve_cli("--arrival", "poisson:2"), "10"),
-        ("serve-cli-rate-limit", lambda: _serve_cli("--rate_limit", "a=1"), "10"),
+        ("serve-cli-replicas", lambda: _serve_cli("--replicas", "2"), None),
+        ("serve-cli-placement", lambda: _serve_cli("--replicas", "2", "--placement",
+                                                   "affinity"), None),
+        ("serve-cli-roles", lambda: _serve_cli("--roles", "prefill:1,decode:1"), None),
+        ("serve-cli-arrival", lambda: _serve_cli("--arrival", "poisson:20"), None),
+        ("serve-cli-rate-limit", lambda: _serve_cli("--rate_limit", "*=0.001:1",
+                                                    requests=2), None),
     ]
 
 
@@ -731,10 +735,19 @@ def _tiny_engine(**kw):
                        max_model_len=32, device="cpu", **kw)
 
 
-def _serve_cli(*argv):
+def _serve_cli(*argv, requests=1):
+    """The serving CLI on the CPU; a flag of item 10 (ported) serves every
+    request it admits (one line each) and its summary."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve import cli
 
-    cli.main(["--device", "cpu", "--requests", "1", *argv])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cpu", "--requests", str(requests), "--max_new_tokens", "4",
+                  *argv])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    assert lines[-1]["summary"] and lines[-1]["requests"] == len(lines) - 1 >= 1
+    if "--replicas" in argv or "--roles" in argv:
+        assert lines[-1]["replicas"] == 2 and all("replica" in r for r in lines[:-1])
 
 
 def _ported_config(valid: dict, invalid: dict) -> None:
@@ -875,11 +888,13 @@ def _int8_engine():
                          ids=[s[0] for s in _raise_sites()])
 def test_unported_raises_name_their_roadmap_item(site):
     """No raise names a slice letter any more: each names its ROADMAP
-    queue 1 item. The sites of items 6 and 8 and of item 10's int8 pools,
-    now ported, run instead (a ported config builds and its invalid form
-    raises the JAX ``ValueError``; the packed LM rows equal the JAX ones;
-    an int8 config builds its ``Int8Linear``s; the decoders return the
-    JAX package's ids; the int8 engine serves)."""
+    queue 1 item. The sites of items 6 and 8, of item 10's int8 pools and
+    of item 10's fleet flags, now ported, run instead (a ported config
+    builds and its invalid form raises the JAX ``ValueError``; the packed
+    LM rows equal the JAX ones; an int8 config builds its ``Int8Linear``s;
+    the decoders return the JAX package's ids; the int8 engine serves; the
+    serving CLI serves with ``--replicas``, ``--placement``, ``--roles``,
+    ``--arrival`` and ``--rate_limit``)."""
     _, call, item = _raise_sites()[site]
     if item is None:
         call()

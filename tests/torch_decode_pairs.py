@@ -4,7 +4,7 @@
 models with their port twins on the same weights (carried across with
 ``params_from_jax``), JAX's own Gumbel noise for a seed, the fixtures
 every port test module runs under, and :func:`as_port`, which runs a JAX
-package's serving host test on the port's classes."""
+package's serving host test on the port's classes and functions."""
 
 import dataclasses
 
@@ -168,22 +168,27 @@ def feed_noise(monkeypatch, t_gen, noise: list) -> list:
     return left
 
 
-_SERVE_HOST = "huggingface_sagemaker_tensorflow_distributed_tpu.serve."
+_JAX_PKG = "huggingface_sagemaker_tensorflow_distributed_tpu."
+_PORTED_HOST = ("serve.paged_kv", "serve.scheduler", "serve.policy", "serve.loadgen",
+                "serve.router", "serve.transport", "obs.trace")
 
 
-def as_port(monkeypatch, module) -> None:
+def as_port(monkeypatch, module, keep=()) -> None:
     """Point every name ``module`` took from the JAX package's serving host
-    modules (``serve/paged_kv.py``, ``scheduler.py``, ``policy.py``) at the
-    port's object of the same name, so that the module's test functions
-    run on the port."""
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve import (
-        paged_kv,
-        policy,
-        scheduler,
-    )
+    modules (``serve/paged_kv.py``, ``scheduler.py``, ``policy.py``,
+    ``loadgen.py``, ``router.py``, ``transport.py``) and from
+    ``obs/trace.py`` at the port's object of the same name, so that the
+    module's test functions run on the port. Names in ``keep`` (what the
+    port does not have, such as the trace renderers) stay the JAX
+    package's: they then read what the port produced."""
+    import importlib
 
-    port = {"paged_kv": paged_kv, "scheduler": scheduler, "policy": policy}
     for name, value in list(vars(module).items()):
         src = getattr(value, "__module__", None) or ""
-        if src.startswith(_SERVE_HOST) and src[len(_SERVE_HOST):] in port:
-            monkeypatch.setattr(module, name, getattr(port[src[len(_SERVE_HOST):]], name))
+        if not src.startswith(_JAX_PKG) or name in keep:
+            continue
+        sub = src[len(_JAX_PKG):]
+        if sub in _PORTED_HOST:
+            port = importlib.import_module(
+                "huggingface_sagemaker_tensorflow_distributed_tpu_torch." + sub)
+            monkeypatch.setattr(module, name, getattr(port, name))
