@@ -298,11 +298,37 @@ failure raises and exits non-zero:
    The predict CLI in subprocesses started together on the script's
    exports (seq-cls, mlm, causal-lm beam, sampled and self-speculative,
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
-10. each phase's wall seconds, the ``kernels`` line (the paged kernel's
+10. the Llama family and MoE (``llama_phase``), each model's published
+   widths written as its ``config.json`` by the script, random weights
+   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 16 requests of
+   128-512 prompt tokens and 64 new through the engine's defaults (8
+   slots, chunk 32, max_model_len 2048) on fp pools, int8 pools and the
+   gather route; K3 once a layer a decode step; each run's tokens held to
+   the batched plain ``generate_causal`` (dense cache, plain attention;
+   int8 on the int8 dense cache) by ``_plain_agreement``: equal up to the
+   first step whose plain top-2 gap is below the tie bound, and every
+   token, teacher-forced on its own prefix through the plain full
+   forward, within the bound of that forward's largest logit (the bound is
+   1e-3 in fp32, in bf16 ``BF16_TIE_FACTOR`` times the plain path's own
+   noise: its cached decode against its full forward); the gather route
+   equal to K3 up to such a tie; (b) Mistral-7B's widths at depth 4, a
+   4600-token prompt past its window of 4096 and 32 new tokens, every K3
+   call with the window; (c) TinyLlama-1.1B at full depth through the
+   train CLI (bf16, batch 4 x 1024 EOS-joined rows, 12 steps): K1 and K2
+   counted, samples/s, MFU, busy, idle, K2's share; the fp32 gate at depth
+   2 (loss 1e-5 relative and every gradient 1e-3 relative L2 on the first
+   step, five AdamW steps' losses 1e-5); (d) Mixtral-8x7B's widths at
+   depth 1: five bf16 steps at 2 x 512 through K1 and K2 with the aux
+   loss, tokens per expert and capacity drops, the fp32 gate at batch 1,
+   and 16 greedy tokens equal to the full forward's argmax at a capacity
+   that cannot bind; then its K3, K1 and K2 cases (``llama_kernel_phase``,
+   run last so the earlier phases' profiled windows follow as many
+   profiler sessions as before);
+11. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
-   shared-block cases), the card's line, and the final
-   ``{"ok": true, "device": ...}`` line.
+   shared-block cases; the llama phase's launches and cases beside), the
+   card's line, and the final ``{"ok": true, "device": ...}`` line.
 """
 
 from __future__ import annotations
@@ -418,13 +444,36 @@ KERNEL_CASES = [
     # fleets) at each width of their ladder [128, 256], tables of 256
     ("router_w128", 4, 12, 12, 64, 16, 128, "float32", False, None, "ragged"),
     ("router_w256", 4, 12, 12, 64, 16, 256, "float32", False, None, "ragged"),
+    # the llama phase's launch configurations: Llama-3.1-8B's GQA (32 query
+    # heads over 8 K/V heads, D 128) at each width of its serve run's
+    # ladder over bf16 and int8 pools, tables of max_model_len 2048;
+    # TinyLlama's 8 query heads a K/V head at D 64; Qwen2's 7 (14 over 2:
+    # the kernel rounds the group to 8 slots, one lane idle); Mistral-7B's
+    # window of 4096 on contexts around it at the window run's width
+    ("llama3_8b_w512", 8, 32, 8, 128, 16, 512, "bfloat16", False, None, "ragged"),
+    ("llama3_8b_w2048", 8, 32, 8, 128, 16, 2048, "bfloat16", False, None, "ragged"),
+    ("llama3_8b_int8_w512", 8, 32, 8, 128, 16, 512, "bfloat16", True, None, "ragged"),
+    ("llama3_8b_int8_w2048", 8, 32, 8, 128, 16, 2048, "bfloat16", True, None, "ragged"),
+    ("tinyllama", 8, 32, 4, 64, 16, 1024, "bfloat16", False, None, "ragged"),
+    ("qwen2_g7", 8, 14, 2, 64, 16, 1024, "bfloat16", False, None, "ragged"),
+    ("mistral_window", 4, 32, 8, 128, 16, 4736, "bfloat16", False, 4096, "listed"),
 ]
+# a "listed" case's contexts
+LISTED_CONTEXTS = {"mistral_window": [4095, 4096, 4097, 4700]}
+LLAMA_KERNEL_CASES = ("llama3_8b_w512", "llama3_8b_w2048", "llama3_8b_int8_w512",
+                      "llama3_8b_int8_w2048", "tinyllama", "qwen2_g7", "mistral_window")
+# the llama serve run's ladder cases by (slots, width, int8)
+LLAMA_LADDER_CASES = {(8, 512, False): "llama3_8b_w512", (8, 2048, False): "llama3_8b_w2048",
+                      (8, 512, True): "llama3_8b_int8_w512",
+                      (8, 2048, True): "llama3_8b_int8_w2048"}
 # block-table columns of a case (else the walked blocks plus 4): the
 # engine's tables hold max_model_len // block_size columns whatever width
 # the ladder walks
 TABLE_BLOCKS = {"serve_w256": 64, "serve_w1024": 64, "prefix_w128": 32,
                 "prefix_w512": 32, "thrash_w128": 32, "thrash_w512": 32, "shared": 32,
-                "shared_int8": 32, "router_w128": 16, "router_w256": 16}
+                "shared_int8": 32, "router_w128": 16, "router_w256": 16,
+                "llama3_8b_w512": 128, "llama3_8b_w2048": 128, "llama3_8b_int8_w512": 128,
+                "llama3_8b_int8_w2048": 128, "mistral_window": 296}
 SHARED_PREFIX = 320             # the shared cases' template tokens (20 blocks)
 # the ladders' cases by (slots, width), as the serve_engine and
 # serve_router phases run them (the plan follows slots and width; the
@@ -478,6 +527,8 @@ def _contexts(case, gen) -> list[int]:
     name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     if kind == "full":
         return [max_ctx] * S
+    if kind == "listed":
+        return list(LISTED_CONTEXTS[name])
     if kind == "chunk_edges":
         c = _plan(case)[0]
         return [0, 1, c - 1, c, c + 1, 2 * c, max_ctx, max_ctx + (window or bs)][:S]
@@ -680,11 +731,12 @@ def _sdpa_inputs(t, opts):
     return q[:, :, None, :], k, v, keep[:, None, None, :]
 
 
-def kernel_phase() -> dict:
-    """Each paged case: the kernels against the plain version, their
-    device time (profiler, both kernels summed) and CUDA-event time, the
-    plain version's, ``scaled_dot_product_attention``'s device and event
-    time, and the bound."""
+def kernel_phase(cases=None) -> dict:
+    """Each paged case (``cases``, else ``KERNEL_CASES``): the kernels
+    against the plain version, their device time (profiler, both kernels
+    summed) and CUDA-event time, the plain version's,
+    ``scaled_dot_product_attention``'s device and event time, and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -694,7 +746,7 @@ def kernel_phase() -> dict:
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(0)
     results = {}
-    for case in KERNEL_CASES:
+    for case in KERNEL_CASES if cases is None else cases:
         name, dt = case[0], case[7]
         sets = [_make_inputs(case, gen, dev) for _ in range(COPIES)]
         t, opts = sets[0]
@@ -1105,11 +1157,13 @@ POLICY_DEADLINES = (40.0, 10.0, 30.0, 20.0)
 COW_REQUESTS, COW_LEN, COW_EXT = 16, 340, 356
 
 
-def _split_at_near_tie(model, prompt, a: list, b: list, kw: dict) -> bool:
+def _split_at_near_tie(model, prompt, a: list, b: list, kw: dict,
+                       tie: float = NEAR_TIE) -> bool:
     """Two runs' tokens for one request first differ at a step where the
     plain forward's top-2 gap (of the logits, or for a sampled request of
-    the warped logits plus that step's noise) is below ``NEAR_TIE``: the
-    runs' fp32 sums in other orders may split there, nowhere else."""
+    the warped logits plus that step's noise) is below ``tie``
+    (``NEAR_TIE``; a bf16 run's tie bound from ``_plain_agreement``): the
+    runs' sums in other orders may split there, nowhere else."""
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as gen
@@ -1126,20 +1180,22 @@ def _split_at_near_tie(model, prompt, a: list, b: list, kw: dict) -> bool:
         logits = logits + gen._slot_gumbel(one(kw["seed"]).long(), one(j).long(),
                                            logits.shape[-1])
     top2 = logits[0].topk(2).values
-    return float(top2[0] - top2[1]) < NEAR_TIE
+    return float(top2[0] - top2[1]) < tie
 
 
-def _same_tokens(model, trace, a: list, b: list, what: str, sampling=None) -> dict:
+def _same_tokens(model, trace, a: list, b: list, what: str, sampling=None,
+                 tie: float = NEAR_TIE) -> dict:
     """Each request's tokens of run ``a`` against run ``b``: the same, or
-    split at a near-tie of the plain path (``_split_at_near_tie``);
-    anything else fails. ``{"identical": n, "near_tie_splits": m}``."""
+    split at a near-tie of the plain path (``_split_at_near_tie`` under
+    ``tie``); anything else fails. ``{"identical": n, "near_tie_splits":
+    m}``."""
     sampling = sampling or [{}] * len(trace)
     same = ties = 0
     for i, ((prompt, _), x, y, kw) in enumerate(zip(trace, a, b, sampling)):
         if x == y:
             same += 1
             continue
-        check(_split_at_near_tie(model, prompt, x, y, kw),
+        check(_split_at_near_tie(model, prompt, x, y, kw, tie),
               f"{what}: request {i}'s tokens differ before any near-tie ({x} vs {y})")
         ties += 1
     return {"identical": same, "near_tie_splits": ties}
@@ -2138,10 +2194,18 @@ FLASH_CASES = [
     ("electra512_bf16", 8, 4, 512, 64, "bfloat16", True, False, None, False, False),
     # the mlm phase's BERT-large-WWM run: 16 heads at 512
     ("mlm_large_bf16", 8, 16, 512, 64, "bfloat16", True, False, None, False, False),
+    # the llama phase's training shapes (K/V repeated to the query heads):
+    # TinyLlama's 32 heads at S 1024, D 64; Mixtral's at S 512, D 128; and
+    # Mistral-7B's window of 4096 on a context of 6144, where the band
+    # bites and the tiles below it are skipped
+    ("tinyllama_causal_bf16", 4, 32, 1024, 64, "bfloat16", False, True, None, False, False),
+    ("mixtral_causal_bf16", 2, 32, 512, 128, "bfloat16", False, True, None, False, False),
+    ("mistral_window_bf16", 1, 32, 6144, 128, "bfloat16", False, True, 4096, False, False),
     # the bucket widths the data phase's bucketed run trains at
     ("bucket64_bf16", 8, 12, 64, 64, "bfloat16", True, False, None, False, False),
     ("bucket128_bf16", 8, 12, 128, 64, "bfloat16", True, False, None, False, False),
 ]
+FLASH_LLAMA = ("tinyllama_causal_bf16", "mixtral_causal_bf16", "mistral_window_bf16")
 FLASH_QA = "qa384_bf16"         # the encoder_tasks phase's headline shape
 FLASH_MLM = "mlm_large_bf16"    # the mlm phase's BERT-large shape
 FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
@@ -2230,9 +2294,10 @@ def _sdpa_mask(t, case):
     return None
 
 
-def flash_phase() -> dict:
-    """Each flash kernel against its plain version on every case; times
-    and bounds. Returns the rows by (case, kernel)."""
+def flash_phase(cases=None) -> dict:
+    """Each flash kernel against its plain version on every case
+    (``cases``, else ``FLASH_CASES``); times and bounds. Returns the rows
+    by (case, kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -2243,7 +2308,7 @@ def flash_phase() -> dict:
     gen = torch.Generator().manual_seed(1)
     results = {}
     with torch.no_grad():
-        for case in FLASH_CASES:
+        for case in FLASH_CASES if cases is None else cases:
             results.update(_flash_case(case, gen, dev))
     return results
 
@@ -4536,10 +4601,16 @@ VOCAB_CASES = [
     ("t5_span_eval_bf16", 424, 32128, 512, "bfloat16", 0.0, False),
     ("bart_bf16", 512, 50265, 768, "bfloat16", 0.1, False),
     ("bart_eval_bf16", 256, 50265, 768, "bfloat16", 0.0, False),
+    # the llama phase's causal-LM loss (the untied [V, H] head): TinyLlama's
+    # B 4 x S 1024 at H 2048, Mixtral's B 2 x S 512 at H 4096, vocab 32000;
+    # both past the tensor-core caps (H 1216, dW 800): the CUDA-core route
+    ("tinyllama_ce", 4096, 32000, 2048, "bfloat16", 0.0, False),
+    ("mixtral_ce", 1024, 32000, 4096, "bfloat16", 0.0, False),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
 VOCAB_DEBERTA = ("mlm_deberta_bf16", "mlm_deberta_eval_bf16")
+VOCAB_LLAMA = ("tinyllama_ce", "mixtral_ce")
 VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
                  "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
@@ -4571,6 +4642,9 @@ def vocab_kernel_names(kname: str, dtype: str, h_dim: int) -> tuple:
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
 VOCAB_ITERS = 5
 VOCAB_REPEATS = 3
+# the llama cases' calls take 15-270 ms on the CUDA-core route: fewer of them
+VOCAB_LLAMA_ITERS = 2
+VOCAB_LLAMA_REPEATS = 2
 CE_NEAR_TIE = 1e-5
 
 
@@ -4618,9 +4692,10 @@ def _ce_work(case) -> dict:
     return {k: (b, CE_FP32_PASSES[k] * logits, FP32_FLOPS_PER_S) for k, b in nbytes.items()}
 
 
-def vocab_ce_phase() -> dict:
-    """Each K2 kernel against its plain version on every case; times and
-    bounds. Returns the rows by (case, kernel)."""
+def vocab_ce_phase(cases=None) -> dict:
+    """Each K2 kernel against its plain version on every case (``cases``,
+    else ``VOCAB_CASES``); times and bounds. Returns the rows by (case,
+    kernel)."""
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
@@ -4628,7 +4703,7 @@ def vocab_ce_phase() -> dict:
     vc.load_kernel()
     gen = torch.Generator().manual_seed(2)
     results = {}
-    for case in VOCAB_CASES:
+    for case in VOCAB_CASES if cases is None else cases:
         results.update(_vocab_case(case, gen, torch.device(DEVICE)))
     return results
 
@@ -4684,9 +4759,11 @@ def _vocab_case(case, gen, dev) -> dict:
     # device time of the wrapper's kernels (profiler), and CUDA events
     # around a loop of wrapper calls (host gaps included)
     names = {k: vocab_kernel_names(k, dt, H) for k in calls}
-    ms = {k: _device_ms(fn, a_, names[k], iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+    iters, repeats = ((VOCAB_LLAMA_ITERS, VOCAB_LLAMA_REPEATS) if name in VOCAB_LLAMA
+                      else (VOCAB_ITERS, VOCAB_REPEATS))
+    ms = {k: _device_ms(fn, a_, names[k], iters=iters, repeats=repeats)
           for k, (fn, a_) in calls.items()}
-    event_ms = {k: _cuda_ms(fn, a_, iters=VOCAB_ITERS) for k, (fn, a_) in calls.items()}
+    event_ms = {k: _cuda_ms(fn, a_, iters=iters) for k, (fn, a_) in calls.items()}
     plain = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd_reference(*a, eps),
                                       fwd_sets, iters=3),
              "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh_reference(*a, eps),
@@ -4713,12 +4790,12 @@ def _vocab_case(case, gen, dev) -> dict:
     def lib_bwd(out, leaves, g_):
         torch.autograd.grad(out, leaves, g_, retain_graph=True)
 
-    lib_fwd_ms = _device_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
-    lib_bwd_ms = _device_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+    lib_fwd_ms = _device_ms(lib_fwd, fwd_sets, iters=iters, repeats=repeats)
+    lib_bwd_ms = _device_ms(lib_bwd, lib_bwd_sets, iters=iters, repeats=repeats)
     library = {"fused_ce_fwd": lib_fwd_ms, "fused_ce_bwd_dh": lib_bwd_ms,
                "fused_ce_bwd_dw": lib_bwd_ms}
-    lib_event_fwd = _cuda_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS)
-    lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
+    lib_event_fwd = _cuda_ms(lib_fwd, fwd_sets, iters=iters)
+    lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=iters)
     library_event = {"fused_ce_fwd": lib_event_fwd, "fused_ce_bwd_dh": lib_event_bwd,
                      "fused_ce_bwd_dw": lib_event_bwd}
     results = {}
@@ -4768,7 +4845,8 @@ GPT2_EVAL_SAMPLES = 64
 PARITY_ZERO_GRAD = 1e-6
 
 
-def _lm_batch(n: int, seq: int, device, split: str = "train") -> dict:
+def _lm_batch(n: int, seq: int, device, split: str = "train",
+              vocab: int | None = None) -> dict:
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
@@ -4782,8 +4860,8 @@ def _lm_batch(n: int, seq: int, device, split: str = "train") -> dict:
     )
 
     texts, _ = load_text_classification("vendored_reviews", split, max_samples=n)
-    ds = ArrayDataset.from_lm_texts(WordHashTokenizer(vocab_size=GPT2_124M["vocab_size"]),
-                                    texts, seq)
+    ds = ArrayDataset.from_lm_texts(
+        WordHashTokenizer(vocab_size=vocab or GPT2_124M["vocab_size"]), texts, seq)
     return {k: torch.from_numpy(v).long().to(device) for k, v in ds.columns.items()}
 
 
@@ -6148,6 +6226,602 @@ def deberta_phase(work: Path, card: str) -> dict:
     return rows
 
 
+# -- the Llama family and MoE -------------------------------------------------------
+
+# each Hugging Face Hub repo's published config.json widths, written by the
+# phase (the card has neither network nor transformers); weights random
+# from a seed; depth cut where the comment says
+LLAMA_31_8B = {  # meta-llama/Llama-3.1-8B
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": 128256,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "max_position_embeddings": 131072,
+    "rope_theta": 500000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "rms_norm_eps": 1e-5, "hidden_act": "silu", "tie_word_embeddings": False,
+    "bos_token_id": 128000, "eos_token_id": 128001, "initializer_range": 0.02}
+MISTRAL_7B = {  # mistralai/Mistral-7B-v0.1 at depth 4 of 32
+    "model_type": "mistral", "architectures": ["MistralForCausalLM"], "vocab_size": 32000,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 4,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "max_position_embeddings": 32768,
+    "rope_theta": 10000.0, "sliding_window": 4096, "rms_norm_eps": 1e-5,
+    "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": 2, "initializer_range": 0.02}
+TINYLLAMA = {  # TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, full depth
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": 32000,
+    "hidden_size": 2048, "intermediate_size": 5632, "num_hidden_layers": 22,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "max_position_embeddings": 2048,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "initializer_range": 0.02}
+MIXTRAL_8X7B = {  # mistralai/Mixtral-8x7B-v0.1 at depth 1 of 32
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"], "vocab_size": 32000,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 1,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "max_position_embeddings": 32768, "rope_theta": 1e6,
+    "sliding_window": None, "rms_norm_eps": 1e-5, "router_aux_loss_coef": 0.02,
+    "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": 2, "initializer_range": 0.02}
+# (a) the engine's defaults (K3, prefix cache, ladder, overlap) at 8 slots,
+# chunk 32, max_model_len 2048 (an 8-row prefill gathers at most 2 GiB of
+# its 128 KiB a token); 16 requests of 128-512 prompt tokens, 64 new each
+LLAMA_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=2048)
+LLAMA_TRACE = dict(n=16, lo=128, hi=512, new=64)
+# (b) one request of 4600 tokens past the window of 4096, 32 new
+MISTRAL_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=4736)
+MISTRAL_PROMPT, MISTRAL_NEW = 4600, 32
+# (c) the train CLI: batch 4 x S 1024 (EOS-joined rows: 2048 reviews fill
+# 89, 64 test reviews 3), 12 steps, bf16, AdamW
+TINYLLAMA_RUN = dict(batch=4, seq=1024, steps=12, eval_samples=64, train_samples=2048,
+                     profiled=3)
+# (d) bf16, batch 2 x S 512, 5 steps
+MIXTRAL_RUN = dict(batch=2, seq=512, steps=5)
+# the fp32 gates: kernels (flash + fused CE) against the plain path, the
+# first step's loss and gradients, then LLAMA_GATE_STEPS steps' losses
+LLAMA_GATE = dict(depth=2, batch=2, seq=512, steps=5, lr=1e-5)
+MIXTRAL_GATE = dict(batch=1, seq=512)
+# greedy decode against the full forward at a capacity that cannot bind
+MIXTRAL_DECODE = dict(prompt=32, new=16, capacity_factor=4.0)
+# a bf16 run's tie bound: this many times the plain path's own noise
+# (``_plain_agreement``)
+BF16_TIE_FACTOR = 2.0
+
+
+def _mem_reset() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if DEVICE == "cuda" \
+        else "not measured"
+
+
+def _random_prompts(vocab: int, n: int, lo: int, hi: int, new: int, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(3, vocab - 1, (int(rng.randint(lo, hi + 1)),)).astype(np.int32), new)
+            for _ in range(n)]
+
+
+def _teacher_logits(model, trace, outs) -> list:
+    """The plain full forward (``model``'s own attention, no cache) of each
+    prompt followed by ``outs``' tokens, batched and right-padded: per
+    request the fp32 logits ``[len(out), V]`` each of its tokens was
+    picked from."""
+    import torch
+
+    seqs = [list(p) + list(o[:-1]) for (p, _), o in zip(trace, outs)]
+    W = max(len(x) for x in seqs)
+    ids = torch.zeros(len(seqs), W, dtype=torch.long)
+    mask = torch.zeros(len(seqs), W, dtype=torch.long)
+    for i, x in enumerate(seqs):
+        ids[i, :len(x)], mask[i, :len(x)] = torch.as_tensor(x, dtype=torch.long), 1
+    with torch.inference_mode():
+        logits = model(ids.to(DEVICE), mask.to(DEVICE))
+    return [logits[i, len(p) - 1:len(p) - 1 + len(o)].float()
+            for i, ((p, _), o) in enumerate(zip(trace, outs))]
+
+
+def _plain_reference(model, trace) -> tuple:
+    """The batched plain ``generate_causal`` of every prompt of ``trace``
+    (right-padded; dense cache, plain attention, ``model``'s KV storage):
+    ``(tokens per request, their logits, the tie bound)``. The bound is
+    ``NEAR_TIE`` in fp32; in bf16 ``BF16_TIE_FACTOR`` times the plain path's
+    own noise, the largest logit difference between its cached decode and
+    its full forward on its own tokens (two orders of the same bf16
+    sums)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
+
+    P = max(len(p) for p, _ in trace)
+    T = max(m for _, m in trace)
+    ids = torch.zeros(len(trace), P, dtype=torch.long)
+    mask = torch.zeros(len(trace), P, dtype=torch.long)
+    for i, (p, _) in enumerate(trace):
+        ids[i, :len(p)], mask[i, :len(p)] = torch.as_tensor(p, dtype=torch.long), 1
+    tok, scores = generate_causal(model, ids.to(DEVICE), mask.to(DEVICE), max_new_tokens=T,
+                                  output_scores=True)
+    eos = model.config.eos_token_id
+    refs = []
+    for i, (_, m) in enumerate(trace):
+        ref = tok[i, :m].tolist()
+        refs.append(ref[:ref.index(eos) + 1] if eos in ref else ref)
+    noise = 0.0
+    if model.config.dtype != torch.float32:
+        for i, full in enumerate(_teacher_logits(model, trace, refs)):
+            noise = max(noise, float((full - scores[i, :len(refs[i])]).abs().max()))
+    return refs, scores, max(NEAR_TIE, BF16_TIE_FACTOR * noise), noise
+
+
+def _plain_agreement(model, trace, outs, what: str, reference=None) -> dict:
+    """Each request's tokens (``outs``) against the plain reference
+    (``reference``, else :func:`_plain_reference` of ``model``): equal up
+    to the first step where the plain path's top-2 logit gap is below its
+    tie bound ``tau``; then every token of ``outs``, teacher-forced through
+    the plain full forward on its own prefix, within ``tau`` of that
+    forward's largest logit."""
+    import torch
+
+    refs, scores, tau, noise = reference or _plain_reference(model, trace)
+    compared = near_ties = 0
+    for i, (ref, got) in enumerate(zip(refs, outs)):
+        check(bool(torch.isfinite(scores[i, :len(ref)]).all()),
+              f"{what}: request {i}: non-finite logits on the plain path")
+        top2 = scores[i, :len(ref)].topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        n = next((j for j, gp in enumerate(gaps) if gp < tau), len(ref))
+        near_ties += n < len(ref)
+        check(len(got) == len(ref) or n < len(ref),
+              f"{what}: request {i}: {len(got)} tokens, the plain path {len(ref)}")
+        if got[:n] != ref[:n]:
+            split = next((j for j, (x, y) in enumerate(zip(got, ref)) if x != y),
+                         min(len(got), len(ref)))
+            check(False, f"{what}: request {i}'s tokens differ from the plain "
+                         f"generate_causal at step {split} (top-2 gap "
+                         f"{gaps[min(split, len(gaps) - 1)]}) before any near-tie under "
+                         f"{tau} ({got[:n]} vs {ref[:n]})")
+        compared += n
+    deficits, argmax = [], 0
+    for o, full in zip(outs, _teacher_logits(model, trace, outs)):
+        picked = full.gather(1, torch.as_tensor(o, device=full.device)[:, None])[:, 0]
+        deficits += (full.max(-1).values - picked).tolist()
+        argmax += int((full.argmax(-1) == torch.as_tensor(o, device=full.device)).sum())
+    worst = max(deficits)
+    check(worst <= tau, f"{what}: a token sits {worst} below the plain forward's largest "
+                        f"logit on its own prefix (tau {tau})")
+    return {"tokens_compared_with_plain": compared, "near_ties": near_ties,
+            "tie_bound": tau, "plain_self_noise": noise,
+            "teacher_forced_tokens": len(deficits), "teacher_forced_argmax": argmax,
+            "teacher_forced_max_deficit": worst}
+
+
+def llama_serve_phase(card: str) -> dict:
+    """(a) Llama-3.1-8B in bf16 built on the card from seed 0: the trace on
+    fp pools, int8 pools and the gather route (``kernel="xla"``), each on
+    a fresh engine at ``LLAMA_ENGINE``; K3 once a layer a decode step (none
+    on the gather route); each run's tokens held to the batched plain
+    ``generate_causal`` (int8: on the int8 dense cache) by
+    ``_plain_agreement`` (equal up to a tie under the bf16 tie bound, and
+    every token within it of the plain forward's largest logit on its own
+    prefix), the gather route's equal to K3's up to such a tie. Rows:
+    tokens/s, TTFT, K3 launches by width, KV bytes a token, peak memory;
+    the fp run the idle share over iterations ``OVERLAP_PROFILED`` of a
+    fresh engine."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
+        ServeEngine,
+        parse_gather_buckets,
+    )
+
+    _mem_reset()
+    t0 = time.perf_counter()
+    cfg = llama_config_from_hf(LLAMA_31_8B, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = init_llama(cfg, seed=0, device=DEVICE)
+    _sync()
+    init_s = time.perf_counter() - t0
+    weights_gib = _peak_gib()
+    trace = _random_prompts(cfg.vocab_size, LLAMA_TRACE["n"], LLAMA_TRACE["lo"],
+                            LLAMA_TRACE["hi"], LLAMA_TRACE["new"], seed=0)
+    kw = dict(LLAMA_ENGINE, device=DEVICE, num_blocks=1 + LLAMA_ENGINE["num_slots"]
+              * LLAMA_ENGINE["max_model_len"] // LLAMA_ENGINE["block_size"])
+    ladder = parse_gather_buckets(None, LLAMA_ENGINE["max_model_len"],
+                                  LLAMA_ENGINE["block_size"])
+    rows, outs = {}, {}
+    for run, extra in (("fp", {}), ("int8", {"kv_cache_dtype": "int8"}),
+                       ("xla", {"kernel": "xla"})):
+        _mem_reset()
+        engine = ServeEngine(model, **kw, **extra)
+        o, wall, launches = _engine_run(engine, trace)
+        row = _engine_row(engine, run, o, wall, launches, phase="llama_serve",
+                          model="meta-llama/Llama-3.1-8B widths (random init, seed 0)",
+                          card=card, layers=cfg.num_layers, dtype="bfloat16",
+                          kv_dtype=engine.kv_cache_dtype, kernel=engine.kernel,
+                          kv_bytes_per_token=engine.blocks.token_bytes,
+                          k3_launches_per_decode_step=(launches / engine.stats().decode_steps
+                                                       if launches else 0),
+                          peak_gib=_peak_gib())
+        check(set(engine.paged_launches_by_width) <= set(ladder),
+              f"llama {run}: K3 widths {sorted(engine.paged_launches_by_width)} off the "
+              f"ladder {ladder}")
+        del engine
+        if run == "fp":
+            engine = ServeEngine(model, **kw)
+            row.update(_idle_window(engine, trace, [{}] * len(trace)))
+            del engine
+        outs[run] = o
+        rows[run] = row
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    reference = _plain_reference(model, trace)
+    rows["fp"].update(_plain_agreement(model, trace, outs["fp"], "llama fp pools", reference))
+    rows["int8"].update(_plain_agreement(_kv_twin(model, "int8"), trace, outs["int8"],
+                                         "llama int8 pools"))
+    rows["xla"].update(_plain_agreement(model, trace, outs["xla"], "llama gather route",
+                                        reference))
+    rows["xla"]["same_tokens_as_k3"] = _same_tokens(
+        model, trace, outs["xla"], outs["fp"], "llama gather route against K3",
+        tie=rows["fp"]["tie_bound"])
+    check(rows["int8"]["kv_bytes_per_token"] < rows["fp"]["kv_bytes_per_token"],
+          "int8 pools cost no fewer bytes a token")
+    for row in rows.values():
+        row.update(init_s=init_s, weights_gib=weights_gib)
+        emit(row)
+    del model
+    return rows
+
+
+def mistral_window_phase(card: str) -> dict:
+    """(b) Mistral-7B's widths at depth 4 in bf16 (seed 1): one request of
+    ``MISTRAL_PROMPT`` tokens, past its window of 4096, and
+    ``MISTRAL_NEW`` new through the engine's K3 route; every K3 call takes
+    ``window=4096``, the tokens equal ``generate_causal``'s up to a
+    near-tie."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import llama as t_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import ServeEngine
+
+    _mem_reset()
+    cfg = t_llama.llama_config_from_hf(MISTRAL_7B, dtype=torch.bfloat16,
+                                       param_dtype=torch.bfloat16)
+    model = init_llama(cfg, seed=1, device=DEVICE)
+    trace = _random_prompts(cfg.vocab_size, 1, MISTRAL_PROMPT, MISTRAL_PROMPT, MISTRAL_NEW,
+                            seed=1)
+    check(MISTRAL_PROMPT > cfg.sliding_window, "the prompt does not pass the window")
+    engine = ServeEngine(model, **MISTRAL_ENGINE, device=DEVICE, num_blocks=1 + (
+        MISTRAL_ENGINE["num_slots"] * MISTRAL_ENGINE["max_model_len"]
+        // MISTRAL_ENGINE["block_size"]))
+    windows = []
+    real = t_llama.paged_attention
+
+    def recorded(*args, **kwargs):
+        windows.append(kwargs.get("window"))
+        return real(*args, **kwargs)
+
+    t_llama.paged_attention = recorded
+    try:
+        outs, wall, launches = _engine_run(engine, trace)
+    finally:
+        t_llama.paged_attention = real
+    check(set(windows) == {cfg.sliding_window},
+          f"K3 took windows {sorted(set(map(str, windows)))}, wanted {cfg.sliding_window}")
+    row = _engine_row(engine, "mistral_window", outs, wall, launches, phase="llama_window",
+                      model="mistralai/Mistral-7B-v0.1 widths at depth 4 (random init, seed 1)",
+                      card=card, layers=cfg.num_layers, dtype="bfloat16",
+                      window=cfg.sliding_window, prompt_tokens=MISTRAL_PROMPT,
+                      k3_window_calls=len(windows), peak_gib=_peak_gib())
+    row.update(_plain_agreement(model, trace, outs, "mistral window"))
+    emit(row)
+    del engine, model
+    return {"mistral_window": row}
+
+
+def _llama_gate(hf: dict, name: str, batch: dict, steps: int, lr: float) -> dict:
+    """fp32 kernels (flash causal attention + the fused vocab CE) against
+    the plain path (plain attention, unfused logits and CE) on ``hf``'s
+    widths from seed 0: the first step's loss (``PARITY_LOSS_RTOL``) and
+    every parameter's gradient (``PARITY_GRAD_REL_L2`` relative L2; a
+    parameter whose gradient is 0 holds noise below ``PARITY_KEY_BIAS`` of
+    the global norm), the MoE aux loss included, then ``steps`` AdamW
+    steps' losses (``PARITY_LOSS_RTOL`` each)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import moe_aux_loss
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    first, curves, ref = {}, {}, None
+    for impl in ("xla", "flash"):
+        cfg = llama_config_from_hf(hf, attention_impl=impl)
+        model = init_llama(cfg, seed=0, device=DEVICE, trainable=True).train()
+        trainer = Trainer(TrainConfig(task="causal-lm", dtype="float32", learning_rate=lr,
+                                      scale_lr_by_world_size=False, log_every_steps=0,
+                                      fused_vocab_ce=impl == "flash",
+                                      num_experts=cfg.num_experts), model, total_steps=steps)
+        loss, _ = trainer.loss_fn(model, batch)
+        aux = moe_aux_loss(model)
+        loss = loss if aux is None else loss + aux
+        loss.backward()
+        first[impl] = float(loss.detach())
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        curves[impl] = [float(trainer.train_step(batch)["loss"]) for _ in range(steps)]
+        del model, trainer
+        if ref is None:
+            ref = grads
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    total = float(torch.sqrt(sum((g.float() ** 2).sum() for g in ref.values())))
+    zero = [n for n, g in ref.items() if float(g.norm()) <= PARITY_ZERO_GRAD * total]
+    noise = max((float(grads[n].norm()) for n in zero), default=0.0) / total
+    rel = {n: float((g - ref[n]).norm() / ref[n].norm())
+           for n, g in grads.items() if n not in zero}
+    worst = max(rel, key=rel.get)
+    rel_loss = abs(first["flash"] - first["xla"]) / abs(first["xla"])
+    curve_rel = [abs(a - b) / abs(b) for a, b in zip(curves["flash"], curves["xla"])]
+    row = {"phase": "llama_gate", "model": name, "layers": hf["num_hidden_layers"],
+           "batch": int(batch["input_ids"].shape[0]), "seq": int(batch["input_ids"].shape[1]),
+           "dtype": "float32", "tf32": False,
+           "kernels": "flash causal attention + fused vocab CE",
+           "plain": "plain attention + unfused logits and CE",
+           "loss_kernels": first["flash"], "loss_plain": first["xla"],
+           "loss_rel_err": rel_loss, "loss_rtol": PARITY_LOSS_RTOL,
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+           "grad_rel_l2_tol": PARITY_GRAD_REL_L2, "params": len(rel),
+           "zero_grad_params": zero, "zero_grad_noise_over_global": noise,
+           "steps": steps, "learning_rate": lr, "curve_kernels": curves["flash"],
+           "curve_plain": curves["xla"], "curve_rel_err_max": max(curve_rel)}
+    emit(row)
+    check(rel_loss <= PARITY_LOSS_RTOL, f"{name} gate: loss rel err {rel_loss}")
+    check(rel[worst] <= PARITY_GRAD_REL_L2, f"{name} gate: {worst} grad rel L2 {rel[worst]}")
+    check(noise <= PARITY_KEY_BIAS, f"{name} gate: zero-gradient noise {noise}")
+    check(max(curve_rel) <= PARITY_LOSS_RTOL, f"{name} gate: curve rel err {curve_rel}")
+    return row
+
+
+def tinyllama_train_phase(work: Path, card: str) -> dict:
+    """(c) TinyLlama-1.1B at full width and depth through the train CLI:
+    ``--task causal-lm --fused_vocab_ce true --packed_sequences true``,
+    bf16, AdamW, batch 4 x S 1024, 12 steps on the vendored reviews; K1
+    and K2 once a layer / once a step (train and eval steps counted),
+    samples/s, MFU, busy and idle share and K1/K2 device ms per step over
+    ``profiled`` more steps, K2's share of the busy time, peak memory;
+    then the fp32 gate at depth 2 (:func:`_llama_gate`)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
+
+    r = TINYLLAMA_RUN
+    peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
+    restore = _peak_env(peak)
+    run_dir = work / "tinyllama"
+    argv = _slice_argv(_config_dir(run_dir, TINYLLAMA), run_dir, "causal-lm", r["steps"],
+                       r["eval_samples"],
+                       ["--fused_vocab_ce", "true", "--packed_sequences", "true",
+                        "--max_seq_length", str(r["seq"]),
+                        "--train_batch_size", str(r["batch"]),
+                        "--max_train_samples", str(r["train_samples"])])
+    _mem_reset()
+    try:
+        results, trainer, launches, wall = _counted_run(argv)
+        peak_mem = _peak_gib()
+        tc, cfg = trainer.config, trainer.model.config
+        steps, L = trainer.step, cfg.num_layers
+        eval_steps = _eval_steps(trainer, r["eval_samples"])
+        want = {"flash_fwd": L * (steps + eval_steps), "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps, "fused_ce_fwd": steps + eval_steps,
+                "fused_ce_bwd_dh": steps, "fused_ce_bwd_dw": steps}
+        check(steps == r["steps"] and launches == want,
+              f"tinyllama: {steps} steps, launches {launches}, wanted {want}")
+        check(cfg.attention_impl == "flash" and cfg.dtype == torch.bfloat16
+              and tc.train_batch_size == r["batch"] and tc.max_seq_length == r["seq"],
+              "tinyllama: the CLI did not run bf16 flash at batch 4 x 1024")
+        hist = results["train"]
+        check(all(math.isfinite(x) for x in hist["loss"]), "tinyllama: non-finite loss")
+        batch, _ = _first_rows(trainer, "train", r["batch"], r["train_samples"])
+        prof = _profiled(trainer, batch, r["profiled"], peak, "causal-lm")
+    finally:
+        restore()
+    busy = prof["device_busy_ms_per_step"]
+    k2 = sum(prof["k2_ms_per_step"].values())
+    row = {"phase": "llama_train", "run": "tinyllama", "card": card,
+           "model": "TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T widths, full depth "
+                    "(random init, seed 42)",
+           "layers": L, "dtype": "bfloat16", "batch": tc.train_batch_size,
+           "seq": tc.max_seq_length, "optimizer": tc.optimizer, "train_steps": steps,
+           "eval_steps": eval_steps, "launches": launches,
+           "launches_per_step": {k: v / (steps + (eval_steps if k in ("flash_fwd",
+                                                                        "fused_ce_fwd")
+                                                   else 0)) for k, v in launches.items()},
+           "loss": hist["loss"], "eval": results.get("eval", {}),
+           "train_samples_per_second_per_chip": hist["train_samples_per_second_per_chip"],
+           "step_time_ms": 1e3 * trainer.meter.avg_step_time,
+           "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall,
+           "peak_gib": peak_mem,
+           "k2_route": {k: vocab_kernel_names(k, "bfloat16", cfg.hidden_size)[0] for k in _K2},
+           "k2_share_of_busy": k2 / busy if isinstance(busy, float) and busy else
+           "not measured", **prof}
+    emit(row)
+    del trainer, batch
+    _mem_reset()
+    gate_hf = dict(TINYLLAMA, num_hidden_layers=LLAMA_GATE["depth"])
+    g = LLAMA_GATE
+    row["gate"] = _llama_gate(gate_hf, "tinyllama", _lm_batch(g["batch"], g["seq"], DEVICE,
+                                                              vocab=TINYLLAMA["vocab_size"]),
+                              g["steps"], g["lr"])
+    return {"tinyllama": row}
+
+
+def _routing(model, batch) -> dict:
+    """Tokens a MoE block's experts took on ``batch`` (one forward, no
+    gradient): each expert's kept assignments and the capacity drops."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import (
+        expert_capacity,
+        moe_aux_loss,
+    )
+
+    block = next(b.moe for b in model.backbone.layers if hasattr(b, "moe"))
+    seen = []
+    hook = block.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(batch["input_ids"], batch["attention_mask"])
+            _, combine = block.route(seen[0])
+    finally:
+        hook.remove()
+    moe_aux_loss(model)
+    kept = (combine > 0).sum(dim=(0, 1, 3))
+    B, S = batch["input_ids"].shape
+    cfg = model.config
+    return {"tokens_per_expert": kept.tolist(), "assignments": cfg.expert_top_k * B * S,
+            "capacity_per_row": expert_capacity(cfg, S),
+            "capacity_drops": cfg.expert_top_k * B * S - int(kept.sum())}
+
+
+def mixtral_phase(card: str) -> dict:
+    """(d) Mixtral-8x7B's widths at depth 1: 5 bf16 AdamW steps at batch 2
+    x S 512 (fp32 weights) through K1 and K2 with the aux loss (K1 and K2
+    once a layer / once a step), step time, peak memory, tokens per
+    expert and capacity drops; the fp32 gate at batch 1; greedy
+    ``generate_causal`` of 16 tokens equal to the full forward's argmax a
+    token at a time (up to a near-tie) at a capacity that cannot bind."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
+        generate_causal,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    r = MIXTRAL_RUN
+    vocab = MIXTRAL_8X7B["vocab_size"]
+    _mem_reset()
+    cfg = llama_config_from_hf(MIXTRAL_8X7B, dtype=torch.bfloat16, attention_impl="flash")
+    model = init_llama(cfg, seed=0, device=DEVICE, trainable=True).train()
+    trainer = Trainer(TrainConfig(task="causal-lm", dtype="bfloat16", fused_vocab_ce=True,
+                                  num_experts=cfg.num_experts, learning_rate=1e-4,
+                                  scale_lr_by_world_size=False, log_every_steps=0),
+                      model, total_steps=r["steps"])
+    batch = _lm_batch(r["batch"], r["seq"], DEVICE, vocab=vocab)
+    counters = [(fa, k) for k in _K1] + [(vc, k) for k in _K2]
+    for mod, k in counters:
+        getattr(mod, k).launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(batch)["loss"] for _ in range(r["steps"])]
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(mod, k).launches for mod, k in counters}
+    losses = [float(x) for x in losses]
+    L = cfg.num_layers
+    want = {**{k: L * r["steps"] for k in _K1}, **{k: r["steps"] for k in _K2}}
+    check(launches == want, f"mixtral: launches {launches}, wanted {want}")
+    check(all(math.isfinite(x) for x in losses), f"mixtral: losses {losses}")
+    row = {"phase": "llama_moe", "run": "mixtral", "card": card,
+           "model": "mistralai/Mixtral-8x7B-v0.1 widths at depth 1 (random init, seed 0)",
+           "layers": L, "experts": cfg.num_experts, "top_k": cfg.expert_top_k,
+           "capacity_factor": cfg.expert_capacity_factor, "dtype": "bfloat16",
+           "batch": r["batch"], "seq": r["seq"], "steps": r["steps"], "losses": losses,
+           "launches": launches, "step_time_ms": 1e3 * wall / r["steps"],
+           "peak_gib": _peak_gib(), **_routing(model, batch)}
+    emit(row)
+    del trainer, model
+    _mem_reset()
+    g = MIXTRAL_GATE
+    row["gate"] = _llama_gate(MIXTRAL_8X7B, "mixtral", _lm_batch(g["batch"], g["seq"], DEVICE,
+                                                                 vocab=vocab),
+                              LLAMA_GATE["steps"], LLAMA_GATE["lr"])
+    _mem_reset()
+    d = MIXTRAL_DECODE
+    cfg = llama_config_from_hf(MIXTRAL_8X7B, expert_capacity_factor=d["capacity_factor"])
+    model = init_llama(cfg, seed=0, device=DEVICE)
+    (prompt, _), = _random_prompts(vocab, 1, d["prompt"], d["prompt"], d["new"], seed=2)
+    cur = torch.as_tensor(prompt, dtype=torch.long, device=DEVICE)[None]
+    got = generate_causal(model, cur, max_new_tokens=d["new"])[0].tolist()
+    compared = d["new"]
+    with torch.no_grad():
+        for j in range(d["new"]):
+            logits = model(cur)[0, -1].float()
+            top2 = logits.topk(2).values
+            if float(top2[0] - top2[1]) < NEAR_TIE:
+                compared = j
+                break
+            nxt = int(logits.argmax())
+            check(got[j] == nxt, f"mixtral decode: token {j} is {got[j]}, the full "
+                                 f"forward's argmax {nxt}")
+            cur = torch.cat([cur, cur.new_tensor([[nxt]])], dim=1)
+    row["decode"] = {"new_tokens": d["new"], "compared_with_full_forward": compared,
+                     "capacity_factor": d["capacity_factor"]}
+    emit({"phase": "llama_moe_decode", **row["decode"]})
+    del model
+    return {"mixtral": row}
+
+
+def llama_kernel_phase() -> tuple[dict, dict, dict]:
+    """The llama phase's K3, K1 and K2 cases (``LLAMA_KERNEL_CASES``,
+    ``FLASH_LLAMA``, ``VOCAB_LLAMA``), held against their plain versions
+    and timed as the kernel, flash and vocab-CE phases do; run last, so
+    the earlier phases' profiled windows see as many profiler sessions
+    before them as they did without these cases."""
+    return (kernel_phase([c for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES]),
+            flash_phase([c for c in FLASH_CASES if c[0] in FLASH_LLAMA]),
+            vocab_ce_phase([c for c in VOCAB_CASES if c[0] in VOCAB_LLAMA]))
+
+
+def llama_phase(work: Path, card: str) -> dict:
+    """The Llama family and MoE on the card: (a) Llama-3.1-8B served on K3
+    (``llama_serve_phase``), (b) Mistral's window on K3
+    (``mistral_window_phase``), (c) TinyLlama trained through the CLI on K1
+    and K2 (``tinyllama_train_phase``), (d) Mixtral through K1 and K2 with
+    the aux loss (``mixtral_phase``). Returns every run's row by name."""
+    import torch
+
+    rows, seconds = {}, {}
+    for name, fn, args in (("serve", llama_serve_phase, (card,)),
+                           ("window", mistral_window_phase, (card,)),
+                           ("train", tinyllama_train_phase, (work, card)),
+                           ("moe", mixtral_phase, (card,))):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        rows.update(out if name != "serve" else {f"llama3_8b_{k}": v for k, v in out.items()})
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "llama_summary", "card": card, "wall_seconds": seconds,
+          "k3_launches": {n: r["paged_kernel_launches"] for n, r in rows.items()
+                          if "paged_kernel_launches" in r},
+          "k1_k2_launches": {n: r["launches"] for n, r in rows.items() if "launches" in r}})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6170,7 +6844,7 @@ def main() -> int:
 
     card = timed(env_phase)
     build = timed(build_phase)
-    kernels = timed(kernel_phase)
+    kernels = timed(kernel_phase, [c for c in KERNEL_CASES if c[0] not in LLAMA_KERNEL_CASES])
     serve, model, trace = timed(serve_phase)
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
@@ -6178,7 +6852,7 @@ def main() -> int:
     router_rows = timed(serve_router_phase, model, card)
     del model
     torch.cuda.empty_cache()
-    flash = timed(flash_phase)
+    flash = timed(flash_phase, [c for c in FLASH_CASES if c[0] not in FLASH_LLAMA])
     timed(train_parity_phase)
     with tempfile.TemporaryDirectory() as work:
         train = timed(train_cli_phase, Path(work) / "train")
@@ -6195,7 +6869,7 @@ def main() -> int:
                    for phase, rows_ in (("packing", packing), ("lora", lora),
                                         ("deberta", deberta))
                    for n, row in rows_.items()}
-        vocab = timed(vocab_ce_phase)
+        vocab = timed(vocab_ce_phase, [c for c in VOCAB_CASES if c[0] not in VOCAB_LLAMA])
         timed(gpt2_parity_phase)
         gpt2 = timed(gpt2_cli_phase, Path(work) / "gpt2")
         timed(decode_phase, Path(work) / "gpt2" / "model", card)
@@ -6205,6 +6879,11 @@ def main() -> int:
             "mlm": Path(work) / "mlm" / "bert_base_fused" / "model",
             "causal-lm": Path(work) / "gpt2" / "model",
             "seq2seq": Path(work) / "seq2seq" / "t5_small_fused" / "model"})
+        llama = timed(llama_phase, Path(work) / "llama", card)
+    more_kernels, more_flash, more_vocab = timed(llama_kernel_phase)
+    kernels.update(more_kernels)
+    flash.update(more_flash)
+    vocab.update(more_vocab)
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
@@ -6225,10 +6904,12 @@ def main() -> int:
                                     for n, row in mlm.items()},
                                  **{f"seq2seq/{n}": row["launches"][kname]
                                     for n, row in seq2seq.items()},
-                                 **{n: v[kname] for n, v in breadth.items()}},
+                                 **{n: v[kname] for n, v in breadth.items()},
+                                 **{f"llama/{n}": row["launches"][kname]
+                                    for n, row in llama.items() if "launches" in row}},
             **{c: {k: flash[(c, kname)][k] for k in (
                 "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM)},
+                "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM) + FLASH_LLAMA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6251,12 +6932,14 @@ def main() -> int:
                                     for n, row in mlm.items()},
                                  **{f"seq2seq/{n}": row["launches"][kname]
                                     for n, row in seq2seq.items()},
-                                 **{n: v[kname] for n, v in breadth.items()}},
+                                 **{n: v[kname] for n, v in breadth.items()},
+                                 **{f"llama/{n}": row["launches"][kname]
+                                    for n, row in llama.items() if "launches" in row}},
             **{c: {k: vocab[(c, kname)][k] for k in (
                 "kernel_name", "route", "label_smoothing", "max_abs_err", "kernel_ms",
                 "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "fwd_splits", "dh_splits")}
-               for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA},
+               for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6279,7 +6962,16 @@ def main() -> int:
                                 if "paged_kernel_launches" in r},
                              **{f"serve_router/{n}": r["paged_kernel_launches"]
                                 for n, r in router_rows.items()
-                                if "paged_kernel_launches" in r}},
+                                if "paged_kernel_launches" in r},
+                             **{f"llama/{n}": r["paged_kernel_launches"]
+                                for n, r in llama.items() if "paged_kernel_launches" in r}},
+        "llama_launches_by_width": {
+            n: r["k3_launches_by_width"] for n, r in llama.items()
+            if r.get("k3_launches_by_width")},
+        "llama_cases": {c[0]: {k: kernels[c[0]][k] for k in (
+            "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "width", "chunk")}
+            for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES},
         "serve_engine_launches_by_width": {
             n: r["k3_launches_by_width"] for n, r in engine_rows.items()
             if r.get("k3_launches_by_width")},

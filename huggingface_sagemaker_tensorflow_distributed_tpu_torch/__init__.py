@@ -9,7 +9,9 @@ the flash-attention forward, dQ and dK/dV/dmask as hand-written CUDA
 kernels (``csrc/flash_attention.cu``); its third is GPT-2 causal-LM
 training (``train/cli.py --task causal-lm``), with the fused LM head +
 cross-entropy forward, dH and dW as hand-written CUDA kernels
-(``csrc/vocab_ce.cu``). Entry points run on ``cuda``
+(``csrc/vocab_ce.cu``). Later slices ported the rest of the JAX
+package's models on those kernels, the Llama family and Mixture-of-Experts
+among them (``models/llama.py``, ``models/moe.py``). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise
 instead of falling back.
 """

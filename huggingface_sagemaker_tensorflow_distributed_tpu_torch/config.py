@@ -291,7 +291,6 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.num_experts > 0, "num_experts>0", "9 (MoE)"),
             (self.optimizer == "lamb", "optimizer='lamb'", "4 (other optimizers)"),
             (self.optimizer_state_dtype == "bfloat16",
              "optimizer_state_dtype=bfloat16", "4 (bf16 moments)"),

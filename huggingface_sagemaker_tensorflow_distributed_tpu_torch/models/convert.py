@@ -5,8 +5,10 @@ made at random from a seed, or mapped to and from the HF key layout.
   (``flax.traverse_util.flatten_dict(params, sep="/")``) onto the port's
   ``state_dict``: a flax ``Dense`` ``kernel [in, out]`` becomes
   ``Linear.weight [out, in]``, a LayerNorm ``scale`` becomes ``weight``,
-  an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``
-  the module list entry ``h.<i>``/``layer.<i>``; an int8 kernel's
+  an ``Embed.embedding`` the embedding weight, and ``h_<i>``/``layer_<i>``/
+  ``layers_<i>`` the module list entry ``h.<i>``/``layer.<i>``/``layers.<i>``;
+  the MoE banks (``router``, ``wi``/``wo``, ``w1``/``w2``/``w3``) keep their
+  names and layouts; an int8 kernel's
   ``kernel_q [in, out]`` and ``kernel_scale [out]`` (``models/quant.py``)
   become ``Int8Linear.weight_q [out, in]`` and ``weight_scale``; a conv kernel
   ``[K, in / groups, out]`` (DeBERTa's) reverses to ``Conv1d``'s ``[out,
@@ -27,6 +29,11 @@ made at random from a seed, or mapped to and from the HF key layout.
   port's ``Linear.weight [out, in]`` is transposed on the way (the JAX
   package's ``[in, out]`` kernels are not); ``lm_head`` is tied to ``wte``
   and is not written.
+- :func:`init_llama` seeds a Llama-family model in place on its device
+  (built on the meta device), and :func:`llama_to_hf` /
+  :func:`llama_from_hf` map it with the JAX ``_LLAMA_RULES`` and
+  ``_LLAMA_REVERSE``, Mixtral's banks unstacked into HF's per-expert
+  Linears and back (``_mixtral_moe_to_hf`` / ``_fold_mixtral_moe``).
 - :func:`init_seq2seq` seeds a T5 or BART (the JAX package's inits: T5's
   ``initializer_factor`` scales, BART's ``init_std``), and
   :func:`seq2seq_to_hf` / :func:`seq2seq_from_hf` map families ``t5``,
@@ -54,7 +61,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
 )
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias", "kernel_q": "weight_q", "kernel_scale": "weight_scale"}
+         "bias": "bias", "kernel_q": "weight_q", "kernel_scale": "weight_scale",
+         # the MoE banks keep the JAX names and layouts
+         "router": "router", "wi": "wi", "wo": "wo", "w1": "w1", "w2": "w2", "w3": "w3"}
 _RESIDUAL_OUT = ("attn_out", "fc_out")
 
 
@@ -72,7 +81,7 @@ def params_from_jax(flat: dict) -> dict:
         arr = np.asarray(value)
         if leaf in ("kernel", "kernel_q"):
             arr = arr.T
-        path = [re.sub(r"^(h|layer|block)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
+        path = [re.sub(r"^(h|layer|layers|block)_(\d+)$", r"\1.\2", p) for p in parts[:-1]]
         out[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(np.array(arr))
     return out
 
@@ -129,10 +138,15 @@ def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None,
     dev = resolve_device(device)
     std = cfg.initializer_range
     resid_std = std / (2 * cfg.num_layers) ** 0.5
-    model = _init_normal(
-        Gpt2LMHeadModel(cfg),
-        lambda name: resid_std if any(f".{r}." in name for r in _RESIDUAL_OUT) else std,
-        seed)
+    model = Gpt2LMHeadModel(cfg)
+
+    def std_of(name):
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        if name.endswith(".wo") and getattr(owner, "out_init_std", None) is not None:
+            return owner.out_init_std            # an expert bank's output
+        return resid_std if any(f".{r}." in name for r in _RESIDUAL_OUT) else std
+
+    model = _init_normal(model, std_of, seed)
     return model.to(dev).eval().requires_grad_(trainable)
 
 
@@ -466,4 +480,103 @@ def seq2seq_from_hf(hf_state: dict, family: str) -> dict:
         alias = next((k for k in hf_state if _EMBED_TOKENS.match(k)), None)
         if alias is not None:
             out["shared.weight"] = hf_state[alias]
+    return out
+
+
+def init_llama(cfg, seed: int = 0, device=None, trainable: bool = False):
+    """A Llama-family model with random weights from ``seed`` (the JAX
+    package's init: normal(``initializer_range``) for every dense kernel,
+    embedding, router and expert bank, zero biases, unit RMS scales or
+    Gemma's zero offsets), in eval mode on ``device`` (CUDA unless the
+    caller names another). The model is built on the meta device and its
+    weights drawn in place on ``device`` from a generator there (an 8B
+    model in bf16 is never materialized on the host), so a seed gives the
+    same weights on one kind of device. Its parameters take no gradient
+    unless ``trainable``."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+    )
+
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    model.to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight_scale"):
+                p.fill_(1.0)
+            elif not p.is_floating_point() or name.endswith(".bias"):
+                p.zero_()
+            elif name.endswith("_ln.weight"):
+                p.fill_(0.0 if cfg.rms_unit_offset else 1.0)
+            else:
+                p.normal_(0.0, cfg.initializer_range, generator=gen)
+    return model.eval().requires_grad_(trainable)
+
+
+# the JAX _LLAMA_RULES and _LLAMA_REVERSE; Mixtral's expert banks fold
+# separately (_MIXTRAL_*)
+_LLAMA_NAMES = (
+    [("backbone.embed_tokens", "model.embed_tokens"), ("backbone.final_ln", "model.norm"),
+     ("lm_head", "lm_head"),
+     ("backbone.layers.{}.input_ln", "model.layers.{}.input_layernorm"),
+     ("backbone.layers.{}.post_attn_ln", "model.layers.{}.post_attention_layernorm")]
+    + [(f"backbone.layers.{{}}.self_attn.{p}_proj", f"model.layers.{{}}.self_attn.{p}_proj")
+       for p in "qkvo"]
+    + [(f"backbone.layers.{{}}.mlp.{p}_proj", f"model.layers.{{}}.mlp.{p}_proj")
+       for p in ("gate", "up", "down")])
+_LLAMA_TO_HF = _rules(_LLAMA_NAMES, 0, "")
+_LLAMA_FROM_HF = _rules(_LLAMA_NAMES, 1, "")
+_MIXTRAL_GATE = re.compile(r"^model\.layers\.(\d+)\.block_sparse_moe\.gate\.weight$")
+_MIXTRAL_EXPERT = re.compile(
+    r"^model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)\.w([123])\.weight$")
+_MIXTRAL_BANK = re.compile(r"^backbone\.layers\.(\d+)\.moe\.(router|w[123])$")
+
+
+def llama_to_hf(state_dict: dict) -> dict:
+    """Port Llama-family ``state_dict`` -> HF keys (``model.`` prefix;
+    ``nn.Linear`` weights are ``[out, in]`` on both sides). Mixtral's
+    banks unstack into HF's per-expert Linears: ``w{1,2,3}[j].T`` as
+    ``experts.<j>.w{1,2,3}.weight`` and the router ``[H, E]`` transposed
+    to ``gate.weight`` (the JAX ``_mixtral_moe_to_hf``)."""
+    out = {}
+    for key, value in state_dict.items():
+        m = _MIXTRAL_BANK.match(key)
+        if m:
+            prefix = f"model.layers.{m.group(1)}.block_sparse_moe"
+            if m.group(2) == "router":
+                out[f"{prefix}.gate.weight"] = value.t().contiguous()
+            else:
+                for j in range(value.shape[0]):
+                    out[f"{prefix}.experts.{j}.{m.group(2)}.weight"] = \
+                        value[j].t().contiguous()
+            continue
+        hf = _translate(key, _LLAMA_TO_HF)
+        if hf is not None:
+            out[hf] = value
+    return out
+
+
+def llama_from_hf(hf_state: dict) -> dict:
+    """HF Llama-family keys -> port keys; Mixtral's per-expert Linears
+    stack into the ``[E, in, out]`` banks and ``gate.weight`` transposes
+    to the router (the JAX ``_fold_mixtral_moe``); rotary ``inv_freq``
+    buffers and other unmapped keys are dropped."""
+    out, experts = {}, {}
+    for key, value in hf_state.items():
+        m = _MIXTRAL_GATE.match(key)
+        if m:
+            out[f"backbone.layers.{m.group(1)}.moe.router"] = value.t().contiguous()
+            continue
+        m = _MIXTRAL_EXPERT.match(key)
+        if m:
+            experts.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = value
+            continue
+        port = _translate(key, _LLAMA_FROM_HF)
+        if port is not None:
+            out[port] = value
+    for (layer, w), by_j in experts.items():
+        out[f"backbone.layers.{layer}.moe.w{w}"] = torch.stack(
+            [by_j[j].t() for j in range(len(by_j))]).contiguous()
     return out

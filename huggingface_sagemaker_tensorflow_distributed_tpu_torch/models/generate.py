@@ -1,7 +1,7 @@
 """Decoding against a dense KV cache: the counterpart of the JAX
 package's ``models/generate.py``.
 
-- :func:`generate_causal` (GPT-2): greedy, or temperature / top-k /
+- :func:`generate_causal` (GPT-2, the Llama family): greedy, or temperature / top-k /
   top-p sampling, with an optional chunked prefill; the plain reference
   decode the serving engine's tests compare tokens with. It never touches
   the paged kernel.
@@ -52,9 +52,6 @@ from torch import nn
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
-)
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
-    raise_unported,
 )
 
 _NEG = -1e9          # beam search's dead-beam / empty-pool score
@@ -194,6 +191,19 @@ def sample_per_slot(logits, temperature, top_k, top_p, seeds, folds):
 
 # -- helpers -------------------------------------------------------------------
 
+def model_device(model) -> torch.device:
+    """The device a model's weights live on (any family)."""
+    return next(model.parameters()).device
+
+
+def _refuse_experts(*models, what: str, why: str) -> None:
+    """The JAX package's refusal of MoE models where expert capacity,
+    a function of the call's sequence length, would break a decoder's
+    token-exactness."""
+    if any(getattr(m.config, "num_experts", 0) for m in models):
+        raise ValueError(f"{what} does not support MoE models (Mixtral): {why}")
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -270,11 +280,18 @@ def generate_causal(model, input_ids, attention_mask=None,
     (zeros once every row finished)."""
     t0 = time.perf_counter()
     cfg = model.config
-    dev = model.backbone.wte.weight.device
+    dev = model_device(model)
     input_ids, attention_mask = _inputs(dev, input_ids, attention_mask)
     prefill_chunk = int(prefill_chunk)
     if prefill_chunk < 0:
         raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+    if prefill_chunk:
+        _refuse_experts(
+            model, what="prefill_chunk",
+            why="expert capacity is a function of the apply's sequence length, so "
+                "chunked prefill could capacity-drop token->expert assignments the "
+                "single-pass prefill never drops — the token-identical guarantee "
+                "would silently break")
     if prefill_chunk >= input_ids.shape[1]:
         prefill_chunk = 0           # one chunk would only pad: the single pass
     if prefill_chunk:
@@ -480,11 +497,13 @@ def beam_search_causal(model, input_ids, attention_mask=None, num_beams: int = 4
     layer's K/V, int8 scales, the per-row index) gathered by parent.
     Returns [B, max_new_tokens] int32 ids (pad after EOS); with
     ``return_scores`` also the winners' length-penalized scores."""
-    raise_unported([(getattr(model.config, "num_experts", 0),
-                     "beam_search_causal on a config with experts", "9 (MoE)")])
+    _refuse_experts(
+        model, what="beam_search_causal",
+        why="expert capacity depends on the apply's sequence length, so beam "
+            "prefill vs single-token steps could route differently")
     t0 = time.perf_counter()
     cfg = model.config
-    dev = model.backbone.wte.weight.device
+    dev = model_device(model)
     input_ids, attention_mask = _inputs(dev, input_ids, attention_mask)
     B, P = input_ids.shape
     K, V, T = int(num_beams), cfg.vocab_size, int(max_new_tokens)
@@ -649,7 +668,7 @@ def generate_speculative(model, draft_model, input_ids, attention_mask=None,
     stays, hidden by the step mask). With ``return_stats`` also the
     iterations and the tokens accepted per window."""
     cfg = model.config
-    dev = model.backbone.wte.weight.device
+    dev = model_device(model)
     input_ids, mask = _inputs(dev, input_ids, attention_mask)
     if bool((mask[:, :-1] < mask[:, 1:]).any()):
         raise ValueError(
@@ -662,6 +681,12 @@ def generate_speculative(model, draft_model, input_ids, attention_mask=None,
         raise ValueError(
             "draft and target must share a vocabulary (got "
             f"{draft_model.config.vocab_size} vs {cfg.vocab_size})")
+    _refuse_experts(
+        model, draft_model, what="generate_speculative",
+        why="expert capacity is a function of the apply's sequence length, so "
+            "the (k+1)-token verify window could capacity-drop token->expert "
+            "assignments that generate_causal's single-token steps never drop — "
+            "the greedy-exact guarantee would silently break")
     _check_spec_knobs(speculate_k, temperature)
     if (top_k or top_p) and temperature == 0.0:
         raise ValueError(
@@ -744,11 +769,12 @@ def generate_speculative(model, draft_model, input_ids, attention_mask=None,
 
 
 def self_draft(model, num_layers: int):
-    """A layer-skip draft of a GPT-2 ``model``: its first ``num_layers``
-    blocks with its embeddings, final norm and (tied) head — the module
-    holds references to the target's tensors and copies nothing, so the
-    draft costs no weight memory. :func:`generate_speculative` keeps the
-    target's exact greedy output whatever the draft accepts."""
+    """A layer-skip draft of a decoder ``model`` (GPT-2's ``h``, the Llama
+    family's ``layers``): its first ``num_layers`` blocks with its
+    embeddings, final norm and head — the module holds references to the
+    target's tensors and copies nothing, so the draft costs no weight
+    memory. :func:`generate_speculative` keeps the target's exact greedy
+    output whatever the draft accepts."""
     cfg = model.config
     if not 1 <= num_layers < cfg.num_layers:
         raise ValueError(
@@ -756,10 +782,13 @@ def self_draft(model, num_layers: int):
             f"(target has {cfg.num_layers}), got {num_layers}")
     with torch.device("meta"):
         draft = type(model)(dataclasses.replace(cfg, num_layers=num_layers))
-    src, dst = model.backbone, draft.backbone
-    for name in ("wte", "wpe", "dropout", "ln_f"):
-        setattr(dst, name, getattr(src, name))
-    dst.h = nn.ModuleList(list(src.h)[:num_layers])
+    for name, child in model.backbone.named_children():
+        if isinstance(child, nn.ModuleList):            # the block stack
+            child = nn.ModuleList(list(child)[:num_layers])
+        setattr(draft.backbone, name, child)
+    for name, child in model.named_children():
+        if name != "backbone":                           # an untied head
+            setattr(draft, name, child)
     return draft.train(model.training)
 
 

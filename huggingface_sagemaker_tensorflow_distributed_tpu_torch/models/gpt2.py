@@ -41,8 +41,10 @@ states and the tied embedding to the fused vocab cross-entropy. With
 ``remat`` each block of a training forward (no cache, grad enabled) is
 recomputed in backward (``torch.utils.checkpoint``, the JAX package's
 ``nn.remat`` per block; the dropout draws are replayed, so the step is
-the same bit for bit). MoE, pipeline stages, the remat policies other
-than ``full`` and ``attention_impl='ring'`` are not ported and raise.
+the same bit for bit). With ``num_experts`` every ``moe_every``-th
+block's MLP is ``models/moe.py``'s expert bank. Pipeline stages, the
+remat policies other than ``full`` and ``attention_impl='ring'`` are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -65,8 +67,10 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     ACT2FN,
     Embed,
     LayerNorm,
+    is_moe_layer,
     raise_unported,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import MoeFeedForward
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -138,7 +142,6 @@ class Gpt2Config:
         raise_unported([
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
-            (self.num_experts != 0, "num_experts", "9 (MoE)"),
             (self.pipeline_stages != 0, "pipeline_stages", "11 (pipeline stages)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ])
@@ -252,18 +255,26 @@ class Gpt2Mlp(nn.Module):
 
 
 class Gpt2Block(nn.Module):
-    """Pre-LN transformer block (GPT-2 ordering)."""
+    """Pre-LN transformer block (GPT-2 ordering). On an MoE placement
+    (``is_moe_layer``) the MLP is the token-routed expert bank with
+    position-major slot priority, its ``wo`` at the residual-flow init."""
 
     def __init__(self, cfg: Gpt2Config, layer: int):
         super().__init__()
         self.ln_1 = LayerNorm(cfg, cfg.hidden_size)
         self.attention = Gpt2Attention(cfg, layer)
         self.ln_2 = LayerNorm(cfg, cfg.hidden_size)
-        self.mlp = Gpt2Mlp(cfg)
+        if is_moe_layer(cfg, layer):
+            self.moe = MoeFeedForward(
+                cfg, causal=True,
+                out_init_std=cfg.initializer_range / (2 * cfg.num_layers) ** 0.5)
+        else:
+            self.mlp = Gpt2Mlp(cfg)
 
     def forward(self, hidden, mask, cache):
         hidden = hidden + self.attention(self.ln_1(hidden), mask, cache)
-        return hidden + self.mlp(self.ln_2(hidden))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return hidden + mlp(self.ln_2(hidden))
 
 
 class Gpt2Model(nn.Module):

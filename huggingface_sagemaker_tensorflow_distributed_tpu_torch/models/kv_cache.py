@@ -28,6 +28,14 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import
 )
 
 
+def kv_heads_and_dim(cfg) -> tuple[int, int]:
+    """(K/V heads, head dim) of a decoder config's cache: GPT-2's heads
+    and ``hidden / heads``; the Llama family's ``num_kv_heads`` and
+    ``resolved_head_dim``."""
+    heads = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    return heads, getattr(cfg, "resolved_head_dim", cfg.hidden_size // cfg.num_heads)
+
+
 def kv_quantize(x):
     """Symmetric per-(batch, head, position) int8 quantization of
     [B, H, S, D]: scale = amax/127 over head_dim; all-zero rows keep

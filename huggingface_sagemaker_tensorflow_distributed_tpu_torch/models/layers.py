@@ -4,7 +4,9 @@ BERT-family encoder, with RoBERTa's mask-counted position ids
 (``position_offset``), DistilBERT's missing token types
 (``use_token_type=False``) and ELECTRA's factorized embeddings
 (``embedding_size`` below ``hidden_size``, projected up in the backbone),
-and the masked-LM head every family shares (:class:`MlmHead`).
+the MoE placement (:func:`is_moe_layer`: with ``num_experts`` every
+``moe_every``-th layer's FFN is ``models/moe.py``'s expert bank), and the
+masked-LM head every family shares (:class:`MlmHead`).
 
 Module names mirror the flax names, so carrying weights across is a
 rename (``backbone.encoder.layer.<i>.attention.query`` is flax's
@@ -97,7 +99,6 @@ class EncoderConfig:
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         raise_unported([
-            (self.num_experts > 0, "num_experts>0 (MoE)", "9"),
             (self.pipeline_stages > 0, "pipeline_stages>0", "11"),
             (self.remat and self.remat_policy != "full",
              f"remat_policy={self.remat_policy!r}", "4"),
@@ -248,18 +249,34 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer layer (BERT ordering)."""
+    """Post-LN transformer layer (BERT ordering); ``use_moe`` swaps the
+    dense FFN for the token-routed expert bank (``models/moe.py``)."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, use_moe: bool = False):
         super().__init__()
         self.attention = SelfAttention(cfg)
         self.attention_ln = LayerNorm(cfg, cfg.hidden_size)
-        self.ffn = FeedForward(cfg)
+        if use_moe:
+            from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import (
+                MoeFeedForward,
+            )
+
+            self.moe = MoeFeedForward(cfg)
+        else:
+            self.ffn = FeedForward(cfg)
         self.ffn_ln = LayerNorm(cfg, cfg.hidden_size)
 
     def forward(self, hidden, attn_mask=None):
         hidden = self.attention_ln(hidden + self.attention(hidden, attn_mask))
-        return self.ffn_ln(hidden + self.ffn(hidden))
+        ffn = self.moe if hasattr(self, "moe") else self.ffn
+        return self.ffn_ln(hidden + ffn(hidden))
+
+
+def is_moe_layer(cfg, layer_index: int) -> bool:
+    """GShard placement: every ``moe_every``-th layer, starting with the
+    ``moe_every``-th (index 1 when ``moe_every=2``)."""
+    return (cfg.num_experts > 0
+            and layer_index % cfg.moe_every == cfg.moe_every - 1)
 
 
 class Encoder(nn.Module):
@@ -269,7 +286,8 @@ class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.layer = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.layer = nn.ModuleList(EncoderLayer(cfg, use_moe=is_moe_layer(cfg, i))
+                                   for i in range(cfg.num_layers))
 
     def forward(self, hidden, attn_mask=None):
         remat = self.cfg.remat and torch.is_grad_enabled()

@@ -59,7 +59,7 @@ TARGET_PRESETS = {
     "all": r"(/kernel|_kernel)$",
 }
 
-_INDEXED = re.compile(r"(^|\.)(h|layer|block)\.(\d+)(?=\.|$)")
+_INDEXED = re.compile(r"(^|\.)(h|layer|layers|block)\.(\d+)(?=\.|$)")
 
 
 def target_regex(targets: str) -> str:

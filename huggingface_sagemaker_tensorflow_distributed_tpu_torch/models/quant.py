@@ -10,9 +10,9 @@ bit; the port stores ``q`` as ``[out, in]`` (``Int8Linear.weight_q``).
 
 Scope: the dense kernels of the generating families, matched on their
 JAX parameter paths (``models/lora.py::jax_param_paths``, the names LoRA
-targets): GPT-2 (qkv / attn_out / fc_in / fc_out), T5 (query / key /
-value / attention_out, wi / wi_0 / wi_1 / wo) and BART/mBART (q / k / v
-/ o, fc1 / fc2). Each family builds those denses through
+targets): GPT-2 (qkv / attn_out / fc_in / fc_out), the Llama family (q /
+k / v / o, gate / up / down), T5 (query / key / value / attention_out,
+wi / wi_0 / wi_1 / wo) and BART/mBART (q / k / v / o, fc1 / fc2). Each family builds those denses through
 :func:`make_dense`, the one place that picks fp or int8 by the config's
 ``weight_quant``. Embeddings and LM heads stay full precision. A
 quantized model is loaded (:func:`quantize_for_generation`), never
@@ -121,7 +121,7 @@ def quantize_params(flat: dict, targets: str) -> tuple[dict, dict]:
 
 
 def quantize_for_generation(model: nn.Module) -> tuple[nn.Module, dict]:
-    """A full-precision GPT-2, T5, BART or mBART -> ``(int8 model,
+    """A full-precision GPT-2, Llama, T5, BART or mBART -> ``(int8 model,
     stats)``: the same architecture with ``weight_quant='int8'`` on the
     model's device, in eval mode, its targeted kernels quantized in the
     JAX layout, every other parameter carried as it is. The KV cache,
@@ -132,11 +132,13 @@ def quantize_for_generation(model: nn.Module) -> tuple[nn.Module, dict]:
         params_from_jax,
     )
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import LlamaConfig
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.t5 import T5Config
 
     cfg = model.config
     targets = {Gpt2Config: GPT2_QUANT_TARGETS, T5Config: T5_QUANT_TARGETS,
-               BartConfig: BART_QUANT_TARGETS}.get(type(cfg))
+               BartConfig: BART_QUANT_TARGETS,
+               LlamaConfig: LLAMA_QUANT_TARGETS}.get(type(cfg))
     if targets is None:
         raise ValueError(
             "int8 weight-only quantization covers the generating "

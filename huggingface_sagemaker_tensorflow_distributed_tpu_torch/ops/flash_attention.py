@@ -213,6 +213,10 @@ def _kernel_args(name, q, k, v, mask, extra):
     """Checks what the kernels take; returns (lib, fp32 [B, Sk] mask or
     None, packed (batch, head, row) element strides of q, k, v and
     ``extra``, int bf16 flag)."""
+    if q.shape[-1] == 256:
+        raise NotImplementedError(
+            f"{name}: head_dim 256 (Gemma) has no flash kernel yet: ROADMAP "
+            "queue 2, \"K1 and K3 at head_dim 256 (Gemma)\"")
     if q.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -198,6 +198,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
             q, k_pool, v_pool, block_tables, context_lens, scale=scale,
             width=width, window=window, k_scale_pool=k_scale_pool,
             v_scale_pool=v_scale_pool)
+    if q.shape[-1] == 256:
+        raise NotImplementedError(
+            "head_dim 256 (Gemma) has no paged decode kernel yet: ROADMAP "
+            "queue 2, \"K1 and K3 at head_dim 256 (Gemma)\"")
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention has no kernel for device "
                          f"{q.device}")

@@ -8,8 +8,10 @@ Requests come from ``--input_file`` (JSONL, one ``{"prompt_ids": [...],
 ``top_k``, ``top_p`` and ``seed``) or a synthetic mixed-length trace.
 ``--temperature`` / ``--top_k`` / ``--top_p`` / ``--sample_seed`` set every
 request's default sampling (greedy at temperature 0, the default).
-``--model_dir`` serves a GPT-2 export (``model.safetensors`` +
-``config.json``, e.g. the training CLI's causal-LM export); without it the
+``--model_dir`` serves a GPT-2 or dense Llama-family export
+(``model.safetensors`` + ``config.json``, e.g. the training CLI's
+causal-LM export; a directory with ``config.json`` alone gives random
+weights from seed 0, as the JAX CLI's does); without it the
 model is a GPT-2 with random weights from ``--seed``: ``--model smoke``
 (the default) is the small shape ``scripts/serve.py`` serves, ``--model
 gpt2`` is GPT-2 124M at full width. ``--kv_cache_dtype int8`` keeps the KV

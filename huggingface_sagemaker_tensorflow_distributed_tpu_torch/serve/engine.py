@@ -1,5 +1,8 @@
-"""Continuous-batching serving engine for GPT-2 over paged KV pools — the
-single-device ``ServeEngine`` of the JAX package's ``serve/engine.py``.
+"""Continuous-batching serving engine for GPT-2 and the dense Llama
+family over paged KV pools — the single-device ``ServeEngine`` of the
+JAX package's ``serve/engine.py``. MoE models are refused, as there
+(expert capacity follows the call's sequence length, so a chunked
+prefill could drop what a one-shot one keeps).
 
 Each :meth:`ServeEngine.step` admits waiting requests (the scheduler's
 policy), runs batched chunked prefill under the token budget, grows the
@@ -9,7 +12,7 @@ over every slot. The layers, each a knob that reads the JAX package's
 ``HSTD_SERVE_*`` variable with its default:
 
 - **paged KV**: one pool per layer, ``[num_blocks, block_size, heads,
-  head_dim]`` (int8 with fp32 scale pools under
+  head_dim]`` (K/V heads: ``num_kv_heads`` under GQA) (int8 with fp32 scale pools under
   ``kv_cache_dtype='int8'``); block 0 is the null block inactive slots
   write to. ``kv_pool_bytes`` sizes the pool from a byte budget.
 - **batched chunked prefill**: up to ``prefill_batch`` prefilling slots'
@@ -94,6 +97,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs, resolve_
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import (
     _slot_gumbel,
     _speculative_accept,
+    model_device,
     sample_per_slot,
     self_draft,
     speculative_accept_greedy,
@@ -102,6 +106,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate impo
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
     PagedCache,
+    kv_heads_and_dim,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
     percentile,
@@ -298,10 +303,11 @@ def _mix32(h: int) -> int:
 
 def kv_token_bytes(cfg, int8: bool) -> int:
     """Bytes one resident token costs across every pool of a model: K and
-    V per layer and head, plus an int8 pool's fp32 scale."""
-    head_dim = cfg.hidden_size // cfg.num_heads
+    V per layer and K/V head (GQA: ``num_kv_heads``), plus an int8 pool's
+    fp32 scale."""
+    heads, head_dim = kv_heads_and_dim(cfg)
     elem = 1 if int8 else torch.tensor([], dtype=cfg.dtype).element_size()
-    return 2 * cfg.num_layers * cfg.num_heads * (head_dim * elem + (4 if int8 else 0))
+    return 2 * cfg.num_layers * heads * (head_dim * elem + (4 if int8 else 0))
 
 
 def window_seeds(seed: int, start: int) -> tuple[int, int]:
@@ -369,7 +375,7 @@ class KVPools:
 
     def __init__(self, cfg, num_blocks: int, block_size: int, device,
                  int8: bool):
-        heads, head_dim = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        heads, head_dim = kv_heads_and_dim(cfg)
 
         def pools(dim, dtype):
             return [torch.zeros(num_blocks, block_size, heads, dim,
@@ -465,7 +471,8 @@ class _PendingSpec(NamedTuple):
 
 class ServeEngine:
     """Continuous-batching engine over a
-    :class:`~..models.gpt2.Gpt2LMHeadModel` that lives on ``device``
+    :class:`~..models.gpt2.Gpt2LMHeadModel` or a dense
+    :class:`~..models.llama.LlamaForCausalLM` that lives on ``device``
     (CUDA unless the caller names another; raises without it).
 
     ``num_blocks`` includes the reserved null block: allocatable KV is
@@ -505,6 +512,12 @@ class ServeEngine:
                  aging_s: Union[str, float, None] = None,
                  device=None):
         cfg = model.config
+        if getattr(cfg, "num_experts", 0):
+            raise ValueError(
+                "ServeEngine does not support MoE models: expert "
+                "capacity depends on the apply's sequence length, so "
+                "chunked prefill could drop token->expert assignments "
+                "the one-shot path never drops")
         if mesh is not None and not isinstance(mesh, (int, str)):
             raise NotImplementedError(
                 "a serving mesh (tensor-parallel ServeEngine) is not ported "
@@ -515,8 +528,8 @@ class ServeEngine:
                 f"tensor-parallel serving (tp {self.tp}) is not ported yet: "
                 "ROADMAP queue 1, item 11")
         self.device = resolve_device(device)
-        if model.backbone.wte.weight.device.type != self.device.type:
-            raise ValueError(f"model lives on {model.backbone.wte.weight.device}"
+        if model_device(model).type != self.device.type:
+            raise ValueError(f"model lives on {model_device(model)}"
                              f", engine asked for {self.device}")
         self.kernel = parse_kernel(kernel)
         self.kv_cache_dtype = parse_kv_dtype(kv_cache_dtype, cfg.kv_cache_dtype)
@@ -671,9 +684,9 @@ class ServeEngine:
             raise ValueError(
                 "draft and target must share a vocabulary (got "
                 f"{dmodel.config.vocab_size} vs {model.config.vocab_size})")
-        if dmodel.backbone.wte.weight.device.type != self.device.type:
+        if model_device(dmodel).type != self.device.type:
             raise ValueError(f"draft model lives on "
-                             f"{dmodel.backbone.wte.weight.device}, engine on "
+                             f"{model_device(dmodel)}, engine on "
                              f"{self.device}")
         return dmodel.eval()
 

@@ -24,7 +24,11 @@ sources with LM-style targets, or with ``--span_corruption`` turns texts
 into T5's span-corruption pairs, its target length raised to fit the
 spans; ``--segment_packing`` packs causal-LM and MLM examples into
 shared rows behind segment ids, ``--packed_sequences`` cuts EOS-joined
-causal-LM documents into full rows), batch them
+causal-LM documents into full rows; ``--num_experts E`` with
+``--expert_top_k`` and ``--moe_every`` makes every ``moe_every``-th
+layer an expert bank, on the encoder families, GPT-2 and the Llama
+family, whose config directories (Llama, Mistral, Qwen2, Gemma,
+Mixtral) train ``causal-lm``), batch them
 (``--bucket_multiple``: length buckets of its multiples), restore the
 latest checkpoint under ``--checkpoint_dir`` (unless ``--resume
 false``), fit, evaluate (token-cls adds ``eval_f1``; QA with
@@ -317,12 +321,20 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
             "--segment_packing builds a [B,1,S,S] block-diagonal mask, which "
             "the flash kernels treat as a general mask and leave to the plain "
             "attention — long-sequence memory is O(S^2) on this run, not O(S)")
+    moe_overrides = {}
+    if config.num_experts:
+        moe_overrides = dict(num_experts=config.num_experts,
+                             expert_top_k=config.expert_top_k,
+                             moe_every=config.moe_every)
     model, family, model_config = auto.from_pretrained(
         config.model_name_or_path, task=config.task, num_labels=config.num_labels,
         dtype=DTYPES[config.dtype], param_dtype=DTYPES[config.param_dtype],
         seed=config.seed, from_scratch=config.from_scratch, device=device,
         attention_impl=attention_impl, remat=config.remat,
-        remat_policy=config.remat_policy)
+        remat_policy=config.remat_policy, **moe_overrides)
+    if config.num_experts:
+        logger.info("MoE: %d experts (top-%d) every %d layers, ep=%d",
+                    config.num_experts, config.expert_top_k, config.moe_every, config.ep)
     if config.segment_packing and family not in ("gpt2", "bert"):
         raise ValueError(
             "--segment_packing needs a model wired for segment_ids/"

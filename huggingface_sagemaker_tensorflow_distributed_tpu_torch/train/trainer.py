@@ -68,6 +68,7 @@ import torch.nn.functional as F
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import lora as lo
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import moe_aux_loss
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.anomaly import (
     anomaly_enabled_env,
 )
@@ -539,17 +540,27 @@ class Trainer:
         accum = cfg.gradient_accumulation_steps
         self.model.train()
         loss, sums = self.loss_fn(self.model, batch)
-        objective = loss
+        # the MoE layers' Switch aux losses of this forward join the task
+        # loss (the JAX Trainer's sown "losses"), on every loss path
+        aux = moe_aux_loss(self.model)
+        objective = loss if aux is None else loss + aux
         if self.n_chips > 1:
             # the global valid count first: each rank's share of the global
             # mean is loss_sum * world / count (the gradient all-reduce
-            # divides by world)
-            totals = all_reduce_sum(torch.stack([sums["count"], sums["loss_sum"].detach(),
-                                                 sums["correct"]]))
+            # divides by world); the aux loss is each rank's own, averaged
+            # by the same all-reduce
+            parts = [sums["count"], sums["loss_sum"].detach(), sums["correct"]]
+            totals = all_reduce_sum(torch.stack(
+                parts + ([aux.detach()] if aux is not None else [])))
             count = torch.clamp(totals[0], min=1.0)
             objective = sums["loss_sum"] * self.n_chips / count
             loss = totals[1] / count
+            if aux is not None:
+                objective = objective + aux
+                loss = loss + totals[3] / self.n_chips
             sums = {"correct": totals[2], "count": totals[0]}
+        elif aux is not None:
+            loss = objective
         (objective / accum if accum > 1 else objective).backward()
         self.step += 1
         metrics = {}
@@ -573,6 +584,7 @@ class Trainer:
     def eval_step(self, batch) -> dict:
         self.model.eval()
         _, sums = self.loss_fn(self.model, batch)
+        moe_aux_loss(self.model)         # evaluation reports the task loss alone
         return sums
 
     # -- keep-best -------------------------------------------------------------

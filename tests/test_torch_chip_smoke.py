@@ -1223,3 +1223,156 @@ def test_serve_router_phase_on_cpu(serve_on_cpu, monkeypatch, capsys):
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]
     assert [p["run"] for p in printed] == list(rows)
+
+
+def test_every_llama_phase_shape_is_held_against_its_plain_version(monkeypatch):
+    """K3's, K1's and K2's launch configurations follow their shapes: every
+    (slots, width, heads, K/V heads, D, dtype, int8, window) the llama
+    phase's engines launch K3 at (each width of the Llama-3.1-8B run's
+    ladder, fp and int8 pools; the Mistral run's full width, where its
+    contexts past the window sit) is a kernel case, plan included, and so
+    are TinyLlama's G 8 at D 64 and Qwen2's G 7; every (B, H, S, D, window)
+    of the TinyLlama and Mixtral training steps is a flash case, and every
+    (N, V, H) of their causal-LM loss a vocab case, on the CUDA-core
+    route."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
+        parse_gather_buckets,
+    )
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")       # plan for the H100's SMs
+    cases = {c[0]: c for c in chip_smoke.KERNEL_CASES}
+    held = set()
+    llama = llama_config_from_hf(chip_smoke.LLAMA_31_8B)
+    eng = chip_smoke.LLAMA_ENGINE
+    slots, max_len, bs = eng["num_slots"], eng["max_model_len"], eng["block_size"]
+    tr = chip_smoke.LLAMA_TRACE
+    assert tr["hi"] + tr["new"] <= max_len
+    for width in parse_gather_buckets(None, max_len, bs):
+        for int8 in (False, True):
+            name = chip_smoke.LLAMA_LADDER_CASES[(slots, width, int8)]
+            case = cases[name]
+            assert case[1:10] == (slots, llama.num_heads, llama.num_kv_heads,
+                                  llama.resolved_head_dim, bs, width, "bfloat16", int8, None)
+            assert chip_smoke.TABLE_BLOCKS[name] == max_len // bs
+            assert chip_smoke._plan(case) == pa.split_plan(
+                slots, llama.num_kv_heads, width, bs, pa.H100_SMS)
+            held.add(name)
+    mistral = llama_config_from_hf(chip_smoke.MISTRAL_7B)
+    eng = chip_smoke.MISTRAL_ENGINE
+    widths = parse_gather_buckets(None, eng["max_model_len"], eng["block_size"])
+    # the one request decodes past the ladder's lower width: only the full one walks
+    assert chip_smoke.MISTRAL_PROMPT > widths[0] and widths[-1] == eng["max_model_len"]
+    assert chip_smoke.MISTRAL_PROMPT + chip_smoke.MISTRAL_NEW <= eng["max_model_len"]
+    case = cases["mistral_window"]
+    assert case[1:10] == (eng["num_slots"], mistral.num_heads, mistral.num_kv_heads,
+                          mistral.resolved_head_dim, eng["block_size"], eng["max_model_len"],
+                          "bfloat16", False, mistral.sliding_window)
+    assert chip_smoke.TABLE_BLOCKS["mistral_window"] == eng["max_model_len"] // eng["block_size"]
+    ctx = chip_smoke.LISTED_CONTEXTS["mistral_window"]
+    assert min(ctx) < mistral.sliding_window < max(ctx) <= eng["max_model_len"]
+    tiny = llama_config_from_hf(chip_smoke.TINYLLAMA)
+    assert cases["tinyllama"][2:5] == (tiny.num_heads, tiny.num_kv_heads, tiny.resolved_head_dim)
+    assert cases["qwen2_g7"][2] // cases["qwen2_g7"][3] == 7
+    assert set(chip_smoke.LLAMA_KERNEL_CASES) == held | {"mistral_window", "tinyllama",
+                                                         "qwen2_g7"}
+    flash = {c[0]: c for c in chip_smoke.FLASH_CASES}
+    mixtral = llama_config_from_hf(chip_smoke.MIXTRAL_8X7B)
+    run, mrun = chip_smoke.TINYLLAMA_RUN, chip_smoke.MIXTRAL_RUN
+    for name, cfg, B, S, window in (
+            ("tinyllama_causal_bf16", tiny, run["batch"], run["seq"], None),
+            ("mixtral_causal_bf16", mixtral, mrun["batch"], mrun["seq"], None),
+            ("mistral_window_bf16", mistral, 1, 6144, mistral.sliding_window)):
+        assert flash[name][1:9] == (B, cfg.num_heads, S, cfg.resolved_head_dim, "bfloat16",
+                                    False, True, window)
+    assert 6144 > mistral.sliding_window            # the band bites
+    assert set(chip_smoke.FLASH_LLAMA) <= set(flash)
+    vocab = {c[0]: c for c in chip_smoke.VOCAB_CASES}
+    for name, cfg, N in (("tinyllama_ce", tiny, run["batch"] * run["seq"]),
+                         ("mixtral_ce", mixtral, mrun["batch"] * mrun["seq"])):
+        assert vocab[name][1:5] == (N, cfg.vocab_size, cfg.hidden_size, "bfloat16")
+        for k in chip_smoke._K2:
+            assert chip_smoke.vocab_kernel_names(k, "bfloat16", cfg.hidden_size) == \
+                chip_smoke.VOCAB_KERNEL_NAMES[(k, "float32")]
+
+
+LLAMA_TINY = dict(vocab_size=300, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
+                  eos_token_id=299)
+
+
+def test_llama_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
+    """The llama phase at a tiny width: (a) the serve runs on fp pools, int8
+    pools and the gather route against the batched plain decode and each
+    other, K3 counted a layer a decode step where the model calls it;
+    (b) the window run, every K3 call with the window; (c) the TinyLlama
+    CLI run's K1/K2 counts and the fp32 gate; (d) the Mixtral steps with
+    the aux loss, the routing counts, its gate and greedy decode."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import llama as t_llama
+
+    real = t_llama.paged_attention
+
+    def counted(*args, **kw):
+        pa.paged_decode_attention.launches += 1
+        return real(*args, **kw)
+
+    monkeypatch.setattr(t_llama, "paged_attention", counted)
+    run = cli.run
+    monkeypatch.setattr(cli, "run", lambda argv: run(argv + ["--attention_impl", "flash"]))
+    scaling = dict(chip_smoke.LLAMA_31_8B["rope_scaling"], original_max_position_embeddings=16)
+    for name, value in (
+            ("LLAMA_31_8B", dict(chip_smoke.LLAMA_31_8B, **LLAMA_TINY, rope_scaling=scaling)),
+            ("MISTRAL_7B", dict(chip_smoke.MISTRAL_7B, **LLAMA_TINY, sliding_window=16)),
+            ("TINYLLAMA", dict(chip_smoke.TINYLLAMA, **{**LLAMA_TINY, "vocab_size": 600})),
+            ("MIXTRAL_8X7B", dict(chip_smoke.MIXTRAL_8X7B, **{**LLAMA_TINY,
+                                                               "num_hidden_layers": 1},
+                                  num_local_experts=4)),
+            ("LLAMA_ENGINE", dict(num_slots=2, block_size=8, prefill_chunk=8,
+                                  max_model_len=128)),
+            ("LLAMA_TRACE", dict(n=4, lo=8, hi=40, new=6)), ("OVERLAP_PROFILED", (2, 6)),
+            ("MISTRAL_ENGINE", dict(num_slots=2, block_size=8, prefill_chunk=8,
+                                    max_model_len=64)),
+            ("MISTRAL_PROMPT", 40), ("MISTRAL_NEW", 6),
+            ("TINYLLAMA_RUN", dict(batch=2, seq=64, steps=3, eval_samples=8,
+                                   train_samples=64, profiled=2)),
+            ("LLAMA_GATE", dict(depth=1, batch=2, seq=32, steps=2, lr=1e-5)),
+            ("MIXTRAL_RUN", dict(batch=2, seq=32, steps=2)),
+            ("MIXTRAL_GATE", dict(batch=1, seq=32)),
+            ("MIXTRAL_DECODE", dict(prompt=8, new=4, capacity_factor=2.0))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    rows = chip_smoke.llama_phase(tmp_path, "cpu")
+    assert list(rows) == ["llama3_8b_fp", "llama3_8b_int8", "llama3_8b_xla", "mistral_window",
+                          "tinyllama", "mixtral"]
+    for name in ("llama3_8b_fp", "llama3_8b_int8", "mistral_window"):
+        r = rows[name]
+        assert r["paged_kernel_launches"] == r["decode_steps"] * 2 > 0, name
+        assert r["tokens_compared_with_plain"] > 0, name
+    assert rows["llama3_8b_xla"]["paged_kernel_launches"] == 0
+    assert rows["llama3_8b_xla"]["same_tokens_as_k3"]["identical"] + \
+        rows["llama3_8b_xla"]["same_tokens_as_k3"]["near_tie_splits"] == 4
+    assert rows["llama3_8b_int8"]["kv_bytes_per_token"] == 2 * 2 * 2 * (16 + 4)
+    assert rows["llama3_8b_fp"]["kv_bytes_per_token"] == 2 * 2 * 2 * 16 * 2
+    assert rows["mistral_window"]["k3_window_calls"] == rows["mistral_window"][
+        "paged_kernel_launches"]
+    assert set(rows["mistral_window"]["k3_launches_by_width"]) == {"64"}
+    tl = rows["tinyllama"]
+    steps, ev = tl["train_steps"], tl["eval_steps"]
+    assert steps == 3 and ev >= 1
+    assert tl["launches"] == {"flash_fwd": 2 * (steps + ev), "flash_bwd_dq": 2 * steps,
+                              "flash_bwd_dkv": 2 * steps, "fused_ce_fwd": steps + ev,
+                              "fused_ce_bwd_dh": steps, "fused_ce_bwd_dw": steps}
+    for run in ("tinyllama", "mixtral"):
+        gate = rows[run]["gate"]
+        assert gate["loss_rel_err"] <= 1e-5 and gate["grad_rel_l2_max"] <= 1e-3
+        assert len(gate["curve_kernels"]) == 2
+    mx = rows["mixtral"]
+    assert mx["launches"] == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                              "fused_ce_fwd": 2, "fused_ce_bwd_dh": 2, "fused_ce_bwd_dw": 2}
+    assert sum(mx["tokens_per_expert"]) + mx["capacity_drops"] == mx["assignments"] == 2 * 2 * 32
+    assert mx["decode"]["compared_with_full_forward"] > 0
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert printed[-1]["phase"] == "llama_summary"
+    assert set(printed[-1]["wall_seconds"]) == {"serve", "window", "train", "moe"}

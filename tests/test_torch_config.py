@@ -101,9 +101,9 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
              ["--early_stopping_patience", "2"], ["--profile", "true"]]
 
 
-# ROADMAP item 6 (LoRA and packing), now ported: these entries of
-# UNPORTED now parse as the JAX package's do
-ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing")
+# ROADMAP items 6 (LoRA and packing) and 9 (MoE), now ported: these
+# entries of UNPORTED now parse as the JAX package's do
+ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing", "--num_experts")
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])

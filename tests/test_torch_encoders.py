@@ -315,9 +315,9 @@ def test_hf_key_rules_match_jax(family):
 
 def test_detect_family_and_config_builders():
     """The port's registry covers the JAX package's five encoder families
-    times {seq-cls, token-cls, qa}; aliases map, the families still
-    unported (Llama and its aliases) raise naming their ROADMAP item,
-    DeBERTa-v2 is known; each builder gives the JAX config's fields."""
+    times {seq-cls, token-cls, qa}; aliases map (the Llama family's
+    variants to ``llama``), DeBERTa-v2 is known; each builder gives the JAX
+    config's fields."""
     from huggingface_sagemaker_tensorflow_distributed_tpu.models import auto as j_auto
 
     for family, task in CASES:
@@ -325,9 +325,8 @@ def test_detect_family_and_config_builders():
     assert t_auto.detect_family({"model_type": "xlm-roberta"}) == "roberta"
     assert t_auto.detect_family({"model_type": "camembert"}) == "roberta"
     assert t_auto.detect_family({"model_type": "deberta-v2"}) == "deberta-v2"
-    for mt in ("llama", "mistral"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            t_auto.detect_family({"model_type": mt})
+    for mt in ("llama", "mistral", "qwen2", "gemma", "mixtral"):
+        assert t_auto.detect_family({"model_type": mt}) == "llama"
     with pytest.raises(ValueError):
         t_auto.detect_family({"model_type": "mystery"})
     skip = {"dtype", "param_dtype"}

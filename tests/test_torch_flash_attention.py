@@ -571,3 +571,18 @@ def test_kernels_match_reference_on_card(cuda_device, case):
         g, w = g.detach().float().cpu(), w.detach().float().cpu()
         assert torch.isfinite(g).all()
         assert (g - w).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("D,raises", [(256, NotImplementedError), (96, ValueError)])
+def test_head_dim_256_names_its_roadmap_entry(D, raises):
+    """A CUDA-side call at head_dim 256 (Gemma) raises NotImplementedError
+    naming its ROADMAP queue 2 entry; another width the kernels lack keeps
+    the ValueError. Meta tensors stand in for the card's (the check runs
+    before any launch); the CPU path takes every width."""
+    q = torch.empty(1, 2, 16, D, device="meta")
+    for call in (lambda: fa.flash_fwd(q, q, q),
+                 lambda: fa.flash_bwd_dq(q, q, q, None, q, torch.empty(1, 2, 16), q)):
+        with pytest.raises(raises, match="K1 and K3 at head_dim 256" if D == 256 else None):
+            call()
+    x = torch.randn(1, 2, 16, D)
+    assert fa.flash_fwd(x, x, x)[0].shape == x.shape

@@ -313,12 +313,20 @@ def test_beam_search_generate_matches_jax(variant, num_beams, length_penalty):
         assert (got[:, 0] == 7).all()
 
 
-def test_beam_search_causal_on_experts_names_item_9():
+def test_beam_search_causal_on_experts_raises_the_jax_value_error():
+    """The JAX package's refusal, word for word."""
+    import jax.numpy as jnp
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    from torch_decode_pairs import llama_pair
+
+    jm, jp, _ = llama_pair(num_experts=2, num_layers=1)
+    with pytest.raises(ValueError) as want:
+        _j().beam_search_causal(jm, jp, jnp.ones((1, 4), jnp.int32))
+    with pytest.raises(ValueError) as got:
         t_gen.beam_search_causal(SimpleNamespace(config=SimpleNamespace(num_experts=2)),
                                  np.ones((1, 4), np.int64))
+    assert str(got.value) == str(want.value)
 
 
 # -- telemetry -------------------------------------------------------------------

@@ -304,6 +304,13 @@ def test_config_rejects_unported_features(field, value):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
             dataclasses.replace(t_gpt2.Gpt2Config(), remat=True, remat_policy="dots")
         return
+    if field == "num_experts":
+        # MoE is ported (models/moe.py): every moe_every-th block's MLP is
+        # the expert bank with the residual-flow wo init
+        cfg = dataclasses.replace(t_gpt2.Gpt2Config(**TINY), **{field: value})
+        model = t_gpt2.Gpt2LMHeadModel(cfg)
+        assert hasattr(model.backbone.h[1], "moe") and hasattr(model.backbone.h[0], "mlp")
+        return
     if field == "weight_quant":
         # int8 weight-only quantization is ported (models/quant.py): the
         # block's denses become Int8Linear; a mode no package takes raises
@@ -320,7 +327,7 @@ def test_config_rejects_unported_features(field, value):
         return
     # what is not ported yet names its ROADMAP item; a value no package
     # takes is a ValueError
-    unported = field in ("num_experts", "pipeline_stages", "attention_impl")
+    unported = field in ("pipeline_stages", "attention_impl")
     with pytest.raises(NotImplementedError if unported else ValueError,
                        match="ROADMAP queue 1, item" if unported else None):
         dataclasses.replace(t_gpt2.Gpt2Config(), **{field: value})

@@ -658,6 +658,7 @@ def _raise_sites():
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as t_gen
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import layers as t_layers
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import llama as t_llama
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import t5 as t_t5
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import optim as t_optim
@@ -666,7 +667,8 @@ def _raise_sites():
     return [
         ("config-lora", lambda: _ported_config(dict(lora_rank=4),
                                                dict(lora_rank=4, lora_alpha=0.0)), None),
-        ("config-moe", lambda: t_config.TrainConfig(num_experts=4), "9"),
+        ("config-moe", lambda: t_config.TrainConfig(num_experts=4), None),
+        ("config-ep", lambda: t_config.TrainConfig(num_experts=4, ep=2), "11"),
         ("config-packing", lambda: _ported_config(
             dict(task="mlm", segment_packing=True),
             dict(task="mlm", segment_packing=True, streaming=True)), None),
@@ -677,14 +679,14 @@ def _raise_sites():
          lambda: t_config.TrainConfig(remat=True, remat_policy="dots"), "4"),
         ("config-ring", lambda: t_config.TrainConfig(attention_impl="ring"), "11"),
         ("config-tp", lambda: t_config.TrainConfig(tp=2), "11"),
-        ("layers-moe", lambda: t_layers.EncoderConfig(num_experts=2), "9"),
+        ("layers-moe", lambda: t_layers.EncoderConfig(num_experts=2), None),
         ("layers-pipeline", lambda: t_layers.EncoderConfig(pipeline_stages=2), "11"),
         ("layers-remat-policy",
          lambda: t_layers.EncoderConfig(remat=True, remat_policy="dots"), "4"),
         ("layers-ring", lambda: t_layers.EncoderConfig(attention_impl="ring"), "11"),
         ("gpt2-remat-policy",
          lambda: t_gpt2.Gpt2Config(remat=True, remat_policy="dots_no_batch"), "4"),
-        ("gpt2-moe", lambda: t_gpt2.Gpt2Config(num_experts=4), "9"),
+        ("gpt2-moe", lambda: t_gpt2.Gpt2Config(num_experts=4), None),
         ("gpt2-pipeline", lambda: t_gpt2.Gpt2Config(pipeline_stages=2), "11"),
         ("gpt2-quant", lambda: _ported_quant("gpt2"), None),
         ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), "11"),
@@ -692,9 +694,10 @@ def _raise_sites():
         ("optim-lamb", lambda: t_optim.build_optimizer(
             SimpleNamespace(optimizer="lamb"), []), "4"),
         ("pipeline-packed", _ported_packed_lm_rows, None),
-        ("auto-family", lambda: t_auto.detect_family({"model_type": "llama"}), "9"),
-        ("auto-export", lambda: t_auto.save_pretrained("/nonexistent", None, "llama", None),
-         "9"),
+        ("auto-family", _ported_llama_family, None),
+        ("auto-export", _ported_llama_export, None),
+        ("llama-pipeline", lambda: t_llama.LlamaConfig(pipeline_stages=2), "11"),
+        ("llama-ring", lambda: t_llama.LlamaConfig(attention_impl="ring"), "11"),
         ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), "11"),
         ("t5-pipeline", lambda: t_t5.T5Config(pipeline_stages=2), "11"),
         ("t5-quant", lambda: _ported_quant("t5"), None),
@@ -707,8 +710,7 @@ def _raise_sites():
         ("generate-sampling", lambda: _ported_decoding("sampling"), None),
         ("generate-beam", lambda: _ported_decoding("beam"), None),
         ("generate-speculative-seq2seq", lambda: _ported_decoding("speculative"), None),
-        ("beam-causal-experts", lambda: t_gen.beam_search_causal(
-            SimpleNamespace(config=SimpleNamespace(num_experts=2)), np.ones((1, 4))), "9"),
+        ("beam-causal-experts", _beam_experts_raise_jax_error, None),
         ("engine-int8-kv", lambda: _int8_engine(), None),
         ("engine-tp", lambda: _tiny_engine(mesh=2), "11"),
         ("engine-mesh", lambda: _tiny_engine(mesh=SimpleNamespace(shape={"tensor": 2})),
@@ -722,6 +724,41 @@ def _raise_sites():
         ("serve-cli-rate-limit", lambda: _serve_cli("--rate_limit", "*=0.001:1",
                                                     requests=2), None),
     ]
+
+
+def _ported_llama_family():
+    for mt in ("llama", "mistral", "qwen2", "gemma", "mixtral"):
+        assert t_auto.detect_family({"model_type": mt}) == "llama"
+
+
+def _ported_llama_export():
+    """A tiny Llama exports in HF layout and reads back to the same
+    weights."""
+    import tempfile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                      num_kv_heads=1, intermediate_size=32, max_position_embeddings=32)
+    model = init_llama(cfg, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        t_auto.save_pretrained(d, model, "llama", cfg)
+        back, family, cfg2 = t_auto.from_pretrained(d, task="causal-lm", device="cpu")
+    assert family == "llama" and cfg2 == cfg
+    for k, v in model.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+
+
+def _beam_experts_raise_jax_error():
+    """Beam search refuses an MoE model with the JAX package's ValueError."""
+    from types import SimpleNamespace
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import generate as t_gen
+
+    with pytest.raises(ValueError, match="beam_search_causal does not support MoE models"):
+        t_gen.beam_search_causal(SimpleNamespace(config=SimpleNamespace(num_experts=2)),
+                                 np.ones((1, 4)))
 
 
 def _tiny_engine(**kw):
@@ -888,8 +925,10 @@ def _int8_engine():
                          ids=[s[0] for s in _raise_sites()])
 def test_unported_raises_name_their_roadmap_item(site):
     """No raise names a slice letter any more: each names its ROADMAP
-    queue 1 item. The sites of items 6 and 8, of item 10's int8 pools and
-    of item 10's fleet flags, now ported, run instead (a ported config
+    queue 1 item. The sites of items 6, 8 and 9, of item 10's int8 pools
+    and of item 10's fleet flags, now ported, run instead (MoE configs
+    build, the Llama family is detected and exports, beam search refuses
+    experts with the JAX ValueError; a ported config
     builds and its invalid form raises the JAX ``ValueError``; the packed
     LM rows equal the JAX ones; an int8 config builds its ``Int8Linear``s;
     the decoders return the JAX package's ids; the int8 engine serves; the

@@ -421,3 +421,22 @@ def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dty
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got[act], want[act], atol=tol, rtol=tol)
     assert bool((got[~act] == 0).all())
+
+
+@pytest.mark.parametrize("D,raises", [(256, NotImplementedError), (96, ValueError)])
+def test_head_dim_256_names_its_roadmap_entry(D, raises):
+    """K3 at head_dim 256 (Gemma) raises NotImplementedError naming its
+    ROADMAP queue 2 entry before any launch (meta tensors stand in for the
+    card's); another missing width keeps the ValueError; the CPU path
+    takes every width."""
+    q = torch.empty(2, 4, D, device="meta")
+    pool = torch.empty(5, 4, 2, D, device="meta")
+    tables = torch.zeros(2, 2, dtype=torch.int32, device="meta")
+    ctx = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(raises, match="K1 and K3 at head_dim 256" if D == 256 else None):
+        paged_decode_attention(q, pool, pool, tables, ctx)
+    cpu = paged_decode_attention(torch.randn(2, 4, D), torch.randn(5, 4, 2, D),
+                                 torch.randn(5, 4, 2, D), torch.tensor([[1, 2], [3, 4]],
+                                                                      dtype=torch.int32),
+                                 torch.tensor([3, 5], dtype=torch.int32))
+    assert cpu.shape == (2, 4, D)

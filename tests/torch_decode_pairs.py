@@ -1,6 +1,7 @@
 """Shared set-up of the decoding and serving parity tests
 (``test_torch_generate.py``, ``test_torch_speculative.py``,
-``test_torch_quant.py``, the ``test_torch_*`` serving files): tiny JAX
+``test_torch_quant.py``, ``test_torch_llama.py``, ``test_torch_moe.py``,
+the ``test_torch_*`` serving files): tiny JAX
 models with their port twins on the same weights (carried across with
 ``params_from_jax``), JAX's own Gumbel noise for a seed, the fixtures
 every port test module runs under, and :func:`as_port`, which runs a JAX
@@ -14,6 +15,7 @@ import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import bart as t_bart
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import gpt2 as t_gpt2
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import llama as t_llama
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import t5 as t_t5
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
     params_from_jax,
@@ -63,7 +65,8 @@ def drop_compile_trackers():
 
 _PORT = {"Gpt2Config": (t_gpt2.Gpt2Config, t_gpt2.Gpt2LMHeadModel),
          "T5Config": (t_t5.T5Config, t_t5.T5ForConditionalGeneration),
-         "BartConfig": (t_bart.BartConfig, t_bart.BartForConditionalGeneration)}
+         "BartConfig": (t_bart.BartConfig, t_bart.BartForConditionalGeneration),
+         "LlamaConfig": (t_llama.LlamaConfig, t_llama.LlamaForCausalLM)}
 
 
 def port_of(jmodel, params, **overrides):
@@ -82,7 +85,7 @@ def port_of(jmodel, params, **overrides):
 
 def gpt2_pair(num_layers=2, seed=0, vocab=128, **kw):
     """(JAX GPT-2, its params, the port's GPT-2): hidden 32, 4 heads,
-    dropout 0."""
+    dropout 0; ``kw`` overrides any field."""
     import jax.numpy as jnp
 
     from huggingface_sagemaker_tensorflow_distributed_tpu.models.auto import init_params
@@ -91,10 +94,32 @@ def gpt2_pair(num_layers=2, seed=0, vocab=128, **kw):
         Gpt2LMHeadModel,
     )
 
-    cfg = Gpt2Config(vocab_size=vocab, hidden_size=32, num_layers=num_layers, num_heads=4,
-                     intermediate_size=64, max_position_embeddings=128, hidden_dropout=0.0,
-                     embd_dropout=0.0, attention_dropout=0.0, dtype=jnp.float32, **kw)
+    cfg = Gpt2Config(**{**dict(vocab_size=vocab, hidden_size=32, num_layers=num_layers,
+                               num_heads=4, intermediate_size=64, max_position_embeddings=128,
+                               hidden_dropout=0.0, embd_dropout=0.0, attention_dropout=0.0,
+                               dtype=jnp.float32), **kw})
     jmodel = Gpt2LMHeadModel(cfg)
+    params = init_params(jmodel, cfg, seed=seed)
+    return jmodel, params, port_of(jmodel, params)
+
+
+def llama_pair(seed=0, **kw):
+    """(JAX Llama-family model, its params, the port's model): the JAX
+    tests' tiny shape (vocab 128, hidden 32, 3 layers, 4 heads, 2 K/V
+    heads, intermediate 64); ``kw`` overrides any field (``model_type``,
+    ``sliding_window``, ``num_experts``, ...)."""
+    import jax.numpy as jnp
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models.auto import init_params
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+
+    base = dict(vocab_size=128, hidden_size=32, num_layers=3, num_heads=4, num_kv_heads=2,
+                intermediate_size=64, max_position_embeddings=64, dtype=jnp.float32)
+    cfg = LlamaConfig(**{**base, **kw})
+    jmodel = LlamaForCausalLM(cfg)
     params = init_params(jmodel, cfg, seed=seed)
     return jmodel, params, port_of(jmodel, params)
 
