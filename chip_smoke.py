@@ -17,8 +17,9 @@ failure raises and exits non-zero:
    -v``), its shared memory per block and its tensor-core instructions in
    the SASS (``cuobjdump``): the paged kernels (CUDA cores by design) must
    spill nothing; the tensor-core kernels (bf16 flash forward, dQ and
-   dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward, dH and dW)
-   must hold ``HMMA`` and spill nothing;
+   dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward) must hold
+   ``HMMA``, the bf16-hidden vocab-CE backward's ``wgmma`` kernels (dS, the
+   dH and the dW products) ``HGMMA``, and none may spill;
 2. kernel: holds the paged decode kernels (the split-context kernel and
    its combine) against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
@@ -234,15 +235,16 @@ failure raises and exits non-zero:
    seq2seq loss (K2 with smoothing 0.1) against the unfused logits, at the
    same gates (every key bias held apart, its exact gradient 0);
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
-   ``fused_ce_bwd_dw`` against their plain versions at the GPT-2 causal-LM
-   shape (N 4096 tokens, V 50257, H 768) with bf16 hidden and fp32 weight
-   and in fp32, a ragged N 1000 / V 1001, H 200 and H 800, label
-   smoothing 0.1, an all-equal W that ties every logit (pred must be
-   id 0), and the fused MLM loss's shapes with bf16 hidden: N 1024, V
-   30522 at H 776 (BERT-base with the bias folded in) and H 1032
-   (BERT-large: dW past its tensor-core cap, on the CUDA-core kernel; the
-   kernel each wrapper launches is named by route,
-   ``vocab_kernel_names``), and the eval steps' N 512 at H 776; the fused
+   ``fused_ce_bwd_dw`` (and the joint ``fused_ce_bwd``, which must equal
+   them bit for bit, and itself on a second call) against their plain
+   versions at the GPT-2 causal-LM shape (N 4096 tokens, V 50257, H 768)
+   with bf16 hidden and fp32 weight and in fp32, a ragged N 1000 / V 1001,
+   H 200 and H 800, label smoothing 0.1, an all-equal W that ties every
+   logit (pred must be id 0), and the fused MLM loss's shapes with bf16
+   hidden: N 1024, V 30522 at H 776 (BERT-base with the bias folded in)
+   and H 1032 (BERT-large; the kernels each wrapper launches are named by
+   route, ``vocab_kernel_names``), and the eval steps' N 512 at H 776; the
+   fused
    seq2seq loss's shapes with bf16 hidden: T5-small's V 32128, H 512 at N
    512 (train, smoothing 0.1) and 256 (eval), span corruption's N 848 and
    424, BART-base's V 50265, H 768 at N 512 and 256. Bound
@@ -258,8 +260,11 @@ failure raises and exits non-zero:
    library pair's device time (fp32 ``torch.matmul`` with TF32 off plus
    ``cross_entropy``; its autograd backward for dH and dW) and the bound:
    with bf16 hidden the fp32-exact split route's bf16 tensor-core passes
-   (``CE_TC_PASSES``) at 989 TFLOP/s, the fp32 CUDA-core bound beside it
-   (``bound_fp32_ms``); with fp32 hidden the fp32 bound;
+   (``CE_TC_PASSES``; the joint backward 7) at 989 TFLOP/s, the fp32
+   CUDA-core bound beside it (``bound_fp32_ms``), the bf16 backward's
+   scratch traffic beside that (``scratch_ms``); with fp32 hidden the fp32
+   bound. The llama phase's cases (run last) add Llama-3's vocab (N 1024,
+   V 128256, H 4096), a walk of 26 vocab chunks;
 8. GPT-2 train: (a) one fp32 step (TF32 off, dropout 0) of GPT-2 124M at
    full width on 8 x 512 vendored reviews, the kernels (flash causal
    attention and the fused vocab CE) against the plain path (plain
@@ -358,6 +363,7 @@ FLASH_REPLACES = {"flash_fwd": f"{_PALLAS_ATTN}:65",
                   "flash_bwd_dkv": f"{_PALLAS_ATTN}:246"}
 VOCAB_SOURCE = f"{PKG}/csrc/vocab_ce.cu"
 VOCAB_TC_SOURCE = f"{PKG}/csrc/vocab_ce_tc.cuh"
+VOCAB_BWD_SOURCE = f"{PKG}/csrc/vocab_ce_bwd.cuh"
 _PALLAS_CE = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_vocab_ce.py"
 VOCAB_REPLACES = {"fused_ce_fwd": f"{_PALLAS_CE}:48",
                   "fused_ce_bwd_dh": f"{_PALLAS_CE}:166",
@@ -611,11 +617,13 @@ def _cuda_ms(fn, arg_sets, iters: int = 40) -> float:
 
 def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                repeats: int = 5) -> float:
-    """Device time per call: the median over ``repeats`` profiled windows
-    of ``iters`` calls each. With ``match`` (a name, or a tuple of the
-    names of the kernels each call launches once each) a window's time per
-    call is the sum over the names of the mean device time of that name's
-    records; with None, every device activity of the window over ``iters``.
+    """Device time per call over ``repeats`` profiled windows of ``iters``
+    calls each. With ``match`` (a name, a tuple of the names of the kernels
+    each call launches once each, or a dict of each name's launches a call)
+    the median over the windows of the sum over the names of the mean
+    device time of that name's records times its launches a call; with
+    None, every device activity of the windows, each record name counted
+    as ``_pooled_ms`` does.
     Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
     opens with ``MARKER_KERNELS`` marker kernels that spin for about 40 ms
     in all (``torch.cuda._sleep``; their spin kernels are left out of the
@@ -628,8 +636,8 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     vocab-CE call in five). A record the profiler still drops costs that
     name one sample of its mean, not a call's time in the sum: such a loss
     is printed as a ``profiler_loss`` line. A window that holds no record
-    of a name, more than ``iters`` of one, or no device time, is taken
-    again, up to ``repeats`` times in all."""
+    of a name, more records of one than ``iters`` calls launch, or no
+    device time, is taken again, up to ``repeats`` times in all."""
     import statistics
 
     import torch
@@ -638,38 +646,46 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     for i in range(3):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
-    names = (match,) if isinstance(match, str) else match
-    per_call, short, lost = [], 0, 0
-    while len(per_call) < repeats:
+    # each name with its launches a call (1 unless a dict gives them)
+    counts = (None if match is None else {match: 1} if isinstance(match, str)
+              else dict(match) if isinstance(match, dict) else dict.fromkeys(match, 1))
+    per_call, windows, short, lost = [], [], 0, 0
+    while len(per_call) + len(windows) < repeats:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(MARKER_KERNELS):
                 torch.cuda._sleep(MARKER_CYCLES // MARKER_KERNELS)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        by_kernel = _device_seconds_by_kernel(prof)
-        if names is None:
-            total = sum(v for k, v in by_kernel.items() if "spin_kernel" not in k)
-            if total > 0:
-                per_call.append(total / iters * 1e3)
+        if counts is None:
+            records = {k: v for k, v in _device_records(prof).items() if "spin_kernel" not in k}
+            if records:
+                windows.append(records)
                 continue
             held = [0]
         else:
+            by_kernel = _device_seconds_by_kernel(prof)
             held = [sum(e.count for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
-                    for n in names]
-            secs = [sum(v for k, v in by_kernel.items() if n in k) for n in names]
-            if all(0 < c <= iters for c in held) and all(t > 0 for t in secs):
-                per_call.append(sum(t / c for t, c in zip(secs, held)) * 1e3)
-                lost += iters * len(names) - sum(held)
+                    for n in counts]
+            secs = [sum(v for k, v in by_kernel.items() if n in k) for n in counts]
+            if (all(0 < c <= iters * k for c, k in zip(held, counts.values()))
+                    and all(t > 0 for t in secs)):
+                per_call.append(sum(t / c * k for t, c, k in zip(secs, held, counts.values()))
+                                * 1e3)
+                lost += iters * sum(counts.values()) - sum(held)
                 continue
         short += 1
         check(short <= repeats, f"{short} profiled windows held {held} of {iters} "
                                 f"launches of {match or 'the call'}")
+    if windows:
+        ms, lost = _pooled_ms(windows, iters)
+    else:
+        ms = statistics.median(per_call)
     if lost:
-        emit({"phase": "profiler_loss", "kernels": list(names), "windows": repeats,
-              "iters": iters, "records_lost": lost})
-    return statistics.median(per_call)
+        emit({"phase": "profiler_loss", "kernels": list(counts or ("the call",)),
+              "windows": repeats, "iters": iters, "records_lost": lost})
+    return ms
 
 
 def _host_ms(fn, arg_sets, iters: int = 100, repeats: int = 5) -> float:
@@ -2040,16 +2056,20 @@ def _sass_counts(sass: str, opcode: str) -> dict:
     return out
 
 
-# the tensor-core kernels: each must hold HMMA and spill nothing
+# the tensor-core kernels: each must hold HMMA (``mma.sync``), or HGMMA
+# (``wgmma``) where named, and spill nothing
 TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128)), ("flash_bwd_dq_tc_kernel", (64, 128)),
               ("flash_bwd_dkv_tc_kernel", (64, 128)), ("vocab_ce_fwd_tc_kernel", (None,)),
-              ("vocab_ce_bwd_dh_tc_kernel", (None,)), ("vocab_ce_bwd_dw_tc_kernel", (None,)))
+              ("vocab_ce_ds_wgmma_kernel", (None,), "HGMMA"),
+              ("vocab_ce_dh_wgmma_kernel", (None,), "HGMMA"),
+              ("vocab_ce_dw_wgmma_kernel", (None,), "HGMMA"))
 
 
 def _library_report(lib_name: str, kernels) -> dict:
-    """ptxas's report and the SASS ``HMMA`` count of each entry function of
-    a built library, by mangled name, for the kernels named in
-    ``kernels`` (the longest name that a mangled name holds wins)."""
+    """ptxas's report and the SASS ``HMMA`` and ``HGMMA`` counts of each
+    entry function of a built library, by mangled name, for the kernels
+    named in ``kernels`` (the longest name that a mangled name holds
+    wins)."""
     import shutil
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
@@ -2058,13 +2078,14 @@ def _library_report(lib_name: str, kernels) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(lib_name))],
                           capture_output=True, text=True, check=True).stdout
-    hmma = _sass_counts(sass, "HMMA")
+    hmma, hgmma = _sass_counts(sass, "HMMA"), _sass_counts(sass, "HGMMA")
     out = {}
     for mangled, info in ptxas.items():
         kernel = next((k for k in sorted(set(kernels), key=len, reverse=True)
                        if k in mangled), None)
         if kernel is not None:
-            out[mangled] = (kernel, dict(info, hmma_instructions=hmma.get(mangled, 0)))
+            out[mangled] = (kernel, dict(info, hmma_instructions=hmma.get(mangled, 0),
+                                         hgmma_instructions=hgmma.get(mangled, 0)))
     return out
 
 
@@ -2139,24 +2160,24 @@ def build_report() -> dict:
                                  "smem_bytes_per_block": flib.flash_attention_smem_bytes(
                                      which[wrapper], D, int(dt == "bfloat16"))}
     H = GPT2_124M["n_embd"]
-    tc_smem = {"vocab_ce_fwd_tc_kernel": vlib.vocab_ce_fwd_tc_smem_bytes,
-               "vocab_ce_bwd_dh_tc_kernel": vlib.vocab_ce_dh_tc_smem_bytes,
-               "vocab_ce_bwd_dw_tc_kernel": vlib.vocab_ce_dw_tc_smem_bytes}
     for mangled, (kernel, info) in _library_report(
             "vocab_ce", [n for names in VOCAB_KERNEL_NAMES.values() for n in names]).items():
-        dt = ("bfloat16" if ("bfloat16" in mangled or "_tc_" in kernel)
+        bf16_only = ("_tc_" in kernel or "_wgmma_" in kernel or kernel in VOCAB_BF16_HELPERS)
+        dt = ("bfloat16" if ("bfloat16" in mangled or bf16_only)
               else "float32" if "IfE" in mangled else None)
-        dynamic = tc_smem[kernel](H) if kernel in tc_smem else 0
+        dynamic = (vlib.vocab_ce_fwd_tc_smem_bytes(H) if "_tc_" in kernel
+                   else vlib.vocab_ce_wgmma_smem_bytes() if "_wgmma_" in kernel else 0)
         rows[(kernel, None, dt)] = {"phase": "kernel_build", "library": "vocab_ce",
                                     "kernel": kernel, "dtype": dt, **info,
                                     "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
     for row in rows.values():
         emit(row)
-    for kernel, dims in TC_KERNELS:
+    for kernel, dims, *opcode in TC_KERNELS:
+        op = opcode[0] if opcode else "HMMA"
         for D in dims:
             r = rows.get((kernel, D, "bfloat16"))
             check(r is not None, f"no ptxas report for {kernel}<{D}>")
-            check(r["hmma_instructions"] > 0, f"{kernel}<{D}> has no HMMA in its SASS")
+            check(r[f"{op.lower()}_instructions"] > 0, f"{kernel}<{D}> has no {op} in its SASS")
             check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
                   f"{kernel}<{D}> spills registers: {r}")
     return rows
@@ -2979,13 +3000,35 @@ def _device_seconds_by_kernel(prof) -> dict:
     first (seconds of host time for a window of a few thousand launches;
     ``_key_averaged_seconds`` is that route, which the serve_router phase
     holds this one to once)."""
+    return {k: s for k, (s, _) in _device_records(prof).items()}
+
+
+def _device_records(prof) -> dict:
+    """Per record name of a profiled window: (device seconds, records),
+    straight off the profiler's kineto results."""
     import torch
 
-    by_kernel = {}
+    out = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
-            by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + e.duration_ns() / 1e9
-    return by_kernel
+            secs, n = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (secs + e.duration_ns() / 1e9, n + 1)
+    return out
+
+
+def _pooled_ms(windows: list, iters: int) -> tuple[float, int]:
+    """Device ms per call over profiled windows of ``iters`` calls each
+    (each window ``{name: (seconds, records)}``), and the records lost:
+    each name's mean duration over every window times the most records
+    one window held of it. A record the profiler drops then costs its name
+    one sample of its mean, not a call's time."""
+    names = {n for w in windows for n in w}
+    most = {n: max(w.get(n, (0.0, 0))[1] for w in windows) for n in names}
+    ms = sum(sum(w[n][0] for w in windows if n in w) / sum(w[n][1] for w in windows if n in w)
+             * most[n] for n in names) / iters * 1e3
+    lost = sum(most[n] * len(windows) - sum(w.get(n, (0.0, 0))[1] for w in windows)
+               for n in names)
+    return ms, lost
 
 
 def _key_averaged_seconds(prof) -> dict:
@@ -4003,9 +4046,11 @@ def _steps_profile(trainer, batch, steps: int, flops_per_step: float | None = No
 
 
 def _kernel_ms_per_step(prof: dict, names: dict) -> dict:
-    """Device ms per profiled step of each kernel of ``names`` (wrapper ->
-    the kernel name the profile holds), from :func:`_steps_profile`."""
-    return {k: sum(v for n, v in prof["by_kernel_s"].items() if name in n)
+    """Device ms per profiled step of each wrapper of ``names`` (wrapper ->
+    the kernel name the profile holds, or a tuple of names summed), from
+    :func:`_steps_profile`."""
+    return {k: sum(v for n, v in prof["by_kernel_s"].items()
+                   if any(x in n for x in ((name,) if isinstance(name, str) else name)))
             / prof["profiled_steps"] * 1e3 for k, name in names.items()}
 
 
@@ -4241,8 +4286,8 @@ def mlm_phase(work: Path, card: str) -> dict:
                 fpt = flops.train_flops_per_token(cfg, task, batch["input_ids"].shape[1])
                 prof = _steps_profile(trainer, batch, n_steps,
                                       fpt * int(batch["attention_mask"].sum()), peak)
-                k2 = _kernel_ms_per_step(prof, {k: vocab_kernel_names(
-                    k, "bfloat16", row["bias_fold_width"])[0] for k in _K2})
+                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(
+                    k, "bfloat16", row["bias_fold_width"]) for k in _K2})
                 k1 = _kernel_ms_per_step(prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")]
                                                 for k in _K1})
                 prof.pop("by_kernel_s")
@@ -4517,8 +4562,8 @@ def seq2seq_phase(work: Path, card: str) -> dict:
                 per_step = (enc_fpt * int(batch["attention_mask"].sum())
                             + dec_fpt * int(batch["decoder_attention_mask"].sum()))
                 prof = _steps_profile(trainer, batch, n_steps, per_step, peak)
-                k2 = _kernel_ms_per_step(prof, {k: vocab_kernel_names(
-                    k, "bfloat16", cfg.d_model)[0] for k in _K2})
+                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(
+                    k, "bfloat16", cfg.d_model) for k in _K2})
                 busy = sum(prof.pop("by_kernel_s").values())
                 prof["k2_ms_per_step"] = k2
                 prof["k2_share_of_busy"] = (sum(k2.values()) * n_steps / 1e3 / busy
@@ -4602,49 +4647,87 @@ VOCAB_CASES = [
     ("bart_bf16", 512, 50265, 768, "bfloat16", 0.1, False),
     ("bart_eval_bf16", 256, 50265, 768, "bfloat16", 0.0, False),
     # the llama phase's causal-LM loss (the untied [V, H] head): TinyLlama's
-    # B 4 x S 1024 at H 2048, Mixtral's B 2 x S 512 at H 4096, vocab 32000;
-    # both past the tensor-core caps (H 1216, dW 800): the CUDA-core route
+    # B 4 x S 1024 at H 2048, Mixtral's B 2 x S 512 at H 4096, vocab 32000
+    # (past the tensor-core forward's H 1216: the CUDA-core forward; the
+    # wgmma backward), and Llama-3's vocab of 128256 at H 4096 (26 chunks of
+    # the backward's vocab walk)
     ("tinyllama_ce", 4096, 32000, 2048, "bfloat16", 0.0, False),
     ("mixtral_ce", 1024, 32000, 4096, "bfloat16", 0.0, False),
+    ("llama3_vocab_ce", 1024, 128256, 4096, "bfloat16", 0.0, False),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
 VOCAB_DEBERTA = ("mlm_deberta_bf16", "mlm_deberta_eval_bf16")
-VOCAB_LLAMA = ("tinyllama_ce", "mixtral_ce")
+VOCAB_LLAMA = ("tinyllama_ce", "mixtral_ce", "llama3_vocab_ce")
 VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
                  "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
-# kernel first (device time is read per kernel name from a profile)
+# kernel first (device time is read per kernel name from a profile);
+# ``fused_ce_bwd`` is the joint backward. With bf16 hidden the backward is
+# the wgmma route: per vocab chunk the split of W, dS and the products, hᵀ
+# once for dW and the dH cast once
+_DS, _SPLIT = "vocab_ce_ds_wgmma_kernel", "vocab_ce_split_w_kernel"
+_HT, _CAST = "vocab_ce_transpose_h_kernel", "vocab_ce_dh_reduce_kernel"
 VOCAB_KERNEL_NAMES = {
     ("fused_ce_fwd", "float32"): ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel"),
     ("fused_ce_fwd", "bfloat16"): ("vocab_ce_fwd_tc_kernel", "vocab_ce_combine_kernel"),
-    ("fused_ce_bwd_dh", "float32"): ("vocab_ce_bwd_dh_kernel", "vocab_ce_dh_reduce_kernel"),
-    ("fused_ce_bwd_dh", "bfloat16"): ("vocab_ce_bwd_dh_tc_kernel", "vocab_ce_dh_reduce_kernel"),
+    ("fused_ce_bwd_dh", "float32"): ("vocab_ce_bwd_dh_kernel", _CAST),
+    ("fused_ce_bwd_dh", "bfloat16"): ("vocab_ce_dh_wgmma_kernel", _DS, _SPLIT, _CAST),
     ("fused_ce_bwd_dw", "float32"): ("vocab_ce_bwd_dw_kernel",),
-    ("fused_ce_bwd_dw", "bfloat16"): ("vocab_ce_bwd_dw_tc_kernel",),
+    ("fused_ce_bwd_dw", "bfloat16"): ("vocab_ce_dw_wgmma_kernel", _DS, _SPLIT, _HT),
+    ("fused_ce_bwd", "float32"): ("vocab_ce_bwd_dh_kernel", _CAST, "vocab_ce_bwd_dw_kernel"),
+    ("fused_ce_bwd", "bfloat16"): (_DS, "vocab_ce_dh_wgmma_kernel", "vocab_ce_dw_wgmma_kernel",
+                                   _SPLIT, _HT, _CAST),
 }
+# kernels that only bf16 hidden launches (their names carry no dtype)
+VOCAB_BF16_HELPERS = (_SPLIT, _HT)
+# a train step runs one joint backward: its kernels split between dH and dW
+# so that a step profile counts each once (dH takes the split, dS and the
+# cast; dW its product and hᵀ)
+VOCAB_STEP_NAMES = {"fused_ce_bwd_dh": ("vocab_ce_dh_wgmma_kernel", _DS, _SPLIT, _CAST),
+                    "fused_ce_bwd_dw": ("vocab_ce_dw_wgmma_kernel", _HT)}
 
 
 def vocab_kernel_names(kname: str, dtype: str, h_dim: int) -> tuple:
     """The kernels a vocab-CE wrapper launches at hidden dtype ``dtype``
-    and depth ``h_dim``, by route: with bf16 hidden the tensor-core kernel
-    while its operands fit a block's shared memory
+    and depth ``h_dim``, by route: with bf16 hidden the tensor-core
+    forward while its operands fit a block's shared memory
     (``ops/vocab_ce.py:tc_smem_bytes``, the library's own rule), the
-    CUDA-core kernel beyond (dW past H 800, the forward and dH past 1216)."""
+    CUDA-core forward beyond (H past 1216); the backward on the wgmma route
+    at every H."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 
-    kernel = {"fused_ce_fwd": "fwd", "fused_ce_bwd_dh": "dh", "fused_ce_bwd_dw": "dw"}[kname]
-    if dtype == "bfloat16" and vc.tc_smem_bytes(kernel, h_dim) < 0:
+    if kname == "fused_ce_fwd" and dtype == "bfloat16" and vc.tc_smem_bytes("fwd", h_dim) < 0:
         return VOCAB_KERNEL_NAMES[(kname, "float32")]
     return VOCAB_KERNEL_NAMES[(kname, dtype)]
+
+
+def vocab_step_names(kname: str, dtype: str, h_dim: int) -> tuple:
+    """The kernels a train step's profile counts for ``kname``: the joint
+    backward's kernels shared out between dH and dW (``VOCAB_STEP_NAMES``)
+    with bf16 hidden, else the wrapper's own."""
+    if dtype == "bfloat16" and kname in VOCAB_STEP_NAMES:
+        return VOCAB_STEP_NAMES[kname]
+    return vocab_kernel_names(kname, dtype, h_dim)
+
+
+def vocab_launch_counts(kname: str, case) -> dict:
+    """Each kernel of ``vocab_kernel_names`` with its launches a call at
+    ``case``: the bf16 backward's split, dS and products once a vocab chunk
+    (``bwd_plan``), hᵀ and the dH cast once; every other kernel once."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    name, N, V, H, dt, eps, ties = case
+    names = vocab_kernel_names(kname, dt, H)
+    if dt != "bfloat16" or kname == "fused_ce_fwd":
+        return dict.fromkeys(names, 1)
+    chunks = -(-V // vc.bwd_plan(N, V, -(-H // 8) * 8)[0])
+    return {n: 1 if n in (_HT, _CAST) else chunks for n in names}
 
 
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
 VOCAB_ITERS = 5
 VOCAB_REPEATS = 3
-# the llama cases' calls take 15-270 ms on the CUDA-core route: fewer of them
-VOCAB_LLAMA_ITERS = 2
-VOCAB_LLAMA_REPEATS = 2
 CE_NEAR_TIE = 1e-5
 
 
@@ -4664,32 +4747,50 @@ def _vocab_inputs(case, gen, device):
     return h, w, labels, g
 
 
-# bf16 tensor-core passes of the 2·N·V·H logit product each K2 kernel
+# bf16 tensor-core passes of the 2·N·V·H logit product each K2 call
 # takes on the fp32-exact split route with bf16 hidden: the logits
 # h·(W_hi + W_mid + W_lo)ᵀ (3); dH adds dS_hi·W_hi + dS_hi·W_mid +
-# dS_lo·W_hi (3); dW adds dSᵀ·h (1: dS is rounded to bf16 by the contract)
-CE_TC_PASSES = {"fused_ce_fwd": 3, "fused_ce_bwd_dh": 6, "fused_ce_bwd_dw": 4}
-# fp32 CUDA-core passes: the logits, and the backward's product
-CE_FP32_PASSES = {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 2, "fused_ce_bwd_dw": 2}
+# dS_lo·W_hi (3); dW adds dSᵀ·h (1: dS is rounded to bf16 by the
+# contract); the joint backward takes the logits once for both (7)
+CE_TC_PASSES = {"fused_ce_fwd": 3, "fused_ce_bwd_dh": 6, "fused_ce_bwd_dw": 4,
+                "fused_ce_bwd": 7}
+# fp32 CUDA-core passes: the logits, and the backward's products
+CE_FP32_PASSES = {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 2, "fused_ce_bwd_dw": 2,
+                  "fused_ce_bwd": 3}
 
 
 def _ce_work(case) -> dict:
-    """Bytes, flops and peak rate of each K2 kernel's bound: every input
+    """Bytes, flops and peak rate of each K2 call's bound: every input
     read once and every output written once (hidden, W, the int32 labels;
-    loss, LSE and pred; LSE and g in; dH or dW out). With bf16 hidden the
-    work is the fp32-exact split route on the bf16 tensor cores
-    (``CE_TC_PASSES`` x 2·N·V·H at 989 TFLOP/s); with fp32 hidden, fp32
-    products on CUDA cores (``CE_FP32_PASSES`` x 2·N·V·H at 67 TFLOP/s)."""
+    loss, LSE and pred; LSE and g in; dH or dW out, both for the joint
+    backward ``fused_ce_bwd``). With bf16 hidden the work is the
+    fp32-exact split route on the bf16 tensor cores (``CE_TC_PASSES`` x
+    2·N·V·H at 989 TFLOP/s); with fp32 hidden, fp32 products on CUDA
+    cores (``CE_FP32_PASSES`` x 2·N·V·H at 67 TFLOP/s)."""
     name, N, V, H, dt, eps, ties = case
     hb = 2 if dt == "bfloat16" else 4
     inputs = N * H * hb + V * H * 4 + N * 4
     logits = 2 * N * V * H
     nbytes = {"fused_ce_fwd": inputs + 3 * N * 4,
               "fused_ce_bwd_dh": inputs + 2 * N * 4 + N * H * hb,
-              "fused_ce_bwd_dw": inputs + 2 * N * 4 + V * H * 4}
+              "fused_ce_bwd_dw": inputs + 2 * N * 4 + V * H * 4,
+              "fused_ce_bwd": inputs + 2 * N * 4 + N * H * hb + V * H * 4}
     if dt == "bfloat16":
         return {k: (b, CE_TC_PASSES[k] * logits, BF16_FLOPS_PER_S) for k, b in nbytes.items()}
     return {k: (b, CE_FP32_PASSES[k] * logits, FP32_FLOPS_PER_S) for k, b in nbytes.items()}
+
+
+def _bwd_scratch_bytes(case) -> int:
+    """The bf16 backward's own traffic beyond its bound's bytes: W's five
+    split pieces written and read once (20 bytes a W element), dS_hi,
+    dS_lo and dS_hiᵀ written and read once (12 bytes an N x V element), hᵀ
+    written and read (4 bytes an h element), and the fp32 dH partials
+    written and read once a chunk (8 bytes an element a chunk and split)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    name, N, V, H, dt, eps, ties = case
+    v_chunk, splits, _ = vc.bwd_plan(N, V, -(-H // 8) * 8)
+    return 20 * V * H + 12 * N * V + 4 * N * H + 8 * -(-V // v_chunk) * splits * N * H
 
 
 def vocab_ce_phase(cases=None) -> dict:
@@ -4723,10 +4824,20 @@ def _vocab_case(case, gen, dev) -> dict:
     rdh = vc.fused_ce_bwd_dh_reference(h, w, lab, rlse, g, eps)
     dw = vc.fused_ce_bwd_dw(h, w, lab, rlse, g, eps)
     rdw = vc.fused_ce_bwd_dw_reference(h, w, lab, rlse, g, eps)
+    joint = vc.fused_ce_bwd(h, w, lab, rlse, g, eps)
+    again = vc.fused_ce_bwd(h, w, lab, rlse, g, eps)
     _sync()
+    # the joint backward is the lone dH and dW bit for bit, and itself on a
+    # second call (no atomics: every sum in a fixed order)
+    check(torch.equal(joint[0], dh) and torch.equal(joint[1], dw),
+          f"vocab case {name}: the joint backward differs from the lone dH or dW")
+    check(torch.equal(joint[0], again[0]) and torch.equal(joint[1], again[1]),
+          f"vocab case {name}: two joint backward calls differ")
+    del again
     compared = {"fused_ce_fwd": [(loss, rloss), (lse, rlse)],
                 "fused_ce_bwd_dh": [(dh, rdh)],
-                "fused_ce_bwd_dw": [(dw, rdw)]}
+                "fused_ce_bwd_dw": [(dw, rdw)],
+                "fused_ce_bwd": [(joint[0], rdh), (joint[1], rdw)]}
     # per kernel, the output closest to its limit: its error and limit
     errs, limits = {}, {}
     for kname, pairs in compared.items():
@@ -4740,6 +4851,7 @@ def _vocab_case(case, gen, dev) -> dict:
                   f"(max |want| {m})")
             worst = max(worst, (e / lim if lim > 0 else 0.0, e, lim))
         _, errs[kname], limits[kname] = worst
+    del joint, dh, dw, rdh, rdw
     # pred: the plain argmax, except where the plain top-two gap is a near tie
     s = vc._logits(h, w)
     top2 = s.topk(2, dim=-1).values
@@ -4755,21 +4867,20 @@ def _vocab_case(case, gen, dev) -> dict:
                 for h_, w_, l_, g_ in sets]
     calls = {"fused_ce_fwd": (lambda *a: vc.fused_ce_fwd(*a, eps), fwd_sets),
              "fused_ce_bwd_dh": (lambda *a: vc.fused_ce_bwd_dh(*a, eps), bwd_sets),
-             "fused_ce_bwd_dw": (lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets)}
+             "fused_ce_bwd_dw": (lambda *a: vc.fused_ce_bwd_dw(*a, eps), bwd_sets),
+             "fused_ce_bwd": (lambda *a: vc.fused_ce_bwd(*a, eps), bwd_sets)}
     # device time of the wrapper's kernels (profiler), and CUDA events
     # around a loop of wrapper calls (host gaps included)
     names = {k: vocab_kernel_names(k, dt, H) for k in calls}
-    iters, repeats = ((VOCAB_LLAMA_ITERS, VOCAB_LLAMA_REPEATS) if name in VOCAB_LLAMA
-                      else (VOCAB_ITERS, VOCAB_REPEATS))
-    ms = {k: _device_ms(fn, a_, names[k], iters=iters, repeats=repeats)
-          for k, (fn, a_) in calls.items()}
-    event_ms = {k: _cuda_ms(fn, a_, iters=iters) for k, (fn, a_) in calls.items()}
+    ms = {k: _device_ms(fn, a_, vocab_launch_counts(k, case), iters=VOCAB_ITERS,
+                        repeats=VOCAB_REPEATS) for k, (fn, a_) in calls.items()}
+    event_ms = {k: _cuda_ms(fn, a_, iters=VOCAB_ITERS) for k, (fn, a_) in calls.items()}
+    plain_dh = _cuda_ms(lambda *a: vc.fused_ce_bwd_dh_reference(*a, eps), bwd_sets, iters=3)
+    plain_dw = _cuda_ms(lambda *a: vc.fused_ce_bwd_dw_reference(*a, eps), bwd_sets, iters=3)
     plain = {"fused_ce_fwd": _cuda_ms(lambda *a: vc.fused_ce_fwd_reference(*a, eps),
                                       fwd_sets, iters=3),
-             "fused_ce_bwd_dh": _cuda_ms(lambda *a: vc.fused_ce_bwd_dh_reference(*a, eps),
-                                         bwd_sets, iters=3),
-             "fused_ce_bwd_dw": _cuda_ms(lambda *a: vc.fused_ce_bwd_dw_reference(*a, eps),
-                                         bwd_sets, iters=3)}
+             "fused_ce_bwd_dh": plain_dh, "fused_ce_bwd_dw": plain_dw,
+             "fused_ce_bwd": plain_dh + plain_dw}
 
     # the library yardstick, two calls: fp32 matmul (TF32 off) and
     # cross_entropy; its autograd backward gives dH and dW together
@@ -4790,39 +4901,45 @@ def _vocab_case(case, gen, dev) -> dict:
     def lib_bwd(out, leaves, g_):
         torch.autograd.grad(out, leaves, g_, retain_graph=True)
 
-    lib_fwd_ms = _device_ms(lib_fwd, fwd_sets, iters=iters, repeats=repeats)
-    lib_bwd_ms = _device_ms(lib_bwd, lib_bwd_sets, iters=iters, repeats=repeats)
-    library = {"fused_ce_fwd": lib_fwd_ms, "fused_ce_bwd_dh": lib_bwd_ms,
-               "fused_ce_bwd_dw": lib_bwd_ms}
-    lib_event_fwd = _cuda_ms(lib_fwd, fwd_sets, iters=iters)
-    lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=iters)
-    library_event = {"fused_ce_fwd": lib_event_fwd, "fused_ce_bwd_dh": lib_event_bwd,
-                     "fused_ce_bwd_dw": lib_event_bwd}
+    lib_fwd_ms = _device_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+    lib_bwd_ms = _device_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS, repeats=VOCAB_REPEATS)
+    lib_event_fwd = _cuda_ms(lib_fwd, fwd_sets, iters=VOCAB_ITERS)
+    lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
+    v_chunk, dh_split_k, scratch = vc.bwd_plan(N, V, -(-H // 8) * 8)
+    scratch_ms = _bwd_scratch_bytes(case) / HBM_BYTES_PER_S * 1e3
     results = {}
     for kname, (nbytes, flops, peak) in _ce_work(case).items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        main = names[kname][0]
+        bwd = kname != "fused_ce_fwd"
         row = {"phase": "vocab_kernel", "case": name, "kernel": kname, "N": N, "V": V,
                "H": H, "hidden_dtype": dt, "weight_dtype": "float32",
                "label_smoothing": eps, "tied_weight": ties,
-               "kernel_name": names[kname][0],
-               "route": "tensor cores" if "_tc_" in names[kname][0] else "CUDA cores",
+               "kernel_name": main, "kernels": list(names[kname]),
+               "route": ("wgmma" if "_wgmma_" in main else "tensor cores" if "_tc_" in main
+                         else "CUDA cores"),
                "max_abs_err": errs[kname], "max_abs_err_limit": limits[kname],
                "status": "pass", "near_ties": int(near.sum()),
                "kernel_ms": ms[kname], "kernel_event_ms": event_ms[kname],
-               "plain_ms": plain[kname], "library_ms": library[kname],
-               "library_event_ms": library_event[kname],
-               "library": ("torch.matmul fp32 + cross_entropy (two calls)"
-                           if kname == "fused_ce_fwd" else
-                           "autograd backward of torch.matmul + cross_entropy, dH and dW "
-                           "together (two calls)"),
+               "plain_ms": plain[kname],
+               "library_ms": lib_bwd_ms if bwd else lib_fwd_ms,
+               "library_event_ms": lib_event_bwd if bwd else lib_event_fwd,
+               "library": ("autograd backward of torch.matmul + cross_entropy, dH and dW "
+                           "together (two calls)" if bwd else
+                           "torch.matmul fp32 + cross_entropy (two calls)"),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bound_peak_flops_per_s": peak,
                "bound_fp32_ms": max(t_bytes, CE_FP32_PASSES[kname] * 2 * N * V * H
                                     / FP32_FLOPS_PER_S * 1e3),
                "bytes": nbytes, "flops": flops,
-               # the launch configuration's vocab splits at this N and V
+               # the launch configuration: the forward's vocab splits at this
+               # N and V; the bf16 backward's vocab chunk, its chunks, dH's
+               # split-K and scratch bytes
                "fwd_splits": vc.fwd_splits(N, V), "dh_splits": vc.dh_splits(N, V)}
+        if bwd and dt == "bfloat16":
+            row.update(vocab_chunk=v_chunk, chunks=-(-V // v_chunk), dh_split_k=dh_split_k,
+                       scratch_bytes=scratch, scratch_ms=scratch_ms)
         emit(row)
         results[(name, kname)] = row
     del sets, fwd_sets, bwd_sets, lib_bwd_sets
@@ -5047,7 +5164,7 @@ def gpt2_cli_phase(work: Path) -> dict:
     steps_wall, by_kernel = _timed_then_profiled(trainer, extra)
     busy = sum(by_kernel.values())
     k2_s = {k: sum(v for n, v in by_kernel.items()
-                   if any(c in n for c in VOCAB_KERNEL_NAMES[(k, "bfloat16")]))
+                   if any(c in n for c in vocab_step_names(k, "bfloat16", GPT2_124M["n_embd"])))
             for k in _K2}
     if DEVICE == "cuda":   # the profile names the kernels the train step ran
         for k in _K2:
@@ -5670,7 +5787,7 @@ def _profiled(trainer, batch, steps: int, peak, task: str) -> dict:
     prof["k1_ms_per_step"] = _kernel_ms_per_step(
         prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")] for k in _K1})
     prof["k2_ms_per_step"] = _kernel_ms_per_step(
-        prof, {k: vocab_kernel_names(k, "bfloat16", width)[0] for k in _K2})
+        prof, {k: vocab_step_names(k, "bfloat16", width) for k in _K2})
     prof.pop("by_kernel_s")
     return prof
 
@@ -6919,13 +7036,17 @@ def main() -> int:
             "hmma_instructions": b["hmma_instructions"],
             "status": {c: row["status"] for (c, k), row in flash.items() if k == kname}})
     vocab_rows = []
+    joint_keys = ("kernel_name", "route", "max_abs_err", "kernel_ms", "kernel_event_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms", "chunks", "dh_split_k",
+                  "scratch_ms")
     for kname in _K2:
         r = vocab[(VOCAB_MAIN, kname)]
         b = build[(r["kernel_name"], None, r["hidden_dtype"])]
         vocab_rows.append({
             "name": kname, "route": "cuda",
-            "source": VOCAB_TC_SOURCE if "_tc_" in r["kernel_name"] else VOCAB_SOURCE,
-            "kernel": r["kernel_name"],
+            "source": (VOCAB_BWD_SOURCE if "_wgmma_" in r["kernel_name"] else
+                       VOCAB_TC_SOURCE if "_tc_" in r["kernel_name"] else VOCAB_SOURCE),
+            "kernel": r["kernel_name"], "kernels": r["kernels"],
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
             "launches_by_path": {"gpt2_cli": gpt2["launches"][kname],
                                  **{f"mlm/{n}": row["launches"][kname]
@@ -6948,6 +7069,11 @@ def main() -> int:
             "registers": b.get("registers"), "spill_store_bytes": b.get("spill_store_bytes"),
             "smem_bytes_per_block": b["smem_bytes_per_block"],
             "hmma_instructions": b["hmma_instructions"],
+            "hgmma_instructions": b["hgmma_instructions"],
+            # the joint backward (dH and dW from one dS) at every case
+            **({"joint_backward": {c: {k: row.get(k) for k in joint_keys}
+                                   for (c, k2), row in vocab.items() if k2 == "fused_ce_bwd"}}
+               if kname != "fused_ce_fwd" else {}),
             "status": {c: row["status"] for (c, k), row in vocab.items() if k == kname}})
     paged_row = {
         "name": "paged_decode_attention", "route": "cuda",

@@ -3,15 +3,15 @@
 // never writes the [N, V] logit matrix to device memory.
 //
 // Replaces the TPU kernels of the JAX package's `ops/pallas_vocab_ce.py`:
-// - vocab_ce_fwd_tc_kernel (bf16 hidden, tensor cores) and
-//   vocab_ce_fwd_kernel (+ vocab_ce_combine_kernel) <- `_fwd_kernel`,
+// - vocab_ce_fwd_tc_kernel (bf16 hidden, tensor cores, vocab_ce_tc.cuh)
+//   and vocab_ce_fwd_kernel (+ vocab_ce_combine_kernel) <- `_fwd_kernel`,
 //   reached through `_fused_ce_fwd_call`
-// - vocab_ce_bwd_dh_tc_kernel (bf16 hidden, tensor cores) and
-//   vocab_ce_bwd_dh_kernel (+ vocab_ce_dh_reduce_kernel) <- `_dh_kernel`,
-//   reached through `_fused_ce_bwd_call`
-// - vocab_ce_bwd_dw_tc_kernel (bf16 hidden, tensor cores) and
-//   vocab_ce_bwd_dw_kernel <- `_dw_kernel`, reached through
-//   `_fused_ce_bwd_call`
+// - bf16 hidden: one route for dH and dW together (vocab_ce_bwd.cuh: the
+//   split of W, dS on `wgmma`, the dH and dW products on `wgmma`, the dH
+//   cast) <- `_dh_kernel` and `_dw_kernel`, reached through
+//   `_fused_ce_bwd_call`; fp32 hidden: vocab_ce_bwd_dh_kernel (+
+//   vocab_ce_dh_reduce_kernel) <- `_dh_kernel` and vocab_ce_bwd_dw_kernel
+//   <- `_dw_kernel`
 // with the same contract: hidden h [N, H] in bf16 or fp32, weight W [V, H]
 // in fp32, labels [N] int32 in [0, V); logits, the running max / sum-exp /
 // label logit / logit sum and the LSE in fp32; the loss lse - label logit
@@ -26,16 +26,17 @@
 // the per-token values is a layout of that chip and is not carried over.
 //
 // Bound on an H100: operations. Each kernel does 2 * N * V * H flops (the
-// logits; the backward kernels as much again for their product) against
-// V * H * 4 bytes of W read once, so at the GPT-2 shape (N 4096, V 50257,
-// H 768) the floor is the flops over the card's peak. With bf16 hidden
-// every kernel runs on the bf16 tensor cores (989 TFLOP/s), with W split
-// into bf16 pieces that keep the fp32 products (vocab_ce_tc.cuh, which
-// notes each kernel's bound and design), while its operands fit a block's
-// shared memory: H up to 1216 for the forward and dH, 800 for dW
-// (vocab_ce_{fwd,dh,dw}_tc_smem_bytes); beyond, and with fp32 hidden,
-// every product runs in fp32 on CUDA cores (67 TFLOP/s; TF32 would not
-// keep the fp32 contract), in the kernels of this file.
+// logits; the backward as much again for each product) against V * H * 4
+// bytes of W read once, so at the GPT-2 shape (N 4096, V 50257, H 768) the
+// floor is the flops over the card's peak. With bf16 hidden every product
+// runs on the bf16 tensor cores (989 TFLOP/s), with W split into bf16
+// pieces that keep the fp32 products: the forward on `mma.sync` while its
+// 64 rows of h fit a block's shared memory (H up to 1216,
+// vocab_ce_fwd_tc_smem_bytes; vocab_ce_tc.cuh notes its bound and design),
+// the backward on `wgmma` at every H (vocab_ce_bwd.cuh, hopper_gemm.cuh).
+// The forward past H 1216, and fp32 hidden everywhere, run in fp32 on CUDA
+// cores (67 TFLOP/s; TF32 would not keep the fp32 contract), in the
+// kernels of this file.
 //
 // What the CUDA-core design does about it:
 // - the TPU's sequential vocab grid axis (and its VMEM scratch carried
@@ -63,7 +64,6 @@
 // - dH splits the vocab across blocks too (4 splits at N 4096) into fp32
 //   partial sums that a reduce kernel adds in split order and casts, so the
 //   result does not depend on the schedule; dW has ceil(V / 32) blocks.
-// TMA, `wgmma` and persistent schedules are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,9 +95,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 
 // x rounded to the element type T, as a float (`.astype(T)` before a product)
 __device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // max / sum over the 16 lanes of a half warp (the lanes sharing ty)
 __device__ __forceinline__ float row_max(float x) {
@@ -460,6 +457,7 @@ __global__ void __launch_bounds__(kThreads, 1) vocab_ce_bwd_dw_kernel(Args a) {
 }  // namespace
 
 #include "vocab_ce_tc.cuh"
+#include "vocab_ce_bwd.cuh"
 
 namespace {
 
@@ -487,6 +485,15 @@ Args make_args(const void* h, const float* w, const int* labels, int N, int V, i
   a.tiles_per_split = splits > 0 ? (vtiles + splits - 1) / splits : 0;
   a.eps = eps; a.one_minus_eps = one_minus_eps; a.eps_over_v = eps_over_v;
   return a;
+}
+
+// The dH reduce over a.splits partials, in split order, into a.out.
+template <typename T>
+int vocab_ce_dh_reduce(const Args& a, cudaStream_t st) {
+  const long long total = (long long)a.N * a.H;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  vocab_ce_dh_reduce_kernel<T><<<(int)(blocks < 65536 ? blocks : 65536), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -530,14 +537,12 @@ int vocab_ce_fwd_launch(const void* h, const float* w, const int* labels, float*
   return (int)cudaGetLastError();
 }
 
-// dH [N, H] in h's type from the forward's lse [N] and the loss cotangent
-// g [N] (both float32); scratch: float32 [splits, N, H]. bf16 hidden runs
-// on the tensor cores (vocab_ce_bwd_dh_tc_kernel) while its 32 rows of h
-// fit in shared memory (vocab_ce_dh_tc_smem_bytes >= 0, H up to 1216),
-// on CUDA cores beyond; float32 hidden on CUDA cores.
-int vocab_ce_bwd_dh_launch(const void* h, const float* w, const int* labels, const float* lse,
-                           const float* g, void* dh, float* scratch, int N, int V, int H,
-                           int splits, float eps, float one_minus_eps, float eps_over_v, int bf16,
+// dH [N, H] float32 from the forward's lse [N] and the loss cotangent
+// g [N] (both float32), float32 hidden (bf16 runs the route below);
+// scratch: float32 [splits, N, H].
+int vocab_ce_bwd_dh_launch(const float* h, const float* w, const int* labels, const float* lse,
+                           const float* g, float* dh, float* scratch, int N, int V, int H,
+                           int splits, float eps, float one_minus_eps, float eps_over_v,
                            void* stream) {
   Args a = make_args(h, w, labels, N, V, H, splits, eps, one_minus_eps, eps_over_v);
   a.lse = lse; a.g = g; a.part = scratch; a.out = dh;
@@ -545,73 +550,122 @@ int vocab_ce_bwd_dh_launch(const void* h, const float* w, const int* labels, con
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kBwdRows - 1) / kBwdRows, splits, panels(H));
-  const long long total = (long long)N * H;
-  const int reduce_blocks = (int)((total + kThreads - 1) / kThreads < 65536
-                                      ? (total + kThreads - 1) / kThreads : 65536);
-  const size_t tc_bytes = dh_tc_smem_bytes(H);
-  if (bf16 && tc_bytes <= kMaxSmem) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        vocab_ce_bwd_dh_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    vocab_ce_bwd_dh_tc_kernel<<<grid, kThreads, tc_bytes, st>>>(a);
-  } else if (bf16) {
-    vocab_ce_bwd_dh_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    vocab_ce_bwd_dh_kernel<float><<<grid, kThreads, 0, st>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
+  vocab_ce_bwd_dh_kernel<float><<<grid, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (bf16)
-    vocab_ce_dh_reduce_kernel<__nv_bfloat16><<<reduce_blocks, kThreads, 0, st>>>(a);
-  else
-    vocab_ce_dh_reduce_kernel<float><<<reduce_blocks, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return vocab_ce_dh_reduce<float>(a, st);
 }
 
-// dW [V, H] float32 from the forward's lse [N] and the loss cotangent g [N].
-// bf16 hidden runs on the tensor cores (vocab_ce_bwd_dw_tc_kernel) while
-// W's split rows and a tile of h fit in shared memory
-// (vocab_ce_dw_tc_smem_bytes >= 0, H up to 800), on CUDA cores beyond;
-// float32 hidden on CUDA cores.
-int vocab_ce_bwd_dw_launch(const void* h, const float* w, const int* labels, const float* lse,
+// dW [V, H] float32 from the forward's lse [N] and the loss cotangent g
+// [N], float32 hidden (bf16 runs the route below).
+int vocab_ce_bwd_dw_launch(const float* h, const float* w, const int* labels, const float* lse,
                            const float* g, float* dw, int N, int V, int H, float eps,
-                           float one_minus_eps, float eps_over_v, int bf16, void* stream) {
+                           float one_minus_eps, float eps_over_v, void* stream) {
   Args a = make_args(h, w, labels, N, V, H, 1, eps, one_minus_eps, eps_over_v);
   a.lse = lse; a.g = g; a.out = dw;
   const int bad = check_shapes(a);
   if (bad) return bad;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((V + kBwdRows - 1) / kBwdRows, panels(H));
-  const size_t tc_bytes = dw_tc_smem_bytes(H);
-  if (bf16 && tc_bytes <= kMaxSmem) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        vocab_ce_bwd_dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    vocab_ce_bwd_dw_tc_kernel<<<grid, kThreads, tc_bytes, st>>>(a);
-  } else if (bf16)
-    vocab_ce_bwd_dw_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  else
-    vocab_ce_bwd_dw_kernel<float><<<grid, kThreads, 0, st>>>(a);
+  vocab_ce_bwd_dw_kernel<float><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory per block of vocab_ce_fwd_tc_kernel,
-// vocab_ce_bwd_dh_tc_kernel and vocab_ce_bwd_dw_tc_kernel at depth H, or
+// The bf16-hidden backward (vocab_ce_bwd.cuh), one launch a step of a
+// vocab chunk; ops/vocab_ce.py:fused_ce_bwd runs them chunk by chunk. Every
+// bf16 operand is K-major with a row stride that is a multiple of 8
+// elements and a 16-byte aligned base (TMA's rule): H % 8 == 0.
+
+// 1. W rows v0 .. v0 + rows split into hi, mid, lo [rows, H] and, unless
+// hi_t is null, hiᵀ and midᵀ [H, ld_t].
+int vocab_ce_split_w_launch(const float* w, int H, int v0, int rows, void* hi, void* mid,
+                            void* lo, void* hi_t, void* mid_t, int ld_t, void* stream) {
+  if (rows <= 0 || H <= 0 || (hi_t != nullptr && ld_t < rows)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((rows + kTT - 1) / kTT, (H + kTT - 1) / kTT), block(kTT, 8);
+  vocab_ce_split_w_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, H, v0, rows, static_cast<bf16*>(hi), static_cast<bf16*>(mid), static_cast<bf16*>(lo),
+      static_cast<bf16*>(hi_t), static_cast<bf16*>(mid_t), ld_t);
+  return (int)cudaGetLastError();
+}
+
+// hᵀ [H, ld_t] of h [N, H].
+int vocab_ce_transpose_h_launch(const void* h, int N, int H, void* h_t, int ld_t, void* stream) {
+  if (N <= 0 || H <= 0 || ld_t < N) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kTT - 1) / kTT, (H + kTT - 1) / kTT), block(kTT, 8);
+  vocab_ce_transpose_h_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(h), N, H, static_cast<bf16*>(h_t), ld_t);
+  return (int)cudaGetLastError();
+}
+
+// 2. dS of tokens [0, N) x chunk ids v0 .. v0 + rows from h [N, H] and the
+// chunk's pieces [rows, H]: dS_hi, dS_lo [N, ld] unless ds_hi is null,
+// dS_hiᵀ [rows, ld_t] unless ds_hi_t is null.
+int vocab_ce_ds_launch(const void* h, const void* hi, const void* mid, const void* lo,
+                       const float* lse, const float* g, const int* labels, void* ds_hi,
+                       void* ds_lo, void* ds_hi_t, int N, int H, int V, int v0, int rows, int ld,
+                       int ld_t, float eps, float one_minus_eps, float eps_over_v, void* stream) {
+  DsMaps maps;
+  int err = hopper::make_operand_map(&maps.a[0], h, N, H, H);
+  const void* pieces[3] = {hi, mid, lo};
+  for (int p = 0; p < 3 && !err; ++p) err = hopper::make_operand_map(&maps.b[p], pieces[p], rows, H, H);
+  if (err) return err;
+  const hopper::GemmShape sh = {N, rows, H, 1};
+  const DsEpilogue epi = {lse, g, labels, static_cast<bf16*>(ds_hi), static_cast<bf16*>(ds_lo),
+                          static_cast<bf16*>(ds_hi_t), N, V, v0, ld, ld_t,
+                          eps, one_minus_eps, eps_over_v};
+  return hopper::launch_gemm(vocab_ce_ds_wgmma_kernel, maps, sh, epi,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// 3. dH partials part [splits, N, H] (stored when `first`, else added to)
+// += dS_hi·W_hi + dS_hi·W_mid + dS_lo·W_hi over the chunk's rows ids:
+// dS_hi, dS_lo [N, ld], hiᵀ and midᵀ [H, ld_t].
+int vocab_ce_dh_product_launch(const void* ds_hi, const void* ds_lo, const void* hi_t,
+                               const void* mid_t, float* part, int N, int H, int rows, int ld,
+                               int ld_t, int splits, int first, void* stream) {
+  if (splits <= 0) return (int)cudaErrorInvalidValue;
+  DhMaps maps;
+  int err = hopper::make_operand_map(&maps.a[0], ds_hi, N, rows, ld);
+  if (!err) err = hopper::make_operand_map(&maps.a[1], ds_lo, N, rows, ld);
+  if (!err) err = hopper::make_operand_map(&maps.b[0], hi_t, H, rows, ld_t);
+  if (!err) err = hopper::make_operand_map(&maps.b[1], mid_t, H, rows, ld_t);
+  if (err) return err;
+  const hopper::GemmShape sh = {N, H, rows, splits};
+  const DhEpilogue epi = {part, N, H, first};
+  return hopper::launch_gemm(vocab_ce_dh_wgmma_kernel, maps, sh, epi,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// 4. dW rows of the chunk, out [rows, H] fp32 (row stride H), = dS_hiᵀ·h
+// from dS_hiᵀ [rows, ld_t] and hᵀ [H, ld_t] (K = N).
+int vocab_ce_dw_product_launch(const void* ds_hi_t, const void* h_t, float* out, int N, int H,
+                               int rows, int ld_t, void* stream) {
+  DwMaps maps;
+  int err = hopper::make_operand_map(&maps.a[0], ds_hi_t, rows, N, ld_t);
+  if (!err) err = hopper::make_operand_map(&maps.b[0], h_t, H, N, ld_t);
+  if (err) return err;
+  const hopper::GemmShape sh = {rows, H, N, 1};
+  const DwEpilogue epi = {out, rows, H};
+  return hopper::launch_gemm(vocab_ce_dw_wgmma_kernel, maps, sh, epi,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// dH [N, H] bf16: the splits' partials summed in split order and cast.
+int vocab_ce_dh_cast_launch(const float* part, void* dh, int N, int H, int splits, void* stream) {
+  Args a = {};
+  a.part = const_cast<float*>(part); a.out = dh; a.N = N; a.H = H; a.splits = splits;
+  return vocab_ce_dh_reduce<__nv_bfloat16>(a, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory per block of vocab_ce_fwd_tc_kernel at depth H, or
 // -1 where it does not fit a block (bf16 hidden then runs on CUDA cores).
 long long vocab_ce_fwd_tc_smem_bytes(int H) {
   const size_t bytes = fwd_tc_smem_bytes(H);
   return bytes <= kMaxSmem ? (long long)bytes : -1;
 }
 
-long long vocab_ce_dh_tc_smem_bytes(int H) {
-  const size_t bytes = dh_tc_smem_bytes(H);
-  return bytes <= kMaxSmem ? (long long)bytes : -1;
-}
-
-long long vocab_ce_dw_tc_smem_bytes(int H) {
-  const size_t bytes = dw_tc_smem_bytes(H);
-  return bytes <= kMaxSmem ? (long long)bytes : -1;
-}
+// Dynamic shared memory per block of each `wgmma` kernel of the backward
+// (the stage ring, its alignment and its barriers), whatever H.
+long long vocab_ce_wgmma_smem_bytes() { return hopper::kSmemBytes; }
 
 const char* vocab_ce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,20 +1,27 @@
 """Fused LM head + cross-entropy: the hand-written CUDA kernels of its
-forward, dH and dW (``csrc/vocab_ce.cu``, with the tensor-core ones in
-``csrc/vocab_ce_tc.cuh``), their ctypes wrappers, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins them.
+forward, dH and dW (``csrc/vocab_ce.cu``, with the tensor-core forward in
+``csrc/vocab_ce_tc.cuh`` and the bf16 backward in ``csrc/vocab_ce_bwd.cuh``
+on the GEMM core of ``csrc/hopper_gemm.cuh``), their ctypes wrappers, their
+plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of the JAX package's ``ops/pallas_vocab_ce.py``:
 
-========================  ==============================  =============================
-wrapper                   CUDA kernel                     TPU kernel it replaces
-========================  ==============================  =============================
-:func:`fused_ce_fwd`      ``vocab_ce_fwd_tc_kernel``,     ``_fwd_kernel`` (``_fused_ce_fwd_call``)
+========================  ===================================  =============================
+wrapper                   CUDA kernels                         TPU kernel it replaces
+========================  ===================================  =============================
+:func:`fused_ce_fwd`      ``vocab_ce_fwd_tc_kernel``,          ``_fwd_kernel`` (``_fused_ce_fwd_call``)
                           ``vocab_ce_fwd_kernel``
-:func:`fused_ce_bwd_dh`   ``vocab_ce_bwd_dh_tc_kernel``,  ``_dh_kernel`` (``_fused_ce_bwd_call``)
-                          ``vocab_ce_bwd_dh_kernel``
-:func:`fused_ce_bwd_dw`   ``vocab_ce_bwd_dw_tc_kernel``,  ``_dw_kernel`` (``_fused_ce_bwd_call``)
+:func:`fused_ce_bwd`      bf16: ``vocab_ce_split_w_kernel``,   ``_dh_kernel`` and ``_dw_kernel``
+                          ``vocab_ce_ds_wgmma_kernel``,        (``_fused_ce_bwd_call``)
+                          ``vocab_ce_dh_wgmma_kernel``,
+                          ``vocab_ce_dw_wgmma_kernel``,
+                          ``vocab_ce_transpose_h_kernel``,
+                          ``vocab_ce_dh_reduce_kernel``;
+                          fp32: ``vocab_ce_bwd_dh_kernel``,
                           ``vocab_ce_bwd_dw_kernel``
-========================  ==============================  =============================
+:func:`fused_ce_bwd_dh`   :func:`fused_ce_bwd` for dH alone    ``_dh_kernel``
+:func:`fused_ce_bwd_dw`   :func:`fused_ce_bwd` for dW alone    ``_dw_kernel``
+========================  ===================================  =============================
 
 Contract (the JAX kernel's): ``hidden`` ``[N, H]`` in bfloat16 or float32,
 ``weight`` ``[V, H]`` in float32 (the tied embedding in its param dtype),
@@ -29,18 +36,22 @@ back in ``hidden``'s dtype, dW in ``weight``'s. Any other pair of dtypes
 raises.
 
 What bounds the kernels on an H100 and what their design does about it
-is written in ``csrc/vocab_ce.cu`` and ``csrc/vocab_ce_tc.cuh``: they are
-bound by operations. With bf16 hidden all three (the ``_tc_`` kernels) run
-on the bf16 tensor cores with W split into three bf16 pieces that keep the
-fp32 logits (:func:`split_bf16` is the split; dH splits dS into two as
-well), while their operands fit a block's shared memory
-(:func:`tc_smem_bytes`: H up to 1216 for the forward and dH, 800 for dW);
-beyond that, and with float32 hidden, they run in fp32 on CUDA cores.
+is written in the CUDA sources: they are bound by operations. With bf16
+hidden every product runs on the bf16 tensor cores with W split into
+three bf16 pieces that keep the fp32 logits (:func:`split_bf16` is the
+split): the forward on ``mma.sync`` while its 64 rows of h fit a block's
+shared memory (:func:`tc_smem_bytes`: H up to 1216), and the backward at
+every H as one route for dH and dW (:func:`fused_ce_bwd`): the vocab in
+chunks of Vc ids (:func:`bwd_plan`), each chunk's W split once, one dS a
+chunk on ``wgmma`` shared by the dH and dW products on ``wgmma`` (7 bf16
+passes of ``2·N·V·H`` where separate dH and dW kernels take 10). The
+forward past H 1216 and float32 hidden run in fp32 on CUDA cores.
 
 Each wrapper launches its kernels for CUDA tensors and raises for anything
 they cannot take; it uses the plain version only for tensors on the CPU.
-``fused_ce_fwd.launches``, ``fused_ce_bwd_dh.launches`` and
-``fused_ce_bwd_dw.launches`` count wrapper calls that launched.
+``fused_ce_fwd.launches`` counts forward calls that launched,
+``fused_ce_bwd_dh.launches`` and ``fused_ce_bwd_dw.launches`` backward
+calls that computed dH and dW.
 """
 
 from __future__ import annotations
@@ -56,6 +67,13 @@ _BWD_ROWS = 32            # tokens per dH block
 _FWD_TARGET_BLOCKS = 1024
 _DH_TARGET_BLOCKS = 512
 _MAX_SMEM = 232448        # dynamic shared memory an H100 block may use
+# the bf16 backward (csrc/vocab_ce_bwd.cuh, csrc/hopper_gemm.cuh)
+BWD_SCRATCH_BYTES = 256 << 20   # the scratch budget that sets the vocab chunk
+_GEMM_TILE = 128          # rows and columns of a wgmma tile (kBM, kBN)
+_GEMM_DEPTH = 64          # depth of a ring stage (kBK)
+_GEMM_SMEM = 196608 + 1024 + 256   # its ring, alignment and barriers (kSmemBytes)
+_SMS = 132                # streaming multiprocessors of an H100 SXM
+_MAX_DH_SPLITS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -95,34 +113,74 @@ def dh_splits(n_tok: int, vocab: int) -> int:
 
 def tc_smem_bytes(kernel: str, h_dim: int) -> int:
     """Dynamic shared memory a block of the tensor-core kernel of
-    ``kernel`` (``"fwd"``, ``"dh"`` or ``"dw"``) takes at depth ``h_dim``,
-    or -1 where it does not fit a block and bf16 hidden runs on the CUDA
-    cores: the mirror of ``vocab_ce_{kernel}_tc_smem_bytes`` in
-    ``csrc/vocab_ce.cu``. The forward holds 64 rows of h (H rounded up to
-    a 64-column chunk, 16 bytes of row pad), four fp32 partial logit tiles
-    of 64 x 40 and two split W chunks; dH 32 rows of h, 32 x 40 partials,
-    a split W panel and chunks, dS and the token statistics; dW W's three
-    pieces and a 32-row h tile at H rounded up to 16, 32 x 40 partials,
-    dSᵀ and the token statistics."""
-    f32, b16 = 4, 2
-    tile, chunk, kq = 32, 64, 4          # kTcRows = kTcVocab, kTcChunk, kTcKq
-    ldr = lds = tile + 8                 # kTcLdr, kTcLds
-    ldc, ldp = chunk + 8, 768 + 8        # kTcLdc, kTcLdp
-    if kernel in ("fwd", "dh"):
-        ldh = -(-h_dim // chunk) * chunk + 8
-        if kernel == "fwd":
-            rows = _FWD_ROWS
-            size = (kq * rows * ldr * f32 + rows * ldh * b16 + 6 * tile * ldc * b16
-                    + rows * 4)
-        else:
-            size = (kq * tile * ldr * f32 + tile * ldh * b16 + 2 * tile * ldp * b16
-                    + 6 * tile * ldc * b16 + 2 * tile * lds * b16 + 3 * tile * 4)
-    elif kernel == "dw":
-        ldw = -(-h_dim // 16) * 16 + 8
-        size = kq * tile * ldr * f32 + 4 * tile * ldw * b16 + tile * lds * b16 + 3 * tile * 4
-    else:
+    ``kernel`` takes at depth ``h_dim``, or -1 where it does not fit a
+    block: the mirror of the library's ``vocab_ce_fwd_tc_smem_bytes`` and
+    ``vocab_ce_wgmma_smem_bytes`` (``csrc/vocab_ce.cu``). ``"fwd"``: the
+    forward holds 64 rows of h (H rounded up to a 64-column chunk, 16
+    bytes of row pad), four fp32 partial logit tiles of 64 x 40 and two
+    split W chunks; past H 1216 bf16 hidden runs its forward on CUDA
+    cores. ``"dh"`` and ``"dw"``: each ``wgmma`` kernel of the backward
+    holds its stage ring (192 KB), the ring's 1024-byte alignment and its
+    barriers whatever H, so the backward takes every H."""
+    if kernel in ("dh", "dw"):
+        return _GEMM_SMEM
+    if kernel != "fwd":
         raise ValueError(f"no tensor-core kernel {kernel!r}")
+    f32, b16 = 4, 2
+    tile, chunk, kq = 32, 64, 4          # kTcVocab, kTcChunk, kTcKq
+    ldr, ldc = tile + 8, chunk + 8       # kTcLdr, kTcLdc
+    ldh = -(-h_dim // chunk) * chunk + 8
+    size = kq * _FWD_ROWS * ldr * f32 + _FWD_ROWS * ldh * b16 + 6 * tile * ldc * b16 + _FWD_ROWS * 4
     return size if size <= _MAX_SMEM else -1
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _wave_use(tiles: int) -> float:
+    """The share of the SMs' block slots that ``tiles`` persistent tiles
+    keep busy over their waves."""
+    return tiles / (-(-tiles // _SMS) * _SMS)
+
+
+def bwd_plan(n_tok: int, vocab: int, h_dim: int, need_dh: bool = True,
+             need_dw: bool = True) -> tuple[int, int, int]:
+    """``(Vc, splits, scratch bytes)`` of the bf16 backward at ``n_tok``
+    tokens, ``vocab`` ids and depth ``h_dim`` (a multiple of 8: the wrapper
+    pads). ``splits``: the K ranges of the dH product (split-K), the fewest
+    that keep 85% of the SMs' slots busy over the ``ceil(N/128)·ceil(H/128)``
+    output tiles, each range at least 4 stages of the vocab deep, at most
+    16. ``Vc``: the vocab chunk, a multiple of 128, the largest whose
+    scratch for dH and dW together stays within :data:`BWD_SCRATCH_BYTES`
+    (at least 128), then evened out over the chunks. Vc and splits do not
+    depend on what is asked, so a lone dH or dW is bit for bit the joint
+    call's; the scratch is what the call asks for, every buffer a
+    ``torch.empty`` in the wrapper: W's hi, mid, lo ``[Vc, H]`` bf16; for dH
+    W's hiᵀ, midᵀ ``[H, Vc]``, dS_hi and dS_lo ``[N, Vc]`` and the fp32
+    partials ``[splits, N, H]``; for dW dS_hiᵀ ``[Vc, N8]`` and hᵀ ``[H,
+    N8]`` (N8: N rounded up to 8)."""
+    n8 = _ceil(n_tok, 8)
+    tiles = -(-n_tok // _GEMM_TILE) * -(-h_dim // _GEMM_TILE)
+    depth = -(-vocab // _GEMM_DEPTH)
+    splits = 1
+    while (splits < _MAX_DH_SPLITS and _wave_use(tiles * splits) < 0.85
+           and depth // (splits + 1) >= 4):
+        splits += 1
+
+    def scratch(dh: bool, dw: bool) -> tuple[int, int]:
+        fixed = (splits * n_tok * h_dim * 4 if dh else 0) + (h_dim * n8 * 2 if dw else 0)
+        per_id = 3 * h_dim * 2 + (2 * h_dim * 2 + 2 * n_tok * 2 if dh else 0) + (
+            n8 * 2 if dw else 0)
+        return fixed, per_id
+
+    fixed, per_id = scratch(True, True)
+    vc_max = max(_GEMM_TILE, (BWD_SCRATCH_BYTES - fixed) // per_id // _GEMM_TILE * _GEMM_TILE)
+    padded = _ceil(vocab, _GEMM_TILE)
+    chunks = -(-padded // vc_max)
+    vc = _ceil(-(-padded // chunks), _GEMM_TILE)
+    fixed, per_id = scratch(need_dh, need_dw)
+    return vc, splits, fixed + per_id * vc
 
 
 def _splits(row_tiles: int, vocab: int, target: int) -> int:
@@ -212,15 +270,24 @@ def _kernel_lib():
     if lib.vocab_ce_fwd_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vocab_ce_fwd_launch.argtypes = [p] * 8 + [i] * 4 + [f] * 3 + [i, p]
-        lib.vocab_ce_bwd_dh_launch.argtypes = [p] * 7 + [i] * 4 + [f] * 3 + [i, p]
-        lib.vocab_ce_bwd_dw_launch.argtypes = [p] * 6 + [i] * 3 + [f] * 3 + [i, p]
+        lib.vocab_ce_bwd_dh_launch.argtypes = [p] * 7 + [i] * 4 + [f] * 3 + [p]
+        lib.vocab_ce_bwd_dw_launch.argtypes = [p] * 6 + [i] * 3 + [f] * 3 + [p]
+        lib.vocab_ce_split_w_launch.argtypes = [p, i, i, i] + [p] * 5 + [i, p]
+        lib.vocab_ce_transpose_h_launch.argtypes = [p, i, i, p, i, p]
+        lib.vocab_ce_ds_launch.argtypes = [p] * 10 + [i] * 7 + [f] * 3 + [p]
+        lib.vocab_ce_dh_product_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.vocab_ce_dw_product_launch.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.vocab_ce_dh_cast_launch.argtypes = [p, p, i, i, i, p]
         for fn in (lib.vocab_ce_fwd_launch, lib.vocab_ce_bwd_dh_launch,
-                   lib.vocab_ce_bwd_dw_launch):
+                   lib.vocab_ce_bwd_dw_launch, lib.vocab_ce_split_w_launch,
+                   lib.vocab_ce_transpose_h_launch, lib.vocab_ce_ds_launch,
+                   lib.vocab_ce_dh_product_launch, lib.vocab_ce_dw_product_launch,
+                   lib.vocab_ce_dh_cast_launch):
             fn.restype = ctypes.c_int
-        for fn in (lib.vocab_ce_fwd_tc_smem_bytes, lib.vocab_ce_dh_tc_smem_bytes,
-                   lib.vocab_ce_dw_tc_smem_bytes):
-            fn.argtypes = [i]
-            fn.restype = ctypes.c_longlong
+        lib.vocab_ce_fwd_tc_smem_bytes.argtypes = [i]
+        lib.vocab_ce_fwd_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.vocab_ce_wgmma_smem_bytes.argtypes = []
+        lib.vocab_ce_wgmma_smem_bytes.restype = ctypes.c_longlong
         lib.vocab_ce_error_string.argtypes = [ctypes.c_int]
         lib.vocab_ce_error_string.restype = ctypes.c_char_p
     return lib
@@ -294,49 +361,133 @@ def fused_ce_fwd(hidden, weight, labels, label_smoothing: float = 0.0):
     return loss, lse, pred
 
 
-def fused_ce_bwd_dh(hidden, weight, labels, lse, g, label_smoothing: float = 0.0):
-    """dH in ``hidden``'s dtype. CUDA tensors go through
-    ``vocab_ce_bwd_dh_tc_kernel`` (bf16 hidden) or ``vocab_ce_bwd_dh_kernel``
-    (float32 hidden), and their split reduce; CPU tensors through
-    :func:`fused_ce_bwd_dh_reference`."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_fp32(lib, hidden, weight, lab, lse, g, eps, need_dh, need_dw):
+    """float32 hidden: ``vocab_ce_bwd_dh_kernel`` (+ its split reduce) and
+    ``vocab_ce_bwd_dw_kernel`` on CUDA cores."""
+    (N, H), V = hidden.shape, weight.shape[0]
+    tail = _eps_tail(eps, V)
+    dh = dw = None
+    if need_dh:
+        splits = dh_splits(N, V)
+        dh = torch.empty_like(hidden)
+        scratch = torch.empty(splits * N * H, dtype=torch.float32, device=hidden.device)
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_bwd_dh_launch(
+            hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dh.data_ptr(), scratch.data_ptr(), N, V, H, splits, *tail,
+            _stream(hidden)))
+    if need_dw:
+        dw = torch.empty_like(weight)
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_bwd_dw_launch(
+            hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dw.data_ptr(), N, V, H, *tail, _stream(hidden)))
+    return dh, dw
+
+
+def _bwd_bf16(lib, hidden, weight, lab, lse, g, eps, need_dh, need_dw):
+    """bf16 hidden: the chunked route of ``csrc/vocab_ce_bwd.cuh``. Per
+    chunk of Vc ids (:func:`bwd_plan`): the split of W, dS on ``wgmma``
+    (one dS for both products), the dH product into fp32 partials and the
+    dW product into dW's rows; then the dH partials' sum and cast. TMA
+    needs 16-byte rows, so an H that is not a multiple of 8 is padded here
+    with zero columns of h and W (which add nothing to any product) and dH
+    and dW are sliced back: a layout step, the kernels run all the same.
+    No model's H is such a width (the MLM fold widens H to a multiple of
+    8: ``train/trainer.py:bias_fold_width``)."""
+    (N, H), V = hidden.shape, weight.shape[0]
+    h8 = _ceil(H, 8)
+    if h8 != H:
+        hidden = torch.nn.functional.pad(hidden, (0, h8 - H))
+        weight = torch.nn.functional.pad(weight, (0, h8 - H))
+    elif hidden.data_ptr() % 16:
+        hidden = hidden.clone()   # a fresh allocation is 16-byte aligned
+    vc, splits, _ = bwd_plan(N, V, h8, need_dh, need_dw)
+    n8 = _ceil(N, 8)
+    dev, bf = hidden.device, torch.bfloat16
+    stream = _stream(hidden)
+    hi, mid, lo = (torch.empty(vc, h8, dtype=bf, device=dev) for _ in range(3))
+    hi_t = mid_t = ds_hi = ds_lo = part = ds_hi_t = h_t = dw = None
+    if need_dh:
+        hi_t, mid_t = (torch.empty(h8, vc, dtype=bf, device=dev) for _ in range(2))
+        ds_hi, ds_lo = (torch.empty(N, vc, dtype=bf, device=dev) for _ in range(2))
+        part = torch.empty(splits, N, h8, dtype=torch.float32, device=dev)
+    if need_dw:
+        ds_hi_t = torch.empty(vc, n8, dtype=bf, device=dev)
+        h_t = torch.empty(h8, n8, dtype=bf, device=dev)
+        dw = torch.empty(V, h8, dtype=torch.float32, device=dev)
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_transpose_h_launch(
+            hidden.data_ptr(), N, h8, h_t.data_ptr(), n8, stream))
+    tail = _eps_tail(eps, V)
+    for v0 in range(0, V, vc):
+        rows = min(vc, V - v0)
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_split_w_launch(
+            weight.data_ptr(), h8, v0, rows, hi.data_ptr(), mid.data_ptr(), lo.data_ptr(),
+            _ptr(hi_t), _ptr(mid_t), vc, stream))
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_ds_launch(
+            hidden.data_ptr(), hi.data_ptr(), mid.data_ptr(), lo.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), lab.data_ptr(), _ptr(ds_hi), _ptr(ds_lo), _ptr(ds_hi_t), N, h8, V,
+            v0, rows, vc, n8, *tail, stream))
+        if need_dh:
+            _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_dh_product_launch(
+                ds_hi.data_ptr(), ds_lo.data_ptr(), hi_t.data_ptr(), mid_t.data_ptr(),
+                part.data_ptr(), N, h8, rows, vc, vc, splits, int(v0 == 0), stream))
+        if need_dw:
+            _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_dw_product_launch(
+                ds_hi_t.data_ptr(), h_t.data_ptr(), dw.data_ptr() + v0 * h8 * 4, N, h8, rows,
+                n8, stream))
+    dh = None
+    if need_dh:
+        dh = torch.empty(N, h8, dtype=bf, device=dev)
+        _raise_on(lib, "fused_ce_bwd", lib.vocab_ce_dh_cast_launch(
+            part.data_ptr(), dh.data_ptr(), N, h8, splits, stream))
+    if h8 != H:
+        dh = None if dh is None else dh[:, :H].contiguous()
+        dw = None if dw is None else dw[:, :H].contiguous()
+    return dh, dw
+
+
+def fused_ce_bwd(hidden, weight, labels, lse, g, label_smoothing: float = 0.0,
+                 need_dh: bool = True, need_dw: bool = True):
+    """The backward, ``(dH in hidden's dtype or None, dW in weight's dtype
+    or None)``, computing only what ``need_dh`` and ``need_dw`` ask: the
+    counterpart of JAX's ``_fused_ce_bwd_call``. CUDA tensors with bf16
+    hidden go through the chunked ``wgmma`` route (``_bwd_bf16``: one dS a
+    vocab chunk shared by dH and dW), with float32 hidden through the
+    CUDA-core kernels; CPU tensors through :func:`fused_ce_bwd_dh_reference`
+    and :func:`fused_ce_bwd_dw_reference`. Counts one launch on
+    ``fused_ce_bwd_dh`` when it computed dH and on ``fused_ce_bwd_dw`` when
+    it computed dW."""
     _check(hidden, weight, labels)
     eps = _smoothing(label_smoothing)
     if hidden.device.type == "cpu":
-        return fused_ce_bwd_dh_reference(hidden, weight, labels, lse, g, eps)
+        return (fused_ce_bwd_dh_reference(hidden, weight, labels, lse, g, eps) if need_dh
+                else None,
+                fused_ce_bwd_dw_reference(hidden, weight, labels, lse, g, eps) if need_dw
+                else None)
+    if not (need_dh or need_dw):
+        return None, None
     lse, g = lse.contiguous(), g.contiguous()
-    lib, lab = _kernel_args("fused_ce_bwd_dh", hidden, weight, labels, (lse, g))
-    (N, H), V = hidden.shape, weight.shape[0]
-    splits = dh_splits(N, V)
-    dh = torch.empty_like(hidden)
-    scratch = torch.empty(splits * N * H, dtype=torch.float32, device=hidden.device)
-    err = lib.vocab_ce_bwd_dh_launch(
-        hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), dh.data_ptr(), scratch.data_ptr(), N, V, H, splits,
-        *_eps_tail(eps, V), int(hidden.dtype == torch.bfloat16), _stream(hidden))
-    _raise_on(lib, "fused_ce_bwd_dh", err)
-    fused_ce_bwd_dh.launches += 1
-    return dh
+    lib, lab = _kernel_args("fused_ce_bwd", hidden, weight, labels, (lse, g))
+    route = _bwd_bf16 if hidden.dtype == torch.bfloat16 else _bwd_fp32
+    dh, dw = route(lib, hidden, weight, lab, lse, g, eps, need_dh, need_dw)
+    fused_ce_bwd_dh.launches += int(need_dh)
+    fused_ce_bwd_dw.launches += int(need_dw)
+    return dh, dw
+
+
+def fused_ce_bwd_dh(hidden, weight, labels, lse, g, label_smoothing: float = 0.0):
+    """dH in ``hidden``'s dtype: :func:`fused_ce_bwd` without dW (CPU
+    tensors through :func:`fused_ce_bwd_dh_reference`)."""
+    return fused_ce_bwd(hidden, weight, labels, lse, g, label_smoothing, need_dw=False)[0]
 
 
 def fused_ce_bwd_dw(hidden, weight, labels, lse, g, label_smoothing: float = 0.0):
-    """dW in ``weight``'s dtype. CUDA tensors go through
-    ``vocab_ce_bwd_dw_tc_kernel`` (bf16 hidden) or ``vocab_ce_bwd_dw_kernel``
-    (float32 hidden); CPU tensors through :func:`fused_ce_bwd_dw_reference`."""
-    _check(hidden, weight, labels)
-    eps = _smoothing(label_smoothing)
-    if hidden.device.type == "cpu":
-        return fused_ce_bwd_dw_reference(hidden, weight, labels, lse, g, eps)
-    lse, g = lse.contiguous(), g.contiguous()
-    lib, lab = _kernel_args("fused_ce_bwd_dw", hidden, weight, labels, (lse, g))
-    (N, H), V = hidden.shape, weight.shape[0]
-    dw = torch.empty_like(weight)
-    err = lib.vocab_ce_bwd_dw_launch(
-        hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), dw.data_ptr(), N, V, H, *_eps_tail(eps, V),
-        int(hidden.dtype == torch.bfloat16), _stream(hidden))
-    _raise_on(lib, "fused_ce_bwd_dw", err)
-    fused_ce_bwd_dw.launches += 1
-    return dw
+    """dW in ``weight``'s dtype: :func:`fused_ce_bwd` without dH (CPU
+    tensors through :func:`fused_ce_bwd_dw_reference`)."""
+    return fused_ce_bwd(hidden, weight, labels, lse, g, label_smoothing, need_dh=False)[1]
 
 
 fused_ce_fwd.launches = 0
@@ -349,9 +500,9 @@ fused_ce_bwd_dw.launches = 0
 # ---------------------------------------------------------------------------
 
 class FusedVocabCE(torch.autograd.Function):
-    """``(loss, pred)`` whose backward is the dH and dW kernels; saves only
-    the inputs and the LSE (no [N, V] residual). ``pred`` takes no
-    gradient."""
+    """``(loss, pred)`` whose backward is one :func:`fused_ce_bwd` for the
+    gradients asked; saves only the inputs and the LSE (no [N, V]
+    residual). ``pred`` takes no gradient."""
 
     @staticmethod
     def forward(ctx, hidden, weight, labels, label_smoothing):
@@ -366,11 +517,8 @@ class FusedVocabCE(torch.autograd.Function):
         hidden, weight, labels, lse = ctx.saved_tensors
         eps = ctx.label_smoothing
         g = g_loss.float().contiguous()
-        dh = dw = None
-        if ctx.needs_input_grad[0]:
-            dh = fused_ce_bwd_dh(hidden, weight, labels, lse, g, eps)
-        if ctx.needs_input_grad[1]:
-            dw = fused_ce_bwd_dw(hidden, weight, labels, lse, g, eps)
+        dh, dw = fused_ce_bwd(hidden, weight, labels, lse, g, eps,
+                              need_dh=ctx.needs_input_grad[0], need_dw=ctx.needs_input_grad[1])
         return dh, dw, None, None
 
 

@@ -98,7 +98,7 @@ def on_cpu(monkeypatch):
         encoder_attention_heads=4, decoder_attention_heads=4, encoder_ffn_dim=128,
         decoder_ffn_dim=128))
     for mod, names in ((fa, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                       (vc, ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))):
+                       (vc, ("fused_ce_fwd",))):
         for name in names:
             real = getattr(mod, name)
 
@@ -108,6 +108,18 @@ def on_cpu(monkeypatch):
 
             counted.launches = 0
             monkeypatch.setattr(mod, name, counted)
+    # the backward: one call counts dH and dW as it is asked for them, as on
+    # the card (``fused_ce_bwd_dh`` and ``fused_ce_bwd_dw`` go through it)
+    real_bwd = vc.fused_ce_bwd
+    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        monkeypatch.setattr(getattr(vc, name), "launches", 0)
+
+    def counted_bwd(*a, need_dh=True, need_dw=True, **kw):
+        vc.fused_ce_bwd_dh.launches += int(need_dh)
+        vc.fused_ce_bwd_dw.launches += int(need_dw)
+        return real_bwd(*a, need_dh=need_dh, need_dw=need_dw, **kw)
+
+    monkeypatch.setattr(vc, "fused_ce_bwd", counted_bwd)
 
 
 def test_kernel_phase_on_cpu(on_cpu, monkeypatch, capsys):
@@ -351,24 +363,28 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("ragged", 50, 101, 24, "float32", 0.0, False),
         ("smooth0.1", 32, 200, 16, "float32", 0.1, False),
         ("ties", 32, 130, 16, "float32", 0.0, True),
-        # the MLM cases' routes: dW on the tensor cores at 776, past its cap
-        # (800) on the CUDA cores
+        # the MLM cases' routes: the forward on the tensor cores, the
+        # backward on the wgmma route at every H
         ("mlm_base_bf16", 16, 300, 776, "bfloat16", 0.0, False),
         ("mlm_large_bf16", 16, 300, 808, "bfloat16", 0.0, False),
         ("mlm_eval_bf16", 8, 300, 776, "bfloat16", 0.0, False)])
     rows = chip_smoke.vocab_ce_phase()
-    assert len(rows) == 21 and all(r["status"] == "pass" for r in rows.values())
-    for kname, kernel in (("fused_ce_fwd", "vocab_ce_fwd_tc_kernel"),
-                          ("fused_ce_bwd_dh", "vocab_ce_bwd_dh_tc_kernel"),
-                          ("fused_ce_bwd_dw", "vocab_ce_bwd_dw_tc_kernel")):
-        assert rows[("gpt2_bf16", kname)]["kernel_name"] == kernel
-        assert rows[("ragged", kname)]["kernel_name"] == kernel.replace("_tc_", "_")
-        assert rows[("mlm_base_bf16", kname)]["kernel_name"] == kernel
-        assert rows[("mlm_eval_bf16", kname)]["kernel_name"] == kernel
-        assert rows[("mlm_large_bf16", kname)]["kernel_name"] == (
-            "vocab_ce_bwd_dw_kernel" if kname == "fused_ce_bwd_dw" else kernel)
-    assert rows[("mlm_large_bf16", "fused_ce_bwd_dw")]["route"] == "CUDA cores"
-    assert rows[("mlm_base_bf16", "fused_ce_bwd_dw")]["route"] == "tensor cores"
+    assert len(rows) == 28 and all(r["status"] == "pass" for r in rows.values())
+    for kname, kernel, fp32 in (
+            ("fused_ce_fwd", "vocab_ce_fwd_tc_kernel", "vocab_ce_fwd_kernel"),
+            ("fused_ce_bwd_dh", "vocab_ce_dh_wgmma_kernel", "vocab_ce_bwd_dh_kernel"),
+            ("fused_ce_bwd_dw", "vocab_ce_dw_wgmma_kernel", "vocab_ce_bwd_dw_kernel"),
+            ("fused_ce_bwd", "vocab_ce_ds_wgmma_kernel", "vocab_ce_bwd_dh_kernel")):
+        for case in ("gpt2_bf16", "mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16"):
+            assert rows[(case, kname)]["kernel_name"] == kernel
+            assert rows[(case, kname)]["route"] == ("tensor cores" if kname == "fused_ce_fwd"
+                                                     else "wgmma")
+        assert rows[("ragged", kname)]["kernel_name"] == fp32
+        assert rows[("ragged", kname)]["route"] == "CUDA cores"
+    joint = rows[("gpt2_bf16", "fused_ce_bwd")]
+    assert joint["kernels"] == list(chip_smoke.VOCAB_KERNEL_NAMES[("fused_ce_bwd", "bfloat16")])
+    assert joint["chunks"] == 1 and joint["scratch_ms"] > 0 and "chunks" not in rows[
+        ("ragged", "fused_ce_bwd")]
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
@@ -376,19 +392,32 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         assert row["bound_fp32_ms"] >= row["bound_ms"]
     # the bound: every input read and every output written once; with bf16
     # hidden the split route's bf16 tensor-core passes of 2·N·V·H (3 for
-    # the logits, 6 for dH, 4 for dW) at 989 TFLOP/s, with fp32 hidden one
-    # pass (two for the backward) at 67 TFLOP/s
+    # the logits, 6 for dH, 4 for dW, 7 for both from one dS) at 989
+    # TFLOP/s, with fp32 hidden one pass (two for dH or dW, three for both)
+    # at 67 TFLOP/s
     logits = 2 * 4096 * 50257 * 768
     work = chip_smoke._ce_work(("c", 4096, 50257, 768, "bfloat16", 0.0, False))
     assert {k: w[1] for k, w in work.items()} == {
-        "fused_ce_fwd": 3 * logits, "fused_ce_bwd_dh": 6 * logits, "fused_ce_bwd_dw": 4 * logits}
+        "fused_ce_fwd": 3 * logits, "fused_ce_bwd_dh": 6 * logits, "fused_ce_bwd_dw": 4 * logits,
+        "fused_ce_bwd": 7 * logits}
     assert {w[2] for w in work.values()} == {989e12}
-    assert [round(w[1] / w[2] * 1e3, 3) for w in work.values()] == [0.959, 1.918, 1.279]
+    assert [round(w[1] / w[2] * 1e3, 3) for w in work.values()] == [0.959, 1.918, 1.279, 2.238]
     assert work["fused_ce_bwd_dh"][0] == (4096 * 768 * 2 * 2 + 50257 * 768 * 4 + 3 * 4096 * 4)
+    assert work["fused_ce_bwd"][0] == work["fused_ce_bwd_dh"][0] + 50257 * 768 * 4
     work = chip_smoke._ce_work(("c", 4096, 50257, 768, "float32", 0.0, False))
     assert {k: w[1:] for k, w in work.items()} == {
         "fused_ce_fwd": (logits, 67e12), "fused_ce_bwd_dh": (2 * logits, 67e12),
-        "fused_ce_bwd_dw": (2 * logits, 67e12)}
+        "fused_ce_bwd_dw": (2 * logits, 67e12), "fused_ce_bwd": (3 * logits, 67e12)}
+    # the bf16 backward's launches a call: the split, dS and the products
+    # once a vocab chunk, hᵀ and the dH cast once
+    llama3 = ("c", 1024, 128256, 4096, "bfloat16", 0.0, False)
+    chunks = -(-128256 // vc.bwd_plan(1024, 128256, 4096)[0])
+    assert chunks == 26
+    assert chip_smoke.vocab_launch_counts("fused_ce_bwd", llama3) == {
+        "vocab_ce_ds_wgmma_kernel": chunks, "vocab_ce_dh_wgmma_kernel": chunks,
+        "vocab_ce_dw_wgmma_kernel": chunks, "vocab_ce_split_w_kernel": chunks,
+        "vocab_ce_transpose_h_kernel": 1, "vocab_ce_dh_reduce_kernel": 1}
+    assert set(chip_smoke.vocab_launch_counts("fused_ce_fwd", llama3).values()) == {1}
     # limits: a bf16 output against max|want| alone, fp32 against max(1, max|want|)
     bf16, fp32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
     assert chip_smoke._limit(bf16, 0.09) == 0.09 / 64
@@ -498,7 +527,7 @@ def test_flash_kernel_names_cover_every_wrapper_and_dtype():
     assert set(names) == {(k, dt) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                           for dt in ("float32", "bfloat16")}
     assert all(("_tc_" in n) == (dt == "bfloat16") for (k, dt), n in names.items())
-    held = {k for k, _ in chip_smoke.TC_KERNELS}
+    held = {k for k, *_ in chip_smoke.TC_KERNELS}
     assert {n for n in names.values() if "_tc_" in n} <= held
     cases = {c[0]: c for c in chip_smoke.FLASH_CASES}
     for name in ("ragged200", "causal", "causal_window64", "pad_row", "dmask"):
@@ -508,44 +537,75 @@ def test_flash_kernel_names_cover_every_wrapper_and_dtype():
         assert cases[f"{name}_bf16"][5] == "bfloat16"
 
 
+def test_pooled_device_time_tolerates_dropped_records():
+    """An unnamed call's device time (the library yardsticks) pools each
+    record name over the windows: its mean duration times the most records
+    one window held, so a record the profiler drops costs one sample of a
+    mean, not a call's time, and the loss is counted."""
+    full = {"gemm": (0.010, 10), "softmax": (0.002, 10)}
+    lossy = {"gemm": (0.002, 2), "softmax": (0.0018, 9)}
+    ms, lost = chip_smoke._pooled_ms([full, lossy, full], iters=5)
+    assert lost == 8 + 1
+    gemm = (0.010 + 0.002 + 0.010) / 22 * 10
+    softmax = (0.002 + 0.0018 + 0.002) / 29 * 10
+    assert ms == pytest.approx((gemm + softmax) / 5 * 1e3)
+    assert chip_smoke._pooled_ms([full, full], iters=5) == (pytest.approx(2.4), 0)
+
+
 def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     """Every (wrapper, hidden dtype) the vocab-CE phase times names the
-    kernels that launch, the main one first: the tensor-core kernels with
-    bf16 hidden, the CUDA-core kernels with float32 hidden, each with its
-    helper (the forward's combine, dH's split reduce); every tensor-core
-    kernel is held to HMMA and no spill, and the kernels line reads its
-    build row."""
+    kernels that launch, the main one first: the tensor-core forward and
+    the wgmma backward with bf16 hidden, the CUDA-core kernels with float32
+    hidden, each with its helpers (the forward's combine; the split of W,
+    dS, hᵀ and dH's cast on the wgmma route; dH's split reduce on CUDA
+    cores); the forward is held to HMMA, every wgmma kernel to HGMMA, none
+    may spill, and the kernels line reads each main kernel's build row. A
+    train step's profile shares the joint backward's kernels out between
+    dH and dW, each counted once."""
     names = chip_smoke.VOCAB_KERNEL_NAMES
-    wrappers = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+    wrappers = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw", "fused_ce_bwd")
     assert set(names) == {(k, dt) for k in wrappers for dt in ("float32", "bfloat16")}
     main = {"fused_ce_fwd": "vocab_ce_fwd", "fused_ce_bwd_dh": "vocab_ce_bwd_dh",
-            "fused_ce_bwd_dw": "vocab_ce_bwd_dw"}
+            "fused_ce_bwd_dw": "vocab_ce_bwd_dw", "fused_ce_bwd": "vocab_ce_bwd_dh"}
     for k in wrappers:
-        assert names[(k, "bfloat16")][0] == f"{main[k]}_tc_kernel"
         assert names[(k, "float32")][0] == f"{main[k]}_kernel"
-        assert names[(k, "bfloat16")][1:] == names[(k, "float32")][1:]
-        assert all("_tc_" not in n for n in names[(k, "float32")] + names[(k, "bfloat16")][1:])
-    assert names[("fused_ce_fwd", "bfloat16")][1] == "vocab_ce_combine_kernel"
+        assert all("_tc_" not in n and "_wgmma_" not in n for n in names[(k, "float32")])
+    assert names[("fused_ce_fwd", "bfloat16")] == ("vocab_ce_fwd_tc_kernel",
+                                                   "vocab_ce_combine_kernel")
     assert names[("fused_ce_bwd_dh", "float32")][1] == "vocab_ce_dh_reduce_kernel"
-    held = {k for k, _ in chip_smoke.TC_KERNELS}
-    assert {names[(k, "bfloat16")][0] for k in wrappers} <= held
-    assert all(dims == (None,) for k, dims in chip_smoke.TC_KERNELS if k.startswith("vocab_ce"))
+    joint = set(names[("fused_ce_bwd", "bfloat16")])
+    assert joint == set(names[("fused_ce_bwd_dh", "bfloat16")]) | set(
+        names[("fused_ce_bwd_dw", "bfloat16")])
+    assert names[("fused_ce_bwd_dh", "bfloat16")][0] == "vocab_ce_dh_wgmma_kernel"
+    assert names[("fused_ce_bwd_dw", "bfloat16")][0] == "vocab_ce_dw_wgmma_kernel"
+    step = chip_smoke.VOCAB_STEP_NAMES
+    assert set(step["fused_ce_bwd_dh"]) | set(step["fused_ce_bwd_dw"]) == joint
+    assert not set(step["fused_ce_bwd_dh"]) & set(step["fused_ce_bwd_dw"])
+    held = {k: (op or ["HMMA"])[0] for k, _, *op in chip_smoke.TC_KERNELS}
+    assert held["vocab_ce_fwd_tc_kernel"] == "HMMA"
+    assert {n for n in joint if "_wgmma_" in n} == {k for k, op in held.items() if op == "HGMMA"}
+    assert all(dims == (None,) for k, dims, *_ in chip_smoke.TC_KERNELS
+               if k.startswith("vocab_ce"))
     assert chip_smoke.VOCAB_MAIN == "gpt2_bf16"
 
 
 def test_vocab_kernel_names_follow_the_route():
     """The vocab-CE kernels a wrapper launches are named by route, the
     library's shared-memory rule (``tc_smem_bytes``), not by dtype alone:
-    bf16 hidden at the MLM shapes runs the tensor-core forward and dH at
-    776 and 1032 and the tensor-core dW at 776 only; the MLM cases are
-    in the phase."""
+    bf16 hidden runs the tensor-core forward at 776 and 1032 and the
+    CUDA-core forward past 1216; the backward runs the wgmma route at every
+    H; the MLM cases are in the phase."""
     names = chip_smoke.vocab_kernel_names
-    assert names("fused_ce_bwd_dw", "bfloat16", 776) == ("vocab_ce_bwd_dw_tc_kernel",)
-    assert names("fused_ce_bwd_dw", "bfloat16", 1032) == ("vocab_ce_bwd_dw_kernel",)
+    for h_dim in (776, 1032, 2048, 4096):
+        assert names("fused_ce_bwd_dw", "bfloat16", h_dim)[0] == "vocab_ce_dw_wgmma_kernel"
+        assert names("fused_ce_bwd_dh", "bfloat16", h_dim)[0] == "vocab_ce_dh_wgmma_kernel"
+        assert chip_smoke.vocab_step_names("fused_ce_bwd_dw", "bfloat16", h_dim) == \
+            chip_smoke.VOCAB_STEP_NAMES["fused_ce_bwd_dw"]
     assert names("fused_ce_fwd", "bfloat16", 1032)[0] == "vocab_ce_fwd_tc_kernel"
-    assert names("fused_ce_bwd_dh", "bfloat16", 1032)[0] == "vocab_ce_bwd_dh_tc_kernel"
     assert names("fused_ce_fwd", "bfloat16", 1280)[0] == "vocab_ce_fwd_kernel"
     assert names("fused_ce_bwd_dh", "float32", 776)[0] == "vocab_ce_bwd_dh_kernel"
+    assert chip_smoke.vocab_step_names("fused_ce_bwd_dh", "float32", 776) == \
+        names("fused_ce_bwd_dh", "float32", 776)
     cases = {c[0]: c[1:] for c in chip_smoke.VOCAB_CASES}
     assert cases["mlm_base_bf16"] == (1024, 30522, 776, "bfloat16", 0.0, False)
     assert cases["mlm_large_bf16"] == (1024, 30522, 1032, "bfloat16", 0.0, False)
@@ -1293,9 +1353,16 @@ def test_every_llama_phase_shape_is_held_against_its_plain_version(monkeypatch):
     for name, cfg, N in (("tinyllama_ce", tiny, run["batch"] * run["seq"]),
                          ("mixtral_ce", mixtral, mrun["batch"] * mrun["seq"])):
         assert vocab[name][1:5] == (N, cfg.vocab_size, cfg.hidden_size, "bfloat16")
-        for k in chip_smoke._K2:
+        assert chip_smoke.vocab_kernel_names("fused_ce_fwd", "bfloat16", cfg.hidden_size) == \
+            chip_smoke.VOCAB_KERNEL_NAMES[("fused_ce_fwd", "float32")]
+        for k in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
             assert chip_smoke.vocab_kernel_names(k, "bfloat16", cfg.hidden_size) == \
-                chip_smoke.VOCAB_KERNEL_NAMES[(k, "float32")]
+                chip_smoke.VOCAB_KERNEL_NAMES[(k, "bfloat16")]
+    # Llama-3's vocab at Mixtral's N and width: a multi-chunk walk at a real V
+    llama3 = llama_config_from_hf(chip_smoke.LLAMA_31_8B)
+    assert vocab["llama3_vocab_ce"][1:5] == (mrun["batch"] * mrun["seq"], llama3.vocab_size,
+                                             llama3.hidden_size, "bfloat16")
+    assert set(chip_smoke.VOCAB_LLAMA) == {"tinyllama_ce", "mixtral_ce", "llama3_vocab_ce"}
 
 
 LLAMA_TINY = dict(vocab_size=300, hidden_size=64, intermediate_size=128, num_hidden_layers=2,

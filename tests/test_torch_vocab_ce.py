@@ -21,6 +21,8 @@ the loss keeps 1e-5 (fp32 products of bf16-exact values) and dH, rounded to
 bf16 (8 mantissa bits, 3.9e-3 per rounding), and dW, whose dS is rounded to
 bf16, keep 2e-2 of their largest entry."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -468,11 +470,10 @@ def test_split_route_dw_matches_pallas(eps):
     assert ((got - torch.from_numpy(np.array(want_dw))).abs() <= _dw_bound(h, ds)).all()
 
 
-@pytest.mark.parametrize("kernel,cap,at_768", [("fwd", 1216, 168192), ("dh", 1216, 202624),
-                                               ("dw", 800, 222080)])
+@pytest.mark.parametrize("kernel,cap,at_768", [("fwd", 1216, 168192)])
 def test_tc_smem_bytes_set_each_kernels_h_cap(kernel, cap, at_768):
-    """The tensor-core kernels' shared memory per block (the mirror of the
-    library's query): the GPT-2 width's bytes as the kernels' notes reckon
+    """The tensor-core forward's shared memory per block (the mirror of the
+    library's query): the GPT-2 width's bytes as the kernel's notes reckon
     them, the largest H that fits a block's 232,448 bytes, -1 beyond it."""
     assert vc.tc_smem_bytes(kernel, 768) == at_768
     fits = [h for h in range(8, 2049, 8) if vc.tc_smem_bytes(kernel, h) >= 0]
@@ -481,6 +482,314 @@ def test_tc_smem_bytes_set_each_kernels_h_cap(kernel, cap, at_768):
     assert vc.tc_smem_bytes(kernel, cap + 16) == -1
     with pytest.raises(ValueError):
         vc.tc_smem_bytes("combine", 768)
+
+
+def test_bwd_smem_bytes_take_every_h():
+    """The backward's ``wgmma`` kernels hold their stage ring (192 KB), its
+    1024-byte alignment and its barriers whatever H: every width fits a
+    block, so H picks no route."""
+    for kernel in ("dh", "dw"):
+        sizes = {vc.tc_smem_bytes(kernel, h) for h in (8, 30, 776, 1032, 1280, 4096, 16384)}
+        assert sizes == {196608 + 1024 + 256} and max(sizes) <= 232448
+
+
+# -- the chunked bf16 backward (csrc/vocab_ce_bwd.cuh) -------------------------
+
+def _chunked_route(hidden, weight, labels, lse, g, eps, v_chunk):
+    """The bf16 backward's arithmetic in plain PyTorch, chunk by chunk of
+    ``v_chunk`` ids: the chunk's W split once into hi, mid and lo; one dS
+    from the three-pass logits, split into dS_hi (rounded) and dS_lo
+    (truncated), shared by both products; dH accumulated in fp32 in chunk
+    order from dS_hi·W_hi + dS_hi·W_mid + dS_lo·W_hi and cast at the end;
+    dW's rows of the chunk dS_hiᵀ·h, written once."""
+    (n_tok, _), vocab = hidden.shape, weight.shape[0]
+    h = hidden.float()
+    dh = torch.zeros(h.shape)
+    dw = torch.empty(weight.shape)
+    for v0 in range(0, vocab, v_chunk):
+        w_hi, w_mid, w_lo = (q.float() for q in vc.split_bf16(weight[v0:v0 + v_chunk]))
+        s = h @ w_hi.t() + h @ w_mid.t() + h @ w_lo.t()
+        ids = torch.arange(v0, v0 + w_hi.shape[0])
+        target = (ids[None, :] == labels.long()[:, None]).float()
+        if eps > 0:
+            target = (1.0 - eps) * target + eps / vocab
+        ds = (torch.exp(s - lse[:, None]) - target) * g[:, None]
+        d_hi, d_lo = (q.float() for q in vc.split_bf16(ds, 2))
+        dh = dh + (d_hi @ w_hi + d_hi @ w_mid + d_lo @ w_hi)
+        dw[v0:v0 + w_hi.shape[0]] = d_hi.t() @ h
+    return dh.to(hidden.dtype), dw
+
+
+def _chunk_case(n_tok, vocab, h_dim, eps, ties, seed, edges=0):
+    """bf16 hidden, fp32 W, labels (the first ``edges`` tokens on the ids
+    either side of each 128-id chunk edge), g, and the plain LSE."""
+    h, w, lab, g, eps, _ = _split_case((n_tok, vocab, h_dim, eps, ties), seed)
+    at_edges = [v for e in range(128, vocab, 128) for v in (e - 1, e)] + [vocab - 1, 0]
+    for i, v in enumerate(at_edges[:edges]):
+        lab[i] = v
+    _, lse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    return h, w, lab, lse, g, eps
+
+
+def _assert_bf16_backward(h, w, lab, lse, g, eps, dh, dw):
+    """dH within the bf16 limit (2^-6 of the largest entry) plus 2^-14 of
+    the largest |dS|·|W| (where every logit ties, dH is a cancellation of
+    terms that size, and the split's dropped terms, 2^-16 of each, remain)
+    and dW within ``_dw_bound`` of the plain versions."""
+    want_dh = vc.fused_ce_bwd_dh_reference(h, w, lab, lse, g, eps)
+    want_dw = vc.fused_ce_bwd_dw_reference(h, w, lab, lse, g, eps)
+    ds = vc._dlogits(h, w, lab, lse, g, eps)
+    assert dh.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert dh.shape == h.shape and dw.shape == w.shape
+    scale = (ds.abs() @ w.abs()).max()
+    assert ((dh.float() - want_dh.float()).abs().max()
+            <= 2.0 ** -6 * want_dh.float().abs().max() + 2.0 ** -14 * scale)
+    assert ((dw - want_dw).abs() <= _dw_bound(h, ds)).all()
+
+
+CHUNK_CASES = [  # n_tok, vocab, h_dim, eps, all-equal W, chunk
+    (24, 300, 1280, 0.0, False, 128),    # past the old dH cap (1216), three chunks
+    (16, 260, 2048, 0.1, False, 128),    # Vc does not divide V, smoothing
+    (8, 200, 4096, 0.0, False, 128),     # Mixtral's width
+    (40, 300, 776, 0.1, False, 128),     # BERT-base's fold
+    (33, 333, 1032, 0.0, False, 256),    # BERT-large's fold, ragged N
+    (20, 70, 30, 0.0, False, 128),       # H off every tile, one short chunk
+    (40, 384, 32, 0.0, True, 128),       # every logit of a token bit-equal
+    (40, 384, 32, 0.1, True, 128),
+]
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_chunked_route_matches_the_plain_versions(case):
+    """The chunked route's arithmetic gives the plain dH and dW past the
+    old tensor-core caps, at ragged N, V and H, with a chunk that does not
+    divide V, labels on either side of every chunk edge, smoothing and
+    ties."""
+    n_tok, vocab, h_dim, eps, ties, v_chunk = case
+    h, w, lab, lse, g, eps = _chunk_case(n_tok, vocab, h_dim, eps, ties, seed=29, edges=n_tok)
+    dh, dw = _chunked_route(h, w, lab, lse, g, eps, v_chunk)
+    _assert_bf16_backward(h, w, lab, lse, g, eps, dh, dw)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1], ids=["eps0", "eps0.1"])
+def test_chunked_route_matches_pallas(eps):
+    """The chunked route at H 128 over three chunks (128, 128 and 44 ids)
+    against ``jax.vjp`` through the Pallas ``_dh_kernel`` and ``_dw_kernel``
+    in interpret mode: dH within the bf16 limit, dW within ``_dw_bound``."""
+    hidden, weight, labels = _inputs(48, 300, seed=31)
+    hidden = torch.from_numpy(hidden).bfloat16().float().numpy()   # bf16-exact
+    labels[:6] = [127, 128, 255, 256, 299, 0]
+    g = np.random.RandomState(32).rand(48).astype(np.float32)
+    want = _jax(hidden, weight, labels, 16, 128, eps=eps, g=g, h_dtype="bfloat16")
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w, lab, gt = torch.from_numpy(weight), torch.from_numpy(labels), torch.from_numpy(g)
+    _, lse, _ = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    dh, dw = _chunked_route(h, w, lab, lse, gt, eps, 128)
+    want_dh, want_dw = (torch.from_numpy(np.array(x)) for x in want[2:4])
+    assert (dh.float() - want_dh).abs().max() <= 2.0 ** -6 * want_dh.abs().max()
+    assert ((dw - want_dw).abs() <= _dw_bound(h, vc._dlogits(h, w, lab, lse, gt, eps))).all()
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True), (False, False)],
+                         ids=["dh-dw", "dh", "dw", "none"])
+def test_fused_ce_bwd_on_cpu_is_the_plain_versions(need):
+    """``fused_ce_bwd`` on CPU tensors returns the plain dH and dW, each
+    only when asked (None otherwise), and launches nothing."""
+    h, w, lab, lse, g, eps = _chunk_case(24, 300, 40, 0.1, False, seed=33)
+    before = (vc.fused_ce_bwd_dh.launches, vc.fused_ce_bwd_dw.launches)
+    dh, dw = vc.fused_ce_bwd(h, w, lab, lse, g, eps, need_dh=need[0], need_dw=need[1])
+    assert (vc.fused_ce_bwd_dh.launches, vc.fused_ce_bwd_dw.launches) == before
+    for got, want, asked in ((dh, vc.fused_ce_bwd_dh_reference, need[0]),
+                             (dw, vc.fused_ce_bwd_dw_reference, need[1])):
+        if asked:
+            assert torch.equal(got, want(h, w, lab, lse, g, eps))
+        else:
+            assert got is None
+    assert torch.equal(vc.fused_ce_bwd_dh(h, w, lab, lse, g, eps),
+                       vc.fused_ce_bwd_dh_reference(h, w, lab, lse, g, eps))
+    assert torch.equal(vc.fused_ce_bwd_dw(h, w, lab, lse, g, eps),
+                       vc.fused_ce_bwd_dw_reference(h, w, lab, lse, g, eps))
+
+
+@pytest.mark.parametrize("frozen_w", [False, True], ids=["both", "frozen_w"])
+def test_fused_vocab_ce_gradients_unchanged(frozen_w):
+    """``FusedVocabCE``'s gradients through the one ``fused_ce_bwd`` call
+    are the plain versions' (with a frozen W, as LoRA's tied embedding,
+    none for W), in both dtypes of the contract."""
+    for dtype in (torch.float32, torch.bfloat16):
+        hidden, weight, labels = (torch.from_numpy(x) for x in _inputs(24, 300, seed=35,
+                                                                       h_dim=40))
+        h = hidden.to(dtype).requires_grad_(True)
+        w = weight.clone().requires_grad_(not frozen_w)
+        g = torch.from_numpy(np.random.RandomState(36).rand(24).astype(np.float32))
+        loss, _ = vc.fused_vocab_cross_entropy(h, w, labels, 0.1)
+        loss.backward(g)
+        _, lse, _ = vc.fused_ce_fwd_reference(h.detach(), weight, labels, 0.1)
+        args = (h.detach(), weight, labels, lse, g, 0.1)
+        assert torch.equal(h.grad, vc.fused_ce_bwd_dh_reference(*args))
+        if frozen_w:
+            assert w.grad is None
+        else:
+            assert torch.equal(w.grad, vc.fused_ce_bwd_dw_reference(*args))
+
+
+# every bf16 K2 shape of chip_smoke.py's VOCAB_CASES, the Llama-3 vocab
+# case beside it, and Llama-3's N 4096 at H 4096
+PLAN_SHAPES = [(4096, 50257, 768), (2048, 50257, 768), (1024, 30522, 776), (1024, 30522, 1032),
+               (512, 30522, 776), (1024, 128100, 776), (512, 128100, 776), (512, 32128, 512),
+               (256, 32128, 512), (848, 32128, 512), (424, 32128, 512), (512, 50265, 768),
+               (256, 50265, 768), (4096, 32000, 2048), (1024, 32000, 4096),
+               (1024, 128256, 4096), (4096, 128256, 4096)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "N{}-V{}-H{}".format(*s))
+def test_bwd_plan_keeps_the_scratch_under_its_budget(shape):
+    """``bwd_plan``: the scratch of the joint backward (and, less, of dH or
+    dW alone, on the same chunks and split-K) stays within
+    ``BWD_SCRATCH_BYTES`` at every listed shape; Vc is a multiple of 128
+    whose chunks cover V with the last one short by less than a chunk; the
+    dH split-K keeps at least 4 stages of the vocab a range and fills 85%
+    of the card's slots or stops at 16."""
+    n_tok, vocab, h_dim = shape
+    v_chunk, splits, joint = vc.bwd_plan(n_tok, vocab, h_dim)
+    assert joint <= vc.BWD_SCRATCH_BYTES
+    assert v_chunk % 128 == 0 and 0 <= -(-vocab // v_chunk) * v_chunk - vocab < v_chunk
+    for need in ((True, False), (False, True)):
+        alone = vc.bwd_plan(n_tok, vocab, h_dim, *need)
+        assert alone[:2] == (v_chunk, splits) and alone[2] < joint
+    tiles = -(-n_tok // 128) * -(-h_dim // 128) * splits
+    assert 1 <= splits <= 16 and -(-vocab // 64) // splits >= 4
+    assert splits == 16 or tiles / (-(-tiles // 132) * 132) >= 0.85 or splits == 1
+
+
+class _CpuLib:
+    """The bf16 backward's launches (``csrc/vocab_ce.cu``) as plain PyTorch
+    on the CPU memory the wrapper's pointers name, with the launches' own
+    checks: bf16 operands at 16-byte aligned bases with row strides a
+    multiple of 8 elements (TMA's rule), dH's split-K ranges of whole
+    64-id stages. Each call is logged by name."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def _at(ptr, shape, dtype, ld=None):
+        ld = shape[1] if ld is None else ld
+        size = torch.tensor([], dtype=dtype).element_size()
+        buf = (ctypes.c_char * ((shape[0] - 1) * ld + shape[1]) * size).from_address(ptr)
+        flat = torch.frombuffer(buf, dtype=dtype)
+        return flat.as_strided(shape, (ld, 1))
+
+    def _operand(self, ptr, rows, cols, ld):
+        assert ptr % 16 == 0 and ld % 8 == 0 and cols <= ld, (ptr, ld, cols)
+        return self._at(ptr, (rows, cols), torch.bfloat16, ld)
+
+    def vocab_ce_transpose_h_launch(self, h, n_tok, h_dim, h_t, ld_t, stream):
+        self.calls.append("transpose_h")
+        self._at(h_t, (h_dim, n_tok), torch.bfloat16, ld_t).copy_(
+            self._operand(h, n_tok, h_dim, h_dim).t())
+        return 0
+
+    def vocab_ce_split_w_launch(self, w, h_dim, v0, rows, hi, mid, lo, hi_t, mid_t, ld_t, stream):
+        self.calls.append("split_w")
+        pieces = vc.split_bf16(self._at(w + v0 * h_dim * 4, (rows, h_dim), torch.float32))
+        for ptr, q in zip((hi, mid, lo), pieces):
+            self._operand(ptr, rows, h_dim, h_dim).copy_(q)
+        if hi_t is not None:
+            for ptr, q in zip((hi_t, mid_t), pieces):
+                self._operand(ptr, h_dim, rows, ld_t).copy_(q.t())
+        return 0
+
+    def vocab_ce_ds_launch(self, h, hi, mid, lo, lse, g, labels, ds_hi, ds_lo, ds_hi_t, n_tok,
+                           h_dim, vocab, v0, rows, ld, ld_t, eps, one_minus_eps, eps_over_v,
+                           stream):
+        self.calls.append("ds")
+        x = self._operand(h, n_tok, h_dim, h_dim).float()
+        s = sum(x @ self._operand(p, rows, h_dim, h_dim).float().t() for p in (hi, mid, lo))
+        lab = self._at(labels, (1, n_tok), torch.int32)[0].long()
+        ids = torch.arange(v0, v0 + rows)
+        onehot = (ids[None, :] == lab[:, None]).float()
+        target = one_minus_eps * onehot + eps_over_v if eps > 0 else onehot
+        lse_ = self._at(lse, (1, n_tok), torch.float32)[0]
+        g_ = self._at(g, (1, n_tok), torch.float32)[0]
+        d_hi, d_lo = vc.split_bf16((torch.exp(s - lse_[:, None]) - target) * g_[:, None], 2)
+        if ds_hi is not None:
+            self._operand(ds_hi, n_tok, rows, ld).copy_(d_hi)
+            self._operand(ds_lo, n_tok, rows, ld).copy_(d_lo)
+        if ds_hi_t is not None:
+            self._operand(ds_hi_t, rows, n_tok, ld_t).copy_(d_hi.t())
+        return 0
+
+    def vocab_ce_dh_product_launch(self, ds_hi, ds_lo, hi_t, mid_t, part, n_tok, h_dim, rows, ld,
+                                   ld_t, splits, first, stream):
+        self.calls.append("dh")
+        a = [self._operand(p, n_tok, rows, ld).float() for p in (ds_hi, ds_lo)]
+        b = [self._operand(p, h_dim, rows, ld_t).float() for p in (hi_t, mid_t)]
+        per = -(-(-(-rows // 64)) // splits) * 64
+        for s in range(splits):
+            k = slice(min(rows, s * per), min(rows, (s + 1) * per))
+            got = (a[0][:, k] @ b[0][:, k].t() + a[0][:, k] @ b[1][:, k].t()
+                   + a[1][:, k] @ b[0][:, k].t())
+            out = self._at(part + s * n_tok * h_dim * 4, (n_tok, h_dim), torch.float32)
+            out.copy_(got if first else out + got)
+        return 0
+
+    def vocab_ce_dw_product_launch(self, ds_hi_t, h_t, out, n_tok, h_dim, rows, ld_t, stream):
+        self.calls.append("dw")
+        a = self._operand(ds_hi_t, rows, n_tok, ld_t).float()
+        b = self._operand(h_t, h_dim, n_tok, ld_t).float()
+        self._at(out, (rows, h_dim), torch.float32).copy_(a @ b.t())
+        return 0
+
+    def vocab_ce_dh_cast_launch(self, part, dh, n_tok, h_dim, splits, stream):
+        self.calls.append("cast")
+        x = self._at(part, (n_tok, h_dim), torch.float32).clone()
+        for s in range(1, splits):
+            x = x + self._at(part + s * n_tok * h_dim * 4, (n_tok, h_dim), torch.float32)
+        self._at(dh, (n_tok, h_dim), torch.bfloat16).copy_(x)
+        return 0
+
+
+WRAPPER_CASES = [  # n_tok, vocab, h_dim, eps, need dH, need dW, scratch budget
+    (20, 300, 30, 0.0, True, True, 1 << 16),      # H 30 padded to 32, three chunks
+    (33, 333, 1032, 0.1, True, True, 1 << 20),    # BERT-large's fold, split-K, two chunks
+    (16, 260, 2048, 0.0, True, False, 1 << 21),   # dH alone (a frozen W)
+    (16, 260, 2048, 0.0, False, True, 1 << 21),   # dW alone
+]
+
+
+@pytest.mark.parametrize("case", WRAPPER_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bwd_wrapper_runs_the_chunked_route(case, monkeypatch):
+    """The bf16 wrapper (``_bwd_bf16``) drives the launches chunk by chunk
+    over CPU memory (``_CpuLib`` stands in for the library, whose kernels
+    run only on the card), with a small scratch budget so that several
+    chunks and dH's split-K run: each launch in its order, the pointers and
+    strides TMA takes, the padding of an H that is not a multiple of 8
+    sliced back, dW's rows at each chunk's offset; the result is the plain
+    dH and dW within the bf16 limits."""
+    n_tok, vocab, h_dim, eps, need_dh, need_dw, budget = case
+    monkeypatch.setattr(vc, "BWD_SCRATCH_BYTES", budget)
+    monkeypatch.setattr(vc, "_stream", lambda t: None)
+    h, w, lab, lse, g, eps = _chunk_case(n_tok, vocab, h_dim, eps, False, seed=37, edges=8)
+    lib = _CpuLib()
+    dh, dw = vc._bwd_bf16(lib, h, w, lab.to(torch.int32), lse, g, eps, need_dh, need_dw)
+    h8 = -(-h_dim // 8) * 8
+    v_chunk, splits, _ = vc.bwd_plan(n_tok, vocab, h8, need_dh, need_dw)
+    chunks = -(-vocab // v_chunk)
+    assert chunks > 1
+    per_chunk = ["split_w", "ds"] + ["dh"] * need_dh + ["dw"] * need_dw
+    assert lib.calls == ["transpose_h"] * need_dw + per_chunk * chunks + ["cast"] * need_dh
+    want_dh, want_dw = _chunked_route(h, w, lab, lse, g, eps, v_chunk)
+    if need_dh:
+        assert dh.shape == h.shape and dh.dtype == torch.bfloat16
+        assert (dh.float() - want_dh.float()).abs().max() <= 2.0 ** -7 * want_dh.float().abs().max()
+    else:
+        assert dh is None
+    if need_dw:
+        assert dw.shape == w.shape and dw.dtype == torch.float32
+        torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-6)
+    if need_dh and need_dw:
+        _assert_bf16_backward(h, w, lab, lse, g, eps, dh, dw)
 
 
 @pytest.fixture
@@ -496,22 +805,24 @@ GPU_CASES = [  # n_tok, vocab, h_dim, dtype, eps, ties
     (130, 777, 200, "float32", 0.1, False),
     (64, 500, 800, "float32", 0.0, False),
     (128, 640, 128, "float32", 0.0, True),
-    # the tensor-core dH (bf16 hidden): H not a multiple of 64 or 4, two
-    # panels, smoothing, ties
+    # bf16 hidden: the forward on the tensor cores, the backward on the
+    # wgmma route: H not a multiple of 64 or 4 (30 padded to 32), smoothing,
+    # ties
     (256, 2000, 200, "bfloat16", 0.0, False),
     (64, 500, 800, "bfloat16", 0.1, False),
     (100, 3000, 30, "bfloat16", 0.0, False),
     (128, 640, 128, "bfloat16", 0.0, True),
-    # bf16 hidden past the tensor-core kernels' H (1216): the CUDA-core
-    # forward and dH (dW too: its cap is 800)
+    # past the tensor-core forward's H (1216): the CUDA-core forward, the
+    # wgmma backward
     (64, 500, 1280, "bfloat16", 0.0, False),
-    # the tensor-core forward and dW: many token tiles with ragged N and V,
-    # ties across the forward's rotated vocab walks (5 token blocks), and
-    # H just past dW's cap (800), where dW runs on CUDA cores and the
-    # forward and dH on tensor cores
+    # many token tiles with ragged N and V, ties across the forward's
+    # rotated vocab walks (5 token blocks), H past the old dW cap (800)
     (1000, 1001, 768, "bfloat16", 0.0, False),
     (300, 1280, 64, "bfloat16", 0.0, True),
     (64, 500, 816, "bfloat16", 0.1, False),
+    # TinyLlama's and Mixtral's widths
+    (200, 3000, 2048, "bfloat16", 0.0, False),
+    (72, 1500, 4096, "bfloat16", 0.1, False),
 ]
 
 
@@ -554,13 +865,34 @@ def test_kernels_match_reference_on_card(cuda_device, case):
 @pytest.mark.gpu
 def test_tc_smem_bytes_mirror_the_library(cuda_device):
     """The Python mirror of the tensor-core kernels' shared-memory sizes
-    (and so of their H caps) gives the library's own numbers."""
+    (the forward's H cap, the backward's ring whatever H) gives the
+    library's own numbers."""
     lib = vc._kernel_lib()
-    query = {"fwd": lib.vocab_ce_fwd_tc_smem_bytes, "dh": lib.vocab_ce_dh_tc_smem_bytes,
-             "dw": lib.vocab_ce_dw_tc_smem_bytes}
-    for kernel, fn in query.items():
-        for h_dim in (16, 24, 30, 64, 200, 768, 784, 800, 808, 816, 1216, 1280, 4096):
-            assert fn(h_dim) == vc.tc_smem_bytes(kernel, h_dim), (kernel, h_dim)
+    for h_dim in (16, 24, 30, 64, 200, 768, 784, 800, 808, 816, 1216, 1280, 4096):
+        assert lib.vocab_ce_fwd_tc_smem_bytes(h_dim) == vc.tc_smem_bytes("fwd", h_dim), h_dim
+        for kernel in ("dh", "dw"):
+            assert lib.vocab_ce_wgmma_smem_bytes() == vc.tc_smem_bytes(kernel, h_dim), h_dim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(4096, 32000, 2048), (300, 3000, 776)],
+                         ids=lambda c: "N{}-V{}-H{}".format(*c))
+def test_joint_backward_repeats_bit_for_bit_on_card(cuda_device, case):
+    """Two joint backward calls on the same inputs give identical bits (no
+    atomics, every sum in a fixed order), and equal the lone dH and dW."""
+    n_tok, vocab, h_dim = case
+    hidden, weight, labels = _inputs(n_tok, vocab, seed=41, h_dim=h_dim)
+    h = torch.from_numpy(hidden).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(weight * 0.4).to(cuda_device)
+    lab = torch.from_numpy(labels).to(cuda_device)
+    g = torch.rand(n_tok, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    _, lse, _ = vc.fused_ce_fwd(h, w, lab)
+    first = vc.fused_ce_bwd(h, w, lab, lse, g)
+    second = vc.fused_ce_bwd(h, w, lab, lse, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(first[0], vc.fused_ce_bwd_dh(h, w, lab, lse, g))
+    assert torch.equal(first[1], vc.fused_ce_bwd_dw(h, w, lab, lse, g))
 
 
 # the fused MLM loss's shapes: K = 1024 gathered rows (B 8 x S 512 x the
@@ -573,23 +905,25 @@ MLM_CASES = [(1024, 30522, 776), (1024, 30522, 1032), (1024, 128100, 776),
 
 
 @pytest.mark.parametrize("h_dim,routes,dw_at_128_lanes", [
-    (768, ("tc", "tc", "tc"), "cuda_core"), (1024, ("tc", "tc", "cuda_core"), "cuda_core"),
-    (128, ("tc", "tc", "tc"), "tc")])
+    (768, ("tc", "wgmma", "wgmma"), "wgmma"), (1024, ("tc", "wgmma", "wgmma"), "wgmma"),
+    (128, ("tc", "wgmma", "wgmma"), "wgmma")])
 def test_bias_fold_width_keeps_the_mlm_routes(h_dim, routes, dw_at_128_lanes):
     """The fused MLM loss widens H to the next multiple of 8 (16-byte bf16
-    rows): BERT-base's 776 keeps dW on the tensor cores (cap 800), where the
-    reference's 128-lane fold (896) would not; BERT-large's 1032 is past
-    dW's cap either way, and runs the CUDA-core dW."""
+    rows): BERT-base's 776 and BERT-large's 1032 keep the forward on the
+    tensor cores (cap 1216), and the backward takes the ``wgmma`` route at
+    every width, the reference's 128-lane fold included; a width that is a
+    multiple of 8 is what TMA takes without padding."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
         bias_fold_width,
     )
 
     width = bias_fold_width(h_dim)
     assert width % 8 == 0 and h_dim < width <= h_dim + 8
-    got = tuple("tc" if vc.tc_smem_bytes(k, width) >= 0 else "cuda_core"
-                for k in ("fwd", "dh", "dw"))
+    wgmma = vc.tc_smem_bytes("dh", 8)
+    got = (("tc" if vc.tc_smem_bytes("fwd", width) >= 0 else "cuda_core"),
+           *("wgmma" if vc.tc_smem_bytes(k, width) == wgmma else "other" for k in ("dh", "dw")))
     assert got == routes
-    ref_dw = "tc" if vc.tc_smem_bytes("dw", h_dim + 128) >= 0 else "cuda_core"
+    ref_dw = "wgmma" if vc.tc_smem_bytes("dw", h_dim + 128) == wgmma else "other"
     assert ref_dw == dw_at_128_lanes
 
 
