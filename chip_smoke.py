@@ -6,7 +6,15 @@
 
 Needs one CUDA card (built for an H100: ``sm_90a``) and ``nvcc``.
 Imports nothing of JAX or of the JAX package. Phases, in order; any
-failure raises and exits non-zero:
+failure raises and exits non-zero. Phases 5 and 7 and the llama cases of
+phase 2 time many kernels under ``torch.profiler``, and a process's
+profiler drops more of a window's records the more profiled and traced
+work the process has run before (none in phase 2, up to three records in
+four after the llama phase, and once every record of a kernel in six
+windows running): so they run after phase 10, each in a process of its
+own (``FRESH_PROCESS_PHASES``, ``python3 chip_smoke.py --phase NAME
+OUT``), which prints its lines to the same output and hands its rows
+back in the JSON file OUT:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    CUDA version; TF32 off for matmuls and cuDNN; then every kernel
@@ -263,7 +271,7 @@ failure raises and exits non-zero:
    (``CE_TC_PASSES``; the joint backward 7) at 989 TFLOP/s, the fp32
    CUDA-core bound beside it (``bound_fp32_ms``), the bf16 backward's
    scratch traffic beside that (``scratch_ms``); with fp32 hidden the fp32
-   bound. The llama phase's cases (run last) add Llama-3's vocab (N 1024,
+   bound. The llama phase's cases add Llama-3's vocab (N 1024,
    V 128256, H 4096), a walk of 26 vocab chunks;
 8. GPT-2 train: (a) one fp32 step (TF32 off, dropout 0) of GPT-2 124M at
    full width on 8 x 512 vendored reviews, the kernels (flash causal
@@ -326,9 +334,9 @@ failure raises and exits non-zero:
    depth 1: five bf16 steps at 2 x 512 through K1 and K2 with the aux
    loss, tokens per expert and capacity drops, the fp32 gate at batch 1,
    and 16 greedy tokens equal to the full forward's argmax at a capacity
-   that cannot bind; then its K3, K1 and K2 cases (``llama_kernel_phase``,
-   run last so the earlier phases' profiled windows follow as many
-   profiler sessions as before);
+   that cannot bind; its K3 cases (``llama_kernel_phase``), K1 cases
+   (in phase 5) and K2 cases (in phase 7) run after it in their own
+   processes;
 11. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
@@ -397,6 +405,13 @@ def emit(obj: dict) -> None:
 
 # -- phase 1 -----------------------------------------------------------------
 
+def _no_tf32() -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def env_phase() -> str:
     import torch
 
@@ -404,8 +419,7 @@ def env_phase() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     check(bool(smi), "nvidia-smi printed no card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     emit({"phase": "env", "card": smi[0], "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
@@ -6902,15 +6916,42 @@ def mixtral_phase(card: str) -> dict:
     return {"mixtral": row}
 
 
-def llama_kernel_phase() -> tuple[dict, dict, dict]:
-    """The llama phase's K3, K1 and K2 cases (``LLAMA_KERNEL_CASES``,
-    ``FLASH_LLAMA``, ``VOCAB_LLAMA``), held against their plain versions
-    and timed as the kernel, flash and vocab-CE phases do; run last, so
-    the earlier phases' profiled windows see as many profiler sessions
-    before them as they did without these cases."""
-    return (kernel_phase([c for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES]),
-            flash_phase([c for c in FLASH_CASES if c[0] in FLASH_LLAMA]),
-            vocab_ce_phase([c for c in VOCAB_CASES if c[0] in VOCAB_LLAMA]))
+def llama_kernel_phase() -> dict:
+    """The llama phase's K3 cases (``LLAMA_KERNEL_CASES``), held against
+    their plain versions and timed as the kernel phase does (its K1 and K2
+    cases, ``FLASH_LLAMA`` and ``VOCAB_LLAMA``, are among the flash and
+    vocab-CE phases' cases)."""
+    return kernel_phase([c for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES])
+
+
+# the phases that run each in a process of its own (see the module's notes)
+FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_phase,
+                        "llama_kernel_phase": llama_kernel_phase}
+FRESH_PROCESS_TIMEOUT_S = 600
+
+
+def _fresh_process(name: str) -> dict:
+    """``FRESH_PROCESS_PHASES[name]`` run by this script in a new process
+    (its lines go to this process's output); its rows, keyed as the phase
+    keys them. Fails if the process fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rows.json"
+        sys.stdout.flush()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", name,
+                               str(out)], cwd=str(ROOT), timeout=FRESH_PROCESS_TIMEOUT_S)
+        check(proc.returncode == 0, f"{name} in its own process exited with {proc.returncode}")
+        return _read_rows(out)
+
+
+def _write_rows(rows: dict, out: Path) -> None:
+    """``rows`` (keyed by a name or a tuple of them) as a JSON list of
+    [key, row] pairs, a tuple key as a list."""
+    out.write_text(json.dumps([[list(k) if isinstance(k, tuple) else k, row]
+                               for k, row in rows.items()]))
+
+
+def _read_rows(out: Path) -> dict:
+    return {tuple(k) if isinstance(k, list) else k: row for k, row in json.loads(out.read_text())}
 
 
 def llama_phase(work: Path, card: str) -> dict:
@@ -6939,9 +6980,10 @@ def llama_phase(work: Path, card: str) -> dict:
     return rows
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -6949,6 +6991,13 @@ def main() -> int:
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if argv:
+        check(len(argv) == 3 and argv[0] == "--phase" and argv[1] in FRESH_PROCESS_PHASES,
+              f"arguments {argv}: none, or --phase NAME OUT with NAME one of "
+              f"{sorted(FRESH_PROCESS_PHASES)}")
+        _no_tf32()
+        _write_rows(FRESH_PROCESS_PHASES[argv[1]](), Path(argv[2]))
+        return 0
     start = time.perf_counter()
     seconds = {}
 
@@ -6956,7 +7005,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.empty_cache()
-        seconds[fn.__name__] = time.perf_counter() - t0
+        seconds[args[0] if fn is _fresh_process else fn.__name__] = time.perf_counter() - t0
         return out
 
     card = timed(env_phase)
@@ -6969,7 +7018,6 @@ def main() -> int:
     router_rows = timed(serve_router_phase, model, card)
     del model
     torch.cuda.empty_cache()
-    flash = timed(flash_phase, [c for c in FLASH_CASES if c[0] not in FLASH_LLAMA])
     timed(train_parity_phase)
     with tempfile.TemporaryDirectory() as work:
         train = timed(train_cli_phase, Path(work) / "train")
@@ -6986,7 +7034,6 @@ def main() -> int:
                    for phase, rows_ in (("packing", packing), ("lora", lora),
                                         ("deberta", deberta))
                    for n, row in rows_.items()}
-        vocab = timed(vocab_ce_phase, [c for c in VOCAB_CASES if c[0] not in VOCAB_LLAMA])
         timed(gpt2_parity_phase)
         gpt2 = timed(gpt2_cli_phase, Path(work) / "gpt2")
         timed(decode_phase, Path(work) / "gpt2" / "model", card)
@@ -6997,10 +7044,9 @@ def main() -> int:
             "causal-lm": Path(work) / "gpt2" / "model",
             "seq2seq": Path(work) / "seq2seq" / "t5_small_fused" / "model"})
         llama = timed(llama_phase, Path(work) / "llama", card)
-    more_kernels, more_flash, more_vocab = timed(llama_kernel_phase)
-    kernels.update(more_kernels)
-    flash.update(more_flash)
-    vocab.update(more_vocab)
+    flash = timed(_fresh_process, "flash_phase")
+    vocab = timed(_fresh_process, "vocab_ce_phase")
+    kernels.update(timed(_fresh_process, "llama_kernel_phase"))
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]

@@ -552,6 +552,33 @@ def test_pooled_device_time_tolerates_dropped_records():
     assert chip_smoke._pooled_ms([full, full], iters=5) == (pytest.approx(2.4), 0)
 
 
+def test_fresh_process_phases_hand_their_rows_back(tmp_path, monkeypatch):
+    """A phase run by ``--phase NAME OUT`` writes its rows to OUT, keyed as
+    in the process that reads them (a tuple key stays a tuple), and the
+    flash, vocab-CE and llama K3 cases all run so; any other argument
+    raises."""
+    assert set(chip_smoke.FRESH_PROCESS_PHASES) == {
+        "flash_phase", "vocab_ce_phase", "llama_kernel_phase"}
+    rows = {("bert_bf16", "flash_fwd"): {"kernel_ms": 0.5, "contexts": [0, 3]},
+            "gpt2": {"kernel_ms": 0.25, "status": "pass"}}
+    monkeypatch.setitem(chip_smoke.FRESH_PROCESS_PHASES, "flash_phase", lambda: rows)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    out = tmp_path / "rows.json"
+    assert chip_smoke.main(["--phase", "flash_phase", str(out)]) == 0
+    assert chip_smoke._read_rows(out) == rows
+    with pytest.raises(RuntimeError, match="--phase NAME OUT"):
+        chip_smoke.main(["--phase", "serve_phase", str(out)])
+    with pytest.raises(RuntimeError, match="--phase NAME OUT"):
+        chip_smoke.main(["--bogus"])
+
+
+def test_a_fresh_process_that_fails_fails_the_run():
+    """The parent waits for its child and fails with the child's exit code:
+    here the child finds no card and exits 2."""
+    with pytest.raises(RuntimeError, match="flash_phase in its own process exited with 2"):
+        chip_smoke._fresh_process("flash_phase")
+
+
 def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     """Every (wrapper, hidden dtype) the vocab-CE phase times names the
     kernels that launch, the main one first: the tensor-core forward and
