@@ -25,9 +25,9 @@ back in the JSON file OUT:
    -v``), its shared memory per block and its tensor-core instructions in
    the SASS (``cuobjdump``): the paged kernels (CUDA cores by design) must
    spill nothing; the tensor-core kernels (bf16 flash forward, dQ and
-   dK/dV at D 64 and 128; the bf16-hidden vocab-CE forward) must hold
-   ``HMMA``, the bf16-hidden vocab-CE backward's ``wgmma`` kernels (dS, the
-   dH and the dW products) ``HGMMA``, and none may spill;
+   dK/dV at D 64 and 128) must hold ``HMMA``, the bf16-hidden vocab-CE
+   ``wgmma`` kernels (the forward's logits; the backward's dS, dH and dW
+   products) ``HGMMA``, and none may spill;
 2. kernel: holds the paged decode kernels (the split-context kernel and
    its combine) against ``paged_decode_attention_reference`` on random
    pools with scrambled block tables, ragged contexts including 0 and a
@@ -212,8 +212,8 @@ back in the JSON file OUT:
    masked tokens past K; 6 more steps timed and profiled for busy time,
    the idle share, MFU and the K1/K2 kernels), the same unfused (``--fused_vocab_ce false``,
    its first loss within 2^-6 of the fused run's), BERT-large-WWM widths
-   fused (10 steps, profiled: dW at H 1032 on the CUDA-core
-   ``vocab_ce_bwd_dw_kernel``), ELECTRA-small ``--task rtd`` (15 steps,
+   fused (10 steps, profiled: K2 at H 1032 on the ``wgmma``
+   routes), ELECTRA-small ``--task rtd`` (15 steps,
    detection accuracy) and streaming ``--task mlm`` (10 steps, finite
    losses); each export reloads through ``from_pretrained`` to the same
    logits bit for bit. The train parity phase (a) also holds an fp32 and
@@ -244,14 +244,15 @@ back in the JSON file OUT:
    same gates (every key bias held apart, its exact gradient 0);
 7. vocab CE kernels: holds ``fused_ce_fwd``, ``fused_ce_bwd_dh`` and
    ``fused_ce_bwd_dw`` (and the joint ``fused_ce_bwd``, which must equal
-   them bit for bit, and itself on a second call) against their plain
+   them bit for bit, and itself on a second call, as the forward must
+   equal itself on a second call) against their plain
    versions at the GPT-2 causal-LM shape (N 4096 tokens, V 50257, H 768)
    with bf16 hidden and fp32 weight and in fp32, a ragged N 1000 / V 1001,
    H 200 and H 800, label smoothing 0.1, an all-equal W that ties every
    logit (pred must be id 0), and the fused MLM loss's shapes with bf16
    hidden: N 1024, V 30522 at H 776 (BERT-base with the bias folded in)
    and H 1032 (BERT-large; the kernels each wrapper launches are named by
-   route, ``vocab_kernel_names``), and the eval steps' N 512 at H 776; the
+   hidden dtype, ``vocab_kernel_names``), and the eval steps' N 512 at H 776; the
    fused
    seq2seq loss's shapes with bf16 hidden: T5-small's V 32128, H 512 at N
    512 (train, smoothing 0.1) and 256 (eval), span corruption's N 848 and
@@ -269,10 +270,12 @@ back in the JSON file OUT:
    ``cross_entropy``; its autograd backward for dH and dW) and the bound:
    with bf16 hidden the fp32-exact split route's bf16 tensor-core passes
    (``CE_TC_PASSES``; the joint backward 7) at 989 TFLOP/s, the fp32
-   CUDA-core bound beside it (``bound_fp32_ms``), the bf16 backward's
-   scratch traffic beside that (``scratch_ms``); with fp32 hidden the fp32
-   bound. The llama phase's cases add Llama-3's vocab (N 1024,
-   V 128256, H 4096), a walk of 26 vocab chunks;
+   CUDA-core bound beside it (``bound_fp32_ms``), the bf16 routes'
+   scratch traffic beside that (``scratch_ms``: the forward's split W and
+   per-tile statistics, ``_fwd_scratch_bytes``; the backward's split W, dS
+   copies and dH partials, ``_bwd_scratch_bytes``); with fp32 hidden the
+   fp32 bound. The llama phase's cases add Llama-3's vocab (N 1024,
+   V 128256, H 4096), a walk of 13 vocab chunks forward and 26 backward;
 8. GPT-2 train: (a) one fp32 step (TF32 off, dropout 0) of GPT-2 124M at
    full width on 8 x 512 vendored reviews, the kernels (flash causal
    attention and the fused vocab CE) against the plain path (plain
@@ -370,7 +373,7 @@ FLASH_REPLACES = {"flash_fwd": f"{_PALLAS_ATTN}:65",
                   "flash_bwd_dq": f"{_PALLAS_ATTN}:195",
                   "flash_bwd_dkv": f"{_PALLAS_ATTN}:246"}
 VOCAB_SOURCE = f"{PKG}/csrc/vocab_ce.cu"
-VOCAB_TC_SOURCE = f"{PKG}/csrc/vocab_ce_tc.cuh"
+VOCAB_FWD_SOURCE = f"{PKG}/csrc/vocab_ce_fwd.cuh"
 VOCAB_BWD_SOURCE = f"{PKG}/csrc/vocab_ce_bwd.cuh"
 _PALLAS_CE = "huggingface_sagemaker_tensorflow_distributed_tpu/ops/pallas_vocab_ce.py"
 VOCAB_REPLACES = {"fused_ce_fwd": f"{_PALLAS_CE}:48",
@@ -2073,7 +2076,8 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 # the tensor-core kernels: each must hold HMMA (``mma.sync``), or HGMMA
 # (``wgmma``) where named, and spill nothing
 TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128)), ("flash_bwd_dq_tc_kernel", (64, 128)),
-              ("flash_bwd_dkv_tc_kernel", (64, 128)), ("vocab_ce_fwd_tc_kernel", (None,)),
+              ("flash_bwd_dkv_tc_kernel", (64, 128)),
+              ("vocab_ce_fwd_wgmma_kernel", (None,), "HGMMA"),
               ("vocab_ce_ds_wgmma_kernel", (None,), "HGMMA"),
               ("vocab_ce_dh_wgmma_kernel", (None,), "HGMMA"),
               ("vocab_ce_dw_wgmma_kernel", (None,), "HGMMA"))
@@ -2173,14 +2177,12 @@ def build_report() -> dict:
                                  "kernel": kernel, "head_dim": D, "dtype": dt, **info,
                                  "smem_bytes_per_block": flib.flash_attention_smem_bytes(
                                      which[wrapper], D, int(dt == "bfloat16"))}
-    H = GPT2_124M["n_embd"]
     for mangled, (kernel, info) in _library_report(
             "vocab_ce", [n for names in VOCAB_KERNEL_NAMES.values() for n in names]).items():
-        bf16_only = ("_tc_" in kernel or "_wgmma_" in kernel or kernel in VOCAB_BF16_HELPERS)
+        bf16_only = "_wgmma_" in kernel or kernel in VOCAB_BF16_HELPERS
         dt = ("bfloat16" if ("bfloat16" in mangled or bf16_only)
               else "float32" if "IfE" in mangled else None)
-        dynamic = (vlib.vocab_ce_fwd_tc_smem_bytes(H) if "_tc_" in kernel
-                   else vlib.vocab_ce_wgmma_smem_bytes() if "_wgmma_" in kernel else 0)
+        dynamic = vlib.vocab_ce_wgmma_smem_bytes() if "_wgmma_" in kernel else 0
         rows[(kernel, None, dt)] = {"phase": "kernel_build", "library": "vocab_ce",
                                     "kernel": kernel, "dtype": dt, **info,
                                     "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
@@ -4300,15 +4302,13 @@ def mlm_phase(work: Path, card: str) -> dict:
                 fpt = flops.train_flops_per_token(cfg, task, batch["input_ids"].shape[1])
                 prof = _steps_profile(trainer, batch, n_steps,
                                       fpt * int(batch["attention_mask"].sum()), peak)
-                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(
-                    k, "bfloat16", row["bias_fold_width"]) for k in _K2})
+                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(k, "bfloat16")
+                                                for k in _K2})
                 k1 = _kernel_ms_per_step(prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")]
                                                 for k in _K1})
                 prof.pop("by_kernel_s")
                 prof["k1_ms_per_step"], prof["k2_ms_per_step"] = k1, k2
-                prof["k2_routes"] = {k: vocab_kernel_names(k, "bfloat16",
-                                                           row["bias_fold_width"])[0]
-                                     for k in _K2}
+                prof["k2_routes"] = {k: vocab_kernel_names(k, "bfloat16")[0] for k in _K2}
                 if DEVICE == "cuda":
                     check(all(v > 0 for v in k1.values()),
                           f"{name}: the profile misses a K1 kernel: {k1}")
@@ -4576,8 +4576,8 @@ def seq2seq_phase(work: Path, card: str) -> dict:
                 per_step = (enc_fpt * int(batch["attention_mask"].sum())
                             + dec_fpt * int(batch["decoder_attention_mask"].sum()))
                 prof = _steps_profile(trainer, batch, n_steps, per_step, peak)
-                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(
-                    k, "bfloat16", cfg.d_model) for k in _K2})
+                k2 = _kernel_ms_per_step(prof, {k: vocab_step_names(k, "bfloat16")
+                                                for k in _K2})
                 busy = sum(prof.pop("by_kernel_s").values())
                 prof["k2_ms_per_step"] = k2
                 prof["k2_share_of_busy"] = (sum(k2.values()) * n_steps / 1e3 / busy
@@ -4640,9 +4640,8 @@ VOCAB_CASES = [
     ("ties", 512, 4096, 768, "float32", 0.0, True),
     # the fused MLM loss's shapes (mlm phase): K = 1024 gathered rows of
     # B 8 x S 512 at the 0.25 cap, BERT's vocab, H with the decoder bias
-    # folded in: BERT-base's 776 (dW on the tensor cores) and
-    # BERT-large's 1032 (past dW's cap of 800: the CUDA-core dW); the eval
-    # steps' K = 512 of B 4 x S 512 (the forward splits by N)
+    # folded in: BERT-base's 776 and BERT-large's 1032; the eval steps'
+    # K = 512 of B 4 x S 512
     ("mlm_base_bf16", 1024, 30522, 776, "bfloat16", 0.0, False),
     ("mlm_large_bf16", 1024, 30522, 1032, "bfloat16", 0.0, False),
     ("mlm_eval_bf16", 512, 30522, 776, "bfloat16", 0.0, False),
@@ -4661,10 +4660,9 @@ VOCAB_CASES = [
     ("bart_bf16", 512, 50265, 768, "bfloat16", 0.1, False),
     ("bart_eval_bf16", 256, 50265, 768, "bfloat16", 0.0, False),
     # the llama phase's causal-LM loss (the untied [V, H] head): TinyLlama's
-    # B 4 x S 1024 at H 2048, Mixtral's B 2 x S 512 at H 4096, vocab 32000
-    # (past the tensor-core forward's H 1216: the CUDA-core forward; the
-    # wgmma backward), and Llama-3's vocab of 128256 at H 4096 (26 chunks of
-    # the backward's vocab walk)
+    # B 4 x S 1024 at H 2048, Mixtral's B 2 x S 512 at H 4096, vocab 32000,
+    # and Llama-3's vocab of 128256 at H 4096 (13 chunks of the forward's
+    # vocab walk, 26 of the backward's)
     ("tinyllama_ce", 4096, 32000, 2048, "bfloat16", 0.0, False),
     ("mixtral_ce", 1024, 32000, 4096, "bfloat16", 0.0, False),
     ("llama3_vocab_ce", 1024, 128256, 4096, "bfloat16", 0.0, False),
@@ -4677,14 +4675,16 @@ VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
                  "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
 # kernel first (device time is read per kernel name from a profile);
-# ``fused_ce_bwd`` is the joint backward. With bf16 hidden the backward is
-# the wgmma route: per vocab chunk the split of W, dS and the products, hᵀ
-# once for dW and the dH cast once
+# ``fused_ce_bwd`` is the joint backward. With bf16 hidden both are wgmma
+# routes: the forward per vocab chunk its own split of W and the logits'
+# statistics, the combine once; the backward per vocab chunk the split of
+# W, dS and the products, hᵀ once for dW and the dH cast once
 _DS, _SPLIT = "vocab_ce_ds_wgmma_kernel", "vocab_ce_split_w_kernel"
 _HT, _CAST = "vocab_ce_transpose_h_kernel", "vocab_ce_dh_reduce_kernel"
+_FWD_SPLIT, _COMBINE = "vocab_ce_fwd_split_w_kernel", "vocab_ce_combine_kernel"
 VOCAB_KERNEL_NAMES = {
-    ("fused_ce_fwd", "float32"): ("vocab_ce_fwd_kernel", "vocab_ce_combine_kernel"),
-    ("fused_ce_fwd", "bfloat16"): ("vocab_ce_fwd_tc_kernel", "vocab_ce_combine_kernel"),
+    ("fused_ce_fwd", "float32"): ("vocab_ce_fwd_kernel", _COMBINE),
+    ("fused_ce_fwd", "bfloat16"): ("vocab_ce_fwd_wgmma_kernel", _FWD_SPLIT, _COMBINE),
     ("fused_ce_bwd_dh", "float32"): ("vocab_ce_bwd_dh_kernel", _CAST),
     ("fused_ce_bwd_dh", "bfloat16"): ("vocab_ce_dh_wgmma_kernel", _DS, _SPLIT, _CAST),
     ("fused_ce_bwd_dw", "float32"): ("vocab_ce_bwd_dw_kernel",),
@@ -4694,49 +4694,46 @@ VOCAB_KERNEL_NAMES = {
                                    _SPLIT, _HT, _CAST),
 }
 # kernels that only bf16 hidden launches (their names carry no dtype)
-VOCAB_BF16_HELPERS = (_SPLIT, _HT)
+VOCAB_BF16_HELPERS = (_SPLIT, _HT, _FWD_SPLIT)
 # a train step runs one joint backward: its kernels split between dH and dW
 # so that a step profile counts each once (dH takes the split, dS and the
-# cast; dW its product and hᵀ)
+# cast; dW its product and hᵀ); the forward's split has a name of its own
 VOCAB_STEP_NAMES = {"fused_ce_bwd_dh": ("vocab_ce_dh_wgmma_kernel", _DS, _SPLIT, _CAST),
                     "fused_ce_bwd_dw": ("vocab_ce_dw_wgmma_kernel", _HT)}
 
 
-def vocab_kernel_names(kname: str, dtype: str, h_dim: int) -> tuple:
-    """The kernels a vocab-CE wrapper launches at hidden dtype ``dtype``
-    and depth ``h_dim``, by route: with bf16 hidden the tensor-core
-    forward while its operands fit a block's shared memory
-    (``ops/vocab_ce.py:tc_smem_bytes``, the library's own rule), the
-    CUDA-core forward beyond (H past 1216); the backward on the wgmma route
-    at every H."""
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
-
-    if kname == "fused_ce_fwd" and dtype == "bfloat16" and vc.tc_smem_bytes("fwd", h_dim) < 0:
-        return VOCAB_KERNEL_NAMES[(kname, "float32")]
+def vocab_kernel_names(kname: str, dtype: str) -> tuple:
+    """The kernels a vocab-CE wrapper launches at hidden dtype ``dtype``:
+    with bf16 hidden the wgmma routes at every H, with float32 the
+    CUDA-core kernels."""
     return VOCAB_KERNEL_NAMES[(kname, dtype)]
 
 
-def vocab_step_names(kname: str, dtype: str, h_dim: int) -> tuple:
+def vocab_step_names(kname: str, dtype: str) -> tuple:
     """The kernels a train step's profile counts for ``kname``: the joint
     backward's kernels shared out between dH and dW (``VOCAB_STEP_NAMES``)
     with bf16 hidden, else the wrapper's own."""
     if dtype == "bfloat16" and kname in VOCAB_STEP_NAMES:
         return VOCAB_STEP_NAMES[kname]
-    return vocab_kernel_names(kname, dtype, h_dim)
+    return vocab_kernel_names(kname, dtype)
 
 
 def vocab_launch_counts(kname: str, case) -> dict:
     """Each kernel of ``vocab_kernel_names`` with its launches a call at
-    ``case``: the bf16 backward's split, dS and products once a vocab chunk
-    (``bwd_plan``), hᵀ and the dH cast once; every other kernel once."""
+    ``case``: with bf16 hidden the forward's split and statistics once a
+    vocab chunk (``fwd_plan``) and its combine once, the backward's split,
+    dS and products once a vocab chunk (``bwd_plan``), hᵀ and the dH cast
+    once; every float32 kernel once."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 
     name, N, V, H, dt, eps, ties = case
-    names = vocab_kernel_names(kname, dt, H)
-    if dt != "bfloat16" or kname == "fused_ce_fwd":
+    names = vocab_kernel_names(kname, dt)
+    if dt != "bfloat16":
         return dict.fromkeys(names, 1)
-    chunks = -(-V // vc.bwd_plan(N, V, -(-H // 8) * 8)[0])
-    return {n: 1 if n in (_HT, _CAST) else chunks for n in names}
+    h8 = -(-H // 8) * 8
+    plan = vc.fwd_plan if kname == "fused_ce_fwd" else vc.bwd_plan
+    chunks = -(-V // plan(N, V, h8)[0])
+    return {n: 1 if n in (_HT, _CAST, _COMBINE) else chunks for n in names}
 
 
 VOCAB_COPIES = 2                # W alone is 154 MB at the GPT-2 shape, 3x the L2
@@ -4749,15 +4746,18 @@ def _vocab_inputs(case, gen, device):
     """hidden (LayerNorm-like, unit scale), W (the init's 0.02 scale),
     labels and the loss cotangent g (1 on 90% of the tokens, 0 on the
     rest, like a masked sum: gradients of order 1, so the error bound
-    relative to max(1, max|want|) is not loose)."""
+    relative to max(1, max|want|) is not loose), drawn on ``gen``'s device
+    (the phase's is the card's: its cases draw 2.6 G values, about 30 s
+    on the host) and moved to ``device``."""
     import torch
 
     name, N, V, H, dt, eps, ties = case
-    h = torch.randn(N, H, generator=gen).to(device, getattr(torch, dt))
-    w = torch.randn(1 if ties else V, H, generator=gen) * 0.02
+    on = gen.device
+    h = torch.randn(N, H, generator=gen, device=on).to(device, getattr(torch, dt))
+    w = torch.randn(1 if ties else V, H, generator=gen, device=on) * 0.02
     w = w.expand(V, H).contiguous().to(device)
-    labels = torch.randint(0, V, (N,), generator=gen).to(device)
-    g = (torch.rand(N, generator=gen) < 0.9).float().to(device)
+    labels = torch.randint(0, V, (N,), generator=gen, device=on).to(device)
+    g = (torch.rand(N, generator=gen, device=on) < 0.9).float().to(device)
     return h, w, labels, g
 
 
@@ -4794,6 +4794,16 @@ def _ce_work(case) -> dict:
     return {k: (b, CE_FP32_PASSES[k] * logits, FP32_FLOPS_PER_S) for k, b in nbytes.items()}
 
 
+def _fwd_scratch_bytes(case) -> int:
+    """The bf16 forward's own traffic beside its bound's bytes: the split
+    of W (16 bytes a W element: the fp32 read of the split kernel, the
+    three bf16 pieces written and read back by the product) and the
+    per-tile statistics (20 bytes a 128-id tile and token, written by the
+    product and read back by the combine)."""
+    name, N, V, H, dt, eps, ties = case
+    return 16 * V * H + 2 * 20 * -(-V // 128) * N
+
+
 def _bwd_scratch_bytes(case) -> int:
     """The bf16 backward's own traffic beyond its bound's bytes: W's five
     split pieces written and read once (20 bytes a W element), dS_hi,
@@ -4816,7 +4826,7 @@ def vocab_ce_phase(cases=None) -> dict:
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
 
     vc.load_kernel()
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
     results = {}
     for case in VOCAB_CASES if cases is None else cases:
         results.update(_vocab_case(case, gen, torch.device(DEVICE)))
@@ -4840,14 +4850,17 @@ def _vocab_case(case, gen, dev) -> dict:
     rdw = vc.fused_ce_bwd_dw_reference(h, w, lab, rlse, g, eps)
     joint = vc.fused_ce_bwd(h, w, lab, rlse, g, eps)
     again = vc.fused_ce_bwd(h, w, lab, rlse, g, eps)
+    fwd_again = vc.fused_ce_fwd(h, w, lab, eps)
     _sync()
     # the joint backward is the lone dH and dW bit for bit, and itself on a
-    # second call (no atomics: every sum in a fixed order)
+    # second call, as the forward is (no atomics: every sum in a fixed order)
     check(torch.equal(joint[0], dh) and torch.equal(joint[1], dw),
           f"vocab case {name}: the joint backward differs from the lone dH or dW")
     check(torch.equal(joint[0], again[0]) and torch.equal(joint[1], again[1]),
           f"vocab case {name}: two joint backward calls differ")
-    del again
+    check(all(torch.equal(a_, b_) for a_, b_ in zip((loss, lse, pred), fwd_again)),
+          f"vocab case {name}: two forward calls differ")
+    del again, fwd_again
     compared = {"fused_ce_fwd": [(loss, rloss), (lse, rlse)],
                 "fused_ce_bwd_dh": [(dh, rdh)],
                 "fused_ce_bwd_dw": [(dw, rdw)],
@@ -4885,7 +4898,7 @@ def _vocab_case(case, gen, dev) -> dict:
              "fused_ce_bwd": (lambda *a: vc.fused_ce_bwd(*a, eps), bwd_sets)}
     # device time of the wrapper's kernels (profiler), and CUDA events
     # around a loop of wrapper calls (host gaps included)
-    names = {k: vocab_kernel_names(k, dt, H) for k in calls}
+    names = {k: vocab_kernel_names(k, dt) for k in calls}
     ms = {k: _device_ms(fn, a_, vocab_launch_counts(k, case), iters=VOCAB_ITERS,
                         repeats=VOCAB_REPEATS) for k, (fn, a_) in calls.items()}
     event_ms = {k: _cuda_ms(fn, a_, iters=VOCAB_ITERS) for k, (fn, a_) in calls.items()}
@@ -4921,6 +4934,8 @@ def _vocab_case(case, gen, dev) -> dict:
     lib_event_bwd = _cuda_ms(lib_bwd, lib_bwd_sets, iters=VOCAB_ITERS)
     v_chunk, dh_split_k, scratch = vc.bwd_plan(N, V, -(-H // 8) * 8)
     scratch_ms = _bwd_scratch_bytes(case) / HBM_BYTES_PER_S * 1e3
+    fwd_chunk, fwd_scratch = vc.fwd_plan(N, V, -(-H // 8) * 8)
+    fwd_scratch_ms = _fwd_scratch_bytes(case) / HBM_BYTES_PER_S * 1e3
     results = {}
     for kname, (nbytes, flops, peak) in _ce_work(case).items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
@@ -4930,8 +4945,7 @@ def _vocab_case(case, gen, dev) -> dict:
                "H": H, "hidden_dtype": dt, "weight_dtype": "float32",
                "label_smoothing": eps, "tied_weight": ties,
                "kernel_name": main, "kernels": list(names[kname]),
-               "route": ("wgmma" if "_wgmma_" in main else "tensor cores" if "_tc_" in main
-                         else "CUDA cores"),
+               "route": "wgmma" if "_wgmma_" in main else "CUDA cores",
                "max_abs_err": errs[kname], "max_abs_err_limit": limits[kname],
                "status": "pass", "near_ties": int(near.sum()),
                "kernel_ms": ms[kname], "kernel_event_ms": event_ms[kname],
@@ -4947,13 +4961,17 @@ def _vocab_case(case, gen, dev) -> dict:
                "bound_fp32_ms": max(t_bytes, CE_FP32_PASSES[kname] * 2 * N * V * H
                                     / FP32_FLOPS_PER_S * 1e3),
                "bytes": nbytes, "flops": flops,
-               # the launch configuration: the forward's vocab splits at this
-               # N and V; the bf16 backward's vocab chunk, its chunks, dH's
-               # split-K and scratch bytes
+               # the launch configuration: the fp32 forward's and dH's vocab
+               # splits at this N and V; the bf16 routes' vocab chunk, their
+               # chunks, dH's split-K, scratch bytes and the scratch's own
+               # traffic at the HBM rate
                "fwd_splits": vc.fwd_splits(N, V), "dh_splits": vc.dh_splits(N, V)}
         if bwd and dt == "bfloat16":
             row.update(vocab_chunk=v_chunk, chunks=-(-V // v_chunk), dh_split_k=dh_split_k,
                        scratch_bytes=scratch, scratch_ms=scratch_ms)
+        elif dt == "bfloat16":
+            row.update(vocab_chunk=fwd_chunk, chunks=-(-V // fwd_chunk),
+                       scratch_bytes=fwd_scratch, scratch_ms=fwd_scratch_ms)
         emit(row)
         results[(name, kname)] = row
     del sets, fwd_sets, bwd_sets, lib_bwd_sets
@@ -5178,7 +5196,7 @@ def gpt2_cli_phase(work: Path) -> dict:
     steps_wall, by_kernel = _timed_then_profiled(trainer, extra)
     busy = sum(by_kernel.values())
     k2_s = {k: sum(v for n, v in by_kernel.items()
-                   if any(c in n for c in vocab_step_names(k, "bfloat16", GPT2_124M["n_embd"])))
+                   if any(c in n for c in vocab_step_names(k, "bfloat16")))
             for k in _K2}
     if DEVICE == "cuda":   # the profile names the kernels the train step ran
         for k in _K2:
@@ -5801,7 +5819,7 @@ def _profiled(trainer, batch, steps: int, peak, task: str) -> dict:
     prof["k1_ms_per_step"] = _kernel_ms_per_step(
         prof, {k: FLASH_KERNEL_NAMES[(k, "bfloat16")] for k in _K1})
     prof["k2_ms_per_step"] = _kernel_ms_per_step(
-        prof, {k: vocab_step_names(k, "bfloat16", width) for k in _K2})
+        prof, {k: vocab_step_names(k, "bfloat16") for k in _K2})
     prof.pop("by_kernel_s")
     return prof
 
@@ -6789,7 +6807,7 @@ def tinyllama_train_phase(work: Path, card: str) -> dict:
            "step_time_ms": 1e3 * trainer.meter.avg_step_time,
            "train_mfu": hist.get("train_mfu", "not measured"), "cli_wall_s": wall,
            "peak_gib": peak_mem,
-           "k2_route": {k: vocab_kernel_names(k, "bfloat16", cfg.hidden_size)[0] for k in _K2},
+           "k2_route": {k: vocab_kernel_names(k, "bfloat16")[0] for k in _K2},
            "k2_share_of_busy": k2 / busy if isinstance(busy, float) and busy else
            "not measured", **prof}
     emit(row)
@@ -7085,13 +7103,17 @@ def main(argv: list | None = None) -> int:
     joint_keys = ("kernel_name", "route", "max_abs_err", "kernel_ms", "kernel_event_ms",
                   "plain_ms", "bound_ms", "bound_by", "library_ms", "chunks", "dh_split_k",
                   "scratch_ms")
+    case_keys = ("kernel_name", "route", "label_smoothing", "max_abs_err", "kernel_ms",
+                 "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "fwd_splits", "dh_splits", "vocab_chunk", "chunks", "scratch_ms")
     for kname in _K2:
         r = vocab[(VOCAB_MAIN, kname)]
         b = build[(r["kernel_name"], None, r["hidden_dtype"])]
         vocab_rows.append({
             "name": kname, "route": "cuda",
-            "source": (VOCAB_BWD_SOURCE if "_wgmma_" in r["kernel_name"] else
-                       VOCAB_TC_SOURCE if "_tc_" in r["kernel_name"] else VOCAB_SOURCE),
+            "source": (VOCAB_FWD_SOURCE if r["kernel_name"] == "vocab_ce_fwd_wgmma_kernel"
+                       else VOCAB_BWD_SOURCE if "_wgmma_" in r["kernel_name"]
+                       else VOCAB_SOURCE),
             "kernel": r["kernel_name"], "kernels": r["kernels"],
             "replaces": VOCAB_REPLACES[kname], "launches": gpt2["launches"][kname],
             "launches_by_path": {"gpt2_cli": gpt2["launches"][kname],
@@ -7102,16 +7124,14 @@ def main(argv: list | None = None) -> int:
                                  **{n: v[kname] for n, v in breadth.items()},
                                  **{f"llama/{n}": row["launches"][kname]
                                     for n, row in llama.items() if "launches" in row}},
-            **{c: {k: vocab[(c, kname)][k] for k in (
-                "kernel_name", "route", "label_smoothing", "max_abs_err", "kernel_ms",
-                "kernel_event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "fwd_splits", "dh_splits")}
+            **{c: {k: vocab[(c, kname)].get(k) for k in case_keys}
                for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "bound_fp32_ms": r["bound_fp32_ms"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "vocab_chunk": r.get("vocab_chunk"),
+            "chunks": r.get("chunks"), "scratch_ms": r.get("scratch_ms"),
             "registers": b.get("registers"), "spill_store_bytes": b.get("spill_store_bytes"),
             "smem_bytes_per_block": b["smem_bytes_per_block"],
             "hmma_instructions": b["hmma_instructions"],

@@ -3,8 +3,9 @@
 // never writes the [N, V] logit matrix to device memory.
 //
 // Replaces the TPU kernels of the JAX package's `ops/pallas_vocab_ce.py`:
-// - vocab_ce_fwd_tc_kernel (bf16 hidden, tensor cores, vocab_ce_tc.cuh)
-//   and vocab_ce_fwd_kernel (+ vocab_ce_combine_kernel) <- `_fwd_kernel`,
+// - bf16 hidden: the split of W and vocab_ce_fwd_wgmma_kernel a vocab
+//   chunk (vocab_ce_fwd.cuh), then vocab_ce_combine_kernel; fp32 hidden:
+//   vocab_ce_fwd_kernel (+ vocab_ce_combine_kernel) <- `_fwd_kernel`,
 //   reached through `_fused_ce_fwd_call`
 // - bf16 hidden: one route for dH and dW together (vocab_ce_bwd.cuh: the
 //   split of W, dS on `wgmma`, the dH and dW products on `wgmma`, the dH
@@ -29,14 +30,11 @@
 // logits; the backward as much again for each product) against V * H * 4
 // bytes of W read once, so at the GPT-2 shape (N 4096, V 50257, H 768) the
 // floor is the flops over the card's peak. With bf16 hidden every product
-// runs on the bf16 tensor cores (989 TFLOP/s), with W split into bf16
-// pieces that keep the fp32 products: the forward on `mma.sync` while its
-// 64 rows of h fit a block's shared memory (H up to 1216,
-// vocab_ce_fwd_tc_smem_bytes; vocab_ce_tc.cuh notes its bound and design),
-// the backward on `wgmma` at every H (vocab_ce_bwd.cuh, hopper_gemm.cuh).
-// The forward past H 1216, and fp32 hidden everywhere, run in fp32 on CUDA
-// cores (67 TFLOP/s; TF32 would not keep the fp32 contract), in the
-// kernels of this file.
+// runs on the bf16 tensor cores (989 TFLOP/s) on `wgmma` at every H, with
+// W split into bf16 pieces that keep the fp32 products (vocab_ce_fwd.cuh,
+// vocab_ce_bwd.cuh, hopper_gemm.cuh note their bound and design). fp32
+// hidden runs in fp32 on CUDA cores (67 TFLOP/s; TF32 would not keep the
+// fp32 contract), in the kernels of this file.
 //
 // What the CUDA-core design does about it:
 // - the TPU's sequential vocab grid axis (and its VMEM scratch carried
@@ -69,8 +67,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "warp_mma.cuh"
 
 namespace {
 
@@ -456,8 +452,8 @@ __global__ void __launch_bounds__(kThreads, 1) vocab_ce_bwd_dw_kernel(Args a) {
 
 }  // namespace
 
-#include "vocab_ce_tc.cuh"
 #include "vocab_ce_bwd.cuh"
+#include "vocab_ce_fwd.cuh"
 
 namespace {
 
@@ -501,39 +497,80 @@ int vocab_ce_dh_reduce(const Args& a, cudaStream_t st) {
 extern "C" {
 
 // Each launch runs on `stream` and returns the launch status (cudaSuccess
-// == 0); none allocates or synchronizes. h: [N, H] contiguous, bfloat16
-// when bf16 else float32; w: [V, H] float32 contiguous; labels: [N] int32
-// in [0, V). Label smoothing eps (0: none) comes with its (1 - eps) and
-// eps / V rounded once on the host, as the JAX kernel's constants are.
-// `splits` cuts the vocab across blocks, 1 <= splits <= ceil(V / 64).
+// == 0); none allocates or synchronizes. h: [N, H] contiguous, float32 or
+// bfloat16 as each launch says; w: [V, H] float32 contiguous; labels: [N]
+// int32 in [0, V). Label smoothing eps (0: none) comes with its (1 - eps)
+// and eps / V rounded once on the host, as the JAX kernel's constants are.
+// The CUDA-core launches' `splits` cuts the vocab across blocks,
+// 1 <= splits <= ceil(V / 64).
 
-// loss, lse [N] float32 and pred [N] int32; scratch: float32 [4, splits, N]
-// and int32 [splits, N]. bf16 hidden runs on the tensor cores
-// (vocab_ce_fwd_tc_kernel) while its 64 rows of h fit in shared memory
-// (vocab_ce_fwd_tc_smem_bytes >= 0, H up to 1216), on CUDA cores beyond;
-// float32 hidden on CUDA cores.
-int vocab_ce_fwd_launch(const void* h, const float* w, const int* labels, float* loss, float* lse,
+// loss, lse [N] float32 and pred [N] int32 of float32 hidden, on CUDA
+// cores (bf16 runs the route below); scratch: float32 [4, splits, N] and
+// int32 [splits, N].
+int vocab_ce_fwd_launch(const float* h, const float* w, const int* labels, float* loss, float* lse,
                         int* pred, float* scratch, int* scratch_ix, int N, int V, int H, int splits,
-                        float eps, float one_minus_eps, float eps_over_v, int bf16, void* stream) {
+                        float eps, float one_minus_eps, float eps_over_v, void* stream) {
   Args a = make_args(h, w, labels, N, V, H, splits, eps, one_minus_eps, eps_over_v);
   a.loss = loss; a.lse_out = lse; a.pred = pred; a.part = scratch; a.part_ix = scratch_ix;
   const int bad = check_shapes(a);
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kFwdRows - 1) / kFwdRows, splits);
-  const size_t tc_bytes = fwd_tc_smem_bytes(H);
-  if (bf16 && tc_bytes <= kMaxSmem) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        vocab_ce_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    vocab_ce_fwd_tc_kernel<<<grid, kThreads, tc_bytes, st>>>(a);
-  } else if (bf16)
-    vocab_ce_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
-  else
-    vocab_ce_fwd_kernel<float><<<grid, kThreads, 0, st>>>(a);
+  vocab_ce_fwd_kernel<float><<<grid, kThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   vocab_ce_combine_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The bf16-hidden forward (vocab_ce_fwd.cuh), launched chunk by chunk by
+// ops/vocab_ce.py:fused_ce_fwd; its operands follow TMA's rule as the
+// backward's below (H % 8 == 0, 16-byte aligned bases).
+
+// 1. W rows v0 .. v0 + rows split into hi, mid, lo [rows, H].
+int vocab_ce_fwd_split_w_launch(const float* w, int H, int v0, int rows, void* hi, void* mid,
+                                void* lo, void* stream) {
+  if (rows <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((rows + kTT - 1) / kTT, (H + kTT - 1) / kTT), block(kTT, 8);
+  vocab_ce_fwd_split_w_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, H, v0, rows, static_cast<bf16*>(hi), static_cast<bf16*>(mid), static_cast<bf16*>(lo));
+  return (int)cudaGetLastError();
+}
+
+// 2. The statistics of tokens [0, N) over each 128-id vocab tile of chunk
+// ids v0 .. v0 + rows (v0 a multiple of 128) from h [N, H] and the chunk's
+// pieces [rows, H], into part [4, ceil(V / 128), N] and part_ix
+// [ceil(V / 128), N] at the chunk's tiles.
+int vocab_ce_fwd_wgmma_launch(const void* h, const void* hi, const void* mid, const void* lo,
+                              const int* labels, float* part, int* part_ix, int N, int H, int V,
+                              int v0, int rows, void* stream) {
+  const int tiles = hopper::cdiv(V, hopper::kBN);
+  // the combine indexes 4 x tiles x N in int
+  if (V <= 0 || v0 % hopper::kBN != 0 || v0 + rows > V || 4LL * tiles * N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  DsMaps maps;
+  int err = hopper::make_operand_map(&maps.a[0], h, N, H, H);
+  const void* pieces[3] = {hi, mid, lo};
+  for (int p = 0; p < 3 && !err; ++p) err = hopper::make_operand_map(&maps.b[p], pieces[p], rows, H, H);
+  if (err) return err;
+  const hopper::GemmShape sh = {N, rows, H, 1};
+  const FwdEpilogue epi = {labels, part, part_ix, N, V, v0, tiles};
+  return hopper::launch_gemm(vocab_ce_fwd_wgmma_kernel, maps, sh, epi,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// 3. loss, lse and pred [N] from the partials of `splits` vocab ranges,
+// part [4, splits, N] and part_ix [splits, N], merged in range order.
+int vocab_ce_fwd_combine_launch(const float* part, const int* part_ix, float* loss, float* lse,
+                                int* pred, int N, int V, int splits, float eps,
+                                float one_minus_eps, float eps_over_v, void* stream) {
+  if (N <= 0 || V <= 0 || splits <= 0 || 4LL * splits * N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(nullptr, nullptr, nullptr, N, V, 0, splits, eps, one_minus_eps, eps_over_v);
+  a.part = const_cast<float*>(part); a.part_ix = const_cast<int*>(part_ix);
+  a.loss = loss; a.lse_out = lse; a.pred = pred;
+  vocab_ce_combine_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -656,15 +693,9 @@ int vocab_ce_dh_cast_launch(const float* part, void* dh, int N, int H, int split
   return vocab_ce_dh_reduce<__nv_bfloat16>(a, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory per block of vocab_ce_fwd_tc_kernel at depth H, or
-// -1 where it does not fit a block (bf16 hidden then runs on CUDA cores).
-long long vocab_ce_fwd_tc_smem_bytes(int H) {
-  const size_t bytes = fwd_tc_smem_bytes(H);
-  return bytes <= kMaxSmem ? (long long)bytes : -1;
-}
-
-// Dynamic shared memory per block of each `wgmma` kernel of the backward
-// (the stage ring, its alignment and its barriers), whatever H.
+// Dynamic shared memory per block of each `wgmma` kernel of the forward
+// and the backward (the stage ring, its alignment and its barriers),
+// whatever H.
 long long vocab_ce_wgmma_smem_bytes() { return hopper::kSmemBytes; }
 
 const char* vocab_ce_error_string(int code) {

@@ -1,15 +1,25 @@
 // The fused LM head + cross-entropy's backward for bf16 hidden on Hopper:
 // dH and dW from one dS a vocab chunk, every product on `wgmma` fed by TMA
-// (hopper_gemm.cuh), at every hidden width. Included by vocab_ce.cu after
-// `kThreads`, `store` and the split helpers of vocab_ce_tc.cuh.
+// (hopper_gemm.cuh), at every hidden width; and the split of W that the
+// bf16 forward (vocab_ce_fwd.cuh) shares. Included by vocab_ce.cu.
 //
 // Replaces the TPU kernels `_dh_kernel` and `_dw_kernel` of the JAX
 // package's `ops/pallas_vocab_ce.py` (reached through `_fused_ce_bwd_call`),
-// with their contract (vocab_ce.cu) and the fp32-exact split arithmetic of
-// vocab_ce_tc.cuh: W = W_hi + W_mid + W_lo, the logits h·W_hiᵀ + h·W_midᵀ +
-// h·W_loᵀ, dS = g (softmax - target) in fp32 split into dS_hi (round to
-// nearest: the contract's bf16(dS)) + dS_lo (truncation), dH = dS_hi·W_hi +
-// dS_hi·W_mid + dS_lo·W_hi, dW = dS_hiᵀ·h.
+// with their contract (vocab_ce.cu).
+//
+// The contract's logits are fp32 products of bf16 h and fp32 W, and a
+// logit error δ is a relative error δ in p = exp(s - LSE), so the logits
+// need fp32 accuracy. bf16 tensor cores keep it by splitting W without
+// error: W = W_hi + W_mid + W_lo: W_hi = bf16(W) (round to nearest), W_mid
+// the bf16 truncation of W - W_hi, W_lo = W - W_hi - W_mid. Each
+// difference is exact in fp32; W - W_hi has at most 16 significant bits,
+// so the truncation leaves at most 8, which W_lo holds exactly: the three
+// pieces carry W's 24 bits (`split_bf16` in ops/vocab_ce.py is the same
+// split). h is bf16 and every bf16 x bf16 product is exact in fp32, so
+// h·W_hiᵀ + h·W_midᵀ + h·W_loᵀ with fp32 sums is the fp32 logit up to the
+// order of the sums: three bf16 passes. dS = g (softmax - target) in fp32
+// is split into dS_hi (round to nearest: the contract's bf16(dS)) + dS_lo
+// (truncation), dH = dS_hi·W_hi + dS_hi·W_mid + dS_lo·W_hi, dW = dS_hiᵀ·h.
 //
 // The TPU kernels each form the logits and dS (two pallas_calls cannot
 // share VMEM). Here the vocab is walked in chunks of Vc ids (the wrapper
@@ -47,17 +57,31 @@ namespace {
 
 constexpr int kTT = 32;  // transpose tile: 32 x 32, blocks of 32 x 8 threads
 
+typedef __nv_bfloat16 bf16;
+
+// The upper halves of (x, y): bf16 truncations, packed as one 32-bit word
+// (x in the low half).
+__device__ __forceinline__ uint32_t upper_halves(float x, float y) {
+  return __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+}
+
+// x with its low 16 bits cleared: its bf16 truncation, as a float.
+__device__ __forceinline__ float trunc_bf16(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
 // ---------------------------------------------------------------------------
 // 1. the split of W, 2. hᵀ
 // ---------------------------------------------------------------------------
 
 // W rows v0 .. v0 + rows (the chunk's valid ids) split into hi, mid and lo
 // [rows, H] (row stride H) and, unless hi_t is null, hi and mid transposed
-// [H, ld_t] (columns 0 .. rows). Grid (ceil(rows / 32), ceil(H / 32)).
-__global__ void __launch_bounds__(kTT * 8) vocab_ce_split_w_kernel(
-    const float* __restrict__ w, int H, int v0, int rows, bf16* __restrict__ hi,
-    bf16* __restrict__ mid, bf16* __restrict__ lo, bf16* __restrict__ hi_t,
-    bf16* __restrict__ mid_t, int ld_t) {
+// [H, ld_t] (columns 0 .. rows). Blocks of 32 x 8 threads, grid
+// (ceil(rows / 32), ceil(H / 32)).
+__device__ __forceinline__ void split_w_rows(const float* __restrict__ w, int H, int v0, int rows,
+                                             bf16* __restrict__ hi, bf16* __restrict__ mid,
+                                             bf16* __restrict__ lo, bf16* __restrict__ hi_t,
+                                             bf16* __restrict__ mid_t, int ld_t) {
   __shared__ bf16 t_hi[kTT][kTT + 2], t_mid[kTT][kTT + 2];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int r0 = blockIdx.x * kTT, c0 = blockIdx.y * kTT;
@@ -90,6 +114,13 @@ __global__ void __launch_bounds__(kTT * 8) vocab_ce_split_w_kernel(
       mid_t[(long long)cc * ld_t + r] = t_mid[tx][ty + 8 * k];
     }
   }
+}
+
+__global__ void __launch_bounds__(kTT * 8) vocab_ce_split_w_kernel(
+    const float* __restrict__ w, int H, int v0, int rows, bf16* __restrict__ hi,
+    bf16* __restrict__ mid, bf16* __restrict__ lo, bf16* __restrict__ hi_t,
+    bf16* __restrict__ mid_t, int ld_t) {
+  split_w_rows(w, H, v0, rows, hi, mid, lo, hi_t, mid_t, ld_t);
 }
 
 // h [N, H] transposed into h_t [H, ld_t]. Grid (ceil(N / 32), ceil(H / 32)).

@@ -1,6 +1,6 @@
 """Fused LM head + cross-entropy: the hand-written CUDA kernels of its
-forward, dH and dW (``csrc/vocab_ce.cu``, with the tensor-core forward in
-``csrc/vocab_ce_tc.cuh`` and the bf16 backward in ``csrc/vocab_ce_bwd.cuh``
+forward, dH and dW (``csrc/vocab_ce.cu``, with the bf16 forward in
+``csrc/vocab_ce_fwd.cuh`` and the bf16 backward in ``csrc/vocab_ce_bwd.cuh``
 on the GEMM core of ``csrc/hopper_gemm.cuh``), their ctypes wrappers, their
 plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
@@ -9,8 +9,11 @@ Counterpart of the JAX package's ``ops/pallas_vocab_ce.py``:
 ========================  ===================================  =============================
 wrapper                   CUDA kernels                         TPU kernel it replaces
 ========================  ===================================  =============================
-:func:`fused_ce_fwd`      ``vocab_ce_fwd_tc_kernel``,          ``_fwd_kernel`` (``_fused_ce_fwd_call``)
-                          ``vocab_ce_fwd_kernel``
+:func:`fused_ce_fwd`      bf16: ``vocab_ce_fwd_split_w_kernel``, ``_fwd_kernel`` (``_fused_ce_fwd_call``)
+                          ``vocab_ce_fwd_wgmma_kernel``,
+                          ``vocab_ce_combine_kernel``;
+                          fp32: ``vocab_ce_fwd_kernel``,
+                          ``vocab_ce_combine_kernel``
 :func:`fused_ce_bwd`      bf16: ``vocab_ce_split_w_kernel``,   ``_dh_kernel`` and ``_dw_kernel``
                           ``vocab_ce_ds_wgmma_kernel``,        (``_fused_ce_bwd_call``)
                           ``vocab_ce_dh_wgmma_kernel``,
@@ -37,15 +40,17 @@ raises.
 
 What bounds the kernels on an H100 and what their design does about it
 is written in the CUDA sources: they are bound by operations. With bf16
-hidden every product runs on the bf16 tensor cores with W split into
-three bf16 pieces that keep the fp32 logits (:func:`split_bf16` is the
-split): the forward on ``mma.sync`` while its 64 rows of h fit a block's
-shared memory (:func:`tc_smem_bytes`: H up to 1216), and the backward at
-every H as one route for dH and dW (:func:`fused_ce_bwd`): the vocab in
-chunks of Vc ids (:func:`bwd_plan`), each chunk's W split once, one dS a
-chunk on ``wgmma`` shared by the dH and dW products on ``wgmma`` (7 bf16
-passes of ``2·N·V·H`` where separate dH and dW kernels take 10). The
-forward past H 1216 and float32 hidden run in fp32 on CUDA cores.
+hidden every product runs on the bf16 tensor cores on ``wgmma`` at every
+H, with W split into three bf16 pieces that keep the fp32 logits
+(:func:`split_bf16` is the split), the vocab walked in chunks of Vc ids
+whose scratch stays within :data:`SCRATCH_BYTES`: the forward
+(:func:`fused_ce_fwd`, chunks from :func:`fwd_plan`) splits each chunk's W
+and reduces each 128-id logit tile to per-token statistics, merged in
+vocab order at the end (3 bf16 passes of ``2·N·V·H``); the backward
+(:func:`fused_ce_bwd`, chunks from :func:`bwd_plan`) is one route for dH
+and dW: each chunk's W split once, one dS a chunk shared by the dH and dW
+products (7 passes where separate dH and dW kernels take 10). float32
+hidden runs in fp32 on CUDA cores.
 
 Each wrapper launches its kernels for CUDA tensors and raises for anything
 they cannot take; it uses the plain version only for tensors on the CPU.
@@ -66,9 +71,8 @@ _BWD_ROWS = 32            # tokens per dH block
 # blocks the vocab splits aim for: enough to fill 132 SMs several times
 _FWD_TARGET_BLOCKS = 1024
 _DH_TARGET_BLOCKS = 512
-_MAX_SMEM = 232448        # dynamic shared memory an H100 block may use
-# the bf16 backward (csrc/vocab_ce_bwd.cuh, csrc/hopper_gemm.cuh)
-BWD_SCRATCH_BYTES = 256 << 20   # the scratch budget that sets the vocab chunk
+# the bf16 routes (csrc/vocab_ce_fwd.cuh, csrc/vocab_ce_bwd.cuh, csrc/hopper_gemm.cuh)
+SCRATCH_BYTES = 256 << 20  # the scratch budget that sets each route's vocab chunk
 _GEMM_TILE = 128          # rows and columns of a wgmma tile (kBM, kBN)
 _GEMM_DEPTH = 64          # depth of a ring stage (kBK)
 _GEMM_SMEM = 196608 + 1024 + 256   # its ring, alignment and barriers (kSmemBytes)
@@ -113,25 +117,14 @@ def dh_splits(n_tok: int, vocab: int) -> int:
 
 def tc_smem_bytes(kernel: str, h_dim: int) -> int:
     """Dynamic shared memory a block of the tensor-core kernel of
-    ``kernel`` takes at depth ``h_dim``, or -1 where it does not fit a
-    block: the mirror of the library's ``vocab_ce_fwd_tc_smem_bytes`` and
-    ``vocab_ce_wgmma_smem_bytes`` (``csrc/vocab_ce.cu``). ``"fwd"``: the
-    forward holds 64 rows of h (H rounded up to a 64-column chunk, 16
-    bytes of row pad), four fp32 partial logit tiles of 64 x 40 and two
-    split W chunks; past H 1216 bf16 hidden runs its forward on CUDA
-    cores. ``"dh"`` and ``"dw"``: each ``wgmma`` kernel of the backward
-    holds its stage ring (192 KB), the ring's 1024-byte alignment and its
-    barriers whatever H, so the backward takes every H."""
-    if kernel in ("dh", "dw"):
-        return _GEMM_SMEM
-    if kernel != "fwd":
+    ``kernel`` (``"fwd"``, ``"dh"`` or ``"dw"``) takes at depth ``h_dim``:
+    the mirror of the library's ``vocab_ce_wgmma_smem_bytes``
+    (``csrc/vocab_ce.cu``). Each runs on the ``wgmma`` core, which holds its
+    stage ring (192 KB), the ring's 1024-byte alignment and its barriers
+    whatever H: every H fits a block, so H picks no route."""
+    if kernel not in ("fwd", "dh", "dw"):
         raise ValueError(f"no tensor-core kernel {kernel!r}")
-    f32, b16 = 4, 2
-    tile, chunk, kq = 32, 64, 4          # kTcVocab, kTcChunk, kTcKq
-    ldr, ldc = tile + 8, chunk + 8       # kTcLdr, kTcLdc
-    ldh = -(-h_dim // chunk) * chunk + 8
-    size = kq * _FWD_ROWS * ldr * f32 + _FWD_ROWS * ldh * b16 + 6 * tile * ldc * b16 + _FWD_ROWS * 4
-    return size if size <= _MAX_SMEM else -1
+    return _GEMM_SMEM
 
 
 def _ceil(x: int, m: int) -> int:
@@ -144,6 +137,30 @@ def _wave_use(tiles: int) -> float:
     return tiles / (-(-tiles // _SMS) * _SMS)
 
 
+def _even_chunk(vocab: int, vc_max: int) -> int:
+    """The vocab chunk: as few chunks of at most ``vc_max`` ids (a
+    multiple of 128) as cover ``vocab``, evened out, a multiple of 128."""
+    padded = _ceil(vocab, _GEMM_TILE)
+    chunks = -(-padded // vc_max)
+    return _ceil(-(-padded // chunks), _GEMM_TILE)
+
+
+def fwd_plan(n_tok: int, vocab: int, h_dim: int) -> tuple[int, int]:
+    """``(Vc, scratch bytes)`` of the bf16 forward at ``n_tok`` tokens,
+    ``vocab`` ids and depth ``h_dim`` (a multiple of 8: the wrapper pads).
+    The scratch, every buffer a ``torch.empty`` in the wrapper: W's hi,
+    mid, lo ``[Vc, H]`` bf16, and the per-tile statistics of every 128-id
+    vocab tile and token, fp32 ``[4, T, N]`` and int32 ids ``[T, N]`` (T =
+    ceil(V / 128)). ``Vc``: the largest multiple of 128 whose scratch stays
+    within :data:`SCRATCH_BYTES` (at least 128), then evened out over the
+    chunks, as :func:`bwd_plan`'s."""
+    fixed = 5 * 4 * -(-vocab // _GEMM_TILE) * n_tok
+    per_id = 3 * h_dim * 2
+    vc = _even_chunk(vocab, max(_GEMM_TILE,
+                                (SCRATCH_BYTES - fixed) // per_id // _GEMM_TILE * _GEMM_TILE))
+    return vc, fixed + per_id * vc
+
+
 def bwd_plan(n_tok: int, vocab: int, h_dim: int, need_dh: bool = True,
              need_dw: bool = True) -> tuple[int, int, int]:
     """``(Vc, splits, scratch bytes)`` of the bf16 backward at ``n_tok``
@@ -152,8 +169,8 @@ def bwd_plan(n_tok: int, vocab: int, h_dim: int, need_dh: bool = True,
     that keep 85% of the SMs' slots busy over the ``ceil(N/128)·ceil(H/128)``
     output tiles, each range at least 4 stages of the vocab deep, at most
     16. ``Vc``: the vocab chunk, a multiple of 128, the largest whose
-    scratch for dH and dW together stays within :data:`BWD_SCRATCH_BYTES`
-    (at least 128), then evened out over the chunks. Vc and splits do not
+    scratch for dH and dW together stays within :data:`SCRATCH_BYTES` (at
+    least 128), then evened out over the chunks. Vc and splits do not
     depend on what is asked, so a lone dH or dW is bit for bit the joint
     call's; the scratch is what the call asks for, every buffer a
     ``torch.empty`` in the wrapper: W's hi, mid, lo ``[Vc, H]`` bf16; for dH
@@ -175,10 +192,8 @@ def bwd_plan(n_tok: int, vocab: int, h_dim: int, need_dh: bool = True,
         return fixed, per_id
 
     fixed, per_id = scratch(True, True)
-    vc_max = max(_GEMM_TILE, (BWD_SCRATCH_BYTES - fixed) // per_id // _GEMM_TILE * _GEMM_TILE)
-    padded = _ceil(vocab, _GEMM_TILE)
-    chunks = -(-padded // vc_max)
-    vc = _ceil(-(-padded // chunks), _GEMM_TILE)
+    vc = _even_chunk(vocab, max(_GEMM_TILE,
+                                (SCRATCH_BYTES - fixed) // per_id // _GEMM_TILE * _GEMM_TILE))
     fixed, per_id = scratch(need_dh, need_dw)
     return vc, splits, fixed + per_id * vc
 
@@ -269,7 +284,10 @@ def _kernel_lib():
     lib = _build.load("vocab_ce")
     if lib.vocab_ce_fwd_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vocab_ce_fwd_launch.argtypes = [p] * 8 + [i] * 4 + [f] * 3 + [i, p]
+        lib.vocab_ce_fwd_launch.argtypes = [p] * 8 + [i] * 4 + [f] * 3 + [p]
+        lib.vocab_ce_fwd_split_w_launch.argtypes = [p, i, i, i] + [p] * 4
+        lib.vocab_ce_fwd_wgmma_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.vocab_ce_fwd_combine_launch.argtypes = [p] * 5 + [i] * 3 + [f] * 3 + [p]
         lib.vocab_ce_bwd_dh_launch.argtypes = [p] * 7 + [i] * 4 + [f] * 3 + [p]
         lib.vocab_ce_bwd_dw_launch.argtypes = [p] * 6 + [i] * 3 + [f] * 3 + [p]
         lib.vocab_ce_split_w_launch.argtypes = [p, i, i, i] + [p] * 5 + [i, p]
@@ -278,14 +296,14 @@ def _kernel_lib():
         lib.vocab_ce_dh_product_launch.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.vocab_ce_dw_product_launch.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.vocab_ce_dh_cast_launch.argtypes = [p, p, i, i, i, p]
-        for fn in (lib.vocab_ce_fwd_launch, lib.vocab_ce_bwd_dh_launch,
+        for fn in (lib.vocab_ce_fwd_launch, lib.vocab_ce_fwd_split_w_launch,
+                   lib.vocab_ce_fwd_wgmma_launch, lib.vocab_ce_fwd_combine_launch,
+                   lib.vocab_ce_bwd_dh_launch,
                    lib.vocab_ce_bwd_dw_launch, lib.vocab_ce_split_w_launch,
                    lib.vocab_ce_transpose_h_launch, lib.vocab_ce_ds_launch,
                    lib.vocab_ce_dh_product_launch, lib.vocab_ce_dw_product_launch,
                    lib.vocab_ce_dh_cast_launch):
             fn.restype = ctypes.c_int
-        lib.vocab_ce_fwd_tc_smem_bytes.argtypes = [i]
-        lib.vocab_ce_fwd_tc_smem_bytes.restype = ctypes.c_longlong
         lib.vocab_ce_wgmma_smem_bytes.argtypes = []
         lib.vocab_ce_wgmma_smem_bytes.restype = ctypes.c_longlong
         lib.vocab_ce_error_string.argtypes = [ctypes.c_int]
@@ -333,32 +351,88 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _fwd_outputs(n_tok, dev):
+    """loss and LSE [N] fp32, pred [N] int32."""
+    return (torch.empty(n_tok, dtype=torch.float32, device=dev),
+            torch.empty(n_tok, dtype=torch.float32, device=dev),
+            torch.empty(n_tok, dtype=torch.int32, device=dev))
+
+
+def _fwd_fp32(lib, hidden, weight, lab, eps):
+    """float32 hidden: ``vocab_ce_fwd_kernel`` on CUDA cores over
+    :func:`fwd_splits` vocab ranges, then ``vocab_ce_combine_kernel``."""
+    (N, H), V = hidden.shape, weight.shape[0]
+    splits = fwd_splits(N, V)
+    loss, lse, pred = _fwd_outputs(N, hidden.device)
+    scratch = torch.empty(4 * splits * N, dtype=torch.float32, device=hidden.device)
+    scratch_ix = torch.empty(splits * N, dtype=torch.int32, device=hidden.device)
+    _raise_on(lib, "fused_ce_fwd", lib.vocab_ce_fwd_launch(
+        hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), pred.data_ptr(), scratch.data_ptr(), scratch_ix.data_ptr(),
+        N, V, H, splits, *_eps_tail(eps, V), _stream(hidden)))
+    return loss, lse, pred
+
+
+def _tma_operands(hidden, weight):
+    """``(hidden, weight, H8)`` as the ``wgmma`` routes take them: TMA needs
+    16-byte rows, so an H that is not a multiple of 8 is padded to H8 with
+    zero columns of h and W (which add nothing to any product), and 16-byte
+    aligned bases, so an h that is not is copied (a fresh allocation is).
+    A layout step: the kernels run all the same. No model's H is such a
+    width (the MLM fold widens H to a multiple of 8:
+    ``train/trainer.py:bias_fold_width``)."""
+    h8 = _ceil(hidden.shape[1], 8)
+    if h8 != hidden.shape[1]:
+        pad = (0, h8 - hidden.shape[1])
+        return torch.nn.functional.pad(hidden, pad), torch.nn.functional.pad(weight, pad), h8
+    if hidden.data_ptr() % 16:
+        hidden = hidden.clone()
+    return hidden, weight, h8
+
+
+def _fwd_bf16(lib, hidden, weight, lab, eps):
+    """bf16 hidden: the chunked route of ``csrc/vocab_ce_fwd.cuh``. Per
+    chunk of Vc ids (:func:`fwd_plan`): the split of W, then the logits on
+    ``wgmma`` reduced to one partial a (128-id tile, token); after the last
+    chunk the partials merged in vocab order."""
+    N, V = hidden.shape[0], weight.shape[0]
+    hidden, weight, h8 = _tma_operands(hidden, weight)
+    vc, _ = fwd_plan(N, V, h8)
+    tiles = -(-V // _GEMM_TILE)
+    dev, stream = hidden.device, _stream(hidden)
+    hi, mid, lo = (torch.empty(vc, h8, dtype=torch.bfloat16, device=dev) for _ in range(3))
+    part = torch.empty(4, tiles, N, dtype=torch.float32, device=dev)
+    part_ix = torch.empty(tiles, N, dtype=torch.int32, device=dev)
+    loss, lse, pred = _fwd_outputs(N, dev)
+    for v0 in range(0, V, vc):
+        rows = min(vc, V - v0)
+        _raise_on(lib, "fused_ce_fwd", lib.vocab_ce_fwd_split_w_launch(
+            weight.data_ptr(), h8, v0, rows, hi.data_ptr(), mid.data_ptr(), lo.data_ptr(),
+            stream))
+        _raise_on(lib, "fused_ce_fwd", lib.vocab_ce_fwd_wgmma_launch(
+            hidden.data_ptr(), hi.data_ptr(), mid.data_ptr(), lo.data_ptr(), lab.data_ptr(),
+            part.data_ptr(), part_ix.data_ptr(), N, h8, V, v0, rows, stream))
+    _raise_on(lib, "fused_ce_fwd", lib.vocab_ce_fwd_combine_launch(
+        part.data_ptr(), part_ix.data_ptr(), loss.data_ptr(), lse.data_ptr(), pred.data_ptr(),
+        N, V, tiles, *_eps_tail(eps, V), stream))
+    return loss, lse, pred
+
+
 def fused_ce_fwd(hidden, weight, labels, label_smoothing: float = 0.0):
     """Forward: ``(loss [N] fp32, lse [N] fp32, pred [N] int32)``. CUDA
-    tensors go through ``vocab_ce_fwd_tc_kernel`` (bf16 hidden) or
-    ``vocab_ce_fwd_kernel`` (float32 hidden), and their combine kernel; CPU
-    tensors through :func:`fused_ce_fwd_reference`."""
+    tensors with bf16 hidden go through the chunked ``wgmma`` route
+    (``_fwd_bf16``), with float32 hidden through ``vocab_ce_fwd_kernel`` on
+    CUDA cores, each ending in ``vocab_ce_combine_kernel``; CPU tensors
+    through :func:`fused_ce_fwd_reference`."""
     _check(hidden, weight, labels)
     eps = _smoothing(label_smoothing)
     if hidden.device.type == "cpu":
         return fused_ce_fwd_reference(hidden, weight, labels, eps)
     lib, lab = _kernel_args("fused_ce_fwd", hidden, weight, labels)
-    (N, H), V = hidden.shape, weight.shape[0]
-    splits = fwd_splits(N, V)
-    dev = hidden.device
-    loss = torch.empty(N, dtype=torch.float32, device=dev)
-    lse = torch.empty(N, dtype=torch.float32, device=dev)
-    pred = torch.empty(N, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * splits * N, dtype=torch.float32, device=dev)
-    scratch_ix = torch.empty(splits * N, dtype=torch.int32, device=dev)
-    err = lib.vocab_ce_fwd_launch(
-        hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), loss.data_ptr(),
-        lse.data_ptr(), pred.data_ptr(), scratch.data_ptr(), scratch_ix.data_ptr(),
-        N, V, H, splits, *_eps_tail(eps, V), int(hidden.dtype == torch.bfloat16),
-        _stream(hidden))
-    _raise_on(lib, "fused_ce_fwd", err)
+    route = _fwd_bf16 if hidden.dtype == torch.bfloat16 else _fwd_fp32
+    out = route(lib, hidden, weight, lab, eps)
     fused_ce_fwd.launches += 1
-    return loss, lse, pred
+    return out
 
 
 def _ptr(t):
@@ -391,19 +465,10 @@ def _bwd_bf16(lib, hidden, weight, lab, lse, g, eps, need_dh, need_dw):
     """bf16 hidden: the chunked route of ``csrc/vocab_ce_bwd.cuh``. Per
     chunk of Vc ids (:func:`bwd_plan`): the split of W, dS on ``wgmma``
     (one dS for both products), the dH product into fp32 partials and the
-    dW product into dW's rows; then the dH partials' sum and cast. TMA
-    needs 16-byte rows, so an H that is not a multiple of 8 is padded here
-    with zero columns of h and W (which add nothing to any product) and dH
-    and dW are sliced back: a layout step, the kernels run all the same.
-    No model's H is such a width (the MLM fold widens H to a multiple of
-    8: ``train/trainer.py:bias_fold_width``)."""
+    dW product into dW's rows; then the dH partials' sum and cast. dH and
+    dW are sliced back where :func:`_tma_operands` padded H."""
     (N, H), V = hidden.shape, weight.shape[0]
-    h8 = _ceil(H, 8)
-    if h8 != H:
-        hidden = torch.nn.functional.pad(hidden, (0, h8 - H))
-        weight = torch.nn.functional.pad(weight, (0, h8 - H))
-    elif hidden.data_ptr() % 16:
-        hidden = hidden.clone()   # a fresh allocation is 16-byte aligned
+    hidden, weight, h8 = _tma_operands(hidden, weight)
     vc, splits, _ = bwd_plan(N, V, h8, need_dh, need_dw)
     n8 = _ceil(N, 8)
     dev, bf = hidden.device, torch.bfloat16

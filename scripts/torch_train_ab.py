@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Parent-against-change training throughput of the PyTorch port on one card.
 
-    python3 scripts/torch_train_ab.py PARENT_DIR CHANGE_DIR [--pairs 10]
+    python3 scripts/torch_train_ab.py PARENT_DIR CHANGE_DIR [--pairs 10] [--run bert|tinyllama]
 
 Each directory holds an unpacked tree of this repository (``git archive``).
-Each run is one process in one tree: ``chip_smoke.py``'s train-phase CLI run
-(BERT-base widths, random weights, the CLI's defaults, 40 steps of the
-vendored reviews). Runs go in turns parent, change, change, parent, ...;
+Each run is one process in one tree: with ``--run bert`` (the default)
+``chip_smoke.py``'s train-phase CLI run (BERT-base widths, random weights,
+the CLI's defaults, 40 steps of the vendored reviews); with ``--run
+tinyllama`` its ``tinyllama_train_phase`` (TinyLlama-1.1B widths at full
+depth through the causal-LM CLI, 12 steps of 4 x 1024, then the profiled
+steps' device busy time, idle share and K2's share of the busy time, and
+the fp32 gate). Runs go in turns parent, change, change, parent, ...;
 each prints one JSON line, and a last line gives each tree's median and
 quartiles of train samples/s per GPU and how many pairs the change won.
 """
@@ -31,10 +35,27 @@ print(json.dumps({"samples_per_s": res["train"]["train_samples_per_second_per_ch
                   "step_time_s": trainer.meter.avg_step_time}))
 """
 
+RUN_TINYLLAMA = """
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+import chip_smoke as c
+sys.path.insert(0, str(c.ROOT))
+with contextlib.redirect_stdout(io.StringIO()):
+    card = c.env_phase()
+    row = c.tinyllama_train_phase(Path(tempfile.mkdtemp()), card)["tinyllama"]
+print(json.dumps({"samples_per_s": row["train_samples_per_second_per_chip"],
+                  "step_time_s": row["step_time_ms"] / 1e3,
+                  **{k: row.get(k) for k in ("device_busy_ms_per_step", "idle_share",
+                                             "k2_ms_per_step", "k2_share_of_busy",
+                                             "train_mfu")}}))
+"""
 
-def run(tree: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True,
-                          text=True, check=True)
+
+def run(tree: str, code: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -43,6 +64,7 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--run", choices=("bert", "tinyllama"), default="bert")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -53,12 +75,12 @@ def main() -> int:
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         got = {}
         for name in order:
-            got[name] = run(getattr(args, name))["samples_per_s"]
+            out = run(getattr(args, name), RUN_TINYLLAMA if args.run == "tinyllama" else RUN)
+            got[name] = out["samples_per_s"]
             seen[name].append(got[name])
-            print(json.dumps({"pair": i, "tree": name, "samples_per_s": got[name]}),
-                  flush=True)
+            print(json.dumps({"pair": i, "tree": name, "card": card, **out}), flush=True)
         pairs.append(got)
-    summary = {"card": card, "pairs": args.pairs,
+    summary = {"card": card, "run": args.run, "pairs": args.pairs,
                "change_won": sum(p["change"] > p["parent"] for p in pairs)}
     for name, xs in seen.items():
         q = statistics.quantiles(xs, n=4) if len(xs) > 1 else [xs[0]] * 3

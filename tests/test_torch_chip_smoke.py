@@ -363,28 +363,38 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         ("ragged", 50, 101, 24, "float32", 0.0, False),
         ("smooth0.1", 32, 200, 16, "float32", 0.1, False),
         ("ties", 32, 130, 16, "float32", 0.0, True),
-        # the MLM cases' routes: the forward on the tensor cores, the
-        # backward on the wgmma route at every H
+        # the MLM cases' routes: the forward and the backward on the wgmma
+        # routes at every H
         ("mlm_base_bf16", 16, 300, 776, "bfloat16", 0.0, False),
         ("mlm_large_bf16", 16, 300, 808, "bfloat16", 0.0, False),
         ("mlm_eval_bf16", 8, 300, 776, "bfloat16", 0.0, False)])
     rows = chip_smoke.vocab_ce_phase()
     assert len(rows) == 28 and all(r["status"] == "pass" for r in rows.values())
     for kname, kernel, fp32 in (
-            ("fused_ce_fwd", "vocab_ce_fwd_tc_kernel", "vocab_ce_fwd_kernel"),
+            ("fused_ce_fwd", "vocab_ce_fwd_wgmma_kernel", "vocab_ce_fwd_kernel"),
             ("fused_ce_bwd_dh", "vocab_ce_dh_wgmma_kernel", "vocab_ce_bwd_dh_kernel"),
             ("fused_ce_bwd_dw", "vocab_ce_dw_wgmma_kernel", "vocab_ce_bwd_dw_kernel"),
             ("fused_ce_bwd", "vocab_ce_ds_wgmma_kernel", "vocab_ce_bwd_dh_kernel")):
         for case in ("gpt2_bf16", "mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16"):
             assert rows[(case, kname)]["kernel_name"] == kernel
-            assert rows[(case, kname)]["route"] == ("tensor cores" if kname == "fused_ce_fwd"
-                                                     else "wgmma")
+            assert rows[(case, kname)]["route"] == "wgmma"
         assert rows[("ragged", kname)]["kernel_name"] == fp32
         assert rows[("ragged", kname)]["route"] == "CUDA cores"
     joint = rows[("gpt2_bf16", "fused_ce_bwd")]
     assert joint["kernels"] == list(chip_smoke.VOCAB_KERNEL_NAMES[("fused_ce_bwd", "bfloat16")])
     assert joint["chunks"] == 1 and joint["scratch_ms"] > 0 and "chunks" not in rows[
         ("ragged", "fused_ce_bwd")]
+    # the bf16 forward's chunks and its own traffic: the split of W (16
+    # bytes a W element) and the per-tile statistics (20 bytes a 128-id
+    # tile and token, written and read back)
+    fwd = rows[("gpt2_bf16", "fused_ce_fwd")]
+    assert fwd["kernels"] == ["vocab_ce_fwd_wgmma_kernel", "vocab_ce_fwd_split_w_kernel",
+                              "vocab_ce_combine_kernel"]
+    assert (fwd["vocab_chunk"], fwd["chunks"]) == (384, 1)
+    assert fwd["scratch_bytes"] == vc.fwd_plan(64, 300, 32)[1]
+    assert fwd["scratch_ms"] == pytest.approx(
+        (16 * 300 * 32 + 2 * 20 * 3 * 64) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert "chunks" not in rows[("ragged", "fused_ce_fwd")]
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
         assert row["phase"] == "vocab_kernel" and row["bound_ms"] > 0
@@ -408,8 +418,9 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
     assert {k: w[1:] for k, w in work.items()} == {
         "fused_ce_fwd": (logits, 67e12), "fused_ce_bwd_dh": (2 * logits, 67e12),
         "fused_ce_bwd_dw": (2 * logits, 67e12), "fused_ce_bwd": (3 * logits, 67e12)}
-    # the bf16 backward's launches a call: the split, dS and the products
-    # once a vocab chunk, hᵀ and the dH cast once
+    # the bf16 routes' launches a call: the backward's split, dS and the
+    # products once a vocab chunk, hᵀ and the dH cast once; the forward's
+    # split and statistics once a chunk of its own walk, the combine once
     llama3 = ("c", 1024, 128256, 4096, "bfloat16", 0.0, False)
     chunks = -(-128256 // vc.bwd_plan(1024, 128256, 4096)[0])
     assert chunks == 26
@@ -417,7 +428,13 @@ def test_vocab_ce_phase_on_cpu(on_cpu, monkeypatch, capsys):
         "vocab_ce_ds_wgmma_kernel": chunks, "vocab_ce_dh_wgmma_kernel": chunks,
         "vocab_ce_dw_wgmma_kernel": chunks, "vocab_ce_split_w_kernel": chunks,
         "vocab_ce_transpose_h_kernel": 1, "vocab_ce_dh_reduce_kernel": 1}
-    assert set(chip_smoke.vocab_launch_counts("fused_ce_fwd", llama3).values()) == {1}
+    fwd_chunks = -(-128256 // vc.fwd_plan(1024, 128256, 4096)[0])
+    assert fwd_chunks == 13
+    assert chip_smoke.vocab_launch_counts("fused_ce_fwd", llama3) == {
+        "vocab_ce_fwd_wgmma_kernel": fwd_chunks, "vocab_ce_fwd_split_w_kernel": fwd_chunks,
+        "vocab_ce_combine_kernel": 1}
+    assert set(chip_smoke.vocab_launch_counts(
+        "fused_ce_fwd", ("c", 1024, 128256, 4096, "float32", 0.0, False)).values()) == {1}
     # limits: a bf16 output against max|want| alone, fp32 against max(1, max|want|)
     bf16, fp32 = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
     assert chip_smoke._limit(bf16, 0.09) == 0.09 / 64
@@ -581,14 +598,15 @@ def test_a_fresh_process_that_fails_fails_the_run():
 
 def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     """Every (wrapper, hidden dtype) the vocab-CE phase times names the
-    kernels that launch, the main one first: the tensor-core forward and
-    the wgmma backward with bf16 hidden, the CUDA-core kernels with float32
-    hidden, each with its helpers (the forward's combine; the split of W,
-    dS, hᵀ and dH's cast on the wgmma route; dH's split reduce on CUDA
-    cores); the forward is held to HMMA, every wgmma kernel to HGMMA, none
-    may spill, and the kernels line reads each main kernel's build row. A
-    train step's profile shares the joint backward's kernels out between
-    dH and dW, each counted once."""
+    kernels that launch, the main one first: the wgmma forward and
+    backward with bf16 hidden, the CUDA-core kernels with float32 hidden,
+    each with its helpers (the forward's own split of W and the combine;
+    the backward's split of W, dS, hᵀ and dH's cast; dH's split reduce on
+    CUDA cores); every wgmma kernel is held to HGMMA, none may spill, and
+    the kernels line reads each main kernel's build row. A train step's
+    profile counts the forward's kernels for the forward and shares the
+    joint backward's out between dH and dW, each counted once: no kernel
+    name is counted twice."""
     names = chip_smoke.VOCAB_KERNEL_NAMES
     wrappers = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw", "fused_ce_bwd")
     assert set(names) == {(k, dt) for k in wrappers for dt in ("float32", "bfloat16")}
@@ -597,7 +615,8 @@ def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     for k in wrappers:
         assert names[(k, "float32")][0] == f"{main[k]}_kernel"
         assert all("_tc_" not in n and "_wgmma_" not in n for n in names[(k, "float32")])
-    assert names[("fused_ce_fwd", "bfloat16")] == ("vocab_ce_fwd_tc_kernel",
+    assert names[("fused_ce_fwd", "bfloat16")] == ("vocab_ce_fwd_wgmma_kernel",
+                                                   "vocab_ce_fwd_split_w_kernel",
                                                    "vocab_ce_combine_kernel")
     assert names[("fused_ce_bwd_dh", "float32")][1] == "vocab_ce_dh_reduce_kernel"
     joint = set(names[("fused_ce_bwd", "bfloat16")])
@@ -608,31 +627,37 @@ def test_vocab_kernel_names_cover_every_wrapper_and_dtype():
     step = chip_smoke.VOCAB_STEP_NAMES
     assert set(step["fused_ce_bwd_dh"]) | set(step["fused_ce_bwd_dw"]) == joint
     assert not set(step["fused_ce_bwd_dh"]) & set(step["fused_ce_bwd_dw"])
+    fwd = chip_smoke.vocab_step_names("fused_ce_fwd", "bfloat16")
+    assert not set(fwd) & joint
+    # a step profile matches names by substring: no name holds another
+    counted = list(fwd) + list(step["fused_ce_bwd_dh"]) + list(step["fused_ce_bwd_dw"])
+    assert not [(a, b) for a in counted for b in counted if a != b and a in b]
     held = {k: (op or ["HMMA"])[0] for k, _, *op in chip_smoke.TC_KERNELS}
-    assert held["vocab_ce_fwd_tc_kernel"] == "HMMA"
-    assert {n for n in joint if "_wgmma_" in n} == {k for k, op in held.items() if op == "HGMMA"}
+    assert "vocab_ce_fwd_tc_kernel" not in held
+    assert {n for n in joint | set(fwd) if "_wgmma_" in n} == {
+        k for k, op in held.items() if op == "HGMMA"}
     assert all(dims == (None,) for k, dims, *_ in chip_smoke.TC_KERNELS
                if k.startswith("vocab_ce"))
     assert chip_smoke.VOCAB_MAIN == "gpt2_bf16"
 
 
 def test_vocab_kernel_names_follow_the_route():
-    """The vocab-CE kernels a wrapper launches are named by route, the
-    library's shared-memory rule (``tc_smem_bytes``), not by dtype alone:
-    bf16 hidden runs the tensor-core forward at 776 and 1032 and the
-    CUDA-core forward past 1216; the backward runs the wgmma route at every
-    H; the MLM cases are in the phase."""
+    """The vocab-CE kernels a wrapper launches are named by hidden dtype
+    alone: bf16 runs the wgmma forward and backward at every H (the
+    forward's old H cap of 1216 is gone), float32 the CUDA-core kernels;
+    the MLM cases are in the phase."""
     names = chip_smoke.vocab_kernel_names
-    for h_dim in (776, 1032, 2048, 4096):
-        assert names("fused_ce_bwd_dw", "bfloat16", h_dim)[0] == "vocab_ce_dw_wgmma_kernel"
-        assert names("fused_ce_bwd_dh", "bfloat16", h_dim)[0] == "vocab_ce_dh_wgmma_kernel"
-        assert chip_smoke.vocab_step_names("fused_ce_bwd_dw", "bfloat16", h_dim) == \
-            chip_smoke.VOCAB_STEP_NAMES["fused_ce_bwd_dw"]
-    assert names("fused_ce_fwd", "bfloat16", 1032)[0] == "vocab_ce_fwd_tc_kernel"
-    assert names("fused_ce_fwd", "bfloat16", 1280)[0] == "vocab_ce_fwd_kernel"
-    assert names("fused_ce_bwd_dh", "float32", 776)[0] == "vocab_ce_bwd_dh_kernel"
-    assert chip_smoke.vocab_step_names("fused_ce_bwd_dh", "float32", 776) == \
-        names("fused_ce_bwd_dh", "float32", 776)
+    assert names("fused_ce_bwd_dw", "bfloat16")[0] == "vocab_ce_dw_wgmma_kernel"
+    assert names("fused_ce_bwd_dh", "bfloat16")[0] == "vocab_ce_dh_wgmma_kernel"
+    assert chip_smoke.vocab_step_names("fused_ce_bwd_dw", "bfloat16") == \
+        chip_smoke.VOCAB_STEP_NAMES["fused_ce_bwd_dw"]
+    assert names("fused_ce_fwd", "bfloat16")[0] == "vocab_ce_fwd_wgmma_kernel"
+    assert chip_smoke.vocab_step_names("fused_ce_fwd", "bfloat16") == \
+        names("fused_ce_fwd", "bfloat16")
+    assert names("fused_ce_fwd", "float32")[0] == "vocab_ce_fwd_kernel"
+    assert names("fused_ce_bwd_dh", "float32")[0] == "vocab_ce_bwd_dh_kernel"
+    assert chip_smoke.vocab_step_names("fused_ce_bwd_dh", "float32") == \
+        names("fused_ce_bwd_dh", "float32")
     cases = {c[0]: c[1:] for c in chip_smoke.VOCAB_CASES}
     assert cases["mlm_base_bf16"] == (1024, 30522, 776, "bfloat16", 0.0, False)
     assert cases["mlm_large_bf16"] == (1024, 30522, 1032, "bfloat16", 0.0, False)
@@ -1320,8 +1345,8 @@ def test_every_llama_phase_shape_is_held_against_its_plain_version(monkeypatch):
     contexts past the window sit) is a kernel case, plan included, and so
     are TinyLlama's G 8 at D 64 and Qwen2's G 7; every (B, H, S, D, window)
     of the TinyLlama and Mixtral training steps is a flash case, and every
-    (N, V, H) of their causal-LM loss a vocab case, on the CUDA-core
-    route."""
+    (N, V, H) of their causal-LM loss a vocab case, forward and backward
+    on the wgmma routes."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
         llama_config_from_hf,
     )
@@ -1380,11 +1405,8 @@ def test_every_llama_phase_shape_is_held_against_its_plain_version(monkeypatch):
     for name, cfg, N in (("tinyllama_ce", tiny, run["batch"] * run["seq"]),
                          ("mixtral_ce", mixtral, mrun["batch"] * mrun["seq"])):
         assert vocab[name][1:5] == (N, cfg.vocab_size, cfg.hidden_size, "bfloat16")
-        assert chip_smoke.vocab_kernel_names("fused_ce_fwd", "bfloat16", cfg.hidden_size) == \
-            chip_smoke.VOCAB_KERNEL_NAMES[("fused_ce_fwd", "float32")]
-        for k in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
-            assert chip_smoke.vocab_kernel_names(k, "bfloat16", cfg.hidden_size) == \
-                chip_smoke.VOCAB_KERNEL_NAMES[(k, "bfloat16")]
+        for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+            assert "_wgmma_" in chip_smoke.vocab_kernel_names(k, "bfloat16")[0]
     # Llama-3's vocab at Mixtral's N and width: a multi-chunk walk at a real V
     llama3 = llama_config_from_hf(chip_smoke.LLAMA_31_8B)
     assert vocab["llama3_vocab_ce"][1:5] == (mrun["batch"] * mrun["seq"], llama3.vocab_size,

@@ -4,12 +4,13 @@ kernels in interpret mode, on the same numpy inputs: loss and prediction
 over multi-tile, ragged and below-one-tile vocabularies, dH and dW through
 ``torch.autograd`` against ``jax.vjp``, first-max ties, label smoothing,
 and the (bfloat16 hidden, float32 weight) contract of the GPT-2 path; the
-bf16 split that the tensor-core dH kernel makes of W and dS
-(``split_bf16``) and the tensor-core kernels' arithmetic (forward, dH and
-dW), in plain PyTorch, against fp64, the plain versions and the Pallas
-kernels; the tensor-core kernels' shared-memory sizes and H caps. Plus the
-CUDA kernels against their plain versions on the card (skipped without
-one).
+bf16 split that the ``wgmma`` routes make of W and dS (``split_bf16``) and
+their arithmetic (the forward's per-tile statistics merged in vocab
+order, the backward's chunked dH and dW), in plain PyTorch, against fp64,
+the plain versions and the Pallas kernels; the wrappers' chunk walks over
+stand-ins of the library's launches; the kernels' shared-memory sizes.
+Plus the CUDA kernels against their plain versions on the card (skipped
+without one).
 
 The JAX function takes its Pallas path only when H is a multiple of 128
 and N a multiple of an 8-aligned ``block_n`` (else it computes the unfused
@@ -275,8 +276,9 @@ def _split_ds(hidden, weight, labels, lse, g, eps):
 
 
 def _split_route_fwd(hidden, weight, labels, eps=0.0):
-    """The bf16-hidden forward kernel's arithmetic in plain PyTorch:
-    split-route logits, then the loss, the LSE and the first maximal id."""
+    """The bf16-hidden forward's logits in plain PyTorch: split-route
+    logits, then the loss, the LSE and the first maximal id over all of
+    them at once (``_fwd_tiled_route`` adds the kernel's order)."""
     s = _split_logits(hidden, weight)
     lse = torch.logsumexp(s, dim=-1)
     target = s.gather(1, labels.long()[:, None])[:, 0]
@@ -410,7 +412,7 @@ def _dw_bound(hidden, ds):
 
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_split_route_fwd_matches_the_plain_version(case):
-    """The tensor-core forward's split route gives the plain forward
+    """The bf16 forward's split-route logits give the plain forward
     (``fused_ce_fwd_reference``) with bf16 hidden: loss and LSE within
     1e-5 (fp32-exact logits summed in another order), pred equal but at
     near-ties, and id 0 where every logit ties."""
@@ -470,16 +472,14 @@ def test_split_route_dw_matches_pallas(eps):
     assert ((got - torch.from_numpy(np.array(want_dw))).abs() <= _dw_bound(h, ds)).all()
 
 
-@pytest.mark.parametrize("kernel,cap,at_768", [("fwd", 1216, 168192)])
-def test_tc_smem_bytes_set_each_kernels_h_cap(kernel, cap, at_768):
-    """The tensor-core forward's shared memory per block (the mirror of the
-    library's query): the GPT-2 width's bytes as the kernel's notes reckon
-    them, the largest H that fits a block's 232,448 bytes, -1 beyond it."""
-    assert vc.tc_smem_bytes(kernel, 768) == at_768
-    fits = [h for h in range(8, 2049, 8) if vc.tc_smem_bytes(kernel, h) >= 0]
-    assert max(fits) == cap and fits == list(range(8, cap + 1, 8))
-    assert 0 < vc.tc_smem_bytes(kernel, cap) <= 232448
-    assert vc.tc_smem_bytes(kernel, cap + 16) == -1
+@pytest.mark.parametrize("kernel", ["fwd"])
+def test_tc_smem_bytes_set_each_kernels_h_cap(kernel):
+    """The bf16 forward's shared memory per block (the mirror of the
+    library's query) is the ``wgmma`` core's ring, its alignment and its
+    barriers at every H: no width is past a cap, every H takes the
+    ``wgmma`` forward, within a block's 232,448 bytes."""
+    sizes = {vc.tc_smem_bytes(kernel, h) for h in list(range(8, 2049, 8)) + [4096, 16384]}
+    assert sizes == {196608 + 1024 + 256} and max(sizes) <= 232448
     with pytest.raises(ValueError):
         vc.tc_smem_bytes("combine", 768)
 
@@ -646,13 +646,13 @@ PLAN_SHAPES = [(4096, 50257, 768), (2048, 50257, 768), (1024, 30522, 776), (1024
 def test_bwd_plan_keeps_the_scratch_under_its_budget(shape):
     """``bwd_plan``: the scratch of the joint backward (and, less, of dH or
     dW alone, on the same chunks and split-K) stays within
-    ``BWD_SCRATCH_BYTES`` at every listed shape; Vc is a multiple of 128
+    ``SCRATCH_BYTES`` at every listed shape; Vc is a multiple of 128
     whose chunks cover V with the last one short by less than a chunk; the
     dH split-K keeps at least 4 stages of the vocab a range and fills 85%
     of the card's slots or stops at 16."""
     n_tok, vocab, h_dim = shape
     v_chunk, splits, joint = vc.bwd_plan(n_tok, vocab, h_dim)
-    assert joint <= vc.BWD_SCRATCH_BYTES
+    assert joint <= vc.SCRATCH_BYTES
     assert v_chunk % 128 == 0 and 0 <= -(-vocab // v_chunk) * v_chunk - vocab < v_chunk
     for need in ((True, False), (False, True)):
         alone = vc.bwd_plan(n_tok, vocab, h_dim, *need)
@@ -663,11 +663,12 @@ def test_bwd_plan_keeps_the_scratch_under_its_budget(shape):
 
 
 class _CpuLib:
-    """The bf16 backward's launches (``csrc/vocab_ce.cu``) as plain PyTorch
-    on the CPU memory the wrapper's pointers name, with the launches' own
-    checks: bf16 operands at 16-byte aligned bases with row strides a
-    multiple of 8 elements (TMA's rule), dH's split-K ranges of whole
-    64-id stages. Each call is logged by name."""
+    """The bf16 forward's and backward's launches (``csrc/vocab_ce.cu``) as
+    plain PyTorch on the CPU memory the wrapper's pointers name, with the
+    launches' own checks: bf16 operands at 16-byte aligned bases with row
+    strides a multiple of 8 elements (TMA's rule), the forward's chunks
+    starting on a 128-id tile, dH's split-K ranges of whole 64-id stages.
+    Each call is logged by name."""
 
     def __init__(self):
         self.calls = []
@@ -749,6 +750,41 @@ class _CpuLib:
         self._at(dh, (n_tok, h_dim), torch.bfloat16).copy_(x)
         return 0
 
+    def vocab_ce_fwd_split_w_launch(self, w, h_dim, v0, rows, hi, mid, lo, stream):
+        self.calls.append("fwd_split_w")
+        pieces = vc.split_bf16(self._at(w + v0 * h_dim * 4, (rows, h_dim), torch.float32))
+        for ptr, q in zip((hi, mid, lo), pieces):
+            self._operand(ptr, rows, h_dim, h_dim).copy_(q)
+        return 0
+
+    def vocab_ce_fwd_wgmma_launch(self, h, hi, mid, lo, labels, part, part_ix, n_tok, h_dim,
+                                  vocab, v0, rows, stream):
+        self.calls.append("fwd_wgmma")
+        assert v0 % 128 == 0 and v0 + rows <= vocab
+        tiles = -(-vocab // 128)
+        x = self._operand(h, n_tok, h_dim, h_dim).float()
+        s = sum(x @ self._operand(q, rows, h_dim, h_dim).float().t() for q in (hi, mid, lo))
+        lab = self._at(labels, (1, n_tok), torch.int32)[0]
+        stats = self._at(part, (4 * tiles, n_tok), torch.float32).view(4, tiles, n_tok)
+        ids = self._at(part_ix, (tiles, n_tok), torch.int32)
+        for t0 in range(0, rows, 128):
+            tile = (v0 + t0) // 128
+            *got, ids[tile] = _tile_partials(s[:, t0:t0 + 128], v0 + t0, vocab, lab)
+            for k, x_ in enumerate(got):
+                stats[k, tile] = x_
+        return 0
+
+    def vocab_ce_fwd_combine_launch(self, part, part_ix, loss, lse, pred, n_tok, vocab, splits,
+                                    eps, one_minus_eps, eps_over_v, stream):
+        self.calls.append("fwd_combine")
+        stats = self._at(part, (4 * splits, n_tok), torch.float32).view(4, splits, n_tok)
+        ids = self._at(part_ix, (splits, n_tok), torch.int32)
+        out = _combine_partials(stats, ids, vocab, eps, one_minus_eps)
+        for ptr, x_, dt in zip((loss, lse, pred), out, (torch.float32, torch.float32,
+                                                        torch.int32)):
+            self._at(ptr, (1, n_tok), dt)[0].copy_(x_)
+        return 0
+
 
 WRAPPER_CASES = [  # n_tok, vocab, h_dim, eps, need dH, need dW, scratch budget
     (20, 300, 30, 0.0, True, True, 1 << 16),      # H 30 padded to 32, three chunks
@@ -768,7 +804,7 @@ def test_bwd_wrapper_runs_the_chunked_route(case, monkeypatch):
     sliced back, dW's rows at each chunk's offset; the result is the plain
     dH and dW within the bf16 limits."""
     n_tok, vocab, h_dim, eps, need_dh, need_dw, budget = case
-    monkeypatch.setattr(vc, "BWD_SCRATCH_BYTES", budget)
+    monkeypatch.setattr(vc, "SCRATCH_BYTES", budget)
     monkeypatch.setattr(vc, "_stream", lambda t: None)
     h, w, lab, lse, g, eps = _chunk_case(n_tok, vocab, h_dim, eps, False, seed=37, edges=8)
     lib = _CpuLib()
@@ -792,6 +828,204 @@ def test_bwd_wrapper_runs_the_chunked_route(case, monkeypatch):
         _assert_bf16_backward(h, w, lab, lse, g, eps, dh, dw)
 
 
+# -- the chunked bf16 forward (csrc/vocab_ce_fwd.cuh) --------------------------
+
+NEG_INF, NO_ID = -1e30, 0x7FFFFFFF     # the kernels' kNegInf and kNoId
+
+
+def _merge(a, b):
+    """Two partials (max, sum-exp, label logit, logit sum, first maximal
+    id) of disjoint ids into one: sum-exps rescaled to the joint max, the
+    lower id on a tie (the quad's merge in ``FwdEpilogue``)."""
+    m = torch.maximum(a[0], b[0])
+    l = a[1] * torch.exp(a[0] - m) + b[1] * torch.exp(b[0] - m)
+    take = (b[0] > a[0]) | ((b[0] == a[0]) & (b[4] < a[4]))
+    return m, l, torch.maximum(a[2], b[2]), a[3] + b[3], torch.where(take, b[4], a[4])
+
+
+def _tile_partials(s, v_base, vocab, labels):
+    """``FwdEpilogue`` on one logit tile ``s`` [N, <= 128] of global ids
+    ``v_base``..: quad lane q holds columns 8 j + 2 q + e (j < 16, e < 2) in
+    increasing order and reduces them (max and first argmax under a strict
+    ``>``, sum-exp against the max, label logit, logit sum), ids >= V
+    masked whatever their logit; then the lanes meet as the shuffles pair
+    them (lane ^ 1, then lane ^ 2) and lane 0's result is the tile's."""
+    n_tok = s.shape[0]
+    lanes = []
+    for q in range(4):
+        cols = [c for j in range(16) for e in range(2) if (c := 8 * j + 2 * q + e) < s.shape[1]
+                and v_base + c < vocab]
+        m = torch.full((n_tok,), NEG_INF)
+        ix = torch.full((n_tok,), NO_ID, dtype=torch.int32)
+        ll, zs = torch.full((n_tok,), NEG_INF), torch.zeros(n_tok)
+        for c in cols:
+            x = s[:, c]
+            ix = torch.where(x > m, v_base + c, ix).to(torch.int32)
+            m = torch.maximum(m, x)
+            ll = torch.where(labels == v_base + c, x, ll)
+            zs = zs + x
+        l = torch.zeros(n_tok)
+        for c in cols:
+            l = l + torch.exp(s[:, c] - m)
+        lanes.append((m, l, ll, zs, ix))
+    pairs = [_merge(lanes[0], lanes[1]), _merge(lanes[2], lanes[3])]
+    return _merge(pairs[0], pairs[1])
+
+
+def _combine_partials(stats, ids, vocab, eps, one_minus_eps):
+    """``vocab_ce_combine_kernel``: the partials [4, T, N] and ids [T, N]
+    merged tile by tile in vocab order (a strict ``>`` keeps the first
+    maximal id), then the loss, the LSE and pred."""
+    n_tok = stats.shape[2]
+    m, l = torch.full((n_tok,), NEG_INF), torch.zeros(n_tok)
+    ll, zs = torch.full((n_tok,), NEG_INF), torch.zeros(n_tok)
+    ix = torch.zeros(n_tok, dtype=torch.int32)
+    for t in range(stats.shape[1]):
+        ms = stats[0, t]
+        ix = torch.where(ms > m, ids[t], ix)
+        mn = torch.maximum(m, ms)
+        l = l * torch.exp(m - mn) + stats[1, t] * torch.exp(ms - mn)
+        m, ll, zs = mn, torch.maximum(ll, stats[2, t]), zs + stats[3, t]
+    lse = m + torch.log(l)
+    target = one_minus_eps * ll + eps * zs / vocab if eps > 0 else ll
+    return lse - target, lse, ix
+
+
+def _fwd_tiled_route(hidden, weight, labels, eps, v_chunk):
+    """The bf16 forward's arithmetic in plain PyTorch, chunk by chunk of
+    ``v_chunk`` ids: the chunk's W split into hi, mid and lo; the three-pass
+    logits; each 128-id tile reduced to one partial a token
+    (``_tile_partials``), the chunk's columns past V filled with stale
+    values that only the id mask keeps out; then the in-order combine."""
+    (n_tok, _), vocab = hidden.shape, weight.shape[0]
+    tiles = -(-vocab // 128)
+    h = hidden.float()
+    stats, ids = torch.empty(4, tiles, n_tok), torch.empty(tiles, n_tok, dtype=torch.int32)
+    for v0 in range(0, vocab, v_chunk):
+        s = sum(h @ q.float().t() for q in vc.split_bf16(weight[v0:v0 + v_chunk]))
+        stale = torch.full((n_tok, -(-s.shape[1] // 128) * 128 - s.shape[1]), 50.0)
+        s = torch.cat([s, stale], 1)
+        for t0 in range(0, s.shape[1], 128):
+            *got, ids[(v0 + t0) // 128] = _tile_partials(s[:, t0:t0 + 128], v0 + t0, vocab,
+                                                         labels)
+            stats[:, (v0 + t0) // 128] = torch.stack(got)
+    one_minus_eps = torch.tensor(1.0 - eps, dtype=torch.float32).item()
+    return _combine_partials(stats, ids, vocab, eps, one_minus_eps)
+
+
+FWD_TILE_CASES = [  # n_tok, vocab, h_dim, eps, all-equal W, chunk
+    (24, 300, 30, 0.0, False, 128),      # H off every tile, a short last tile
+    (40, 300, 776, 0.1, False, 256),     # BERT-base's fold, Vc does not divide V, smoothing
+    (33, 333, 1032, 0.0, False, 128),    # BERT-large's fold, ragged N
+    (16, 260, 2048, 0.1, False, 128),    # TinyLlama's width
+    (8, 200, 4096, 0.0, False, 128),     # Mixtral's width
+    (40, 384, 32, 0.0, True, 128),       # every logit of a token bit-equal: pred 0
+    (40, 384, 32, 0.1, True, 256),
+]
+
+
+@pytest.mark.parametrize("case", FWD_TILE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fwd_tiled_route_matches_the_plain_version(case):
+    """The bf16 forward's per-tile arithmetic gives the plain forward
+    (``fused_ce_fwd_reference``): loss and LSE within 1e-5, pred equal but
+    at near-ties and id 0 where every logit ties, with labels on either
+    side of every tile and chunk edge, ragged N, V and H, and a chunk that
+    does not divide V."""
+    n_tok, vocab, h_dim, eps, ties, v_chunk = case
+    h, w, lab, _, _, eps = _chunk_case(n_tok, vocab, h_dim, eps, ties, seed=43, edges=n_tok)
+    loss, lse, pred = _fwd_tiled_route(h, w, lab, eps, v_chunk)
+    rloss, rlse, rpred = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert pred.dtype == torch.int32 and ((pred == rpred) | _near_tie(h, w)).all()
+    if ties:
+        assert (pred == 0).all() and (rpred == 0).all()
+
+
+def test_tile_partials_tie_goes_to_the_lower_id():
+    """Within a tile the quad's lanes interleave: an equal maximum at id 9
+    (lane 0) and id 2 (lane 1) must give 2, and at ids 2 and 0 of one tile
+    with a larger one in the next tile the later tile wins the combine."""
+    s = torch.zeros(1, 128)
+    s[0, 9] = s[0, 2] = 5.0
+    assert int(_tile_partials(s, 0, 128, torch.tensor([0]))[4]) == 2
+    s2 = torch.zeros(1, 256)
+    s2[0, 130] = s2[0, 3] = 5.0
+    parts = [_tile_partials(s2[:, t:t + 128], t, 256, torch.tensor([0])) for t in (0, 128)]
+    stats = torch.stack([torch.stack(p[:4]) for p in parts], 1)
+    ids = torch.stack([p[4] for p in parts])
+    assert int(_combine_partials(stats, ids, 256, 0.0, 1.0)[2]) == 3
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1], ids=["eps0", "eps0.1"])
+def test_fwd_tiled_route_matches_pallas(eps):
+    """The bf16 forward's per-tile arithmetic at H 128 over three chunks
+    (128, 128 and 44 ids) against the Pallas ``_fwd_kernel`` in interpret
+    mode: loss within 1e-5, pred equal but at near-ties."""
+    hidden, weight, labels = _inputs(48, 300, seed=45)
+    hidden = torch.from_numpy(hidden).bfloat16().float().numpy()   # bf16-exact
+    labels[:6] = [127, 128, 255, 256, 299, 0]
+    want_loss, want_pred = _jax(hidden, weight, labels, 16, 128, eps=eps, h_dtype="bfloat16")
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w, lab = torch.from_numpy(weight), torch.from_numpy(labels)
+    loss, _, pred = _fwd_tiled_route(h, w, lab, eps, 128)
+    np.testing.assert_allclose(loss.numpy(), want_loss, rtol=1e-5, atol=1e-5)
+    assert ((pred.numpy() == want_pred) | _near_tie(h, w).numpy()).all()
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "N{}-V{}-H{}".format(*s))
+def test_fwd_plan_keeps_the_scratch_under_its_budget(shape):
+    """``fwd_plan``: the forward's scratch (W's three pieces of a chunk and
+    the 20 bytes of statistics a 128-id tile and token) stays within
+    ``SCRATCH_BYTES`` at every listed shape, the budget the backward
+    shares; Vc is a multiple of 128 whose chunks cover V with the last one
+    short by less than a chunk."""
+    n_tok, vocab, h_dim = shape
+    v_chunk, scratch = vc.fwd_plan(n_tok, vocab, h_dim)
+    assert scratch <= vc.SCRATCH_BYTES
+    assert scratch == 3 * v_chunk * h_dim * 2 + 20 * -(-vocab // 128) * n_tok
+    assert v_chunk % 128 == 0 and 0 <= -(-vocab // v_chunk) * v_chunk - vocab < v_chunk
+
+
+FWD_WRAPPER_CASES = [  # n_tok, vocab, h_dim, eps, all-equal W, scratch budget
+    (20, 300, 30, 0.0, False, 1 << 16),      # H 30 padded to 32, two chunks
+    (33, 333, 1032, 0.1, False, 1 << 20),    # BERT-large's fold, three chunks
+    (16, 700, 2048, 0.0, False, 1 << 21),    # six chunks
+    (40, 384, 32, 0.1, True, 1 << 14),       # ties across chunks
+]
+
+
+@pytest.mark.parametrize("case", FWD_WRAPPER_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fwd_wrapper_runs_the_chunked_route(case, monkeypatch):
+    """The bf16 forward wrapper (``_fwd_bf16``) drives the launches chunk
+    by chunk over CPU memory (``_CpuLib`` stands in for the library), with
+    a small scratch budget so that several chunks run: the split and the
+    ``wgmma`` launch a chunk, then the combine once, each with the pointers
+    and strides TMA takes and each chunk's tiles at their offset in the
+    statistics; the result is ``_fwd_tiled_route``'s bit for bit and the
+    plain forward's within 1e-5."""
+    n_tok, vocab, h_dim, eps, ties, budget = case
+    monkeypatch.setattr(vc, "SCRATCH_BYTES", budget)
+    monkeypatch.setattr(vc, "_stream", lambda t: None)
+    h, w, lab, _, _, eps = _chunk_case(n_tok, vocab, h_dim, eps, ties, seed=47, edges=8)
+    lib = _CpuLib()
+    loss, lse, pred = vc._fwd_bf16(lib, h, w, lab.to(torch.int32), eps)
+    v_chunk, _ = vc.fwd_plan(n_tok, vocab, -(-h_dim // 8) * 8)
+    chunks = -(-vocab // v_chunk)
+    assert chunks > 1
+    assert lib.calls == ["fwd_split_w", "fwd_wgmma"] * chunks + ["fwd_combine"]
+    want = _fwd_tiled_route(torch.nn.functional.pad(h, (0, -h_dim % 8)),
+                            torch.nn.functional.pad(w, (0, -h_dim % 8)), lab, eps, v_chunk)
+    for got, w_ in zip((loss, lse, pred), want):
+        assert got.shape == (n_tok,) and torch.equal(got, w_)
+    rloss, rlse, rpred = vc.fused_ce_fwd_reference(h, w, lab, eps)
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert ((pred == rpred) | _near_tie(h, w)).all()
+    if ties:
+        assert (pred == 0).all()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -805,18 +1039,16 @@ GPU_CASES = [  # n_tok, vocab, h_dim, dtype, eps, ties
     (130, 777, 200, "float32", 0.1, False),
     (64, 500, 800, "float32", 0.0, False),
     (128, 640, 128, "float32", 0.0, True),
-    # bf16 hidden: the forward on the tensor cores, the backward on the
-    # wgmma route: H not a multiple of 64 or 4 (30 padded to 32), smoothing,
-    # ties
+    # bf16 hidden: the forward and the backward on the wgmma routes: H not
+    # a multiple of 64 or 4 (30 padded to 32), smoothing, ties
     (256, 2000, 200, "bfloat16", 0.0, False),
     (64, 500, 800, "bfloat16", 0.1, False),
     (100, 3000, 30, "bfloat16", 0.0, False),
     (128, 640, 128, "bfloat16", 0.0, True),
-    # past the tensor-core forward's H (1216): the CUDA-core forward, the
-    # wgmma backward
+    # past the old tensor-core forward's H cap (1216)
     (64, 500, 1280, "bfloat16", 0.0, False),
-    # many token tiles with ragged N and V, ties across the forward's
-    # rotated vocab walks (5 token blocks), H past the old dW cap (800)
+    # many token tiles with ragged N and V, ties across vocab tiles and
+    # token tiles, H past the old dW cap (800)
     (1000, 1001, 768, "bfloat16", 0.0, False),
     (300, 1280, 64, "bfloat16", 0.0, True),
     (64, 500, 816, "bfloat16", 0.1, False),
@@ -863,14 +1095,31 @@ def test_kernels_match_reference_on_card(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [(4096, 32000, 2048), (300, 3000, 776), (1000, 1001, 30)],
+                         ids=lambda c: "N{}-V{}-H{}".format(*c))
+def test_forward_repeats_bit_for_bit_on_card(cuda_device, case):
+    """Two bf16 forward calls on the same inputs give identical loss, LSE
+    and pred (each partial one quad's merge in a fixed order, the combine
+    in vocab order, no atomics), at several chunks, ragged N and V and an
+    H that is padded."""
+    n_tok, vocab, h_dim = case
+    hidden, weight, labels = _inputs(n_tok, vocab, seed=43, h_dim=h_dim)
+    h = torch.from_numpy(hidden).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(weight * 0.4).to(cuda_device)
+    lab = torch.from_numpy(labels).to(cuda_device)
+    first = vc.fused_ce_fwd(h, w, lab, 0.1)
+    second = vc.fused_ce_fwd(h, w, lab, 0.1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
 def test_tc_smem_bytes_mirror_the_library(cuda_device):
-    """The Python mirror of the tensor-core kernels' shared-memory sizes
-    (the forward's H cap, the backward's ring whatever H) gives the
-    library's own numbers."""
+    """The Python mirror of the ``wgmma`` kernels' shared-memory size (the
+    ring whatever H) gives the library's own number."""
     lib = vc._kernel_lib()
     for h_dim in (16, 24, 30, 64, 200, 768, 784, 800, 808, 816, 1216, 1280, 4096):
-        assert lib.vocab_ce_fwd_tc_smem_bytes(h_dim) == vc.tc_smem_bytes("fwd", h_dim), h_dim
-        for kernel in ("dh", "dw"):
+        for kernel in ("fwd", "dh", "dw"):
             assert lib.vocab_ce_wgmma_smem_bytes() == vc.tc_smem_bytes(kernel, h_dim), h_dim
 
 
@@ -905,14 +1154,14 @@ MLM_CASES = [(1024, 30522, 776), (1024, 30522, 1032), (1024, 128100, 776),
 
 
 @pytest.mark.parametrize("h_dim,routes,dw_at_128_lanes", [
-    (768, ("tc", "wgmma", "wgmma"), "wgmma"), (1024, ("tc", "wgmma", "wgmma"), "wgmma"),
-    (128, ("tc", "wgmma", "wgmma"), "wgmma")])
+    (768, ("wgmma", "wgmma", "wgmma"), "wgmma"), (1024, ("wgmma", "wgmma", "wgmma"), "wgmma"),
+    (128, ("wgmma", "wgmma", "wgmma"), "wgmma")])
 def test_bias_fold_width_keeps_the_mlm_routes(h_dim, routes, dw_at_128_lanes):
     """The fused MLM loss widens H to the next multiple of 8 (16-byte bf16
-    rows): BERT-base's 776 and BERT-large's 1032 keep the forward on the
-    tensor cores (cap 1216), and the backward takes the ``wgmma`` route at
-    every width, the reference's 128-lane fold included; a width that is a
-    multiple of 8 is what TMA takes without padding."""
+    rows): BERT-base's 776 and BERT-large's 1032, like every width, take
+    the ``wgmma`` forward, dH and dW, the reference's 128-lane fold
+    included; a width that is a multiple of 8 is what TMA takes without
+    padding."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
         bias_fold_width,
     )
@@ -920,8 +1169,8 @@ def test_bias_fold_width_keeps_the_mlm_routes(h_dim, routes, dw_at_128_lanes):
     width = bias_fold_width(h_dim)
     assert width % 8 == 0 and h_dim < width <= h_dim + 8
     wgmma = vc.tc_smem_bytes("dh", 8)
-    got = (("tc" if vc.tc_smem_bytes("fwd", width) >= 0 else "cuda_core"),
-           *("wgmma" if vc.tc_smem_bytes(k, width) == wgmma else "other" for k in ("dh", "dw")))
+    got = tuple("wgmma" if vc.tc_smem_bytes(k, width) == wgmma else "other"
+                for k in ("fwd", "dh", "dw"))
     assert got == routes
     ref_dw = "wgmma" if vc.tc_smem_bytes("dw", h_dim + 128) == wgmma else "other"
     assert ref_dw == dw_at_128_lanes
