@@ -6,13 +6,13 @@
 
 Needs one CUDA card (built for an H100: ``sm_90a``) and ``nvcc``.
 Imports nothing of JAX or of the JAX package. Phases, in order; any
-failure raises and exits non-zero. Phases 5 and 7 and the llama cases of
-phase 2 time many kernels under ``torch.profiler``, and a process's
-profiler drops more of a window's records the more profiled and traced
-work the process has run before (none in phase 2, up to three records in
-four after the llama phase, and once every record of a kernel in six
-windows running): so they run after phase 10, each in a process of its
-own (``FRESH_PROCESS_PHASES``, ``python3 chip_smoke.py --phase NAME
+failure raises and exits non-zero. Phases 5 and 7, the llama cases of
+phase 2 and phase 11 (b) time many kernels under ``torch.profiler``, and a
+process's profiler drops more of a window's records the more profiled and
+traced work the process has run before (none in phase 2, up to three
+records in four after the llama phase, and once every record of a kernel
+in six windows running): so they run after phase 11's others, each in a
+process of its own (``FRESH_PROCESS_PHASES``, ``python3 chip_smoke.py --phase NAME
 OUT``), which prints its lines to the same output and hands its rows
 back in the JSON file OUT:
 
@@ -297,7 +297,7 @@ back in the JSON file OUT:
    identical logits; then a short ``torch.profiler`` pass for device time
    by kernel and the idle share, which must name the three K2 kernels;
 9. decoding (``decode_phase``): GPT-2 124M from the export of 8 (b), 8
-   vendored reviews as right-padded prompts of up to 128 tokens, 128 new
+   vendored reviews as right-padded prompts of up to 128 tokens, 64 new
    tokens, fp32 (TF32 off): greedy; sampled (temperature 0.8, top-k 50,
    top-p 0.9) twice with one seed, identical; beam 4 (and beam 1, equal to
    greedy); speculative with ``self_draft(4)``, k 4; chunked prefill (32);
@@ -316,8 +316,8 @@ back in the JSON file OUT:
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
 10. the Llama family and MoE (``llama_phase``), each model's published
    widths written as its ``config.json`` by the script, random weights
-   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 16 requests of
-   128-512 prompt tokens and 64 new through the engine's defaults (8
+   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 12 requests of
+   128-512 prompt tokens and 32 new through the engine's defaults (8
    slots, chunk 32, max_model_len 2048) on fp pools, int8 pools and the
    gather route; K3 once a layer a decode step; each run's tokens held to
    the batched plain ``generate_causal`` (dense cache, plain attention;
@@ -340,7 +340,23 @@ back in the JSON file OUT:
    that cannot bind; its K3 cases (``llama_kernel_phase``), K1 cases
    (in phase 5) and K2 cases (in phase 7) run after it in their own
    processes;
-11. each phase's wall seconds, the ``kernels`` line (the paged kernel's
+11. the job as the source system launches it: (a) ``launch_phase``: the
+   reference's job through ``python -m <port>.launch --slice h100-1``
+   (BERT-large-WWM seq-cls at full width and depth, random weights, 30
+   steps and 16 eval steps on the vendored reviews), its job directory,
+   results, reloaded export, the child's K1 counts from its telemetry and
+   wall; then the single-node entry, the learning rate unscaled; (b)
+   ``optim_memory_phase`` (its own process, it profiles): AdamW with fp32
+   and with bf16 moments, LAMB, and AdamW under remat ``full``, ``dots`` and
+   ``dots_no_batch`` on BERT-large-WWM at 8 x 512: peak memory, moment
+   bytes (bf16 exactly half), busy, idle, step ms, K1 launches a step
+   (the forward twice under remat), the first step's loss equal across
+   runs; (c) ``optim_parity_phase``: LAMB and bf16-moment AdamW on the card
+   against the CPU on the same parameters and gradients, and an fp32 step
+   under each remat policy against the plain step; (d)
+   ``optim_resume_phase``: LAMB and bf16-moment AdamW resumed through the
+   ``Checkpointer`` bit for bit;
+12. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
    shared-block cases; the llama phase's launches and cases beside), the
@@ -349,6 +365,7 @@ back in the JSON file OUT:
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -392,6 +409,9 @@ MARKER_KERNELS = 32
 # the spin that holds the card while ``_host_ms`` times a loop of calls:
 # about 100 ms at the H100's clock
 HOST_SPIN_CYCLES = 200_000_000
+# profiled windows (and host-timed loops) a kernel time is the median of:
+# three keeps the whole script inside its time limit
+TIMING_REPEATS = 3
 # where the kernel, flash and train phases run; "cpu" only to rehearse
 # them at a small size (every wrapper then takes its plain version)
 DEVICE = "cuda"
@@ -633,7 +653,7 @@ def _cuda_ms(fn, arg_sets, iters: int = 40) -> float:
 
 
 def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
-               repeats: int = 5) -> float:
+               repeats: int = TIMING_REPEATS) -> float:
     """Device time per call over ``repeats`` profiled windows of ``iters``
     calls each. With ``match`` (a name, a tuple of the names of the kernels
     each call launches once each, or a dict of each name's launches a call)
@@ -681,11 +701,12 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
                 continue
             held = [0]
         else:
-            by_kernel = _device_seconds_by_kernel(prof)
-            held = [sum(e.count for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
-                    for n in counts]
-            secs = [sum(v for k, v in by_kernel.items() if n in k) for n in counts]
+            # records and seconds by name straight off the kineto results
+            # (``key_averages`` gives the same counts after building its
+            # event tree, seconds of host time a window)
+            records = _device_records(prof)
+            held = [sum(c for k, (_, c) in records.items() if n in k) for n in counts]
+            secs = [sum(t for k, (t, _) in records.items() if n in k) for n in counts]
             if (all(0 < c <= iters * k for c, k in zip(held, counts.values()))
                     and all(t > 0 for t in secs)):
                 per_call.append(sum(t / c * k for t, c, k in zip(secs, held, counts.values()))
@@ -705,7 +726,7 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     return ms
 
 
-def _host_ms(fn, arg_sets, iters: int = 100, repeats: int = 5) -> float:
+def _host_ms(fn, arg_sets, iters: int = 100, repeats: int = TIMING_REPEATS) -> float:
     """Host time per call: the median over ``repeats`` loops of ``iters``
     calls on the host's clock, each loop queued behind a spin kernel of
     about 100 ms, so that every launch only queues and the time is the
@@ -2578,6 +2599,34 @@ def _review_batch(n: int, seq: int, device, split: str = "train",
             "labels": torch.tensor(labels).long().to(device)}
 
 
+# the CPU draws of the parity steps' weights, one a model shape
+_SEEDED: dict = {}
+
+
+def _seeded(init, family: str, task: str, cfg):
+    """``init(auto.build_model(family, task, cfg), seed=0, device=DEVICE)``
+    in train mode, its weights drawn on the CPU once per model shape: the
+    compute dtype and the attention path change no weight, so a parity
+    pair's four steps share one draw (``train_parity_phase`` empties the
+    cache)."""
+    import dataclasses
+
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+
+    key = (init.__name__, family, task,
+           repr(dataclasses.replace(cfg, dtype=torch.float32, attention_impl="xla")))
+    if key not in _SEEDED:
+        _SEEDED[key] = init(auto.build_model(family, task, cfg), seed=0,
+                            device="cpu").state_dict()
+    with torch.device("meta"):
+        model = auto.build_model(family, task, cfg)
+    model.load_state_dict({k: v.to(DEVICE, copy=True) for k, v in _SEEDED[key].items()},
+                          assign=True)
+    return model.train()
+
+
 def _encoder_step(family: str, hf: dict, batch, impl: str, dtype,
                   layers: int | None = None) -> tuple[float, dict]:
     """One seq-cls train step of ``family`` at the widths of ``hf`` (depth
@@ -2596,8 +2645,7 @@ def _encoder_step(family: str, hf: dict, batch, impl: str, dtype,
     if layers:
         over["num_layers"] = layers
     cfg = auto.CONFIG_BUILDERS[family](hf, **over)
-    model = init_encoder(auto.build_model(family, "seq-cls", cfg), seed=0,
-                         device=DEVICE).train()
+    model = _seeded(init_encoder, family, "seq-cls", cfg)
     loss, _ = seq_cls_loss(model, batch)
     loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
@@ -2646,7 +2694,7 @@ def _pretrain_step(family: str, hf: dict, batch, task: str, kernels: bool, dtype
     if family in ("bert", "albert"):
         over["use_pooler"] = False          # HF's MLM models have no pooler
     cfg = auto.CONFIG_BUILDERS[family](hf, **over)
-    model = init_encoder(auto.build_model(family, task, cfg), seed=0, device=DEVICE).train()
+    model = _seeded(init_encoder, family, task, cfg)
     if task == "rtd":
         loss_fn = tr.rtd_loss
     else:
@@ -2700,8 +2748,7 @@ def _seq2seq_step(family: str, hf: dict, batch, kernels: bool, dtype,
         over = dict(encoder_layers=layers, decoder_layers=layers, dropout=0.0,
                     attention_dropout=0.0, activation_dropout=0.0)
     cfg = auto.CONFIG_BUILDERS[family](hf, dtype=dtype, **over)
-    model = init_seq2seq(auto.build_model(family, "seq2seq", cfg), seed=0,
-                         device=DEVICE).train()
+    model = _seeded(init_seq2seq, family, "seq2seq", cfg)
     loss_fn = (tr.make_fused_seq2seq_loss(0.1) if kernels
                else lambda m, b: tr.seq2seq_loss(m, b, epsilon=0.1))
     loss, _ = loss_fn(model, batch)
@@ -2770,6 +2817,7 @@ def train_parity_phase() -> dict:
         rows.update({f"{family}-seq2seq/{dt}": row for dt, row in pair.items()})
     t3 = time.perf_counter()
     rows.update(_breadth_parity())
+    _SEEDED.clear()
     emit({"phase": "train_parity_wall", "encoder_steps_s": t1 - t0,
           "pretrain_steps_s": t2 - t1, "seq2seq_steps_s": t3 - t2,
           "lora_packing_deberta_steps_s": time.perf_counter() - t3})
@@ -2800,8 +2848,7 @@ def _lora_step(batch, impl: str, dtype) -> tuple[float, dict]:
     cfg = auto.CONFIG_BUILDERS["bert"](BERT_BASE, hidden_dropout=0.0, attention_dropout=0.0,
                                        classifier_dropout=0.0, attention_impl=impl,
                                        dtype=dtype)
-    model = init_encoder(auto.build_model("bert", "seq-cls", cfg), seed=0,
-                         device=DEVICE).train()
+    model = _seeded(init_encoder, "bert", "seq-cls", cfg)
     lora = lo.init_lora_params(model, LORA_RANK, "attention", seed=0)
     gen = torch.Generator().manual_seed(1)
     for ab in lora.values():
@@ -3204,7 +3251,8 @@ LIFECYCLE_WORSE_EVAL = 1.0
 # fixed order; "rerun_weight_drift" reads it); state lost in a resume would
 # move weights by the order of a learning-rate step (5e-5)
 RESUME_WEIGHT_TOL = 1e-6
-RERUN_TELEMETRY = (False, True, True, False)   # the train phase's run, rerun in this order
+# the train phase's run, rerun in this order
+RERUN_TELEMETRY = (False, True)
 
 
 class _Interrupt(Exception):
@@ -3281,8 +3329,8 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
     telemetry on: (1) an uninterrupted run of 2 epochs x 12 steps with
     async saves, (2) the same run stopped after epoch 0 step 7 (its last
     checkpoint is step 5), (3) the rerun, resumed from step 5 with sync
-    saves, and (4) the train phase's run four times, telemetry off, on, on,
-    off, which reads the telemetry's own cost on the step and, against the
+    saves, and (4) the train phase's run twice, telemetry off, then on,
+    which reads the telemetry's own cost on the step and, against the
     train phase's export in ``rerun_of``, how far two identical fits'
     weights drift apart. Epoch 1's eval loss is scripted
     worse, so keep-best has to load epoch 0's weights back. Checks the
@@ -3374,8 +3422,8 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
     finally:
         Trainer.train_step, Trainer.evaluate = orig_step, orig_eval
 
-    # the telemetry's own cost: the train phase's run with telemetry off
-    # and on, in the order off, on, on, off (the host drifts within a call)
+    # the telemetry's own cost: the train phase's run with telemetry off,
+    # then on
     reruns = []
     for i, tel_on in enumerate(RERUN_TELEMETRY):
         tel = work / f"tel_rerun{i}"
@@ -3531,7 +3579,7 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
 # -- the data stack --------------------------------------------------------------
 
 DATA_BUCKET = 64                # --bucket_multiple of run A
-DATA_STEPS = 40                 # run A's train steps
+DATA_STEPS = 30                 # run A's train steps
 DATA_SHORT_STEPS = 20           # runs A' and C
 DATA_EVAL_SAMPLES = 64          # run A's 16 eval steps at the eval batch of 4
 DATA_PROFILED_STEPS = 6
@@ -4101,7 +4149,7 @@ def _encoder_idle(trainer, spec) -> dict:
 
 # -- masked-LM and replaced-token-detection pretraining ----------------------
 
-MLM_STEPS = 30                  # runs 1 and 2
+MLM_STEPS = 20                  # runs 1 and 2
 MLM_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
 MLM_LARGE_STEPS = 10
 RTD_STEPS = 15
@@ -4359,7 +4407,7 @@ def mlm_phase(work: Path, card: str) -> dict:
 
 # -- encoder-decoder seq2seq ----------------------------------------------------
 
-S2S_STEPS = 30                  # runs 1 and 2
+S2S_STEPS = 20                  # runs 1 and 2
 S2S_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
 S2S_ROUGE_SAMPLES = 32
 S2S_SHORT_STEPS = 10            # span corruption, streaming
@@ -5227,7 +5275,7 @@ def gpt2_cli_phase(work: Path) -> dict:
 
 DECODE_ROWS = 8                 # prompts from the vendored reviews, right-padded
 DECODE_PROMPT = 128             # tokens at most
-DECODE_NEW = 128
+DECODE_NEW = 64
 DECODE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 DECODE_SEED = 7
 DECODE_BEAMS = 4
@@ -6028,6 +6076,9 @@ def packing_phase(work: Path, card: str) -> dict:
 
 
 LORA_STEPS = 30
+# the LoRA and full fine-tune runs' depth at BERT-large's widths: half of
+# its 24, to keep the script in its time limit
+LORA_DEPTH = 12
 LORA_EVAL_SAMPLES = 64          # 16 eval steps at the eval batch of 4
 LORA_FULL_STEPS = 5
 LORA_CKPT_EVERY = 5
@@ -6045,10 +6096,11 @@ def _opt_bytes(trainer) -> int:
 
 def lora_phase(work: Path, card: str) -> dict:
     """(i) LoRA through the training CLI: (a) BERT-large
-    (``bert-large-uncased-whole-word-masking`` widths) seq-cls at sequence
-    512, batch 8, ``--lora_rank 8 --lora_alpha 16``, ``LORA_STEPS`` steps and
-    16 eval steps: K1's forward, dQ
-    and dK/dV 24 a train step (forward 24 an eval step), no K2; samples/s,
+    (``bert-large-uncased-whole-word-masking`` widths at depth
+    ``LORA_DEPTH``) seq-cls at sequence 512, batch 8, ``--lora_rank 8
+    --lora_alpha 16``, ``LORA_STEPS`` steps and 16 eval steps: K1's
+    forward, dQ and dK/dV once a layer a train step (the forward once a
+    layer an eval step), no K2; samples/s,
     busy, idle, MFU, K1's ms per step, the optimizer state's bytes and the
     peak allocated memory. Every base tensor is bit-identical to its seeded
     initial value, only the adapters, classifier and pooler moved, the
@@ -6074,7 +6126,8 @@ def lora_phase(work: Path, card: str) -> dict:
     lora_args = ["--lora_rank", str(LORA_RANK), "--lora_alpha", str(LORA_ALPHA)]
     rows = {}
     rec = _Recorder()
-    cfg_dir = _config_dir(work / "bert_large", BERT_LARGE)
+    cfg_dir = _config_dir(work / "bert_large", dict(
+        BERT_LARGE, num_hidden_layers=min(LORA_DEPTH, BERT_LARGE["num_hidden_layers"])))
 
     def peak_reset():
         if DEVICE == "cuda":
@@ -6413,9 +6466,9 @@ MIXTRAL_8X7B = {  # mistralai/Mixtral-8x7B-v0.1 at depth 1 of 32
     "eos_token_id": 2, "initializer_range": 0.02}
 # (a) the engine's defaults (K3, prefix cache, ladder, overlap) at 8 slots,
 # chunk 32, max_model_len 2048 (an 8-row prefill gathers at most 2 GiB of
-# its 128 KiB a token); 16 requests of 128-512 prompt tokens, 64 new each
+# its 128 KiB a token); 12 requests of 128-512 prompt tokens, 32 new each
 LLAMA_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=2048)
-LLAMA_TRACE = dict(n=16, lo=128, hi=512, new=64)
+LLAMA_TRACE = dict(n=12, lo=128, hi=512, new=32)
 # (b) one request of 4600 tokens past the window of 4096, 32 new
 MISTRAL_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=4736)
 MISTRAL_PROMPT, MISTRAL_NEW = 4600, 32
@@ -6934,6 +6987,581 @@ def mixtral_phase(card: str) -> dict:
     return {"mixtral": row}
 
 
+# -- the job as the source system launches it --------------------------------
+
+LAUNCH_STEPS = 30               # the launched BERT-large-WWM run's train steps
+LAUNCH_EVAL_SAMPLES = 64        # 16 eval steps at the eval batch of 4
+LAUNCH_SINGLE_NODE_STEPS = 2    # the single-node entry's run
+LAUNCH_SINGLE_NODE_EVAL = 8
+LAUNCH_TIMEOUT_S = 420
+OPTIM_WEIGHT_DECAY = 0.01
+# (run, TrainConfig overrides, remat policy or None): BERT-large-WWM seq-cls
+# at sequence 512, batch 8, bf16, in one process
+OPTIM_RUNS = (
+    ("adamw_fp32", dict(optimizer="adamw"), None),
+    ("adamw_bf16_moments", dict(optimizer="adamw", optimizer_state_dtype="bfloat16"), None),
+    ("lamb", dict(optimizer="lamb"), None),
+    ("remat_full", dict(optimizer="adamw"), "full"),
+    ("remat_dots", dict(optimizer="adamw"), "dots"),
+    ("remat_dots_no_batch", dict(optimizer="adamw"), "dots_no_batch"),
+)
+OPTIM_TIMED_STEPS = 5           # after the first (excluded) step, unprofiled
+OPTIM_PROFILED_STEPS = 4        # then profiled: 10 steps a run
+OPTIM_LOSS_RTOL = 1e-6          # the first step's loss across the runs
+OPTIM_PARITY_STEPS = 3          # card against CPU, LAMB and bf16-moment AdamW
+OPTIM_PARITY_RTOL = 1e-5
+OPTIM_PARITY_LR = 5e-5
+RESUME_STEPS = 6                # straight; or half, save, restore, half
+RESUME_SEQ = 128
+
+
+def _start_launch(work: Path, name: str, args: list) -> dict:
+    """Start ``python -m <port>.launch`` with ``args`` on this machine's
+    first card (``h100-1``; ``cpu-1`` when the script runs on the CPU), as a
+    user calls it; its output goes to ``<work>/<name>.out``."""
+    root = work / name
+    root.mkdir(parents=True, exist_ok=True)
+    slice_spec = "h100-1" if DEVICE == "cuda" else "cpu-1"
+    sys.stdout.flush()
+    with open(work / f"{name}.out", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.launch", "--slice", slice_spec,
+             "--job_root", str(root), "--base_job_name", name,
+             "--timeout", str(LAUNCH_TIMEOUT_S - 30)] + args,
+            cwd=str(ROOT), stdout=out, stderr=subprocess.STDOUT)
+    return {"name": name, "proc": proc, "t0": time.perf_counter(), "root": root,
+            "out": work / f"{name}.out", "slice": slice_spec}
+
+
+def _finish_launch(job: dict) -> dict:
+    """Wait for a :func:`_start_launch` job (the launcher ends its own
+    processes past its ``--timeout``): the job directory, its wall seconds
+    and its rank 0 log."""
+    name, proc = job["name"], job["proc"]
+    try:
+        rc = proc.wait(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    wall = time.perf_counter() - job["t0"]
+    printed = job["out"].read_text()
+    dirs = sorted(job["root"].iterdir())
+    log = (dirs[0] / "host_0.log").read_text() if dirs else ""
+    check(rc == 0 and len(dirs) == 1,
+          f"launch {name}: rc {rc}, {len(dirs)} job dirs; {printed[-2000:]}{log[-3000:]}")
+    check(f"artifacts in {dirs[0]}" in printed, f"launch {name}: {printed[-500:]}")
+    return {"job_dir": dirs[0], "wall_s": wall, "log": log, "slice": job["slice"]}
+
+
+def _read_numbers(path: Path) -> dict:
+    """A ``key = value`` results file with each value read as a number or
+    a list of numbers."""
+    import ast
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    return {k: ast.literal_eval(v) for k, v in read_results_file(str(path)).items()}
+
+
+def _finite(value) -> bool:
+    values = value if isinstance(value, list) else [value]
+    return all(isinstance(v, (int, float)) and math.isfinite(v) for v in values)
+
+
+def _child_launches(job_dir: Path) -> dict:
+    """The K1 and K2 launch counts the launched process wrote as telemetry
+    metrics (``kernel_launches/<wrapper>``, ``train/cli.py``)."""
+    events = [json.loads(line) for line in
+              (job_dir / "output" / "telemetry" / "events.jsonl").read_text().splitlines()]
+    return {e["name"].split("/", 1)[1]: int(e["value"]) for e in events
+            if e["type"] == "metric" and e["name"].startswith("kernel_launches/")}
+
+
+def launch_phase(work: Path, card: str) -> dict:
+    """(a) The reference's job through the port's launcher: ``python -m
+    <port>.launch --slice h100-1`` with the reference's hyperparameters
+    (``bert-large-uncased-whole-word-masking`` widths, 24 layers at full
+    depth, random weights from a config; train batch 8, eval batch 4, lr
+    5e-5, 1 epoch) on the vendored reviews at sequence 512, bf16,
+    ``LAUNCH_STEPS`` steps and 16 eval steps. It fails unless the job
+    directory holds ``host_0.log``, the results files with the CLI's keys
+    and an HF export that loads back and classifies; the child trained on
+    the card; and the child's K1 counts (its telemetry) are layers x steps
+    (the forward also once a layer an eval step). Beside it the
+    single-node entry (``train.single_node``) as a job's entry point, at
+    BERT-large widths and depth 2, which must run with the learning rate
+    unscaled."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+
+    cfg_dir = _config_dir(work / "config", BERT_LARGE)
+    layers = BERT_LARGE["num_hidden_layers"]
+    # the single-node check needs no full depth (BERT-large widths at 2
+    # layers); it starts beside the main job and is through its steps while
+    # the main job still draws its weights
+    single_layers = 2
+    single_cfg = _config_dir(work / "single_config",
+                             dict(BERT_LARGE, num_hidden_layers=single_layers))
+    started = [_start_launch(work, "launch-bert-large-wwm", [
+        "--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+        "--dataset", "vendored_reviews", "--steps_per_epoch", str(LAUNCH_STEPS),
+        "--max_train_samples", str(LAUNCH_STEPS * 8),
+        "--max_eval_samples", str(LAUNCH_EVAL_SAMPLES), "--log_every_steps", "10"]),
+        _start_launch(work, "launch-single-node", [
+            "--entry_point", f"{PKG}.train.single_node",
+            "--model_name_or_path", str(single_cfg), "--from_scratch", "true",
+            "--dataset", "vendored_reviews",
+            "--steps_per_epoch", str(LAUNCH_SINGLE_NODE_STEPS),
+            "--max_train_samples", str(LAUNCH_SINGLE_NODE_STEPS * 8),
+            "--max_eval_samples", str(LAUNCH_SINGLE_NODE_EVAL)])]
+    job, single = [_finish_launch(j) for j in started]
+    job_dir, log = job["job_dir"], job["log"]
+    check(f"rank 0/1 on {DEVICE}" in log, f"launch: the child did not train on {DEVICE}")
+    out = job_dir / "output"
+    train = _read_numbers(out / "train_results.txt")
+    evals = _read_numbers(out / "eval_results.txt")
+    # the train phase's keys first; a script run's telemetry adds the MFU
+    # figures after them
+    check(list(train)[:len(TRAIN_RESULT_KEYS)] == TRAIN_RESULT_KEYS
+          and list(evals) == EVAL_RESULT_KEYS,
+          f"launch: results keys {list(train)} {list(evals)}")
+    check(all(_finite(v) for v in list(train.values()) + list(evals.values())),
+          f"launch: results {train} {evals}")
+    eval_steps = math.ceil(LAUNCH_EVAL_SAMPLES / 4)
+    launches = _child_launches(job_dir)
+    want = {"flash_fwd": layers * (LAUNCH_STEPS + eval_steps),
+            "flash_bwd_dq": layers * LAUNCH_STEPS, "flash_bwd_dkv": layers * LAUNCH_STEPS}
+    if DEVICE == "cuda":
+        for k, n in want.items():
+            check(launches.get(k) == n, f"launch: the child launched {k} "
+                                        f"{launches.get(k)} times, want {n}")
+    model, family, cfg = auto.from_pretrained(str(job_dir / "model"), task="seq-cls",
+                                              device=DEVICE)
+    check(family == "bert" and cfg.num_layers == layers and cfg.hidden_size
+          == BERT_LARGE["hidden_size"], f"launch: the export is {family} {cfg}")
+    batch = _review_batch(4, 512, DEVICE, split="test", vocab=BERT_LARGE["vocab_size"])
+    with torch.no_grad():
+        logits = model(batch["input_ids"], batch["attention_mask"])
+    check(tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits.float()).all()),
+          f"launch: the reloaded export's logits {tuple(logits.shape)}")
+    del model
+    row = {"phase": "launch", "card": card, "slice": job["slice"], "model": "bert-large-wwm",
+           "layers": layers, "batch": 8, "seq": 512, "dtype": "bfloat16",
+           "steps": LAUNCH_STEPS, "eval_steps": eval_steps,
+           "job_wall_s": job["wall_s"], "train_runtime_s": train["train_runtime"],
+           "samples_per_sec": train["train_samples_per_second"],
+           "loss": train["loss"], "eval_loss": evals["eval_loss"],
+           "eval_accuracy": evals["eval_accuracy"], "mfu": train.get("train_mfu"),
+           "results_keys": list(train) + list(evals), "launches": launches,
+           "job_files": sorted(p.name for p in job_dir.iterdir())}
+    emit(row)
+
+    check('"scale_lr_by_world_size": false' in single["log"]
+          and f"rank 0/1 on {DEVICE}" in single["log"],
+          "launch: the single-node entry did not turn the world-size lr scaling off")
+    single_launches = _child_launches(single["job_dir"])
+    if DEVICE == "cuda":
+        n = single_layers * (LAUNCH_SINGLE_NODE_STEPS
+                             + math.ceil(LAUNCH_SINGLE_NODE_EVAL / 4))
+        check(single_launches.get("flash_fwd") == n,
+              f"launch: single-node flash_fwd {single_launches.get('flash_fwd')}, want {n}")
+    srow = {"phase": "launch_single_node", "entry_point": f"{PKG}.train.single_node",
+            "layers": single_layers, "steps": LAUNCH_SINGLE_NODE_STEPS,
+            "scale_lr_by_world_size": False, "job_wall_s": single["wall_s"],
+            "launches": single_launches}
+    emit(srow)
+    return {"bert_large_wwm": row, "single_node": srow}
+
+
+def _bert_large_state(seed: int = 0) -> dict:
+    """BERT-large-WWM seq-cls weights drawn on the device from ``seed``:
+    zero biases, unit layer-norm scales, the rest normal(0, 0.02). Every
+    run of the phase starts from a copy; drawn on the card, the 335M
+    values cost no host time (``init_encoder`` draws on the CPU)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+
+    cfg = auto.CONFIG_BUILDERS["bert"](BERT_LARGE)
+    with torch.device("meta"):
+        model = auto.build_model("bert", "seq-cls", cfg)
+    model = model.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif re.search(r"(^|\.)\w*_ln\.weight$", name):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, cfg.initializer_range, generator=gen)
+    return model.state_dict()
+
+
+def _optim_model(state: dict, remat_policy):
+    """BERT-large-WWM seq-cls built on the meta device and given a copy of
+    ``state``: bf16 compute, the flash kernels on the card, remat under
+    ``remat_policy`` (None: no remat)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+
+    cfg = auto.CONFIG_BUILDERS["bert"](
+        BERT_LARGE, dtype=torch.bfloat16, attention_impl="flash",
+        remat=remat_policy is not None, remat_policy=remat_policy or "full")
+    with torch.device("meta"):
+        model = auto.build_model("bert", "seq-cls", cfg)
+    model.load_state_dict({k: v.clone() for k, v in state.items()}, assign=True)
+    return model.train()
+
+
+def _moment_bytes(trainer) -> int:
+    return sum(st[k].numel() * st[k].element_size() for st in trainer.optimizer.state.values()
+               for k in ("exp_avg", "exp_avg_sq") if k in st)
+
+
+def _flash_counts() -> dict:
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+
+    return {k: getattr(fa, k).launches for k in _K1}
+
+
+def _optim_run(name: str, over: dict, policy, state: dict, batch: dict) -> dict:
+    """One run of ``OPTIM_RUNS``: the first step (its loss; excluded from
+    the times), ``OPTIM_TIMED_STEPS`` timed steps (step ms, samples/s, K1
+    launches a step, the peak memory of the steps and of their forward and
+    backward alone), then ``OPTIM_PROFILED_STEPS`` profiled (busy a step,
+    the idle share, the optimizer's and LAMB's norm kernels' device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    gc.collect()
+    _mem_reset()
+    model = _optim_model(state, policy)
+    tc = TrainConfig(learning_rate=5e-5, scale_lr_by_world_size=False, log_every_steps=0,
+                     weight_decay=OPTIM_WEIGHT_DECAY, remat=policy is not None,
+                     remat_policy=policy or "full", **over)
+    trainer = Trainer(tc, model)
+    # each step's peaks: the statistics reset as its forward starts, read as
+    # the optimizer starts (the forward and backward's own) and as it ends
+    # (the whole step's)
+    fwd_bwd_peaks, step_peaks = [], []
+    if DEVICE == "cuda":
+        model.register_forward_pre_hook(lambda *_: torch.cuda.reset_peak_memory_stats())
+        trainer.optimizer.register_step_pre_hook(
+            lambda *_: fwd_bwd_peaks.append(torch.cuda.max_memory_allocated()))
+        trainer.optimizer.register_step_post_hook(
+            lambda *_: step_peaks.append(torch.cuda.max_memory_allocated()))
+    torch.manual_seed(0)
+    first_loss = float(trainer.train_step(batch)["loss"])
+    _sync()
+    fwd_bwd_peaks.clear()
+    step_peaks.clear()
+    before = _flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(OPTIM_TIMED_STEPS):
+        trainer.train_step(batch)
+    _sync()
+    wall = time.perf_counter() - t0
+    after = _flash_counts()
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        for _ in range(OPTIM_PROFILED_STEPS):
+            trainer.train_step(batch)
+        _sync()
+    by_kernel = _device_seconds_by_kernel(prof)
+    busy = sum(by_kernel.values()) / OPTIM_PROFILED_STEPS
+    step_s = wall / OPTIM_TIMED_STEPS
+
+    def kernel_ms(*words):
+        return sum(v for k, v in by_kernel.items() if any(w in k for w in words)) \
+            / OPTIM_PROFILED_STEPS * 1e3
+
+    row = {"phase": "optim_memory", "run": name, "optimizer": tc.optimizer,
+           "optimizer_state_dtype": tc.optimizer_state_dtype, "remat_policy": policy,
+           "first_step_loss": first_loss,
+           "peak_gib": max(step_peaks) / 2 ** 30 if step_peaks else "not measured",
+           "fwd_bwd_peak_gib": (max(fwd_bwd_peaks) / 2 ** 30 if fwd_bwd_peaks
+                                else "not measured"),
+           "optimizer_state_bytes": _opt_bytes(trainer), "moment_bytes": _moment_bytes(trainer),
+           "moment_dtype": str(next(iter(trainer.optimizer.state.values()))["exp_avg"].dtype),
+           "step_ms": step_s * 1e3, "samples_per_sec": 8 / step_s,
+           "device_busy_ms_per_step": busy * 1e3 if busy else "not measured",
+           "idle_share": 1.0 - busy / step_s if busy else "not measured",
+           "optimizer_kernels_ms_per_step": kernel_ms("multi_tensor_apply", "foreach"),
+           "foreach_norm_ms_per_step": kernel_ms("LpNormFunctor", "lpnorm_cleanup"),
+           "k1_launches_per_step": {k: (after[k] - before[k]) / OPTIM_TIMED_STEPS
+                                    for k in _K1},
+           "top_kernels_ms_per_step": [[k[:80], 1e3 * v / OPTIM_PROFILED_STEPS] for k, v in
+                                       sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]]}
+    emit(row)
+    del trainer, model, prof
+    gc.collect()
+    return row
+
+
+def optim_memory_phase() -> dict:
+    """(b) The optimizers and the remat policies on BERT-large-WWM seq-cls
+    at sequence 512, batch 8, bf16, one batch of training reviews, every
+    run from the same weights (``OPTIM_RUNS``: AdamW with fp32 moments and
+    no remat, AdamW with bf16 moments, LAMB, AdamW under remat ``full``,
+    ``dots`` and ``dots_no_batch``; weight decay 0.01), in a process of its
+    own (it profiles). It fails unless the bf16 moments take exactly half
+    the fp32 moments' bytes; the peak of the forward and backward is
+    ordered none > dots >= dots_no_batch > full; K1's forward launches
+    twice a layer a step under each policy (the recompute runs it again:
+    no policy can save an ``autograd.Function``'s ctypes launch), its dQ
+    and dK/dV once; and the first step's loss is the same in every run."""
+    import torch
+
+    state = _bert_large_state()
+    batch = _review_batch(8, 512, DEVICE, vocab=BERT_LARGE["vocab_size"])
+    rows = {}
+    for name, over, policy in OPTIM_RUNS:
+        rows[name] = _optim_run(name, over, policy, state, batch)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    base, low = rows["adamw_fp32"], rows["adamw_bf16_moments"]
+    check(low["moment_dtype"] == "torch.bfloat16"
+          and 2 * low["moment_bytes"] == base["moment_bytes"],
+          f"optim_memory: bf16 moments {low['moment_bytes']} B against fp32 "
+          f"{base['moment_bytes']} B")
+    losses = {n: r["first_step_loss"] for n, r in rows.items()}
+    spread = max(abs(v - base["first_step_loss"]) for v in losses.values())
+    check(spread <= OPTIM_LOSS_RTOL * abs(base["first_step_loss"]),
+          f"optim_memory: first-step losses differ: {losses}")
+    layers = BERT_LARGE["num_hidden_layers"]
+    if DEVICE == "cuda":
+        peaks = [rows[n]["fwd_bwd_peak_gib"] for n in
+                 ("adamw_fp32", "remat_dots", "remat_dots_no_batch", "remat_full")]
+        check(peaks[0] > peaks[1] >= peaks[2] > peaks[3],
+              f"optim_memory: forward/backward peaks none, dots, dots_no_batch, full {peaks}")
+    for name, r in rows.items():
+        want = {"flash_fwd": layers * (2 if r["remat_policy"] else 1),
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        check(r["k1_launches_per_step"] == want,
+              f"optim_memory {name}: K1 a step {r['k1_launches_per_step']}, want {want}")
+    emit({"phase": "optim_memory_summary", "first_step_losses": losses,
+          "first_step_losses_bitwise_equal": len(set(losses.values())) == 1,
+          "moment_bytes": {n: r["moment_bytes"] for n, r in rows.items()},
+          "fwd_bwd_peak_gib": {n: r["fwd_bwd_peak_gib"] for n, r in rows.items()},
+          "peak_gib": {n: r["peak_gib"] for n, r in rows.items()}})
+    return rows
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else float((got - want).abs().max())
+
+
+def optim_parity_phase() -> dict:
+    """(c) fp32 parity of the new optimizers and of the remat policies on
+    the card. BERT-base widths at depth 2, fp32 (TF32 off), dropout 0.1:
+    the gradients of three training batches taken on the card, then
+    ``OPTIM_PARITY_STEPS`` steps of LAMB and of bf16-moment AdamW on the
+    card's parameters and on CPU copies of the same parameters and
+    gradients: every parameter within ``OPTIM_PARITY_RTOL`` of its tensor's
+    largest entry (with bf16 moments plus the bound of a moment rounded to
+    its neighbouring bf16 value, 2^-5 lr a step: a zero-initialized bias is
+    nothing but its updates), fp32 moments within 8 fp32 ulps and bf16
+    moments within one bf16 ulp of the CPU's. Then one train step under each remat
+    policy against the step without remat (the same seed, so the same
+    dropout masks): the loss within 1e-5 relative and every gradient within
+    1e-3 relative L2 (the key biases, whose exact gradient is 0, within
+    ``PARITY_KEY_BIAS`` of the global norm)."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import optim
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import (
+        seq_cls_loss,
+    )
+
+    def model(policy=None):
+        cfg = auto.CONFIG_BUILDERS["bert"](BERT_BASE, num_layers=PARITY_DEPTH,
+                                           attention_impl="flash", remat=policy is not None,
+                                           remat_policy=policy or "full")
+        return init_encoder(auto.build_model("bert", "seq-cls", cfg), seed=0,
+                            device=DEVICE).train()
+
+    batches = [_review_batch(8 * (i + 1), 512, DEVICE) for i in range(OPTIM_PARITY_STEPS)]
+    batches = [{k: v[-8:] for k, v in b.items()} for b in batches]
+    m = model()
+    grads = []
+    for b in batches:
+        m.zero_grad(set_to_none=True)
+        seq_cls_loss(m, b)[0].backward()
+        grads.append([p.grad.detach().clone() for p in m.parameters()])
+    p0 = [p.detach().clone() for p in m.parameters()]
+    rows = {}
+    for name, over in (("lamb", dict(optimizer="lamb", weight_decay=OPTIM_WEIGHT_DECAY)),
+                       ("adamw_bf16_moments", dict(optimizer="adamw",
+                                                   weight_decay=OPTIM_WEIGHT_DECAY,
+                                                   optimizer_state_dtype="bfloat16"))):
+        tc = TrainConfig(learning_rate=OPTIM_PARITY_LR, scale_lr_by_world_size=False, **over)
+        out = []
+        for where in (DEVICE, "cpu"):
+            ps = [torch.nn.Parameter(p.to(where, copy=True)) for p in p0]
+            opt = optim.build_optimizer(tc, ps)[0]
+            for g in grads:
+                for p, gi in zip(ps, g):
+                    p.grad = gi.to(where, copy=True)
+                opt.step()
+            out.append((ps, opt))
+        (dev_ps, dev_opt), (cpu_ps, cpu_opt) = out
+        low = "bf16" in name
+        # a stored bf16 moment may round to the neighbouring value on the
+        # card (its fp32 sum one ulp apart, fused multiply-adds): that
+        # moves the update by at most 2^-7 of m plus 2^-8 through sqrt(v),
+        # of an Adam update at most 2 in size; each step's share of lr is
+        # allowed on top of the relative limit, and the moments are held
+        # within one bf16 ulp of the CPU's
+        allow = 2.0 ** -5 * OPTIM_PARITY_LR * OPTIM_PARITY_STEPS if low else 0.0
+        errs, over = [], []
+        for a, b in zip(dev_ps, cpu_ps):
+            a, b = a.detach().cpu(), b.detach()
+            errs.append(_rel_max(a, b))
+            excess = float((a - b).abs().max()) - OPTIM_PARITY_RTOL * float(b.abs().max())
+            over.append(excess - allow)
+        flips, ulp_ok = 0, True
+        for pa, pb in zip(dev_ps, cpu_ps):
+            for k in ("exp_avg", "exp_avg_sq"):
+                a, b = dev_opt.state[pa][k].cpu().float(), cpu_opt.state[pb][k].float()
+                flips += int((a != b).sum())
+                ulp = torch.where(b != 0, 2.0 ** (torch.floor(torch.log2(b.abs())) - 7),
+                                  torch.zeros_like(b))
+                ulp_ok &= bool(((a - b).abs() <= ulp * (1.0 if low else 2.0 ** -13)).all())
+        dtypes = {str(st["exp_avg"].dtype) for st in dev_opt.state.values()}
+        row = {"phase": "optim_parity", "optimizer": name, "steps": OPTIM_PARITY_STEPS,
+               "lr": OPTIM_PARITY_LR, "params": len(errs), "param_rel_err_max": max(errs),
+               "rtol": OPTIM_PARITY_RTOL, "rounding_allowance": allow,
+               "moment_elements_differing": flips, "moments_within_limit": ulp_ok,
+               "moment_dtypes": sorted(dtypes)}
+        emit(row)
+        check(max(over) <= 0.0, f"optim parity ({name}): card against CPU {max(errs)} "
+                                f"(beyond the limit by {max(over)})")
+        check(ulp_ok, f"optim parity ({name}): a moment beyond its limit of the CPU's")
+        check(dtypes == {"torch.bfloat16" if low else "torch.float32"},
+              f"optim parity ({name}): moment dtypes {dtypes}")
+        rows[name] = row
+    del m
+
+    def step(policy):
+        mm = model(policy)
+        torch.manual_seed(5)
+        loss = seq_cls_loss(mm, batches[0])[0]
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in mm.named_parameters()}
+
+    loss_ref, ref = step(None)
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in ref.values())))
+    for policy in ("full", "dots", "dots_no_batch"):
+        loss, g = step(policy)
+        key_bias = [n for n in g if n.endswith("key.bias")]
+        noise = max(float((g[n] - ref[n]).norm()) for n in key_bias) / total
+        rel = {n: float((v - ref[n]).norm() / ref[n].norm()) for n, v in g.items()
+               if n not in key_bias}
+        worst = max(rel, key=rel.get)
+        row = {"phase": "optim_parity", "remat_policy": policy,
+               "loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+               "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+               "key_bias_noise_over_global": noise}
+        emit(row)
+        check(row["loss_rel_err"] <= PARITY_LOSS_RTOL,
+              f"remat {policy}: loss rel err {row['loss_rel_err']}")
+        check(rel[worst] <= PARITY_GRAD_REL_L2, f"remat {policy}: {worst} rel L2 {rel[worst]}")
+        check(noise <= PARITY_KEY_BIAS, f"remat {policy}: key-bias noise {noise}")
+        rows[f"remat_{policy}"] = row
+    return rows
+
+
+def optim_resume_phase(work: Path) -> dict:
+    """(d) A bitwise resume with the new optimizer state: DistilBERT-base
+    widths (no token-type table: its one row sums every token's gradient
+    in no fixed order on the card) at depth 2, bf16 compute, the flash
+    kernels, dropout 0.1, ``RESUME_STEPS`` training batches of 8 at
+    sequence ``RESUME_SEQ``; for LAMB and for bf16-moment AdamW, the steps
+    straight against half of them, a save through the ``Checkpointer``, a
+    restore into a fresh trainer and the other half. It fails unless every
+    loss, parameter and moment is equal bit for bit, the moments in their
+    own dtype."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_encoder,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    cfg = auto.CONFIG_BUILDERS["distilbert"](
+        DISTILBERT_BASE, num_layers=PARITY_DEPTH, dtype=torch.bfloat16, attention_impl="flash")
+    texts = _review_batch(8 * RESUME_STEPS, RESUME_SEQ, DEVICE,
+                          vocab=DISTILBERT_BASE["vocab_size"])
+    batches = [{k: v[8 * i:8 * (i + 1)] for k, v in texts.items()}
+               for i in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+    rows = {}
+    for name, over in (("lamb", dict(optimizer="lamb")),
+                       ("adamw_bf16_moments", dict(optimizer="adamw",
+                                                   optimizer_state_dtype="bfloat16"))):
+        tc = TrainConfig(learning_rate=1e-4, scale_lr_by_world_size=False, log_every_steps=0,
+                         weight_decay=OPTIM_WEIGHT_DECAY, seed=3, **over)
+
+        def trainer():
+            torch.manual_seed(tc.seed)
+            return Trainer(tc, init_encoder(auto.build_model("distilbert", "seq-cls", cfg),
+                                            seed=0, device=DEVICE))
+
+        straight = trainer()
+        losses = [float(straight.train_step(b)["loss"]) for b in batches]
+        first = trainer()
+        resumed = [float(first.train_step(b)["loss"]) for b in batches[:half]]
+        ckpt = Checkpointer(str(work / name), async_save=False)
+        ckpt.save(first.state_dict(), epoch=0, step_in_epoch=half)
+        del first
+        second = trainer()
+        state, _, step_in_epoch = ckpt.restore()
+        second.load_state_dict(state)
+        ckpt.close()
+        resumed += [float(second.train_step(b)["loss"]) for b in batches[half:]]
+        differ = [n for (n, a), b in zip(straight.model.named_parameters(),
+                                         second.model.parameters()) if not torch.equal(a, b)]
+        moments = [(st_a, st_b) for st_a, st_b in zip(
+            (straight.optimizer.state[p] for p in straight.params),
+            (second.optimizer.state[p] for p in second.params))]
+        moments_equal = all(torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                            for a, b in moments for k in ("exp_avg", "exp_avg_sq"))
+        dtypes = sorted({str(b[k].dtype) for _, b in moments for k in ("exp_avg", "exp_avg_sq")})
+        row = {"phase": "optim_resume", "optimizer": name, "steps": RESUME_STEPS,
+               "resumed_at": step_in_epoch, "losses": losses,
+               "losses_bitwise": losses == resumed, "params_differing": differ,
+               "moments_bitwise": moments_equal, "moment_dtypes": dtypes,
+               "checkpoint_step": second.step}
+        emit(row)
+        check(losses == resumed, f"resume ({name}): losses {losses} against {resumed}")
+        check(not differ, f"resume ({name}): parameters differ: {differ[:5]}")
+        check(moments_equal and dtypes == ["torch.bfloat16" if "bf16" in name
+                                           else "torch.float32"],
+              f"resume ({name}): moments equal {moments_equal}, dtypes {dtypes}")
+        rows[name] = row
+    return rows
+
+
 def llama_kernel_phase() -> dict:
     """The llama phase's K3 cases (``LLAMA_KERNEL_CASES``), held against
     their plain versions and timed as the kernel phase does (its K1 and K2
@@ -6944,7 +7572,8 @@ def llama_kernel_phase() -> dict:
 
 # the phases that run each in a process of its own (see the module's notes)
 FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_phase,
-                        "llama_kernel_phase": llama_kernel_phase}
+                        "llama_kernel_phase": llama_kernel_phase,
+                        "optim_memory_phase": optim_memory_phase}
 FRESH_PROCESS_TIMEOUT_S = 600
 
 
@@ -7062,9 +7691,13 @@ def main(argv: list | None = None) -> int:
             "causal-lm": Path(work) / "gpt2" / "model",
             "seq2seq": Path(work) / "seq2seq" / "t5_small_fused" / "model"})
         llama = timed(llama_phase, Path(work) / "llama", card)
+        launched = timed(launch_phase, Path(work) / "launch", card)
+        timed(optim_parity_phase)
+        timed(optim_resume_phase, Path(work) / "resume")
     flash = timed(_fresh_process, "flash_phase")
     vocab = timed(_fresh_process, "vocab_ce_phase")
     kernels.update(timed(_fresh_process, "llama_kernel_phase"))
+    optim_memory = timed(_fresh_process, "optim_memory_phase")
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
@@ -7087,7 +7720,11 @@ def main(argv: list | None = None) -> int:
                                     for n, row in seq2seq.items()},
                                  **{n: v[kname] for n, v in breadth.items()},
                                  **{f"llama/{n}": row["launches"][kname]
-                                    for n, row in llama.items() if "launches" in row}},
+                                    for n, row in llama.items() if "launches" in row},
+                                 **{f"launch/{n}": row["launches"][kname]
+                                    for n, row in launched.items()}},
+            "launches_per_step_by_optim_run": {
+                n: row["k1_launches_per_step"][kname] for n, row in optim_memory.items()},
             **{c: {k: flash[(c, kname)][k] for k in (
                 "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM) + FLASH_LLAMA},

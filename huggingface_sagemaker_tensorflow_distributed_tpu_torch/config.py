@@ -193,7 +193,10 @@ class TrainConfig:
                 f"unknown optimizer_state_dtype {self.optimizer_state_dtype!r}")
         if (self.optimizer_state_dtype == "bfloat16"
                 and self.optimizer not in ("adam", "adamw")):
-            raise ValueError("optimizer_state_dtype='bfloat16' supports adam/adamw only")
+            raise ValueError(
+                "optimizer_state_dtype='bfloat16' supports adam/adamw only "
+                "(adafactor is already sublinear-memory; lamb's trust "
+                "ratio is untested with quantized moments)")
         if self.packed_sequences and self.task != "causal-lm":
             raise ValueError(
                 "packed_sequences is a causal-lm pretraining layout "
@@ -291,11 +294,6 @@ class TrainConfig:
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
         later = [
-            (self.optimizer == "lamb", "optimizer='lamb'", "4 (other optimizers)"),
-            (self.optimizer_state_dtype == "bfloat16",
-             "optimizer_state_dtype=bfloat16", "4 (bf16 moments)"),
-            (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ]
         later += [(getattr(self, ax) > 1, f"{ax}>1", "11 (parallelism beyond DP)")

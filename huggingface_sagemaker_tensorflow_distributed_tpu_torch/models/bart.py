@@ -21,9 +21,10 @@ query`` becomes ``encoder.layer.0.self_attn.query``). ``encode`` and
 ``decode`` (with a :class:`~.kv_cache.DenseCache` for the incremental
 decoder, positions counted from the cache's index) are T5's interface,
 so ``models/generate.py`` drives both. ``remat`` recomputes each layer in
-backward. With ``weight_quant='int8'`` every projection and FFN dense is
-``models/quant.py``'s ``Int8Linear``. Ring attention, pipeline stages and
-the remat policies other than ``full`` raise.
+backward under ``remat_policy`` (``models/layers.py:remat_policy``). With
+``weight_quant='int8'`` every projection and FFN dense is
+``models/quant.py``'s ``Int8Linear``. Ring attention and pipeline stages
+raise.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
@@ -44,6 +44,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Embed,
     LayerNorm,
     raise_unported,
+    remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
@@ -100,9 +101,7 @@ class BartConfig:
         raise_unported([
             (self.attention_impl == "ring", "BART attention_impl='ring'",
              "11 (ring attention)"),
-            (self.pipeline_stages != 0, "BART pipeline_stages", "11 (pipeline stages)"),
-            (self.remat and self.remat_policy != "full",
-             f"BART remat_policy={self.remat_policy!r}", "4 (remat policies)")])
+            (self.pipeline_stages != 0, "BART pipeline_stages", "11 (pipeline stages)")])
 
 
 def bart_config_from_hf(hf_config: dict, **overrides) -> BartConfig:
@@ -263,7 +262,8 @@ class BartStack(nn.Module):
         remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for layer in self.layer:
             if remat:
-                x = checkpoint(layer, x, attn_mask, enc_hidden, enc_mask, use_reentrant=False)
+                x = remat_call(layer, x, attn_mask, enc_hidden, enc_mask,
+                               policy=self.cfg.remat_policy)
             else:
                 x = layer(x, attn_mask, enc_hidden, enc_mask, cache)
         if cache is not None:

@@ -41,7 +41,6 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import (
     ACT2FN,
@@ -50,6 +49,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     LayerNorm,
     MlmHead,
     raise_unported,
+    remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import lora_delta
 
@@ -96,9 +96,7 @@ class DebertaV2Config:
             raise ValueError(
                 f"conv_kernel_size={self.conv_kernel_size}: flax SAME padding equals "
                 "Conv1d(padding=(K-1)//2) only for an odd kernel")
-        raise_unported([(self.remat and self.remat_policy != "full",
-                         f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
-                        (self.attention_impl == "ring", "attention_impl='ring'",
+        raise_unported([(self.attention_impl == "ring", "attention_impl='ring'",
                          "11 (ring attention)")])
 
     @property
@@ -376,7 +374,7 @@ class DebertaBackbone(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layer):
             if remat:
-                x = checkpoint(layer, x, qk_mask, rel, rel_pos, use_reentrant=False)
+                x = remat_call(layer, x, qk_mask, rel, rel_pos, policy=cfg.remat_policy)
             else:
                 x = layer(x, qk_mask, rel, rel_pos)
             if i == 0 and hasattr(self, "conv"):

@@ -39,12 +39,12 @@ The forward has three call forms, chosen by ``cache``:
 :meth:`Gpt2LMHeadModel.hidden_and_embedding` hands the pre-head hidden
 states and the tied embedding to the fused vocab cross-entropy. With
 ``remat`` each block of a training forward (no cache, grad enabled) is
-recomputed in backward (``torch.utils.checkpoint``, the JAX package's
-``nn.remat`` per block; the dropout draws are replayed, so the step is
-the same bit for bit). With ``num_experts`` every ``moe_every``-th
-block's MLP is ``models/moe.py``'s expert bank. Pipeline stages, the
-remat policies other than ``full`` and ``attention_impl='ring'`` are not
-ported and raise.
+recomputed in backward under ``remat_policy`` (``torch.utils.checkpoint``,
+the JAX package's ``nn.remat`` per block with its policy,
+``models/layers.py:remat_policy``; the dropout draws are replayed, so the
+step is the same bit for bit). With ``num_experts`` every
+``moe_every``-th block's MLP is ``models/moe.py``'s expert bank. Pipeline
+stages and ``attention_impl='ring'`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -55,7 +55,6 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
@@ -69,6 +68,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     LayerNorm,
     is_moe_layer,
     raise_unported,
+    remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import MoeFeedForward
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
@@ -140,8 +140,6 @@ class Gpt2Config:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r} "
                              "(xla | flash | ring)")
         raise_unported([
-            (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
             (self.pipeline_stages != 0, "pipeline_stages", "11 (pipeline stages)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ])
@@ -316,7 +314,7 @@ class Gpt2Model(nn.Module):
         remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for block in self.h:
             if remat:
-                x = checkpoint(block, x, mask, None, use_reentrant=False)
+                x = remat_call(block, x, mask, None, policy=self.cfg.remat_policy)
             else:
                 x = block(x, mask, cache)
         if isinstance(cache, DenseCache):

@@ -5,8 +5,9 @@ BERT-family encoder, with RoBERTa's mask-counted position ids
 (``use_token_type=False``) and ELECTRA's factorized embeddings
 (``embedding_size`` below ``hidden_size``, projected up in the backbone),
 the MoE placement (:func:`is_moe_layer`: with ``num_experts`` every
-``moe_every``-th layer's FFN is ``models/moe.py``'s expert bank), and the
-masked-LM head every family shares (:class:`MlmHead`).
+``moe_every``-th layer's FFN is ``models/moe.py``'s expert bank), the
+masked-LM head every family shares (:class:`MlmHead`), and the remat
+policies every family's per-layer checkpoint takes (:func:`remat_policy`).
 
 Module names mirror the flax names, so carrying weights across is a
 rename (``backbone.encoder.layer.<i>.attention.query`` is flax's
@@ -20,13 +21,19 @@ attention applies no dropout to the attention probabilities.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import lora_delta
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
@@ -54,11 +61,60 @@ def raise_unported(items) -> None:
                 f"ROADMAP queue 1, item {item}")
 
 
+# the products each remat policy saves: JAX's ``checkpoint_dots`` keeps the
+# output of every ``dot_general``, ``checkpoint_dots_with_no_batch_dims``
+# of those without batch dimensions. A Linear on [B, S, H] is an mm/addmm
+# on the flattened rows (a dot_general without batch dims in JAX); the
+# attention einsums are bmm (batched over B and H)
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
+
+
+def remat_policy(name: str, marked: Optional[list] = None) -> Callable:
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)`` for a remat policy (the JAX package's
+    ``remat_policy``): ``full`` saves nothing (the classic checkpoint);
+    ``dots`` saves the output of every matrix product (``mm``, ``addmm``,
+    ``bmm``, ``baddbmm``) and ``dots_no_batch`` of those without a batch
+    dimension (``mm``, ``addmm``), through selective activation
+    checkpointing; everything else is recomputed in backward. The recompute
+    replays the forward's dropout draws (the checkpoint restores the
+    generators' state first, and no saved op draws). A kernel launched
+    through ``ctypes`` inside an ``autograd.Function`` (K1) is no product
+    the policy can see: under any policy its forward runs again in the
+    recompute, as the ``pallas_call`` does under JAX's policies. With
+    ``marked`` a list, each product the forward marks is appended to it."""
+    if name == "full":
+        return noop_context_fn
+    if name not in _SAVED_PRODUCTS:
+        raise ValueError(f"unknown remat_policy {name!r} (full | dots | dots_no_batch)")
+    saved = _SAVED_PRODUCTS[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved:
+            if marked is not None and not ctx.is_recompute:
+                marked.append(op)
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_call(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` with the remat
+    ``policy`` (:func:`remat_policy`)."""
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=remat_policy(policy))
+
+
 @dataclass(frozen=True)
 class EncoderConfig:
     """Architecture hyperparameters shared by the BERT-family encoders
     (the JAX package's fields). What the port does not run yet raises
-    ``NotImplementedError`` at construction."""
+    ``NotImplementedError`` at construction. With ``remat`` each layer is
+    recomputed in backward under ``remat_policy`` (:func:`remat_policy`)."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -100,8 +156,6 @@ class EncoderConfig:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         raise_unported([
             (self.pipeline_stages > 0, "pipeline_stages>0", "11"),
-            (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "4"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11"),
         ])
 
@@ -281,7 +335,7 @@ def is_moe_layer(cfg, layer_index: int) -> bool:
 
 class Encoder(nn.Module):
     """Stack of encoder layers; ``remat`` recomputes each layer in
-    backward (``torch.utils.checkpoint``)."""
+    backward (``torch.utils.checkpoint`` under ``remat_policy``)."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -293,7 +347,7 @@ class Encoder(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layer:
             if remat:
-                hidden = checkpoint(layer, hidden, attn_mask, use_reentrant=False)
+                hidden = remat_call(layer, hidden, attn_mask, policy=self.cfg.remat_policy)
             else:
                 hidden = layer(hidden, attn_mask)
         return hidden

@@ -42,7 +42,6 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
@@ -56,6 +55,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Embed,
     is_moe_layer,
     raise_unported,
+    remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import MixtralMoeBlock
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
@@ -155,8 +155,6 @@ class LlamaConfig:
         raise_unported([
             (self.pipeline_stages > 0, "pipeline_stages>0", "11 (pipeline stages)"),
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
-            (self.remat and self.remat_policy != "full",
-             f"remat_policy={self.remat_policy!r}", "4 (remat policies)"),
         ])
 
 
@@ -513,8 +511,8 @@ class LlamaModel(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for block in self.layers:
             if remat:
-                x = checkpoint(block, x, masks, rope, None, kernel_window,
-                               use_reentrant=False)
+                x = remat_call(block, x, masks, rope, None, kernel_window,
+                               policy=cfg.remat_policy)
             else:
                 x = block(x, masks, rope, cache, kernel_window)
         if isinstance(cache, DenseCache):

@@ -30,8 +30,9 @@ relative-position bias is offset by the index. With ``remat`` each block
 of a training forward is recomputed in backward
 (``torch.utils.checkpoint``). With ``weight_quant='int8'`` the attention
 and FFN denses are ``models/quant.py``'s ``Int8Linear`` (the head stays
-full precision). Ring attention, pipeline stages and the remat policies
-other than ``full`` raise.
+full precision). The remat policy is ``remat_policy``
+(``models/layers.py:remat_policy``). Ring attention and pipeline stages
+raise.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
@@ -52,6 +52,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Dense,
     Embed,
     raise_unported,
+    remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.quant import make_dense
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (
@@ -104,9 +105,7 @@ class T5Config:
             raise ValueError(f"unknown feed_forward_proj {self.feed_forward_proj!r}")
         raise_unported([
             (self.attention_impl == "ring", "T5 attention_impl='ring'", "11 (ring attention)"),
-            (self.pipeline_stages != 0, "T5 pipeline_stages", "11 (pipeline stages)"),
-            (self.remat and self.remat_policy != "full",
-             f"T5 remat_policy={self.remat_policy!r}", "4 (remat policies)")])
+            (self.pipeline_stages != 0, "T5 pipeline_stages", "11 (pipeline stages)")])
 
     @property
     def is_gated_act(self) -> bool:
@@ -305,9 +304,9 @@ class T5Stack(nn.Module):
         position_bias = None
         for block in self.block:
             if remat:
-                hidden, position_bias = checkpoint(block, hidden, attn_mask, enc_hidden,
+                hidden, position_bias = remat_call(block, hidden, attn_mask, enc_hidden,
                                                    enc_mask, position_bias,
-                                                   use_reentrant=False)
+                                                   policy=self.cfg.remat_policy)
             else:
                 hidden, position_bias = block(hidden, attn_mask, enc_hidden, enc_mask,
                                               position_bias, cache)

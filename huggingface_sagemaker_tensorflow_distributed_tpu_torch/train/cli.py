@@ -44,10 +44,11 @@ adapters written beside it to ``model_dir/adapter``). Rerunning an interrupted
 command resumes it ("resuming from epoch N"). Telemetry goes to
 ``HSTD_TELEMETRY_DIR`` when set; run as a script with
 ``TPU_OUTPUT_DATA_DIR``/``SM_OUTPUT_DATA_DIR`` set and no
-``HSTD_TELEMETRY_DIR``, to ``<output_data_dir>/telemetry``. Several
-processes on one host: start one per card with
+``HSTD_TELEMETRY_DIR``, to ``<output_data_dir>/telemetry``; the run's
+K1 and K2 launch counts end it as ``kernel_launches/<wrapper>`` metrics.
+Several processes on one host: start one per card with
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` (or the
-``TPU_*`` triplet) set.
+``TPU_*`` triplet) set, or through the launcher (``launch/``).
 """
 
 from __future__ import annotations
@@ -432,18 +433,40 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
         # eval raise: a crash after "save started" must not lose it
         if checkpointer is not None:
             checkpointer.close()
+    emit_kernel_launches()
     return results, trainer
 
 
-if __name__ == "__main__":
-    # a script run defaults its telemetry into the output dir; in-process
-    # callers opt in through HSTD_TELEMETRY_DIR or obs.configure, so
-    # calling main() writes no telemetry files as a side effect
+def emit_kernel_launches() -> None:
+    """The K1 and K2 wrappers' launch counts of this process as telemetry
+    metrics (``kernel_launches/<wrapper>``): how a launched job shows which
+    kernels its steps ran (0 on the CPU, where the plain versions run)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import (
+        flash_attention,
+        vocab_ce,
+    )
+
+    for mod, names in ((flash_attention, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                       (vocab_ce, ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"))):
+        for name in names:
+            obs.scalar(f"kernel_launches/{name}", getattr(mod, name).launches)
+
+
+def script(argv, entry=None) -> None:
+    """A script run of ``entry`` (:func:`main` unless given) on ``argv``:
+    its telemetry defaults into the output directory (in-process callers
+    opt in through ``HSTD_TELEMETRY_DIR`` or ``obs.configure``, so calling
+    ``main()`` writes no telemetry files as a side effect), and is shut
+    down at the end."""
     if not os.environ.get("HSTD_TELEMETRY_DIR", "").strip():
-        _out = os.environ.get("TPU_OUTPUT_DATA_DIR", os.environ.get("SM_OUTPUT_DATA_DIR", ""))
-        if _out:
-            obs.configure(out_dir=os.path.join(_out, "telemetry"))
+        out = os.environ.get("TPU_OUTPUT_DATA_DIR", os.environ.get("SM_OUTPUT_DATA_DIR", ""))
+        if out:
+            obs.configure(out_dir=os.path.join(out, "telemetry"))
     try:
-        main(sys.argv[1:])
+        (entry or main)(argv)
     finally:
         obs.shutdown()
+
+
+if __name__ == "__main__":
+    script(sys.argv[1:])

@@ -1,6 +1,7 @@
 """Optimizer construction (counterpart of the JAX package's
-``train/optim.py::build_optimizer`` for ``adam``, ``adamw`` and
-``adafactor``).
+``train/optim.py``: ``build_optimizer`` for ``adam``, ``adamw``,
+``adafactor`` and ``lamb``, and ``scale_by_adam_lowp``, the bf16-moment
+Adam).
 
 - The learning rate is scaled by the world size
   (``scale_lr_by_world_size``), as the JAX package scales by the
@@ -22,6 +23,11 @@
 - ``adafactor`` is :class:`Adafactor`, optax's ``adafactor(lr)`` chain
   step for step (not ``torch.optim.Adafactor``, whose decay, clipping and
   parameter scale differ).
+- ``optimizer_state_dtype='bfloat16'`` (``adam``/``adamw`` only) is
+  :class:`AdamLowp`: the JAX package's ``scale_by_adam_lowp`` chain, both
+  moments stored in bf16 and every step computed in fp32.
+- ``lamb`` is :class:`Lamb`, optax's ``lamb(lr, weight_decay=wd)`` chain
+  step for step.
 - ``max_grad_norm > 0`` clips by the global norm as optax does (kept
   below the norm, ``g / norm * max_norm`` above it);
   ``gradient_accumulation_steps`` averages micro-batch gradients into one
@@ -166,22 +172,186 @@ class Adafactor(torch.optim.Optimizer):
         p.copy_((p32 - u).to(p.dtype))
 
 
+# the fp32 working copies a foreach pass of AdamLowp or Lamb holds at once
+# are those of at most this many parameter elements (a larger tensor is a
+# run of its own): the update's transient memory stays small next to the
+# moments it halves
+FOREACH_BUCKET = 1 << 25
+
+
+def _buckets(params, limit: int = FOREACH_BUCKET):
+    """``params`` in order, cut into runs of at most ``limit`` elements."""
+    run, n = [], 0
+    for p in params:
+        if run and n + p.numel() > limit:
+            yield run
+            run, n = [], 0
+        run.append(p)
+        n += p.numel()
+    if run:
+        yield run
+
+
+def _fp32(tensors) -> list:
+    """``tensors`` as fp32 (the same tensors where they already are)."""
+    return [t if t.dtype == torch.float32 else t.float() for t in tensors]
+
+
+def _moments(opt, run, dtype) -> tuple[list, list, list]:
+    """The states of ``run`` (made on a parameter's first step: ``step`` 0
+    and zero moments of ``dtype``), each step count advanced; returns
+    (states, first moments, second moments)."""
+    states = []
+    for p in run:
+        st = opt.state[p]
+        if not st:
+            st["step"] = 0
+            st["exp_avg"] = torch.zeros_like(p, dtype=dtype)
+            st["exp_avg_sq"] = torch.zeros_like(p, dtype=dtype)
+        st["step"] += 1
+        states.append(st)
+    return states, [st["exp_avg"] for st in states], [st["exp_avg_sq"] for st in states]
+
+
+def _bias_correction(decay: float, step: int) -> float:
+    """``1 - decay^step`` in fp32, as optax and the JAX package compute it
+    (``decay`` rounded to fp32 first: 1 - 0.999 is 1.3e-5 off in fp32, a
+    difference that would show in the first steps' updates)."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(step))
+
+
+def _adam_direction(m, v, grads, states, b1: float, b2: float, eps: float) -> list:
+    """In place on the fp32 moments ``m``/``v``: ``m = b1 m + (1 - b1) g``,
+    ``v = b2 v + (1 - b2) g²``; returns Adam's bias-corrected direction
+    ``(m / bc1) / (sqrt(v / bc2) + eps)`` (each parameter's own step count,
+    :func:`_bias_correction`)."""
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_div(v, [_bias_correction(b2, st["step"]) for st in states])
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    direction = torch._foreach_div(m, [_bias_correction(b1, st["step"]) for st in states])
+    torch._foreach_div_(direction, denom)
+    return direction
+
+
+def _apply(run, p32, update, lr: float) -> None:
+    """``p -= lr * update``, written back where the parameter is not fp32."""
+    torch._foreach_add_(p32, update, alpha=-lr)
+    for p, q in zip(run, p32):
+        if q is not p:
+            p.copy_(q)
+
+
+class AdamLowp(torch.optim.Optimizer):
+    """The JAX package's bf16-moment Adam (``scale_by_adam_lowp``, then
+    ``add_decayed_weights`` for ``adamw`` with ``weight_decay > 0``, then
+    the learning rate), over the parameters in foreach runs of
+    :data:`FOREACH_BUCKET` elements:
+
+    1. the stored moments upcast to fp32;
+    2. ``m = b1 m + (1 - b1) g`` and ``v = b2 v + (1 - b2) g²`` in fp32;
+    3. the update ``(m / bc1) / (sqrt(v / bc2) + eps)`` from those fp32
+       values (``bc = 1 - b^t`` at step ``t`` from 1), plus ``wd * p``;
+    4. ``p -= lr * update``, and only then m and v rounded to
+       ``state_dtype`` for storage.
+
+    ``state_dict()`` holds the moments in ``state_dtype`` and the step
+    count; :meth:`load_state_dict` keeps that dtype (torch's casts a loaded
+    state to the parameter's), so a resume is bitwise. A parameter without
+    a gradient is skipped, as torch's Adam skips it."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, state_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.state_dtype = state_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            (b1, b2), wd = group["betas"], group["weight_decay"]
+            for run in _buckets([p for p in group["params"] if p.grad is not None]):
+                states, m_low, v_low = _moments(self, run, self.state_dtype)
+                m = [torch.empty_like(t, dtype=torch.float32) for t in m_low]
+                v = [torch.empty_like(t, dtype=torch.float32) for t in v_low]
+                torch._foreach_copy_(m, m_low)
+                torch._foreach_copy_(v, v_low)
+                p32 = _fp32(run)
+                update = _adam_direction(m, v, _fp32([p.grad for p in run]), states,
+                                         b1, b2, group["eps"])
+                if wd > 0:
+                    torch._foreach_add_(update, p32, alpha=wd)
+                _apply(run, p32, update, group["lr"])
+                torch._foreach_copy_(m_low, m)
+                torch._foreach_copy_(v_low, v)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].to(self.state_dtype)
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax ``lamb(learning_rate, weight_decay=wd)`` (optax 0.2.6's
+    defaults), over the parameters in foreach runs of
+    :data:`FOREACH_BUCKET` elements:
+
+    1. ``scale_by_adam`` with b1 0.9, b2 0.999, eps 1e-6 and eps_root 0,
+       fp32 moments;
+    2. ``add_decayed_weights(wd)`` with no mask: every parameter, biases
+       and layer norms too, takes ``+ wd * p``;
+    3. ``scale_by_trust_ratio``: each tensor's update times ``‖p‖ / ‖u‖``,
+       or 1 where either norm is 0 (both norms of a run from
+       ``torch._foreach_norm``, no host sync);
+    4. ``p -= lr * update``.
+
+    The state (``step``, ``exp_avg``, ``exp_avg_sq``) goes through
+    ``state_dict()``. A parameter without a gradient is skipped."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            (b1, b2), wd = group["betas"], group["weight_decay"]
+            for run in _buckets([p for p in group["params"] if p.grad is not None]):
+                states, m, v = _moments(self, run, torch.float32)
+                p32 = _fp32(run)
+                update = _adam_direction(m, v, _fp32([p.grad for p in run]), states,
+                                         b1, b2, group["eps"])
+                if wd > 0:
+                    torch._foreach_add_(update, p32, alpha=wd)
+                p_norm = torch.stack(torch._foreach_norm(p32))
+                u_norm = torch.stack(torch._foreach_norm(update))
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                    p_norm / u_norm)
+                torch._foreach_mul_(update, list(ratio.unbind()))
+                _apply(run, p32, update, group["lr"])
+
+
 def build_optimizer(config: TrainConfig, params, world_size: int = 1,
                     total_steps: Optional[int] = None):
     """Returns ``(torch optimizer, schedule, scaled base lr)``; the caller
     sets each update's learning rate from ``schedule`` (see
-    :func:`set_lr`)."""
-    if config.optimizer not in ("adam", "adamw", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer {config.optimizer!r} is not ported to the PyTorch "
-            "package yet: ROADMAP queue 1, item 4")
+    :func:`set_lr`). The config has already refused bf16 state with
+    ``lamb`` or ``adafactor``."""
     schedule, lr = lr_schedule(config, world_size, total_steps)
     params = list(params)
+    decay = config.weight_decay if config.optimizer == "adamw" else 0.0
     if config.optimizer == "adafactor":
         opt = Adafactor(params, lr=schedule(0))
-    elif config.optimizer == "adamw" and config.weight_decay > 0:
+    elif config.optimizer == "lamb":
+        opt = Lamb(params, lr=schedule(0), weight_decay=config.weight_decay)
+    elif config.optimizer_state_dtype == "bfloat16":
+        opt = AdamLowp(params, lr=schedule(0), weight_decay=decay)
+    elif decay > 0:
         opt = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=config.weight_decay)
+                                weight_decay=decay)
     else:
         opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
     return opt, schedule, lr

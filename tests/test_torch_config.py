@@ -101,9 +101,11 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
              ["--early_stopping_patience", "2"], ["--profile", "true"]]
 
 
-# ROADMAP items 6 (LoRA and packing) and 9 (MoE), now ported: these
-# entries of UNPORTED now parse as the JAX package's do
-ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing", "--num_experts")
+# ROADMAP items 6 (LoRA and packing), 9 (MoE) and 4 (LAMB, bf16 moments,
+# the remat policies), now ported: these entries of UNPORTED now parse as
+# the JAX package's do
+ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing", "--num_experts",
+         "--optimizer", "--optimizer_state_dtype", "--remat")
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])

@@ -299,10 +299,11 @@ def test_params_from_jax_layouts():
     ("kv_cache_dtype", "fp8"), ("param_dtype", "bfloat16")])
 def test_config_rejects_unported_features(field, value):
     if field == "remat":
-        # remat (policy "full") is ported; the other policies still raise
+        # remat is ported under every policy (ROADMAP item 4)
         assert dataclasses.replace(t_gpt2.Gpt2Config(), remat=True).remat
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-            dataclasses.replace(t_gpt2.Gpt2Config(), remat=True, remat_policy="dots")
+        for policy in ("dots", "dots_no_batch"):
+            cfg = dataclasses.replace(t_gpt2.Gpt2Config(), remat=True, remat_policy=policy)
+            assert cfg.remat_policy == policy
         return
     if field == "num_experts":
         # MoE is ported (models/moe.py): every moe_every-th block's MLP is

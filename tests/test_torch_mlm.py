@@ -672,27 +672,30 @@ def _raise_sites():
         ("config-packing", lambda: _ported_config(
             dict(task="mlm", segment_packing=True),
             dict(task="mlm", segment_packing=True, streaming=True)), None),
-        ("config-lamb", lambda: t_config.TrainConfig(optimizer="lamb"), "4"),
-        ("config-bf16-moments",
-         lambda: t_config.TrainConfig(optimizer_state_dtype="bfloat16"), "4"),
-        ("config-remat-policy",
-         lambda: t_config.TrainConfig(remat=True, remat_policy="dots"), "4"),
+        ("config-lamb", lambda: _ported_config(
+            dict(optimizer="lamb", weight_decay=0.01),
+            dict(optimizer="lamb", optimizer_state_dtype="bfloat16")), None),
+        ("config-bf16-moments", lambda: _ported_config(
+            dict(optimizer_state_dtype="bfloat16"),
+            dict(optimizer="adafactor", optimizer_state_dtype="bfloat16")), None),
+        ("config-remat-policy", lambda: _ported_config(
+            dict(remat=True, remat_policy="dots"),
+            dict(remat=True, remat_policy="dots_with_batch")), None),
         ("config-ring", lambda: t_config.TrainConfig(attention_impl="ring"), "11"),
         ("config-tp", lambda: t_config.TrainConfig(tp=2), "11"),
         ("layers-moe", lambda: t_layers.EncoderConfig(num_experts=2), None),
         ("layers-pipeline", lambda: t_layers.EncoderConfig(pipeline_stages=2), "11"),
-        ("layers-remat-policy",
-         lambda: t_layers.EncoderConfig(remat=True, remat_policy="dots"), "4"),
+        ("layers-remat-policy", lambda: _ported_remat(
+            lambda: t_layers.EncoderConfig(remat=True, remat_policy="dots")), None),
         ("layers-ring", lambda: t_layers.EncoderConfig(attention_impl="ring"), "11"),
-        ("gpt2-remat-policy",
-         lambda: t_gpt2.Gpt2Config(remat=True, remat_policy="dots_no_batch"), "4"),
+        ("gpt2-remat-policy", lambda: _ported_remat(
+            lambda: t_gpt2.Gpt2Config(remat=True, remat_policy="dots_no_batch")), None),
         ("gpt2-moe", lambda: t_gpt2.Gpt2Config(num_experts=4), None),
         ("gpt2-pipeline", lambda: t_gpt2.Gpt2Config(pipeline_stages=2), "11"),
         ("gpt2-quant", lambda: _ported_quant("gpt2"), None),
         ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), "11"),
         ("attention-ring", lambda: t_attn.dot_product_attention(q, q, q, impl="ring"), "11"),
-        ("optim-lamb", lambda: t_optim.build_optimizer(
-            SimpleNamespace(optimizer="lamb"), []), "4"),
+        ("optim-lamb", lambda: _lamb_steps(t_optim), None),
         ("pipeline-packed", _ported_packed_lm_rows, None),
         ("auto-family", _ported_llama_family, None),
         ("auto-export", _ported_llama_export, None),
@@ -701,12 +704,13 @@ def _raise_sites():
         ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), "11"),
         ("t5-pipeline", lambda: t_t5.T5Config(pipeline_stages=2), "11"),
         ("t5-quant", lambda: _ported_quant("t5"), None),
-        ("t5-remat-policy", lambda: t_t5.T5Config(remat=True, remat_policy="dots"), "4"),
+        ("t5-remat-policy", lambda: _ported_remat(
+            lambda: t_t5.T5Config(remat=True, remat_policy="dots")), None),
         ("bart-ring", lambda: t_bart.BartConfig(attention_impl="ring"), "11"),
         ("bart-pipeline", lambda: t_bart.BartConfig(pipeline_stages=2), "11"),
         ("bart-quant", lambda: _ported_quant("bart"), None),
-        ("bart-remat-policy",
-         lambda: t_bart.BartConfig(remat=True, remat_policy="dots_no_batch"), "4"),
+        ("bart-remat-policy", lambda: _ported_remat(
+            lambda: t_bart.BartConfig(remat=True, remat_policy="dots_no_batch")), None),
         ("generate-sampling", lambda: _ported_decoding("sampling"), None),
         ("generate-beam", lambda: _ported_decoding("beam"), None),
         ("generate-speculative-seq2seq", lambda: _ported_decoding("speculative"), None),
@@ -799,6 +803,36 @@ def _ported_config(valid: dict, invalid: dict) -> None:
     with pytest.raises(ValueError) as got:
         t_config.TrainConfig(**invalid)
     assert str(got.value) == str(want.value)
+
+
+def _ported_remat(make) -> None:
+    """A remat policy of ROADMAP item 4, now ported: the config ``make``
+    builds, and an unknown policy raises the JAX package's ``ValueError``
+    word for word."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.models.layers import remat_policy
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import layers as t_layers
+
+    cfg = make()
+    assert cfg.remat and cfg.remat_policy in ("dots", "dots_no_batch")
+    assert callable(t_layers.remat_policy(cfg.remat_policy))
+    with pytest.raises(ValueError) as want:
+        remat_policy("dots_with_batch")
+    with pytest.raises(ValueError) as got:
+        t_layers.remat_policy("dots_with_batch")
+    assert str(got.value) == str(want.value)
+
+
+def _lamb_steps(t_optim) -> None:
+    """LAMB (ROADMAP item 4, ported) builds from a config and steps: the
+    parameter moves and the state holds both moments."""
+    p = torch.nn.Parameter(torch.ones(3, 2))
+    opt, _, _ = t_optim.build_optimizer(
+        t_config.TrainConfig(optimizer="lamb", weight_decay=0.01), [p])
+    p.grad = torch.full((3, 2), 0.5)
+    opt.step()
+    assert isinstance(opt, t_optim.Lamb) and not torch.equal(p.detach(), torch.ones(3, 2))
+    assert set(opt.state[p]) == {"step", "exp_avg", "exp_avg_sq"}
 
 
 def _ported_packed_lm_rows() -> None:
@@ -925,8 +959,10 @@ def _int8_engine():
                          ids=[s[0] for s in _raise_sites()])
 def test_unported_raises_name_their_roadmap_item(site):
     """No raise names a slice letter any more: each names its ROADMAP
-    queue 1 item. The sites of items 6, 8 and 9, of item 10's int8 pools
-    and of item 10's fleet flags, now ported, run instead (MoE configs
+    queue 1 item. The sites of items 4, 6, 8 and 9, of item 10's int8 pools
+    and of item 10's fleet flags, now ported, run instead (LAMB builds and
+    steps, the remat policies build and an unknown one raises the JAX
+    ``ValueError``, MoE configs
     build, the Llama family is detected and exports, beam search refuses
     experts with the JAX ValueError; a ported config
     builds and its invalid form raises the JAX ``ValueError``; the packed

@@ -1,10 +1,11 @@
 """PyTorch port: ``train/optim.py`` and ``ops/losses.py`` against optax and
-the JAX package: the learning rate at every update, Adam, AdamW and
-Adafactor step for step, global-norm clipping, and the fp32 loss and
-metric primitives.
+the JAX package: the learning rate at every update, Adam, AdamW,
+Adafactor, LAMB and the bf16-moment Adam step for step, global-norm
+clipping, and the fp32 loss and metric primitives.
 
 Tolerances: 1e-6 (fp32 arithmetic in another order; optax evaluates its
-schedules in fp32)."""
+schedules in fp32); stored bf16 moments within one bf16 ulp (two fp32 sums
+in another order may round to neighbouring bf16 values)."""
 
 import math
 
@@ -214,6 +215,212 @@ def test_adafactor_state_round_trips_through_state_dict():
     for pa, pb in zip(a, b):
         assert torch.equal(pa, pb)
 
+
+
+# -- LAMB and bf16 moments (ROADMAP item 4) ---------------------------------
+
+# a [64, 48] matrix, a ragged one, a bias, a zero-initialized bias (its
+# parameter norm is 0 at the first step: trust ratio 1) and a 3-axis tensor
+ITEM4_SHAPES = [(64, 48), (33, 17), (48,), (17,), (2, 5, 7)]
+
+
+def _item4_case(seed: int, accum: int):
+    rng = np.random.RandomState(seed)
+    p0 = [(rng.randn(*s) * 0.1).astype(np.float32) for s in ITEM4_SHAPES]
+    p0[3][:] = 0.0
+    # 5 updates of ``accum`` micro-batch gradients each, growing so the
+    # clip acts on the later ones
+    grads = [[[(rng.randn(*s) * (0.2 + 0.5 * k)).astype(np.float32) for s in ITEM4_SHAPES]
+              for _ in range(accum)] for k in range(5)]
+    return p0, grads
+
+
+def _jax_adam_state(state):
+    """The ``ScaleByAdamState`` inside a JAX optimizer state tree."""
+    if hasattr(state, "mu") and hasattr(state, "nu"):
+        return state
+    if isinstance(state, tuple):
+        for part in state:
+            found = _jax_adam_state(part)
+            if found is not None:
+                return found
+    for name in ("inner_opt_state",):
+        if hasattr(state, name):
+            return _jax_adam_state(getattr(state, name))
+    return None
+
+
+def _run_item4(cfg_kw: dict, accum: int, seed: int):
+    """The port's trainer update order (micro-batch gradients summed over
+    ``accum`` as ``loss / accum`` gives them, the global-norm clip, the
+    schedule's learning rate, the step) against the JAX package's
+    ``build_optimizer`` (``MultiSteps`` over clip and the optimizer) on the
+    same inputs. Returns the port's parameters and optimizer and the JAX
+    parameters and state after each update."""
+    import jax.numpy as jnp
+    import optax
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train.optim import build_optimizer
+
+    kw = dict(learning_rate=2e-2, scale_lr_by_world_size=False,
+              gradient_accumulation_steps=accum, **cfg_kw)
+    p0, grads = _item4_case(seed, accum)
+    params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt, sched, _ = t_optim.build_optimizer(t_config.TrainConfig(**kw), params)
+    tx, _ = build_optimizer(TrainConfig(**kw))
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    steps = []
+    for n, micro in enumerate(grads):
+        for p in params:
+            p.grad = None
+        for g in micro:
+            for p, gi in zip(params, g):
+                add = torch.from_numpy(gi / accum if accum > 1 else gi.copy())
+                p.grad = add if p.grad is None else p.grad + add
+            upd, state = tx.update([jnp.asarray(gi) for gi in g], state, jp)
+            jp = optax.apply_updates(jp, upd)
+        if kw.get("max_grad_norm", 0) > 0:
+            t_optim.clip_by_global_norm(params, kw["max_grad_norm"])
+        t_optim.set_lr(opt, sched(n))
+        opt.step()
+        steps.append(([p.detach().clone() for p in params], [np.asarray(w) for w in jp],
+                      state))
+    return params, opt, steps
+
+
+def _rel_err(got: torch.Tensor, want: np.ndarray) -> float:
+    return float(np.abs(got.numpy() - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01], ids=["no_decay", "decay"])
+@pytest.mark.parametrize("mode", ["plain", "clipped", "accumulated"])
+def test_lamb_matches_optax(wd, mode):
+    """Five LAMB updates against ``optax.lamb(lr, weight_decay=wd)`` as the
+    JAX package chains it (global-norm clip 0.5 first; ``MultiSteps`` over
+    3 micro-batches): every parameter within 1e-6 relative after every
+    update, the zero bias included (its trust ratio is 1 at the first
+    step, where its norm is 0)."""
+    cfg = dict(optimizer="lamb", weight_decay=wd,
+               max_grad_norm=0.5 if mode == "clipped" else 0.0)
+    params, opt, steps = _run_item4(cfg, 3 if mode == "accumulated" else 1, seed=5)
+    assert isinstance(opt, t_optim.Lamb)
+    for n, (got, want, _) in enumerate(steps):
+        for g, w, shape in zip(got, want, ITEM4_SHAPES):
+            assert _rel_err(g, w) <= 1e-6, (n, shape, _rel_err(g, w))
+    st = opt.state[params[0]]
+    assert st["step"] == 5 and st["exp_avg"].dtype == torch.float32
+    assert opt.defaults["eps"] == 1e-6
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at ``|x|`` (8 significant bits), 0 where ``x`` is 0."""
+    mag = np.abs(x.astype(np.float64))
+    exp = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    return np.where(mag > 0, 2.0 ** (exp - 7), 0.0)
+
+
+@pytest.mark.parametrize("optimizer,wd,clip", [("adam", 0.0, 0.0), ("adamw", 0.01, 0.0),
+                                              ("adamw", 0.01, 0.5)],
+                         ids=["adam", "adamw", "adamw_clipped"])
+def test_bf16_moments_match_jax_scale_by_adam_lowp(optimizer, wd, clip):
+    """Five updates of the bf16-moment Adam against the JAX package's
+    ``scale_by_adam_lowp`` chain (then ``add_decayed_weights`` for adamw,
+    then the learning rate): parameters within 1e-6 relative, and the
+    stored bf16 moments within one bf16 ulp of the JAX ones after every
+    update."""
+    cfg = dict(optimizer=optimizer, weight_decay=wd, max_grad_norm=clip,
+               optimizer_state_dtype="bfloat16")
+    params, opt, steps = _run_item4(cfg, 1, seed=6)
+    assert isinstance(opt, t_optim.AdamLowp)
+    for n, (got, want, jstate) in enumerate(steps):
+        for g, w, shape in zip(got, want, ITEM4_SHAPES):
+            assert _rel_err(g, w) <= 1e-6, (n, shape, _rel_err(g, w))
+    adam = _jax_adam_state(steps[-1][2])
+    for p, mu, nu in zip(params, adam.mu, adam.nu):
+        st = opt.state[p]
+        for got, want in ((st["exp_avg"], mu), (st["exp_avg_sq"], nu)):
+            assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+            g = got.float().numpy()
+            w = np.asarray(want).astype(np.float32)
+            assert (np.abs(g - w) <= _bf16_ulp(np.maximum(np.abs(g), np.abs(w)))).all(), \
+                (p.shape, np.abs(g - w).max())
+    assert opt.state[params[0]]["step"] == 5
+
+
+@pytest.mark.parametrize("kind", ["lamb", "bf16_adamw"])
+def test_item4_state_round_trips_through_a_checkpoint(kind, tmp_path):
+    """``state_dict()`` holds the step count and the moments in their own
+    dtype (bf16 for the low-precision Adam, fp32 for LAMB); saved with
+    ``torch.save`` and loaded into a fresh optimizer (whose
+    ``load_state_dict`` would otherwise cast them to the parameters' fp32)
+    the dtypes stay, and the next step equals the uninterrupted one bit for
+    bit."""
+    cfg = (t_config.TrainConfig(optimizer="lamb", weight_decay=0.01) if kind == "lamb"
+           else t_config.TrainConfig(optimizer="adamw", weight_decay=0.01,
+                                     optimizer_state_dtype="bfloat16"))
+    want_dtype = torch.float32 if kind == "lamb" else torch.bfloat16
+    rng = np.random.RandomState(8)
+    p0 = [rng.randn(*s).astype(np.float32) for s in ITEM4_SHAPES]
+
+    def make():
+        ps = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+        return ps, t_optim.build_optimizer(cfg, ps)[0]
+
+    a, opt_a = make()
+    for _ in range(3):
+        for p in a:
+            p.grad = torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+        opt_a.step()
+    torch.save(opt_a.state_dict(), tmp_path / "opt.pt")
+    b, opt_b = make()
+    with torch.no_grad():
+        for pa, pb in zip(a, b):
+            pb.copy_(pa)
+    opt_b.load_state_dict(torch.load(tmp_path / "opt.pt"))
+    for sd in (opt_a.state_dict(), opt_b.state_dict()):
+        for st in sd["state"].values():
+            assert set(st) == {"step", "exp_avg", "exp_avg_sq"} and st["step"] == 3
+            assert st["exp_avg"].dtype == st["exp_avg_sq"].dtype == want_dtype
+    g = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ITEM4_SHAPES]
+    for ps, opt in ((a, opt_a), (b, opt_b)):
+        for p, gi in zip(ps, g):
+            p.grad = gi.clone()
+        opt.step()
+    for pa, pb in zip(a, b):
+        assert torch.equal(pa, pb)
+    for pa, pb in zip(a, b):
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt_a.state[pa][k], opt_b.state[pb][k])
+
+
+def test_foreach_buckets_cut_the_parameter_list_in_order(monkeypatch):
+    """The foreach runs cover every parameter once, in order, each run at
+    most ``FOREACH_BUCKET`` elements unless one tensor is larger; a bucket
+    size that cuts the list into many runs gives the same LAMB and bf16
+    steps bit for bit."""
+    sizes = [5, 3, 9, 2, 2, 7]
+    ts = [torch.zeros(n) for n in sizes]
+    runs = list(t_optim._buckets(ts, limit=8))
+    assert [[t.numel() for t in r] for r in runs] == [[5, 3], [9], [2, 2], [7]]
+    rng = np.random.RandomState(9)
+    p0 = [rng.randn(*s).astype(np.float32) for s in ITEM4_SHAPES]
+    grads = [[rng.randn(*s).astype(np.float32) for s in ITEM4_SHAPES] for _ in range(3)]
+    for cfg in (t_config.TrainConfig(optimizer="lamb", weight_decay=0.01),
+                t_config.TrainConfig(optimizer_state_dtype="bfloat16")):
+        out = []
+        for limit in (t_optim.FOREACH_BUCKET, 40):
+            monkeypatch.setattr(t_optim, "FOREACH_BUCKET", limit)
+            ps = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+            opt = t_optim.build_optimizer(cfg, ps)[0]
+            for g in grads:
+                for p, gi in zip(ps, g):
+                    p.grad = torch.from_numpy(gi.copy())
+                opt.step()
+            out.append(ps)
+        for pa, pb in zip(*out):
+            assert torch.equal(pa, pb)
 
 def test_losses_match_jax():
     import jax.numpy as jnp
