@@ -25,7 +25,7 @@ back in the JSON file OUT:
    -v``), its shared memory per block and its tensor-core instructions in
    the SASS (``cuobjdump``): the paged kernels (CUDA cores by design) must
    spill nothing; the tensor-core kernels (bf16 flash forward, dQ and
-   dK/dV at D 64 and 128) must hold ``HMMA``, the bf16-hidden vocab-CE
+   dK/dV at D 64, 128 and 256) must hold ``HMMA``, the bf16-hidden vocab-CE
    ``wgmma`` kernels (the forward's logits; the backward's dS, dH and dW
    products) ``HGMMA``, and none may spill;
 2. kernel: holds the paged decode kernels (the split-context kernel and
@@ -39,7 +39,8 @@ back in the JSON file OUT:
    1024 at 8 slots, 128 and 512 at 16 and at 8, and the serve_router
    phase's 128 and 256 at 4 slots, over tables of max_model_len; 16 slots
    whose tables share a 320-token template's
-   blocks, fp32 and int8, the template read once in the bound). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
+   blocks, fp32 and int8, the template read once in the bound; inputs
+   drawn on the card). fp32 and int8 must agree to ``atol = rtol = 1e-4`` on active
    rows, bf16 to ``2e-2``; context-0 rows must be exactly 0. Prints one
    JSON line per case with the kernels' device time (the profiler's,
    split and combine summed per call, median of 5 windows of 20),
@@ -120,7 +121,9 @@ back in the JSON file OUT:
    gradient; D 128 in bf16; S 64 and 128 in bf16 with a ragged mask (the data
    phase's bucket widths); in bf16 the encoder tasks' shapes: 16 heads at S
    384 (``qa384_bf16``, BERT-large QA), S 64 and S 512 (``mlm_large_bf16``,
-   the BERT-large MLM run), 4 heads at S 512 (ELECTRA-small). Error
+   the BERT-large MLM run), 4 heads at S 512 (ELECTRA-small); the Llama
+   and Gemma training shapes (``FLASH_LLAMA``, ``FLASH_GEMMA``: D 256 in
+   bf16 and fp32, and D 96 run padded to 128). Error
    bounds (``_limit``): an fp32 output (every output of an fp32 case; LSE
    and dmask of a bf16 one)
    ``1e-4 * max(1, max|want|)`` (the same fp32 arithmetic summed in
@@ -316,7 +319,7 @@ back in the JSON file OUT:
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
 10. the Llama family and MoE (``llama_phase``), each model's published
    widths written as its ``config.json`` by the script, random weights
-   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 12 requests of
+   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 8 requests of
    128-512 prompt tokens and 32 new through the engine's defaults (8
    slots, chunk 32, max_model_len 2048) on fp pools, int8 pools and the
    gather route; K3 once a layer a decode step; each run's tokens held to
@@ -337,9 +340,15 @@ back in the JSON file OUT:
    depth 1: five bf16 steps at 2 x 512 through K1 and K2 with the aux
    loss, tokens per expert and capacity drops, the fp32 gate at batch 1,
    and 16 greedy tokens equal to the full forward's argmax at a capacity
-   that cannot bind; its K3 cases (``llama_kernel_phase``), K1 cases
-   (in phase 5) and K2 cases (in phase 7) run after it in their own
-   processes;
+   that cannot bind; (e) Gemma-7B at full depth in bf16 (head_dim 256, one
+   query head a K/V head) on K3 at D 256: 8 requests of 128-512 prompt
+   tokens and 32 new on fp and int8 pools, each held by
+   ``_plain_agreement``; (f) Gemma-2B at full depth (MQA, D 256, vocab
+   256000, the tied head) through the train CLI as (c), 2 x 1024, 8 steps,
+   and its fp32 gate at depth 2 through the fp32 D-256 kernels; its K3
+   cases (``llama_kernel_phase``: ``LLAMA_KERNEL_CASES`` and
+   ``GEMMA_KERNEL_CASES``), K1 cases (in phase 5) and K2 cases (in phase
+   7) run after it in their own processes;
 11. the job as the source system launches it: (a) ``launch_phase``: the
    reference's job through ``python -m <port>.launch --slice h100-1``
    (BERT-large-WWM seq-cls at full width and depth, random weights, 30
@@ -500,6 +509,18 @@ KERNEL_CASES = [
     ("tinyllama", 8, 32, 4, 64, 16, 1024, "bfloat16", False, None, "ragged"),
     ("qwen2_g7", 8, 14, 2, 64, 16, 1024, "bfloat16", False, None, "ragged"),
     ("mistral_window", 4, 32, 8, 128, 16, 4736, "bfloat16", False, 4096, "listed"),
+    # the Gemma runs' launch configurations at head_dim 256: Gemma-7B's one
+    # query head a K/V head (16 over 16) at each width of its serve run's
+    # ladder over bf16 and int8 pools, tables of max_model_len 2048;
+    # Gemma-2B's MQA (8 query heads over 1, the kernel's widest group);
+    # each group width once over fp32 pools
+    ("gemma7b_w512", 8, 16, 16, 256, 16, 512, "bfloat16", False, None, "ragged"),
+    ("gemma7b_w2048", 8, 16, 16, 256, 16, 2048, "bfloat16", False, None, "ragged"),
+    ("gemma7b_int8_w512", 8, 16, 16, 256, 16, 512, "bfloat16", True, None, "ragged"),
+    ("gemma7b_int8_w2048", 8, 16, 16, 256, 16, 2048, "bfloat16", True, None, "ragged"),
+    ("gemma2b_mqa", 8, 8, 1, 256, 16, 1024, "bfloat16", False, None, "ragged"),
+    ("gemma7b_fp32", 8, 16, 16, 256, 16, 512, "float32", False, None, "ragged"),
+    ("gemma2b_mqa_fp32", 8, 8, 1, 256, 16, 1024, "float32", False, None, "ragged"),
 ]
 # a "listed" case's contexts
 LISTED_CONTEXTS = {"mistral_window": [4095, 4096, 4097, 4700]}
@@ -509,6 +530,12 @@ LLAMA_KERNEL_CASES = ("llama3_8b_w512", "llama3_8b_w2048", "llama3_8b_int8_w512"
 LLAMA_LADDER_CASES = {(8, 512, False): "llama3_8b_w512", (8, 2048, False): "llama3_8b_w2048",
                       (8, 512, True): "llama3_8b_int8_w512",
                       (8, 2048, True): "llama3_8b_int8_w2048"}
+GEMMA_KERNEL_CASES = ("gemma7b_w512", "gemma7b_w2048", "gemma7b_int8_w512",
+                      "gemma7b_int8_w2048", "gemma2b_mqa", "gemma7b_fp32", "gemma2b_mqa_fp32")
+# the Gemma-7B serve run's ladder cases by (slots, width, int8)
+GEMMA_LADDER_CASES = {(8, 512, False): "gemma7b_w512", (8, 2048, False): "gemma7b_w2048",
+                      (8, 512, True): "gemma7b_int8_w512",
+                      (8, 2048, True): "gemma7b_int8_w2048"}
 # block-table columns of a case (else the walked blocks plus 4): the
 # engine's tables hold max_model_len // block_size columns whatever width
 # the ladder walks
@@ -516,7 +543,8 @@ TABLE_BLOCKS = {"serve_w256": 64, "serve_w1024": 64, "prefix_w128": 32,
                 "prefix_w512": 32, "thrash_w128": 32, "thrash_w512": 32, "shared": 32,
                 "shared_int8": 32, "router_w128": 16, "router_w256": 16,
                 "llama3_8b_w512": 128, "llama3_8b_w2048": 128, "llama3_8b_int8_w512": 128,
-                "llama3_8b_int8_w2048": 128, "mistral_window": 296}
+                "llama3_8b_int8_w2048": 128, "mistral_window": 296, "gemma7b_w512": 128,
+                "gemma7b_w2048": 128, "gemma7b_int8_w512": 128, "gemma7b_int8_w2048": 128}
 SHARED_PREFIX = 320             # the shared cases' template tokens (20 blocks)
 # the ladders' cases by (slots, width), as the serve_engine and
 # serve_router phases run them (the plan follows slots and width; the
@@ -578,33 +606,37 @@ def _contexts(case, gen) -> list[int]:
     if kind == "shared":
         # the template, a tail and a few generated tokens each
         return (SHARED_PREFIX + 1 + torch.randint(
-            0, max_ctx - SHARED_PREFIX, (S,), generator=gen)).tolist()
-    rest = torch.randint(1, max_ctx, (S - 2,), generator=gen).tolist()
+            0, max_ctx - SHARED_PREFIX, (S,), generator=gen, device=gen.device)).tolist()
+    rest = torch.randint(1, max_ctx, (S - 2,), generator=gen, device=gen.device).tolist()
     return [0, max_ctx] + rest
 
 
 def _make_inputs(case, gen, device):
+    """A case's inputs drawn on ``gen``'s device (the kernel phases' is the
+    card's: the Gemma pools alone are 0.5 G values, about 5 s a case on the
+    host) and moved to ``device``."""
     import torch
 
     name, S, Hq, Hkv, D, bs, max_ctx, dt, int8, window, kind = case
     dtype = getattr(torch, dt)
+    on = dict(generator=gen, device=gen.device)
     nb_walk = -(-max_ctx // bs)
     nb_table = TABLE_BLOCKS.get(name, nb_walk + 4)   # width below the span
     N = 1 + S * nb_table
-    tables = (torch.randperm(N - 1, generator=gen) + 1)[: S * nb_table]
+    tables = (torch.randperm(N - 1, **on) + 1)[: S * nb_table]
     tables = tables.reshape(S, nb_table).to(torch.int32)
     if kind == "shared":
         tables[:, :SHARED_PREFIX // bs] = tables[0, :SHARED_PREFIX // bs].clone()
     ctx = torch.tensor(_contexts(case, gen), dtype=torch.int32)
-    q = torch.randn(S, Hq, D, generator=gen).to(dtype)
+    q = torch.randn(S, Hq, D, **on).to(dtype)
     if int8:
-        k = torch.randint(-127, 128, (N, bs, Hkv, D), generator=gen).to(torch.int8)
-        v = torch.randint(-127, 128, (N, bs, Hkv, D), generator=gen).to(torch.int8)
-        ks = torch.rand(N, bs, Hkv, 1, generator=gen) * 0.02 + 1e-3
-        vs = torch.rand(N, bs, Hkv, 1, generator=gen) * 0.02 + 1e-3
+        k = torch.randint(-127, 128, (N, bs, Hkv, D), **on).to(torch.int8)
+        v = torch.randint(-127, 128, (N, bs, Hkv, D), **on).to(torch.int8)
+        ks = torch.rand(N, bs, Hkv, 1, **on) * 0.02 + 1e-3
+        vs = torch.rand(N, bs, Hkv, 1, **on) * 0.02 + 1e-3
     else:
-        k = torch.randn(N, bs, Hkv, D, generator=gen).to(dtype)
-        v = torch.randn(N, bs, Hkv, D, generator=gen).to(dtype)
+        k = torch.randn(N, bs, Hkv, D, **on).to(dtype)
+        v = torch.randn(N, bs, Hkv, D, **on).to(dtype)
         ks = vs = None
     t = dict(q=q, k_pool=k, v_pool=v, block_tables=tables, context_lens=ctx,
              k_scale_pool=ks, v_scale_pool=vs)
@@ -798,7 +830,7 @@ def kernel_phase(cases=None) -> dict:
 
     pa.load_kernel()
     dev = torch.device(DEVICE)
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for case in KERNEL_CASES if cases is None else cases:
         name, dt = case[0], case[7]
@@ -2085,19 +2117,20 @@ def _sass_counts(sass: str, opcode: str) -> dict:
 
     out, cur = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
+        if "Function : " in line:
+            cur = re.search(r"Function : (\S+)", line).group(1)
             out[cur] = 0
-        elif cur is not None and re.search(rf"\*/\s+(@\S+\s+)?{opcode}\b", line):
+        elif (cur is not None and opcode in line
+              and re.search(rf"\*/\s+(@\S+\s+)?{opcode}\b", line)):
             out[cur] += 1
     return out
 
 
 # the tensor-core kernels: each must hold HMMA (``mma.sync``), or HGMMA
 # (``wgmma``) where named, and spill nothing
-TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128)), ("flash_bwd_dq_tc_kernel", (64, 128)),
-              ("flash_bwd_dkv_tc_kernel", (64, 128)),
+TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128, 256)),
+              ("flash_bwd_dq_tc_kernel", (64, 128, 256)),
+              ("flash_bwd_dkv_tc_kernel", (64, 128, 256)),
               ("vocab_ce_fwd_wgmma_kernel", (None,), "HGMMA"),
               ("vocab_ce_ds_wgmma_kernel", (None,), "HGMMA"),
               ("vocab_ce_dh_wgmma_kernel", (None,), "HGMMA"),
@@ -2171,7 +2204,7 @@ def _paged_build_rows() -> dict:
                      **info, "smem_bytes_per_block": info["static_smem_bytes"] + dynamic}
         check(info["spill_store_bytes"] == 0 and info["spill_load_bytes"] == 0,
               f"{kernel} {key} spills registers: {info}")
-    check(len(rows) == 36, f"{len(rows)} paged kernel instances built, not 32 + 4")
+    check(len(rows) == 54, f"{len(rows)} paged kernel instances built, not 48 + 6")
     return rows
 
 
@@ -2191,7 +2224,7 @@ def build_report() -> dict:
     rows = _paged_build_rows()
     for mangled, (kernel, info) in _library_report(
             "flash_attention", FLASH_KERNEL_NAMES.values()).items():
-        D = 128 if "Li128E" in mangled else 64
+        D = next(d for d in (256, 128, 64) if f"Li{d}E" in mangled)
         dt = "bfloat16" if ("bfloat16" in mangled or "_tc_" in kernel) else "float32"
         wrapper = next(w for (w, d), k in FLASH_KERNEL_NAMES.items() if k == kernel)
         rows[(kernel, D, dt)] = {"phase": "kernel_build", "library": "flash_attention",
@@ -2259,11 +2292,19 @@ FLASH_CASES = [
     ("tinyllama_causal_bf16", 4, 32, 1024, 64, "bfloat16", False, True, None, False, False),
     ("mixtral_causal_bf16", 2, 32, 512, 128, "bfloat16", False, True, None, False, False),
     ("mistral_window_bf16", 1, 32, 6144, 128, "bfloat16", False, True, 4096, False, False),
+    # the Gemma-2B training shapes at head_dim 256 (its one K/V head
+    # repeated to the 8 query heads): the bf16 run's B 2 x S 1024 and the
+    # fp32 gate's B 2 x S 512; and a head_dim without an instance (96),
+    # run padded to 128
+    ("gemma2b_causal_bf16", 2, 8, 1024, 256, "bfloat16", False, True, None, False, False),
+    ("gemma2b_gate_fp32", 2, 8, 512, 256, "float32", False, True, None, False, False),
+    ("pad96_bf16", 2, 8, 1024, 96, "bfloat16", False, True, None, False, False),
     # the bucket widths the data phase's bucketed run trains at
     ("bucket64_bf16", 8, 12, 64, 64, "bfloat16", True, False, None, False, False),
     ("bucket128_bf16", 8, 12, 128, 64, "bfloat16", True, False, None, False, False),
 ]
 FLASH_LLAMA = ("tinyllama_causal_bf16", "mixtral_causal_bf16", "mistral_window_bf16")
+FLASH_GEMMA = ("gemma2b_causal_bf16", "gemma2b_gate_fp32", "pad96_bf16")
 FLASH_QA = "qa384_bf16"         # the encoder_tasks phase's headline shape
 FLASH_MLM = "mlm_large_bf16"    # the mlm phase's BERT-large shape
 FLASH_MAIN = "bert_bf16"        # the shape and dtype the CLI's main path runs
@@ -4714,11 +4755,14 @@ VOCAB_CASES = [
     ("tinyllama_ce", 4096, 32000, 2048, "bfloat16", 0.0, False),
     ("mixtral_ce", 1024, 32000, 4096, "bfloat16", 0.0, False),
     ("llama3_vocab_ce", 1024, 128256, 4096, "bfloat16", 0.0, False),
+    # Gemma-2B's tied head at its vocab of 256000: the run's B 2 x S 1024
+    ("gemma_vocab_ce", 2048, 256000, 2048, "bfloat16", 0.0, False),
 ]
 VOCAB_MAIN = "gpt2_bf16"        # the shape and dtypes the CLI's train steps run
 VOCAB_MLM = ("mlm_base_bf16", "mlm_large_bf16", "mlm_eval_bf16")
 VOCAB_DEBERTA = ("mlm_deberta_bf16", "mlm_deberta_eval_bf16")
 VOCAB_LLAMA = ("tinyllama_ce", "mixtral_ce", "llama3_vocab_ce")
+VOCAB_GEMMA = ("gemma_vocab_ce",)
 VOCAB_SEQ2SEQ = ("t5_bf16", "t5_eval_bf16", "t5_span_bf16", "t5_span_eval_bf16",
                  "bart_bf16", "bart_eval_bf16")
 # the kernels each vocab-CE wrapper launches, by hidden dtype, the main
@@ -6464,11 +6508,25 @@ MIXTRAL_8X7B = {  # mistralai/Mixtral-8x7B-v0.1 at depth 1 of 32
     "sliding_window": None, "rms_norm_eps": 1e-5, "router_aux_loss_coef": 0.02,
     "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
     "eos_token_id": 2, "initializer_range": 0.02}
+GEMMA_7B = {  # google/gemma-7b, full depth
+    "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 256000,
+    "hidden_size": 3072, "intermediate_size": 24576, "num_hidden_layers": 28,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "hidden_act": "gelu", "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
+    "pad_token_id": 0, "initializer_range": 0.02}
+GEMMA_2B = {  # google/gemma-2b, full depth
+    "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 256000,
+    "hidden_size": 2048, "intermediate_size": 16384, "num_hidden_layers": 18,
+    "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "hidden_act": "gelu", "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
+    "pad_token_id": 0, "initializer_range": 0.02}
 # (a) the engine's defaults (K3, prefix cache, ladder, overlap) at 8 slots,
 # chunk 32, max_model_len 2048 (an 8-row prefill gathers at most 2 GiB of
-# its 128 KiB a token); 12 requests of 128-512 prompt tokens, 32 new each
+# its 128 KiB a token); 8 requests of 128-512 prompt tokens, 32 new each
 LLAMA_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=2048)
-LLAMA_TRACE = dict(n=12, lo=128, hi=512, new=32)
+LLAMA_TRACE = dict(n=8, lo=128, hi=512, new=32)
 # (b) one request of 4600 tokens past the window of 4096, 32 new
 MISTRAL_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=4736)
 MISTRAL_PROMPT, MISTRAL_NEW = 4600, 32
@@ -6478,6 +6536,12 @@ TINYLLAMA_RUN = dict(batch=4, seq=1024, steps=12, eval_samples=64, train_samples
                      profiled=3)
 # (d) bf16, batch 2 x S 512, 5 steps
 MIXTRAL_RUN = dict(batch=2, seq=512, steps=5)
+# (e) Gemma-7B on LLAMA_ENGINE (its KV is 448 KiB a token: the pools take
+# 7.3 GB); 8 requests of 128-512 prompt tokens, 32 new each
+GEMMA_TRACE = dict(n=8, lo=128, hi=512, new=32)
+# (f) the train CLI as (c) runs it: batch 2 x S 1024, 8 steps, bf16, AdamW
+GEMMA_RUN = dict(batch=2, seq=1024, steps=8, eval_samples=64, train_samples=2048,
+                 profiled=3)
 # the fp32 gates: kernels (flash + fused CE) against the plain path, the
 # first step's loss and gradients, then LLAMA_GATE_STEPS steps' losses
 LLAMA_GATE = dict(depth=2, batch=2, seq=512, steps=5, lr=1e-5)
@@ -6607,6 +6671,50 @@ def _plain_agreement(model, trace, outs, what: str, reference=None) -> dict:
             "teacher_forced_max_deficit": worst}
 
 
+def _k3_serve_runs(served, trace, runs, **row_kw) -> tuple[dict, dict]:
+    """Each run of ``runs`` (name, engine arguments) serving ``served`` on
+    a fresh engine at
+    ``LLAMA_ENGINE``, K3 widths on its ladder; the fp run also the idle
+    share over iterations ``OVERLAP_PROFILED`` of a fresh engine. Returns
+    (rows, tokens) by run name."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
+        ServeEngine,
+        parse_gather_buckets,
+    )
+
+    kw = dict(LLAMA_ENGINE, device=DEVICE, num_blocks=1 + LLAMA_ENGINE["num_slots"]
+              * LLAMA_ENGINE["max_model_len"] // LLAMA_ENGINE["block_size"])
+    ladder = parse_gather_buckets(None, LLAMA_ENGINE["max_model_len"],
+                                  LLAMA_ENGINE["block_size"])
+    rows, outs = {}, {}
+    for run, extra in runs:
+        _mem_reset()
+        engine = ServeEngine(served, **kw, **extra)
+        o, wall, launches = _engine_run(engine, trace)
+        row = _engine_row(engine, run, o, wall, launches, **row_kw,
+                          layers=served.config.num_layers, dtype="bfloat16",
+                          kv_dtype=engine.kv_cache_dtype, kernel=engine.kernel,
+                          kv_bytes_per_token=engine.blocks.token_bytes,
+                          k3_launches_per_decode_step=(launches / engine.stats().decode_steps
+                                                       if launches else 0),
+                          peak_gib=_peak_gib())
+        check(set(engine.paged_launches_by_width) <= set(ladder),
+              f"{row_kw['phase']} {run}: K3 widths {sorted(engine.paged_launches_by_width)} "
+              f"off the ladder {ladder}")
+        del engine
+        if run == "fp":
+            engine = ServeEngine(served, **kw)
+            row.update(_idle_window(engine, trace, [{}] * len(trace)))
+            del engine
+        outs[run] = o
+        rows[run] = row
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return rows, outs
+
+
 def llama_serve_phase(card: str) -> dict:
     """(a) Llama-3.1-8B in bf16 built on the card from seed 0: the trace on
     fp pools, int8 pools and the gather route (``kernel="xla"``), each on
@@ -6625,10 +6733,6 @@ def llama_serve_phase(card: str) -> dict:
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
         llama_config_from_hf,
     )
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (
-        ServeEngine,
-        parse_gather_buckets,
-    )
 
     _mem_reset()
     t0 = time.perf_counter()
@@ -6639,36 +6743,11 @@ def llama_serve_phase(card: str) -> dict:
     weights_gib = _peak_gib()
     trace = _random_prompts(cfg.vocab_size, LLAMA_TRACE["n"], LLAMA_TRACE["lo"],
                             LLAMA_TRACE["hi"], LLAMA_TRACE["new"], seed=0)
-    kw = dict(LLAMA_ENGINE, device=DEVICE, num_blocks=1 + LLAMA_ENGINE["num_slots"]
-              * LLAMA_ENGINE["max_model_len"] // LLAMA_ENGINE["block_size"])
-    ladder = parse_gather_buckets(None, LLAMA_ENGINE["max_model_len"],
-                                  LLAMA_ENGINE["block_size"])
-    rows, outs = {}, {}
-    for run, extra in (("fp", {}), ("int8", {"kv_cache_dtype": "int8"}),
-                       ("xla", {"kernel": "xla"})):
-        _mem_reset()
-        engine = ServeEngine(model, **kw, **extra)
-        o, wall, launches = _engine_run(engine, trace)
-        row = _engine_row(engine, run, o, wall, launches, phase="llama_serve",
-                          model="meta-llama/Llama-3.1-8B widths (random init, seed 0)",
-                          card=card, layers=cfg.num_layers, dtype="bfloat16",
-                          kv_dtype=engine.kv_cache_dtype, kernel=engine.kernel,
-                          kv_bytes_per_token=engine.blocks.token_bytes,
-                          k3_launches_per_decode_step=(launches / engine.stats().decode_steps
-                                                       if launches else 0),
-                          peak_gib=_peak_gib())
-        check(set(engine.paged_launches_by_width) <= set(ladder),
-              f"llama {run}: K3 widths {sorted(engine.paged_launches_by_width)} off the "
-              f"ladder {ladder}")
-        del engine
-        if run == "fp":
-            engine = ServeEngine(model, **kw)
-            row.update(_idle_window(engine, trace, [{}] * len(trace)))
-            del engine
-        outs[run] = o
-        rows[run] = row
-        if DEVICE == "cuda":
-            torch.cuda.empty_cache()
+    rows, outs = _k3_serve_runs(
+        model, trace, (("fp", {}), ("int8", {"kv_cache_dtype": "int8"}),
+                       ("xla", {"kernel": "xla"})),
+        phase="llama_serve", model="meta-llama/Llama-3.1-8B widths (random init, seed 0)",
+        card=card)
     reference = _plain_reference(model, trace)
     rows["fp"].update(_plain_agreement(model, trace, outs["fp"], "llama fp pools", reference))
     rows["int8"].update(_plain_agreement(_kv_twin(model, "int8"), trace, outs["int8"],
@@ -6685,6 +6764,46 @@ def llama_serve_phase(card: str) -> dict:
         emit(row)
     del model
     return rows
+
+
+def gemma_serve_phase(card: str) -> dict:
+    """(e) Gemma-7B at full depth in bf16 built on the card from seed 3:
+    K3 at head_dim 256 with one query head a K/V head (16 over 16), the
+    trace ``GEMMA_TRACE`` on fp and int8 pools at ``LLAMA_ENGINE``, each
+    run's tokens held to the batched plain ``generate_causal`` by
+    ``_plain_agreement``; rows as (a)'s, keyed ``gemma7b_<run>``."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+
+    _mem_reset()
+    t0 = time.perf_counter()
+    cfg = llama_config_from_hf(GEMMA_7B, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    check(cfg.resolved_head_dim == 256 and cfg.hidden_act == "gelu_pytorch_tanh"
+          and cfg.tie_word_embeddings and cfg.rms_unit_offset and cfg.embed_scale,
+          f"gemma-7b config read as {cfg}")
+    model = init_llama(cfg, seed=3, device=DEVICE)
+    _sync()
+    init_s = time.perf_counter() - t0
+    weights_gib = _peak_gib()
+    g = GEMMA_TRACE
+    trace = _random_prompts(cfg.vocab_size, g["n"], g["lo"], g["hi"], g["new"], seed=3)
+    rows, outs = _k3_serve_runs(
+        model, trace, (("fp", {}), ("int8", {"kv_cache_dtype": "int8"})),
+        phase="gemma_serve", model="google/gemma-7b widths, full depth (random init, seed 3)",
+        card=card, head_dim=cfg.resolved_head_dim,
+        params=sum(t.numel() for t in model.parameters()))
+    rows["fp"].update(_plain_agreement(model, trace, outs["fp"], "gemma fp pools"))
+    rows["int8"].update(_plain_agreement(_kv_twin(model, "int8"), trace, outs["int8"],
+                                         "gemma int8 pools"))
+    for row in rows.values():
+        row.update(init_s=init_s, weights_gib=weights_gib)
+        emit(row)
+    del model
+    return {f"gemma7b_{k}": v for k, v in rows.items()}
 
 
 def mistral_window_phase(card: str) -> dict:
@@ -6801,23 +6920,24 @@ def _llama_gate(hf: dict, name: str, batch: dict, steps: int, lr: float) -> dict
     return row
 
 
-def tinyllama_train_phase(work: Path, card: str) -> dict:
-    """(c) TinyLlama-1.1B at full width and depth through the train CLI:
+def _causal_cli_phase(work: Path, card: str, name: str, hf: dict, r: dict,
+                      label: str) -> dict:
+    """``hf``'s widths through the train CLI as ``r`` sizes the run:
     ``--task causal-lm --fused_vocab_ce true --packed_sequences true``,
-    bf16, AdamW, batch 4 x S 1024, 12 steps on the vendored reviews; K1
-    and K2 once a layer / once a step (train and eval steps counted),
-    samples/s, MFU, busy and idle share and K1/K2 device ms per step over
-    ``profiled`` more steps, K2's share of the busy time, peak memory;
-    then the fp32 gate at depth 2 (:func:`_llama_gate`)."""
+    bf16, AdamW, batch ``r["batch"]`` x S ``r["seq"]``, ``r["steps"]``
+    steps on the vendored reviews; K1 and K2 once a layer / once a step
+    (train and eval steps counted), samples/s, MFU, busy and idle share and
+    K1/K2 device ms per step over ``r["profiled"]`` more steps, K2's share
+    of the busy time, peak memory; then the fp32 gate at depth
+    ``LLAMA_GATE["depth"]`` (:func:`_llama_gate`). Returns ``{name: row}``."""
     import torch
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import flops
 
-    r = TINYLLAMA_RUN
     peak = flops.peak_tflops(torch.cuda.get_device_name() if DEVICE == "cuda" else None)
     restore = _peak_env(peak)
-    run_dir = work / "tinyllama"
-    argv = _slice_argv(_config_dir(run_dir, TINYLLAMA), run_dir, "causal-lm", r["steps"],
+    run_dir = work / name
+    argv = _slice_argv(_config_dir(run_dir, hf), run_dir, "causal-lm", r["steps"],
                        r["eval_samples"],
                        ["--fused_vocab_ce", "true", "--packed_sequences", "true",
                         "--max_seq_length", str(r["seq"]),
@@ -6834,24 +6954,22 @@ def tinyllama_train_phase(work: Path, card: str) -> dict:
                 "flash_bwd_dkv": L * steps, "fused_ce_fwd": steps + eval_steps,
                 "fused_ce_bwd_dh": steps, "fused_ce_bwd_dw": steps}
         check(steps == r["steps"] and launches == want,
-              f"tinyllama: {steps} steps, launches {launches}, wanted {want}")
+              f"{name}: {steps} steps, launches {launches}, wanted {want}")
         check(cfg.attention_impl == "flash" and cfg.dtype == torch.bfloat16
               and tc.train_batch_size == r["batch"] and tc.max_seq_length == r["seq"],
-              "tinyllama: the CLI did not run bf16 flash at batch 4 x 1024")
+              f"{name}: the CLI did not run bf16 flash at batch {r['batch']} x {r['seq']}")
         hist = results["train"]
-        check(all(math.isfinite(x) for x in hist["loss"]), "tinyllama: non-finite loss")
+        check(all(math.isfinite(x) for x in hist["loss"]), f"{name}: non-finite loss")
         batch, _ = _first_rows(trainer, "train", r["batch"], r["train_samples"])
         prof = _profiled(trainer, batch, r["profiled"], peak, "causal-lm")
     finally:
         restore()
     busy = prof["device_busy_ms_per_step"]
     k2 = sum(prof["k2_ms_per_step"].values())
-    row = {"phase": "llama_train", "run": "tinyllama", "card": card,
-           "model": "TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T widths, full depth "
-                    "(random init, seed 42)",
-           "layers": L, "dtype": "bfloat16", "batch": tc.train_batch_size,
-           "seq": tc.max_seq_length, "optimizer": tc.optimizer, "train_steps": steps,
-           "eval_steps": eval_steps, "launches": launches,
+    row = {"phase": "llama_train", "run": name, "card": card, "model": label,
+           "layers": L, "head_dim": cfg.resolved_head_dim, "dtype": "bfloat16",
+           "batch": tc.train_batch_size, "seq": tc.max_seq_length, "optimizer": tc.optimizer,
+           "train_steps": steps, "eval_steps": eval_steps, "launches": launches,
            "launches_per_step": {k: v / (steps + (eval_steps if k in ("flash_fwd",
                                                                         "fused_ce_fwd")
                                                    else 0)) for k, v in launches.items()},
@@ -6866,12 +6984,29 @@ def tinyllama_train_phase(work: Path, card: str) -> dict:
     emit(row)
     del trainer, batch
     _mem_reset()
-    gate_hf = dict(TINYLLAMA, num_hidden_layers=LLAMA_GATE["depth"])
     g = LLAMA_GATE
-    row["gate"] = _llama_gate(gate_hf, "tinyllama", _lm_batch(g["batch"], g["seq"], DEVICE,
-                                                              vocab=TINYLLAMA["vocab_size"]),
+    row["gate"] = _llama_gate(dict(hf, num_hidden_layers=g["depth"]), name,
+                              _lm_batch(g["batch"], g["seq"], DEVICE, vocab=hf["vocab_size"]),
                               g["steps"], g["lr"])
-    return {"tinyllama": row}
+    return {name: row}
+
+
+def tinyllama_train_phase(work: Path, card: str) -> dict:
+    """(c) TinyLlama-1.1B at full width and depth through the train CLI
+    (:func:`_causal_cli_phase` at ``TINYLLAMA_RUN``)."""
+    return _causal_cli_phase(work, card, "tinyllama", TINYLLAMA, TINYLLAMA_RUN,
+                             "TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T widths, "
+                             "full depth (random init, seed 42)")
+
+
+def gemma_train_phase(work: Path, card: str) -> dict:
+    """(f) Gemma-2B at full width and depth through the train CLI
+    (:func:`_causal_cli_phase` at ``GEMMA_RUN``): K1 at head_dim 256 with
+    the one K/V head repeated to the 8 query heads, K2 at vocab 256000
+    with the tied embedding as W (its dW lands in the embedding); the fp32
+    gate at depth 2 runs the fp32 D-256 kernels."""
+    return _causal_cli_phase(work, card, "gemma2b", GEMMA_2B, GEMMA_RUN,
+                             "google/gemma-2b widths, full depth (random init, seed 42)")
 
 
 def _routing(model, batch) -> dict:
@@ -7563,11 +7698,13 @@ def optim_resume_phase(work: Path) -> dict:
 
 
 def llama_kernel_phase() -> dict:
-    """The llama phase's K3 cases (``LLAMA_KERNEL_CASES``), held against
-    their plain versions and timed as the kernel phase does (its K1 and K2
-    cases, ``FLASH_LLAMA`` and ``VOCAB_LLAMA``, are among the flash and
-    vocab-CE phases' cases)."""
-    return kernel_phase([c for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES])
+    """The llama phase's K3 cases (``LLAMA_KERNEL_CASES`` and
+    ``GEMMA_KERNEL_CASES``), held against their plain versions and timed as
+    the kernel phase does (its K1 and K2 cases, ``FLASH_LLAMA``,
+    ``FLASH_GEMMA``, ``VOCAB_LLAMA`` and ``VOCAB_GEMMA``, are among the
+    flash and vocab-CE phases' cases)."""
+    return kernel_phase([c for c in KERNEL_CASES
+                         if c[0] in LLAMA_KERNEL_CASES + GEMMA_KERNEL_CASES])
 
 
 # the phases that run each in a process of its own (see the module's notes)
@@ -7606,14 +7743,19 @@ def llama_phase(work: Path, card: str) -> dict:
     (``llama_serve_phase``), (b) Mistral's window on K3
     (``mistral_window_phase``), (c) TinyLlama trained through the CLI on K1
     and K2 (``tinyllama_train_phase``), (d) Mixtral through K1 and K2 with
-    the aux loss (``mixtral_phase``). Returns every run's row by name."""
+    the aux loss (``mixtral_phase``), (e) Gemma-7B served on K3 at head_dim
+    256 (``gemma_serve_phase``), (f) Gemma-2B trained through the CLI on
+    K1 at head_dim 256 and K2 (``gemma_train_phase``). Returns every run's
+    row by name."""
     import torch
 
     rows, seconds = {}, {}
     for name, fn, args in (("serve", llama_serve_phase, (card,)),
                            ("window", mistral_window_phase, (card,)),
                            ("train", tinyllama_train_phase, (work, card)),
-                           ("moe", mixtral_phase, (card,))):
+                           ("moe", mixtral_phase, (card,)),
+                           ("gemma_serve", gemma_serve_phase, (card,)),
+                           ("gemma_train", gemma_train_phase, (work, card))):
         t0 = time.perf_counter()
         out = fn(*args)
         rows.update(out if name != "serve" else {f"llama3_8b_{k}": v for k, v in out.items()})
@@ -7657,7 +7799,8 @@ def main(argv: list | None = None) -> int:
 
     card = timed(env_phase)
     build = timed(build_phase)
-    kernels = timed(kernel_phase, [c for c in KERNEL_CASES if c[0] not in LLAMA_KERNEL_CASES])
+    kernels = timed(kernel_phase, [c for c in KERNEL_CASES
+                                   if c[0] not in LLAMA_KERNEL_CASES + GEMMA_KERNEL_CASES])
     serve, model, trace = timed(serve_phase)
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
@@ -7727,7 +7870,8 @@ def main(argv: list | None = None) -> int:
                 n: row["k1_launches_per_step"][kname] for n, row in optim_memory.items()},
             **{c: {k: flash[(c, kname)][k] for k in (
                 "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")} for c in (FLASH_QA, FLASH_MLM) + FLASH_LLAMA},
+                "bound_by", "library_ms")}
+               for c in (FLASH_QA, FLASH_MLM) + FLASH_LLAMA + FLASH_GEMMA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7762,7 +7906,8 @@ def main(argv: list | None = None) -> int:
                                  **{f"llama/{n}": row["launches"][kname]
                                     for n, row in llama.items() if "launches" in row}},
             **{c: {k: vocab[(c, kname)].get(k) for k in case_keys}
-               for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA},
+               for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA
+               + VOCAB_GEMMA},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "event_ms": r["kernel_event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7801,6 +7946,10 @@ def main(argv: list | None = None) -> int:
             "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "width", "chunk")}
             for c in KERNEL_CASES if c[0] in LLAMA_KERNEL_CASES},
+        "gemma_cases": {c[0]: {k: kernels[c[0]][k] for k in (
+            "max_abs_err", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "width", "chunk")}
+            for c in KERNEL_CASES if c[0] in GEMMA_KERNEL_CASES},
         "serve_engine_launches_by_width": {
             n: r["k3_launches_by_width"] for n, r in engine_rows.items()
             if r.get("k3_launches_by_width")},

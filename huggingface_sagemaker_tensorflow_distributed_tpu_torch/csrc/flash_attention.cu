@@ -46,7 +46,13 @@
 //   (64 + 1 for score tiles), so the column-strided reads of the products
 //   hit 32 different banks; about 67-166 KB per block, so dynamic shared
 //   memory above the 48 KB static limit;
-// - tiles that the causal/window rule skips are never loaded.
+// - tiles that the causal/window rule skips are never loaded;
+// - at D 256 (Gemma) four 64-row fp32 tiles take 263 KB, over the 227 KB
+//   a block may hold: the backward kernels keep three (`kShareTiles`).
+//   dQ stages V, takes dP, then stages K in its place for S and dS·K;
+//   dK/dV stages Q for Sᵀ, dO in its place for dPᵀ and dV, then Q again
+//   for dK, with Pᵀ and dSᵀ in turn in one score tile (215 KB a block).
+//   Every sum keeps its order; Q is read twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,6 +165,32 @@ __device__ __forceinline__ void tile_delta(float* delta, const float* o, const f
     if (lane == 0) delta[r] = acc;
   }
 }
+
+// acc[i][j] += Σ_d A[ty + 16 i][d] · B[tx + 16 j][d] over two tiles in
+// shared memory (row stride D + 1), d in order.
+template <int D>
+__device__ __forceinline__ void tile_products(float (&acc)[4][4], const float* A, const float* B,
+                                              int ty, int tx) {
+  constexpr int DS = D + 1;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * DS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = B[(tx + 16 * j) * DS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+  }
+}
+
+// Whether the backward kernels hold one D-wide tile fewer (and load a
+// tile again) to fit 227 KB of shared memory: at D 256 four fp32 tiles
+// of 64 rows take 263 KB.
+template <int D>
+constexpr bool kShareTiles = D > 128;
 
 // ---------------------------------------------------------------------------
 // forward
@@ -287,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 template <int D>
 constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)kTile * (D + 1) + (size_t)kTile * kTS + 3 * kTile;
+  return (kShareTiles<D> ? 3 : 4) * (size_t)kTile * (D + 1) + (size_t)kTile * kTS + 3 * kTile;
 }
 
 template <int D>
@@ -298,7 +330,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   float* sQ = smem;                  // [64][D + 1]
   float* sDO = sQ + kTile * DS;      // [64][D + 1]
   float* sK = sDO + kTile * DS;      // [64][D + 1]
-  float* sV = sK + kTile * DS;       // [64][D + 1]
+  // at D 256 V and then K pass through one buffer
+  float* sV = kShareTiles<D> ? sK : sK + kTile * DS;  // [64][D + 1]
   float* sDS = sV + kTile * DS;      // [64][65]
   float* sM = sDS + kTile * kTS;     // [64] mask of the key tile
   float* sL = sM + kTile;            // [64] LSE of the query rows
@@ -330,37 +363,49 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   for (int ik = 0; ik < nk; ++ik) {
     if (!tile_runs(a, iq, ik)) continue;
     const int k0 = ik * kTile;
-    __syncthreads();
-    load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
-    load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
-    if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    __syncthreads();
+    if constexpr (kShareTiles<D>) {
+      // dP = dO Vᵀ with V in the buffer, then K in its place for S = Q Kᵀ
+      // (and for dS K below)
+      load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
+      if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
+      __syncthreads();
+      tile_products<D>(dp, sDO, sV, ty, tx);
+      __syncthreads();
+      load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+      __syncthreads();
+      tile_products<D>(s, sQ, sK, ty, tx);
+    } else {
+      load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+      load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
+      if (tid < kTile) sM[tid] = (a.mask && k0 + tid < a.Sk) ? a.mask[(long long)b * a.Sk + k0 + tid] : 0.f;
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      for (int d = 0; d < D; ++d) {
+        float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * DS + d];
-        gv[i] = sDO[(ty + 16 * i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * DS + d];
-        vv[j] = sV[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = sQ[(ty + 16 * i) * DS + d];
+          gv[i] = sDO[(ty + 16 * i) * DS + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += gv[i] * vv[j];
+          kv[j] = sK[(tx + 16 * j) * DS + d];
+          vv[j] = sV[(tx + 16 * j) * DS + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] += qv[i] * kv[j];
+            dp[i][j] += gv[i] * vv[j];
+          }
+      }
     }
 
 #pragma unroll
@@ -410,7 +455,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 
 template <int D>
 constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kTS + 3 * kTile;
+  return kShareTiles<D> ? 3 * (size_t)kTile * (D + 1) + (size_t)kTile * kTS + 3 * kTile
+                        : 4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kTS + 3 * kTile;
 }
 
 template <int D>
@@ -421,9 +467,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   float* sK = smem;                  // [64][D + 1] key rows of this block
   float* sV = sK + kTile * DS;       // [64][D + 1]
   float* sQ = sV + kTile * DS;       // [64][D + 1] query rows of the current tile
-  float* sDO = sQ + kTile * DS;      // [64][D + 1]
+  // at D 256 Q, dO and Q again pass through one buffer, and Pᵀ then dSᵀ
+  // through one score tile
+  float* sDO = kShareTiles<D> ? sQ : sQ + kTile * DS;  // [64][D + 1]
   float* sPt = sDO + kTile * DS;     // [64 keys][65] P^T rounded to T
-  float* sDSt = sPt + kTile * kTS;   // [64 keys][65] dS^T rounded to T
+  float* sDSt = kShareTiles<D> ? sPt : sPt + kTile * kTS;  // [64 keys][65] dS^T rounded to T
   float* sM = sDSt + kTile * kTS;    // [64] mask of this key tile
   float* sL = sM + kTile;            // [64] LSE of the query rows
   float* sD = sL + kTile;            // [64] Δ of the query rows
@@ -451,86 +499,161 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 
   const int nq = (a.Sq + kTile - 1) / kTile;
-  for (int iq = 0; iq < nq; ++iq) {
-    if (!tile_runs(a, iq, ik)) continue;
-    const int q0 = iq * kTile;
-    __syncthreads();
-    load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
-    load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
-    if (tid < kTile) sL[tid] = q0 + tid < a.Sq ? lse[q0 + tid] : 0.f;
-    // Δ recomputed per (key tile, query tile) from dO and O, as the TPU
-    // kernel does
-    tile_delta<D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
-    __syncthreads();
-
-    // transposed tile: rows are this block's keys (ty + 16 i), columns
-    // the tile's queries (tx + 16 j)
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty + 16 * i) * DS + d];
-        vv[i] = sV[(ty + 16 * i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * DS + d];
-        gv[j] = sDO[(tx + 16 * j) * DS + d];
-      }
+  if constexpr (kShareTiles<D>) {
+    for (int iq = 0; iq < nq; ++iq) {
+      if (!tile_runs(a, iq, ik)) continue;
+      const int q0 = iq * kTile;
+      __syncthreads();
+      load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+      if (tid < kTile) sL[tid] = q0 + tid < a.Sq ? lse[q0 + tid] : 0.f;
+      tile_delta<D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
+      __syncthreads();
+      // Sᵀ = K Qᵀ (rows: this block's keys ty + 16 i; columns: the tile's
+      // queries tx + 16 j), then dO in Q's place for dPᵀ = V dOᵀ
+      float st[4][4], dpt[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+      tile_products<D>(st, sK, sQ, ty, tx);
+      __syncthreads();
+      load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
+      __syncthreads();
+      tile_products<D>(dpt, sV, sDO, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = ty + 16 * i;
+        const int kpos = k0 + kl;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          st[i][j] += kv[i] * qv[j];
-          dpt[i][j] += vv[i] * gv[j];
+          const int ql = tx + 16 * j;
+          const int qpos = q0 + ql;
+          float x = st[i][j] * a.scale + sM[kl];
+          x += causal_add(a, qpos, kpos);
+          const float p = (qpos < a.Sq && kpos < a.Sk) ? expf(x - sL[ql]) : 0.f;
+          const float ds = p * (dpt[i][j] - sD[ql]);
+          dm[i] += ds;
+          dpt[i][j] = ds;
+          sPt[kl * kTS + ql] = p;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kl = ty + 16 * i;
-      const int kpos = k0 + kl;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = tx + 16 * j;
-        const int qpos = q0 + ql;
-        float x = st[i][j] * a.scale + sM[kl];
-        x += causal_add(a, qpos, kpos);
-        const float p = (qpos < a.Sq && kpos < a.Sk) ? expf(x - sL[ql]) : 0.f;
-        const float ds = p * (dpt[i][j] - sD[ql]);
-        dm[i] += ds;
-        sPt[kl * kTS + ql] = p;
-        sDSt[kl * kTS + ql] = ds;
       }
-    }
-    __syncthreads();
-
+      __syncthreads();
+      // dV += Pᵀ dO
 #pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pt[4], dst[4], gv[NJ], qv[NJ];
+      for (int qq = 0; qq < kTile; ++qq) {
+        float pt[4], gv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pt[i] = sPt[(ty + 16 * i) * kTS + qq];
-        dst[i] = sDSt[(ty + 16 * i) * kTS + qq];
-      }
+        for (int i = 0; i < 4; ++i) pt[i] = sPt[(ty + 16 * i) * kTS + qq];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        gv[j] = sDO[qq * DS + tx + 16 * j];
-        qv[j] = sQ[qq * DS + tx + 16 * j];
+        for (int j = 0; j < NJ; ++j) gv[j] = sDO[qq * DS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) dv[i][j] += pt[i] * gv[j];
       }
+      __syncthreads();
+      // dSᵀ in Pᵀ's place and Q again in dO's, for dK += dSᵀ Q
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dv[i][j] += pt[i] * gv[j];
-          dk[i][j] += dst[i] * qv[j];
+        for (int j = 0; j < 4; ++j) sDSt[(ty + 16 * i) * kTS + tx + 16 * j] = dpt[i][j];
+      load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+      __syncthreads();
+#pragma unroll 4
+      for (int qq = 0; qq < kTile; ++qq) {
+        float dst[4], qv[NJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dst[i] = sDSt[(ty + 16 * i) * kTS + qq];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) qv[j] = sQ[qq * DS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) dk[i][j] += dst[i] * qv[j];
+      }
+    }
+  } else {
+    for (int iq = 0; iq < nq; ++iq) {
+      if (!tile_runs(a, iq, ik)) continue;
+      const int q0 = iq * kTile;
+      __syncthreads();
+      load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+      load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
+      if (tid < kTile) sL[tid] = q0 + tid < a.Sq ? lse[q0 + tid] : 0.f;
+      // Δ recomputed per (key tile, query tile) from dO and O, as the TPU
+      // kernel does
+      tile_delta<D>(sD, o, dout, a.so, a.sdo, q0, a.Sq);
+      __syncthreads();
+
+      // transposed tile: rows are this block's keys (ty + 16 i), columns
+      // the tile's queries (tx + 16 j)
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], gv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = sK[(ty + 16 * i) * DS + d];
+          vv[i] = sV[(ty + 16 * i) * DS + d];
         }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = sQ[(tx + 16 * j) * DS + d];
+          gv[j] = sDO[(tx + 16 * j) * DS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[i][j] += kv[i] * qv[j];
+            dpt[i][j] += vv[i] * gv[j];
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = ty + 16 * i;
+        const int kpos = k0 + kl;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ql = tx + 16 * j;
+          const int qpos = q0 + ql;
+          float x = st[i][j] * a.scale + sM[kl];
+          x += causal_add(a, qpos, kpos);
+          const float p = (qpos < a.Sq && kpos < a.Sk) ? expf(x - sL[ql]) : 0.f;
+          const float ds = p * (dpt[i][j] - sD[ql]);
+          dm[i] += ds;
+          sPt[kl * kTS + ql] = p;
+          sDSt[kl * kTS + ql] = ds;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < kTile; ++qq) {
+        float pt[4], dst[4], gv[NJ], qv[NJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pt[i] = sPt[(ty + 16 * i) * kTS + qq];
+          dst[i] = sDSt[(ty + 16 * i) * kTS + qq];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          gv[j] = sDO[qq * DS + tx + 16 * j];
+          qv[j] = sQ[qq * DS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            dv[i][j] += pt[i] * gv[j];
+            dk[i][j] += dst[i] * qv[j];
+          }
+      }
     }
   }
 
@@ -598,7 +721,8 @@ cudaError_t launch_typed(Which which, int B, const Args& a, cudaStream_t stream)
       return launch(flash_fwd_tc_kernel<D>, kTcThreads, bytes, q_tiles, a.H, B, a, stream);
     if (which == kDq)
       return launch(flash_bwd_dq_tc_kernel<D>, kTcThreads, bytes, q_tiles, a.H, B, a, stream);
-    return launch(flash_bwd_dkv_tc_kernel<D>, kTcThreads, bytes, k_tiles, a.H, B, a, stream);
+    return launch(flash_bwd_dkv_tc_kernel<D>, dkv_tc_threads<D>(), bytes, k_tiles, a.H, B, a,
+                  stream);
   } else {
     if (which == kFwd)
       return launch(flash_fwd_kernel<D>, kThreads, bytes, q_tiles, a.H, B, a, stream);
@@ -608,18 +732,28 @@ cudaError_t launch_typed(Which which, int B, const Args& a, cudaStream_t stream)
   }
 }
 
+// The launch status, or kNoInstance for a head dim without a kernel
+// instance: such a D is never sent to another instance's kernel.
+constexpr int kNoInstance = -1;
+
 int dispatch(Which which, int B, int D, int bf16, const Args& a, void* stream) {
   if (B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.H > 65535 || B > 65535 ||
       (a.window > 0 && !a.causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return bf16 ? (int)launch_typed<__nv_bfloat16, 64>(which, B, a, st)
-                : (int)launch_typed<float, 64>(which, B, a, st);
-  if (D == 128)
-    return bf16 ? (int)launch_typed<__nv_bfloat16, 128>(which, B, a, st)
-                : (int)launch_typed<float, 128>(which, B, a, st);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return bf16 ? (int)launch_typed<__nv_bfloat16, 64>(which, B, a, st)
+                  : (int)launch_typed<float, 64>(which, B, a, st);
+    case 128:
+      return bf16 ? (int)launch_typed<__nv_bfloat16, 128>(which, B, a, st)
+                  : (int)launch_typed<float, 128>(which, B, a, st);
+    case 256:
+      return bf16 ? (int)launch_typed<__nv_bfloat16, 256>(which, B, a, st)
+                  : (int)launch_typed<float, 256>(which, B, a, st);
+    default:
+      return kNoInstance;
+  }
 }
 
 Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
@@ -635,7 +769,8 @@ extern "C" {
 // in the order of the pointer arguments. bf16: every such tensor is
 // bfloat16, else float32. mask: [B, Sk] fp32 additive, or null. lse:
 // [B, H, Sq] fp32. window <= 0: no sliding window (and window needs
-// causal). D is 64 or 128. The bf16 kernels copy rows 16 bytes at a
+// causal). D is 64, 128 or 256 (another D returns kNoInstance, -1,
+// and launches nothing). The bf16 kernels copy rows 16 bytes at a
 // time: every bf16 tensor's base pointer and (batch, head, row) strides
 // must be multiples of 16 bytes (the caller checks).
 
@@ -691,10 +826,13 @@ long long flash_attention_smem_bytes(int which, int D, int bf16) {
     return (long long)(bf16 ? smem_bytes<__nv_bfloat16, 64>(w) : smem_bytes<float, 64>(w));
   if (D == 128)
     return (long long)(bf16 ? smem_bytes<__nv_bfloat16, 128>(w) : smem_bytes<float, 128>(w));
+  if (D == 256)
+    return (long long)(bf16 ? smem_bytes<__nv_bfloat16, 256>(w) : smem_bytes<float, 256>(w));
   return -1;
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == kNoInstance) return "no kernel instance for this head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,5 +1,5 @@
 // Tensor-core forward, dQ and dK/dV/dmask kernels of flash attention for
-// bf16 inputs (D 64 or 128). Included by flash_attention.cu after `Args`,
+// bf16 inputs (D 64, 128 or 256). Included by flash_attention.cu after `Args`,
 // `kTile`, `kNegInf`, `tile_runs`, `causal_add` and `head_ptr`.
 //
 // They compute what `flash_fwd_kernel`, `flash_bwd_dq_kernel` and
@@ -38,6 +38,15 @@
 //   blocks at D 64 (167 registers).
 // The running tiles of a tile row or column form one interval under the
 // causal/window rule of `tile_runs`, so the loops walk that interval.
+//
+// At D 256 (Gemma) a 16-row warp's fp32 output stripe is 128 registers a
+// thread, and the D 128 design does not fit: the dK/dV block would need
+// 271 KB of shared memory and 256 accumulators a thread. So at D 256:
+// the forward reads Q's fragments from shared memory per product; dQ
+// takes S and dP 32 keys at a time; dK/dV runs 8 warps split by role
+// (`dkv_tc_roles`: 4 warps hold dV, 4 hold dK, each recomputing Sᵀ) and
+// reads Δ from device memory instead of staging O (204 KB a block). Every
+// sum keeps the order of the D 64/128 kernels.
 
 #pragma once
 
@@ -145,6 +154,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   constexpr int KD = D / 16;     // k-steps over the head dim
   constexpr int ND = D / 8;      // 8-column blocks of the output
   constexpr int NK = kTile / 8;  // 8-key blocks of a score tile
+  // Q's fragments stay in registers up to D 128; at D 256 the O stripe
+  // alone is 128 fp32 a thread, so they are read from shared memory per
+  // product (the same values: the arithmetic does not change)
+  constexpr bool kQInRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
   bf16* sK = sQ + kTile * LD;                    // [2][64][LD]
@@ -167,7 +180,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   float o[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  uint32_t qf[KD][4];
+  uint32_t qf[kQInRegs ? KD : 1][4];
 
   if (first <= last) {
     tc_load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
@@ -189,9 +202,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (ik == first) {
+    if (kQInRegs && ik == first) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < (kQInRegs ? KD : 0); ++kk)
         ldsm_x4(qf[kk], sQ + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
     }
     const bf16* tK = sK + st * kTile * LD;
@@ -203,15 +216,24 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
     float s[NK][4];
 #pragma unroll
     for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+    auto qk_step = [&](int kk, const uint32_t(&qa)[4]) {
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t kb[4];
         ldsm_x4(kb, tK + (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
                         ((lane / 8) % 2) * 8);
-        mma_bf16_16816(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
+      }
+    };
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if constexpr (kQInRegs) {
+        qk_step(kk, qf[kk]);
+      } else {
+        uint32_t qa[4];
+        ldsm_x4(qa, sQ + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+        qk_step(kk, qa);
       }
     }
 
@@ -292,19 +314,57 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Args a) {
   }
 }
 
+// Δ_r = Σ_d dO[r, d] O[r, d] in fp32 for the 64 rows of query tile q0, two
+// threads a row reading 16 bytes at a time; rows past Sq are zero.
+template <int D>
+__device__ __forceinline__ void tc_tile_delta(float* delta, const bf16* o, long long o_stride,
+                                              const bf16* dout, long long do_stride, int q0,
+                                              int Sq) {
+  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+  float acc = 0.f;
+  if (q0 + r < Sq) {
+    const uint4* orow = reinterpret_cast<const uint4*>(o + (long long)(q0 + r) * o_stride + half * (D / 2));
+    const uint4* grow = reinterpret_cast<const uint4*>(dout + (long long)(q0 + r) * do_stride + half * (D / 2));
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint4 ov = orow[c], gv = grow[c];
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(op[e]), gf = __bfloat1622float2(gp[e]);
+        acc += gf.x * of.x;
+        acc += gf.y * of.y;
+      }
+    }
+  }
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  if (half == 0) delta[r] = acc;
+}
+
 // ---------------------------------------------------------------------------
 // backward: dK, dV and the mask's cotangent
 // ---------------------------------------------------------------------------
 
 // K, V; two stages of (Q, dO, O); two stages of the LSE rows; Δ; the
-// key tile's mask row.
+// key tile's mask row. At D 256 (`dkv_tc_roles`) O is not staged: Δ is
+// read from device memory, and the block fits 227 KB.
 template <int D>
 constexpr size_t dkv_tc_smem_bytes() {
-  return (size_t)8 * kTile * (D + 8) * sizeof(bf16) + 4 * kTile * sizeof(float);
+  return (size_t)(D <= 128 ? 8 : 6) * kTile * (D + 8) * sizeof(bf16) +
+         4 * kTile * sizeof(float);
 }
 
+// Threads of a dK/dV block: 4 warps up to D 128, 8 at D 256.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dkv_tc_kernel(Args a) {
+constexpr int dkv_tc_threads() {
+  return D <= 128 ? kTcThreads : 2 * kTcThreads;
+}
+
+// Up to D 128: 4 warps, each owning 16 key rows of the 64-key tile and
+// both of their accumulators, dK and dV.
+template <int D>
+__device__ __forceinline__ void dkv_tc_tile(const Args& a) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
@@ -491,6 +551,198 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dkv_tc_
   }
 }
 
+// At D 256 a 16-key warp's dK and dV stripes would be 256 fp32 a thread:
+// 8 warps split the work by role instead. Warps 0-3 (the dV role) and
+// warps 4-7 (the dK role) each own 16 key rows of the 64-key tile; both
+// take Sᵀ = K Qᵀ and P, the dV warps then dV += Pᵀ dO, the dK warps dPᵀ =
+// V dOᵀ, dSᵀ, the mask's cotangent and dK += dSᵀ Q. Sᵀ is taken twice (5
+// products a tile pair instead of 4), and no warp waits on another's
+// fragments. Every product sums in the order of the 4-warp kernel. Δ of a
+// query tile is read from O and dO in device memory by the first 4 warps
+// (`tc_tile_delta`, the dQ kernel's), so O is not staged.
+template <int D>
+__device__ __forceinline__ void dkv_tc_roles(const Args& a) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr int NQ = 32;      // queries a warp takes per product step
+  constexpr int NJ = NQ / 8;  // 8-query blocks of a product step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* sV = sK + kTile * LD;                    // [64][LD]
+  bf16* sQ = sV + kTile * LD;                    // [2][64][LD]
+  bf16* sDO = sQ + 2 * kTile * LD;               // [2][64][LD]
+  float* sL = reinterpret_cast<float*>(sDO + 2 * kTile * LD);  // [2][64]
+  float* sD = sL + 2 * kTile;                                  // [64] Δ
+  float* sMk = sD + kTile;                                     // [64] mask of the keys
+
+  const int ik = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const bool dk_role = warp >= 4;  // warp-uniform
+  const int kw = warp % 4;         // the warp's 16 key rows of the tile
+  const int k0 = ik * kTile;
+  const int krow = kw * 16 + g;    // this lane's key rows: krow, krow + 8
+  const bf16* q = head_ptr<bf16>(a.q, a.sq, b, h);
+  const bf16* k = head_ptr<bf16>(a.k, a.sk, b, h);
+  const bf16* v = head_ptr<bf16>(a.v, a.sv, b, h);
+  const bf16* o = head_ptr<bf16>(a.o, a.so, b, h);
+  const bf16* dout = head_ptr<bf16>(a.dout, a.sdo, b, h);
+  const float* lse = a.lse + ((long long)b * a.H + h) * a.Sq;
+
+  int first, last;
+  query_tile_range(a, ik, (a.Sq + kTile - 1) / kTile, first, last);
+
+  // dV (warps 0-3) or dK (warps 4-7) of the warp's 16 keys
+  float acc[ND][4], dm[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  if (first <= last) {
+    tc_load_tile<D>(sK, k, a.sk.s, k0, a.Sk);
+    tc_load_tile<D>(sV, v, a.sv.s, k0, a.Sk);
+    tc_load_row(sMk, a.mask ? a.mask + (long long)b * a.Sk : nullptr, k0, a.Sk);
+    const int q0 = first * kTile;
+    tc_load_tile<D>(sQ, q, a.sq.s, q0, a.Sq);
+    tc_load_tile<D>(sDO, dout, a.sdo.s, q0, a.Sq);
+    tc_load_row(sL, lse, q0, a.Sq);
+    cp_async_commit();
+  }
+  for (int iq = first; iq <= last; ++iq) {
+    const int st = (iq - first) & 1;
+    const int q0 = iq * kTile;
+    // Δ of this query tile (the last tile's readers are done with sD)
+    if (threadIdx.x < kTcThreads) tc_tile_delta<D>(sD, o, a.so.s, dout, a.sdo.s, q0, a.Sq);
+    if (iq < last) {  // the next query tile loads while this one is computed
+      const int nx = (iq + 1) * kTile;
+      const int off = (st ^ 1) * kTile * LD;
+      tc_load_tile<D>(sQ + off, q, a.sq.s, nx, a.Sq);
+      tc_load_tile<D>(sDO + off, dout, a.sdo.s, nx, a.Sq);
+      tc_load_row(sL + (st ^ 1) * kTile, lse, nx, a.Sq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tQ = sQ + st * kTile * LD;
+    const bf16* tDO = sDO + st * kTile * LD;
+    const float* tL = sL + st * kTile;
+    const bool band = tile_needs_band(a, q0, k0);
+    const bool ragged = q0 + kTile > a.Sq || k0 + kTile > a.Sk;
+
+#pragma unroll 1
+    for (int qs = 0; qs < kTile; qs += NQ) {
+      // Sᵀ = K Qᵀ (both roles) and dPᵀ = V dOᵀ (the dK role): 16 keys x
+      // NQ queries a warp
+      float sT[NJ][4], dpT[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int ar = (kw * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+        uint32_t ka[4];
+        ldsm_x4(ka, sK + ar);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          const int r = qs + np * 16 + lane % 8 + (lane / 16) * 8;
+          const int c = kk * 16 + ((lane / 8) % 2) * 8;
+          uint32_t qb[4];
+          ldsm_x4(qb, tQ + r * LD + c);
+          mma_bf16_16816(sT[2 * np], ka, qb[0], qb[1]);
+          mma_bf16_16816(sT[2 * np + 1], ka, qb[2], qb[3]);
+        }
+        if (dk_role) {
+          uint32_t va[4];
+          ldsm_x4(va, sV + ar);
+#pragma unroll
+          for (int np = 0; np < NJ / 2; ++np) {
+            const int r = qs + np * 16 + lane % 8 + (lane / 16) * 8;
+            const int c = kk * 16 + ((lane / 8) % 2) * 8;
+            uint32_t gb[4];
+            ldsm_x4(gb, tDO + r * LD + c);
+            mma_bf16_16816(dpT[2 * np], va, gb[0], gb[1]);
+            mma_bf16_16816(dpT[2 * np + 1], va, gb[2], gb[3]);
+          }
+        }
+      }
+
+      // Pᵀ = exp(Sᵀ scale + mask - LSE); the dK role also dSᵀ = Pᵀ (dPᵀ -
+      // Δ) and the mask's cotangent; entries past Sq or Sk are 0
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = krow + (e >> 1) * 8;
+          const int ql = qs + j * 8 + tg * 2 + (e & 1);
+          const int qpos = q0 + ql, kpos = k0 + kl;
+          float x = sT[j][e] * a.scale + sMk[kl];
+          if (band) x += causal_add(a, qpos, kpos);
+          const bool in = !ragged || (qpos < a.Sq && kpos < a.Sk);
+          const float p = in ? exp_sfu(x - tL[ql]) : 0.f;
+          sT[j][e] = p;
+          if (dk_role) {
+            const float ds = p * (dpT[j][e] - sD[ql]);
+            dm[e >> 1] += ds;
+            dpT[j][e] = ds;
+          }
+        }
+
+      // dV += Pᵀ dO (the dV role) or dK += dSᵀ Q (the dK role), Pᵀ and dSᵀ
+      // rounded to bf16 in the A fragments
+#pragma unroll
+      for (int t = 0; t < NJ / 2; ++t) {
+        // a register select per element (no array is indexed at run time)
+        auto f = [&](int j, int e) { return dk_role ? dpT[j][e] : sT[j][e]; };
+        const uint32_t fa[4] = {pack_bf16x2(f(2 * t, 0), f(2 * t, 1)),
+                                pack_bf16x2(f(2 * t, 2), f(2 * t, 3)),
+                                pack_bf16x2(f(2 * t + 1, 0), f(2 * t + 1, 1)),
+                                pack_bf16x2(f(2 * t + 1, 2), f(2 * t + 1, 3))};
+        const bf16* src = dk_role ? tQ : tDO;
+        const int r = qs + t * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, src + r * LD + dp * 16 + (lane / 16) * 8);
+          mma_bf16_16816(acc[2 * dp], fa, bb[0], bb[1]);
+          mma_bf16_16816(acc[2 * dp + 1], fa, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers (and Δ's) are done before a refill
+  }
+
+  bf16* dst = head_ptr_mut<bf16>(dk_role ? a.out : a.out2, dk_role ? a.sout : a.sout2, b, h);
+  const long long row_stride = dk_role ? a.sout.s : a.sout2.s;
+  const float mul = dk_role ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float dmr = quad_sum(dm[r]);
+    const int kpos = k0 + krow + r * 8;
+    if (kpos >= a.Sk) continue;
+    bf16* drow = dst + (long long)kpos * row_stride + tg * 2;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+    if (dk_role && a.lse_out && tg == 0)
+      a.lse_out[((long long)b * a.H + h) * a.Sk + kpos] = dmr;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(D <= 128 ? kTcThreads : 2 * kTcThreads, D == 64 ? 3 : 1)
+    flash_bwd_dkv_tc_kernel(Args a) {
+  if constexpr (D <= 128)
+    dkv_tc_tile<D>(a);
+  else
+    dkv_tc_roles<D>(a);
+}
+
 // ---------------------------------------------------------------------------
 // backward: dQ
 // ---------------------------------------------------------------------------
@@ -500,34 +752,6 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dkv_tc_
 template <int D>
 constexpr size_t dq_tc_smem_bytes() {
   return (size_t)6 * kTile * (D + 8) * sizeof(bf16) + 4 * kTile * sizeof(float);
-}
-
-// Δ_r = Σ_d dO[r, d] O[r, d] in fp32 for the 64 rows of query tile q0, two
-// threads a row reading 16 bytes at a time; rows past Sq are zero.
-template <int D>
-__device__ __forceinline__ void tc_tile_delta(float* delta, const bf16* o, long long o_stride,
-                                              const bf16* dout, long long do_stride, int q0,
-                                              int Sq) {
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  float acc = 0.f;
-  if (q0 + r < Sq) {
-    const uint4* orow = reinterpret_cast<const uint4*>(o + (long long)(q0 + r) * o_stride + half * (D / 2));
-    const uint4* grow = reinterpret_cast<const uint4*>(dout + (long long)(q0 + r) * do_stride + half * (D / 2));
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const uint4 ov = orow[c], gv = grow[c];
-      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 of = __bfloat1622float2(op[e]), gf = __bfloat1622float2(gp[e]);
-        acc += gf.x * of.x;
-        acc += gf.y * of.y;
-      }
-    }
-  }
-  acc += __shfl_xor_sync(kFull, acc, 1);
-  if (half == 0) delta[r] = acc;
 }
 
 // One block per (b, h, 64-query tile), each warp owning 16 query rows.
@@ -541,7 +765,11 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dq_tc_k
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
-  constexpr int NK = kTile / 8;
+  // keys a product step takes: the whole tile up to D 128; at D 256 the
+  // dQ stripe is 128 fp32 a thread, so S and dP are taken 32 keys at a
+  // time (the sums over D and over the keys keep their order)
+  constexpr int NKS = D <= 128 ? kTile : 32;
+  constexpr int NK = NKS / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
   bf16* sDO = sQ + kTile * LD;                   // [64][LD]
@@ -609,61 +837,65 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 3 : 1) flash_bwd_dq_tc_k
     const float* tM = sM + st * kTile;
     const int k0 = ik * kTile;
 
-    // S = Q Kᵀ and dP = dO Vᵀ: 16 rows x 64 keys a warp
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], ga[4];
-      const int ar = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
-      ldsm_x4(qa, sQ + ar);
-      ldsm_x4(ga, sDO + ar);
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        const int br = (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kb[4], vb[4];
-        ldsm_x4(kb, tK + br);
-        ldsm_x4(vb, tV + br);
-        mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
-        mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
-        mma_bf16_16816(dp[2 * np], ga, vb[0], vb[1]);
-        mma_bf16_16816(dp[2 * np + 1], ga, vb[2], vb[3]);
-      }
-    }
-
-    // P = exp(S scale + mask - LSE), dS = P (dP - Δ) in fp32; keys at or
-    // past Sk get P = 0. The band mask and the key bound are tested only
-    // on the tiles that need them.
     const bool band = tile_needs_band(a, q0, k0);
     const bool ragged = k0 + kTile > a.Sk;
+#pragma unroll 1
+    for (int ks = 0; ks < kTile; ks += NKS) {
+      // S = Q Kᵀ and dP = dO Vᵀ: 16 rows x NKS keys a warp
+      float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = j * 8 + tg * 2 + (e & 1);
-        float x = s[j][e] * a.scale + tM[kl];
-        if (band) x += causal_add(a, q0 + row + (e >> 1) * 8, k0 + kl);
-        const float p = (!ragged || k0 + kl < a.Sk) ? exp_sfu(x - lse_r[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qa[4], ga[4];
+        const int ar = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+        ldsm_x4(qa, sQ + ar);
+        ldsm_x4(ga, sDO + ar);
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          const int br = (ks + np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
+                         ((lane / 8) % 2) * 8;
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, tK + br);
+          ldsm_x4(vb, tV + br);
+          mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
+          mma_bf16_16816(dp[2 * np], ga, vb[0], vb[1]);
+          mma_bf16_16816(dp[2 * np + 1], ga, vb[2], vb[3]);
+        }
       }
 
-    // dQ += dS K, dS rounded to bf16 in the A fragment
+      // P = exp(S scale + mask - LSE), dS = P (dP - Δ) in fp32; keys at or
+      // past Sk get P = 0. The band mask and the key bound are tested only
+      // on the tiles that need them.
 #pragma unroll
-    for (int t = 0; t < NK / 2; ++t) {
-      const uint32_t da[4] = {pack_bf16x2(s[2 * t][0], s[2 * t][1]),
-                              pack_bf16x2(s[2 * t][2], s[2 * t][3]),
-                              pack_bf16x2(s[2 * t + 1][0], s[2 * t + 1][1]),
-                              pack_bf16x2(s[2 * t + 1][2], s[2 * t + 1][3])};
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t kb[4];
-        ldsm_x4_trans(kb, tK + (t * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + dn * 16 +
-                              (lane / 16) * 8);
-        mma_bf16_16816(dq[2 * dn], da, kb[0], kb[1]);
-        mma_bf16_16816(dq[2 * dn + 1], da, kb[2], kb[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int kl = ks + j * 8 + tg * 2 + (e & 1);
+          float x = s[j][e] * a.scale + tM[kl];
+          if (band) x += causal_add(a, q0 + row + (e >> 1) * 8, k0 + kl);
+          const float p = (!ragged || k0 + kl < a.Sk) ? exp_sfu(x - lse_r[e >> 1]) : 0.f;
+          s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+        }
+
+      // dQ += dS K, dS rounded to bf16 in the A fragment
+#pragma unroll
+      for (int t = 0; t < NK / 2; ++t) {
+        const uint32_t da[4] = {pack_bf16x2(s[2 * t][0], s[2 * t][1]),
+                                pack_bf16x2(s[2 * t][2], s[2 * t][3]),
+                                pack_bf16x2(s[2 * t + 1][0], s[2 * t + 1][1]),
+                                pack_bf16x2(s[2 * t + 1][2], s[2 * t + 1][3])};
+#pragma unroll
+        for (int dn = 0; dn < ND / 2; ++dn) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, tK + (ks + t * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                                dn * 16 + (lane / 16) * 8);
+          mma_bf16_16816(dq[2 * dn], da, kb[0], kb[1]);
+          mma_bf16_16816(dq[2 * dn + 1], da, kb[2], kb[3]);
+        }
       }
     }
     __syncthreads();  // this stage's readers are done before it is refilled

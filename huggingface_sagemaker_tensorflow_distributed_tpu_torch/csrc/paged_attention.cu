@@ -38,7 +38,9 @@
 //   flight), behind the block's first `__syncthreads`; inside the walk a
 //   warp waits only on its own copies (`cp.async.wait_group`,
 //   `__syncwarp`);
-// - logits: D / 8 lanes per key (3 shuffle levels at D 64, 4 at D 128),
+// - logits: D / 8 lanes per key (3 shuffle levels at D 64, 4 at D 128,
+//   5 at D 256, where a key takes the whole warp and lane j % 8 keeps key
+//   j's logit, so a head's 8 logits of a stage take one register a lane),
 //   each lane holding 8 elements of q per head in registers; int8 and
 //   bf16 are converted when read, the int8 scales applied per position
 //   to the logit and to the probability;
@@ -59,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "warp_mma.cuh"
 
@@ -143,9 +147,12 @@ __device__ __forceinline__ void unpack8(const unsigned char* row, int r, int, fl
 template <int DL>
 __device__ __forceinline__ void load_v(const unsigned char* row, int lane, float (&f)[DL], float) {
   const float* p = reinterpret_cast<const float*>(row) + lane * DL;
-  if constexpr (DL == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+  if constexpr (DL >= 4) {
+#pragma unroll
+    for (int u = 0; u < DL / 4; ++u) {
+      const float4 x = *reinterpret_cast<const float4*>(p + 4 * u);
+      f[4 * u] = x.x, f[4 * u + 1] = x.y, f[4 * u + 2] = x.z, f[4 * u + 3] = x.w;
+    }
   } else {
     const float2 x = *reinterpret_cast<const float2*>(p);
     f[0] = x.x, f[1] = x.y;
@@ -167,9 +174,12 @@ __device__ __forceinline__ void load_v(const unsigned char* row, int lane, float
 template <int DL>
 __device__ __forceinline__ void load_v(const unsigned char* row, int lane, float (&f)[DL], int8_t) {
   const int8_t* p = reinterpret_cast<const int8_t*>(row) + lane * DL;
-  if constexpr (DL == 4) {
-    const char4 x = *reinterpret_cast<const char4*>(p);
-    f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+  if constexpr (DL >= 4) {
+#pragma unroll
+    for (int u = 0; u < DL / 4; ++u) {
+      const char4 x = *reinterpret_cast<const char4*>(p + 4 * u);
+      f[4 * u] = x.x, f[4 * u + 1] = x.y, f[4 * u + 2] = x.z, f[4 * u + 3] = x.w;
+    }
   } else {
     const char2 x = *reinterpret_cast<const char2*>(p);
     f[0] = x.x, f[1] = x.y;
@@ -209,7 +219,7 @@ __device__ __forceinline__ void valid_span(const Args& a, int s, int& lo, int& h
 // One (kv head, slot, chunk): each warp's partial (m, l, acc) of its
 // stages. Grid (Hkv, S, chunks), kThreads threads.
 template <typename QT, typename KVT, int D, int GM>
-__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(const Args a) {
+__device__ __forceinline__ void split_block(const Args& a) {
   constexpr int LK = D / 8;            // lanes per key
   constexpr int KPP = 32 / LK;         // keys per pass of the warp
   constexpr int NP = kKeys / KPP;      // passes per stage
@@ -324,45 +334,89 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(const Args
     const float* vs = ks + kKeys;
     const int nk = min(kKeys, ce - (cs + i * kTile + first));  // valid keys, >= 1
 
-    // logits of the stage's keys: key p * KPP + grp in pass p
-    float x[NP][GM];
+    if constexpr (KPP == 1) {
+      // D 256: a key takes the whole warp, so every lane ends its reduction
+      // with the key's logit; lane j % kKeys keeps key j's, and the stage's
+      // max and sum reduce over those 8 lanes (registers for 8 logits a
+      // head, not 8 x 8)
+      float xk[GM];
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int j = p * KPP + grp;
-      float kf[8];
-      unpack8(slot + j * RB, r, LK, kf, KVT());
+      for (int g = 0; g < GM; ++g) xk[g] = kNegInf;
+#pragma unroll
+      for (int p = 0; p < kKeys; ++p) {
+        float kf[8];
+        unpack8(slot + p * RB, r, LK, kf, KVT());
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot += qr[g][e] * kf[e];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          const float kscale = int8 ? ks[p] : 1.f;
+          const float x = p < nk ? dot * a.scale * kscale : kNegInf;
+          if ((lane % kKeys) == p) xk[g] = x;
+        }
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float dot = 0.f;
+        float mx = xk[g];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dot += qr[g][e] * kf[e];
+        for (int off = 1; off < kKeys; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = expf(m[g] - m_new);
+        m[g] = m_new;
+        const float e = expf(xk[g] - m_new);
+        if (lane < kKeys) p_s[g * kKeys + lane] = e;
+        float psum = e;
 #pragma unroll
-        for (int off = LK / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const float kscale = int8 ? ks[j] : 1.f;
-        x[p][g] = j < nk ? dot * a.scale * kscale : kNegInf;  // a stale row is never used
+        for (int off = 1; off < kKeys; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        l[g] = l[g] * alpha + psum;
+#pragma unroll
+        for (int d = 0; d < DL; ++d) acc[g][d] *= alpha;
       }
-    }
-    // online softmax per head: the stage's max, the rescale, P
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      float mx = x[0][g];
-#pragma unroll
-      for (int p = 1; p < NP; ++p) mx = fmaxf(mx, x[p][g]);
-#pragma unroll
-      for (int off = LK; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - m_new);
-      m[g] = m_new;
-      float psum = 0.f;
+    } else {
+      // logits of the stage's keys: key p * KPP + grp in pass p
+      float x[NP][GM];
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        const float e = expf(x[p][g] - m_new);
-        psum += e;
-        if (r == 0) p_s[g * kKeys + p * KPP + grp] = e;
-      }
-      l[g] = l[g] * alpha + psum;
+        const int j = p * KPP + grp;
+        float kf[8];
+        unpack8(slot + j * RB, r, LK, kf, KVT());
 #pragma unroll
-      for (int d = 0; d < DL; ++d) acc[g][d] *= alpha;
+        for (int g = 0; g < GM; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot += qr[g][e] * kf[e];
+#pragma unroll
+          for (int off = LK / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          const float kscale = int8 ? ks[j] : 1.f;
+          x[p][g] = j < nk ? dot * a.scale * kscale : kNegInf;  // a stale row is never used
+        }
+      }
+      // online softmax per head: the stage's max, the rescale, P
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float mx = x[0][g];
+#pragma unroll
+        for (int p = 1; p < NP; ++p) mx = fmaxf(mx, x[p][g]);
+#pragma unroll
+        for (int off = LK; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = expf(m[g] - m_new);
+        m[g] = m_new;
+        float psum = 0.f;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const float e = expf(x[p][g] - m_new);
+          psum += e;
+          if (r == 0) p_s[g * kKeys + p * KPP + grp] = e;
+        }
+        l[g] = l[g] * alpha + psum;
+#pragma unroll
+        for (int d = 0; d < DL; ++d) acc[g][d] *= alpha;
+      }
     }
     __syncwarp();  // P visible to every lane
     // acc += P . V over the stage's valid keys
@@ -425,6 +479,25 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(const Args
       a.part_ml[2 * idx + 1] = sum;
     }
   }
+}
+
+// Whether a split block at this pool type and width holds the SM alone:
+// at D 256 an fp32 block's ring is 133 KB. ptxas is then told so (a
+// minimum of 1 block an SM), or it caps a block at 128 registers for an
+// occupancy that shared memory forbids, and G 2 spills.
+template <typename KVT, int D>
+constexpr bool kSoleBlock = D == 256 && sizeof(KVT) == 4;
+
+template <typename QT, typename KVT, int D, int GM,
+          std::enable_if_t<!kSoleBlock<KVT, D>, int> = 0>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(const Args a) {
+  split_block<QT, KVT, D, GM>(a);
+}
+
+template <typename QT, typename KVT, int D, int GM,
+          std::enable_if_t<kSoleBlock<KVT, D>, int> = 0>
+__global__ void __launch_bounds__(kThreads, 1) paged_decode_split_kernel(const Args a) {
+  split_block<QT, KVT, D, GM>(a);
 }
 
 // One warp per (slot, query head): the partials of the chunks that hold
@@ -514,11 +587,19 @@ cudaError_t dispatch_group(const Args& a, int chunks, cudaStream_t st) {
   }
 }
 
+// A head dim without an instance is refused (never sent to another
+// instance's kernel).
 template <typename QT, typename KVT>
 cudaError_t dispatch_dim(const Args& a, int D, int chunks, cudaStream_t st) {
-  return D == 64 ? dispatch_group<QT, KVT, 64>(a, chunks, st)
-                 : dispatch_group<QT, KVT, 128>(a, chunks, st);
+  switch (D) {
+    case 64: return dispatch_group<QT, KVT, 64>(a, chunks, st);
+    case 128: return dispatch_group<QT, KVT, 128>(a, chunks, st);
+    case 256: return dispatch_group<QT, KVT, 256>(a, chunks, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
+
+inline bool has_instance(int D) { return D == 64 || D == 128 || D == 256; }
 
 template <typename KVT, int D>
 size_t smem_for(int G, int chunk, int bs) {
@@ -545,6 +626,7 @@ extern "C" {
 size_t paged_decode_split_smem_bytes(int D, int G, int chunk, int bs, int q_bf16, int kv_int8) {
   if (D == 64) return smem_for_kv<64>(G, chunk, bs, q_bf16, kv_int8);
   if (D == 128) return smem_for_kv<128>(G, chunk, bs, q_bf16, kv_int8);
+  if (D == 256) return smem_for_kv<256>(G, chunk, bs, q_bf16, kv_int8);
   return 0;
 }
 
@@ -566,7 +648,7 @@ int paged_decode_attention_launch(const void* q, const void* k_pool, const void*
   if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || bs <= 0 || bs % 4 != 0 ||
       nb < 0 || table_stride < nb || (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
       reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0 || (D != 64 && D != 128) || chunk <= 0 ||
+      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0 || !has_instance(D) || chunk <= 0 ||
       chunk % kTile != 0 || chunk % bs != 0 || chunks <= 0 || chunks > 65535 || S > 65535)
     return (int)cudaErrorInvalidValue;
   const long span = window > 0 ? (long)(window < nb * bs ? window : nb * bs) : (long)nb * bs;

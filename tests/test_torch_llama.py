@@ -556,3 +556,90 @@ def test_init_llama_is_seeded_and_follows_the_jax_init():
     std = float(sd["backbone.embed_tokens.weight"].std())
     assert abs(std - cfg.initializer_range) < 0.1 * cfg.initializer_range
     assert not any(p.requires_grad for p in a.parameters())
+
+
+# -- Gemma at head_dim 256 through the slice ------------------------------------------
+
+GEMMA_256 = dict(VARIANTS["gemma"], head_dim=256, num_layers=2)
+
+
+def test_gemma_head_dim_256_five_steps_match_jax_trainer():
+    """Gemma at its head_dim of 256 (2 layers, hidden 128, 2 query heads
+    over 1 K/V head, tied head) on the port's flash path (the K1 wrappers:
+    their plain versions on the CPU) and the fused vocab CE: five fp32
+    AdamW steps, the JAX Trainer's losses within 1e-5."""
+    from torch_decode_pairs import port_of
+
+    jmodel, params, _ = _variant("gemma", **GEMMA_256, hidden_size=128, num_heads=2,
+                                 num_kv_heads=1, intermediate_size=128)
+    model = port_of(jmodel, params, attention_impl="flash")
+    assert model.config.resolved_head_dim == 256 and model.config.tie_word_embeddings
+    batches = _lm_batches()
+    want = _jax_curve(jmodel, params, batches, fused_vocab_ce=True)
+    got = _port_curve(model, batches, fused_vocab_ce=True)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert len(set(np.round(want, 6))) == 5
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_gemma_head_dim_256_serve_engine_matches_jax_engine(kv):
+    """The port's engine on K3's route (here its plain version) at head_dim
+    256, fp and int8 pools, gives the JAX engine's greedy tokens per
+    request on the same Gemma weights."""
+    jmodel, params, model = _variant("gemma", **GEMMA_256, eos_token_id=127)
+    trace = _serve_trace(9, [(5, 10), (19, 12), (3, 20), (27, 8), (11, 16)])
+    kw = dict(num_slots=3, block_size=4, num_blocks=40, prefill_chunk=8, max_model_len=64,
+              kv_cache_dtype=kv)
+    jeng, want = _run_jax(jmodel, params, trace, **kw)
+    eng, got = _run_port(model, trace, kernel="pallas", **kw)
+    assert got == want
+    assert eng.k_pools[0].shape[-1] == 256
+    assert eng.blocks.token_bytes == jeng.blocks.token_bytes
+
+
+def test_gemma_head_dim_256_causal_lm_cli_writes_the_jax_cli_files(tmp_path):
+    """A Gemma ``config.json`` at head_dim 256 through the port's train CLI
+    (causal-LM, the fused CE, flash attention, fp32) and the JAX CLI on the
+    same arguments: the same results keys, export files and exported
+    config; finite losses."""
+    import math
+
+    from scripts.train import main as jax_main
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import cli
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.results import (
+        read_results_file,
+    )
+
+    cfg_dir = tmp_path / "cfg"
+    cfg_dir.mkdir()
+    (cfg_dir / "config.json").write_text(json.dumps({
+        "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 512,
+        "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 2, "num_key_value_heads": 1, "head_dim": 256,
+        "max_position_embeddings": 64, "rms_norm_eps": 1e-6, "hidden_act": "gelu",
+        "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0}))
+    common = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+              "--task", "causal-lm", "--fused_vocab_ce", "true",
+              "--dataset", "vendored_reviews", "--max_train_samples", "16",
+              "--max_eval_samples", "6", "--epochs", "1", "--train_batch_size", "4",
+              "--eval_batch_size", "4", "--dtype", "float32", "--log_every_steps", "0",
+              "--max_seq_length", "32"]
+    outs = {}
+    for name, run in (("port", lambda a: cli.main(a + ["--device", "cpu",
+                                                        "--attention_impl", "flash"])),
+                      ("jax", jax_main)):
+        out, mdir = tmp_path / name / "out", tmp_path / name / "model"
+        res = run(common + ["--output_data_dir", str(out), "--model_dir", str(mdir)])
+        outs[name] = (out, mdir, res)
+    for fname in ("train_results.txt", "eval_results.txt"):
+        assert list(read_results_file(str(outs["port"][0] / fname))) == \
+            list(read_results_file(str(outs["jax"][0] / fname))), fname
+    assert sorted(p.name for p in outs["port"][1].iterdir()) == \
+        sorted(p.name for p in outs["jax"][1].iterdir())
+    exported = json.loads((outs["port"][1] / "config.json").read_text())
+    assert exported == json.loads((outs["jax"][1] / "config.json").read_text())
+    assert exported["head_dim"] == 256
+    res = outs["port"][2]
+    assert all(math.isfinite(x) for x in res["train"]["loss"])
+    assert math.isfinite(res["eval"]["eval_loss"])

@@ -476,3 +476,156 @@ def test_gpt2_moe_residual_flow_init():
     for key in ("wi", "router"):
         assert float(sd[f"backbone.h.1.moe.{key}"].std()) == pytest.approx(
             cfg.initializer_range, rel=0.15)
+
+
+def _aux_step(model, batch) -> dict:
+    """One port ``Trainer`` step of ``model`` on ``batch`` (fp32, no
+    clipping): its loss and the routers' gradients as the optimizer sees
+    them (after the data-parallel mean)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    model.requires_grad_(True)
+    trainer = Trainer(TrainConfig(**dict(TRAIN_KW, max_grad_norm=0.0, task="causal-lm",
+                                         num_experts=4)), model, total_steps=1)
+    grads, step = {}, trainer.optimizer.step
+
+    def recorded(*args, **kwargs):
+        grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()
+                      if n.endswith("router")})
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = recorded
+    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    return {"loss": float(trainer.train_step(batch)["loss"]), "grads": grads}
+
+
+def _save_model(model, path) -> None:
+    torch.save({"cls": type(model), "config": model.config, "state": model.state_dict()}, path)
+
+
+def _load_model(path):
+    saved = torch.load(path, weights_only=False)
+    model = saved["cls"](saved["config"])
+    model.load_state_dict(saved["state"], strict=True)
+    return model.eval()
+
+
+def _aux_dp_worker(rank, world, port, model_path, batch_path, out_path):
+    """One data-parallel rank: its half of the global batch's rows."""
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank))
+    torch.set_num_threads(1)
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed("cpu")
+    try:
+        batch = dict(np.load(batch_path))
+        n = batch["input_ids"].shape[0] // world
+        out = _aux_step(_load_model(model_path),
+                        {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()})
+        torch.save(out, out_path)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def test_aux_loss_under_two_gloo_processes_is_the_global_batchs(tmp_path):
+    """GPT-2 MoE (aux coefficient 1, routers scaled 50x so routing follows
+    the tokens) with the two ranks' rows drawn from the two halves of the
+    vocabulary, so each rank's experts are loaded unevenly and the mean of
+    the ranks' own aux losses is not the global batch's. Two gloo ranks
+    give the loss and the router gradients of one process on the global
+    batch (1e-6 relative, fp32), and those of the JAX Trainer's loss on the
+    same weights (1e-5 relative: the frameworks sum in other orders)."""
+    import multiprocessing as mp
+    import socket
+
+    import jax
+    import jax.numpy as jnp
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu.config import TrainConfig as JTC
+    from huggingface_sagemaker_tensorflow_distributed_tpu.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu.train import Trainer as JTrainer
+    from torch_decode_pairs import port_of
+
+    jmodel, params, _ = gpt2_pair(num_experts=4, expert_top_k=2, vocab=256,
+                                  router_aux_coef=1.0)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x * 50.0 if "router" in jax.tree_util.keystr(path) else x, params)
+    model = port_of(jmodel, params)
+    rng = np.random.RandomState(5)
+    ids = np.concatenate([rng.randint(3, 128, (2, SEQ)), rng.randint(128, 256, (2, SEQ))])
+    batch = {"input_ids": ids.astype(np.int32), "attention_mask": np.ones_like(ids, np.int32),
+             "labels": ids.astype(np.int32)}
+    model_path, batch_path = tmp_path / "model.pt", tmp_path / "batch.npz"
+    _save_model(model, model_path)
+    np.savez(batch_path, **batch)
+    want = _aux_step(_load_model(model_path), batch)
+
+    # the rows are unbalanced: the ranks' own aux losses average elsewhere
+    probe = _load_model(model_path)
+    with torch.no_grad():
+        halves = []
+        for r in range(2):
+            probe(torch.from_numpy(ids[2 * r:2 * r + 2]).long())
+            halves.append(float(t_moe.moe_aux_loss(probe)))
+        probe(torch.from_numpy(ids).long())
+        whole = float(t_moe.moe_aux_loss(probe))
+    assert abs(np.mean(halves) - whole) > 1e-2 * whole
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_aux_dp_worker,
+                         args=(r, 2, port, str(model_path), str(batch_path),
+                               str(tmp_path / f"{r}.pt"))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    assert all(not p.is_alive() and p.exitcode == 0 for p in procs)
+    ranks = [torch.load(str(tmp_path / f"{r}.pt")) for r in range(2)]
+    for got in ranks:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
+        assert got["grads"].keys() == want["grads"].keys() and want["grads"]
+        for name, g in want["grads"].items():
+            assert float((got["grads"][name] - g).norm() / g.norm()) <= 1e-6, name
+
+    # the JAX Trainer's loss (task + sown aux) and its router gradients
+    mesh = build_mesh(MeshConfig(), devices=jax.devices()[:1])
+    jt = JTrainer(JTC(**dict(TRAIN_KW, task="causal-lm", num_experts=4)), jmodel, params,
+                  mesh, total_steps=5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_of(p):
+        sown = []
+
+        def apply_fn(variables, *a, **kw):
+            out, mut = jmodel.apply(variables, *a, mutable=["losses"], **kw)
+            sown.append(mut.get("losses", {}))
+            return out
+
+        loss, _ = jt.loss_fn(apply_fn, p, jbatch, {"dropout": jax.random.PRNGKey(0)}, True)
+        return loss + sum(jnp.asarray(x, jnp.float32) for x in jax.tree.leaves(sown))
+
+    jloss, jgrads = jax.value_and_grad(loss_of)(params)
+    np.testing.assert_allclose(want["loss"], float(jloss), rtol=1e-5)
+    flat = {jax.tree_util.keystr(path): np.asarray(g)
+            for path, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]
+            if "router" in jax.tree_util.keystr(path)}
+    assert len(flat) == len(want["grads"])
+    for name, g in want["grads"].items():
+        layer = name.split(".")[2]          # backbone.h.<i>.moe.router
+        (jg,) = [v for k, v in flat.items() if f"['h_{layer}']" in k]
+        rel = np.linalg.norm(g.numpy() - jg) / np.linalg.norm(jg)
+        assert rel <= 1e-5, (name, rel)

@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import attention as t_attn
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.flash_attention import (
+    kernel_head_dim,
+    pad_head_dim,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention import (
     STAGE_KEYS,
     TILE,
@@ -201,6 +205,47 @@ def test_reference_matches_pallas_and_xla(groups, width, window, kind):
     np.testing.assert_array_equal(
         _torch_call(paged_decode_attention, *args, **kw), got)
     assert paged_decode_attention.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("groups", [1, 8])
+def test_wide_head_reference_matches_pallas(groups, window, kind):
+    """Gemma's head_dim 256 at Gemma-7B's group width (1) and Gemma-2B's
+    (8, MQA): the plain version and the split kernel's arithmetic against
+    the Pallas kernel in interpret mode (1e-5)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.ops.pallas_paged_attention import (
+        paged_decode_attention as jax_pallas,
+    )
+
+    args = _case(40 + groups + (window or 0), S=4, G=groups, Hkv=1 if groups == 8 else 2,
+                 D=256, int8=kind == "int8")
+    kw = dict(window=window)
+    got = _torch_call(paged_decode_attention_reference, *args, **kw)
+    want = _jax_call(jax_pallas, *args, interpret=True, **kw)
+    act = args[4] > 0
+    np.testing.assert_allclose(got[act], want[act], rtol=TOL, atol=TOL)
+    assert np.all(got[~act] == 0.0) and np.all(want[~act] == 0.0)
+    split = _torch_call(split_emulation, *args, chunk=TILE, **kw)
+    np.testing.assert_allclose(split[act], want[act], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+def test_padded_head_dim_equals_the_unpadded_call(kind):
+    """The wrapper's padding of a head_dim without a kernel instance: q and
+    the pools zero-padded from 96 to 128 with 96's scale, the output sliced
+    back, give the unpadded plain call's output (1e-6)."""
+    q, k, v, tables, ctx, scales = _case(44, G=4, D=96, int8=kind == "int8")
+    s = {} if scales is None else dict(k_scale_pool=torch.from_numpy(scales[0]),
+                                        v_scale_pool=torch.from_numpy(scales[1]))
+    q, k, v = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    tables, ctx = torch.from_numpy(tables), torch.from_numpy(ctx)
+    want = paged_decode_attention_reference(q, k, v, tables, ctx, window=6, **s)
+    qp, kp, vp = pad_head_dim(kernel_head_dim(96), q, k, v)
+    got = paged_decode_attention_reference(qp, kp, vp, tables, ctx, scale=96 ** -0.5,
+                                           window=6, **s)
+    np.testing.assert_allclose(got[..., :96].numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert bool((got[..., 96:] == 0).all())
 
 
 def _chunk_edge_case(seed, chunk, groups, int8, window):
@@ -423,17 +468,54 @@ def test_kernel_matches_reference_on_card(cuda_device, groups, window, kind, dty
     assert bool((got[~act] == 0).all())
 
 
-@pytest.mark.parametrize("D,raises", [(256, NotImplementedError), (96, ValueError)])
-def test_head_dim_256_names_its_roadmap_entry(D, raises):
-    """K3 at head_dim 256 (Gemma) raises NotImplementedError naming its
-    ROADMAP queue 2 entry before any launch (meta tensors stand in for the
-    card's); another missing width keeps the ValueError; the CPU path
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("D,groups", [(256, 1), (256, 8), (256, 2), (96, 4)])
+def test_wide_head_kernel_matches_reference_on_card(cuda_device, D, groups, window, kind,
+                                                    dtype):
+    """Gemma's head_dim 256 at the group widths of Gemma-7B (G 1) and
+    Gemma-2B (G 8, MQA), and G 2; a head_dim without an instance (96)
+    padded to the next one. Ragged contexts over 10 blocks of 16, one of
+    them 0."""
+    q, k, v, tables, _, scales = _case(11, S=5, G=groups, Hkv=2, D=D, bs=16, nb=10,
+                                       int8=kind == "int8")
+    ctx = np.array([0, 7, 150, 160, 64], np.int32)
+    dt = getattr(torch, dtype)
+    t = dict(q=torch.from_numpy(q).to(cuda_device, dt),
+             k_pool=torch.from_numpy(k).to(cuda_device),
+             v_pool=torch.from_numpy(v).to(cuda_device),
+             block_tables=torch.from_numpy(tables).to(cuda_device),
+             context_lens=torch.from_numpy(ctx).to(cuda_device), window=window)
+    if scales is None:
+        t["k_pool"], t["v_pool"] = t["k_pool"].to(dt), t["v_pool"].to(dt)
+    else:
+        t["k_scale_pool"] = torch.from_numpy(scales[0]).to(cuda_device)
+        t["v_scale_pool"] = torch.from_numpy(scales[1]).to(cuda_device)
+    launches = paged_decode_attention.launches
+    got = paged_decode_attention(**t).float().cpu()
+    want = paged_decode_attention_reference(**t).float().cpu()
+    assert paged_decode_attention.launches == launches + 1
+    act = torch.from_numpy(ctx) > 0
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got[act], want[act], atol=tol, rtol=tol)
+    assert bool((got[~act] == 0).all())
+
+
+@pytest.mark.parametrize("D", [256, 96, 288])
+def test_head_dim_256_names_its_roadmap_entry(D):
+    """Every head_dim up to 256 passes K3's head-dim checks on the card's
+    side: meta tensors stand in for the card's, and the call gets as far as
+    the device check (96 after its padding to the 128 instance). Above 256
+    it raises ``ValueError`` naming ROADMAP queue 2's entry. The CPU path
     takes every width."""
     q = torch.empty(2, 4, D, device="meta")
     pool = torch.empty(5, 4, 2, D, device="meta")
     tables = torch.zeros(2, 2, dtype=torch.int32, device="meta")
     ctx = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(raises, match="K1 and K3 at head_dim 256" if D == 256 else None):
+    match = "no kernel for device meta" if D <= 256 else "ROADMAP queue 2"
+    with pytest.raises(ValueError, match=match):
         paged_decode_attention(q, pool, pool, tables, ctx)
     cpu = paged_decode_attention(torch.randn(2, 4, D), torch.randn(5, 4, 2, D),
                                  torch.randn(5, 4, 2, D), torch.tensor([[1, 2], [3, 4]],
