@@ -365,7 +365,23 @@ back in the JSON file OUT:
    under each remat policy against the plain step; (d)
    ``optim_resume_phase``: LAMB and bf16-moment AdamW resumed through the
    ``Checkpointer`` bit for bit;
-12. each phase's wall seconds, the ``kernels`` line (the paged kernel's
+12. telemetry read back (``obs_phase``) with the port's own offline readers
+   (``python -m <port>.obs``, in this process): (a) ``report`` and
+   ``validate`` over 11 (a)'s job (no schema error, the report valid, the
+   child's K1 library load among its compiles, step statistics present);
+   (b) ``goodput`` over the serve_router phase's wall-clock open-loop runs
+   (each run's attainment the ``OpenLoopDriver``'s own, the JSON the same bytes for
+   either order of the inputs); (c) ``slo`` and ``timeline`` over the
+   serve_engine phase's timelines, the Chrome trace parsed back; (d)
+   ``trace`` and ``fleet`` over the serve_router drain (every trace
+   complete, one a request); (e) in a process of its own
+   (``compile_budget_phase``) BERT-base seq-cls at full width and depth
+   through the training CLI with ``--bucket_multiple 64`` and
+   ``HSTD_COMPILE_BUDGET_S=0``: one ``compile_budget`` alert, and after it
+   no width the batcher had not cut before but the full one; the build of
+   phase 1 counts its ``nvcc`` builds and their seconds through a compile
+   tracker (f);
+13. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
    shared-block cases; the llama phase's launches and cases beside), the
@@ -1407,7 +1423,7 @@ def _engine_row(engine, run: str, outs, wall: float, launches: int, **extra) -> 
             **extra}
 
 
-def serve_engine_phase(model, trace) -> dict:
+def serve_engine_phase(model, trace, tel: Path | None = None) -> dict:
     """The engine's single-device features on GPT-2 124M (fp32, random
     weights from seed 0), each run's K3 counts set to 0 just before it and
     read just after, telemetry on: (a) the prefix cache on against off on
@@ -1423,7 +1439,8 @@ def serve_engine_phase(model, trace) -> dict:
     port's schema, every ``request_timeline`` summing to its e2e
     (``check_decomposition``), and ``policy='slo'`` admitting in deadline
     order. Every pair holds its tokens equal (``_same_tokens``; sampled
-    streams too)."""
+    streams too). The events go to ``tel`` when given (and stay there),
+    else to a directory removed after the checks."""
     import shutil
 
     import numpy as np
@@ -1445,7 +1462,8 @@ def serve_engine_phase(model, trace) -> dict:
 
     vocab = model.config.vocab_size - 1
     layers = model.config.num_layers
-    tel = Path(tempfile.mkdtemp())
+    keep = tel is not None
+    tel = Path(tel) if keep else Path(tempfile.mkdtemp())
     obs.reset(out_dir=str(tel), enabled=True)
     rows, seconds = {}, {}
 
@@ -1615,7 +1633,8 @@ def serve_engine_phase(model, trace) -> dict:
                  if e.get("type") == "serve" and e.get("event") == "request_timeline"]
     bad = [err for e in timelines for err in check_decomposition(e)]
     check(timelines and not bad, f"request timelines do not sum to e2e: {bad[:3]}")
-    shutil.rmtree(tel, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(tel, ignore_errors=True)
     rows["telemetry"] = {"phase": "serve_engine", "run": "telemetry", "events": n_events,
                          "request_timelines": len(timelines),
                          "policy_slo_admission_order": order, "seconds": seconds}
@@ -1856,7 +1875,7 @@ def _stitched(tel: Path, what: str) -> dict:
             "hops_by_trace": sorted({t["hops"] for t in traces})}
 
 
-def serve_router_phase(model, card: str) -> dict:
+def serve_router_phase(model, card: str, tel: Path | None = None) -> dict:
     """The multi-replica fleet on GPT-2 124M (fp32, the serve phase's
     weights), every replica on the one card with K3 and overlap on (the
     engine's defaults), the replicas sharing the model's tensors, each
@@ -1877,13 +1896,15 @@ def serve_router_phase(model, card: str) -> dict:
     request migrated once, every stitched trace complete and passing
     ``check_trace``; (d) the open loop at two virtual rates, the first
     twice (its summary repeats exactly), then the wall clock at
-    ``OPEN_LOOP["wall_rates"]`` (reported, not gated)."""
+    ``OPEN_LOOP["wall_rates"]`` (reported, not gated), each wall run's
+    events in a directory of its own. The events go to ``tel`` when given
+    (and stay there), else to a directory removed at the end."""
     import shutil
 
     import numpy as np
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
-    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import percentile
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import percentile
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
         SloSpec,
         make_schedule,
@@ -1894,7 +1915,8 @@ def serve_router_phase(model, card: str) -> dict:
     vocab = model.config.vocab_size - 2
     eos = model.config.eos_token_id
     rows, seconds = {}, {}
-    tel = Path(tempfile.mkdtemp())
+    keep = tel is not None
+    tel = Path(tel) if keep else Path(tempfile.mkdtemp())
 
     def fleet(n, placement="round_robin", **kw):
         return Router(model, replicas=n, placement=placement, device=DEVICE,
@@ -1954,7 +1976,7 @@ def serve_router_phase(model, card: str) -> dict:
         st = router.slo_summary()
         hops = sorted(h for e in router.engines for h in e.transport_hop_s)
         rows["drain"] = dict(
-            r["row"], phase="serve_router", run="drain", card=card,
+            r["row"], phase="serve_router", run="drain", card=card, telemetry=str(drain_tel),
             drains=router.drains, requeues=router.requeues,
             residents_migrated=router.migrations,
             migration_bytes=st.get("migration_bytes", 0),
@@ -2045,13 +2067,16 @@ def serve_router_phase(model, card: str) -> dict:
               "(d) the virtual replay differs")
         wall_runs = {}
         for rate in OPEN_LOOP["wall_rates"]:
+            wall_tel = sink(f"open_loop_wall_{rate:g}")
             w = _open_loop_run(ofleet(), oschedule(rate), "wall",
                                SloSpec(ttft_s=0.5, tpot_s=0.25), rate)
+            obs.reset()
             wall_runs[str(rate)] = {k: w["summary"].get(k) for k in (
-                "slo_attainment", "goodput_tokens", "miss_phases", "dominant_miss_phase",
-                "group_slo_attainment")}
+                "slo_attainment", "slo_met", "goodput_tokens", "miss_phases",
+                "dominant_miss_phase", "group_slo_attainment")}
             wall_runs[str(rate)].update(wall_s=w["wall_s"],
-                                        paged_kernel_launches=w["paged_kernel_launches"])
+                                        paged_kernel_launches=w["paged_kernel_launches"],
+                                        telemetry=str(wall_tel))
         rows["open_loop"] = {
             "phase": "serve_router", "run": "open_loop", "requests": OPEN_LOOP["n"],
             "virtual": {str(rate_lo): lo_a["summary"], str(rate_hi): hi["summary"]},
@@ -2062,7 +2087,8 @@ def serve_router_phase(model, card: str) -> dict:
         seconds["d_open_loop"] = time.perf_counter() - t0
     finally:
         obs.reset()
-        shutil.rmtree(tel, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(tel, ignore_errors=True)
     rows["summary"] = {"phase": "serve_router", "run": "summary", "card": card,
                        "seconds": seconds}
     for r in rows.values():
@@ -2073,16 +2099,32 @@ def serve_router_phase(model, card: str) -> dict:
 # -- build -------------------------------------------------------------------
 
 def build_phase() -> dict:
-    """Every kernel source at once, one nvcc each; then the build report
-    of the paged, flash and vocab-CE kernels (``build_report``)."""
+    """Every kernel source at once, one nvcc each, under a compile tracker
+    (the nvcc builds it counted and their summed seconds: on a cold
+    ``build/``, what a user pays at first use); then the build report of
+    the paged, flash and vocab-CE kernels (``build_report``)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+        CompileTracker,
+        _INSTALLED,
+    )
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
 
     names = _build.SOURCES
+    cold = [n for n in names if not _build.library_path(n).exists()]
+    tracker = CompileTracker(obs.state(), budget_s=None)
+    _INSTALLED.append(tracker)
     t0 = time.perf_counter()
-    _build.build(*names)
+    try:
+        _build.build(*names)
+    finally:
+        _INSTALLED.remove(tracker)
+    check(tracker.count == len(cold), f"the tracker counted {tracker.count} builds of "
+                                      f"{len(cold)} missing libraries")
     emit({"phase": "build", "libraries": [str(_build.library_path(n).relative_to(ROOT))
                                           for n in names],
-          "seconds": round(time.perf_counter() - t0, 3)})
+          "seconds": round(time.perf_counter() - t0, 3), "cold_libraries": cold,
+          "nvcc_builds": tracker.count, "nvcc_cum_s": tracker.cum_secs})
     return build_report()
 
 
@@ -7291,7 +7333,8 @@ def launch_phase(work: Path, card: str) -> dict:
            "loss": train["loss"], "eval_loss": evals["eval_loss"],
            "eval_accuracy": evals["eval_accuracy"], "mfu": train.get("train_mfu"),
            "results_keys": list(train) + list(evals), "launches": launches,
-           "job_files": sorted(p.name for p in job_dir.iterdir())}
+           "job_files": sorted(p.name for p in job_dir.iterdir()),
+           "telemetry": str(out / "telemetry")}
     emit(row)
 
     check('"scale_lr_by_world_size": false' in single["log"]
@@ -7697,6 +7740,234 @@ def optim_resume_phase(work: Path) -> dict:
     return rows
 
 
+# -- the obs phase ---------------------------------------------------------------
+#
+# The port's offline readers (``python -m <port>.obs``) over the telemetry
+# the earlier phases wrote on the card, and the compile budget on a fresh
+# process's first K1 load.
+
+BUDGET_STEPS = 10               # the compile-budget run's train steps
+BUDGET_SAMPLES = 80             # one length-sorted window: its widths climb
+
+
+def _obs_cli(*argv) -> tuple[int, str]:
+    """``python -m <port>.obs ARGV`` in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.__main__ import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+def compile_budget_phase(work: Path | None = None) -> dict:
+    """(e) of the obs phase, in a process of its own on the card (the K1
+    library then loads inside the fit, where the trainer's compile tracker
+    sees it): BERT-base seq-cls at full width and depth through the
+    training CLI with ``--bucket_multiple 64`` and
+    ``HSTD_COMPILE_BUDGET_S=0``, ``BUDGET_STEPS`` steps over the first
+    ``BUDGET_SAMPLES`` reviews. Its row: the train batcher's widths in
+    order, each with whether the ladder was capped when the batch was cut,
+    the K1 and K2 counts, and the run's ``compile`` and ``alert`` events."""
+    import os
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data import pipeline
+
+    if work is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return compile_budget_phase(Path(tmp))
+    cfg_dir = _config_dir(work, BERT_BASE)
+    tel = work / "telemetry"
+    widths = []
+    orig = pipeline.ShardedBatcher._trim_to_buckets
+
+    def trim(self, batch, real_idx):
+        capped = obs.compile_budget_capped(self.process_count)
+        out = orig(self, batch, real_idx)
+        if self.drop_remainder:      # the train batcher's batches
+            widths.append([int(out["attention_mask"].shape[1]), capped])
+        return out
+
+    saved = os.environ.get("HSTD_COMPILE_BUDGET_S")
+    os.environ["HSTD_COMPILE_BUDGET_S"] = "0"
+    pipeline.ShardedBatcher._trim_to_buckets = trim
+    obs.reset(out_dir=str(tel))
+    try:
+        _, trainer, launches, wall = _counted_run([
+            "--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
+            "--dataset", "vendored_reviews", "--epochs", "1",
+            "--steps_per_epoch", str(BUDGET_STEPS),
+            "--max_train_samples", str(BUDGET_SAMPLES), "--do_eval", "false",
+            "--bucket_multiple", str(DATA_BUCKET),
+            "--output_data_dir", str(work / "out"), "--model_dir", str(work / "model"),
+            "--device", DEVICE])
+    finally:
+        obs.reset()
+        pipeline.ShardedBatcher._trim_to_buckets = orig
+        if saved is None:
+            os.environ.pop("HSTD_COMPILE_BUDGET_S", None)
+        else:
+            os.environ["HSTD_COMPILE_BUDGET_S"] = saved
+    return {"budget": {"steps": trainer.step, "widths": widths, "launches": launches,
+                       "events": [e for e in _events(tel) if e["type"] in ("compile", "alert")],
+                       "wall_s": wall}}
+
+
+def obs_phase(work: Path, card: str, job_tel, engine_tel, drain: dict,
+              open_loop: dict) -> dict:
+    """The telemetry the card's runs wrote, read back through ``python -m
+    <port>.obs``: (a) ``validate`` and ``report`` over the launched job's
+    directory ``job_tel`` (no schema error, the report valid, the child's K1
+    library load among its compiles on the card, step statistics present;
+    the host section printed); (b) ``goodput`` over the open-loop runs
+    ``open_loop`` (rate: {``telemetry``, the ``OpenLoopDriver``'s ``slo_attainment``
+    and ``slo_met``}): each run's attainment the summary's own, the JSON the same
+    bytes for either order of the inputs; (c) ``slo`` and ``timeline`` over
+    ``engine_tel``: one record a request, the Chrome trace parsed back with
+    one span a segment; (d) ``fleet`` and ``trace`` over the drain run
+    ``drain`` ({``telemetry``, ``requests``}): every trace complete, one a
+    request, the most-hopped trace's narrative clean; (e) the compile
+    budget (``compile_budget_phase``, a process of its own on the card):
+    exactly one ``compile_budget`` alert, and no width cut under the cap
+    that the batcher had not cut before but the full width."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import (
+        validate_report,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+        collect_timelines,
+        load_events,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.trace import (
+        collect_traces,
+    )
+
+    work.mkdir(parents=True, exist_ok=True)
+    rows, seconds = {}, {}
+
+    # (a) the launched job's report
+    t0 = time.perf_counter()
+    rc, out = _obs_cli("validate", job_tel)
+    check(rc == 0, f"(a) validate over the launched job: rc {rc}\n{out[-2000:]}")
+    rc, out = _obs_cli("report", job_tel, "-o", work / "report.json")
+    check(rc == 0, f"(a) report over the launched job: rc {rc}")
+    report = json.loads(out)
+    check(report["errors"] == [] and validate_report(report) == []
+          and json.loads((work / "report.json").read_text()) == report,
+          f"(a) the report: errors {report['errors'][:3]}, {validate_report(report)}")
+    host = report["hosts"]["0"]
+    loads = [e["event"] for e in _events(Path(job_tel)) if e["type"] == "compile"]
+    if DEVICE == "cuda":
+        check("/hstd/compile/load/flash_attention" in loads and host["compile"]["count"] >= 1,
+              f"(a) the child's K1 load is not among its compiles {loads}")
+    check(host["step_time_s"] is not None and host["samples_per_sec"] is not None,
+          "(a) the report has no step statistics")
+    rows["report"] = {"phase": "obs", "run": "launch_report", "card": card, "host": host,
+                      "compiles": loads, "events": report["run"]["events"]}
+    seconds["a_report"] = time.perf_counter() - t0
+
+    # (b) goodput over the wall-clock open-loop runs
+    t0 = time.perf_counter()
+    rates = sorted(open_loop, key=float)
+    dirs = [open_loop[r]["telemetry"] for r in rates]
+    rc, fwd = _obs_cli("goodput", *dirs)
+    rc_rev, rev = _obs_cli("goodput", *reversed(dirs))
+    check(rc == rc_rev == 0 and fwd == rev,
+          f"(b) goodput: rc {rc}/{rc_rev}, the JSON differs with the order of the inputs")
+    doc = json.loads(fwd)
+    runs = [r for p in doc["processes"] for r in p["runs"]]
+    check(len(runs) == len(rates), f"(b) goodput split {len(runs)} runs of {len(rates)}")
+    for rate in rates:
+        got = [r for r in runs if r.get("rate") == float(rate)]
+        want = open_loop[rate]
+        check(len(got) == 1 and got[0].get("slo_attainment") == want["slo_attainment"]
+              and got[0].get("slo_met") == want["slo_met"],
+              f"(b) rate {rate}: goodput read {got}, the run's summary {want}")
+    rows["goodput"] = {"phase": "obs", "run": "goodput", "runs": len(runs),
+                       "overall_attainment": doc.get("overall_attainment"),
+                       "knee": doc.get("knee"),
+                       "attainment_by_rate": {r: open_loop[r]["slo_attainment"] for r in rates}}
+    seconds["b_goodput"] = time.perf_counter() - t0
+
+    # (c) the engine phase's timelines
+    t0 = time.perf_counter()
+    events, errors = load_events([str(engine_tel)])
+    check(not errors, f"(c) the engine events: {errors[:3]}")
+    records = collect_timelines(events)
+    rc, out = _obs_cli("slo", engine_tel)
+    check(rc == 0, f"(c) slo: rc {rc}")
+    slo = json.loads(out)
+    rc, gantt = _obs_cli("timeline", engine_tel, "--trace", work / "engine_trace.json")
+    check(rc == 0, f"(c) timeline: rc {rc}")
+    chrome = json.loads((work / "engine_trace.json").read_text())
+    segments = sum(len(r["segments"]) for r in records)
+    check(records and slo["requests"] == len(records)
+          and len(gantt.splitlines()) == 1 + len(records)
+          and len(chrome["traceEvents"]) == segments
+          and all(e["ph"] == "X" for e in chrome["traceEvents"]),
+          f"(c) {len(records)} timelines: slo {slo['requests']}, gantt "
+          f"{len(gantt.splitlines())} lines, chrome {len(chrome['traceEvents'])} of "
+          f"{segments} segments")
+    rows["timelines"] = {"phase": "obs", "run": "engine_timelines", "requests": len(records),
+                         "segments": segments, "tail": slo["tail"]["dominant_phase_counts"],
+                         "phase_time_frac": slo["phase_time_frac"]}
+    seconds["c_timelines"] = time.perf_counter() - t0
+
+    # (d) the drain run's traces
+    t0 = time.perf_counter()
+    rc, out = _obs_cli("fleet", drain["telemetry"], "--json", "--trace",
+                       work / "fleet_trace.json")
+    check(rc == 0, f"(d) fleet: rc {rc}")
+    fleet = json.loads(out)
+    check(fleet["traces"] == fleet["complete_traces"] == drain["requests"]
+          and fleet["trace_stitch_failures"] == 0,
+          f"(d) fleet: {fleet['traces']} traces, {fleet['complete_traces']} complete, "
+          f"{drain['requests']} requests")
+    check(json.loads((work / "fleet_trace.json").read_text())["traceEvents"],
+          "(d) the fleet's Chrome trace is empty")
+    traces = collect_traces(load_events([drain["telemetry"]])[0])
+    hopped = max(traces, key=lambda t: (t["hops"], t["trace_id"]))
+    rc, narrative = _obs_cli("trace", hopped["trace_id"], drain["telemetry"])
+    check(rc == 0 and "complete" in narrative, f"(d) trace {hopped['trace_id']}: rc {rc}")
+    rows["fleet"] = {"phase": "obs", "run": "drain_traces", "traces": fleet["traces"],
+                     "complete_traces": fleet["complete_traces"],
+                     "most_hops": hopped["hops"], "phase_frac": fleet.get("phase_frac")}
+    seconds["d_fleet"] = time.perf_counter() - t0
+
+    # (e) the compile budget
+    t0 = time.perf_counter()
+    budget = (_fresh_process("compile_budget_phase") if DEVICE == "cuda"
+              else compile_budget_phase(work / "budget"))["budget"]
+    alerts = [e for e in budget["events"]
+              if e["type"] == "alert" and e["name"] == "compile_budget"]
+    compiles = [e["event"] for e in budget["events"] if e["type"] == "compile"]
+    check(budget["steps"] == BUDGET_STEPS and len(alerts) == 1,
+          f"(e) {budget['steps']} steps, {len(alerts)} compile_budget alerts")
+    full = BERT_BASE["max_position_embeddings"]
+    widths = budget["widths"]
+    capped = [i for i, (_, c) in enumerate(widths) if c]
+    check(capped, f"(e) no batch was cut under the cap: {widths}")
+    minted = [widths[i][0] for i in capped
+              if widths[i][0] != full and widths[i][0] not in {w for w, _ in widths[:i]}]
+    check(not minted, f"(e) widths {minted} minted under the cap: {widths}")
+    if DEVICE == "cuda":
+        check("/hstd/compile/load/flash_attention" in compiles
+              and budget["launches"]["flash_fwd"] > 0,
+              f"(e) K1: compiles {compiles}, launches {budget['launches']}")
+    rows["budget"] = {"phase": "obs", "run": "compile_budget", "card": card,
+                      "widths": [w for w, _ in widths], "capped_from": capped[0],
+                      "alert": alerts[0]["message"], "compiles": compiles,
+                      "launches": budget["launches"], "run_wall_s": budget["wall_s"]}
+    seconds["e_budget"] = time.perf_counter() - t0
+    rows["summary"] = {"phase": "obs", "run": "summary", "card": card, "seconds": seconds}
+    for r in rows.values():
+        emit(r)
+    return rows
+
+
 def llama_kernel_phase() -> dict:
     """The llama phase's K3 cases (``LLAMA_KERNEL_CASES`` and
     ``GEMMA_KERNEL_CASES``), held against their plain versions and timed as
@@ -7710,7 +7981,8 @@ def llama_kernel_phase() -> dict:
 # the phases that run each in a process of its own (see the module's notes)
 FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_phase,
                         "llama_kernel_phase": llama_kernel_phase,
-                        "optim_memory_phase": optim_memory_phase}
+                        "optim_memory_phase": optim_memory_phase,
+                        "compile_budget_phase": compile_budget_phase}
 FRESH_PROCESS_TIMEOUT_S = 600
 
 
@@ -7804,12 +8076,14 @@ def main(argv: list | None = None) -> int:
     serve, model, trace = timed(serve_phase)
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
-    engine_rows = timed(serve_engine_phase, model, trace)
-    router_rows = timed(serve_router_phase, model, card)
-    del model
-    torch.cuda.empty_cache()
-    timed(train_parity_phase)
     with tempfile.TemporaryDirectory() as work:
+        # the serve phases' telemetry stays under ``work`` for the obs phase
+        engine_tel, router_tel = Path(work) / "engine_telemetry", Path(work) / "router_telemetry"
+        engine_rows = timed(serve_engine_phase, model, trace, engine_tel)
+        router_rows = timed(serve_router_phase, model, card, router_tel)
+        del model
+        torch.cuda.empty_cache()
+        timed(train_parity_phase)
         train = timed(train_cli_phase, Path(work) / "train")
         timed(train_lifecycle_phase, Path(work) / "lifecycle", card,
               Path(work) / "train" / "model")
@@ -7835,6 +8109,8 @@ def main(argv: list | None = None) -> int:
             "seq2seq": Path(work) / "seq2seq" / "t5_small_fused" / "model"})
         llama = timed(llama_phase, Path(work) / "llama", card)
         launched = timed(launch_phase, Path(work) / "launch", card)
+        timed(obs_phase, Path(work) / "obs", card, launched["bert_large_wwm"]["telemetry"],
+              engine_tel, router_rows["drain"], router_rows["open_loop"]["wall"])
         timed(optim_parity_phase)
         timed(optim_resume_phase, Path(work) / "resume")
     flash = timed(_fresh_process, "flash_phase")

@@ -13,18 +13,19 @@ cross-entropy forward, dH and dW as hand-written CUDA kernels
 package's models on those kernels, the Llama family and Mixture-of-Experts
 among them (``models/llama.py``, ``models/moe.py``). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise
-instead of falling back.
+instead of falling back. The package itself imports nothing, so its
+offline telemetry readers (``python -m <package>.obs``) run without torch.
 """
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: CUDA unless ``device`` names
     another. Raises when CUDA is asked for (explicitly or by default)
     and is not available; never falls back to the CPU."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

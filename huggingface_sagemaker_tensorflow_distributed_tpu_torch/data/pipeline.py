@@ -45,7 +45,6 @@ epoch's permutation from that batch (mid-epoch resume).
 from __future__ import annotations
 
 import collections
-import os
 import queue
 import threading
 import time
@@ -906,9 +905,6 @@ class _CudaStager:
 
 # -- the batcher -----------------------------------------------------------------
 
-ENV_COMPILE_BUDGET = "HSTD_COMPILE_BUDGET_S"
-
-
 class ShardedBatcher:
     """Iterates global batches, yielding this rank's shard of each.
 
@@ -923,11 +919,9 @@ class ShardedBatcher:
     first use; a failed build raises); ``native=False`` asks for the numpy
     twins, which give the same batches.
 
-    The JAX package caps the bucket ladder at the widths already compiled
-    once ``HSTD_COMPILE_BUDGET_S`` is spent; that cap needs the compile
-    tracker (ROADMAP queue 1, item 2), so here the ladder never caps, and
-    the variable set together with bucketing raises instead of being
-    ignored."""
+    Once ``HSTD_COMPILE_BUDGET_S`` is spent (``obs.compile_budget_capped``)
+    the ladder mints no new width: a batch takes the smallest width this
+    batcher already emitted that holds it, else the full width."""
 
     def __init__(self, dataset, global_batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_remainder: bool = True,
@@ -957,16 +951,14 @@ class ShardedBatcher:
         self.bucket_sizes = sorted(bucket_sizes) if bucket_sizes else None
         self.bucket_window = bucket_window
         self._lengths: dict[str, np.ndarray] = {}
+        # per mask column, the widths this batcher has emitted: the ladder
+        # cap's "already compiled" set
+        self._used_buckets: dict[str, set[int]] = {}
         if self.bucket_sizes and not hasattr(dataset, "columns"):
             raise ValueError(
                 "length bucketing needs corpus-wide token lengths, which "
                 "streaming datasets deliberately don't precompute — drop "
                 "bucket_sizes or materialize the dataset")
-        if self.bucket_sizes and os.environ.get(ENV_COMPILE_BUDGET, "").strip():
-            raise NotImplementedError(
-                f"{ENV_COMPILE_BUDGET} caps the bucket ladder through the "
-                "compile tracker, which is not ported to the PyTorch package "
-                "yet: ROADMAP queue 1, item 2; unset it or drop bucketing")
         if self.bucket_sizes:
             # token count per row, per mask column: encoder and decoder
             # widths bucket independently
@@ -1083,13 +1075,28 @@ class ShardedBatcher:
         """Cut token-width columns to the smallest bucket that holds the
         GLOBAL batch's longest real row (every rank agrees: the choice
         derives from the shared order). Encoder and decoder columns of the
-        same width share one cut, the wider."""
+        same width share one cut, the wider.
+
+        Under the compile-budget cap a width this batcher has not emitted
+        widens to the smallest emitted one that holds the batch, else to
+        the full width. One process caps the moment its tracker crosses;
+        several cap on the latch the trainer agrees at an epoch boundary,
+        so every rank's choice stays the same."""
+        capped = obs.compile_budget_capped(self.process_count)
         trims: dict[int, int] = {}  # original width -> bucket width
         for mask_name, lengths in self._lengths.items():
             width = self.dataset.columns[mask_name].shape[1]
             max_len = int(lengths[real_idx].max()) if len(real_idx) else 1
             bucket = self._bucket_for(max(max_len, 1), width)
+            used = self._used_buckets.setdefault(mask_name, set())
+            if capped and bucket not in used:
+                bucket = min((b for b in used if b >= bucket), default=width)
             trims[width] = max(trims.get(width, 0), bucket)
+        for mask_name in self._lengths:
+            # record the applied cut (after the max over shared widths): a
+            # per-mask bucket never emitted must not count as compiled
+            width = self.dataset.columns[mask_name].shape[1]
+            self._used_buckets[mask_name].add(trims[width])
         out = {}
         for k, v in batch.items():
             if v.ndim >= 2 and v.shape[1] in trims:

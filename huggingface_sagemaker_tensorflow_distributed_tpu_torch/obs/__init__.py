@@ -22,6 +22,14 @@ decisions.
   ``<dir>/events.jsonl`` and ``<dir>/trace.json``; unset, spans and
   metrics are no-ops.
 - ``HSTD_HEARTBEAT_SECS`` sets the liveness cadence (default 60).
+- ``HSTD_COMPILE_BUDGET_S`` budgets the seconds spent compiling (the
+  native builds and loads of ``ops/_build.py``); once spent, bucket
+  ladders stop minting new widths (:func:`compile_budget_capped`).
+
+The offline readers (``report``, ``goodput``, ``timeline``, ``trace``)
+and ``python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs``
+import nothing outside the standard library, so they run on a box with
+neither torch nor jax.
 
 One process-wide :class:`~.core.ObsState` backs the functions below. The
 heartbeat and the anomaly detector are created on first use; the
@@ -44,7 +52,12 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.core import (
     ObsState,
     Tracer,
 )
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import Heartbeat
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+    CompileTracker,
+    Heartbeat,
+    install_compile_tracker,
+    uninstall_compile_trackers,
+)
 
 _state = ObsState()
 _tracer = Tracer(_state)
@@ -55,6 +68,10 @@ _detector: Optional[AnomalyDetector] = None
 
 def state() -> ObsState:
     return _state
+
+
+def enabled() -> bool:
+    return _state.enabled
 
 
 def has_sink() -> bool:
@@ -128,13 +145,83 @@ def anomalies() -> AnomalyDetector:
     return _detector
 
 
-def _heartbeat_env_interval() -> float:
-    """``HSTD_HEARTBEAT_SECS`` as a float; unset or malformed gives 60."""
+def anomaly_counts() -> dict:
+    """Anomalies so far by kind ({} before the detector exists)."""
+    return dict(_detector.counts) if _detector is not None else {}
+
+
+def anomaly_total() -> int:
+    return _detector.total if _detector is not None else 0
+
+
+def flight_recorder():
+    """The process flight-recorder ring (None when ``HSTD_FLIGHT_RING=0``)."""
+    return _state.ring
+
+
+def alert(name: str, message: str, args: Optional[dict] = None) -> None:
+    """A budget or threshold warning (the schema's ``alert`` event).
+    No-op without a file sink."""
+    if not _state.enabled or _state.events is None:
+        return
+    fields: dict = {"name": name, "message": message}
+    if args:
+        fields["args"] = args
+    _state.events.emit("alert", fields)
+
+
+def compile_tracker() -> Optional[CompileTracker]:
+    """The process compile tracker (installed on first call; None when
+    telemetry is disabled)."""
+    return install_compile_tracker(_state)
+
+
+def compile_budget_exceeded() -> bool:
+    """True once this process's compile tracker has crossed
+    ``HSTD_COMPILE_BUDGET_S`` (latched; False with no budget or no
+    tracker)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+        _INSTALLED,
+    )
+
+    return any(t.state is _state and t.budget_exceeded for t in _INSTALLED)
+
+
+_budget_agreed = False
+
+
+def set_compile_budget_agreed() -> None:
+    """Latch the crossing that every rank agreed on: the trainer calls
+    this after the epoch-boundary collective
+    (``parallel.distributed.agree_compile_budget_crossed``) reports that
+    some rank crossed the budget. Every rank latches from the same
+    collective at the same boundary, so every rank's bucket ladder stops
+    minting new widths at the same step."""
+    global _budget_agreed
+    _budget_agreed = True
+
+
+def compile_budget_agreed() -> bool:
+    return _budget_agreed
+
+
+def compile_budget_capped(process_count: int) -> bool:
+    """Should a bucket ladder stop minting new widths? One process acts
+    on its own tracker the moment it crosses; several act only on the
+    agreed latch, so their ladders cap at the same step."""
+    if process_count == 1:
+        return compile_budget_exceeded()
+    return _budget_agreed
+
+
+def heartbeat_env_interval(default: float = 60.0) -> float:
+    """``HSTD_HEARTBEAT_SECS`` as a float; unset or malformed gives
+    ``default``."""
     raw = os.environ.get(ENV_HEARTBEAT, "").strip()
     try:
-        return float(raw) if raw else 60.0
+        return float(raw) if raw else default
     except ValueError:
-        return 60.0
+        return default
 
 
 def _stall_to_detector(age: float, thread: str) -> None:
@@ -149,7 +236,7 @@ def heartbeat() -> Heartbeat:
     from ``HSTD_HEARTBEAT_SECS``)."""
     global _heartbeat
     if _heartbeat is None:
-        _heartbeat = Heartbeat(_state, interval=_heartbeat_env_interval(),
+        _heartbeat = Heartbeat(_state, interval=heartbeat_env_interval(),
                                on_stall=_stall_to_detector)
     return _heartbeat
 
@@ -168,8 +255,8 @@ def flush() -> None:
 
 
 def shutdown() -> None:
-    """Stop the heartbeat, close any anomaly profiler window, write
-    trace.json and close the event file."""
+    """Stop the heartbeat, close any anomaly profiler window, drop the
+    compile tracker, write trace.json and close the event file."""
     global _heartbeat, _detector
     if _heartbeat is not None:
         _heartbeat.stop()
@@ -177,13 +264,16 @@ def shutdown() -> None:
     if _detector is not None:
         _detector.shutdown()
         _detector = None
+    uninstall_compile_trackers(_state)
     _state.shutdown()
 
 
 def reset(out_dir: Optional[str] = None, enabled: Optional[bool] = None) -> ObsState:
     """:func:`shutdown`, then a fresh process state (the environment read
-    again), optionally configured with ``out_dir``/``enabled``."""
-    global _state, _tracer, _metrics
+    again), optionally configured with ``out_dir``/``enabled``; the agreed
+    compile-budget latch clears."""
+    global _state, _tracer, _metrics, _budget_agreed
+    _budget_agreed = False
     shutdown()
     _state = ObsState()
     _tracer = Tracer(_state)

@@ -1,6 +1,8 @@
-"""Fleet request tracing, the stitching half (the JAX package's
-``obs/trace.py``: :func:`collect_traces`, :func:`check_trace`,
-:func:`fleet_summary`; stdlib only).
+"""Fleet request tracing (the JAX package's ``obs/trace.py``, stdlib
+only): :func:`collect_traces`, :func:`check_trace` and
+:func:`fleet_summary` stitch and roll up; :func:`trace_text`,
+:func:`fleet_text` and :func:`fleet_chrome_trace` render what the
+``obs trace`` and ``obs fleet`` commands print and write.
 
 The router mints a ``trace_id`` per submit and a ``hop`` counter that
 advances on every inter-engine move (a migration, a drain's requeue).
@@ -35,12 +37,17 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
-    check_decomposition,
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import (
     percentile,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+    _proc_key,
+    check_decomposition,
+)
 
-__all__ = ["TRACE_PHASES", "collect_traces", "check_trace", "fleet_summary"]
+__all__ = ["TRACE_PHASES", "collect_traces", "check_trace",
+           "fleet_summary", "trace_text", "fleet_text",
+           "fleet_chrome_trace"]
 
 #: The cross-hop phase columns, in narrative order.
 TRACE_PHASES = ("router_queue", "prefill", "transport",
@@ -50,12 +57,6 @@ TRACE_PHASES = ("router_queue", "prefill", "transport",
 _EVENT_ORDER = {"submit": 0, "admit": 1, "swap_out": 2, "preempt": 3,
                 "requeue": 4, "migrate": 5, "swap_in": 6,
                 "first_token": 7, "request_timeline": 8, "finish": 9}
-
-
-def _proc_key(rec: dict) -> tuple:
-    """The emitting process from the envelope: request ids count per
-    process, so two processes' traces never merge."""
-    return (int(rec.get("host", 0)), int(rec.get("pid", 0)))
 
 
 def _traced(events: Iterable[dict]) -> list[dict]:
@@ -343,3 +344,174 @@ def fleet_summary(traces: list[dict]) -> dict:
             per_group[g] = row
         out["per_group"] = per_group
     return out
+
+
+def trace_text(trace: dict) -> str:
+    """One stitched trace as a readable causal narrative — the
+    ``obs trace`` body. Deterministic: derived from event fields
+    only, segments in timeline order."""
+    tid = trace["trace_id"]
+    lines = [f"trace {tid}: request {trace.get('request')}, "
+             f"{trace['events']} event(s), {trace['hops']} hop(s), "
+             f"replicas {trace['replicas']}"]
+    if not trace.get("complete"):
+        lines.append("  INCOMPLETE:")
+        lines.extend(f"    - {r}" for r in trace["incomplete"])
+        return "\n".join(lines) + "\n"
+    tl = trace["timeline"]
+    head = (f"  complete: e2e {tl.get('e2e_s')}s"
+            f"  tokens {tl.get('tokens')}")
+    if isinstance(tl.get("ttft_s"), (int, float)):
+        head += f"  ttft {tl['ttft_s']}s"
+    if tl.get("group"):
+        head += f"  group [{tl['group']}]"
+    lines.append(head)
+    e2e = max(float(tl.get("e2e_s", 0.0)), 1e-9)
+    lines.append("  cross-hop decomposition:")
+    for ph in TRACE_PHASES:
+        v = trace["phases"][ph]
+        lines.append(f"    {ph:<16} {v:>10.6f}s  "
+                     f"{v / e2e:>6.1%}")
+    for e in trace["migrates"]:
+        h = e.get("hop")
+        arrow = ""
+        if isinstance(e.get("from_replica"), int) \
+                or isinstance(e.get("to_replica"), int):
+            arrow = (f" replica {e.get('from_replica', '?')} -> "
+                     f"{e.get('to_replica', '?')}")
+        detail = f"    hop {h}:{arrow} {e.get('migration_bytes', 0)}B"
+        if isinstance(e.get("transport_hop_s"), (int, float)):
+            detail += (f", transport {e['transport_hop_s']}s "
+                       f"(extract {e.get('extract_s', 0)}s + restore "
+                       f"{e.get('restore_s', 0)}s + admission wait)")
+        elif isinstance(e.get("restore_s"), (int, float)):
+            detail += f", restore {e['restore_s']}s"
+        lines.append(detail)
+    lines.append("  segments:")
+    for seg in tl.get("segments", []):
+        if not isinstance(seg, dict):
+            continue
+        where = (f"@r{seg['replica']}"
+                 if isinstance(seg.get("replica"), int) else "@-")
+        via = (" [migration hold]"
+               if seg.get("via") == "migrate" else "")
+        lines.append(
+            f"    {seg.get('ph', '?'):<10} {where:<5} "
+            f"t0 {float(seg.get('t0', 0.0)):.6f}s  "
+            f"dur {float(seg.get('dur', 0.0)):.6f}s{via}")
+    errors = check_trace(trace)
+    if errors:
+        lines.append("  decomposition errors:")
+        lines.extend(f"    - {e}" for e in errors)
+    return "\n".join(lines) + "\n"
+
+
+def fleet_text(traces: list[dict]) -> str:
+    """The fleet SLO-attribution table — the ``obs fleet`` body."""
+    if not traces:
+        return "fleet: no traced serve events\n"
+    s = fleet_summary(traces)
+    lines = [f"fleet: {s['traces']} trace(s), "
+             f"{s['complete_traces']} complete, "
+             f"{s['trace_stitch_failures']} stitch failure(s)"]
+    if "phase_total_s" in s:
+        lines.append("  attribution (fleet seconds, share of e2e):")
+        for ph in TRACE_PHASES:
+            frac = s.get("phase_frac", {}).get(ph, 0.0)
+            lines.append(f"    {ph:<16} "
+                         f"{s['phase_total_s'][ph]:>10.6f}s  "
+                         f"{frac:>6.1%}")
+    for label in ("ttft", "tpot", "e2e"):
+        if f"{label}_p50_s" in s:
+            lines.append(
+                f"  {label} p50 {s[f'{label}_p50_s']}s  "
+                f"p95 {s[f'{label}_p95_s']}s  "
+                f"p99 {s[f'{label}_p99_s']}s")
+    if "transport_hops" in s:
+        row = (f"  transport: {s['transport_hops']} hop(s), "
+               f"{s['migration_bytes']}B")
+        if "transport_hop_s_p99" in s:
+            row += (f", hop_s p50 {s['transport_hop_s_p50']} "
+                    f"p99 {s['transport_hop_s_p99']}")
+        lines.append(row)
+    for role, row in sorted(s.get("per_role", {}).items()):
+        extras = "  ".join(
+            f"{k} {row[k]}" for k in ("ttft_p50_s", "ttft_p99_s",
+                                      "tpot_p50_s", "tpot_p99_s")
+            if k in row)
+        lines.append(f"  role {role:<8} replicas {row['replicas']}"
+                     f"  {extras}".rstrip())
+    for rep, row in sorted(s.get("per_replica", {}).items(),
+                           key=lambda kv: int(kv[0])):
+        role = f" ({row['role']})" if "role" in row else ""
+        lines.append(
+            f"  replica {rep}{role}: {row['requests']} request(s), "
+            f"prefill {row['prefill_s']}s, decode {row['decode_s']}s, "
+            f"hold {row['hold_s']}s")
+    for g, row in sorted(s.get("per_group", {}).items()):
+        extras = "  ".join(f"{k} {row[k]}"
+                           for k in ("ttft_p50_s", "e2e_p50_s")
+                           if k in row)
+        lines.append(f"  group [{g}]: {row['traces']} trace(s)"
+                     f"  {extras}".rstrip())
+    for row in s.get("incomplete", []):
+        lines.append(f"  incomplete {row['trace_id']}: "
+                     + "; ".join(row["incomplete"]))
+    return "\n".join(lines) + "\n"
+
+
+def fleet_chrome_trace(traces: list[dict]) -> dict:
+    """Merged multi-track Perfetto/Chrome export: one pid per replica
+    (track id = the replica index itself; untagged segments land on
+    the finishing record's track), ``tid`` = request, one complete
+    ("X") event per segment on the replica that RAN it, and each
+    transport hop drawn as a flow ARROW ("s" at the source-side
+    segment's end, "f" at the destination hold segment's start) so
+    the viewer renders the migration as a line crossing tracks.
+    Deterministic like :func:`~.timeline.chrome_trace`; timestamps
+    anchor each request's submit instant at ``t - e2e_s``."""
+    events = []
+    for tr in sorted(traces, key=lambda t: t["trace_id"]):
+        tl = tr.get("timeline")
+        if tl is None:
+            continue
+        submit_wall = float(tl.get("t", 0.0)) - float(
+            tl.get("e2e_s", 0.0))
+        rid = int(tl.get("request", -1))
+        rec_rep = tl.get("replica") if isinstance(
+            tl.get("replica"), int) else 0
+        segs = [s for s in tl.get("segments", [])
+                if isinstance(s, dict)]
+        for i, seg in enumerate(segs):
+            rep = (seg["replica"]
+                   if isinstance(seg.get("replica"), int) else rec_rep)
+            t0 = submit_wall + float(seg.get("t0", 0.0))
+            dur = float(seg.get("dur", 0.0))
+            args = {k: v for k, v in seg.items()
+                    if k not in ("ph", "t0", "dur")}
+            args["request"] = rid
+            args["trace_id"] = tr["trace_id"]
+            events.append({
+                "name": seg.get("ph", "?"), "ph": "X",
+                "ts": round(t0 * 1e6, 3),
+                "dur": round(dur * 1e6, 3),
+                "pid": rep, "tid": rid, "args": args,
+            })
+            if seg.get("via") == "migrate" and i > 0:
+                prev = segs[i - 1]
+                src_rep = (prev["replica"]
+                           if isinstance(prev.get("replica"), int)
+                           else rec_rep)
+                flow_id = f"{tr['trace_id']}/{seg.get('hop', 0)}"
+                src_end = submit_wall + float(prev.get("t0", 0.0)) \
+                    + float(prev.get("dur", 0.0))
+                events.append({
+                    "name": "transport", "ph": "s", "cat": "transport",
+                    "id": flow_id, "ts": round(src_end * 1e6, 3),
+                    "pid": src_rep, "tid": rid})
+                events.append({
+                    "name": "transport", "ph": "f", "cat": "transport",
+                    "bp": "e", "id": flow_id,
+                    "ts": round((t0 + dur) * 1e6, 3),
+                    "pid": rep, "tid": rid})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

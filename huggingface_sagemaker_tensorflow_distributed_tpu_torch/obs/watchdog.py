@@ -1,18 +1,23 @@
 """Watchdogs (counterpart of the JAX package's ``obs/watchdog.py``): the
-liveness heartbeat with its stall stack dump, and the device-memory
-sampler over ``torch.cuda``'s counters.
+liveness heartbeat with its stall stack dump, the compile tracker with its
+budget, and the device-memory sampler over ``torch.cuda``'s counters.
 
 A run that hangs leaves heartbeat lines (the last time it was known
 alive) and, if the watched thread stops pulsing while the process lives,
 one ``stall`` event with every thread's stack naming the blocked thread.
-The JAX package's compile tracker has no counterpart yet (ROADMAP queue
-1): the port builds its kernels with ``nvcc`` at first use, not per
-shape.
+
+The port compiles no graph per shape: what it compiles is native code,
+built at first use (``ops/_build.py``: one ``nvcc`` per ``csrc/*.cu``,
+``g++`` for the host library) and loaded once per process. Each build and
+each first load reaches every installed :class:`CompileTracker` as one
+observation; a load of a library an earlier run built is the port's
+persistent-cache hit and surfaces at a near-zero duration.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import threading
 import time
@@ -146,6 +151,106 @@ class Heartbeat:
                 self._beat_once()
             except Exception:  # noqa: BLE001 - the liveness thread outlives a bad beat
                 logger.exception("heartbeat emission failed")
+
+
+ENV_COMPILE_BUDGET = "HSTD_COMPILE_BUDGET_S"
+
+
+def compile_budget_env() -> Optional[float]:
+    """``HSTD_COMPILE_BUDGET_S`` as a float (None: no budget). A malformed
+    value disables the budget rather than the run."""
+    raw = os.environ.get(ENV_COMPILE_BUDGET, "").strip()
+    try:
+        return float(raw) if raw else None
+    except ValueError:
+        return None
+
+
+class CompileTracker:
+    """Counts the process's compilations: the native builds and first
+    loads ``ops/_build.py`` reports (:func:`report_compile`), and any
+    other observation whose name carries a compile marker.
+
+    Emits one ``compile`` event per observation with the running count
+    and cumulative seconds. With a budget (``HSTD_COMPILE_BUDGET_S``), the
+    first time the cumulative seconds exceed it emits ONE ``alert`` event
+    named ``compile_budget`` and a stderr line, and latches
+    ``budget_exceeded``: bucket-ladder batchers consult it (through
+    ``obs.compile_budget_capped``) to stop minting new widths.
+    """
+
+    _MARKERS = ("compile", "tracing", "lowering")
+
+    def __init__(self, state: ObsState, budget_s: Optional[float] = None):
+        self.state = state
+        self.count = 0
+        self.cum_secs = 0.0
+        self.budget_s = compile_budget_env() if budget_s is None else budget_s
+        self.budget_exceeded = False
+        self._lock = threading.Lock()
+
+    def observe(self, event: str, secs: float, **_: object) -> None:
+        """One compilation of ``secs`` seconds named ``event``; a name
+        without a compile marker is ignored. Extra keyword arguments (a
+        caller's function name, say) are accepted and ignored."""
+        low = event.lower()
+        if not any(m in low for m in self._MARKERS):
+            return
+        crossed = False
+        with self._lock:
+            self.count += 1
+            self.cum_secs += secs
+            count, cum = self.count, self.cum_secs
+            if (self.budget_s is not None and cum > self.budget_s
+                    and not self.budget_exceeded):
+                self.budget_exceeded = True
+                crossed = True
+        if self.state.events is not None:
+            self.state.events.emit("compile", {
+                "event": event, "dur": round(secs, 6), "count": count,
+                "cum": round(cum, 3)})
+        if crossed:
+            msg = (f"cumulative compile time {cum:.1f}s exceeds "
+                   f"{ENV_COMPILE_BUDGET}={self.budget_s:g}s after "
+                   f"{count} compilations — bucket ladders will stop "
+                   "minting new widths; keep the build/ directory between "
+                   "runs (its libraries then load, not build) or use fewer "
+                   "bucket rungs")
+            if self.state.events is not None:
+                self.state.events.emit("alert", {
+                    "name": "compile_budget", "message": msg,
+                    "cum": round(cum, 3), "budget_s": self.budget_s,
+                    "count": count})
+            print(f"[hstd-obs] COMPILE BUDGET: {msg}", file=sys.stderr,
+                  flush=True)
+            logger.warning("compile budget exceeded: %s", msg)
+
+
+_INSTALLED: list[CompileTracker] = []
+
+
+def install_compile_tracker(state: ObsState) -> Optional[CompileTracker]:
+    """The tracker of ``state``, installed on first call (None when
+    telemetry is disabled)."""
+    if not state.enabled:
+        return None
+    for tracker in _INSTALLED:
+        if tracker.state is state:
+            return tracker
+    tracker = CompileTracker(state)
+    _INSTALLED.append(tracker)
+    return tracker
+
+
+def uninstall_compile_trackers(state: ObsState) -> None:
+    """Drop ``state``'s tracker (its state is being shut down)."""
+    _INSTALLED[:] = [t for t in _INSTALLED if t.state is not state]
+
+
+def report_compile(event: str, secs: float) -> None:
+    """One compilation, to every installed tracker."""
+    for tracker in list(_INSTALLED):
+        tracker.observe(event, secs)
 
 
 def sample_device_memory(state: ObsState) -> int:

@@ -15,6 +15,11 @@ loader's primitives, ``data/native.py``) builds the same way into
 ``build/host/``, named by a hash of its sources and flags. The port never
 writes into the JAX package's ``native/`` directory and never loads a
 library it finds there.
+
+Each build and each process's first load of a library reaches the
+installed compile trackers (``obs/watchdog.py``) as one observation named
+``/hstd/compile/<nvcc|g++|load>/<library>`` with its wall seconds; builds
+that run in parallel each report their own.
 """
 
 from __future__ import annotations
@@ -25,7 +30,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+    report_compile,
+)
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -67,9 +78,15 @@ def build_log(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
+def _finish(proc: subprocess.Popen, t0: float) -> tuple[str, float]:
+    """``proc``'s stderr and its wall seconds since ``t0``, once it exits."""
+    _, stderr = proc.communicate()
+    return stderr, time.perf_counter() - t0
+
+
 def build(*names: str) -> None:
     """Build the missing libraries of ``csrc/<name>.cu``, one ``nvcc`` per
-    source, all started together."""
+    source, all started together; each reports its own seconds."""
     jobs = []
     for name in names:
         out = library_path(name)
@@ -77,28 +94,42 @@ def build(*names: str) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        jobs.append((name, out, tmp, proc))
+        jobs.append((name, out, tmp, proc, t0))
+    if not jobs:
+        return
+    # one thread a job drains its pipes, so each build's seconds end when
+    # that nvcc exits, not when an earlier one in the list does
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(lambda job: _finish(job[3], job[4]), jobs))
     failed = []
-    for name, out, tmp, proc in jobs:
-        _, stderr = proc.communicate()
+    for (name, out, tmp, proc, _), (stderr, secs) in zip(jobs, done):
         if proc.returncode != 0:
             failed.append(f"nvcc failed to build csrc/{name}.cu (exit "
                           f"{proc.returncode}):\n{stderr}")
         else:
             out.with_suffix(".log").write_text(stderr)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            report_compile(f"/hstd/compile/nvcc/{name}", secs)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def _load_timed(path: Path, name: str) -> ctypes.CDLL:
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    report_compile(f"/hstd/compile/load/{name}", time.perf_counter() - t0)
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     build(name)
-    return ctypes.CDLL(str(library_path(name)))
+    return _load_timed(library_path(name), name)
 
 
 def host_library_path() -> Path:
@@ -123,6 +154,7 @@ def build_host() -> Path:
                            "(csrc/host/*.cc) is built from source at first use")
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
                            *(str(HOST_DIR / s) for s in HOST_SOURCES)],
                           capture_output=True, text=True)
@@ -131,10 +163,11 @@ def build_host() -> Path:
         raise RuntimeError(f"g++ failed to build csrc/host (exit {proc.returncode}):\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    report_compile("/hstd/compile/g++/host", time.perf_counter() - t0)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def load_host() -> ctypes.CDLL:
     """Build the host library if it is missing, then load it."""
-    return ctypes.CDLL(str(build_host()))
+    return _load_timed(build_host(), "host")

@@ -130,3 +130,18 @@ def host_step_stats(step_seconds: float, device=None) -> Optional[dict]:
     return {"n_hosts": world, "min": float(vals.min()), "max": float(vals.max()),
             "mean": mean, "straggler_ratio": float(vals.max()) / max(mean, 1e-12),
             "argmax": int(vals.argmax())}
+
+
+def agree_compile_budget_crossed(local_crossed: bool, device=None) -> bool:
+    """True when any rank's compile tracker has crossed
+    ``HSTD_COMPILE_BUDGET_S``: a MAX all-reduce of the local flag (a
+    collective; ``device`` is where the flag lives, the card under NCCL).
+    The budget is crossed at a rank-local instant, so the ranks agree on
+    the crossing at an epoch boundary and their bucket ladders cap at the
+    same step. With one process, the local flag."""
+    if world_size() == 1:
+        return bool(local_crossed)
+    flag = torch.tensor([1.0 if local_crossed else 0.0], dtype=torch.float64,
+                        device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item() > 0.5)

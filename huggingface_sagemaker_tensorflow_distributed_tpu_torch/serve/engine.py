@@ -108,7 +108,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache impo
     PagedCache,
     kv_heads_and_dim,
 )
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import (
     percentile,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import (

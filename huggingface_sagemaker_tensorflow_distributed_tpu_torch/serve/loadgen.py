@@ -33,7 +33,7 @@ import time
 from typing import Optional, Sequence
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import (
     percentile,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.policy import (  # noqa: F401

@@ -53,7 +53,7 @@ from typing import Optional, Union
 import numpy as np
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
-from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.timeline import (
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.report import (
     percentile,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import (

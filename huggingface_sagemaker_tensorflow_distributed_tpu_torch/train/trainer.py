@@ -86,7 +86,11 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.collectives
     ReplicaDivergenceError,
     replica_divergence,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+    compile_budget_env,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+    agree_compile_budget_crossed,
     all_reduce_mean_grads,
     all_reduce_sum,
     host_step_stats,
@@ -630,12 +634,13 @@ class Trainer:
         after that many epochs without improvement."""
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
-        # telemetry: the heartbeat (and its stall dump) and the anomaly
-        # detector exist only on instrumented runs, so an uninstrumented
-        # fit starts no thread
+        # telemetry: the compile tracker, the heartbeat (and its stall
+        # dump) and the anomaly detector exist only on instrumented runs,
+        # so an uninstrumented fit starts no thread
         obs_files = obs.has_sink()
         heartbeat = None
         if obs_files:
+            obs.compile_tracker()
             heartbeat = obs.heartbeat().start()
             heartbeat.watch_current_thread()
         detector = obs.anomalies() if obs.configured() else None
@@ -796,6 +801,19 @@ class Trainer:
                                    args=stats)
                         if detector is not None:
                             detector.observe_straggler(epoch, stats)
+                if (compile_budget_env() is not None and world_size() > 1
+                        and not obs.compile_budget_agreed()):
+                    # the budget is crossed at a rank-local instant, so the
+                    # ranks agree on it here, in a collective whose guard is
+                    # the same on every rank; once latched, every rank's
+                    # bucket ladder stops minting new widths from the same
+                    # step
+                    if agree_compile_budget_crossed(obs.compile_budget_exceeded(),
+                                                    self.device):
+                        obs.set_compile_budget_agreed()
+                        logger.info("compile budget crossing agreed across %d ranks "
+                                    "at epoch %d: bucket ladders stop minting new "
+                                    "widths", world_size(), epoch)
                 stop_early = False
                 if eval_batcher is not None:
                     res = self.evaluate(eval_batcher)

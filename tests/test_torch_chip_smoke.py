@@ -572,10 +572,12 @@ def test_pooled_device_time_tolerates_dropped_records():
 def test_fresh_process_phases_hand_their_rows_back(tmp_path, monkeypatch):
     """A phase run by ``--phase NAME OUT`` writes its rows to OUT, keyed as
     in the process that reads them (a tuple key stays a tuple), and the
-    flash, vocab-CE and llama K3 cases and the optimizer/remat phase (it
-    profiles) all run so; any other argument raises."""
+    flash, vocab-CE and llama K3 cases, the optimizer/remat phase (it
+    profiles) and the obs phase's compile-budget run (its K1 library loads
+    inside its fit) all run so; any other argument raises."""
     assert set(chip_smoke.FRESH_PROCESS_PHASES) == {
-        "flash_phase", "vocab_ce_phase", "llama_kernel_phase", "optim_memory_phase"}
+        "flash_phase", "vocab_ce_phase", "llama_kernel_phase", "optim_memory_phase",
+        "compile_budget_phase"}
     rows = {("bert_bf16", "flash_fwd"): {"kernel_ms": 0.5, "contexts": [0, 3]},
             "gpt2": {"kernel_ms": 0.25, "status": "pass"}}
     monkeypatch.setitem(chip_smoke.FRESH_PROCESS_PHASES, "flash_phase", lambda: rows)
@@ -1617,3 +1619,109 @@ def test_optim_parity_and_resume_phases_on_cpu(on_cpu, tmp_path, capsys):
     assert resumed["adamw_bf16_moments"]["moment_dtypes"] == ["torch.bfloat16"]
     phases = [p["phase"] for p in _printed(capsys) if "phase" in p]
     assert phases.count("optim_parity") == 5 and phases.count("optim_resume") == 2
+
+
+def test_obs_phase_on_cpu(serve_on_cpu, monkeypatch, tmp_path, capsys):
+    """The obs phase's checks (a)-(e) over telemetry made on the CPU at a
+    tiny width: a 3-step training CLI run, an engine run with timelines, a
+    two-replica run drained mid-trace and two wall-clock open-loop runs
+    over two replicas; the compile-budget run in this process, with the K1
+    library's load (which the CPU never makes) reported at its first
+    step."""
+    import numpy as np
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+        init_gpt2,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import Gpt2Config
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+        report_compile,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import ServeEngine
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
+        SloSpec,
+        make_schedule,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.router import Router
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(chip_smoke, "CLI_STEPS", 3)
+    monkeypatch.setattr(chip_smoke, "CLI_EVAL_SAMPLES", 8)
+
+    def sink(name):
+        obs.reset(out_dir=str(tmp_path / name), enabled=True)
+        return tmp_path / name
+
+    job = sink("job")
+    try:
+        chip_smoke._counted_run(chip_smoke._train_argv(tmp_path / "cli", tmp_path / "out",
+                                                       tmp_path / "model"))
+    finally:
+        obs.reset()
+    model = init_gpt2(Gpt2Config(hidden_dropout=0.0, embd_dropout=0.0, attention_dropout=0.0,
+                                 **SERVE_TINY), seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    trace = [(rng.randint(1, 290, (int(rng.randint(4, 12)),)).astype(np.int32),
+              int(rng.randint(3, 8))) for _ in range(8)]
+    kw = dict(num_slots=2, block_size=8, prefill_chunk=8, max_model_len=64)
+    engine_tel = sink("engine")
+    try:
+        eng = ServeEngine(model, device="cpu", **kw)
+        for p, m in trace:
+            eng.submit(p, m)
+        eng.run()
+        drain_tel = sink("drain")
+        router = Router(model, replicas=2, device="cpu", **kw)
+        for p, m in trace:
+            router.submit(p, m)
+        router.warmup()
+        for _ in range(3):
+            router.step()
+        router.drain(1)
+        router.run()
+    finally:
+        obs.reset()
+    open_loop = {}
+    for rate in (50.0, 400.0):
+        schedule = make_schedule(8, 290, process="poisson", rate=rate, seed=11, prompt_lo=4,
+                                 prompt_hi=8, new_lo=3, new_hi=6, eos_token_id=299,
+                                 groups=("interactive", "batch"))
+        tel = sink(f"wall_{rate:g}")
+        try:
+            run = chip_smoke._open_loop_run(Router(model, replicas=2, device="cpu", **kw),
+                                            schedule, "wall", SloSpec(ttft_s=0.5, tpot_s=0.25),
+                                            rate)
+        finally:
+            obs.reset()
+        open_loop[str(rate)] = dict(run["summary"], telemetry=str(tel))
+
+    real_step, loaded = Trainer.train_step, []
+
+    def step(self, batch):
+        if not loaded:
+            loaded.append(True)
+            report_compile("/hstd/compile/load/flash_attention", 1e-3)
+        return real_step(self, batch)
+
+    monkeypatch.setattr(Trainer, "train_step", step)
+    capsys.readouterr()
+    rows = chip_smoke.obs_phase(tmp_path / "obs", "cpu", job, engine_tel,
+                                {"telemetry": str(drain_tel), "requests": len(trace)}, open_loop)
+    assert list(rows) == ["report", "goodput", "timelines", "fleet", "budget", "summary"]
+    assert rows["report"]["host"]["step_time_s"]["count"] > 0
+    assert rows["goodput"]["runs"] == 2
+    assert rows["timelines"]["requests"] == len(trace)
+    assert rows["fleet"]["traces"] == rows["fleet"]["complete_traces"] == len(trace)
+    assert rows["fleet"]["most_hops"] >= 1
+    budget = rows["budget"]
+    assert budget["compiles"] == ["/hstd/compile/load/flash_attention"]
+    assert len(budget["widths"]) == chip_smoke.BUDGET_STEPS
+    assert all(w % chip_smoke.DATA_BUCKET == 0 for w in budget["widths"])
+    # the lengths climb in the one sorted window: every batch cut under the
+    # cap that would have minted a new width takes the full width instead
+    assert budget["widths"][-1] == chip_smoke.BERT_BASE["max_position_embeddings"]
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [p["run"] for p in printed if p.get("phase") == "obs"] == [
+        r["run"] for r in rows.values()]

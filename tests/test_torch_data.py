@@ -377,14 +377,230 @@ def test_bucketed_batches_match_jax(case):
             np.testing.assert_array_equal(g[key], w[key], err_msg=key)
 
 
-def test_bucketing_with_a_compile_budget_raises(monkeypatch):
-    """The ladder cap needs the compile tracker, not ported: the budget
-    set with bucketing raises instead of being ignored."""
-    cols = _ragged_columns(16)
+# -- the compile-budget cap of the bucket ladder ------------------------------------
+
+CAP_BUCKETS = [16, 32, 48, 64]
+
+
+@pytest.fixture
+def _fresh_obs():
+    """Both packages' telemetry states fresh (no sink, no tracker, the
+    agreed latch clear) before and after."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu import obs as jax_obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+
+    obs.reset()
+    jax_obs.reset()
+    yield obs, jax_obs
+    obs.reset()
+    jax_obs.reset()
+
+
+def _jax_batcher(cols, gbs, **kw):
+    from huggingface_sagemaker_tensorflow_distributed_tpu.data import (
+        ArrayDataset,
+        ShardedBatcher,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+
+    return ShardedBatcher(ArrayDataset(dict(cols)), gbs, build_mesh(MeshConfig()),
+                          bucket_sizes=CAP_BUCKETS, **kw)
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+@pytest.mark.parametrize("cross_after", [0, 2, 5])
+def test_capped_ladder_widths_match_jax(_fresh_obs, monkeypatch, cross_after, shuffle):
+    """The same dataset and buckets under a compile tracker that crosses
+    its budget after batch ``cross_after``: the port's batches equal the
+    JAX ``ShardedBatcher``'s batch for batch over two epochs, widths
+    included (the JAX tracker made visible through its installed list,
+    its listener never registered)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.obs import watchdog as j_watchdog
+
+    obs, jax_obs = _fresh_obs
+    cols = _ragged_columns(80, seed=11)
+    kw = dict(shuffle=shuffle, seed=4, process_index=0, process_count=1, bucket_window=2)
+    port = t_pipe.ShardedBatcher(t_pipe.ArrayDataset(dict(cols)), 8, bucket_sizes=CAP_BUCKETS,
+                                 **kw)
+    ref = _jax_batcher(cols, 8, **kw)
+    j_tracker = j_watchdog.CompileTracker(jax_obs.state(), budget_s=0.5)
+    monkeypatch.setattr(j_watchdog, "_INSTALLED", [j_tracker])
+    tracker = obs.compile_tracker()
+    tracker.budget_s = 0.5
+    step, widths = 0, []
+    for epoch in (0, 1):
+        for g, w in zip(port.local_batches(epoch), ref.local_batches(epoch), strict=True):
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+            widths.append(g["input_ids"].shape[1])
+            if step == cross_after:
+                for t in (tracker, j_tracker):
+                    t.observe("/hstd/compile/load/flash_attention", 1.0)
+                assert obs.compile_budget_exceeded() and jax_obs.compile_budget_exceeded()
+            step += 1
+    after = widths[cross_after + 1:]
+    before = set(widths[:cross_after + 1])
+    assert all(w in before or w == 64 for w in after)
+    # where the uncapped ladder would have minted a width, the cap moved it
+    obs.reset()
+    free = t_pipe.ShardedBatcher(t_pipe.ArrayDataset(dict(cols)), 8, bucket_sizes=CAP_BUCKETS,
+                                 **kw)
+    nominal = [b["input_ids"].shape[1] for epoch in (0, 1) for b in free.local_batches(epoch)]
+    assert nominal[:cross_after + 1] == widths[:cross_after + 1]
+    if any(w not in before for w in nominal[cross_after + 1:]):
+        assert widths != nominal
+
+
+def test_multi_process_ladder_caps_only_on_the_agreed_latch(_fresh_obs):
+    """With several processes the local crossing does not cap (the ranks
+    would cut different widths); the agreed latch does, from the next
+    batch, as in the JAX batcher under the same latches; ``obs.reset``
+    clears it."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.parallel.distributed import (
+        agree_compile_budget_crossed as jax_agree,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+        agree_compile_budget_crossed,
+    )
+
+    obs, jax_obs = _fresh_obs
+    n, width = 16, 64
+    ids = np.zeros((n, width), np.int32)
+    mask = np.zeros((n, width), np.int32)
+    for i in range(n):
+        length = 10 if i < 8 else 40
+        ids[i, :length] = 7
+        mask[i, :length] = 1
+    cols = {"input_ids": ids, "attention_mask": mask, "labels": np.zeros(n, np.int32)}
+
+    def widths(pkg):
+        kw = dict(shuffle=False, process_index=0, process_count=2)
+        b = (t_pipe.ShardedBatcher(t_pipe.ArrayDataset(dict(cols)), 8,
+                                   bucket_sizes=CAP_BUCKETS, **kw)
+             if pkg == "port" else _jax_batcher(cols, 8, **kw))
+        return [batch["input_ids"].shape[1] for batch in b.local_batches(0)]
+
+    tracker = obs.compile_tracker()
+    tracker.budget_s = 0.1
+    tracker.observe("/hstd/compile/nvcc/flash_attention", 1.0)
+    assert obs.compile_budget_exceeded() and not obs.compile_budget_capped(2)
+    assert obs.compile_budget_capped(1)
+    assert widths("port") == widths("jax") == [16, 48]
+    assert agree_compile_budget_crossed(obs.compile_budget_exceeded()) is True
+    assert agree_compile_budget_crossed(False) is jax_agree(False) is False
+    obs.set_compile_budget_agreed()
+    jax_obs.set_compile_budget_agreed()
+    assert obs.compile_budget_agreed() and obs.compile_budget_capped(2)
+    assert widths("port") == widths("jax") == [64, 64]
+    obs.reset()
+    assert not obs.compile_budget_agreed() and not obs.compile_budget_capped(2)
+
+
+def test_compile_budget_with_bucketing_builds(monkeypatch, _fresh_obs):
+    """``HSTD_COMPILE_BUDGET_S`` with bucketing builds a batcher (the raise
+    it once met is gone), and an installed tracker reads the budget."""
+    obs, _ = _fresh_obs
     monkeypatch.setenv("HSTD_COMPILE_BUDGET_S", "30")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t_pipe.ShardedBatcher(t_pipe.ArrayDataset(cols), 8, bucket_sizes=[32, 64])
-    assert t_pipe.ShardedBatcher(t_pipe.ArrayDataset(cols), 8).bucket_sizes is None
+    b = t_pipe.ShardedBatcher(t_pipe.ArrayDataset(_ragged_columns(16)), 8,
+                              bucket_sizes=[32, 64])
+    assert b.bucket_sizes == [32, 64] and len(list(b.local_batches(0))) == 2
+    assert obs.compile_tracker().budget_s == 30.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ladder_batcher(rank, world):
+    # data whose later epochs cut a width (48) its first epoch never did
+    return t_pipe.ShardedBatcher(t_pipe.ArrayDataset(_ragged_columns(48, seed=15)), 8, seed=0,
+                                 bucket_sizes=CAP_BUCKETS, bucket_window=1, process_index=rank,
+                                 process_count=world)
+
+
+def _ladder_worker(rank, world, port, out_path):
+    """One rank of a 3-epoch fit with bucketing under
+    ``HSTD_COMPILE_BUDGET_S=1``: rank 1's tracker has crossed before the
+    fit, rank 0's has not. Saves each train batch's width and whether the
+    agreed latch was set when it was cut."""
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                      RANK=str(rank), HSTD_COMPILE_BUDGET_S="1")
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import config as t_config
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import layers as t_layers
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_bert
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    initialize_distributed("cpu")
+    try:
+        if rank == 1:
+            obs.compile_tracker().observe("/hstd/compile/nvcc/flash_attention", 5.0)
+        seen = []
+        real = t_pipe.ShardedBatcher._trim_to_buckets
+
+        def trim(self, batch, real_idx):
+            out = real(self, batch, real_idx)
+            seen.append((int(out["input_ids"].shape[1]), obs.compile_budget_agreed()))
+            return out
+
+        t_pipe.ShardedBatcher._trim_to_buckets = trim
+        cfg = t_config.TrainConfig(epochs=3, learning_rate=1e-3, scale_lr_by_world_size=False,
+                                   max_seq_length=64, log_every_steps=0)
+        trainer = Trainer(cfg, init_bert(t_layers.EncoderConfig(**FIT_TINY), seed=0,
+                                         device="cpu"))
+        trainer.fit(_ladder_batcher(rank, world))
+        torch.save({"seen": seen, "exceeded": obs.compile_budget_exceeded()}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_latch_the_crossing_at_one_epoch_boundary(tmp_path):
+    """Rank 1 crosses the budget before the fit, rank 0 never does: neither
+    caps in epoch 0 (rank 1 alone would cut other widths than rank 0), both
+    latch the agreed crossing at the first epoch boundary, and from then on
+    both cut the same capped widths at every step."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_ladder_worker, args=(r, 2, port, str(tmp_path / f"{r}.pt")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    assert all(not p.is_alive() and p.exitcode == 0 for p in procs)
+    r0, r1 = (torch.load(str(tmp_path / f"{r}.pt")) for r in range(2))
+    assert r1["exceeded"] and not r0["exceeded"]
+    assert r0["seen"] == r1["seen"]
+    b = _ladder_batcher(0, 2)
+    steps = b.steps_per_epoch()
+    flags = [agreed for _, agreed in r0["seen"]]
+    assert flags == [False] * steps + [True] * 2 * steps
+    # epoch 0 uncapped on both ranks, then the cap on the widths cut so far
+    nominal = [x["input_ids"].shape[1] for epoch in range(3) for x in b.local_batches(epoch)]
+    expected, used = nominal[:steps], set(nominal[:steps])
+    for w in nominal[steps:]:
+        if w not in used:
+            w = min((u for u in used if u >= w), default=64)
+        used.add(w)
+        expected.append(w)
+    assert [w for w, _ in r0["seen"]] == expected != nominal
 
 
 # -- training on the new data path -------------------------------------------------

@@ -727,7 +727,19 @@ def _raise_sites():
         ("serve-cli-arrival", lambda: _serve_cli("--arrival", "poisson:20"), None),
         ("serve-cli-rate-limit", lambda: _serve_cli("--rate_limit", "*=0.001:1",
                                                     requests=2), None),
+        ("obs-lint", _obs_lint, "12"),
     ]
+
+
+def _obs_lint():
+    """``python -m <port>.obs lint``: the JAX package's static analysis is
+    not ported."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.__main__ import (
+        build_parser,
+    )
+
+    args = build_parser().parse_args(["lint"])
+    args.func(args)
 
 
 def _ported_llama_family():

@@ -17,6 +17,7 @@
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -399,3 +400,248 @@ def test_profile_fit_writes_a_trace(tmp_path):
     doc = json.loads(traces[0].read_text())
     names = {e.get("name", "") for e in doc["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)    # CPU activity on the CPU
+
+
+# -- the compile tracker and its budget ------------------------------------------------
+
+def _both_states(tmp_path):
+    """A file-backed state of each package: (port obs, port dir, JAX obs,
+    JAX dir). The JAX package's tracker is built directly on its state:
+    its ``install_compile_tracker`` would register the listener that
+    breaks every later jax compile in this worker."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu import obs as jax_obs
+
+    obs.reset(out_dir=str(tmp_path / "port"), enabled=True)
+    jax_obs.reset(out_dir=str(tmp_path / "jax"), enabled=True)
+    return jax_obs
+
+
+def _typed(out, *types):
+    path = out / "events.jsonl"
+    if not path.exists():
+        return []
+    return [{k: v for k, v in e.items() if k not in ("t", "pid")}
+            for e in map(json.loads, path.read_text().splitlines()) if e["type"] in types]
+
+
+def test_compile_tracker_counts_compile_events_on_both_trackers(tmp_path):
+    """The JAX package's ``test_compile_tracker_counts_compile_events`` on
+    both trackers: the marker filter, the count, the cumulative seconds,
+    and ``compile`` events equal field for field (apart from ``t`` and
+    ``pid``) and valid under the JAX schema."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.obs import schema as j_schema
+    from huggingface_sagemaker_tensorflow_distributed_tpu.obs.watchdog import (
+        CompileTracker as JaxTracker,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+        CompileTracker,
+    )
+
+    jax_obs = _both_states(tmp_path)
+    try:
+        trackers = (CompileTracker(obs.state()), JaxTracker(jax_obs.state()))
+        for t in trackers:
+            t.observe("/jax/core/compile/backend_compile_duration", 1.5)
+            t.observe("/jax/core/something_else", 9.0)        # no marker: ignored
+            t.observe("/jax/pjit/compile", 0.5)
+            t.observe("/hstd/compile/load/flash_attention", 0.0125)
+        for t in trackers:
+            assert t.count == 3 and t.cum_secs == pytest.approx(2.0125)
+            assert not t.budget_exceeded
+    finally:
+        obs.reset()
+        jax_obs.reset()
+    port, ref = _typed(tmp_path / "port", "compile"), _typed(tmp_path / "jax", "compile")
+    assert port == ref and [c["count"] for c in port] == [1, 2, 3]
+    assert all(j_schema.validate_event({**c, "t": 0.0, "pid": 1}) == [] for c in port)
+
+
+def test_compile_budget_crossing_alerts_once_and_latches_like_jax(tmp_path, capsys):
+    """The budget crossed on the second compile: one ``alert`` named
+    ``compile_budget`` and one stderr line from each package, the flag
+    latched (a third compile alerts no more), the ``compile`` and ``alert``
+    events equal field for field apart from ``t``, ``pid`` and the
+    message's wording (the JAX package names XLA and its compile cache;
+    the port names its native builds), which carries the same budget, sum
+    and count."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu.obs.watchdog import (
+        CompileTracker as JaxTracker,
+    )
+
+    jax_obs = _both_states(tmp_path)
+    try:
+        port = obs.compile_tracker()
+        port.budget_s = 0.5
+        ref = JaxTracker(jax_obs.state(), budget_s=0.5)
+        assert not obs.compile_budget_exceeded()
+        for secs in (0.3, 0.4, 0.4):
+            for t in (port, ref):
+                t.observe("backend_compile_time", secs)
+        assert port.budget_exceeded and ref.budget_exceeded
+        assert obs.compile_budget_exceeded() and obs.compile_budget_capped(1)
+    finally:
+        obs.reset()
+        jax_obs.reset()
+    assert not obs.compile_budget_exceeded()       # the tracker left with its state
+    got, want = (_typed(tmp_path / d, "compile", "alert") for d in ("port", "jax"))
+    messages = [e.pop("message") for e in got + want if e["type"] == "alert"]
+    assert got == want and [e["type"] for e in got].count("alert") == 1
+    assert got[2] == {"v": 1, "host": 0, "type": "alert", "name": "compile_budget",
+                      "cum": 0.7, "budget_s": 0.5, "count": 2}
+    shared = ("compile time 0.7s exceeds HSTD_COMPILE_BUDGET_S=0.5s after 2 compilations "
+              "— bucket ladders will stop minting new widths")
+    assert all(shared in m for m in messages)
+    assert capsys.readouterr().err.count("[hstd-obs] COMPILE BUDGET:") == 2
+
+
+def test_observe_takes_extra_keywords():
+    """A caller may pass more than the event and its seconds (jax 0.9
+    passes ``fun_name=`` to its listeners): the port's tracker takes them
+    without raising."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
+        CompileTracker,
+    )
+
+    t = CompileTracker(obs.state(), budget_s=None)
+    t.observe("/jax/core/compile/backend_compile_duration", 0.25, fun_name="f", extra=1)
+    assert t.count == 1 and t.cum_secs == 0.25
+
+
+def test_tracker_installs_only_on_an_enabled_state_and_once(tmp_path):
+    obs.reset(enabled=False)
+    assert obs.compile_tracker() is None and not obs.enabled()
+    obs.reset(out_dir=str(tmp_path), enabled=True)
+    assert obs.enabled() and obs.compile_tracker() is obs.compile_tracker()
+
+
+def test_load_host_reports_one_compile_event(tmp_path, monkeypatch):
+    """The first load of the (already built) host library in a process is
+    one ``/hstd/compile/load/host`` observation; a second call is the
+    cached library and reports nothing."""
+    import functools
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the host library cannot be built")
+    _build.build_host()
+    monkeypatch.setattr(_build, "load_host",
+                        functools.lru_cache(maxsize=None)(_build.load_host.__wrapped__))
+    obs.reset(out_dir=str(tmp_path), enabled=True)
+    tracker = obs.compile_tracker()
+    _build.load_host()
+    _build.load_host()
+    obs.reset()
+    events = _typed(tmp_path, "compile")
+    assert [e["event"] for e in events] == ["/hstd/compile/load/host"] and tracker.count == 1
+    assert 0 <= events[0]["dur"] < 5
+
+
+def _stub_nvcc(bin_dir, delays: dict, fail=()):
+    """An ``nvcc`` on ``PATH`` that sleeps a source's delay, then writes the
+    library (or exits 1 for a source in ``fail``)."""
+    bin_dir.mkdir()
+    script = bin_dir / "nvcc"
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        f"delays, fail = {delays!r}, {tuple(fail)!r}\n"
+        "args = sys.argv[1:]\n"
+        "src = args[-1].rsplit('/', 1)[-1][:-3]\n"
+        "time.sleep(delays[src])\n"
+        "if src in fail:\n"
+        "    sys.stderr.write('error: ' + src + '\\n'); sys.exit(1)\n"
+        "open(args[args.index('-o') + 1], 'wb').write(b'lib')\n"
+        "sys.stderr.write('ptxas info: ' + src + '\\n')\n")
+    script.chmod(0o755)
+
+
+def test_parallel_nvcc_builds_each_report_their_own_seconds(tmp_path, monkeypatch):
+    """Two builds started together (the slower first in the list): each
+    reports its own wall seconds, as the JAX package sums each compile's
+    duration, and the two overlap."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+
+    _stub_nvcc(tmp_path / "bin", {"flash_attention": 1.2, "paged_attention": 0.2})
+    monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}:{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    obs.reset(out_dir=str(tmp_path / "tel"), enabled=True)
+    tracker = obs.compile_tracker()
+    t0 = time.perf_counter()
+    _build.build("flash_attention", "paged_attention")
+    wall = time.perf_counter() - t0
+    _build.build("flash_attention", "paged_attention")       # built: nothing to report
+    obs.reset()
+    events = {e["event"]: e["dur"] for e in _typed(tmp_path / "tel", "compile")}
+    assert set(events) == {"/hstd/compile/nvcc/flash_attention",
+                           "/hstd/compile/nvcc/paged_attention"} and tracker.count == 2
+    assert events["/hstd/compile/nvcc/flash_attention"] >= 1.2
+    assert events["/hstd/compile/nvcc/paged_attention"] < 1.0
+    assert wall < 1.2 + 0.2 + 0.5
+    for name in ("flash_attention", "paged_attention"):
+        assert _build.library_path(name).read_bytes() == b"lib"
+        assert name in _build.build_log(name).read_text()
+
+
+def test_a_failed_nvcc_build_raises_and_reports_only_the_others(tmp_path, monkeypatch):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import _build
+
+    _stub_nvcc(tmp_path / "bin", {"flash_attention": 0.05, "paged_attention": 0.05},
+               fail=("flash_attention",))
+    monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}:{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    tracker = obs.compile_tracker()
+    with pytest.raises(RuntimeError, match="nvcc failed to build csrc/flash_attention.cu"):
+        _build.build("flash_attention", "paged_attention")
+    assert tracker.count == 1 and not _build.library_path("flash_attention").exists()
+    assert _build.library_path("paged_attention").exists()
+
+
+def test_obs_helpers_match_jax(monkeypatch, tmp_path):
+    """``heartbeat_env_interval``, ``alert``, ``anomaly_counts``,
+    ``anomaly_total`` and ``flight_recorder`` as the JAX package's."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu import obs as jax_obs
+
+    for raw, default in (("", 60.0), ("2.5", 60.0), ("bad", 10.0), ("", 10.0)):
+        monkeypatch.setenv("HSTD_HEARTBEAT_SECS", raw)
+        assert obs.heartbeat_env_interval(default) == jax_obs.heartbeat_env_interval(default)
+    assert obs.anomaly_counts() == {} and obs.anomaly_total() == 0
+    obs.reset(out_dir=str(tmp_path / "port"), enabled=True)
+    jax_obs.reset(out_dir=str(tmp_path / "jax"), enabled=True)
+    try:
+        for o in (obs, jax_obs):
+            o.alert("host_oom", "the host ran out", args={"rss": 3})
+            o.alert("budget", "over")
+        assert (obs.flight_recorder() is None) == (jax_obs.flight_recorder() is None)
+        det = obs.anomalies()
+        det.observe_loss(3, float("nan"))
+        assert obs.anomaly_counts() == dict(det.counts) and obs.anomaly_total() == det.total
+        assert obs.anomaly_total() >= 1
+    finally:
+        obs.reset()
+        jax_obs.reset()
+    assert _typed(tmp_path / "port", "alert") == _typed(tmp_path / "jax", "alert")
+    assert len(_typed(tmp_path / "port", "alert")) == 2
+
+
+def test_instrumented_fit_installs_the_compile_tracker(tmp_path, monkeypatch):
+    """A fit with a telemetry directory installs the compile tracker (as
+    the JAX trainer does) and its compiles become events; a fit without
+    one installs none."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import watchdog
+
+    real = Trainer.train_step
+
+    def step(self, batch):
+        watchdog.report_compile("/hstd/compile/load/flash_attention", 0.01)
+        return real(self, batch)
+
+    monkeypatch.setattr(Trainer, "train_step", step)
+    _fit(tmp_path, epochs=1)
+    assert not [t for t in watchdog._INSTALLED if t.state is obs.state()]
+    obs.reset(out_dir=str(tmp_path / "tel"), enabled=True)
+    trainer, _ = _fit(tmp_path, epochs=1)
+    installed = [t for t in watchdog._INSTALLED if t.state is obs.state()]
+    obs.reset()
+    compiles = _typed(tmp_path / "tel", "compile")
+    assert len(installed) == 1 and installed[0].count == trainer.step == len(compiles) > 0

@@ -1,20 +1,24 @@
-"""PyTorch port: fleet request tracing, the stitching half
-(``obs/trace.py``: ``collect_traces``, ``check_trace``, ``fleet_summary``).
-The JAX package's ``tests/test_trace.py`` stitch cases run on both
-packages (the unported renderers stay the JAX package's and read what the
-port stitched); the events of the port's traced runs with a mid-decode
-migration, a live drain and a prefill/decode handoff go through both
-packages' stitchers, which report the same complete traces, phases and
-fleet rollup and find nothing wrong; an untraced stream carries no
-``trace_id``/``hop``. Trace records and rollups are held equal exactly
-(the stitchers fold the same events with the same arithmetic)."""
+"""PyTorch port: fleet request tracing (``obs/trace.py``: the stitcher
+``collect_traces``, ``check_trace``, ``fleet_summary`` and the renderers
+``trace_text``, ``fleet_text``, ``fleet_chrome_trace``). The JAX package's
+``tests/test_trace.py`` host cases run on both packages, and once more with
+every reader they call and every ``scripts/obsctl.py trace|fleet`` run they
+make paired with the port's on the same inputs (``tests/torch_obs_pairs.py``);
+the events of the port's traced runs with a mid-decode migration, a live
+drain and a prefill/decode handoff go through both packages' stitchers and
+renderers, which report the same complete traces, phases, fleet rollup,
+narratives and Chrome exports and find nothing wrong; an untraced stream
+carries no ``trace_id``/``hop``. Trace records, rollups and renderings are
+held equal exactly (the same events folded with the same arithmetic)."""
 
+import inspect
 import json
 
 import numpy as np
 import pytest
 
 import test_trace as jax_trace_cases
+import torch_obs_pairs as pairs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import schema as t_schema
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs import trace as t_trace
@@ -23,6 +27,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.router import 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.transport import (
     migrate_request,
 )
+from test_trace import stitched_dirs  # noqa: F401  (the fixture the cases take)
 from torch_decode_pairs import (  # noqa: F401
     as_port,
     detached_compile_trackers,
@@ -47,13 +52,29 @@ HOST_CASES = [
 def test_jax_trace_cases_hold_on_both_packages(case, impl, monkeypatch):
     _, fn = case
     if impl == "port":
-        as_port(monkeypatch, C, keep=RENDERERS)
-        assert C.collect_traces is t_trace.collect_traces
-        assert C.check_trace is t_trace.check_trace
-        assert C.fleet_summary is t_trace.fleet_summary
+        as_port(monkeypatch, C)
+        for name in ("collect_traces", "check_trace", "fleet_summary") + RENDERERS:
+            assert getattr(C, name) is getattr(t_trace, name)
         monkeypatch.setattr("huggingface_sagemaker_tensorflow_distributed_tpu.obs.schema."
                             "validate_event", t_schema.validate_event)
     fn()
+
+
+# the JAX engine's runs (the port's are below)
+ENGINE_CASES = ("test_engine_mid_decode_migration_stitches_complete",
+                "test_engine_untraced_stream_carries_no_trace_fields")
+PAIRED_CASES = [name for name, _ in inspect.getmembers(C, inspect.isfunction)
+                if name.startswith("test_") and name not in ENGINE_CASES]
+
+
+@pytest.mark.parametrize("case", PAIRED_CASES)
+def test_jax_trace_cases_pair_with_the_port(case, monkeypatch, request):
+    """Each host, renderer and CLI case of the JAX file with its readers
+    and its ``obsctl`` runs paired: the port's output byte for byte."""
+    paired = pairs.pair_case(monkeypatch, C, modules=("trace", "timeline", "schema"))
+    fn = getattr(C, case)
+    fn(**{name: request.getfixturevalue(name) for name in inspect.signature(fn).parameters})
+    assert paired.calls, f"{case} called no reader"
 
 
 def test_phases_equal_the_jax_ones():
@@ -89,6 +110,10 @@ def _both_stitchers(events):
         assert t_trace.check_trace(tr) == [] == j_trace.check_trace(tr)
     assert (json.dumps(t_trace.fleet_summary(got), sort_keys=True)
             == json.dumps(j_trace.fleet_summary(want), sort_keys=True))
+    assert [t_trace.trace_text(t) for t in got] == [j_trace.trace_text(t) for t in want]
+    assert t_trace.fleet_text(got) == j_trace.fleet_text(want)
+    assert (json.dumps(t_trace.fleet_chrome_trace(got), sort_keys=True)
+            == json.dumps(j_trace.fleet_chrome_trace(want), sort_keys=True))
     return got, want
 
 
