@@ -314,12 +314,12 @@ back in the JSON file OUT:
    sampled, beam 4 (its score at least greedy's), speculative T5 with a
    2-layer draft (tokens equal greedy up to the first near-tie; BART
    refused), the int8 model (its logits' correlation read); tokens/s each.
-   The predict CLI in subprocesses started together on the script's
+   The predict CLI's entry, in this process, on the script's
    exports (seq-cls, mlm, causal-lm beam, sampled and self-speculative,
    seq2seq): the JAX rows' keys, generated ids equal to the direct calls';
 10. the Llama family and MoE (``llama_phase``), each model's published
    widths written as its ``config.json`` by the script, random weights
-   from a seed: (a) Llama-3.1-8B in bf16 built on the card, 8 requests of
+   from a seed: (a) Llama-3.1-8B (depth 8 of 32) in bf16 built on the card, 4 requests of
    128-512 prompt tokens and 32 new through the engine's defaults (8
    slots, chunk 32, max_model_len 2048) on fp pools, int8 pools and the
    gather route; K3 once a layer a decode step; each run's tokens held to
@@ -333,31 +333,32 @@ back in the JSON file OUT:
    equal to K3 up to such a tie; (b) Mistral-7B's widths at depth 4, a
    4600-token prompt past its window of 4096 and 32 new tokens, every K3
    call with the window; (c) TinyLlama-1.1B at full depth through the
-   train CLI (bf16, batch 4 x 1024 EOS-joined rows, 12 steps): K1 and K2
+   train CLI (bf16, batch 4 x 1024 EOS-joined rows, 6 steps): K1 and K2
    counted, samples/s, MFU, busy, idle, K2's share; the fp32 gate at depth
    2 (loss 1e-5 relative and every gradient 1e-3 relative L2 on the first
-   step, five AdamW steps' losses 1e-5); (d) Mixtral-8x7B's widths at
+   step, three AdamW steps' losses 1e-5); (d) Mixtral-8x7B's widths at
    depth 1: five bf16 steps at 2 x 512 through K1 and K2 with the aux
    loss, tokens per expert and capacity drops, the fp32 gate at batch 1,
    and 16 greedy tokens equal to the full forward's argmax at a capacity
-   that cannot bind; (e) Gemma-7B at full depth in bf16 (head_dim 256, one
-   query head a K/V head) on K3 at D 256: 8 requests of 128-512 prompt
+   that cannot bind; (e) Gemma-7B at depth 7 of 28 in bf16 (head_dim 256, one
+   query head a K/V head) on K3 at D 256: 4 requests of 128-512 prompt
    tokens and 32 new on fp and int8 pools, each held by
-   ``_plain_agreement``; (f) Gemma-2B at full depth (MQA, D 256, vocab
-   256000, the tied head) through the train CLI as (c), 2 x 1024, 8 steps,
+   ``_plain_agreement``; (f) Gemma-2B at depth 6 of 18 (MQA, D 256, vocab
+   256000, the tied head) through the train CLI as (c), 2 x 1024, 4 steps,
    and its fp32 gate at depth 2 through the fp32 D-256 kernels; its K3
-   cases (``llama_kernel_phase``: ``LLAMA_KERNEL_CASES`` and
-   ``GEMMA_KERNEL_CASES``), K1 cases (in phase 5) and K2 cases (in phase
-   7) run after it in their own processes;
+   cases (``LLAMA_KERNEL_CASES`` and ``GEMMA_KERNEL_CASES``) are among phase
+   2's (``kernel_phase(cases)`` runs a list of them alone), its K1 cases
+   (in phase 5) and K2 cases (in phase 7) run after it in their own
+   processes;
 11. the job as the source system launches it: (a) ``launch_phase``: the
    reference's job through ``python -m <port>.launch --slice h100-1``
-   (BERT-large-WWM seq-cls at full width and depth, random weights, 30
-   steps and 16 eval steps on the vendored reviews), its job directory,
+   (BERT-large-WWM seq-cls at full width, depth 6 of 24, random weights,
+   12 steps and 4 eval steps on the vendored reviews), its job directory,
    results, reloaded export, the child's K1 counts from its telemetry and
    wall; then the single-node entry, the learning rate unscaled; (b)
    ``optim_memory_phase`` (its own process, it profiles): AdamW with fp32
    and with bf16 moments, LAMB, and AdamW under remat ``full``, ``dots`` and
-   ``dots_no_batch`` on BERT-large-WWM at 8 x 512: peak memory, moment
+   ``dots_no_batch`` on BERT-large-WWM (depth 4 of 24) at 8 x 512: peak memory, moment
    bytes (bf16 exactly half), busy, idle, step ms, K1 launches a step
    (the forward twice under remat), the first step's loss equal across
    runs; (c) ``optim_parity_phase``: LAMB and bf16-moment AdamW on the card
@@ -375,13 +376,22 @@ back in the JSON file OUT:
    serve_engine phase's timelines, the Chrome trace parsed back; (d)
    ``trace`` and ``fleet`` over the serve_router drain (every trace
    complete, one a request); (e) in a process of its own
-   (``compile_budget_phase``) BERT-base seq-cls at full width and depth
+   (``compile_budget_phase``) BERT-base seq-cls at full width (depth 4)
    through the training CLI with ``--bucket_multiple 64`` and
    ``HSTD_COMPILE_BUDGET_S=0``: one ``compile_budget`` alert, and after it
    no width the batcher had not cut before but the full one; the build of
    phase 1 counts its ``nvcc`` builds and their seconds through a compile
    tracker (f);
-13. each phase's wall seconds, the ``kernels`` line (the paged kernel's
+13. training over a ``dp x fsdp x tp`` mesh (``mesh_train_phase``, a
+   process of its own with an NCCL world of one and a ``(1, 1, 1)`` mesh):
+   TinyLlama's widths at depth 4 on 2 x 1024 EOS-joined rows, 3 fp32 steps
+   through ``shard_model`` (FSDP2 and the tensor-parallel plan) against the
+   plain trainer (losses within 1e-6, the first update's gradients within
+   1e-5 relative L2, K1's and K2's launches a step equal, the unsharded
+   head weight aligned for K2's TMA), then bf16 steps: samples/s, the idle
+   share, both peaks. Every fresh process runs under its phase's time limit
+   (``FRESH_PROCESS_TIMEOUTS_S``), every subprocess under its own;
+14. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
    shared-block cases; the llama phase's launches and cases beside), the
@@ -390,7 +400,9 @@ back in the JSON file OUT:
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import re
@@ -427,9 +439,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 NEAR_TIE = 1e-3
-# the profiled windows' marker kernels: 32 spins of about 1.25 ms each at
-# the H100's clock
-MARKER_CYCLES = 80_000_000
+# the profiled windows' marker kernels: 32 spins of about 0.6 ms each at
+# the H100's clock (20 ms in all: the flash and vocab-CE
+# cases time in fresh processes, the K3 cases before any other profiling,
+# and a record the profiler still drops costs a sample, not a call's time,
+# and is printed)
+MARKER_CYCLES = 40_000_000
 MARKER_KERNELS = 32
 # the spin that holds the card while ``_host_ms`` times a loop of calls:
 # about 100 ms at the H100's clock
@@ -460,12 +475,16 @@ def _no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+SMI_TIMEOUT_S = 30              # nvidia-smi's query, well under a second
+
+
 def env_phase() -> str:
     import torch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        capture_output=True, text=True, check=True,
+        timeout=SMI_TIMEOUT_S).stdout.strip().splitlines()
     check(bool(smi), "nvidia-smi printed no card")
     _no_tf32()
     emit({"phase": "env", "card": smi[0], "torch": torch.__version__,
@@ -709,20 +728,24 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
     device time of that name's records times its launches a call; with
     None, every device activity of the windows, each record name counted
     as ``_pooled_ms`` does.
-    Unlike ``_cuda_ms`` it holds no host gap between launches. Each window
-    opens with ``MARKER_KERNELS`` marker kernels that spin for about 40 ms
-    in all (``torch.cuda._sleep``; their spin kernels are left out of the
-    sums): the profiler can lose the records of the kernels that run while
-    it is still starting to record, and the more so after many earlier
-    profiler sessions in the process (a marker of 1000 cycles still lost
-    one call in five of the K2 kernels; after the serve profile's long
-    window every later window lost its first two records; after the
-    lifecycle phase's profiled fits a window of 10 ms of markers lost one
-    vocab-CE call in five). A record the profiler still drops costs that
-    name one sample of its mean, not a call's time in the sum: such a loss
-    is printed as a ``profiler_loss`` line. A window that holds no record
-    of a name, more records of one than ``iters`` calls launch, or no
-    device time, is taken again, up to ``repeats`` times in all."""
+    Unlike ``_cuda_ms`` it holds no host gap between launches. The windows
+    run back to back in one profiler session (one session a
+    window until then: a session's start and stop cost the host far more
+    than its calls), each opened by ``MARKER_KERNELS`` marker kernels that
+    spin for about 20 ms in all (``torch.cuda._sleep``; their spin kernels
+    split the session's records into windows, :func:`_window_records`, and
+    are left out of the sums): the profiler can lose the records of the
+    kernels that run while it is still starting to record, and the more so
+    after many earlier profiler sessions in the process (a marker of 1000
+    cycles still lost one call in five of the K2 kernels; after the serve
+    profile's long window every later window lost its first two records;
+    after the lifecycle phase's profiled fits a window of 10 ms of markers
+    lost one vocab-CE call in five). A record the profiler still drops costs
+    that name one sample of its mean, not a call's time in the sum: such a
+    loss is printed as a ``profiler_loss`` line. A window that holds no
+    record of a name, more records of one than ``iters`` calls launch, or no
+    device time, is taken again (a session of the windows still missing),
+    up to ``repeats`` times in all."""
     import statistics
 
     import torch
@@ -736,34 +759,41 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
               else dict(match) if isinstance(match, dict) else dict.fromkeys(match, 1))
     per_call, windows, short, lost = [], [], 0, 0
     while len(per_call) + len(windows) < repeats:
+        wanted = repeats - len(per_call) - len(windows)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(MARKER_KERNELS):
-                torch.cuda._sleep(MARKER_CYCLES // MARKER_KERNELS)
-            for i in range(iters):
-                fn(*arg_sets[i % len(arg_sets)])
-            torch.cuda.synchronize()
-        if counts is None:
-            records = {k: v for k, v in _device_records(prof).items() if "spin_kernel" not in k}
-            if records:
-                windows.append(records)
-                continue
-            held = [0]
-        else:
-            # records and seconds by name straight off the kineto results
-            # (``key_averages`` gives the same counts after building its
-            # event tree, seconds of host time a window)
-            records = _device_records(prof)
-            held = [sum(c for k, (_, c) in records.items() if n in k) for n in counts]
-            secs = [sum(t for k, (t, _) in records.items() if n in k) for n in counts]
-            if (all(0 < c <= iters * k for c, k in zip(held, counts.values()))
-                    and all(t > 0 for t in secs)):
-                per_call.append(sum(t / c * k for t, c, k in zip(secs, held, counts.values()))
-                                * 1e3)
-                lost += iters * sum(counts.values()) - sum(held)
-                continue
-        short += 1
-        check(short <= repeats, f"{short} profiled windows held {held} of {iters} "
-                                f"launches of {match or 'the call'}")
+            for _ in range(wanted):
+                for _ in range(MARKER_KERNELS):
+                    torch.cuda._sleep(MARKER_CYCLES // MARKER_KERNELS)
+                for i in range(iters):
+                    fn(*arg_sets[i % len(arg_sets)])
+                torch.cuda.synchronize()
+        found = _window_records(_device_events(prof))
+        if len(found) != wanted:       # a window's markers lost: take them all again
+            short += wanted
+            check(short <= repeats, f"profiled sessions split into {len(found)} windows, "
+                                    f"not {wanted}")
+            continue
+        for records in found:
+            if counts is None:
+                if records:
+                    windows.append(records)
+                    continue
+                held = [0]
+            else:
+                # records and seconds by name straight off the kineto
+                # results (``key_averages`` gives the same counts after
+                # building its event tree, seconds of host time a session)
+                held = [sum(c for k, (_, c) in records.items() if n in k) for n in counts]
+                secs = [sum(t for k, (t, _) in records.items() if n in k) for n in counts]
+                if (all(0 < c <= iters * k for c, k in zip(held, counts.values()))
+                        and all(t > 0 for t in secs)):
+                    per_call.append(
+                        sum(t / c * k for t, c, k in zip(secs, held, counts.values())) * 1e3)
+                    lost += iters * sum(counts.values()) - sum(held)
+                    continue
+            short += 1
+        check(short <= repeats, f"{short} profiled windows short of {iters} launches of "
+                                f"{match or 'the call'} (the last held {found[-1:]})")
     if windows:
         ms, lost = _pooled_ms(windows, iters)
     else:
@@ -772,6 +802,37 @@ def _device_ms(fn, arg_sets, match: str | tuple | None = None, iters: int = 20,
         emit({"phase": "profiler_loss", "kernels": list(counts or ("the call",)),
               "windows": repeats, "iters": iters, "records_lost": lost})
     return ms
+
+
+def _device_events(prof) -> list:
+    """(name, start ns, duration ns) of every device record of a profiled
+    session, straight off the profiler's kineto results."""
+    import torch
+
+    return [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0]
+
+
+def _window_records(events) -> list:
+    """A session's device records (``_device_events``) cut into its
+    windows: each window opens with a run of marker spin kernels; per
+    window, ``{name: (device seconds, records)}`` of the other records. A
+    window whose markers the profiler dropped merges into the one before
+    it (the caller, finding too few windows, takes them again)."""
+    out, spin_open = [], False
+    for name, _, dur in sorted(events, key=lambda e: e[1]):
+        if "spin_kernel" in name:
+            if not spin_open:
+                out.append({})
+                spin_open = True
+            continue
+        spin_open = False
+        if not out:
+            out.append({})
+        secs, n = out[-1].get(name, (0.0, 0))
+        out[-1][name] = (secs + dur / 1e9, n + 1)
+    return out
 
 
 def _host_ms(fn, arg_sets, iters: int = 100, repeats: int = TIMING_REPEATS) -> float:
@@ -1233,8 +1294,9 @@ def profile_phase(model, trace, serve_wall_s: float) -> dict:
 
 # (a) the JAX prefix bench's templated trace at its accelerator scale
 # (benchmarks/serve_bench.py): a 320-token template plus 8-32 tokens of
-# tail, 8-16 new tokens (24-32 every 8th), 16 slots, chunk 32, width 512
-PREFIX_REQUESTS, PREFIX_LEN, PREFIX_TAILS = 48, 320, (8, 32)
+# tail, 8-16 new tokens (24-32 every 8th), 16 slots, chunk 32, width 512;
+# 24 requests
+PREFIX_REQUESTS, PREFIX_LEN, PREFIX_TAILS = 24, 320, (8, 32)
 PREFIX_NEW = ((8, 16), (24, 32))
 PREFIX_ENGINE = dict(num_slots=16, block_size=16, prefill_chunk=32,
                      max_model_len=512, num_blocks=1 + 8 + 3 * (512 // 16))
@@ -1662,7 +1724,7 @@ ROUTER_PROFILED = (8, 40)       # the fleet iterations profiled for the idle sha
 FLEET4_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=256,
                      gather_buckets=[128, 256])
 DISAGG = dict(n=32, prompt=(32, 128), new=(8, 24), rate=500.0, ttft_s=0.01)
-OPEN_LOOP = dict(n=32, prompt=(8, 24), new=(8, 24), rates=(40.0, 100000.0),
+OPEN_LOOP = dict(n=16, prompt=(8, 24), new=(8, 24), rates=(40.0, 100000.0),
                  wall_rates=(8.0, 32.0, 128.0))
 FLEET_TICK_S, FLEET_SEED = 0.001, 11
 
@@ -2179,6 +2241,9 @@ TC_KERNELS = (("flash_fwd_tc_kernel", (64, 128, 256)),
               ("vocab_ce_dw_wgmma_kernel", (None,), "HGMMA"))
 
 
+CUOBJDUMP_TIMEOUT_S = 120       # one library's SASS listing, a few seconds
+
+
 def _library_report(lib_name: str, kernels) -> dict:
     """ptxas's report and the SASS ``HMMA`` and ``HGMMA`` counts of each
     entry function of a built library, by mangled name, for the kernels
@@ -2191,7 +2256,8 @@ def _library_report(lib_name: str, kernels) -> dict:
     ptxas = _ptxas_report(_build.build_log(lib_name).read_text())
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(lib_name))],
-                          capture_output=True, text=True, check=True).stdout
+                          capture_output=True, text=True, check=True,
+                          timeout=CUOBJDUMP_TIMEOUT_S).stdout
     hmma, hgmma = _sass_counts(sass, "HMMA"), _sass_counts(sass, "HGMMA")
     out = {}
     for mangled, info in ptxas.items():
@@ -2435,6 +2501,10 @@ def _sdpa_mask(t, case):
     return None
 
 
+# flash_phase's process: about 3x its 78.7 s on the H100
+FLASH_PHASE_TIMEOUT_S = 240
+
+
 def flash_phase(cases=None) -> dict:
     """Each flash kernel against its plain version on every case
     (``cases``, else ``FLASH_CASES``); times and bounds. Returns the rows
@@ -2587,7 +2657,7 @@ PARITY_KEY_BIAS = 1e-5
 PARITY_BF16_LOSS_RTOL = 2.0 ** -6
 PARITY_BF16_FACTOR = 2.0
 PARITY_BF16_KEY_BIAS = 2.0 ** -10
-CLI_STEPS = 40
+CLI_STEPS = 20
 CLI_EVAL_SAMPLES = 64
 
 
@@ -2653,6 +2723,9 @@ DEBERTA_V3_BASE = {"model_type": "deberta-v2", "architectures": ["DebertaV2ForMa
                    "norm_rel_ebd": "layer_norm", "position_biased_input": False,
                    "pooler_dropout": 0, "pooler_hidden_act": "gelu", "pad_token_id": 0}
 PARITY_DEPTH = 2                # the other families' parity steps: 2 layers (ALBERT: 2 uses)
+# the mlm, packing and deberta phases' BERT-base, GPT-2 124M and DeBERTa-v3-base
+# runs: 6 of their 12 layers
+BREADTH_DEPTH = 6
 S2S_SEQ = 512                   # the seq2seq runs' source length (the CLI's default)
 S2S_TARGET = 64                 # and target length (--max_target_length's default)
 
@@ -3150,15 +3223,11 @@ def _device_seconds_by_kernel(prof) -> dict:
 
 
 def _device_records(prof) -> dict:
-    """Per record name of a profiled window: (device seconds, records),
-    straight off the profiler's kineto results."""
-    import torch
-
+    """Per record name of a profiled window: (device seconds, records)."""
     out = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
-            secs, n = out.get(e.name(), (0.0, 0))
-            out[e.name()] = (secs + e.duration_ns() / 1e9, n + 1)
+    for name, _, dur in _device_events(prof):
+        secs, n = out.get(name, (0.0, 0))
+        out[name] = (secs + dur / 1e9, n + 1)
     return out
 
 
@@ -3318,6 +3387,7 @@ def train_cli_phase(work: Path) -> dict:
 
 # -- the trainer's lifecycle ---------------------------------------------------
 
+LIFECYCLE_DEPTH = 4             # runs (1)-(3): BERT-base's widths at 4 of 12 layers
 LIFECYCLE_EPOCHS = 2
 LIFECYCLE_STEPS = 12            # per epoch
 LIFECYCLE_EVAL_SAMPLES = 32
@@ -3440,7 +3510,8 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
 
     cfg_dir, ckpt_dir = work / "config", work / "ckpt"
     cfg_dir.mkdir(parents=True, exist_ok=True)
-    (cfg_dir / "config.json").write_text(json.dumps(BERT_BASE))
+    (cfg_dir / "config.json").write_text(json.dumps(dict(BERT_BASE,
+                                                         num_hidden_layers=LIFECYCLE_DEPTH)))
     common = ["--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
               "--dataset", "vendored_reviews", "--epochs", str(LIFECYCLE_EPOCHS),
               "--steps_per_epoch", str(LIFECYCLE_STEPS),
@@ -3543,8 +3614,8 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
                       torch.stack(full["losses"][:LIFECYCLE_CKPT_EVERY]).float()),
           "the interrupted run's first steps differ from the uninterrupted run's")
 
-    # launches: 12 layers x (train + eval steps) forward, x train steps backward
-    L = BERT_BASE["num_hidden_layers"]
+    # launches: the layers x (train + eval steps) forward, x train steps backward
+    L = LIFECYCLE_DEPTH
     eval_steps = math.ceil(LIFECYCLE_EVAL_SAMPLES / 4)
     for name, r in (("full", full), ("cut", cut), ("resumed", resumed)):
         train_steps, evals = len(r["losses"]), len(r["weights"])
@@ -3662,8 +3733,8 @@ def train_lifecycle_phase(work: Path, card: str, rerun_of: Path) -> dict:
 # -- the data stack --------------------------------------------------------------
 
 DATA_BUCKET = 64                # --bucket_multiple of run A
-DATA_STEPS = 30                 # run A's train steps
-DATA_SHORT_STEPS = 20           # runs A' and C
+DATA_STEPS = 15                 # run A's train steps
+DATA_SHORT_STEPS = 10           # runs A' and C
 DATA_EVAL_SAMPLES = 64          # run A's 16 eval steps at the eval batch of 4
 DATA_PROFILED_STEPS = 6
 # the vendored reviews hold 399 distinct words, every one of which a full
@@ -3992,6 +4063,7 @@ def data_phase(work: Path, card: str) -> dict:
 ENCODER_EVAL_SAMPLES = 64       # 16 eval steps at the eval batch of 4
 QA_EVAL_SAMPLES = 64            # --eval_qa_samples: answers decoded over their windows
 QA_WINDOWED_DEPTH = 2
+ENCODER_LARGE_DEPTH = 8         # BERT-large QA at 8 of its 24 layers
 EVAL_TASK_KEYS = {"seq-cls": [], "token-cls": ["eval_f1"],
                   "qa": ["eval_exact_match", "eval_f1"]}
 ENCODER_PROFILED_STEPS = 6
@@ -4004,13 +4076,14 @@ def _encoder_runs() -> list:
     qa = ["--dataset", "synthetic", "--eval_qa_samples", str(QA_EVAL_SAMPLES)]
     reviews = ["--dataset", "vendored_reviews"]
     return [
-        ("qa_bert_large", "bert", BERT_LARGE, "qa", 30, 384,
+        ("qa_bert_large", "bert", dict(BERT_LARGE, num_hidden_layers=ENCODER_LARGE_DEPTH),
+         "qa", 15, 384,
          qa + ["--qa_doc_stride", "128"]),
         ("qa_windowed", "bert", dict(BERT_LARGE, num_hidden_layers=QA_WINDOWED_DEPTH), "qa",
          10, 64, qa + ["--qa_doc_stride", "32"]),
-        ("token_cls_roberta", "roberta", ROBERTA_BASE, "token-cls", 30, 128,
+        ("token_cls_roberta", "roberta", ROBERTA_BASE, "token-cls", 15, 128,
          ["--dataset", "synthetic", "--num_labels", "9"]),
-        ("seq_cls_distilbert", "distilbert", DISTILBERT_BASE, "seq-cls", 30, 512, reviews),
+        ("seq_cls_distilbert", "distilbert", DISTILBERT_BASE, "seq-cls", 15, 512, reviews),
         ("seq_cls_electra", "electra", ELECTRA_SMALL, "seq-cls", 15, 512, reviews),
         ("seq_cls_albert", "albert", ALBERT_BASE, "seq-cls", 15, 512, reviews),
     ]
@@ -4232,11 +4305,12 @@ def _encoder_idle(trainer, spec) -> dict:
 
 # -- masked-LM and replaced-token-detection pretraining ----------------------
 
-MLM_STEPS = 20                  # runs 1 and 2
+MLM_STEPS = 10                  # runs 1 and 2
 MLM_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
 MLM_LARGE_STEPS = 10
-RTD_STEPS = 15
-MLM_STREAM_STEPS = 10
+MLM_LARGE_DEPTH = 8             # BERT-large-WWM at 8 of its 24 layers
+RTD_STEPS = 8
+MLM_STREAM_STEPS = 6
 MLM_PROFILED_STEPS = 6
 MLM_LARGE_PROFILED_STEPS = 3
 
@@ -4249,16 +4323,18 @@ def _mlm_runs() -> list:
         VENDORED_REVIEWS,
     )
 
+    base = dict(BERT_BASE, num_hidden_layers=BREADTH_DEPTH)
     fused = ["--fused_vocab_ce", "true"]
     evals = ["--max_eval_samples", str(MLM_EVAL_SAMPLES)]
     no_eval = ["--do_eval", "false"]
     return [
-        ("bert_base_fused", "bert", BERT_BASE, "mlm", MLM_STEPS, fused + evals),
-        ("bert_base_unfused", "bert", BERT_BASE, "mlm", MLM_STEPS,
+        ("bert_base_fused", "bert", base, "mlm", MLM_STEPS, fused + evals),
+        ("bert_base_unfused", "bert", base, "mlm", MLM_STEPS,
          ["--fused_vocab_ce", "false"] + evals),
-        ("bert_large_fused", "bert", BERT_LARGE, "mlm", MLM_LARGE_STEPS, fused + no_eval),
+        ("bert_large_fused", "bert", dict(BERT_LARGE, num_hidden_layers=MLM_LARGE_DEPTH),
+         "mlm", MLM_LARGE_STEPS, fused + no_eval),
         ("electra_small_rtd", "electra", ELECTRA_SMALL, "rtd", RTD_STEPS, evals),
-        ("bert_base_streaming", "bert", BERT_BASE, "mlm", MLM_STREAM_STEPS,
+        ("bert_base_streaming", "bert", base, "mlm", MLM_STREAM_STEPS,
          fused + no_eval + ["--streaming", "true", "--dataset_path", str(VENDORED_REVIEWS)]),
     ]
 
@@ -4490,13 +4566,13 @@ def mlm_phase(work: Path, card: str) -> dict:
 
 # -- encoder-decoder seq2seq ----------------------------------------------------
 
-S2S_STEPS = 20                  # runs 1 and 2
+S2S_STEPS = 10                  # runs 1 and 2
 S2S_EVAL_SAMPLES = 64           # 16 eval steps at the eval batch of 4
-S2S_ROUGE_SAMPLES = 32
-S2S_SHORT_STEPS = 10            # span corruption, streaming
+S2S_ROUGE_SAMPLES = 16
+S2S_SHORT_STEPS = 6             # span corruption, streaming
 S2S_SHORT_EVAL_SAMPLES = 16     # span corruption's 4 eval steps
-BART_STEPS = 15
-BART_ROUGE_SAMPLES = 16
+BART_STEPS = 8
+BART_ROUGE_SAMPLES = 8
 S2S_PROFILED_STEPS = 6
 BART_PROFILED_STEPS = 3
 GEN_ROWS = 8                    # the generation check's source rows
@@ -4951,6 +5027,10 @@ def _bwd_scratch_bytes(case) -> int:
     return 20 * V * H + 12 * N * V + 4 * N * H + 8 * -(-V // v_chunk) * splits * N * H
 
 
+# vocab_ce_phase's process: about 3x its 74.9 s on the H100
+VOCAB_CE_PHASE_TIMEOUT_S = 225
+
+
 def vocab_ce_phase(cases=None) -> dict:
     """Each K2 kernel against its plain version on every case (``cases``,
     else ``VOCAB_CASES``); times and bounds. Returns the rows by (case,
@@ -5123,7 +5203,7 @@ GPT2_124M = {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
              "resid_pdrop": 0.1, "embd_pdrop": 0.1, "attn_pdrop": 0.1,
              "initializer_range": 0.02, "bos_token_id": 50256, "eos_token_id": 50256}
 GPT2_SEQ = 512
-GPT2_CLI_STEPS = 20
+GPT2_CLI_STEPS = 10
 GPT2_EVAL_SAMPLES = 64
 PARITY_ZERO_GRAD = 1e-6
 
@@ -5359,9 +5439,9 @@ def gpt2_cli_phase(work: Path) -> dict:
 
 # -- decoding (sampling, beam, speculative, chunked prefill, int8) -----------------
 
-DECODE_ROWS = 8                 # prompts from the vendored reviews, right-padded
+DECODE_ROWS = 4                 # prompts from the vendored reviews, right-padded
 DECODE_PROMPT = 128             # tokens at most
-DECODE_NEW = 64
+DECODE_NEW = 16
 DECODE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 DECODE_SEED = 7
 DECODE_BEAMS = 4
@@ -5371,9 +5451,9 @@ DECODE_CHUNK = 32
 DECODE_PROFILED_NEW = 16        # the profiled call's new tokens: its trace's size
 QUANT_CORR = 0.999              # tests/test_quant.py's quality contract
 QUANT_REL = 0.05
-S2S_DECODE_NEW = 64
+S2S_DECODE_NEW = 16
 S2S_DRAFT_LAYERS = 2
-PREDICT_NEW = 32
+PREDICT_NEW = 16
 
 
 def _near_tie_steps(scores, tokens, eos: int) -> list:
@@ -5708,7 +5788,9 @@ PREDICT_ROW_KEYS = {"seq-cls": ["text", "label", "probs"], "mlm": ["text", "fill
 
 
 def predict_phase(work: Path, exports: dict) -> dict:
-    """(c) the predict CLI, each run a subprocess, all started together, on
+    """(c) the predict CLI's entry (``predict.main``), one run after the
+    other in this process (six subprocesses started together took 40.5 s
+    of wall, most of it six interpreters reaching the card), on
     exports the script wrote: seq-cls (the BERT CLI's), mlm (BERT-base
     MLM's), causal-lm (GPT-2's: beam 4, sampled, ``--self_speculate_layers
     4``), seq2seq (T5-small's). Each row carries the JAX script's keys;
@@ -5738,17 +5820,16 @@ def predict_phase(work: Path, exports: dict) -> dict:
         "seq2seq": ("seq2seq", exports["seq2seq"], ["--text", "summarize: " + text]),
     }
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-m", f"{PKG}.predict", "--model_dir", str(d), "--task", task,
-         "--max_new_tokens", str(PREDICT_NEW), "--max_seq_length", "128",
-         "--device", DEVICE, *extra],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, (task, d, extra) in runs.items()}
     outs = {}
-    for name, proc in procs.items():
-        out, err = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"predict {name} exited {proc.returncode}: {err[-2000:]}")
-        outs[name] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for name, (task, d, extra) in runs.items():
+        # the CLI's entry, its JSON rows read off its stdout
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            predict.main(["--model_dir", str(d), "--task", task,
+                          "--max_new_tokens", str(PREDICT_NEW), "--max_seq_length", "128",
+                          "--device", DEVICE, *extra])
+        outs[name] = [json.loads(line) for line in printed.getvalue().splitlines()
+                      if line.startswith("{")]
     wall = time.perf_counter() - t0
     result = {}
     for name, (task, d, extra) in runs.items():
@@ -5958,7 +6039,7 @@ def _profiled(trainer, batch, steps: int, peak, task: str) -> dict:
     return prof
 
 
-PACK_STEPS = 20
+PACK_STEPS = 10
 PACK_EVAL_SAMPLES = 64          # 16 eval steps unpacked at the eval batch of 4
 PACK_PROFILED_STEPS = 6
 PACK_EXACT_EXAMPLES = 16
@@ -5969,10 +6050,11 @@ def _packing_runs() -> list:
     """(name, published config, task, CLI arguments) of the packing phase's
     runs, each ``PACK_STEPS`` steps at the CLI's defaults."""
     fused = ["--fused_vocab_ce", "true"]
-    return [("gpt2_unpacked", GPT2_124M, "causal-lm", fused),
-            ("gpt2_segment", GPT2_124M, "causal-lm", fused + ["--segment_packing", "true"]),
-            ("gpt2_packed", GPT2_124M, "causal-lm", fused + ["--packed_sequences", "true"]),
-            ("bert_mlm_segment", BERT_BASE, "mlm",
+    gpt2 = dict(GPT2_124M, n_layer=BREADTH_DEPTH)
+    return [("gpt2_unpacked", gpt2, "causal-lm", fused),
+            ("gpt2_segment", gpt2, "causal-lm", fused + ["--segment_packing", "true"]),
+            ("gpt2_packed", gpt2, "causal-lm", fused + ["--packed_sequences", "true"]),
+            ("bert_mlm_segment", dict(BERT_BASE, num_hidden_layers=BREADTH_DEPTH), "mlm",
              fused + ["--segment_packing", "true", "--mlm_static_masking", "true"])]
 
 
@@ -6161,10 +6243,10 @@ def packing_phase(work: Path, card: str) -> dict:
     return rows
 
 
-LORA_STEPS = 30
+LORA_STEPS = 15
 # the LoRA and full fine-tune runs' depth at BERT-large's widths: half of
 # its 24, to keep the script in its time limit
-LORA_DEPTH = 12
+LORA_DEPTH = 6
 LORA_EVAL_SAMPLES = 64          # 16 eval steps at the eval batch of 4
 LORA_FULL_STEPS = 5
 LORA_CKPT_EVERY = 5
@@ -6404,9 +6486,9 @@ def lora_phase(work: Path, card: str) -> dict:
     return rows
 
 
-DEBERTA_STEPS = 20
+DEBERTA_STEPS = 10
 DEBERTA_EVAL_SAMPLES = 64       # 16 eval steps at the eval batch of 4
-DEBERTA_MLM_STEPS = 15
+DEBERTA_MLM_STEPS = 8
 DEBERTA_MLM_EVAL_SAMPLES = 16   # 4 eval steps: K2's eval shape (N 512)
 DEBERTA_V2_STEPS = 5
 DEBERTA_PROFILED_STEPS = 6
@@ -6417,9 +6499,10 @@ def _deberta_runs() -> list:
     """(name, config, task, steps, eval examples, CLI arguments)."""
     v2 = dict(DEBERTA_V3_BASE, num_hidden_layers=PARITY_DEPTH, share_att_key=False,
               conv_kernel_size=3, conv_act="gelu", position_biased_input=True)
-    return [("v3_base_seq_cls", DEBERTA_V3_BASE, "seq-cls", DEBERTA_STEPS,
+    v3 = dict(DEBERTA_V3_BASE, num_hidden_layers=BREADTH_DEPTH)
+    return [("v3_base_seq_cls", v3, "seq-cls", DEBERTA_STEPS,
              DEBERTA_EVAL_SAMPLES, []),
-            ("v3_base_mlm_fused", DEBERTA_V3_BASE, "mlm", DEBERTA_MLM_STEPS,
+            ("v3_base_mlm_fused", v3, "mlm", DEBERTA_MLM_STEPS,
              DEBERTA_MLM_EVAL_SAMPLES, ["--fused_vocab_ce", "true"]),
             ("v2_style_depth2", v2, "seq-cls", DEBERTA_V2_STEPS, 0, [])]
 
@@ -6519,9 +6602,9 @@ def deberta_phase(work: Path, card: str) -> dict:
 # each Hugging Face Hub repo's published config.json widths, written by the
 # phase (the card has neither network nor transformers); weights random
 # from a seed; depth cut where the comment says
-LLAMA_31_8B = {  # meta-llama/Llama-3.1-8B
+LLAMA_31_8B = {  # meta-llama/Llama-3.1-8B at depth 8 of 32
     "model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": 128256,
-    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 8,
     "num_attention_heads": 32, "num_key_value_heads": 8, "max_position_embeddings": 131072,
     "rope_theta": 500000.0,
     "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
@@ -6550,43 +6633,43 @@ MIXTRAL_8X7B = {  # mistralai/Mixtral-8x7B-v0.1 at depth 1 of 32
     "sliding_window": None, "rms_norm_eps": 1e-5, "router_aux_loss_coef": 0.02,
     "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
     "eos_token_id": 2, "initializer_range": 0.02}
-GEMMA_7B = {  # google/gemma-7b, full depth
+GEMMA_7B = {  # google/gemma-7b at depth 7 of 28
     "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 256000,
-    "hidden_size": 3072, "intermediate_size": 24576, "num_hidden_layers": 28,
+    "hidden_size": 3072, "intermediate_size": 24576, "num_hidden_layers": 7,
     "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
     "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
     "hidden_act": "gelu", "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
     "pad_token_id": 0, "initializer_range": 0.02}
-GEMMA_2B = {  # google/gemma-2b, full depth
+GEMMA_2B = {  # google/gemma-2b at depth 6 of 18
     "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "vocab_size": 256000,
-    "hidden_size": 2048, "intermediate_size": 16384, "num_hidden_layers": 18,
+    "hidden_size": 2048, "intermediate_size": 16384, "num_hidden_layers": 6,
     "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
     "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
     "hidden_act": "gelu", "attention_bias": False, "bos_token_id": 2, "eos_token_id": 1,
     "pad_token_id": 0, "initializer_range": 0.02}
 # (a) the engine's defaults (K3, prefix cache, ladder, overlap) at 8 slots,
 # chunk 32, max_model_len 2048 (an 8-row prefill gathers at most 2 GiB of
-# its 128 KiB a token); 8 requests of 128-512 prompt tokens, 32 new each
+# its 128 KiB a token); 4 requests of 128-512 prompt tokens, 32 new each
 LLAMA_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=2048)
-LLAMA_TRACE = dict(n=8, lo=128, hi=512, new=32)
+LLAMA_TRACE = dict(n=4, lo=128, hi=512, new=32)
 # (b) one request of 4600 tokens past the window of 4096, 32 new
 MISTRAL_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=4736)
 MISTRAL_PROMPT, MISTRAL_NEW = 4600, 32
 # (c) the train CLI: batch 4 x S 1024 (EOS-joined rows: 2048 reviews fill
-# 89, 64 test reviews 3), 12 steps, bf16, AdamW
-TINYLLAMA_RUN = dict(batch=4, seq=1024, steps=12, eval_samples=64, train_samples=2048,
+# 89, 64 test reviews 3), 6 steps, bf16, AdamW
+TINYLLAMA_RUN = dict(batch=4, seq=1024, steps=6, eval_samples=64, train_samples=2048,
                      profiled=3)
 # (d) bf16, batch 2 x S 512, 5 steps
 MIXTRAL_RUN = dict(batch=2, seq=512, steps=5)
 # (e) Gemma-7B on LLAMA_ENGINE (its KV is 448 KiB a token: the pools take
-# 7.3 GB); 8 requests of 128-512 prompt tokens, 32 new each
-GEMMA_TRACE = dict(n=8, lo=128, hi=512, new=32)
-# (f) the train CLI as (c) runs it: batch 2 x S 1024, 8 steps, bf16, AdamW
-GEMMA_RUN = dict(batch=2, seq=1024, steps=8, eval_samples=64, train_samples=2048,
+# 7.3 GB); 4 requests of 128-512 prompt tokens, 32 new each
+GEMMA_TRACE = dict(n=4, lo=128, hi=512, new=32)
+# (f) the train CLI as (c) runs it: batch 2 x S 1024, 4 steps, bf16, AdamW
+GEMMA_RUN = dict(batch=2, seq=1024, steps=4, eval_samples=64, train_samples=2048,
                  profiled=3)
 # the fp32 gates: kernels (flash + fused CE) against the plain path, the
-# first step's loss and gradients, then LLAMA_GATE_STEPS steps' losses
-LLAMA_GATE = dict(depth=2, batch=2, seq=512, steps=5, lr=1e-5)
+# first step's loss and gradients, then LLAMA_GATE["steps"] steps' losses
+LLAMA_GATE = dict(depth=2, batch=2, seq=512, steps=3, lr=1e-5)
 MIXTRAL_GATE = dict(batch=1, seq=512)
 # greedy decode against the full forward at a capacity that cannot bind
 MIXTRAL_DECODE = dict(prompt=32, new=16, capacity_factor=4.0)
@@ -6788,7 +6871,8 @@ def llama_serve_phase(card: str) -> dict:
     rows, outs = _k3_serve_runs(
         model, trace, (("fp", {}), ("int8", {"kv_cache_dtype": "int8"}),
                        ("xla", {"kernel": "xla"})),
-        phase="llama_serve", model="meta-llama/Llama-3.1-8B widths (random init, seed 0)",
+        phase="llama_serve",
+        model="meta-llama/Llama-3.1-8B widths, depth 8 of 32 (random init, seed 0)",
         card=card)
     reference = _plain_reference(model, trace)
     rows["fp"].update(_plain_agreement(model, trace, outs["fp"], "llama fp pools", reference))
@@ -6809,7 +6893,7 @@ def llama_serve_phase(card: str) -> dict:
 
 
 def gemma_serve_phase(card: str) -> dict:
-    """(e) Gemma-7B at full depth in bf16 built on the card from seed 3:
+    """(e) Gemma-7B at depth 7 of 28 in bf16 built on the card from seed 3:
     K3 at head_dim 256 with one query head a K/V head (16 over 16), the
     trace ``GEMMA_TRACE`` on fp and int8 pools at ``LLAMA_ENGINE``, each
     run's tokens held to the batched plain ``generate_causal`` by
@@ -6835,7 +6919,8 @@ def gemma_serve_phase(card: str) -> dict:
     trace = _random_prompts(cfg.vocab_size, g["n"], g["lo"], g["hi"], g["new"], seed=3)
     rows, outs = _k3_serve_runs(
         model, trace, (("fp", {}), ("int8", {"kv_cache_dtype": "int8"})),
-        phase="gemma_serve", model="google/gemma-7b widths, full depth (random init, seed 3)",
+        phase="gemma_serve",
+        model="google/gemma-7b widths, depth 7 of 28 (random init, seed 3)",
         card=card, head_dim=cfg.resolved_head_dim,
         params=sum(t.numel() for t in model.parameters()))
     rows["fp"].update(_plain_agreement(model, trace, outs["fp"], "gemma fp pools"))
@@ -7042,13 +7127,13 @@ def tinyllama_train_phase(work: Path, card: str) -> dict:
 
 
 def gemma_train_phase(work: Path, card: str) -> dict:
-    """(f) Gemma-2B at full width and depth through the train CLI
+    """(f) Gemma-2B at full width, depth 6 of 18, through the train CLI
     (:func:`_causal_cli_phase` at ``GEMMA_RUN``): K1 at head_dim 256 with
     the one K/V head repeated to the 8 query heads, K2 at vocab 256000
     with the tied embedding as W (its dW lands in the embedding); the fp32
     gate at depth 2 runs the fp32 D-256 kernels."""
     return _causal_cli_phase(work, card, "gemma2b", GEMMA_2B, GEMMA_RUN,
-                             "google/gemma-2b widths, full depth (random init, seed 42)")
+                             "google/gemma-2b widths, depth 6 of 18 (random init, seed 42)")
 
 
 def _routing(model, batch) -> dict:
@@ -7166,11 +7251,15 @@ def mixtral_phase(card: str) -> dict:
 
 # -- the job as the source system launches it --------------------------------
 
-LAUNCH_STEPS = 30               # the launched BERT-large-WWM run's train steps
-LAUNCH_EVAL_SAMPLES = 64        # 16 eval steps at the eval batch of 4
+LAUNCH_DEPTH = 6                # the launched BERT-large-WWM run's layers (of 24)
+LAUNCH_STEPS = 12               # its train steps, a log sync every LAUNCH_LOG_EVERY
+LAUNCH_LOG_EVERY = 4
+LAUNCH_EVAL_SAMPLES = 16        # 4 eval steps at the eval batch of 4
 LAUNCH_SINGLE_NODE_STEPS = 2    # the single-node entry's run
 LAUNCH_SINGLE_NODE_EVAL = 8
-LAUNCH_TIMEOUT_S = 420
+# a launched job's limit, about 3x its 49.8 s on the H100; the
+# launcher's own --timeout ends the job's processes 30 s before
+LAUNCH_TIMEOUT_S = 150
 OPTIM_WEIGHT_DECAY = 0.01
 # (run, TrainConfig overrides, remat policy or None): BERT-large-WWM seq-cls
 # at sequence 512, batch 8, bf16, in one process
@@ -7182,6 +7271,7 @@ OPTIM_RUNS = (
     ("remat_dots", dict(optimizer="adamw"), "dots"),
     ("remat_dots_no_batch", dict(optimizer="adamw"), "dots_no_batch"),
 )
+OPTIM_DEPTH = 4                 # BERT-large-WWM's widths at 4 of its 24 layers
 OPTIM_TIMED_STEPS = 5           # after the first (excluded) step, unprofiled
 OPTIM_PROFILED_STEPS = 4        # then profiled: 10 steps a run
 OPTIM_LOSS_RTOL = 1e-6          # the first step's loss across the runs
@@ -7219,7 +7309,8 @@ def _finish_launch(job: dict) -> dict:
         rc = proc.wait(timeout=LAUNCH_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
-        rc = proc.wait()
+        proc.wait(timeout=SMI_TIMEOUT_S)
+        check(False, f"launch {name} ran past its limit of {LAUNCH_TIMEOUT_S} s")
     wall = time.perf_counter() - job["t0"]
     printed = job["out"].read_text()
     dirs = sorted(job["root"].iterdir())
@@ -7259,10 +7350,11 @@ def _child_launches(job_dir: Path) -> dict:
 def launch_phase(work: Path, card: str) -> dict:
     """(a) The reference's job through the port's launcher: ``python -m
     <port>.launch --slice h100-1`` with the reference's hyperparameters
-    (``bert-large-uncased-whole-word-masking`` widths, 24 layers at full
-    depth, random weights from a config; train batch 8, eval batch 4, lr
-    5e-5, 1 epoch) on the vendored reviews at sequence 512, bf16,
-    ``LAUNCH_STEPS`` steps and 16 eval steps. It fails unless the job
+    (``bert-large-uncased-whole-word-masking`` widths at ``LAUNCH_DEPTH``
+    of its 24 layers, random weights from a config; train batch 8, eval
+    batch 4, lr 5e-5, 1 epoch) on the vendored reviews at sequence 512,
+    bf16, ``LAUNCH_STEPS`` steps and ``LAUNCH_EVAL_SAMPLES / 4`` eval
+    steps. It fails unless the job
     directory holds ``host_0.log``, the results files with the CLI's keys
     and an HF export that loads back and classifies; the child trained on
     the card; and the child's K1 counts (its telemetry) are layers x steps
@@ -7274,8 +7366,8 @@ def launch_phase(work: Path, card: str) -> dict:
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 
-    cfg_dir = _config_dir(work / "config", BERT_LARGE)
-    layers = BERT_LARGE["num_hidden_layers"]
+    layers = LAUNCH_DEPTH
+    cfg_dir = _config_dir(work / "config", dict(BERT_LARGE, num_hidden_layers=layers))
     # the single-node check needs no full depth (BERT-large widths at 2
     # layers); it starts beside the main job and is through its steps while
     # the main job still draws its weights
@@ -7286,7 +7378,8 @@ def launch_phase(work: Path, card: str) -> dict:
         "--model_name_or_path", str(cfg_dir), "--from_scratch", "true",
         "--dataset", "vendored_reviews", "--steps_per_epoch", str(LAUNCH_STEPS),
         "--max_train_samples", str(LAUNCH_STEPS * 8),
-        "--max_eval_samples", str(LAUNCH_EVAL_SAMPLES), "--log_every_steps", "10"]),
+        "--max_eval_samples", str(LAUNCH_EVAL_SAMPLES),
+        "--log_every_steps", str(LAUNCH_LOG_EVERY)]),
         _start_launch(work, "launch-single-node", [
             "--entry_point", f"{PKG}.train.single_node",
             "--model_name_or_path", str(single_cfg), "--from_scratch", "true",
@@ -7363,7 +7456,7 @@ def _bert_large_state(seed: int = 0) -> dict:
 
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 
-    cfg = auto.CONFIG_BUILDERS["bert"](BERT_LARGE)
+    cfg = auto.CONFIG_BUILDERS["bert"](BERT_LARGE, num_layers=OPTIM_DEPTH)
     with torch.device("meta"):
         model = auto.build_model("bert", "seq-cls", cfg)
     model = model.to_empty(device=DEVICE)
@@ -7388,7 +7481,7 @@ def _optim_model(state: dict, remat_policy):
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 
     cfg = auto.CONFIG_BUILDERS["bert"](
-        BERT_LARGE, dtype=torch.bfloat16, attention_impl="flash",
+        BERT_LARGE, num_layers=OPTIM_DEPTH, dtype=torch.bfloat16, attention_impl="flash",
         remat=remat_policy is not None, remat_policy=remat_policy or "full")
     with torch.device("meta"):
         model = auto.build_model("bert", "seq-cls", cfg)
@@ -7484,6 +7577,10 @@ def _optim_run(name: str, over: dict, policy, state: dict, batch: dict) -> dict:
     return row
 
 
+# optim_memory_phase's process: about 3x its 44.9 s on the H100
+OPTIM_MEMORY_PHASE_TIMEOUT_S = 135
+
+
 def optim_memory_phase() -> dict:
     """(b) The optimizers and the remat policies on BERT-large-WWM seq-cls
     at sequence 512, batch 8, bf16, one batch of training reviews, every
@@ -7514,7 +7611,7 @@ def optim_memory_phase() -> dict:
     spread = max(abs(v - base["first_step_loss"]) for v in losses.values())
     check(spread <= OPTIM_LOSS_RTOL * abs(base["first_step_loss"]),
           f"optim_memory: first-step losses differ: {losses}")
-    layers = BERT_LARGE["num_hidden_layers"]
+    layers = OPTIM_DEPTH
     if DEVICE == "cuda":
         peaks = [rows[n]["fwd_bwd_peak_gib"] for n in
                  ("adamw_fp32", "remat_dots", "remat_dots_no_batch", "remat_full")]
@@ -7746,6 +7843,7 @@ def optim_resume_phase(work: Path) -> dict:
 # the earlier phases wrote on the card, and the compile budget on a fresh
 # process's first K1 load.
 
+BUDGET_DEPTH = 4                # the compile-budget run: BERT-base at 4 of 12 layers
 BUDGET_STEPS = 10               # the compile-budget run's train steps
 BUDGET_SAMPLES = 80             # one length-sorted window: its widths climb
 
@@ -7763,11 +7861,15 @@ def _obs_cli(*argv) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
+# compile_budget_phase's process: about 3x its 22.3 s on the H100
+COMPILE_BUDGET_PHASE_TIMEOUT_S = 70
+
+
 def compile_budget_phase(work: Path | None = None) -> dict:
     """(e) of the obs phase, in a process of its own on the card (the K1
     library then loads inside the fit, where the trainer's compile tracker
-    sees it): BERT-base seq-cls at full width and depth through the
-    training CLI with ``--bucket_multiple 64`` and
+    sees it): BERT-base seq-cls at full width, ``BUDGET_DEPTH`` layers,
+    through the training CLI with ``--bucket_multiple 64`` and
     ``HSTD_COMPILE_BUDGET_S=0``, ``BUDGET_STEPS`` steps over the first
     ``BUDGET_SAMPLES`` reviews. Its row: the train batcher's widths in
     order, each with whether the ladder was capped when the batch was cut,
@@ -7780,7 +7882,7 @@ def compile_budget_phase(work: Path | None = None) -> dict:
     if work is None:
         with tempfile.TemporaryDirectory() as tmp:
             return compile_budget_phase(Path(tmp))
-    cfg_dir = _config_dir(work, BERT_BASE)
+    cfg_dir = _config_dir(work, dict(BERT_BASE, num_hidden_layers=BUDGET_DEPTH))
     tel = work / "telemetry"
     widths = []
     orig = pipeline.ShardedBatcher._trim_to_buckets
@@ -7968,33 +8070,273 @@ def obs_phase(work: Path, card: str, job_tel, engine_tel, drain: dict,
     return rows
 
 
-def llama_kernel_phase() -> dict:
-    """The llama phase's K3 cases (``LLAMA_KERNEL_CASES`` and
-    ``GEMMA_KERNEL_CASES``), held against their plain versions and timed as
-    the kernel phase does (its K1 and K2 cases, ``FLASH_LLAMA``,
-    ``FLASH_GEMMA``, ``VOCAB_LLAMA`` and ``VOCAB_GEMMA``, are among the
-    flash and vocab-CE phases' cases)."""
-    return kernel_phase([c for c in KERNEL_CASES
-                         if c[0] in LLAMA_KERNEL_CASES + GEMMA_KERNEL_CASES])
+# the mesh phase (queue 1, item 11's first part): TinyLlama's widths at depth
+# MESH_DEPTH over a (dp, fsdp, tp) = (1, 1, 1) mesh in one process, an NCCL
+# world of one (two NCCL ranks never share the one card), 2 x 1024
+# EOS-joined rows; fp32 steps through shard_model (with and without the
+# tensor-parallel plan) against the plain trainer, then bf16 steps measured
+MESH_DEPTH = 4
+MESH_ROWS, MESH_SEQ = 2, 1024
+MESH_FP32_STEPS = 3
+MESH_BF16_STEPS = 5              # 2 unmeasured, 3 timed; then 3 more profiled
+MESH_LR = 1e-5
+MESH_LOSS_RTOL = 1e-6
+MESH_GRAD_REL_L2 = 1e-5
+MESH_GROUP_TIMEOUT_S = 120       # the process group's collectives
 
 
-# the phases that run each in a process of its own (see the module's notes)
+def _joined_rows(n: int, seq: int, vocab: int, eos: int) -> dict:
+    """``n`` rows of ``seq`` tokens cut from the vendored reviews joined by
+    ``eos`` (the CLI's ``--packed_sequences``), as tensors on the card."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.pipeline import (
+        ArrayDataset,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.sources import (
+        load_text_classification,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
+        WordHashTokenizer,
+    )
+
+    texts, _ = load_text_classification("vendored_reviews", "train", max_samples=64 * n)
+    ds = ArrayDataset.from_lm_texts(WordHashTokenizer(vocab_size=vocab), texts, seq,
+                                    packed=True, eos_token_id=eos)
+    check(len(ds) >= n, f"{len(ds)} joined rows of {seq}, wanted {n}")
+    return {k: torch.from_numpy(v[:n]).long().to(DEVICE) for k, v in ds.columns.items()}
+
+
+def _first_update_grads(trainer) -> dict:
+    """Fills with the whole gradients of ``trainer``'s first update, by
+    parameter name, in fp32 (a step pre-hook on its optimizer)."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+        full_tensor,
+    )
+
+    grads: dict = {}
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+
+    def hook(opt, args, kwargs):
+        if not grads:
+            grads.update({names[id(p)]: full_tensor(p.grad).detach().float().clone()
+                          for p in trainer.params if p.grad is not None})
+
+    trainer.optimizer.register_step_pre_hook(hook)
+    return grads
+
+
+# the trainers the mesh phase compares: name -> shard_model's tensor_plan
+# (None: the plain trainer, no shard_model)
+MESH_WRAPS = {"plain": None, "fsdp": False, "mesh": True}
+
+
+def _mesh_trainer(hf: dict, mesh, dtype: str, wrap: str):
+    """A Trainer on ``hf``'s widths from seed 0, the kernels (K1, fused K2)
+    in ``dtype``: the plain one (``wrap`` "plain"), over FSDP2 alone
+    ("fsdp") or over ``shard_model(model, mesh)`` with the tensor-parallel
+    plan ("mesh")."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+        is_dtensor,
+        shard_model,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    compute = torch.float32 if dtype == "float32" else torch.bfloat16
+    tc = TrainConfig(task="causal-lm", fused_vocab_ce=True, dtype=dtype,
+                     learning_rate=MESH_LR, scale_lr_by_world_size=False, log_every_steps=0)
+    cfg = llama_config_from_hf(hf, attention_impl="flash", dtype=compute)
+    model = init_llama(cfg, seed=0, device=DEVICE, trainable=True).train()
+    sharded = MESH_WRAPS[wrap] is not None
+    if sharded:
+        shard_model(model, mesh, tensor_plan=MESH_WRAPS[wrap])
+        check(all(is_dtensor(p) for p in model.parameters()),
+              "shard_model left a parameter unwrapped")
+    trainer = Trainer(tc, model)
+    check(trainer.sharded == sharded, f"a {wrap} trainer sharded {trainer.sharded}")
+    return trainer
+
+
+def _counted_step(trainer, batch) -> tuple[float, dict]:
+    """One train step: its loss and the K1 and K2 launches it made."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops import vocab_ce as vc
+
+    kernels = [(fa, k) for k in _K1] + [(vc, k) for k in _K2]
+    for mod, k in kernels:
+        getattr(mod, k).launches = 0
+    loss = float(trainer.train_step(batch)["loss"])
+    return loss, {k: getattr(mod, k).launches for mod, k in kernels}
+
+
+# mesh_train_phase's process: about 30 s, 120 on a slow host
+MESH_TRAIN_PHASE_TIMEOUT_S = 120
+
+
+def mesh_train_phase() -> dict:
+    """Training over a ``dp x fsdp x tp`` mesh on the card: one process, an
+    NCCL world of one (``MESH_GROUP_TIMEOUT_S`` on its collectives), a
+    ``(1, 1, 1)`` mesh through ``build_mesh``; TinyLlama's widths (H 2048,
+    32 query over 4 K/V heads, D 64, V 32000) at depth ``MESH_DEPTH`` on
+    ``MESH_ROWS`` x ``MESH_SEQ`` EOS-joined rows. (a) fp32:
+    ``MESH_FP32_STEPS`` steps of the Trainer over ``shard_model`` (FSDP2
+    and the tensor-parallel plan applied at size 1), and over FSDP2 alone
+    (``tensor_plan=False``, what the Trainer applies at ``tp`` 1), each
+    against the plain Trainer on the same weights: each loss within
+    ``MESH_LOSS_RTOL``, the first update's gradients within
+    ``MESH_GRAD_REL_L2`` relative L2, K1's and K2's launches a step equal;
+    the unsharded head weight K2 reads 16-byte aligned and K-major. (b)
+    bf16: ``MESH_BF16_STEPS`` steps of each of the three, samples/s, the
+    idle share and each one's peak memory (read, not gated)."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        build_mesh,
+        data_parallel_size,
+        mesh_shape,
+        world_size,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    try:
+        mesh = build_mesh(MeshConfig(dp=1, fsdp=1, tp=1), device_type=DEVICE,
+                          timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+        check(world_size(mesh) == data_parallel_size(mesh) == 1
+              and mesh_shape(mesh)["tensor"] == 1, f"mesh {mesh_shape(mesh)}")
+        hf = dict(TINYLLAMA, num_hidden_layers=MESH_DEPTH)
+        batch = _joined_rows(MESH_ROWS, MESH_SEQ, hf["vocab_size"], hf["eos_token_id"])
+        rows = {"fp32": _mesh_fp32(hf, mesh, batch), "bf16": _mesh_bf16(hf, mesh, batch)}
+    finally:
+        dist.destroy_process_group()
+    for row in rows.values():
+        emit(row)
+    return rows
+
+
+def _mesh_fp32(hf: dict, mesh, batch) -> dict:
+    """(a) of :func:`mesh_train_phase`: the FSDP2-alone and the full
+    ``shard_model`` trainers each held against the plain one."""
+    import torch
+
+    _mem_reset()
+    trainers = {name: _mesh_trainer(hf, mesh, "float32", name) for name in MESH_WRAPS}
+    grads = {name: _first_update_grads(t) for name, t in trainers.items()}
+    with torch.no_grad():
+        _, w = trainers["mesh"].model.hidden_and_embedding(batch["input_ids"][:1, :8])
+        w_ok = (w.data_ptr() % 16 == 0 and w.stride(1) == 1
+                and w.stride(0) * w.element_size() % 16 == 0)
+    check(w_ok, f"the unsharded head weight at {w.data_ptr():#x}, strides {w.stride()}")
+    losses = {name: [] for name in MESH_WRAPS}
+    launches = {name: [] for name in MESH_WRAPS}
+    for _ in range(MESH_FP32_STEPS):
+        for name, trainer in trainers.items():
+            loss, counts = _counted_step(trainer, batch)
+            losses[name].append(loss)
+            launches[name].append(counts)
+    L = hf["num_hidden_layers"]
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_ce_fwd": 1,
+            "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
+    check(all(c == want for c in launches["plain"]),
+          f"plain trainer's launches {launches['plain']}, wanted {want} a step")
+    ref = torch.cat([grads["plain"][k].reshape(-1) for k in sorted(grads["plain"])])
+    row = {"phase": "mesh_train", "run": "fp32", "mesh": {"dp": 1, "fsdp": 1, "tp": 1},
+           "model": "TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T widths "
+                    f"at depth {L} (random init, seed 0)",
+           "rows": MESH_ROWS, "seq": MESH_SEQ, "steps": MESH_FP32_STEPS,
+           "dtype": "float32", "tf32": False, "loss_plain": losses["plain"],
+           "loss_rtol": MESH_LOSS_RTOL, "grad_rel_l2_tol": MESH_GRAD_REL_L2,
+           "launches_per_step": launches["mesh"][0], "head_weight_aligned": w_ok,
+           "params_dtensor": True, "peak_gib": _peak_gib()}
+    for name in ("fsdp", "mesh"):
+        check(launches[name] == launches["plain"],
+              f"{name} trainer's launches {launches[name]} != {launches['plain']}")
+        check(grads[name].keys() == grads["plain"].keys(),
+              f"the {name} and plain trainers' parameters differ")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[name], losses["plain"])]
+        got = torch.cat([grads[name][k].reshape(-1) for k in sorted(grads["plain"])])
+        grad_rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+        per_param = {k: float(torch.linalg.vector_norm(grads[name][k] - g)
+                              / torch.linalg.vector_norm(g).clamp(min=1e-30))
+                     for k, g in grads["plain"].items()}
+        worst = max(per_param, key=per_param.get)
+        row.update({f"loss_{name}": losses[name], f"loss_rel_err_{name}": rel,
+                    f"grad_rel_l2_{name}": grad_rel,
+                    f"grad_rel_l2_worst_param_{name}": [worst, per_param[worst]]})
+        check(max(rel) <= MESH_LOSS_RTOL, f"{name} fp32 losses {losses}: rel err {rel}")
+        check(grad_rel <= MESH_GRAD_REL_L2, f"{name} fp32 gradients: rel L2 {grad_rel}")
+    del trainers
+    return row
+
+
+def _mesh_bf16(hf: dict, mesh, batch) -> dict:
+    """(b) of :func:`mesh_train_phase`: each trainer's first 2 steps
+    unmeasured, the rest timed (:func:`_steps_profile`, which profiles as
+    many more for the idle share)."""
+    measured = MESH_BF16_STEPS - 2
+    out = {"phase": "mesh_train", "run": "bf16", "mesh": {"dp": 1, "fsdp": 1, "tp": 1},
+           "rows": MESH_ROWS, "seq": MESH_SEQ, "steps": MESH_BF16_STEPS,
+           "dtype": "bfloat16"}
+    for name in MESH_WRAPS:
+        _mem_reset()
+        trainer = _mesh_trainer(hf, mesh, "bfloat16", name)
+        losses = [_counted_step(trainer, batch)[0] for _ in range(2)]
+        prof = _steps_profile(trainer, batch, measured)
+        check(all(math.isfinite(x) for x in losses), f"mesh bf16 {name}: losses {losses}")
+        out[name] = {"loss": losses,
+                     "samples_per_s": MESH_ROWS / (prof["step_time_unprofiled_ms"] / 1e3),
+                     "step_time_ms": prof["step_time_unprofiled_ms"],
+                     "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                     "idle_share": prof["idle_share"], "peak_gib": _peak_gib()}
+        del trainer
+    return out
+
+
+# the phases that run each in a process of its own (see the module's notes),
+# each with its time limit (the constant beside the phase)
 FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_phase,
-                        "llama_kernel_phase": llama_kernel_phase,
                         "optim_memory_phase": optim_memory_phase,
-                        "compile_budget_phase": compile_budget_phase}
-FRESH_PROCESS_TIMEOUT_S = 600
+                        "compile_budget_phase": compile_budget_phase,
+                        "mesh_train_phase": mesh_train_phase}
+FRESH_PROCESS_TIMEOUTS_S = {"flash_phase": FLASH_PHASE_TIMEOUT_S,
+                            "vocab_ce_phase": VOCAB_CE_PHASE_TIMEOUT_S,
+                            "optim_memory_phase": OPTIM_MEMORY_PHASE_TIMEOUT_S,
+                            "compile_budget_phase": COMPILE_BUDGET_PHASE_TIMEOUT_S,
+                            "mesh_train_phase": MESH_TRAIN_PHASE_TIMEOUT_S}
 
 
 def _fresh_process(name: str) -> dict:
     """``FRESH_PROCESS_PHASES[name]`` run by this script in a new process
     (its lines go to this process's output); its rows, keyed as the phase
-    keys them. Fails if the process fails."""
+    keys them. Fails if the process fails, or runs past the phase's limit
+    (``FRESH_PROCESS_TIMEOUTS_S``: the process is killed)."""
+    limit = FRESH_PROCESS_TIMEOUTS_S[name]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "rows.json"
         sys.stdout.flush()
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", name,
-                               str(out)], cwd=str(ROOT), timeout=FRESH_PROCESS_TIMEOUT_S)
+        try:
+            proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phase",
+                                   name, str(out)], cwd=str(ROOT), timeout=limit)
+        except subprocess.TimeoutExpired:
+            check(False, f"{name} in its own process ran past its limit of {limit} s")
         check(proc.returncode == 0, f"{name} in its own process exited with {proc.returncode}")
         return _read_rows(out)
 
@@ -8071,8 +8413,7 @@ def main(argv: list | None = None) -> int:
 
     card = timed(env_phase)
     build = timed(build_phase)
-    kernels = timed(kernel_phase, [c for c in KERNEL_CASES
-                                   if c[0] not in LLAMA_KERNEL_CASES + GEMMA_KERNEL_CASES])
+    kernels = timed(kernel_phase)
     serve, model, trace = timed(serve_phase)
     serve_runs = timed(serve_sampling_int8_phase, model, trace, kernels)
     timed(profile_phase, model, trace, serve["wall_s"])
@@ -8115,8 +8456,8 @@ def main(argv: list | None = None) -> int:
         timed(optim_resume_phase, Path(work) / "resume")
     flash = timed(_fresh_process, "flash_phase")
     vocab = timed(_fresh_process, "vocab_ce_phase")
-    kernels.update(timed(_fresh_process, "llama_kernel_phase"))
     optim_memory = timed(_fresh_process, "optim_memory_phase")
+    mesh = timed(_fresh_process, "mesh_train_phase")
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
@@ -8141,7 +8482,9 @@ def main(argv: list | None = None) -> int:
                                  **{f"llama/{n}": row["launches"][kname]
                                     for n, row in llama.items() if "launches" in row},
                                  **{f"launch/{n}": row["launches"][kname]
-                                    for n, row in launched.items()}},
+                                    for n, row in launched.items()},
+                                 "mesh_train/fp32_per_step":
+                                     mesh["fp32"]["launches_per_step"][kname]},
             "launches_per_step_by_optim_run": {
                 n: row["k1_launches_per_step"][kname] for n, row in optim_memory.items()},
             **{c: {k: flash[(c, kname)][k] for k in (
@@ -8180,7 +8523,9 @@ def main(argv: list | None = None) -> int:
                                     for n, row in seq2seq.items()},
                                  **{n: v[kname] for n, v in breadth.items()},
                                  **{f"llama/{n}": row["launches"][kname]
-                                    for n, row in llama.items() if "launches" in row}},
+                                    for n, row in llama.items() if "launches" in row},
+                                 "mesh_train/fp32_per_step":
+                                     mesh["fp32"]["launches_per_step"][kname]},
             **{c: {k: vocab[(c, kname)].get(k) for k in case_keys}
                for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA
                + VOCAB_GEMMA},

@@ -296,8 +296,9 @@ class TrainConfig:
         later = [
             (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ]
+        # fsdp and tp train over the mesh (parallel/sharding.py)
         later += [(getattr(self, ax) > 1, f"{ax}>1", "11 (parallelism beyond DP)")
-                  for ax in ("pp", "tp", "fsdp", "sp", "ep", "dcn_dp")]
+                  for ax in ("pp", "sp", "ep", "dcn_dp")]
         for hit, what, item in later:
             if hit:
                 raise NotImplementedError(

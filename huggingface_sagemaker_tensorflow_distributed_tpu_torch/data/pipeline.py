@@ -909,7 +909,10 @@ class ShardedBatcher:
     """Iterates global batches, yielding this rank's shard of each.
 
     ``process_index``/``process_count`` default to the ``torch.distributed``
-    rank and world size (0 and 1 without a process group); ``device`` is
+    rank and world size (0 and 1 without a process group), and with a
+    ``mesh`` (``parallel/mesh.py``) to the data-parallel rank and size: the
+    rank's coordinate over ``data`` × ``fsdp`` (the ``tensor`` ranks of one
+    replica take the same rows, the JAX ``batch_sharding``); ``device`` is
     where :meth:`global_arrays` puts the tensors (CPU by default).
     ``bucket_sizes`` turns on length bucketing (sorted within windows of
     ``bucket_window`` batches); ``pack`` token-packs the dataset first
@@ -928,7 +931,8 @@ class ShardedBatcher:
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None, device=None,
                  bucket_sizes: Optional[list[int]] = None, bucket_window: int = 16,
-                 native: bool = True, pack: bool = False, pack_causal: bool = False):
+                 native: bool = True, pack: bool = False, pack_causal: bool = False,
+                 mesh=None):
         if pack:
             # token packing leaves no pad waste for the bucket ladder to trim
             if bucket_sizes:
@@ -972,7 +976,16 @@ class ShardedBatcher:
         # the last epoch's prefetch autotuner: its depth seeds the next
         # epoch's controller instead of re-learning from 2
         self._auto_tuner: Optional[PrefetchAutotuner] = None
-        rank, world = _rank_and_world()
+        if mesh is not None:
+            from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+                data_parallel_size,
+            )
+            from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+                data_parallel_rank,
+            )
+            rank, world = data_parallel_rank(mesh), data_parallel_size(mesh)
+        else:
+            rank, world = _rank_and_world()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
         if global_batch_size % self.process_count != 0:
@@ -1082,7 +1095,8 @@ class ShardedBatcher:
         the full width. One process caps the moment its tracker crosses;
         several cap on the latch the trainer agrees at an epoch boundary,
         so every rank's choice stays the same."""
-        capped = obs.compile_budget_capped(self.process_count)
+        # several ranks agree, the tensor ranks of one replica too
+        capped = obs.compile_budget_capped(max(self.process_count, _rank_and_world()[1]))
         trims: dict[int, int] = {}  # original width -> bucket width
         for mask_name, lengths in self._lengths.items():
             width = self.dataset.columns[mask_name].shape[1]

@@ -45,6 +45,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import (
     t5,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import (
+    build_empty,
     encoder_from_hf,
     encoder_to_hf,
     gpt2_from_hf,
@@ -255,11 +256,12 @@ def from_pretrained(model_name_or_path: str, task: str = "seq-cls",
         model = init_llama(config, seed=seed, device=device, trainable=True)
         from_hf = llama_from_hf
     elif family in SEQ2SEQ_FAMILIES:
-        model = init_seq2seq(build_model(family, task, config), seed=seed, device=device)
+        model = init_seq2seq(build_empty(build_model, family, task, config), seed=seed,
+                             device=device)
         from_hf = functools.partial(seq2seq_from_hf, family=family)
     else:
-        model = init_encoder(build_model(family, task, config, num_labels), seed=seed,
-                             device=device)
+        model = init_encoder(build_empty(build_model, family, task, config, num_labels),
+                             seed=seed, device=device)
         from_hf = functools.partial(encoder_from_hf, family=family)
     weights = os.path.join(model_name_or_path, "model.safetensors")
     if from_scratch or not os.path.exists(weights):

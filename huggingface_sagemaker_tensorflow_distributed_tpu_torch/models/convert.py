@@ -111,6 +111,17 @@ def lora_from_jax(tree) -> dict:
     return out
 
 
+def build_empty(factory, *args, **kwargs):
+    """``factory(*args, **kwargs)`` built on the meta device, then given
+    uninitialized CPU storage: for a model :func:`_init_normal` initializes
+    next, which draws, zeroes or fills every parameter (the models register
+    no buffers), so the constructors' own default inits, drawn on the host
+    and then overwritten, are skipped: the same weights, built sooner."""
+    with torch.device("meta"):
+        model = factory(*args, **kwargs)
+    return model.to_empty(device="cpu")
+
+
 def _init_normal(model, std_of, seed: int):
     """Zero biases, unit layer-norm scales, everything else normal with
     ``std_of(name)``, drawn on the CPU in ``named_parameters`` order."""
@@ -138,7 +149,7 @@ def init_gpt2(cfg: Gpt2Config, seed: int = 0, device=None,
     dev = resolve_device(device)
     std = cfg.initializer_range
     resid_std = std / (2 * cfg.num_layers) ** 0.5
-    model = Gpt2LMHeadModel(cfg)
+    model = build_empty(Gpt2LMHeadModel, cfg)
 
     def std_of(name):
         owner = model.get_submodule(name.rsplit(".", 1)[0])
@@ -163,7 +174,7 @@ def init_encoder(model, seed: int = 0, device=None):
 
 def init_bert(cfg, seed: int = 0, device=None, num_labels: int = 2):
     """:func:`init_encoder` of a ``BertForSequenceClassification``."""
-    return init_encoder(BertForSequenceClassification(cfg, num_labels=num_labels),
+    return init_encoder(build_empty(BertForSequenceClassification, cfg, num_labels=num_labels),
                         seed=seed, device=device)
 
 

@@ -206,12 +206,16 @@ class Gpt2Attention(nn.Module):
     def forward(self, hidden, mask, cache):
         cfg = self.cfg
         B, S, H = hidden.shape
-        nh = cfg.num_heads
+        D = H // cfg.num_heads
 
         def split_heads(x):
-            return x.reshape(B, S, nh, H // nh).transpose(1, 2)
+            return x.reshape(B, S, -1, D).transpose(1, 2)
 
-        q, k, v = (split_heads(x) for x in self.qkv(hidden).split(H, dim=-1))
+        # [q | k | v] of the heads this rank holds: all of them, or under a
+        # tensor-parallel plan its head group's (parallel/sharding.py
+        # permutes the fused weight so that each rank's slice is that)
+        qkv = self.qkv(hidden)
+        q, k, v = (split_heads(x) for x in qkv.split(qkv.shape[-1] // 3, dim=-1))
         if isinstance(cache, PagedCache):
             if S != 1:
                 raise ValueError("paged decode is single-token (got q_len "
@@ -224,7 +228,7 @@ class Gpt2Attention(nn.Module):
                 cache.context_lens + 1,
                 k_scale_pool=cache.key_scale_pools[self.layer] if int8 else None,
                 v_scale_pool=cache.value_scale_pools[self.layer] if int8 else None)
-            return self.resid_dropout(self.attn_out(ctx.to(hidden.dtype).reshape(B, 1, H)))
+            return self.resid_dropout(self.attn_out(ctx.to(hidden.dtype).reshape(B, 1, -1)))
         if isinstance(cache, DenseCache):
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
             ctx = xla_attention(q, k, v, mask=mask)
@@ -237,7 +241,7 @@ class Gpt2Attention(nn.Module):
         else:
             ctx = dot_product_attention(q, k, v, mask=mask, impl=cfg.attention_impl,
                                         causal=True)
-        return self.resid_dropout(self.attn_out(ctx.transpose(1, 2).reshape(B, S, H)))
+        return self.resid_dropout(self.attn_out(ctx.transpose(1, 2).reshape(B, S, -1)))
 
 
 class Gpt2Mlp(nn.Module):

@@ -277,7 +277,9 @@ class SelfAttention(nn.Module):
         head_dim = cfg.hidden_size // cfg.num_heads
 
         def split(x):
-            return x.view(b, s, cfg.num_heads, head_dim).transpose(1, 2)
+            # the heads this rank holds: all of them, or H / tp under a
+            # tensor-parallel plan (parallel/sharding.py)
+            return x.view(b, s, -1, head_dim).transpose(1, 2)
 
         q, k, v = split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
         if (cfg.remat_attention and cfg.attention_impl == "xla"
@@ -286,7 +288,7 @@ class SelfAttention(nn.Module):
                              use_reentrant=False)
         else:
             ctx = dot_product_attention(q, k, v, mask=attn_mask, impl=cfg.attention_impl)
-        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        ctx = ctx.transpose(1, 2).reshape(b, s, -1)
         return self.dropout(self.attention_out(ctx))
 
 

@@ -367,12 +367,14 @@ class LlamaAttention(nn.Module):
         B, S, _ = hidden.shape
         D = cfg.resolved_head_dim
 
-        def split(x, n):
-            return x.reshape(B, S, n, D).transpose(1, 2)
+        def split(x):
+            # the heads this rank holds: all of them, or num_heads / tp and
+            # num_kv_heads / tp under a tensor-parallel plan
+            return x.reshape(B, S, -1, D).transpose(1, 2)
 
-        q = apply_rope(split(self.q_proj(hidden), cfg.num_heads), rope)
-        k = apply_rope(split(self.k_proj(hidden), cfg.num_kv_heads), rope)
-        v = split(self.v_proj(hidden), cfg.num_kv_heads)
+        q = apply_rope(split(self.q_proj(hidden)), rope)
+        k = apply_rope(split(self.k_proj(hidden)), rope)
+        v = split(self.v_proj(hidden))
         plain, windowed = masks
         mask = windowed if (self.use_window and windowed is not None) else plain
         if isinstance(cache, PagedCache):
@@ -388,11 +390,11 @@ class LlamaAttention(nn.Module):
                 window=cfg.sliding_window if self.use_window else None,
                 k_scale_pool=cache.key_scale_pools[self.layer] if int8 else None,
                 v_scale_pool=cache.value_scale_pools[self.layer] if int8 else None)
-            return self.o_proj(ctx.to(cfg.dtype).reshape(B, 1, cfg.num_heads * D))
+            return self.o_proj(ctx.to(cfg.dtype).reshape(B, 1, -1))
         if isinstance(cache, DenseCache):
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
         if cfg.num_kv_heads != cfg.num_heads:
-            rep = cfg.num_heads // cfg.num_kv_heads
+            rep = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
         if isinstance(cache, DenseCache):
@@ -401,7 +403,7 @@ class LlamaAttention(nn.Module):
             window = cfg.sliding_window if (self.use_window and kernel_window) else None
             ctx = dot_product_attention(q, k, v, mask=mask, impl=cfg.attention_impl,
                                         causal=True, window=window)
-        return self.o_proj(ctx.transpose(1, 2).reshape(B, S, cfg.num_heads * D))
+        return self.o_proj(ctx.transpose(1, 2).reshape(B, S, -1))
 
 
 class LlamaMlp(nn.Module):

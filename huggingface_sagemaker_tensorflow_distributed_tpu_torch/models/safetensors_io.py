@@ -26,28 +26,32 @@ _FROM_NAME = {v: k for k, v in _DTYPES.items()}
 
 def save_file(tensors: dict[str, torch.Tensor], path: str,
               metadata: dict[str, str] | None = None) -> None:
-    """Write ``tensors`` (on any device; copied to the CPU) to ``path``."""
+    """Write ``tensors`` (on any device) to ``path``: the header from the
+    shapes first, then each tensor's bytes straight from its CPU copy, one
+    tensor at a time (no second copy of the bytes, no whole model held
+    twice in host memory)."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    blobs = []
+    names = sorted(tensors)
     offset = 0
-    for name in sorted(tensors):
-        t = tensors[name].detach().to("cpu").contiguous()
+    for name in names:
+        t = tensors[name]
         if t.dtype not in _DTYPES:
             raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        size = t.numel() * t.element_size()
         header[name] = {"dtype": _DTYPES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
+                        "data_offsets": [offset, offset + size]}
+        offset += size
     text = json.dumps(header, separators=(",", ":")).encode()
     text += b" " * (-len(text) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
-        for raw in blobs:
-            f.write(raw)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous()
+            if t.numel():
+                f.write(memoryview(t.reshape(-1).view(torch.uint8).numpy()))
 
 
 def load_file(path: str, device="cpu") -> dict[str, torch.Tensor]:

@@ -50,6 +50,10 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 # on every core (the same registers and spills, half the build time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0")
+# a build that runs past its limit fails instead of hanging its caller: each
+# nvcc takes 10-40 s on the H100's host, g++ about 3 s
+NVCC_TIMEOUT_S = 300
+GXX_TIMEOUT_S = 120
 
 
 def _nvcc() -> str:
@@ -79,8 +83,14 @@ def build_log(name: str) -> Path:
 
 
 def _finish(proc: subprocess.Popen, t0: float) -> tuple[str, float]:
-    """``proc``'s stderr and its wall seconds since ``t0``, once it exits."""
-    _, stderr = proc.communicate()
+    """``proc``'s stderr and its wall seconds since ``t0``, once it exits;
+    past ``NVCC_TIMEOUT_S`` it is killed and reported as failed."""
+    try:
+        _, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, stderr = proc.communicate()
+        stderr += f"\nnvcc ran past its limit of {NVCC_TIMEOUT_S} s and was killed"
     return stderr, time.perf_counter() - t0
 
 
@@ -155,9 +165,14 @@ def build_host() -> Path:
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
-                           *(str(HOST_DIR / s) for s in HOST_SOURCES)],
-                          capture_output=True, text=True)
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
+                               *(str(HOST_DIR / s) for s in HOST_SOURCES)],
+                              capture_output=True, text=True, timeout=GXX_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ ran past its limit of {GXX_TIMEOUT_S} s building "
+                           "csrc/host") from None
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed to build csrc/host (exit {proc.returncode}):\n"

@@ -380,11 +380,16 @@ def _tma_operands(hidden, weight):
     aligned bases, so an h that is not is copied (a fresh allocation is).
     A layout step: the kernels run all the same. No model's H is such a
     width (the MLM fold widens H to a multiple of 8:
-    ``train/trainer.py:bias_fold_width``)."""
+    ``train/trainer.py:bias_fold_width``). A W whose base is not 16-byte
+    aligned (a parameter that is a view into a flat buffer) is refused:
+    the wrapper raises rather than copy the largest operand a call."""
     h8 = _ceil(hidden.shape[1], 8)
     if h8 != hidden.shape[1]:
         pad = (0, h8 - hidden.shape[1])
         return torch.nn.functional.pad(hidden, pad), torch.nn.functional.pad(weight, pad), h8
+    if weight.data_ptr() % 16:
+        raise ValueError(f"the wgmma routes read W by TMA from a 16-byte aligned base; got "
+                         f"W at address {weight.data_ptr():#x}")
     if hidden.data_ptr() % 16:
         hidden = hidden.clone()
     return hidden, weight, h8

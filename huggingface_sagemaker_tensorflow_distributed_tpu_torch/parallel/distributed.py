@@ -12,13 +12,19 @@ nothing is initialized.
 Data parallelism is one explicit all-reduce of the flattened gradients
 after backward, divided by the world size, so every rank applies the
 gradient of the global-batch mean loss, as the JAX package's sharded
-global mean does.
+global mean does. Over a ``dp × fsdp × tp`` mesh (``parallel/mesh.py``)
+FSDP2 reduces the gradients instead, and the loss sums and the replica
+check run over a mesh axis's own group (:func:`mesh_group`).
+
+Every process group has a timeout (:data:`PROCESS_GROUP_TIMEOUT`, or the
+caller's): a rank that never comes fails the job instead of hanging it.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -28,6 +34,10 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# how long a collective of the job's process group waits for its peers: long
+# enough for a rank that builds the kernels at its first step
+PROCESS_GROUP_TIMEOUT = timedelta(seconds=600)
 
 
 def _rendezvous() -> tuple[str, int, int] | None:
@@ -46,9 +56,10 @@ def _rendezvous() -> tuple[str, int, int] | None:
 
 def initialize_distributed(device_type: str = "cuda") -> tuple[int, int]:
     """Join the process group the environment names (no-op when already
-    joined or with one process). Returns ``(rank, world_size)``. On CUDA
-    each process takes the card ``LOCAL_RANK`` (else ``rank`` modulo the
-    visible cards)."""
+    joined or with one process), its collectives failing after
+    ``PROCESS_GROUP_TIMEOUT``. Returns ``(rank, world_size)``. On CUDA each
+    process takes the card ``LOCAL_RANK`` (else ``rank`` modulo the visible
+    cards)."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     spec = _rendezvous()
@@ -59,7 +70,8 @@ def initialize_distributed(device_type: str = "cuda") -> tuple[int, int]:
         local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            init_method=init_method, world_size=world, rank=rank)
+                            init_method=init_method, world_size=world, rank=rank,
+                            timeout=PROCESS_GROUP_TIMEOUT)
     obs.set_host(rank, world)
     logger.info("distributed init: rank %d/%d via %s", rank, world, init_method)
     return rank, world
@@ -96,20 +108,43 @@ def all_reduce_mean_grads(params) -> None:
         offset += n
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks (``t`` itself with one process)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (all of them when None;
+    ``t`` itself with one process)."""
     if world_size() > 1:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
-def gather_scalars(value, device=None) -> torch.Tensor:
+def mesh_group(mesh, axes: tuple[str, ...], timeout: timedelta = PROCESS_GROUP_TIMEOUT):
+    """The process group of this rank and the ranks that differ from it
+    only along ``axes`` of ``mesh`` (a ``DeviceMesh`` with named dims): one
+    axis is the mesh's own group, several are flattened into one group,
+    made once per mesh with ``timeout`` (a collective the first time: every
+    rank asks for the same axes in the same order) and kept on the mesh."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    made = mesh.__dict__.setdefault("_flattened_groups", {})
+    key = tuple(axes)
+    if key not in made:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(
+            mesh.mesh.shape[d] for d in dims))
+        made[key], _ = dist.new_subgroups_by_enumeration(ranks.tolist(), timeout=timeout)
+    return made[key]
+
+
+def gather_scalars(value, device=None, group=None) -> torch.Tensor:
     """Every rank's ``value`` as one fp64 vector in rank order (a
-    collective; ``device`` is where it lives, the card under NCCL)."""
-    vals = torch.zeros(world_size(), dtype=torch.float64, device=device)
-    vals[rank()] = value
-    if world_size() > 1:
-        dist.all_reduce(vals)
+    collective over ``group``, all ranks when None; ``device`` is where it
+    lives, the card under NCCL)."""
+    n = world_size() if group is None else dist.get_world_size(group)
+    vals = torch.zeros(n, dtype=torch.float64, device=device)
+    vals[rank() if group is None else dist.get_rank(group)] = value
+    if n > 1:
+        dist.all_reduce(vals, group=group)
     return vals
 
 

@@ -48,7 +48,12 @@ command resumes it ("resuming from epoch N"). Telemetry goes to
 K1 and K2 launch counts end it as ``kernel_launches/<wrapper>`` metrics.
 Several processes on one host: start one per card with
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` (or the
-``TPU_*`` triplet) set, or through the launcher (``launch/``).
+``TPU_*`` triplet) set, or through the launcher (``launch/``). With
+``--fsdp F`` and/or ``--tp T`` (``--dp`` -1 takes the rest of the ranks)
+the ranks form a ``(dp, fsdp, tp)`` mesh (``parallel/mesh.py``): FSDP2
+shards the model over ``fsdp`` and the Megatron plan over ``tp``
+(``parallel/sharding.py``), each of the ``dp x fsdp`` replicas takes
+``train_batch_size`` rows a step, and rank 0 exports the gathered model.
 """
 
 from __future__ import annotations
@@ -88,6 +93,12 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization im
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.generate import generate
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import save_adapters
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    build_mesh,
+    data_parallel_size,
+    mesh_shape,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     initialize_distributed,
     local_device,
@@ -353,15 +364,23 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
     buckets = config.bucket_sizes(max_len)
     if buckets:
         logger.info("length bucketing at widths %s", buckets)
-    train_batcher = ShardedBatcher(train_ds, config.train_batch_size * world,
+    # --fsdp/--tp: the (dp, fsdp, tp) mesh the Trainer shards the model over;
+    # a batch per data-parallel replica (the tensor ranks of one share it)
+    mesh, replicas = None, world
+    if config.fsdp > 1 or config.tp > 1:
+        mesh = build_mesh(MeshConfig(dp=config.dp, fsdp=config.fsdp, tp=config.tp),
+                          device_type=device.type)
+        replicas = data_parallel_size(mesh)
+        logger.info("mesh %s: %d data-parallel replicas", mesh_shape(mesh), replicas)
+    train_batcher = ShardedBatcher(train_ds, config.train_batch_size * replicas,
                                    shuffle=True, seed=config.seed, device=device,
-                                   bucket_sizes=buckets)
-    eval_batcher = ShardedBatcher(eval_ds, config.eval_batch_size * world,
+                                   bucket_sizes=buckets, mesh=mesh)
+    eval_batcher = ShardedBatcher(eval_ds, config.eval_batch_size * replicas,
                                   shuffle=False, drop_remainder=False, device=device,
-                                  bucket_sizes=buckets)
+                                  bucket_sizes=buckets, mesh=mesh)
 
     total_steps = train_batcher.steps_per_epoch() * config.epochs
-    trainer = Trainer(config, model, total_steps=total_steps)
+    trainer = Trainer(config, model, total_steps=total_steps, mesh=mesh)
 
     checkpointer = None
     start_epoch = start_step_in_epoch = 0
@@ -408,7 +427,7 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
                             eval_results["rougeL_f1"])
             if config.task == "qa" and config.eval_qa_samples:
                 qa = qa_answer_metrics(config, model, tokenizer, max_len,
-                                       config.eval_batch_size * world, device)
+                                       config.eval_batch_size * replicas, device)
                 eval_results["eval_exact_match"] = qa["eval_exact_match"]
                 eval_results["eval_f1"] = qa["eval_f1"]
                 logger.info("QA answers over %d windows: exact match %.2f, F1 %.2f",

@@ -33,6 +33,15 @@ Adam).
   ``gradient_accumulation_steps`` averages micro-batch gradients into one
   update (optax ``MultiSteps``); both are applied by the trainer at
   update time.
+- Over a mesh (``parallel/sharding.py``) the parameters, gradients and
+  moments are DTensors. The elementwise updates (Adam, AdamW,
+  ``AdamLowp``, LAMB's Adam part) run on each rank's shard. What is a
+  whole-parameter quantity stays one: the global norm of the clip and
+  LAMB's trust-ratio norms sum each shard's squares over the mesh dims
+  that shard it (:func:`_whole_norms`), and Adafactor gathers a sharded
+  parameter and its gradient whole, so its factored row and column
+  statistics are those of the whole parameter (its state is then whole on
+  every rank).
 """
 
 from __future__ import annotations
@@ -42,8 +51,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+    full_tensor,
+    is_dtensor,
+    local_tensor,
+    shard_like,
+)
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -137,7 +153,10 @@ class Adafactor(torch.optim.Optimizer):
                     self._update(p, group)
 
     def _update(self, p, group) -> None:
-        g = p.grad.float()
+        # a sharded parameter is updated whole (the row and column
+        # statistics span every shard), then each rank keeps its shard
+        whole = is_dtensor(p)
+        g = (full_tensor(p.grad) if whole else p.grad).float()
         dims = factored_dims(tuple(p.shape))
         state = self.state[p]
         if not state:
@@ -166,10 +185,13 @@ class Adafactor(torch.optim.Optimizer):
         state["step"] += 1
         u = u / torch.clamp(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIP, min=1.0)
         u = u * group["lr"]
-        p32 = p.float()
+        p32 = (full_tensor(p) if whole else p).float()
         rms = torch.sqrt((p32 * p32).mean())
         u = u * torch.where(rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE, rms)
-        p.copy_((p32 - u).to(p.dtype))
+        if whole:
+            local_tensor(p).copy_(shard_like((p32 - u).to(p.dtype), p))
+        else:
+            p.copy_((p32 - u).to(p.dtype))
 
 
 # the fp32 working copies a foreach pass of AdamLowp or Lamb holds at once
@@ -195,6 +217,34 @@ def _buckets(params, limit: int = FOREACH_BUCKET):
 def _fp32(tensors) -> list:
     """``tensors`` as fp32 (the same tensors where they already are)."""
     return [t if t.dtype == torch.float32 else t.float() for t in tensors]
+
+
+def _locals(tensors) -> list:
+    """Each rank's shard of ``tensors`` (the tensors themselves off a
+    mesh): the elementwise updates run on these, in place."""
+    return [local_tensor(t) for t in tensors]
+
+
+def _whole_norms(tensors, like) -> torch.Tensor:
+    """The L2 norm of each of ``tensors`` (rank-local shards, fp32) as a
+    whole: where ``like[i]`` is a DTensor, the shard's sum of squares summed
+    over every mesh dim that shards it (one all-reduce per mesh dim and
+    layout); where none is, ``torch._foreach_norm`` as before."""
+    if not any(is_dtensor(t) for t in like):
+        return torch.stack(torch._foreach_norm(tensors))
+    sq = torch.stack([torch.sum(t * t) for t in tensors])
+    layouts: dict = {}
+    for i, t in enumerate(like):
+        if is_dtensor(t):
+            dims = tuple(d for d, pl in enumerate(t.placements) if not pl.is_replicate())
+            if dims:
+                layouts.setdefault((id(t.device_mesh), dims), (t.device_mesh, []))[1].append(i)
+    for (_, dims), (mesh, idx) in layouts.items():
+        part = sq[idx]
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        sq[idx] = part
+    return torch.sqrt(sq)
 
 
 def _moments(opt, run, dtype) -> tuple[list, list, list]:
@@ -238,7 +288,8 @@ def _adam_direction(m, v, grads, states, b1: float, b2: float, eps: float) -> li
 
 
 def _apply(run, p32, update, lr: float) -> None:
-    """``p -= lr * update``, written back where the parameter is not fp32."""
+    """``p -= lr * update`` (``run`` rank-local), written back where the
+    parameter is not fp32."""
     torch._foreach_add_(p32, update, alpha=-lr)
     for p, q in zip(run, p32):
         if q is not p:
@@ -274,16 +325,17 @@ class AdamLowp(torch.optim.Optimizer):
             (b1, b2), wd = group["betas"], group["weight_decay"]
             for run in _buckets([p for p in group["params"] if p.grad is not None]):
                 states, m_low, v_low = _moments(self, run, self.state_dtype)
+                m_low, v_low, local = _locals(m_low), _locals(v_low), _locals(run)
                 m = [torch.empty_like(t, dtype=torch.float32) for t in m_low]
                 v = [torch.empty_like(t, dtype=torch.float32) for t in v_low]
                 torch._foreach_copy_(m, m_low)
                 torch._foreach_copy_(v, v_low)
-                p32 = _fp32(run)
-                update = _adam_direction(m, v, _fp32([p.grad for p in run]), states,
-                                         b1, b2, group["eps"])
+                p32 = _fp32(local)
+                update = _adam_direction(m, v, _fp32(_locals([p.grad for p in run])),
+                                         states, b1, b2, group["eps"])
                 if wd > 0:
                     torch._foreach_add_(update, p32, alpha=wd)
-                _apply(run, p32, update, group["lr"])
+                _apply(local, p32, update, group["lr"])
                 torch._foreach_copy_(m_low, m)
                 torch._foreach_copy_(v_low, v)
 
@@ -305,7 +357,8 @@ class Lamb(torch.optim.Optimizer):
        and layer norms too, takes ``+ wd * p``;
     3. ``scale_by_trust_ratio``: each tensor's update times ``‖p‖ / ‖u‖``,
        or 1 where either norm is 0 (both norms of a run from
-       ``torch._foreach_norm``, no host sync);
+       ``torch._foreach_norm``, no host sync; a sharded tensor's norms are
+       its whole norms, :func:`_whole_norms`);
     4. ``p -= lr * update``.
 
     The state (``step``, ``exp_avg``, ``exp_avg_sq``) goes through
@@ -321,17 +374,18 @@ class Lamb(torch.optim.Optimizer):
             (b1, b2), wd = group["betas"], group["weight_decay"]
             for run in _buckets([p for p in group["params"] if p.grad is not None]):
                 states, m, v = _moments(self, run, torch.float32)
-                p32 = _fp32(run)
-                update = _adam_direction(m, v, _fp32([p.grad for p in run]), states,
-                                         b1, b2, group["eps"])
+                m, v, local = _locals(m), _locals(v), _locals(run)
+                p32 = _fp32(local)
+                update = _adam_direction(m, v, _fp32(_locals([p.grad for p in run])),
+                                         states, b1, b2, group["eps"])
                 if wd > 0:
                     torch._foreach_add_(update, p32, alpha=wd)
-                p_norm = torch.stack(torch._foreach_norm(p32))
-                u_norm = torch.stack(torch._foreach_norm(update))
+                p_norm = _whole_norms(p32, run)
+                u_norm = _whole_norms(update, run)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                     p_norm / u_norm)
                 torch._foreach_mul_(update, list(ratio.unbind()))
-                _apply(run, p32, update, group["lr"])
+                _apply(local, p32, update, group["lr"])
 
 
 def build_optimizer(config: TrainConfig, params, world_size: int = 1,
@@ -364,9 +418,12 @@ def set_lr(optimizer, lr: float) -> None:
 
 def global_norm(params) -> torch.Tensor:
     """optax ``global_norm`` of the ``.grad`` of ``params`` (a device
-    scalar, no host sync)."""
+    scalar, no host sync; over sharded gradients the whole norm)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if any(is_dtensor(g) for g in grads):
+        return torch.linalg.vector_norm(_whole_norms(_fp32(_locals(grads)), grads))
     return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(p.grad.float()) for p in params if p.grad is not None]))
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
@@ -375,6 +432,6 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     grads = [p.grad for p in params if p.grad is not None]
     norm = global_norm(params)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
+    for g in _locals(grads):
         g.mul_(factor.to(g.dtype))
     return norm

@@ -45,6 +45,24 @@ F1 counts), ``qa_loss``, ``causal_lm_loss``, ``rtd_loss`` and
   batcher's prefetch thread.
 - Token-packed batches (``segment_ids``, ``position_ids``) reach every
   task loss's model call (``_packed_kwargs``).
+- Over a ``dp × fsdp × tp`` mesh (``mesh``, ``parallel/mesh.py``) with
+  ``fsdp > 1`` or ``tp > 1`` the model is wrapped by
+  ``parallel/sharding.py:shard_model``, the tensor-parallel plan left out
+  at ``tp`` 1 (a model the caller wrapped already stays as it is): FSDP2
+  reduces the gradients over ``data × fsdp``, so
+  there is no all-reduce of them here. The ``tensor`` ranks of a replica
+  share its rows, so the loss sums and the counts are summed over the
+  data-parallel group only, each rank back-propagates ``loss_sum ·
+  dp_size / count``, and the learning rate scales by ``dp_size``
+  (``data_parallel_size``; the JAX Trainer's ``dp_size``) where MFU and
+  the meter count every rank (``world_size``). The replica check compares
+  each shard across the ``data`` replicas; a checkpoint holds the gathered
+  state (``torch.distributed.checkpoint.state_dict``, ``full_state_dict``)
+  on rank 0's host, one tensor at a time gathered and offloaded, and
+  restores onto the same mesh by rank 0's broadcast; ``export_params`` is
+  the gathered model in its unwrapped layout, on rank 0's host (``{}`` on
+  the others). No card holds more than one whole tensor on the way. The
+  DP-only path is unchanged.
 - LoRA (``lora_rank > 0``, ``models/lora.py``): the base is frozen but the
   heads ``lora_train_heads`` matches, adapters from ``torch.Generator(seed)``
   are attached to the targeted kernels, and ``self.params`` (the optimizer,
@@ -63,6 +81,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch import obs
@@ -89,11 +108,14 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.collectives
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.obs.watchdog import (
     compile_budget_env,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel import mesh as pmesh
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel import sharding
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
     agree_compile_budget_crossed,
     all_reduce_mean_grads,
     all_reduce_sum,
     host_step_stats,
+    mesh_group,
     rank,
     world_size,
 )
@@ -389,6 +411,55 @@ TASK_LOSSES = {"seq-cls": seq_cls_loss, "token-cls": token_cls_loss, "qa": qa_lo
                "rtd": rtd_loss, "seq2seq": seq2seq_loss}
 
 
+def _full_state_dict(model, optimizer) -> tuple[dict, dict]:
+    """The whole model and optimizer state of a sharded model on rank 0's
+    host, ``{}`` on every other rank (``torch.distributed.checkpoint.
+    state_dict``; each tensor gathered and offloaded in turn, so no card
+    holds the whole state; rank 0 is the one that writes it)."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict
+
+    return get_state_dict(model, optimizer,
+                          options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+
+
+def _load_full_state_dict(model, optimizer, model_state: dict, optim_state: dict) -> None:
+    """:func:`_full_state_dict`'s output put back from rank 0's copy, one
+    tensor at a time broadcast to the ranks, each keeping its shards (the
+    other ranks' copies are not read)."""
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_model_state_dict,
+        set_optimizer_state_dict,
+    )
+
+    if dist.get_rank() != 0:
+        model_state, optim_state = {}, {}
+    # two calls: ``set_state_dict`` skips the model where its state is empty
+    options = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+    set_model_state_dict(model, model_state, options=options)
+    set_optimizer_state_dict(model, optimizer, optim_state, options=options)
+
+
+def _load_whole_grads(params: list, grads: list, device) -> None:
+    """Rank 0's whole gradient accumulators (``grads``; the other ranks'
+    are not read) broadcast one at a time, each rank keeping its shard of
+    each as its parameter's ``.grad``."""
+    rank0 = dist.get_rank() == 0
+    layout = [[None if g is None else (tuple(g.shape), g.dtype) for g in grads]
+              if rank0 else None]
+    dist.broadcast_object_list(layout, src=0)
+    if len(layout[0]) != len(params):
+        raise ValueError(f"{len(layout[0])} saved accumulators for {len(params)} parameters")
+    for i, (p, info) in enumerate(zip(params, layout[0])):
+        if info is None:
+            p.grad = None
+            continue
+        whole = grads[i].to(device) if rank0 else torch.empty(info[0], dtype=info[1],
+                                                               device=device)
+        dist.broadcast(whole, src=0)
+        p.grad = sharding.dtensor_like(whole, p)
+
+
 def _closing(batches):
     """A batch iterator as a context that closes it on exit (a prefetching
     iterator stops its thread); one without ``close`` as it is."""
@@ -401,9 +472,16 @@ class Trainer:
     ``torch.distributed`` ranks when a process group is up."""
 
     def __init__(self, config: TrainConfig, model, task: Optional[str] = None,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None, mesh=None):
         self.config = config
         self.model = model
+        if mesh is not None and not sharding.is_sharded(model):
+            shape = pmesh.mesh_shape(mesh)
+            tp = shape[pmesh.AXIS_TENSOR]
+            if shape[pmesh.AXIS_FSDP] > 1 or tp > 1:
+                # at tp 1 the plan would only route every Linear through
+                # DTensor dispatch (host time, no work): FSDP2 alone
+                sharding.shard_model(model, mesh, tensor_plan=tp > 1)
         self.task = task or config.task
         if self.task not in TASK_LOSSES:
             raise ValueError(f"no loss for task {self.task!r}")
@@ -427,6 +505,19 @@ class Trainer:
                     "seq2seq_hidden_and_embedding (T5/BART)")
         self.device = next(model.parameters()).device
         self.n_chips = world_size()
+        # the replicas of a batch (the tensor ranks of one share its rows);
+        # the group the loss sums are summed over (None: every rank)
+        self.dp_size, self._dp_group = self.n_chips, None
+        self.sharded = sharding.is_sharded(model)
+        if self.sharded:
+            if config.lora_rank > 0:
+                raise NotImplementedError(
+                    "lora_rank>0 over a sharded mesh is not ported to the PyTorch "
+                    "package yet: ROADMAP queue 1, item 11 (parallelism beyond DP)")
+            mesh = self.mesh = model.mesh
+            self.n_chips = pmesh.world_size(mesh)
+            self.dp_size = pmesh.data_parallel_size(mesh)
+            self._dp_group = mesh_group(mesh, (pmesh.AXIS_DATA, pmesh.AXIS_FSDP))
         # LoRA (models/lora.py): the base is frozen but the heads
         # lora_train_heads matches, and the adapters join the trainable
         # parameters, so the optimizer state, the clip, the all-reduce and
@@ -438,7 +529,7 @@ class Trainer:
             adapters = self._init_lora(config)
         self.params = [p for p in model.parameters() if p.requires_grad] + adapters
         self.optimizer, self.schedule, self.scaled_lr = build_optimizer(
-            config, self.params, world_size=self.n_chips, total_steps=total_steps)
+            config, self.params, world_size=self.dp_size, total_steps=total_steps)
         self.step = 0            # micro-steps taken
         self.updates = 0         # optimizer updates applied
         for p in self.params:
@@ -475,6 +566,8 @@ class Trainer:
         """The deployable weights as a ``state_dict``: with LoRA the base
         and the adapters merged (what ``save_pretrained`` writes), else the
         model's own. After a ``keep_best`` fit they are the best epoch's."""
+        if self.sharded:
+            return sharding.export_state(self.model)   # a collective
         if self.lora is None:
             return self.model.state_dict()
         return lo.merge_lora(self.model, self.lora, self.lora_scaling)
@@ -490,6 +583,15 @@ class Trainer:
         rng = {"cpu": torch.get_rng_state()}
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        if self.sharded:
+            # the gathered state (a collective), in the mesh's own layout,
+            # on rank 0's host only: the other ranks' is empty (no model,
+            # no optimizer state, every accumulator None)
+            model_state, optim_state = _full_state_dict(self.model, self.optimizer)
+            return {"model": model_state, "optimizer": optim_state,
+                    "step": self.step, "updates": self.updates,
+                    "grads": [None if p.grad is None else sharding.whole_on_rank0(p.grad)
+                              for p in self.params], "rng": rng}
         state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                  "step": self.step, "updates": self.updates,
                  "grads": [p.grad for p in self.params], "rng": rng}
@@ -499,14 +601,22 @@ class Trainer:
 
     def load_state_dict(self, state: dict) -> None:
         """Put a :meth:`state_dict` (e.g. a restored checkpoint's, on the
-        CPU) back into the live trainer."""
-        self.model.load_state_dict(state["model"])
-        if self.lora is not None:
-            self._load_lora(state["lora"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        CPU) back into the live trainer (over a mesh: onto the mesh it was
+        saved from)."""
+        if self.sharded:
+            _load_full_state_dict(self.model, self.optimizer, state["model"],
+                                  state["optimizer"])
+        else:
+            self.model.load_state_dict(state["model"])
+            if self.lora is not None:
+                self._load_lora(state["lora"])
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.updates = int(state["step"]), int(state["updates"])
-        for p, g in zip(self.params, state["grads"], strict=True):
-            p.grad = None if g is None else g.to(p.device)
+        if self.sharded:
+            _load_whole_grads(self.params, state["grads"], self.device)
+        else:
+            for p, g in zip(self.params, state["grads"], strict=True):
+                p.grad = None if g is None else g.to(p.device)
         torch.set_rng_state(state["rng"]["cpu"])
         if self.device.type == "cuda":
             torch.cuda.set_rng_state(state["rng"]["cuda"], self.device)
@@ -526,7 +636,10 @@ class Trainer:
         the relative deviation; raises ``ReplicaDivergenceError`` beyond
         ``config.divergence_tol``. Called before each checkpoint save, so
         a divergent replica is never persisted silently."""
-        rel = replica_divergence(self.params)
+        if self.sharded:
+            rel = replica_divergence(self.params, self.mesh.get_group(pmesh.AXIS_DATA))
+        else:
+            rel = replica_divergence(self.params)
         if rel > self.config.divergence_tol:
             raise ReplicaDivergenceError(
                 f"parameter replicas diverge (relative deviation {rel:.3e} > "
@@ -546,17 +659,17 @@ class Trainer:
         loss, sums = self.loss_fn(self.model, batch)
         # the MoE layers' Switch aux losses of this forward join the task
         # loss (the JAX Trainer's sown "losses"), on every loss path
-        aux = moe_aux_loss(self.model, world=self.n_chips)
+        aux = moe_aux_loss(self.model, world=self.dp_size)
         objective = loss if aux is None else loss + aux
-        if self.n_chips > 1:
+        if self.dp_size > 1:
             # the global valid count first: each rank's share of the global
-            # mean is loss_sum * world / count (the gradient all-reduce
-            # divides by world); the aux loss is already the global batch's,
-            # the same on every rank
+            # mean is loss_sum * dp_size / count (the gradient all-reduce, or
+            # FSDP2's reduce-scatter, divides by dp_size); the aux loss is
+            # already the global batch's, the same on every rank
             parts = [sums["count"], sums["loss_sum"].detach(), sums["correct"]]
-            totals = all_reduce_sum(torch.stack(parts))
+            totals = all_reduce_sum(torch.stack(parts), self._dp_group)
             count = torch.clamp(totals[0], min=1.0)
-            objective = sums["loss_sum"] * self.n_chips / count
+            objective = sums["loss_sum"] * self.dp_size / count
             loss = totals[1] / count
             if aux is not None:
                 objective = objective + aux
@@ -568,7 +681,8 @@ class Trainer:
         self.step += 1
         metrics = {}
         if self.step % accum == 0:
-            all_reduce_mean_grads(self.params)
+            if not self.sharded:         # FSDP2 has reduced them in backward
+                all_reduce_mean_grads(self.params)
             norm = None
             if cfg.max_grad_norm > 0:
                 norm = clip_by_global_norm(self.params, cfg.max_grad_norm)
@@ -598,7 +712,8 @@ class Trainer:
         what can change: the adapters and the trainable heads, not the
         frozen base."""
         def host(t):
-            return t.detach().to("cpu", copy=True)
+            # over a mesh every rank keeps its own shard
+            return sharding.local_tensor(t.detach()).to("cpu", copy=True)
 
         if self.lora is None:
             return {k: host(v) for k, v in self.model.state_dict().items()}
@@ -610,7 +725,10 @@ class Trainer:
     def _restore_best(self) -> None:
         """load_best_model_at_end: put the best snapshot back into the live
         model, then release the host copy."""
-        if self.lora is None:
+        if self.sharded:
+            for name, value in self.model.state_dict().items():
+                sharding.local_tensor(value).copy_(self._best_params[name])
+        elif self.lora is None:
             self.model.load_state_dict(self._best_params)
         else:
             self._load_lora(self._best_params["lora"])
@@ -655,8 +773,8 @@ class Trainer:
                           flops_per_token=fpt, dec_flops_per_token=dec_fpt,
                           peak_tflops=peak)
         # one (tokens, dec_tokens) entry per batch, popped per step; x the
-        # rank count approximates the global figure (shards are balanced)
-        tok_scale = self.n_chips
+        # replica count approximates the global figure (shards are balanced)
+        tok_scale = self.dp_size
         token_log = getattr(train_batcher, "token_log", None)
         history: dict[str, list] = {"loss": [], "sparse_categorical_accuracy": []}
         steps_per_epoch = train_batcher.steps_per_epoch()
@@ -909,7 +1027,7 @@ class Trainer:
         with obs.span("eval/sync"):
             flat = all_reduce_sum(torch.stack([torch.as_tensor(totals.get(k, 0.0),
                                                                device=self.device).float()
-                                               for k in keys]))
+                                               for k in keys]), self._dp_group)
             totals = dict(zip(keys, (float(x) for x in flat)))
         count = max(totals["count"], 1.0)
         results = {"eval_loss": totals["loss_sum"] / count,

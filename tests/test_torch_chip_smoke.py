@@ -80,6 +80,10 @@ def on_cpu(monkeypatch):
     tiny = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=1,
                 intermediate_size=128)
     monkeypatch.setattr(chip_smoke, "BERT_LARGE", dict(chip_smoke.BERT_LARGE, **tiny))
+    # the phases' depth cuts of BERT-large and BERT-base, at the tiny model's depth
+    for depth in ("LAUNCH_DEPTH", "OPTIM_DEPTH", "ENCODER_LARGE_DEPTH", "MLM_LARGE_DEPTH",
+                  "LIFECYCLE_DEPTH", "BUDGET_DEPTH", "BREADTH_DEPTH"):
+        monkeypatch.setattr(chip_smoke, depth, tiny["num_hidden_layers"])
     monkeypatch.setattr(chip_smoke, "ROBERTA_BASE", dict(chip_smoke.ROBERTA_BASE, **tiny,
                                                          vocab_size=300))
     monkeypatch.setattr(chip_smoke, "ELECTRA_SMALL", dict(chip_smoke.ELECTRA_SMALL, **tiny,
@@ -569,15 +573,33 @@ def test_pooled_device_time_tolerates_dropped_records():
     assert chip_smoke._pooled_ms([full, full], iters=5) == (pytest.approx(2.4), 0)
 
 
+def test_one_session_splits_into_its_windows_at_the_markers():
+    """The profiled windows of one profiler session split at each run
+    of marker spin kernels, each window's records by name; records out of
+    start order sort first; a window whose markers were all dropped merges
+    into the one before (and the caller then retakes the session)."""
+    spin = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = [(spin, 0, 5), (spin, 10, 5), ("k", 20, 1000), ("k", 1100, 1000),
+              (spin, 3000, 5), ("k", 3100, 3000), ("lib", 3050, 500),
+              (spin, 9000, 5), (spin, 9010, 5), ("k", 9100, 2000)]
+    windows = chip_smoke._window_records(list(reversed(events)))
+    assert windows == [{"k": (2e-6, 2)}, {"lib": (5e-7, 1), "k": (3e-6, 1)},
+                       {"k": (2e-6, 1)}]
+    merged = chip_smoke._window_records([e for e in events if e[1] != 3000])
+    assert len(merged) == 2 and merged[0]["k"] == (pytest.approx(5e-6), 3)
+
+
 def test_fresh_process_phases_hand_their_rows_back(tmp_path, monkeypatch):
     """A phase run by ``--phase NAME OUT`` writes its rows to OUT, keyed as
     in the process that reads them (a tuple key stays a tuple), and the
-    flash, vocab-CE and llama K3 cases, the optimizer/remat phase (it
-    profiles) and the obs phase's compile-budget run (its K1 library loads
-    inside its fit) all run so; any other argument raises."""
+    flash and vocab-CE cases, the optimizer/remat phase (it profiles), the
+    obs phase's compile-budget run (its K1 library loads inside its fit)
+    and the mesh phase (its own process group) all run so (the llama K3
+    cases time with the others in the kernel phase); any other
+    argument raises."""
     assert set(chip_smoke.FRESH_PROCESS_PHASES) == {
-        "flash_phase", "vocab_ce_phase", "llama_kernel_phase", "optim_memory_phase",
-        "compile_budget_phase"}
+        "flash_phase", "vocab_ce_phase", "optim_memory_phase", "compile_budget_phase",
+        "mesh_train_phase"}
     rows = {("bert_bf16", "flash_fwd"): {"kernel_ms": 0.5, "contexts": [0, 3]},
             "gpt2": {"kernel_ms": 0.25, "status": "pass"}}
     monkeypatch.setitem(chip_smoke.FRESH_PROCESS_PHASES, "flash_phase", lambda: rows)
@@ -1108,8 +1130,9 @@ def test_seq2seq_decode_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
 
 
 def test_predict_phase_on_cpu(on_cpu, monkeypatch, tmp_path, capsys):
-    """The predict CLI in subprocesses on tiny exports of each kind: the
-    JAX rows' keys, generated ids equal to the direct calls'."""
+    """The predict CLI's entry, run in this process, on tiny exports of
+    each kind: the JAX rows' keys, generated ids equal to the direct
+    calls'."""
     from huggingface_sagemaker_tensorflow_distributed_tpu_torch.data.tokenization import (
         WordHashTokenizer,
     )
@@ -1725,3 +1748,106 @@ def test_obs_phase_on_cpu(serve_on_cpu, monkeypatch, tmp_path, capsys):
                if line.startswith("{")]
     assert [p["run"] for p in printed if p.get("phase") == "obs"] == [
         r["run"] for r in rows.values()]
+
+
+# -- time limits ----------------------------------------------------------------
+
+def _calls(tree):
+    import ast
+
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)]
+
+
+def test_every_subprocess_call_and_wait_has_a_time_limit():
+    """Each ``subprocess.run`` (and ``check_output``/``call``), ``wait`` and
+    ``communicate`` in ``chip_smoke.py`` passes a timeout: a child that
+    hangs fails the run within its limit instead of using it up."""
+    import ast
+
+    tree = ast.parse(Path(chip_smoke.__file__).read_text())
+    checked = 0
+    for call in _calls(tree):
+        f = call.func
+        if not isinstance(f, ast.Attribute):
+            continue
+        is_run = (f.attr in ("run", "check_output", "call", "check_call")
+                  and isinstance(f.value, ast.Name) and f.value.id == "subprocess")
+        if is_run or f.attr in ("wait", "communicate"):
+            keywords = {k.arg for k in call.keywords}
+            positional = f.attr in ("wait", "communicate") and call.args
+            assert "timeout" in keywords or positional, \
+                f"chip_smoke.py:{call.lineno}: {f.attr}(...) without a timeout"
+            checked += 1
+    assert checked >= 6
+
+
+def test_mesh_train_phase_runs_in_its_own_process_within_two_minutes():
+    assert chip_smoke.FRESH_PROCESS_PHASES["mesh_train_phase"] is chip_smoke.mesh_train_phase
+    assert chip_smoke.FRESH_PROCESS_TIMEOUTS_S["mesh_train_phase"] <= 120
+    assert chip_smoke.MESH_GROUP_TIMEOUT_S <= 120
+
+
+def test_every_phase_limit_is_a_named_constant_beside_its_phase():
+    """Each fresh-process phase's limit is ``<PHASE>_TIMEOUT_S``, defined
+    within a few lines of the phase's ``def``, under 600 s (the one limit
+    they all once shared); so is the launched job's limit."""
+    import ast
+
+    source = Path(chip_smoke.__file__).read_text()
+    tree = ast.parse(source)
+    assigned = {t.id: node.lineno for node in tree.body if isinstance(node, ast.Assign)
+                for t in node.targets if isinstance(t, ast.Name)}
+    defined = {node.name: node.lineno for node in tree.body
+               if isinstance(node, ast.FunctionDef)}
+    assert "FRESH_PROCESS_TIMEOUT_S" not in assigned
+    assert set(chip_smoke.FRESH_PROCESS_TIMEOUTS_S) == set(chip_smoke.FRESH_PROCESS_PHASES)
+    for phase, limit in chip_smoke.FRESH_PROCESS_TIMEOUTS_S.items():
+        const = f"{phase.upper()}_TIMEOUT_S"
+        assert getattr(chip_smoke, const) == limit, phase
+        assert abs(assigned[const] - defined[phase]) <= 40, (const, phase)
+        assert 60 <= limit < 600, (phase, limit)
+    assert chip_smoke.LAUNCH_TIMEOUT_S < 600
+    assert abs(assigned["LAUNCH_TIMEOUT_S"] - defined["_start_launch"]) <= 40
+
+
+def test_a_fresh_process_past_its_limit_fails_the_run(monkeypatch):
+    """Running past the limit kills the child and fails, naming the phase
+    (it is never skipped)."""
+    import subprocess
+
+    def hang(*args, timeout=None, **kw):
+        raise subprocess.TimeoutExpired(args[0], timeout)
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", hang)
+    with pytest.raises(RuntimeError, match="mesh_train_phase .* past its limit of 120 s"):
+        chip_smoke._fresh_process("mesh_train_phase")
+
+
+def test_mesh_train_phase_on_cpu(on_cpu, monkeypatch, capsys):
+    """The mesh phase at a tiny width: a gloo world of one, a (1, 1, 1)
+    mesh, shard_model's trainer with and without the tensor-parallel plan
+    against the plain one (fp32 losses and gradients, launches a step),
+    then bf16 steps of the three; the process group is gone after it."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(chip_smoke, "TINYLLAMA", dict(
+        chip_smoke.TINYLLAMA, vocab_size=300, hidden_size=64, intermediate_size=128,
+        num_attention_heads=4, num_key_value_heads=2))
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ", 64)
+    rows = chip_smoke.mesh_train_phase()
+    assert not dist.is_initialized()
+    fp32 = rows["fp32"]
+    depth = chip_smoke.MESH_DEPTH
+    assert fp32["launches_per_step"] == {"flash_fwd": depth, "flash_bwd_dq": depth,
+                                         "flash_bwd_dkv": depth, "fused_ce_fwd": 1,
+                                         "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
+    for name in ("fsdp", "mesh"):
+        assert max(fp32[f"loss_rel_err_{name}"]) <= chip_smoke.MESH_LOSS_RTOL
+        assert fp32[f"grad_rel_l2_{name}"] <= chip_smoke.MESH_GRAD_REL_L2
+        assert len(fp32[f"loss_{name}"]) == chip_smoke.MESH_FP32_STEPS
+    assert fp32["head_weight_aligned"]
+    for name in ("plain", "fsdp", "mesh"):
+        assert all(math.isfinite(x) for x in rows["bf16"][name]["loss"])
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [r["run"] for r in printed if r.get("phase") == "mesh_train"] == ["fp32", "bf16"]

@@ -105,7 +105,9 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
 # the remat policies), now ported: these entries of UNPORTED now parse as
 # the JAX package's do
 ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing", "--num_experts",
-         "--optimizer", "--optimizer_state_dtype", "--remat")
+         "--optimizer", "--optimizer_state_dtype", "--remat",
+         # item 11's first part: training over a dp x fsdp x tp mesh
+         "--tp", "--fsdp")
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])
