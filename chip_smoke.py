@@ -99,7 +99,7 @@ back in the JSON file OUT:
    ``error``): (a) the JAX router bench's accelerator settings (8 slots,
    chunk 32, width 256, 177 blocks a replica), one engine against two
    replicas under ``round_robin``, ``least_loaded`` and ``affinity`` on
-   the 48-request mixed trace, and round-robin against affinity on the
+   the mixed trace (24 requests), and round-robin against affinity on the
    primed templated trace (4 families x 8 behind 96 tokens): tokens equal
    the one engine's up to a near-tie, affinity's hit rate at least
    round-robin's, tokens/s, TTFT, imbalance, peak resident and the idle
@@ -1709,12 +1709,12 @@ def serve_engine_phase(model, trace, tel: Path | None = None) -> dict:
 #
 # The JAX bench's accelerator-scale settings (benchmarks/serve_bench.py):
 # (a) placement: 8 slots, block 16, chunk 32, width 256, ladder [128, 256];
-# the 48-request mixed trace (prompts 16-32, 32-48 new, 64-96 every 4th,
-# seed 7) and the templated one (4 families x 8 behind a 96-token prefix,
+# the mixed trace at 24 of the bench's 48 requests (prompts 16-32, 32-48
+# new, 64-96 every 4th, seed 7) and the templated one (4 families x 8 behind a 96-token prefix,
 # tails 2-5, 3-5 new, seed 8, primed); the bench's pool formula
 ROUTER_ENGINE = dict(num_slots=8, block_size=16, prefill_chunk=32, max_model_len=256,
                      gather_buckets=[128, 256])
-ROUTER_TRACE = dict(n_requests=48, prompt_lo=16, prompt_hi=32, short_new=(32, 48),
+ROUTER_TRACE = dict(n_requests=24, prompt_lo=16, prompt_hi=32, short_new=(32, 48),
                     long_new=(64, 96), long_every=4)
 ROUTER_FAMILIES = (4, 8, 96)    # families, requests per family, prefix tokens
 ROUTER_BLOCKS = (1 + 8 * ((32 + 32 + 96 + 16) // 16 + 1)
@@ -8310,17 +8310,294 @@ def _mesh_bf16(hf: dict, mesh, batch) -> dict:
     return out
 
 
+# -- the tp_serve phase: tensor-parallel serving ---------------------------------------
+#
+# Two ranks on the one card in a gloo world (NCCL refuses two ranks on one
+# device; gloo carries CUDA tensors through the host): one engine cut over
+# tensor = 2 (``ServeEngine(mesh=2)``), rank 0 serving and rank 1 following.
+# The model: Llama-3.1-8B's widths at depth ``TP_DEPTH`` of 32, random from
+# seed 0 (built on the meta device and filled on the card: every rank
+# draws the same weights).
+TP_DEPTH = 8
+TP_ENGINE = dict(num_slots=4, block_size=16, prefill_chunk=32, max_model_len=512,
+                 gather_buckets=[256, 512], kernel="xla")    # TP serves on the gather route
+# (a) fp32: 4 requests of 64-192 prompt tokens, 16 new each
+TP_FP32_TRACE = dict(n=4, lo=64, hi=192, new=16)
+# the largest |logit| difference allowed between the two-rank and the one-rank
+# model, teacher-forced on the one-rank engine's tokens (fp32: the all-reduce
+# adds two partial sums where one rank adds the whole row)
+TP_LOGIT_TOL = 2e-3
+# (b) bf16: 8 requests of 64-256 prompt tokens, 32 new each, both engines at
+# one per-device KV budget that fits the trace at tp 1
+TP_BF16_TRACE = dict(n=8, lo=64, hi=256, new=32)
+TP_KV_POOL_BYTES = 128 * 2 ** 20     # 4096 tokens at tp 1 (32 KiB a token in bf16)
+TP_CAPACITY_RATIO = 1.9       # blocks at tp 2 over blocks at tp 1, at least
+TP_GROUP_TIMEOUT_S = 60       # every group's collectives, the followers' wait
+TP_RANKS = 2
+
+
+def _tp_task() -> dict:
+    """What each rank runs, from this module's settings (a spawned rank
+    re-imports the module: what a caller changed here reaches it only
+    through the task)."""
+    return {"device": DEVICE, "hf": dict(LLAMA_31_8B, num_hidden_layers=TP_DEPTH),
+            "engine": TP_ENGINE, "fp32_trace": TP_FP32_TRACE, "bf16_trace": TP_BF16_TRACE,
+            "kv_pool_bytes": TP_KV_POOL_BYTES, "logit_tol": TP_LOGIT_TOL,
+            "group_timeout_s": TP_GROUP_TIMEOUT_S, "leader_hangs": False,
+            "profiled": OVERLAP_PROFILED}
+
+
+def _tp_rank(rank: int, port: int, out: str, task: dict) -> None:
+    """One rank of :func:`tp_serve_phase`: join the gloo world (its
+    timeout every group's), run :func:`_tp_runs`, write its rows to
+    ``out/rank<r>.json``. With ``task["leader_hangs"]`` rank 0 builds its
+    engine and then sends nothing: the follower must fail within the
+    group's timeout."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    global DEVICE
+    DEVICE = task["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)        # both ranks: the one card
+        _no_tf32()
+    else:
+        torch.set_num_threads(1)
+    timeout = datetime.timedelta(seconds=task["group_timeout_s"])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank, timeout=timeout)
+    try:
+        rows = _tp_runs(rank, task, timeout)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_engine(model, mesh, task, **kw):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import ServeEngine
+
+    return ServeEngine(model, mesh=mesh, device=DEVICE, **{**task["engine"], **kw})
+
+
+def _tp_runs(rank: int, task: dict, timeout) -> dict:
+    """(a) fp32: the one-rank engine (rank 0, the whole model) and the
+    two-rank engine on the trace; greedy tokens equal, a split allowed only
+    where the one-rank engine's top-2 logit gap lies under the measured
+    logit error (or ``NEAR_TIE``); the two-rank model's logits,
+    teacher-forced on the one-rank tokens, within ``logit_tol`` of the one
+    rank's. (b) bf16: both engines at ``kv_pool_bytes`` a device: blocks
+    (tp 2 at least ``TP_CAPACITY_RATIO`` times tp 1's), tokens/s, the idle
+    share of rank 0's process (``torch.profiler``, iterations
+    ``profiled``), each rank's peak memory, ``kv_pool_bytes_per_device``."""
+    import time as _time
+
+    import torch
+    import torch.distributed as dist
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert import init_llama
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        llama_config_from_hf,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+        tensor_parallel_mesh,
+    )
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+        ROW_REDUCES,
+    )
+
+    mesh = tensor_parallel_mesh(TP_RANKS, device_type=DEVICE, timeout=timeout)
+    rows = {}
+    # (a) fp32
+    _mem_reset()
+    cfg = llama_config_from_hf(task["hf"], dtype=torch.float32, param_dtype=torch.float32)
+    t = task["fp32_trace"]
+    trace = _random_prompts(cfg.vocab_size, t["n"], t["lo"], t["hi"], t["new"], seed=0)
+    model = init_llama(cfg, seed=0, device=DEVICE)
+    if task["leader_hangs"]:
+        engine = _tp_engine(model, mesh, task)
+        if rank == 0:
+            _time.sleep(task["group_timeout_s"] + 5)
+            return {}
+        t0 = _time.perf_counter()
+        engine.follow()         # raises when no descriptor comes in time
+        check(False, f"a follower with no leader returned after {_time.perf_counter() - t0} s")
+    box = [None]
+    if rank == 0:
+        one = _tp_engine(model, None, task)
+        base, one_wall, _ = _engine_run(one, trace)
+        base_logits = _teacher_logits(model, trace, base)
+        del one
+        box = [base]
+    dist.broadcast_object_list(box, src=0)
+    base = box[0]
+    engine = _tp_engine(model, mesh, task)       # cuts the model in place
+    if rank == 0:
+        got, tp_wall, _ = _engine_run(engine, trace)
+        engine.close()
+    else:
+        ops = engine.follow()
+    tp_logits = _teacher_logits(model, trace, base)     # a collective forward
+    if rank == 0:
+        err = max(float((a - b).abs().max()) for a, b in zip(tp_logits, base_logits))
+        tie = max(err, NEAR_TIE)
+        equal = splits = 0
+        for i, (g, b) in enumerate(zip(got, base)):
+            top2 = base_logits[i].topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            j = next((j for j, (x, y) in enumerate(zip(g, b)) if x != y), None)
+            if j is None:
+                check(len(g) == len(b), f"tp_serve fp32 request {i}: {len(g)} tokens, "
+                                        f"one rank {len(b)}")
+                equal += 1
+                continue
+            splits += 1
+            check(gaps[j] < tie, f"tp_serve fp32 request {i}: the two-rank tokens split "
+                                 f"at step {j} where the one-rank top-2 gap is {gaps[j]} "
+                                 f"(logit error {err}, tie bound {tie})")
+        check(err <= task["logit_tol"], f"tp_serve fp32: teacher-forced logits differ by "
+                                        f"{err} (limit {task['logit_tol']})")
+        rows["fp32"] = {"phase": "tp_serve", "run": "fp32", "tp": TP_RANKS,
+                        "model": "meta-llama/Llama-3.1-8B widths, depth "
+                                 f"{cfg.num_layers} of 32 (random init, seed 0)",
+                        "requests": len(trace), "requests_equal": equal,
+                        "requests_split_at_a_tie": splits, "logit_max_abs_err": err,
+                        "logit_tol": task["logit_tol"], "tie_bound": tie,
+                        "one_rank_wall_s": one_wall, "tp_wall_s": tp_wall,
+                        "kernel": engine.kernel, "control_messages": engine._control.sent,
+                        "kv_pool_bytes_per_device": engine.slo_summary()[
+                            "kv_pool_bytes_per_device"]}
+    else:
+        rows["fp32"] = {"ops_followed": ops}
+    del engine, model, tp_logits
+    # (b) bf16
+    _mem_reset()
+    cfg = llama_config_from_hf(task["hf"], dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    t = task["bf16_trace"]
+    trace = _random_prompts(cfg.vocab_size, t["n"], t["lo"], t["hi"], t["new"], seed=1)
+    model = init_llama(cfg, seed=0, device=DEVICE)
+    kv = {"kv_pool_bytes": task["kv_pool_bytes"]}
+    if rank == 0:
+        one = _tp_engine(model, None, task, **kv)
+        outs, wall, _ = _engine_run(one, trace)
+        steps = one.iterations
+        rows["bf16_tp1"] = _tp_row(one, outs, wall, trace, task)
+        rows["bf16_tp1"]["host"] = {"iterations": steps}
+        del one
+    engine = _tp_engine(model, mesh, task, **kv)
+    _mem_reset()                # this rank's peak from here: its shard and pools
+    if rank == 0:
+        reduces0, sent0 = dict(ROW_REDUCES), (engine._control.sent, engine._control.send_s)
+        outs, wall, _ = _engine_run(engine, trace)
+        steps = engine.iterations
+        host = {"iterations": steps,
+                "descriptors": engine._control.sent - sent0[0],
+                "descriptor_s": engine._control.send_s - sent0[1],
+                "row_all_reduces": ROW_REDUCES["calls"] - reduces0["calls"],
+                "row_all_reduce_s": ROW_REDUCES["seconds"] - reduces0["seconds"]}
+        host["descriptor_ms_per_iteration"] = 1e3 * host["descriptor_s"] / steps
+        host["row_all_reduce_ms_per_iteration"] = 1e3 * host["row_all_reduce_s"] / steps
+        rows["bf16_tp2"] = _tp_row(engine, outs, wall, trace, task)
+        rows["bf16_tp2"]["host"] = host
+        engine.close()
+        ratio = rows["bf16_tp2"]["num_blocks"] / rows["bf16_tp1"]["num_blocks"]
+        check(ratio >= TP_CAPACITY_RATIO, f"tp_serve: {rows['bf16_tp2']['num_blocks']} "
+                                          f"blocks at tp 2, {rows['bf16_tp1']['num_blocks']} "
+                                          f"at tp 1 on one budget")
+        rows["bf16_tp2"]["blocks_over_tp1"] = ratio
+    else:
+        rows["bf16_tp2"] = {"ops_followed": engine.follow(), "peak_gib": _peak_gib()}
+    dist.barrier()
+    return rows
+
+
+def _tp_row(engine, outs, wall: float, trace, task) -> dict:
+    """One bf16 engine's figures (rank 0), and the idle share of rank 0's
+    process over iterations ``task["profiled"]`` of the same engine serving
+    the trace again."""
+    slo = engine.slo_summary()
+    tokens = sum(len(o) for o in outs)
+    row = {"phase": "tp_serve", "run": f"bf16_tp{engine.tp}", "tp": engine.tp,
+           "kernel": engine.kernel, "requests": len(outs), "tokens": tokens,
+           "wall_s": wall, "tokens_per_sec": tokens / wall,
+           "decode_tokens_per_sec": slo.get("decode_tokens_per_sec"),
+           "ttft_p50_s": slo.get("ttft_p50_s"), "num_blocks": engine.blocks.num_blocks,
+           "kv_bytes_per_token": engine.blocks.token_bytes,
+           "kv_pool_bytes_per_device": slo["kv_pool_bytes_per_device"],
+           "kv_pool_bytes": task["kv_pool_bytes"], "peak_gib": _peak_gib()}
+    vocab = engine.model.config.vocab_size
+    check(all(o and all(0 <= x < vocab for x in o) for o in outs),
+          f"tp_serve bf16 tp {engine.tp}: an empty output or an id outside the vocabulary")
+    global OVERLAP_PROFILED
+    OVERLAP_PROFILED = tuple(task["profiled"])
+    # the window leaves the rest of the trace unserved
+    row.update(_idle_window(engine, trace, [{}] * len(trace)))
+    return row
+
+
+def _tp_world(task: dict, limit_s: float) -> dict:
+    """Both ranks of ``task`` in spawned processes; rank 0's rows with each
+    rank's peak memory. Fails if a rank fails or any is alive after
+    ``limit_s`` (then killed)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        sys.stdout.flush()
+        ctx = mp.start_processes(_tp_rank, args=(port, out, task), nprocs=TP_RANKS,
+                                 join=False, start_method="spawn")
+        deadline = time.perf_counter() + limit_s
+        for p in ctx.processes:
+            p.join(timeout=max(0.0, deadline - time.perf_counter()))
+        alive = [i for i, p in enumerate(ctx.processes) if p.is_alive()]
+        for i in alive:
+            ctx.processes[i].kill()
+            ctx.processes[i].join()
+        check(not alive, f"tp_serve: ranks {alive} alive after {limit_s} s (killed)")
+        codes = [p.exitcode for p in ctx.processes]
+        check(codes == [0] * TP_RANKS, f"tp_serve: ranks exited with {codes}")
+        rows = {r: json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(TP_RANKS)}
+    out = rows[0]
+    for name, row in rows[1].items():
+        if name in out:
+            out[name]["rank1"] = row
+    return out
+
+
+# tp_serve_phase's process: about 50 s, 150 on a slow host
+TP_SERVE_PHASE_TIMEOUT_S = 150
+
+
+def tp_serve_phase() -> dict:
+    """Tensor-parallel serving on the card (a process of its own): two ranks
+    on the card in a gloo world, one ``ServeEngine`` cut over ``tensor`` =
+    2 against the one-rank engine on the same weights (:func:`_tp_runs`).
+    Every group has ``TP_GROUP_TIMEOUT_S``; the ranks must be done within
+    ``TP_SERVE_PHASE_TIMEOUT_S`` less 10 s."""
+    rows = _tp_world(_tp_task(), TP_SERVE_PHASE_TIMEOUT_S - 10)
+    for row in rows.values():
+        emit(row)
+    return rows
+
+
 # the phases that run each in a process of its own (see the module's notes),
 # each with its time limit (the constant beside the phase)
 FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_phase,
                         "optim_memory_phase": optim_memory_phase,
                         "compile_budget_phase": compile_budget_phase,
-                        "mesh_train_phase": mesh_train_phase}
+                        "mesh_train_phase": mesh_train_phase,
+                        "tp_serve_phase": tp_serve_phase}
 FRESH_PROCESS_TIMEOUTS_S = {"flash_phase": FLASH_PHASE_TIMEOUT_S,
                             "vocab_ce_phase": VOCAB_CE_PHASE_TIMEOUT_S,
                             "optim_memory_phase": OPTIM_MEMORY_PHASE_TIMEOUT_S,
                             "compile_budget_phase": COMPILE_BUDGET_PHASE_TIMEOUT_S,
-                            "mesh_train_phase": MESH_TRAIN_PHASE_TIMEOUT_S}
+                            "mesh_train_phase": MESH_TRAIN_PHASE_TIMEOUT_S,
+                            "tp_serve_phase": TP_SERVE_PHASE_TIMEOUT_S}
 
 
 def _fresh_process(name: str) -> dict:
@@ -8458,6 +8735,7 @@ def main(argv: list | None = None) -> int:
     vocab = timed(_fresh_process, "vocab_ce_phase")
     optim_memory = timed(_fresh_process, "optim_memory_phase")
     mesh = timed(_fresh_process, "mesh_train_phase")
+    timed(_fresh_process, "tp_serve_phase")
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]

@@ -19,6 +19,12 @@ package's ``models/generate.py``.
 - :func:`sample_per_slot`: the serving engine's per-row draw, whose
   noise is a pure function of (request seed, token index).
 
+A causal model cut for tensor-parallel serving
+(``parallel/sharding.py:shard_for_serving``) runs every function here as it
+is, on every rank with the same arguments: each rank's caches hold its
+heads, the row-parallel layers sum over ``tensor``, and the replicated head
+gives every rank the same logits, so the ranks make the same choices.
+
 Every draw is Gumbel-max, ``argmax(warped + gumbel)`` — what
 ``jax.random.categorical`` computes — through :func:`_categorical`, with
 the noise made apart (:func:`_gumbel` from a ``torch.Generator`` seeded
@@ -789,6 +795,10 @@ def self_draft(model, num_layers: int):
     for name, child in model.named_children():
         if name != "backbone":                           # an untied head
             setattr(draft, name, child)
+    if getattr(model, "serve_shard", None) is not None:
+        # the blocks are the target's shards: the draft's caches hold the
+        # same local heads
+        draft.serve_shard = model.serve_shard
     return draft.train(model.training)
 
 

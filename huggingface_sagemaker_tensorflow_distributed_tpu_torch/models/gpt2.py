@@ -59,6 +59,7 @@ from torch import nn
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
     PagedCache,
+    local_heads,
     write_kv_cache,
     write_paged_kv,
 )
@@ -354,10 +355,11 @@ class Gpt2LMHeadModel(nn.Module):
     def new_dense_cache(self, batch: int, max_len: int,
                         index: Optional[torch.Tensor] = None) -> DenseCache:
         """Zeroed dense per-row KV buffers for every layer on the model's
-        device, in the config's KV storage."""
+        device, in the config's KV storage (this rank's heads on a model cut
+        for tensor-parallel serving)."""
         cfg = self.config
         return DenseCache.empty(
-            cfg.num_layers, batch, cfg.num_heads, max_len,
+            cfg.num_layers, batch, local_heads(self, cfg.num_heads), max_len,
             cfg.hidden_size // cfg.num_heads, cfg.dtype,
             self.backbone.wte.weight.device,
             int8=cfg.kv_cache_dtype == "int8", index=index)

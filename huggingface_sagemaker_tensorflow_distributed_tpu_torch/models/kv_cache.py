@@ -36,6 +36,13 @@ def kv_heads_and_dim(cfg) -> tuple[int, int]:
     return heads, getattr(cfg, "resolved_head_dim", cfg.hidden_size // cfg.num_heads)
 
 
+def local_heads(model, heads: int) -> int:
+    """``heads`` on this rank: all of them, or ``heads / tp`` on a model cut
+    for tensor-parallel serving (``parallel/sharding.py:shard_for_serving``)."""
+    shard = getattr(model, "serve_shard", None)
+    return heads if shard is None else heads // shard.tp
+
+
 def kv_quantize(x):
     """Symmetric per-(batch, head, position) int8 quantization of
     [B, H, S, D]: scale = amax/127 over head_dim; all-zero rows keep

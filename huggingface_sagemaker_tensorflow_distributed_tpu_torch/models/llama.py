@@ -46,6 +46,7 @@ from torch import nn
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
     DenseCache,
     PagedCache,
+    local_heads,
     write_kv_cache,
     write_paged_kv,
 )
@@ -553,10 +554,13 @@ class LlamaForCausalLM(nn.Module):
 
     def new_dense_cache(self, batch: int, max_len: int,
                         index: Optional[torch.Tensor] = None) -> DenseCache:
-        """Zeroed dense per-row KV buffers (``num_kv_heads`` heads) for
-        every layer on the model's device, in the config's KV storage."""
+        """Zeroed dense per-row KV buffers (``num_kv_heads`` heads, this
+        rank's ``num_kv_heads / tp`` on a model cut for tensor-parallel
+        serving) for every layer on the model's device, in the config's KV
+        storage."""
         cfg = self.config
         return DenseCache.empty(
-            cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim,
+            cfg.num_layers, batch, local_heads(self, cfg.num_kv_heads), max_len,
+            cfg.resolved_head_dim,
             cfg.dtype, self.backbone.embed_tokens.weight.device,
             int8=cfg.kv_cache_dtype == "int8", index=index)

@@ -16,9 +16,12 @@ batch (``dcn × data × fsdp × expert``): the ``tensor`` ranks of one replica
 share its rows. The loss, the gradient scale and the learning-rate scale
 use the latter.
 
+Tensor-parallel serving has a mesh of its own, :func:`tensor_parallel_mesh`:
+one ``tensor`` dim over the ``tp`` ranks of the process group (JAX's ``dp=1 ×
+tp`` serving mesh), cached per degree.
+
 Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-queue 1, item 11: ``dcn_dp > 1``, ``pp``, ``sp`` and ``ep`` meshes,
-:func:`tensor_parallel_mesh` (tensor-parallel serving) and
+queue 1, item 11: ``dcn_dp > 1``, ``pp``, ``sp`` and ``ep`` meshes and
 :func:`shard_map_compat`.
 """
 
@@ -87,8 +90,8 @@ class MeshConfig:
 
 
 # the ambient mesh, strictly LIFO (use the context manager); the JAX
-# package's API, which nothing in the port reads yet: the Trainer holds its
-# mesh on the sharded model (``model.mesh``)
+# package's API: a tensor-parallel ServeEngine runs its device work under its
+# mesh (the Trainer holds its mesh on the sharded model, ``model.mesh``)
 _CURRENT_MESH: list = []
 
 
@@ -167,9 +170,46 @@ def mesh_shape(mesh) -> dict:
     return {ax: int(sizes.get(ax, 1)) for ax in MESH_AXES}
 
 
-def tensor_parallel_mesh(tp: int):
-    """Tensor-parallel serving's mesh (JAX ``tensor_parallel_mesh``)."""
-    raise _unported("tensor_parallel_mesh (tensor-parallel serving)")
+# tensor_parallel_mesh's meshes: (degree, device type, process group) -> mesh
+_TP_MESHES: dict = {}
+
+
+def tensor_parallel_mesh(tp: int, device_type: str | None = None,
+                         timeout: timedelta | None = None):
+    """Tensor-parallel serving's mesh (JAX ``tensor_parallel_mesh``): a
+    ``DeviceMesh`` with the one dim ``("tensor",)`` over the ``tp`` ranks
+    of the joined process group, rank ``r`` holding shard ``r``. Its dim
+    group is made here with ``timeout`` (the job's
+    ``PROCESS_GROUP_TIMEOUT`` when None), so a collective fails after it
+    when a rank does not come. Cached per degree and device type (``cuda``
+    when None and the card is there, else ``cpu``) for the life of the
+    process group: every caller of one degree gets the same mesh. Raises
+    ``ValueError`` naming the world size when no process group of ``tp``
+    ranks is up."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+        PROCESS_GROUP_TIMEOUT,
+    )
+
+    if tp < 1:
+        raise ValueError(f"tensor-parallel degree must be >= 1, got {tp}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp or not dist.is_initialized():
+        raise ValueError(
+            f"tensor-parallel degree {tp} needs a process group of {tp} ranks, "
+            f"the world has {world}: start one process per rank (torchrun "
+            "or the port's launcher)")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    key = (tp, device_type, id(dist.group.WORLD))
+    if key not in _TP_MESHES:
+        group = dist.new_group(list(range(tp)), timeout=timeout or PROCESS_GROUP_TIMEOUT)
+        _TP_MESHES[key] = DeviceMesh.from_group(group, device_type, mesh=torch.arange(tp),
+                                                mesh_dim_names=(AXIS_TENSOR,))
+    return _TP_MESHES[key]
 
 
 def shard_map_compat(fn, *, mesh, in_specs, out_specs, check_vma=None):

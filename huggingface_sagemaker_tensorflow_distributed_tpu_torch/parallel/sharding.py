@@ -30,11 +30,26 @@ mesh's layout and the HF export keeps its own.
 The batch (JAX ``batch_sharding``): the data-parallel rank is its
 coordinate over ``data`` × ``fsdp`` (:func:`data_parallel_rank`); the
 ``tensor`` ranks of one replica take the same rows.
+
+Serving (JAX ``param_shardings`` and ``kv_pool_sharding`` under
+``ServeEngine(mesh=...)``): :func:`shard_for_serving` cuts a GPT-2 or dense
+Llama model in place over a :func:`~.mesh.tensor_parallel_mesh` with the same
+rule table and the same qkv permutation, so training and serving put the same
+heads on the same rank. It holds plain local tensors, not DTensors (a decode
+step's host time is the serving bill): a column-parallel layer keeps its
+rows of the weight and bias, a row-parallel layer its columns, and a forward
+hook sums the partial outputs over ``tensor`` (one all-reduce) before the
+bias is added once. Every rank then holds the same hidden states, the
+replicated embeddings, norms and head compute the same logits, and the
+attention runs on the rank's ``H / tp`` heads against K/V pools of
+``num_kv_heads / tp`` heads (:func:`kv_pool_heads`).
 """
 
 from __future__ import annotations
 
 import re
+import time
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -182,10 +197,11 @@ def _permute_qkv(model: nn.Module, groups: int) -> None:
 
     for module in model.modules():
         if isinstance(module, Gpt2Attention) and groups > 1:
-            order = _qkv_order(module.qkv.out_features, groups).to(module.qkv.weight.device)
-            module.qkv.weight.copy_(module.qkv.weight[order])
-            if module.qkv.bias is not None:
-                module.qkv.bias.copy_(module.qkv.bias[order])
+            order = _qkv_order(module.qkv.out_features, groups)
+            # every tensor of the layer with the output features first: the
+            # weight and bias, or an int8 layer's weight, scales and bias
+            for p in module.qkv.parameters():
+                p.copy_(p[order.to(p.device)])
             module.qkv_groups = groups
 
 
@@ -325,3 +341,91 @@ def export_state(model: nn.Module) -> dict:
     state = get_model_state_dict(
         model, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
     return canonical_state(model, state)
+
+
+# -- serving ---------------------------------------------------------------------
+
+class ServeShard(NamedTuple):
+    """What a model cut by :func:`shard_for_serving` holds: its degree and
+    its rank's coordinate over ``tensor``."""
+
+    tp: int
+    rank: int
+
+
+def kv_pool_heads(num_kv_heads: int, tp: int) -> int:
+    """The K/V heads one rank's pools hold (JAX ``kv_pool_sharding``): it is
+    the K/V heads that must divide over ``tp``, not the query heads (GQA).
+    Raises the JAX ``ValueError`` when they do not."""
+    if num_kv_heads % tp:
+        raise ValueError(
+            f"KV pool with {num_kv_heads} kv heads cannot shard over a "
+            f"tensor={tp} mesh: num_kv_heads must be divisible by the "
+            f"tensor-parallel degree (GQA models shard their KV heads, "
+            f"not the query heads)")
+    return num_kv_heads // tp
+
+
+def _cut(param: nn.Parameter, dim: int, rank: int, tp: int) -> nn.Parameter:
+    part = param.shape[dim] // tp
+    piece = param.detach().narrow(dim, rank * part, part).clone()
+    return nn.Parameter(piece, requires_grad=param.requires_grad)
+
+
+#: this process's row-parallel all-reduces of models cut for serving: how
+#: many, and the seconds the host spent in them (a gloo all-reduce of a CUDA
+#: tensor waits there for the kernels queued before it)
+ROW_REDUCES = {"calls": 0, "seconds": 0.0}
+
+
+def _reduce_partials(group):
+    """The row-parallel layer's forward hook: its partial products summed
+    over ``tensor``, then its bias (held aside, added once)."""
+    def hook(module, args, out):
+        t0 = time.perf_counter()
+        dist.all_reduce(out, group=group)
+        ROW_REDUCES["calls"] += 1
+        ROW_REDUCES["seconds"] += time.perf_counter() - t0
+        bias = module.serve_bias
+        return out if bias is None else out + bias.to(out.dtype)
+    return hook
+
+
+@torch.no_grad()
+def shard_for_serving(model: nn.Module, mesh) -> nn.Module:
+    """Cut ``model`` (GPT-2, or a dense Llama-family model) in place to this
+    rank's shard over ``mesh``'s ``tensor`` dim (every rank calls it with
+    the same whole weights; no communication). Raises the JAX
+    ``ValueError`` when ``num_kv_heads`` does not divide, and
+    ``NotImplementedError`` (ROADMAP item 11) where the model has no
+    tensor-parallel layout. Returns ``model``, which carries its
+    :class:`ServeShard` as ``model.serve_shard``."""
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.kv_cache import (
+        kv_heads_and_dim,
+    )
+
+    if getattr(model, "serve_shard", None) is not None:
+        raise ValueError("the model is already cut for serving")
+    tp = mesh_shape(mesh)[AXIS_TENSOR]
+    kv_pool_heads(kv_heads_and_dim(model.config)[0], tp)
+    check_tensor_parallel(model, tp)
+    rank = mesh.get_local_rank(AXIS_TENSOR)
+    group = mesh.get_group(AXIS_TENSOR)
+    _permute_qkv(model, tp)
+    for path, module in model.named_modules():
+        role = linear_role(path) if hasattr(module, "in_features") else None
+        if role is None:
+            continue
+        if role == "column":
+            for name, p in list(module.named_parameters(recurse=False)):
+                setattr(module, name, _cut(p, 0, rank, tp))
+            module.out_features //= tp
+            continue
+        leaf = "weight_q" if hasattr(module, "weight_q") else "weight"
+        setattr(module, leaf, _cut(getattr(module, leaf), 1, rank, tp))
+        module.in_features //= tp
+        module.serve_bias = module.bias
+        module.bias = None
+        module.register_forward_hook(_reduce_partials(group))
+    model.serve_shard = ServeShard(tp, rank)
+    return model

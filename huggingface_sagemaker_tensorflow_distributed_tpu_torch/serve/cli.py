@@ -28,9 +28,23 @@ bare engine's run), ``--placement round_robin|least_loaded|affinity``,
 ``--roles prefill:N,decode:M`` (a disaggregated fleet), ``--rate_limit
 GROUP=RATE[:BURST],...`` (per-tenant token buckets); ``--arrival
 poisson:RATE|bursty:HI,LO,P`` submits the trace on that open-loop
-schedule (seed ``HSTD_SERVE_ARRIVAL_SEED``) on the wall clock. ``--tp``
-above 1 is not ported and raises. Runs on the GPU unless ``--device cpu``
-is given.
+schedule (seed ``HSTD_SERVE_ARRIVAL_SEED``) on the wall clock. Runs on
+the GPU unless ``--device cpu`` is given.
+
+``--tp N`` (``HSTD_SERVE_TP``, default 1) serves tensor-parallel: one engine
+whose weights and KV pools (on their heads axis: ``num_kv_heads % N == 0``)
+are cut over N ranks, token-identical to the single-device engine, so one
+``--kv_pool_bytes`` buys about N times the residents. The CLI is then started
+once per rank, with the same arguments, by ``torchrun`` or the port's
+launcher (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, or the JAX
+package's ``TPU_*`` triplet; one card a rank). Rank 0 serves and prints the
+rows and the summary, both with ``tp`` (the summary also
+``kv_pool_bytes_per_device``); the other ranks follow it and print nothing.
+``--replicas`` above 1 (or ``--roles``) with ``--tp`` above 1 is not ported
+(ROADMAP queue 1, item 11):
+
+  torchrun --nproc_per_node 2 -m \
+      huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.cli --tp 2
 
   python -m huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.cli \\
       --requests 32 --num_slots 8 --block_size 16 --prefill_chunk 16 \\
@@ -60,6 +74,11 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.convert impor
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.gpt2 import (
     Gpt2Config,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    local_device,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import parse_tp
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import (
     OpenLoopDriver,
     bursty_arrivals,
@@ -70,6 +89,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.loadgen import
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.router import (
     Router,
+    parse_replicas,
     parse_roles,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.trace import (
@@ -221,8 +241,10 @@ def parse_args(argv=None):
                              "GROUP=RATE[:BURST],... ('*' = the default "
                              "bucket); over-budget submits are rejected, "
                              "counted in rate_limited")
-    # not ported: raises (tensor-parallel serving)
-    parser.add_argument("--tp", type=int, default=None)
+    parser.add_argument("--tp", type=int, default=None,
+                        help="tensor-parallel degree: one engine's weights and "
+                             "KV pools cut over this many ranks, one process "
+                             "each (default: HSTD_SERVE_TP or 1)")
     parser.add_argument("--temperature", type=float, default=0.0,
                         help="0 = greedy (the default); > 0 samples")
     parser.add_argument("--top_k", type=int, default=0)
@@ -233,12 +255,13 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """``--tp`` above 1 is not ported."""
-    if args.tp not in (None, 1):
+def _refuse_unported(args, tp: int, roles) -> None:
+    """A fleet of tensor-parallel replicas is not ported: the control
+    channel would have to say which engine each operation belongs to."""
+    if tp > 1 and (parse_replicas(args.replicas) > 1 or roles is not None):
         raise NotImplementedError(
-            f"--tp {args.tp} (tensor-parallel serving) is not ported yet: "
-            "ROADMAP queue 1, item 11")
+            f"--tp {tp} with --replicas/--roles (a fleet of tensor-parallel "
+            "replicas) is not ported yet: ROADMAP queue 1, item 11")
 
 
 def _open_loop(router, trace, arrival, seed: int, slo_spec):
@@ -321,15 +344,20 @@ def _fleet_summary(router, reqs, total: int, wall: float) -> dict:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    _refuse_unported(args)
     try:
+        tp = parse_tp(args.tp)
         arrival = parse_arrival(args.arrival)
         arrival_seed = parse_arrival_seed()
         slo_spec = parse_slo(args.slo)
         roles = parse_roles(args.roles)
     except ValueError as e:
         raise SystemExit(f"serve: {e}")
+    _refuse_unported(args, tp, roles)
     device = resolve_device(args.device)
+    if tp > 1:
+        # one process a rank, each with its own card (or the CPU's gloo)
+        initialize_distributed(device.type)
+        device = local_device(device.type)
     if args.model_dir:
         model, _, cfg = auto.from_pretrained(args.model_dir, task="causal-lm",
                                              device=device)
@@ -355,8 +383,11 @@ def main(argv=None) -> None:
                     timeline=args.timeline, overlap=args.overlap,
                     swap=args.swap, swap_bytes=args.swap_bytes,
                     policy=args.policy, aging_s=args.aging_s,
-                    rate_limit=args.rate_limit, device=device)
+                    rate_limit=args.rate_limit, mesh=tp, device=device)
     engine = router.engines[0]
+    if not engine.is_leader:
+        engine.follow()
+        return
     trace = load_trace(args, cfg.vocab_size - 1)
     # builds K3 before the clock starts
     router.warmup(sampled=any(kw.get("temperature", 0) > 0 for _, _, kw in trace))
@@ -424,6 +455,7 @@ def main(argv=None) -> None:
     elif rejected:
         open_extra["rate_limited"] = rejected
     launches = sum(e.paged_kernel_launches for e in router.engines)
+    engine.close()
     if router.n > 1:
         rslo = router.slo_summary()
         print(json.dumps({

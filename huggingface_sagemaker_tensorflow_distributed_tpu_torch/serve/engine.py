@@ -80,12 +80,31 @@ Greedy output equals ``generate_causal`` and the JAX engine token for
 token in every configuration; a sampled request's n-th token is drawn
 with noise that is a function of (its seed, n) (a speculative window's
 draws of (its seed, the window's first index)), so a stream is the same
-across preemption, swap and overlap. Tensor parallelism (``mesh``,
-``HSTD_SERVE_TP``) is not ported and raises.
+across preemption, swap and overlap.
+
+**Tensor parallelism** (``mesh``: a degree, or a ``DeviceMesh`` with a
+``tensor`` dim; ``HSTD_SERVE_TP``): the engine runs on ``tp`` processes,
+one a rank, each constructing it with the same arguments and the same whole
+weights. The model is cut in the Megatron layout over ``tensor``
+(``parallel/sharding.py:shard_for_serving``) and every pool holds the rank's
+``num_kv_heads / tp`` heads (a ``tp`` that does not divide them raises the JAX
+``ValueError``); block tables, context lengths and token feeds stay whole.
+``BlockManager.token_bytes`` is the shard's bytes a token, so one
+``kv_pool_bytes`` admits about ``tp`` times the residents
+(``kv_pool_bytes_per_device`` in the reports). Rank 0 runs the scheduler,
+block manager, prefix cache, swap and timeline unchanged and sends each
+device operation to the other ranks first (``serve/tp.py``); they run it in
+:meth:`ServeEngine.follow` until the leader's :meth:`ServeEngine.close`.
+Output is the single-device engine's token for token up to the summation
+order of the row-parallel all-reduce. TP serves on the gather route:
+``kernel='pallas'`` with a mesh raises, and a kernel left unset resolves to
+``xla`` there (the JAX default; the port's single-device default stays
+``pallas``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import NamedTuple, Optional, Sequence, Union
@@ -119,15 +138,26 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.paged_attention 
     load_kernel,
     paged_decode_attention,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import use_mesh
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+    kv_pool_heads,
+    shard_for_serving,
+)
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.paged_kv import (
     BlockManager,
-    extract_blocks,
+    extract_block_sets,
     insert_blocks,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.scheduler import (
     DECODE,
     Request,
     Scheduler,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.tp import (
+    STOP,
+    Control,
+    control_group,
+    heads_of,
 )
 
 ENV_GATHER_BUCKETS = "HSTD_SERVE_GATHER_BUCKETS"
@@ -301,13 +331,13 @@ def _mix32(h: int) -> int:
     return h ^ (h >> 16)
 
 
-def kv_token_bytes(cfg, int8: bool) -> int:
+def kv_token_bytes(cfg, int8: bool, tp: int = 1) -> int:
     """Bytes one resident token costs across every pool of a model: K and
     V per layer and K/V head (GQA: ``num_kv_heads``), plus an int8 pool's
-    fp32 scale."""
+    fp32 scale; on one of ``tp`` ranks, its ``num_kv_heads / tp`` heads'."""
     heads, head_dim = kv_heads_and_dim(cfg)
     elem = 1 if int8 else torch.tensor([], dtype=cfg.dtype).element_size()
-    return 2 * cfg.num_layers * heads * (head_dim * elem + (4 if int8 else 0))
+    return 2 * cfg.num_layers * (heads // tp) * (head_dim * elem + (4 if int8 else 0))
 
 
 def window_seeds(seed: int, start: int) -> tuple[int, int]:
@@ -374,8 +404,9 @@ class KVPools:
     scale pools under int8) over ``num_blocks`` blocks."""
 
     def __init__(self, cfg, num_blocks: int, block_size: int, device,
-                 int8: bool):
+                 int8: bool, tp: int = 1):
         heads, head_dim = kv_heads_and_dim(cfg)
+        heads = kv_pool_heads(heads, tp)
 
         def pools(dim, dtype):
             return [torch.zeros(num_blocks, block_size, heads, dim,
@@ -484,9 +515,11 @@ class ServeEngine:
     ``prefix_cache``, ``kernel``, ``kv_cache_dtype``, ``timeline``,
     ``overlap``, ``swap`` and ``swap_bytes``, ``policy`` and ``aging_s``.
     A speculative request reserves the verify window: ``prompt +
-    max_new_tokens + speculate_k`` must fit ``max_model_len``. ``mesh``
-    (an int degree above 1, or a mesh) raises: tensor parallelism is not
-    ported."""
+    max_new_tokens + speculate_k`` must fit ``max_model_len``. ``mesh``:
+    None (``HSTD_SERVE_TP``), an int degree, or a ``DeviceMesh`` whose
+    ``tensor`` dim is the degree; above 1 the engine is one of ``tp``
+    ranks (module docstring): rank 0 serves, every other rank calls
+    :meth:`follow`."""
 
     #: consecutive iterations a smaller width must suffice before the
     #: ladder shrinks to it
@@ -518,22 +551,35 @@ class ServeEngine:
                 "capacity depends on the apply's sequence length, so "
                 "chunked prefill could drop token->expert assignments "
                 "the one-shot path never drops")
-        if mesh is not None and not isinstance(mesh, (int, str)):
-            raise NotImplementedError(
-                "a serving mesh (tensor-parallel ServeEngine) is not ported "
-                "yet: ROADMAP queue 1, item 11")
-        self.tp = parse_tp(mesh)
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"tensor-parallel serving (tp {self.tp}) is not ported yet: "
-                "ROADMAP queue 1, item 11")
         self.device = resolve_device(device)
         if model_device(model).type != self.device.type:
             raise ValueError(f"model lives on {model_device(model)}"
                              f", engine asked for {self.device}")
+        self.tp = self._degree(mesh)
+        if self.tp > 1:
+            # the JAX rejections, before any process group is asked for
+            kv_pool_heads(kv_heads_and_dim(cfg)[0], self.tp)
+        if kernel is None and self.tp > 1 and not os.environ.get(ENV_KERNEL):
+            kernel = "xla"
         self.kernel = parse_kernel(kernel)
+        if self.tp > 1 and self.kernel == "pallas":
+            raise ValueError(
+                "kernel='pallas' does not compose with a tensor-parallel "
+                "mesh: the fused paged kernel reads whole pools and "
+                "would need a shard_map port — serve TP with the xla "
+                "gather path (the kernel is a per-chip bandwidth "
+                "optimization; TP is a capacity one)")
         self.kv_cache_dtype = parse_kv_dtype(kv_cache_dtype, cfg.kv_cache_dtype)
         int8 = self.kv_cache_dtype == "int8"
+        # the recompute side of swap='auto' streams the whole model's weights
+        param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        self.mesh = self._mesh(mesh)
+        self._control = None
+        if self.mesh is not None:
+            # every rank gives the whole model; each keeps its shard
+            shard = shard_for_serving(model, self.mesh).serve_shard
+            self._control = Control(control_group(self.mesh), self.tp, shard.rank)
+        self._last_nxt: Optional[torch.Tensor] = None
         self.model = model
         self.eos_token_id = int(cfg.eos_token_id)
         self.pad_token_id = min(int(cfg.pad_token_id), cfg.vocab_size - 1)
@@ -554,7 +600,7 @@ class ServeEngine:
         self.prefix_cache = parse_prefix_cache(prefix_cache)
         self.timeline = parse_timeline(timeline)
         self.overlap = parse_overlap(overlap)
-        token_bytes = kv_token_bytes(cfg, int8)
+        token_bytes = kv_token_bytes(cfg, int8, self.tp)
         if kv_pool_bytes is not None:
             num_blocks = max(2, 1 + int(kv_pool_bytes) // (block_size * token_bytes))
         self.blocks = BlockManager(num_blocks, block_size, token_bytes=token_bytes)
@@ -578,13 +624,13 @@ class ServeEngine:
             self.gather_buckets = [b for b in self.gather_buckets
                                    if b >= self.speculate_k + 1]
         self.prefill_batch = max(1, min(int(prefill_batch), self.num_slots))
-        self._kv = KVPools(cfg, num_blocks, block_size, self.device, int8)
+        self._kv = KVPools(cfg, num_blocks, block_size, self.device, int8, self.tp)
         self.draft_model = None
         self._dkv: Optional[KVPools] = None
         if self.speculate_k:
             self.draft_model = self._build_draft(model, draft)
             self._dkv = KVPools(self.draft_model.config, num_blocks,
-                                block_size, self.device, int8)
+                                block_size, self.device, int8, self.tp)
         self.finished: dict[int, Request] = {}
         self.decode_steps = 0
         self.prefill_chunks = 0
@@ -653,12 +699,12 @@ class ServeEngine:
         self.recompute_tokens_avoided = 0
         if self.swap != "off":
             # host bytes one block costs across every pool, draft's
-            # included; the recompute side of ``auto`` streams the
-            # weights once per prefill dispatch
-            self._host_block_bytes = block_size * (token_bytes + (
+            # included, whole (a set leaves the pools with every head);
+            # the recompute side of ``auto`` streams the weights once per
+            # prefill dispatch
+            self._host_block_bytes = block_size * (kv_token_bytes(cfg, int8) + (
                 kv_token_bytes(self.draft_model.config, int8) if self.speculate_k else 0))
-            self._param_bytes = sum(p.numel() * p.element_size()
-                                    for p in model.parameters())
+            self._param_bytes = param_bytes
             self.sched.swap_hook = self._swap_out
             if self.prefix_cache:
                 self.blocks.set_spill(self._spill_block,
@@ -674,6 +720,8 @@ class ServeEngine:
             dmodel, weights = draft
             if weights is not None:
                 dmodel.load_state_dict(weights)
+            if self.mesh is not None:
+                shard_for_serving(dmodel, self.mesh)
         else:
             layers = draft
             if layers is None:
@@ -714,6 +762,143 @@ class ServeEngine:
 
     def _draft_pools(self) -> Optional[list]:
         return self._dkv.all() if self._dkv is not None else None
+
+    # -- tensor parallelism ------------------------------------------------------
+
+    @staticmethod
+    def _degree(mesh) -> int:
+        """The tensor-parallel degree the ``mesh`` argument asks for: a
+        ``DeviceMesh``'s ``tensor`` size (a mesh of any other axis raises),
+        else the degree knob (:func:`parse_tp`, whose ``ValueError`` names
+        anything else)."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+            mesh_shape,
+        )
+
+        if isinstance(mesh, DeviceMesh):
+            tp = mesh_shape(mesh)["tensor"]
+            if mesh.mesh.numel() != tp:
+                raise ValueError(f"a serving mesh shards over tensor alone, got "
+                                 f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+            return tp
+        return parse_tp(mesh)
+
+    def _mesh(self, mesh):
+        """The serving mesh at ``self.tp``: the one given, or
+        :func:`~..parallel.mesh.tensor_parallel_mesh`'s; None at 1 (the
+        single-device engine, as in JAX)."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+            tensor_parallel_mesh,
+        )
+
+        if self.tp == 1:
+            return None
+        if isinstance(mesh, DeviceMesh):
+            return mesh
+        return tensor_parallel_mesh(self.tp, device_type=self.device.type)
+
+    @property
+    def is_leader(self) -> bool:
+        """True on the rank that serves: the single-device engine, or rank
+        0 of a tensor-parallel one."""
+        return self._control is None or self._control.leader
+
+    def _mesh_ctx(self):
+        """The engine's mesh as the ambient one (``parallel.mesh.use_mesh``)
+        around its device work, as the JAX engine's ``_mesh_ctx``; nothing
+        without a mesh."""
+        return use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+
+    def _run(self, op: str, *args):
+        """Run device operation ``op`` (``_op_<op>``) here, under the mesh;
+        on a tensor-parallel leader, after sending it to the followers."""
+        if self._control is not None:
+            if self._control.closed:
+                raise RuntimeError("the tensor-parallel engine is closed: its "
+                                   "followers have left")
+            self._control.send(op, args)
+        with self._mesh_ctx():
+            return getattr(self, "_op_" + op)(*args)
+
+    def follow(self) -> int:
+        """A follower rank's loop: run each operation the leader sends on
+        this rank's shards until the leader closes its engine. Returns the
+        operations run; raises when none comes within the control group's
+        timeout."""
+        if self.is_leader:
+            raise RuntimeError("follow() runs on the ranks after 0 of a "
+                               "tensor-parallel engine; rank 0 serves")
+        n = 0
+        with torch.inference_mode():
+            while True:
+                op, args = self._control.receive()
+                if op == STOP:
+                    return n
+                with self._mesh_ctx():
+                    getattr(self, "_op_" + op)(*args)
+                n += 1
+
+    def close(self) -> None:
+        """The leader's last word to its followers (their :meth:`follow`
+        returns); the engine runs nothing after it. Nothing on a
+        single-device engine."""
+        if self._control is not None and self._control.leader and not self._control.closed:
+            self._control.send(STOP, ())
+            self._control.closed = True
+
+    def _op_prefill(self, chunks, tables, start, rel) -> torch.Tensor:
+        """One batched chunk forward of the target (and the draft, whose
+        pools hold the prompt's K/V too); the target's logits at ``rel``."""
+        chunks_t, tables_t = self._h2d(chunks), self._h2d(tables)
+        start_t, rel_t = self._h2d(start), self._h2d(rel)
+        last = self._prefill_forward(self.model, self._kv, chunks_t, tables_t, start_t, rel_t)
+        if self.speculative:
+            self._prefill_forward(self.draft_model, self._dkv, chunks_t, tables_t,
+                                  start_t, rel_t)
+        return last
+
+    def _op_decode(self, feed: str, vals, use_dev, tables, ctx, samp,
+                   bucket: int) -> torch.Tensor:
+        """One decode step. Its tokens: the host's ``vals`` (``feed``
+        "host"), the previous step's tokens still on the device ("device"),
+        or those where ``use_dev`` and ``vals`` elsewhere ("mixed")."""
+        if feed == "host":
+            tokens = self._h2d(vals)
+        elif feed == "device":
+            tokens = self._last_nxt
+        else:
+            tokens = torch.where(self._h2d(use_dev), self._last_nxt, self._h2d(vals))
+        self._last_nxt = self._decode_step(tokens, tables, ctx, samp, bucket)
+        return self._last_nxt
+
+    def _op_spec(self, tokens, tables, ctx, samp, bucket: int) -> tuple:
+        return self._spec_step(self._h2d(tokens), tables, ctx, samp, bucket)
+
+    def _op_copy(self, pairs) -> None:
+        """Copy-on-write: each ``(src, dst)`` block in every pool."""
+        for src, dst in pairs:
+            self._kv.copy_block(src, dst)
+            if self._dkv is not None:
+                self._dkv.copy_block(src, dst)
+
+    def _op_extract(self, id_lists) -> Optional[list]:
+        """One whole :class:`~.paged_kv.BlockSet` per id list (every pool,
+        the draft's too, every rank's heads), with one wait; None on a
+        follower."""
+        sets = extract_block_sets(self._kv.all(), id_lists, d_pools=self._draft_pools())
+        return sets if self._control is None else self._control.gather(sets)
+
+    def _op_insert(self, items) -> None:
+        """Scatter each ``(whole block set, block ids)`` into the pools: this
+        rank's heads of it."""
+        rank = 0 if self._control is None else self._control.rank
+        for bset, ids in items:
+            insert_blocks(self._kv.all(), heads_of(bset, rank, self.tp), ids,
+                          d_pools=self._draft_pools())
 
     # -- requests -------------------------------------------------------------
 
@@ -792,7 +977,11 @@ class ServeEngine:
         deadline from its origin and ``priority`` its admission class
         (smaller is more urgent; both order admission under
         ``policy='slo'``). ``trace_id`` is a router-minted trace context
-        (empty: none)."""
+        (empty: none). Only the leader of a tensor-parallel engine takes
+        requests."""
+        if not self.is_leader:
+            raise RuntimeError("a follower rank takes no requests: submit on rank 0 "
+                               "and call follow() here")
         req = Request(prompt=np.asarray(prompt, np.int32),
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
@@ -1310,16 +1499,9 @@ class ServeEngine:
                 rel[i] = (len(req.prompt) - 1) - pos
                 finals.append((i, slot))
         t0 = time.perf_counter()
-        chunks_t, tables_t = self._h2d(chunks), self._h2d(tables)
-        start_t, rel_t = self._h2d(start), self._h2d(rel)
         with obs.span("serve/prefill_chunk",
                       {"chunks": len(slots)} if obs.has_sink() else None):
-            last = self._prefill_forward(self.model, self._kv, chunks_t,
-                                         tables_t, start_t, rel_t)
-            if self.speculative:
-                # the draft's pools hold the prompt's K/V too
-                self._prefill_forward(self.draft_model, self._dkv, chunks_t,
-                                      tables_t, start_t, rel_t)
+            last = self._run("prefill", chunks, tables, start, rel)
         if self.timeline:
             dur = time.perf_counter() - t0
             self._iter_prefill_s += dur
@@ -1415,7 +1597,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         with obs.span("serve/decode_step", {"active": len(ds), "gather_bucket": bucket}
                       if obs.has_sink() else None):
-            nxt = self._decode_step(self._h2d(tokens), tables, ctx, samp, bucket)
+            nxt = self._run("decode", "host", tokens, None, tables, ctx, samp, bucket)
             (host,), event = self._d2h_async((nxt,))
             self._wait(event)
             nxt = host.numpy()
@@ -1460,16 +1642,17 @@ class ServeEngine:
                 use_dev[slot.index] = True
             else:
                 vals[slot.index] = slot.request.output[-1]
-        t0 = time.perf_counter()
         if prev is None or not use_dev.any():
-            tokens = self._h2d(vals)
-        elif all(s.inflight for s in ds):
-            tokens = prev.nxt
+            feed = "host"
         else:
-            tokens = torch.where(self._h2d(use_dev), prev.nxt, self._h2d(vals))
+            # the tokens in flight are the last decode step's, on every rank
+            feed = "device" if all(s.inflight for s in ds) else "mixed"
+            if prev.nxt is not self._last_nxt:
+                raise RuntimeError("the dispatch in flight is not the last decode step")
+        t0 = time.perf_counter()
         with obs.span("serve/decode_step", {"active": len(ds), "gather_bucket": bucket}
                       if obs.has_sink() else None):
-            nxt = self._decode_step(tokens, tables, ctx, samp, bucket)
+            nxt = self._run("decode", feed, vals, use_dev, tables, ctx, samp, bucket)
             (host,), event = self._d2h_async((nxt,))
         dispatch_s = time.perf_counter() - t0
         if self.timeline:
@@ -1616,7 +1799,7 @@ class ServeEngine:
         with obs.span("serve/spec_decode_step",
                       {"active": len(ds), "gather_bucket": bucket, "speculate_k": k}
                       if obs.has_sink() else None):
-            dev = self._spec_step(self._h2d(tokens), tables, ctx, samp, bucket)
+            dev = self._run("spec", tokens, tables, ctx, samp, bucket)
             host, event = self._d2h_async(dev)
         dispatch_s = time.perf_counter() - t0
         if self.timeline:
@@ -1812,16 +1995,14 @@ class ServeEngine:
         """The admission's copy-on-write block copies, in every pool the
         slot's table addresses: the target's (scales included) and the
         draft's."""
-        for src, dst in slot.pending_copies:
-            self._kv.copy_block(src, dst)
-            if self._dkv is not None:
-                self._dkv.copy_block(src, dst)
+        if slot.pending_copies:
+            self._run("copy", list(slot.pending_copies))
         slot.pending_copies = []
 
     def _spill_block(self, b: int):
         """The block manager's spill hook: block ``b``'s payload out of
         every pool."""
-        return extract_blocks(self._kv.all(), [b], d_pools=self._draft_pools())
+        return self._run("extract", [[b]])[0]
 
     def _swap_out(self, slot) -> bool:
         """The scheduler's preemption hook: extract the victim's resident
@@ -1844,8 +2025,7 @@ class ServeEngine:
                 return False
         if not self.blocks.host_reserve(est):
             return False
-        req.swap_set = extract_blocks(self._kv.all(), slot.table[:n],
-                                      d_pools=self._draft_pools())
+        req.swap_set = self._run("extract", [list(slot.table[:n])])[0]
         actual = req.swap_set.nbytes
         if actual != est:
             self.blocks.host_release(est - actual)
@@ -1864,8 +2044,7 @@ class ServeEngine:
         if slot.pending_swap_in is not None:
             bset, slot.pending_swap_in = slot.pending_swap_in, None
             t0 = time.perf_counter()
-            insert_blocks(self._kv.all(), bset, slot.table[:bset.n_blocks],
-                          d_pools=self._draft_pools())
+            self._run("insert", [(bset, list(slot.table[:bset.n_blocks]))])
             dt = time.perf_counter() - t0
             if req.rid in self._migrated_in:
                 # a migration arrival: the set came from a sibling's
@@ -1906,9 +2085,7 @@ class ServeEngine:
                           **self._replica_kw(), **self._trace_kw(req))
         if slot.pending_restores:
             t0 = time.perf_counter()
-            for b, payload in slot.pending_restores:
-                insert_blocks(self._kv.all(), payload, [b],
-                              d_pools=self._draft_pools())
+            self._run("insert", [(payload, [b]) for b, payload in slot.pending_restores])
             self.restore_s += time.perf_counter() - t0
             slot.pending_restores = []
 

@@ -552,9 +552,10 @@ class Router:
                 key=lambda s: s.admit_seq, reverse=True)]
         # one extraction for every hot victim with a compatible peer (one
         # wait on the card for the cohort); its seconds are shared evenly
-        # so each request's extract_s keeps its per-hop meaning
+        # so each request's extract_s keeps its per-hop meaning, and each
+        # prefetched resident's migration hold opens at the pull's start
         prefetched: dict[int, object] = {}
-        share = 0.0
+        share, t0 = 0.0, None
         hot = [s for s in src.sched.slots
                if s.request is not None
                and s.request.state == DECODE
@@ -586,7 +587,7 @@ class Router:
             try:
                 info = migrate_request(src, self.engines[j], rid,
                                        prefetched=prefetched.get(rid),
-                                       extract_s=share)
+                                       extract_s=share, extract_t0=t0)
             except TransportError:
                 residents_in_place += 1
                 continue

@@ -50,11 +50,13 @@ class TransportError(RuntimeError):
 
 def pool_signature(engine) -> tuple:
     """The engine's logical pool geometry: ``(block_size, per-pool
-    (block shape, dtype), draft ditto)``. Equal signatures mean a
+    (block shape, dtype), draft ditto)``. Shapes are whole: a
+    tensor-parallel engine's pools report every rank's heads, as JAX's
+    sharded pools report their global shape. Equal signatures mean a
     :class:`~.paged_kv.BlockSet` extracted from one engine scatters bit
     for bit into the other."""
     def sig(pools):
-        return tuple((tuple(int(d) for d in p.shape[1:]),
+        return tuple(((int(p.shape[1]), int(p.shape[2]) * engine.tp, int(p.shape[3])),
                       str(p.dtype).replace("torch.", "")) for p in pools)
     draft = sig(engine._dkv.all()) if engine.speculative else None
     return (int(engine.blocks.block_size), sig(engine._kv.all()), draft)
@@ -93,7 +95,8 @@ def land_pipeline(src) -> None:
 
 
 def migrate_request(src, dst, rid: int, prefetched=None,
-                    extract_s: float = 0.0) -> Optional[dict]:
+                    extract_s: float = 0.0,
+                    extract_t0: Optional[float] = None) -> Optional[dict]:
     """Move resident request ``rid`` from ``src`` to ``dst``.
 
     A DECODE resident moves hot: its context's block set is extracted to
@@ -111,11 +114,18 @@ def migrate_request(src, dst, rid: int, prefetched=None,
     ``prefetched`` is a :class:`~.paged_kv.BlockSet` the caller already
     extracted for this request in a batched cohort pull
     (:func:`~.paged_kv.extract_block_sets`, one wait for the cohort),
-    with ``extract_s`` its share of the cohort's seconds; it is used only
-    while it still matches the slot's committed context."""
+    with ``extract_s`` its share of the cohort's seconds and
+    ``extract_t0`` the pull's start; it is used only while it still
+    matches the slot's committed context, and then the request's
+    migration hold opens at ``extract_t0``: the pull it rode lies inside
+    the hold, as a sequential extraction does."""
     if src is dst:
         raise TransportError(
             f"request {rid}: source and destination are the same engine")
+    if src.tp > 1 or dst.tp > 1:
+        raise TransportError(
+            f"request {rid}: a tensor-parallel engine (tp {max(src.tp, dst.tp)}) "
+            "does not migrate requests yet: ROADMAP queue 1, item 11")
     if pool_signature(src) != pool_signature(dst):
         raise TransportError(
             f"request {rid}: engine pool geometries differ "
@@ -150,6 +160,11 @@ def migrate_request(src, dst, rid: int, prefetched=None,
         if prefetched is not None and prefetched.n_blocks == n:
             req.swap_set = prefetched
             req.migrate_extract_s = float(extract_s)
+            if extract_t0 is not None:
+                # the hold and the hop clock open where the cohort's pull
+                # began (nothing ran for this request since: the pipeline
+                # was landed before the pull)
+                req.preempt_t = req.migrate_out_t = float(extract_t0)
         else:
             t0 = time.perf_counter()
             req.swap_set = extract_blocks(src._kv.all(), slot.table[:n],

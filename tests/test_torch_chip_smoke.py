@@ -594,12 +594,13 @@ def test_fresh_process_phases_hand_their_rows_back(tmp_path, monkeypatch):
     in the process that reads them (a tuple key stays a tuple), and the
     flash and vocab-CE cases, the optimizer/remat phase (it profiles), the
     obs phase's compile-budget run (its K1 library loads inside its fit)
-    and the mesh phase (its own process group) all run so (the llama K3
+    the mesh phase (its own process group) and the tp_serve phase (its
+    ranks' processes) all run so (the llama K3
     cases time with the others in the kernel phase); any other
     argument raises."""
     assert set(chip_smoke.FRESH_PROCESS_PHASES) == {
         "flash_phase", "vocab_ce_phase", "optim_memory_phase", "compile_budget_phase",
-        "mesh_train_phase"}
+        "mesh_train_phase", "tp_serve_phase"}
     rows = {("bert_bf16", "flash_fwd"): {"kernel_ms": 0.5, "contexts": [0, 3]},
             "gpt2": {"kernel_ms": 0.25, "status": "pass"}}
     monkeypatch.setitem(chip_smoke.FRESH_PROCESS_PHASES, "flash_phase", lambda: rows)
@@ -1851,3 +1852,74 @@ def test_mesh_train_phase_on_cpu(on_cpu, monkeypatch, capsys):
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]
     assert [r["run"] for r in printed if r.get("phase") == "mesh_train"] == ["fp32", "bf16"]
+
+
+def test_tp_serve_phase_runs_in_its_own_process_within_its_limit():
+    assert chip_smoke.FRESH_PROCESS_PHASES["tp_serve_phase"] is chip_smoke.tp_serve_phase
+    assert chip_smoke.FRESH_PROCESS_TIMEOUTS_S["tp_serve_phase"] <= 150
+    # a hung rank fails the phase (its followers' wait) well inside the limit
+    assert chip_smoke.TP_GROUP_TIMEOUT_S + 15 < chip_smoke.TP_SERVE_PHASE_TIMEOUT_S
+    assert chip_smoke.TP_ENGINE["kernel"] == "xla"
+
+
+def _tp_tiny(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "LLAMA_31_8B", dict(
+        chip_smoke.LLAMA_31_8B, vocab_size=300, hidden_size=64, intermediate_size=128,
+        num_attention_heads=4, num_key_value_heads=2))
+    monkeypatch.setattr(chip_smoke, "TP_DEPTH", 2)
+    monkeypatch.setattr(chip_smoke, "TP_ENGINE", dict(chip_smoke.TP_ENGINE, max_model_len=64,
+                                                      gather_buckets=[32, 64]))
+    monkeypatch.setattr(chip_smoke, "TP_FP32_TRACE", dict(n=3, lo=8, hi=20, new=6))
+    monkeypatch.setattr(chip_smoke, "TP_BF16_TRACE", dict(n=6, lo=8, hi=20, new=8))
+    # 256 bytes a token in bf16 at this width: 16 blocks at tp 1, 32 at tp 2
+    monkeypatch.setattr(chip_smoke, "TP_KV_POOL_BYTES", 16 * 16 * 256)
+    monkeypatch.setattr(chip_smoke, "OVERLAP_PROFILED", (2, 4))
+
+
+def test_tp_serve_phase_on_cpu(monkeypatch, capsys):
+    """The tp_serve phase at a tiny width: two spawned ranks in a gloo world
+    on the CPU, the fp32 tokens and teacher-forced logits of the two-rank
+    engine against the one-rank engine's, then the bf16 runs at one KV
+    budget (about twice the blocks at tp 2); rank 1 followed every run."""
+    _tp_tiny(monkeypatch)
+    rows = chip_smoke.tp_serve_phase()
+    fp32, tp1, tp2 = rows["fp32"], rows["bf16_tp1"], rows["bf16_tp2"]
+    assert fp32["requests_equal"] + fp32["requests_split_at_a_tie"] == fp32["requests"] == 3
+    assert fp32["logit_max_abs_err"] <= fp32["logit_tol"]
+    assert fp32["kernel"] == "xla" and fp32["tp"] == 2 and fp32["rank1"]["ops_followed"] > 0
+    assert tp1["tp"] == 1 and tp2["tp"] == 2
+    assert tp1["num_blocks"] == 17 and tp2["num_blocks"] == 33
+    assert tp2["blocks_over_tp1"] >= chip_smoke.TP_CAPACITY_RATIO
+    assert tp2["kv_bytes_per_token"] * 2 == tp1["kv_bytes_per_token"]
+    for row in (tp1, tp2):      # one budget a device: within a block of it
+        block = 16 * row["kv_bytes_per_token"]
+        assert row["kv_pool_bytes"] < row["kv_pool_bytes_per_device"] <= \
+            row["kv_pool_bytes"] + block
+    assert tp2["rank1"]["ops_followed"] > 0 and tp2["rank1"]["peak_gib"] == "not measured"
+    host = tp2["host"]
+    # the same trace and schedule on either engine (neither preempts)
+    assert host["iterations"] == tp1["host"]["iterations"]
+    # two row-parallel layers a block: every forward all-reduces 2 x depth times
+    assert host["row_all_reduces"] % (2 * chip_smoke.TP_DEPTH) == 0
+    assert host["row_all_reduces"] >= 2 * chip_smoke.TP_DEPTH * host["iterations"] > 0
+    assert host["descriptors"] >= host["iterations"]
+    for row in (tp1, tp2):
+        assert {"tokens_per_sec", "idle_share", "peak_gib", "kv_pool_bytes_per_device",
+                "window_iterations"} <= set(row)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert [r["run"] for r in lines if r.get("phase") == "tp_serve"] == [
+        "fp32", "bf16_tp1", "bf16_tp2"]
+
+
+def test_tp_serve_follower_ends_when_the_leaders_group_times_out(monkeypatch):
+    """A leader that sends nothing: the follower's wait ends at the group's
+    timeout, the rank fails and so does the phase, long before its limit."""
+    import time
+
+    _tp_tiny(monkeypatch)
+    task = dict(chip_smoke._tp_task(), leader_hangs=True, group_timeout_s=3)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match=r"ranks exited with \[0, 1\]"):
+        chip_smoke._tp_world(task, 60)
+    assert time.perf_counter() - t0 < 45

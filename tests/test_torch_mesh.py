@@ -207,7 +207,6 @@ def _unported_sites(tmp_path):
         "mesh-sp": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(sp=2)),
         "mesh-ep": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(ep=2)),
         "mesh-dcn_dp": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(dcn_dp=2)),
-        "tensor_parallel_mesh": lambda: t_mesh.tensor_parallel_mesh(2),
         "shard_map_compat": lambda: t_mesh.shard_map_compat(None, mesh=None, in_specs=(),
                                                             out_specs=()),
         "config-pp": lambda: t_config.TrainConfig(pp=2),
@@ -232,6 +231,35 @@ def _unported_sites(tmp_path):
 def test_unported_raise_names_item_11(tmp_path, site):
     with pytest.raises(NotImplementedError, match=ITEM_11):
         _unported_sites(tmp_path)[site]()
+
+
+@pytest.mark.parametrize("case", ["no-group", "built"])
+def test_tensor_parallel_mesh(case):
+    """Without a process group of ``tp`` ranks the serving mesh names the
+    world size; in a gloo world of one, a degree of 1 is a ``tensor`` mesh
+    of one rank, the same object for every caller, and 0 raises the JAX
+    error."""
+    if case == "no-group":
+        with pytest.raises(ValueError, match="needs a process group of 2 ranks, the world "
+                                             "has 1"):
+            t_mesh.tensor_parallel_mesh(2)
+        return
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = t_mesh.tensor_parallel_mesh(1, device_type="cpu")
+        assert t_mesh.tensor_parallel_mesh(1, device_type="cpu") is mesh
+        assert mesh.mesh_dim_names == ("tensor",)
+        assert t_mesh.mesh_shape(mesh) == {ax: 1 for ax in t_mesh.MESH_AXES}
+        with pytest.raises(ValueError, match="tensor-parallel degree must be >= 1, got 0"):
+            t_mesh.tensor_parallel_mesh(0)
+        with pytest.raises(ValueError, match="the world has 1"):
+            t_mesh.tensor_parallel_mesh(2)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("kw", [dict(fsdp=2), dict(tp=2), dict(dp=2, fsdp=2, tp=2)], ids=_ids)

@@ -717,10 +717,10 @@ def _raise_sites():
         ("generate-speculative-seq2seq", lambda: _ported_decoding("speculative"), None),
         ("beam-causal-experts", _beam_experts_raise_jax_error, None),
         ("engine-int8-kv", lambda: _int8_engine(), None),
-        ("engine-tp", lambda: _tiny_engine(mesh=2), "11"),
-        ("engine-mesh", lambda: _tiny_engine(mesh=SimpleNamespace(shape={"tensor": 2})),
-         "11"),
-        ("serve-cli-tp", lambda: _serve_cli("--tp", "2"), "11"),
+        ("engine-tp", _engine_tp_needs_its_ranks, None),
+        ("engine-mesh", lambda: _engine_mesh_of_another_kind(
+            SimpleNamespace(shape={"tensor": 2})), None),
+        ("serve-cli-tp", lambda: _serve_cli("--replicas", "2", "--tp", "2"), "11"),
         ("serve-cli-replicas", lambda: _serve_cli("--replicas", "2"), None),
         ("serve-cli-placement", lambda: _serve_cli("--replicas", "2", "--placement",
                                                    "affinity"), None),
@@ -787,6 +787,22 @@ def _tiny_engine(**kw):
                             num_layers=1, num_heads=1, intermediate_size=16)
     return ServeEngine(init_gpt2(cfg, device="cpu"), num_blocks=9, block_size=4,
                        max_model_len=32, device="cpu", **kw)
+
+
+def _engine_tp_needs_its_ranks():
+    """Tensor-parallel serving is ported (``tests/test_torch_tp_serve.py``
+    serves over two ranks); the tiny engine's one K/V head does not divide
+    over 2, the JAX engine's ``ValueError``."""
+    with pytest.raises(ValueError, match="KV pool with 1 kv heads cannot shard over a "
+                                         "tensor=2 mesh"):
+        _tiny_engine(mesh=2)
+
+
+def _engine_mesh_of_another_kind(mesh):
+    """A mesh argument that is neither a ``DeviceMesh`` nor a degree raises
+    the JAX engine's ``ValueError`` (its degree knob's)."""
+    with pytest.raises(ValueError, match="unparseable HSTD_SERVE_TP value"):
+        _tiny_engine(mesh=mesh)
 
 
 def _serve_cli(*argv, requests=1):
@@ -982,7 +998,9 @@ def test_unported_raises_name_their_roadmap_item(site):
     LM rows equal the JAX ones; an int8 config builds its ``Int8Linear``s;
     the decoders return the JAX package's ids; the int8 engine serves; the
     serving CLI serves with ``--replicas``, ``--placement``, ``--roles``,
-    ``--arrival`` and ``--rate_limit``)."""
+    ``--arrival`` and ``--rate_limit``; a tensor-parallel engine's
+    single-process refusals carry the JAX messages, and what is left of
+    item 11 in serving is ``--replicas`` with ``--tp``)."""
     _, call, item = _raise_sites()[site]
     if item is None:
         call()

@@ -9,8 +9,10 @@ dispatch-ahead overlap (an EOS found with a dispatch in flight, width
 switches, forced flushes, a lone stream); sampled streams are the same
 with overlap on and off; the request timelines sum to their e2e under
 both packages' checks; ``timeline='off'`` and ``overlap='off'`` emit the
-streams from before those features; tensor parallelism raises; and the
-CLI takes the new flags and refuses ``--tp`` (the fleet flags run:
+streams from before those features; a tensor-parallel engine's
+single-process refusals carry the JAX messages (it serves in
+``tests/test_torch_tp_serve.py``); and the CLI takes the new flags and
+refuses ``--replicas`` with ``--tp`` (the fleet flags run:
 ``tests/test_torch_router.py``)."""
 
 import contextlib
@@ -36,6 +38,7 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.serve.engine import 
 from torch_decode_pairs import (  # noqa: F401
     detached_compile_trackers,
     gpt2_pair,
+    llama_pair,
     one_torch_thread,
 )
 
@@ -178,16 +181,46 @@ def test_stats_carry_the_jax_fields(pair):
     assert set(fields) - set(JaxEngineStats._fields) == {"paged_kernel_launches"}
 
 
+def _jax_refusal(jmodel, params, **kw) -> str:
+    from huggingface_sagemaker_tensorflow_distributed_tpu.serve.engine import (
+        ServeEngine as JaxEngine,
+    )
+
+    with pytest.raises(ValueError) as err:
+        JaxEngine(jmodel, params, num_blocks=9, block_size=4, **kw)
+    return str(err.value)
+
+
 @pytest.mark.parametrize("mesh", [2, "4", "env", "object"])
-def test_tensor_parallel_raises_naming_its_item(pair, mesh, monkeypatch):
-    _, _, model = pair
-    if mesh == "env":
+def test_tensor_parallel_raises_naming_its_item(pair, mesh, monkeypatch, devices8):
+    """The single-process refusals of a tensor-parallel engine (the cases
+    that serve run in gloo worlds, ``tests/test_torch_tp_serve.py``): a
+    degree with no process group of that many ranks names the world size;
+    K/V heads the degree does not divide (a Llama of 2 K/V heads at 4),
+    ``kernel='pallas'`` with ``HSTD_SERVE_TP=2`` and a mesh argument of
+    the wrong kind raise the JAX engine's ``ValueError``."""
+    jmodel, params, model = pair
+    case, kw = mesh, {}
+    if mesh == "4":
+        jmodel, params, model = llama_pair(num_kv_heads=2)
+    elif mesh == "env":
         monkeypatch.setenv("HSTD_SERVE_TP", "2")
-        mesh = None
+        mesh, kw = None, {"kernel": "pallas"}
     elif mesh == "object":
         mesh = object()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 11\b"):
-        ServeEngine(model, device="cpu", num_blocks=9, block_size=4, mesh=mesh)
+    if mesh == 2:
+        with pytest.raises(ValueError, match="needs a process group of 2 ranks, the world "
+                                             "has 1"):
+            ServeEngine(model, device="cpu", num_blocks=9, block_size=4, mesh=mesh)
+        return
+    with pytest.raises(ValueError) as err:
+        ServeEngine(model, device="cpu", num_blocks=9, block_size=4, mesh=mesh, **kw)
+    want = _jax_refusal(jmodel, params, mesh=mesh, **kw)
+    if case == "object":
+        assert str(err.value).startswith("unparseable HSTD_SERVE_TP value <object object")
+        assert want.startswith("unparseable HSTD_SERVE_TP value <object object")
+    else:
+        assert str(err.value) == want
 
 
 # -- the width ladder ------------------------------------------------------------
@@ -522,7 +555,8 @@ def test_cli_serves_a_templated_file_with_the_new_flags(tmp_path):
     assert "phase_s" not in plain[0]
 
 
-@pytest.mark.parametrize("flag,value,item", [("--tp", "2", "11")])
-def test_cli_refuses_unported_flags(flag, value, item):
+@pytest.mark.parametrize("argv,item", [(("--replicas", "2", "--tp", "2"), "11")])
+def test_cli_refuses_unported_flags(argv, item):
+    """A fleet of tensor-parallel replicas is the next part of item 11."""
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1, item {item}\b"):
-        _cli("--requests", "1", flag, value)
+        _cli("--requests", "1", *argv)
