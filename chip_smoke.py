@@ -389,8 +389,15 @@ back in the JSON file OUT:
    plain trainer (losses within 1e-6, the first update's gradients within
    1e-5 relative L2, K1's and K2's launches a step equal, the unsharded
    head weight aligned for K2's TMA), then bf16 steps: samples/s, the idle
-   share, both peaks. Every fresh process runs under its phase's time limit
-   (``FRESH_PROCESS_TIMEOUTS_S``), every subprocess under its own;
+   share, both peaks. Then, each a process of its own with two ranks on the
+   card in a gloo world, tensor-parallel serving (``tp_serve_phase``) and
+   sequence-parallel training (``ring_train_phase``: ring attention over
+   ``sp`` 2 for BERT-large-WWM, TinyLlama and t5-small widths, 2 fp32 steps
+   each against the plain one-process trainer, then TinyLlama bf16 at sp 1
+   and 2: step time, idle share, peaks against the plain path's and K1's,
+   the host seconds in ring shifts). Every fresh process runs under its
+   phase's time limit (``FRESH_PROCESS_TIMEOUTS_S``), every subprocess
+   under its own;
 14. each phase's wall seconds, the ``kernels`` line (the paged kernel's
    ``launches_by_path``, its launches by width in the serve_engine runs and
    by replica and width in the serve_router runs, and its ladder and
@@ -8100,7 +8107,9 @@ def _joined_rows(n: int, seq: int, vocab: int, eos: int) -> dict:
         WordHashTokenizer,
     )
 
-    texts, _ = load_text_classification("vendored_reviews", "train", max_samples=64 * n)
+    # 64 reviews a 1024-token row at least (a review is ~20 tokens)
+    texts, _ = load_text_classification("vendored_reviews", "train",
+                                        max_samples=64 * n * max(1, seq // 1024))
     ds = ArrayDataset.from_lm_texts(WordHashTokenizer(vocab_size=vocab), texts, seq,
                                     packed=True, eos_token_id=eos)
     check(len(ds) >= n, f"{len(ds)} joined rows of {seq}, wanted {n}")
@@ -8536,10 +8545,11 @@ def _tp_row(engine, outs, wall: float, trace, task) -> dict:
     return row
 
 
-def _tp_world(task: dict, limit_s: float) -> dict:
-    """Both ranks of ``task`` in spawned processes; rank 0's rows with each
-    rank's peak memory. Fails if a rank fails or any is alive after
-    ``limit_s`` (then killed)."""
+def _spawned_world(target, task: dict, ranks: int, limit_s: float, what: str) -> dict:
+    """``target(rank, port, out, task)`` in ``ranks`` spawned processes;
+    rank 0's rows, each with the other ranks' row of the same name under
+    ``rank<r>``. Fails if a rank fails or any is alive after ``limit_s``
+    (then killed)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -8549,7 +8559,7 @@ def _tp_world(task: dict, limit_s: float) -> dict:
         port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as out:
         sys.stdout.flush()
-        ctx = mp.start_processes(_tp_rank, args=(port, out, task), nprocs=TP_RANKS,
+        ctx = mp.start_processes(target, args=(port, out, task), nprocs=ranks,
                                  join=False, start_method="spawn")
         deadline = time.perf_counter() + limit_s
         for p in ctx.processes:
@@ -8558,14 +8568,20 @@ def _tp_world(task: dict, limit_s: float) -> dict:
         for i in alive:
             ctx.processes[i].kill()
             ctx.processes[i].join()
-        check(not alive, f"tp_serve: ranks {alive} alive after {limit_s} s (killed)")
+        check(not alive, f"{what}: ranks {alive} alive after {limit_s} s (killed)")
         codes = [p.exitcode for p in ctx.processes]
-        check(codes == [0] * TP_RANKS, f"tp_serve: ranks exited with {codes}")
-        rows = {r: json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(TP_RANKS)}
+        if codes != [0] * ranks:
+            try:
+                ctx.join(timeout=0)        # raises with the failed rank's traceback
+            except Exception as err:        # noqa: BLE001 - reported, then failed below
+                print(f"{what}: {err}", file=sys.stderr, flush=True)
+        check(codes == [0] * ranks, f"{what}: ranks exited with {codes}")
+        rows = {r: json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(ranks)}
     out = rows[0]
-    for name, row in rows[1].items():
-        if name in out:
-            out[name]["rank1"] = row
+    for r in range(1, ranks):
+        for name, row in rows[r].items():
+            if name in out:
+                out[name][f"rank{r}"] = row
     return out
 
 
@@ -8579,7 +8595,388 @@ def tp_serve_phase() -> dict:
     2 against the one-rank engine on the same weights (:func:`_tp_runs`).
     Every group has ``TP_GROUP_TIMEOUT_S``; the ranks must be done within
     ``TP_SERVE_PHASE_TIMEOUT_S`` less 10 s."""
-    rows = _tp_world(_tp_task(), TP_SERVE_PHASE_TIMEOUT_S - 10)
+    rows = _spawned_world(_tp_rank, _tp_task(), TP_RANKS, TP_SERVE_PHASE_TIMEOUT_S - 10,
+                          "tp_serve")
+    for row in rows.values():
+        emit(row)
+    return rows
+
+
+# -- the ring_train phase: sequence-parallel training ----------------------------------
+#
+# Two ranks on the one card in a gloo world (NCCL refuses two ranks on one
+# device): the mesh ``dp 1 x sp 2``, ring attention (``parallel/ring_attention.py``)
+# over ``seq``, the Trainer averaging the two ranks' gradient shares. Each
+# model at published widths, depth cut, random weights from seed 0 drawn on
+# the card (both ranks draw the same), dropout 0.
+RING_RANKS = 2
+RING_GROUP_TIMEOUT_S = 60
+RING_FP32_STEPS = 2
+RING_BF16_STEPS = 3
+RING_LR = 1e-5
+RING_LOSS_RTOL = 1e-5
+RING_GRAD_REL_L2 = 1e-4
+# t5-small's FFN is ReLU: its gradient steps where a unit crosses 0, so two
+# fp32 computations that round differently flip the units lying within
+# rounding of 0 and move the gradient by ~1e-3 relative L2 (on the CPU in
+# fp64, a 1e-6 relative perturbation of the encoder's output moves the
+# decoder's gradient by 1.7e-3, a 1e-7 one by 1.6e-6). Its gate is against
+# the plain path's own spread: the plain gradient again with the encoder's
+# output scaled by (1 + RING_RELU_PERTURB * N(0, 1)), the relative size of
+# the ring's fp32 forward difference; the ring within RING_RELU_FLOOR_FACTOR
+# times that distance (and never required below RING_GRAD_REL_L2)
+RING_RELU_PERTURB = 1e-6
+RING_RELU_FLOOR_FACTOR = 2.0
+# (a) bert-large-uncased-whole-word-masking widths at depth 4, seq-cls on 4 x
+# 512 rows with a ragged padding mask; (b) TinyLlama-1.1B widths at depth 2,
+# causal-LM on 1 x 4096 EOS-joined tokens, fused CE (K2); (c) t5-small widths
+# at depth 2 + 2, seq2seq on 4 x 512 sources and 64-token targets, fused CE
+RING_MODELS = {
+    "bert_large_wwm": dict(hf="BERT_LARGE", depth=4, rows=4, seq=512),
+    "tinyllama": dict(hf="TINYLLAMA", depth=2, rows=1, seq=4096),
+    "t5_small": dict(hf="T5_SMALL", depth=2, rows=4, seq=512, target=64),
+}
+RING_ROW_LENGTHS = (512, 397, 263, 130)     # the ragged rows of (a) and (c)
+
+
+def _ring_task() -> dict:
+    """What each rank runs, from this module's settings (a spawned rank
+    re-imports the module: what a caller changed here reaches it only
+    through the task)."""
+    models = {n: dict(spec, hf_config=globals()[spec["hf"]]) for n, spec in RING_MODELS.items()}
+    return {"device": DEVICE, "models": models, "fp32_steps": RING_FP32_STEPS,
+            "bf16_steps": RING_BF16_STEPS, "lr": RING_LR, "loss_rtol": RING_LOSS_RTOL,
+            "grad_rel_l2": RING_GRAD_REL_L2, "group_timeout_s": RING_GROUP_TIMEOUT_S,
+            "relu_perturb": RING_RELU_PERTURB, "relu_floor_factor": RING_RELU_FLOOR_FACTOR,
+            "row_lengths": RING_ROW_LENGTHS}
+
+
+def _ring_rank(rank: int, port: int, out: str, task: dict) -> None:
+    """One rank of :func:`ring_train_phase`: join the gloo world (its
+    timeout every group's), TF32 off, build the ``sp`` 2 mesh, run
+    :func:`_ring_runs`, write its rows to ``out/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        build_mesh,
+    )
+
+    global DEVICE
+    DEVICE = task["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)        # both ranks: the one card
+        _no_tf32()
+    else:
+        torch.set_num_threads(1)
+    timeout = datetime.timedelta(seconds=task["group_timeout_s"])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=RING_RANKS, rank=rank, timeout=timeout)
+    try:
+        mesh = build_mesh(MeshConfig(dp=1, sp=RING_RANKS), device_type=DEVICE,
+                          timeout=timeout)
+        rows = _ring_runs(rank, mesh, task)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def _ring_model(name: str, task: dict, impl: str, dtype):
+    """``name``'s model at its widths and depth, ``impl`` attention,
+    ``dtype`` compute, fp32 parameters, drawn on the card from seed 0
+    (zero biases, unit norm scales, the rest normal at the family's
+    scale); dropout 0; in train mode."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models import auto
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+    )
+
+    spec = task["models"][name]
+    hf, depth = spec["hf_config"], spec["depth"]
+    if name == "bert_large_wwm":
+        family, kind = "bert", "seq-cls"
+        cfg = auto.CONFIG_BUILDERS["bert"](hf, num_layers=depth, hidden_dropout=0.0,
+                                           attention_dropout=0.0, attention_impl=impl,
+                                           dtype=dtype)
+    elif name == "tinyllama":
+        family, kind = "llama", "causal-lm"
+        cfg = auto.CONFIG_BUILDERS["llama"](dict(hf, num_hidden_layers=depth),
+                                            attention_impl=impl, dtype=dtype)
+    else:
+        family, kind = "t5", "seq2seq"
+        cfg = auto.CONFIG_BUILDERS["t5"](hf, num_layers=depth, num_decoder_layers=depth,
+                                         dropout_rate=0.0, attention_impl=impl, dtype=dtype)
+    with torch.device("meta"):
+        if family == "llama":
+            model = LlamaForCausalLM(cfg)
+        else:
+            model = auto.build_model(family, kind, cfg)
+    model = model.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def std_of(pname):
+        if family != "t5":
+            return cfg.initializer_range
+        # the JAX package's T5 init (models/convert.py:init_seq2seq)
+        if pname.startswith(("shared.", "lm_head.")):
+            return cfg.initializer_factor
+        return cfg.initializer_factor * (cfg.d_ff if ".wo." in pname else cfg.d_model) ** -0.5
+
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std_of(pname), generator=gen)
+    return model.train()
+
+
+def _ring_batch(name: str, task: dict, vocab: int) -> dict:
+    """``name``'s batch on the card, the same on both ranks: (a) random ids
+    in ragged rows and labels, (b) EOS-joined review rows, (c) random
+    sources in ragged rows and random 64-token targets (padding -100)."""
+    import torch
+
+    spec = task["models"][name]
+    if name == "tinyllama":
+        return _joined_rows(spec["rows"], spec["seq"], vocab, spec["hf_config"]["eos_token_id"])
+    gen = torch.Generator().manual_seed(1)
+    rows, seq = spec["rows"], spec["seq"]
+    ids = torch.randint(3, vocab, (rows, seq), generator=gen)
+    mask = torch.zeros(rows, seq, dtype=torch.long)
+    for i, n in enumerate(task["row_lengths"][:rows]):
+        mask[i, :min(n, seq)] = 1
+    ids = ids * mask
+    if name == "bert_large_wwm":
+        batch = {"input_ids": ids, "attention_mask": mask,
+                 "labels": torch.randint(0, 2, (rows,), generator=gen)}
+    else:
+        t = spec["target"]
+        labels = torch.randint(3, vocab, (rows, t), generator=gen)
+        labels[1:, t - 16:] = -100
+        dec = torch.cat([torch.zeros(rows, 1, dtype=torch.long), labels[:, :-1].clamp(min=0)],
+                        dim=1)
+        batch = {"input_ids": ids, "attention_mask": mask, "decoder_input_ids": dec,
+                 "decoder_attention_mask": (labels != -100).long(), "labels": labels}
+    return {k: v.to(DEVICE) for k, v in batch.items()}
+
+
+def _ring_trainer(model, name: str, task: dict, dtype: str, mesh=None):
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.config import TrainConfig
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train.trainer import Trainer
+
+    kind = {"bert_large_wwm": dict(task="seq-cls"),
+            "tinyllama": dict(task="causal-lm", fused_vocab_ce=True),
+            "t5_small": dict(task="seq2seq", fused_vocab_ce=True)}[name]
+    sp = 1 if mesh is None else RING_RANKS
+    tc = TrainConfig(dtype=dtype, learning_rate=task["lr"], scale_lr_by_world_size=False,
+                     log_every_steps=0, sp=sp, **kind)
+    return Trainer(tc, model, mesh=mesh)
+
+
+def _ring_plain(task: dict, out: Path) -> dict:
+    """The one-process references, in this process before the ranks start:
+    each model's plain trainer in fp32 (``fp32_steps`` AdamW steps: losses,
+    K1/K2 launches a step, peak; the first update's gradients saved to
+    ``out`` for rank 0), and TinyLlama in bf16 at sp 1 on the plain path and
+    on K1 (``bf16_steps`` steps after one unmeasured: step time, idle share,
+    peak)."""
+    import torch
+
+    plain, grads = {}, {}
+    for name in task["models"]:
+        _mem_reset()
+        trainer = _ring_trainer(_ring_model(name, task, "xla", torch.float32), name, task,
+                                "float32")
+        batch = _ring_batch(name, task, _ring_vocab(trainer.model))
+        first = _first_update_grads(trainer)
+        steps = [_counted_step(trainer, batch) for _ in range(task["fp32_steps"])]
+        plain[name] = {"losses": [x for x, _ in steps], "launches": steps[0][1],
+                       "peak_gib": _peak_gib()}
+        grads[name] = {k: v.cpu() for k, v in first.items()}
+        del trainer, first
+        if name == "t5_small":
+            plain[name]["grad_floor"] = _relu_floor(name, task, batch, grads[name])
+        del batch
+    torch.save(grads, out)
+    del grads
+    name, steps = "tinyllama", task["bf16_steps"]
+    for impl in ("xla", "flash"):
+        _mem_reset()
+        trainer = _ring_trainer(_ring_model(name, task, impl, torch.bfloat16), name, task,
+                                "bfloat16")
+        batch = _ring_batch(name, task, _ring_vocab(trainer.model))
+        loss, launches = _counted_step(trainer, batch)
+        prof = _steps_profile(trainer, batch, steps)
+        plain[f"bf16_{impl}"] = {"loss": loss, "launches_per_step": launches,
+                                 "step_time_ms": prof["step_time_unprofiled_ms"],
+                                 "idle_share": prof["idle_share"], "peak_gib": _peak_gib()}
+        del trainer, batch
+    _mem_reset()
+    return plain
+
+
+def _relu_floor(name: str, task: dict, batch: dict, want: dict) -> float:
+    """The plain trainer's first-update gradient again with its encoder's
+    output scaled by ``1 + relu_perturb * N(0, 1)`` (seed 2): its relative
+    L2 distance from ``want``, the plain path's own spread at a ReLU FFN."""
+    import torch
+
+    trainer = _ring_trainer(_ring_model(name, task, "xla", torch.float32), name, task,
+                            "float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+    def perturb(module, args, out):
+        noise = torch.randn(out.shape, generator=gen, device=out.device, dtype=out.dtype)
+        return out * (1.0 + task["relu_perturb"] * noise)
+
+    trainer.model.encoder.register_forward_hook(perturb)
+    got = _first_update_grads(trainer)
+    _counted_step(trainer, batch)
+    ref = torch.cat([want[k].reshape(-1) for k in sorted(want)])
+    moved = torch.cat([got[k].cpu().reshape(-1) for k in sorted(want)])
+    return float(torch.linalg.vector_norm(moved - ref) / torch.linalg.vector_norm(ref))
+
+
+def _ring_vocab(model) -> int:
+    cfg = getattr(model, "config", None)
+    return (cfg if cfg is not None else model.backbone.cfg).vocab_size
+
+
+def _ring_fp32(rank: int, mesh, name: str, task: dict) -> dict:
+    """(a)-(c) in fp32 over sp 2, ``fp32_steps`` AdamW steps, against the
+    plain one-process trainer (:func:`_ring_plain`): losses within
+    ``loss_rtol``, the first update's gradients within ``grad_rel_l2``
+    relative L2 (on rank 0), K2's launches a step on every rank equal to the
+    plain trainer's, and no K1 launch."""
+    import torch
+
+    plain = task["plain"][name]
+    _mem_reset()
+    trainer = _ring_trainer(_ring_model(name, task, "ring", torch.float32), name, task,
+                            "float32", mesh)
+    batch = _ring_batch(name, task, _ring_vocab(trainer.model))
+    grads = _first_update_grads(trainer)
+    steps = [_counted_step(trainer, batch) for _ in range(task["fp32_steps"])]
+    losses = [x for x, _ in steps]
+    launches = [c for _, c in steps]
+    row = {"phase": "ring_train", "run": f"{name}_fp32", "sp": RING_RANKS, "rank": rank,
+           "launches_per_step": launches[0], "peak_gib": _peak_gib()}
+    check(all(c == plain["launches"] for c in launches),
+          f"ring_train {name} rank {rank}: launches {launches}, plain {plain['launches']}")
+    check(all(c[k] == 0 for c in launches for k in _K1),
+          f"ring_train {name} rank {rank}: a flash kernel launched under sp 2: {launches}")
+    check(all(math.isfinite(x) for x in losses), f"ring_train {name}: losses {losses}")
+    if rank == 0:
+        want = torch.load(task["plain_grads"], weights_only=True)[name]
+        check(grads.keys() == want.keys(), f"ring_train {name}: the parameters differ")
+        ref = torch.cat([want[k].reshape(-1) for k in sorted(want)])
+        got = torch.cat([grads[k].cpu().reshape(-1) for k in sorted(want)])
+        grad_rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"])]
+        tol = task["grad_rel_l2"]
+        if "grad_floor" in plain:
+            tol = max(tol, task["relu_floor_factor"] * plain["grad_floor"])
+            row["plain_grad_spread"] = plain["grad_floor"]
+        spec = task["models"][name]
+        row.update({"model": f"{spec['hf']} widths at depth {spec['depth']} (random init, "
+                             "seed 0)", "rows": spec["rows"], "seq": spec["seq"],
+                    "steps": task["fp32_steps"], "dtype": "float32", "tf32": False,
+                    "loss_plain": plain["losses"], "loss_sp2": losses, "loss_rel_err": rel,
+                    "loss_rtol": task["loss_rtol"], "grad_rel_l2": grad_rel,
+                    "grad_rel_l2_tol": tol,
+                    "plain_launches_per_step": plain["launches"],
+                    "plain_peak_gib": plain["peak_gib"]})
+        check(max(rel) <= task["loss_rtol"], f"ring_train {name} fp32: loss rel err {rel}")
+        check(grad_rel <= tol, f"ring_train {name} fp32: grad rel L2 {grad_rel} (limit {tol})")
+    return row
+
+
+def _ring_bf16(rank: int, mesh, task: dict) -> dict:
+    """(b) in bf16 over sp 2, ``bf16_steps`` steps after one unmeasured: the
+    step time and idle share (:func:`_steps_profile`), this rank's peak, and
+    the host seconds a step in ring shifts."""
+    import torch
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.collectives import (
+        RING_SHIFTS,
+    )
+
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.train import trainer as tr
+
+    name, steps = "tinyllama", task["bf16_steps"]
+    _mem_reset()
+    trainer = _ring_trainer(_ring_model(name, task, "ring", torch.bfloat16), name, task,
+                            "bfloat16", mesh)
+    batch = _ring_batch(name, task, _ring_vocab(trainer.model))
+    loss, launches = _counted_step(trainer, batch)
+    # the host seconds of the gradient all-reduce (gloo: through the host)
+    reduce_s = [0.0]
+    all_reduce = tr.all_reduce_mean_grads
+
+    def timed_all_reduce(*args, **kw):
+        t0 = time.perf_counter()
+        all_reduce(*args, **kw)
+        reduce_s[0] += time.perf_counter() - t0
+
+    tr.all_reduce_mean_grads = timed_all_reduce
+    calls0, seconds0 = RING_SHIFTS["calls"], RING_SHIFTS["seconds"]
+    try:
+        prof = _steps_profile(trainer, batch, steps)        # 2 x steps train steps
+    finally:
+        tr.all_reduce_mean_grads = all_reduce
+    check(math.isfinite(loss), f"ring_train bf16 rank {rank}: loss {loss}")
+    return {"phase": "ring_train", "run": "tinyllama_bf16", "rank": rank, "steps": steps,
+            "dtype": "bfloat16",
+            "sp2": {"loss": loss, "launches_per_step": launches,
+                    "step_time_ms": prof["step_time_unprofiled_ms"],
+                    "idle_share": prof["idle_share"], "peak_gib": _peak_gib(),
+                    "ring_shifts_per_step": (RING_SHIFTS["calls"] - calls0) / (2 * steps),
+                    "ring_shift_host_s_per_step": (RING_SHIFTS["seconds"] - seconds0)
+                    / (2 * steps),
+                    "grad_all_reduce_host_s_per_step": reduce_s[0] / (2 * steps)}}
+
+
+def _ring_runs(rank: int, mesh, task: dict) -> dict:
+    rows = {f"{name}_fp32": _ring_fp32(rank, mesh, name, task) for name in task["models"]}
+    rows["tinyllama_bf16"] = _ring_bf16(rank, mesh, task)
+    return rows
+
+
+# ring_train_phase's process: about 60 s, 150 on a slow host
+RING_TRAIN_PHASE_TIMEOUT_S = 150
+
+
+def ring_train_phase() -> dict:
+    """Sequence-parallel training on the card (a process of its own): the
+    one-process references in this process (:func:`_ring_plain`), then two
+    ranks on the card in a gloo world over a ``dp 1 x sp 2`` mesh
+    (:func:`_ring_runs`). Every group has ``RING_GROUP_TIMEOUT_S``; all of
+    it must be done within ``RING_TRAIN_PHASE_TIMEOUT_S`` less 10 s. The
+    bf16 gate: each rank's peak at sp 2 below the plain path's at sp 1."""
+    t0 = time.perf_counter()
+    task = _ring_task()
+    with tempfile.TemporaryDirectory() as tmp:
+        task["plain_grads"] = str(Path(tmp) / "plain_grads.pt")
+        task["plain"] = _ring_plain(task, Path(task["plain_grads"]))
+        rows = _spawned_world(_ring_rank, task, RING_RANKS,
+                              RING_TRAIN_PHASE_TIMEOUT_S - 10 - (time.perf_counter() - t0),
+                              "ring_train")
+    bf16 = rows["tinyllama_bf16"]
+    bf16.update({f"sp1_{impl}": task["plain"][f"bf16_{impl}"] for impl in ("xla", "flash")})
+    peaks = [bf16["sp2"]["peak_gib"], bf16["rank1"]["sp2"]["peak_gib"]]
+    plain = bf16["sp1_xla"]["peak_gib"]
+    bf16["sp2_peak_gib_by_rank"] = peaks
+    if DEVICE == "cuda":
+        check(max(peaks) < plain, f"ring_train bf16: sp 2 peaks {peaks} GiB, not below the "
+                                  f"plain path's {plain} GiB at sp 1")
     for row in rows.values():
         emit(row)
     return rows
@@ -8591,13 +8988,15 @@ FRESH_PROCESS_PHASES = {"flash_phase": flash_phase, "vocab_ce_phase": vocab_ce_p
                         "optim_memory_phase": optim_memory_phase,
                         "compile_budget_phase": compile_budget_phase,
                         "mesh_train_phase": mesh_train_phase,
-                        "tp_serve_phase": tp_serve_phase}
+                        "tp_serve_phase": tp_serve_phase,
+                        "ring_train_phase": ring_train_phase}
 FRESH_PROCESS_TIMEOUTS_S = {"flash_phase": FLASH_PHASE_TIMEOUT_S,
                             "vocab_ce_phase": VOCAB_CE_PHASE_TIMEOUT_S,
                             "optim_memory_phase": OPTIM_MEMORY_PHASE_TIMEOUT_S,
                             "compile_budget_phase": COMPILE_BUDGET_PHASE_TIMEOUT_S,
                             "mesh_train_phase": MESH_TRAIN_PHASE_TIMEOUT_S,
-                            "tp_serve_phase": TP_SERVE_PHASE_TIMEOUT_S}
+                            "tp_serve_phase": TP_SERVE_PHASE_TIMEOUT_S,
+                            "ring_train_phase": RING_TRAIN_PHASE_TIMEOUT_S}
 
 
 def _fresh_process(name: str) -> dict:
@@ -8736,6 +9135,9 @@ def main(argv: list | None = None) -> int:
     optim_memory = timed(_fresh_process, "optim_memory_phase")
     mesh = timed(_fresh_process, "mesh_train_phase")
     timed(_fresh_process, "tp_serve_phase")
+    ring = timed(_fresh_process, "ring_train_phase")
+    ring_launches = {f"ring_train/{n}_fp32_per_step": ring[f"{n}_fp32"]["launches_per_step"]
+                     for n in RING_MODELS}
     emit({"phase": "wall_seconds", "card": card, "by_phase": seconds,
           "total": time.perf_counter() - start})
     main_case = kernels["gpt2"]
@@ -8762,7 +9164,8 @@ def main(argv: list | None = None) -> int:
                                  **{f"launch/{n}": row["launches"][kname]
                                     for n, row in launched.items()},
                                  "mesh_train/fp32_per_step":
-                                     mesh["fp32"]["launches_per_step"][kname]},
+                                     mesh["fp32"]["launches_per_step"][kname],
+                                 **{n: c[kname] for n, c in ring_launches.items()}},
             "launches_per_step_by_optim_run": {
                 n: row["k1_launches_per_step"][kname] for n, row in optim_memory.items()},
             **{c: {k: flash[(c, kname)][k] for k in (
@@ -8803,7 +9206,8 @@ def main(argv: list | None = None) -> int:
                                  **{f"llama/{n}": row["launches"][kname]
                                     for n, row in llama.items() if "launches" in row},
                                  "mesh_train/fp32_per_step":
-                                     mesh["fp32"]["launches_per_step"][kname]},
+                                     mesh["fp32"]["launches_per_step"][kname],
+                                 **{n: c[kname] for n, c in ring_launches.items()}},
             **{c: {k: vocab[(c, kname)].get(k) for k in case_keys}
                for c in VOCAB_MLM + VOCAB_SEQ2SEQ + VOCAB_DEBERTA + VOCAB_LLAMA
                + VOCAB_GEMMA},

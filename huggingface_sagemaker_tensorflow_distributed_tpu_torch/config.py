@@ -288,26 +288,28 @@ class TrainConfig:
         if self.attention_impl not in ("auto", "xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         if self.attention_impl == "flash" and self.sp > 1:
-            raise ValueError("attention_impl='flash' cannot run over a "
-                             "sequence-sharded axis (sp>1)")
+            raise ValueError(
+                "attention_impl='flash' cannot run over a sequence-sharded "
+                "axis (sp>1); use 'ring' or 'auto'")
 
     def _check_ported(self):
         """Raise for what the port does not run yet (never ignore it)."""
-        later = [
-            (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
-        ]
-        # fsdp and tp train over the mesh (parallel/sharding.py)
-        later += [(getattr(self, ax) > 1, f"{ax}>1", "11 (parallelism beyond DP)")
-                  for ax in ("pp", "sp", "ep", "dcn_dp")]
-        for hit, what, item in later:
-            if hit:
+        # fsdp, sp and tp train over the mesh (parallel/sharding.py,
+        # parallel/ring_attention.py)
+        for ax in ("pp", "ep", "dcn_dp"):
+            if getattr(self, ax) > 1:
                 raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch package yet: "
-                    f"ROADMAP queue 1, item {item}")
+                    f"{ax}>1 is not ported to the PyTorch package yet: "
+                    "ROADMAP queue 1, item 11 (parallelism beyond DP)")
 
     def resolve_attention_impl(self, device_type: str) -> str:
-        """``auto`` picks the flash kernels on ``cuda`` and the plain
-        (``xla``) path elsewhere; an explicit choice stands."""
+        """A ``seq`` mesh axis (``sp > 1``) forces ring attention, ``auto``
+        included (the plain and flash paths would attend within a shard
+        only); otherwise ``auto`` picks the flash kernels on ``cuda`` and
+        the plain (``xla``) path elsewhere, and an explicit choice
+        stands."""
+        if self.sp > 1:
+            return "ring"
         if self.attention_impl != "auto":
             return self.attention_impl
         return "flash" if device_type == "cuda" else "xla"

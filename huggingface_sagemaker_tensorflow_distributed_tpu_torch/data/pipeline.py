@@ -557,9 +557,21 @@ class MlmDataset(ArrayDataset):
         self._epoch = epoch
 
 
-def _rank_and_world() -> tuple[int, int]:
+def _rank_and_world(mesh=None) -> tuple[int, int]:
+    """This process's batch shard and the shard count: with a ``mesh`` its
+    replica's coordinate over ``data`` × ``fsdp`` and their count (the
+    ``seq`` and ``tensor`` ranks of one replica take the same rows), else
+    the process group's rank and size (0 and 1 without one)."""
     import torch.distributed as dist
 
+    if mesh is not None:
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
+            data_parallel_size,
+        )
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
+            data_parallel_rank,
+        )
+        return data_parallel_rank(mesh), data_parallel_size(mesh)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -911,8 +923,10 @@ class ShardedBatcher:
     ``process_index``/``process_count`` default to the ``torch.distributed``
     rank and world size (0 and 1 without a process group), and with a
     ``mesh`` (``parallel/mesh.py``) to the data-parallel rank and size: the
-    rank's coordinate over ``data`` × ``fsdp`` (the ``tensor`` ranks of one
-    replica take the same rows, the JAX ``batch_sharding``); ``device`` is
+    rank's coordinate over ``data`` × ``fsdp`` (the ``seq`` and ``tensor``
+    ranks of one replica take the same rows, the JAX ``batch_sharding``; a
+    bucket width the ``seq`` axis does not divide raises the JAX
+    ``ValueError``); ``device`` is
     where :meth:`global_arrays` puts the tensors (CPU by default).
     ``bucket_sizes`` turns on length bucketing (sorted within windows of
     ``bucket_window`` batches); ``pack`` token-packs the dataset first
@@ -976,16 +990,20 @@ class ShardedBatcher:
         # the last epoch's prefetch autotuner: its depth seeds the next
         # epoch's controller instead of re-learning from 2
         self._auto_tuner: Optional[PrefetchAutotuner] = None
-        if mesh is not None:
+        if self.bucket_sizes and mesh is not None:
+            # a rank takes width / sp tokens of every row: every bucket width
+            # must divide evenly
             from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.mesh import (
-                data_parallel_size,
+                AXIS_SEQ,
+                mesh_shape,
             )
-            from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.sharding import (
-                data_parallel_rank,
-            )
-            rank, world = data_parallel_rank(mesh), data_parallel_size(mesh)
-        else:
-            rank, world = _rank_and_world()
+            sp = mesh_shape(mesh)[AXIS_SEQ]
+            bad = [b for b in self.bucket_sizes if b % sp != 0]
+            if bad:
+                raise ValueError(
+                    f"bucket_sizes {bad} not divisible by the mesh seq axis "
+                    f"(size {sp}); pad bucket widths to multiples of {sp}")
+        rank, world = _rank_and_world(mesh)
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
         if global_batch_size % self.process_count != 0:

@@ -34,6 +34,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     head_dropout_rate,
     make_attention_mask,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    model_seq_shard,
+)
 
 
 def albert_config_from_hf(hf_config: dict, **overrides) -> EncoderConfig:
@@ -100,8 +103,15 @@ class AlbertBackbone(nn.Module):
         additive_mask = make_attention_mask(attention_mask)
         x = self.embeddings(input_ids, token_type_ids, position_ids, attention_mask)
         x = self.embedding_hidden_mapping_in(x)
+        # under an active seq axis the shared layer runs on this rank's
+        # tokens (models/layers.py:EncoderBackbone)
+        seq = model_seq_shard(self.cfg.attention_impl)
+        if seq is not None:
+            x, additive_mask = seq.local(x), seq.local_mask(additive_mask)
         for _ in range(self.cfg.num_layers):
             x = self.shared_layer(x, additive_mask)
+        if seq is not None:
+            x = seq.gather(x)
         pooled = self.pooler(x) if self.cfg.use_pooler else None
         return x, pooled
 

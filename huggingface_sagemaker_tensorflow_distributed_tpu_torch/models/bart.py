@@ -23,8 +23,9 @@ decoder, positions counted from the cache's index) are T5's interface,
 so ``models/generate.py`` drives both. ``remat`` recomputes each layer in
 backward under ``remat_policy`` (``models/layers.py:remat_policy``). With
 ``weight_quant='int8'`` every projection and FFN dense is
-``models/quant.py``'s ``Int8Linear``. Ring attention and pipeline stages
-raise.
+``models/quant.py``'s ``Int8Linear``. ``attention_impl='ring'`` is the
+plain attention, as in the JAX package (BART has no ring site; the Trainer
+refuses it under ``sp > 1``); pipeline stages raise.
 """
 
 from __future__ import annotations
@@ -99,8 +100,6 @@ class BartConfig:
         if self.weight_quant not in ("none", "int8"):
             raise ValueError(f"unknown weight_quant {self.weight_quant!r} (none | int8)")
         raise_unported([
-            (self.attention_impl == "ring", "BART attention_impl='ring'",
-             "11 (ring attention)"),
             (self.pipeline_stages != 0, "BART pipeline_stages", "11 (pipeline stages)")])
 
 

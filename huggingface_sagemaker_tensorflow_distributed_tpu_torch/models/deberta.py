@@ -48,7 +48,6 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.layers import
     Embed,
     LayerNorm,
     MlmHead,
-    raise_unported,
     remat_call,
 )
 from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.lora import lora_delta
@@ -96,8 +95,6 @@ class DebertaV2Config:
             raise ValueError(
                 f"conv_kernel_size={self.conv_kernel_size}: flax SAME padding equals "
                 "Conv1d(padding=(K-1)//2) only for an odd kernel")
-        raise_unported([(self.attention_impl == "ring", "attention_impl='ring'",
-                         "11 (ring attention)")])
 
     @property
     def pos_ebd_size(self) -> int:

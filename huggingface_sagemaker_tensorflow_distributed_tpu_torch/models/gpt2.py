@@ -43,8 +43,13 @@ recomputed in backward under ``remat_policy`` (``torch.utils.checkpoint``,
 the JAX package's ``nn.remat`` per block with its policy,
 ``models/layers.py:remat_policy``; the dropout draws are replayed, so the
 step is the same bit for bit). With ``num_experts`` every
-``moe_every``-th block's MLP is ``models/moe.py``'s expert bank. Pipeline
-stages and ``attention_impl='ring'`` are not ported and raise.
+``moe_every``-th block's MLP is ``models/moe.py``'s expert bank. With
+``attention_impl='ring'`` under a mesh whose ``seq`` axis is active
+(``parallel/ring_attention.py``) the full forward embeds the whole row, runs
+the blocks on this rank's block of tokens with ring attention, and gathers
+the final hidden states back whole before the head; as in the JAX package
+it refuses ``attention_dropout > 0`` in training. Pipeline stages are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -79,6 +84,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import
     make_step_mask,
     paged_attention,
     xla_attention,
+)
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    model_seq_shard,
 )
 
 _flash_dropout_warned = False
@@ -117,7 +125,7 @@ class Gpt2Config:
     pad_token_id: int = 50256             # GPT-2 has no pad; HF uses eos
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
-    attention_impl: str = "xla"           # xla | flash
+    attention_impl: str = "xla"           # xla | flash | ring
     remat: bool = False
     remat_policy: str = "full"
     num_experts: int = 0
@@ -142,7 +150,6 @@ class Gpt2Config:
                              "(xla | flash | ring)")
         raise_unported([
             (self.pipeline_stages != 0, "pipeline_stages", "11 (pipeline stages)"),
-            (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ])
         if not (isinstance(self.dtype, torch.dtype)
                 and isinstance(self.param_dtype, torch.dtype)):
@@ -234,6 +241,13 @@ class Gpt2Attention(nn.Module):
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
             ctx = xla_attention(q, k, v, mask=mask)
         elif cfg.attention_dropout > 0 and self.training:
+            if cfg.attention_impl == "ring":
+                # ring attention has no probability-dropout hook, and the
+                # unfused softmax would attend within a sequence shard only
+                raise ValueError(
+                    "attention_dropout > 0 cannot combine with "
+                    "attention_impl='ring' (sequence parallelism): set "
+                    "attention_dropout=0.0 for sp training")
             # probability dropout: the unfused softmax, as the JAX package does
             if cfg.attention_impl == "flash":
                 _warn_flash_dropout_fallback()
@@ -316,6 +330,10 @@ class Gpt2Model(nn.Module):
         elif position_ids is None:                   # paged decode
             position_ids = cache.context_lens.long()[:, None]
         x = self.dropout(self.wte(input_ids) + self.wpe(position_ids))
+        seq = model_seq_shard(self.cfg.attention_impl) if cache is None else None
+        if seq is not None:
+            # this rank's tokens through the blocks, ring attention between
+            x, mask = seq.local(x), seq.local_mask(mask)
         remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for block in self.h:
             if remat:
@@ -324,7 +342,8 @@ class Gpt2Model(nn.Module):
                 x = block(x, mask, cache)
         if isinstance(cache, DenseCache):
             cache.index = cache.index + S
-        return self.ln_f(x)
+        x = self.ln_f(x)
+        return x if seq is None else seq.gather(x)
 
 
 class Gpt2LMHeadModel(nn.Module):

@@ -40,6 +40,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import
     dot_product_attention,
     make_attention_mask,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    model_seq_shard,
+)
 
 ACT2FN: dict[str, Callable] = {
     "gelu": lambda x: F.gelu(x, approximate="none"),   # HF "gelu" is erf-exact
@@ -136,7 +139,7 @@ class EncoderConfig:
     initializer_range: float = 0.02
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
-    attention_impl: str = "xla"        # xla | flash
+    attention_impl: str = "xla"        # xla | flash | ring
     remat: bool = False                # torch.utils.checkpoint per layer
     remat_policy: str = "full"
     num_experts: int = 0
@@ -154,10 +157,7 @@ class EncoderConfig:
     def __post_init__(self):
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
-        raise_unported([
-            (self.pipeline_stages > 0, "pipeline_stages>0", "11"),
-            (self.attention_impl == "ring", "attention_impl='ring'", "11"),
-        ])
+        raise_unported([(self.pipeline_stages > 0, "pipeline_stages>0", "11")])
 
 
 class Dense(nn.Linear):
@@ -407,7 +407,13 @@ class EncoderBackbone(nn.Module):
     """Embeddings (+ ELECTRA's ``embeddings_project`` when
     ``embedding_size`` differs from ``hidden_size``) + encoder (+ pooler):
     the shared trunk for all heads. Returns ``(sequence_output, pooled or
-    None)``."""
+    None)``.
+
+    With ``attention_impl='ring'`` under a mesh whose ``seq`` axis is
+    active (``parallel/ring_attention.py``) the positions, the mask and the
+    embeddings are made on the whole row, the encoder runs on this rank's
+    block of tokens, and its output is gathered back whole before the
+    pooler and every head."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -427,6 +433,10 @@ class EncoderBackbone(nn.Module):
         x = self.embeddings(input_ids, token_type_ids, position_ids, attention_mask)
         if hasattr(self, "embeddings_project"):
             x = self.embeddings_project(x)
-        x = self.encoder(x, additive_mask)
+        seq = model_seq_shard(self.cfg.attention_impl)
+        if seq is None:
+            x = self.encoder(x, additive_mask)
+        else:
+            x = seq.gather(self.encoder(seq.local(x), seq.local_mask(additive_mask)))
         pooled = self.pooler(x) if self.cfg.use_pooler else None
         return x, pooled

@@ -30,8 +30,15 @@ bands in slots; serve contexts are contiguous, so slots are positions).
 
 Module names follow the JAX parameter tree (``backbone/layers_<i>/
 self_attn/q_proj`` is ``backbone.layers.<i>.self_attn.q_proj``), so
-``convert.params_from_jax`` carries weights across. Pipeline stages and
-``attention_impl='ring'`` are not ported and raise.
+``convert.params_from_jax`` carries weights across. With
+``attention_impl='ring'`` under a mesh whose ``seq`` axis is active
+(``parallel/ring_attention.py``) the full forward makes the positions, masks
+and embeddings on the whole row, runs the blocks on this rank's block of
+tokens (its RoPE rows, its queries' rows of a banded mask) with ring
+attention, the K/V heads travelling un-repeated, and gathers the final
+hidden states back whole before the head; the window then goes through the
+banded mask (the ring has no band), which takes the gathered route.
+Pipeline stages are not ported and raise.
 """
 
 from __future__ import annotations
@@ -68,6 +75,9 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import
     paged_attention,
     xla_attention,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    model_seq_shard,
+)
 
 _ARCHITECTURES = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
                   "qwen2": "Qwen2ForCausalLM", "gemma": "GemmaForCausalLM",
@@ -93,7 +103,7 @@ class LlamaConfig:
     pad_token_id: int = 0
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
-    attention_impl: str = "xla"            # xla | flash
+    attention_impl: str = "xla"            # xla | flash | ring
     remat: bool = False
     remat_policy: str = "full"
     weight_quant: str = "none"             # none | int8
@@ -153,9 +163,13 @@ class LlamaConfig:
                     "Mixtral's, which cannot express qkv biases / Gemma "
                     "norm semantics — upcycle a llama or mistral "
                     "checkpoint")
+        if self.pipeline_stages > 0 and self.attention_impl == "ring":
+            raise ValueError(
+                "pipeline_stages cannot combine with attention_impl="
+                "'ring' (sequence parallelism): scale long sequences "
+                "with sp OR pipeline with pp, not both")
         raise_unported([
             (self.pipeline_stages > 0, "pipeline_stages>0", "11 (pipeline stages)"),
-            (self.attention_impl == "ring", "attention_impl='ring'", "11 (ring attention)"),
         ])
 
 
@@ -394,7 +408,10 @@ class LlamaAttention(nn.Module):
             return self.o_proj(ctx.to(cfg.dtype).reshape(B, 1, -1))
         if isinstance(cache, DenseCache):
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
-        if cfg.num_kv_heads != cfg.num_heads:
+        ring = cfg.attention_impl == "ring" and cache is None
+        if cfg.num_kv_heads != cfg.num_heads and not ring:
+            # (the ring repeats the K/V heads where it uses them: they travel
+            # round it un-repeated)
             rep = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
@@ -475,7 +492,8 @@ class LlamaModel(nn.Module):
                 windowed = plain + torch.where(in_win, 0.0, NEG)
             return (plain, windowed), False
         plain = make_attention_mask(attention_mask) if attention_mask is not None else None
-        kernel_window = win is not None and default_positions
+        # the ring has no band: it takes the banded mask (the gathered route)
+        kernel_window = win is not None and default_positions and cfg.attention_impl != "ring"
         windowed = None
         if win is not None and not kernel_window:
             # a band from the positions: key allowed iff 0 <= pq - pk < window
@@ -511,6 +529,12 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+        seq = model_seq_shard(cfg.attention_impl) if cache is None else None
+        if seq is not None:
+            # this rank's tokens, their RoPE rows and mask rows or columns
+            x = seq.local(x)
+            rope = tuple(seq.local(t, 2) for t in rope)
+            masks = tuple(seq.local_mask(m) for m in masks)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for block in self.layers:
             if remat:
@@ -520,7 +544,8 @@ class LlamaModel(nn.Module):
                 x = block(x, masks, rope, cache, kernel_window)
         if isinstance(cache, DenseCache):
             cache.index = cache.index + S
-        return self.final_ln(x)
+        x = self.final_ln(x)
+        return x if seq is None else seq.gather(x)
 
 
 class LlamaForCausalLM(nn.Module):

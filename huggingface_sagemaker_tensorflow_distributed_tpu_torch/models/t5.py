@@ -31,7 +31,13 @@ of a training forward is recomputed in backward
 (``torch.utils.checkpoint``). With ``weight_quant='int8'`` the attention
 and FFN denses are ``models/quant.py``'s ``Int8Linear`` (the head stays
 full precision). The remat policy is ``remat_policy``
-(``models/layers.py:remat_policy``). Ring attention and pipeline stages
+(``models/layers.py:remat_policy``). With ``attention_impl='ring'`` the
+encoder's self-attention takes the raw ``[num_buckets, heads]`` bias table
+and the ring re-tiles it per step from global positions
+(``parallel/ring_attention.py``); under a mesh whose ``seq`` axis is active
+the encoder runs on this rank's block of tokens and its output is gathered
+back whole, so the decoder, its cross-attention and the head stay whole on
+every rank. The parameters are the same in every mode. Pipeline stages
 raise.
 """
 
@@ -62,6 +68,10 @@ from huggingface_sagemaker_tensorflow_distributed_tpu_torch.ops.attention import
     relative_position_bias,
     xla_attention,
 )
+from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    model_seq_shard,
+    ring_attention_or_fallback,
+)
 
 _ACTS = {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "silu": F.silu}
 
@@ -91,7 +101,7 @@ class T5Config:
     param_dtype: Any = torch.float32
     remat: bool = False
     remat_policy: str = "full"
-    attention_impl: str = "xla"          # xla | flash: both the plain attention
+    attention_impl: str = "xla"          # xla | flash: the plain attention; ring
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
     weight_quant: str = "none"
@@ -104,7 +114,6 @@ class T5Config:
         if self.feed_forward_proj.split("-")[-1] not in _ACTS:
             raise ValueError(f"unknown feed_forward_proj {self.feed_forward_proj!r}")
         raise_unported([
-            (self.attention_impl == "ring", "T5 attention_impl='ring'", "11 (ring attention)"),
             (self.pipeline_stages != 0, "T5 pipeline_stages", "11 (pipeline stages)")])
 
     @property
@@ -224,6 +233,18 @@ class T5Attention(nn.Module):
         if cache is not None and kv_hidden is None:
             k, v = write_kv_cache(cache, self.layer, k, v, cfg.dtype)
             offset = cache.index
+        if (cfg.attention_impl == "ring" and kv_hidden is None and cache is None
+                and not self.causal):
+            # the encoder's self-attention: the raw table threads down the
+            # stack, and the ring (or its plain fallback) tiles the bias
+            if position_bias is None and self.rel_bias is not None:
+                position_bias = self.rel_bias.weight
+            spec = (True, cfg.relative_attention_num_buckets,
+                    cfg.relative_attention_max_distance)
+            ctx = ring_attention_or_fallback(
+                q, k, v, mask=mask, scale=1.0, rel_bias_table=position_bias,
+                rel_bias_spec=spec if position_bias is not None else None)
+            return self.attention_out(ctx.transpose(1, 2).reshape(B, S, -1)), position_bias
         if position_bias is None and self.rel_bias is not None:
             position_bias = self.position_bias(S, k.shape[2], offset)
         bias = position_bias if mask is None else (
@@ -333,7 +354,11 @@ class T5ForConditionalGeneration(nn.Module):
     def encode(self, input_ids, attention_mask=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        return self.encoder(self.shared(input_ids), attn_mask=make_attention_mask(attention_mask))
+        embeds, mask = self.shared(input_ids), make_attention_mask(attention_mask)
+        seq = model_seq_shard(self.config.attention_impl)
+        if seq is None:
+            return self.encoder(embeds, attn_mask=mask)
+        return seq.gather(self.encoder(seq.local(embeds), attn_mask=seq.local_mask(mask)))
 
     def _decoder_hidden(self, decoder_input_ids, encoder_hidden, encoder_attention_mask,
                         decoder_attention_mask, cache):

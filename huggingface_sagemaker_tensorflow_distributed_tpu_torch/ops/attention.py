@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``ops/attention.py``: the einsum
 attention with fp32 logits and softmax (probabilities cast back to the
-value dtype), the implementation dispatch (``xla`` | ``flash``), the
+value dtype), the implementation dispatch (``xla`` | ``flash`` | ``ring``), the
 ``-1e9`` additive padding, segment, causal and banded masks, T5's
 relative-position buckets and bias, and the block-table gather/scatter
 of the serving engine's paged KV pools.
@@ -55,8 +55,11 @@ def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
     (:func:`~.flash_attention.flash_attention`, which skip causal tiles);
     ``xla`` is :func:`xla_attention` with the causal or banded mask added
     (``window``, which needs ``causal``, keeps each query's last ``window``
-    positions) and the probability ``dropout``, which only that route has.
-    ``ring`` (sequence-parallel) is not ported yet."""
+    positions) and the probability ``dropout``, which only that route has;
+    ``ring`` is sequence-parallel ring attention over the ambient mesh's
+    ``seq`` axis, or the plain path where there is none
+    (:func:`~..parallel.ring_attention.ring_attention_or_fallback`; it takes
+    no ``window``: a banded mask goes in ``mask``)."""
     if window is not None and not causal:
         raise ValueError("window requires causal=True (sliding-window "
                          "attention is an autoregressive construct)")
@@ -67,9 +70,14 @@ def dot_product_attention(q, k, v, mask=None, scale=None, impl: str = "xla",
         return flash_attention(q, k, v, mask=mask, scale=scale, causal=causal,
                                window=window)
     if impl == "ring":
-        raise NotImplementedError(
-            "impl='ring' (sequence-parallel ring attention) is not ported "
-            "yet: ROADMAP queue 1, item 11")
+        if window is not None:
+            # ring attention shards the seq axis; banding it needs
+            # window-aware ring scheduling
+            raise ValueError("sliding window is not supported with impl='ring'")
+        from huggingface_sagemaker_tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+            ring_attention_or_fallback,
+        )
+        return ring_attention_or_fallback(q, k, v, mask=mask, scale=scale, causal=causal)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r} (xla | flash | ring)")
     if window is not None:

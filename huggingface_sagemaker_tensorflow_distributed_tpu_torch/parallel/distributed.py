@@ -12,9 +12,10 @@ nothing is initialized.
 Data parallelism is one explicit all-reduce of the flattened gradients
 after backward, divided by the world size, so every rank applies the
 gradient of the global-batch mean loss, as the JAX package's sharded
-global mean does. Over a ``dp × fsdp × tp`` mesh (``parallel/mesh.py``)
-FSDP2 reduces the gradients instead, and the loss sums and the replica
-check run over a mesh axis's own group (:func:`mesh_group`).
+global mean does. Over a ``dp × fsdp × seq × tp`` mesh
+(``parallel/mesh.py``) FSDP2 reduces the gradients over ``data × fsdp``
+(the Trainer then averages them over ``seq``), and the loss sums and the
+replica check run over a mesh axis's own group (:func:`mesh_group`).
 
 Every process group has a timeout (:data:`PROCESS_GROUP_TIMEOUT`, or the
 caller's): a rank that never comes fails the job instead of hanging it.
@@ -92,15 +93,18 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def all_reduce_mean_grads(params) -> None:
-    """Average ``.grad`` over the ranks in one flat all-reduce (no-op with
-    one process)."""
-    if world_size() == 1:
+def all_reduce_mean_grads(params, group=None) -> None:
+    """Average ``.grad`` over the ranks of ``group`` (all of them when None)
+    in one flat all-reduce; a DTensor gradient's local shard is what is
+    averaged (no-op with one rank)."""
+    n = world_size() if group is None else dist.get_world_size(group)
+    if n == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
+    grads = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    flat.div_(world_size())
+    dist.all_reduce(flat, group=group)
+    flat.div_(n)
     offset = 0
     for g in grads:
         n = g.numel()

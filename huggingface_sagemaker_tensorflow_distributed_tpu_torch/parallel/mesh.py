@@ -3,25 +3,29 @@
 The JAX package names seven axes and reshapes its devices row-major into
 ``(dcn, data, fsdp, expert, pipe, seq, tensor)``. The port keeps the names,
 ``data_axis_names()`` and ``MeshConfig.resolve`` with the JAX errors, and
-builds a ``torch.distributed.device_mesh.DeviceMesh`` over the three axes it
-runs today: ``data`` (plain replicas), ``fsdp`` (FSDP2's parameter shards;
-over ``data`` × ``fsdp`` it is HSDP) and ``tensor`` (Megatron tensor
+builds a ``torch.distributed.device_mesh.DeviceMesh`` over the four axes it
+runs today, in the JAX order with the others left out: ``data`` (plain
+replicas), ``fsdp`` (FSDP2's parameter shards; over ``data`` × ``fsdp`` it
+is HSDP), ``seq`` (sequence parallelism: ring attention,
+``parallel/ring_attention.py``) and ``tensor`` (Megatron tensor
 parallelism, ``parallel/sharding.py``). Ranks are laid out row-major with
 ``data`` outermost and ``tensor`` innermost, the JAX device order, so rank
 ``r`` holds what JAX device ``r`` of the same mesh holds.
 
-Two sizes differ once ``tensor`` > 1: :func:`world_size` counts every rank
-(MFU is per chip), :func:`data_parallel_size` counts the replicas of a
-batch (``dcn × data × fsdp × expert``): the ``tensor`` ranks of one replica
-share its rows. The loss, the gradient scale and the learning-rate scale
-use the latter.
+Two sizes differ once ``seq`` or ``tensor`` > 1: :func:`world_size` counts
+every rank (MFU is per chip), :func:`data_parallel_size` counts the
+replicas of a batch (``dcn × data × fsdp × expert``): the ``seq`` and
+``tensor`` ranks of one replica share its rows. The loss, the gradient
+scale and the learning-rate scale use the latter. :func:`seq_group` and
+:func:`seq_rank` are the ``seq`` axis's group and this rank's coordinate on
+it.
 
 Tensor-parallel serving has a mesh of its own, :func:`tensor_parallel_mesh`:
 one ``tensor`` dim over the ``tp`` ranks of the process group (JAX's ``dp=1 ×
 tp`` serving mesh), cached per degree.
 
 Not ported yet, each raising ``NotImplementedError`` that names ROADMAP
-queue 1, item 11: ``dcn_dp > 1``, ``pp``, ``sp`` and ``ep`` meshes and
+queue 1, item 11: ``dcn_dp > 1``, ``pp`` and ``ep`` meshes and
 :func:`shard_map_compat`.
 """
 
@@ -43,7 +47,7 @@ MESH_AXES = (AXIS_DCN, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_PIPE,
              AXIS_SEQ, AXIS_TENSOR)
 
 # the axes the port's DeviceMesh has, outermost first
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ, AXIS_TENSOR)
 
 
 def _unported(what: str):
@@ -53,8 +57,8 @@ def _unported(what: str):
 
 
 def data_axis_names() -> tuple[str, ...]:
-    """Axes over which a global batch is sharded (and gradients reduced);
-    ``tensor`` is not among them."""
+    """Axes over which a global batch is sharded; ``seq`` and ``tensor``
+    are not among them."""
     return (AXIS_DCN, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)
 
 
@@ -124,7 +128,7 @@ class use_mesh:
 def build_mesh(config: MeshConfig | None = None, device_type: str = "cuda",
                timeout: timedelta | None = None):
     """A ``DeviceMesh`` over every rank of the joined process group, with
-    named dims ``("data", "fsdp", "tensor")``, ranks row-major. Each dim's
+    named dims ``("data", "fsdp", "seq", "tensor")``, ranks row-major. Each dim's
     process group is made here with ``timeout`` (the job's
     ``PROCESS_GROUP_TIMEOUT`` when None), so a collective over any axis
     fails after it instead of waiting for a rank that never comes. Needs
@@ -141,15 +145,15 @@ def build_mesh(config: MeshConfig | None = None, device_type: str = "cuda",
 
     config = config or MeshConfig()
     for size, what in ((config.dcn_dp, "dcn_dp>1"), (config.pp, "pp>1"),
-                       (config.sp, "sp>1"), (config.ep, "ep>1")):
+                       (config.ep, "ep>1")):
         if size > 1:
             raise _unported(what)
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs a process group: call "
                            "parallel.distributed.initialize_distributed first")
-    _, dp, fsdp, _, _, _, tp = config.resolve(dist.get_world_size())
+    _, dp, fsdp, _, _, sp, tp = config.resolve(dist.get_world_size())
     timeout = timeout or PROCESS_GROUP_TIMEOUT
-    grid = torch.arange(dp * fsdp * tp).reshape(dp, fsdp, tp)
+    grid = torch.arange(dp * fsdp * sp * tp).reshape(dp, fsdp, sp, tp)
     groups = []
     for dim in range(grid.dim()):
         rest = [d for d in range(grid.dim()) if d != dim]
@@ -216,6 +220,19 @@ def shard_map_compat(fn, *, mesh, in_specs, out_specs, check_vma=None):
     """JAX ``shard_map_compat``: the port shards through FSDP2 and DTensor,
     not ``shard_map``."""
     raise _unported("shard_map_compat")
+
+
+def seq_group(mesh):
+    """The process group of ``mesh``'s ``seq`` axis that holds this rank."""
+    return mesh.get_group(AXIS_SEQ)
+
+
+def seq_rank(mesh) -> int:
+    """This rank's coordinate on ``mesh``'s ``seq`` axis (0 when the mesh has
+    no such dim)."""
+    if AXIS_SEQ not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(AXIS_SEQ)
 
 
 def world_size(mesh) -> int:

@@ -29,7 +29,11 @@ mesh's layout and the HF export keeps its own.
 
 The batch (JAX ``batch_sharding``): the data-parallel rank is its
 coordinate over ``data`` × ``fsdp`` (:func:`data_parallel_rank`); the
-``tensor`` ranks of one replica take the same rows.
+``seq`` and ``tensor`` ranks of one replica take the same rows. The ``seq``
+axis holds no parameter shard: FSDP2 shards over ``fsdp`` and replicates
+over ``data`` alone, and the Trainer averages the ``seq`` ranks' gradient
+shards itself (:func:`check_sequence_parallel` names what cannot run over
+``seq`` yet).
 
 Serving (JAX ``param_shardings`` and ``kv_pool_sharding`` under
 ``ServeEngine(mesh=...)``): :func:`shard_for_serving` cuts a GPT-2 or dense
@@ -163,6 +167,28 @@ def check_tensor_parallel(model: nn.Module, tp: int) -> None:
                 module.in_features
             if width % tp:
                 raise _unported(f"tp={tp} over a width of {width} ({path})")
+
+
+# models whose sequence-parallel layout is a later part of item 11
+_SP_LATER = (("Bart", "BART"), ("Deberta", "DeBERTa"))
+
+
+def check_sequence_parallel(model: nn.Module, sp: int) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP item 11) where ``model`` has no
+    sequence-parallel layout over ``sp`` ranks yet: BART, DeBERTa (no ring
+    site in the JAX package either) and any MoE layer (its expert capacity
+    follows the call's sequence length, which a rank's block would cut)."""
+    if sp <= 1:
+        return
+    from huggingface_sagemaker_tensorflow_distributed_tpu_torch.models.moe import _Routed
+
+    name = type(model).__name__
+    for prefix, family in _SP_LATER:
+        if name.startswith(prefix):
+            raise _unported(f"sp>1 with {family}")
+    for path, module in model.named_modules():
+        if isinstance(module, _Routed):
+            raise _unported(f"sp>1 with MoE layers ({path})")
 
 
 def tensor_parallel_plan(model: nn.Module) -> dict:

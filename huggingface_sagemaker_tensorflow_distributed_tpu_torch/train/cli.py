@@ -49,9 +49,11 @@ K1 and K2 launch counts end it as ``kernel_launches/<wrapper>`` metrics.
 Several processes on one host: start one per card with
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` (or the
 ``TPU_*`` triplet) set, or through the launcher (``launch/``). With
-``--fsdp F`` and/or ``--tp T`` (``--dp`` -1 takes the rest of the ranks)
-the ranks form a ``(dp, fsdp, tp)`` mesh (``parallel/mesh.py``): FSDP2
-shards the model over ``fsdp`` and the Megatron plan over ``tp``
+``--fsdp F``, ``--sp S`` and/or ``--tp T`` (``--dp`` -1 takes the rest of
+the ranks) the ranks form a ``(dp, fsdp, sp, tp)`` mesh
+(``parallel/mesh.py``): FSDP2 shards the model over ``fsdp``, ring
+attention splits each row's tokens over ``sp``
+(``parallel/ring_attention.py``) and the Megatron plan cuts it over ``tp``
 (``parallel/sharding.py``), each of the ``dp x fsdp`` replicas takes
 ``train_batch_size`` rows a step, and rank 0 exports the gathered model.
 """
@@ -347,11 +349,23 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
     if config.num_experts:
         logger.info("MoE: %d experts (top-%d) every %d layers, ep=%d",
                     config.num_experts, config.expert_top_k, config.moe_every, config.ep)
+    if attention_impl == "ring":
+        if family == "t5":
+            logger.info("sp=%d: ring attention on the T5 encoder (relative bias re-tiled "
+                        "per ring step); the decoder and cross-attention run whole on "
+                        "every seq rank", config.sp)
+        else:
+            logger.info("sp=%d: ring attention selected", config.sp)
     if config.segment_packing and family not in ("gpt2", "bert"):
         raise ValueError(
             "--segment_packing needs a model wired for segment_ids/"
             "position_ids (gpt2 causal-lm, bert mlm); "
             f"got family {family!r}")
+    if config.segment_packing and attention_impl == "ring":
+        raise ValueError(
+            "--segment_packing builds a [B,1,S,S] block-diagonal "
+            "mask, which ring attention (sp>1) cannot shard over the "
+            "seq axis — drop --sp or --segment_packing")
     tokenizer = load_tokenizer(config.model_name_or_path,
                                vocab_size=model_config.vocab_size)
 
@@ -364,12 +378,12 @@ def _run(config: TrainConfig, device: torch.device, rank: int,
     buckets = config.bucket_sizes(max_len)
     if buckets:
         logger.info("length bucketing at widths %s", buckets)
-    # --fsdp/--tp: the (dp, fsdp, tp) mesh the Trainer shards the model over;
-    # a batch per data-parallel replica (the tensor ranks of one share it)
+    # --fsdp/--sp/--tp: the (dp, fsdp, sp, tp) mesh the Trainer runs over; a
+    # batch per data-parallel replica (the seq and tensor ranks of one share it)
     mesh, replicas = None, world
-    if config.fsdp > 1 or config.tp > 1:
-        mesh = build_mesh(MeshConfig(dp=config.dp, fsdp=config.fsdp, tp=config.tp),
-                          device_type=device.type)
+    if config.fsdp > 1 or config.sp > 1 or config.tp > 1:
+        mesh = build_mesh(MeshConfig(dp=config.dp, fsdp=config.fsdp, sp=config.sp,
+                                     tp=config.tp), device_type=device.type)
         replicas = data_parallel_size(mesh)
         logger.info("mesh %s: %d data-parallel replicas", mesh_shape(mesh), replicas)
     train_batcher = ShardedBatcher(train_ds, config.train_batch_size * replicas,

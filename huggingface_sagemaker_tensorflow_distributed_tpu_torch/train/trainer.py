@@ -45,7 +45,7 @@ F1 counts), ``qa_loss``, ``causal_lm_loss``, ``rtd_loss`` and
   batcher's prefetch thread.
 - Token-packed batches (``segment_ids``, ``position_ids``) reach every
   task loss's model call (``_packed_kwargs``).
-- Over a ``dp × fsdp × tp`` mesh (``mesh``, ``parallel/mesh.py``) with
+- Over a ``dp × fsdp × seq × tp`` mesh (``mesh``, ``parallel/mesh.py``) with
   ``fsdp > 1`` or ``tp > 1`` the model is wrapped by
   ``parallel/sharding.py:shard_model``, the tensor-parallel plan left out
   at ``tp`` 1 (a model the caller wrapped already stays as it is): FSDP2
@@ -63,6 +63,19 @@ F1 counts), ``qa_loss``, ``causal_lm_loss``, ``rtd_loss`` and
   the gathered model in its unwrapped layout, on rank 0's host (``{}`` on
   the others). No card holds more than one whole tensor on the way. The
   DP-only path is unchanged.
+- Over a mesh whose ``seq`` axis is > 1 (sequence parallelism,
+  ``parallel/ring_attention.py``) the ``seq`` ranks of a replica take its
+  rows too, so the loss sums and counts stay over ``data × fsdp``; every
+  forward and backward runs under the mesh (``parallel.mesh.use_mesh``), so
+  a ring model splits its sequence over ``seq``. Each rank's gradient is
+  its block's share of the sequence, scaled by ``seq`` (the gather before
+  the heads sums the ranks' gradients), so the gradients are averaged over
+  ``data × fsdp × seq``: FSDP2 over ``data × fsdp``, then an all-reduce of
+  the local shards over ``seq`` (FSDP2 shards over no ``seq`` rank); with
+  ``fsdp`` = ``tp`` = 1 nothing is wrapped and the plain all-reduce over
+  every rank (``data × seq``) does both. The replica check
+  compares ``data`` and ``seq``. BART, DeBERTa, MoE layers and LoRA raise
+  there (``sharding.check_sequence_parallel``, ROADMAP item 11).
 - LoRA (``lora_rank > 0``, ``models/lora.py``): the base is frozen but the
   heads ``lora_train_heads`` matches, adapters from ``torch.Generator(seed)``
   are attached to the targeted kernels, and ``self.params`` (the optimizer,
@@ -475,6 +488,10 @@ class Trainer:
                  total_steps: Optional[int] = None, mesh=None):
         self.config = config
         self.model = model
+        mesh = getattr(model, "mesh", None) or mesh
+        # the seq axis: its size, and the mesh every forward runs under
+        self.sp = pmesh.mesh_shape(mesh)[pmesh.AXIS_SEQ] if mesh is not None else 1
+        sharding.check_sequence_parallel(model, self.sp)
         if mesh is not None and not sharding.is_sharded(model):
             shape = pmesh.mesh_shape(mesh)
             tp = shape[pmesh.AXIS_TENSOR]
@@ -509,12 +526,14 @@ class Trainer:
         # the group the loss sums are summed over (None: every rank)
         self.dp_size, self._dp_group = self.n_chips, None
         self.sharded = sharding.is_sharded(model)
-        if self.sharded:
+        self.mesh = None
+        if self.sharded or self.sp > 1:
             if config.lora_rank > 0:
                 raise NotImplementedError(
-                    "lora_rank>0 over a sharded mesh is not ported to the PyTorch "
-                    "package yet: ROADMAP queue 1, item 11 (parallelism beyond DP)")
-            mesh = self.mesh = model.mesh
+                    "lora_rank>0 over a sharded or sequence-parallel mesh is not "
+                    "ported to the PyTorch package yet: ROADMAP queue 1, item 11 "
+                    "(parallelism beyond DP)")
+            self.mesh = mesh
             self.n_chips = pmesh.world_size(mesh)
             self.dp_size = pmesh.data_parallel_size(mesh)
             self._dp_group = mesh_group(mesh, (pmesh.AXIS_DATA, pmesh.AXIS_FSDP))
@@ -632,12 +651,14 @@ class Trainer:
                 self.lora[path][k].copy_(v)
 
     def check_replica_divergence(self) -> float:
-        """Verify the parameter replicas agree across the ranks. Returns
-        the relative deviation; raises ``ReplicaDivergenceError`` beyond
+        """Verify the parameter replicas agree across the ranks (over a mesh:
+        each shard across the ``data`` and ``seq`` axes). Returns the
+        relative deviation; raises ``ReplicaDivergenceError`` beyond
         ``config.divergence_tol``. Called before each checkpoint save, so
         a divergent replica is never persisted silently."""
-        if self.sharded:
-            rel = replica_divergence(self.params, self.mesh.get_group(pmesh.AXIS_DATA))
+        if self.mesh is not None:
+            axes = (pmesh.AXIS_DATA, pmesh.AXIS_SEQ) if self.sp > 1 else (pmesh.AXIS_DATA,)
+            rel = replica_divergence(self.params, mesh_group(self.mesh, axes))
         else:
             rel = replica_divergence(self.params)
         if rel > self.config.divergence_tol:
@@ -653,6 +674,15 @@ class Trainer:
         """One micro-step; returns device scalars ``loss``/``accuracy``
         (and ``grad_norm`` at an update, when the anomaly detector reads
         it)."""
+        with self._under_mesh():
+            return self._train_step(batch)
+
+    def _under_mesh(self):
+        """The mesh as the ambient one when its ``seq`` axis is active (the
+        ring models split their sequence under it), else nothing."""
+        return pmesh.use_mesh(self.mesh) if self.sp > 1 else contextlib.nullcontext()
+
+    def _train_step(self, batch) -> dict:
         cfg = self.config
         accum = cfg.gradient_accumulation_steps
         self.model.train()
@@ -683,6 +713,8 @@ class Trainer:
         if self.step % accum == 0:
             if not self.sharded:         # FSDP2 has reduced them in backward
                 all_reduce_mean_grads(self.params)
+            elif self.sp > 1:            # over data x fsdp; seq is left
+                all_reduce_mean_grads(self.params, pmesh.seq_group(self.mesh))
             norm = None
             if cfg.max_grad_norm > 0:
                 norm = clip_by_global_norm(self.params, cfg.max_grad_norm)
@@ -700,7 +732,8 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch) -> dict:
         self.model.eval()
-        _, sums = self.loss_fn(self.model, batch)
+        with self._under_mesh():
+            _, sums = self.loss_fn(self.model, batch)
         moe_aux_loss(self.model)         # evaluation reports the task loss alone
         return sums
 

@@ -354,12 +354,13 @@ def test_bf16_compute_keeps_fp32_params():
 
 
 # a factorized embedding_size (ELECTRA, ALBERT), position_offset
-# (RoBERTa) and MoE layers are ported: they build, the rest still raises
+# (RoBERTa), MoE layers and ring attention are ported: they build, the rest
+# still raises
 @pytest.mark.parametrize("field,value", [
     ("num_experts", 4), ("pipeline_stages", 2), ("embedding_size", 16),
     ("position_offset", 2), ("attention_impl", "ring")])
 def test_encoder_config_rejects_unported(field, value):
-    if field in ("embedding_size", "position_offset", "num_experts"):
+    if field in ("embedding_size", "position_offset", "num_experts", "attention_impl"):
         assert getattr(t_layers.EncoderConfig(**{**TINY, field: value}), field) == value
         return
     with pytest.raises(NotImplementedError):

@@ -594,13 +594,13 @@ def test_fresh_process_phases_hand_their_rows_back(tmp_path, monkeypatch):
     in the process that reads them (a tuple key stays a tuple), and the
     flash and vocab-CE cases, the optimizer/remat phase (it profiles), the
     obs phase's compile-budget run (its K1 library loads inside its fit)
-    the mesh phase (its own process group) and the tp_serve phase (its
-    ranks' processes) all run so (the llama K3
+    the mesh phase (its own process group) and the tp_serve and ring_train
+    phases (their ranks' processes) all run so (the llama K3
     cases time with the others in the kernel phase); any other
     argument raises."""
     assert set(chip_smoke.FRESH_PROCESS_PHASES) == {
         "flash_phase", "vocab_ce_phase", "optim_memory_phase", "compile_budget_phase",
-        "mesh_train_phase", "tp_serve_phase"}
+        "mesh_train_phase", "tp_serve_phase", "ring_train_phase"}
     rows = {("bert_bf16", "flash_fwd"): {"kernel_ms": 0.5, "contexts": [0, 3]},
             "gpt2": {"kernel_ms": 0.25, "status": "pass"}}
     monkeypatch.setitem(chip_smoke.FRESH_PROCESS_PHASES, "flash_phase", lambda: rows)
@@ -1921,5 +1921,109 @@ def test_tp_serve_follower_ends_when_the_leaders_group_times_out(monkeypatch):
     task = dict(chip_smoke._tp_task(), leader_hangs=True, group_timeout_s=3)
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match=r"ranks exited with \[0, 1\]"):
-        chip_smoke._tp_world(task, 60)
+        chip_smoke._spawned_world(chip_smoke._tp_rank, task, chip_smoke.TP_RANKS, 60,
+                                  "tp_serve")
     assert time.perf_counter() - t0 < 45
+
+
+# -- the ring_train phase ---------------------------------------------------------------
+
+def test_ring_train_phase_runs_in_its_own_process_within_its_limit():
+    assert chip_smoke.FRESH_PROCESS_PHASES["ring_train_phase"] is chip_smoke.ring_train_phase
+    assert chip_smoke.FRESH_PROCESS_TIMEOUTS_S["ring_train_phase"] == \
+        chip_smoke.RING_TRAIN_PHASE_TIMEOUT_S == 150
+    # a hung rank fails the phase at its group's timeout, well inside the limit
+    assert chip_smoke.RING_GROUP_TIMEOUT_S + 15 < chip_smoke.RING_TRAIN_PHASE_TIMEOUT_S
+
+
+def test_ring_train_ranks_set_timeouts_and_turn_tf32_off():
+    """Each rank turns TF32 off before any work, and its process group and
+    every mesh group carry the phase's timeout."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(chip_smoke._ring_rank))
+    calls = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            name = getattr(node.func, "attr", getattr(node.func, "id", None))
+            calls.setdefault(name, []).append({k.arg for k in node.keywords})
+    assert "_no_tf32" in calls
+    assert all("timeout" in kw for kw in calls["init_process_group"])
+    assert all("timeout" in kw for kw in calls["build_mesh"])
+    assert chip_smoke._ring_task()["group_timeout_s"] == chip_smoke.RING_GROUP_TIMEOUT_S
+
+
+def _ring_shape(name, spec):
+    """(S / sp, query heads, K/V heads, head width) of a ring_train model."""
+    hf = getattr(chip_smoke, spec["hf"])
+    if name == "t5_small":
+        heads, kv, d = hf["num_heads"], hf["num_heads"], hf["d_kv"]
+    else:
+        heads = hf["num_attention_heads"]
+        kv = hf.get("num_key_value_heads", heads)
+        d = hf["hidden_size"] // heads
+    return spec["seq"] // chip_smoke.RING_RANKS, heads, kv, d
+
+
+def test_every_ring_shape_has_a_cpu_case():
+    """Each ring the card's ring_train phase runs (its block of the
+    sequence, heads, K/V heads and head width) is a case of
+    ``tests/test_torch_ring_attention.py`` over the same ``sp``, at the
+    same shape."""
+    import test_torch_ring_attention as ring_tests
+
+    assert set(ring_tests.CHIP_SHAPES) == set(chip_smoke.RING_MODELS)
+    assert ring_tests.TRAIN_SHAPE[2] == chip_smoke.RING_RANKS
+    for name, spec in chip_smoke.RING_MODELS.items():
+        case = ring_tests.CHIP_SHAPES[name]
+        assert (case["s"] // ring_tests.TRAIN_SHAPE[2], case["h"], case["kv"], case["d"]) == \
+            _ring_shape(name, spec), name
+        assert case.get("causal", False) == (name == "tinyllama"), name
+
+
+def test_ring_train_phase_on_cpu(monkeypatch, capsys):
+    """The ring_train phase at a tiny width: two spawned ranks in a gloo
+    world on the CPU over sp 2; each model's fp32 losses and first-update
+    gradients against the plain one-process trainer's, then the bf16 runs
+    (sp 1 plain and flash on rank 0, sp 2 on both, ring shifts counted)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    tiny = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                intermediate_size=128)
+    monkeypatch.setattr(chip_smoke, "BERT_LARGE", dict(chip_smoke.BERT_LARGE, **tiny,
+                                                       vocab_size=300))
+    monkeypatch.setattr(chip_smoke, "TINYLLAMA", dict(chip_smoke.TINYLLAMA, **tiny,
+                                                      vocab_size=300, num_key_value_heads=2))
+    monkeypatch.setattr(chip_smoke, "T5_SMALL", dict(chip_smoke.T5_SMALL, vocab_size=300,
+                                                     d_model=64, d_kv=16, d_ff=128,
+                                                     num_heads=4))
+    monkeypatch.setattr(chip_smoke, "RING_MODELS", {
+        "bert_large_wwm": dict(hf="BERT_LARGE", depth=2, rows=4, seq=32),
+        "tinyllama": dict(hf="TINYLLAMA", depth=2, rows=1, seq=64),
+        "t5_small": dict(hf="T5_SMALL", depth=2, rows=4, seq=32, target=8)})
+    monkeypatch.setattr(chip_smoke, "RING_ROW_LENGTHS", (32, 27, 19, 6))
+    monkeypatch.setattr(chip_smoke, "RING_BF16_STEPS", 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)         # the one-process references run here
+    try:
+        rows = chip_smoke.ring_train_phase()
+    finally:
+        torch.set_num_threads(threads)
+    for name in chip_smoke.RING_MODELS:
+        row = rows[f"{name}_fp32"]
+        assert max(row["loss_rel_err"]) <= chip_smoke.RING_LOSS_RTOL, name
+        assert row["grad_rel_l2"] <= row["grad_rel_l2_tol"], name
+        assert row["grad_rel_l2_tol"] >= chip_smoke.RING_GRAD_REL_L2, name
+        assert len(row["loss_sp2"]) == chip_smoke.RING_FP32_STEPS
+        assert row["rank1"]["launches_per_step"] == row["launches_per_step"]
+    bf16 = rows["tinyllama_bf16"]
+    for run in ("sp1_xla", "sp1_flash", "sp2"):
+        assert math.isfinite(bf16[run]["loss"]), run
+    # sp 2 is one hop: a layer shifts its K/V block and its padding mask
+    # forward, and the K/V gradient back
+    for rank_row in (bf16, bf16["rank1"]):
+        assert rank_row["sp2"]["ring_shifts_per_step"] == 3 * 2
+        assert rank_row["sp2"]["grad_all_reduce_host_s_per_step"] > 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert [r["run"] for r in lines if r.get("phase") == "ring_train"] == [
+        "bert_large_wwm_fp32", "tinyllama_fp32", "t5_small_fp32", "tinyllama_bf16"]

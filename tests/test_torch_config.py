@@ -106,8 +106,9 @@ LIFECYCLE = [["--checkpoint_dir", "/nonexistent/ckpt"], ["--keep_best", "true"],
 # the JAX package's do
 ITEM6 = ("--lora_rank", "--packed_sequences", "--segment_packing", "--num_experts",
          "--optimizer", "--optimizer_state_dtype", "--remat",
-         # item 11's first part: training over a dp x fsdp x tp mesh
-         "--tp", "--fsdp")
+         # item 11's first part: training over a dp x fsdp x tp mesh; its
+         # step 1: the seq axis and ring attention
+         "--tp", "--fsdp", "--sp", "--attention_impl")
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[1] if a[0] == "--optimizer" else a[0])

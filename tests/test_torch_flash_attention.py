@@ -533,8 +533,10 @@ def test_dispatch_flash_matches_xla_and_jax():
 def test_dispatch_and_argument_checks_raise(bad):
     q, k, v, _, mask = (_t(x) for x in _inputs(11))
     if bad == "ring":
-        with pytest.raises(NotImplementedError):
-            t_attn.dot_product_attention(q, k, v, mask, impl="ring")
+        # ring attention (ported; without a mesh the plain attention) takes
+        # no window: the JAX ValueError
+        with pytest.raises(ValueError, match="sliding window is not supported with impl='ring'"):
+            t_attn.dot_product_attention(q, k, v, mask, impl="ring", causal=True, window=4)
     elif bad == "window_no_causal":
         with pytest.raises(ValueError):
             t_attn.dot_product_attention(q, k, v, mask, impl="flash", window=4)

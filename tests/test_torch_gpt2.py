@@ -326,9 +326,18 @@ def test_config_rejects_unported_features(field, value):
         with pytest.raises(ValueError, match="weight_quant"):
             dataclasses.replace(t_gpt2.Gpt2Config(), weight_quant="int4")
         return
+    if field == "attention_impl":
+        # ring attention is ported (ROADMAP item 11, step 1); as in the JAX
+        # package a training forward refuses attention_dropout > 0 with it
+        cfg = dataclasses.replace(t_gpt2.Gpt2Config(**TINY), **{field: value},
+                                  attention_dropout=0.1)
+        model = t_gpt2.Gpt2LMHeadModel(cfg).train()
+        with pytest.raises(ValueError, match="attention_dropout > 0 cannot combine"):
+            model(torch.ones(1, 4, dtype=torch.long))
+        return
     # what is not ported yet names its ROADMAP item; a value no package
     # takes is a ValueError
-    unported = field in ("pipeline_stages", "attention_impl")
+    unported = field == "pipeline_stages"
     with pytest.raises(NotImplementedError if unported else ValueError,
                        match="ROADMAP queue 1, item" if unported else None):
         dataclasses.replace(t_gpt2.Gpt2Config(), **{field: value})

@@ -63,7 +63,9 @@ def test_axis_names_match_jax():
     assert t_mesh.MESH_AXES == j_mesh.MESH_AXES
     assert t_mesh.data_axis_names() == j_mesh.data_axis_names()
     assert t_mesh.AXIS_TENSOR not in t_mesh.data_axis_names()
-    assert t_mesh.PORTED_AXES == (t_mesh.AXIS_DATA, t_mesh.AXIS_FSDP, t_mesh.AXIS_TENSOR)
+    assert t_mesh.AXIS_SEQ not in t_mesh.data_axis_names()
+    assert t_mesh.PORTED_AXES == (t_mesh.AXIS_DATA, t_mesh.AXIS_FSDP, t_mesh.AXIS_SEQ,
+                                  t_mesh.AXIS_TENSOR)
 
 
 @pytest.mark.parametrize("kw", RESOLVE_CONFIGS, ids=_ids)
@@ -201,18 +203,27 @@ def test_heads_that_do_not_divide_raise_where_jax_replicates(tmp_path, devices8)
     assert "num_heads=4" in str(err.value)
 
 
+def _sp_mesh_is_ported():
+    """``sp`` 2 gets past the port check: without a process group the mesh
+    asks for one."""
+    with pytest.raises(RuntimeError, match="build_mesh needs a process group"):
+        t_mesh.build_mesh(t_mesh.MeshConfig(sp=2))
+
+
 def _unported_sites(tmp_path):
     return {
         "mesh-pp": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(pp=2)),
-        "mesh-sp": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(sp=2)),
+        # item 11's step 1, ported: the seq axis builds, ring attention runs
+        "mesh-sp": _sp_mesh_is_ported,
         "mesh-ep": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(ep=2)),
         "mesh-dcn_dp": lambda: t_mesh.build_mesh(t_mesh.MeshConfig(dcn_dp=2)),
         "shard_map_compat": lambda: t_mesh.shard_map_compat(None, mesh=None, in_specs=(),
                                                             out_specs=()),
         "config-pp": lambda: t_config.TrainConfig(pp=2),
-        "config-sp": lambda: t_config.TrainConfig(sp=2),
+        "config-sp": lambda: t_config.TrainConfig(sp=2).resolve_attention_impl("cuda") == "ring",
         "config-dcn_dp": lambda: t_config.TrainConfig(dcn_dp=2),
-        "config-ring": lambda: t_config.TrainConfig(attention_impl="ring"),
+        "config-ring": lambda: t_config.TrainConfig(attention_impl="ring").resolve_attention_impl(
+            "cpu") == "ring",
         "tp-moe": lambda: sharding.check_tensor_parallel(_port_model(tmp_path, "mixtral"), 2),
         "tp-t5": lambda: sharding.check_tensor_parallel(_port_model(tmp_path, "t5"), 2),
         "tp-bart": lambda: sharding.check_tensor_parallel(_port_model(tmp_path, "bart"), 2),
@@ -227,8 +238,16 @@ def _unported_sites(tmp_path):
     }
 
 
+# the sites of item 11 that are ported now: each call runs and returns True
+# (or None, having checked what it must)
+PORTED_SITES = ("mesh-sp", "config-sp", "config-ring")
+
+
 @pytest.mark.parametrize("site", list(_unported_sites(None)))
 def test_unported_raise_names_item_11(tmp_path, site):
+    if site in PORTED_SITES:
+        assert _unported_sites(tmp_path)[site]() in (True, None)
+        return
     with pytest.raises(NotImplementedError, match=ITEM_11):
         _unported_sites(tmp_path)[site]()
 
@@ -294,24 +313,29 @@ class _GridMesh:
         return self._coords[self.mesh_dim_names.index(name)]
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 2), (1, 2, 4), (4, 1, 2), (1, 1, 8)])
+@pytest.mark.parametrize("shape", [(2, 2, 1, 2), (1, 2, 1, 4), (4, 1, 1, 2), (1, 1, 1, 8),
+                                   (2, 1, 2, 2), (1, 2, 4, 1)])
 def test_sizes_and_batch_shards_follow_the_data_parallel_rank(shape):
+    """(dp, fsdp, sp, tp): the seq and tensor ranks of a replica take its
+    rows."""
     from huggingface_sagemaker_tensorflow_distributed_tpu.parallel import mesh as j_mesh
 
-    dp, fsdp, tp = shape
-    assert t_mesh.world_size(_GridMesh(shape, 0)) == dp * fsdp * tp
+    dp, fsdp, sp, tp = shape
+    world = dp * fsdp * sp * tp
+    assert t_mesh.world_size(_GridMesh(shape, 0)) == world
     assert t_mesh.data_parallel_size(_GridMesh(shape, 0)) == dp * fsdp
-    jshape = dict(zip(j_mesh.MESH_AXES, t_mesh.MeshConfig(dp=dp, fsdp=fsdp, tp=tp)
-                      .resolve(dp * fsdp * tp)))
+    jshape = dict(zip(j_mesh.MESH_AXES, t_mesh.MeshConfig(dp=dp, fsdp=fsdp, sp=sp, tp=tp)
+                      .resolve(world)))
     assert t_mesh.mesh_shape(_GridMesh(shape, 0)) == jshape
     n = 32
     ds = t_pipe.ArrayDataset({"input_ids": np.arange(n * 4).reshape(n, 4),
                               "labels": np.arange(n)})
-    for rank in range(dp * fsdp * tp):
+    for rank in range(world):
         mesh = _GridMesh(shape, rank)
+        assert t_mesh.seq_rank(mesh) == np.unravel_index(rank, shape)[2]
         batch = next(t_pipe.ShardedBatcher(ds, 16, shuffle=False, native=False,
                                            mesh=mesh).local_batches(0))
-        d, f, _ = np.unravel_index(rank, shape)
+        d, f, _, _ = np.unravel_index(rank, shape)
         per = 16 // (dp * fsdp)
         lo = (d * fsdp + f) * per
         assert batch["labels"].tolist() == list(range(lo, lo + per)), (shape, rank)

@@ -681,33 +681,34 @@ def _raise_sites():
         ("config-remat-policy", lambda: _ported_config(
             dict(remat=True, remat_policy="dots"),
             dict(remat=True, remat_policy="dots_with_batch")), None),
-        ("config-ring", lambda: t_config.TrainConfig(attention_impl="ring"), "11"),
+        # item 11's step 1, ported: ring attention builds in every family
+        ("config-ring", lambda: t_config.TrainConfig(attention_impl="ring"), None),
         # item 11's first part, ported: a tp config builds
         ("config-tp", lambda: t_config.TrainConfig(tp=2), None),
         ("layers-moe", lambda: t_layers.EncoderConfig(num_experts=2), None),
         ("layers-pipeline", lambda: t_layers.EncoderConfig(pipeline_stages=2), "11"),
         ("layers-remat-policy", lambda: _ported_remat(
             lambda: t_layers.EncoderConfig(remat=True, remat_policy="dots")), None),
-        ("layers-ring", lambda: t_layers.EncoderConfig(attention_impl="ring"), "11"),
+        ("layers-ring", lambda: t_layers.EncoderConfig(attention_impl="ring"), None),
         ("gpt2-remat-policy", lambda: _ported_remat(
             lambda: t_gpt2.Gpt2Config(remat=True, remat_policy="dots_no_batch")), None),
         ("gpt2-moe", lambda: t_gpt2.Gpt2Config(num_experts=4), None),
         ("gpt2-pipeline", lambda: t_gpt2.Gpt2Config(pipeline_stages=2), "11"),
         ("gpt2-quant", lambda: _ported_quant("gpt2"), None),
-        ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), "11"),
-        ("attention-ring", lambda: t_attn.dot_product_attention(q, q, q, impl="ring"), "11"),
+        ("gpt2-ring", lambda: t_gpt2.Gpt2Config(attention_impl="ring"), None),
+        ("attention-ring", lambda: _ring_is_plain_without_a_mesh(t_attn, q), None),
         ("optim-lamb", lambda: _lamb_steps(t_optim), None),
         ("pipeline-packed", _ported_packed_lm_rows, None),
         ("auto-family", _ported_llama_family, None),
         ("auto-export", _ported_llama_export, None),
         ("llama-pipeline", lambda: t_llama.LlamaConfig(pipeline_stages=2), "11"),
-        ("llama-ring", lambda: t_llama.LlamaConfig(attention_impl="ring"), "11"),
-        ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), "11"),
+        ("llama-ring", lambda: t_llama.LlamaConfig(attention_impl="ring"), None),
+        ("t5-ring", lambda: t_t5.T5Config(attention_impl="ring"), None),
         ("t5-pipeline", lambda: t_t5.T5Config(pipeline_stages=2), "11"),
         ("t5-quant", lambda: _ported_quant("t5"), None),
         ("t5-remat-policy", lambda: _ported_remat(
             lambda: t_t5.T5Config(remat=True, remat_policy="dots")), None),
-        ("bart-ring", lambda: t_bart.BartConfig(attention_impl="ring"), "11"),
+        ("bart-ring", lambda: t_bart.BartConfig(attention_impl="ring"), None),
         ("bart-pipeline", lambda: t_bart.BartConfig(pipeline_stages=2), "11"),
         ("bart-quant", lambda: _ported_quant("bart"), None),
         ("bart-remat-policy", lambda: _ported_remat(
@@ -730,6 +731,13 @@ def _raise_sites():
                                                     requests=2), None),
         ("obs-lint", _obs_lint, "12"),
     ]
+
+
+def _ring_is_plain_without_a_mesh(t_attn, q):
+    """``impl='ring'`` with no ambient mesh is the plain attention."""
+    k = torch.arange(32.0).reshape(1, 1, 4, 8) / 32
+    torch.testing.assert_close(t_attn.dot_product_attention(q, k, k, impl="ring", causal=True),
+                               t_attn.dot_product_attention(q, k, k, impl="xla", causal=True))
 
 
 def _obs_lint():
@@ -996,7 +1004,9 @@ def test_unported_raises_name_their_roadmap_item(site):
     experts with the JAX ValueError; a ported config
     builds and its invalid form raises the JAX ``ValueError``; the packed
     LM rows equal the JAX ones; an int8 config builds its ``Int8Linear``s;
-    the decoders return the JAX package's ids; the int8 engine serves; the
+    the decoders return the JAX package's ids; ring attention builds in
+    every family and is the plain attention without a mesh (item 11, step
+    1); the int8 engine serves; the
     serving CLI serves with ``--replicas``, ``--placement``, ``--roles``,
     ``--arrival`` and ``--rate_limit``; a tensor-parallel engine's
     single-process refusals carry the JAX messages, and what is left of

@@ -65,7 +65,8 @@ def trainer_for(case: dict, mesh=None, model=None) -> Trainer:
     if model.state_dict().keys() != case["state"].keys():
         raise KeyError("the case's weights do not fit its model")
     model.load_state_dict(case["state"])
-    shape = {} if mesh is None else dict(zip(("dp", "fsdp", "tp"), mesh.mesh.shape))
+    shape = {} if mesh is None else {k: t_mesh.mesh_shape(mesh)[ax] for k, ax in (
+        ("dp", "data"), ("fsdp", "fsdp"), ("sp", "seq"), ("tp", "tensor"))}
     cfg = t_config.TrainConfig(**case["train"], **{k: int(v) for k, v in shape.items()})
     return Trainer(cfg, model, total_steps=case["steps"], mesh=mesh)
 
